@@ -1,0 +1,19 @@
+"""stract_tpu_torch — the search engine of stract_tpu on PyTorch and CUDA.
+
+A port of the JAX package `stract_tpu`, which stays beside it as the
+reference. The port imports torch and never jax; it reuses the JAX package's
+jax-free host modules (schema, tokenizer, snippets, signals, ranking
+pipeline, native C++ host join) and re-implements the modules that reach a
+device program. Layout mirrors stract_tpu/:
+
+  ops/scoring.py     stage A / stage B / pass-2 programs: plain PyTorch
+                     versions and the dispatch to the CUDA kernels
+  ops/kernels.py     nvcc build + ctypes binding of csrc/scoring.cu
+  index/             segment reader, DeviceSegment, InvertedIndex (serving)
+  ranking/, query/   slot planning, query parser and planner
+  searcher/, api/    local shard, coordinator, batcher, HTTP route
+  bench_corpus.py    synthetic corpus writer and query generator
+  main.py            `serve` role
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,100 @@
+"""Command line of the port.
+
+    python -m stract_tpu_torch.main serve --index DIR --port N --device cuda
+
+`serve` is the one-process deployment (index + searcher + coordinator + HTTP
+API in one process) restricted to the search route: POST /beta/api/search
+and GET /metrics. DIR is an index directory of either package
+(index_meta.json + segments/). --device cpu runs the plain PyTorch versions
+of the kernels; --device cuda needs a card and runs the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import threading
+
+from aiohttp import web
+
+
+def build_searcher(index_dir: str, device: str):
+    """The serving stack over one local shard → ApiSearcher."""
+    from .index.inverted import InvertedIndex
+    from .searcher.api import ApiSearcher
+    from .searcher.distributed import LocalShardedSearcher
+    from .searcher.local import LocalSearcher
+
+    index = InvertedIndex(index_dir, device=device)
+    for seg in index.segments:
+        index.device_segment_for(seg)  # upload before the first request
+    return ApiSearcher(LocalShardedSearcher([LocalSearcher(index)]))
+
+
+class ServerThread:
+    """The HTTP app on its own event loop in a background thread (tests and
+    chip_smoke.py drive the real route in process). stop() shuts the app
+    down and joins the thread."""
+
+    def __init__(self, app: web.Application, host: str = "127.0.0.1", port: int = 0):
+        self._app = app
+        self._loop = asyncio.new_event_loop()
+        self._ready = threading.Event()
+        self._runner = None
+        self.port = port
+        self._host = host
+        self._error = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        if not self._ready.wait(timeout=60) or self._error is not None:
+            raise RuntimeError(f"server did not start: {self._error}")
+
+    def _run(self):
+        asyncio.set_event_loop(self._loop)
+        try:
+            self._loop.run_until_complete(self._start())
+        except Exception as e:  # noqa: BLE001 — reported by __init__
+            self._error = e
+            self._ready.set()
+            return
+        self._ready.set()
+        self._loop.run_forever()
+        self._loop.run_until_complete(self._runner.cleanup())
+        self._loop.close()
+
+    async def _start(self):
+        self._runner = web.AppRunner(self._app)
+        await self._runner.setup()
+        site = web.TCPSite(self._runner, self._host, self.port)
+        await site.start()
+        self.port = site._server.sockets[0].getsockname()[1]
+
+    @property
+    def url(self) -> str:
+        return f"http://{self._host}:{self.port}"
+
+    def stop(self):
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            raise RuntimeError("server thread did not stop")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="stract_tpu_torch.main")
+    sub = ap.add_subparsers(dest="role", required=True)
+    sp = sub.add_parser("serve", help="index + coordinator + HTTP search API in one process")
+    sp.add_argument("--index", required=True, help="index directory")
+    sp.add_argument("--port", type=int, default=3000)
+    sp.add_argument("--host", default="0.0.0.0")
+    sp.add_argument("--device", default="cuda", help="cuda or cpu")
+    args = ap.parse_args(argv)
+
+    from .api.server import build_app
+
+    app = build_app(build_searcher(args.index, args.device))
+    web.run_app(app, host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

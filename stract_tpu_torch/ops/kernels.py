@@ -1,0 +1,228 @@
+"""Build and ctypes binding of the hand-written CUDA kernels (csrc/scoring.cu).
+
+The library is compiled with nvcc for sm_90a at first use into
+stract_tpu_torch/build/ (a plain C interface, so the build takes seconds) and
+loaded with ctypes. Nothing here runs at import time: the CPU tests import
+this module on machines without nvcc or a card.
+
+Each launch function takes tensors already on the card, allocated by its
+caller (ops/scoring.py), launches on PyTorch's current stream, raises on a
+non-zero CUDA status, and adds one to its entry in LAUNCHES.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "scoring.cu")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIBRARY = os.path.join(BUILD_DIR, "libstract_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+# limits of csrc/scoring.cu (MAX_SORT, MAX_SIG_K): the largest top-C, Kd or
+# page one block sorts in shared memory, and the most fused signal columns
+MAX_SORT = 4096
+MAX_SIG_K = 64
+
+# launches per kernel since the last reset_launches(): the proof that a run of
+# the main path went through the kernels
+LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0}
+
+_lock = threading.Lock()
+_count_lock = threading.Lock()  # the server launches from two worker threads
+_lib = None
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _counted(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels when the library is missing or older than its
+    source; → the library path. Raises with the compiler's output on failure."""
+    with _lock:
+        if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
+            return LIBRARY
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, SOURCE]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        if verbose:
+            print(res.stderr, flush=True)
+        os.replace(tmp, LIBRARY)
+        return LIBRARY
+
+
+class SegArgs(ctypes.Structure):
+    _fields_ = [("static_cols", ctypes.c_void_p), ("static_default", ctypes.c_void_p),
+                ("region_ids", ctypes.c_void_p), ("last_updated", ctypes.c_void_p),
+                ("db", ctypes.c_longlong), ("static_scale", ctypes.c_float),
+                ("num_docs", ctypes.c_int)]
+
+
+class QueryArgs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "starts", "lens", "group", "n_required", "idf", "w_bm25", "w_bm25f", "w_presence",
+        "static_coeffs", "region_lut", "coeff_region", "coeff_update", "current_ts",
+        "soft_bonus")] + [("B", ctypes.c_int), ("P", ctypes.c_int)]
+
+
+class AggArgs(ctypes.Structure):
+    _fields_ = [("bm25", ctypes.c_void_p), ("bm25f", ctypes.c_void_p), ("idf", ctypes.c_void_p),
+                ("cov", ctypes.c_void_p), ("static_of_sig", ctypes.c_void_p),
+                ("nsig", ctypes.c_int), ("bm25f_row", ctypes.c_int),
+                ("region_row", ctypes.c_int), ("update_row", ctypes.c_int)]
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = build()
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(path)
+            P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+            seg, qry, agg = ctypes.POINTER(SegArgs), ctypes.POINTER(QueryArgs), ctypes.POINTER(AggArgs)
+            lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, I, I, I, I, F,
+                                           P, P, P, P, P, P, P, P]
+            lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
+            lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
+            for fn in (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16):
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple | None = None) -> int | None:
+    """Device pointer of a kernel argument, after checking that it is a
+    contiguous CUDA tensor of the dtype (and shape) the kernel reads."""
+    if t is None:
+        return None
+    if not t.is_cuda or not t.is_contiguous() or t.dtype != dtype:
+        raise ValueError(f"kernel argument must be a contiguous CUDA {dtype} tensor, "
+                         f"got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"kernel argument has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return t.data_ptr()
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def seg_args(seg) -> SegArgs:
+    f32, db = torch.float32, seg.static_default.shape[0]
+    return SegArgs(_ptr(seg.static_cols, f32, (_NUM_STATIC, db)), _ptr(seg.static_default, f32),
+                   _ptr(seg.region_ids, torch.int32, (db,)), _ptr(seg.last_updated, f32, (db,)),
+                   db, float(seg.static_scale), int(seg.num_docs))
+
+
+_QUERY_SHAPES = {"starts": "BP", "lens": "BP", "group": "BP", "n_required": "B", "idf": "BP",
+                 "w_bm25": "BP", "w_bm25f": "BP", "w_presence": "BP", "static_coeffs": "BS",
+                 "region_lut": "BR", "coeff_region": "B", "coeff_update": "B",
+                 "current_ts": "B", "soft_bonus": "B"}
+_INT_QUERY_FIELDS = ("starts", "lens", "group", "n_required")
+_NUM_STATIC, _NUM_REGIONS = 11, 16
+
+
+def query_args(q) -> QueryArgs:
+    B, P = q.starts.shape
+    dims = {"B": B, "P": P, "S": _NUM_STATIC, "R": _NUM_REGIONS}
+    ptrs = [_ptr(getattr(q, name),
+                 torch.int32 if name in _INT_QUERY_FIELDS else torch.float32,
+                 tuple(dims[c] for c in _QUERY_SHAPES[name]))
+            for name, _ in QueryArgs._fields_[:14]]
+    return QueryArgs(*ptrs, B, P)
+
+
+def agg_args(a, static_of_sig: torch.Tensor, bm25f_row: int, region_row: int,
+             update_row: int) -> AggArgs:
+    f32 = torch.float32
+    B, nsig, P = a.agg_bm25.shape
+    return AggArgs(_ptr(a.agg_bm25, f32), _ptr(a.agg_bm25f, f32, (B, 1, P)),
+                   _ptr(a.agg_idf, f32, (B, nsig, P)), _ptr(a.agg_cov, f32, (B, nsig, P)),
+                   _ptr(static_of_sig, torch.int32, (nsig,)), nsig, bm25f_row, region_row,
+                   update_row)
+
+
+def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required: bool,
+            inv_fs: float, tkey, tsum, tmask, taux, skey, out_docs, out_scores) -> None:
+    if not 1 <= K <= MAX_SORT:
+        raise ValueError(f"stage A keeps 1..{MAX_SORT} candidates per query, not {K}")
+    lib = _load()
+    s, qa = seg_args(seg), query_args(q)
+    B = q.starts.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    rc = lib.stract_stage_a(
+        ctypes.byref(s), ctypes.byref(qa), _ptr(seg.postings, i32, (seg.postings.shape[0], 3)),
+        int(seg.postings.shape[0]), L, K, T, int(default_static), int(soft_required), inv_fs,
+        _ptr(tkey, i32, (B, T)), _ptr(tsum, f32, (B, T)), _ptr(tmask, torch.int64, (B, T)),
+        _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
+        _ptr(out_scores, f32, (B, K)), _stream())
+    _check(rc, "stract_stage_a")
+    _counted("stage_a")
+
+
+def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
+            k: int, ks: int, out_docs, out_scores, out_sq, out_scale) -> None:
+    if not 1 <= cand.shape[1] <= MAX_SORT or not 0 <= ks <= MAX_SIG_K:
+        raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and 0..{MAX_SIG_K} "
+                         f"signal columns, not {cand.shape[1]} and {ks}")
+    lib = _load()
+    s, qa = seg_args(seg), query_args(q)
+    (B, P), Kd = q.starts.shape, cand.shape[1]
+    i32, f32 = torch.int32, torch.float32
+    rc = lib.stract_stage_b(
+        ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), _ptr(factors, i32, (B, P, Kd)),
+        _ptr(cand, i32, (B, Kd)), Kd, int(default_static), inv_fs, k, ks,
+        _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)),
+        _ptr(out_sq, torch.int16, (B, aggs.nsig, ks)), _ptr(out_scale, f32, (B, aggs.nsig)),
+        _stream())
+    _check(rc, "stract_stage_b")
+    _counted("stage_b")
+
+
+def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_scale) -> None:
+    if not 1 <= cand.shape[1] <= MAX_SORT:
+        raise ValueError(f"pass 2 takes 1..{MAX_SORT} candidates per query, not {cand.shape[1]}")
+    lib = _load()
+    s, qa = seg_args(seg), query_args(q)
+    (B, P), K = q.starts.shape, cand.shape[1]
+    rc = lib.stract_signals_q16(
+        ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs),
+        _ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)), K, inv_fs,
+        _ptr(out_q, torch.int16, (B, aggs.nsig, K)), _ptr(out_scale, torch.float32, (B, aggs.nsig)),
+        _stream())
+    _check(rc, "stract_signals_q16")
+    _counted("signals_q16")

@@ -1,0 +1,546 @@
+"""Query-time scoring on torch tensors — the port of stract_tpu/ops/scoring.py.
+
+Three device programs carry a search (the JAX package's jitted XLA programs;
+it has no Pallas kernel):
+
+  stage A  score_candidates_batch      candidate scan over P slices of L
+                                       posting rows, join by doc, top-C
+  stage B  score_driver_batch[_with_signals]
+                                       exact verify over host-joined factor
+                                       columns, top-k, fused q16 signals
+  pass 2   compute_signals_from_factors_batch_q16
+                                       signal rows of the final page
+
+Each has a plain PyTorch version here (`*_plain`), written after the JAX
+program, and a hand-written CUDA kernel (csrc/scoring.cu, ops/kernels.py).
+The public functions pick by where the segment's tensors live: CPU tensors
+take the plain version, CUDA tensors launch the kernel (or raise). There is
+no fallback from one to the other.
+
+Layouts and constants are the JAX package's, so results compare like with
+like: the [Ptot, 3] posting rows (doc | q16 f1 << 16 | q16 f2 | aux word),
+the 6-bit group encoding, the 46-row signal matrix.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stract_tpu.ranking import bm25_math as BM
+from stract_tpu.ranking import signals as S
+
+from . import kernels
+
+# default sizes, read from the same variables as the JAX package so both
+# packages run at one shape (the tests shrink L and K)
+DEFAULT_P = int(os.environ.get("STRACT_TPU_P", 64))
+DEFAULT_L = int(os.environ.get("STRACT_TPU_L", 1024))
+DEFAULT_K = int(os.environ.get("STRACT_TPU_K", 1024))
+
+NUM_REGIONS = 16
+
+# Term-group encoding in QuerySlots.group (6 bits, packed into the join key):
+#   0..MAX_GROUPS-1  required group (MUST)
+#   OPTIONAL_GROUP   scoring-only slot (SHOULD)
+#   EXCLUDED_GROUP   exclusion (MUST_NOT)
+MAX_GROUPS = 32
+OPTIONAL_GROUP = 62
+EXCLUDED_GROUP = 63
+GROUP_BITS = 6
+# key = doc << 6 | group → doc ids stay below 2^25 per segment
+MAX_SEGMENT_DOCS = (1 << 25) - 2
+
+# tf factors live in [0, K1+1), quantised to 16 bits
+FACTOR_SCALE = 65535.0 / (BM.K1 + 1.0)
+# the f32 multiplier every decode uses (the JAX package's weak-typed constant)
+INV_FACTOR_SCALE = float(np.float32(1.0 / FACTOR_SCALE))
+
+# aux word: q16 static score | 4-bit region | 12-bit days since DAYS_EPOCH
+DAYS_EPOCH = 1577836800.0  # 2020-01-01
+AUX_REGION_SHIFT = 12
+AUX_DAYS_MASK = (1 << 12) - 1
+
+# static column stack (order is a contract with index/device.py)
+STATIC_COLUMNS = [
+    "host_centrality",
+    "host_centrality_rank",
+    "page_centrality",
+    "page_centrality_rank",
+    "is_homepage",
+    "fetch_time_ms",
+    "tracker_score",
+    "num_path_and_query_digits",
+    "num_path_and_query_slashes",
+    "link_density",
+    "likely_has_ads",
+]
+NUM_STATIC = len(STATIC_COLUMNS)
+STATIC_SIGNAL_IDS = [
+    S.HOST_CENTRALITY.id, S.HOST_CENTRALITY_RANK.id, S.PAGE_CENTRALITY.id,
+    S.PAGE_CENTRALITY_RANK.id, S.IS_HOMEPAGE.id, S.FETCH_TIME_MS.id,
+    S.TRACKER_SCORE.id, S.URL_DIGITS.id, S.URL_SLASHES.id, S.LINK_DENSITY.id,
+    S.HAS_ADS.id,
+]
+DEFAULT_STATIC_COEFFS = np.array(
+    [S.signal(sid).default_coefficient for sid in STATIC_SIGNAL_IDS], dtype=np.float32
+)
+# one-hot placing static column rows into the signal matrix
+_STATIC_SELECT = np.zeros((S.NUM_SIGNALS, NUM_STATIC), dtype=np.float32)
+for _row, _sid in enumerate(STATIC_SIGNAL_IDS):
+    _STATIC_SELECT[_sid, _row] = 1.0
+# the same placement as a row map for the kernels: signal row → column or -1
+_STATIC_OF_SIG = np.full(S.NUM_SIGNALS, -1, dtype=np.int32)
+_STATIC_OF_SIG[STATIC_SIGNAL_IDS] = np.arange(NUM_STATIC, dtype=np.int32)
+
+# Soft-required candidate ranking: each required group present adds the
+# query's soft_bonus (>= this), so full boolean matches fill the top-C first.
+SOFT_REQUIRED_BONUS = 16384.0
+
+
+class SegmentArrays(NamedTuple):
+    """A segment's query-time tensors (index/device.py uploads them once).
+
+    postings rows: [:, 0] doc id, [:, 1] q16(bm25 f) << 16 | q16(bm25f f),
+    [:, 2] q16(default static) << 16 | region << 12 | days12. static_scale
+    and num_docs are 0-dim CPU tensors: they are launch arguments, and reading
+    them must not wait for the card."""
+
+    postings: torch.Tensor        # i32[Ptot, 3]
+    static_cols: torch.Tensor     # f32[NUM_STATIC, DB]
+    static_default: torch.Tensor  # f32[DB]
+    static_scale: torch.Tensor    # f32 scalar (CPU)
+    region_ids: torch.Tensor      # i32[DB]
+    last_updated: torch.Tensor    # f32[DB] unix seconds
+    num_docs: torch.Tensor        # i32 scalar (CPU)
+
+
+class QuerySlots(NamedTuple):
+    """Per-query slot arrays, P entries (ranking/computer.py builds them as
+    numpy; the functions below move them next to the segment). Batched forms
+    carry a leading [B] dimension on every field."""
+
+    starts: torch.Tensor         # i32[P]
+    lens: torch.Tensor           # i32[P]
+    group: torch.Tensor          # i32[P]
+    n_required: torch.Tensor     # i32 scalar
+    idf: torch.Tensor            # f32[P]
+    w_bm25: torch.Tensor         # f32[P]
+    w_bm25f: torch.Tensor        # f32[P]
+    w_presence: torch.Tensor     # f32[P]
+    static_coeffs: torch.Tensor  # f32[NUM_STATIC]
+    region_lut: torch.Tensor     # f32[NUM_REGIONS]
+    coeff_region: torch.Tensor   # f32 scalar
+    coeff_update: torch.Tensor   # f32 scalar
+    current_ts: torch.Tensor     # f32 scalar
+    soft_bonus: torch.Tensor     # f32 scalar
+
+
+class QueryAggregates(NamedTuple):
+    """Pass-2 aggregation matrices ([46, P] each, agg_bm25f [1, P])."""
+
+    agg_bm25: torch.Tensor
+    agg_bm25f: torch.Tensor
+    agg_idf: torch.Tensor
+    agg_cov: torch.Tensor
+
+
+_INT_FIELDS = {"postings", "region_ids", "num_docs", "starts", "lens", "group", "n_required"}
+_CPU_FIELDS = {"static_scale", "num_docs"}
+
+
+def to_tensors(tup, device):
+    """A SegmentArrays / QuerySlots / QueryAggregates of numpy arrays (or
+    tensors) → the same tuple of contiguous tensors on `device` (i32 for the
+    integer fields, f32 for the rest). Segment scalars stay on the CPU."""
+    out = []
+    for name, x in zip(tup._fields, tup):
+        dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+        dev = "cpu" if (name in _CPU_FIELDS and isinstance(tup, SegmentArrays)) else device
+        if isinstance(x, torch.Tensor):
+            t = x.to(device=dev, dtype=dtype)
+        else:
+            t = torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        out.append(t.contiguous())
+    return type(tup)(*out)
+
+
+def stack(tuples: list):
+    """Stack per-query tuples into one batched tuple (numpy, on the host)."""
+    first = tuples[0]
+    return type(first)(*[np.stack([np.asarray(x) for x in xs]) for xs in zip(*tuples)])
+
+
+def _batched(x, cls):
+    """Coerce a QuerySlots / QueryAggregates of any origin (the JAX package's
+    tuples included) to this module's class, field by field."""
+    return x if isinstance(x, cls) else cls(*x)
+
+
+# ---- shared plain helpers ---------------------------------------------------------
+def _decode_rows(rows):
+    """Posting rows → (docs, packed q16 factors, aux). Width 3 is the native
+    q16 layout; width 2 is the q8 layout (index/device.py quantize_rows_q8),
+    widened q8*257."""
+    if rows.shape[-1] == 3:
+        return rows[..., 0], rows[..., 1], rows[..., 2]
+    w0, w1 = rows[..., 0], rows[..., 1]
+    docs = (w0 >> 7) & 0x1FFFFFF
+    f1 = ((w1 >> 24) & 0xFF) * 257
+    f2 = ((w1 >> 16) & 0xFF) * 257
+    s16 = ((w1 >> 8) & 0xFF) * 257
+    days = (w1 & 0xFF) * 16
+    factors = (f1 << 16) | f2  # wraps negative for f1q16 >= 32768, by design
+    aux = (s16 << 16) | (((w0 >> 3) & 0xF) << AUX_REGION_SHIFT) | days
+    return docs, factors, aux
+
+
+def _unpack_factors(factors):
+    # >> is arithmetic on i32: the mask undoes the sign extension of the high half
+    f1 = ((factors >> 16) & 0xFFFF).to(torch.float32) * INV_FACTOR_SCALE
+    f2 = (factors & 0xFFFF).to(torch.float32) * INV_FACTOR_SCALE
+    return f1, f2
+
+
+def update_score(ts, now):
+    """bm25_math.score_update_timestamp in f32 (floor division as jnp's)."""
+    hours = torch.div(torch.clamp(now - ts, min=1.0), 3600.0, rounding_mode="floor")
+    fresh = BM.UPDATE_HALF_LIFE_HOURS / (hours + BM.UPDATE_HALF_LIFE_HOURS)
+    valid = (ts < now) & (ts > 0) & (hours < BM.UPDATE_CACHE_HOURS)
+    return torch.where(valid, fresh, torch.zeros_like(fresh))
+
+
+def _query_static(seg, q, docs, default_static: bool):
+    """Column-signal score for doc ids [B, N]."""
+    if default_static:
+        score = seg.static_default[docs]
+    else:
+        cols = seg.static_cols[:, docs]  # [NUM_STATIC, B, N]
+        score = torch.einsum("bs,sbn->bn", q.static_coeffs, cols)
+    region = torch.clamp(seg.region_ids[docs], 0, NUM_REGIONS - 1).long()
+    score = score + q.coeff_region[:, None] * torch.gather(q.region_lut, 1, region)
+    upd = update_score(seg.last_updated[docs], q.current_ts[:, None])
+    return score + q.coeff_update[:, None] * upd
+
+
+def _aux_static_score(q, aux, static_scale: float):
+    """The same score carried per posting in the aux word (no gathers)."""
+    static = ((aux >> 16) & 0xFFFF).to(torch.float32) * static_scale
+    region = ((aux >> AUX_REGION_SHIFT) & 0xF).long()
+    region_score = torch.gather(q.region_lut, 1, region)
+    days = (aux & AUX_DAYS_MASK).to(torch.float32)
+    ts = days * 86400.0 + DAYS_EPOCH
+    upd = update_score(torch.where(days > 0, ts, torch.zeros_like(ts)), q.current_ts[:, None])
+    return static + q.coeff_region[:, None] * region_score + q.coeff_update[:, None] * upd
+
+
+def _segment_sum_at_ends(values, is_end):
+    """Per-row sums of runs ending at is_end (any sign): previous run end by a
+    cummax over positions."""
+    csum = torch.cumsum(values, dim=-1)
+    n = values.shape[-1]
+    idx = torch.arange(n, device=values.device).expand_as(values)
+    end_pos = torch.where(is_end, idx, torch.full_like(idx, -1))
+    shifted = torch.cat([torch.full_like(end_pos[:, :1], -1), end_pos[:, :-1]], dim=1)
+    prev_pos = torch.cummax(shifted, dim=-1).values
+    prev = torch.gather(csum, 1, prev_pos.clamp(min=0))
+    return csum - torch.where(prev_pos >= 0, prev, torch.zeros_like(prev))
+
+
+def _segment_sum_at_ends_nonneg(values, is_end):
+    """Non-negative values: the previous run-end cumsum is a cummax."""
+    csum = torch.cumsum(values, dim=-1)
+    end_csum = torch.where(is_end, csum, torch.zeros_like(csum))
+    shifted = torch.cat([torch.zeros_like(end_csum[:, :1]), end_csum[:, :-1]], dim=1)
+    return csum - torch.cummax(shifted, dim=-1).values
+
+
+# ---- stage A ------------------------------------------------------------------
+def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: int,
+                                 default_static: bool, soft_required: bool):
+    """Plain version of stage A (stract_tpu score_candidates_batch +
+    _join_topk): fetch, contribution, sort by key = doc << 6 | group, run-end
+    segment sums, boolean semantics, static score, top-K."""
+    B, P = qs.starts.shape
+    nd = int(seg.num_docs)
+    n_rows = seg.postings.shape[0]
+    dev = seg.postings.device
+    starts = torch.clamp(qs.starts.long(), 0, n_rows - L)
+    offs = torch.arange(L, device=dev)
+    rows = seg.postings[starts[..., None] + offs]  # [B, P, L, W]
+    valid = offs < torch.clamp(qs.lens, max=L)[..., None]
+    r_docs, r_factors, r_aux = _decode_rows(rows)
+    docs = torch.where(valid, r_docs, torch.full_like(r_docs, nd))
+    factors = torch.where(valid, r_factors, torch.zeros_like(r_factors))
+    aux = torch.where(valid, r_aux, torch.zeros_like(r_aux))
+    f1, f2 = _unpack_factors(factors)
+    # presence must be != 0: packed (q1 << 16) | q2 is negative once q1 >= 32768
+    contrib = (qs.w_bm25[..., None] * f1 + qs.w_bm25f[..., None] * f2
+               + qs.w_presence[..., None] * (factors != 0).to(torch.float32))
+    keys = (docs << GROUP_BITS) | qs.group[..., None]
+
+    key = keys.reshape(B, -1)
+    skey, perm = torch.sort(key, dim=-1, stable=True)
+    scontrib = torch.gather(contrib.reshape(B, -1), 1, perm)
+    sdocs = skey >> GROUP_BITS
+    sgroups = skey & ((1 << GROUP_BITS) - 1)
+    last = torch.ones_like(sdocs[:, :1], dtype=torch.bool)
+    doc_end = torch.cat([sdocs[:, 1:] != sdocs[:, :-1], last], dim=1)
+    pair_end = torch.cat([skey[:, 1:] != skey[:, :-1], last], dim=1)
+    segsum = _segment_sum_at_ends_nonneg if default_static else _segment_sum_at_ends
+    text_total = segsum(scontrib, doc_end)
+    pe = pair_end.to(torch.float32)
+    req_present = segsum(pe * (sgroups < MAX_GROUPS).to(torch.float32), doc_end)
+    excl_present = segsum(pe * (sgroups == EXCLUDED_GROUP).to(torch.float32), doc_end)
+    if default_static:
+        saux = torch.gather(aux.reshape(B, -1), 1, perm)
+        static = _aux_static_score(qs, saux, float(seg.static_scale))
+    else:
+        static = _query_static(seg, qs, sdocs, False)
+    total = text_total + static
+    ok = doc_end & (sdocs < nd) & (excl_present < 0.5)
+    if soft_required:
+        total = total + qs.soft_bonus[:, None] * req_present
+    else:
+        ok = ok & (req_present >= qs.n_required[:, None].to(torch.float32))
+    total = torch.where(ok, total, torch.full_like(total, float("-inf")))
+    top_scores, top_idx = torch.topk(total, K, dim=-1)
+    top_docs = torch.where(torch.isneginf(top_scores), torch.full_like(top_idx, nd),
+                           torch.gather(sdocs, 1, top_idx).long())
+    return top_docs.to(torch.int32), top_scores
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = DEFAULT_K,
+                           default_static: bool = True, soft_required: bool = False):
+    """Stage A over a query batch → (docs i32[B, K], scores f32[B, K]),
+    score-descending; pads are doc = num_docs, score = -inf."""
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    if not seg.postings.is_cuda:
+        return score_candidates_batch_plain(seg, qs, L, K, default_static, soft_required)
+    if seg.postings.shape[1] != 3:
+        raise ValueError("the stage-A kernel reads q16 [Ptot, 3] rows")
+    B, P = qs.starts.shape
+    T = max(_next_pow2(2 * P * L), _next_pow2(K))
+    tkey = torch.empty((B, T), dtype=torch.int32, device=dev)
+    tsum = torch.empty((B, T), dtype=torch.float32, device=dev)
+    tmask = torch.empty((B, T), dtype=torch.int64, device=dev)
+    taux = torch.empty((B, T), dtype=torch.int32, device=dev)
+    skey = torch.empty((B, T), dtype=torch.int32, device=dev)
+    docs = torch.empty((B, K), dtype=torch.int32, device=dev)
+    scores = torch.empty((B, K), dtype=torch.float32, device=dev)
+    kernels.stage_a(seg, qs, L, K, T, default_static, soft_required, INV_FACTOR_SCALE,
+                    tkey, tsum, tmask, taux, skey, docs, scores)
+    return docs, scores
+
+
+def score_candidates(seg: SegmentArrays, q, L: int = DEFAULT_L, K: int = DEFAULT_K,
+                     default_static: bool = True, soft_required: bool = False):
+    """Single-query stage A: the batch path with B = 1 → (docs[K], scores[K])."""
+    docs, scores = score_candidates_batch(seg, stack([q]), L, K, default_static, soft_required)
+    return docs[0], scores[0]
+
+
+# ---- stage B and pass 2 ---------------------------------------------------------
+def _score_driver_core_plain(seg, qs, factors, driver_docs, default_static: bool,
+                             out_k: int | None):
+    """Plain stage B (stract_tpu _score_driver_core, batched) → (docs, scores,
+    top_idx) over factors i32[B, P, Kd] and driver_docs i32[B, Kd]."""
+    nd = int(seg.num_docs)
+    f1, f2 = _unpack_factors(factors)
+    present = factors != 0
+    contrib = (qs.w_bm25[..., None] * f1 + qs.w_bm25f[..., None] * f2
+               + qs.w_presence[..., None] * present.to(torch.float32))
+    text = contrib.sum(dim=1)
+    grp = qs.group.long()
+    req = (grp < MAX_GROUPS).to(torch.float32)
+    onehot = torch.nn.functional.one_hot(grp.clamp(0, MAX_GROUPS - 1), MAX_GROUPS)
+    onehot = onehot.to(torch.float32) * req[..., None]  # [B, P, G]
+    grp_present = torch.einsum("bpg,bpk->bgk", onehot, present.to(torch.float32)) > 0
+    req_count = grp_present.sum(dim=1)
+    excl = ((grp == EXCLUDED_GROUP)[..., None] & present).any(dim=1)
+    docs_l = driver_docs.long()
+    total = text + _query_static(seg, qs, docs_l.clamp(max=seg.static_default.shape[0] - 1),
+                                 default_static)
+    valid = (docs_l < nd) & (req_count >= qs.n_required[:, None]) & ~excl
+    total = torch.where(valid, total, torch.full_like(total, float("-inf")))
+    Kd = driver_docs.shape[1]
+    k = min(out_k or Kd, Kd)
+    top_scores, top_idx = torch.topk(total, k, dim=-1)
+    top_docs = torch.where(torch.isneginf(top_scores), torch.full_like(top_idx, nd),
+                           torch.gather(docs_l, 1, top_idx))
+    return top_docs.to(torch.int32), top_scores, top_idx
+
+
+def _signals_tail_plain(seg, qs, aggs, factors, cand):
+    """Plain signal matrix f32[B, NUM_SIGNALS, K] for candidate columns."""
+    nd = int(seg.num_docs)
+    f1, f2 = _unpack_factors(factors)
+    present = (factors != 0).to(torch.float32)
+    idf = qs.idf[..., None]
+    B, _, K = factors.shape
+    sig = torch.zeros((B, S.NUM_SIGNALS, K), dtype=torch.float32, device=factors.device)
+    sig = sig + torch.bmm(aggs.agg_bm25, idf * f1)
+    sig[:, S.BM25_F.id] += torch.bmm(aggs.agg_bm25f, idf * f2)[:, 0]
+    sig = sig + torch.bmm(aggs.agg_idf, idf * present)
+    sig = sig + torch.bmm(aggs.agg_cov, present)
+    c = cand.long()
+    cols = seg.static_cols[:, c]  # [NUM_STATIC, B, K]
+    select = torch.as_tensor(_STATIC_SELECT, device=factors.device)
+    sig = sig + torch.einsum("sr,rbk->bsk", select, cols)
+    region = torch.clamp(seg.region_ids[c], 0, NUM_REGIONS - 1).long()
+    sig[:, S.REGION.id] = torch.gather(qs.region_lut, 1, region)
+    sig[:, S.UPDATE_TIMESTAMP.id] = update_score(seg.last_updated[c], qs.current_ts[:, None])
+    return torch.where((c < nd)[:, None, :], sig, torch.zeros_like(sig))
+
+
+def quantize_signals(sig):
+    """int16 with a per-(query, signal) scale absmax/32767, half to even."""
+    absmax = sig.abs().amax(dim=-1)
+    scale = torch.clamp(absmax, min=1e-30) * float(np.float32(1.0 / 32767.0))
+    return torch.round(sig / scale[..., None]).to(torch.int16), scale
+
+
+def score_driver_batch_plain(seg, qs, factors, driver_docs, default_static: bool,
+                             out_k: int | None, aggs=None, sig_k: int = 0):
+    """Plain stage B: (docs, scores), or with sig_k > 0 (the fused form)
+    (docs, scores, sq i16[B, 46, k'], scale f32[B, 46]) for the top
+    k' = min(sig_k, k) columns."""
+    docs, scores, idx = _score_driver_core_plain(seg, qs, factors, driver_docs,
+                                                 default_static, out_k)
+    if not sig_k:
+        return docs, scores
+    k = min(sig_k, docs.shape[1])
+    B, P, _ = factors.shape
+    fac_top = torch.gather(factors, 2, idx[:, None, :k].expand(B, P, k))
+    sq, scale = quantize_signals(_signals_tail_plain(seg, qs, aggs, fac_top, docs[:, :k]))
+    return docs, scores, sq, scale
+
+
+def _static_of_sig(device) -> torch.Tensor:
+    return torch.as_tensor(_STATIC_OF_SIG, device=device)
+
+
+def _agg_args(aggs, device):
+    return kernels.agg_args(aggs, _static_of_sig(device), S.BM25_F.id, S.REGION.id,
+                            S.UPDATE_TIMESTAMP.id)
+
+
+def _stage_b(seg, qs, factors, driver_docs, aggs, default_static, out_k, sig_k):
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    factors = torch.as_tensor(factors, dtype=torch.int32).to(dev).contiguous()
+    driver_docs = torch.as_tensor(driver_docs, dtype=torch.int32).to(dev).contiguous()
+    if aggs is not None:
+        aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
+    if not seg.postings.is_cuda:
+        return score_driver_batch_plain(seg, qs, factors, driver_docs, default_static,
+                                        out_k, aggs, sig_k)
+    B, Kd = driver_docs.shape
+    k = min(out_k or Kd, Kd)
+    ks = min(sig_k, k)
+    docs = torch.empty((B, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if ks:
+        sq = torch.empty((B, S.NUM_SIGNALS, ks), dtype=torch.int16, device=dev)
+        scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
+        a = _agg_args(aggs, dev)
+    else:
+        sq = scale = None
+        # unfused: the kernel reads no aggregation rows
+        a = kernels.AggArgs(None, None, None, None, None, S.NUM_SIGNALS, S.BM25_F.id,
+                            S.REGION.id, S.UPDATE_TIMESTAMP.id)
+    kernels.stage_b(seg, qs, a, factors, driver_docs, default_static, INV_FACTOR_SCALE,
+                    k, ks, docs, scores, sq, scale)
+    return (docs, scores, sq, scale) if ks else (docs, scores)
+
+
+def score_driver_batch(seg: SegmentArrays, qs, factors, driver_docs,
+                       default_static: bool = True, out_k: int | None = None):
+    """Stage B (exact verify) → (docs i32[B, k], scores f32[B, k]),
+    k = min(out_k, Kd), score-descending; pads doc = num_docs, -inf."""
+    return _stage_b(seg, qs, factors, driver_docs, None, default_static, out_k, 0)
+
+
+def score_driver_batch_with_signals(seg: SegmentArrays, qs, factors, driver_docs, aggs,
+                                    default_static: bool = True, out_k: int | None = None,
+                                    sig_k: int = 64):
+    """Fused stage B: verify plus the q16 signal matrix of each query's top
+    sig_k docs → (docs, scores, sq i16[B, 46, k'], scale f32[B, 46])."""
+    return _stage_b(seg, qs, factors, driver_docs, aggs, default_static, out_k, sig_k)
+
+
+def score_driver(seg, q, factors, driver_docs, default_static: bool = True,
+                 out_k: int | None = None):
+    docs, scores = score_driver_batch(seg, stack([q]), np.asarray(factors)[None],
+                                      np.asarray(driver_docs)[None], default_static, out_k)
+    return docs[0], scores[0]
+
+
+def score_driver_with_signals(seg, q, factors, driver_docs, aggs, default_static: bool = True,
+                              out_k: int | None = None, sig_k: int = 64):
+    docs, scores, sq, scale = score_driver_batch_with_signals(
+        seg, stack([q]), np.asarray(factors)[None], np.asarray(driver_docs)[None],
+        stack([aggs]), default_static, out_k, sig_k)
+    return docs[0], scores[0], sq[0], scale[0]
+
+
+def compute_signals_from_factors_batch_q16_plain(seg, qs, aggs, factors, cands):
+    return quantize_signals(_signals_tail_plain(seg, qs, aggs, factors, cands))
+
+
+def compute_signals_from_factors_batch_q16(seg: SegmentArrays, qs, aggs, factors, cands):
+    """Pass 2 on host-joined factors i32[B, P, K] → (q i16[B, 46, K],
+    scale f32[B, 46])."""
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
+    factors = torch.as_tensor(factors, dtype=torch.int32).to(dev).contiguous()
+    cands = torch.as_tensor(cands, dtype=torch.int32).to(dev).contiguous()
+    if not seg.postings.is_cuda:
+        return compute_signals_from_factors_batch_q16_plain(seg, qs, aggs, factors, cands)
+    B, K = cands.shape
+    sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
+    scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
+    kernels.signals_q16(seg, qs, _agg_args(aggs, dev), factors, cands, INV_FACTOR_SCALE,
+                        sq, scale)
+    return sq, scale
+
+
+def compute_signals_from_factors(seg, q, aggs, factors, cand) -> np.ndarray:
+    """Single-query pass 2 through the q16 batch path (B = 1), dequantised:
+    f32[NUM_SIGNALS, K], within one q16 step of the unquantised matrix."""
+    sq, scale = compute_signals_from_factors_batch_q16(
+        seg, stack([q]), stack([aggs]), np.asarray(factors)[None], np.asarray(cand)[None])
+    return dequantize_signals(sq, scale)[0]
+
+
+# ---- host side ------------------------------------------------------------------
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def dequantize_signals(q, scale) -> np.ndarray:
+    """f32[..., NSIG, K] from the q16 rows and their scales."""
+    return _np(q).astype(np.float32) * _np(scale).astype(np.float32)[..., None]
+
+
+def unpack_stageb(result, K: int, nsig: int | None = None, sig_k: int | None = None):
+    """Stage-B result on the host: (docs i32[..., K], scores f32[..., K]
+    [, sig f32[..., nsig, sig_k] dequantised])."""
+    docs = _np(result[0])[..., :K]
+    scores = _np(result[1])[..., :K]
+    if nsig is None:
+        return docs, scores
+    sig = dequantize_signals(result[2], result[3])[..., :nsig, :sig_k]
+    return docs, scores, sig

@@ -1,0 +1,166 @@
+"""ApiSearcher — the coordinator's search flow (the port of
+stract_tpu/searcher/api.py: bangs, batched shard fan-out, cross-shard merge,
+recall stage, page signals, retrieve + snippets, precision stage). The ranking
+pipeline is the JAX package's host code, imported as is; without models its
+stages are the linear rescoring and the slop signals."""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from stract_tpu.bangs import Bangs
+from stract_tpu.ranking import signals as S
+from stract_tpu.ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS, RankingPipeline
+from stract_tpu.ranking.pipeline.block import merge_blocks
+
+from ..query.query import Query
+from .local import block_to_candidates
+from .query import SearchQuery
+
+MAX_PRECISION_PAGE = 2  # precision rerank only for the first pages
+# deep-paging cutoff: approximate offsets, no recall/precision ranking
+MAX_APPROX_CANDIDATES = 4096
+
+
+@dataclass
+class WebsitesResult:
+    webpages: list
+    num_hits: dict
+    search_duration_ms: float = 0.0
+    has_more_results: bool = False
+
+    def to_json(self):
+        return {
+            "type": "websites",
+            "webpages": self.webpages,
+            "numHits": self.num_hits,
+            "searchDurationMs": self.search_duration_ms,
+            "hasMoreResults": self.has_more_results,
+        }
+
+
+@dataclass
+class BangResult:
+    redirect_to: str
+
+    def to_json(self):
+        return {"type": "bang", "redirectTo": self.redirect_to}
+
+
+class ApiSearcher:
+    def __init__(self, distributed_searcher, pipeline: RankingPipeline | None = None,
+                 bangs: Bangs | None = None):
+        self.searcher = distributed_searcher
+        self.pipeline = pipeline or RankingPipeline()
+        self.bangs = bangs or Bangs.builtin()
+
+    def search(self, sq: SearchQuery):
+        return self.search_many([sq])[0]
+
+    def search_many(self, sqs: list) -> list:
+        return self.search_phase2(self.search_phase1(sqs))
+
+    def search_phase1(self, sqs: list):
+        """Parse, bang short-circuit, batched shard fan-out (device work)."""
+        t0 = time.perf_counter()
+        results: list = [None] * len(sqs)
+        live: list = []
+        parsed: list = []
+        for i, sq in enumerate(sqs):
+            q = Query.parse(sq.query, coefficients=sq.signal_coefficients,
+                            selected_region=sq.selected_region)
+            hit = self.bangs.get(q) if q.bangs else None
+            if hit is not None:
+                results[i] = BangResult(hit.redirect_to)
+            elif sq.offset() + sq.num_results > NUM_PIPELINE_RANKING_RESULTS:
+                results[i] = self.search_websites_approx_offsets(sq)
+            else:
+                live.append(i)
+                parsed.append(q)
+        shard_res = self.searcher.search_blocks_many([sqs[i] for i in live]) if live else []
+        return sqs, results, live, parsed, shard_res, t0
+
+    def search_phase2(self, state) -> list:
+        """Host tail: merge → recall → page cut → one batched page-signal
+        materialisation → retrieve/snippets → precision."""
+        sqs, results, live, parsed, shard_res, t0 = state
+        merged_items = []
+        for j, i in enumerate(live):
+            block, count = shard_res[j]
+            merged = merge_blocks([block], NUM_PIPELINE_RANKING_RESULTS)
+            merged_items.append((i, parsed[j].context(), merged, count))
+
+        if self.pipeline.recall.has_scorers:
+            self._ensure_blocks([(sqs[i], merged) for i, _, merged, _ in merged_items])
+        ranked = self.pipeline.rank_recall_many_blocks(
+            [(ctx, merged) for _, ctx, merged, _ in merged_items])
+
+        staged = []
+        for (i, ctx, _, count), block in zip(merged_items, ranked):
+            offset = sqs[i].offset()
+            page_block = block.take(slice(offset, offset + sqs[i].num_results))
+            has_more = len(block) > offset + sqs[i].num_results
+            staged.append((i, ctx, page_block, count, has_more))
+
+        self._ensure_blocks([(sqs[i], pb) for i, _, pb, _, _ in staged])
+        for _, _, pb, _, _ in staged:
+            pb.fill_slop_signals()  # pass 2 does not compute the slop signals
+        staged = [(i, ctx, block_to_candidates(pb), count, has_more)
+                  for i, ctx, pb, count, has_more in staged]
+        for i, _, page, _, _ in staged:
+            self.searcher.retrieve(sqs[i], [c for c in page if c.retrieved is None])
+
+        prec_items = [(ctx, page) for i, ctx, page, _, _ in staged
+                      if sqs[i].page < MAX_PRECISION_PAGE]
+        prec_pages = iter(self.pipeline.rank_precision_many(prec_items))
+        for i, ctx, page, count, has_more in staged:
+            if sqs[i].page < MAX_PRECISION_PAGE:
+                page = next(prec_pages)
+            res = self._serialize_page(sqs[i], page, count, has_more)
+            res.search_duration_ms = (time.perf_counter() - t0) * 1000
+            results[i] = res
+        return results
+
+    def _ensure_blocks(self, items: list) -> None:
+        self.searcher.ensure_blocks_many(items)
+
+    def search_websites_approx_offsets(self, sq: SearchQuery) -> WebsitesResult:
+        """Deep paging: per-shard offset skip, dedup merge, take num_results,
+        retrieve; no recall or precision stages."""
+        offset = min(sq.offset(), MAX_APPROX_CANDIDATES)
+        mc = min(offset + sq.num_results + 1, MAX_APPROX_CANDIDATES)
+        block, count = self.searcher.search_blocks_many([sq], max_candidates=mc)[0]
+        parts, has_more = [], False
+        for sid in np.unique(block.shard):
+            rows = np.nonzero(block.shard == sid)[0]
+            parts.append(rows[offset : offset + sq.num_results + 1])
+            has_more = has_more or len(rows) > offset + sq.num_results
+        cut = block.take(np.concatenate(parts)) if parts else block
+        page_block = merge_blocks([cut], sq.num_results).take(slice(0, sq.num_results))
+        self._ensure_blocks([(sq, page_block)])
+        page_block.fill_slop_signals()
+        page = block_to_candidates(page_block)
+        self.searcher.retrieve(sq, [c for c in page if c.retrieved is None])
+        return self._serialize_page(sq, page, count, has_more)
+
+    def _serialize_page(self, sq: SearchQuery, page, count, has_more) -> WebsitesResult:
+        from stract_tpu.prettifier import rich_snippet
+
+        webpages = []
+        for c in page:
+            w = dict(c.retrieved or {})
+            rich = rich_snippet(w)
+            if rich is not None:
+                w["richSnippet"] = rich
+            w.pop("stored", None)
+            w["score"] = c.score
+            if sq.return_ranking_signals:
+                w["rankingSignals"] = {
+                    s.name: float(c.signals[s.id]) for s in S.SIGNALS if c.signals[s.id] != 0
+                }
+            webpages.append(w)
+        return WebsitesResult(webpages=webpages, num_hits=count.to_json(),
+                              has_more_results=has_more)
