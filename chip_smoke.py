@@ -8,10 +8,21 @@ against its plain PyTorch version at the main path's shapes, then serves the
 corpus over HTTP in process (stract_tpu_torch.main) and drives the search
 route: every answer must be a 200 with webpages, every kernel must have been
 launched by that traffic, and the top-10 of sample queries must match the
-same stack run with the plain versions on the card. Prints per-kernel times,
-qps and p50, and as its last line the device record. Any failure raises, so
-the exit code is non-zero; without a card it exits 2 before doing anything.
-Imports nothing of JAX.
+same stack run with the plain versions on the card.
+
+Then the ranking pipeline: a 30,522-piece WordPiece vocab fit on the corpus,
+MiniLM-L6 dual and cross encoders with seeded random weights, and a 40-tree
+depth-3 forest trained on the pipeline-off signal rows are saved and loaded
+back through the port's loaders; the dual encoder writes the corpus's
+embedding columns on the card; the forest (K4) and encoder (K5a-c) kernels
+are held against their plain versions; the stack is served again with the
+three models loaded as `main.py serve --dual-encoder/--cross-encoder/
+--lambdamart` loads them, every one of the seven kernels must be launched by
+that traffic, and its top-10 pages must match the plain versions'.
+
+Prints per-kernel times, qps, p50 and p99, and as its last line the device
+record. Any failure raises, so the exit code is non-zero; without a card it
+exits 2 before doing anything. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +44,12 @@ NOW = 1.7e9
 B, L, C, KD, OUT_K, SIG_K, PAGE_K = 32, 1024, 4096, 4096, 1024, 64, 128
 N_REQUESTS, CLIENTS = 128, 16
 CUSTOM = {"host_centrality": 3.0, "bm25_clean_body": -0.2}
+# the ranking pipeline: vocab, tokenizer sample, forest training queries,
+# encoder batch of the kernel phase, sequence lengths, forest rows
+VOCAB, TOK_DOCS, FOREST_QUERIES, ENC_B = 30522, 20_000, 32, 32
+ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 128, 256), 128, (256, 16384), 4096
+SCORING = ("stage_a", "stage_b", "signals_q16")
+DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 
 # Tolerances, kernel against plain version on the same card:
 #  stage A  scores rtol 1e-5, atol 5e-2: the plain version takes per-doc sums
@@ -42,7 +59,27 @@ CUSTOM = {"host_centrality": 3.0, "bm25_clean_body": -0.2}
 #  stage B  scores rtol 1e-5, atol 1e-4 (sums over P <= 64 slots in another
 #           order); fused signals within one q16 step
 #  pass 2   q16 rows within one step, scales rtol 1e-5
+#  forest  rtol 1e-6, atol 1e-6 x sum over trees of max |leaf| (same leaves,
+#           the tree sum in another order)
+#  attention, LN, GELU  bf16 outputs within one bf16 step (rtol 2^-7) plus
+#           atol 1e-2: f32 sums in another order, exp / rsqrt / tanh in
+#           another implementation, each may move a value across a rounding
+#           boundary of the bf16 cast
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
+ENC_TOL = (2 ** -7, 1e-2)
+# model signals, kernels against plain versions on one card: embedding
+# similarities within 2e-2, cross-encoder sigmoids within 1e-2; page scores
+# within 5e-3 + 1e-3 relative (0.01 and 0.17 are those signals' weights)
+MODEL_TOL = {"title_embedding_similarity": 2e-2, "keyword_embedding_similarity": 2e-2,
+             "cross_encoder_snippet": 1e-2, "cross_encoder_title": 1e-2}
+PIPE_SCORE_TOL = (1e-3, 5e-3)
+TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
+            "stage_b": f"rtol {B_TOL[0]} atol {B_TOL[1]}",
+            "signals_q16": "1 q16 step, scales rtol 1e-5",
+            "forest": "rtol 1e-6 atol 1e-6*sum|leaf|",
+            "attention": f"rtol 2^-7 atol {2 * ENC_TOL[1]}",
+            "add_layernorm": f"rtol 2^-7 atol {ENC_TOL[1]}",
+            "bias_gelu": f"rtol 2^-7 atol {ENC_TOL[1]}"}
 
 
 def log(*a):
@@ -130,7 +167,7 @@ def kernel_phase(index, device) -> list:
         err = max(topk_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
         if not np.isfinite(s_k).any():
             raise AssertionError("stage A found no candidates")
-        rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p)))
+        rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p), C))
 
         # K2: stage B over stage A's candidates, fused signals
         comp = [InvertedIndex._compact_slots(q, a, min_p=16) for q, a in slots]
@@ -165,26 +202,29 @@ def kernel_phase(index, device) -> list:
                     if (diff > 1.001 * scale[b] + 1e-30).any():
                         raise AssertionError(f"stage-B signals differ by {diff.max()}")
                     err = max(err, float(diff.max()))
-        rows.append(("stage_b", ds, err, time_ms(run_k), time_ms(run_p)))
+        rows.append(("stage_b", ds, err, time_ms(run_k), time_ms(run_p), KD))
 
-        # K3: pass 2 over a page of stage B's winners
-        page = dk[:, :PAGE_K].astype(np.int32)
-        pf = np.zeros((B, Pc, PAGE_K), np.int32)
-        for j, (q, _) in enumerate(comp):
-            InvertedIndex._slot_factors_for(seg, q, page[j], out=pf[j])
-        pf_t, pg_t = T(pf), T(page)
-        run_k = lambda: O.compute_signals_from_factors_batch_q16(  # noqa: E731
-            dev.arrays, qc, ac, pf_t, pg_t)
-        run_p = lambda: O.compute_signals_from_factors_batch_q16_plain(  # noqa: E731
-            dev.arrays, qc, ac, pf_t, pg_t)
-        qk, sck = run_k()
-        qp, scp = run_p()
-        torch.testing.assert_close(sck, scp, rtol=1e-5, atol=1e-35)
-        step = int((qk.int() - qp.int()).abs().max().item())
-        if step > 1:
-            raise AssertionError(f"pass-2 q16 rows differ by {step} steps")
-        err = float((O.dequantize_signals(qk, sck) - O.dequantize_signals(qp, scp)).__abs__().max())
-        rows.append(("signals_q16", ds, err, time_ms(run_k), time_ms(run_p)))
+        # K3: pass 2 over a page of stage B's winners, and over a 300-row
+        # recall block (the pipeline's K=512 bucket)
+        for page_k in (PAGE_K, 512):
+            page = dk[:, :page_k].astype(np.int32)
+            pf = np.zeros((B, Pc, page_k), np.int32)
+            for j, (q, _) in enumerate(comp):
+                InvertedIndex._slot_factors_for(seg, q, page[j], out=pf[j])
+            pf_t, pg_t = T(pf), T(page)
+            run_k = lambda: O.compute_signals_from_factors_batch_q16(  # noqa: E731
+                dev.arrays, qc, ac, pf_t, pg_t)
+            run_p = lambda: O.compute_signals_from_factors_batch_q16_plain(  # noqa: E731
+                dev.arrays, qc, ac, pf_t, pg_t)
+            qk, sck = run_k()
+            qp, scp = run_p()
+            torch.testing.assert_close(sck, scp, rtol=1e-5, atol=1e-35)
+            step = int((qk.int() - qp.int()).abs().max().item())
+            if step > 1:
+                raise AssertionError(f"pass-2 q16 rows differ by {step} steps")
+            err = float(np.abs(O.dequantize_signals(qk, sck)
+                               - O.dequantize_signals(qp, scp)).max())
+            rows.append(("signals_q16", ds, err, time_ms(run_k), time_ms(run_p), page_k))
     return rows
 
 
@@ -230,9 +270,12 @@ def post(url: str, body: dict):
 @contextlib.contextmanager
 def plain_versions():
     """Route the serving stack's device programs to their plain PyTorch
-    versions on the same card (the reference run of the comparison)."""
+    versions on the same card (the reference run of the comparison): K1-K3
+    in ops/scoring.py, K4 in ops/forest.py, K5a-c in ops/encoder.py."""
     import torch
 
+    from stract_tpu_torch.ops import encoder as E
+    from stract_tpu_torch.ops import forest as FO
     from stract_tpu_torch.ops import scoring as O
 
     def stage_a(seg, qs, L, K, ds, soft_required=False):
@@ -253,19 +296,26 @@ def plain_versions():
             O.to_tensors(O._batched(aggs, O.QueryAggregates), dev),
             torch.as_tensor(f).to(dev), torch.as_tensor(c).to(dev))
 
-    saved = (O.score_candidates_batch, O.score_driver_batch_with_signals,
-             O.compute_signals_from_factors_batch_q16)
-    O.score_candidates_batch, O.score_driver_batch_with_signals = stage_a, stage_b
-    O.compute_signals_from_factors_batch_q16 = signals
+    swaps = [(O, "score_candidates_batch", stage_a),
+             (O, "score_driver_batch_with_signals", stage_b),
+             (O, "compute_signals_from_factors_batch_q16", signals),
+             (FO, "gbdt_forward", FO.gbdt_forward_plain),
+             (E, "attention", E.attention_plain),
+             (E, "add_layernorm", E.add_layernorm_plain),
+             (E, "bias_gelu", E.bias_gelu_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (O.score_candidates_batch, O.score_driver_batch_with_signals,
-         O.compute_signals_from_factors_batch_q16) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def serve_phase(searcher) -> dict:
-    """HTTP traffic through the in-process server; counters reset first."""
+def serve_phase(searcher, expect) -> dict:
+    """HTTP traffic through the in-process server; counters reset first.
+    Every kernel named in `expect` must be launched by that traffic."""
     import numpy as np
 
     from stract_tpu_torch.api.server import build_app
@@ -293,7 +343,7 @@ def serve_phase(searcher) -> dict:
     n_hits = sum(len(d["webpages"]) for _, d, _ in results)
     if n_hits == 0:
         raise AssertionError("no request returned a webpage")
-    if min(launches.values()) == 0:
+    if any(launches[k] == 0 for k in expect):
         raise AssertionError(f"a kernel was not launched by the HTTP traffic: {launches}")
     if f'search_requests_total{{status="ok"}} {len(bodies) + 1}' not in metrics:
         raise AssertionError("metrics do not count every answered request")
@@ -303,30 +353,181 @@ def serve_phase(searcher) -> dict:
             "launches": launches}
 
 
-def compare_phase(searcher) -> dict:
-    """Top-10 of 8 queries: kernels against the plain versions, same card."""
+def compare_pipeline_page(pp, pk, forest) -> tuple:
+    """Pipeline-on pages, plain (pp) against kernels (pk): model signals
+    within MODEL_TOL, others within 1e-3 relative; a row whose two signal
+    vectors lie on two sides of a forest split may flip a leaf, so its
+    lambda_mart and score are not compared and a page holding one is
+    compared on its shared rows only. → (max score diff, flipped rows)."""
+    import numpy as np
+
+    from stract_tpu_torch.ranking.models.lambdamart import signal_matrix
+
+    wp, wk = pp["webpages"], pk["webpages"]
+    by_url = {w["url"]: i for i, w in enumerate(wp)}
+    shared = [(by_url[w["url"]], ik) for ik, w in enumerate(wk) if w["url"] in by_url]
+    flips = forest.split_between(signal_matrix([wp[i] for i, _ in shared]),
+                                 signal_matrix([wk[i] for _, i in shared]))
+    err = 0.0
+    for (ip, ik), flip in zip(shared, flips):
+        a, b = wk[ik]["rankingSignals"], wp[ip]["rankingSignals"]
+        for name in (set(a) | set(b)) - {"lambda_mart"}:
+            x, y = a.get(name, 0.0), b.get(name, 0.0)
+            if abs(x - y) > MODEL_TOL.get(name, 1e-3 * max(1.0, abs(y))):
+                raise AssertionError(f"signal {name} differs: {x} vs {y}")
+        if not flip:
+            err = max(err, abs(wk[ik]["score"] - wp[ip]["score"]))
+            if abs(a.get("lambda_mart", 0.0) - b.get("lambda_mart", 0.0)) > 1e-5 * max(
+                    1.0, abs(b.get("lambda_mart", 0.0))):
+                raise AssertionError("lambda_mart differs on a row that walks the same leaves")
+    if not flips.any():
+        if {w["url"] for w in wp} != {w["url"] for w in wk}:
+            raise AssertionError("the pages hold other documents")
+        ids = {w["url"]: i for i, w in enumerate(wp)}
+        err = max(err, topk_match(np.array([ids[w["url"]] for w in wp]),
+                                  np.array([w["score"] for w in wp]),
+                                  np.array([ids[w["url"]] for w in wk]),
+                                  np.array([w["score"] for w in wk]), -1, *PIPE_SCORE_TOL))
+    return err, int(flips.sum())
+
+
+def compare_phase(searcher, forest=None) -> dict:
+    """Top-10 of 8 queries: kernels against the plain versions, same card.
+    With the pipeline on (`forest` given), pages carry their signals and
+    compare through compare_pipeline_page."""
     import numpy as np
 
     from stract_tpu_torch.searcher.query import SearchQuery
 
+    extra = {"numResults": 10, "returnRankingSignals": forest is not None}
     bodies = [b for b in requests_mix(64) if "page" not in b][:8]
-    kern = [searcher.search(SearchQuery.from_json({**b, "numResults": 10})).to_json()
-            for b in bodies]
+    kern = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json() for b in bodies]
     with plain_versions():
-        plain = [searcher.search(SearchQuery.from_json({**b, "numResults": 10})).to_json()
+        plain = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json()
                  for b in bodies]
-    err, n = 0.0, 0
+    err, n, flipped = 0.0, 0, 0
     for pk, pp in zip(kern, plain):
         wk, wp = pk["webpages"], pp["webpages"]
-        ids = {w["url"]: i for i, w in enumerate(wk + wp)}
-        err = max(err, topk_match(np.array([ids[w["url"]] for w in wp]),
-                                  np.array([w["score"] for w in wp]),
-                                  np.array([ids[w["url"]] for w in wk]),
-                                  np.array([w["score"] for w in wk]), -1, 1e-3, 1e-3))
+        if forest is not None:
+            e, f = compare_pipeline_page(pp, pk, forest)
+            err, flipped = max(err, e), flipped + f
+        else:
+            ids = {w["url"]: i for i, w in enumerate(wk + wp)}
+            err = max(err, topk_match(np.array([ids[w["url"]] for w in wp]),
+                                      np.array([w["score"] for w in wp]),
+                                      np.array([ids[w["url"]] for w in wk]),
+                                      np.array([w["score"] for w in wk]), -1, 1e-3, 1e-3))
         n += len(wk)
     if n == 0:
         raise AssertionError("the compared queries returned nothing")
-    return {"queries": len(bodies), "docs": n, "max_score_diff": err}
+    return {"queries": len(bodies), "docs": n, "max_score_diff": err, "forest_flips": flipped}
+
+
+def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
+    """Tokenizer, MiniLM dual and cross encoders (seeded random weights) and
+    a forest trained on pipeline-off signal rows, saved through the port's
+    writers. → {"dual", "cross", "forest": paths, "rows": the forest's
+    training matrix, "seconds"}."""
+    import numpy as np
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.models.bert import BertConfig
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from stract_tpu_torch.ranking.models.cross_encoder import CrossEncoderModel
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART, signal_matrix
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    t0 = time.perf_counter()
+    seg = searcher.searcher.searchers[0].index.segments[0]
+    rng = np.random.default_rng(SEED + 2)
+    texts = []
+    for d in rng.choice(seg.num_docs, size=min(TOK_DOCS, seg.num_docs), replace=False):
+        stored = seg.stored_doc(int(d))
+        texts.append(stored["title"] + " " + stored["clean_text"])
+    texts += bc.sample_queries(rng, 2000)
+    tok = WordPieceTokenizer.build(texts, vocab_size=VOCAB)
+    log(f"[models] vocab of {len(tok.vocab)} pieces in {time.perf_counter() - t0:.1f}s")
+    paths = {"dual": os.path.join(out_dir, "dual_encoder"),
+             "cross": os.path.join(out_dir, "cross_encoder"),
+             "forest": os.path.join(out_dir, "lambdamart.json")}
+    cfg = BertConfig.mini_lm()
+    DualEncoder.random_init(cfg, tok, seed=SEED, device=DEVICE).save(paths["dual"])
+    CrossEncoderModel.random_init(cfg, tok, seed=SEED + 1, device=DEVICE).save(paths["cross"])
+
+    X, y = [], []
+    for q in bc.sample_queries(np.random.default_rng(SEED + 3), FOREST_QUERIES):
+        page = searcher.search(SearchQuery.from_json(
+            {"query": q, "numResults": 20, "returnRankingSignals": True})).to_json()
+        X.append(signal_matrix(page["webpages"]))
+        for w in page["webpages"]:  # graded by title containment, as the bench's trainer
+            hits = sum(t in w["title"].split() for t in q.split())
+            y.append(2.0 ** (3.0 if hits == 2 else 2.0 if hits else 1.0) - 1.0)
+    X = np.concatenate(X)[:2000]
+    t1 = time.perf_counter()
+    forest = LambdaMART.train(X, np.asarray(y)[:2000], num_trees=40, max_depth=3)
+    with open(paths["forest"], "w") as fh:
+        fh.write(forest.to_json())
+    log(f"[models] forest of {forest.num_trees} trees on {len(X)} rows in "
+        f"{time.perf_counter() - t1:.1f}s")
+    return {**paths, "rows": X, "seconds": time.perf_counter() - t0}
+
+
+def model_kernel_phase(forest, rows) -> list:
+    """K4 and K5a-c against their plain versions at the pipeline's shapes:
+    the forest at K in FOREST_K over resampled training rows; attention at
+    T in ATTN_T for a batch of ENC_B with one fully and one half masked row;
+    LN and GELU at M = ENC_B x ENC_T. → rows (name, err, ms, plain ms, shape)."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.ops import encoder as E
+    from stract_tpu_torch.ops import forest as FO
+
+    out = []
+    rng = np.random.default_rng(SEED + 4)
+    leaf_sum = float(forest.leaf_value.abs().max(dim=1).values.sum())
+    for k in FOREST_K:
+        x = torch.from_numpy(rows[rng.integers(0, len(rows), size=k)]).to(DEVICE)
+        run_k = lambda: FO.gbdt_forward(*forest._arrays(), x, forest.max_depth)  # noqa: E731
+        run_p = lambda: FO.gbdt_forward_plain(*forest._arrays(), x, forest.max_depth)  # noqa: E731
+        a, b = run_k(), run_p()
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * leaf_sum)
+        out.append(("forest", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), k))
+
+    g = torch.Generator().manual_seed(SEED)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
+    for t in ATTN_T:
+        q, k, v = bf(ENC_B, t, 12, 32), bf(ENC_B, t, 12, 32), bf(ENC_B, t, 12, 32)
+        mask = torch.ones((ENC_B, t), dtype=torch.int32)
+        mask[1, t // 2:] = 0
+        mask[2] = 0  # fully masked: uniform weights, finite
+        mask = mask.to(DEVICE)
+        run_k = lambda: E.attention(q, k, v, mask)  # noqa: E731
+        run_p = lambda: E.attention_plain(q, k, v, mask)  # noqa: E731
+        a, b = run_k().float(), run_p().float()
+        if not torch.isfinite(a).all():
+            raise AssertionError("attention gave a non-finite value")
+        torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=2 * ENC_TOL[1])
+        out.append(("attention", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), t))
+
+    m = ENC_B * ENC_T
+    x, r = bf(m, 384), bf(m, 384)
+    w = (1 + 0.1 * torch.randn(384, generator=g)).to(DEVICE)
+    bias = (0.1 * torch.randn(384, generator=g)).to(DEVICE)
+    run_k = lambda: E.add_layernorm(x, r, w, bias, 1e-12)  # noqa: E731
+    run_p = lambda: E.add_layernorm_plain(x, r, w, bias, 1e-12)  # noqa: E731
+    a, b = run_k().float(), run_p().float()
+    torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=ENC_TOL[1])
+    out.append(("add_layernorm", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), m))
+
+    y, yb = bf(m, 1536), (0.1 * torch.randn(1536, generator=g)).to(DEVICE, torch.bfloat16)
+    run_k = lambda: E.bias_gelu(y, yb)  # noqa: E731
+    run_p = lambda: E.bias_gelu_plain(y, yb)  # noqa: E731
+    a, b = run_k().float(), run_p().float()
+    torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=ENC_TOL[1])
+    out.append(("bias_gelu", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), m))
+    return out
 
 
 def main() -> int:
@@ -337,53 +538,94 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.index.embeddings import write_embedding_columns
     from stract_tpu_torch.main import build_searcher
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
     from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}")
-    t = time.perf_counter()
+    t_start = t = time.perf_counter()
     kernels.build(verbose=True)
     log(f"[setup] kernels built in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    index_dir = bc.ensure_corpus(os.path.join(ROOT, "data", "torch_smoke"), DOCS, seed=SEED,
-                                 log=log)
+    data_dir = os.path.join(ROOT, "data", "torch_smoke")
+    index_dir = bc.ensure_corpus(data_dir, DOCS, seed=SEED, log=log)
     log(f"[setup] corpus ready in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    searcher = build_searcher(index_dir, "cuda")
+    searcher = build_searcher(index_dir, DEVICE)
     index = searcher.searcher.searchers[0].index
     torch.cuda.synchronize()
     log(f"[setup] index on the card in {time.perf_counter() - t:.1f}s; "
         f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB held")
 
-    rows = kernel_phase(index, "cuda")
-    for name, ds, err, ms, pms in rows:
-        log(f"[kernel] {name:12s} default_static={ds!s:5s} max_abs_err={err:.3g} "
-            f"kernel={ms:.3f} ms plain={pms:.3f} ms")
+    # ---- pipeline off: K1-K3 --------------------------------------------------------
+    rows = kernel_phase(index, DEVICE)
     torch.cuda.reset_peak_memory_stats()
-    served = serve_phase(searcher)
-    log(f"[serve] {json.dumps(served)}")
+    served_off = serve_phase(searcher, SCORING)
+    log(f"[serve off] {json.dumps(served_off)}")
     cmp = compare_phase(searcher)
-    log(f"[compare] top-10 kernels vs plain versions: {json.dumps(cmp)}")
-    log(f"[result] docs={DOCS} qps={served['qps']:.2f} p50_ms={served['p50_ms']:.1f} "
+    log(f"[compare off] top-10 kernels vs plain versions: {json.dumps(cmp)}")
+    log(f"[result off] docs={DOCS} qps={served_off['qps']:.2f} "
+        f"p50_ms={served_off['p50_ms']:.1f} p99_ms={served_off['p99_ms']:.1f} "
+        f"device_mem_peak_MiB={torch.cuda.max_memory_allocated() / 2**20:.0f} card={card}")
+
+    # ---- pipeline on: models, embedding columns, K4 + K5a-c -------------------------
+    models = models_phase(searcher, index_dir, os.path.join(data_dir, "models"))
+    dual = DualEncoder.load(models["dual"], device=DEVICE)
+    emb = write_embedding_columns(index_dir, dual, batch=EMB_BATCH, log=log)
+    torch.cuda.synchronize()
+    log(f"[embeddings] {emb['docs']} docs x {emb['dim']} in {emb['seconds']:.1f}s: "
+        f"{emb['docs'] / emb['seconds']:.0f} docs/s card={card}")
+    del dual
+    forest = LambdaMART.load(models["forest"], device=DEVICE)
+    rows_m = model_kernel_phase(forest, models["rows"])
+    for name, ds, err, ms, pms, shape in rows:
+        log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
+            f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms")
+    for name, err, ms, pms, shape in rows_m:
+        log(f"[kernel] {name:13s} shape={shape} max_abs_err={err:.3g} "
+            f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms")
+    del searcher
+    torch.cuda.empty_cache()
+    on = build_searcher(index_dir, DEVICE, dual_encoder=models["dual"],
+                        cross_encoder=models["cross"], lambdamart=models["forest"])
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_phase(on, tuple(kernels.LAUNCHES))
+    log(f"[serve on] {json.dumps(served)}")
+    cmp_on = compare_phase(on, forest=on.pipeline.recall.lambdamart)
+    log(f"[compare on] top-10 kernels vs plain versions: {json.dumps(cmp_on)}")
+    log(f"[result on] docs={DOCS} qps={served['qps']:.2f} p50_ms={served['p50_ms']:.1f} "
         f"p99_ms={served['p99_ms']:.1f} device_mem_peak_MiB="
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} device_mem_held_MiB="
-        f"{torch.cuda.memory_allocated() / 2**20:.0f} card={card}")
+        f"{torch.cuda.memory_allocated() / 2**20:.0f} embed_docs_per_s="
+        f"{emb['docs'] / emb['seconds']:.0f} total_s={time.perf_counter() - t_start:.1f} "
+        f"card={card}")
 
-    replaces = {"stage_a": "stract_tpu/ops/scoring.py:807",
-                "stage_b": "stract_tpu/ops/scoring.py:660",
-                "signals_q16": "stract_tpu/ops/scoring.py:886"}
+    src = "stract_tpu_torch/csrc/"
+    meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
+            "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
+            "signals_q16": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:886", 512),
+            "forest": ("cuda", src + "forest.cu",
+                       "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
+            "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
+            "add_layernorm": ("triton", "stract_tpu_torch/ops/encoder.py",
+                              "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
+            "bias_gelu": ("triton", "stract_tpu_torch/ops/encoder.py",
+                          "stract_tpu/models/bert.py:170", ENC_B * ENC_T)}
+    all_rows = [(r[0], r[2], r[3], r[4], r[5], r[1]) for r in rows] + \
+        [(*r, True) for r in rows_m]
     kernels_out = []
-    for name in ("stage_a", "stage_b", "signals_q16"):
-        mine = [r for r in rows if r[0] == name]
-        main_row = next(r for r in mine if r[1])
+    for name, (route, source, replaces, main_shape) in meta.items():
+        mine = [r for r in all_rows if r[0] == name]
+        main_row = next(r for r in mine if r[4] == main_shape and r[5])
         kernels_out.append({
-            "name": name, "route": "cuda", "source": "stract_tpu_torch/csrc/scoring.cu",
-            "replaces": replaces[name], "launches": served["launches"][name],
-            "max_abs_err": max(r[2] for r in mine), "ms": main_row[3],
-            "plain_ms": main_row[4]})
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": served["launches"][name], "max_abs_err": max(r[1] for r in mine),
+            "ms": main_row[2], "plain_ms": main_row[3]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,15 @@ device program. Layout mirrors stract_tpu/:
 
   ops/scoring.py     stage A / stage B / pass-2 programs: plain PyTorch
                      versions and the dispatch to the CUDA kernels
-  ops/kernels.py     nvcc build + ctypes binding of csrc/scoring.cu
-  index/             segment reader, DeviceSegment, InvertedIndex (serving)
-  ranking/, query/   slot planning, query parser and planner
+  ops/forest.py      the LambdaMART forest walk (K4)
+  ops/encoder.py     the BERT encoder's attention, residual + LayerNorm and
+                     bias + GELU (K5a-c)
+  ops/kernels.py     nvcc build + ctypes binding of csrc/*.cu, launch counts
+  models/            BERT, dual encoder, checkpoint store, WordPiece
+  index/             segment reader, DeviceSegment, InvertedIndex (serving),
+                     embedding-column writer
+  ranking/, query/   slot planning, cross encoder, LambdaMART, query parser
+                     and planner
   searcher/, api/    local shard, coordinator, batcher, HTTP route
   bench_corpus.py    synthetic corpus writer and query generator
   main.py            `serve` role

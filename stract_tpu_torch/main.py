@@ -1,12 +1,21 @@
 """Command line of the port.
 
-    python -m stract_tpu_torch.main serve --index DIR --port N --device cuda
+    python -m stract_tpu_torch.main serve --index DIR --port N --device cuda \
+        [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE]
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
 and GET /metrics. DIR is an index directory of either package
 (index_meta.json + segments/). --device cpu runs the plain PyTorch versions
-of the kernels; --device cuda needs a card and runs the CUDA kernels.
+of the kernels; --device cuda needs a card and runs the hand-written kernels.
+
+The model flags are the coordinator's ApiConfig fields dual_encoder_path,
+cross_encoder_path and lambdamart_path, loaded as the JAX package's api
+entry point loads them: the dual encoder into the recall stage, the cross
+encoder into the precision stage, the forest (LightGBM text when the file
+holds "Tree=", else JSON) into both. Encoder dirs are native checkpoints of
+either package or HF safetensors dirs. Recall's embedding similarity reads
+the index's embedding columns (index/embeddings.py writes them).
 """
 
 from __future__ import annotations
@@ -18,8 +27,12 @@ import threading
 from aiohttp import web
 
 
-def build_searcher(index_dir: str, device: str):
-    """The serving stack over one local shard → ApiSearcher."""
+def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
+                   cross_encoder: str | None = None, lambdamart: str | None = None):
+    """The serving stack over one local shard, with the ranking pipeline's
+    models loaded from the given paths onto `device` → ApiSearcher."""
+    from stract_tpu.ranking.pipeline import PrecisionStage, RankingPipeline, RecallStage
+
     from .index.inverted import InvertedIndex
     from .searcher.api import ApiSearcher
     from .searcher.distributed import LocalShardedSearcher
@@ -28,7 +41,21 @@ def build_searcher(index_dir: str, device: str):
     index = InvertedIndex(index_dir, device=device)
     for seg in index.segments:
         index.device_segment_for(seg)  # upload before the first request
-    return ApiSearcher(LocalShardedSearcher([LocalSearcher(index)]))
+    recall, precision = RecallStage(), PrecisionStage()
+    if dual_encoder:
+        from .models.dual_encoder import DualEncoder
+
+        recall.dual_encoder = DualEncoder.load(dual_encoder, device=device)
+    if cross_encoder:
+        from .ranking.models.cross_encoder import CrossEncoderModel
+
+        precision.cross_encoder = CrossEncoderModel.load(cross_encoder, device=device)
+    if lambdamart:
+        from .ranking.models.lambdamart import LambdaMART
+
+        recall.lambdamart = precision.lambdamart = LambdaMART.load(lambdamart, device=device)
+    return ApiSearcher(LocalShardedSearcher([LocalSearcher(index)]),
+                       RankingPipeline(recall, precision))
 
 
 class ServerThread:
@@ -88,11 +115,15 @@ def main(argv=None):
     sp.add_argument("--port", type=int, default=3000)
     sp.add_argument("--host", default="0.0.0.0")
     sp.add_argument("--device", default="cuda", help="cuda or cpu")
+    sp.add_argument("--dual-encoder", default="", help="dual encoder dir (recall stage)")
+    sp.add_argument("--cross-encoder", default="", help="cross encoder dir (precision stage)")
+    sp.add_argument("--lambdamart", default="", help="forest file, LightGBM text or JSON")
     args = ap.parse_args(argv)
 
     from .api.server import build_app
 
-    app = build_app(build_searcher(args.index, args.device))
+    app = build_app(build_searcher(args.index, args.device, args.dual_encoder,
+                                   args.cross_encoder, args.lambdamart))
     web.run_app(app, host=args.host, port=args.port)
 
 

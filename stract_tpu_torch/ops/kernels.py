@@ -1,12 +1,20 @@
-"""Build and ctypes binding of the hand-written CUDA kernels (csrc/scoring.cu).
+"""Build and ctypes binding of the hand-written CUDA kernels (csrc/*.cu).
 
-The library is compiled with nvcc for sm_90a at first use into
-stract_tpu_torch/build/ (a plain C interface, so the build takes seconds) and
-loaded with ctypes. Nothing here runs at import time: the CPU tests import
-this module on machines without nvcc or a card.
+Each source is compiled with nvcc for sm_90a at first use into its own
+library under stract_tpu_torch/build/ (plain C interfaces, so each build
+takes seconds; all sources build in parallel) and loaded with ctypes. A
+library is rebuilt when its source is newer. Nothing here runs at import
+time: the CPU tests import this module on machines without nvcc or a card.
+
+  csrc/scoring.cu   K1 stage A, K2 stage B, K3 pass-2 signals
+  csrc/forest.cu    K4 LambdaMART forest walk
+  csrc/encoder.cu   K5a masked attention of the BERT encoder
+
+(K5b and K5c, the encoder's residual + LayerNorm and bias + GELU, are Triton
+kernels in ops/encoder.py; they count their launches here too.)
 
 Each launch function takes tensors already on the card, allocated by its
-caller (ops/scoring.py), launches on PyTorch's current stream, raises on a
+caller (ops/*.py), launches on PyTorch's current stream, raises on a
 non-zero CUDA status, and adds one to its entry in LAUNCHES.
 """
 
@@ -21,9 +29,10 @@ import threading
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "scoring.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libstract_kernels.so")
+# library name -> source file under csrc/
+SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -31,14 +40,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # page one block sorts in shared memory, and the most fused signal columns
 MAX_SORT = 4096
 MAX_SIG_K = 64
+# limits of csrc/encoder.cu: the head width and the longest sequence
+ATTN_HEAD_DIM = 32
+ATTN_MAX_T = 256
+# a block's shared memory on the card (the forest is staged there whole)
+MAX_SMEM = 227 * 1024
 
 # launches per kernel since the last reset_launches(): the proof that a run of
 # the main path went through the kernels
-LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0}
+LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0, "forest": 0, "attention": 0,
+            "add_layernorm": 0, "bias_gelu": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # the server launches from two worker threads
-_lib = None
+_libs: dict = {}
 
 
 def reset_launches() -> None:
@@ -47,7 +62,7 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _counted(name: str) -> None:
+def counted(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
 
@@ -60,22 +75,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels when the library is missing or older than its
-    source; → the library path. Raises with the compiler's output on failure."""
+def _library(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"libstract_{name}.so")
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile every library that is missing or older than its source, one
+    nvcc process per source, all started together; → {name: library path}.
+    Raises with the compiler's output on any failure."""
     with _lock:
-        if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
-            return LIBRARY
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stderr, flush=True)
-        os.replace(tmp, LIBRARY)
-        return LIBRARY
+        stale = {}
+        for name, src in SOURCES.items():
+            lib, src = _library(name), os.path.join(CSRC, src)
+            if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
+                stale[name] = (src, lib)
+        if stale:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = _nvcc()
+            procs = {}
+            for name, (src, lib) in stale.items():
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, src]
+                procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True), tmp, lib)
+            failed = []
+            for name, (proc, tmp, lib) in procs.items():
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc {SOURCES[name]} failed ({proc.returncode}):\n{out}\n{err}")
+                    continue
+                if verbose:
+                    print(f"[nvcc {SOURCES[name]}]\n{err}", flush=True)
+                os.replace(tmp, lib)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        return {name: _library(name) for name in SOURCES}
 
 
 class SegArgs(ctypes.Structure):
@@ -99,24 +133,33 @@ class AggArgs(ctypes.Structure):
                 ("region_row", ctypes.c_int), ("update_row", ctypes.c_int)]
 
 
-def _load():
-    global _lib
-    if _lib is not None:
-        return _lib
-    path = build()
+def _load(name: str):
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    path = build()[name]
     with _lock:
-        if _lib is None:
+        if name not in _libs:
             lib = ctypes.CDLL(path)
             P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-            seg, qry, agg = ctypes.POINTER(SegArgs), ctypes.POINTER(QueryArgs), ctypes.POINTER(AggArgs)
-            lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, I, I, I, I, F,
-                                           P, P, P, P, P, P, P, P]
-            lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
-            lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
-            for fn in (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16):
+            if name == "scoring":
+                seg, qry = ctypes.POINTER(SegArgs), ctypes.POINTER(QueryArgs)
+                agg = ctypes.POINTER(AggArgs)
+                lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, I, I, I, I, F,
+                                               P, P, P, P, P, P, P, P]
+                lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
+                lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
+                fns = (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16)
+            elif name == "forest":
+                lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+                fns = (lib.stract_forest,)
+            else:
+                lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
+                fns = (lib.stract_attention,)
+            for fn in fns:
                 fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple | None = None) -> int | None:
@@ -180,7 +223,7 @@ def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required:
             inv_fs: float, tkey, tsum, tmask, taux, skey, out_docs, out_scores) -> None:
     if not 1 <= K <= MAX_SORT:
         raise ValueError(f"stage A keeps 1..{MAX_SORT} candidates per query, not {K}")
-    lib = _load()
+    lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
     B = q.starts.shape[0]
     i32, f32 = torch.int32, torch.float32
@@ -191,7 +234,7 @@ def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required:
         _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
         _ptr(out_scores, f32, (B, K)), _stream())
     _check(rc, "stract_stage_a")
-    _counted("stage_a")
+    counted("stage_a")
 
 
 def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
@@ -199,7 +242,7 @@ def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: 
     if not 1 <= cand.shape[1] <= MAX_SORT or not 0 <= ks <= MAX_SIG_K:
         raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and 0..{MAX_SIG_K} "
                          f"signal columns, not {cand.shape[1]} and {ks}")
-    lib = _load()
+    lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
     (B, P), Kd = q.starts.shape, cand.shape[1]
     i32, f32 = torch.int32, torch.float32
@@ -210,13 +253,13 @@ def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: 
         _ptr(out_sq, torch.int16, (B, aggs.nsig, ks)), _ptr(out_scale, f32, (B, aggs.nsig)),
         _stream())
     _check(rc, "stract_stage_b")
-    _counted("stage_b")
+    counted("stage_b")
 
 
 def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_scale) -> None:
     if not 1 <= cand.shape[1] <= MAX_SORT:
         raise ValueError(f"pass 2 takes 1..{MAX_SORT} candidates per query, not {cand.shape[1]}")
-    lib = _load()
+    lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
     (B, P), K = q.starts.shape, cand.shape[1]
     rc = lib.stract_signals_q16(
@@ -225,4 +268,40 @@ def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_
         _ptr(out_q, torch.int16, (B, aggs.nsig, K)), _ptr(out_scale, torch.float32, (B, aggs.nsig)),
         _stream())
     _check(rc, "stract_signals_q16")
-    _counted("signals_q16")
+    counted("signals_q16")
+
+
+def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) -> None:
+    """K4 over x f32[K, F] into out f32[K] (ops/forest.py allocates)."""
+    T, N = feature.shape
+    L = leaf_value.shape[1]
+    K, F = x.shape
+    i32, f32 = torch.int32, torch.float32
+    if 16 * T * N + 4 * T * L > MAX_SMEM or min(T, N, L, F) < 1:
+        raise ValueError(f"a forest of {T} trees x {N} nodes x {L} leaves over {F} features "
+                         "does not fit one block's shared memory")
+    lib = _load("forest")
+    rc = lib.stract_forest(
+        _ptr(feature, i32, (T, N)), _ptr(threshold, f32, (T, N)), _ptr(left, i32, (T, N)),
+        _ptr(right, i32, (T, N)), _ptr(leaf_value, f32, (T, L)), _ptr(x, f32, (K, F)),
+        _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), _stream())
+    _check(rc, "stract_forest")
+    counted("forest")
+
+
+def attention(q, k, v, mask, out) -> None:
+    """K5a: q, k, v bf16[B, T, H, 32], mask i32[B, T] → out bf16[B, T, H*32]
+    (ops/encoder.py allocates)."""
+    B, T, H, D = q.shape
+    if D != ATTN_HEAD_DIM or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
+        raise ValueError(f"attention takes head dim {ATTN_HEAD_DIM} and 1..{ATTN_MAX_T} "
+                         f"tokens, not q of shape {tuple(q.shape)}")
+    bf16 = torch.bfloat16
+    ptrs = [_ptr(t, bf16, (B, T, H, D)) for t in (q, k, v)]
+    if any(p % 4 for p in ptrs):
+        raise ValueError("attention reads q, k, v as bf16 pairs: pointers must be 4-byte aligned")
+    lib = _load("encoder")
+    rc = lib.stract_attention(*ptrs, _ptr(mask, torch.int32, (B, T)),
+                              _ptr(out, bf16, (B, T, H * D)), B, T, H, _stream())
+    _check(rc, "stract_attention")
+    counted("attention")

@@ -1,8 +1,10 @@
 """ApiSearcher — the coordinator's search flow (the port of
 stract_tpu/searcher/api.py: bangs, batched shard fan-out, cross-shard merge,
 recall stage, page signals, retrieve + snippets, precision stage). The ranking
-pipeline is the JAX package's host code, imported as is; without models its
-stages are the linear rescoring and the slop signals."""
+pipeline is the JAX package's host code, imported as is; it takes the port's
+models duck-typed (dual encoder `embed`, cross encoder `score_pairs`, forest
+`predict`). Without models its stages are the linear rescoring and the slop
+signals."""
 
 from __future__ import annotations
 
@@ -80,13 +82,22 @@ class ApiSearcher:
             else:
                 live.append(i)
                 parsed.append(q)
-        shard_res = self.searcher.search_blocks_many([sqs[i] for i in live]) if live else []
-        return sqs, results, live, parsed, shard_res, t0
+        shard_res, qemb_fetch = [], None
+        if live:
+            # the query-side dual-encoder forward is queued first, so it runs
+            # on the device behind the shard fan-out below; phase 2 (another
+            # thread) fetches it
+            dual = self.pipeline.recall.dual_encoder
+            if dual is not None:
+                qemb_fetch = dual.embed_async([sqs[i].query for i in live])
+            shard_res = self.searcher.search_blocks_many([sqs[i] for i in live])
+        return sqs, results, live, parsed, shard_res, t0, qemb_fetch
 
     def search_phase2(self, state) -> list:
-        """Host tail: merge → recall → page cut → one batched page-signal
-        materialisation → retrieve/snippets → precision."""
-        sqs, results, live, parsed, shard_res, t0 = state
+        """Host tail: merge → recall (with the prefetched query embeddings)
+        → page cut → one batched page-signal materialisation →
+        retrieve/snippets → precision."""
+        sqs, results, live, parsed, shard_res, t0, qemb_fetch = state
         merged_items = []
         for j, i in enumerate(live):
             block, count = shard_res[j]
@@ -96,7 +107,8 @@ class ApiSearcher:
         if self.pipeline.recall.has_scorers:
             self._ensure_blocks([(sqs[i], merged) for i, _, merged, _ in merged_items])
         ranked = self.pipeline.rank_recall_many_blocks(
-            [(ctx, merged) for _, ctx, merged, _ in merged_items])
+            [(ctx, merged) for _, ctx, merged, _ in merged_items],
+            qembs=qemb_fetch() if qemb_fetch is not None else None)
 
         staged = []
         for (i, ctx, _, count), block in zip(merged_items, ranked):
