@@ -10,15 +10,22 @@ route: every answer must be a 200 with webpages, every kernel must have been
 launched by that traffic, and the top-10 of sample queries must match the
 same stack run with the plain versions on the card.
 
-Then the ranking pipeline: a 30,522-piece WordPiece vocab fit on the corpus,
-MiniLM-L6 dual and cross encoders with seeded random weights, and a 40-tree
-depth-3 forest trained on the pipeline-off signal rows are saved and loaded
-back through the port's loaders; the dual encoder writes the corpus's
-embedding columns on the card; the forest (K4) and encoder (K5a-c) kernels
-are held against their plain versions; the stack is served again with the
-three models loaded as `main.py serve --dual-encoder/--cross-encoder/
---lambdamart` loads them, every one of the seven kernels must be launched by
-that traffic, and its top-10 pages must match the plain versions'.
+Then the ranking pipeline: a 30,522-piece WordPiece vocab fit on the corpus;
+the train phase trains MiniLM-L6 dual and cross encoders on the card from
+triples synthesised from the corpus (stract_tpu_torch.entrypoint.
+train_bench_encoders at its defaults: 400 steps, dual batch 64, 128 tokens,
+4,096 triples; then the cross encoder warm-started from the dual trunk and
+distilled from it), saves both and loads them back, and fails when the dual
+encoder's held-out accuracy is under 0.65; every training kernel (K14a-d,
+K5d) and the forward kernels (K5a-c) must be launched by that training. A
+40-tree depth-3 forest is trained on the pipeline-off signal rows. The
+trained dual encoder writes the corpus's embedding columns on the card; the
+forest (K4), encoder (K5a-d) and training (K14a-d) kernels are held against
+their plain versions, and one whole train step is timed with kernels and
+with plain versions; the stack is served again with the three models loaded
+as `main.py serve --dual-encoder/--cross-encoder/--lambdamart` loads them,
+every serving kernel must be launched by that traffic, and its top-10 pages
+must match the plain versions'.
 
 Prints per-kernel times, qps, p50 and p99, and as its last line the device
 record. Any failure raises, so the exit code is non-zero; without a card it
@@ -48,7 +55,14 @@ CUSTOM = {"host_centrality": 3.0, "bm25_clean_body": -0.2}
 # encoder batch of the kernel phase, sequence lengths, forest rows
 VOCAB, TOK_DOCS, FOREST_QUERIES, ENC_B = 30522, 20_000, 32, 32
 ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 128, 256), 128, (256, 16384), 4096
+# training: the dual encoder's batch and length (the kernel phase's shapes),
+# the held-out bar of tools/train_bench_encoders.py, and the step count
+# (the tool's default; cut, and the cut printed, if training outgrows the run)
+TRAIN_B, TRAIN_T, MIN_DUAL_ACC, TRAIN_STEPS = 64, 128, 0.65, 400
 SCORING = ("stage_a", "stage_b", "signals_q16")
+SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
+TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
+            "add_layernorm_backward", "bias_gelu_backward", "adamw")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 
 # Tolerances, kernel against plain version on the same card:
@@ -65,8 +79,16 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #           atol 1e-2: f32 sums in another order, exp / rsqrt / tanh in
 #           another implementation, each may move a value across a rounding
 #           boundary of the bf16 cast
+#  backward kernels, pool  within one bf16 step of the plain version's
+#           largest magnitude (rtol 2^-7, atol 2^-7 x max |plain|): the same
+#           reasons, on intermediate roundings (probabilities, dP, each step of
+#           the GELU chain); LN parameter gradients (f32 column sums over 8,192
+#           rows) rtol 1e-4, atol 1e-4 x max |plain|
+#  adamw    rtol 1e-6, atol 1e-6 x max |plain| after 3 steps (the same f32 ops;
+#           division and square root may round differently by an ulp)
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
 ENC_TOL = (2 ** -7, 1e-2)
+STEP = 2 ** -7
 # model signals, kernels against plain versions on one card: embedding
 # similarities within 2e-2, cross-encoder sigmoids within 1e-2; page scores
 # within 5e-3 + 1e-3 relative (0.01 and 0.17 are those signals' weights)
@@ -79,7 +101,12 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "forest": "rtol 1e-6 atol 1e-6*sum|leaf|",
             "attention": f"rtol 2^-7 atol {2 * ENC_TOL[1]}",
             "add_layernorm": f"rtol 2^-7 atol {ENC_TOL[1]}",
-            "bias_gelu": f"rtol 2^-7 atol {ENC_TOL[1]}"}
+            "bias_gelu": f"rtol 2^-7 atol {ENC_TOL[1]}",
+            "mean_pool": "rtol 2^-7 atol 2^-7*max|plain|",
+            "attention_backward": "rtol 2^-7 atol 2^-7*max|plain|",
+            "add_layernorm_backward": "rtol 2^-7 atol 2^-7*max|plain|; dw, db rtol 1e-4",
+            "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|",
+            "adamw": "rtol 1e-6 atol 1e-6*max|plain|"}
 
 
 def log(*a):
@@ -269,11 +296,13 @@ def post(url: str, body: dict):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the serving stack's device programs to their plain PyTorch
-    versions on the same card (the reference run of the comparison): K1-K3
-    in ops/scoring.py, K4 in ops/forest.py, K5a-c in ops/encoder.py."""
+    """Route the device programs to their plain PyTorch versions on the same
+    card (the reference run of the comparisons): K1-K3 in ops/scoring.py, K4
+    in ops/forest.py, K5a-d and their gradients K14a-c in ops/encoder.py (the
+    dispatchers the autograd Functions call), K14d in optim.py."""
     import torch
 
+    from stract_tpu_torch import optim
     from stract_tpu_torch.ops import encoder as E
     from stract_tpu_torch.ops import forest as FO
     from stract_tpu_torch.ops import scoring as O
@@ -300,9 +329,15 @@ def plain_versions():
              (O, "score_driver_batch_with_signals", stage_b),
              (O, "compute_signals_from_factors_batch_q16", signals),
              (FO, "gbdt_forward", FO.gbdt_forward_plain),
-             (E, "attention", E.attention_plain),
-             (E, "add_layernorm", E.add_layernorm_plain),
-             (E, "bias_gelu", E.bias_gelu_plain)]
+             (E, "attention_forward", E.attention_plain),
+             (E, "add_layernorm_forward", E.add_layernorm_plain),
+             (E, "bias_gelu_forward", E.bias_gelu_plain),
+             (E, "mean_pool_forward", E.mean_pool_plain),
+             (E, "attention_backward", E.attention_backward_plain),
+             (E, "add_layernorm_backward", E.add_layernorm_backward_plain),
+             (E, "bias_gelu_backward", E.bias_gelu_backward_plain),
+             (E, "mean_pool_backward", E.mean_pool_backward_plain),
+             (optim, "adamw_update", optim.adamw_update_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -423,18 +458,54 @@ def compare_phase(searcher, forest=None) -> dict:
     return {"queries": len(bodies), "docs": n, "max_score_diff": err, "forest_flips": flipped}
 
 
+def train_phase(index_dir: str, out_dir: str, tok) -> dict:
+    """The encoder-training path: train_bench_encoders at its defaults with
+    the cross encoder warm-started from the dual trunk, distilled from it and
+    read out by the masked mean (the recipe the JAX package's records name:
+    a CLS readout on the mean-pooled trunk stalls), on the card; launch
+    counts reset just before and read just after. → {"dual", "cross":
+    checkpoint dirs, "summary", "timing", "launches"}."""
+    from stract_tpu_torch.entrypoint import train_bench_encoders as TBE
+    from stract_tpu_torch.ops import kernels
+
+    args = TBE.parser().parse_args(["--docs", str(DOCS), "--steps", str(TRAIN_STEPS),
+                                    "--batch", str(TRAIN_B // 2), "--train-len",
+                                    str(TRAIN_T), "--distill-cross", "--cross-pool", "mean",
+                                    "--device", DEVICE])
+    if args.steps != 400:
+        log(f"[train] steps cut from the tool's 400 to {args.steps}")
+    kernels.reset_launches()
+    summary, timing = TBE.run(args, index_dir, out_dir, tokenizer=tok, log=log)
+    launches = dict(kernels.LAUNCHES)
+    log(f"[train] {json.dumps(summary)}")
+    for kind in ("dual", "cross"):
+        t = timing[kind]
+        log(f"[train] {kind}: {t['steps']} steps in {t['seconds']:.1f}s: "
+            f"{t['seconds'] / t['steps']:.4f} s/step, {t['steps'] / t['seconds']:.2f} steps/s; "
+            f"loss {summary[f'{kind}_loss'][0]} -> {summary[f'{kind}_loss'][1]} "
+            f"(mean of the first / last 10 steps)")
+    log(f"[train] held-out pos>neg: dual {summary['dual_heldout_acc']}, cross "
+        f"{summary['cross_heldout_acc']}; cross vs teacher spearman "
+        f"{summary['cross_vs_teacher_spearman']}; launches {json.dumps(launches)}")
+    if summary["dual_heldout_acc"] < MIN_DUAL_ACC:
+        raise AssertionError(f"dual encoder held-out accuracy {summary['dual_heldout_acc']} "
+                             f"is below {MIN_DUAL_ACC}")
+    if any(launches[k] == 0 for k in TRAINING):
+        raise AssertionError(f"a kernel was not launched by the training: {launches}")
+    return {"dual": os.path.join(out_dir, f"dual_encoder-{DOCS}"),
+            "cross": os.path.join(out_dir, f"cross_encoder-{DOCS}"),
+            "summary": summary, "timing": timing, "launches": launches}
+
+
 def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
-    """Tokenizer, MiniLM dual and cross encoders (seeded random weights) and
-    a forest trained on pipeline-off signal rows, saved through the port's
-    writers. → {"dual", "cross", "forest": paths, "rows": the forest's
-    training matrix, "seconds"}."""
+    """Tokenizer, MiniLM dual and cross encoders trained on the card (the
+    train phase), and a forest trained on pipeline-off signal rows, saved
+    through the port's writers. → the train phase's record plus {"forest":
+    path, "rows": the forest's training matrix, "seconds"}."""
     import numpy as np
 
     from stract_tpu_torch import bench_corpus as bc
-    from stract_tpu_torch.models.bert import BertConfig
-    from stract_tpu_torch.models.dual_encoder import DualEncoder
     from stract_tpu_torch.models.wordpiece import WordPieceTokenizer
-    from stract_tpu_torch.ranking.models.cross_encoder import CrossEncoderModel
     from stract_tpu_torch.ranking.models.lambdamart import LambdaMART, signal_matrix
     from stract_tpu_torch.searcher.query import SearchQuery
 
@@ -448,12 +519,8 @@ def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
     texts += bc.sample_queries(rng, 2000)
     tok = WordPieceTokenizer.build(texts, vocab_size=VOCAB)
     log(f"[models] vocab of {len(tok.vocab)} pieces in {time.perf_counter() - t0:.1f}s")
-    paths = {"dual": os.path.join(out_dir, "dual_encoder"),
-             "cross": os.path.join(out_dir, "cross_encoder"),
-             "forest": os.path.join(out_dir, "lambdamart.json")}
-    cfg = BertConfig.mini_lm()
-    DualEncoder.random_init(cfg, tok, seed=SEED, device=DEVICE).save(paths["dual"])
-    CrossEncoderModel.random_init(cfg, tok, seed=SEED + 1, device=DEVICE).save(paths["cross"])
+    trained = train_phase(index_dir, out_dir, tok)
+    forest_path = os.path.join(out_dir, "lambdamart.json")
 
     X, y = [], []
     for q in bc.sample_queries(np.random.default_rng(SEED + 3), FOREST_QUERIES):
@@ -466,11 +533,11 @@ def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
     X = np.concatenate(X)[:2000]
     t1 = time.perf_counter()
     forest = LambdaMART.train(X, np.asarray(y)[:2000], num_trees=40, max_depth=3)
-    with open(paths["forest"], "w") as fh:
+    with open(forest_path, "w") as fh:
         fh.write(forest.to_json())
     log(f"[models] forest of {forest.num_trees} trees on {len(X)} rows in "
         f"{time.perf_counter() - t1:.1f}s")
-    return {**paths, "rows": X, "seconds": time.perf_counter() - t0}
+    return {**trained, "forest": forest_path, "rows": X, "seconds": time.perf_counter() - t0}
 
 
 def model_kernel_phase(forest, rows) -> list:
@@ -530,6 +597,141 @@ def model_kernel_phase(forest, rows) -> list:
     return out
 
 
+def _step_close(a, b) -> float:
+    """Raise unless a is within one bf16 step of b's largest magnitude; →
+    max |a - b|."""
+    import torch
+
+    a, b = a.float(), b.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError("a kernel gave a non-finite value")
+    torch.testing.assert_close(a, b, rtol=STEP, atol=STEP * float(b.abs().max()))
+    return float((a - b).abs().max())
+
+
+def training_kernel_phase(dual_dir: str) -> list:
+    """K14a-d and K5d against their plain versions at the training shapes:
+    attention backward at B=TRAIN_B, T=TRAIN_T with one fully and one half
+    masked row; LN backward at TRAIN_B*TRAIN_T x 384; GELU backward at
+    TRAIN_B*TRAIN_T x 1536; K5d forward + backward at TRAIN_B x TRAIN_T x 384;
+    AdamW over the trained dual encoder's 22.7M parameters for 3 steps from
+    the same state. → rows (name, err, ms, plain ms, shape)."""
+    import torch
+
+    from stract_tpu_torch import optim
+    from stract_tpu_torch.models.store import load_encoder
+    from stract_tpu_torch.ops import encoder as E
+
+    out = []
+    g = torch.Generator().manual_seed(SEED + 5)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
+    B, T = TRAIN_B, TRAIN_T
+    q, k, v, dout = bf(B, T, 12, 32), bf(B, T, 12, 32), bf(B, T, 12, 32), bf(B, T, 384)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask = mask.to(DEVICE)
+    run_k = lambda: E.attention_backward(q, k, v, mask, dout)  # noqa: E731
+    run_p = lambda: E.attention_backward_plain(q, k, v, mask, dout)  # noqa: E731
+    err = max(_step_close(a, b) for a, b in zip(run_k(), run_p()))
+    out.append(("attention_backward", err, time_ms(run_k), time_ms(run_p), T))
+
+    m = B * T
+    x, r, dy = bf(m, 384), bf(m, 384), bf(m, 384)
+    w = (1 + 0.1 * torch.randn(384, generator=g)).to(DEVICE)
+    run_k = lambda: E.add_layernorm_backward(x, r, w, 1e-12, dy)  # noqa: E731
+    run_p = lambda: E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)  # noqa: E731
+    (ds, dw, db), (ps, pw, pb) = run_k(), run_p()
+    err = _step_close(ds, ps)
+    for a, b in ((dw, pw), (db, pb)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+        err = max(err, float((a - b).abs().max()))
+    out.append(("add_layernorm_backward", err, time_ms(run_k), time_ms(run_p), m))
+
+    y, gout = bf(m, 1536), bf(m, 1536)
+    yb = (0.5 * torch.randn(1536, generator=g)).to(DEVICE, torch.bfloat16)
+    run_k = lambda: E.bias_gelu_backward(y, yb, gout)  # noqa: E731
+    run_p = lambda: E.bias_gelu_backward_plain(y, yb, gout)  # noqa: E731
+    err = max(_step_close(a, b) for a, b in zip(run_k(), run_p()))
+    out.append(("bias_gelu_backward", err, time_ms(run_k), time_ms(run_p), m))
+
+    h, cot = bf(B, T, 384), torch.randn((B, 384), generator=g).to(DEVICE)
+
+    def pool(fwd, bwd):
+        pooled, raw = fwd(h, mask, True)
+        return pooled, raw, bwd(mask, raw, cot, True, torch.bfloat16)
+    run_k = lambda: pool(E.mean_pool_forward, E.mean_pool_backward)  # noqa: E731
+    run_p = lambda: pool(E.mean_pool_plain, E.mean_pool_backward_plain)  # noqa: E731
+    err = max(_step_close(a, b) for a, b in zip(run_k(), run_p()))
+    out.append(("mean_pool", err, time_ms(run_k), time_ms(run_p), B * T))
+
+    _, masters, _, _ = load_encoder(dual_dir, "dual")
+    p0 = torch.cat([t.reshape(-1) for t in masters.values()]).to(DEVICE)
+    n = p0.numel()
+    grads = [torch.randn(n, generator=g).to(DEVICE) for _ in range(3)]
+
+    def adamw(update, state):
+        p, mo, ve = state
+        for i, gr in enumerate(grads, 1):
+            update(p, gr, mo, ve, 3e-4, 0.9, 0.999, 1e-8, 1e-4, 1 - 0.9 ** i, 1 - 0.999 ** i)
+        return p, mo, ve
+    fresh = lambda: (p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0))  # noqa: E731
+    got, ref = adamw(optim.adamw_update, fresh()), adamw(optim.adamw_update_plain, fresh())
+    err = 0.0
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+        err = max(err, float((a - b).abs().max()))
+    state = fresh()
+    run_k = lambda: optim.adamw_update(state[0], grads[0], state[1], state[2], 3e-4, 0.9,  # noqa
+                                       0.999, 1e-8, 1e-4, 0.1, 0.001)
+    run_p = lambda: optim.adamw_update_plain(state[0], grads[0], state[1], state[2], 3e-4,  # noqa
+                                             0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
+    out.append(("adamw", err, time_ms(run_k), time_ms(run_p), n))
+    return out
+
+
+def train_step_timing(tok, steps: int = 5) -> dict:
+    """One whole dual-encoder train step (InfoNCE, B=TRAIN_B, T=TRAIN_T,
+    MiniLM-L6 with the full vocab) with kernels and with plain versions, in
+    turns (plain, kernels, kernels, plain) → ms per step of each."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.models.bert import BertConfig, BertForEmbedding, random_init
+    from stract_tpu_torch.optim import AdamW
+    from stract_tpu_torch.parallel.train import info_nce_loss, train_step
+
+    rng = np.random.default_rng(SEED + 6)
+    queries = bc.sample_queries(rng, TRAIN_B)
+    q_ids, q_mask, _ = tok.encode_batch(queries, TRAIN_T)
+    d_ids, d_mask, _ = tok.encode_batch([" ".join(bc.sample_queries(rng, 20)) for _ in queries],
+                                        TRAIN_T)
+    batch = {k: torch.from_numpy(a).to(DEVICE) for k, a in
+             (("q_ids", q_ids), ("q_mask", q_mask), ("d_ids", d_ids), ("d_mask", d_mask))}
+    model = random_init(BertForEmbedding(BertConfig.mini_lm(vocab_size=VOCAB),
+                                         param_dtype=torch.float32), SEED).to(DEVICE)
+    opt = AdamW(model.parameters(), 3e-4)
+
+    def timed():
+        train_step(model, opt, batch, info_nce_loss)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(model, opt, batch, info_nce_loss)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    res = {"kernels": [], "plain": []}
+    for kind in ("plain", "kernels", "kernels", "plain"):
+        if kind == "plain":
+            with plain_versions():
+                res[kind].append(timed())
+        else:
+            res[kind].append(timed())
+    return {k: min(v) for k, v in res.items()}
+
+
 def main() -> int:
     import torch
 
@@ -573,16 +775,20 @@ def main() -> int:
         f"p50_ms={served_off['p50_ms']:.1f} p99_ms={served_off['p99_ms']:.1f} "
         f"device_mem_peak_MiB={torch.cuda.max_memory_allocated() / 2**20:.0f} card={card}")
 
-    # ---- pipeline on: models, embedding columns, K4 + K5a-c -------------------------
+    # ---- training, then pipeline on: models, embedding columns, K4 + K5a-d, K14a-d ---
     models = models_phase(searcher, index_dir, os.path.join(data_dir, "models"))
     dual = DualEncoder.load(models["dual"], device=DEVICE)
     emb = write_embedding_columns(index_dir, dual, batch=EMB_BATCH, log=log)
     torch.cuda.synchronize()
     log(f"[embeddings] {emb['docs']} docs x {emb['dim']} in {emb['seconds']:.1f}s: "
         f"{emb['docs'] / emb['seconds']:.0f} docs/s card={card}")
+    tok = dual.tokenizer
     del dual
     forest = LambdaMART.load(models["forest"], device=DEVICE)
-    rows_m = model_kernel_phase(forest, models["rows"])
+    rows_m = model_kernel_phase(forest, models["rows"]) + training_kernel_phase(models["dual"])
+    step_ms = train_step_timing(tok)
+    log(f"[train step] dual InfoNCE step B={TRAIN_B} T={TRAIN_T}: kernels "
+        f"{step_ms['kernels']:.2f} ms, plain versions {step_ms['plain']:.2f} ms card={card}")
     for name, ds, err, ms, pms, shape in rows:
         log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
             f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms")
@@ -594,7 +800,7 @@ def main() -> int:
     on = build_searcher(index_dir, DEVICE, dual_encoder=models["dual"],
                         cross_encoder=models["cross"], lambdamart=models["forest"])
     torch.cuda.reset_peak_memory_stats()
-    served = serve_phase(on, tuple(kernels.LAUNCHES))
+    served = serve_phase(on, SERVING)
     log(f"[serve on] {json.dumps(served)}")
     cmp_on = compare_phase(on, forest=on.pipeline.recall.lambdamart)
     log(f"[compare on] top-10 kernels vs plain versions: {json.dumps(cmp_on)}")
@@ -615,16 +821,31 @@ def main() -> int:
             "add_layernorm": ("triton", "stract_tpu_torch/ops/encoder.py",
                               "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
             "bias_gelu": ("triton", "stract_tpu_torch/ops/encoder.py",
-                          "stract_tpu/models/bert.py:170", ENC_B * ENC_T)}
+                          "stract_tpu/models/bert.py:170", ENC_B * ENC_T),
+            "mean_pool": ("triton", "stract_tpu_torch/ops/encoder.py",
+                          "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
+            "attention_backward": ("cuda", src + "encoder.cu",
+                                   "stract_tpu/entrypoint/train_encoders.py:244", TRAIN_T),
+            "add_layernorm_backward": ("triton", "stract_tpu_torch/ops/encoder.py",
+                                       "stract_tpu/entrypoint/train_encoders.py:244",
+                                       TRAIN_B * TRAIN_T),
+            "bias_gelu_backward": ("triton", "stract_tpu_torch/ops/encoder.py",
+                                   "stract_tpu/entrypoint/train_encoders.py:244",
+                                   TRAIN_B * TRAIN_T),
+            "adamw": ("triton", "stract_tpu_torch/optim.py",
+                      "stract_tpu/entrypoint/train_encoders.py:244", None)}
     all_rows = [(r[0], r[2], r[3], r[4], r[5], r[1]) for r in rows] + \
         [(*r, True) for r in rows_m]
     kernels_out = []
     for name, (route, source, replaces, main_shape) in meta.items():
         mine = [r for r in all_rows if r[0] == name]
-        main_row = next(r for r in mine if r[4] == main_shape and r[5])
+        main_row = next(r for r in mine if main_shape in (None, r[4]) and r[5])
+        # each kernel's launches in the run of its own path: training for the
+        # training kernels and the pool, the pipeline-on traffic for the rest
+        path = models["launches"] if name in TRAINING[3:] else served["launches"]
         kernels_out.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": served["launches"][name], "max_abs_err": max(r[1] for r in mine),
+            "launches": path[name], "max_abs_err": max(r[1] for r in mine),
             "ms": main_row[2], "plain_ms": main_row[3]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)

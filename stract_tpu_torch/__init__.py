@@ -9,17 +9,22 @@ device program. Layout mirrors stract_tpu/:
   ops/scoring.py     stage A / stage B / pass-2 programs: plain PyTorch
                      versions and the dispatch to the CUDA kernels
   ops/forest.py      the LambdaMART forest walk (K4)
-  ops/encoder.py     the BERT encoder's attention, residual + LayerNorm and
-                     bias + GELU (K5a-c)
+  ops/encoder.py     the BERT encoder's attention, residual + LayerNorm,
+                     bias + GELU and mean pool (K5a-d), and the gradients of
+                     the first three (K14a-c), as autograd Functions
   ops/kernels.py     nvcc build + ctypes binding of csrc/*.cu, launch counts
-  models/            BERT, dual encoder, checkpoint store, WordPiece
+  optim.py           AdamW as optax.adamw, one fused update (K14d)
+  models/            BERT (serving and f32-master training forms), dual
+                     encoder, checkpoint store, WordPiece
+  parallel/train.py  the encoders' train steps and losses (one card)
+  entrypoint/        encoder training: triples, trainers, the bench tool
   index/             segment reader, DeviceSegment, InvertedIndex (serving),
                      embedding-column writer
   ranking/, query/   slot planning, cross encoder, LambdaMART, query parser
                      and planner
   searcher/, api/    local shard, coordinator, batcher, HTTP route
   bench_corpus.py    synthetic corpus writer and query generator
-  main.py            `serve` role
+  main.py            `serve` and `train-encoders`
 """
 
 __version__ = "0.1.0"

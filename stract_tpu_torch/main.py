@@ -2,6 +2,8 @@
 
     python -m stract_tpu_torch.main serve --index DIR --port N --device cuda \
         [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE]
+    python -m stract_tpu_torch.main train-encoders {dual,cross,both} INDEX OUT \
+        [--steps 120] [--batch 16] [--triples 512] [--device cuda]
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -16,6 +18,12 @@ encoder into the precision stage, the forest (LightGBM text when the file
 holds "Tree=", else JSON) into both. Encoder dirs are native checkpoints of
 either package or HF safetensors dirs. Recall's embedding similarity reads
 the index's embedding columns (index/embeddings.py writes them).
+
+`train-encoders` is the JAX package's subcommand of the same name
+(entrypoint/train_encoders.py): it trains the dual encoder, the cross
+encoder or both (each on its own, at the tiny config) on triples
+synthesised from INDEX and saves them under OUT/dual_encoder and
+OUT/cross_encoder; --device cuda needs a card.
 """
 
 from __future__ import annotations
@@ -118,7 +126,30 @@ def main(argv=None):
     sp.add_argument("--dual-encoder", default="", help="dual encoder dir (recall stage)")
     sp.add_argument("--cross-encoder", default="", help="cross encoder dir (precision stage)")
     sp.add_argument("--lambdamart", default="", help="forest file, LightGBM text or JSON")
+    tp = sub.add_parser("train-encoders", help="fine-tune dual/cross encoders from an index")
+    tp.add_argument("kind", choices=["dual", "cross", "both"])
+    tp.add_argument("index_path")
+    tp.add_argument("out_dir")
+    tp.add_argument("--steps", type=int, default=120)
+    tp.add_argument("--batch", type=int, default=16)
+    tp.add_argument("--triples", type=int, default=512)
+    tp.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args(argv)
+
+    if args.role == "train-encoders":
+        import os
+
+        from .entrypoint import train_encoders as te
+
+        if args.kind in ("dual", "both"):
+            te.train_dual_encoder(args.index_path, os.path.join(args.out_dir, "dual_encoder"),
+                                  steps=args.steps, batch=args.batch, n_triples=args.triples,
+                                  device=args.device)
+        if args.kind in ("cross", "both"):
+            te.train_cross_encoder(args.index_path, os.path.join(args.out_dir, "cross_encoder"),
+                                   steps=args.steps, batch=args.batch, n_triples=args.triples,
+                                   device=args.device)
+        return
 
     from .api.server import build_app
 

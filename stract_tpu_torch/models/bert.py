@@ -2,18 +2,23 @@
 reranker backbone: embeddings + encoder, a mean-pooled embedding head for
 the dual encoder and a score head for the cross encoder).
 
-Numerics follow the JAX package (flax, bf16 compute, f32 params): the
-projection and embedding weights are stored here in bf16, rounded once from
-the f32 checkpoint (the round-to-nearest-even cast flax applies at every
-call); LayerNorm parameters and the score head stay f32. The projections are
-bf16 `F.linear` products; attention, residual + LayerNorm and bias + GELU go
-through ops/encoder.py (K5a-c: kernels on a card, plain twins on the CPU).
+Numerics follow the JAX package (flax, bf16 compute, f32 params). Two
+forms: the serving modules (the default) store the projection and embedding
+weights in bf16, rounded once from the f32 checkpoint (the round-to-nearest-
+even cast flax applies at every call); the training form
+(`param_dtype=torch.float32`) holds them as f32 masters and casts them to
+bf16 at every call, as flax does, so each master's gradient is the bf16
+cotangent widened to f32. Both compute the same numbers. LayerNorm
+parameters and the score head stay f32 in both. The projections are bf16
+`F.linear` products; attention, residual + LayerNorm, bias + GELU and the
+mean pool go through ops/encoder.py (K5a-d and their gradients K14a-c:
+kernels on a card, plain twins on the CPU).
 
 Parameter names mirror the flax tree ("bert.layer_0.attention.query.weight"
 for params/bert/layer_0/attention/query/kernel), so `params_from_jax` and
 `params_to_jax` are a renaming plus the [in, out] ↔ [out, in] transpose.
-The expert-parallel MoE FFN of the JAX package is not ported (training
-only).
+The expert-parallel MoE FFN of the JAX package (`num_experts > 0`) is not
+ported: the trainers of both packages build dense FFNs.
 """
 
 from __future__ import annotations
@@ -88,51 +93,64 @@ class LayerNorm(nn.Module):
         return E.add_layernorm(x, r, self.weight, self.bias, self.eps)
 
 
+def _bf16(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as the bf16 value flax computes with: the cast of an f32
+    master (differentiable, so its gradient is the bf16 one widened), the
+    parameter itself when it is stored in bf16."""
+    return p.to(BF16)
+
+
+def _linear(x, m: nn.Linear, bias: bool = True):
+    return F.linear(x, _bf16(m.weight), _bf16(m.bias) if bias else None)
+
+
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
         super().__init__()
         H = cfg.hidden_size
         self.num_heads = cfg.num_heads
-        self.query, self.key, self.value, self.out = (nn.Linear(H, H, dtype=BF16)
+        self.query, self.key, self.value, self.out = (nn.Linear(H, H, dtype=param_dtype)
                                                       for _ in range(4))
 
     def forward(self, x, mask):
         B, T, H = x.shape
         shape = (B, T, self.num_heads, H // self.num_heads)
-        q, k, v = (F.linear(x, m.weight, m.bias).reshape(shape)
-                   for m in (self.query, self.key, self.value))
+        q, k, v = (_linear(x, m).reshape(shape) for m in (self.query, self.key, self.value))
         ctx = E.attention(q, k, v, mask)
-        return F.linear(ctx, self.out.weight, self.out.bias)
+        return _linear(ctx, self.out)
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
         super().__init__()
-        self.attention = BertSelfAttention(cfg)
+        self.attention = BertSelfAttention(cfg, param_dtype)
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, dtype=BF16)
-        self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, dtype=BF16)
+        self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, dtype=param_dtype)
+        self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, dtype=param_dtype)
         self.mlp_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, x, mask):
         x = self.attn_ln(x, self.attention(x, mask))
-        h = E.bias_gelu(F.linear(x, self.mlp_in.weight), self.mlp_in.bias)
-        return self.mlp_ln(x, F.linear(h, self.mlp_out.weight, self.mlp_out.bias))
+        h = E.bias_gelu(_linear(x, self.mlp_in, bias=False), _bf16(self.mlp_in.bias))
+        return self.mlp_ln(x, _linear(h, self.mlp_out))
 
 
 class BertEncoder(nn.Module):
-    """Embeddings + transformer stack → final hidden states bf16[B, T, H]."""
+    """Embeddings + transformer stack → final hidden states bf16[B, T, H].
+    `param_dtype` is the storage of the projection and embedding weights:
+    bf16 to serve, float32 to train (f32 masters, cast per call)."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, H, dtype=BF16)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, H, dtype=BF16)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H, dtype=BF16)
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, H, dtype=param_dtype)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, H,
+                                                dtype=param_dtype)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H, dtype=param_dtype)
         self.emb_ln = LayerNorm(H, cfg.layer_norm_eps)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", BertLayer(cfg))
+            self.add_module(f"layer_{i}", BertLayer(cfg, param_dtype))
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         c = self.cfg
@@ -141,9 +159,9 @@ class BertEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         pos_ids = torch.arange(T, device=input_ids.device).clamp_max(
             c.max_position_embeddings - 1)
-        word = F.embedding(input_ids, self.word_embeddings.weight)
-        pos = F.embedding(pos_ids, self.position_embeddings.weight)[None]
-        typ = F.embedding(token_type_ids, self.token_type_embeddings.weight)
+        word = F.embedding(input_ids, _bf16(self.word_embeddings.weight))
+        pos = F.embedding(pos_ids, _bf16(self.position_embeddings.weight))[None]
+        typ = F.embedding(token_type_ids, _bf16(self.token_type_embeddings.weight))
         # (word + pos) + typ: the reference's bf16 rounding order
         x = self.emb_ln(word + pos, typ)
         mask = attention_mask.to(torch.int32).contiguous()
@@ -152,44 +170,33 @@ class BertEncoder(nn.Module):
         return x
 
 
-def _mean_pool(h, attention_mask):
-    """The reference's masked mean: bf16 sums (reduced in f32), divided by
-    max(count, 1) in bf16, then f32."""
-    m = attention_mask[:, :, None].to(h.dtype)
-    pooled = (h * m).float().sum(dim=1).to(h.dtype)
-    count = m.float().sum(dim=1).to(h.dtype).clamp_min(1.0)
-    return (pooled / count).float()
-
-
 class BertForEmbedding(nn.Module):
-    """Mean-pooled, L2-normalised sentence embedding → f32[B, H]."""
+    """Mean-pooled, L2-normalised sentence embedding → f32[B, H] (K5d)."""
 
-    def __init__(self, cfg: BertConfig, normalize: bool = True):
+    def __init__(self, cfg: BertConfig, normalize: bool = True,
+                 param_dtype: torch.dtype = BF16):
         super().__init__()
-        self.bert = BertEncoder(cfg)
+        self.bert = BertEncoder(cfg, param_dtype)
         self.normalize = normalize
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         h = self.bert(input_ids, attention_mask, token_type_ids)
-        pooled = _mean_pool(h, attention_mask)
-        if self.normalize:
-            pooled = pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
-        return pooled
+        return E.mean_pool(h, attention_mask.to(torch.int32).contiguous(), self.normalize)
 
 
 class BertForSequenceScore(nn.Module):
-    """CLS (or masked mean) → f32 linear score head → f32[B] logits."""
+    """CLS (or masked mean, K5d) → f32 linear score head → f32[B] logits."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
         super().__init__()
-        self.bert = BertEncoder(cfg)
+        self.bert = BertEncoder(cfg, param_dtype)
         self.score = nn.Linear(cfg.hidden_size, 1, dtype=torch.float32)
         self.pool = cfg.score_pool
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         h = self.bert(input_ids, attention_mask, token_type_ids)
         if self.pool == "mean":
-            pooled = _mean_pool(h, attention_mask)
+            pooled = E.mean_pool(h, attention_mask.to(torch.int32).contiguous())
         else:
             pooled = h[:, 0, :].float()
         return F.linear(pooled, self.score.weight, self.score.bias)[:, 0]

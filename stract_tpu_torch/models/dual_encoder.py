@@ -73,7 +73,20 @@ class DualEncoder:
         model = random_init(BertForEmbedding(cfg), seed).to(device)
         return cls(cfg, model, tokenizer, max_len=min(MAX_TOKENS, cfg.max_position_embeddings))
 
+    @classmethod
+    def from_masters(cls, cfg: BertConfig, model: BertForEmbedding,
+                     tokenizer: WordPieceTokenizer, max_len: int = MAX_TOKENS) -> "DualEncoder":
+        """A trained encoder: `model` holds f32 masters (the training form,
+        `param_dtype=torch.float32`). It embeds as it is (cast per call: the
+        same numbers as the bf16 serving form) and `save` writes the f32
+        masters, as the JAX package saves its f32 params."""
+        if model.bert.word_embeddings.weight.dtype != torch.float32:
+            raise ValueError("from_masters takes a model holding f32 masters")
+        return cls(cfg, model, tokenizer, max_len=max_len)
+
     def save(self, path: str) -> None:
+        """The model's parameters as they are held: f32 masters for a trained
+        encoder, the bf16 serving weights widened exactly otherwise."""
         from .store import save_encoder
 
         save_encoder(path, self.cfg, self.model.state_dict(), self.tokenizer, self.max_len, "dual")

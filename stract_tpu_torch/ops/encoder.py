@@ -1,24 +1,42 @@
-"""The BERT encoder's non-matmul body (K5), the port of the body of
-stract_tpu/models/bert.py:81-205 — three kernels, each with its plain
-PyTorch twin:
+"""The BERT encoder's non-matmul body (K5) and its gradients (K14a-c), the
+port of the body of stract_tpu/models/bert.py:81-247 and of what
+`jax.value_and_grad` differentiates through it in the training steps
+(stract_tpu/entrypoint/train_encoders.py:244, parallel/train.py:87,115).
+Each piece is a kernel with its plain PyTorch twin, forward and backward:
 
-  K5a attention      masked softmax attention (bert.py:97-103): CUDA C++,
-                     csrc/encoder.cu, bound through ops/kernels.py
-  K5b add_layernorm  bf16 residual add + f32 LayerNorm, cast to bf16
-                     (bert.py:164-165, :173-174, and the embedding LN at
-                     :204-205): Triton
-  K5c bias_gelu      bf16 bias add + tanh GELU (bert.py:170-171): Triton
+  K5a  attention            masked softmax attention (bert.py:97-103): CUDA C++,
+  K14a attention backward   csrc/encoder.cu, bound through ops/kernels.py
+  K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
+  K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
+                            :204-205): Triton
+  K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): Triton
+  K14c  ... backward
+  K5d  mean_pool            masked mean pool, optionally L2-normalised
+       (+ its backward)     (bert.py:222-226, :243-245): Triton
 
-The q/k/v, output and FFN projections stay bf16 `torch.nn.functional.linear`
-products outside these kernels, as the JAX package leaves its `nn.Dense`
-products to XLA. Each public function picks by where its input lies: a CPU
-tensor takes the plain twin, a CUDA tensor launches the kernel or raises.
+The public functions (attention, add_layernorm, bias_gelu, mean_pool) are
+`torch.autograd.Function`s. Their forward and backward each pick by where
+the input lies: a CPU tensor takes the plain twin, a CUDA tensor launches
+the kernel or raises (the `*_forward` / `*_backward` dispatchers below).
+The q/k/v, output and FFN projections and their gradients stay bf16
+`torch.nn.functional.linear` products on cuBLAS, as the JAX package leaves
+its `nn.Dense` products to XLA; so do the embedding tables' scatter-add
+backward and the CLS readout.
 
 Numerics follow the reference (flax on XLA): sums of two bf16 tensors round
 to bf16 once; LayerNorm statistics are f32 with var = E[x^2] - E[x]^2
 clipped at 0 (flax's fast variance), y = (x - mean) * (rsqrt(var + eps) *
 scale) + bias; GELU is jax.nn.gelu's default tanh form, whose constants
 sqrt(2/pi) and 0.044715 jax rounds to the input's dtype (bf16) before use.
+The backward twins put their roundings where jax.vjp of that body puts
+them: every cotangent of a bf16 value is rounded to bf16 (the transpose of
+each f32 -> bf16 cast), the softmax gradient uses the f32 probabilities
+while dV uses the bf16-rounded ones, the attention cotangent dP = dO.V^T is
+rounded to bf16 before the softmax gradient, masked scores get no gradient.
+
+The twins compute in the input's dtype with float32-or-wider sums, so given
+float64 inputs they round nowhere, and torch.autograd.gradcheck can check
+each backward twin against its forward.
 
 Triton is imported inside the launching function only: the CPU tests import
 this module where there is no triton.
@@ -36,22 +54,49 @@ BF16 = torch.bfloat16
 # jax.nn.gelu(approximate=True) on a bf16 input: its constants in bf16
 GELU_C1 = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=BF16))  # 0.796875
 GELU_C2 = float(torch.tensor(0.044715, dtype=BF16))                   # 0.044677734375
+# rows per program of K14b's column partials, and of K14c's tiles
+LN_BWD_ROWS, GELU_BWD_ROWS, GELU_BWD_COLS = 32, 32, 256
 _TRITON: dict = {}
 
 
-# ---- K5a: masked attention ----------------------------------------------------------
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The sum dtype of a twin: float32, or the input's when wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+# ---- K5a / K14a: masked attention ----------------------------------------------------
 def attention_plain(q, k, v, mask):
     """q, k, v bf16[B, T, h, d], mask [B, T] (nonzero = keep) → bf16[B, T, h*d]."""
     B, T, h, d = q.shape
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(d)
+    acc = _acc(q.dtype)
+    scores = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) / math.sqrt(d)
     keep = (mask != 0)[:, None, None, :]
     scores = torch.where(keep, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    ctx = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
+    ctx = torch.einsum("bhts,bshd->bthd", probs.to(acc), v.to(acc))
     return ctx.to(q.dtype).reshape(B, T, h * d)
 
 
-def attention(q, k, v, mask):
+def attention_backward_plain(q, k, v, mask, dout):
+    """The VJP of attention_plain: dout [B, T, h*d] → (dq, dk, dv), each
+    [B, T, h, d] in q's dtype."""
+    B, T, h, d = q.shape
+    acc = _acc(q.dtype)
+    qf, kf, vf = (t.to(acc) for t in (q, k, v))
+    keep = (mask != 0)[:, None, None, :]
+    scores = torch.einsum("bthd,bshd->bhts", qf, kf) / math.sqrt(d)
+    p = torch.softmax(torch.where(keep, scores, torch.finfo(torch.float32).min), dim=-1)
+    g = dout.reshape(B, T, h, d).to(acc)
+    dv = torch.einsum("bhts,bthd->bshd", p.to(q.dtype).to(acc), g).to(q.dtype)
+    dp = torch.einsum("bthd,bshd->bhts", g, vf).to(q.dtype).to(acc)
+    ds = p * dp - p * (p * dp).sum(dim=-1, keepdim=True)
+    ds = torch.where(keep, ds, 0.0) / math.sqrt(d)
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf).to(q.dtype)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf).to(q.dtype)
+    return dq, dk, dv
+
+
+def attention_forward(q, k, v, mask):
     if not q.is_cuda:
         return attention_plain(q, k, v, mask)
     B, T, h, d = q.shape
@@ -61,23 +106,78 @@ def attention(q, k, v, mask):
     return out
 
 
-# ---- K5b: residual add + LayerNorm --------------------------------------------------
+def attention_backward(q, k, v, mask, dout):
+    if not q.is_cuda:
+        return attention_backward_plain(q, k, v, mask, dout)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    kernels.attention_backward(q, k, v, mask.to(torch.int32).contiguous(),
+                               dout.contiguous(), dq, dk, dv)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return attention_forward(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*attention_backward(*ctx.saved_tensors, dout), None)
+
+
+def attention(q, k, v, mask):
+    """Masked attention, differentiable in q, k and v."""
+    return _Attention.apply(q, k, v, mask)
+
+
+# ---- K5b / K14b: residual add + LayerNorm --------------------------------------------
 def add_layernorm_plain(x, r, weight, bias, eps: float):
     """LN(bf16(x + r)) in f32 with f32 weight and bias → bf16, shape of x."""
-    s = (x + r).float()
+    s = (x + r).to(_acc(x.dtype))
     mean = s.mean(dim=-1, keepdim=True)
     var = ((s * s).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
     mul = torch.rsqrt(var + eps) * weight
-    return ((s - mean) * mul + bias).to(BF16)
+    return ((s - mean) * mul + bias).to(x.dtype)
 
 
-def add_layernorm(x, r, weight, bias, eps: float):
-    if not x.is_cuda:
-        return add_layernorm_plain(x, r, weight, bias, eps)
+def add_layernorm_backward_plain(x, r, weight, eps: float, dy):
+    """The VJP of add_layernorm_plain: dy (x's shape) → (ds, dweight, dbias);
+    ds, in x's dtype, is the cotangent of both x and r (the rounded sum's)."""
+    N = x.shape[-1]
+    acc = _acc(x.dtype)
+    s = (x + r).to(acc)
+    mean = s.mean(dim=-1, keepdim=True)
+    z = (s * s).mean(dim=-1, keepdim=True) - mean * mean
+    var = z.clamp_min(0.0)
+    rinv = torch.rsqrt(var + eps)
+    g = dy.to(acc)
+    xc = s - mean
+    dbias = g.reshape(-1, N).sum(dim=0)
+    dweight = (g * xc * rinv).reshape(-1, N).sum(dim=0)
+    dxc = g * (rinv * weight)
+    drinv = (g * xc * weight).sum(dim=-1, keepdim=True)
+    dz = torch.where(z > 0, drinv * (-0.5 * (rinv / (var + eps))), 0.0)
+    dmean = -dxc.sum(dim=-1, keepdim=True) - 2.0 * mean * dz
+    # the reference rounds the (s - mean) path and the statistics' path to
+    # bf16 apart, then adds them in bf16
+    ds = dxc.to(x.dtype) + (dmean / N + (dz / N) * (2.0 * s)).to(x.dtype)
+    return ds, dweight.to(weight.dtype), dbias.to(weight.dtype)
+
+
+def _check_add_layernorm(x, r, weight, bias=None) -> None:
     N = x.shape[-1]
     for t, dtype, shape in ((x, BF16, None), (r, BF16, x.shape), (weight, torch.float32, (N,)),
                             (bias, torch.float32, (N,))):
         kernels._ptr(t, dtype, shape)
+
+
+def add_layernorm_forward(x, r, weight, bias, eps: float):
+    if not x.is_cuda:
+        return add_layernorm_plain(x, r, weight, bias, eps)
+    _check_add_layernorm(x, r, weight, bias)
+    N = x.shape[-1]
     xs, rs = x.reshape(-1, N), r.reshape(-1, N)
     out = torch.empty_like(xs)
     if xs.shape[0]:
@@ -88,15 +188,77 @@ def add_layernorm(x, r, weight, bias, eps: float):
     return out.reshape(x.shape)
 
 
-# ---- K5c: bias + GELU -----------------------------------------------------------------
+def add_layernorm_backward(x, r, weight, eps: float, dy):
+    if not x.is_cuda:
+        return add_layernorm_backward_plain(x, r, weight, eps, dy)
+    dy = dy.contiguous()
+    _check_add_layernorm(x, r, weight)
+    kernels._ptr(dy, BF16, x.shape)
+    N = x.shape[-1]
+    M = x.numel() // N
+    ds = torch.empty_like(x)
+    dweight = torch.zeros(N, dtype=torch.float32, device=x.device)
+    dbias = torch.zeros_like(dweight)
+    if M:
+        parts = _cdiv(M, LN_BWD_ROWS)
+        partial = torch.empty((2, parts, N), dtype=torch.float32, device=x.device)
+        t = _triton_kernels()
+        t["add_layernorm_bwd"][(parts,)](x, r, weight, dy, ds, partial[0], partial[1], M, N,
+                                         float(eps), ROWS=LN_BWD_ROWS,
+                                         BLOCK=max(_next_pow2(N), 32), num_warps=4)
+        for p, out in ((partial[0], dweight), (partial[1], dbias)):
+            t["col_sum"][(_cdiv(N, 128),)](p, out, parts, N, BLOCK_R=32, BLOCK_N=128,
+                                           num_warps=4)
+        kernels.counted("add_layernorm_backward")
+    return ds, dweight, dbias
+
+
+class _AddLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r, weight, bias, eps):
+        ctx.save_for_backward(x, r, weight)
+        ctx.eps = eps
+        return add_layernorm_forward(x, r, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, r, weight = ctx.saved_tensors
+        ds, dweight, dbias = add_layernorm_backward(x, r, weight, ctx.eps, dy)
+        return ds, ds, dweight, dbias, None
+
+
+def add_layernorm(x, r, weight, bias, eps: float):
+    """LN(bf16(x + r)), differentiable in x, r, weight and bias."""
+    return _AddLayerNorm.apply(x, r, weight, bias, eps)
+
+
+# ---- K5c / K14c: bias + GELU ---------------------------------------------------------
 def bias_gelu_plain(y, b):
     """gelu_tanh(bf16(y + b)) → bf16; y bf16[..., N], b [N]."""
-    s = (y + b.to(BF16)).float()
+    s = (y + b.to(y.dtype)).to(_acc(y.dtype))
     cdf = 0.5 * (1.0 + torch.tanh(GELU_C1 * (s + GELU_C2 * (s * s * s))))
-    return (s * cdf).to(BF16)
+    return (s * cdf).to(y.dtype)
 
 
-def bias_gelu(y, b):
+def bias_gelu_backward_plain(y, b, dout):
+    """The VJP of jax.nn.gelu(y + b) as jax differentiates it: every step of
+    the chain rule is an op in y's dtype, rounded on its own (`rd`), in the
+    reference's order → (dy, db), both in y's dtype; db is the column sum of
+    the rounded dy, taken in f32."""
+    acc = _acc(y.dtype)
+    rd = lambda t: t.to(y.dtype).to(acc)  # noqa: E731
+    f = (y + b.to(y.dtype)).to(acc)
+    c = dout.to(acc)
+    f2 = rd(f * f)
+    m = rd(torch.tanh(rd(GELU_C1 * rd(f + rd(GELU_C2 * rd(f2 * f))))))
+    t = rd(rd(0.5 * rd(f * c)) * rd(1.0 - m))
+    w = rd(GELU_C1 * rd(t + rd(t * m)))
+    dy = rd(rd(rd(c * rd(0.5 * rd(1.0 + m))) + w) + rd(rd(GELU_C2 * w) * rd(3.0 * f2)))
+    db = dy.reshape(-1, y.shape[-1]).sum(dim=0)
+    return dy.to(y.dtype), db.to(y.dtype)
+
+
+def bias_gelu_forward(y, b):
     if not y.is_cuda:
         return bias_gelu_plain(y, b)
     N = y.shape[-1]
@@ -113,6 +275,139 @@ def bias_gelu(y, b):
     return out
 
 
+def bias_gelu_backward(y, b, dout):
+    if not y.is_cuda:
+        return bias_gelu_backward_plain(y, b, dout)
+    dout = dout.contiguous()
+    N = y.shape[-1]
+    kernels._ptr(y, BF16)
+    kernels._ptr(b, BF16, (N,))
+    kernels._ptr(dout, BF16, y.shape)
+    M = y.numel() // N
+    dy = torch.empty_like(y)
+    db = torch.zeros(N, dtype=BF16, device=y.device)
+    if M:
+        parts = _cdiv(M, GELU_BWD_ROWS)
+        partial = torch.empty((parts, N), dtype=torch.float32, device=y.device)
+        t = _triton_kernels()
+        t["bias_gelu_bwd"][(parts, _cdiv(N, GELU_BWD_COLS))](
+            y, b, dout, dy, partial, M, N, GELU_C1, GELU_C2, BLOCK_M=GELU_BWD_ROWS,
+            BLOCK_N=GELU_BWD_COLS, num_warps=4)
+        t["col_sum"][(_cdiv(N, 128),)](partial, db, parts, N, BLOCK_R=32, BLOCK_N=128,
+                                       num_warps=4)
+        kernels.counted("bias_gelu_backward")
+    return dy, db
+
+
+class _BiasGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.save_for_backward(y, b)
+        return bias_gelu_forward(y, b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return bias_gelu_backward(*ctx.saved_tensors, dout)
+
+
+def bias_gelu(y, b):
+    """gelu_tanh(bf16(y + b)), differentiable in y and b (b in y's dtype)."""
+    return _BiasGelu.apply(y, b)
+
+
+# ---- K5d: masked mean pool (+ L2 norm) -----------------------------------------------
+def _pool_count(mask, dtype):
+    """max(count of kept tokens, 1) per row, rounded to `dtype` as the
+    reference's bf16 mask sum is → [B, 1] in the twin's sum dtype."""
+    m = (mask != 0).to(_acc(dtype))
+    return m.sum(dim=1, keepdim=True).to(dtype).clamp_min(1.0).to(_acc(dtype))
+
+
+def mean_pool_plain(h, mask, normalize: bool):
+    """h bf16[B, T, H], mask [B, T] → (pooled, raw), both f32[B, H]: raw is
+    the reference's masked mean (bf16 sums reduced in f32, divided by
+    max(count, 1) in bf16), pooled is raw divided by max(L2 norm, 1e-9) if
+    `normalize`, else raw itself."""
+    acc = _acc(h.dtype)
+    m = (mask != 0)[:, :, None].to(h.dtype)
+    total = (h * m).to(acc).sum(dim=1).to(h.dtype)
+    raw = (total / _pool_count(mask, h.dtype).to(h.dtype)).to(acc)
+    if not normalize:
+        return raw, raw
+    return raw / torch.linalg.vector_norm(raw, dim=-1, keepdim=True).clamp_min(1e-9), raw
+
+
+def mean_pool_backward_plain(mask, raw, g, normalize: bool, dtype):
+    """The VJP of mean_pool_plain given its un-normalised output `raw`
+    ([B, H]) and the cotangent g ([B, H]) → dh [B, T, H] in `dtype`."""
+    if normalize:
+        nrm = torch.linalg.vector_norm(raw, dim=-1, keepdim=True)
+        n = nrm.clamp_min(1e-9)
+        dn = -(g * raw).sum(dim=-1, keepdim=True) / (n * n)
+        # below the 1e-9 floor the norm gets no gradient (an all-zero mean,
+        # where the reference's sqrt gradient is 0 * inf: kept finite here)
+        g = g / n + raw * torch.where(nrm > 1e-9, dn * 0.5 / nrm * 2.0, 0.0)
+    dsum = (g.to(dtype) / _pool_count(mask, dtype).to(dtype))
+    m = (mask != 0)[:, :, None].to(dtype)
+    return dsum[:, None, :] * m
+
+
+def mean_pool_forward(h, mask, normalize: bool):
+    """→ (pooled, raw) as mean_pool_plain: raw is what the backward reads."""
+    if not h.is_cuda:
+        return mean_pool_plain(h, mask, normalize)
+    B, T, H = h.shape
+    kernels._ptr(h, BF16)
+    kernels._ptr(mask, torch.int32, (B, T))
+    out = torch.empty((B, H), dtype=torch.float32, device=h.device)
+    raw = torch.empty_like(out) if normalize else out
+    if B:
+        _triton_kernels()["mean_pool"][(B,)](h, mask, out, raw, T, H, NORMALIZE=normalize,
+                                             BLOCK_T=16, BLOCK_H=_next_pow2(H), num_warps=4)
+        kernels.counted("mean_pool")
+    return out, raw
+
+
+def mean_pool_backward(mask, raw, g, normalize: bool, dtype):
+    if not raw.is_cuda:
+        return mean_pool_backward_plain(mask, raw, g, normalize, dtype)
+    g = g.contiguous()
+    B, H = raw.shape
+    T = mask.shape[1]
+    if dtype != BF16:
+        raise ValueError(f"the pool kernel writes bf16 gradients, not {dtype}")
+    kernels._ptr(mask, torch.int32, (B, T))
+    kernels._ptr(raw, torch.float32, (B, H))
+    kernels._ptr(g, torch.float32, (B, H))
+    dh = torch.empty((B, T, H), dtype=BF16, device=raw.device)
+    if B:
+        _triton_kernels()["mean_pool_bwd"][(B,)](mask, raw, g, dh, T, H, NORMALIZE=normalize,
+                                                 BLOCK_T=16, BLOCK_H=_next_pow2(H),
+                                                 num_warps=4)
+        kernels.counted("mean_pool")
+    return dh
+
+
+class _MeanPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, mask, normalize):
+        pooled, raw = mean_pool_forward(h, mask, normalize)
+        ctx.save_for_backward(mask, raw)
+        ctx.normalize, ctx.dtype = normalize, h.dtype
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, raw = ctx.saved_tensors
+        return mean_pool_backward(mask, raw, g, ctx.normalize, ctx.dtype), None, None
+
+
+def mean_pool(h, mask, normalize: bool = False):
+    """The masked mean of h over its tokens (f32[B, H]), L2-normalised when
+    `normalize`; differentiable in h. mask: int32[B, T]."""
+    return _MeanPool.apply(h, mask, normalize)
+
+
 # ---- the Triton kernels ------------------------------------------------------------------
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
@@ -123,11 +418,21 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _triton_kernels() -> dict:
-    """The two Triton kernels, defined (and triton imported) at first use."""
+    """The Triton kernels, defined (and triton imported) at first use."""
     if _TRITON:
         return _TRITON
     import triton
     import triton.language as tl
+
+    @triton.jit
+    def _rd(x):
+        # round an f32 value to bf16 (to nearest, ties to even) and widen it
+        # back, on the bits: the compiler drops some f32 -> bf16 -> f32
+        # round trips written as two casts (measured on the H100: the GELU
+        # chain then skipped roundings the reference makes)
+        u = x.to(tl.uint32, bitcast=True)
+        u = u + (((u >> 16) & 1) + 0x7FFF)
+        return ((u >> 16) << 16).to(tl.float32, bitcast=True)
 
     @triton.jit
     def add_layernorm_kernel(X, R, W, Bias, Y, N, eps, BLOCK: tl.constexpr):
@@ -146,6 +451,54 @@ def _triton_kernels() -> dict:
         tl.store(Y + row * N + cols, ((s - mean) * mul + b).to(tl.bfloat16), mask=m)
 
     @triton.jit
+    def add_layernorm_bwd_kernel(X, R, W, DY, DS, DWP, DBP, M, N, eps, ROWS: tl.constexpr,
+                                 BLOCK: tl.constexpr):
+        # ROWS rows per program: recompute s = bf16(x + r) and its f32
+        # statistics as the forward does, write ds = dx = dr (bf16), and this
+        # program's column partials of dweight and dbias (f32)
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK)
+        cm = cols < N
+        w = tl.load(W + cols, mask=cm, other=0.0)
+        dw = tl.zeros([BLOCK], dtype=tl.float32)
+        db = tl.zeros([BLOCK], dtype=tl.float32)
+        for i in range(ROWS):
+            row = (pid * ROWS + i).to(tl.int64)
+            m = cm & (row < M)
+            x = tl.load(X + row * N + cols, mask=m, other=0.0).to(tl.float32)
+            r = tl.load(R + row * N + cols, mask=m, other=0.0).to(tl.float32)
+            s = (x + r).to(tl.bfloat16).to(tl.float32)
+            mean = tl.sum(s, axis=0) / N
+            z = tl.sum(s * s, axis=0) / N - mean * mean
+            var = tl.maximum(z, 0.0)
+            rinv = 1.0 / tl.sqrt(var + eps)
+            g = tl.load(DY + row * N + cols, mask=m, other=0.0).to(tl.float32)
+            xc = tl.where(m, s - mean, 0.0)
+            db += g
+            dw += g * xc * rinv
+            dxc = g * (rinv * w)
+            drinv = tl.sum(g * xc * w, axis=0)
+            dz = tl.where(z > 0, drinv * (-0.5 * (rinv / (var + eps))), 0.0)
+            dmean = -tl.sum(dxc, axis=0) - 2.0 * mean * dz
+            ds = _rd(dxc) + _rd(dmean / N + (dz / N) * (2.0 * s))
+            tl.store(DS + row * N + cols, ds.to(tl.bfloat16), mask=m)
+        tl.store(DWP + pid * N + cols, dw, mask=cm)
+        tl.store(DBP + pid * N + cols, db, mask=cm)
+
+    @triton.jit
+    def col_sum_kernel(P, OUT, R, N, BLOCK_R: tl.constexpr, BLOCK_N: tl.constexpr):
+        # OUT[c] = sum over the R rows of P[:, c], cast to OUT's dtype
+        cols = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
+        cm = cols < N
+        acc = tl.zeros([BLOCK_N], dtype=tl.float32)
+        for r0 in range(0, R, BLOCK_R):
+            rows = r0 + tl.arange(0, BLOCK_R)
+            tile = tl.load(P + rows[:, None] * N + cols[None, :],
+                           mask=(rows[:, None] < R) & cm[None, :], other=0.0)
+            acc += tl.sum(tile, axis=0)
+        tl.store(OUT + cols, acc.to(OUT.dtype.element_ty), mask=cm)
+
+    @triton.jit
     def bias_gelu_kernel(Y, Bias, O, N, total, c1, c2, BLOCK: tl.constexpr):
         # a flat pass: s = bf16(y + b[col]); tanh GELU in f32; bf16 out
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
@@ -157,5 +510,91 @@ def _triton_kernels() -> dict:
         t = 1.0 - 2.0 / (tl.exp(2.0 * u) + 1.0)  # tanh(u), exact at both tails
         tl.store(O + offs, (s * (0.5 * (1.0 + t))).to(tl.bfloat16), mask=m)
 
-    _TRITON.update(add_layernorm=add_layernorm_kernel, bias_gelu=bias_gelu_kernel)
+    @triton.jit
+    def bias_gelu_bwd_kernel(Y, Bias, DO, DY, DBP, M, N, c1, c2, BLOCK_M: tl.constexpr,
+                             BLOCK_N: tl.constexpr):
+        # a [BLOCK_M, BLOCK_N] tile: dy = bf16(dO * gelu'(s)) at the bf16
+        # constants, and the tile's column partial of db over the rounded dy
+        pm = tl.program_id(0)
+        rows = pm * BLOCK_M + tl.arange(0, BLOCK_M)
+        cols = tl.program_id(1) * BLOCK_N + tl.arange(0, BLOCK_N)
+        cm = cols < N
+        m = (rows[:, None] < M) & cm[None, :]
+        offs = rows[:, None].to(tl.int64) * N + cols[None, :]
+        y = tl.load(Y + offs, mask=m, other=0.0).to(tl.float32)
+        b = tl.load(Bias + cols, mask=cm, other=0.0).to(tl.float32)
+        s = (y + b[None, :]).to(tl.bfloat16).to(tl.float32)
+        c = tl.load(DO + offs, mask=m, other=0.0).to(tl.float32)
+        # the chain rule step by step, each step rounded to bf16 (as the
+        # reference's bf16 ops round; bias_gelu_backward_plain's order)
+        s2 = _rd(s * s)
+        u = _rd(c1 * _rd(s + _rd(c2 * _rd(s2 * s))))
+        th = _rd(1.0 - 2.0 / (tl.exp(2.0 * u) + 1.0))  # tanh(u)
+        t = _rd(_rd(0.5 * _rd(s * c)) * _rd(1.0 - th))
+        w = _rd(c1 * _rd(t + _rd(t * th)))
+        dy = _rd(_rd(_rd(c * _rd(0.5 * _rd(1.0 + th))) + w) + _rd(_rd(c2 * w) * _rd(3.0 * s2)))
+        dy = tl.where(m, dy, 0.0).to(tl.bfloat16)
+        tl.store(DY + offs, dy, mask=m)
+        tl.store(DBP + pm * N + cols, tl.sum(dy.to(tl.float32), axis=0), mask=cm)
+
+    @triton.jit
+    def mean_pool_kernel(Hs, Mask, Out, Raw, T, H, NORMALIZE: tl.constexpr,
+                         BLOCK_T: tl.constexpr, BLOCK_H: tl.constexpr):
+        # one program per batch row: f32 sum of the kept tokens, rounded to
+        # bf16, divided by bf16(max(count, 1)) and rounded again; then the
+        # L2 normalisation in f32
+        b = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_H)
+        cm = cols < H
+        acc = tl.zeros([BLOCK_H], dtype=tl.float32)
+        cnt = tl.zeros([BLOCK_T], dtype=tl.float32)
+        for t0 in range(0, T, BLOCK_T):
+            ts = t0 + tl.arange(0, BLOCK_T)
+            keep = (tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0) & (ts < T)
+            h = tl.load(Hs + (b * T + ts)[:, None] * H + cols[None, :],
+                        mask=keep[:, None] & cm[None, :], other=0.0).to(tl.float32)
+            acc += tl.sum(h, axis=0)
+            cnt += keep.to(tl.float32)
+        count = tl.maximum(tl.sum(cnt, axis=0).to(tl.bfloat16).to(tl.float32), 1.0)
+        raw = (acc.to(tl.bfloat16).to(tl.float32) / count).to(tl.bfloat16).to(tl.float32)
+        if NORMALIZE:
+            tl.store(Raw + b * H + cols, raw, mask=cm)
+            nrm = tl.sqrt(tl.sum(raw * raw, axis=0))
+            raw = raw / tl.maximum(nrm, 1e-9)
+        tl.store(Out + b * H + cols, raw, mask=cm)
+
+    @triton.jit
+    def mean_pool_bwd_kernel(Mask, Raw, G, DH, T, H, NORMALIZE: tl.constexpr,
+                             BLOCK_T: tl.constexpr, BLOCK_H: tl.constexpr):
+        # one program per batch row: the cotangent of the (normalised) mean,
+        # rounded to bf16, divided by the bf16 count, written to every kept
+        # token's row (0 elsewhere)
+        b = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_H)
+        cm = cols < H
+        g = tl.load(G + b * H + cols, mask=cm, other=0.0)
+        if NORMALIZE:
+            raw = tl.load(Raw + b * H + cols, mask=cm, other=0.0)
+            nrm = tl.sqrt(tl.sum(raw * raw, axis=0))
+            n = tl.maximum(nrm, 1e-9)
+            dn = -tl.sum(g * raw, axis=0) / (n * n)
+            g = g / n + raw * tl.where(nrm > 1e-9, dn * 0.5 / nrm * 2.0, 0.0)
+        cnt = tl.zeros([BLOCK_T], dtype=tl.float32)
+        for t0 in range(0, T, BLOCK_T):
+            ts = t0 + tl.arange(0, BLOCK_T)
+            cnt += ((tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0) & (ts < T)).to(
+                tl.float32)
+        count = tl.maximum(tl.sum(cnt, axis=0).to(tl.bfloat16).to(tl.float32), 1.0)
+        dsum = (g.to(tl.bfloat16).to(tl.float32) / count).to(tl.bfloat16)
+        for t0 in range(0, T, BLOCK_T):
+            ts = t0 + tl.arange(0, BLOCK_T)
+            keep = (tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0)
+            val = tl.where(keep[:, None], dsum[None, :], 0.0).to(tl.bfloat16)
+            tl.store(DH + (b * T + ts)[:, None] * H + cols[None, :], val,
+                     mask=(ts < T)[:, None] & cm[None, :])
+
+    _TRITON.update(add_layernorm=add_layernorm_kernel, add_layernorm_bwd=add_layernorm_bwd_kernel,
+                   col_sum=col_sum_kernel, bias_gelu=bias_gelu_kernel,
+                   bias_gelu_bwd=bias_gelu_bwd_kernel, mean_pool=mean_pool_kernel,
+                   mean_pool_bwd=mean_pool_bwd_kernel)
     return _TRITON

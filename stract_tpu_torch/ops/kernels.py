@@ -8,10 +8,12 @@ time: the CPU tests import this module on machines without nvcc or a card.
 
   csrc/scoring.cu   K1 stage A, K2 stage B, K3 pass-2 signals
   csrc/forest.cu    K4 LambdaMART forest walk
-  csrc/encoder.cu   K5a masked attention of the BERT encoder
+  csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
 
-(K5b and K5c, the encoder's residual + LayerNorm and bias + GELU, are Triton
-kernels in ops/encoder.py; they count their launches here too.)
+(K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
+pool, forward and backward, are Triton kernels in ops/encoder.py, and K14d,
+the fused AdamW update, one in optim.py; they count their launches here
+too.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches on PyTorch's current stream, raises on a
@@ -49,7 +51,8 @@ MAX_SMEM = 227 * 1024
 # launches per kernel since the last reset_launches(): the proof that a run of
 # the main path went through the kernels
 LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0, "forest": 0, "attention": 0,
-            "add_layernorm": 0, "bias_gelu": 0}
+            "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
+            "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # the server launches from two worker threads
@@ -155,7 +158,8 @@ def _load(name: str):
                 fns = (lib.stract_forest,)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
-                fns = (lib.stract_attention,)
+                lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
+                fns = (lib.stract_attention, lib.stract_attention_backward)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -289,19 +293,38 @@ def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) 
     counted("forest")
 
 
+def _attention_ptrs(tensors, shape) -> list:
+    B, T, H, D = shape
+    if D != ATTN_HEAD_DIM or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
+        raise ValueError(f"attention takes head dim {ATTN_HEAD_DIM} and 1..{ATTN_MAX_T} "
+                         f"tokens, not q of shape {tuple(shape)}")
+    ptrs = [_ptr(t, torch.bfloat16, (B, T, H, D)) for t in tensors]
+    if any(p % 4 for p in ptrs):
+        raise ValueError("attention reads its rows as bf16 pairs: pointers must be 4-byte aligned")
+    return ptrs
+
+
 def attention(q, k, v, mask, out) -> None:
     """K5a: q, k, v bf16[B, T, H, 32], mask i32[B, T] → out bf16[B, T, H*32]
     (ops/encoder.py allocates)."""
     B, T, H, D = q.shape
-    if D != ATTN_HEAD_DIM or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
-        raise ValueError(f"attention takes head dim {ATTN_HEAD_DIM} and 1..{ATTN_MAX_T} "
-                         f"tokens, not q of shape {tuple(q.shape)}")
+    ptrs = _attention_ptrs((q, k, v), q.shape)
     bf16 = torch.bfloat16
-    ptrs = [_ptr(t, bf16, (B, T, H, D)) for t in (q, k, v)]
-    if any(p % 4 for p in ptrs):
-        raise ValueError("attention reads q, k, v as bf16 pairs: pointers must be 4-byte aligned")
     lib = _load("encoder")
     rc = lib.stract_attention(*ptrs, _ptr(mask, torch.int32, (B, T)),
                               _ptr(out, bf16, (B, T, H * D)), B, T, H, _stream())
     _check(rc, "stract_attention")
     counted("attention")
+
+
+def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
+    """K14a: q, k, v bf16[B, T, H, 32], mask i32[B, T], dout bf16[B, T, H*32]
+    → dq, dk, dv bf16[B, T, H, 32] (ops/encoder.py allocates)."""
+    B, T, H, D = q.shape
+    _ptr(dout, torch.bfloat16, (B, T, H * D))
+    ptrs = _attention_ptrs((q, k, v, dout.view(B, T, H, D), dq, dk, dv), q.shape)
+    lib = _load("encoder")
+    rc = lib.stract_attention_backward(*ptrs[:3], _ptr(mask, torch.int32, (B, T)), *ptrs[3:],
+                                       B, T, H, _stream())
+    _check(rc, "stract_attention_backward")
+    counted("attention_backward")

@@ -40,6 +40,16 @@ class CrossEncoderModel:
         model = random_init(BertForSequenceScore(cfg), seed).to(device)
         return cls(cfg, model, tokenizer, max_len=min(MAX_TOKENS, cfg.max_position_embeddings))
 
+    @classmethod
+    def from_masters(cls, cfg: BertConfig, model: BertForSequenceScore,
+                     tokenizer: WordPieceTokenizer,
+                     max_len: int = MAX_TOKENS) -> "CrossEncoderModel":
+        """A trained cross encoder holding f32 masters (see
+        DualEncoder.from_masters): scores as it is, saves the masters."""
+        if model.bert.word_embeddings.weight.dtype != torch.float32:
+            raise ValueError("from_masters takes a model holding f32 masters")
+        return cls(cfg, model, tokenizer, max_len=max_len)
+
     def save(self, path: str) -> None:
         from ...models.store import save_encoder
 

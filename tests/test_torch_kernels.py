@@ -1,7 +1,9 @@
 """The ranking pipeline's kernels against their plain twins: K4 (forest
-walk, ops/forest.py) and K5a-c (attention, residual + LayerNorm, bias +
-GELU, ops/encoder.py). This file imports the port alone (no jax, no flax),
-so it also runs on a machine with a card and no JAX package:
+walk, ops/forest.py), K5a-d (attention, residual + LayerNorm, bias + GELU,
+mean pool, ops/encoder.py) and the training kernels K14a-d (the backward of
+K5a-c, ops/encoder.py, and the fused AdamW update, optim.py). This file
+imports the port alone (no jax, no flax), so it also runs on a machine with
+a card and no JAX package:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 
@@ -16,7 +18,16 @@ Tolerances, kernel against plain twin on one card:
     plus atol 1e-2 (2e-2 for attention): f32 sums in another order and
     exp / rsqrt / tanh in another implementation can move a value across a
     rounding boundary of the final bf16 cast;
-  - the whole MiniLM-shaped dual encoder, card against CPU: cosine >= 0.999.
+  - the whole MiniLM-shaped dual encoder, card against CPU: cosine >= 0.999;
+  - the backward kernels and the pool (bf16 or bf16-rounded outputs): within
+    one bf16 step of the plain twin's largest magnitude, elementwise
+    (rtol 2^-7, atol 2^-7 x max |plain|): f32 sums in other orders and exp /
+    tanh in other implementations move intermediate values across bf16
+    rounding boundaries (the probabilities, dP, each step of the GELU chain);
+  - the LayerNorm parameter gradients (f32 column sums over the rows):
+    rtol 1e-4, atol 1e-4 x max |plain|;
+  - AdamW over 3 steps: rtol 1e-6, atol 1e-6 x max |plain| (the same f32
+    ops; Triton's division and square root may round differently by an ulp).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
 
 ENC_RTOL, ENC_ATOL = 2 ** -7, 1e-2
+STEP = 2 ** -7
 TEXTS = ["the quick brown fox", "jumps over the lazy dog", "", "fox " * 40]
 
 
@@ -83,6 +95,83 @@ def test_kernel_arguments_are_checked(monkeypatch):
     with pytest.raises(ValueError):  # not contiguous
         E.bias_gelu(torch.zeros((384, 8), dtype=torch.bfloat16).t(),
                     torch.zeros(384, dtype=torch.bfloat16))
+
+
+def test_training_wrappers_never_take_the_plain_path(monkeypatch):
+    """On a CUDA tensor the backward dispatchers, the pool and the AdamW
+    update launch their kernels (stand-ins here), never the plain twins."""
+    from stract_tpu_torch import optim
+
+    called = []
+
+    class Kern:
+        def __init__(self, name):
+            self.name = name
+
+        def __getitem__(self, grid):
+            return lambda *a, **k: called.append(self.name)
+
+    for name in ("attention_backward_plain", "add_layernorm_backward_plain",
+                 "bias_gelu_backward_plain", "mean_pool_plain",
+                 "mean_pool_backward_plain"):
+        monkeypatch.setattr(E, name, lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(optim, "adamw_update_plain", lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(kernels, "attention_backward", lambda *a, **k: called.append("attn"))
+    monkeypatch.setattr(E, "_triton_kernels", lambda: {n: Kern(n) for n in (
+        "add_layernorm_bwd", "col_sum", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd")})
+    monkeypatch.setattr(optim, "_triton_kernel", lambda: Kern("adamw"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    mask = torch.ones((2, 16), dtype=torch.int32)
+    E.attention_backward(bf(2, 16, 12, 32), bf(2, 16, 12, 32), bf(2, 16, 12, 32), mask,
+                         bf(2, 16, 384))
+    E.add_layernorm_backward(bf(32, 384), bf(32, 384), torch.ones(384), 1e-12, bf(32, 384))
+    E.bias_gelu_backward(bf(32, 1536), bf(1536), bf(32, 1536))
+    E.mean_pool_forward(bf(2, 16, 384), mask, True)
+    E.mean_pool_backward(mask, torch.zeros(2, 384), torch.zeros(2, 384), True, torch.bfloat16)
+    f = torch.zeros(4096)
+    optim.adamw_update(f, f, f, f, 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
+    assert called == ["attn", "add_layernorm_bwd", "col_sum", "col_sum", "bias_gelu_bwd",
+                      "col_sum", "mean_pool", "mean_pool_bwd", "adamw"]
+
+
+def test_training_kernel_arguments_are_checked(monkeypatch):
+    """Arguments the training kernels do not take raise before any launch."""
+    from stract_tpu_torch import optim
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    bf = torch.zeros((1, 16, 12, 32), dtype=torch.bfloat16)
+    mask = torch.ones((1, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):  # the context gradient of the wrong width
+        kernels.attention_backward(bf, bf, bf, mask, torch.zeros((1, 16, 380),
+                                   dtype=torch.bfloat16), bf, bf, bf)
+    with pytest.raises(ValueError):  # f32 gradient of a bf16 activation
+        E.add_layernorm_backward(bf, bf, torch.ones(32), 1e-12, bf.float())
+    with pytest.raises(ValueError):  # an f32 bias
+        E.bias_gelu_backward(bf, torch.zeros(32), bf)
+    with pytest.raises(ValueError):  # the pool writes bf16 gradients only
+        E.mean_pool_backward(mask, torch.zeros(1, 384), torch.zeros(1, 384), True, torch.float32)
+    with pytest.raises(ValueError):  # moments of another length
+        optim.adamw_update(torch.zeros(8), torch.zeros(8), torch.zeros(7), torch.zeros(8),
+                           1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
+
+
+def test_adamw_keeps_parameters_and_gradients_in_its_buffers():
+    """Parameters and gradients are views into the flat buffers the fused
+    update reads; a gradient replaced behind the optimizer's back raises."""
+    from stract_tpu_torch.optim import AdamW
+
+    model = torch.nn.Linear(4, 3)
+    opt = AdamW(model.parameters(), 1e-2)
+    before = opt.flat.clone()
+    model(torch.ones(2, 4)).sum().backward()
+    assert opt.grad.abs().sum() > 0 and model.weight.grad.data_ptr() == opt.grad.data_ptr()
+    opt.step()
+    assert opt.count == 1 and not torch.equal(opt.flat, before)
+    assert torch.equal(model.weight.detach().reshape(-1), opt.flat[:12])
+    model.weight.grad = torch.zeros(3, 4)
+    with pytest.raises(RuntimeError):
+        opt.step()
 
 
 def test_plain_attention_keeps_fully_masked_rows_finite():
@@ -163,3 +252,148 @@ def test_dual_encoder_on_the_card_matches_the_cpu(tmp_path):
     gpu = DualEncoder.load(str(tmp_path), device="cuda").embed(TEXTS)
     cpu = DualEncoder.load(str(tmp_path)).embed(TEXTS)
     assert ((gpu * cpu).sum(1)).min() >= 0.999
+
+
+def _step_close(got, ref):
+    """Within one bf16 step of the reference's largest magnitude."""
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=STEP, atol=STEP * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 128, 256])
+def test_attention_backward_kernel_matches_plain(T):
+    dev = _card()
+    g = torch.Generator().manual_seed(T)
+    q, k, v = (torch.randn((4, T, 12, 32), generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    dout = torch.randn((4, T, 384), generator=g).to(dev, torch.bfloat16)
+    mask = torch.ones((4, T), dtype=torch.int32)
+    mask[1, T // 3:] = 0
+    mask[3] = 0
+    mask = mask.to(dev)
+    n = kernels.LAUNCHES["attention_backward"]
+    got = E.attention_backward(q, k, v, mask, dout)
+    assert kernels.LAUNCHES["attention_backward"] == n + 1
+    for a, b in zip(got, E.attention_backward_plain(q, k, v, mask, dout)):
+        _step_close(a, b)
+    assert not got[0][3].float().any()
+
+
+@pytest.mark.cuda
+def test_layernorm_and_gelu_backward_kernels_match_plain():
+    dev = _card()
+    g = torch.Generator().manual_seed(1)
+    x, r, dy = (torch.randn((32 * 128, 384), generator=g).to(dev, torch.bfloat16)
+                for _ in range(3))
+    w = (1 + 0.1 * torch.randn(384, generator=g)).to(dev)
+    ds, dw, db = E.add_layernorm_backward(x, r, w, 1e-12, dy)
+    ps, pw, pb = E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)
+    _step_close(ds, ps)
+    for a, b in ((dw, pw), (db, pb)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    y, dout = (torch.randn((32 * 128, 1536), generator=g).to(dev, torch.bfloat16)
+               for _ in range(2))
+    bias = (0.5 * torch.randn(1536, generator=g)).to(dev, torch.bfloat16)
+    n = kernels.LAUNCHES["bias_gelu_backward"]
+    gy, gb = E.bias_gelu_backward(y, bias, dout)
+    assert kernels.LAUNCHES["bias_gelu_backward"] == n + 1
+    py, pb = E.bias_gelu_backward_plain(y, bias, dout)
+    _step_close(gy, py)
+    _step_close(gb, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+def test_mean_pool_kernels_match_plain(normalize):
+    dev = _card()
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn((64, 128, 384), generator=g).to(dev, torch.bfloat16)
+    mask = torch.ones((64, 128), dtype=torch.int32)
+    mask[1, 40:] = 0
+    mask[2] = 0
+    mask = mask.to(dev)
+    pooled, raw = E.mean_pool_forward(h, mask, normalize)
+    ref_pooled, ref_raw = E.mean_pool_plain(h, mask, normalize)
+    _step_close(pooled, ref_pooled)
+    _step_close(raw, ref_raw)
+    cot = torch.randn((64, 384), generator=g).to(dev)
+    _step_close(E.mean_pool_backward(mask, raw, cot, normalize, torch.bfloat16),
+                E.mean_pool_backward_plain(mask, raw, cot, normalize, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_matches_plain():
+    from stract_tpu_torch import optim
+
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    n = 1 << 20
+    state = [(0.02 * torch.randn(n, generator=g)).to(dev), torch.zeros(n, device=dev),
+             torch.zeros(n, device=dev)]
+    plain = [t.clone() for t in state]
+    for step in range(1, 4):
+        grad = torch.randn(n, generator=g).to(dev)
+        bc1, bc2 = 1 - 0.9 ** step, 1 - 0.999 ** step
+        optim.adamw_update(state[0], grad, state[1], state[2], 3e-4, 0.9, 0.999, 1e-8, 1e-4,
+                           bc1, bc2)
+        optim.adamw_update_plain(plain[0], grad, plain[1], plain[2], 3e-4, 0.9, 0.999, 1e-8,
+                                 1e-4, bc1, bc2)
+    for a, b in zip(state, plain):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_dual_train_step_kernels_match_plain_twins(monkeypatch):
+    """One InfoNCE step of a MiniLM-shaped encoder (2 layers) on the card from
+    the same f32 masters, once through the kernels and once through the plain
+    twins (the same cuBLAS products): the same loss (1e-3 relative) and the
+    same gradient. The kernels and twins round alike but for a few values
+    that sit on a bf16 rounding boundary (K5a-d and K14a-c each within one
+    step); those flips reach every gradient. Cosine >= 0.999 over all
+    parameters and for each matrix, embedding table of words and LayerNorm
+    scale; >= 0.98 for the leaves that sum a gradient over every token of the
+    batch (biases, the position and token-type tables), where the flips
+    cancel less than the signal does at random init (measured on the H100:
+    >= 0.9999 and >= 0.990). The attention key biases are zero but for
+    rounding (softmax ignores a per-row shift) and are not compared."""
+    from stract_tpu_torch.models.bert import BertForEmbedding, random_init
+    from stract_tpu_torch.parallel.train import info_nce_loss
+
+    _card()
+    cfg = BertConfig.mini_lm(num_layers=2, vocab_size=1024)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(5, 1024, size=(2, 16, 64)).astype(np.int32)
+    mask = np.ones((16, 64), np.int32)
+    mask[:, 40:] = 0
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             (("q_ids", ids[0]), ("q_mask", mask), ("d_ids", ids[1]), ("d_mask", mask))}
+    plain = {"attention_forward": E.attention_plain,
+             "add_layernorm_forward": E.add_layernorm_plain,
+             "bias_gelu_forward": E.bias_gelu_plain, "mean_pool_forward": E.mean_pool_plain,
+             "attention_backward": E.attention_backward_plain,
+             "add_layernorm_backward": E.add_layernorm_backward_plain,
+             "bias_gelu_backward": E.bias_gelu_backward_plain,
+             "mean_pool_backward": E.mean_pool_backward_plain}
+    runs = []
+    for twins in (False, True):
+        if twins:
+            for name, fn in plain.items():
+                monkeypatch.setattr(E, name, fn)
+        model = random_init(BertForEmbedding(cfg, param_dtype=torch.float32), 5).to("cuda")
+        kernels.reset_launches()
+        loss = info_nce_loss(model, batch)
+        loss.backward()
+        assert (kernels.LAUNCHES["attention_backward"] == 0) == twins
+        runs.append((float(loss.detach()),
+                     {n: p.grad.double().ravel() for n, p in model.named_parameters()}))
+    (lk, gk), (lp, gp) = runs
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))  # noqa: E731
+    assert cos(torch.cat(list(gk.values())), torch.cat(list(gp.values()))) >= 0.999
+    for name, b in gp.items():
+        if b.norm() == 0 or name.endswith("key.bias"):
+            continue
+        summed = name.endswith("bias") or "position_" in name or "token_type" in name
+        assert cos(gk[name], b) >= (0.98 if summed else 0.999), (name, cos(gk[name], b))
