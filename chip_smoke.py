@@ -27,9 +27,25 @@ as `main.py serve --dual-encoder/--cross-encoder/--lambdamart` loads them,
 every serving kernel must be launched by that traffic, and its top-10 pages
 must match the plain versions'.
 
-Prints per-kernel times, qps, p50 and p99, and as its last line the device
-record. Any failure raises, so the exit code is non-zero; without a card it
-exits 2 before doing anything. Imports nothing of JAX.
+The pipeline-on route serves 8 rounds of the request mix in one process,
+and every request must be answered.
+
+Then the webgraph centrality job (entrypoint/bench_centrality.py's graph:
+1,000,000 nodes, 20,000,000 Pareto edges, seed 0, written to disk): `main.py
+centrality harmonic` and `approx-harmonic` (256 sampled sources) on the card
+through the function the command line calls; every HyperBall kernel (K6a
+merge, K6b estimate) and the BFS relaxation (K7) must be launched by them;
+the kernels are held against their plain versions at the job's shapes, and
+the whole HyperBall and BFS against the same jobs through the plain
+versions.
+
+Prints per-kernel times beside the least time the card could take (bytes
+once over 3.35 TB/s or operations over the peak) and the time of a PyTorch
+call computing the same function where there is one, qps, p50 and p99, the
+centrality jobs' stage times, and as its last line the device record. Any
+failure raises, so the exit code is non-zero; without a card it exits 2
+before doing anything; it fails when the native host library does not
+load. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +80,11 @@ SCORING = ("stage_a", "stage_b", "signals_q16")
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
             "add_layernorm_backward", "bias_gelu_backward", "adamw")
+# the centrality job: the benchmark graph (entrypoint/bench_centrality.py)
+# and the sampled sources of approx-harmonic
+GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
+# pipeline-on serving: rounds of the request mix in one process
+SERVE_ON_ROUNDS = 8
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 
 # Tolerances, kernel against plain version on the same card:
@@ -86,6 +108,9 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #           rows) rtol 1e-4, atol 1e-4 x max |plain|
 #  adamw    rtol 1e-6, atol 1e-6 x max |plain| after 3 steps (the same f32 ops;
 #           division and square root may round differently by an ulp)
+#  K6a, K7  registers and distances bit-equal (max and min are exact); K6b
+#           sizes rel 1e-6 (the 64 powers of two of a row summed in another
+#           order); whole HyperBall centrality rtol 1e-6 with the same rounds
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
 ENC_TOL = (2 ** -7, 1e-2)
 STEP = 2 ** -7
@@ -106,7 +131,9 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "attention_backward": "rtol 2^-7 atol 2^-7*max|plain|",
             "add_layernorm_backward": "rtol 2^-7 atol 2^-7*max|plain|; dw, db rtol 1e-4",
             "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|",
-            "adamw": "rtol 1e-6 atol 1e-6*max|plain|"}
+            "adamw": "rtol 1e-6 atol 1e-6*max|plain|",
+            "hll_merge": "registers bit-equal, sizes rel 1e-6",
+            "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal"}
 
 
 def log(*a):
@@ -194,7 +221,9 @@ def kernel_phase(index, device) -> list:
         err = max(topk_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
         if not np.isfinite(s_k).any():
             raise AssertionError("stage A found no candidates")
-        rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p), C))
+        scanned = int(qa.lens.clamp(max=L).sum())  # posting rows of the slots' prefixes
+        rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p), C,
+                     12 * scanned + sum(x.numel() * 4 for x in qa) + 8 * B * C, 10 * scanned))
 
         # K2: stage B over stage A's candidates, fused signals
         comp = [InvertedIndex._compact_slots(q, a, min_p=16) for q, a in slots]
@@ -229,7 +258,9 @@ def kernel_phase(index, device) -> list:
                     if (diff > 1.001 * scale[b] + 1e-30).any():
                         raise AssertionError(f"stage-B signals differ by {diff.max()}")
                     err = max(err, float(diff.max()))
-        rows.append(("stage_b", ds, err, time_ms(run_k), time_ms(run_p), KD))
+        rows.append(("stage_b", ds, err, time_ms(run_k), time_ms(run_p), KD,
+                     4 * (f_t.numel() + c_t.numel()) + sum(x.numel() * 4 for x in (*qc, *ac))
+                     + 8 * B * OUT_K + 2 * B * 46 * SIG_K, 10 * f_t.numel()))
 
         # K3: pass 2 over a page of stage B's winners, and over a 300-row
         # recall block (the pipeline's K=512 bucket)
@@ -251,7 +282,10 @@ def kernel_phase(index, device) -> list:
                 raise AssertionError(f"pass-2 q16 rows differ by {step} steps")
             err = float(np.abs(O.dequantize_signals(qk, sck)
                                - O.dequantize_signals(qp, scp)).max())
-            rows.append(("signals_q16", ds, err, time_ms(run_k), time_ms(run_p), page_k))
+            rows.append(("signals_q16", ds, err, time_ms(run_k), time_ms(run_p), page_k,
+                         4 * (pf_t.numel() + pg_t.numel()) + sum(x.numel() * 4 for x in
+                                                                 (*qc, *ac))
+                         + 2 * B * 46 * page_k + 4 * B * 46, 2 * 46 * pf_t.numel()))
     return rows
 
 
@@ -299,13 +333,17 @@ def plain_versions():
     """Route the device programs to their plain PyTorch versions on the same
     card (the reference run of the comparisons): K1-K3 in ops/scoring.py, K4
     in ops/forest.py, K5a-d and their gradients K14a-c in ops/encoder.py (the
-    dispatchers the autograd Functions call), K14d in optim.py."""
+    dispatchers the autograd Functions call), K14d in optim.py, K6a-b in
+    ops/hll_ops.py and K7 in webgraph/shortest_path.py (over the edges of
+    the reverse CSR the kernels take)."""
     import torch
 
     from stract_tpu_torch import optim
     from stract_tpu_torch.ops import encoder as E
     from stract_tpu_torch.ops import forest as FO
+    from stract_tpu_torch.ops import hll_ops as HO
     from stract_tpu_torch.ops import scoring as O
+    from stract_tpu_torch.webgraph import shortest_path as SP
 
     def stage_a(seg, qs, L, K, ds, soft_required=False):
         qs = O.to_tensors(O._batched(qs, O.QuerySlots), seg.postings.device)
@@ -325,6 +363,22 @@ def plain_versions():
             O.to_tensors(O._batched(aggs, O.QueryAggregates), dev),
             torch.as_tensor(f).to(dev), torch.as_tensor(c).to(dev))
 
+    def csr_targets(csr, n):
+        counts = (csr.offsets[1:] - csr.offsets[:-1]).long()
+        return torch.repeat_interleave(torch.arange(n, device=csr.offsets.device), counts)
+
+    def hll_merge(regs, csr, out=None, sizes=True):
+        new = HO.merge_iteration_plain(regs, csr.sources, csr_targets(csr, regs.shape[0]))
+        changed = torch.tensor([int(not torch.equal(new, regs))], dtype=torch.int32,
+                               device=regs.device)
+        return new, HO.estimate_sizes_plain(new) if sizes else None, changed
+
+    def bfs_relax(dist_ns, csr, out=None):
+        new = SP.relax_plain(dist_ns.t(), csr.sources, csr_targets(csr, dist_ns.shape[0]))
+        new = new.t().contiguous()
+        return new, torch.tensor([int(not torch.equal(new, dist_ns))], dtype=torch.int32,
+                                 device=dist_ns.device)
+
     swaps = [(O, "score_candidates_batch", stage_a),
              (O, "score_driver_batch_with_signals", stage_b),
              (O, "compute_signals_from_factors_batch_q16", signals),
@@ -337,7 +391,9 @@ def plain_versions():
              (E, "add_layernorm_backward", E.add_layernorm_backward_plain),
              (E, "bias_gelu_backward", E.bias_gelu_backward_plain),
              (E, "mean_pool_backward", E.mean_pool_backward_plain),
-             (optim, "adamw_update", optim.adamw_update_plain)]
+             (optim, "adamw_update", optim.adamw_update_plain),
+             (HO, "merge_csr", hll_merge), (HO, "estimate_sizes", HO.estimate_sizes_plain),
+             (SP, "relax", bfs_relax)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -348,9 +404,11 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def serve_phase(searcher, expect) -> dict:
-    """HTTP traffic through the in-process server; counters reset first.
-    Every kernel named in `expect` must be launched by that traffic."""
+def serve_phase(searcher, expect, rounds: int = 1) -> dict:
+    """HTTP traffic through the in-process server, `rounds` rounds of the
+    request mix; counters reset first. Every request must be answered, and
+    every kernel named in `expect` launched by that traffic. qps is over all
+    rounds; "round_qps" lists each round's."""
     import numpy as np
 
     from stract_tpu_torch.api.server import build_app
@@ -359,12 +417,16 @@ def serve_phase(searcher, expect) -> dict:
 
     bodies = requests_mix(N_REQUESTS)
     server = ServerThread(build_app(searcher, max_concurrency=2 * CLIENTS))
+    results, round_qps = [], []
     try:
         post(server.url + "/beta/api/search", {"query": "w1 w2"})  # warm-up, not counted
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(CLIENTS) as pool:
-            results = list(pool.map(lambda b: post(server.url + "/beta/api/search", b), bodies))
+        for _ in range(rounds):
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(CLIENTS) as pool:
+                results += pool.map(lambda b: post(server.url + "/beta/api/search", b), bodies)
+            round_qps.append(len(bodies) / (time.perf_counter() - t1))
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         with urllib.request.urlopen(server.url + "/metrics", timeout=60) as resp:
@@ -372,7 +434,7 @@ def serve_phase(searcher, expect) -> dict:
     finally:
         server.stop()
     lat = np.array([r[2] for r in results])
-    for body, (status, data, _) in zip(bodies, results):
+    for body, (status, data, _) in zip(bodies * rounds, results):
         if status != 200 or data.get("type") != "websites" or "webpages" not in data:
             raise AssertionError(f"bad answer to {body}: {status} {str(data)[:200]}")
     n_hits = sum(len(d["webpages"]) for _, d, _ in results)
@@ -380,10 +442,11 @@ def serve_phase(searcher, expect) -> dict:
         raise AssertionError("no request returned a webpage")
     if any(launches[k] == 0 for k in expect):
         raise AssertionError(f"a kernel was not launched by the HTTP traffic: {launches}")
-    if f'search_requests_total{{status="ok"}} {len(bodies) + 1}' not in metrics:
+    if f'search_requests_total{{status="ok"}} {len(results) + 1}' not in metrics:
         raise AssertionError("metrics do not count every answered request")
-    return {"requests": len(bodies), "clients": CLIENTS, "wall_s": wall,
-            "qps": len(bodies) / wall, "p50_ms": float(np.median(lat) * 1e3),
+    return {"requests": len(results), "rounds": rounds, "clients": CLIENTS, "wall_s": wall,
+            "qps": len(results) / wall, "round_qps": round_qps,
+            "p50_ms": float(np.median(lat) * 1e3),
             "p99_ms": float(np.quantile(lat, 0.99) * 1e3), "webpages": n_hits,
             "launches": launches}
 
@@ -732,6 +795,301 @@ def train_step_timing(tok, steps: int = 5) -> dict:
     return {k: min(v) for k, v in res.items()}
 
 
+def centrality_phase(data_dir: str) -> dict:
+    """The webgraph centrality job: the benchmark graph (1M nodes, 20M
+    Pareto edges, seed 0) written to disk, then `main.py centrality
+    harmonic` and `approx-harmonic` (256 sources) on the card through the
+    function the command line calls, launch counts reset just before each
+    and read just after; each result checked (every node, finite, the kv
+    store holds it) and, on a 2,000-node graph of the same recipe, held to
+    the same job on the CPU. Then K6a, K6b and K7 against their plain
+    versions at the job's shapes: registers and distances bit-equal round by
+    round, sizes within rel 1e-6, and the whole HyperBall and the whole
+    256-source BFS through the plain versions: the same round count,
+    centrality within rtol 1e-6, distances equal. → {"jobs", "rows",
+    "graph_s"}; rows (name, err, ms, plain ms, shape, bytes, ops)."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.entrypoint import bench_centrality as BC
+    from stract_tpu_torch.kv import Db
+    from stract_tpu_torch.main import run_centrality
+    from stract_tpu_torch.ops import hll_ops as HO
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.webgraph import centrality as WC
+    from stract_tpu_torch.webgraph import shortest_path as SP
+    from stract_tpu_torch.webgraph.csr import graph_in_csr
+
+    def job_config(graph_dir: str, name: str) -> str:
+        """A CentralityConfig TOML for the graph, its kv store cleared."""
+        shutil.rmtree(os.path.join(data_dir, f"{name}-kv"), ignore_errors=True)
+        path = os.path.join(data_dir, f"{name}.toml")
+        with open(path, "w") as fh:
+            fh.write(f'webgraph_path = "{graph_dir}"\noutput_path = "{data_dir}/{name}-kv"\n'
+                     f"precision = 6\nnum_samples = {GRAPH_SAMPLES}\n")
+        return path
+
+    # a small graph of the same recipe: the card's job against the CPU's
+    small = BC.write_bench_graph(os.path.join(data_dir, "graph-2000"), 2000, 40_000)
+    for mode in ("harmonic", "approx-harmonic"):
+        tc, tp = {}, {}
+        on = run_centrality(mode, job_config(small.path, f"small-{mode}"), DEVICE, timings=tc)
+        ref = run_centrality(mode, job_config(small.path, f"small-cpu-{mode}"), "cpu",
+                             timings=tp)
+        if tc["n_rounds"] != tp["n_rounds"] or list(on) != list(ref):
+            raise AssertionError(f"{mode} on the card and the CPU differ: {tc} {tp}")
+        np.testing.assert_allclose([on[k] for k in ref], list(ref.values()), rtol=1e-6,
+                                   atol=1e-12)
+
+    t0 = time.perf_counter()
+    g = BC.write_bench_graph(os.path.join(data_dir, "graph"), GRAPH_NODES, GRAPH_EDGES)
+    graph_s = time.perf_counter() - t0
+    log(f"[centrality] graph of {g.num_nodes} nodes, {g.num_edges} edges on disk in "
+        f"{graph_s:.1f}s")
+    jobs = {}
+    for mode, expect in (("harmonic", ("hll_merge", "hll_estimate")),
+                         ("approx-harmonic", ("bfs_relax",))):
+        cfg, timings = job_config(g.path, f"job-{mode}"), {}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        c = run_centrality(mode, cfg, DEVICE, timings=timings)
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        vals = np.fromiter(c.values(), np.float64, len(c))
+        if len(c) != g.num_nodes or not np.isfinite(vals).all() or vals.min() < 0 or \
+                vals.max() <= 0:
+            raise AssertionError(f"{mode}: {len(c)} values, range {vals.min()}..{vals.max()}")
+        db = Db.open(os.path.join(data_dir, f"job-{mode}-kv"))
+        name = g.name_of(int(np.argmax(vals)))
+        if len(db) != g.num_nodes or db.get(name.encode())["centrality"] != c[name]:
+            raise AssertionError(f"{mode}: the kv store does not hold the result")
+        if any(launches[k] == 0 for k in expect):
+            raise AssertionError(f"{mode}: a kernel was not launched by the job: {launches}")
+        jobs[mode] = {"seconds": seconds, "timings": timings, "launches": launches,
+                      "top": name, "top_value": float(vals.max())}
+        log(f"[centrality] {mode}: {seconds:.2f}s {json.dumps(timings)} launches "
+            f"{ {k: launches[k] for k in expect} } card={card_line()}")
+
+    dev = torch.device(DEVICE)
+    n, e = g.num_nodes, g.num_edges
+    ef, et = SP.forward_edges(g)
+    csr = graph_in_csr(g, dev)
+    eft, ett = torch.from_numpy(ef).to(dev), torch.from_numpy(et).to(dev)
+    rows = []
+
+    # K6a (+K6b in its epilogue) over the first rounds, K6b alone
+    regs = torch.from_numpy(HO.init_registers(n, 6)).to(dev)
+    m = regs.shape[1]
+    sizes_err = 0.0
+    for _ in range(3):
+        new, sizes, changed = HO.merge_csr(regs, csr)
+        plain = HO.merge_iteration_plain(regs, eft, ett)
+        ref = HO.estimate_sizes_plain(plain)
+        if not torch.equal(new, plain) or int(changed.item()) != int(not torch.equal(plain, regs)):
+            raise AssertionError("K6a registers differ from the plain merge")
+        torch.testing.assert_close(sizes, ref, rtol=1e-6, atol=0)
+        sizes_err = max(sizes_err, float(((sizes - ref).abs() / ref.abs()).max()))
+        regs = new
+    spare = torch.empty_like(regs)
+    rows.append(("hll_merge", sizes_err, time_ms(lambda: HO.merge_csr(regs, csr, out=spare)),
+                 time_ms(lambda: HO.merge_iteration_plain(regs, eft, ett), iters=3), (n, m, e),
+                 2 * n * m + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel() + 4 * n + 4,
+                 e * m + 3 * n * m))
+    est, ref = HO.estimate_sizes(regs), HO.estimate_sizes_plain(regs)
+    torch.testing.assert_close(est, ref, rtol=1e-6, atol=0)
+    rows.append(("hll_estimate", float(((est - ref).abs() / ref.abs()).max()),
+                 time_ms(lambda: HO.estimate_sizes(regs)),
+                 time_ms(lambda: HO.estimate_sizes_plain(regs)), (n, m), n * m + 4 * n,
+                 3 * n * m))
+
+    # the whole HyperBall through the kernels and through the plain versions
+    hb = {}
+    for plain_run in (False, True):
+        t = {}
+        with plain_versions() if plain_run else contextlib.nullcontext():
+            hb[plain_run] = (WC._hyperball(n, ef, et, 6, 64, DEVICE, timings=t, csr=csr), t)
+    (acc_k, t_k), (acc_p, t_p) = hb[False], hb[True]
+    if t_k["n_rounds"] != t_p["n_rounds"]:
+        raise AssertionError(f"HyperBall rounds differ: {t_k['n_rounds']} vs {t_p['n_rounds']}")
+    np.testing.assert_allclose(acc_k, acc_p, rtol=1e-6, atol=1e-12)
+    log(f"[centrality] whole HyperBall, kernels vs plain: {t_k['n_rounds']} rounds each, "
+        f"rounds {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, max rel diff "
+        f"{float(np.max(np.abs(acc_k - acc_p) / np.maximum(np.abs(acc_p), 1e-300))):.3g}")
+
+    # K7 at S = GRAPH_SAMPLES and S = 1, round by round from the sampled sources
+    sources = np.random.default_rng(0).choice(n, size=GRAPH_SAMPLES, replace=False)
+    for S in (GRAPH_SAMPLES, 1):
+        dist = torch.full((S, n), int(SP.UNREACHABLE), dtype=torch.int32, device=dev)
+        dist[torch.arange(S, device=dev), torch.from_numpy(sources[:S]).to(dev)] = 0
+        for _ in range(3):
+            new, changed = SP.relax(dist.t().contiguous(), csr)
+            plain = SP.relax_plain(dist, eft, ett)
+            if not torch.equal(new.t(), plain) or \
+                    int(changed.item()) != int(not torch.equal(plain, dist)):
+                raise AssertionError(f"K7 distances differ from the plain relaxation at S={S}")
+            dist = plain
+        dns = dist.t().contiguous()
+        out = torch.empty_like(dns)
+        rows.append(("bfs_relax", 0.0, time_ms(lambda: SP.relax(dns, csr, out=out)),
+                     time_ms(lambda: SP.relax_plain(dist, eft, ett), iters=3), (n, S, e),
+                     8 * n * S + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel() + 4,
+                     2 * e * S))
+    t_k, t_p = {}, {}
+    d_k = SP.bfs(n, ef, et, sources, device=DEVICE, csr=csr, timings=t_k)
+    with plain_versions():
+        d_p = SP.bfs(n, ef, et, sources, device=DEVICE, csr=csr, timings=t_p)
+    if t_k["n_rounds"] != t_p["n_rounds"] or not np.array_equal(d_k, d_p):
+        raise AssertionError("the 256-source BFS through K7 and through the plain version differ")
+    log(f"[centrality] whole {GRAPH_SAMPLES}-source BFS, kernels vs plain: {t_k['n_rounds']} "
+        f"rounds each, {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, distances equal")
+    return {"jobs": jobs, "rows": rows, "graph_s": graph_s}
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
+# bf16 tensor-core FLOP/s, f32 (and integer) FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> tuple:
+    """The least time the card could take: bytes moved once over the memory
+    rate, or the operations over their peak, whichever is larger → (ms, "bytes"
+    or "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_phase() -> dict:
+    """The time of one PyTorch call that computes the function of a kernel,
+    where one exists, at the kernel's main shape (used nowhere in the port):
+    K5a scaled_dot_product_attention with the additive mask, K14a its
+    backward through autograd, K5b layer_norm over the sum, K5c the tanh GELU
+    over the sum, K14d torch._fused_adamw_ (what AdamW(fused=True) calls). →
+    {kernel: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
+    out = {}
+
+    def sdpa(B, T):
+        q, k, v = (bf(B, 12, T, 32) for _ in range(3))
+        mask = torch.zeros((B, 1, 1, T), dtype=torch.bfloat16, device=DEVICE)
+        mask[1, ..., T // 2:] = torch.finfo(torch.float32).min
+        return q, k, v, mask
+    q, k, v, mask = sdpa(ENC_B, ENC_T)
+    out["attention"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    q, k, v, mask = sdpa(TRAIN_B, TRAIN_T)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    do = torch.randn(o.shape, generator=g).to(DEVICE, torch.bfloat16)
+    out["attention_backward"] = time_ms(
+        lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+    m = ENC_B * ENC_T
+    x, r = bf(m, 384), bf(m, 384)
+    w, b = torch.ones(384, device=DEVICE), torch.zeros(384, device=DEVICE)
+    out["add_layernorm"] = time_ms(lambda: F.layer_norm(x + r, (384,), w.to(x.dtype),
+                                                        b.to(x.dtype), 1e-12))
+    y, yb = bf(m, 1536), bf(1536)
+    out["bias_gelu"] = time_ms(lambda: F.gelu(y + yb, approximate="tanh"))
+    n = 22_565_376
+    p, gr, mo, ve = (torch.randn(n, generator=g).to(DEVICE) for _ in range(4))
+    ve.abs_()
+    steps = torch.ones((), device=DEVICE)
+    out["adamw"] = time_ms(lambda: torch._fused_adamw_(
+        [p], [gr], [mo], [ve], [], [steps], lr=3e-4, beta1=0.9, beta2=0.999,
+        weight_decay=1e-4, eps=1e-8, amsgrad=False, maximize=False))
+    return out
+
+
+def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
+                   card) -> list:
+    """Every kernel's entry of the `kernels` line: its largest error against
+    the plain version; its time, the plain version's, the bound and the
+    library call's at the main shape; its launches in the run of its own
+    path (training for the training kernels and the pool, the centrality
+    jobs for the graph kernels, the pipeline-on traffic for the rest). Each
+    measured row is logged too."""
+    all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
+                for name, ds, err, ms, pms, shape, nb, ops in rows]
+    all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
+                 for name, err, ms, pms, shape in rows_m]
+    all_rows += [(name, err, ms, pms, shape, *bound(nb, ops), True)
+                 for name, err, ms, pms, shape, nb, ops in cent["rows"]]
+    for name, err, ms, pms, shape, bms, by, ds in all_rows:
+        log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
+            f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms "
+            f"bound={bms:.4f} ms ({by}) library={library.get(name)} card={card}")
+
+    src, enc = "stract_tpu_torch/csrc/", "stract_tpu_torch/ops/encoder.py"
+    step = "stract_tpu/entrypoint/train_encoders.py:244"
+    meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
+            "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
+            "signals_q16": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:886", 512),
+            "forest": ("cuda", src + "forest.cu",
+                       "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
+            "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
+            "add_layernorm": ("triton", enc, "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
+            "bias_gelu": ("triton", enc, "stract_tpu/models/bert.py:170", ENC_B * ENC_T),
+            "mean_pool": ("triton", enc, "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
+            "attention_backward": ("cuda", src + "encoder.cu", step, TRAIN_T),
+            "add_layernorm_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),
+            "bias_gelu_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),
+            "adamw": ("triton", "stract_tpu_torch/optim.py", step, None),
+            "hll_merge": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:50", None),
+            "hll_estimate": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:64", None),
+            "bfs_relax": ("cuda", src + "graph.cu", "stract_tpu/webgraph/shortest_path.py:21",
+                          (GRAPH_NODES, GRAPH_SAMPLES))}
+    out = []
+    for name, (route, source, replaces, main_shape) in meta.items():
+        mine = [r for r in all_rows if r[0] == name]
+        main_row = next(r for r in mine if r[7] and main_shape in (
+            None, r[4], r[4][:2] if isinstance(r[4], tuple) else None))
+        if name in TRAINING[3:]:
+            launches = train_launches[name]
+        elif name == "bfs_relax":
+            launches = cent["jobs"]["approx-harmonic"]["launches"][name]
+        elif name.startswith("hll"):
+            launches = cent["jobs"]["harmonic"]["launches"][name]
+        else:
+            launches = serve_launches[name]
+        out.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                    "launches": launches, "max_abs_err": max(r[1] for r in mine),
+                    "ms": main_row[2], "plain_ms": main_row[3], "bound_ms": main_row[5],
+                    "bound_by": main_row[6], "library_ms": library.get(name)})
+    return out
+
+
+def work(name: str, shape, forest=None) -> tuple:
+    """(bytes, operations, peak) of one call of a kernel of the ranking
+    pipeline or the training step at its main-path shape: each input read
+    once, each output written once; bf16 products at the tensor-core peak."""
+    H, F_ = 384, 1536
+    if name == "forest":  # K = shape rows of 46 features; the forest's arrays once
+        T, N = forest.feature.shape
+        return 4 * shape * 47 + 16 * T * N + 4 * forest.leaf_value.numel(), \
+            2 * shape * T * forest.max_depth, PEAK_F32
+    if name == "attention":  # B=ENC_B, T=shape, 12 heads x 32
+        return 4 * ENC_B * shape * H * 2 + 4 * ENC_B * shape, \
+            4 * ENC_B * 12 * shape * shape * 32, PEAK_BF16
+    if name == "attention_backward":  # B=TRAIN_B, T=shape; ~7 T^2 d multiply-adds per head
+        return 7 * TRAIN_B * shape * H * 2 + 4 * TRAIN_B * shape, \
+            14 * TRAIN_B * 12 * shape * shape * 32, PEAK_BF16
+    if name == "add_layernorm":
+        return 3 * shape * H * 2 + 8 * H, 8 * shape * H, PEAK_F32
+    if name == "add_layernorm_backward":
+        return 4 * shape * H * 2 + 12 * H, 12 * shape * H, PEAK_F32
+    if name == "bias_gelu":
+        return 2 * shape * F_ * 2 + 2 * F_, 20 * shape * F_, PEAK_F32
+    if name == "bias_gelu_backward":
+        return 3 * shape * F_ * 2 + 4 * F_, 40 * shape * F_, PEAK_F32
+    if name == "mean_pool":  # forward + backward over TRAIN_B rows of TRAIN_T tokens
+        return 2 * shape * H * 2 + 8 * shape + 4 * TRAIN_B * H * 4, 4 * shape * H, PEAK_F32
+    if name == "adamw":  # p, g, m, v in; p, m, v out
+        return 28 * shape, 15 * shape, PEAK_F32
+    raise KeyError(name)
+
+
 def main() -> int:
     import torch
 
@@ -740,6 +1098,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch import native
     from stract_tpu_torch.index.embeddings import write_embedding_columns
     from stract_tpu_torch.main import build_searcher
     from stract_tpu_torch.models.dual_encoder import DualEncoder
@@ -752,7 +1111,9 @@ def main() -> int:
     log(f"card: {card}")
     t_start = t = time.perf_counter()
     kernels.build(verbose=True)
-    log(f"[setup] kernels built in {time.perf_counter() - t:.1f}s")
+    if not native.available():  # else the host factor join drops to Python
+        raise RuntimeError("the native host library (native/) did not build or load")
+    log(f"[setup] kernels and the native host library built in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     data_dir = os.path.join(ROOT, "data", "torch_smoke")
     index_dir = bc.ensure_corpus(data_dir, DOCS, seed=SEED, log=log)
@@ -786,67 +1147,38 @@ def main() -> int:
     del dual
     forest = LambdaMART.load(models["forest"], device=DEVICE)
     rows_m = model_kernel_phase(forest, models["rows"]) + training_kernel_phase(models["dual"])
+    library = library_phase()
     step_ms = train_step_timing(tok)
     log(f"[train step] dual InfoNCE step B={TRAIN_B} T={TRAIN_T}: kernels "
         f"{step_ms['kernels']:.2f} ms, plain versions {step_ms['plain']:.2f} ms card={card}")
-    for name, ds, err, ms, pms, shape in rows:
-        log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
-            f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms")
-    for name, err, ms, pms, shape in rows_m:
-        log(f"[kernel] {name:13s} shape={shape} max_abs_err={err:.3g} "
-            f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms")
     del searcher
     torch.cuda.empty_cache()
     on = build_searcher(index_dir, DEVICE, dual_encoder=models["dual"],
                         cross_encoder=models["cross"], lambdamart=models["forest"])
     torch.cuda.reset_peak_memory_stats()
-    served = serve_phase(on, SERVING)
+    served = serve_phase(on, SERVING, rounds=SERVE_ON_ROUNDS)
     log(f"[serve on] {json.dumps(served)}")
     cmp_on = compare_phase(on, forest=on.pipeline.recall.lambdamart)
     log(f"[compare on] top-10 kernels vs plain versions: {json.dumps(cmp_on)}")
-    log(f"[result on] docs={DOCS} qps={served['qps']:.2f} p50_ms={served['p50_ms']:.1f} "
-        f"p99_ms={served['p99_ms']:.1f} device_mem_peak_MiB="
+    log(f"[result on] docs={DOCS} rounds={served['rounds']} qps={served['qps']:.2f} "
+        f"p50_ms={served['p50_ms']:.1f} p99_ms={served['p99_ms']:.1f} device_mem_peak_MiB="
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} device_mem_held_MiB="
         f"{torch.cuda.memory_allocated() / 2**20:.0f} embed_docs_per_s="
-        f"{emb['docs'] / emb['seconds']:.0f} total_s={time.perf_counter() - t_start:.1f} "
-        f"card={card}")
+        f"{emb['docs'] / emb['seconds']:.0f} card={card}")
+    del on
+    torch.cuda.empty_cache()
 
-    src = "stract_tpu_torch/csrc/"
-    meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
-            "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
-            "signals_q16": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:886", 512),
-            "forest": ("cuda", src + "forest.cu",
-                       "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
-            "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
-            "add_layernorm": ("triton", "stract_tpu_torch/ops/encoder.py",
-                              "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
-            "bias_gelu": ("triton", "stract_tpu_torch/ops/encoder.py",
-                          "stract_tpu/models/bert.py:170", ENC_B * ENC_T),
-            "mean_pool": ("triton", "stract_tpu_torch/ops/encoder.py",
-                          "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
-            "attention_backward": ("cuda", src + "encoder.cu",
-                                   "stract_tpu/entrypoint/train_encoders.py:244", TRAIN_T),
-            "add_layernorm_backward": ("triton", "stract_tpu_torch/ops/encoder.py",
-                                       "stract_tpu/entrypoint/train_encoders.py:244",
-                                       TRAIN_B * TRAIN_T),
-            "bias_gelu_backward": ("triton", "stract_tpu_torch/ops/encoder.py",
-                                   "stract_tpu/entrypoint/train_encoders.py:244",
-                                   TRAIN_B * TRAIN_T),
-            "adamw": ("triton", "stract_tpu_torch/optim.py",
-                      "stract_tpu/entrypoint/train_encoders.py:244", None)}
-    all_rows = [(r[0], r[2], r[3], r[4], r[5], r[1]) for r in rows] + \
-        [(*r, True) for r in rows_m]
-    kernels_out = []
-    for name, (route, source, replaces, main_shape) in meta.items():
-        mine = [r for r in all_rows if r[0] == name]
-        main_row = next(r for r in mine if main_shape in (None, r[4]) and r[5])
-        # each kernel's launches in the run of its own path: training for the
-        # training kernels and the pool, the pipeline-on traffic for the rest
-        path = models["launches"] if name in TRAINING[3:] else served["launches"]
-        kernels_out.append({
-            "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": path[name], "max_abs_err": max(r[1] for r in mine),
-            "ms": main_row[2], "plain_ms": main_row[3]})
+    # ---- the webgraph centrality job: K6a-b, K7 --------------------------------------
+    cent = centrality_phase(os.path.join(data_dir, "centrality"))
+    log(f"[result centrality] nodes={GRAPH_NODES} edges={GRAPH_EDGES} graph_s="
+        f"{cent['graph_s']:.1f} harmonic_s={cent['jobs']['harmonic']['seconds']:.2f} "
+        f"hyperball_rounds={cent['jobs']['harmonic']['timings']['n_rounds']} "
+        f"approx_harmonic_s={cent['jobs']['approx-harmonic']['seconds']:.2f} "
+        f"bfs_rounds={cent['jobs']['approx-harmonic']['timings']['n_rounds']} "
+        f"total_s={time.perf_counter() - t_start:.1f} card={card}")
+
+    kernels_out = kernel_records(rows, rows_m, cent, library, served["launches"],
+                                 models["launches"], forest, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
 """stract_tpu_torch — the search engine of stract_tpu on PyTorch and CUDA.
 
 A port of the JAX package `stract_tpu`, which stays beside it as the
-reference. The port imports torch and never jax; it reuses the JAX package's
-jax-free host modules (schema, tokenizer, snippets, signals, ranking
-pipeline, native C++ host join) and re-implements the modules that reach a
-device program. Layout mirrors stract_tpu/:
+reference. The port imports torch and never jax, and nothing of the JAX
+package: it keeps its own copies of the JAX package's jax-free host modules
+(schema, tokenizer, snippets, signals, ranking pipeline, kv store, webgraph
+store, the loader of the repository's native C++ host join), under the same
+relative paths, and re-implements the modules that reach a device program.
+Layout mirrors stract_tpu/:
 
   ops/scoring.py     stage A / stage B / pass-2 programs: plain PyTorch
                      versions and the dispatch to the CUDA kernels
@@ -12,19 +14,22 @@ device program. Layout mirrors stract_tpu/:
   ops/encoder.py     the BERT encoder's attention, residual + LayerNorm,
                      bias + GELU and mean pool (K5a-d), and the gradients of
                      the first three (K14a-c), as autograd Functions
+  ops/hll_ops.py     HyperBall's register merge and size estimate (K6a-b)
   ops/kernels.py     nvcc build + ctypes binding of csrc/*.cu, launch counts
   optim.py           AdamW as optax.adamw, one fused update (K14d)
   models/            BERT (serving and f32-master training forms), dual
                      encoder, checkpoint store, WordPiece
   parallel/train.py  the encoders' train steps and losses (one card)
-  entrypoint/        encoder training: triples, trainers, the bench tool
+  entrypoint/        encoder training (triples, trainers, the bench tool),
+                     the centrality jobs and their benchmark graph
+  webgraph/          graph store, HyperBall harmonic centrality, BFS (K7)
   index/             segment reader, DeviceSegment, InvertedIndex (serving),
                      embedding-column writer
   ranking/, query/   slot planning, cross encoder, LambdaMART, query parser
                      and planner
   searcher/, api/    local shard, coordinator, batcher, HTTP route
   bench_corpus.py    synthetic corpus writer and query generator
-  main.py            `serve` and `train-encoders`
+  main.py            `serve`, `train-encoders` and `centrality`
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from aiohttp import web
 
-from stract_tpu.utils.metrics import PrometheusRegistry
+from ..utils.metrics import PrometheusRegistry
 
 from ..ops import kernels
 from ..searcher.api import ApiSearcher

@@ -30,8 +30,8 @@ import zlib
 import msgpack
 import numpy as np
 
-from stract_tpu.schema import TEXT_FIELDS, NUMERICAL_FIELDS, text_field
-from stract_tpu.utils.hashing import term_hash
+from .schema import TEXT_FIELDS, NUMERICAL_FIELDS, text_field
+from .utils.hashing import term_hash
 
 from .index.segment import FORMAT_VERSION, pre_computed_score
 

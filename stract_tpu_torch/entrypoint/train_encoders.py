@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..index.inverted import DocPointer, InvertedIndex
 from ..models.bert import BertConfig, BertForEmbedding, random_init
 from ..models.wordpiece import WordPieceTokenizer
@@ -36,13 +37,6 @@ def _index(index) -> InvertedIndex:
     """An index directory or an open index; the trainers read stored docs
     only, so a path opens on the host."""
     return index if isinstance(index, InvertedIndex) else InvertedIndex(index, "cpu")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was asked for and there is no CUDA card")
-    return dev
 
 
 def synthesize_triples(index, n: int, seed: int = 0, q_terms: tuple = (2, 3),
@@ -142,7 +136,7 @@ def train_cross_encoder(index_path, out_path: str, steps: int = 120,
                         save_max_len: int | None = None,
                         warm_start: str | None = None, distill: bool = False,
                         teacher_scale: float = 5.0, distill_alpha: float = 0.5,
-                        log=print, device="cpu", timing: dict | None = None) -> list:
+                        log=print, device="cuda", timing: dict | None = None) -> list:
     """Pairwise-ranking fine-tune, saved as a serving checkpoint → the loss
     curve. `timing`, when given, receives the step loop's steps and seconds.
 
@@ -159,7 +153,7 @@ def train_cross_encoder(index_path, out_path: str, steps: int = 120,
     from ..models.store import load_encoder
     from ..ranking.models.cross_encoder import CrossEncoderModel
 
-    dev = _device(device)
+    dev = resolve_device(device)
     cfg = cfg or BertConfig.tiny()
     triples = synthesize_triples(index_path, n_triples, seed=seed)
     tok = tokenizer or _fit_tokenizer(triples, cfg.vocab_size)
@@ -223,7 +217,7 @@ def train_dual_encoder(index_path, out_path: str, steps: int = 120,
                        cfg: BertConfig | None = None, seed: int = 0, lr: float = 3e-4,
                        temperature: float = 20.0,
                        tokenizer: WordPieceTokenizer | None = None,
-                       save_max_len: int | None = None, log=print, device="cpu",
+                       save_max_len: int | None = None, log=print, device="cuda",
                        timing: dict | None = None) -> list:
     """In-batch-negative contrastive fine-tune (InfoNCE over the B x B
     similarity: every other doc of the batch is a negative), saved as a
@@ -232,7 +226,7 @@ def train_dual_encoder(index_path, out_path: str, steps: int = 120,
     from ..models.dual_encoder import DualEncoder
     from ..optim import AdamW
 
-    dev = _device(device)
+    dev = resolve_device(device)
     cfg = cfg or BertConfig.tiny()
     triples = synthesize_triples(index_path, n_triples, seed=seed)
     tok = tokenizer or _fit_tokenizer(triples, cfg.vocab_size)

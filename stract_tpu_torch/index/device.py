@@ -16,9 +16,9 @@ import os
 import numpy as np
 import torch
 
-from stract_tpu.ranking import bm25_math as BM
-from stract_tpu.ranking import signals as S
-from stract_tpu.schema import text_field
+from ..ranking import bm25_math as BM
+from ..ranking import signals as S
+from ..schema import text_field
 
 from ..ops import scoring as O
 from .segment import Segment

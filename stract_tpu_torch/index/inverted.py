@@ -11,7 +11,7 @@ serves the two-phase protocol:
 Per segment and query batch: stage A (ops.score_candidates_batch) scans the
 slots' posting prefixes for candidates unless the smallest required group is
 small enough to be the candidate set itself (driver mode); the host joins
-each candidate's full-range factors (stract_tpu.native.slot_factors); stage B
+each candidate's full-range factors (native.slot_factors); stage B
 (ops.score_driver_batch[_with_signals]) verifies them exactly. On a CUDA
 segment stage B also returns the q16 signal rows of each query's top
 FUSED_SIG_K docs, so the final page is usually a host cache lookup.
@@ -28,8 +28,8 @@ import os
 import numpy as np
 import torch
 
-from stract_tpu import snippet as snippet_mod
-from stract_tpu.ranking import signals as S
+from .. import snippet as snippet_mod
+from ..ranking import signals as S
 
 from ..ops import scoring as O
 from ..ranking.computer import QueryContext, build_slots, choose_L, uses_default_static
@@ -329,7 +329,7 @@ class InvertedIndex:
         """Packed per-slot factors i32[P, len(cand)] of arbitrary candidates,
         by binary search over each slot's full posting range in the on-disk
         q16 rows: the host half of stage B."""
-        from stract_tpu import native
+        from .. import native
 
         pf = build_device_postings(seg)
         starts = np.asarray(q.starts, dtype=np.int64)
@@ -560,8 +560,8 @@ class InvertedIndex:
         """Exact adjacency of `words` in any phrase-tracked field (or the
         given ones; a field-scoped check on a segment without its positions
         falls back to presence)."""
-        from stract_tpu.schema import text_field
-        from stract_tpu.utils.hashing import term_hash
+        from ..schema import text_field
+        from ..utils.hashing import term_hash
 
         from .segment import PHRASE_FIELDS
 

@@ -29,9 +29,9 @@ import zlib
 import msgpack
 import numpy as np
 
-from stract_tpu.schema import TEXT_FIELDS, text_field
-from stract_tpu.schema import numerical_field as nfield
-from stract_tpu.ranking import bm25_math as BM
+from ..schema import TEXT_FIELDS, text_field
+from ..schema import numerical_field as nfield
+from ..ranking import bm25_math as BM
 
 FORMAT_VERSION = 1
 

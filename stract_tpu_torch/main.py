@@ -4,6 +4,8 @@
         [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE]
     python -m stract_tpu_torch.main train-encoders {dual,cross,both} INDEX OUT \
         [--steps 120] [--batch 16] [--triples 512] [--device cuda]
+    python -m stract_tpu_torch.main centrality \
+        {harmonic,approx-harmonic,harmonic-nearest-seed} CONFIG [--device cuda]
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -24,6 +26,12 @@ the index's embedding columns (index/embeddings.py writes them).
 encoder or both (each on its own, at the tiny config) on triples
 synthesised from INDEX and saves them under OUT/dual_encoder and
 OUT/cross_encoder; --device cuda needs a card.
+
+`centrality` is the JAX package's subcommand of the same name
+(entrypoint/centrality.py): CONFIG is a CentralityConfig TOML
+(configs/centrality.toml); the job reads the webgraph at webgraph_path and
+writes the kv store at output_path, and prints what the JAX package prints.
+--device cuda needs a card.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
                    cross_encoder: str | None = None, lambdamart: str | None = None):
     """The serving stack over one local shard, with the ranking pipeline's
     models loaded from the given paths onto `device` → ApiSearcher."""
-    from stract_tpu.ranking.pipeline import PrecisionStage, RankingPipeline, RecallStage
+    from .ranking.pipeline import PrecisionStage, RankingPipeline, RecallStage
 
     from .index.inverted import InvertedIndex
     from .searcher.api import ApiSearcher
@@ -115,6 +123,28 @@ class ServerThread:
             raise RuntimeError("server thread did not stop")
 
 
+def run_centrality(mode: str, config: str, device: str = "cuda",
+                   timings: dict | None = None) -> dict:
+    """`main.py centrality MODE CONFIG`: the job over the config's paths →
+    the centrality of each node (also printed as the JAX package prints it)."""
+    from .config import load_config
+    from .entrypoint.centrality import (run_approx_harmonic, run_harmonic,
+                                        run_harmonic_nearest_seed)
+
+    cfg = load_config("centrality", config)
+    if mode == "harmonic":
+        c = run_harmonic(cfg.webgraph_path, cfg.output_path, cfg.precision, device=device,
+                         timings=timings)
+    elif mode == "harmonic-nearest-seed":
+        c = run_harmonic_nearest_seed(cfg.webgraph_path, cfg.original_centrality_path,
+                                      cfg.output_path, cfg.discount_factor, device=device)
+    else:
+        c = run_approx_harmonic(cfg.webgraph_path, cfg.output_path, cfg.num_samples,
+                                device=device, timings=timings)
+    print(f"centrality for {len(c)} nodes → {cfg.output_path}")
+    return c
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="stract_tpu_torch.main")
     sub = ap.add_subparsers(dest="role", required=True)
@@ -134,7 +164,15 @@ def main(argv=None):
     tp.add_argument("--batch", type=int, default=16)
     tp.add_argument("--triples", type=int, default=512)
     tp.add_argument("--device", default="cuda", help="cuda or cpu")
+    cp = sub.add_parser("centrality", help="harmonic centrality jobs")
+    cp.add_argument("mode", choices=["harmonic", "approx-harmonic", "harmonic-nearest-seed"])
+    cp.add_argument("config")
+    cp.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args(argv)
+
+    if args.role == "centrality":
+        run_centrality(args.mode, args.config, args.device)
+        return
 
     if args.role == "train-encoders":
         import os

@@ -65,7 +65,7 @@ class DualEncoder:
     @classmethod
     def random_init(cls, cfg: BertConfig | None = None,
                     tokenizer: WordPieceTokenizer | None = None, seed: int = 0,
-                    device="cpu") -> "DualEncoder":
+                    device="cuda") -> "DualEncoder":
         """Random-weight encoder for tests and the smoke run."""
         cfg = cfg or BertConfig.tiny()
         tokenizer = tokenizer or WordPieceTokenizer.build(["the quick brown fox"],
@@ -92,7 +92,7 @@ class DualEncoder:
         save_encoder(path, self.cfg, self.model.state_dict(), self.tokenizer, self.max_len, "dual")
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "DualEncoder":
+    def load(cls, path: str, device="cuda") -> "DualEncoder":
         """From a native checkpoint dir (either package's) or an HF
         safetensors dir."""
         from .store import load_encoder

@@ -1,0 +1,126 @@
+"""HyperBall's HyperLogLog register programs — the port of
+stract_tpu/ops/hll_ops.py: `init_registers` (numpy, copied), the register
+merge of one round (K6a) and the size estimate (K6b).
+
+All the graph's sketches are one uint8[N, m] register matrix on the device.
+A round sets every target's row to the bytewise max of its own row and its
+in-neighbours' round-start rows. The JAX package gathers regs[edge_from] and
+scatter-maxes into regs[edge_to]; on a card the port pulls instead over the
+reverse CSR (webgraph/csr.py: the graph store's, or the edges sorted by
+target on the card). The kernel (csrc/graph.cu) walks each target's in-edges
+with no atomics, writes the new rows into a second buffer (so every read sees
+the round start, as the reference's gather-then-scatter), estimates the new
+rows' sizes in its epilogue and sets one flag when any row changed.
+
+`merge_iteration_plain` and `estimate_sizes_plain` are the plain PyTorch
+versions; the public functions take them for tensors on the CPU and launch the
+kernels for tensors on a card (or raise).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..utils.hashing import _MASK64
+from ..webgraph.csr import LONG_ROW, InCSR, in_csr
+from . import kernels
+
+# the plain merge gathers at most this many bytes of rows at a time
+PLAIN_CHUNK_BYTES = 2 ** 31
+
+
+def init_registers(n: int, precision: int = 6, seed: int = 0) -> np.ndarray:
+    """Initial HLL registers: sketch of {node} per node → uint8[N, m].
+    Vectorized numpy twin of utils.hyperloglog.HyperLogLog.add_u64."""
+    m = 1 << precision
+    ids = np.arange(n, dtype=np.uint64) + np.uint64(seed)
+    # splitmix64, vectorized
+    x = (ids + np.uint64(0x9E3779B97F4A7C15)) & np.uint64(_MASK64)
+    z = x
+    z = ((z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)) & np.uint64(_MASK64)
+    z = ((z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)) & np.uint64(_MASK64)
+    h = (z ^ (z >> np.uint64(31))) & np.uint64(_MASK64)
+
+    idx = (h >> np.uint64(64 - precision)).astype(np.int64)
+    rest = (h << np.uint64(precision)) & np.uint64(_MASK64)
+    # rank = leading zeros of `rest` + 1 (capped): count via 64-step halving
+    rank = np.zeros(n, dtype=np.uint8)
+    zero = rest == 0
+    lz = np.zeros(n, dtype=np.int64)
+    cur = rest.copy()
+    for shift in (32, 16, 8, 4, 2, 1):
+        mask = cur < (np.uint64(1) << np.uint64(64 - shift))
+        lz += np.where(mask, shift, 0)
+        cur = np.where(mask, cur << np.uint64(shift), cur)
+    rank = np.where(zero, 64 - precision + 1, lz + 1).astype(np.uint8)
+
+    regs = np.zeros((n, m), dtype=np.uint8)
+    regs[np.arange(n), idx] = rank
+    return regs
+
+
+def hll_alpha(m: int) -> float:
+    """The bias constant of utils.hyperloglog, as the reference's f32."""
+    return float(np.float32(
+        0.673 if m == 16 else 0.697 if m == 32 else 0.709 if m == 64 else 0.7213 / (1 + 1.079 / m)))
+
+
+def merge_iteration_plain(regs, edge_from, edge_to):
+    """One HyperBall round, plainly: a copy of regs, then per chunk of edges
+    the round-start rows regs[edge_from] max-reduced into it at edge_to."""
+    ef = torch.as_tensor(edge_from, device=regs.device).long()
+    et = torch.as_tensor(edge_to, device=regs.device).long()
+    new = regs.clone()
+    chunk = max(1, PLAIN_CHUNK_BYTES // max(regs.shape[1], 1))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="index_reduce")  # "in beta"
+        for s in range(0, ef.numel(), chunk):
+            new.index_reduce_(0, et[s:s + chunk], regs[ef[s:s + chunk]], "amax")
+    return new
+
+
+def estimate_sizes_plain(regs):
+    """The vectorized HLL estimate f32[N], the reference's formula in f32."""
+    n, m = regs.shape
+    mf = float(m)
+    alpha = torch.tensor(hll_alpha(m), dtype=torch.float32, device=regs.device)
+    r = regs.to(torch.float32)
+    est = alpha * mf * mf / torch.exp2(-r).sum(dim=1)
+    zeros = (regs == 0).to(torch.float32).sum(dim=1)
+    lc = mf * torch.log(mf / zeros.clamp_min(1.0))
+    use_lc = (est <= 2.5 * mf) & (zeros > 0)
+    return torch.where(use_lc, lc, est)
+
+
+def merge_csr(regs, csr: InCSR, out=None, sizes: bool = True):
+    """K6a over the reverse CSR, with K6b for the new rows → (new regs, f32[N]
+    sizes or None, i32[1] changed flag). Card tensors only."""
+    n, m = regs.shape
+    out = torch.empty_like(regs) if out is None else out
+    sz = torch.empty(n, dtype=torch.float32, device=regs.device) if sizes else None
+    changed = torch.empty(1, dtype=torch.int32, device=regs.device)
+    kernels.hll_merge(regs, csr.offsets, csr.sources, csr.long_rows, LONG_ROW, hll_alpha(m), out,
+                      sz, changed)
+    return out, sz, changed
+
+
+def merge_iteration(regs, edge_from, edge_to):
+    """One HyperBall round: ball(to) ∪= ball(from) for every edge → new regs
+    uint8[N, m]; edges i32[E]. A CPU tensor takes the plain version, a card
+    tensor the kernel (the edges sorted by target on the card first)."""
+    if not regs.is_cuda:
+        return merge_iteration_plain(regs, edge_from, edge_to)
+    return merge_csr(regs, in_csr(regs.shape[0], edge_from, edge_to, regs.device),
+                     sizes=False)[0]
+
+
+def estimate_sizes(regs):
+    """Vectorized HLL estimate f32[N] (same formula as utils.hyperloglog)."""
+    if not regs.is_cuda:
+        return estimate_sizes_plain(regs)
+    sizes = torch.empty(regs.shape[0], dtype=torch.float32, device=regs.device)
+    kernels.hll_estimate(regs, hll_alpha(regs.shape[1]), sizes)
+    return sizes

@@ -9,6 +9,8 @@ time: the CPU tests import this module on machines without nvcc or a card.
   csrc/scoring.cu   K1 stage A, K2 stage B, K3 pass-2 signals
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
+  csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
+                    size estimate, K7 BFS relaxation
 
 (K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
 pool, forward and backward, are Triton kernels in ops/encoder.py, and K14d,
@@ -34,7 +36,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> source file under csrc/
-SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu"}
+SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu",
+           "graph": "graph.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -52,7 +55,8 @@ MAX_SMEM = 227 * 1024
 # the main path went through the kernels
 LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0, "forest": 0, "attention": 0,
             "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
-            "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0}
+            "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
+            "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # the server launches from two worker threads
@@ -156,6 +160,11 @@ def _load(name: str):
             elif name == "forest":
                 lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
+            elif name == "graph":
+                lib.stract_hll_merge.argtypes = [P, P, P, P, I, I, I, I, F, P, P, P, P]
+                lib.stract_hll_estimate.argtypes = [P, I, I, F, P, P]
+                lib.stract_bfs_relax.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
+                fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_relax)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
@@ -328,3 +337,61 @@ def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
                                        B, T, H, _stream())
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
+
+
+# limits of csrc/graph.cu: registers per row (a power of two, 4..1024)
+HLL_MAX_M = 1024
+
+
+def _csr_ptrs(n: int, offsets, sources, long_rows) -> tuple:
+    i32 = torch.int32
+    if sources.shape[0] >= 2 ** 31:
+        raise ValueError("the graph kernels index edges with int32")
+    return (_ptr(offsets, i32, (n + 1,)), _ptr(sources, i32), _ptr(long_rows, i32),
+            int(long_rows.shape[0]))
+
+
+def hll_merge(regs, offsets, sources, long_rows, long_cut: int, alpha: float, out, sizes,
+              changed) -> None:
+    """K6a (+K6b): regs u8[N, m] over the reverse CSR (offsets i32[N + 1],
+    sources i32[E]; long_rows i32[L], the rows with more than long_cut
+    in-edges) → out u8[N, m], sizes f32[N] (or None), changed i32[1]
+    (ops/hll_ops.py allocates)."""
+    n, m = regs.shape
+    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
+        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
+    u8 = torch.uint8
+    lib = _load("graph")
+    rc = lib.stract_hll_merge(_ptr(regs, u8, (n, m)), off, src, lr, n_long, n, m, long_cut,
+                              alpha, _ptr(out, u8, (n, m)), _ptr(sizes, torch.float32, (n,)),
+                              _ptr(changed, torch.int32, (1,)), _stream())
+    _check(rc, "stract_hll_merge")
+    counted("hll_merge")
+
+
+def hll_estimate(regs, alpha: float, sizes) -> None:
+    """K6b: regs u8[N, m] → sizes f32[N]."""
+    n, m = regs.shape
+    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
+        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    lib = _load("graph")
+    rc = lib.stract_hll_estimate(_ptr(regs, torch.uint8, (n, m)), n, m, alpha,
+                                 _ptr(sizes, torch.float32, (n,)), _stream())
+    _check(rc, "stract_hll_estimate")
+    counted("hll_estimate")
+
+
+def bfs_relax(dist, offsets, sources, long_rows, long_cut: int, out, changed) -> None:
+    """K7: dist i32[N, S] (S = 1 or a multiple of 32) over the reverse CSR →
+    out i32[N, S], changed i32[1] (webgraph/shortest_path.py allocates)."""
+    n, S = dist.shape
+    if S != 1 and S % 32:
+        raise ValueError(f"the relaxation takes 1 or a multiple of 32 sources, not {S}")
+    off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
+    i32 = torch.int32
+    lib = _load("graph")
+    rc = lib.stract_bfs_relax(_ptr(dist, i32, (n, S)), off, src, lr, n_long, n, S, long_cut,
+                              _ptr(out, i32, (n, S)), _ptr(changed, i32, (1,)), _stream())
+    _check(rc, "stract_bfs_relax")
+    counted("bfs_relax")

@@ -30,8 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stract_tpu.ranking import bm25_math as BM
-from stract_tpu.ranking import signals as S
+from ..ranking import bm25_math as BM
+from ..ranking import signals as S
 
 from . import kernels
 
@@ -427,8 +427,21 @@ def score_driver_batch_plain(seg, qs, factors, driver_docs, default_static: bool
     return docs, scores, sq, scale
 
 
+_STATIC_OF_SIG_ON: dict = {}
+
+
 def _static_of_sig(device) -> torch.Tensor:
-    return torch.as_tensor(_STATIC_OF_SIG, device=device)
+    """The signal → static column table on `device`, made once and kept. K2
+    and K3 get its raw address in a launch struct, so it must outlive every
+    launch: a table made per call was freed before its launch, another
+    thread's allocation could take its memory and write into it first, and
+    the kernel then indexed the static columns with that thread's data
+    (the illegal address of pipeline-on serving)."""
+    dev = torch.device(device)
+    table = _STATIC_OF_SIG_ON.get(dev)
+    if table is None:
+        table = _STATIC_OF_SIG_ON.setdefault(dev, torch.as_tensor(_STATIC_OF_SIG, device=dev))
+    return table
 
 
 def _agg_args(aggs, device):

@@ -33,7 +33,7 @@ def ranking_loss(scores_pos, scores_neg):
 
 
 def make_train_state(cfg: BertConfig, learning_rate: float = 1e-4, seed: int = 0,
-                     num_experts: int = 0, device="cpu"):
+                     num_experts: int = 0, device="cuda"):
     """A cross encoder with f32 masters (random init from `seed`) on
     `device`, and its optimizer → (model, opt)."""
     if num_experts:

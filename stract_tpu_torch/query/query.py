@@ -82,7 +82,7 @@ class Query:
                     TermGroup(w, list(SIMPLE_TERM_FIELDS), required=not excluded, excluded=excluded)
                 )
         elif k == TermKind.SITE:
-            from stract_tpu.tokenizer import get_tokenizer
+            from ..tokenizer import get_tokenizer
 
             toks = get_tokenizer("url").tokenize(t.text.strip().lower())
             if excluded:

@@ -16,10 +16,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from stract_tpu.ranking import signals as S
-from stract_tpu.schema import text_field
-from stract_tpu.tokenizer import get_tokenizer
-from stract_tpu.utils.hashing import term_hash
+from ..ranking import signals as S
+from ..schema import text_field
+from ..tokenizer import get_tokenizer
+from ..utils.hashing import term_hash
 
 from ..ops import scoring as O
 

@@ -33,7 +33,7 @@ class CrossEncoderModel:
     @classmethod
     def random_init(cls, cfg: BertConfig | None = None,
                     tokenizer: WordPieceTokenizer | None = None, seed: int = 0,
-                    device="cpu") -> "CrossEncoderModel":
+                    device="cuda") -> "CrossEncoderModel":
         cfg = cfg or BertConfig.tiny()
         tokenizer = tokenizer or WordPieceTokenizer.build(["the quick brown fox"],
                                                           vocab_size=cfg.vocab_size)
@@ -57,7 +57,7 @@ class CrossEncoderModel:
                      "cross")
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "CrossEncoderModel":
+    def load(cls, path: str, device="cuda") -> "CrossEncoderModel":
         """From a native checkpoint dir (either package's) or an HF
         safetensors dir."""
         from ...models.store import load_encoder

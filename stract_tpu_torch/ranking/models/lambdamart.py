@@ -28,7 +28,7 @@ class LambdaMART:
     encoded as -(leaf_index + 1). The tensors live on `device`."""
 
     def __init__(self, feature, threshold, left, right, leaf_value, max_depth: int,
-                 device="cpu"):
+                 device="cuda"):
         dev = torch.device(device)
         as_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt).to(dev).contiguous()  # noqa: E731
         self.feature = as_t(feature, torch.int32)        # [T, N]
@@ -95,7 +95,7 @@ class LambdaMART:
         })
 
     @classmethod
-    def from_json(cls, s, device="cpu") -> "LambdaMART":
+    def from_json(cls, s, device="cuda") -> "LambdaMART":
         """Accepts the to_json() string or an already-parsed dict."""
         d = json.loads(s) if isinstance(s, (str, bytes)) else s
         return cls(
@@ -104,18 +104,18 @@ class LambdaMART:
         )
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "LambdaMART":
+    def load(cls, path: str, device="cuda") -> "LambdaMART":
         """A forest file as the coordinator reads it: LightGBM text when it
         holds a "Tree=" section, else JSON."""
         with open(path) as fh:
             text = fh.read()
         if "Tree=" in text:
-            return cls.parse_lightgbm(text).to(device)
+            return cls.parse_lightgbm(text, device=device)
         return cls.from_json(text, device=device)
 
     # -- LightGBM text dump ------------------------------------------------------------
     @classmethod
-    def parse_lightgbm(cls, text: str) -> "LambdaMART":
+    def parse_lightgbm(cls, text: str, device="cuda") -> "LambdaMART":
         """Parses LightGBM `model.txt` dumps (Tree=K sections with num_leaves,
         split_feature, threshold, left_child, right_child, leaf_value)."""
         trees = []
@@ -167,7 +167,8 @@ class LambdaMART:
             right[i, :n] = r
             leaf_value[i, : len(leaves)] = leaves
         depth = int(np.ceil(np.log2(max(max_leaves, 2)))) + 2
-        return cls(feature, threshold, left, right, leaf_value, max_depth=max(depth, 4))
+        return cls(feature, threshold, left, right, leaf_value, max_depth=max(depth, 4),
+                   device=device)
 
     # -- training ------------------------------------------------------------------------
     @classmethod
@@ -179,6 +180,7 @@ class LambdaMART:
         max_depth: int = 4,
         learning_rate: float = 0.1,
         min_samples: int = 4,
+        device="cuda",
     ) -> "LambdaMART":
         """Gradient-boosted regression trees on (features, targets). For ranking,
         pass NDCG-style gains as targets (the reference trains lambdarank in
@@ -209,14 +211,15 @@ class LambdaMART:
                 left[i, :n] = t["left"]
                 right[i, :n] = t["right"]
             leaf_value[i, : len(t["leaves"])] = np.array(t["leaves"]) * learning_rate
-        return cls(feature, threshold, left, right, leaf_value, max_depth=max_depth + 2)
+        return cls(feature, threshold, left, right, leaf_value, max_depth=max_depth + 2,
+                   device=device)
 
 
 def signal_matrix(webpages: list) -> np.ndarray:
     """f32[len(webpages), NUM_SIGNALS]: the "rankingSignals" of served
     result pages as forest feature rows, each signal at its id (the
     collection step of tools/train_bench_lambdamart.py)."""
-    from stract_tpu.ranking import signals as S
+    from ...ranking import signals as S
 
     X = np.zeros((len(webpages), S.NUM_SIGNALS), dtype=np.float32)
     for i, w in enumerate(webpages):

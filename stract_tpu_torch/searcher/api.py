@@ -1,10 +1,10 @@
 """ApiSearcher — the coordinator's search flow (the port of
 stract_tpu/searcher/api.py: bangs, batched shard fan-out, cross-shard merge,
 recall stage, page signals, retrieve + snippets, precision stage). The ranking
-pipeline is the JAX package's host code, imported as is; it takes the port's
-models duck-typed (dual encoder `embed`, cross encoder `score_pairs`, forest
-`predict`). Without models its stages are the linear rescoring and the slop
-signals."""
+pipeline is this package's copy of the JAX package's host code; it takes
+the port's models duck-typed (dual encoder `embed`, cross encoder
+`score_pairs`, forest `predict`). Without models its stages are the linear
+rescoring and the slop signals."""
 
 from __future__ import annotations
 
@@ -13,13 +13,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from stract_tpu.bangs import Bangs
-from stract_tpu.ranking import signals as S
-from stract_tpu.ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS, RankingPipeline
-from stract_tpu.ranking.pipeline.block import merge_blocks
+from ..bangs import Bangs
+from ..ranking import signals as S
+from ..ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS, RankingPipeline
+from ..ranking.pipeline.block import merge_blocks
 
 from ..query.query import Query
-from .local import block_to_candidates
 from .query import SearchQuery
 
 MAX_PRECISION_PAGE = 2  # precision rerank only for the first pages
@@ -120,7 +119,7 @@ class ApiSearcher:
         self._ensure_blocks([(sqs[i], pb) for i, _, pb, _, _ in staged])
         for _, _, pb, _, _ in staged:
             pb.fill_slop_signals()  # pass 2 does not compute the slop signals
-        staged = [(i, ctx, block_to_candidates(pb), count, has_more)
+        staged = [(i, ctx, pb.to_candidates(), count, has_more)
                   for i, ctx, pb, count, has_more in staged]
         for i, _, page, _, _ in staged:
             self.searcher.retrieve(sqs[i], [c for c in page if c.retrieved is None])
@@ -154,12 +153,12 @@ class ApiSearcher:
         page_block = merge_blocks([cut], sq.num_results).take(slice(0, sq.num_results))
         self._ensure_blocks([(sq, page_block)])
         page_block.fill_slop_signals()
-        page = block_to_candidates(page_block)
+        page = page_block.to_candidates()
         self.searcher.retrieve(sq, [c for c in page if c.retrieved is None])
         return self._serialize_page(sq, page, count, has_more)
 
     def _serialize_page(self, sq: SearchQuery, page, count, has_more) -> WebsitesResult:
-        from stract_tpu.prettifier import rich_snippet
+        from ..prettifier import rich_snippet
 
         webpages = []
         for c in page:

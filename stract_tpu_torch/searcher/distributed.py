@@ -6,10 +6,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from stract_tpu.collector import ApproxCount
-from stract_tpu.ranking import signals as S
-from stract_tpu.ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS
-from stract_tpu.ranking.pipeline.block import CandidateBlock
+from ..collector import ApproxCount
+from ..ranking import signals as S
+from ..ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS
+from ..ranking.pipeline.block import CandidateBlock
 
 from .query import SearchQuery
 

@@ -11,11 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from stract_tpu.collector import ApproxCount
-from stract_tpu.ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS
-
-from ..index.inverted import DocPointer, InvertedIndex
+from ..collector import ApproxCount
+from ..index.inverted import InvertedIndex
 from ..query.query import Query
+from ..ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS
 from ..ranking.computer import TermGroup
 from .query import SearchQuery
 
@@ -26,37 +25,6 @@ DEDUP_COLUMNS = [
     "site_hash1",
     "sim_hash",
 ]
-
-
-def block_to_candidates(block) -> list:
-    """CandidateBlock rows as RankedCandidate objects (the final page): the
-    JAX package's CandidateBlock.to_candidates, with this package's
-    DocPointer (the original imports stract_tpu.index.inverted, and jax)."""
-    from stract_tpu.ranking.pipeline import RankedCandidate
-    from stract_tpu.ranking.pipeline.block import DEDUP_NAMES
-
-    out = []
-    for i in range(len(block)):
-        sid = int(block.shard[i])
-        c = RankedCandidate(
-            shard=sid,
-            pointer=DocPointer(int(block.segment[i]), int(block.doc[i])),
-            score=float(block.score[i]),
-            signals=block.signals[i].copy() if block.signals is not None else None,
-            title_embedding=block.title_emb[i] if block.title_emb is not None else None,
-            keyword_embedding=block.keyword_emb[i] if block.keyword_emb is not None else None,
-            dedup={n: int(block.dedup[n][i]) for n in DEDUP_NAMES},
-            host_id=int(block.host_id[i]),
-        )
-        ctx = block.ctxs.get(sid)
-        if ctx is not None:
-            c._ctx = ctx
-        if "title_slop" in block.cols:
-            # slop signals came from stored positions: the precision stage
-            # must not overwrite them from retrieved text
-            c._slop_from_positions = True
-        out.append(c)
-    return out
 
 
 class LocalSearcher:
@@ -80,7 +48,7 @@ class LocalSearcher:
     def search_blocks_many(self, sqs: list, max_candidates: int = NUM_PIPELINE_RANKING_RESULTS):
         """Shard-side flow for a batch of queries → list of (CandidateBlock,
         ApproxCount) aligned with sqs."""
-        from stract_tpu.ranking.pipeline.block import CandidateBlock
+        from ..ranking.pipeline.block import CandidateBlock
 
         qs = [self.parse_query(sq) for sq in sqs]
         ctxs = [q.context() for q in qs]
@@ -146,10 +114,10 @@ class LocalSearcher:
     def _slop_columns(self, ctx, seg_arr, doc_arr, snap) -> dict:
         """Recall-stage term-distance values from stored positions:
         {'title_slop', 'body_slop'} f64[N]."""
-        from stract_tpu.ranking.term_distance import SLOP_MAX, min_slop_block
-        from stract_tpu.schema import text_field
-        from stract_tpu.tokenizer import get_tokenizer
-        from stract_tpu.utils.hashing import term_hash
+        from ..ranking.term_distance import SLOP_MAX, min_slop_block
+        from ..schema import text_field
+        from ..tokenizer import get_tokenizer
+        from ..utils.hashing import term_hash
 
         n = len(doc_arr)
         terms = getattr(ctx, "simple_terms", None) or []

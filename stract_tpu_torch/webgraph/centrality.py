@@ -1,0 +1,165 @@
+"""Harmonic centrality via HyperBall — the port of
+stract_tpu/webgraph/centrality.py (role of reference
+webgraph/centrality/harmonic.rs:215-292 in-process HyperBall).
+
+    c(v) = Σ_r (|ball_r(v)| − |ball_{r−1}(v)|) / r
+    ball_r(v) = {v} ∪ ⋃_{(w,v)∈E} ball_{r−1}(w)   (nodes that can reach v)
+
+All sketches are one uint8[N, m] register matrix on the device. On a card a
+round is one launch of K6a (ops/hll_ops.py, csrc/graph.cu) over the store's
+reverse CSR (webgraph/csr.py), which also estimates the new rows' sizes
+(K6b) and flags a change; the host reads the flag and the f32 sizes. The per-node Σ/r accumulation uses
+Kahan-compensated f64 on the host, as the reference does (kahan_sum.rs). On
+the CPU a round is the plain merge and estimate.
+
+The sharded variant (the JAX package's ring exchange over a mesh, K8) is not
+ported: it waits for the multi-device work (ROADMAP queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops import hll_ops
+from .csr import InCSR, graph_in_csr, in_csr
+from .shortest_path import forward_edges
+from .store import Webgraph
+
+DEFAULT_PRECISION = 6  # 64 registers, like the reference's HyperLogLog<64>
+
+
+def harmonic_centrality(graph: Webgraph, precision: int = DEFAULT_PRECISION,
+                        max_rounds: int = 64, device="cuda",
+                        timings: dict | None = None) -> dict[str, float]:
+    """→ {node_name: centrality}, normalized by (N-1) like the reference.
+    `timings`, when given, receives the seconds of reading the edges (on a
+    card the store's reverse CSR onto it, "edges"), of the registers' set-up
+    ("setup"), of the rounds ("rounds") and of building the result
+    ("names"), and the round count ("n_rounds")."""
+    n = graph.num_nodes
+    if n == 0:
+        return {}
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        edges, csr = (None, None), graph_in_csr(graph, dev)
+    else:
+        edges, csr = forward_edges(graph), None
+    if timings is not None:
+        timings["edges"] = time.perf_counter() - t0
+    centrality = _hyperball(n, *edges, precision, max_rounds, dev, timings, csr=csr)
+    t0 = time.perf_counter()
+    norm = max(n - 1, 1)
+    out = dict(zip(graph.names(), (centrality / norm).tolist()))
+    if timings is not None:
+        timings["names"] = time.perf_counter() - t0
+    return out
+
+
+def _hyperball(n, edge_from, edge_to, precision, max_rounds, device="cuda",
+               timings: dict | None = None, csr: InCSR | None = None) -> np.ndarray:
+    """Raw HyperBall → unnormalized centrality f64[n]. On a card the rounds
+    walk `csr`, or the edges sorted by target there when it is not given."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    regs = torch.from_numpy(hll_ops.init_registers(n, precision)).to(dev)
+    if dev.type == "cuda":
+        csr = csr if csr is not None else in_csr(n, edge_from, edge_to, dev)
+        spare = torch.empty_like(regs)
+
+        def step(regs):
+            new, sizes, changed = hll_ops.merge_csr(regs, csr, out=spare)
+            return (new, sizes) if int(changed.item()) else (None, None)
+    else:
+        ef, et = torch.from_numpy(np.asarray(edge_from)), torch.from_numpy(np.asarray(edge_to))
+
+        def step(regs):
+            new = hll_ops.merge_iteration_plain(regs, ef, et)
+            return (None, None) if torch.equal(new, regs) else (new, hll_ops.estimate_sizes(new))
+
+    sizes = hll_ops.estimate_sizes(regs).cpu().numpy().astype(np.float64)
+    t1 = time.perf_counter()
+    # Kahan-compensated accumulation, vectorized over all nodes per round
+    acc = np.zeros(n, dtype=np.float64)
+    comp = np.zeros(n, dtype=np.float64)
+    rounds = 0
+    for r in range(1, max_rounds + 1):
+        new_regs, new_sizes = step(regs)
+        if new_regs is None:
+            break
+        rounds = r
+        spare, regs = regs, new_regs
+        new_sizes = new_sizes.cpu().numpy().astype(np.float64)
+        delta = (new_sizes - sizes) / r
+        y = delta - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+        sizes = new_sizes
+    if timings is not None:
+        timings.update(setup=t1 - t0, rounds=time.perf_counter() - t1, n_rounds=rounds)
+    return acc
+
+
+def harmonic_centrality_sharded(graph: Webgraph, mesh, precision: int = DEFAULT_PRECISION,
+                                max_rounds: int = 64) -> dict[str, float]:
+    """The JAX package's multi-device HyperBall (ring exchange of register
+    shards, K8) is not ported yet."""
+    raise NotImplementedError("sharded HyperBall is not ported yet (ROADMAP queue 1 item 13)")
+
+
+def exact_harmonic_centrality(graph: Webgraph) -> dict[str, float]:
+    """Exact O(N·E) BFS oracle for tests (role of the reference's exact tests,
+    webgraph/centrality/harmonic.rs tests)."""
+    n = graph.num_nodes
+    out_off = np.asarray(graph.out_offsets, dtype=np.int64)
+    tgt = np.asarray(graph.out_targets, dtype=np.int64)
+    adj = [tgt[out_off[i] : out_off[i + 1]] for i in range(n)]
+    out = np.zeros(n)
+    for src in range(n):
+        # BFS forward from src; contributes 1/d to each reached node
+        dist = -np.ones(n, dtype=np.int64)
+        dist[src] = 0
+        frontier = [src]
+        d = 0
+        while frontier:
+            d += 1
+            nxt = []
+            for u in frontier:
+                for v in adj[u]:
+                    if dist[v] < 0:
+                        dist[v] = d
+                        nxt.append(int(v))
+                        out[v] += 1.0 / d
+            frontier = nxt
+    norm = max(n - 1, 1)
+    return {graph.name_of(i): out[i] / norm for i in range(n)}
+
+
+def centrality_ranks(centrality: dict[str, float]) -> dict[str, int]:
+    """Dense ranks, best = 0 (feeds the HostCentralityRank column)."""
+    ordered = sorted(centrality.items(), key=lambda kv: -kv[1])
+    ranks = {}
+    prev_val, prev_rank = None, -1
+    for i, (name, val) in enumerate(ordered):
+        if val != prev_val:
+            prev_rank = i
+            prev_val = val
+        ranks[name] = prev_rank
+    return ranks
+
+
+def store_harmonic(centrality: dict[str, float], path: str) -> None:
+    """Persist centrality + ranks as a speedy-kv style store (role of
+    centrality/mod.rs:206 store_harmonic)."""
+    from ..kv import Db
+
+    db = Db.open(path)
+    ranks = centrality_ranks(centrality)
+    for name, val in centrality.items():
+        db.insert(name.encode(), {"centrality": val, "rank": ranks[name]})
+    db.commit()

@@ -1,0 +1,277 @@
+"""The webgraph centrality job of the port against the JAX package's on the
+CPU: HyperBall register merges (K6a's plain version) bit-equal round by
+round, size estimates (K6b's) within rel 1e-6 (XLA and torch sum a row's 64
+powers of two in other orders), harmonic centrality with the same round
+count within rtol 1e-5 and ranks equal up to ties, BFS distances (K7's)
+exactly equal, approximated harmonic centrality within rtol 1e-9 (the same
+sources from the same seed, the same f64 sums), kv stores and graphs
+written by either package read by the other, and the `centrality` command
+line of both packages on the same config.
+
+Graphs: the fixtures of tests/test_webgraph.py, a 2,000-node Pareto graph
+(the benchmark's recipe at small size), and one with self-loops, sources
+only, sinks only and a node whose only edge is its own loop.
+"""
+
+from __future__ import annotations
+
+import filecmp
+import os
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from stract_tpu.kv import Db as JaxDb
+from stract_tpu.main import main as jax_main
+from stract_tpu.ops import hll_ops as jax_hll
+from stract_tpu.webgraph import Edge, Webgraph as JaxWebgraph, WebgraphBuilder
+from stract_tpu.webgraph import centrality as JC
+from stract_tpu.webgraph import shortest_path as JS
+from stract_tpu_torch.entrypoint.bench_centrality import make_edges
+from stract_tpu_torch.kv import Db
+from stract_tpu_torch.main import main as port_main
+from stract_tpu_torch.ops import hll_ops
+from stract_tpu_torch.webgraph import Webgraph
+from stract_tpu_torch.webgraph import centrality as PC
+from stract_tpu_torch.webgraph import shortest_path as PS
+from stract_tpu_torch.webgraph.csr import LONG_ROW, graph_in_csr, in_csr
+from stract_tpu_torch.webgraph.store import write_graph
+
+import torch
+
+GRAPHS = {
+    "chain": [("a", "b"), ("b", "c"), ("c", "d"), ("a", "c"), ("d", "a")],
+    "star": [(f"n{i}.com", "hub.com") for i in range(8)] + [("n0.com", "n1.com")],
+    "ring": [("a", "b"), ("b", "c"), ("c", "d"), ("d", "e"), ("e", "a"), ("a", "c"),
+             ("b", "d")],
+    "random30": None,  # test_webgraph.py's 30-node, 150-edge graph (seed 3)
+    "loops": [("a", "a"), ("a", "b"), ("b", "b"), ("c", "b"), ("d", "d"), ("e", "c"),
+              ("b", "f"), ("f", "f")],
+    "pareto2000": None,
+}
+
+
+def _edges(name: str) -> list:
+    if name == "random30":
+        rng = np.random.default_rng(3)
+        nodes = [f"h{i}" for i in range(30)]
+        edges = [(nodes[rng.integers(30)], nodes[rng.integers(30)]) for _ in range(150)]
+        return [(a, b) for a, b in edges if a != b]
+    return GRAPHS[name]
+
+
+@pytest.fixture(scope="module", params=list(GRAPHS))
+def graph(request, tmp_path_factory):
+    """(name, JAX Webgraph, port Webgraph) over one directory: the JAX
+    builder's, or for the Pareto graph the port's vectorised writer's."""
+    path = str(tmp_path_factory.mktemp(request.param) / "g")
+    if request.param == "pareto2000":
+        src, dst = make_edges(2000, 40_000, seed=0)
+        write_graph(path, [f"h{i}.example" for i in range(2000)], src, dst)
+    else:
+        b = WebgraphBuilder()
+        for f, t in _edges(request.param):
+            b.insert(Edge(f, t, label=f"link {f}->{t}"))
+        b.build(path)
+    return request.param, JaxWebgraph(path), Webgraph(path)
+
+
+def _edge_arrays(g):
+    return PS.forward_edges(g)
+
+
+def test_merge_rounds_bit_equal_and_estimates_close(graph):
+    _, jg, pg = graph
+    ef, et = _edge_arrays(jg)
+    for precision in (6, 8):
+        regs0 = jax_hll.init_registers(jg.num_nodes, precision)
+        np.testing.assert_array_equal(hll_ops.init_registers(jg.num_nodes, precision), regs0)
+        rj, rp = jnp.asarray(regs0), torch.from_numpy(regs0)
+        for _ in range(6):
+            rj = jax_hll.merge_iteration(rj, jnp.asarray(ef), jnp.asarray(et))
+            rp = hll_ops.merge_iteration(rp, torch.from_numpy(ef), torch.from_numpy(et))
+            np.testing.assert_array_equal(rp.numpy(), np.asarray(rj))
+            np.testing.assert_allclose(hll_ops.estimate_sizes(rp).numpy(),
+                                       np.asarray(jax_hll.estimate_sizes(rj)), rtol=1e-6)
+
+
+def test_store_reverse_csr_is_the_edges_sorted_by_target(graph):
+    """The store's reverse CSR, which the card's jobs walk, equals the
+    forward edges sorted by target (in_csr), long rows included."""
+    name, _, pg = graph
+    got = graph_in_csr(pg, "cpu")
+    want = in_csr(pg.num_nodes, *PS.forward_edges(pg), "cpu")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert name != "pareto2000" or got.long_rows.numel() > 0
+    counts = np.diff(got.offsets.numpy())
+    np.testing.assert_array_equal(got.long_rows.numpy(), np.flatnonzero(counts > LONG_ROW))
+
+
+def _jax_rounds(g, precision: int) -> int:
+    """The round count of the JAX package's HyperBall loop (the rounds that
+    changed a register)."""
+    ef, et = (jnp.asarray(a) for a in _edge_arrays(g))
+    regs = jnp.asarray(jax_hll.init_registers(g.num_nodes, precision))
+    for r in range(1, 65):
+        new = jax_hll.merge_iteration(regs, ef, et)
+        if bool(jnp.all(new == regs)):
+            return r - 1
+        regs = new
+    return 64
+
+
+def _assert_ranks_equal_up_to_ties(cj: dict, cp: dict, rtol: float) -> None:
+    """Every node's port rank lies inside the rank range of its tie group:
+    the nodes whose JAX values are within rtol of each other (chained)."""
+    names = sorted(cj, key=lambda k: -cj[k])
+    rp = PC.centrality_ranks(cp)
+    lo = 0
+    for i in range(1, len(names) + 1):
+        if i == len(names) or abs(cj[names[i]] - cj[names[i - 1]]) > rtol * max(
+                abs(cj[names[i - 1]]), 1e-12):
+            for k in names[lo:i]:
+                assert lo <= rp[k] <= i - 1, (k, rp[k], lo, i - 1)
+            lo = i
+
+
+def test_harmonic_centrality_matches_jax(graph):
+    _, jg, pg = graph
+    for precision in (6, 8):
+        cj = JC.harmonic_centrality(jg, precision=precision)
+        timings = {}
+        cp = PC.harmonic_centrality(pg, precision=precision, device="cpu", timings=timings)
+        assert timings["n_rounds"] == _jax_rounds(jg, precision)
+        assert list(cp) == list(cj)
+        np.testing.assert_allclose([cp[k] for k in cj], [cj[k] for k in cj], rtol=1e-5,
+                                   atol=1e-12)
+        _assert_ranks_equal_up_to_ties(cj, cp, 2e-5)
+
+
+def test_distances_exactly_equal(graph):
+    name, jg, pg = graph
+    n = jg.num_nodes
+    sources = list(range(min(n, 40)))
+    dj = JS.distances_many(jg, sources)
+    dp = PS.distances_many(pg, sources, device="cpu")
+    assert dp.dtype == np.int32 and dp.shape == (len(sources), n)
+    np.testing.assert_array_equal(dp, dj)
+    assert name != "loops" or (dj == JS.UNREACHABLE).any()  # compared like any distance
+    for s in (0, n - 1, jg.name_of(n // 2)):
+        assert PS.distances(pg, s, device="cpu") == JS.distances(jg, s)
+
+
+def test_approx_harmonic_matches_jax(graph):
+    _, jg, pg = graph
+    for k in (3, 256):
+        aj = JS.approx_harmonic_centrality(jg, num_samples=k, seed=4)
+        ap = PS.approx_harmonic_centrality(pg, num_samples=k, seed=4, device="cpu")
+        assert list(ap) == list(aj)
+        np.testing.assert_allclose([ap[x] for x in aj], [aj[x] for x in aj], rtol=1e-9,
+                                   atol=0)
+
+
+def test_exact_harmonic_ordering(tmp_path):
+    b = WebgraphBuilder()
+    for f, t in GRAPHS["star"]:
+        b.insert(Edge(f, t))
+    b.build(str(tmp_path / "g"))
+    exact = PC.exact_harmonic_centrality(Webgraph(str(tmp_path / "g")))
+    assert max(exact, key=exact.get) == "hub.com"
+    assert exact == JC.exact_harmonic_centrality(JaxWebgraph(str(tmp_path / "g")))
+    hb = PC.harmonic_centrality(Webgraph(str(tmp_path / "g")), precision=8, device="cpu")
+    assert max(hb, key=hb.get) == "hub.com"
+
+
+def test_kv_stores_cross_readable(tmp_path):
+    rng = np.random.default_rng(7)
+    c = {f"h{i}.example": float(v) for i, v in enumerate(rng.random(500))}
+    c["tie.example"] = c["h3.example"]
+    PC.store_harmonic(c, str(tmp_path / "port"))
+    JC.store_harmonic(c, str(tmp_path / "jax"))
+    ranks = JC.centrality_ranks(c)
+    for path in ("port", "jax"):
+        for cls in (JaxDb, Db):
+            db = cls.open(str(tmp_path / path))
+            assert len(db) == len(c)
+            for name in ("h0.example", "h499.example", "tie.example"):
+                assert db.get(name.encode()) == {"centrality": c[name], "rank": ranks[name]}
+            assert dict(db.items()) == {k.encode(): {"centrality": v, "rank": ranks[k]}
+                                        for k, v in c.items()}
+    (sp,), (sj,) = ([s for s in os.listdir(tmp_path / p) if s.startswith("seg-")]
+                    for p in ("port", "jax"))
+    for f in os.listdir(tmp_path / "jax" / sj):
+        assert filecmp.cmp(tmp_path / "port" / sp / f, tmp_path / "jax" / sj / f, shallow=False), f
+
+
+def test_graph_writer_matches_the_builder_byte_for_byte(tmp_path):
+    rng = np.random.default_rng(1)
+    names = [f"h{i}.example" for i in range(60)]
+    src, dst = rng.integers(0, 60, 400), rng.integers(0, 60, 400)
+    b = WebgraphBuilder()
+    for f, t in zip(src, dst):
+        b.insert(Edge(names[f], names[t]))
+    b.build(str(tmp_path / "jax"))
+    g = write_graph(str(tmp_path / "port"), names, src, dst)
+    for f in sorted(os.listdir(tmp_path / "jax")):
+        assert filecmp.cmp(tmp_path / "jax" / f, tmp_path / "port" / f, shallow=False), f
+    # the JAX package reads the port's graph, and the port the JAX builder's
+    jg = JaxWebgraph(str(tmp_path / "port"))
+    assert jg.num_edges == g.num_edges and jg.num_nodes == g.num_nodes
+    for r in (0, 7, g.num_nodes - 1):
+        assert jg.name_of(r) == g.name_of(r) == g.names()[r]
+        assert jg.backlinks(r) == Webgraph(str(tmp_path / "jax")).backlinks(r)
+
+
+def _configs(tmp_path, graph_path: str) -> dict:
+    out = {}
+    for pkg in ("jax", "port"):
+        for mode in ("harmonic", "approx-harmonic", "harmonic-nearest-seed"):
+            extra = (f'original_centrality_path = "{tmp_path}/{pkg}-harmonic"\n'
+                     'discount_factor = 0.5\n' if mode == "harmonic-nearest-seed" else
+                     "num_samples = 5\n")
+            p = tmp_path / f"{pkg}-{mode}.toml"
+            p.write_text(f'webgraph_path = "{graph_path}"\noutput_path = "{tmp_path}/{pkg}-{mode}"\n'
+                         f"precision = 6\n{extra}")
+            out[(pkg, mode)] = str(p)
+    return out
+
+
+def test_centrality_command_line_matches_jax(tmp_path, capsys):
+    b = WebgraphBuilder()
+    for f, t in _edges("random30") + [("x0", "x1")]:  # x1 has no centrality seed of its own
+        b.insert(Edge(f, t))
+    b.build(str(tmp_path / "g"))
+    cfgs = _configs(tmp_path, str(tmp_path / "g"))
+    for mode in ("harmonic", "approx-harmonic", "harmonic-nearest-seed"):
+        jax_main(["centrality", mode, cfgs[("jax", mode)]])
+        line_j = capsys.readouterr().out.strip().replace("jax-", "")
+        port_main(["centrality", mode, cfgs[("port", mode)], "--device", "cpu"])
+        line_p = capsys.readouterr().out.strip().replace("port-", "")
+        assert line_p == line_j and line_j.startswith("centrality for ")
+        dj = dict(JaxDb.open(str(tmp_path / f"jax-{mode}")).items())
+        dp = dict(Db.open(str(tmp_path / f"port-{mode}")).items())
+        assert dj.keys() == dp.keys() and dj
+        for k in dj:
+            np.testing.assert_allclose(dp[k]["centrality"], dj[k]["centrality"], rtol=1e-5)
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    """device="cuda" without a card raises; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    b = WebgraphBuilder()
+    for f, t in GRAPHS["chain"]:
+        b.insert(Edge(f, t))
+    g = b.build(str(tmp_path / "g")) and Webgraph(str(tmp_path / "g"))
+    for call in (lambda: PC.harmonic_centrality(g), lambda: PS.distances(g, 0),
+                 lambda: PS.approx_harmonic_centrality(g, 2),
+                 lambda: port_main(["centrality", "harmonic", str(_configs(
+                     tmp_path, str(tmp_path / "g"))[("port", "harmonic")])])):
+        with pytest.raises(RuntimeError):
+            call()
+    with pytest.raises(NotImplementedError):
+        PC.harmonic_centrality_sharded(g, mesh=None)

@@ -43,6 +43,7 @@ from stract_tpu_torch.ops import encoder as E
 from stract_tpu_torch.ops import forest as forest_ops
 from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
+from stract_tpu_torch.webgraph.csr import InCSR, in_csr
 
 ENC_RTOL, ENC_ATOL = 2 ** -7, 1e-2
 STEP = 2 ** -7
@@ -52,7 +53,7 @@ TEXTS = ["the quick brown fox", "jumps over the lazy dog", "", "fox " * 40]
 def _forest(rng) -> LambdaMART:
     x = rng.normal(size=(400, 46)).astype(np.float32)
     y = 2 * x[:, 0] + x[:, 5] * x[:, 7] + (x[:, 11] > 0.3)
-    return LambdaMART.train(x, y, num_trees=40, max_depth=3)
+    return LambdaMART.train(x, y, num_trees=40, max_depth=3, device="cpu")
 
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
@@ -248,9 +249,9 @@ def test_dual_encoder_on_the_card_matches_the_cpu(tmp_path):
     CPU, the same texts embed alike (kernels against plain twins end to end)."""
     _card()
     tok = WordPieceTokenizer.build(TEXTS, vocab_size=30522)
-    DualEncoder.random_init(BertConfig.mini_lm(), tok, seed=2).save(str(tmp_path))
+    DualEncoder.random_init(BertConfig.mini_lm(), tok, seed=2, device="cpu").save(str(tmp_path))
     gpu = DualEncoder.load(str(tmp_path), device="cuda").embed(TEXTS)
-    cpu = DualEncoder.load(str(tmp_path)).embed(TEXTS)
+    cpu = DualEncoder.load(str(tmp_path), device="cpu").embed(TEXTS)
     assert ((gpu * cpu).sum(1)).min() >= 0.999
 
 
@@ -397,3 +398,149 @@ def test_dual_train_step_kernels_match_plain_twins(monkeypatch):
             continue
         summed = name.endswith("bias") or "position_" in name or "token_type" in name
         assert cos(gk[name], b) >= (0.98 if summed else 0.999), (name, cos(gk[name], b))
+
+
+# ---- the webgraph kernels: K6a/K6b (HyperBall merge + estimate), K7 (BFS relaxation) ------
+def _graph(n: int, hub_in: int, seed: int = 0):
+    """A Pareto web graph of n nodes with node 0 a hub of `hub_in` in-edges,
+    node n - 1 with no in-edges, and self-loops left in → (sources, targets)
+    i32 (edges u → v)."""
+    rng = np.random.default_rng(seed)
+    m = 8 * n
+    tgt = (rng.pareto(1.3, m) * n / 50).astype(np.int64) % (n - 1)
+    src = rng.integers(0, n, m)
+    src = np.concatenate([src, rng.integers(1, n, hub_in)])
+    tgt = np.concatenate([tgt, np.zeros(hub_in, np.int64)])
+    return src.astype(np.int32), tgt.astype(np.int32)
+
+
+def test_graph_wrappers_dispatch_and_check(monkeypatch):
+    """CPU tensors take the plain versions; a CUDA tensor calls the kernel
+    (stand-ins here); a register row the kernel does not take raises."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.webgraph import shortest_path as SP
+
+    src, dst = _graph(50, 10)
+    regs = torch.from_numpy(hll_ops.init_registers(50, 4))
+    np.testing.assert_array_equal(hll_ops.merge_iteration(regs, src, dst).numpy(),
+                                  hll_ops.merge_iteration_plain(regs, src, dst).numpy())
+    called = []
+    for name in ("hll_merge", "hll_estimate", "bfs_relax"):
+        monkeypatch.setattr(kernels, name, lambda *a, name=name, **k: called.append(name))
+    for name in ("merge_iteration_plain", "estimate_sizes_plain"):
+        monkeypatch.setattr(hll_ops, name, lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(SP, "relax_plain", lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    csr = InCSR(torch.zeros(51, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
+                        torch.zeros(0, dtype=torch.int32))
+    hll_ops.merge_csr(regs, csr)
+    hll_ops.estimate_sizes(regs)
+    SP.relax(torch.zeros((50, 32), dtype=torch.int32), csr)
+    assert called == ["hll_merge", "hll_estimate", "bfs_relax"]
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(ValueError):  # 48 registers: not a power of two
+        kernels.hll_estimate(torch.zeros((4, 48), dtype=torch.uint8), 0.7, torch.zeros(4))
+    with pytest.raises(ValueError):  # 40 sources: neither 1 nor a multiple of 32
+        kernels.bfs_relax(torch.zeros((4, 40), dtype=torch.int32), *csr, 64,
+                          torch.zeros((4, 40), dtype=torch.int32),
+                          torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hub_in,precision", [(100_003, 100_000, 6), (5_001, 300, 4),
+                                                (5_001, 300, 10)])
+def test_hll_kernels_match_plain(n, hub_in, precision):
+    """K6a bit-equal to the plain merge round by round (and its changed flag
+    to the plain comparison), K6b (in K6a's epilogue and alone) within rel
+    1e-6 of the plain estimate: a hub of 100k in-edges, N not a multiple of
+    the block, a node with no in-edges, 16 / 64 / 1024 registers a row."""
+    from stract_tpu_torch.ops import hll_ops
+
+    dev = _card()
+    src, dst = _graph(n, hub_in)
+    csr = in_csr(n, src, dst, dev)
+    assert csr.long_rows.numel() > 0
+    ef, et = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    regs = torch.from_numpy(hll_ops.init_registers(n, precision)).to(dev)
+    torch.testing.assert_close(hll_ops.estimate_sizes(regs), hll_ops.estimate_sizes_plain(regs),
+                               rtol=1e-6, atol=0)
+    for _ in range(4):
+        new, sizes, changed = hll_ops.merge_csr(regs, csr)
+        plain = hll_ops.merge_iteration_plain(regs, ef, et)
+        assert torch.equal(new, plain)
+        assert bool(changed.item()) == (not torch.equal(plain, regs))
+        torch.testing.assert_close(sizes, hll_ops.estimate_sizes_plain(plain), rtol=1e-6, atol=0)
+        regs = new
+    assert torch.equal(regs[n - 1], torch.from_numpy(hll_ops.init_registers(n, precision)[n - 1])
+                       .to(dev))  # no in-edges: the row never changes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 32, 256])
+def test_bfs_kernel_matches_plain(S):
+    """K7 bit-equal to the plain relaxation round by round, UNREACHABLE
+    included, from 1, 32 and 256 sources (the [N, S] layout against the
+    plain [S, N]), over a hub of 100k in-edges."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.webgraph import shortest_path as SP
+
+    dev = _card()
+    n = 100_003
+    src, dst = _graph(n, 100_000, seed=1)
+    csr = in_csr(n, src, dst, dev)
+    ef, et = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    sources = np.random.default_rng(2).choice(n, size=S, replace=False)
+    dist = torch.full((S, n), int(SP.UNREACHABLE), dtype=torch.int32, device=dev)
+    dist[torch.arange(S), torch.from_numpy(sources).to(dev)] = 0
+    for _ in range(12):
+        new, changed = SP.relax(dist.t().contiguous(), csr)
+        plain = SP.relax_plain(dist, ef, et)
+        assert torch.equal(new.t(), plain)
+        assert bool(changed.item()) == (not torch.equal(plain, dist))
+        dist = plain
+    assert (dist == int(SP.UNREACHABLE)).any()
+    got = SP.bfs(n, src, dst, sources, device=dev)
+    want = SP.bfs(n, src, dst, sources, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+# ---- entry points run on the card unless asked for the CPU ------------------------------
+@pytest.mark.parametrize("where,name", [
+    ("entrypoint.train_encoders", "train_cross_encoder"),
+    ("entrypoint.train_encoders", "train_dual_encoder"),
+    ("parallel.train", "make_train_state"),
+    ("models.dual_encoder", "DualEncoder.random_init"),
+    ("models.dual_encoder", "DualEncoder.load"),
+    ("ranking.models.cross_encoder", "CrossEncoderModel.random_init"),
+    ("ranking.models.cross_encoder", "CrossEncoderModel.load"),
+    ("ranking.models.lambdamart", "LambdaMART.__init__"),
+    ("ranking.models.lambdamart", "LambdaMART.from_json"),
+    ("ranking.models.lambdamart", "LambdaMART.load"),
+    ("ranking.models.lambdamart", "LambdaMART.train"),
+    ("entrypoint.centrality", "run_harmonic"),
+    ("entrypoint.centrality", "run_approx_harmonic"),
+    ("entrypoint.centrality", "run_harmonic_nearest_seed"),
+    ("webgraph.centrality", "harmonic_centrality"),
+    ("webgraph.shortest_path", "approx_harmonic_centrality"),
+])
+def test_entry_points_default_to_the_card(where, name):
+    """Entry points and the model loaders they call take device="cuda"
+    unless the caller asks for the CPU; without a card that default raises
+    (checked on a model and a forest), and nothing falls back."""
+    import importlib
+    import inspect
+
+    obj = importlib.import_module(f"stract_tpu_torch.{where}")
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    if name == "DualEncoder.random_init":
+        with pytest.raises((RuntimeError, AssertionError)):
+            DualEncoder.random_init(BertConfig.tiny(), seed=1)
+    if name == "LambdaMART.train":
+        x = np.random.default_rng(0).normal(size=(40, 46)).astype(np.float32)
+        with pytest.raises((RuntimeError, AssertionError)):
+            LambdaMART.train(x, x[:, 0], num_trees=2, max_depth=2)

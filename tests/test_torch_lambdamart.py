@@ -70,7 +70,7 @@ def trained():
 @pytest.mark.parametrize("k", [1, 7, 255, 256, 300, 1000])
 def test_predict_matches_jax(trained, k):
     jm, rng = trained
-    pm = LambdaMART.from_json(jm.to_json())
+    pm = LambdaMART.from_json(jm.to_json(), device="cpu")
     x = rng.normal(size=(k, 46)).astype(np.float32)
     _assert_same(pm.predict(x), np.asarray(jm.predict(x)), jm.leaf_value)
     _assert_same(pm.predict(x), _jax_scores(jm, x), jm.leaf_value)  # unpadded
@@ -79,7 +79,7 @@ def test_predict_matches_jax(trained, k):
 def test_rows_exactly_at_thresholds(trained):
     """x == threshold goes left (x <= thr) in both."""
     jm, rng = trained
-    pm = LambdaMART.from_json(jm.to_json())
+    pm = LambdaMART.from_json(jm.to_json(), device="cpu")
     thr, feat = np.asarray(jm.threshold), np.asarray(jm.feature)
     x = rng.normal(size=(64, 46)).astype(np.float32)
     for i in range(64):
@@ -97,13 +97,13 @@ def test_train_and_json_match_jax(trained):
     rng = np.random.default_rng(3)
     x = rng.normal(size=(400, 46)).astype(np.float32)
     y = 2 * x[:, 0] + x[:, 5] * x[:, 7] + (x[:, 11] > 0.3)
-    pm = LambdaMART.train(x, y, num_trees=40, max_depth=3)
+    pm = LambdaMART.train(x, y, num_trees=40, max_depth=3, device="cpu")
     assert pm.to_json() == jm.to_json()
-    assert LambdaMART.from_json(pm.to_json()).to_json() == pm.to_json()
+    assert LambdaMART.from_json(pm.to_json(), device="cpu").to_json() == pm.to_json()
 
 
 def test_lightgbm_fixture_matches_jax(tmp_path):
-    jm, pm = JaxLM.parse_lightgbm(LIGHTGBM), LambdaMART.parse_lightgbm(LIGHTGBM)
+    jm, pm = JaxLM.parse_lightgbm(LIGHTGBM), LambdaMART.parse_lightgbm(LIGHTGBM, device="cpu")
     assert pm.num_trees == 2 and pm.max_depth == jm.max_depth
     x = np.array([[0.0, 0.0], [1.0, 1.0], [1.0, 3.0], [0.5, 1.5], [0.5, 2.0]], np.float32)
     _assert_same(pm.predict(x), np.asarray(jm.predict(x)), jm.leaf_value)
@@ -111,7 +111,7 @@ def test_lightgbm_fixture_matches_jax(tmp_path):
     (tmp_path / "model.txt").write_text(LIGHTGBM)
     (tmp_path / "model.json").write_text(pm.to_json())
     for f in ("model.txt", "model.json"):  # the coordinator's loader: text or JSON
-        np.testing.assert_array_equal(LambdaMART.load(str(tmp_path / f)).predict(x),
+        np.testing.assert_array_equal(LambdaMART.load(str(tmp_path / f), device="cpu").predict(x),
                                       pm.predict(x))
 
 
@@ -131,7 +131,7 @@ def test_tree_deeper_than_max_depth():
     x[2, 3] = -1.0                   # left at node 3: leaf 3
     for depth in (2, 4, 5, 6):
         jm = JaxLM(feature, threshold, left, right, leaf, depth)
-        pm = LambdaMART(feature, threshold, left, right, leaf, depth)
+        pm = LambdaMART(feature, threshold, left, right, leaf, depth, device="cpu")
         _assert_same(pm.predict(x), np.asarray(jm.predict(x)), leaf)
-    short = LambdaMART(feature, threshold, left, right, leaf, 2).predict(x)
+    short = LambdaMART(feature, threshold, left, right, leaf, 2, device="cpu").predict(x)
     assert short[0] == 10.0 and short[1] == 10.0  # unfinished walk → leaf_value[t, 0]

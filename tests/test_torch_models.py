@@ -66,7 +66,7 @@ def dual_dirs(tmp_path_factory):
 
 def test_dual_encoder_matches_jax(dual_dirs):
     jd, path = dual_dirs
-    pd = DualEncoder.load(path)
+    pd = DualEncoder.load(path, device="cpu")
     ej, ep = jd.embed(TEXTS), pd.embed(TEXTS)
     assert ep.shape == ej.shape == (len(TEXTS), 64) and ep.dtype == np.float32
     cos = (ej * ep).sum(1) / (np.linalg.norm(ej, axis=1) * np.linalg.norm(ep, axis=1))
@@ -83,7 +83,7 @@ def test_cross_encoder_matches_jax(tmp_path, pool):
     cfg = JB.BertConfig.tiny(score_pool=pool)
     jc = JaxCross.random_init(cfg, _tokenizer(), seed=5)
     jc.save(str(tmp_path))
-    pc = CrossEncoderModel.load(str(tmp_path))
+    pc = CrossEncoderModel.load(str(tmp_path), device="cpu")
     assert pc.cfg.score_pool == pool
     sj, sp = jc.score_pairs(PAIRS), pc.score_pairs(PAIRS)
     assert sp.shape == (len(PAIRS),) and sp.dtype == np.float32
@@ -119,7 +119,7 @@ def test_params_from_jax_is_the_flax_tree(dual_dirs):
 
 def test_port_save_loads_in_jax(tmp_path):
     """A checkpoint the port writes is one the JAX package loads."""
-    pd = DualEncoder.random_init(TB.BertConfig.tiny(), _tokenizer(), seed=9)
+    pd = DualEncoder.random_init(TB.BertConfig.tiny(), _tokenizer(), seed=9, device="cpu")
     pd.save(str(tmp_path))
     jd = JaxDual.load(str(tmp_path))
     ej, ep = jd.embed(TEXTS), pd.embed(TEXTS)
@@ -199,17 +199,17 @@ def test_hf_safetensors_loads_like_jax(tmp_path, kind):
     for k, v in ref.state_dict().items():
         assert torch.equal(mine.state_dict()[k], v), k
     if kind == "dual":
-        pm = DualEncoder.load(str(tmp_path))
+        pm = DualEncoder.load(str(tmp_path), device="cpu")
         assert ((jm.embed(TEXTS) * pm.embed(TEXTS)).sum(1)).min() >= EMB_COS
     else:
-        pm = CrossEncoderModel.load(str(tmp_path))
+        pm = CrossEncoderModel.load(str(tmp_path), device="cpu")
         np.testing.assert_allclose(pm.score_pairs(PAIRS), jm.score_pairs(PAIRS), atol=SCORE_ATOL)
 
 
 def test_interrupted_save_leaves_no_config(tmp_path, monkeypatch):
     """config.json comes last, by rename: a save cut short before the rename
     leaves no config.json, so the directory is never taken for a checkpoint."""
-    pd = DualEncoder.random_init(TB.BertConfig.tiny(), _tokenizer(), seed=1)
+    pd = DualEncoder.random_init(TB.BertConfig.tiny(), _tokenizer(), seed=1, device="cpu")
 
     def killed(*a, **k):
         raise KeyboardInterrupt("killed before the rename")
@@ -220,7 +220,7 @@ def test_interrupted_save_leaves_no_config(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "enc" / "params.msgpack")
     monkeypatch.undo()
     pd.save(str(tmp_path / "enc"))
-    assert DualEncoder.load(str(tmp_path / "enc")).embed(TEXTS[:2]).shape == (2, 64)
+    assert DualEncoder.load(str(tmp_path / "enc"), device="cpu").embed(TEXTS[:2]).shape == (2, 64)
 
 
 def test_trim_to_bucket_and_tokenizer_match_jax():

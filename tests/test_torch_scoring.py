@@ -229,6 +229,39 @@ def test_kernel_arguments_are_checked(monkeypatch):
                         True, 1.0, 1, 0, None, None, None, None)
 
 
+def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
+    """At the launch of K2 and K3, every address in their aggregation
+    struct belongs to a tensor that is still alive. A table made inside the
+    struct's builder and dropped before the launch is free memory that
+    another thread's allocation may take and write first; the kernel then
+    indexed the static columns with that data (the illegal address of
+    pipeline-on serving, where two batcher threads allocate at once). Stand-in
+    launches, so it runs without a card."""
+    import gc
+    import warnings
+
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, aggs = query_batch(rng, seg, starts, dfs, impact)
+    qs = doc_only(qs)
+    cands = driver_candidates(rng, seg, qs.starts.shape[0], 128)
+    facs = host_factors(seg, qs, cands)
+    seg_t = segment_arrays_from_numpy(seg, device="cpu")
+    seen = []
+
+    def launch(a):
+        with warnings.catch_warnings():  # isinstance touches deprecated module attributes
+            warnings.simplefilter("ignore")
+            live = {o.data_ptr() for o in gc.get_objects() if isinstance(o, torch.Tensor)}
+        seen.append({f: getattr(a, f) in live
+                     for f in ("bm25", "bm25f", "idf", "cov", "static_of_sig")})
+    monkeypatch.setattr(kernels, "signals_q16", lambda seg, q, a, *rest: launch(a))
+    monkeypatch.setattr(kernels, "stage_b", lambda seg, q, a, *rest: launch(a))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    OT.compute_signals_from_factors_batch_q16(seg_t, qs, aggs, facs, cands)
+    OT.score_driver_batch_with_signals(seg_t, qs, facs, cands, aggs, True, 64, 32)
+    assert len(seen) == 2 and all(all(s.values()) for s in seen), seen
+
+
 # ---- on the card ----------------------------------------------------------------------
 def _card():
     if not torch.cuda.is_available():

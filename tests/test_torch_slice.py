@@ -136,22 +136,39 @@ def test_http_route_serves_the_page(index_dir):
     assert "kernel_launches" in metrics
 
 
-def test_port_imports_without_jax():
-    """Every module of stract_tpu_torch imports with jax, flax and optax
-    blocked (a subprocess, so this test's own jax import does not count)."""
+def test_port_imports_without_jax(index_dir, tmp_path):
+    """Every module of stract_tpu_torch imports with jax, flax, optax and the
+    JAX package stract_tpu blocked, and with them blocked the port runs a
+    search through its ApiSearcher on the CPU (the lazy imports of the
+    search route included) and the centrality jobs on a tiny graph (a
+    subprocess, so this test's own imports do not count)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'): sys.modules[m] = None\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'stract_tpu'): sys.modules[m] = None\n"
         "import importlib, pkgutil, stract_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(stract_tpu_torch.__path__,"
         " 'stract_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "print(len(names))\n"
+        "from stract_tpu_torch.main import build_searcher, run_centrality\n"
+        "from stract_tpu_torch.searcher.query import SearchQuery\n"
+        "from stract_tpu_torch.webgraph.store import write_graph\n"
+        f"api = build_searcher({index_dir!r}, 'cpu')\n"
+        "page = api.search(SearchQuery.from_json({'query': 'w1 w2',"
+        " 'return_ranking_signals': True})).to_json()\n"
+        "assert page['webpages'] and page['webpages'][0]['rankingSignals']\n"
+        f"g = write_graph({str(tmp_path / 'g')!r}, ['a', 'b', 'c', 'd'], [0, 1, 2, 0], [1, 2, 3, 2])\n"
+        f"cfg = {str(tmp_path / 'c.toml')!r}\n"
+        "open(cfg, 'w').write(f'webgraph_path = \"{g.path}\"\\n"
+        f"output_path = \"{tmp_path / 'out'}\"\\nnum_samples = 3\\n')\n"
+        "for mode in ('harmonic', 'approx-harmonic'):\n"
+        "    assert len(run_centrality(mode, cfg, device='cpu')) == 4\n"
+        "print(len(names), len([m for m in sys.modules if m.startswith('stract_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                         timeout=120)
+                         timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    walked, loaded = map(int, out.stdout.split()[-2:])
+    assert walked >= 60 and loaded >= walked
 
 
 def test_cuda_device_without_a_card_raises(index_dir):
@@ -217,7 +234,7 @@ def pipeline(tmp_path_factory):
     with open(forest_path, "w") as fh:
         fh.write(jlm.to_json())
 
-    stats = write_embedding_columns(path, DualEncoder.load(dual_dir), batch=512)
+    stats = write_embedding_columns(path, DualEncoder.load(dual_dir, device="cpu"), batch=512)
     assert stats == {"docs": DOCS, "dim": 64, "seconds": stats["seconds"]}
     return {"path": path, "dual": dual_dir, "cross": cross_dir, "forest": forest_path,
             "jax": (jdual, jcross, jlm)}
@@ -280,7 +297,7 @@ def test_pipeline_on_pages_match_jax(pipeline):
     pages_j = [jax_searcher(pipeline["path"], jpipe).search(JaxSQ.from_json(r)).to_json()
                for r in reqs]
     pages_p = [port.search(SearchQuery.from_json(r)).to_json() for r in reqs]
-    forest = LambdaMART.load(pipeline["forest"])
+    forest = LambdaMART.load(pipeline["forest"], device="cpu")
     strict = [_assert_pipeline_pages_match(pj, pp, forest) for pj, pp in zip(pages_j, pages_p)]
     assert all(strict), strict  # these seeds flip no leaf; a flip must be looked at
     full = [p for p in pages_p if p["webpages"]]

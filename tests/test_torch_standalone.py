@@ -1,0 +1,358 @@
+"""The port stands alone: no module of stract_tpu_torch, and not
+chip_smoke.py, imports the JAX package (an AST scan of every import
+statement, lazy ones inside functions included), and each jax-free module
+the port copied from the JAX package computes what its original computes on
+the same seeded inputs (one case per copied module; the blocked-import run
+of the search route and the centrality job is tests/test_torch_slice.py
+test_port_imports_without_jax).
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import importlib
+import os
+import zlib
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEXT = ("Rust is a systems programming language; the quick brown fox jumps over "
+        "the lazy dog. Running runners ran 3 races in 2021 — naïve café owners "
+        "visit https://www.example.com/path?q=1 daily.\nSecond line: rust rust fox.")
+WORDS = ["running", "runs", "programming", "languages", "caresses", "ponies", "fox",
+         "generously", "relational", "hopefully", "sky", "naïve"]
+
+
+def _port_sources() -> list:
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "stract_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_port_module_imports_the_jax_package():
+    """Every `import` and `from ... import` in the port and the smoke, at any
+    depth of the file, names neither stract_tpu nor stract_tpu.*."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
+                    if n == "stract_tpu" or n.startswith("stract_tpu.")]
+    assert len(_port_sources()) > 60 and not bad, bad
+
+
+# ---- each copied module against its original -------------------------------------------
+def _fields(obj) -> tuple:
+    return tuple(sorted(dataclasses.asdict(obj).items()))
+
+
+def _hashing(orig, copy, rng):
+    data = [bytes(rng.integers(0, 256, int(n), dtype=np.uint8)) for n in rng.integers(0, 40, 200)]
+    ints = rng.integers(0, 2 ** 63, 200, dtype=np.uint64).tolist()
+    for d in data:
+        assert copy.fnv1a64(d) == orig.fnv1a64(d)
+    for a, b in zip(ints, ints[1:]):
+        assert copy.splitmix64(a) == orig.splitmix64(a)
+        assert copy.combine_u64s(a, b) == orig.combine_u64s(a, b)
+    for s in ("www.example.com", "h7.example", "", "naïve.org"):
+        assert copy.prehash(s) == orig.prehash(s) and copy.hash128(s) == orig.hash128(s)
+        assert copy.term_hash(3, s) == orig.term_hash(3, s)
+    np.testing.assert_array_equal(copy.fnv1a64_many(data), [orig.fnv1a64(d) for d in data])
+
+
+def _kahan(orig, copy, rng):
+    xs = (rng.normal(size=2000) * 10.0 ** rng.integers(-8, 8, 2000)).tolist()
+    a, b = orig.KahanSum(), copy.KahanSum()
+    for x in xs:
+        a += x
+        b += x
+    assert a.value() == b.value()
+
+
+def _metrics(orig, copy, rng):
+    texts = []
+    for mod in (orig, copy):
+        reg = mod.PrometheusRegistry()
+        c = reg.counter("reqs_total", "requests", status="ok")
+        g = reg.gauge("launches", "kernel launches", kernel="k1")
+        h = reg.histogram("latency_seconds", "latency")
+        c.inc(7)
+        g.set(3.5)
+        for v in np.random.default_rng(1).exponential(0.2, 50):
+            h.observe(float(v))
+        texts.append(reg.render())
+    assert texts[0] == texts[1]
+
+
+def _bloom(orig, copy, rng):
+    keys = rng.integers(0, 2 ** 63, 3000, dtype=np.uint64)
+    a, b, c = orig.U64BloomFilter(3000), copy.U64BloomFilter(3000), copy.U64BloomFilter(3000)
+    for k in keys.tolist():
+        a.insert(k)
+        b.insert(k)
+    c.insert_many(keys)
+    assert a.to_bytes() == b.to_bytes() == c.to_bytes()
+    probes = rng.integers(0, 2 ** 63, 500, dtype=np.uint64).tolist()
+    assert [a.contains(k) for k in probes] == [c.contains(k) for k in probes]
+
+
+def _schema(orig, copy, rng):
+    assert [_fields(f) for f in copy.TEXT_FIELDS] == [_fields(f) for f in orig.TEXT_FIELDS]
+    assert [_fields(f) for f in copy.NUMERICAL_FIELDS] == \
+        [_fields(f) for f in orig.NUMERICAL_FIELDS]
+
+
+def _text_field(orig, copy, rng):
+    assert [_fields(f) for f in copy.default_search_fields()] == \
+        [_fields(f) for f in orig.default_search_fields()]
+    assert _fields(copy.text_field("title")) == _fields(orig.text_field("title"))
+
+
+def _numerical_field(orig, copy, rng):
+    assert _fields(copy.numerical_field("host_centrality")) == \
+        _fields(orig.numerical_field("host_centrality"))
+
+
+def _tokenizer(orig, copy, rng):
+    for kind in ("default", "stemmed", "identity", "bigram", "trigram", "url", "newline"):
+        assert list(copy.get_tokenizer(kind).tokenize(TEXT)) == \
+            list(orig.get_tokenizer(kind).tokenize(TEXT)), kind
+
+
+def _stemmer(orig, copy, rng):
+    assert [copy.stem(w) for w in WORDS] == [orig.stem(w) for w in WORDS]
+    assert copy.stem_tokens(WORDS) == orig.stem_tokens(WORDS)
+
+
+def _signals(orig, copy, rng):
+    assert [_fields(s) for s in copy.SIGNALS] == [_fields(s) for s in orig.SIGNALS]
+    assert copy.default_coefficients() == orig.default_coefficients()
+    assert copy.NUM_SIGNALS == orig.NUM_SIGNALS
+
+
+def _bm25_math(orig, copy, rng):
+    df, tf = rng.integers(1, 1000, 100), rng.integers(0, 30, 100).astype(np.float32)
+    flen = rng.integers(1, 500, 100).astype(np.float32)
+    for name, args in (("idf_np", (df, 10_000, np)), ("bm25_norm", (flen, 120.0)),
+                       ("bm25_tf_factor", (tf, flen, 120.0)),
+                       ("bm25f_tf_factor", (tf, 1.5, flen, 120.0)),
+                       ("score_rank", (flen, np)), ("score_reciprocal", (flen, np)),
+                       ("score_fetch_time", (flen, np)),
+                       ("score_update_timestamp", (flen * 1e6, 1.7e9, np)),
+                       ("score_link_density", (tf / 30, np)),
+                       ("score_has_ads", (tf > 3, np))):
+        np.testing.assert_array_equal(getattr(copy, name)(*args), getattr(orig, name)(*args))
+    assert copy.idf(17, 10_000) == orig.idf(17, 10_000)
+
+
+def _proximity(orig, copy, rng):
+    for terms in (["quick", "fox"], ["rust", "language"], ["fox", "rust", "line"], ["absent"]):
+        assert copy.min_slop(terms, TEXT) == orig.min_slop(terms, TEXT)
+    assert [copy.slop_score(s) for s in range(12)] == [orig.slop_score(s) for s in range(12)]
+
+
+def _term_distance(orig, copy, rng):
+    slop = rng.integers(0, 40, 100).astype(np.float64)
+    np.testing.assert_array_equal(copy.score_slop(slop), orig.score_slop(slop))
+    for _ in range(20):
+        pos = [sorted(rng.choice(60, size=int(rng.integers(1, 6)), replace=False).tolist())
+               for _ in range(int(rng.integers(2, 4)))]
+        assert copy._min_slop_listform(pos) == orig._min_slop_listform(pos)
+
+
+def _block_of(block_mod, rng_seed: int):
+    rng = np.random.default_rng(rng_seed)
+    n = 300
+    return block_mod.CandidateBlock(
+        shard=rng.integers(0, 2, n).astype(np.int32), segment=np.zeros(n, np.int32),
+        doc=rng.permutation(n).astype(np.int64), score=rng.normal(size=n).astype(np.float32),
+        dedup={k: rng.integers(0, 40, n).astype(np.int64) for k in block_mod.DEDUP_NAMES},
+        host_id=rng.integers(0, 50, n).astype(np.int64))
+
+
+def _pipeline_block(orig, copy, rng):
+    a = orig.merge_blocks([_block_of(orig, 5), _block_of(orig, 6)], 100)
+    b = copy.merge_blocks([_block_of(copy, 5), _block_of(copy, 6)], 100)
+    for col in ("shard", "segment", "doc", "score", "host_id"):
+        np.testing.assert_array_equal(getattr(b, col), getattr(a, col))
+    ca, cb = a.to_candidates(), b.to_candidates()
+    assert [(c.shard, c.pointer.segment, c.pointer.doc, c.score) for c in cb] == \
+        [(c.shard, c.pointer.segment, c.pointer.doc, c.score) for c in ca]
+    assert type(cb[0].pointer).__module__.startswith("stract_tpu_torch.")
+
+
+def _candidate_and_collector(orig, copy, rng):
+    """ranking.pipeline.candidate with collector: the same candidates
+    de-ranked alike by the BucketCollector."""
+    cand_o = importlib.import_module("stract_tpu.ranking.pipeline.candidate")
+    cand_c = importlib.import_module("stract_tpu_torch.ranking.pipeline.candidate")
+    seqs = []
+    for cand, coll in ((cand_o, orig), (cand_c, copy)):
+        r = np.random.default_rng(9)
+        col = coll.BucketCollector(30)
+        for i in range(120):
+            col.insert(cand.RankedCandidate(
+                shard=0, pointer=i, score=float(r.normal()), signals=None,
+                dedup={"url_without_query_hash1": int(r.integers(0, 60)),
+                       "url_without_query_hash2": 0, "title_hash1": int(r.integers(0, 80)),
+                       "site_hash1": int(r.integers(0, 20)), "sim_hash": int(r.integers(0, 4))},
+                host_id=int(r.integers(0, 20))))
+        seqs.append([(c.pointer, c.score) for c in col.into_sorted_vec()])
+    assert seqs[0] == seqs[1]
+    assert (copy.ApproxCount(3, True) + copy.ApproxCount(4, False)).to_json() == \
+        (orig.ApproxCount(3, True) + orig.ApproxCount(4, False)).to_json()
+
+
+def _pipeline_stages(orig, copy, rng):
+    """recall.rescore, the recall stage without models, the pipeline's
+    defaults: the same scores for the same signal rows."""
+    cand_o = importlib.import_module("stract_tpu.ranking.pipeline.candidate")
+    cand_c = importlib.import_module("stract_tpu_torch.ranking.pipeline.candidate")
+    sig = orig.__name__.replace("pipeline.recall", "signals")
+    nsig = importlib.import_module(sig).NUM_SIGNALS
+    rows = np.random.default_rng(4).random((20, nsig)).astype(np.float32)
+
+    class Ctx:
+        def coeff(self, s):
+            return 1.0 + 0.01 * s.id
+
+    out = []
+    for cand, rec in ((cand_o, orig), (cand_c, copy)):
+        cs = [cand.RankedCandidate(shard=0, pointer=i, score=0.0, signals=rows[i].copy())
+              for i in range(20)]
+        rec.rescore(Ctx(), cs)
+        out.append([c.score for c in cs])
+        assert not rec.RecallStage().has_scorers
+    assert out[0] == out[1]
+
+
+def _pipeline_package(orig, copy, rng):
+    import types
+
+    def names(pkg):  # submodules appear as attributes once something imports them
+        return sorted(n for n in dir(pkg) if not n.startswith("_")
+                      and not isinstance(getattr(pkg, n), types.ModuleType))
+    assert copy.NUM_PIPELINE_RANKING_RESULTS == orig.NUM_PIPELINE_RANKING_RESULTS
+    assert names(copy) == names(orig)
+
+
+def _bangs(orig, copy, rng):
+    from stract_tpu.query.query import Query as JQ
+    from stract_tpu_torch.query.query import Query as PQ
+
+    for q in ("!w rust language", "rust !gh fox", "no bang here", "!nosuchbang x"):
+        a, b = orig.Bangs.builtin().get(JQ.parse(q)), copy.Bangs.builtin().get(PQ.parse(q))
+        assert (a is None and b is None) or a.to_json() == b.to_json(), q
+
+
+def _snippet(orig, copy, rng):
+    for terms in (["rust", "fox"], ["running"], ["absent"], []):
+        a, b = orig.generate(terms, TEXT, "a description"), copy.generate(terms, TEXT,
+                                                                          "a description")
+        assert (a.text(), a.html()) == (b.text(), b.html()), terms
+    assert copy.sentence_passages(TEXT) == orig.sentence_passages(TEXT)
+
+
+def _prettifier(orig, copy, rng):
+    import json
+
+    from test_prettifier import so_schema
+
+    for page in ({"url": "https://stackoverflow.com/questions/1",
+                  "schema_org_json": json.dumps(so_schema())},
+                 {"url": "https://example.com/", "schema_org_json": json.dumps(so_schema())},
+                 {"url": "https://stackoverflow.com/q/2", "schema_org_json": "not json"}):
+        assert copy.rich_snippet(page) == orig.rich_snippet(page)
+
+
+def _native(orig, copy, rng):
+    assert copy.available() == orig.available()  # the same library (native/), or neither
+    for text in (TEXT, "", "ßtraße"):
+        a, b = orig.tokenize_hashes(text, ngrams=True), copy.tokenize_hashes(text, ngrams=True)
+        assert (a is None) == (b is None)
+        if a is not None:
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+    h = rng.integers(0, 2 ** 63, 100, dtype=np.uint64)
+    np.testing.assert_array_equal(copy.combine_field(h, 5), orig.combine_field(h, 5))
+    postings = np.stack([np.arange(0, 400, 2), rng.integers(0, 2 ** 31, 200),
+                         np.zeros(200)], axis=1).astype(np.int32)
+    cand = rng.integers(0, 400, 50).astype(np.int32)
+    outs = [np.zeros((2, 50), np.int32) for _ in range(2)]
+    done = [mod.slot_factors(postings, np.array([0, 100]), np.array([100, 100]), cand, out)
+            for mod, out in zip((orig, copy), outs)]
+    assert done[0] == done[1]
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _kv(orig, copy, rng):
+    import tempfile
+
+    items = {f"k{i}".encode(): {"v": float(x)} for i, x in enumerate(rng.random(300))}
+    with tempfile.TemporaryDirectory() as d:
+        for name, mod in (("o", orig), ("c", copy)):
+            db = mod.Db.open(os.path.join(d, name))
+            for k, v in items.items():
+                db.insert(k, v)
+            db.commit()
+        for reader in (orig, copy):
+            for name in ("o", "c"):
+                assert dict(reader.Db.open(os.path.join(d, name)).items()) == items
+
+
+def _edge_node(orig, copy, rng):
+    for url in ("https://www.Example.com/a?b=1", "http://sub.host.org:8080/x", "h7.example"):
+        assert copy.Node.from_url(url).id() == orig.Node.from_url(url).id()
+        assert str(copy.Node.from_url(url).into_host()) == str(orig.Node.from_url(url).into_host())
+        assert copy.normalize_host(url) == orig.normalize_host(url)
+
+
+def _webgraph_edge(orig, copy, rng):
+    e_o, e_c = orig.Edge("a.com", "b.com", label="x"), copy.Edge("a.com", "b.com", label="x")
+    assert _fields(e_o) == _fields(e_c)
+    assert int(copy.RelFlags.NOFOLLOW) == int(orig.RelFlags.NOFOLLOW)
+
+
+def _hll_init(orig, copy, rng):
+    for n, p in ((1000, 6), (77, 4), (5000, 10)):
+        np.testing.assert_array_equal(copy.init_registers(n, p, seed=3),
+                                      orig.init_registers(n, p, seed=3))
+
+
+def _config(orig, copy, rng):
+    path = os.path.join(REPO, "configs", "centrality.toml")
+    a, b = orig.load_config("centrality", path), copy.load_config("centrality", path)
+    assert _fields(a) == _fields(b)
+
+
+COPIES = {
+    "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
+    "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
+    "schema.numerical_field": _numerical_field, "tokenizer.fields": _tokenizer,
+    "tokenizer.stemmer": _stemmer, "ranking.signals": _signals,
+    "ranking.bm25_math": _bm25_math, "ranking.proximity": _proximity,
+    "ranking.term_distance": _term_distance, "ranking.pipeline": _pipeline_package,
+    "ranking.pipeline.block": _pipeline_block, "collector": _candidate_and_collector,
+    "ranking.pipeline.recall": _pipeline_stages, "bangs": _bangs, "snippet": _snippet,
+    "prettifier": _prettifier, "native": _native, "kv.db": _kv, "webgraph.node": _edge_node,
+    "webgraph.edge": _webgraph_edge, "ops.hll_ops": _hll_init, "config": _config,
+}
+
+
+@pytest.mark.parametrize("module", list(COPIES))
+def test_copy_matches_its_original(module):
+    orig = importlib.import_module(f"stract_tpu.{module}")
+    copy = importlib.import_module(f"stract_tpu_torch.{module}")
+    assert orig is not copy and copy.__name__.startswith("stract_tpu_torch.")
+    COPIES[module](orig, copy, np.random.default_rng(zlib.crc32(module.encode())))

@@ -391,7 +391,8 @@ def _heldout_acc(enc, held) -> float:
 def trained_dual(corpus_index, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("dual"))
     losses = TT.train_dual_encoder(corpus_index.path, out, steps=80, batch=16, max_len=32,
-                                   n_triples=256, seed=1, lr=1e-3, log=lambda m: None)
+                                   n_triples=256, seed=1, lr=1e-3, log=lambda m: None,
+                                   device="cpu")
     return out, losses
 
 
@@ -400,7 +401,7 @@ def test_train_dual_encoder_learns_and_loads_in_jax(corpus_index, trained_dual):
 
     out, losses = trained_dual
     assert np.mean(losses[-10:]) < np.mean(losses[:10]), "loss did not decrease"
-    port = DualEncoder.load(out)
+    port = DualEncoder.load(out, device="cpu")
     held = TT.synthesize_triples(corpus_index.path, 24, seed=98)
     assert _heldout_acc(port, held) > 0.6
     # the checkpoint holds the f32 masters, not bf16-rounded weights
@@ -428,17 +429,19 @@ def test_train_cross_encoder_warm_started_and_distilled(corpus_index, trained_du
     losses = TT.train_cross_encoder(corpus_index.path, out, steps=20, batch=8, max_len=32,
                                     n_triples=64, seed=1, lr=1e-3, warm_start=dual,
                                     distill=True, distill_alpha=2.0, log=lambda m: None,
-                                    timing=timing)
+                                    timing=timing, device="cpu")
     assert len(losses) == 20 and np.isfinite(losses).all() and timing["steps"] == 20
     # the trunk came from the dual checkpoint: same vocab, embeddings moved from it
-    assert CrossEncoderModel.load(out).tokenizer.vocab == DualEncoder.load(dual).tokenizer.vocab
+    assert CrossEncoderModel.load(out, device="cpu").tokenizer.vocab == \
+        DualEncoder.load(dual, device="cpu").tokenizer.vocab
     held = TT.synthesize_triples(corpus_index.path, 24, seed=98)
     pairs = [(q, p) for q, p, _ in held]
-    np.testing.assert_allclose(CrossEncoderModel.load(out).score_pairs(pairs),
+    np.testing.assert_allclose(CrossEncoderModel.load(out, device="cpu").score_pairs(pairs),
                                JaxCross.load(out).score_pairs(pairs), atol=1e-2)
     with pytest.raises(ValueError):
         TT.train_cross_encoder(corpus_index.path, str(tmp_path / "x"), steps=1, batch=4,
-                               max_len=16, n_triples=16, distill=True, log=lambda m: None)
+                               max_len=16, n_triples=16, distill=True, log=lambda m: None,
+                               device="cpu")
 
 
 def test_main_train_encoders(corpus_index, tmp_path):
