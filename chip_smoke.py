@@ -39,6 +39,20 @@ the kernels are held against their plain versions at the job's shapes, and
 the whole HyperBall and BFS against the same jobs through the plain
 versions.
 
+Then the shard search's other configurations, each built through
+build_searcher and served one round of the request mix over HTTP with the
+pipeline off: q8 posting rows, the device factor join, both, and block-max UB
+scoring (ub_lambda 0.5); every request must be answered, each configuration's
+own kernels launched by its traffic, and the top-10 of the compare queries
+under the q16 device join must equal the default configuration's. The host
+factor join is timed with and without the device join. The device-only entry
+points, which no entry point of either package calls (factors_join, compute_signals_batch over the slots' L-row prefixes,
+rerank_topk_batch over the corpus's f16 title embeddings and the trained dual
+encoder's query embeddings) are driven once at the main shapes and checked
+against the host join and a numpy rerank; then K1 on q8 rows, K1 with UB,
+K11 (alone, in stage B, in pass 2), K12 and K10 are held against their plain
+versions.
+
 Prints per-kernel times beside the least time the card could take (bytes
 once over 3.35 TB/s or operations over the peak) and the time of a PyTorch
 call computing the same function where there is one, qps, p50 and p99, the
@@ -77,6 +91,21 @@ ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 128, 256), 128, (256, 16384), 4096
 # (the tool's default; cut, and the cut printed, if training outgrows the run)
 TRAIN_B, TRAIN_T, MIN_DUAL_ACC, TRAIN_STEPS = 64, 128, 0.65, 400
 SCORING = ("stage_a", "stage_b", "signals_q16")
+# the shard search's other configurations (build_searcher's arguments) and the
+# kernels each one's traffic must launch
+CONFIGS = {
+    "q8": (dict(row_layout="q8"), ("stage_a_q8", "stage_b", "signals_q16")),
+    "join": (dict(device_join=True), ("stage_a", "stage_b_joined", "signals_joined")),
+    "q8_join": (dict(row_layout="q8", device_join=True),
+                ("stage_a_q8", "stage_b_joined", "signals_joined")),
+    "ub": (dict(ub_lambda=0.5), ("stage_a_ub", "stage_b", "signals_q16")),
+}
+# device programs that no entry point of either package calls (the JAX package
+# keeps them as library functions): the smoke calls each wrapper once at the main
+# shapes, so their `launches` show that the wrapper launches, not a served path
+DIRECT = ("factors_join", "signals_prefix", "dense_rerank")
+# the dense rerank: candidates per query, kept, the similarity's weight
+RERANK_K, RERANK_TOP, RERANK_W = 1024, 20, 0.01
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
             "add_layernorm_backward", "bias_gelu_backward", "adamw")
@@ -111,7 +140,23 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #  K6a, K7  registers and distances bit-equal (max and min are exact); K6b
 #           sizes rel 1e-6 (the 64 powers of two of a row summed in another
 #           order); whole HyperBall centrality rtol 1e-6 with the same rounds
+#  K1 on q8 rows, K1 with UB  as stage A (UB adds (contrib - ub) + U per
+#           entry and takes n*U back out: the same sums, in the atomics' order)
+#  K11 alone  bit-equal (integer work), and equal to the host join on q16 rows
+#  joined stage B  as stage B; joined pass 2  as pass 2
+#  K12     f32 rows rtol 1e-5, atol 1e-5 (sums over P slots in another order)
+#  K10     scores rtol 1e-6, atol 2e-6 (a 384-term dot product summed by a
+#           warp in another order, times the weight, added to base scores of
+#           ~10); indices compared as sets above the k-th score
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
+P12_TOL, RERANK_TOL = (1e-5, 1e-5), (1e-6, 2e-6)
+# top-10 pages of a configuration against the default's, scores within rtol
+# 1e-3: the q16 device join must give all of the default's pages (its stage B is
+# held to the host-joined stage B bit for bit in the kernel phase; the page's
+# scores are read back from q16 signal rows, the default's from stage B's fused
+# rows scaled over 64 columns and the join's from pass 2 scaled over the page, so
+# they differ by the q16 steps); the other configurations are printed, not gated
+PAGE_RTOL = 1e-3
 ENC_TOL = (2 ** -7, 1e-2)
 STEP = 2 ** -7
 # model signals, kernels against plain versions on one card: embedding
@@ -123,6 +168,14 @@ PIPE_SCORE_TOL = (1e-3, 5e-3)
 TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "stage_b": f"rtol {B_TOL[0]} atol {B_TOL[1]}",
             "signals_q16": "1 q16 step, scales rtol 1e-5",
+            "stage_a_q8": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
+            "stage_a_ub": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
+            "stage_a_ub_q8": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
+            "factors_join": "bit-equal",
+            "stage_b_joined": f"rtol {B_TOL[0]} atol {B_TOL[1]}",
+            "signals_joined": "1 q16 step, scales rtol 1e-5",
+            "signals_prefix": f"rtol {P12_TOL[0]} atol {P12_TOL[1]}",
+            "dense_rerank": f"rtol {RERANK_TOL[0]} atol {RERANK_TOL[1]}",
             "forest": "rtol 1e-6 atol 1e-6*sum|leaf|",
             "attention": f"rtol 2^-7 atol {2 * ENC_TOL[1]}",
             "add_layernorm": f"rtol 2^-7 atol {ENC_TOL[1]}",
@@ -186,6 +239,44 @@ def time_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+def search_rows(lens, n: int, steps=None, cap=None) -> int:
+    """The distinct posting rows that n binary searches over each slot of
+    `lens` rows can touch, summed over the slots: step d of a search has at
+    most min(2^d, n) different midpoints (the searches of one slot share their
+    upper levels), and a slot gives no more rows than it holds (or than `cap`).
+    `steps` is the fixed step count of the prefix search; else a slot of len
+    rows takes ceil(log2(len + 1)) steps."""
+    import numpy as np
+
+    lens = np.asarray(lens, dtype=np.int64)
+    held = lens if cap is None else np.minimum(lens, cap)
+    depth = (np.ceil(np.log2(held + 1)).astype(np.int64) if steps is None
+             else np.where(held > 0, steps, 0))
+    rows = np.zeros_like(held)
+    for d in range(int(depth.max(initial=0))):
+        rows += np.where(d < depth, min(1 << d, n), 0)
+    return int(np.minimum(rows, held).sum())
+
+
+def compacted_slots(slots: list) -> tuple:
+    """Stage B's view of sampled queries: each (slots, aggregates) pair
+    compacted (empty slots dropped) and padded to the batch's one slot count
+    → (pairs, that count)."""
+    import numpy as np
+
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ops import scoring as O
+
+    comp = [InvertedIndex._compact_slots(q, a, min_p=16) for q, a in slots]
+    Pc = max(q.starts.shape[0] for q, _ in comp)
+    return [(q._replace(**{f: np.pad(getattr(q, f), (0, Pc - q.starts.shape[0]),
+                                     constant_values=O.OPTIONAL_GROUP if f == "group" else 0)
+                           for f in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f",
+                                     "w_presence")}),
+             a._replace(**{f: np.pad(getattr(a, f), ((0, 0), (0, Pc - q.starts.shape[0])))
+                           for f in a._fields})) for q, a in comp], Pc
+
+
 def kernel_phase(index, device) -> list:
     """K1, K2, K3 against their plain versions on real slots of sampled
     queries, for both static modes. → rows per (kernel, default_static)."""
@@ -210,7 +301,7 @@ def kernel_phase(index, device) -> list:
         P = max(q.starts.shape[0] for q, _ in slots)
         if any(q.starts.shape[0] != P for q, _ in slots):
             raise AssertionError("sampled queries must share one slot bucket")
-        qa = O.to_tensors(O.stack([InvertedIndex._augment_with_impact(seg, dev, q)
+        qa = O.to_tensors(O.stack([InvertedIndex._augment_with_impact(seg, dev, q)[0]
                                    for q, _ in slots]), device)
 
         # K1: stage A
@@ -226,14 +317,7 @@ def kernel_phase(index, device) -> list:
                      12 * scanned + sum(x.numel() * 4 for x in qa) + 8 * B * C, 10 * scanned))
 
         # K2: stage B over stage A's candidates, fused signals
-        comp = [InvertedIndex._compact_slots(q, a, min_p=16) for q, a in slots]
-        Pc = max(q.starts.shape[0] for q, _ in comp)
-        comp = [(q._replace(**{f: np.pad(getattr(q, f), (0, Pc - q.starts.shape[0]),
-                                         constant_values=O.OPTIONAL_GROUP if f == "group" else 0)
-                               for f in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f",
-                                         "w_presence")}),
-                 a._replace(**{f: np.pad(getattr(a, f), ((0, 0), (0, Pc - q.starts.shape[0])))
-                               for f in a._fields})) for q, a in comp]
+        comp, Pc = compacted_slots(slots)
         facs = np.zeros((B, Pc, KD), np.int32)
         for j, (q, _) in enumerate(comp):
             InvertedIndex._slot_factors_for(seg, q, d_k[j], out=facs[j])
@@ -434,9 +518,12 @@ def serve_phase(searcher, expect, rounds: int = 1) -> dict:
     finally:
         server.stop()
     lat = np.array([r[2] for r in results])
-    for body, (status, data, _) in zip(bodies * rounds, results):
-        if status != 200 or data.get("type") != "websites" or "webpages" not in data:
-            raise AssertionError(f"bad answer to {body}: {status} {str(data)[:200]}")
+    bad = [(body, status, data) for body, (status, data, _) in zip(bodies * rounds, results)
+           if status != 200 or data.get("type") != "websites" or "webpages" not in data]
+    if bad:
+        body, status, data = bad[0]
+        raise AssertionError(f"{len(bad)} bad answers, the first to {body}: {status} "
+                             f"{str(data)[:200]}")
     n_hits = sum(len(d["webpages"]) for _, d, _ in results)
     if n_hits == 0:
         raise AssertionError("no request returned a webpage")
@@ -445,7 +532,7 @@ def serve_phase(searcher, expect, rounds: int = 1) -> dict:
     if f'search_requests_total{{status="ok"}} {len(results) + 1}' not in metrics:
         raise AssertionError("metrics do not count every answered request")
     return {"requests": len(results), "rounds": rounds, "clients": CLIENTS, "wall_s": wall,
-            "qps": len(results) / wall, "round_qps": round_qps,
+            "failed": len(bad), "qps": len(results) / wall, "round_qps": round_qps,
             "p50_ms": float(np.median(lat) * 1e3),
             "p99_ms": float(np.quantile(lat, 0.99) * 1e3), "webpages": n_hits,
             "launches": launches}
@@ -498,7 +585,7 @@ def compare_phase(searcher, forest=None) -> dict:
     from stract_tpu_torch.searcher.query import SearchQuery
 
     extra = {"numResults": 10, "returnRankingSignals": forest is not None}
-    bodies = [b for b in requests_mix(64) if "page" not in b][:8]
+    bodies = compare_bodies()
     kern = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json() for b in bodies]
     with plain_versions():
         plain = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json()
@@ -519,6 +606,291 @@ def compare_phase(searcher, forest=None) -> dict:
     if n == 0:
         raise AssertionError("the compared queries returned nothing")
     return {"queries": len(bodies), "docs": n, "max_score_diff": err, "forest_flips": flipped}
+
+
+@contextlib.contextmanager
+def join_timer():
+    """Time the host factor join (InvertedIndex._slot_factors_for) while the
+    block runs → {"calls", "seconds"}, summed over the server's threads."""
+    import threading
+
+    from stract_tpu_torch.index.inverted import InvertedIndex
+
+    real = InvertedIndex.__dict__["_slot_factors_for"]
+    acc, lock = {"calls": 0, "seconds": 0.0}, threading.Lock()
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real.__func__(*a, **kw)
+        finally:
+            dt = time.perf_counter() - t0
+            with lock:
+                acc["calls"] += 1
+                acc["seconds"] += dt
+    InvertedIndex._slot_factors_for = staticmethod(timed)
+    try:
+        yield acc
+    finally:
+        InvertedIndex._slot_factors_for = real
+
+
+def compare_bodies() -> list:
+    return [b for b in requests_mix(64) if "page" not in b][:8]
+
+
+def top10_pages(searcher) -> list:
+    """The top-10 page of each compare query, through the searcher."""
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    return [searcher.search(SearchQuery.from_json({**b, "numResults": 10})).to_json()["webpages"]
+            for b in compare_bodies()]
+
+
+def page_diff(wa, wb, rtol: float):
+    """Two top-10 pages hold the same documents with the same scores: a
+    document on both has scores within rtol (relative, of at least 1), and a
+    document on one page only ties both pages' last scores within rtol (a
+    tie at the cut may fall either way). → the largest score difference, or None
+    where the pages differ."""
+    if len(wa) != len(wb):
+        return None
+    sa, sb = ({w["url"]: w["score"] for w in page} for page in (wa, wb))
+    close = lambda x, y: abs(x - y) <= rtol * max(abs(x), abs(y), 1.0)  # noqa: E731
+    for mine, other in ((sa, sb), (sb, sa)):
+        if any(not (close(s, min(mine.values())) and close(s, min(other.values())))
+               for u, s in mine.items() if u not in other):
+            return None
+    if any(not close(sa[u], sb[u]) for u in sa.keys() & sb.keys()):
+        return None
+    return max((abs(sa[u] - sb[u]) for u in sa.keys() & sb.keys()), default=0.0)
+
+
+def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
+    """Each configuration of CONFIGS: built through build_searcher, served one
+    round of the request mix over HTTP (pipeline off) with the host join
+    timed, its top-10 pages compared with the default configuration's, and
+    freed before the next. The q16 device join must give all of the default's
+    top-10s. → {name: record}."""
+    import torch
+
+    from stract_tpu_torch.main import build_searcher
+
+    out = {}
+    for name, (cfg, expect) in CONFIGS.items():
+        t0 = time.perf_counter()
+        searcher = build_searcher(index_dir, DEVICE, **cfg)
+        index = searcher.searcher.searchers[0].index
+        torch.cuda.synchronize()
+        rows = index.device_segment_for(index.segments[0]).arrays.postings
+        with join_timer() as jt:
+            served = serve_phase(searcher, expect)
+        pages = top10_pages(searcher)
+        diffs = [page_diff(a, b, PAGE_RTOL) for a, b in zip(default_pages, pages)]
+        same = sum(d is not None for d in diffs)
+        rec = {"config": cfg, "qps": served["qps"], "p50_ms": served["p50_ms"],
+               "p99_ms": served["p99_ms"], "requests": served["requests"], "failed": served["failed"],
+               "postings_bytes": rows.numel() * 4, "postings_shape": list(rows.shape),
+               "host_join_calls": jt["calls"], "host_join_s": jt["seconds"],
+               "top10_equal_default": same, "compared": len(pages),
+               "top10_max_score_diff": max((d for d in diffs if d is not None), default=None),
+               "launches": {k: v for k, v in served["launches"].items() if v},
+               "seconds": time.perf_counter() - t0}
+        log(f"[config {name}] {json.dumps(rec)} card={card}")
+        if cfg.get("device_join") and jt["calls"]:
+            raise AssertionError("the device join still ran the host join")
+        if name == "join" and same != len(pages):
+            raise AssertionError(f"q16 device join: only {same} of {len(pages)} top-10 pages "
+                                 "equal the default configuration's")
+        out[name] = rec
+        del searcher, index, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
+    """The device-only entry points driven once at the main shapes (launch
+    counts reset just before, read just after): factors_join over stage A's
+    candidates (held to the host join), compute_signals_batch over the slots'
+    first L rows, rerank_topk_batch over the f16 title embeddings of stage
+    B's top RERANK_K docs with the trained dual encoder's query embeddings
+    (held to a numpy rerank). Then K1 on q8 rows, K1 with UB, K11 alone and
+    inside stage B and pass 2, K12 and K10 against their plain versions on
+    the same slots. → (rows as kernel_phase's, launches of the driven calls)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.index.device import DeviceSegment
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.ops import dense_rerank as R
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+    from stract_tpu_torch.ranking.computer import QueryContext, build_slots
+
+    index = InvertedIndex(index_dir, DEVICE)
+    seg = index.segments[0]
+    dev, dev8 = index.device_segment_for(seg), DeviceSegment(seg, DEVICE, "q8")
+    nd = seg.num_docs
+    T = lambda x, dt=torch.int32: torch.as_tensor(x, dtype=dt).to(DEVICE)  # noqa: E731
+    queries = bc.sample_queries(np.random.default_rng(SEED), B)
+    ctxs = [QueryContext(raw=q, simple_terms=q.split(), current_ts=NOW) for q in queries]
+    slots = [build_slots(c, seg, index.num_docs, index.region_scores()) for c in ctxs]
+
+    comp, Pc = compacted_slots(slots)
+    qc_np = O.stack([q for q, _ in comp])
+    qc, ac = O.to_tensors(qc_np, DEVICE), O.to_tensors(O.stack([a for _, a in comp]), DEVICE)
+
+    def augmented(d):
+        aug = [InvertedIndex._augment_with_impact(seg, d, q, L, 0.5) for q, _ in slots]
+        return (O.to_tensors(O.stack([a[0] for a in aug]), DEVICE),
+                T(np.stack([a[1] for a in aug]), torch.float32),
+                T(np.array([a[2] for a in aug], dtype=np.float32), torch.float32))
+    qa, ub, ubt = augmented(dev)
+    qa8, ub8, ubt8 = augmented(dev8)
+    if not (float(ubt.max()) > 0 and float(ubt8.max()) > 0):
+        raise AssertionError("no sampled query has a truncated slot: UB would test nothing")
+    scanned = int(qa.lens.clamp(max=L).sum())
+    slot_bytes = sum(x.numel() * 4 for x in qa)
+
+    # ---- the device-only entry points, once, counted --------------------------------
+    cand, _ = O.score_candidates_batch(dev.arrays, qa, L, C, True, True)
+    cand_np = cand.cpu().numpy()
+    host = np.zeros((B, Pc, KD), np.int32)
+    for j, (q, _) in enumerate(comp):
+        InvertedIndex._slot_factors_for(seg, q, cand_np[j], out=host[j])
+    sb_docs, sb_scores = O.score_driver_batch(dev.arrays, qc, T(host), cand, True, OUT_K)
+    page = sb_docs[:, :512].contiguous()
+    dual = DualEncoder.load(dual_dir, device=DEVICE)
+    q_emb = torch.as_tensor(np.asarray(dual.embed(queries)), dtype=torch.float32).to(DEVICE)
+    del dual
+    top = sb_docs[:, :RERANK_K].cpu().numpy().astype(np.int64)
+    real = top < nd
+    title = seg.embeddings("title_embeddings")
+    if title is None or title.dtype != np.float16:
+        raise AssertionError("the corpus has no f16 title embedding column")
+    emb = T(np.where(real[..., None], title[np.where(real, top, 0)], 0), torch.float16)
+    base = sb_scores[:, :RERANK_K]
+    base = torch.where(torch.isfinite(base), base, torch.full_like(base, -1e30))  # pad rows last
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    joined = O.factors_join(dev.arrays, qc.starts, qc.lens, cand)
+    prefix_sig = O.compute_signals_batch(dev.arrays, qc, ac, page, L)
+    r_idx, r_scores = R.rerank_topk_batch(emb, q_emb, base, RERANK_W, RERANK_TOP)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if launches != dict.fromkeys(DIRECT, 1):
+        raise AssertionError(f"the device-only entry points launched {launches}")
+    if not np.array_equal(joined.cpu().numpy(), host):
+        raise AssertionError("the device join differs from the host join")
+    if not (torch.isfinite(prefix_sig).all() and bool((prefix_sig != 0).any())):
+        raise AssertionError("prefix signals are empty or not finite")
+    # a numpy rerank of the same inputs (f64 sums), ties to the lower index
+    e64 = emb.cpu().numpy().astype(np.float64)
+    norms = np.linalg.norm(e64, axis=2)
+    sims = np.where(norms > 1e-6, np.einsum("bkh,bh->bk", e64, q_emb.cpu().numpy().astype(
+        np.float64)) / np.maximum(norms, 1e-6), 0.0)
+    total = base.cpu().numpy().astype(np.float64) + RERANK_W * sims
+    ref_idx = np.argsort(-total, axis=1, kind="stable")[:, :RERANK_TOP]
+    for b in range(B):
+        topk_match(ref_idx[b], np.take_along_axis(total, ref_idx, 1)[b].astype(np.float32),
+                   r_idx[b].cpu().numpy(), r_scores[b].cpu().numpy(), -1, 1e-5, 1e-5)
+
+    rows = []
+    def add(name, err, run_k, run_p, shape, nbytes, ops, iters=10):  # noqa: E306
+        rows.append((name, True, err, time_ms(run_k), time_ms(run_p, iters), shape, nbytes, ops))
+
+    # ---- K1 on q8 rows, K1 with UB ------------------------------------------------
+    for name, arrays, q_, u_, t_, row_b in (("stage_a_q8", dev8.arrays, qa8, None, None, 8),
+                                            ("stage_a_ub", dev.arrays, qa, ub, ubt, 12),
+                                            ("stage_a_ub_q8", dev8.arrays, qa8, ub8, ubt8, 8)):
+        run_k = lambda: O.score_candidates_batch(arrays, q_, L, C, True, True, u_, t_)  # noqa
+        run_p = lambda: O.score_candidates_batch_plain(arrays, q_, L, C, True, True, u_, t_)  # noqa
+        d_k, s_k = [x.cpu().numpy() for x in run_k()]
+        d_p, s_p = [x.cpu().numpy() for x in run_p()]
+        err = max(topk_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
+        if not np.isfinite(s_k).any():
+            raise AssertionError(f"{name} found no candidates")
+        ub_bytes = 0 if u_ is None else 4 * (u_.numel() + t_.numel())
+        add(name, err, run_k, run_p, (C, f"{row_b}B rows"),
+            row_b * scanned + slot_bytes + ub_bytes + 8 * B * C, 10 * scanned)
+
+    # ---- K11 alone: bit-equal to the plain join, on both layouts ---------------------
+    lens = qc.lens.cpu().numpy().astype(np.int64)
+    probes = int((np.ceil(np.log2(lens + 1)) * KD).sum())  # the compares this run's searches make
+    found = int((joined != 0).sum())
+    # bytes once: starts, lens, candidates; the doc word of each distinct row the
+    # searches touch; the factor word of each row found
+    join_in = 4 * (2 * B * Pc + B * KD) + 4 * search_rows(lens, KD) + 4 * found
+    for arrays in (dev.arrays, dev8.arrays):
+        f_k = O.factors_join(arrays, qc.starts, qc.lens, cand)
+        if not torch.equal(f_k, O.factors_join_plain(arrays.postings, qc.starts, qc.lens, cand)):
+            raise AssertionError("stract_factors_join differs from the plain join")
+    add("factors_join", 0.0, lambda: O.factors_join(dev.arrays, qc.starts, qc.lens, cand),
+        lambda: O.factors_join_plain(dev.arrays.postings, qc.starts, qc.lens, cand),
+        KD, join_in + 4 * B * Pc * KD, probes, iters=3)
+
+    # ---- joined stage B -------------------------------------------------------------
+    run_k = lambda: O.score_driver_joined_batch(dev.arrays, qc, cand, True, OUT_K)  # noqa: E731
+    run_p = lambda: O.score_driver_joined_batch_plain(dev.arrays, qc, cand, True, OUT_K)  # noqa
+    (dk, sk), (dp, sp) = ([x.cpu().numpy() for x in r()] for r in (run_k, run_p))
+    err = max(topk_match(dp[b], sp[b], dk[b], sk[b], nd, *B_TOL) for b in range(B))
+    # and the host-joined verify (K2) bit for bit: the same factors folded in the
+    # same order and sorted by the same network
+    if not (np.array_equal(dk, sb_docs.cpu().numpy())
+            and np.array_equal(sk, sb_scores.cpu().numpy())):
+        raise AssertionError("joined stage B differs from stage B over the host join")
+    add("stage_b_joined", err, run_k, run_p, KD,
+        join_in + sum(x.numel() * 4 for x in qc) + 8 * B * OUT_K, probes + 10 * B * Pc * KD,
+        iters=3)
+
+    # ---- joined pass 2 at K = 512, K12 ------------------------------------------------
+    lens_p = int((np.ceil(np.log2(lens + 1)) * 512).sum())
+    found_p = int((O.factors_join(dev.arrays, qc.starts, qc.lens, page) != 0).sum())
+    sig_bytes = (4 * B * 512 + sum(x.numel() * 4 for x in (*qc, *ac)) + 2 * B * 46 * 512
+                 + 4 * B * 46)
+    run_k = lambda: O.compute_signals_joined_batch_q16(dev.arrays, qc, ac, page)  # noqa: E731
+    run_p = lambda: O.quantize_signals(  # noqa: E731
+        O.compute_signals_joined_batch_plain(dev.arrays, qc, ac, page))
+    (qk, sck), (qp, scp) = run_k(), run_p()
+    torch.testing.assert_close(sck, scp, rtol=1e-5, atol=1e-35)
+    step = int((qk.int() - qp.int()).abs().max().item())
+    if step > 1:
+        raise AssertionError(f"joined pass-2 q16 rows differ by {step} steps")
+    err = float(np.abs(O.dequantize_signals(qk, sck) - O.dequantize_signals(qp, scp)).max())
+    add("signals_joined", err, run_k, run_p, 512,
+        sig_bytes + 4 * search_rows(lens, 512) + 4 * found_p,
+        lens_p + 2 * 46 * B * Pc * 512, iters=3)
+
+    steps = O._lookup_steps(L)
+    run_k = lambda: O.compute_signals_batch(dev.arrays, qc, ac, page, L)  # noqa: E731
+    run_p = lambda: O.compute_signals_batch_plain(dev.arrays, qc, ac, page, L)  # noqa: E731
+    sig_k, sig_p = run_k(), run_p()
+    torch.testing.assert_close(sig_k, sig_p, rtol=P12_TOL[0], atol=P12_TOL[1])
+    n_slots = int((lens > 0).sum())
+    found_l = int((O._slot_factor_lookup(*O._gather_packed(dev.arrays, qc, L), page, L)
+                   != 0).sum())
+    add("signals_prefix", float((sig_k - sig_p).abs().max()), run_k, run_p, 512,
+        sig_bytes + 2 * B * 46 * 512 + 4 * search_rows(lens, 512, steps, cap=L) + 4 * found_l,
+        n_slots * 512 * steps + 2 * 46 * B * Pc * 512, iters=3)
+
+    # ---- K10 -------------------------------------------------------------------------
+    run_k = lambda: R.rerank_topk_batch(emb, q_emb, base, RERANK_W, RERANK_TOP)  # noqa: E731
+    run_p = lambda: R.rerank_topk_batch_plain(emb, q_emb, base, RERANK_W, RERANK_TOP)  # noqa
+    (ik, rk), (ip, rp) = ([x.cpu().numpy() for x in r()] for r in (run_k, run_p))
+    err = max(topk_match(ip[b], rp[b], ik[b], rk[b], -1, *RERANK_TOL) for b in range(B))
+    H = emb.shape[2]
+    add("dense_rerank", err, run_k, run_p, RERANK_K,
+        2 * emb.numel() + 4 * (q_emb.numel() + base.numel()) + 8 * B * RERANK_TOP,
+        4 * B * RERANK_K * H)
+    e32 = emb.float()
+    lib = time_ms(lambda: torch.topk(base + RERANK_W * torch.einsum(
+        "bkh,bh->bk", F.normalize(e32, dim=2, eps=1e-6), q_emb), RERANK_TOP))
+    log(f"[config kernels] K10 beside three PyTorch calls (normalize, einsum, topk; not one "
+        f"call, so no library_ms): {lib:.3f} ms")
+    return rows, launches
 
 
 def train_phase(index_dir: str, out_dir: str, tok) -> dict:
@@ -1003,13 +1375,14 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card) -> list:
+                   card, config_launches) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
-    path (training for the training kernels and the pool, the centrality
-    jobs for the graph kernels, the pipeline-on traffic for the rest). Each
-    measured row is logged too."""
+    path, named under "path" (training for the training kernels and the pool,
+    the centrality jobs for the graph kernels, its configuration's HTTP round
+    for the configurations' kernels, one direct call for the DIRECT three,
+    the pipeline-on traffic for the rest). Each measured row is logged too."""
     all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
                 for name, ds, err, ms, pms, shape, nb, ops in rows]
     all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
@@ -1026,6 +1399,15 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
     meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
             "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
             "signals_q16": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:886", 512),
+            "stage_a_q8": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:162", None),
+            "stage_a_ub": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:837",
+                           (C, "12B rows")),
+            "factors_join": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:749", KD),
+            "stage_b_joined": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:770", KD),
+            "signals_joined": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:894", 512),
+            "signals_prefix": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:859", 512),
+            "dense_rerank": ("cuda", src + "scoring.cu", "stract_tpu/ops/dense_rerank.py:31",
+                             RERANK_K),
             "forest": ("cuda", src + "forest.cu",
                        "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
             "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
@@ -1045,16 +1427,21 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
         mine = [r for r in all_rows if r[0] == name]
         main_row = next(r for r in mine if r[7] and main_shape in (
             None, r[4], r[4][:2] if isinstance(r[4], tuple) else None))
-        if name in TRAINING[3:]:
-            launches = train_launches[name]
+        if name in DIRECT:
+            launches, path = config_launches[name], "direct call: no entry point reaches it"
+        elif name in config_launches:
+            launches, path = config_launches[name], "http, pipeline off, its configuration"
+        elif name in TRAINING[3:]:
+            launches, path = train_launches[name], "training"
         elif name == "bfs_relax":
             launches = cent["jobs"]["approx-harmonic"]["launches"][name]
+            path = "centrality approx-harmonic"
         elif name.startswith("hll"):
-            launches = cent["jobs"]["harmonic"]["launches"][name]
+            launches, path = cent["jobs"]["harmonic"]["launches"][name], "centrality harmonic"
         else:
-            launches = serve_launches[name]
+            launches, path = serve_launches[name], "http, pipeline on"
         out.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                    "launches": launches, "max_abs_err": max(r[1] for r in mine),
+                    "launches": launches, "path": path, "max_abs_err": max(r[1] for r in mine),
                     "ms": main_row[2], "plain_ms": main_row[3], "bound_ms": main_row[5],
                     "bound_by": main_row[6], "library_ms": library.get(name)})
     return out
@@ -1128,8 +1515,12 @@ def main() -> int:
     # ---- pipeline off: K1-K3 --------------------------------------------------------
     rows = kernel_phase(index, DEVICE)
     torch.cuda.reset_peak_memory_stats()
-    served_off = serve_phase(searcher, SCORING)
+    with join_timer() as join_off:
+        served_off = serve_phase(searcher, SCORING)
     log(f"[serve off] {json.dumps(served_off)}")
+    log(f"[serve off] host factor join: {join_off['calls']} calls, {join_off['seconds']:.3f} s "
+        f"of the round's {served_off['wall_s']:.3f} s")
+    default_pages = top10_pages(searcher)
     cmp = compare_phase(searcher)
     log(f"[compare off] top-10 kernels vs plain versions: {json.dumps(cmp)}")
     log(f"[result off] docs={DOCS} qps={served_off['qps']:.2f} "
@@ -1168,6 +1559,27 @@ def main() -> int:
     del on
     torch.cuda.empty_cache()
 
+    # ---- the other configurations: q8 rows, device join, UB; K11, K12, K10 ------------
+    t = time.perf_counter()
+    configs = config_phase(index_dir, default_pages, card)
+    for name, rec in configs.items():
+        log(f"[result config {name}] qps={rec['qps']:.2f} (default {served_off['qps']:.2f}) "
+            f"p50_ms={rec['p50_ms']:.1f} p99_ms={rec['p99_ms']:.1f} failed={rec['failed']} "
+            f"postings_MB={rec['postings_bytes'] / 1e6:.0f} host_join_s={rec['host_join_s']:.3f} "
+            f"(default {join_off['seconds']:.3f}) top10_equal_default="
+            f"{rec['top10_equal_default']}/{rec['compared']} card={card}")
+    t_cfg = time.perf_counter() - t
+    t = time.perf_counter()
+    rows_c, ops_launches = config_kernel_phase(index_dir, models["dual"])
+    torch.cuda.empty_cache()
+    config_launches = {"stage_a_q8": configs["q8"]["launches"]["stage_a_q8"],
+                       "stage_a_ub": configs["ub"]["launches"]["stage_a_ub"],
+                       "stage_b_joined": configs["join"]["launches"]["stage_b_joined"],
+                       "signals_joined": configs["join"]["launches"]["signals_joined"],
+                       **ops_launches}
+    log(f"[configs] four configurations served in {t_cfg:.1f}s, their kernels held against "
+        f"the plain versions in {time.perf_counter() - t:.1f}s")
+
     # ---- the webgraph centrality job: K6a-b, K7 --------------------------------------
     cent = centrality_phase(os.path.join(data_dir, "centrality"))
     log(f"[result centrality] nodes={GRAPH_NODES} edges={GRAPH_EDGES} graph_s="
@@ -1177,8 +1589,8 @@ def main() -> int:
         f"bfs_rounds={cent['jobs']['approx-harmonic']['timings']['n_rounds']} "
         f"total_s={time.perf_counter() - t_start:.1f} card={card}")
 
-    kernels_out = kernel_records(rows, rows_m, cent, library, served["launches"],
-                                 models["launches"], forest, card)
+    kernels_out = kernel_records(rows + rows_c, rows_m, cent, library, served["launches"],
+                                 models["launches"], forest, card, config_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

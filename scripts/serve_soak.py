@@ -2,10 +2,11 @@
 """Pipeline-on serving soak of the PyTorch port on one NVIDIA card: fresh
 processes, each serving R rounds of chip_smoke's 128-request mix at 16
 clients over HTTP, with the ranking pipeline on (dual encoder, cross
-encoder, LambdaMART forest).
+encoder, LambdaMART forest), in the shard-search configuration that
+--row-layout and --device-join name.
 
     python3 scripts/serve_soak.py --runs change,parent,parent,change \
-        [--tree parent=DIR] [--rounds 8] [--timeout 600]
+        [--tree parent=DIR] [--rounds 8] [--timeout 600] [--row-layout q8] [--device-join]
 
 Each entry of --runs names a checkout of the repository (`change` is this
 one; others come from --tree NAME=DIR, e.g. a `git archive` of the parent
@@ -49,7 +50,8 @@ def worker(args) -> int:
     with open(args.bodies) as fh:
         bodies = json.load(fh)
     searcher = build_searcher(args.index, "cuda", dual_encoder=args.dual,
-                              cross_encoder=args.cross, lambdamart=args.forest)
+                              cross_encoder=args.cross, lambdamart=args.forest,
+                              row_layout=args.row_layout, device_join=args.device_join)
 
     from chip_smoke import CLIENTS, post
 
@@ -125,6 +127,7 @@ def run_process(tree: str, trees: dict, paths: dict, args, n: int) -> dict:
     env["PYTHONPATH"] = ROOT  # chip_smoke's helpers; the tree's package comes first
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", "--root",
            os.path.abspath(trees[tree]), "--rounds", str(args.rounds),
+           "--row-layout", args.row_layout, *(["--device-join"] if args.device_join else []),
            *[x for k in ("index", "dual", "cross", "forest", "bodies")
              for x in (f"--{k}", paths[k])]]
     t0 = time.perf_counter()
@@ -159,6 +162,8 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
     ap.add_argument("--data", default=os.path.join(ROOT, "data", "torch_smoke"))
     ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--row-layout", choices=["q16", "q8"], default="q16")
+    ap.add_argument("--device-join", action="store_true")
     for name in ("root", "index", "dual", "cross", "forest", "bodies"):
         ap.add_argument(f"--{name}", default="")
     args = ap.parse_args()

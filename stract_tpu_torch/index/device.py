@@ -5,8 +5,15 @@ The numpy builders are the JAX package's, copied: the [n, 3] q16 posting rows
 cached on disk as device_postings.bin (the host factor join binary-searches
 the same file), the impact prefixes cached as impact_prefix.npz (both
 packages share these caches: the files are byte-identical), and the q8 row
-layout. The port keeps the q16 layout only; quantize_rows_q8 stays for the
-plain stage-A version and its tests.
+layout cached as device_postings_q8.bin (byte-identical too).
+
+DeviceSegment(seg, device, row_layout) holds either layout: "q16", the
+[PB, 3] rows of 12 bytes, or "q8", the [PB, 2] rows of 8 bytes that stage A
+and the device factor join decode on the card (the JAX package's
+STRACT_TPU_ROW_LAYOUT switch, here an argument). Beside the rows it keeps
+the block-max side of the impact prefixes: the tf-factor of every prefix
+row in the scan's currency, from which impact_bound_f1 bounds what an
+L-deep scan has not seen.
 """
 
 from __future__ import annotations
@@ -188,6 +195,23 @@ def build_device_postings(seg: Segment) -> np.ndarray:
     return out
 
 
+def _q8_cached(seg: Segment, n_post: int) -> np.ndarray:
+    """quantize_rows_q8 of the segment's posting rows, cached on disk next to
+    the q16 cache (a segment is reopened several times; the one-pass
+    conversion of a 528M-row segment costs ~20 s)."""
+    cache = os.path.join(seg.path, "device_postings_q8.bin")
+    if os.path.exists(cache) and os.path.getsize(cache) == n_post * 2 * 4:
+        return np.memmap(cache, dtype=np.int32, mode="r").reshape(n_post, 2)
+    rows = quantize_rows_q8(build_device_postings(seg))
+    try:
+        with open(cache + ".tmp", "wb") as fh:
+            rows.tofile(fh)
+        os.replace(cache + ".tmp", cache)
+    except OSError:
+        pass
+    return rows
+
+
 def _static_scale(static_default: np.ndarray) -> float:
     static_max = float(static_default.max()) if len(static_default) else 1.0
     return max(static_max, 1e-6) / 65535.0
@@ -297,11 +321,15 @@ def segment_arrays_from_numpy(*tuples, device):
 
 class DeviceSegment:
     """Query-time tensors of one segment on `device` ("cuda" or "cpu"; a
-    "cuda" device without a card raises in torch)."""
+    "cuda" device without a card raises in torch), with the posting rows in
+    `row_layout` "q16" ([PB, 3]) or "q8" ([PB, 2])."""
 
-    def __init__(self, seg: Segment, device):
+    def __init__(self, seg: Segment, device, row_layout: str = "q16"):
+        if row_layout not in ("q16", "q8"):
+            raise ValueError(f"row_layout is 'q16' or 'q8', not {row_layout!r}")
         self.seg = seg
         self.device = torch.device(device)
+        self.row_layout = row_layout
         self.num_docs = seg.num_docs
         D = seg.num_docs
         if D > O.MAX_SEGMENT_DOCS:
@@ -325,13 +353,33 @@ class DeviceSegment:
         # live at offset n_post + imp_start; the headroom lets tile fetches
         # read [start, start + L) without clamping
         PB = _bucket(max(n_post + len(imp_rows), 1) + O.DEFAULT_L)
-        postings = np.zeros((PB, 3), dtype=np.int32)
-        postings[:, 0] = D
-        postings[:n_post] = build_device_postings(seg)
-        postings[n_post : n_post + len(imp_rows)] = imp_rows
+        if row_layout == "q8":
+            postings = np.zeros((PB, 2), dtype=np.int32)
+            postings[:, 0] = np.int64(D) << 7  # pad rows decode to the pad doc
+            postings[:n_post] = _q8_cached(seg, n_post)
+            imp_q8 = quantize_rows_q8(imp_rows)
+            postings[n_post : n_post + len(imp_rows)] = imp_q8
+        else:
+            postings = np.zeros((PB, 3), dtype=np.int32)
+            postings[:, 0] = D
+            postings[:n_post] = build_device_postings(seg)
+            postings[n_post : n_post + len(imp_rows)] = imp_rows
         # impact ranges in device offsets (host lookup by term index)
         self.impact_starts = imp_starts + n_post
         self.impact_lens = imp_lens
+        # block-max bounds for UB scoring: prefix rows are sorted by tf-factor
+        # descending, so rows an L-deep scan does not see (past prefix position
+        # L-1, or outside the prefix) all have f1 <= f1[min(L, len)-1]. The
+        # bounds are in the scan's currency: under q8 the scan sees the widened
+        # q8*257 values, up to 128 above the true q16, and only a bound taken
+        # over the widened rows stays an upper bound.
+        self._impact_row_starts = imp_starts
+        if len(imp_rows) == 0:
+            self._impact_f1 = np.zeros(0, dtype=np.float32)
+        elif row_layout == "q8":
+            self._impact_f1 = (((imp_q8[:, 1] >> 24) & 0xFF) * 257).astype(np.float32)
+        else:
+            self._impact_f1 = ((imp_rows[:, 1] >> 16) & 0xFFFF).astype(np.float32)
 
         self.arrays = segment_arrays_from_numpy(O.SegmentArrays(
             postings=postings,
@@ -342,3 +390,15 @@ class DeviceSegment:
             last_updated=last_updated,
             num_docs=np.int32(D),
         ), device=self.device)
+
+    def impact_bound_f1(self, ti: int, L: int) -> float:
+        """Quantised-f1 upper bound of term ti's rows unseen by an L-deep scan
+        of its impact prefix: the row at prefix position min(L, len)-1 bounds
+        the prefix's own tail and every row outside the prefix; 65535 when the
+        term has no prefix."""
+        iln = int(self.impact_lens[ti])
+        if iln == 0:
+            return 65535.0
+        # L = 0 (prefix not scanned at all) → row 0, the tail's maximum
+        pos = int(self._impact_row_starts[ti]) + max(1, min(L, iln)) - 1
+        return float(self._impact_f1[pos])

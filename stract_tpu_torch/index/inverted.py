@@ -8,6 +8,9 @@ serves the two-phase protocol:
     compute_signals_arrays_many(...)  → signal matrices for the final page
     retrieve(ptrs, terms)             → stored docs + snippets (host)
 
+(search_initial / search_initial_batch and compute_signals are the same two
+phases for one query and for pointer lists.)
+
 Per segment and query batch: stage A (ops.score_candidates_batch) scans the
 slots' posting prefixes for candidates unless the smallest required group is
 small enough to be the candidate set itself (driver mode); the host joins
@@ -16,8 +19,22 @@ each candidate's full-range factors (native.slot_factors); stage B
 segment stage B also returns the q16 signal rows of each query's top
 FUSED_SIG_K docs, so the final page is usually a host cache lookup.
 
-Fixed where the JAX package reads STRACT_TPU_* switches: no block-max UB
-scoring, no device factor join, stage B verifies all of stage A's C, q16 rows.
+Where the JAX package reads STRACT_TPU_* experiment switches at import, the
+port takes arguments of InvertedIndex (the defaults are the JAX package's):
+
+    row_layout   "q16" | "q8": the posting rows on the device (12 or 8 bytes a
+                 row). Stage A scans them; with the host join stage B still
+                 reads the exact q16 rows on disk, so only the candidate cut
+                 can move.
+    device_join  stage B and pass 2 find their factors on the device
+                 (ops.score_driver_joined_batch, compute_signals_joined*):
+                 no host searches, no factor upload, no fused signal rows
+                 and no factor cache. With q8 rows the joined factors are the
+                 quantised ones, so final scores move (as in the JAX package).
+    ub_lambda    > 0: block-max UB scoring in stage A, each truncated slot's
+                 unseen contribution bounded and scaled by ub_lambda.
+    verify_c     > 0: stage B verifies only the top verify_c (rounded up to
+                 the shape menu) of stage A's candidates.
 """
 
 from __future__ import annotations
@@ -43,6 +60,9 @@ DRIVER_MAX = 4096
 SCAN_CANDIDATES = 4096
 # stage-B fused signal columns per query
 FUSED_SIG_K = 64
+# bm25f tf-factor bound: f2 = g(cf*t) <= max(cf, 1) * g(t) = max(cf, 1) * f1
+# (g concave through 0, so subadditive), used by the UB scoring bound
+_CF_MAX = max(1.0, max(S.BM25F_FIELD_COEFFS.values()))
 
 
 def _qshape(n: int, steps=(128, 512, 2048, 4096)) -> int:
@@ -96,9 +116,16 @@ def _nonneg(q) -> bool:
 
 
 class InvertedIndex:
-    def __init__(self, path: str, device):
+    def __init__(self, path: str, device, row_layout: str = "q16", device_join: bool = False,
+                 ub_lambda: float = 0.0, verify_c: int = 0):
+        if row_layout not in ("q16", "q8"):
+            raise ValueError(f"row_layout is 'q16' or 'q8', not {row_layout!r}")
         self.path = path
         self.device = torch.device(device)
+        self.row_layout = row_layout
+        self.device_join = bool(device_join)
+        self.ub_lambda = float(ub_lambda)
+        self.verify_c = int(verify_c)
         with open(os.path.join(path, "index_meta.json")) as fh:
             self.meta = json.load(fh)
         self.segments: list[Segment] = [
@@ -113,8 +140,9 @@ class InvertedIndex:
     @property
     def fused(self) -> bool:
         """Stage B returns the page's signal rows with the verify on a card;
-        on the CPU the extra signal work buys nothing."""
-        return self.device.type == "cuda"
+        on the CPU the extra signal work buys nothing, and the joined stage B
+        returns (docs, scores) only."""
+        return self.device.type == "cuda" and not self.device_join
 
     # -- device -------------------------------------------------------------------
     def device_segment_for(self, seg: Segment) -> DeviceSegment:
@@ -123,7 +151,7 @@ class InvertedIndex:
         key = id(seg)
         dev = self._device.get(key)
         if dev is None:
-            dev = self._device[key] = DeviceSegment(seg, self.device)
+            dev = self._device[key] = DeviceSegment(seg, self.device, self.row_layout)
         return dev
 
     def _df_lookup(self):
@@ -268,25 +296,57 @@ class InvertedIndex:
         return q2, aggs2
 
     @staticmethod
-    def _augment_with_impact(seg: Segment, dev: DeviceSegment, q):
+    def _augment_with_impact(seg: Segment, dev: DeviceSegment, q, L_q: int | None = None,
+                             ub_lambda: float = 0.0):
         """Fill the query's empty slots with the impact-prefix ranges of its
         long posting lists (index/device.py build_impact_prefixes): the scan
         then covers the best-static and the best-text docs of each slot. The
         two prefixes of a term are doc-disjoint, so contributions add up.
-        Only when every long slot finds a free position."""
+        Only when every long slot finds a free position.
+
+        → (q', ub_entry f32[P], ub_total float): per slot the upper bound of
+        what an L_q-deep scan has NOT seen (the block-max role), scaled by
+        ub_lambda: 0 for slots the scan covers whole; for a slot with an
+        impact prefix the prefix's tf-factor at the scan's depth (everything
+        outside is smaller); else the largest possible tf-factor. Stage A
+        scores a candidate as `seen + sum of the unseen slots' bounds`."""
         lens = np.asarray(q.lens)
         starts = np.asarray(q.starts)
+        groups = np.asarray(q.group)
+        w1 = np.asarray(q.w_bm25)
+        w2 = np.asarray(q.w_bm25f)
+        wp = np.asarray(q.w_presence)
+        P = len(lens)
+        if L_q is None:
+            L_q = O.DEFAULT_L
         t_starts = np.asarray(seg.term_starts, dtype=np.int64)
-        extras = []  # (slot, device start, len)
+        imp = {}  # slot -> (device start, len, term index)
         if len(dev.impact_lens):
             for i in np.nonzero(lens > IMPACT_L)[0]:
                 ti = int(np.searchsorted(t_starts, starts[i]))
                 if ti < len(t_starts) and int(t_starts[ti]) == int(starts[i]) \
                         and dev.impact_lens[ti] > 0:
-                    extras.append((int(i), int(dev.impact_starts[ti]), int(dev.impact_lens[ti])))
+                    imp[int(i)] = (int(dev.impact_starts[ti]), int(dev.impact_lens[ti]), ti)
+        # attached prefixes are scanned L_q deep (bound = prefix row
+        # min(L_q, len)-1); unattached ones are not scanned (bound = row 0)
+        extras = [(i, s, l) for i, (s, l, _) in imp.items()]
         free = list(np.nonzero(lens == 0)[0])
-        if not extras or len(free) < len(extras):
-            return q
+        attached = bool(extras) and len(free) >= len(extras)
+
+        deq = 1.0 / O.FACTOR_SCALE
+        ub = np.zeros(P, dtype=np.float32)
+        # with ub_lambda = 0 every bound is 0: the default path skips the walk
+        truncated = (lens > L_q) & (groups != O.EXCLUDED_GROUP) if ub_lambda else []
+        for i in np.nonzero(truncated)[0]:
+            i = int(i)
+            f1c = dev.impact_bound_f1(imp[i][2], L_q if attached else 0) if i in imp else 65535.0
+            f2c = min(65535.0, f1c * _CF_MAX)
+            ub[i] = (max(0.0, float(w1[i])) * f1c * deq + max(0.0, float(w2[i])) * f2c * deq
+                     + max(0.0, float(wp[i])))
+        ub *= ub_lambda
+        ub_total = float(ub.sum())
+        if not attached:
+            return q, ub, ub_total
         fields = {n: np.asarray(getattr(q, n)).copy()
                   for n in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f", "w_presence")}
         for (src, ist, iln), dst in zip(extras, free):
@@ -294,7 +354,10 @@ class InvertedIndex:
                 fields[n][dst] = fields[n][src]
             fields["starts"][dst] = ist
             fields["lens"][dst] = iln
-        return q._replace(**fields)
+            # a doc seen in either prefix of the pair is seen for the term: both
+            # slots subtract the same bound, and being doc-disjoint never twice
+            ub[dst] = ub[src]
+        return q._replace(**fields), ub, ub_total
 
     @staticmethod
     def _driver_docs(seg: Segment, q) -> np.ndarray | None:
@@ -377,6 +440,18 @@ class InvertedIndex:
                 total += min(int(lens[groups == O.OPTIONAL_GROUP].sum()), seg.num_docs)
         return total
 
+    def search_initial(self, ctx: QueryContext, top_k: int = 1024):
+        """One query → (pointers, scores) ranked by the fused core-signal
+        score: the batch path with one query (the same two stages)."""
+        return self.search_initial_batch([ctx], top_k)[0]
+
+    def search_initial_batch(self, ctxs: list, top_k: int = 1024) -> list:
+        """search_arrays_batch with per-result DocPointer objects → list of
+        (pointers, scores)."""
+        return [([DocPointer(int(s), int(d)) for s, d in zip(segs, docs)],
+                 [float(x) for x in scores])
+                for segs, docs, scores in self.search_arrays_batch(ctxs, top_k)]
+
     def search_arrays_batch(self, ctxs: list, top_k: int = 1024) -> list:
         """Batched search for many queries → list of (segs i32[N], docs
         i32[N], scores f32[N]) aligned with ctxs, best first."""
@@ -418,19 +493,28 @@ class InvertedIndex:
             if scan_items:
                 maxL = _qshape(max(it[3] for it in scan_items), (128, O.DEFAULT_L))
                 for qi, q, aggs, _, fast, ds in scan_items:
-                    qa = self._augment_with_impact(seg, dev, q)
+                    # UB visibility uses the scan's L (the batch maxL): slots
+                    # no longer than it are seen whole and bound to 0
+                    qa, ub, ubt = self._augment_with_impact(seg, dev, q, maxL, self.ub_lambda)
                     buckets.setdefault((qa.starts.shape[0], maxL, fast), []).append(
-                        (qi, q, aggs, qa, ds))
+                        (qi, q, aggs, qa, ds, ub, ubt))
             C = _qshape(max(SCAN_CANDIDATES, top_k), (1024, 2048, 4096))
             pending = []
             for (P, L, fast), items in buckets.items():
                 qs = O.stack([it[3] for it in items])
+                ubkw = {}
+                if self.ub_lambda > 0:
+                    ubkw = dict(ub_entry=np.stack([it[5] for it in items]).astype(np.float32),
+                                ub_total=np.array([it[6] for it in items], dtype=np.float32))
                 cand_b, _ = O.score_candidates_batch(dev.arrays, qs, L, C, fast,
-                                                     soft_required=True)
+                                                     soft_required=True, **ubkw)
                 pending.append((cand_b, items))
             for cand_dev, items in pending:
                 cand_np = cand_dev.cpu().numpy()
-                for j, (qi, q, aggs, _, ds) in enumerate(items):
+                if self.verify_c:
+                    vs = _qshape(max(self.verify_c, top_k), (1024, 2048, 4096))
+                    cand_np = cand_np[:, :vs]
+                for j, (qi, q, aggs, _, ds, _, _) in enumerate(items):
                     add_verify(qi, q, aggs, cand_np[j], ds)
 
             # ---- stage B: exact verify over full posting ranges -----------------------
@@ -440,6 +524,12 @@ class InvertedIndex:
                 sig_k = min(FUSED_SIG_K, Kd) if fused else None
                 qs = O.stack([it[1] for it in items])
                 cand_b = np.stack([it[3] for it in items])
+                if self.device_join:
+                    # the factors are searched on the device: nothing to join,
+                    # upload or cache here, and no fused signal rows come back
+                    res = O.score_driver_joined_batch(dev.arrays, qs, cand_b, ds, K_out)
+                    pending_b.append((res, k_fetch, None, [it[0] for it in items]))
+                    continue
                 facs_b = np.zeros((len(items), P, Kd), dtype=np.int32)
                 for j, (qi, qc, ac, cand) in enumerate(items):
                     self._slot_factors_for(seg, qc, cand, out=facs_b[j])
@@ -488,6 +578,11 @@ class InvertedIndex:
             conv.append((ctx, seg_arr, doc_arr))
         return self.compute_signals_arrays_many(conv)
 
+    def compute_signals(self, ctx: QueryContext, pointers: list) -> np.ndarray:
+        """Full signal matrix f32[len(pointers), NUM_SIGNALS] of one query's
+        docs (pass 2)."""
+        return self.compute_signals_batch_many([(ctx, pointers)])[0]
+
     def compute_signals_arrays_many(self, items: list) -> list:
         """Pass 2 for many queries: items = [(ctx, seg_arr, doc_arr)] → signal
         matrices f32[len(doc_arr), NUM_SIGNALS]. Rows the fused stage B
@@ -523,7 +618,8 @@ class InvertedIndex:
                 maxP = max(maxP, q.starts.shape[0])
                 prepared.append((qi, idxs, q, aggs, ctx, ord_))
             maxP = _qshape(maxP, (16, 64))
-            facs_b = np.zeros((B, maxP, K), dtype=np.int32)
+            join = self.device_join
+            facs_b = None if join else np.zeros((B, maxP, K), dtype=np.int32)
             cands = np.full((B, K), seg.num_docs, dtype=np.int32)
             qlist, alist = [], []
             for j, (qi, idxs, q, aggs, ctx, ord_) in enumerate(prepared):
@@ -542,14 +638,22 @@ class InvertedIndex:
                         n: np.pad(getattr(aggs, n), ((0, 0), (0, pad))) for n in aggs._fields})
                 cands[j, : len(idxs)] = items[qi][2][idxs]
                 # pass-2 docs are a subset of the verify stage's candidates:
-                # reuse those factor columns when cached
-                if not self._cached_factor_fill(ctx, ord_, seg, cands[j], len(idxs), facs_b[j]):
+                # reuse those factor columns when cached (host join only: the
+                # device join searches again on the device)
+                if not join and not self._cached_factor_fill(
+                        ctx, ord_, seg, cands[j], len(idxs), facs_b[j]):
                     self._slot_factors_for(seg, q, cands[j], out=facs_b[j])
                 qlist.append(q)
                 alist.append(aggs)
-            sq16, scl = O.compute_signals_from_factors_batch_q16(
-                dev.arrays, O.stack(qlist), O.stack(alist), facs_b, cands)
-            sig_b = O.dequantize_signals(sq16, scl)
+            if join and B == 1:
+                sig_b = O._np(O.compute_signals_joined(dev.arrays, qlist[0], alist[0],
+                                                       cands[0]))[None]
+            elif join:
+                sig_b = O.dequantize_signals(*O.compute_signals_joined_batch_q16(
+                    dev.arrays, O.stack(qlist), O.stack(alist), cands))
+            else:
+                sig_b = O.dequantize_signals(*O.compute_signals_from_factors_batch_q16(
+                    dev.arrays, O.stack(qlist), O.stack(alist), facs_b, cands))
             for j, (qi, idxs, *_rest) in enumerate(prepared):
                 out[qi][idxs] = sig_b[j][:, : len(idxs)].T
         return out

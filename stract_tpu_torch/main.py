@@ -1,7 +1,8 @@
 """Command line of the port.
 
     python -m stract_tpu_torch.main serve --index DIR --port N --device cuda \
-        [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE]
+        [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE] \
+        [--row-layout {q16,q8}] [--device-join] [--ub-lambda X] [--verify-c N]
     python -m stract_tpu_torch.main train-encoders {dual,cross,both} INDEX OUT \
         [--steps 120] [--batch 16] [--triples 512] [--device cuda]
     python -m stract_tpu_torch.main centrality \
@@ -12,6 +13,11 @@ API in one process) restricted to the search route: POST /beta/api/search
 and GET /metrics. DIR is an index directory of either package
 (index_meta.json + segments/). --device cpu runs the plain PyTorch versions
 of the kernels; --device cuda needs a card and runs the hand-written kernels.
+
+--row-layout, --device-join, --ub-lambda and --verify-c choose the shard
+search's configuration (index/inverted.py InvertedIndex: the JAX package's
+STRACT_TPU_ROW_LAYOUT, _DEVICE_JOIN, _UB_LAMBDA and _VERIFY_C switches); the
+defaults are q16 rows, the host factor join, no UB scoring, verify all.
 
 The model flags are the coordinator's ApiConfig fields dual_encoder_path,
 cross_encoder_path and lambdamart_path, loaded as the JAX package's api
@@ -44,9 +50,12 @@ from aiohttp import web
 
 
 def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
-                   cross_encoder: str | None = None, lambdamart: str | None = None):
+                   cross_encoder: str | None = None, lambdamart: str | None = None,
+                   row_layout: str = "q16", device_join: bool = False, ub_lambda: float = 0.0,
+                   verify_c: int = 0):
     """The serving stack over one local shard, with the ranking pipeline's
-    models loaded from the given paths onto `device` → ApiSearcher."""
+    models loaded from the given paths onto `device` and the shard search in
+    the given configuration (InvertedIndex's arguments) → ApiSearcher."""
     from .ranking.pipeline import PrecisionStage, RankingPipeline, RecallStage
 
     from .index.inverted import InvertedIndex
@@ -54,7 +63,8 @@ def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
     from .searcher.distributed import LocalShardedSearcher
     from .searcher.local import LocalSearcher
 
-    index = InvertedIndex(index_dir, device=device)
+    index = InvertedIndex(index_dir, device=device, row_layout=row_layout,
+                          device_join=device_join, ub_lambda=ub_lambda, verify_c=verify_c)
     for seg in index.segments:
         index.device_segment_for(seg)  # upload before the first request
     recall, precision = RecallStage(), PrecisionStage()
@@ -156,6 +166,14 @@ def main(argv=None):
     sp.add_argument("--dual-encoder", default="", help="dual encoder dir (recall stage)")
     sp.add_argument("--cross-encoder", default="", help="cross encoder dir (precision stage)")
     sp.add_argument("--lambdamart", default="", help="forest file, LightGBM text or JSON")
+    sp.add_argument("--row-layout", choices=["q16", "q8"], default="q16",
+                    help="posting rows on the device: 12 or 8 bytes a row")
+    sp.add_argument("--device-join", action="store_true",
+                    help="join stage B's and pass 2's factors on the device")
+    sp.add_argument("--ub-lambda", type=float, default=0.0,
+                    help="> 0: block-max UB scoring in stage A, bounds scaled by this")
+    sp.add_argument("--verify-c", type=int, default=0,
+                    help="> 0: stage B verifies only stage A's top N candidates")
     tp = sub.add_parser("train-encoders", help="fine-tune dual/cross encoders from an index")
     tp.add_argument("kind", choices=["dual", "cross", "both"])
     tp.add_argument("index_path")
@@ -192,7 +210,8 @@ def main(argv=None):
     from .api.server import build_app
 
     app = build_app(build_searcher(args.index, args.device, args.dual_encoder,
-                                   args.cross_encoder, args.lambdamart))
+                                   args.cross_encoder, args.lambdamart, args.row_layout,
+                                   args.device_join, args.ub_lambda, args.verify_c))
     web.run_app(app, host=args.host, port=args.port)
 
 

@@ -6,7 +6,10 @@ takes seconds; all sources build in parallel) and loaded with ctypes. A
 library is rebuilt when its source is newer. Nothing here runs at import
 time: the CPU tests import this module on machines without nvcc or a card.
 
-  csrc/scoring.cu   K1 stage A, K2 stage B, K3 pass-2 signals
+  csrc/scoring.cu   K1 stage A (q16 or q8 rows, with or without block-max UB), K2
+                    stage B, K3 pass-2 signals, K11 the device factor join (alone,
+                    and inside stage B and pass 2), K12 pass 2 from the slots'
+                    L-row prefixes, K10 the dense rerank
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
@@ -30,6 +33,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +49,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # page one block sorts in shared memory, and the most fused signal columns
 MAX_SORT = 4096
 MAX_SIG_K = 64
+# limits of the search and rerank kernels (MAX_NSIG, MAX_H, the slot count whose
+# factor chunk fits the block's shared memory)
+MAX_NSIG = 64
+MAX_H = 1024
+MAX_SEARCH_P = 8192
 # limits of csrc/encoder.cu: the head width and the longest sequence
 ATTN_HEAD_DIM = 32
 ATTN_MAX_T = 256
@@ -53,7 +62,12 @@ MAX_SMEM = 227 * 1024
 
 # launches per kernel since the last reset_launches(): the proof that a run of
 # the main path went through the kernels
-LAUNCHES = {"stage_a": 0, "stage_b": 0, "signals_q16": 0, "forest": 0, "attention": 0,
+# (a stage-A launch counts once: under "stage_a_ub" when it folds UB bounds,
+# else "stage_a_q8" on q8 rows, else "stage_a"; "signals_joined" is pass 2 with
+# the join inside, "signals_prefix" is K12)
+LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_b": 0, "signals_q16": 0,
+            "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0, "signals_prefix": 0,
+            "dense_rerank": 0, "forest": 0, "attention": 0,
             "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
             "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
             "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0}
@@ -72,6 +86,15 @@ def reset_launches() -> None:
 def counted(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def on_device(x, dev, dtype=None):
+    """A kernel argument of any origin (tensor, array, list) as a contiguous
+    tensor on `dev` (None stays None)."""
+    if x is None:
+        return None
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=dev, dtype=dtype).contiguous()
 
 
 def _nvcc() -> str:
@@ -152,11 +175,19 @@ def _load(name: str):
             if name == "scoring":
                 seg, qry = ctypes.POINTER(SegArgs), ctypes.POINTER(QueryArgs)
                 agg = ctypes.POINTER(AggArgs)
-                lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, I, I, I, I, F,
+                lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, I, F,
                                                P, P, P, P, P, P, P, P]
                 lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
                 lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
-                fns = (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16)
+                lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, P, P]
+                lib.stract_stage_b_joined.argtypes = [seg, qry, P, LL, I, P, I, I, F, I,
+                                                      P, P, P, P]
+                lib.stract_signals_search.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
+                                                      P, P, P, P]
+                lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
+                fns = (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16,
+                       lib.stract_factors_join, lib.stract_stage_b_joined,
+                       lib.stract_signals_search, lib.stract_dense_rerank)
             elif name == "forest":
                 lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
@@ -232,22 +263,39 @@ def agg_args(a, static_of_sig: torch.Tensor, bm25f_row: int, region_row: int,
                    update_row)
 
 
+def _postings(seg) -> tuple:
+    """(address, rows, row width) of a segment's posting rows: [Ptot, 3] q16
+    rows or [Ptot, 2] q8 rows."""
+    n_rows, w = seg.postings.shape
+    if w not in (2, 3) or n_rows < 1:
+        raise ValueError(f"posting rows are [Ptot, 3] (q16) or [Ptot, 2] (q8), not "
+                         f"{tuple(seg.postings.shape)}")
+    return _ptr(seg.postings, torch.int32, (n_rows, w)), int(n_rows), int(w)
+
+
 def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required: bool,
-            inv_fs: float, tkey, tsum, tmask, taux, skey, out_docs, out_scores) -> None:
+            inv_fs: float, tkey, tsum, tmask, taux, skey, out_docs, out_scores,
+            ub_entry=None, ub_total=None) -> None:
+    """K1 over q16 or q8 rows; ub_entry f32[B, P] with ub_total f32[B] turn
+    block-max UB scoring on."""
     if not 1 <= K <= MAX_SORT:
         raise ValueError(f"stage A keeps 1..{MAX_SORT} candidates per query, not {K}")
+    if (ub_entry is None) != (ub_total is None):
+        raise ValueError("UB scoring takes ub_entry and ub_total together")
+    B, P = q.starts.shape
+    i32, f32 = torch.int32, torch.float32
+    post, n_rows, w = _postings(seg)
+    ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    B = q.starts.shape[0]
-    i32, f32 = torch.int32, torch.float32
     rc = lib.stract_stage_a(
-        ctypes.byref(s), ctypes.byref(qa), _ptr(seg.postings, i32, (seg.postings.shape[0], 3)),
-        int(seg.postings.shape[0]), L, K, T, int(default_static), int(soft_required), inv_fs,
+        ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t, L, K, T,
+        int(default_static), int(soft_required), inv_fs,
         _ptr(tkey, i32, (B, T)), _ptr(tsum, f32, (B, T)), _ptr(tmask, torch.int64, (B, T)),
         _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
         _ptr(out_scores, f32, (B, K)), _stream())
     _check(rc, "stract_stage_a")
-    counted("stage_a")
+    counted("stage_a_ub" if ub_entry is not None else "stage_a_q8" if w == 2 else "stage_a")
 
 
 def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
@@ -282,6 +330,92 @@ def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_
         _stream())
     _check(rc, "stract_signals_q16")
     counted("signals_q16")
+
+
+def factors_join(seg, starts, lens, cand, out) -> None:
+    """K11 alone: starts, lens i32[B, P], cand i32[B, Kd] → out i32[B, P, Kd],
+    the packed factors of each candidate in each slot's full posting range
+    (ops/scoring.py allocates)."""
+    (B, P), Kd = starts.shape, cand.shape[1]
+    if not (1 <= B <= 65535 and 1 <= P <= 65535 and Kd >= 1):
+        raise ValueError(f"the join takes 1..65535 queries and slots, not {B} x {P} x {Kd}")
+    i32 = torch.int32
+    post, n_rows, w = _postings(seg)
+    ptrs = (_ptr(starts, i32, (B, P)), _ptr(lens, i32, (B, P)), _ptr(cand, i32, (B, Kd)))
+    o = _ptr(out, i32, (B, P, Kd))
+    lib = _load("scoring")
+    rc = lib.stract_factors_join(post, n_rows, w, *ptrs, B, P, Kd, o, _stream())
+    _check(rc, "stract_factors_join")
+    counted("factors_join")
+
+
+def stage_b_joined(seg, q, cand, default_static: bool, inv_fs: float, k: int, skey,
+                   out_docs, out_scores) -> None:
+    """K2 with the join inside: cand i32[B, Kd] → out_docs i32[B, k],
+    out_scores f32[B, k]; skey i32[B, S] is scratch, S the power of two >= Kd."""
+    (B, _), Kd = q.starts.shape, cand.shape[1]
+    if not 1 <= Kd <= MAX_SORT or not 1 <= k <= Kd or B > 65535:
+        raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and keeps 1..Kd, not "
+                         f"{Kd} and {k}")
+    S = 1 << (Kd - 1).bit_length()
+    i32, f32 = torch.int32, torch.float32
+    post, n_rows, w = _postings(seg)
+    ptrs = (_ptr(skey, i32, (B, S)), _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)))
+    c = _ptr(cand, i32, (B, Kd))
+    lib = _load("scoring")
+    s, qa = seg_args(seg), query_args(q)
+    rc = lib.stract_stage_b_joined(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, c, Kd,
+                                   int(default_static), inv_fs, k, *ptrs, _stream())
+    _check(rc, "stract_stage_b_joined")
+    counted("stage_b_joined")
+
+
+def signals_search(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int = 0, steps: int = 0,
+                   out_f32=None, out_q=None, out_scale=None) -> None:
+    """Pass 2 that finds its own factors: L = 0 joins each candidate over the
+    slots' full ranges (K11 inside K3), L > 0 searches the first L rows of
+    each slot in `steps` steps (K12). cand i32[B, K] → out_f32 f32[B, nsig, K],
+    or out_q i16[B, nsig, K] with out_scale f32[B, nsig]."""
+    (B, P), K = q.starts.shape, cand.shape[1]
+    if (out_f32 is None) == (out_q is None) or (out_q is not None and out_scale is None):
+        raise ValueError("pass 2 writes f32 rows, or q16 rows with their scales")
+    if K < 1 or not 1 <= P <= MAX_SEARCH_P or not 1 <= aggs.nsig <= MAX_NSIG or L < 0 or \
+            (L > 0 and steps < 1):
+        raise ValueError(f"pass 2 takes 1..{MAX_SEARCH_P} slots, 1..{MAX_NSIG} signal rows and "
+                         f"a prefix of L >= 0 rows, not {P}, {aggs.nsig}, {L}")
+    f32 = torch.float32
+    post, n_rows, w = _postings(seg)
+    c = _ptr(cand, torch.int32, (B, K))
+    outs = (_ptr(out_f32, f32, (B, aggs.nsig, K)), _ptr(out_q, torch.int16, (B, aggs.nsig, K)),
+            _ptr(out_scale, f32, (B, aggs.nsig)))
+    lib = _load("scoring")
+    s, qa = seg_args(seg), query_args(q)
+    rc = lib.stract_signals_search(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
+                                   n_rows, w, c, K, L, steps, inv_fs, *outs, _stream())
+    _check(rc, "stract_signals_search")
+    counted("signals_prefix" if L > 0 else "signals_joined")
+
+
+_RERANK_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_scores) -> None:
+    """K10: cand_emb f32/f16/bf16[B, K, H], query_emb f32[B, H], base f32[B, K]
+    → out_idx i32[B, k], out_scores f32[B, k] (ops/dense_rerank.py allocates)."""
+    B, K, H = cand_emb.shape
+    if cand_emb.dtype not in _RERANK_DTYPES:
+        raise ValueError(f"the rerank reads f32, f16 or bf16 rows, not {cand_emb.dtype}")
+    if not (B >= 1 and 1 <= K <= MAX_SORT and 1 <= H <= MAX_H and 1 <= k <= K):
+        raise ValueError(f"the rerank takes 1..{MAX_SORT} candidates of 1..{MAX_H} dims and "
+                         f"keeps 1..K, not {K}, {H}, {k}")
+    f32 = torch.float32
+    ptrs = (_ptr(cand_emb, cand_emb.dtype), _RERANK_DTYPES[cand_emb.dtype],
+            _ptr(query_emb, f32, (B, H)), _ptr(base, f32, (B, K)))
+    outs = (_ptr(out_idx, torch.int32, (B, k)), _ptr(out_scores, f32, (B, k)))
+    lib = _load("scoring")
+    rc = lib.stract_dense_rerank(*ptrs, B, K, H, float(weight), k, *outs, _stream())
+    _check(rc, "stract_dense_rerank")
+    counted("dense_rerank")
 
 
 def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) -> None:

@@ -4,12 +4,18 @@ Three device programs carry a search (the JAX package's jitted XLA programs;
 it has no Pallas kernel):
 
   stage A  score_candidates_batch      candidate scan over P slices of L
-                                       posting rows, join by doc, top-C
+                                       posting rows (q16 or q8), join by doc,
+                                       top-C; optionally block-max UB scoring
   stage B  score_driver_batch[_with_signals]
                                        exact verify over host-joined factor
                                        columns, top-k, fused q16 signals
+           score_driver_joined[_batch] the same verify with the factors
+                                       joined on the device (factors_join)
   pass 2   compute_signals_from_factors_batch_q16
                                        signal rows of the final page
+           compute_signals_joined[_batch[_q16]]
+                                       the same with the device join
+           compute_signals[_batch]     from the slots' first L rows only
 
 Each has a plain PyTorch version here (`*_plain`), written after the JAX
 program, and a hand-written CUDA kernel (csrc/scoring.cu, ops/kernels.py).
@@ -18,8 +24,9 @@ take the plain version, CUDA tensors launch the kernel (or raise). There is
 no fallback from one to the other.
 
 Layouts and constants are the JAX package's, so results compare like with
-like: the [Ptot, 3] posting rows (doc | q16 f1 << 16 | q16 f2 | aux word),
-the 6-bit group encoding, the 46-row signal matrix.
+like: the [Ptot, 3] posting rows (doc | q16 f1 << 16 | q16 f2 | aux word) or
+the [Ptot, 2] q8 rows (index/device.py quantize_rows_q8), the 6-bit group
+encoding, the 46-row signal matrix.
 """
 
 from __future__ import annotations
@@ -105,11 +112,12 @@ class SegmentArrays(NamedTuple):
     """A segment's query-time tensors (index/device.py uploads them once).
 
     postings rows: [:, 0] doc id, [:, 1] q16(bm25 f) << 16 | q16(bm25f f),
-    [:, 2] q16(default static) << 16 | region << 12 | days12. static_scale
+    [:, 2] q16(default static) << 16 | region << 12 | days12; or the q8
+    layout's two words per row (_decode_rows). static_scale
     and num_docs are 0-dim CPU tensors: they are launch arguments, and reading
     them must not wait for the card."""
 
-    postings: torch.Tensor        # i32[Ptot, 3]
+    postings: torch.Tensor        # i32[Ptot, 3] (q16 rows) or i32[Ptot, 2] (q8 rows)
     static_cols: torch.Tensor     # f32[NUM_STATIC, DB]
     static_default: torch.Tensor  # f32[DB]
     static_scale: torch.Tensor    # f32 scalar (CPU)
@@ -260,10 +268,17 @@ def _segment_sum_at_ends_nonneg(values, is_end):
 
 # ---- stage A ------------------------------------------------------------------
 def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: int,
-                                 default_static: bool, soft_required: bool):
+                                 default_static: bool, soft_required: bool,
+                                 ub_entry=None, ub_total=None):
     """Plain version of stage A (stract_tpu score_candidates_batch +
     _join_topk): fetch, contribution, sort by key = doc << 6 | group, run-end
-    segment sums, boolean semantics, static score, top-K."""
+    segment sums, boolean semantics, static score, top-K.
+
+    ub_entry f32[B, P] / ub_total f32[B] (block-max UB scoring): each valid
+    entry carries contrib - ub_slot + U, U the query's largest bound (values
+    stay non-negative for the cummax segment sum); the per-doc entry count
+    from the run-end positions takes the +U back out, and ub_total makes the
+    score `seen + sum of the unseen slots' bounds`."""
     B, P = qs.starts.shape
     nd = int(seg.num_docs)
     n_rows = seg.postings.shape[0]
@@ -281,6 +296,10 @@ def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: 
     contrib = (qs.w_bm25[..., None] * f1 + qs.w_bm25f[..., None] * f2
                + qs.w_presence[..., None] * (factors != 0).to(torch.float32))
     keys = (docs << GROUP_BITS) | qs.group[..., None]
+    if ub_entry is not None:
+        U = ub_entry.amax(dim=1)
+        contrib = torch.where(valid, contrib - ub_entry[..., None] + U[:, None, None],
+                              torch.zeros_like(contrib))
 
     key = keys.reshape(B, -1)
     skey, perm = torch.sort(key, dim=-1, stable=True)
@@ -292,6 +311,12 @@ def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: 
     pair_end = torch.cat([skey[:, 1:] != skey[:, :-1], last], dim=1)
     segsum = _segment_sum_at_ends_nonneg if default_static else _segment_sum_at_ends
     text_total = segsum(scontrib, doc_end)
+    if ub_entry is not None:
+        idx = torch.arange(scontrib.shape[1], device=dev).expand_as(sdocs)
+        end_pos = torch.where(doc_end, idx, torch.full_like(idx, -1))
+        shifted = torch.cat([torch.full_like(end_pos[:, :1], -1), end_pos[:, :-1]], dim=1)
+        n_entries = (idx - torch.cummax(shifted, dim=-1).values).to(torch.float32)
+        text_total = text_total - n_entries * U[:, None] + ub_total[:, None]
     pe = pair_end.to(torch.float32)
     req_present = segsum(pe * (sgroups < MAX_GROUPS).to(torch.float32), doc_end)
     excl_present = segsum(pe * (sgroups == EXCLUDED_GROUP).to(torch.float32), doc_end)
@@ -320,16 +345,22 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+_on = kernels.on_device
+
+
 def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = DEFAULT_K,
-                           default_static: bool = True, soft_required: bool = False):
+                           default_static: bool = True, soft_required: bool = False,
+                           ub_entry=None, ub_total=None):
     """Stage A over a query batch → (docs i32[B, K], scores f32[B, K]),
-    score-descending; pads are doc = num_docs, score = -inf."""
+    score-descending; pads are doc = num_docs, score = -inf. The rows may be
+    q16 or q8; ub_entry f32[B, P] with ub_total f32[B] turn block-max UB
+    scoring on."""
     dev = seg.postings.device
     qs = to_tensors(_batched(qs, QuerySlots), dev)
+    ub_entry, ub_total = _on(ub_entry, dev, torch.float32), _on(ub_total, dev, torch.float32)
     if not seg.postings.is_cuda:
-        return score_candidates_batch_plain(seg, qs, L, K, default_static, soft_required)
-    if seg.postings.shape[1] != 3:
-        raise ValueError("the stage-A kernel reads q16 [Ptot, 3] rows")
+        return score_candidates_batch_plain(seg, qs, L, K, default_static, soft_required,
+                                            ub_entry, ub_total)
     B, P = qs.starts.shape
     T = max(_next_pow2(2 * P * L), _next_pow2(K))
     tkey = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -340,14 +371,20 @@ def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = 
     docs = torch.empty((B, K), dtype=torch.int32, device=dev)
     scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     kernels.stage_a(seg, qs, L, K, T, default_static, soft_required, INV_FACTOR_SCALE,
-                    tkey, tsum, tmask, taux, skey, docs, scores)
+                    tkey, tsum, tmask, taux, skey, docs, scores, ub_entry, ub_total)
     return docs, scores
 
 
 def score_candidates(seg: SegmentArrays, q, L: int = DEFAULT_L, K: int = DEFAULT_K,
-                     default_static: bool = True, soft_required: bool = False):
-    """Single-query stage A: the batch path with B = 1 → (docs[K], scores[K])."""
-    docs, scores = score_candidates_batch(seg, stack([q]), L, K, default_static, soft_required)
+                     default_static: bool = True, soft_required: bool = False,
+                     ub_entry=None, ub_total=None):
+    """Single-query stage A: the batch path with B = 1 → (docs[K], scores[K]);
+    ub_entry f32[P] and ub_total a scalar."""
+    if ub_entry is not None:
+        ub_entry = np.asarray(ub_entry, dtype=np.float32)[None]
+        ub_total = np.asarray(ub_total, dtype=np.float32).reshape(1)
+    docs, scores = score_candidates_batch(seg, stack([q]), L, K, default_static, soft_required,
+                                          ub_entry, ub_total)
     return docs[0], scores[0]
 
 
@@ -536,6 +573,188 @@ def compute_signals_from_factors(seg, q, aggs, factors, cand) -> np.ndarray:
     sq, scale = compute_signals_from_factors_batch_q16(
         seg, stack([q]), stack([aggs]), np.asarray(factors)[None], np.asarray(cand)[None])
     return dequantize_signals(sq, scale)[0]
+
+
+# ---- the device factor join -------------------------------------------------------
+def factors_join_plain(postings, starts, lens, cand):
+    """Plain version of the join (stract_tpu _factors_join_one, batched):
+    packed factors i32[B, P, Kd] of cand i32[B, Kd] by a lockstep binary
+    search of every (slot, candidate) pair over the slot's full doc-ascending
+    range [start, start + len) of the postings; 0 where absent. q8 rows are
+    searched on their decoded doc and give the widened q8 factors."""
+    q8 = postings.shape[1] == 2
+    docs_col = postings[:, 0]
+    dec = (lambda w: (w >> 7) & 0x1FFFFFF) if q8 else (lambda w: w)
+    n = docs_col.shape[0]
+    (B, P), Kd = starts.shape, cand.shape[1]
+    s = starts[..., None].long()
+    e = s + lens[..., None].long()
+    lo, hi = s.expand(B, P, Kd), e.expand(B, P, Kd)
+    c = cand[:, None, :].to(torch.int32)
+    for _ in range(max(int(n - 1).bit_length(), 1)):
+        mid = (lo + hi) >> 1
+        d = dec(docs_col[mid.clamp(max=n - 1)])
+        active = lo < hi
+        right = active & (d < c)
+        lo, hi = torch.where(right, mid + 1, lo), torch.where(active & (d >= c), mid, hi)
+    idx = lo.clamp(max=n - 1)
+    found = (lo < e) & (dec(docs_col[idx]) == c)
+    if q8:
+        w1 = postings[idx, 1]
+        facs = ((((w1 >> 24) & 0xFF) * 257) << 16) | (((w1 >> 16) & 0xFF) * 257)
+    else:
+        facs = postings[idx, 1]
+    return torch.where(found, facs, torch.zeros_like(facs))
+
+
+def factors_join(seg: SegmentArrays, starts, lens, cand) -> torch.Tensor:
+    """Packed factors i32[P, Kd] of candidate docs joined on the device (or
+    i32[B, P, Kd] when the inputs carry a batch dimension): what the host
+    join (index/inverted.py _slot_factors_for) returns, without the host's
+    searches and without the upload."""
+    dev = seg.postings.device
+    starts, lens, cand = (_on(x, dev, torch.int32) for x in (starts, lens, cand))
+    single = cand.dim() == 1
+    if single:
+        starts, lens, cand = starts[None], lens[None], cand[None]
+    if not seg.postings.is_cuda:
+        out = factors_join_plain(seg.postings, starts, lens, cand)
+    else:
+        out = torch.empty((*starts.shape, cand.shape[1]), dtype=torch.int32, device=dev)
+        kernels.factors_join(seg, starts, lens, cand, out)
+    return out[0] if single else out
+
+
+def score_driver_joined_batch_plain(seg, qs, driver_docs, default_static: bool,
+                                    out_k: int | None):
+    factors = factors_join_plain(seg.postings, qs.starts, qs.lens, driver_docs)
+    return _score_driver_core_plain(seg, qs, factors, driver_docs, default_static, out_k)[:2]
+
+
+def score_driver_joined_batch(seg: SegmentArrays, qs, driver_docs, default_static: bool = True,
+                              out_k: int | None = None):
+    """Stage B with the factors joined on the device: no host searches, no
+    factor upload → (docs i32[B, k], scores f32[B, k]). The kernel searches
+    inside the verify and never writes the [B, P, Kd] matrix."""
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    driver_docs = _on(driver_docs, dev, torch.int32)
+    if not seg.postings.is_cuda:
+        return score_driver_joined_batch_plain(seg, qs, driver_docs, default_static, out_k)
+    B, Kd = driver_docs.shape
+    k = min(out_k or Kd, Kd)
+    skey = torch.empty((B, _next_pow2(Kd)), dtype=torch.int32, device=dev)
+    docs = torch.empty((B, k), dtype=torch.int32, device=dev)
+    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    kernels.stage_b_joined(seg, qs, driver_docs, default_static, INV_FACTOR_SCALE, k, skey,
+                           docs, scores)
+    return docs, scores
+
+
+def score_driver_joined(seg, q, driver_docs, default_static: bool = True,
+                        out_k: int | None = None):
+    docs, scores = score_driver_joined_batch(seg, stack([q]), np.asarray(driver_docs)[None],
+                                             default_static, out_k)
+    return docs[0], scores[0]
+
+
+def compute_signals_joined_batch_plain(seg, qs, aggs, cands):
+    factors = factors_join_plain(seg.postings, qs.starts, qs.lens, cands)
+    return _signals_tail_plain(seg, qs, aggs, factors, cands)
+
+
+def _signals_search(seg, qs, aggs, cands, L: int, q16: bool):
+    """Pass 2 that finds its own factors: the device join (L = 0) or the
+    slots' first L rows (K12) → f32[B, 46, K], or (q, scale) when q16."""
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
+    cands = _on(cands, dev, torch.int32)
+    if not seg.postings.is_cuda:
+        sig = (compute_signals_batch_plain(seg, qs, aggs, cands, L) if L
+               else compute_signals_joined_batch_plain(seg, qs, aggs, cands))
+        return quantize_signals(sig) if q16 else sig
+    B, K = cands.shape
+    a = _agg_args(aggs, dev)
+    if q16:
+        sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
+        scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
+        kernels.signals_search(seg, qs, a, cands, INV_FACTOR_SCALE, L, _lookup_steps(L),
+                               out_q=sq, out_scale=scale)
+        return sq, scale
+    sig = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.float32, device=dev)
+    kernels.signals_search(seg, qs, a, cands, INV_FACTOR_SCALE, L, _lookup_steps(L), out_f32=sig)
+    return sig
+
+
+def compute_signals_joined_batch(seg: SegmentArrays, qs, aggs, cands):
+    """Pass 2 with the device join → f32[B, NUM_SIGNALS, K]."""
+    return _signals_search(seg, qs, aggs, cands, 0, False)
+
+
+def compute_signals_joined_batch_q16(seg: SegmentArrays, qs, aggs, cands):
+    """Pass 2 with the device join → (q i16[B, 46, K], scale f32[B, 46])."""
+    return _signals_search(seg, qs, aggs, cands, 0, True)
+
+
+def compute_signals_joined(seg, q, aggs, cand):
+    """Single-query pass 2 with the device join → f32[NUM_SIGNALS, K]."""
+    return compute_signals_joined_batch(seg, stack([q]), stack([aggs]),
+                                        np.asarray(cand)[None])[0]
+
+
+# ---- pass 2 from the slots' prefixes ---------------------------------------------
+def _gather_packed(seg, qs, L: int):
+    """[B, P, L] doc and factor tiles of the slots' first L rows (stract_tpu
+    _gather_packed); entries past min(len, L) hold the pad doc and no factors."""
+    n_rows = seg.postings.shape[0]
+    offs = torch.arange(L, device=seg.postings.device)
+    valid = offs < torch.clamp(qs.lens, max=L)[..., None]
+    idx = torch.clamp(qs.starts.long()[..., None] + offs, 0, n_rows - 1)
+    r_docs, r_factors, _ = _decode_rows(seg.postings[idx])
+    docs = torch.where(valid, r_docs, torch.full_like(r_docs, int(seg.num_docs)))
+    return docs, torch.where(valid, r_factors, torch.zeros_like(r_factors))
+
+
+def _lookup_steps(L: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(L, 2)))) + 1) if L else 0
+
+
+def _slot_factor_lookup(docs_tile, factors_tile, cand, L: int):
+    """Packed factors i32[B, P, K] of cand i32[B, K] in the tiles, 0 if absent:
+    the reference's fixed-step binary search (stract_tpu _slot_factor_lookup),
+    step for step, so rows that are not doc-ascending (a tf-ordered impact
+    slot) give what the reference gives."""
+    B, P, _ = docs_tile.shape
+    K = cand.shape[1]
+    lo = torch.zeros((B, P, K), dtype=torch.int64, device=cand.device)
+    hi = torch.full((B, P, K), L, dtype=torch.int64, device=cand.device)
+    c = cand[:, None, :]
+    for _ in range(_lookup_steps(L)):
+        mid = (lo + hi) // 2
+        mid_vals = torch.gather(docs_tile, 2, mid.clamp(0, L - 1))
+        go_right = mid_vals < c
+        lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right, hi, mid)
+    pos = lo.clamp(0, L - 1)
+    found = torch.gather(docs_tile, 2, pos) == c
+    facs = torch.gather(factors_tile, 2, pos)
+    return torch.where(found, facs, torch.zeros_like(facs))
+
+
+def compute_signals_batch_plain(seg, qs, aggs, cands, L: int):
+    docs_tile, factors_tile = _gather_packed(seg, qs, L)
+    factors = _slot_factor_lookup(docs_tile, factors_tile, cands, L)
+    return _signals_tail_plain(seg, qs, aggs, factors, cands)
+
+
+def compute_signals_batch(seg: SegmentArrays, qs, aggs, cands, L: int = DEFAULT_L):
+    """Pass 2 from the first L rows of each slot only → f32[B, NUM_SIGNALS, K]
+    (the device-only variant; serving uses the exact forms above)."""
+    return _signals_search(seg, qs, aggs, cands, L, False)
+
+
+def compute_signals(seg, q, aggs, cand, L: int = DEFAULT_L):
+    return compute_signals_batch(seg, stack([q]), stack([aggs]), np.asarray(cand)[None], L)[0]
 
 
 # ---- host side ------------------------------------------------------------------

@@ -26,11 +26,12 @@ import torch
 
 from stract_tpu.ops import scoring as OJ
 from stract_tpu_torch.index.device import quantize_rows_q8, segment_arrays_from_numpy
+from stract_tpu_torch.ops import dense_rerank as RT
 from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ops import scoring as OT
 
 from torch_parity import (assert_topk_match, doc_only, driver_candidates, host_factors,
-                          query_batch, rich_fixture)
+                          query_batch, rich_fixture, row_layout_of, ub_inputs)
 
 A_RTOL, A_ATOL = 1e-5, 2e-3
 B_RTOL, B_ATOL = 1e-5, 1e-5
@@ -230,8 +231,10 @@ def test_kernel_arguments_are_checked(monkeypatch):
 
 
 def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
-    """At the launch of K2 and K3, every address in their aggregation
-    struct belongs to a tensor that is still alive. A table made inside the
+    """At the launch of K2 and K3, and of pass 2 with the join or the prefix
+    search inside, every address in their aggregation struct belongs to a
+    tensor that is still alive (tests/test_torch_configs.py holds the other
+    new entry points' arrays to the same). A table made inside the
     struct's builder and dropped before the launch is free memory that
     another thread's allocation may take and write first; the kernel then
     indexed the static columns with that data (the illegal address of
@@ -256,10 +259,15 @@ def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
                      for f in ("bm25", "bm25f", "idf", "cov", "static_of_sig")})
     monkeypatch.setattr(kernels, "signals_q16", lambda seg, q, a, *rest: launch(a))
     monkeypatch.setattr(kernels, "stage_b", lambda seg, q, a, *rest: launch(a))
+    monkeypatch.setattr(kernels, "signals_search", lambda seg, q, a, *rest, **kw: launch(a))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     OT.compute_signals_from_factors_batch_q16(seg_t, qs, aggs, facs, cands)
     OT.score_driver_batch_with_signals(seg_t, qs, facs, cands, aggs, True, 64, 32)
-    assert len(seen) == 2 and all(all(s.values()) for s in seen), seen
+    OT.compute_signals_joined_batch_q16(seg_t, qs, aggs, cands)
+    OT.compute_signals_joined(seg_t, OJ.QuerySlots(*[x[0] for x in qs]),
+                              OJ.QueryAggregates(*[x[0] for x in aggs]), cands[0])
+    OT.compute_signals_batch(seg_t, qs, aggs, cands, L)
+    assert len(seen) == 5 and all(all(s.values()) for s in seen), seen
 
 
 # ---- on the card ----------------------------------------------------------------------
@@ -327,3 +335,92 @@ def test_signals_kernel_matches_plain(fixture):
         torch.as_tensor(facs, device=dev), torch.as_tensor(cands, device=dev))
     torch.testing.assert_close(scl_k, scl_p, rtol=1e-5, atol=1e-35)
     assert (q_k.int() - q_p.int()).abs().max().item() <= 1
+
+
+# ---- on the card: the other configurations' kernels -------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+@pytest.mark.parametrize("ub", [False, True])
+def test_stage_a_q8_ub_kernel_matches_plain(fixture, row_layout, ub):
+    dev = _card()
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, _ = query_batch(rng, seg, starts, dfs, impact)
+    ube, ubt = ub_inputs(rng, qs) if ub else (None, None)
+    seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    n = dict(kernels.LAUNCHES)
+    d_k, s_k = OT.score_candidates_batch(seg_c, qs, L, 128, True, True, ube, ubt)
+    name = "stage_a_ub" if ub else "stage_a_q8" if row_layout == "q8" else "stage_a"
+    assert kernels.LAUNCHES[name] == n[name] + 1
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+    d_p, s_p = OT.score_candidates_batch_plain(seg_c, OT.to_tensors(qs, dev), L, 128, True,
+                                               True, t(ube), t(ubt))
+    for b in range(qs.starts.shape[0]):
+        assert_topk_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(), d_k[b].cpu().numpy(),
+                          s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, 5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+def test_join_kernels_match_plain(fixture, row_layout):
+    """stract_factors_join bit-equal; joined stage B and joined pass 2 against
+    their plain versions (f32 rows rtol 1e-5, q16 rows within one step)."""
+    dev = _card()
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, aggs = query_batch(rng, seg, starts, dfs, impact)
+    qs = doc_only(qs)
+    cands = driver_candidates(rng, seg, qs.starts.shape[0], 512)
+    seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    q_c, a_c = OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev)
+    c_c = torch.as_tensor(cands, device=dev)
+    f_k = OT.factors_join(seg_c, qs.starts, qs.lens, cands)
+    f_p = OT.factors_join_plain(seg_c.postings, q_c.starts, q_c.lens, c_c)
+    assert torch.equal(f_k, f_p) and bool((f_k != 0).any())
+    d_k, s_k = OT.score_driver_joined_batch(seg_c, qs, cands, True, 128)
+    d_p, s_p = OT.score_driver_joined_batch_plain(seg_c, q_c, c_c, True, 128)
+    for b in range(qs.starts.shape[0]):
+        assert_topk_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(), d_k[b].cpu().numpy(),
+                          s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, 1e-5)
+    sig_p = OT.compute_signals_joined_batch_plain(seg_c, q_c, a_c, c_c)
+    sig_k = OT.compute_signals_joined_batch(seg_c, qs, aggs, cands)
+    torch.testing.assert_close(sig_k, sig_p, rtol=1e-5, atol=1e-6)
+    q_k, scl_k = OT.compute_signals_joined_batch_q16(seg_c, qs, aggs, cands)
+    q_p, scl_p = OT.quantize_signals(sig_p)
+    torch.testing.assert_close(scl_k, scl_p, rtol=1e-5, atol=1e-35)
+    assert (q_k.int() - q_p.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+def test_prefix_signals_kernel_matches_plain(fixture, row_layout):
+    dev = _card()
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, aggs = query_batch(rng, seg, starts, dfs, impact)
+    cands = driver_candidates(rng, seg, qs.starts.shape[0], 128)
+    post = np.asarray(seg.postings)
+    for b in range(qs.starts.shape[0]):
+        s, l = int(qs.starts[b, 6]), int(qs.lens[b, 6])
+        cands[b, :40] = post[s: s + min(l, 40), 0]
+    seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    for Lq in (37, 64, L):
+        sig_k = OT.compute_signals_batch(seg_c, qs, aggs, cands, Lq)
+        sig_p = OT.compute_signals_batch_plain(seg_c, OT.to_tensors(qs, dev),
+                                               OT.to_tensors(aggs, dev),
+                                               torch.as_tensor(cands, device=dev), Lq)
+        torch.testing.assert_close(sig_k, sig_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_dense_rerank_kernel_matches_plain(dtype):
+    dev = _card()
+    g = torch.Generator().manual_seed(2)
+    B, K, H, k = 4, 1000, 384, 20
+    emb = torch.nn.functional.normalize(torch.randn((B, K, H), generator=g), dim=2)
+    emb[:, 3] = 0
+    emb = emb.to(dev, dtype)
+    q = torch.randn((B, H), generator=g).to(dev)
+    base = (0.1 * torch.randn((B, K), generator=g)).to(dev)
+    i_k, s_k = RT.rerank_topk_batch(emb, q, base, 1.0, k)
+    i_p, s_p = RT.rerank_topk_batch_plain(emb, q, base, 1.0, k)
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=2e-6)
+    assert (i_k == i_p).float().mean().item() > 0.9

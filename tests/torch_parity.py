@@ -170,6 +170,27 @@ def doc_only(qs):
     return qs._replace(lens=lens)
 
 
+def row_layout_of(seg, row_layout: str):
+    """The fixture's segment with its posting rows in `row_layout`."""
+    from stract_tpu_torch.index.device import quantize_rows_q8
+
+    if row_layout == "q16":
+        return seg
+    return seg._replace(postings=quantize_rows_q8(np.asarray(seg.postings)))
+
+
+def ub_inputs(rng, qs):
+    """Per-slot bounds of the size _augment_with_impact produces: 0 on short
+    and excluded slots, a positive bound on the long ones (the impact slot
+    carries its source slot's bound)."""
+    B, P = qs.starts.shape
+    ub = (rng.random((B, P)) * 2.0).astype(np.float32)
+    ub[(qs.lens < 100) | (qs.group == OJ.EXCLUDED_GROUP)] = 0
+    ub[:, 6] = ub[:, 0]
+    total = ub[:, :6].sum(axis=1).astype(np.float32)
+    return ub, total
+
+
 def assert_topk_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol):
     """Two top-k results of one query agree: the sorted scores match within
     the tolerance, and every doc scored clearly above the cut (the k-th
