@@ -51,7 +51,25 @@ rerank_topk_batch over the corpus's f16 title embeddings and the trained dual
 encoder's query embeddings) are driven once at the main shapes and checked
 against the host join and a numpy rerank; then K1 on q8 rows, K1 with UB,
 K11 (alone, in stage B, in pass 2), K12 and K10 are held against their plain
-versions.
+versions. The merge configuration (merge_kernel: stage A through the P-way
+bitonic merge, K13) is served the same round; its top-10 pages must match
+the same configuration run with the plain versions on the card (how many
+equal the default's is printed, not gated: on the impact slots' tf-ordered
+rows the merge gives other candidates, by design of the reference), and K13
+is held against its plain version at B = 32, P = 64, L = 1024, C = 4096 with
+the network's keys and payloads bit-equal.
+
+Then the MoE training path: a MiniLM-L6 cross encoder at full width with 4
+experts per layer (make_train_state(num_experts=4); the shared trunk
+warm-started from the trained dual encoder), 20 distilled steps at 32 pairs
+x 128 tokens on the smoke's triples, launch counts reset just before and
+read just after: the loss must be finite and fall (mean of the last 5 steps
+under the mean of the first 5), the router (K15a), select-and-scale (K15b),
+loss heads (K15c) and bf16 AdamW (K15d) must be launched by those steps,
+and the same 20 steps through the plain versions on the card must give the
+same loss curve within 5 % per step; one step is timed with kernels and
+with plain versions, and K15a-d are held against their plain versions at
+the step's shapes.
 
 Prints per-kernel times beside the least time the card could take (bytes
 once over 3.35 TB/s or operations over the peak) and the time of a PyTorch
@@ -65,6 +83,7 @@ load. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -99,6 +118,7 @@ CONFIGS = {
     "q8_join": (dict(row_layout="q8", device_join=True),
                 ("stage_a_q8", "stage_b_joined", "signals_joined")),
     "ub": (dict(ub_lambda=0.5), ("stage_a_ub", "stage_b", "signals_q16")),
+    "merge": (dict(merge_kernel=True), ("stage_a_merge", "stage_b", "signals_q16")),
 }
 # device programs that no entry point of either package calls (the JAX package
 # keeps them as library functions): the smoke calls each wrapper once at the main
@@ -114,6 +134,15 @@ TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_b
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 # pipeline-on serving: rounds of the request mix in one process
 SERVE_ON_ROUNDS = 8
+# K13 held against its plain version: slots per query (the index's larger
+# stage-A bucket)
+MERGE_P = 64
+# the MoE training path: experts per layer, distilled steps, pairs per step,
+# the smoke's cross recipe (lr, distillation weight, teacher scale), the
+# steps timed; the kernels the steps must launch
+MOE_E, MOE_STEPS, MOE_B, MOE_LR, MOE_ALPHA, TEACHER_SCALE = 4, 20, 32, 3e-4, 2.0, 5.0
+MOE_TIMED = 3
+MOE_KERNELS = ("moe_router", "moe_select", "loss_heads", "adamw_bf16", "adamw")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 
 # Tolerances, kernel against plain version on the same card:
@@ -148,8 +177,28 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #  K10     scores rtol 1e-6, atol 2e-6 (a 384-term dot product summed by a
 #           warp in another order, times the weight, added to base scores of
 #           ~10); indices compared as sets above the k-th score
+#  K13     the network's keys and payloads bit-equal (a fixed list of
+#           compare-exchanges on bit-equal inputs); scores as stage A (the
+#           plain version's run sums are f32 cumsum differences, the kernel's
+#           direct sums of each run), compared as multisets of (doc, score)
+#           above the C-th score: a doc may stand in several runs
+#  K15a    probabilities rtol 1e-5 (f32 sums over H in another order, expf),
+#           the expert chosen equal where the top two probabilities differ by
+#           more than 1e-5, gate and dx within one bf16 step, the logits'
+#           cotangent rtol 1e-5, atol 1e-6 x max |plain|
+#  K15b    forward and the experts' cotangent bit-equal; the gate's cotangent
+#           (an f32 row sum in another order, rounded to bf16) one bf16 step
+#  K15c    rtol 1e-5 (sums over B in another order, exp and log in another
+#           implementation)
+#  K15d    one bf16 step after 3 steps (every operation rounds to bf16;
+#           Triton's division and square root are not correctly rounded in
+#           f32, which may move a value across a bf16 rounding boundary)
+#  MoE     the 20-step loss curve through the kernels within 5 % per step of
+#           the plain versions': one-step differences within a bf16 step grow
+#           through AdamW, whose first updates are ~lr x sign(g)
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
 P12_TOL, RERANK_TOL = (1e-5, 1e-5), (1e-6, 2e-6)
+MOE_CURVE_RTOL = 0.05
 # top-10 pages of a configuration against the default's, scores within rtol
 # 1e-3: the q16 device join must give all of the default's pages (its stage B is
 # held to the host-joined stage B bit for bit in the kernel phase; the page's
@@ -185,6 +234,11 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "add_layernorm_backward": "rtol 2^-7 atol 2^-7*max|plain|; dw, db rtol 1e-4",
             "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|",
             "adamw": "rtol 1e-6 atol 1e-6*max|plain|",
+            "stage_a_merge": f"network bit-equal; rtol {A_TOL[0]} atol {A_TOL[1]}",
+            "moe_router": "probs rtol 1e-5; gate, dx 1 bf16 step; dlogits rtol 1e-5",
+            "moe_select": "bit-equal; d gate 1 bf16 step",
+            "loss_heads": "rtol 1e-5",
+            "adamw_bf16": "1 bf16 step after 3 steps",
             "hll_merge": "registers bit-equal, sizes rel 1e-6",
             "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal"}
 
@@ -224,6 +278,37 @@ def topk_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol) -> floa
     return err
 
 
+def topk_runs_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol) -> float:
+    """topk_match for results in which a doc may stand several times (stage
+    A under the merge): sorted scores within tolerance, and every entry
+    clearly above the k-th score matched by an entry of the same doc with its
+    score, each used once; → max |score diff|."""
+    import numpy as np
+
+    fa, fb = np.isfinite(scores_a), np.isfinite(scores_b)
+    if fa.sum() != fb.sum():
+        raise AssertionError(f"finite counts differ: {fa.sum()} vs {fb.sum()}")
+    if not ((docs_a[~fa] == num_docs).all() and (docs_b[~fb] == num_docs).all()):
+        raise AssertionError("pad entries must carry the pad doc")
+    sa, sb = np.sort(scores_a[fa])[::-1], np.sort(scores_b[fb])[::-1]
+    err = float(np.max(np.abs(sa - sb))) if len(sa) else 0.0
+    np.testing.assert_allclose(sb, sa, rtol=rtol, atol=atol)
+    cut = sa[-1] + 2 * (abs(sa[-1]) * rtol + atol) if len(sa) and fa.all() else -np.inf
+    left: dict = {}
+    for d, x in zip(docs_b[fb].tolist(), scores_b[fb].tolist()):
+        left.setdefault(d, []).append(x)
+    for d, x in zip(docs_a[fa].tolist(), scores_a[fa].tolist()):
+        if x <= cut:
+            continue
+        near = [y for y in left.get(d, []) if abs(y - x) <= atol + rtol * abs(x)]
+        if not near:
+            raise AssertionError(f"doc {d} (score {x}) missing")
+        best = min(near, key=lambda y: abs(y - x))
+        left[d].remove(best)
+        err = max(err, abs(best - x))
+    return err
+
+
 def time_ms(fn, iters: int = 10) -> float:
     import torch
 
@@ -258,6 +343,21 @@ def search_rows(lens, n: int, steps=None, cap=None) -> int:
     return int(np.minimum(rows, held).sum())
 
 
+def pad_slots(q, P: int):
+    """Query slots padded with empty optional slots to P."""
+    import numpy as np
+
+    from stract_tpu_torch.ops import scoring as O
+
+    n = q.starts.shape[0]
+    if n > P:
+        raise ValueError(f"{n} slots do not fit {P}")
+    return q._replace(**{f: np.pad(getattr(q, f), (0, P - n),
+                                   constant_values=O.OPTIONAL_GROUP if f == "group" else 0)
+                         for f in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f",
+                                   "w_presence")})
+
+
 def compacted_slots(slots: list) -> tuple:
     """Stage B's view of sampled queries: each (slots, aggregates) pair
     compacted (empty slots dropped) and padded to the batch's one slot count
@@ -265,14 +365,10 @@ def compacted_slots(slots: list) -> tuple:
     import numpy as np
 
     from stract_tpu_torch.index.inverted import InvertedIndex
-    from stract_tpu_torch.ops import scoring as O
 
     comp = [InvertedIndex._compact_slots(q, a, min_p=16) for q, a in slots]
     Pc = max(q.starts.shape[0] for q, _ in comp)
-    return [(q._replace(**{f: np.pad(getattr(q, f), (0, Pc - q.starts.shape[0]),
-                                     constant_values=O.OPTIONAL_GROUP if f == "group" else 0)
-                           for f in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f",
-                                     "w_presence")}),
+    return [(pad_slots(q, Pc),
              a._replace(**{f: np.pad(getattr(a, f), ((0, 0), (0, Pc - q.starts.shape[0])))
                            for f in a._fields})) for q, a in comp], Pc
 
@@ -417,21 +513,29 @@ def plain_versions():
     """Route the device programs to their plain PyTorch versions on the same
     card (the reference run of the comparisons): K1-K3 in ops/scoring.py, K4
     in ops/forest.py, K5a-d and their gradients K14a-c in ops/encoder.py (the
-    dispatchers the autograd Functions call), K14d in optim.py, K6a-b in
-    ops/hll_ops.py and K7 in webgraph/shortest_path.py (over the edges of
-    the reverse CSR the kernels take)."""
+    dispatchers the autograd Functions call), K14d and K15d in optim.py,
+    K15a-b in ops/moe.py, K15c in ops/losses.py, K6a-b in ops/hll_ops.py and
+    K7 in webgraph/shortest_path.py (over the edges of the reverse CSR the
+    kernels take). Stage A keeps its configuration's arguments (UB bounds,
+    the merge)."""
     import torch
 
     from stract_tpu_torch import optim
     from stract_tpu_torch.ops import encoder as E
     from stract_tpu_torch.ops import forest as FO
     from stract_tpu_torch.ops import hll_ops as HO
+    from stract_tpu_torch.ops import losses as LO
+    from stract_tpu_torch.ops import moe as MO
     from stract_tpu_torch.ops import scoring as O
     from stract_tpu_torch.webgraph import shortest_path as SP
 
-    def stage_a(seg, qs, L, K, ds, soft_required=False):
-        qs = O.to_tensors(O._batched(qs, O.QuerySlots), seg.postings.device)
-        return O.score_candidates_batch_plain(seg, qs, L, K, ds, soft_required)
+    def stage_a(seg, qs, L, K, ds, soft_required=False, ub_entry=None, ub_total=None,
+                merge=False):
+        dev = seg.postings.device
+        qs = O.to_tensors(O._batched(qs, O.QuerySlots), dev)
+        return O.score_candidates_batch_plain(seg, qs, L, K, ds, soft_required,
+                                              O._on(ub_entry, dev, torch.float32),
+                                              O._on(ub_total, dev, torch.float32), merge)
 
     def stage_b(seg, qs, f, d, aggs, ds, out_k, sig_k):
         dev = seg.postings.device
@@ -476,6 +580,13 @@ def plain_versions():
              (E, "bias_gelu_backward", E.bias_gelu_backward_plain),
              (E, "mean_pool_backward", E.mean_pool_backward_plain),
              (optim, "adamw_update", optim.adamw_update_plain),
+             (optim, "adamw_bf16_update", optim.adamw_bf16_update_plain),
+             (MO, "router_forward", MO.router_plain),
+             (MO, "router_backward", MO.router_backward_plain),
+             (MO, "select_scale_forward", MO.select_scale_plain),
+             (MO, "select_scale_backward", MO.select_scale_backward_plain),
+             (LO, "pair_loss_forward", LO.pair_loss_plain),
+             (LO, "info_nce_forward", LO.info_nce_plain),
              (HO, "merge_csr", hll_merge), (HO, "estimate_sizes", HO.estimate_sizes_plain),
              (SP, "relax", bfs_relax)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -671,7 +782,8 @@ def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
     round of the request mix over HTTP (pipeline off) with the host join
     timed, its top-10 pages compared with the default configuration's, and
     freed before the next. The q16 device join must give all of the default's
-    top-10s. → {name: record}."""
+    top-10s; the merge's top-10s must match its own plain versions'. →
+    {name: record}."""
     import torch
 
     from stract_tpu_torch.main import build_searcher
@@ -702,6 +814,10 @@ def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
         if name == "join" and same != len(pages):
             raise AssertionError(f"q16 device join: only {same} of {len(pages)} top-10 pages "
                                  "equal the default configuration's")
+        if name == "merge":  # its pages against the same configuration's plain versions
+            rec["vs_plain"] = compare_phase(searcher)
+            log(f"[config merge] top-10 kernels vs plain versions: {json.dumps(rec['vs_plain'])} "
+                f"card={card}")
         out[name] = rec
         del searcher, index, rows
         torch.cuda.empty_cache()
@@ -716,7 +832,11 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     B's top RERANK_K docs with the trained dual encoder's query embeddings
     (held to a numpy rerank). Then K1 on q8 rows, K1 with UB, K11 alone and
     inside stage B and pass 2, K12 and K10 against their plain versions on
-    the same slots. → (rows as kernel_phase's, launches of the driven calls)."""
+    the same slots; then K13 at P = MERGE_P: the network's keys and payloads
+    bit-equal to the plain merge's, the candidates at stage A's tolerance,
+    and torch.sort of the keys with a gather of the payloads timed beside it.
+    → (rows as kernel_phase's, launches of the driven calls, {kernel: the
+    library call's ms})."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -890,7 +1010,41 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
         "bkh,bh->bk", F.normalize(e32, dim=2, eps=1e-6), q_emb), RERANK_TOP))
     log(f"[config kernels] K10 beside three PyTorch calls (normalize, einsum, topk; not one "
         f"call, so no library_ms): {lib:.3f} ms")
-    return rows, launches
+
+    # ---- K13: stage A through the merge network -----------------------------------
+    qm = O.to_tensors(O.stack([pad_slots(InvertedIndex._augment_with_impact(seg, dev, q)[0],
+                                         MERGE_P) for q, _ in slots]), DEVICE)
+    N = MERGE_P * L
+    kk, ck, ak = O.stage_a_network(dev.arrays, qm, L)
+    keys, contrib, aux, _ = O._stage_a_entries(dev.arrays, qm, L)
+    kp, (cp, ap) = O.merge_sorted_tiles_plain(keys, contrib, aux)
+    if not (torch.equal(kk, kp) and torch.equal(ak, ap)
+            and torch.equal(ck.view(torch.int32), cp.view(torch.int32))):
+        raise AssertionError("the merge network's keys or payloads differ from the plain merge")
+    ascending = int((kk[:, 1:] >= kk[:, :-1]).all(dim=1).sum())
+    run_k = lambda: O.score_candidates_batch(dev.arrays, qm, L, C, True, True, merge=True)  # noqa
+    run_p = lambda: O.score_candidates_batch_plain(dev.arrays, qm, L, C, True, True,  # noqa
+                                                   merge=True)
+    (d_k, s_k), (d_p, s_p) = ([x.cpu().numpy() for x in r()] for r in (run_k, run_p))
+    err = max(topk_runs_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
+    if not np.isfinite(s_k).any():
+        raise AssertionError("the merge found no candidates")
+    stages = sum(int(np.log2(2 * L * 2 ** r)) for r in range(int(np.log2(MERGE_P))))
+    scanned_m = int(qm.lens.clamp(max=L).sum())
+    add("stage_a_merge", err, run_k, run_p, (MERGE_P, L, C),
+        12 * scanned_m + sum(x.numel() * 4 for x in qm) + 8 * B * C,
+        B * (N // 2 * stages + 10 * N))
+    kf, cf, af = (x.reshape(B, -1) for x in (keys, contrib, aux))
+
+    def sort_gather():
+        sk, perm = torch.sort(kf, dim=-1)
+        return sk, cf.gather(1, perm), af.gather(1, perm)
+    lib_ms = {"stage_a_merge": time_ms(sort_gather)}
+    log(f"[config kernels] K13 at B={B} P={MERGE_P} L={L} C={C}: network bit-equal to the "
+        f"plain merge; {ascending} of {B} queries' merged keys ascending (the others hold "
+        f"tf-ordered impact slots); torch.sort + gather {lib_ms['stage_a_merge']:.3f} ms "
+        f"(the same function only where every row ascends)")
+    return rows, launches, lib_ms
 
 
 def train_phase(index_dir: str, out_dir: str, tok) -> dict:
@@ -1167,6 +1321,205 @@ def train_step_timing(tok, steps: int = 5) -> dict:
     return {k: min(v) for k, v in res.items()}
 
 
+def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
+    """The MoE training path on the card: a MiniLM-L6 cross encoder (full
+    width, the 30,522-piece vocab, mean readout) from
+    make_train_state(num_experts=MOE_E), its shared trunk (embeddings,
+    attention, LayerNorms) warm-started from the trained dual encoder as the
+    smoke's cross recipe does, trained MOE_STEPS distilled steps of MOE_B
+    pairs x TRAIN_T tokens from the smoke's triples with the dual teacher's
+    scaled cosines as targets; launch counts reset just before and read just
+    after. The same steps through the plain versions from the same start;
+    one step timed in turns; K15a-d held against their plain versions at the
+    step's shapes. → {"record", "rows" (as kernel_phase's), "launches",
+    "library"}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch import optim
+    from stract_tpu_torch.entrypoint.train_encoders import synthesize_triples
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.models.store import load_encoder
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import losses as LO
+    from stract_tpu_torch.ops import moe as MO
+    from stract_tpu_torch.parallel.train import distill_loss, make_train_state, train_step
+
+    t0 = time.perf_counter()
+    triples = synthesize_triples(index_dir, 4096, seed=SEED)
+    teacher = DualEncoder.load(dual_dir, device=DEVICE)
+    tok = teacher.tokenizer
+    rng = np.random.default_rng(SEED + 8)
+    picks = [rng.integers(0, len(triples), MOE_B) for _ in range(MOE_STEPS)]
+    used = sorted({int(j) for p in picks for j in p})
+    qe, pe, ne = (np.asarray(teacher.embed([triples[j][i] for j in used])) for i in range(3))
+    target = dict(zip(used, zip(TEACHER_SCALE * (qe * pe).sum(1), TEACHER_SCALE * (qe * ne).sum(1))))
+    del teacher
+    feeds = []
+    for pick in picks:
+        p = tok.encode_batch([(triples[j][0], triples[j][1]) for j in pick], TRAIN_T)
+        n = tok.encode_batch([(triples[j][0], triples[j][2]) for j in pick], TRAIN_T)
+        feed = {k: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for k, a in zip(
+            ("pos_ids", "pos_mask", "pos_types", "neg_ids", "neg_mask", "neg_types"), (*p, *n))}
+        for i, k in enumerate(("t_pos", "t_neg")):
+            feed[k] = torch.tensor([target[int(j)][i] for j in pick], dtype=torch.float32,
+                                   device=DEVICE)
+        feeds.append(feed)
+    d_cfg, masters, _, _ = load_encoder(dual_dir, "dual")
+    cfg = dataclasses.replace(d_cfg, score_pool="mean")  # MiniLM-L6, the smoke's vocab
+    trunk = {k: v for k, v in masters.items() if k.startswith("bert.")}
+
+    def fresh():
+        model, opt = make_train_state(cfg, MOE_LR, seed=SEED, num_experts=MOE_E, device=DEVICE)
+        with torch.no_grad():  # into the optimizer's flat buffers, in place
+            for name, prm in model.named_parameters():
+                if name in trunk:
+                    prm.copy_(trunk[name].to(prm.dtype))
+        return model, opt
+
+    def run():
+        model, opt = fresh()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses = [float(train_step(model, opt, f, distill_loss, alpha=MOE_ALPHA)) for f in feeds]
+        torch.cuda.synchronize()
+        return losses, dict(kernels.LAUNCHES), model, opt
+
+    losses_k, launches, model, opt = run()
+    with plain_versions():
+        losses_p, _, m_plain, _ = run()
+    del m_plain
+    if not np.isfinite(losses_k).all():
+        raise AssertionError(f"the MoE steps gave a non-finite loss: {losses_k}")
+    first, last = float(np.mean(losses_k[:5])), float(np.mean(losses_k[-5:]))
+    if not last < first:
+        raise AssertionError(f"the MoE loss did not fall: first 5 {first}, last 5 {last}")
+    if any(launches[k] == 0 for k in MOE_KERNELS):
+        raise AssertionError(f"a kernel was not launched by the MoE steps: {launches}")
+    curve = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    if curve > MOE_CURVE_RTOL:
+        raise AssertionError(f"MoE loss curves differ by {curve:.3g} relative: {losses_k} vs "
+                             f"{losses_p}")
+    n_expert = sum(p.numel() for p in model.parameters() if p.dtype == torch.bfloat16)
+
+    def timed():
+        train_step(model, opt, feeds[0], distill_loss, alpha=MOE_ALPHA)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for f in feeds[1:1 + MOE_TIMED]:
+            train_step(model, opt, f, distill_loss, alpha=MOE_ALPHA)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / MOE_TIMED
+    step_ms = {"kernels": [], "plain": []}
+    for kind in ("plain", "kernels", "kernels", "plain"):
+        with plain_versions() if kind == "plain" else contextlib.nullcontext():
+            step_ms[kind].append(timed())
+    step_ms = {k: min(v) for k, v in step_ms.items()}
+
+    # K15a-d against their plain versions at the step's shapes
+    rows, library = [], {}
+    g = torch.Generator().manual_seed(SEED + 9)
+    N, H = MOE_B * TRAIN_T, cfg.hidden_size
+    x = torch.randn((N, H), generator=g).to(DEVICE, torch.bfloat16)
+    moe0 = model.bert.layer_0.moe
+    w, b = moe0.router.weight.detach().contiguous(), moe0.router.bias.detach().contiguous()
+    pk, tk, gk = MO.router_forward(x, w, b)
+    pp, tp, gp = MO.router_plain(x, w, b)
+    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-7)
+    top2 = pp.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    if not torch.equal(tk[clear], tp[clear]):
+        raise AssertionError("the router kernel chose other experts")
+    err = _step_close(gk, gp)
+    dgate = torch.randn(N, generator=g).to(DEVICE, torch.bfloat16)
+    (dlk, dxk), (dlp, dxp) = (MO.router_backward(pp, tp, dgate, w),
+                              MO.router_backward_plain(pp, tp, dgate, w))
+    torch.testing.assert_close(dlk, dlp, rtol=1e-5, atol=1e-6 * float(dlp.abs().max()))
+    err = max(err, float((pk - pp).abs().max()), _step_close(dxk, dxp),
+              float((dlk - dlp).abs().max()))
+    Ex = MOE_E
+    rows.append(("moe_router", True, err,
+                 time_ms(lambda: (MO.router_forward(x, w, b), MO.router_backward(pp, tp, dgate, w))),
+                 time_ms(lambda: (MO.router_plain(x, w, b),
+                                  MO.router_backward_plain(pp, tp, dgate, w))),
+                 (N, H, Ex),
+                 2 * N * H + 4 * (Ex * H + Ex) + 4 * N * Ex + 4 * N + 2 * N  # forward
+                 + 4 * N * Ex + 4 * N + 2 * N + 4 * Ex * H + 4 * N * Ex + 2 * N * H,  # backward
+                 4 * N * H * Ex + 30 * N * Ex))
+    out_e = torch.randn((Ex, N, H), generator=g).to(DEVICE, torch.bfloat16)
+    gr = torch.randn((N, H), generator=g).to(DEVICE, torch.bfloat16)
+    if not torch.equal(MO.select_scale_forward(out_e, tk, gk), MO.select_scale_plain(out_e, tk, gk)):
+        raise AssertionError("select-and-scale differs from its plain version")
+    (dk, dgk), (dp, dgp) = (MO.select_scale_backward(out_e, tk, gk, gr),
+                            MO.select_scale_backward_plain(out_e, tk, gk, gr))
+    if not torch.equal(dk, dp):
+        raise AssertionError("the experts' cotangent differs from the plain version's")
+    rows.append(("moe_select", True, _step_close(dgk, dgp),
+                 time_ms(lambda: (MO.select_scale_forward(out_e, tk, gk),
+                                  MO.select_scale_backward(out_e, tk, gk, gr))),
+                 time_ms(lambda: (MO.select_scale_plain(out_e, tk, gk),
+                                  MO.select_scale_backward_plain(out_e, tk, gk, gr))),
+                 (Ex, N, H),
+                 (2 * N * H + 6 * N + 2 * N * H)  # forward: the chosen rows, top, gate
+                 + (4 * N * H + 6 * N + 2 * Ex * N * H + 2 * N),  # backward
+                 N * H + 2 * N * H))
+    sp_, sn_, tp_, tn_ = (torch.randn(MOE_B, generator=g).to(DEVICE) for _ in range(4))
+    pair = (sp_, sn_, tp_, tn_, MOE_ALPHA)
+    err = 0.0
+    for a, c in zip(LO.pair_loss_forward(*pair), LO.pair_loss_plain(*pair)):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
+        err = max(err, float((a - c).abs().max()))
+    logits = 20.0 * torch.randn((TRAIN_B, TRAIN_B), generator=g).to(DEVICE)
+    for a, c in zip(LO.info_nce_forward(logits), LO.info_nce_plain(logits)):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
+        err = max(err, float((a - c).abs().max()))
+    labels = torch.arange(TRAIN_B, device=DEVICE)
+    library["loss_heads"] = time_ms(lambda: F.cross_entropy(logits, labels))
+    rows.append(("loss_heads", True, err, time_ms(lambda: LO.info_nce_forward(logits)),
+                 time_ms(lambda: LO.info_nce_plain(logits)), TRAIN_B,
+                 4 * TRAIN_B * TRAIN_B * 2 + 4, 8 * TRAIN_B * TRAIN_B))
+    pair_ms = time_ms(lambda: LO.pair_loss_forward(*pair))
+    grp = opt.groups[torch.bfloat16]
+    p0 = grp.flat.detach().clone()
+    grads = [(0.01 * torch.randn(p0.numel(), generator=g)).to(DEVICE, torch.bfloat16)
+             for _ in range(3)]
+
+    def adamw(update):
+        p, mo, ve = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+        for i, gg in enumerate(grads, 1):
+            update(p, gg, mo, ve, MOE_LR, 0.9, 0.999, 1e-8, 1e-4, 1 - 0.9 ** i, 1 - 0.999 ** i)
+        return p, mo, ve
+    err = 0.0
+    for a, c in zip(adamw(optim.adamw_bf16_update), adamw(optim.adamw_bf16_update_plain)):
+        torch.testing.assert_close(a.float(), c.float(), rtol=STEP, atol=1e-12)
+        err = max(err, float((a.float() - c.float()).abs().max()))
+    state = (p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0))
+    step_args = (MOE_LR, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
+    rows.append(("adamw_bf16", True, err,
+                 time_ms(lambda: optim.adamw_bf16_update(state[0], grads[0], *state[1:],
+                                                         *step_args)),
+                 time_ms(lambda: optim.adamw_bf16_update_plain(state[0], grads[0], *state[1:],
+                                                               *step_args)),
+                 n_expert, 14 * n_expert, 25 * n_expert))
+    steps_t = torch.ones((), device=DEVICE)
+    library["adamw_bf16"] = time_ms(lambda: torch._fused_adamw_(
+        [state[0]], [grads[0]], [state[1]], [state[2]], [], [steps_t], lr=MOE_LR, beta1=0.9,
+        beta2=0.999, weight_decay=1e-4, eps=1e-8, amsgrad=False, maximize=False))
+    rec = {"steps": MOE_STEPS, "pairs": MOE_B, "tokens": TRAIN_T, "experts": MOE_E,
+           "expert_params": n_expert, "loss_first5": first, "loss_last5": last,
+           "loss_kernels": losses_k, "loss_plain": losses_p, "curve_max_rel_diff": curve,
+           "step_ms_kernels": step_ms["kernels"], "step_ms_plain": step_ms["plain"],
+           "pair_head_ms": pair_ms, "seconds": time.perf_counter() - t0,
+           "launches": {k: launches[k] for k in MOE_KERNELS}}
+    log(f"[moe] {json.dumps(rec)} card={card}")
+    log(f"[moe] K15c beside F.cross_entropy (the value only), K15d beside "
+        f"torch._fused_adamw_ on the bf16 tensors (f32 math inside, one rounding per "
+        f"tensor write: it rounds differently from optax's bf16 steps) card={card}")
+    del model, opt
+    return {"record": rec, "rows": rows, "launches": launches, "library": library}
+
+
 def centrality_phase(data_dir: str) -> dict:
     """The webgraph centrality job: the benchmark graph (1M nodes, 20M
     Pareto edges, seed 0) written to disk, then `main.py centrality
@@ -1375,14 +1728,15 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card, config_launches) -> list:
+                   card, config_launches, moe_launches) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
     path, named under "path" (training for the training kernels and the pool,
     the centrality jobs for the graph kernels, its configuration's HTTP round
     for the configurations' kernels, one direct call for the DIRECT three,
-    the pipeline-on traffic for the rest). Each measured row is logged too."""
+    the MoE steps for K15a-d, the pipeline-on traffic for the rest). Each
+    measured row is logged too."""
     all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
                 for name, ds, err, ms, pms, shape, nb, ops in rows]
     all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
@@ -1421,7 +1775,16 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "hll_merge": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:50", None),
             "hll_estimate": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:64", None),
             "bfs_relax": ("cuda", src + "graph.cu", "stract_tpu/webgraph/shortest_path.py:21",
-                          (GRAPH_NODES, GRAPH_SAMPLES))}
+                          (GRAPH_NODES, GRAPH_SAMPLES)),
+            "stage_a_merge": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:286",
+                              (MERGE_P, L, C)),
+            "moe_router": ("cuda", src + "moe.cu", "stract_tpu/models/bert.py:124", None),
+            "moe_select": ("triton", "stract_tpu_torch/ops/moe.py",
+                           "stract_tpu/models/bert.py:151", None),
+            "loss_heads": ("triton", "stract_tpu_torch/ops/losses.py",
+                           "stract_tpu/entrypoint/train_encoders.py:249", None),
+            "adamw_bf16": ("triton", "stract_tpu_torch/optim.py",
+                           "stract_tpu/parallel/train.py:36", None)}
     out = []
     for name, (route, source, replaces, main_shape) in meta.items():
         mine = [r for r in all_rows if r[0] == name]
@@ -1429,6 +1792,8 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             None, r[4], r[4][:2] if isinstance(r[4], tuple) else None))
         if name in DIRECT:
             launches, path = config_launches[name], "direct call: no entry point reaches it"
+        elif name in MOE_KERNELS[:4]:
+            launches, path = moe_launches[name], "training: the MoE cross encoder's steps"
         elif name in config_launches:
             launches, path = config_launches[name], "http, pipeline off, its configuration"
         elif name in TRAINING[3:]:
@@ -1570,15 +1935,28 @@ def main() -> int:
             f"{rec['top10_equal_default']}/{rec['compared']} card={card}")
     t_cfg = time.perf_counter() - t
     t = time.perf_counter()
-    rows_c, ops_launches = config_kernel_phase(index_dir, models["dual"])
+    rows_c, ops_launches, lib_c = config_kernel_phase(index_dir, models["dual"])
     torch.cuda.empty_cache()
     config_launches = {"stage_a_q8": configs["q8"]["launches"]["stage_a_q8"],
                        "stage_a_ub": configs["ub"]["launches"]["stage_a_ub"],
                        "stage_b_joined": configs["join"]["launches"]["stage_b_joined"],
                        "signals_joined": configs["join"]["launches"]["signals_joined"],
+                       "stage_a_merge": configs["merge"]["launches"]["stage_a_merge"],
                        **ops_launches}
-    log(f"[configs] four configurations served in {t_cfg:.1f}s, their kernels held against "
-        f"the plain versions in {time.perf_counter() - t:.1f}s")
+    log(f"[configs] {len(CONFIGS)} configurations served in {t_cfg:.1f}s, their kernels held "
+        f"against the plain versions in {time.perf_counter() - t:.1f}s")
+
+    # ---- the MoE training path: K15a-d ------------------------------------------------
+    moe = moe_phase(index_dir, models["dual"], card)
+    torch.cuda.empty_cache()
+    rec = moe["record"]
+    log(f"[result moe] experts={MOE_E} steps={MOE_STEPS} pairs={MOE_B} tokens={TRAIN_T} "
+        f"loss_first5={rec['loss_first5']:.4f} loss_last5={rec['loss_last5']:.4f} "
+        f"curve_max_rel_diff_vs_plain={rec['curve_max_rel_diff']:.3g} step_ms_kernels="
+        f"{rec['step_ms_kernels']:.2f} step_ms_plain={rec['step_ms_plain']:.2f} "
+        f"seconds={rec['seconds']:.1f} card={card}")
+    library.update(lib_c)
+    library.update(moe["library"])
 
     # ---- the webgraph centrality job: K6a-b, K7 --------------------------------------
     cent = centrality_phase(os.path.join(data_dir, "centrality"))
@@ -1589,8 +1967,9 @@ def main() -> int:
         f"bfs_rounds={cent['jobs']['approx-harmonic']['timings']['n_rounds']} "
         f"total_s={time.perf_counter() - t_start:.1f} card={card}")
 
-    kernels_out = kernel_records(rows + rows_c, rows_m, cent, library, served["launches"],
-                                 models["launches"], forest, card, config_launches)
+    kernels_out = kernel_records(rows + rows_c + moe["rows"], rows_m, cent, library,
+                                 served["launches"], models["launches"], forest, card,
+                                 config_launches, moe["launches"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,6 +54,27 @@
 //     reference's fixed-step search over the [P, L] tile (_slot_factor_lookup
 //     :450), step for step, so a tf-ordered impact slot gives the
 //     reference's answer too.
+// K13 stract_stage_a_merge replaces stage A under the reference's merge switch
+//     (merge_sorted_tiles :286-312 with _bitonic_stages :260-283, fed by
+//     _join_topk :345-366 from the [P, L] tiles of score_candidates_batch
+//     :807): the P-way bitonic merge of the tiles, then the run-end tail of
+//     _join_topk (:369-410) over the merged order. The network is a fixed
+//     list of compare-exchanges (swap where the first key is greater; equal
+//     keys never swap), so its output, payloads included, is a function of
+//     its input alone, and the kernel follows it stage for stage: keys and
+//     payloads come out bit-equal to the reference's, sorted or not (rows of
+//     a tf-ordered impact slot are not ascending, and then neither is the
+//     output). A query's P*L entries (65,536 x 12 B at the main shape) do not
+//     fit one SM's shared memory, so stages whose compare distance fits a
+//     MERGE_TILE-entry tile run inside a block (the first kernel also fetches
+//     the posting rows and runs every round that fits a tile), and the longer
+//     strides run as passes over global memory, one launch per stage. The
+//     tail is one block per query: each thread walks a contiguous chunk of the
+//     merged order, a segmented block scan carries each run's open sums across
+//     chunks, every run end gets its score, and K1's radix select and bitonic
+//     sort take the top C. Bound by the global passes over the B*P*L*12 B of
+//     network state (about 11 launches at P = 64, L = 1024); a cluster with
+//     distributed shared memory would keep more stages on chip.
 // K10 stract_dense_rerank replaces rerank_topk[_batch] (ops/dense_rerank.py:18,
 //     :31): one block per query, a warp per candidate row (dot product and
 //     norm in one pass over the f16/bf16/f32 row), then the block's bitonic
@@ -89,6 +110,10 @@ constexpr int CNT_SHIFT = 40;
 // keep per block in static shared memory
 constexpr int MAX_NSIG = 64;
 constexpr int MAX_H = 1024;
+// K13: entries per shared-memory tile of the merge network (12 B each:
+// key, contribution, aux word), and the tail block's thread count
+constexpr int MERGE_TILE = 8192;
+constexpr int MERGE_THREADS = 1024;
 
 }  // namespace
 
@@ -428,14 +453,76 @@ __global__ void stage_a_insert(const int* __restrict__ postings, long long n_row
   taux[slot] = aux;  // the aux word is a function of the doc: every writer agrees
 }
 
+// the K largest of a block's T ordered keys (0 = empty) into sk / si,
+// descending, key ties in no set order: a 4 x 8-bit radix select of the K-th
+// largest key, every key above it and enough ties, then the block's bitonic
+// sort of those S (a power of two >= K). Called by the whole block after the
+// keys are written and the block synchronised.
+__device__ void top_keys(const unsigned* keys, int T, int K, int S, unsigned* sk,
+                         int* si) {
+  __shared__ unsigned hist[256];
+  __shared__ unsigned sh_prefix, sh_krem, cnt_hi, cnt_tie;
+  unsigned prefix = 0, mask = 0, krem = (unsigned)K;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < T; i += blockDim.x) {
+      const unsigned k = keys[i];
+      if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned cum = 0;
+      int d = 255;
+      for (; d > 0; --d) {
+        if (cum + hist[d] >= krem) break;
+        cum += hist[d];
+      }
+      sh_prefix = prefix | ((unsigned)d << shift);
+      sh_krem = krem - cum;
+    }
+    __syncthreads();
+    prefix = sh_prefix;
+    krem = sh_krem;
+    mask |= 255u << shift;
+    __syncthreads();
+  }
+
+  // gather the K winners: every key above the threshold, then krem ties
+  if (threadIdx.x == 0) {
+    cnt_hi = 0;
+    cnt_tie = 0;
+  }
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    sk[i] = 0;
+    si[i] = -1;
+  }
+  __syncthreads();
+  const unsigned n_hi = (unsigned)K - krem;
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    const unsigned k = keys[i];
+    if (k > prefix) {
+      const unsigned pos = atomicAdd(&cnt_hi, 1u);
+      sk[pos] = k;
+      si[pos] = i;
+    } else if (k == prefix) {
+      const unsigned t = atomicAdd(&cnt_tie, 1u);
+      if (t < krem) {
+        sk[n_hi + t] = k;
+        si[n_hi + t] = i;
+      }
+    }
+  }
+  __syncthreads();
+  bitonic_desc(sk, si, S);
+}
+
 __global__ void __launch_bounds__(1024) stage_a_select(
     const int* __restrict__ tkey, const float* __restrict__ tsum,
     const unsigned long long* __restrict__ tmask, const int* __restrict__ taux,
     unsigned* __restrict__ skey, int T, SegArgs s, QueryArgs q,
     const float* __restrict__ ub_entry, const float* __restrict__ ub_total, int default_static,
     int soft_required, int K, int S, int* out_docs, float* out_scores) {
-  __shared__ unsigned hist[256];
-  __shared__ unsigned sh_prefix, sh_krem, cnt_hi, cnt_tie;
   __shared__ unsigned sk[MAX_SORT];
   __shared__ int si[MAX_SORT];
   __shared__ float sh_U;
@@ -475,65 +562,314 @@ __global__ void __launch_bounds__(1024) stage_a_select(
   }
   __syncthreads();
 
-  // radix select of the K-th largest key, 8 bits per round, MSB first
-  unsigned prefix = 0, mask = 0, krem = (unsigned)K;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < T; i += blockDim.x) {
-      const unsigned k = skey[base + i];
-      if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned cum = 0;
-      int d = 255;
-      for (; d > 0; --d) {
-        if (cum + hist[d] >= krem) break;
-        cum += hist[d];
-      }
-      sh_prefix = prefix | ((unsigned)d << shift);
-      sh_krem = krem - cum;
-    }
-    __syncthreads();
-    prefix = sh_prefix;
-    krem = sh_krem;
-    mask |= 255u << shift;
-    __syncthreads();
-  }
-
-  // gather the K winners: every key above the threshold, then krem ties
-  if (threadIdx.x == 0) {
-    cnt_hi = 0;
-    cnt_tie = 0;
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    sk[i] = 0;
-    si[i] = -1;
-  }
-  __syncthreads();
-  const unsigned n_hi = (unsigned)K - krem;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const unsigned k = skey[base + i];
-    if (k > prefix) {
-      const unsigned pos = atomicAdd(&cnt_hi, 1u);
-      sk[pos] = k;
-      si[pos] = i;
-    } else if (k == prefix) {
-      const unsigned t = atomicAdd(&cnt_tie, 1u);
-      if (t < krem) {
-        sk[n_hi + t] = k;
-        si[n_hi + t] = i;
-      }
-    }
-  }
-  __syncthreads();
-  bitonic_desc(sk, si, S);
+  top_keys(skey + base, T, K, S, sk, si);
   for (int j = threadIdx.x; j < K; j += blockDim.x) {
     const unsigned k = sk[j];
     const bool ok = k != 0;
     out_docs[(long long)b * K + j] = ok ? tkey[base + si[j]] : s.num_docs;
     out_scores[(long long)b * K + j] = ok ? key_value(k) : -INFINITY;
+  }
+}
+
+// ---- K13 ----------------------------------------------------------------------
+// The network state of a query is three [N] rows (N = P*L): keys, the
+// contributions and, when the static score reads them, the aux words (aux
+// null: not carried). Pointers are generic, so the same steps run on a
+// shared-memory tile and on global memory.
+
+// one compare-exchange: swap where the first key is greater
+__device__ __forceinline__ void merge_cx(int* k, float* c, int* a, long long i, long long j) {
+  const int ki = k[i], kj = k[j];
+  if (ki > kj) {
+    k[i] = kj;
+    k[j] = ki;
+    const float t = c[i];
+    c[i] = c[j];
+    c[j] = t;
+    if (a != nullptr) {
+      const int u = a[i];
+      a[i] = a[j];
+      a[j] = u;
+    }
+  }
+}
+
+// the first stage of a round on the two h-entry rows at base and base + h:
+// the reference folds the second row reversed behind the first and compares
+// distance h apart, i.e. x of the first row with h-1-x of the second. Folded
+// positions x and h-1-x touch the same four entries, so one thread does both
+// and writes the folded layout in place.
+__device__ __forceinline__ void merge_flip(int* k, float* c, int* a, long long base, int h,
+                                           int x) {
+  const long long i0 = base + x, i1 = base + 2 * h - 1 - x;
+  const long long i2 = base + h + x, i3 = base + h - 1 - x;
+  const int k0 = k[i0], k1 = k[i1], k2 = k[i2], k3 = k[i3];
+  const bool s1 = k0 > k1, s2 = k3 > k2;
+  k[i0] = s1 ? k1 : k0;
+  k[i2] = s1 ? k0 : k1;
+  k[i3] = s2 ? k2 : k3;
+  k[i1] = s2 ? k3 : k2;
+  const float c0 = c[i0], c1 = c[i1], c2 = c[i2], c3 = c[i3];
+  c[i0] = s1 ? c1 : c0;
+  c[i2] = s1 ? c0 : c1;
+  c[i3] = s2 ? c2 : c3;
+  c[i1] = s2 ? c3 : c2;
+  if (a != nullptr) {
+    const int a0 = a[i0], a1 = a[i1], a2 = a[i2], a3 = a[i3];
+    a[i0] = s1 ? a1 : a0;
+    a[i2] = s1 ? a0 : a1;
+    a[i3] = s2 ? a2 : a3;
+    a[i1] = s2 ? a3 : a2;
+  }
+}
+
+// stage d of n entries at row: x against x + d inside blocks of 2d, by the block
+__device__ __forceinline__ void merge_stage_block(int* k, float* c, int* a, int n, int d) {
+  for (int u = threadIdx.x; u < n / 2; u += blockDim.x) {
+    const int i = ((u & ~(d - 1)) << 1) | (u & (d - 1));
+    merge_cx(k, c, a, i, i + d);
+  }
+}
+
+// a full round in a tile: rows of h = m/2 entries merged pairwise
+__device__ __forceinline__ void merge_round_block(int* k, float* c, int* a, int n, int m) {
+  const int h = m >> 1;
+  if (h == 1) {  // the reversal of a one-entry row is itself: a plain stage
+    merge_stage_block(k, c, a, n, 1);
+  } else {
+    const int hh = h >> 1;
+    for (int u = threadIdx.x; u < n / 4; u += blockDim.x)
+      merge_flip(k, c, a, (long long)(u / hh) * 2 * h, h, u % hh);
+  }
+  __syncthreads();
+  for (int d = h >> 1; d >= 1; d >>= 1) {
+    merge_stage_block(k, c, a, n, d);
+    __syncthreads();
+  }
+}
+
+// One tile of `tile` entries of query blockIdx.y in shared memory. fetch:
+// the tile's entries from the posting rows (stage A's fetch, contribution
+// and key, as stage_a_insert computes them), else from the network rows.
+// Then the stages cont_d .. 1 of a round whose longer strides ran in global
+// memory, and the whole rounds m_lo .. m_hi (m the merged row length).
+__global__ void __launch_bounds__(1024) merge_tile_kernel(
+    const int* __restrict__ postings, long long n_rows, int W, QueryArgs q,
+    const float* __restrict__ ub_entry, int L, float inv_fs, int num_docs, int* mkey,
+    float* mcon, int* maux, int N, int tile, int fetch, int cont_d, int m_lo, int m_hi) {
+  extern __shared__ int smem[];
+  int* k = smem;
+  float* c = reinterpret_cast<float*>(smem + tile);
+  int* a = smem + 2 * tile;
+  __shared__ float sh_U;
+  const int b = blockIdx.y;
+  const long long t0 = (long long)b * N + (long long)blockIdx.x * tile;
+  if (fetch) {
+    if (ub_entry != nullptr) {
+      if (threadIdx.x < 32) {
+        const float m = warp_max_bound(ub_entry + (long long)b * q.P, q.P);
+        if (threadIdx.x == 0) sh_U = m;
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      const int g = blockIdx.x * tile + e;
+      const int p = g / L, l = g - p * L;
+      const int bp = b * q.P + p;
+      const bool valid = l < min(q.lens[bp], L);
+      int doc = num_docs, fac = 0, aux = 0;
+      if (valid) {
+        long long st = q.starts[bp];
+        st = st > n_rows - L ? n_rows - L : st;
+        st = st < 0 ? 0 : st;
+        decode_row(postings, st + l, W, doc, fac, aux);
+      }
+      const float f1 = (float)((fac >> 16) & 0xFFFF) * inv_fs;
+      const float f2 = (float)(fac & 0xFFFF) * inv_fs;
+      float contrib = q.w_bm25[bp] * f1 + q.w_bm25f[bp] * f2 +
+                      q.w_presence[bp] * (fac != 0 ? 1.0f : 0.0f);
+      if (ub_entry != nullptr) contrib = valid ? (contrib - ub_entry[bp]) + sh_U : 0.0f;
+      k[e] = (doc << 6) | q.group[bp];
+      c[e] = contrib;
+      a[e] = aux;
+    }
+  } else {
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      k[e] = mkey[t0 + e];
+      c[e] = mcon[t0 + e];
+      a[e] = maux != nullptr ? maux[t0 + e] : 0;
+    }
+  }
+  __syncthreads();
+  for (int d = cont_d; d >= 1; d >>= 1) {
+    merge_stage_block(k, c, a, tile, d);
+    __syncthreads();
+  }
+  for (int m = m_lo; m <= m_hi; m <<= 1) merge_round_block(k, c, a, tile, m);
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+    mkey[t0 + e] = k[e];
+    mcon[t0 + e] = c[e];
+    if (maux != nullptr) maux[t0 + e] = a[e];
+  }
+}
+
+// the first stage of a round whose rows are longer than a tile (h = m/2)
+__global__ void merge_flip_kernel(int* mkey, float* mcon, int* maux, int N, int h) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= N / 4) return;
+  const int hh = h >> 1;
+  const long long base = (long long)blockIdx.y * N + (u / hh) * 2 * h;
+  merge_flip(mkey, mcon, maux, base, h, (int)(u % hh));
+}
+
+// a stage whose compare distance d is longer than half a tile
+__global__ void merge_stage_kernel(int* mkey, float* mcon, int* maux, int N, int d) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= N / 2) return;
+  const long long i = (long long)blockIdx.y * N + ((u / d) * 2 * d + u % d);
+  merge_cx(mkey, mcon, maux, i, i + d);
+}
+
+// The run-end tail of _join_topk over the merged order, one block per query.
+// An entry ends its (doc, group) pair where the next key differs and its doc
+// where the next doc differs (the last entry ends both). Each thread walks a
+// contiguous chunk twice: first for the sums of the run still open at the
+// chunk's end, then, with what a segmented block scan of those carries in,
+// for the score of each run it ends: the run's contribution sum (with UB,
+// minus its entry count times U plus the query's ub_total), the static score
+// of the run's last entry, its required pairs (soft bonus or the n_required
+// mask) and its excluded pairs; 0 (no candidate) elsewhere. Then K1's top-C.
+__global__ void __launch_bounds__(MERGE_THREADS) merge_tail_kernel(
+    const int* mkey, const float* mcon, const int* maux, unsigned* skey, int N, SegArgs s,
+    QueryArgs q, const float* __restrict__ ub_entry, const float* __restrict__ ub_total,
+    int default_static, int soft_required, int K, int S, int* out_docs, float* out_scores) {
+  __shared__ unsigned sk[MAX_SORT];
+  __shared__ int si[MAX_SORT];
+  __shared__ float sh_U;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const long long row = (long long)b * N;
+  if (ub_entry != nullptr) {
+    if (tid < 32) {
+      const float m = warp_max_bound(ub_entry + (long long)b * q.P, q.P);
+      if (tid == 0) sh_U = m;
+    }
+    __syncthreads();
+  }
+  const int chunk = (N + nt - 1) / nt;
+  const int lo = min(tid * chunk, N), hi = min(lo + chunk, N);
+  auto ends = [&](int i, int key, bool& pair_end, bool& doc_end) {
+    const int nxt = i + 1 < N ? mkey[row + i + 1] : 0;
+    pair_end = i + 1 == N || nxt != key;
+    doc_end = i + 1 == N || (nxt >> 6) != (key >> 6);
+  };
+
+  // pass 1: the run open at the chunk's end (sum, required and excluded
+  // pairs, entries) and whether the chunk ends any run
+  int has_end = 0, req = 0, excl = 0, cnt = 0;
+  float sum = 0.0f;
+  for (int i = lo; i < hi; ++i) {
+    const int key = mkey[row + i];
+    bool pe, de;
+    ends(i, key, pe, de);
+    sum += mcon[row + i];
+    cnt += 1;
+    const int g = key & 63;
+    if (pe) {
+      req += g < MAX_GROUPS;
+      excl += g == EXCLUDED_GROUP;
+    }
+    if (de) {
+      has_end = 1;
+      sum = 0.0f;
+      req = excl = cnt = 0;
+    }
+  }
+  // inclusive segmented scan of the chunk summaries (Hillis-Steele): a chunk
+  // that ends a run restarts the carry, else it extends its left neighbour's
+  float* c_sum = reinterpret_cast<float*>(sk);
+  int* c_end = reinterpret_cast<int*>(sk) + nt;
+  int* c_req = reinterpret_cast<int*>(sk) + 2 * nt;
+  int* c_excl = reinterpret_cast<int*>(sk) + 3 * nt;
+  int* c_cnt = si;
+  c_sum[tid] = sum;
+  c_end[tid] = has_end;
+  c_req[tid] = req;
+  c_excl[tid] = excl;
+  c_cnt[tid] = cnt;
+  __syncthreads();
+  for (int off = 1; off < nt; off <<= 1) {
+    float ps = 0.0f;
+    int pe = 0, pr = 0, px = 0, pc = 0;
+    if (tid >= off) {
+      ps = c_sum[tid - off];
+      pe = c_end[tid - off];
+      pr = c_req[tid - off];
+      px = c_excl[tid - off];
+      pc = c_cnt[tid - off];
+    }
+    __syncthreads();
+    if (tid >= off && !has_end) {
+      sum = ps + sum;
+      req += pr;
+      excl += px;
+      cnt += pc;
+      has_end = pe;
+    }
+    c_sum[tid] = sum;
+    c_end[tid] = has_end;
+    c_req[tid] = req;
+    c_excl[tid] = excl;
+    c_cnt[tid] = cnt;
+    __syncthreads();
+  }
+  // the carry into this chunk: the scan's value left of it
+  float rsum = tid > 0 ? c_sum[tid - 1] : 0.0f;
+  int rreq = tid > 0 ? c_req[tid - 1] : 0, rexcl = tid > 0 ? c_excl[tid - 1] : 0;
+  int rcnt = tid > 0 ? c_cnt[tid - 1] : 0;
+
+  // pass 2: every run end's ordered key
+  const int nreq = q.n_required[b];
+  for (int i = lo; i < hi; ++i) {
+    const int key = mkey[row + i];
+    bool pe, de;
+    ends(i, key, pe, de);
+    rsum += mcon[row + i];
+    rcnt += 1;
+    const int g = key & 63;
+    if (pe) {
+      rreq += g < MAX_GROUPS;
+      rexcl += g == EXCLUDED_GROUP;
+    }
+    unsigned okey = 0;
+    if (de) {
+      const int doc = key >> 6;
+      if (doc < s.num_docs && rexcl == 0) {
+        float text = rsum;
+        if (ub_entry != nullptr) text = (text - (float)rcnt * sh_U) + ub_total[b];
+        const float st = default_static ? aux_static(q, b, maux[row + i], s.static_scale)
+                                        : query_static(s, q, b, doc, false);
+        float total = text + st;
+        bool valid = true;
+        if (soft_required) {
+          total = total + q.soft_bonus[b] * (float)rreq;
+        } else {
+          valid = rreq >= nreq;
+        }
+        if (valid) okey = order_key(total);
+      }
+      rsum = 0.0f;
+      rreq = rexcl = rcnt = 0;
+    }
+    skey[row + i] = okey;
+  }
+  __syncthreads();
+
+  top_keys(skey + row, N, K, S, sk, si);
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    const unsigned kk = sk[j];
+    const bool ok = kk != 0;
+    out_docs[(long long)b * K + j] = ok ? (mkey[row + si[j]] >> 6) : s.num_docs;
+    out_scores[(long long)b * K + j] = ok ? key_value(kk) : -INFINITY;
   }
 }
 
@@ -850,6 +1186,62 @@ int stract_stage_a(const SegArgs* s, const QueryArgs* q, const int* postings, lo
   stage_a_select<<<q->B, 1024, 0, stream>>>(tkey, tsum, tmask, taux, skey, T, *s, *q, ub_entry,
                                             ub_total, default_static, soft_required, K,
                                             next_pow2(K), out_docs, out_scores);
+  return (int)cudaGetLastError();
+}
+
+// K13. Stage A through the merge network: P (a power of two >= 2) tiles of
+// L (a power of two) posting rows per query, row_w as K1. Network rows mkey
+// i32[B, N], mcon f32[B, N], maux i32[B, N] (N = P*L; maux null when
+// default_static is 0); skey u32[B, N] scratch. K = 0 runs the network alone
+// (the rows hold its output; skey, ub_total and the outputs may be null).
+// Out: docs i32[B*K], scores f32[B*K], score-descending.
+int stract_stage_a_merge(const SegArgs* s, const QueryArgs* q, const int* postings,
+                         long long n_rows, int row_w, const float* ub_entry,
+                         const float* ub_total, int L, int K, int default_static,
+                         int soft_required, float inv_fs, int* mkey, float* mcon, int* maux,
+                         unsigned* skey, int* out_docs, float* out_scores, cudaStream_t stream) {
+  const int P = q->P;
+  if (P < 2 || (P & (P - 1)) != 0 || L < 1 || (L & (L - 1)) != 0 ||
+      (long long)P * L > (1ll << 24) || q->B < 1 || q->B > 65535 || K < 0 || K > MAX_SORT ||
+      (row_w != 2 && row_w != 3) || n_rows < 1 || mkey == nullptr || mcon == nullptr ||
+      (default_static && maux == nullptr) ||
+      (K > 0 && ((ub_entry == nullptr) != (ub_total == nullptr) || skey == nullptr ||
+                 out_docs == nullptr || out_scores == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int N = P * L;
+  const int tile = N < MERGE_TILE ? N : MERGE_TILE;
+  const size_t smem = (size_t)tile * 12;
+  cudaError_t err = cudaFuncSetAttribute(merge_tile_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // the fetch, and every round whose merged rows fit a tile
+  int m_hi = 0;
+  for (int m = 2 * L; m <= tile; m <<= 1) m_hi = m;
+  const dim3 tiles(N / tile, q->B);
+  merge_tile_kernel<<<tiles, 1024, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
+                                                   inv_fs, s->num_docs, mkey, mcon, maux, N,
+                                                   tile, 1, 0, 2 * L, m_hi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // longer rounds: the flip and the long strides in global memory, the rest
+  // of the round in tiles
+  for (int m = m_hi ? 2 * m_hi : 2 * L; m <= N; m <<= 1) {
+    merge_flip_kernel<<<dim3((N / 4 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon, maux, N,
+                                                                         m / 2);
+    int d = m / 4;
+    for (; 2 * d > tile; d >>= 1)
+      merge_stage_kernel<<<dim3((N / 2 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon, maux,
+                                                                            N, d);
+    merge_tile_kernel<<<tiles, 1024, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
+                                                     inv_fs, s->num_docs, mkey, mcon, maux, N,
+                                                     tile, 0, d, 1, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (K == 0) return (int)cudaSuccess;
+  merge_tail_kernel<<<q->B, MERGE_THREADS, 0, stream>>>(
+      mkey, mcon, default_static ? maux : nullptr, skey, N, *s, *q, ub_entry, ub_total,
+      default_static, soft_required, K, next_pow2(K), out_docs, out_scores);
   return (int)cudaGetLastError();
 }
 

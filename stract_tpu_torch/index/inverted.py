@@ -35,6 +35,12 @@ port takes arguments of InvertedIndex (the defaults are the JAX package's):
                  unseen contribution bounded and scaled by ub_lambda.
     verify_c     > 0: stage B verifies only the top verify_c (rounded up to
                  the shape menu) of stage A's candidates.
+    merge_kernel stage A joins in the order of the P-way bitonic merge of its
+                 [P, L] tiles (P and L powers of two; else the default stage
+                 A), the JAX package's STRACT_TPU_MERGE_KERNEL. Rows that are
+                 not doc-ascending (the impact-prefix slots) leave the merged
+                 order unsorted, so the candidates differ from the default's,
+                 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ def _nonneg(q) -> bool:
 
 class InvertedIndex:
     def __init__(self, path: str, device, row_layout: str = "q16", device_join: bool = False,
-                 ub_lambda: float = 0.0, verify_c: int = 0):
+                 ub_lambda: float = 0.0, verify_c: int = 0, merge_kernel: bool = False):
         if row_layout not in ("q16", "q8"):
             raise ValueError(f"row_layout is 'q16' or 'q8', not {row_layout!r}")
         self.path = path
@@ -126,6 +132,7 @@ class InvertedIndex:
         self.device_join = bool(device_join)
         self.ub_lambda = float(ub_lambda)
         self.verify_c = int(verify_c)
+        self.merge_kernel = bool(merge_kernel)
         with open(os.path.join(path, "index_meta.json")) as fh:
             self.meta = json.load(fh)
         self.segments: list[Segment] = [
@@ -507,7 +514,8 @@ class InvertedIndex:
                     ubkw = dict(ub_entry=np.stack([it[5] for it in items]).astype(np.float32),
                                 ub_total=np.array([it[6] for it in items], dtype=np.float32))
                 cand_b, _ = O.score_candidates_batch(dev.arrays, qs, L, C, fast,
-                                                     soft_required=True, **ubkw)
+                                                     soft_required=True,
+                                                     merge=self.merge_kernel, **ubkw)
                 pending.append((cand_b, items))
             for cand_dev, items in pending:
                 cand_np = cand_dev.cpu().numpy()

@@ -2,7 +2,8 @@
 
     python -m stract_tpu_torch.main serve --index DIR --port N --device cuda \
         [--dual-encoder DIR] [--cross-encoder DIR] [--lambdamart FILE] \
-        [--row-layout {q16,q8}] [--device-join] [--ub-lambda X] [--verify-c N]
+        [--row-layout {q16,q8}] [--device-join] [--ub-lambda X] [--verify-c N] \
+        [--merge-kernel]
     python -m stract_tpu_torch.main train-encoders {dual,cross,both} INDEX OUT \
         [--steps 120] [--batch 16] [--triples 512] [--device cuda]
     python -m stract_tpu_torch.main centrality \
@@ -14,10 +15,11 @@ and GET /metrics. DIR is an index directory of either package
 (index_meta.json + segments/). --device cpu runs the plain PyTorch versions
 of the kernels; --device cuda needs a card and runs the hand-written kernels.
 
---row-layout, --device-join, --ub-lambda and --verify-c choose the shard
-search's configuration (index/inverted.py InvertedIndex: the JAX package's
-STRACT_TPU_ROW_LAYOUT, _DEVICE_JOIN, _UB_LAMBDA and _VERIFY_C switches); the
-defaults are q16 rows, the host factor join, no UB scoring, verify all.
+--row-layout, --device-join, --ub-lambda, --verify-c and --merge-kernel
+choose the shard search's configuration (index/inverted.py InvertedIndex:
+the JAX package's STRACT_TPU_ROW_LAYOUT, _DEVICE_JOIN, _UB_LAMBDA,
+_VERIFY_C and _MERGE_KERNEL switches); the defaults are q16 rows, the host
+factor join, no UB scoring, verify all, stage A's join without the merge.
 
 The model flags are the coordinator's ApiConfig fields dual_encoder_path,
 cross_encoder_path and lambdamart_path, loaded as the JAX package's api
@@ -52,7 +54,7 @@ from aiohttp import web
 def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
                    cross_encoder: str | None = None, lambdamart: str | None = None,
                    row_layout: str = "q16", device_join: bool = False, ub_lambda: float = 0.0,
-                   verify_c: int = 0):
+                   verify_c: int = 0, merge_kernel: bool = False):
     """The serving stack over one local shard, with the ranking pipeline's
     models loaded from the given paths onto `device` and the shard search in
     the given configuration (InvertedIndex's arguments) → ApiSearcher."""
@@ -64,7 +66,8 @@ def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
     from .searcher.local import LocalSearcher
 
     index = InvertedIndex(index_dir, device=device, row_layout=row_layout,
-                          device_join=device_join, ub_lambda=ub_lambda, verify_c=verify_c)
+                          device_join=device_join, ub_lambda=ub_lambda, verify_c=verify_c,
+                          merge_kernel=merge_kernel)
     for seg in index.segments:
         index.device_segment_for(seg)  # upload before the first request
     recall, precision = RecallStage(), PrecisionStage()
@@ -174,6 +177,8 @@ def main(argv=None):
                     help="> 0: block-max UB scoring in stage A, bounds scaled by this")
     sp.add_argument("--verify-c", type=int, default=0,
                     help="> 0: stage B verifies only stage A's top N candidates")
+    sp.add_argument("--merge-kernel", action="store_true",
+                    help="stage A joins through the P-way bitonic merge of its tiles")
     tp = sub.add_parser("train-encoders", help="fine-tune dual/cross encoders from an index")
     tp.add_argument("kind", choices=["dual", "cross", "both"])
     tp.add_argument("index_path")
@@ -211,7 +216,8 @@ def main(argv=None):
 
     app = build_app(build_searcher(args.index, args.device, args.dual_encoder,
                                    args.cross_encoder, args.lambdamart, args.row_layout,
-                                   args.device_join, args.ub_lambda, args.verify_c))
+                                   args.device_join, args.ub_lambda, args.verify_c,
+                                   args.merge_kernel))
     web.run_app(app, host=args.host, port=args.port)
 
 

@@ -17,8 +17,13 @@ kernels on a card, plain twins on the CPU).
 Parameter names mirror the flax tree ("bert.layer_0.attention.query.weight"
 for params/bert/layer_0/attention/query/kernel), so `params_from_jax` and
 `params_to_jax` are a renaming plus the [in, out] ↔ [out, in] transpose.
-The expert-parallel MoE FFN of the JAX package (`num_experts > 0`) is not
-ported: the trainers of both packages build dense FFNs.
+
+`num_experts > 0` (BertLayer, BertEncoder, BertForSequenceScore) swaps each
+layer's FFN for the MoE FFN (MoEMlp, the JAX package's expert-parallel block
+run on one card): an f32 top-1 router and E experts whose weights are bf16
+parameters in both forms, as the JAX package creates them ("moe.experts_in"
+[E, H, I] and "moe.experts_out" [E, I, H], stored untransposed; the router
+is a Dense like the others).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import encoder as E
+from ..ops import moe as M
 
 BF16 = torch.bfloat16
 
@@ -120,17 +126,52 @@ class BertSelfAttention(nn.Module):
         return _linear(ctx, self.out)
 
 
+class MoEMlp(nn.Module):
+    """The MoE FFN (stract_tpu/models/bert.py MoEMlp): top-1 routing by an
+    f32 router, dense dispatch (every expert computes every token), the
+    token's expert output times its gate. bf16[B, T, H] → bf16[B, T, H].
+    The router and the select-and-scale are K15a-b (ops/moe.py), the expert
+    products bf16 cuBLAS products with f32 sums, the GELU K5c. The first
+    product runs over all experts at once against the [H, E*I] view of
+    experts_in, so x's cotangent is one f32 sum over (expert, unit) rounded
+    once, as the reference's einsum."""
+
+    def __init__(self, cfg: BertConfig, num_experts: int):
+        super().__init__()
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.num_experts = num_experts
+        self.router = nn.Linear(H, num_experts, dtype=torch.float32)
+        self.experts_in = nn.Parameter(torch.zeros((num_experts, H, I), dtype=BF16))
+        self.experts_out = nn.Parameter(torch.zeros((num_experts, I, H), dtype=BF16))
+
+    def forward(self, x):
+        B, T, H = x.shape
+        Ex, I = self.num_experts, self.experts_in.shape[2]
+        xf = x.reshape(B * T, H)
+        top, gate = M.router(xf, self.router.weight, self.router.bias)
+        w_in = self.experts_in.permute(1, 0, 2).reshape(H, Ex * I)
+        h = (xf @ w_in).view(B * T, Ex, I).transpose(0, 1).contiguous()
+        h = E.bias_gelu(h, torch.zeros(I, dtype=BF16, device=x.device))
+        out = torch.bmm(h, self.experts_out)  # [E, N, H]
+        return M.select_scale(out, top, gate).view(B, T, H)
+
+
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16, num_experts: int = 0):
         super().__init__()
         self.attention = BertSelfAttention(cfg, param_dtype)
         self.attn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, dtype=param_dtype)
-        self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, dtype=param_dtype)
+        if num_experts:
+            self.moe = MoEMlp(cfg, num_experts)
+        else:
+            self.mlp_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size, dtype=param_dtype)
+            self.mlp_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size, dtype=param_dtype)
         self.mlp_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, x, mask):
         x = self.attn_ln(x, self.attention(x, mask))
+        if hasattr(self, "moe"):
+            return self.mlp_ln(x, self.moe(x))
         h = E.bias_gelu(_linear(x, self.mlp_in, bias=False), _bf16(self.mlp_in.bias))
         return self.mlp_ln(x, _linear(h, self.mlp_out))
 
@@ -138,9 +179,10 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     """Embeddings + transformer stack → final hidden states bf16[B, T, H].
     `param_dtype` is the storage of the projection and embedding weights:
-    bf16 to serve, float32 to train (f32 masters, cast per call)."""
+    bf16 to serve, float32 to train (f32 masters, cast per call);
+    `num_experts` > 0 gives every layer the MoE FFN."""
 
-    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16, num_experts: int = 0):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
@@ -150,7 +192,7 @@ class BertEncoder(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H, dtype=param_dtype)
         self.emb_ln = LayerNorm(H, cfg.layer_norm_eps)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", BertLayer(cfg, param_dtype))
+            self.add_module(f"layer_{i}", BertLayer(cfg, param_dtype, num_experts))
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         c = self.cfg
@@ -185,11 +227,12 @@ class BertForEmbedding(nn.Module):
 
 
 class BertForSequenceScore(nn.Module):
-    """CLS (or masked mean, K5d) → f32 linear score head → f32[B] logits."""
+    """CLS (or masked mean, K5d) → f32 linear score head → f32[B] logits;
+    `num_experts` > 0 swaps the FFNs for MoE blocks."""
 
-    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16):
+    def __init__(self, cfg: BertConfig, param_dtype: torch.dtype = BF16, num_experts: int = 0):
         super().__init__()
-        self.bert = BertEncoder(cfg, param_dtype)
+        self.bert = BertEncoder(cfg, param_dtype, num_experts)
         self.score = nn.Linear(cfg.hidden_size, 1, dtype=torch.float32)
         self.pool = cfg.score_pool
 
@@ -204,8 +247,9 @@ class BertForSequenceScore(nn.Module):
 
 # ---- parameters ---------------------------------------------------------------------------
 def random_init(model: nn.Module, seed: int) -> nn.Module:
-    """Random weights in place: normal(0.02) for every matrix and embedding
-    table (drawn in f32 from an explicit generator, then rounded once), zero
+    """Random weights in place: normal(0.02) for every matrix, embedding
+    table and expert tensor (drawn in f32 from an explicit generator, then
+    rounded once to the parameter's dtype: bf16 for the experts), zero
     biases, LayerNorm scale 1 and bias 0."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -219,9 +263,15 @@ def random_init(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+# the MoE expert tensors: flax params of their own name, not transposed
+_EXPERT_LEAVES = ("experts_in", "experts_out")
+
+
 def _flax_leaf(name: str) -> tuple:
     """Port parameter name → (flax path, transpose?)."""
     *parent, leaf = name.split(".")
+    if leaf in _EXPERT_LEAVES:
+        return (*parent, leaf), False
     if leaf == "bias":
         return (*parent, "bias"), False
     if parent[-1].endswith("_ln"):
@@ -235,8 +285,8 @@ def params_from_jax(tree) -> dict:
     """The flax param tree (nested dicts of arrays, with or without the
     outer "params" key) → this module's state_dict: kernels [in, out] become
     weights [out, in], LayerNorm "scale" and Embed "embedding" become
-    "weight". Values keep their dtype (load_state_dict rounds into the
-    module's)."""
+    "weight"; the expert tensors keep their names and layout. Values keep
+    their dtype, bf16 included (load_state_dict rounds into the module's)."""
     tree = tree.get("params", tree)
     out = {}
 
@@ -245,16 +295,25 @@ def params_from_jax(tree) -> dict:
             if isinstance(v, dict):
                 walk(v, (*path, k))
                 continue
-            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+            t = v if isinstance(v, torch.Tensor) else _from_numpy(np.array(v))
             leaf = {"scale": "weight", "embedding": "weight", "kernel": "weight"}.get(k, k)
             out[".".join((*path, leaf))] = t.T.contiguous() if k == "kernel" else t
     walk(tree, ())
     return out
 
 
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (the JAX package's expert
+    weights, an extension dtype numpy itself lacks) by their bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_to_jax(state_dict: dict) -> dict:
     """The inverse of params_from_jax: {"params": nested dict of f32 numpy
-    arrays} in flax's layout (what flax.serialization.to_bytes writes)."""
+    arrays} in flax's layout (what flax.serialization.to_bytes writes). The
+    bf16 expert tensors come out as f32 arrays of the same values, exact."""
     tree: dict = {}
     for name, t in state_dict.items():
         path, transpose = _flax_leaf(name)

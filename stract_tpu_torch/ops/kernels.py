@@ -6,18 +6,23 @@ takes seconds; all sources build in parallel) and loaded with ctypes. A
 library is rebuilt when its source is newer. Nothing here runs at import
 time: the CPU tests import this module on machines without nvcc or a card.
 
-  csrc/scoring.cu   K1 stage A (q16 or q8 rows, with or without block-max UB), K2
-                    stage B, K3 pass-2 signals, K11 the device factor join (alone,
-                    and inside stage B and pass 2), K12 pass 2 from the slots'
-                    L-row prefixes, K10 the dense rerank
+  csrc/scoring.cu   K1 stage A (q16 or q8 rows, with or without block-max UB), K13
+                    stage A through the P-way bitonic merge, K2 stage B, K3 pass-2
+                    signals, K11 the device factor join (alone, and inside stage B
+                    and pass 2), K12 pass 2 from the slots' L-row prefixes, K10 the
+                    dense rerank
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
                     size estimate, K7 BFS relaxation
+  csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
+                    backward
 
 (K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
-pool, forward and backward, are Triton kernels in ops/encoder.py, and K14d,
-the fused AdamW update, one in optim.py; they count their launches here
+pool, forward and backward, are Triton kernels in ops/encoder.py; K14d and
+K15d, the fused AdamW updates of f32 masters and of bf16 parameters, are in
+optim.py; K15b-c, the MoE select-and-scale and the loss heads, in ops/moe.py
+beside the CUDA router K15a (csrc/moe.cu); they count their launches here
 too.)
 
 Each launch function takes tensors already on the card, allocated by its
@@ -41,7 +46,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> source file under csrc/
 SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu",
-           "graph": "graph.cu"}
+           "graph": "graph.cu", "moe": "moe.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -62,14 +67,17 @@ MAX_SMEM = 227 * 1024
 
 # launches per kernel since the last reset_launches(): the proof that a run of
 # the main path went through the kernels
-# (a stage-A launch counts once: under "stage_a_ub" when it folds UB bounds,
-# else "stage_a_q8" on q8 rows, else "stage_a"; "signals_joined" is pass 2 with
-# the join inside, "signals_prefix" is K12)
-LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_b": 0, "signals_q16": 0,
-            "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0, "signals_prefix": 0,
-            "dense_rerank": 0, "forest": 0, "attention": 0,
+# (a stage-A launch counts once: under "stage_a_merge" through the merge
+# network, else "stage_a_ub" when it folds UB bounds, else "stage_a_q8" on q8
+# rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
+# "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
+# backward launches alike)
+LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
+            "signals_q16": 0, "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0,
+            "signals_prefix": 0, "dense_rerank": 0, "forest": 0, "attention": 0,
             "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
             "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
+            "moe_router": 0, "moe_select": 0, "loss_heads": 0, "adamw_bf16": 0,
             "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0}
 
 _lock = threading.Lock()
@@ -177,6 +185,8 @@ def _load(name: str):
                 agg = ctypes.POINTER(AggArgs)
                 lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, I, F,
                                                P, P, P, P, P, P, P, P]
+                lib.stract_stage_a_merge.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, F,
+                                                     P, P, P, P, P, P, P]
                 lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
                 lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
                 lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, P, P]
@@ -185,7 +195,8 @@ def _load(name: str):
                 lib.stract_signals_search.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
                                                       P, P, P, P]
                 lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
-                fns = (lib.stract_stage_a, lib.stract_stage_b, lib.stract_signals_q16,
+                fns = (lib.stract_stage_a, lib.stract_stage_a_merge, lib.stract_stage_b,
+                       lib.stract_signals_q16,
                        lib.stract_factors_join, lib.stract_stage_b_joined,
                        lib.stract_signals_search, lib.stract_dense_rerank)
             elif name == "forest":
@@ -196,6 +207,10 @@ def _load(name: str):
                 lib.stract_hll_estimate.argtypes = [P, I, I, F, P, P]
                 lib.stract_bfs_relax.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
                 fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_relax)
+            elif name == "moe":
+                lib.stract_moe_router.argtypes = [P, P, P, I, I, I, P, P, P, P]
+                lib.stract_moe_router_backward.argtypes = [P, P, P, P, I, I, I, P, P, P]
+                fns = (lib.stract_moe_router, lib.stract_moe_router_backward)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
@@ -296,6 +311,38 @@ def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required:
         _ptr(out_scores, f32, (B, K)), _stream())
     _check(rc, "stract_stage_a")
     counted("stage_a_ub" if ub_entry is not None else "stage_a_q8" if w == 2 else "stage_a")
+
+
+def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: bool,
+                  inv_fs: float, mkey, mcon, maux, skey, out_docs, out_scores, ub_entry=None,
+                  ub_total=None) -> None:
+    """K13: stage A through the P-way bitonic merge of the [P, L] tiles.
+    Network rows mkey i32[B, P*L], mcon f32[B, P*L], maux i32[B, P*L] (None
+    when not default_static), skey i32[B, P*L] scratch; K = 0 runs the
+    network alone (skey, the outputs and ub_total None)."""
+    B, P = q.starts.shape
+    N = P * L
+    if not (P >= 2 and P & (P - 1) == 0 and L >= 1 and L & (L - 1) == 0 and N <= 1 << 24):
+        raise ValueError(f"the merge takes [P, L] tiles of powers of two, P >= 2, not {P} x {L}")
+    if not 0 <= K <= MAX_SORT:
+        raise ValueError(f"stage A keeps 0..{MAX_SORT} candidates per query, not {K}")
+    if K and (ub_entry is None) != (ub_total is None):
+        raise ValueError("UB scoring takes ub_entry and ub_total together")
+    if default_static and maux is None:
+        raise ValueError("the default static score reads the aux words: maux is needed")
+    i32, f32 = torch.int32, torch.float32
+    post, n_rows, w = _postings(seg)
+    net = (_ptr(mkey, i32, (B, N)), _ptr(mcon, f32, (B, N)), _ptr(maux, i32, (B, N)))
+    outs = ((_ptr(skey, i32, (B, N)), _ptr(out_docs, i32, (B, K)), _ptr(out_scores, f32, (B, K)))
+            if K else (None, None, None))
+    ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
+    lib = _load("scoring")
+    s, qa = seg_args(seg), query_args(q)
+    rc = lib.stract_stage_a_merge(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t,
+                                  L, K, int(default_static), int(soft_required), inv_fs, *net,
+                                  *outs, _stream())
+    _check(rc, "stract_stage_a_merge")
+    counted("stage_a_merge")
 
 
 def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
@@ -471,6 +518,47 @@ def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
                                        B, T, H, _stream())
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
+
+
+# limit of csrc/moe.cu: experts per router
+MOE_MAX_E = 16
+
+
+def _router_dims(x, w) -> tuple:
+    N, H = x.shape
+    E = w.shape[0]
+    if not (N >= 1 and H >= 1 and 1 <= E <= MOE_MAX_E):
+        raise ValueError(f"the router takes 1..{MOE_MAX_E} experts over [N, H] tokens, not "
+                         f"{E} experts over {tuple(x.shape)}")
+    return N, H, E
+
+
+def moe_router(x, w, bias, probs, top, gate) -> None:
+    """K15a: x bf16[N, H], w f32[E, H], bias f32[E] → probs f32[N, E], top
+    i32[N], gate bf16[N] (ops/moe.py allocates)."""
+    N, H, E = _router_dims(x, w)
+    f32 = torch.float32
+    ins = (_ptr(x, torch.bfloat16, (N, H)), _ptr(w, f32, (E, H)), _ptr(bias, f32, (E,)))
+    outs = (_ptr(probs, f32, (N, E)), _ptr(top, torch.int32, (N,)),
+            _ptr(gate, torch.bfloat16, (N,)))
+    lib = _load("moe")
+    rc = lib.stract_moe_router(*ins, N, H, E, *outs, _stream())
+    _check(rc, "stract_moe_router")
+    counted("moe_router")
+
+
+def moe_router_backward(probs, top, dgate, w, dlogits, dx) -> None:
+    """K15a backward: probs f32[N, E], top i32[N], dgate bf16[N], w f32[E, H]
+    → dlogits f32[N, E], dx bf16[N, H]."""
+    N, H, E = _router_dims(dx, w)
+    f32 = torch.float32
+    ins = (_ptr(probs, f32, (N, E)), _ptr(top, torch.int32, (N,)),
+           _ptr(dgate, torch.bfloat16, (N,)), _ptr(w, f32, (E, H)))
+    outs = (_ptr(dlogits, f32, (N, E)), _ptr(dx, torch.bfloat16, (N, H)))
+    lib = _load("moe")
+    rc = lib.stract_moe_router_backward(*ins, N, H, E, *outs, _stream())
+    _check(rc, "stract_moe_router_backward")
+    counted("moe_router")
 
 
 # limits of csrc/graph.cu: registers per row (a power of two, 4..1024)

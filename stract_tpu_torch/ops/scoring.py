@@ -5,7 +5,9 @@ it has no Pallas kernel):
 
   stage A  score_candidates_batch      candidate scan over P slices of L
                                        posting rows (q16 or q8), join by doc,
-                                       top-C; optionally block-max UB scoring
+                                       top-C; optionally block-max UB scoring;
+                                       with merge=True the join follows the
+                                       P-way bitonic merge of the [P, L] tiles
   stage B  score_driver_batch[_with_signals]
                                        exact verify over host-joined factor
                                        columns, top-k, fused q16 signals
@@ -267,19 +269,11 @@ def _segment_sum_at_ends_nonneg(values, is_end):
 
 
 # ---- stage A ------------------------------------------------------------------
-def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: int,
-                                 default_static: bool, soft_required: bool,
-                                 ub_entry=None, ub_total=None):
-    """Plain version of stage A (stract_tpu score_candidates_batch +
-    _join_topk): fetch, contribution, sort by key = doc << 6 | group, run-end
-    segment sums, boolean semantics, static score, top-K.
-
-    ub_entry f32[B, P] / ub_total f32[B] (block-max UB scoring): each valid
-    entry carries contrib - ub_slot + U, U the query's largest bound (values
-    stay non-negative for the cummax segment sum); the per-doc entry count
-    from the run-end positions takes the +U back out, and ub_total makes the
-    score `seen + sum of the unseen slots' bounds`."""
-    B, P = qs.starts.shape
+def _stage_a_entries(seg: SegmentArrays, qs: QuerySlots, L: int, ub_entry=None):
+    """Stage A's [B, P, L] tiles of the slots' first L rows → (keys = doc << 6
+    | group, contrib, aux, U): pads hold the pad doc, no contribution and no
+    aux; with ub_entry f32[B, P] each valid entry carries contrib - ub_slot +
+    U, U f32[B] the query's largest bound (else None)."""
     nd = int(seg.num_docs)
     n_rows = seg.postings.shape[0]
     dev = seg.postings.device
@@ -296,14 +290,91 @@ def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: 
     contrib = (qs.w_bm25[..., None] * f1 + qs.w_bm25f[..., None] * f2
                + qs.w_presence[..., None] * (factors != 0).to(torch.float32))
     keys = (docs << GROUP_BITS) | qs.group[..., None]
+    U = None
     if ub_entry is not None:
         U = ub_entry.amax(dim=1)
         contrib = torch.where(valid, contrib - ub_entry[..., None] + U[:, None, None],
                               torch.zeros_like(contrib))
+    return keys, contrib, aux, U
 
-    key = keys.reshape(B, -1)
-    skey, perm = torch.sort(key, dim=-1, stable=True)
-    scontrib = torch.gather(contrib.reshape(B, -1), 1, perm)
+
+def merge_applies(P: int, L: int) -> bool:
+    """The reference's gate for the merge (ops/scoring.py _join_topk): [P, L]
+    tiles with P a power of two >= 2 and L a power of two."""
+    return P >= 2 and P & (P - 1) == 0 and L >= 1 and L & (L - 1) == 0
+
+
+def _bitonic_stages_plain(k, vs, m: int):
+    """log2(m) compare-exchange stages over rows of length m ([B, R, m]):
+    stage d pairs each position x with x + d inside blocks of 2d and swaps
+    keys (and payloads) where the first key is greater; equal keys never
+    swap. Sorts each bitonic row ascending."""
+    d = m // 2
+    while d >= 1:
+        shape = k.shape
+        split = lambda x: x.reshape(*x.shape[:-1], m // (2 * d), 2, d).unbind(-2)  # noqa: E731
+        ka, kb = split(k)
+        swap = ka > kb
+        cx = lambda a, b: torch.stack([torch.where(swap, b, a), torch.where(swap, a, b)],  # noqa
+                                      dim=-2).reshape(shape)
+        k = cx(ka, kb)
+        vs = [cx(*split(v)) for v in vs]
+        d //= 2
+    return k, vs
+
+
+def merge_sorted_tiles_plain(keys, *payloads):
+    """The reference's P-way merge (stract_tpu/ops/scoring.py
+    merge_sorted_tiles), stage for stage: keys [P, L] or [B, P, L], P a power
+    of two; log2(P) rounds, each folding pairs of rows into one of twice the
+    length with the second row reversed, then log2(2L) compare-exchange
+    stages. Payloads move with their keys. → (flat keys [B, P*L] (or [P*L]),
+    [flat payloads]). Sorted where each row was ascending; on other rows
+    (a tf-ordered impact slot) the output is whatever this fixed network
+    makes of them, as in the reference."""
+    single = keys.dim() == 2
+    k = keys[None] if single else keys
+    vs = [v[None] if single else v for v in payloads]
+    B, P, L = k.shape
+    while P > 1:
+        m = 2 * L
+
+        def fold(x):
+            x = x.reshape(B, P // 2, m)
+            return torch.cat([x[..., :L], x[..., L:].flip(-1)], dim=-1)
+
+        k, vs = _bitonic_stages_plain(fold(k), [fold(v) for v in vs], m)
+        P, L = P // 2, m
+    flat = lambda x: x.reshape(-1) if single else x.reshape(B, -1)  # noqa: E731
+    return flat(k), [flat(v) for v in vs]
+
+
+def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: int,
+                                 default_static: bool, soft_required: bool,
+                                 ub_entry=None, ub_total=None, merge: bool = False):
+    """Plain version of stage A (stract_tpu score_candidates_batch +
+    _join_topk): fetch, contribution, sort by key = doc << 6 | group, run-end
+    segment sums, boolean semantics, static score, top-K.
+
+    ub_entry f32[B, P] / ub_total f32[B] (block-max UB scoring): each valid
+    entry carries contrib - ub_slot + U, U the query's largest bound (values
+    stay non-negative for the cummax segment sum); the per-doc entry count
+    from the run-end positions takes the +U back out, and ub_total makes the
+    score `seen + sum of the unseen slots' bounds`.
+
+    merge=True (the reference's merge switch): where merge_applies(P, L) the
+    sort is merge_sorted_tiles_plain over the [P, L] tiles, and the tail runs
+    over its output order."""
+    B, P = qs.starts.shape
+    nd = int(seg.num_docs)
+    dev = seg.postings.device
+    keys, contrib, aux, U = _stage_a_entries(seg, qs, L, ub_entry)
+    if merge and merge_applies(P, L):
+        skey, (scontrib, saux) = merge_sorted_tiles_plain(keys, contrib, aux)
+    else:
+        skey, perm = torch.sort(keys.reshape(B, -1), dim=-1, stable=True)
+        scontrib = torch.gather(contrib.reshape(B, -1), 1, perm)
+        saux = torch.gather(aux.reshape(B, -1), 1, perm) if default_static else None
     sdocs = skey >> GROUP_BITS
     sgroups = skey & ((1 << GROUP_BITS) - 1)
     last = torch.ones_like(sdocs[:, :1], dtype=torch.bool)
@@ -321,7 +392,6 @@ def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: 
     req_present = segsum(pe * (sgroups < MAX_GROUPS).to(torch.float32), doc_end)
     excl_present = segsum(pe * (sgroups == EXCLUDED_GROUP).to(torch.float32), doc_end)
     if default_static:
-        saux = torch.gather(aux.reshape(B, -1), 1, perm)
         static = _aux_static_score(qs, saux, float(seg.static_scale))
     else:
         static = _query_static(seg, qs, sdocs, False)
@@ -350,41 +420,80 @@ _on = kernels.on_device
 
 def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = DEFAULT_K,
                            default_static: bool = True, soft_required: bool = False,
-                           ub_entry=None, ub_total=None):
+                           ub_entry=None, ub_total=None, merge: bool = False):
     """Stage A over a query batch → (docs i32[B, K], scores f32[B, K]),
     score-descending; pads are doc = num_docs, score = -inf. The rows may be
     q16 or q8; ub_entry f32[B, P] with ub_total f32[B] turn block-max UB
-    scoring on."""
+    scoring on. merge=True joins in the order of the P-way bitonic merge of
+    the [P, L] tiles where merge_applies(P, L) (the merge kernel, K13): on
+    rows that are not doc-ascending a doc may then stand in several runs,
+    and so several times in the top-K, as in the reference."""
     dev = seg.postings.device
     qs = to_tensors(_batched(qs, QuerySlots), dev)
     ub_entry, ub_total = _on(ub_entry, dev, torch.float32), _on(ub_total, dev, torch.float32)
     if not seg.postings.is_cuda:
         return score_candidates_batch_plain(seg, qs, L, K, default_static, soft_required,
-                                            ub_entry, ub_total)
+                                            ub_entry, ub_total, merge)
     B, P = qs.starts.shape
+    docs = torch.empty((B, K), dtype=torch.int32, device=dev)
+    scores = torch.empty((B, K), dtype=torch.float32, device=dev)
+    if merge and merge_applies(P, L):
+        mkey, mcon, maux, skey = _merge_scratch(B, P * L, default_static, dev)
+        kernels.stage_a_merge(seg, qs, L, K, default_static, soft_required, INV_FACTOR_SCALE,
+                              mkey, mcon, maux, skey, docs, scores, ub_entry, ub_total)
+        return docs, scores
     T = max(_next_pow2(2 * P * L), _next_pow2(K))
     tkey = torch.empty((B, T), dtype=torch.int32, device=dev)
     tsum = torch.empty((B, T), dtype=torch.float32, device=dev)
     tmask = torch.empty((B, T), dtype=torch.int64, device=dev)
     taux = torch.empty((B, T), dtype=torch.int32, device=dev)
     skey = torch.empty((B, T), dtype=torch.int32, device=dev)
-    docs = torch.empty((B, K), dtype=torch.int32, device=dev)
-    scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     kernels.stage_a(seg, qs, L, K, T, default_static, soft_required, INV_FACTOR_SCALE,
                     tkey, tsum, tmask, taux, skey, docs, scores, ub_entry, ub_total)
     return docs, scores
 
 
+def _merge_scratch(B: int, N: int, with_aux: bool, dev):
+    """The merge kernel's [B, N] network arrays (keys, contributions, aux
+    words when the static score reads them) and its ordered score keys."""
+    i32 = torch.int32
+    return (torch.empty((B, N), dtype=i32, device=dev),
+            torch.empty((B, N), dtype=torch.float32, device=dev),
+            torch.empty((B, N), dtype=i32, device=dev) if with_aux else None,
+            torch.empty((B, N), dtype=i32, device=dev))
+
+
+def stage_a_network(seg: SegmentArrays, qs, L: int = DEFAULT_L, ub_entry=None):
+    """Stage A's merge network alone: the [B, P, L] entries of the slots'
+    first L rows through merge_sorted_tiles → (keys i32[B, P*L], contrib
+    f32[B, P*L], aux i32[B, P*L]) in the network's output order (what the
+    merge kernel's tail reads; the kernel's arrays bit for bit)."""
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    ub_entry = _on(ub_entry, dev, torch.float32)
+    B, P = qs.starts.shape
+    if not merge_applies(P, L):
+        raise ValueError(f"the merge takes a power-of-two P >= 2 and L, not {P} x {L}")
+    if not seg.postings.is_cuda:
+        keys, contrib, aux, _ = _stage_a_entries(seg, qs, L, ub_entry)
+        k, (c, a) = merge_sorted_tiles_plain(keys, contrib, aux)
+        return k, c, a
+    mkey, mcon, maux, _ = _merge_scratch(B, P * L, True, dev)
+    kernels.stage_a_merge(seg, qs, L, 0, True, True, INV_FACTOR_SCALE, mkey, mcon, maux, None,
+                          None, None, ub_entry, None)
+    return mkey, mcon, maux
+
+
 def score_candidates(seg: SegmentArrays, q, L: int = DEFAULT_L, K: int = DEFAULT_K,
                      default_static: bool = True, soft_required: bool = False,
-                     ub_entry=None, ub_total=None):
+                     ub_entry=None, ub_total=None, merge: bool = False):
     """Single-query stage A: the batch path with B = 1 → (docs[K], scores[K]);
     ub_entry f32[P] and ub_total a scalar."""
     if ub_entry is not None:
         ub_entry = np.asarray(ub_entry, dtype=np.float32)[None]
         ub_total = np.asarray(ub_total, dtype=np.float32).reshape(1)
     docs, scores = score_candidates_batch(seg, stack([q]), L, K, default_static, soft_required,
-                                          ub_entry, ub_total)
+                                          ub_entry, ub_total, merge)
     return docs[0], scores[0]
 
 

@@ -473,8 +473,8 @@ def test_http_page_under_q8_device_join_matches_jax(bench_dir, monkeypatch):
 
 
 def test_serve_arguments_reach_the_index(monkeypatch):
-    """main.py serve --row-layout/--device-join/--ub-lambda/--verify-c are
-    build_searcher's arguments."""
+    """main.py serve --row-layout/--device-join/--ub-lambda/--verify-c/
+    --merge-kernel are build_searcher's arguments."""
     from stract_tpu_torch import main as M
     from stract_tpu_torch.api import server as server_mod
 
@@ -483,9 +483,11 @@ def test_serve_arguments_reach_the_index(monkeypatch):
     monkeypatch.setattr(server_mod, "build_app", lambda s: s)
     monkeypatch.setattr(M.web, "run_app", lambda *a, **k: None)
     M.main(["serve", "--index", "X", "--device", "cpu", "--row-layout", "q8", "--device-join",
-            "--ub-lambda", "0.5", "--verify-c", "1024"])
-    assert seen["args"] == ("X", "cpu", "", "", "", "q8", True, 0.5, 1024)
+            "--ub-lambda", "0.5", "--verify-c", "1024", "--merge-kernel"])
+    assert seen["args"] == ("X", "cpu", "", "", "", "q8", True, 0.5, 1024, True)
+    seen.clear()
     M.main(["serve", "--index", "X"])  # the defaults are the default configuration
+    assert seen["args"][5:] == ("q16", False, 0.0, 0, False)
     with pytest.raises(SystemExit):
         M.main(["serve", "--index", "X", "--row-layout", "q4"])
 

@@ -1,7 +1,9 @@
 """The ranking pipeline's kernels against their plain twins: K4 (forest
 walk, ops/forest.py), K5a-d (attention, residual + LayerNorm, bias + GELU,
-mean pool, ops/encoder.py) and the training kernels K14a-d (the backward of
-K5a-c, ops/encoder.py, and the fused AdamW update, optim.py). This file
+mean pool, ops/encoder.py), the training kernels K14a-d (the backward of
+K5a-c, ops/encoder.py, and the fused AdamW update, optim.py) and K15a-d (the
+MoE router and select-and-scale, ops/moe.py; the loss heads, ops/losses.py;
+the bf16 AdamW update, optim.py). This file
 imports the port alone (no jax, no flax), so it also runs on a machine with
 a card and no JAX package:
 
@@ -28,6 +30,18 @@ Tolerances, kernel against plain twin on one card:
     rtol 1e-4, atol 1e-4 x max |plain|;
   - AdamW over 3 steps: rtol 1e-6, atol 1e-6 x max |plain| (the same f32
     ops; Triton's division and square root may round differently by an ulp).
+  - the MoE router: probabilities rtol 1e-5 (f32 sums over H in another
+    order, expf), the expert chosen equal but where two probabilities lie
+    within 1e-5 of each other, the gate and dx within one bf16 step, the
+    logits' cotangent rtol 1e-5, atol 1e-6 x max |plain|; select-and-scale
+    and its backward bit-equal but the gate's cotangent (an f32 row sum in
+    another order, rounded to bf16: one bf16 step);
+  - the loss heads: rtol 1e-5 (sums over B in another order; exp and log in
+    another implementation);
+  - the bf16 AdamW over 3 steps: within one bf16 step of the plain twin
+    (each operation rounds to bf16; Triton's division and square root are
+    not correctly rounded in f32, which may move a value across a bf16
+    rounding boundary).
 """
 
 from __future__ import annotations
@@ -398,6 +412,186 @@ def test_dual_train_step_kernels_match_plain_twins(monkeypatch):
             continue
         summed = name.endswith("bias") or "position_" in name or "token_type" in name
         assert cos(gk[name], b) >= (0.98 if summed else 0.999), (name, cos(gk[name], b))
+
+
+# ---- K15a-d: the MoE router and select-and-scale, the loss heads, the bf16 AdamW -----------
+def test_moe_and_loss_wrappers_never_take_the_plain_path(monkeypatch):
+    """On CUDA tensors the router, select-and-scale, loss heads and bf16
+    AdamW launch their kernels (stand-ins here), never the plain twins."""
+    from stract_tpu_torch import optim
+    from stract_tpu_torch.ops import losses as LO
+    from stract_tpu_torch.ops import moe as MO
+
+    called = []
+
+    class Kern:
+        def __init__(self, name):
+            self.name = name
+
+        def __getitem__(self, grid):
+            return lambda *a, **k: called.append(self.name)
+
+    for mod, names in ((MO, ("router_plain", "router_backward_plain", "select_scale_plain",
+                             "select_scale_backward_plain")),
+                       (LO, ("pair_loss_plain", "info_nce_plain")),
+                       (optim, ("adamw_bf16_update_plain",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(kernels, "moe_router", lambda *a: called.append("router"))
+    monkeypatch.setattr(kernels, "moe_router_backward", lambda *a: called.append("router_bwd"))
+    monkeypatch.setattr(MO, "_triton_kernels", lambda: {n: Kern(n) for n in
+                                                        ("select", "select_bwd")})
+    monkeypatch.setattr(LO, "_triton_kernels", lambda: {n: Kern(n) for n in
+                                                        ("pair", "info_nce")})
+    monkeypatch.setattr(optim, "_triton_kernels", lambda: {"adamw_bf16": Kern("adamw_bf16")})
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    top = torch.zeros(8, dtype=torch.int32)
+    MO.router_forward(bf(8, 64), torch.zeros(4, 64), torch.zeros(4))
+    MO.router_backward(torch.zeros(8, 4), top, bf(8), torch.zeros(4, 64))
+    MO.select_scale_forward(bf(4, 8, 64), top, bf(8))
+    MO.select_scale_backward(bf(4, 8, 64), top, bf(8), bf(8, 64))
+    LO.pair_loss_forward(torch.zeros(8), torch.zeros(8))
+    LO.pair_loss_forward(torch.zeros(8), torch.zeros(8), torch.zeros(8), torch.zeros(8), 0.5)
+    LO.info_nce_forward(torch.zeros(8, 8))
+    optim.adamw_bf16_update(bf(64), bf(64), bf(64), bf(64), 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1,
+                            0.001)
+    assert called == ["router", "router_bwd", "select", "select_bwd", "pair", "pair",
+                      "info_nce", "adamw_bf16"]
+
+
+def test_moe_kernel_arguments_are_checked(monkeypatch):
+    from stract_tpu_torch import optim
+    from stract_tpu_torch.ops import losses as LO
+    from stract_tpu_torch.ops import moe as MO
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    top = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):  # more experts than the router keeps in registers
+        kernels.moe_router(bf(8, 64), torch.zeros(32, 64), torch.zeros(32), torch.zeros(8, 32),
+                           top, bf(8))
+    with pytest.raises(ValueError):  # an f32 router input
+        kernels.moe_router(torch.zeros(8, 64), torch.zeros(4, 64), torch.zeros(4),
+                           torch.zeros(8, 4), top, bf(8))
+    with pytest.raises(ValueError):  # an f32 gate
+        MO.select_scale_forward(bf(4, 8, 64), top, torch.zeros(8))
+    with pytest.raises(ValueError):  # i64 expert indices
+        MO.select_scale_forward(bf(4, 8, 64), top.long(), bf(8))
+    with pytest.raises(ValueError):  # a cotangent of another width
+        MO.select_scale_backward(bf(4, 8, 64), top, bf(8), bf(8, 32))
+    with pytest.raises(ValueError):  # bf16 scores
+        LO.pair_loss_forward(bf(8), bf(8))
+    with pytest.raises(ValueError):  # logits that are not square
+        LO.info_nce_forward(torch.zeros(8, 4))
+    with pytest.raises(ValueError):  # f32 buffers through the bf16 update
+        optim.adamw_bf16_update(*[torch.zeros(8)] * 4, 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
+    for name in ("moe_router", "moe_select", "loss_heads", "adamw_bf16"):
+        assert name in kernels.LAUNCHES
+
+
+def test_adamw_groups_f32_and_bf16_parameters():
+    """f32 and bf16 parameters each live in their own dtype's flat buffers;
+    other dtypes are refused."""
+    from stract_tpu_torch.optim import AdamW
+
+    w = torch.nn.Parameter(torch.ones(3, 2))
+    e = torch.nn.Parameter(torch.ones(4, dtype=torch.bfloat16))
+    opt = AdamW([w, e], 1e-2)
+    (w.sum() + e.float().sum()).backward()
+    assert e.grad.dtype == torch.bfloat16 and e.grad.abs().sum() > 0
+    opt.step()
+    groups = opt.groups
+    assert set(groups) == {torch.float32, torch.bfloat16}
+    assert torch.equal(groups[torch.bfloat16].flat, e.detach()) and e.dtype == torch.bfloat16
+    assert groups[torch.bfloat16].m.dtype == torch.bfloat16
+    assert float(e.detach()[0]) < 1.0 and float(w.detach()[0, 0]) < 1.0
+    with pytest.raises(ValueError):
+        AdamW([torch.nn.Parameter(torch.ones(2, dtype=torch.float16))], 1e-2)
+
+
+@pytest.mark.cuda
+def test_moe_router_kernel_matches_plain():
+    from stract_tpu_torch.ops import moe as MO
+
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    N, H, Ex = 4096, 384, 4
+    x = torch.randn((N, H), generator=g).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn((Ex, H), generator=g)).to(dev)
+    w[3] = w[1]  # a tied router row: expert 3 never wins over expert 1
+    b = (0.1 * torch.randn(Ex, generator=g)).to(dev)
+    b[3] = b[1]
+    pk, tk, gk = MO.router_forward(x, w, b)
+    pp, tp, gp = MO.router_plain(x, w, b)
+    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-7)
+    top2 = pp.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert torch.equal(tk[clear], tp[clear]) and not bool((tk == 3).any())
+    _step_close(gk, gp)
+    dgate = torch.randn(N, generator=g).to(dev, torch.bfloat16)
+    (dlk, dxk), (dlp, dxp) = MO.router_backward(pp, tp, dgate, w), \
+        MO.router_backward_plain(pp, tp, dgate, w)
+    torch.testing.assert_close(dlk, dlp, rtol=1e-5, atol=1e-6 * float(dlp.abs().max()))
+    _step_close(dxk, dxp)
+
+
+@pytest.mark.cuda
+def test_moe_select_kernels_match_plain():
+    from stract_tpu_torch.ops import moe as MO
+
+    dev = _card()
+    g = torch.Generator().manual_seed(12)
+    Ex, N, H = 4, 4096, 384
+    out_e = torch.randn((Ex, N, H), generator=g).to(dev, torch.bfloat16)
+    top = torch.randint(0, Ex, (N,), generator=g).to(dev, torch.int32)
+    gate = torch.rand(N, generator=g).to(dev, torch.bfloat16)
+    assert torch.equal(MO.select_scale_forward(out_e, top, gate),
+                       MO.select_scale_plain(out_e, top, gate))
+    gr = torch.randn((N, H), generator=g).to(dev, torch.bfloat16)
+    (dk, gk), (dp, gp) = MO.select_scale_backward(out_e, top, gate, gr), \
+        MO.select_scale_backward_plain(out_e, top, gate, gr)
+    assert torch.equal(dk, dp)
+    _step_close(gk, gp)
+
+
+@pytest.mark.cuda
+def test_loss_head_kernels_match_plain():
+    from stract_tpu_torch.ops import losses as LO
+
+    dev = _card()
+    g = torch.Generator().manual_seed(13)
+    for B in (8, 32, 64):
+        sp, sn, tp, tn = (torch.randn(B, generator=g).to(dev) for _ in range(4))
+        for args in ((sp, sn), (sp, sn, tp, tn, 0.5)):
+            for a, b in zip(LO.pair_loss_forward(*args), LO.pair_loss_plain(*args)):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+        logits = 20.0 * torch.randn((B, B), generator=g).to(dev)
+        for a, b in zip(LO.info_nce_forward(logits), LO.info_nce_plain(logits)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_adamw_bf16_kernel_matches_plain():
+    from stract_tpu_torch import optim
+
+    dev = _card()
+    g = torch.Generator().manual_seed(14)
+    n = 1 << 20
+    bf = torch.bfloat16
+    state = [(0.02 * torch.randn(n, generator=g)).to(dev, bf), torch.zeros(n, device=dev,
+                                                                           dtype=bf),
+             torch.zeros(n, device=dev, dtype=bf)]
+    plain = [t.clone() for t in state]
+    for step in range(1, 4):
+        grad = (0.01 * torch.randn(n, generator=g)).to(dev, bf)
+        bc1, bc2 = 1 - 0.9 ** step, 1 - 0.999 ** step
+        optim.adamw_bf16_update(state[0], grad, state[1], state[2], 1e-3, 0.9, 0.999, 1e-8,
+                                1e-4, bc1, bc2)
+        optim.adamw_bf16_update_plain(plain[0], grad, plain[1], plain[2], 1e-3, 0.9, 0.999,
+                                      1e-8, 1e-4, bc1, bc2)
+    for a, b in zip(state, plain):
+        torch.testing.assert_close(a.float(), b.float(), rtol=STEP, atol=1e-12)
 
 
 # ---- the webgraph kernels: K6a/K6b (HyperBall merge + estimate), K7 (BFS relaxation) ------

@@ -30,8 +30,9 @@ from stract_tpu_torch.ops import dense_rerank as RT
 from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ops import scoring as OT
 
-from torch_parity import (assert_topk_match, doc_only, driver_candidates, host_factors,
-                          query_batch, rich_fixture, row_layout_of, ub_inputs)
+from torch_parity import (assert_topk_match, assert_topk_runs_match, doc_only,
+                          driver_candidates, host_factors, query_batch, rich_fixture,
+                          row_layout_of, ub_inputs)
 
 A_RTOL, A_ATOL = 1e-5, 2e-3
 B_RTOL, B_ATOL = 1e-5, 1e-5
@@ -424,3 +425,33 @@ def test_dense_rerank_kernel_matches_plain(dtype):
     i_p, s_p = RT.rerank_topk_batch_plain(emb, q, base, 1.0, k)
     torch.testing.assert_close(s_k, s_p, rtol=0, atol=2e-6)
     assert (i_k == i_p).float().mean().item() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+@pytest.mark.parametrize("default_static,ub", [(True, False), (False, False), (True, True)])
+def test_stage_a_merge_kernel_matches_plain(fixture, row_layout, default_static, ub):
+    """K13: the network's keys and payloads bit-equal to the plain merge's
+    (rows with tf-ordered impact slots included), and the candidates of the
+    tail at stage A's tolerance, compared as multisets of (doc, score)."""
+    dev = _card()
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, _ = query_batch(rng, seg, starts, dfs, impact, default_static=default_static)
+    u, t = ub_inputs(rng, qs) if ub else (None, None)
+    seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    net_k = OT.stage_a_network(seg_c, qs, L, u)
+    q_c = OT.to_tensors(qs, dev)
+    u_c = None if u is None else torch.as_tensor(u, device=dev)
+    keys, contrib, aux, _ = OT._stage_a_entries(seg_c, q_c, L, u_c)
+    kp, (cp, ap) = OT.merge_sorted_tiles_plain(keys, contrib, aux)
+    assert torch.equal(net_k[0], kp) and torch.equal(net_k[2], ap)
+    assert torch.equal(net_k[1].view(torch.int32), cp.view(torch.int32))
+    d_k, s_k = OT.score_candidates_batch(seg_c, qs, L, 128, default_static, True, u, t,
+                                         merge=True)
+    t_c = None if t is None else torch.as_tensor(t, device=dev)
+    d_p, s_p = OT.score_candidates_batch_plain(seg_c, q_c, L, 128, default_static, True, u_c,
+                                               t_c, merge=True)
+    for b in range(qs.starts.shape[0]):
+        assert_topk_runs_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(),
+                               d_k[b].cpu().numpy(), s_k[b].cpu().numpy(), int(seg.num_docs),
+                               A_RTOL, A_ATOL)

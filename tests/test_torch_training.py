@@ -370,11 +370,6 @@ def test_loss_curves_match_jax_over_ten_steps(kind):
         assert abs(float(loss_t) - float(loss_j)) <= CURVE_RTOL * abs(float(loss_j))
 
 
-def test_cross_state_refuses_experts():
-    with pytest.raises(ValueError):
-        TPT.make_train_state(TB.BertConfig.tiny(), num_experts=4)
-
-
 # ---- the entry points --------------------------------------------------------------------
 def test_synthesize_triples_match_jax(corpus_index):
     for n, seed in ((40, 0), (24, 98)):

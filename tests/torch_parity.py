@@ -212,3 +212,30 @@ def assert_topk_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol):
         if s > cut:
             assert d in mb, f"doc {d} (score {s}) missing"
             np.testing.assert_allclose(mb[d], s, rtol=rtol, atol=atol)
+
+
+def assert_topk_runs_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol):
+    """assert_topk_match for results in which a doc may stand several times
+    (stage A under the merge, over rows that are not doc-ascending): the
+    sorted scores match within the tolerance, and every entry scored clearly
+    above the cut is matched by an entry of the same doc in the other result
+    with its score within the tolerance, each entry used once."""
+    docs_a, docs_b = np.asarray(docs_a), np.asarray(docs_b)
+    scores_a, scores_b = np.asarray(scores_a), np.asarray(scores_b)
+    fa, fb = np.isfinite(scores_a), np.isfinite(scores_b)
+    assert fa.sum() == fb.sum(), (fa.sum(), fb.sum())
+    assert (docs_a[~fa] == num_docs).all() and (docs_b[~fb] == num_docs).all()
+    sa, sb = np.sort(scores_a[fa])[::-1], np.sort(scores_b[fb])[::-1]
+    np.testing.assert_allclose(sa, sb, rtol=rtol, atol=atol)
+    if not fa.any():
+        return
+    cut = sa[-1] + (abs(sa[-1]) * rtol + atol) * 2 if fa.all() else -np.inf
+    left: dict = {}
+    for d, s in zip(docs_b[fb].tolist(), scores_b[fb].tolist()):
+        left.setdefault(d, []).append(s)
+    for d, s in zip(docs_a[fa].tolist(), scores_a[fa].tolist()):
+        if s <= cut:
+            continue
+        near = [x for x in left.get(d, []) if abs(x - s) <= atol + rtol * abs(s)]
+        assert near, f"doc {d} (score {s}) missing"
+        left[d].remove(min(near, key=lambda x: abs(x - s)))
