@@ -71,6 +71,23 @@ same loss curve within 5 % per step; one step is timed with kernels and
 with plain versions, and K15a-d are held against their plain versions at
 the step's shapes.
 
+Then the mesh of shards on the card (parallel/mesh.py: Mesh([cuda:0] * 4)):
+a 4-segment index of 4 x 250,000 pages (seeds 1-4, written by four child
+processes while the main corpus is built) served by a search shard server
+(entrypoint/search_server.py run, sonic RPC) on the mesh, the coordinator
+(entrypoint/api.py, found by gossip) and the HTTP server in front; one round
+of the request mix, launch counts reset just before and read just after:
+every request answered, K1, the joined stage B, pass 2 and the mesh's
+global top-k (K9) launched; then the same index without a mesh serves the
+same round, and the 8 compare queries' pass-1 top-10s (rtol 1e-5, docs up to
+ties) and top-10 pages must agree; K9 is held against its plain version at
+(4, 512), (4, 1024) and (8, 1024) with planted ties, bit-equal, and timed
+beside torch.topk. After the centrality phase, `run_harmonic(mesh=)` over 4
+register shards of the 1M-node graph (counts reset before, read after: K8
+and K6b launched): the same rounds and centrality as the single-card job;
+its rounds again against K6a, every round's registers bit-equal; K8 on one
+(shard, step) bucket bit-equal to its plain version.
+
 Prints per-kernel times beside the least time the card could take (bytes
 once over 3.35 TB/s or operations over the peak) and the time of a PyTorch
 call computing the same function where there is one, qps, p50 and p99, the
@@ -144,6 +161,13 @@ MOE_E, MOE_STEPS, MOE_B, MOE_LR, MOE_ALPHA, TEACHER_SCALE = 4, 20, 32, 3e-4, 2.0
 MOE_TIMED = 3
 MOE_KERNELS = ("moe_router", "moe_select", "loss_heads", "adamw_bf16", "adamw")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
+# the mesh of shards on the card: its corpus (a segment a shard, 1M pages in
+# all), the kernels its serving round must launch, and K9 held against its
+# plain version at (shards, K): the serving path's K = 512 (the bucket of the
+# pipeline's 300 results) on 4 shards, then K = 1024 on 4 and 8, over a batch
+MESH_SHARDS, MESH_DOCS, MESH_SEEDS = 4, 250_000, (1, 2, 3, 4)
+MESH_SERVING = ("stage_a", "stage_b_joined", "signals_q16", "mesh_topk")
+MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
 
 # Tolerances, kernel against plain version on the same card:
 #  stage A  scores rtol 1e-5, atol 5e-2: the plain version takes per-doc sums
@@ -169,6 +193,15 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #  K6a, K7  registers and distances bit-equal (max and min are exact); K6b
 #           sizes rel 1e-6 (the 64 powers of two of a row summed in another
 #           order); whole HyperBall centrality rtol 1e-6 with the same rounds
+#  K8      rows bit-equal (max is exact and order-free), the last step's
+#           sizes rel 1e-6 (as K6b); the mesh's HyperBall: every round's
+#           registers bit-equal to K6a's, the same rounds, centrality rtol
+#           1e-5, atol 1e-9 (expected equal: the same rows through the same
+#           estimate and the same f64 sums)
+#  K9      docs, shards and scores bit-equal (a selection: no arithmetic);
+#           the mesh's pass 1 against the per-segment path: scores rtol 1e-5
+#           (stage B's sums over the slots, joined on the card or on the
+#           host), docs equal up to ties
 #  K1 on q8 rows, K1 with UB  as stage A (UB adds (contrib - ub) + U per
 #           entry and takes n*U back out: the same sums, in the atomics' order)
 #  K11 alone  bit-equal (integer work), and equal to the host join on q16 rows
@@ -197,6 +230,7 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 #           the plain versions': one-step differences within a bf16 step grow
 #           through AdamW, whose first updates are ~lr x sign(g)
 A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
+MESH_TOL = 1e-5
 P12_TOL, RERANK_TOL = (1e-5, 1e-5), (1e-6, 2e-6)
 MOE_CURVE_RTOL = 0.05
 # top-10 pages of a configuration against the default's, scores within rtol
@@ -240,7 +274,8 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "loss_heads": "rtol 1e-5",
             "adamw_bf16": "1 bf16 step after 3 steps",
             "hll_merge": "registers bit-equal, sizes rel 1e-6",
-            "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal"}
+            "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal",
+            "mesh_topk": "bit-equal", "hll_ring_step": "rows bit-equal, sizes rel 1e-6"}
 
 
 def log(*a):
@@ -1532,7 +1567,7 @@ def centrality_phase(data_dir: str) -> dict:
     round, sizes within rel 1e-6, and the whole HyperBall and the whole
     256-source BFS through the plain versions: the same round count,
     centrality within rtol 1e-6, distances equal. → {"jobs", "rows",
-    "graph_s"}; rows (name, err, ms, plain ms, shape, bytes, ops)."""
+    "graph_s", "graph"}; rows (name, err, ms, plain ms, shape, bytes, ops)."""
     import numpy as np
     import torch
 
@@ -1591,7 +1626,7 @@ def centrality_phase(data_dir: str) -> dict:
         if any(launches[k] == 0 for k in expect):
             raise AssertionError(f"{mode}: a kernel was not launched by the job: {launches}")
         jobs[mode] = {"seconds": seconds, "timings": timings, "launches": launches,
-                      "top": name, "top_value": float(vals.max())}
+                      "top": name, "top_value": float(vals.max()), "values": c}
         log(f"[centrality] {mode}: {seconds:.2f}s {json.dumps(timings)} launches "
             f"{ {k: launches[k] for k in expect} } card={card_line()}")
 
@@ -1667,7 +1702,278 @@ def centrality_phase(data_dir: str) -> dict:
         raise AssertionError("the 256-source BFS through K7 and through the plain version differ")
     log(f"[centrality] whole {GRAPH_SAMPLES}-source BFS, kernels vs plain: {t_k['n_rounds']} "
         f"rounds each, {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, distances equal")
-    return {"jobs": jobs, "rows": rows, "graph_s": graph_s}
+    return {"jobs": jobs, "rows": rows, "graph_s": graph_s, "graph": g.path}
+
+
+def start_mesh_corpus(data_dir: str):
+    """Write the mesh's corpus (MESH_SHARDS segments of MESH_DOCS pages, seeds
+    MESH_SEEDS, one index_meta.json) in a child process, a writer per
+    segment, while the main corpus is built → the Popen (mesh_corpus reads
+    it)."""
+    code = (f"import sys\nsys.path.insert(0, {ROOT!r})\n"
+            "from stract_tpu_torch import bench_corpus as bc\n"
+            f"print(bc.ensure_segmented_corpus({data_dir!r}, {[MESH_DOCS] * MESH_SHARDS}, "
+            f"{list(MESH_SEEDS)}, workers={MESH_SHARDS}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def mesh_corpus(proc) -> str:
+    """Wait for start_mesh_corpus's child → the index directory."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the mesh corpus was not written:\n{out[-2000:]}")
+    return out.strip().splitlines()[-1]
+
+
+def gathered(B: int, n: int, K: int, seed: int):
+    """Per-shard top-K lists of B queries gathered shard-major, on the card
+    → (scores f32[B, n, K], docs i32[B, n, K]): each list descending on a
+    coarse grid (ties across and within shards), with a -inf tail (a shard
+    with fewer matches than K); the last shard of query 0 all -inf."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    scores = np.sort(rng.integers(0, 64, (B, n, K)).astype(np.float32) / 4, axis=2)[..., ::-1]
+    scores = np.ascontiguousarray(scores)
+    tails = rng.integers(K // 4, K + 1, (B, n))
+    for b in range(B):
+        for d in range(n):
+            scores[b, d, tails[b, d]:] = -np.inf
+    scores[0, -1, :] = -np.inf
+    docs = rng.integers(0, MESH_DOCS, (B, n, K)).astype(np.int32)
+    return torch.from_numpy(scores).to(DEVICE), torch.from_numpy(docs).to(DEVICE)
+
+
+def mesh_topk_rows() -> tuple:
+    """K9 against its plain version (a stable sort: lax.top_k's order) at
+    MESH_TOPK_SHAPES, B = MESH_TOPK_B queries: docs, shards and scores
+    bit-equal; timed beside torch.topk over the same flattened rows. →
+    (rows (name, err, ms, plain ms, (n, K, B), bytes, ops), library ms at the
+    first shape)."""
+    import torch
+
+    from stract_tpu_torch.ops import scoring as O
+
+    rows, library = [], None
+    for i, (n, K) in enumerate(MESH_TOPK_SHAPES):
+        B = MESH_TOPK_B
+        scores, docs = gathered(B, n, K, SEED + 20 + i)
+        run_k = lambda: O.mesh_topk(scores, docs, K)  # noqa: E731
+        run_p = lambda: O.mesh_topk_plain(scores, docs, K)  # noqa: E731
+        for a, b in zip(run_k(), run_p()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K9 differs from its plain version at n={n} K={K}")
+        flat = scores.view(B, n * K)
+        lib = time_ms(lambda: torch.topk(flat, K))
+        library = library if library is not None else lib
+        rows.append(("mesh_topk", 0.0, time_ms(run_k), time_ms(run_p), (n, K, B),
+                     8 * B * n * K + 12 * B * K, B * n * K))
+        log(f"[mesh] K9 n={n} K={K} B={B}: bit-equal to the plain version; torch.topk "
+            f"{lib:.4f} ms")
+    return rows, library
+
+
+def mesh_serve_phase(index_dir: str, card: str) -> dict:
+    """The mesh's serving path: the 4-segment index served by a search shard
+    (entrypoint/search_server.py run) on a mesh of MESH_SHARDS entries on the
+    card, over sonic, with the coordinator (entrypoint/api.py, found by
+    gossip) and the HTTP server in front; one round of the request mix,
+    counts reset just before and read just after; every request answered and
+    K1, the joined stage B, pass 2 and K9 launched. Then the same index
+    without a mesh (build_searcher: per segment on the card) serves the same
+    round, and the 8 compare queries are held between the two: pass 1's
+    top-10 candidates (stage B's exact scores) within rtol 1e-5 with docs
+    equal up to ties, and the top-10 pages within PAGE_RTOL (their scores
+    come from q16 signal rows: the shard's eager pass 2 against the lazy
+    page materialisation, as the configurations'). → record."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.config import ApiConfig
+    from stract_tpu_torch.entrypoint import search_server
+    from stract_tpu_torch.entrypoint.api import build_coordinator
+    from stract_tpu_torch.main import build_searcher
+    from stract_tpu_torch.parallel.mesh import Mesh
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    mesh = Mesh([torch.device(DEVICE, 0)] * MESH_SHARDS, axis_names=("x",))
+    t0 = time.perf_counter()
+    server, shard_cluster = search_server.run(index_dir, 0, mesh=mesh, device=DEVICE)
+    svc = server.server.service
+    api_cluster = None
+    try:
+        sharded = svc.searcher._sharded
+        if sharded is None or sharded.n != MESH_SHARDS or len(sharded._segments) != MESH_SHARDS:
+            raise AssertionError("the shard server did not take the mesh path")
+        host, port = shard_cluster.gossip_addr
+        api, api_cluster = build_coordinator(
+            ApiConfig(gossip={"addr": "127.0.0.1:0", "seeds": [f"{host}:{port}"]}), DEVICE)
+        if api_cluster.await_member(lambda m: m.service.kind == "search-server",
+                                    timeout=30) is None:
+            raise AssertionError("the coordinator did not find the shard server")
+        setup_s = time.perf_counter() - t0
+        served = serve_phase(api, MESH_SERVING)
+        stats = dict(sharded.stats)
+        log(f"[mesh serve] {json.dumps(served)} card={card}")
+        bodies = compare_bodies()
+        mesh_pages = top10_pages(api)
+        mesh_cands = svc.searcher.search_initial_many(
+            [SearchQuery.from_json(b) for b in bodies], 10)
+    finally:
+        if api_cluster is not None:
+            api.searcher.client.close()  # the shard's handlers end before its loop stops
+            api_cluster.shutdown()
+        shard_cluster.shutdown()
+        server.stop()
+        svc.searcher.batcher.stop()
+    del svc, server
+    torch.cuda.empty_cache()
+
+    ref = build_searcher(index_dir, DEVICE)
+    # the per-segment path's pages take their rows from stage B's fused rows
+    # here, so pass 2 may not run
+    served_ref = serve_phase(ref, ("stage_a", "stage_b"))
+    ref_pages = top10_pages(ref)
+    ref_cands = ref.searcher.searchers[0].search_initial_many(
+        [SearchQuery.from_json(b) for b in bodies], 10)
+    del ref
+    torch.cuda.empty_cache()
+    cand_err, page_err, n_docs = 0.0, 0.0, 0
+    for body, (cm, nm), (cr, nr), wm, wr in zip(bodies, mesh_cands, ref_cands, mesh_pages,
+                                                ref_pages):
+        if len(cm) != len(cr) or nm.to_json() != nr.to_json():
+            raise AssertionError(f"the mesh's pass 1 differs on {body}: {len(cm)} vs {len(cr)}")
+        ids = lambda cs: np.array([c.pointer.segment << 32 | c.pointer.doc  # noqa: E731
+                                   for c in cs], dtype=np.int64)
+        if cm:
+            cand_err = max(cand_err, topk_match(
+                ids(cr), np.array([c.score for c in cr]), ids(cm),
+                np.array([c.score for c in cm]), -1, MESH_TOL, 0.0))
+            np.testing.assert_allclose([c.score for c in cm], [c.score for c in cr],
+                                       rtol=MESH_TOL)
+        diff = page_diff(wm, wr, PAGE_RTOL)
+        if diff is None:
+            raise AssertionError(f"the mesh's top-10 page differs on {body}")
+        page_err, n_docs = max(page_err, diff), n_docs + len(wm)
+    if n_docs == 0:
+        raise AssertionError("the compared queries returned nothing")
+    return {"docs": MESH_DOCS * MESH_SHARDS, "shards": MESH_SHARDS, "setup_s": setup_s,
+            "qps": served["qps"], "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
+            "failed": served["failed"], "requests": served["requests"],
+            "launches": served["launches"],
+            "driver_share": stats["driver"] / max(stats["queries"], 1), "shard_stats": stats,
+            "unsharded_qps": served_ref["qps"], "unsharded_p50_ms": served_ref["p50_ms"],
+            "unsharded_p99_ms": served_ref["p99_ms"], "compared": len(bodies),
+            "top10_docs": n_docs, "pass1_max_score_diff": cand_err,
+            "page_max_score_diff": page_err}
+
+
+def mesh_centrality_phase(data_dir: str, cent: dict, card: str) -> dict:
+    """The centrality job on a mesh of MESH_SHARDS entries on the card, over
+    the centrality phase's graph (1M nodes, 20M edges): run_harmonic(mesh=),
+    counts reset just before and read just after (K8 and K6b launched); the
+    same rounds as the single-card job and its centrality within rtol 1e-5.
+    Then the rounds again, ring against K6a from the same registers: every
+    round's registers bit-equal and the change flags equal. Then K8 on one
+    (shard, step) bucket against its plain version: the rows bit-equal, and
+    the last step's change flag and sizes (rel 1e-6). → {"record", "rows",
+    "launches"}; rows as centrality_phase's."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.entrypoint.centrality import run_harmonic
+    from stract_tpu_torch.ops import hll_ops as HO
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.parallel.mesh import Mesh
+    from stract_tpu_torch.webgraph import Webgraph
+    from stract_tpu_torch.webgraph import centrality as WC
+    from stract_tpu_torch.webgraph import shortest_path as SP
+    from stract_tpu_torch.webgraph.csr import graph_in_csr
+
+    dev = torch.device(DEVICE)
+    mesh = Mesh([dev] * MESH_SHARDS, axis_names=("x",))
+    single = cent["jobs"]["harmonic"]
+    timings = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    c = run_harmonic(cent["graph"], os.path.join(data_dir, "mesh-kv"), 6, DEVICE,
+                     timings=timings, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches["hll_ring_step"] == 0 or launches["hll_estimate"] == 0:
+        raise AssertionError(f"the mesh's HyperBall did not launch K8 and K6b: {launches}")
+    if timings["n_rounds"] != single["timings"]["n_rounds"] or list(c) != list(single["values"]):
+        raise AssertionError(f"mesh rounds {timings['n_rounds']} vs "
+                             f"{single['timings']['n_rounds']}")
+    ref = single["values"]
+    np.testing.assert_allclose([c[k] for k in ref], list(ref.values()), rtol=1e-5, atol=1e-9)
+    cent_err = float(max(abs(c[k] - v) / max(abs(v), 1e-300) for k, v in ref.items()))
+    stage = {k: timings[k] for k in ("bucket", "setup", "estimate", "rounds", "n_rounds")}
+    log(f"[mesh centrality] {MESH_SHARDS} shards: {seconds:.2f}s, stages {json.dumps(stage)} "
+        f"launches { {k: launches[k] for k in ('hll_ring_step', 'hll_estimate')} } "
+        f"centrality max rel diff vs single card {cent_err:.3g} card={card}")
+
+    # the rounds again: the ring against K6a, register for register
+    g = Webgraph(cent["graph"])
+    n = g.num_nodes
+    ef, et = SP.forward_edges(g)
+    csr = graph_in_csr(g, dev)
+    t1 = time.perf_counter()
+    buckets = WC.ring_buckets(n, ef, et, [dev] * MESH_SHARDS)
+    S = -(-n // MESH_SHARDS)
+    regs0 = np.zeros((S * MESH_SHARDS, 64), np.uint8)
+    regs0[:n] = HO.init_registers(n, 6)
+    regs = torch.from_numpy(regs0[:n]).to(dev)
+    shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(dev) for d in range(MESH_SHARDS)]
+    spare = torch.empty_like(regs)
+    rounds = 0
+    while True:
+        new, _, changed = HO.merge_csr(regs, csr, out=spare, sizes=False)
+        nsh, _, ch = WC.ring_round(shards, buckets, sizes=False)
+        if not torch.equal(torch.cat(nsh)[:n], new):
+            raise AssertionError(f"the ring's registers differ from K6a's after round {rounds + 1}")
+        if int(changed.item()) != int(any(int(x.item()) for x in ch)):
+            raise AssertionError("the ring's change flag differs from K6a's")
+        if not int(changed.item()):
+            break
+        rounds += 1
+        regs, spare, shards = new, regs, nsh
+    if rounds != timings["n_rounds"]:
+        raise AssertionError(f"{rounds} register rounds vs the job's {timings['n_rounds']}")
+    log(f"[mesh centrality] {rounds} rounds, the ring's registers bit-equal to K6a's after "
+        f"each ({time.perf_counter() - t1:.1f}s)")
+
+    # K8 alone on one (shard, step) bucket, from the last round's registers
+    bucket = buckets[0][1]
+    E, m = int(bucket.sources.numel()), 64
+    start, buf = shards[0], shards[1]
+    out_k, out_p = start.clone(), start.clone()
+    HO.ring_step(out_k, buf, bucket)
+    HO.ring_step_plain(out_p, buf, bucket)
+    if not torch.equal(out_k, out_p):
+        raise AssertionError("K8 differs from its plain version")
+    rows_init = torch.from_numpy(regs0[:S]).to(dev)
+    out_k, out_p = rows_init.clone(), rows_init.clone()
+    ch_k, sz_k = HO.ring_step(out_k, torch.from_numpy(regs0[S:2 * S]).to(dev), bucket,
+                              start=rows_init, sizes=True)
+    HO.ring_step_plain(out_p, torch.from_numpy(regs0[S:2 * S]).to(dev), bucket)
+    sz_p = HO.estimate_sizes_plain(out_p)
+    if not torch.equal(out_k, out_p) or int(ch_k.item()) != int(not torch.equal(out_p, rows_init)):
+        raise AssertionError("K8's last step differs from its plain version")
+    torch.testing.assert_close(sz_k, sz_p, rtol=1e-6, atol=0)
+    err = float(((sz_k - sz_p).abs() / sz_p.abs()).max())
+    out_t = start.clone()
+    rows = [("hll_ring_step", err, time_ms(lambda: HO.ring_step(out_t, buf, bucket)),
+             time_ms(lambda: HO.ring_step_plain(out_t, buf, bucket), iters=3), (S, m, E),
+             3 * S * m + 4 * (S + 1) + 4 * E + 4 * bucket.long_rows.numel(), E * m)]
+    log(f"[mesh centrality] K8 on bucket (0, 1): {S} rows, {E} edges, bit-equal to the plain "
+        f"version; last step's sizes max rel diff {err:.3g}")
+    record = {"shards": MESH_SHARDS, "seconds": seconds, "stages": stage,
+              "launches": {k: launches[k] for k in ("hll_ring_step", "hll_estimate")},
+              "rounds": timings["n_rounds"], "centrality_max_rel_diff": cent_err}
+    return {"record": record, "rows": rows, "launches": launches}
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
@@ -1728,21 +2034,22 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card, config_launches, moe_launches) -> list:
+                   card, config_launches, moe_launches, mesh) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
     path, named under "path" (training for the training kernels and the pool,
     the centrality jobs for the graph kernels, its configuration's HTTP round
     for the configurations' kernels, one direct call for the DIRECT three,
-    the MoE steps for K15a-d, the pipeline-on traffic for the rest). Each
-    measured row is logged too."""
+    the MoE steps for K15a-d, the mesh's serving round for K9 and its
+    HyperBall for K8, the pipeline-on traffic for the rest). Each measured
+    row is logged too."""
     all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
                 for name, ds, err, ms, pms, shape, nb, ops in rows]
     all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
                  for name, err, ms, pms, shape in rows_m]
     all_rows += [(name, err, ms, pms, shape, *bound(nb, ops), True)
-                 for name, err, ms, pms, shape, nb, ops in cent["rows"]]
+                 for name, err, ms, pms, shape, nb, ops in cent["rows"] + mesh["rows"]]
     for name, err, ms, pms, shape, bms, by, ds in all_rows:
         log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
             f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms "
@@ -1784,7 +2091,11 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "loss_heads": ("triton", "stract_tpu_torch/ops/losses.py",
                            "stract_tpu/entrypoint/train_encoders.py:249", None),
             "adamw_bf16": ("triton", "stract_tpu_torch/optim.py",
-                           "stract_tpu/parallel/train.py:36", None)}
+                           "stract_tpu/parallel/train.py:36", None),
+            "mesh_topk": ("cuda", src + "scoring.cu", "stract_tpu/parallel/search.py:81",
+                          MESH_TOPK_SHAPES[0]),
+            "hll_ring_step": ("cuda", src + "graph.cu",
+                              "stract_tpu/webgraph/centrality.py:153", None)}
     out = []
     for name, (route, source, replaces, main_shape) in meta.items():
         mine = [r for r in all_rows if r[0] == name]
@@ -1798,6 +2109,8 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             launches, path = config_launches[name], "http, pipeline off, its configuration"
         elif name in TRAINING[3:]:
             launches, path = train_launches[name], "training"
+        elif name in mesh["launches"]:
+            launches, path = mesh["launches"][name], mesh["paths"][name]
         elif name == "bfs_relax":
             launches = cent["jobs"]["approx-harmonic"]["launches"][name]
             path = "centrality approx-harmonic"
@@ -1849,13 +2162,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from stract_tpu_torch import bench_corpus as bc
     from stract_tpu_torch import native
-    from stract_tpu_torch.index.embeddings import write_embedding_columns
-    from stract_tpu_torch.main import build_searcher
-    from stract_tpu_torch.models.dual_encoder import DualEncoder
     from stract_tpu_torch.ops import kernels
-    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1868,6 +2176,24 @@ def main() -> int:
     log(f"[setup] kernels and the native host library built in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     data_dir = os.path.join(ROOT, "data", "torch_smoke")
+    mesh_proc = start_mesh_corpus(data_dir)
+    try:
+        return run_phases(data_dir, mesh_proc, card, t_start, t)
+    finally:
+        if mesh_proc.poll() is None:
+            mesh_proc.kill()
+            mesh_proc.wait()
+
+
+def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) -> int:
+    import torch
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.index.embeddings import write_embedding_columns
+    from stract_tpu_torch.main import build_searcher
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
+
     index_dir = bc.ensure_corpus(data_dir, DOCS, seed=SEED, log=log)
     log(f"[setup] corpus ready in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -1958,6 +2284,23 @@ def main() -> int:
     library.update(lib_c)
     library.update(moe["library"])
 
+    # ---- the mesh of shards on the card: the shard server and coordinator, K9 -----------
+    t = time.perf_counter()
+    mesh_dir = mesh_corpus(mesh_proc)
+    log(f"[mesh] corpus of {MESH_SHARDS} x {MESH_DOCS} docs ready {time.perf_counter() - t:.1f}s "
+        f"after it was awaited: {mesh_dir}")
+    mesh_serve = mesh_serve_phase(mesh_dir, card)
+    log(f"[result mesh serve] docs={mesh_serve['docs']} shards={MESH_SHARDS} qps="
+        f"{mesh_serve['qps']:.2f} p50_ms={mesh_serve['p50_ms']:.1f} p99_ms="
+        f"{mesh_serve['p99_ms']:.1f} failed={mesh_serve['failed']} mesh_topk_launches="
+        f"{mesh_serve['launches']['mesh_topk']} driver_share={mesh_serve['driver_share']:.3f} "
+        f"unsharded_qps={mesh_serve['unsharded_qps']:.2f} unsharded_p50_ms="
+        f"{mesh_serve['unsharded_p50_ms']:.1f} unsharded_p99_ms="
+        f"{mesh_serve['unsharded_p99_ms']:.1f} pass1_max_score_diff="
+        f"{mesh_serve['pass1_max_score_diff']:.3g} page_max_score_diff="
+        f"{mesh_serve['page_max_score_diff']:.3g} card={card}")
+    rows_k9, library["mesh_topk"] = mesh_topk_rows()
+
     # ---- the webgraph centrality job: K6a-b, K7 --------------------------------------
     cent = centrality_phase(os.path.join(data_dir, "centrality"))
     log(f"[result centrality] nodes={GRAPH_NODES} edges={GRAPH_EDGES} graph_s="
@@ -1967,9 +2310,19 @@ def main() -> int:
         f"bfs_rounds={cent['jobs']['approx-harmonic']['timings']['n_rounds']} "
         f"total_s={time.perf_counter() - t_start:.1f} card={card}")
 
+    # ---- the webgraph centrality job on a mesh of shards: K8 -------------------------
+    mesh_cent = mesh_centrality_phase(os.path.join(data_dir, "centrality"), cent, card)
+    log(f"[result mesh centrality] {json.dumps(mesh_cent['record'])} card={card}")
+
+    mesh = {"rows": rows_k9 + mesh_cent["rows"],
+            "launches": {"mesh_topk": mesh_serve["launches"]["mesh_topk"],
+                         "hll_ring_step": mesh_cent["launches"]["hll_ring_step"]},
+            "paths": {"mesh_topk": f"http, a search shard on a mesh of {MESH_SHARDS} shards "
+                                   "behind the coordinator",
+                      "hll_ring_step": f"centrality harmonic on a mesh of {MESH_SHARDS} shards"}}
     kernels_out = kernel_records(rows + rows_c + moe["rows"], rows_m, cent, library,
                                  served["launches"], models["launches"], forest, card,
-                                 config_launches, moe["launches"])
+                                 config_launches, moe["launches"], mesh)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

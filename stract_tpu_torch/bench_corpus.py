@@ -268,6 +268,35 @@ def ensure_corpus(root: str, docs: int, seed: int = 0, log=print) -> str:
     return index_path
 
 
+def ensure_segmented_corpus(root: str, docs: list, seeds: list, log=print,
+                            workers: int = 1) -> str:
+    """Idempotent: an index dir of len(docs) segments, segment i holding
+    docs[i] pages drawn from seeds[i] (a shard per segment on a mesh,
+    parallel/search.py), written by up to `workers` processes at once;
+    → index path."""
+    name = "bench-" + "-".join(f"{d}s{s}" for d, s in zip(docs, seeds))
+    index_path = os.path.join(root, name)
+    names = [f"seg-{i}" for i in range(len(docs))]
+    meta_p = os.path.join(index_path, "index_meta.json")
+    if os.path.exists(meta_p):
+        return index_path
+    os.makedirs(os.path.join(index_path, "segments"), exist_ok=True)
+    dirs = [os.path.join(index_path, "segments", seg) for seg in names]
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(min(workers, len(docs)), mp_context=ctx) as pool:
+            list(pool.map(build_corpus_segment, dirs, docs, seeds))
+    else:
+        for path, d, seed in zip(dirs, docs, seeds):
+            build_corpus_segment(path, d, seed=seed, log=log)
+    with open(meta_p, "w") as fh:
+        json.dump({"segments": names, "embedding_dim": 0}, fh)
+    return index_path
+
+
 def sample_queries(rng, n: int, max_common: int = 300) -> list:
     """Realistic 2-term AND queries: one head term + one mid-frequency term."""
     out = []

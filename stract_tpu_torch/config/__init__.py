@@ -1,12 +1,13 @@
 """TOML config structs — the part of stract_tpu/config/__init__.py the
 port's command line reads (role of reference crates/core/src/config/,
-main.rs:267-275 load_toml_config): the centrality job's config, read from the
-same TOML files (configs/centrality.toml)."""
+main.rs:267-275 load_toml_config): the coordinator's, the search shard's and
+the centrality job's configs, read from the same TOML files
+(configs/api.toml, configs/search_server.toml, configs/centrality.toml)."""
 
 from __future__ import annotations
 
 import tomllib
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 
 def load_toml(path: str) -> dict:
@@ -17,6 +18,52 @@ def load_toml(path: str) -> dict:
 def _from_dict(cls, d: dict):
     known = {f.name for f in fields(cls)}
     return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class GossipConfig:
+    addr: str = "127.0.0.1:0"
+    seeds: list = field(default_factory=list)
+
+    def addr_tuple(self):
+        h, p = self.addr.rsplit(":", 1)
+        return (h, int(p))
+
+    def seed_tuples(self):
+        return [(s.rsplit(":", 1)[0], int(s.rsplit(":", 1)[1])) for s in self.seeds]
+
+
+@dataclass
+class ApiConfig:
+    host: str = "0.0.0.0"
+    port: int = 3000
+    gossip: dict = field(default_factory=dict)
+    bangs_path: str = ""
+    autosuggest_path: str = ""
+    spell_path: str = ""
+    entity_index_path: str = ""
+    host_graph_path: str = ""
+    page_graph_path: str = ""
+    entity_image_store_path: str = ""
+    lambdamart_path: str = ""
+    dual_encoder_path: str = ""
+    cross_encoder_path: str = ""
+    max_concurrency: int = 64
+    improvement_log_path: str = ""
+
+
+@dataclass
+class SearchServerConfig:
+    index_path: str = "data/index"
+    shard: int = 0
+    host: str = "127.0.0.1"
+    port: int = 0
+    gossip: dict = field(default_factory=dict)
+    linear_model_path: str = ""
+    max_docs_considered: int = 1000
+    # "auto": the mesh path when this process sees more than one card
+    # (parallel/search.py); "off": the per-segment path
+    mesh_search: str = "auto"
 
 
 @dataclass
@@ -31,7 +78,8 @@ class CentralityConfig:
     discount_factor: float = 0.85
 
 
-CONFIG_TYPES = {"centrality": CentralityConfig}
+CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
+                "centrality": CentralityConfig}
 
 
 def load_config(kind: str, path: str):

@@ -1,5 +1,6 @@
 // The webgraph centrality kernels on Hopper (sm_90a): K6a HyperBall register
-// merge, K6b HLL size estimate, K7 BFS relaxation.
+// merge, K6b HLL size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
+// ring step.
 //
 // K6a replaces stract_tpu/ops/hll_ops.py:50 merge_iteration (a gather of
 // regs[edge_from] and a scatter-max into regs[edge_to]); its epilogue also
@@ -31,6 +32,18 @@
 // memory); every other row is walked by one group of threads. The short-row
 // blocks cover all rows in order and skip the long ones; blocks past them
 // take one long row each.
+//
+// K8, the ring step of the sharded HyperBall, replaces round_fn's step of
+// stract_tpu/webgraph/centrality.py:148-165 (`out.at[let[k]].max(buf[lef[k]],
+// mode="drop")` on each device, then a ppermute of the register shard). It is
+// K6a's body over one (shard, ring distance) bucket: the bucket's edges are
+// sorted by local target into a CSR on the host, the row's running value
+// comes from `out` and the gathered rows from the ring buffer (the round-start
+// shard standing at that distance, never written), so it needs no atomics and
+// the registers stay bit-equal to the reference's. The round's last step
+// compares each row with the round-start shard (the change flag) and
+// estimates it (K6b in the epilogue). Bound like K6a: a gather per edge, over
+// one shard's rows, plus the shard's rows read and written once a step.
 //
 // K6b's arithmetic follows the reference in f32: alpha * m * m / sum of
 // 2^-r left to right, the linear-counting branch m * log(m / zeros) when the
@@ -87,31 +100,40 @@ __device__ float hll_estimate(float sum, int zeros, const HllShape& s) {
     return (est <= 2.5f * s.m && z > 0.0f) ? lc : est;
 }
 
-// the epilogue of one row: write the new row, flag a change, estimate
-__device__ void merge_epilogue(bool valid, long long v, const uint32_t* acc,
-                               const uint32_t* __restrict__ regs, uint32_t* __restrict__ out,
-                               float* __restrict__ sizes, int* __restrict__ changed, int g,
-                               const HllShape& s) {
+// the epilogue of one row: write the new row, flag a change against `cmp`
+// (when given), estimate (when `sizes` is given)
+__device__ void merge_epilogue(bool valid, long long v, const uint32_t* acc, const uint32_t* cmp,
+                               uint32_t* out, float* __restrict__ sizes, int* __restrict__ changed,
+                               int g, const HllShape& s) {
     bool diff = false;
     if (valid) {
         FOR_WORDS(k) {
             const long long w = v * s.W + g + k * s.G;
-            diff |= acc[k] != regs[w];
+            if (cmp != nullptr) diff |= acc[k] != cmp[w];
             out[w] = acc[k];
         }
     }
-    float sum;
-    int zeros;
-    row_sum(acc, s, sum, zeros);
-    if (valid && g == 0 && sizes != nullptr) sizes[v] = hll_estimate(sum, zeros, s);
+    if (sizes != nullptr) {
+        float sum;
+        int zeros;
+        row_sum(acc, s, sum, zeros);
+        if (valid && g == 0) sizes[v] = hll_estimate(sum, zeros, s);
+    }
     if (diff) *changed = 1;
 }
 
+// K6a and the ring step (K8) in one body: row v of `out` becomes the bytewise
+// max of `self` row v and the `src` rows of its in-edges. K6a reads self,
+// src and cmp from the round-start registers; the ring step reads self from
+// `out` itself (its running row) and src from the ring buffer, a different
+// tensor, and compares with the round-start shard at its last step only. A
+// row is read and written by the same threads, so self may be out (neither is
+// __restrict__); src is never written.
 __global__ void __launch_bounds__(kThreads)
-hll_merge_kernel(const uint32_t* __restrict__ regs, const int* __restrict__ offsets,
-                 const int* __restrict__ sources, const int* __restrict__ long_rows,
-                 int short_blocks, int long_cut, HllShape s, uint32_t* __restrict__ out,
-                 float* __restrict__ sizes, int* __restrict__ changed) {
+hll_merge_kernel(const uint32_t* self, const uint32_t* __restrict__ src, const uint32_t* cmp,
+                 const int* __restrict__ offsets, const int* __restrict__ sources,
+                 const int* __restrict__ long_rows, int short_blocks, int long_cut, HllShape s,
+                 uint32_t* out, float* __restrict__ sizes, int* __restrict__ changed) {
     __shared__ uint32_t s_part[kThreads * kMaxWordsPerThread];
     const int g = threadIdx.x % s.G, group = threadIdx.x / s.G, groups = kThreads / s.G;
     uint32_t acc[kMaxWordsPerThread];
@@ -126,12 +148,12 @@ hll_merge_kernel(const uint32_t* __restrict__ regs, const int* __restrict__ offs
             end = offsets[v + 1];
             valid = end - start <= long_cut;
         }
-        FOR_WORDS(k) acc[k] = valid ? regs[v * s.W + g + k * s.G] : 0u;
+        FOR_WORDS(k) acc[k] = valid ? self[v * s.W + g + k * s.G] : 0u;
         for (int e = start; valid && e < end; ++e) {
             const long long u = sources[e];
-            FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], regs[u * s.W + g + k * s.G]);
+            FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], src[u * s.W + g + k * s.G]);
         }
-        merge_epilogue(valid, v, acc, regs, out, sizes, changed, g, s);
+        merge_epilogue(valid, v, acc, cmp, out, sizes, changed, g, s);
         return;
     }
 
@@ -139,10 +161,10 @@ hll_merge_kernel(const uint32_t* __restrict__ regs, const int* __restrict__ offs
     // rows meet in shared memory and the first warp finishes the row
     const long long v = long_rows[blockIdx.x - short_blocks];
     const int start = offsets[v], end = offsets[v + 1];
-    FOR_WORDS(k) acc[k] = group == 0 ? regs[v * s.W + g + k * s.G] : 0u;
+    FOR_WORDS(k) acc[k] = group == 0 ? self[v * s.W + g + k * s.G] : 0u;
     for (int e = start + group; e < end; e += groups) {
         const long long u = sources[e];
-        FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], regs[u * s.W + g + k * s.G]);
+        FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], src[u * s.W + g + k * s.G]);
     }
     FOR_WORDS(k) s_part[(group * s.wpt + k) * s.G + g] = acc[k];
     __syncthreads();
@@ -151,7 +173,7 @@ hll_merge_kernel(const uint32_t* __restrict__ regs, const int* __restrict__ offs
         FOR_WORDS(k)
             for (int q = 1; q < groups; ++q) acc[k] = __vmaxu4(acc[k], s_part[(q * s.wpt + k) * s.G + g]);
     }
-    merge_epilogue(group == 0, v, acc, regs, out, sizes, changed, g, s);
+    merge_epilogue(group == 0, v, acc, cmp, out, sizes, changed, g, s);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -285,9 +307,39 @@ int stract_hll_merge(const void* regs, const int* offsets, const int* sources,
     const HllShape s = hll_shape(n, m, alpha);
     const int groups = kThreads / s.G;
     const int short_blocks = (n + groups - 1) / groups;
+    const uint32_t* r = static_cast<const uint32_t*>(regs);
     hll_merge_kernel<<<short_blocks + n_long, kThreads, 0, stream>>>(
-        static_cast<const uint32_t*>(regs), offsets, sources, long_rows, short_blocks, long_cut, s,
+        r, r, r, offsets, sources, long_rows, short_blocks, long_cut, s,
         static_cast<uint32_t*>(out), sizes, changed);
+    return cudaGetLastError();
+}
+
+// K8, one ring step of one shard: out u8[S, m] (the shard's running rows,
+// updated in place) takes the max over the bucket's edges of the ring
+// buffer's rows buf u8[S, m] (another tensor: the round-start shard that
+// stands at this step's ring distance). offsets i32[S + 1], sources i32[E]:
+// the bucket's edges sorted by local target, sources local rows of buf;
+// long_rows as for K6a. At the round's last step `start` (the round-start
+// shard) is given: changed i32[1] (zeroed here) is set when a row differs
+// from it, and sizes f32[S] (may be null) get K6b's estimate of the new rows.
+int stract_hll_ring_step(void* out, const void* buf, const int* offsets, const int* sources,
+                         const int* long_rows, int n_long, int S, int m, int long_cut, float alpha,
+                         const void* start, float* sizes, int* changed, cudaStream_t stream) {
+    if (!hll_shape_ok(m) || S < 0 || n_long < 0 || long_cut < 0 || out == buf ||
+        (start != nullptr) != (changed != nullptr) || (sizes != nullptr && start == nullptr))
+        return cudaErrorInvalidValue;
+    if (changed != nullptr) {
+        cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), stream);
+        if (err != cudaSuccess) return err;
+    }
+    if (S == 0) return cudaSuccess;
+    const HllShape s = hll_shape(S, m, alpha);
+    const int groups = kThreads / s.G;
+    const int short_blocks = (S + groups - 1) / groups;
+    uint32_t* o = static_cast<uint32_t*>(out);
+    hll_merge_kernel<<<short_blocks + n_long, kThreads, 0, stream>>>(
+        o, static_cast<const uint32_t*>(buf), static_cast<const uint32_t*>(start), offsets,
+        sources, long_rows, short_blocks, long_cut, s, o, sizes, changed);
     return cudaGetLastError();
 }
 

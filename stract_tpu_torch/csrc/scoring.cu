@@ -80,6 +80,16 @@
 //     norm in one pass over the f16/bf16/f32 row), then the block's bitonic
 //     select with ties to the lower index, as lax.top_k. Bound by reading the
 //     B*K*H embedding rows once.
+// K9  stract_mesh_topk replaces the merge of the mesh's search programs
+//     (stract_tpu/parallel/search.py:40-44 and :83-85: the all-gather of each
+//     shard's top K, then lax.top_k over the n*K gathered scores): one block
+//     per query keeps the n*K <= 8,192 scores as ordered keys in shared
+//     memory, K1's radix select finds the k-th, and the kept set is
+//     lax.top_k's (keys equal to the k-th taken in index order by a
+//     block-wide count, not by atomics), ordered by a bitonic sort with ties
+//     to the lower index. Latency-bound: the work is 8,192 entries a query
+//     (about 64 KB read), a few microseconds of bytes; the select's four
+//     passes and the sort's 55 stages of block barriers set its time.
 //
 // Built with --fmad=false so a*b+c rounds like the separate multiply and add
 // of the reference and the plain PyTorch versions.
@@ -453,15 +463,14 @@ __global__ void stage_a_insert(const int* __restrict__ postings, long long n_row
   taux[slot] = aux;  // the aux word is a function of the doc: every writer agrees
 }
 
-// the K largest of a block's T ordered keys (0 = empty) into sk / si,
-// descending, key ties in no set order: a 4 x 8-bit radix select of the K-th
-// largest key, every key above it and enough ties, then the block's bitonic
-// sort of those S (a power of two >= K). Called by the whole block after the
-// keys are written and the block synchronised.
-__device__ void top_keys(const unsigned* keys, int T, int K, int S, unsigned* sk,
-                         int* si) {
+// a 4 x 8-bit radix select over a block's T ordered keys: `prefix` is the
+// K-th largest key, `krem` how many keys equal to it belong to the top K (the
+// others are above it). Called by the whole block after the keys are written
+// and the block synchronised; every thread gets both values.
+__device__ void radix_select(const unsigned* keys, int T, int K, unsigned& prefix_out,
+                             unsigned& krem_out) {
   __shared__ unsigned hist[256];
-  __shared__ unsigned sh_prefix, sh_krem, cnt_hi, cnt_tie;
+  __shared__ unsigned sh_prefix, sh_krem;
   unsigned prefix = 0, mask = 0, krem = (unsigned)K;
   for (int shift = 24; shift >= 0; shift -= 8) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
@@ -487,6 +496,20 @@ __device__ void top_keys(const unsigned* keys, int T, int K, int S, unsigned* sk
     mask |= 255u << shift;
     __syncthreads();
   }
+  prefix_out = prefix;
+  krem_out = krem;
+}
+
+// the K largest of a block's T ordered keys (0 = empty) into sk / si,
+// descending, key ties in no set order: the radix select of the K-th largest
+// key, every key above it and enough ties, then the block's bitonic sort of
+// those S (a power of two >= K). Called by the whole block after the keys are
+// written and the block synchronised.
+__device__ void top_keys(const unsigned* keys, int T, int K, int S, unsigned* sk,
+                         int* si) {
+  __shared__ unsigned cnt_hi, cnt_tie;
+  unsigned prefix, krem;
+  radix_select(keys, T, K, prefix, krem);
 
   // gather the K winners: every key above the threshold, then krem ties
   if (threadIdx.x == 0) {
@@ -1147,6 +1170,94 @@ __global__ void __launch_bounds__(1024) dense_rerank_kernel(
   }
 }
 
+// ---- K9 -----------------------------------------------------------------------
+// the gathered entries of one query (N = n shards x K, shard-major) and the
+// top k, in lax.top_k's order
+constexpr int MESH_MAX_N = 8192;
+constexpr int MESH_MAX_K = 1024;
+
+// the top k of a block's T ordered keys (all > 0) into sk / si in lax.top_k's
+// order: descending, ties to the lower index. The radix select finds the k-th
+// key; every key above it is kept, and of the keys equal to it the first krem
+// in index order (a block-wide ordered count, chunk by chunk), so the kept
+// set is lax.top_k's; the stable bitonic sort (distinct indices) then orders
+// it. Called by the whole block (a multiple of 32 threads, at most 1024) after
+// the keys are written and the block synchronised.
+__device__ void top_keys_stable(const unsigned* keys, int T, int k, int S, unsigned* sk,
+                                int* si) {
+  __shared__ unsigned cnt_hi, tie_base, warp_off[32];
+  unsigned prefix, krem;
+  radix_select(keys, T, k, prefix, krem);
+  if (threadIdx.x == 0) {
+    cnt_hi = 0;
+    tie_base = 0;
+  }
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    sk[i] = 0;
+    si[i] = -1;
+  }
+  __syncthreads();
+  const unsigned n_hi = (unsigned)k - krem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int c0 = 0; c0 < T; c0 += blockDim.x) {
+    const int i = c0 + threadIdx.x;
+    const unsigned key = i < T ? keys[i] : 0u;
+    if (key > prefix) {
+      const unsigned pos = atomicAdd(&cnt_hi, 1u);
+      sk[pos] = key;
+      si[pos] = i;
+    }
+    const bool tie = i < T && key == prefix;
+    const unsigned ballot = __ballot_sync(0xffffffffu, tie);
+    if (lane == 0) warp_off[warp] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned run = tie_base;
+      for (int w = 0; w < nw; ++w) {
+        const unsigned c = warp_off[w];
+        warp_off[w] = run;
+        run += c;
+      }
+      tie_base = run;
+    }
+    __syncthreads();
+    if (tie) {
+      const unsigned r = warp_off[warp] + __popc(ballot & ((1u << lane) - 1u));
+      if (r < krem) {
+        sk[n_hi + r] = key;
+        si[n_hi + r] = i;
+      }
+    }
+    __syncthreads();
+  }
+  bitonic_desc_stable(sk, si, S);
+}
+
+// one block per query: the N gathered scores as ordered keys in shared
+// memory, the stable top k, then each winner's doc and shard (index / K)
+__global__ void __launch_bounds__(1024) mesh_topk_kernel(
+    const float* __restrict__ scores, const int* __restrict__ docs, int N, int K, int k, int S,
+    int* __restrict__ out_docs, int* __restrict__ out_shards, float* __restrict__ out_scores) {
+  __shared__ unsigned keys[MESH_MAX_N];
+  __shared__ unsigned sk[MESH_MAX_K];
+  __shared__ int si[MESH_MAX_K];
+  const long long base = (long long)blockIdx.x * N;
+  // -0 and +0 compare equal in lax.top_k: one key for both (a -0 comes out +0)
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const float x = scores[base + i];
+    keys[i] = order_key(x == 0.0f ? 0.0f : x);
+  }
+  __syncthreads();
+  top_keys_stable(keys, N, k, S, sk, si);
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const int i = si[j];
+    const long long o = (long long)blockIdx.x * k + j;
+    out_docs[o] = docs[base + i];
+    out_shards[o] = i / K;
+    out_scores[o] = key_value(sk[j]);
+  }
+}
+
 int next_pow2(int n) {
   int p = 1;
   while (p < n) p <<= 1;
@@ -1351,6 +1462,20 @@ int stract_dense_rerank(const void* emb, int dtype, const float* qemb, const flo
   else
     dense_rerank_kernel<__nv_bfloat16><<<B, 1024, 0, stream>>>(
         (const __nv_bfloat16*)emb, qemb, base, K, H, weight, k, S, out_idx, out_scores);
+  return (int)cudaGetLastError();
+}
+
+// K9: scores f32[B, n, K], docs i32[B, n, K] (the per-shard top K of each
+// query, gathered shard-major) -> out_docs, out_shards i32[B, k], out_scores
+// f32[B, k], lax.top_k over the flattened n*K: descending, ties (and the -inf
+// pads) to the lower flat index.
+int stract_mesh_topk(const float* scores, const int* docs, int B, int n, int K, int k,
+                     int* out_docs, int* out_shards, float* out_scores, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || n < 1 || K < 1 || (long long)n * K > MESH_MAX_N || k < 1 ||
+      k > K || k > MESH_MAX_K)
+    return (int)cudaErrorInvalidValue;
+  mesh_topk_kernel<<<B, 1024, 0, stream>>>(scores, docs, n * K, K, k, next_pow2(k), out_docs,
+                                           out_shards, out_scores);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ import time
 
 from ..device import resolve_device
 from ..webgraph import Webgraph
-from ..webgraph.centrality import harmonic_centrality, store_harmonic
+from ..webgraph.centrality import (harmonic_centrality, harmonic_centrality_sharded,
+                                   store_harmonic)
 from ..webgraph.shortest_path import approx_harmonic_centrality
 
 
@@ -22,12 +23,17 @@ def _store(c: dict, output_path: str, timings: dict | None) -> None:
 
 
 def run_harmonic(graph_path: str, output_path: str, precision: int = 6, device="cuda",
-                 timings: dict | None = None) -> dict:
-    """HyperBall harmonic centrality of the graph → kv store. `timings`, when
-    given, receives the stages' seconds (harmonic_centrality's and
+                 timings: dict | None = None, mesh=None) -> dict:
+    """HyperBall harmonic centrality of the graph → kv store; over the shards
+    of `mesh` (parallel/mesh.py) when it has more than one entry, which then
+    sets the devices. `timings`, when given, receives the stages' seconds
+    (harmonic_centrality's or harmonic_centrality_sharded's, and
     "kv_write")."""
     graph = Webgraph(graph_path)
-    c = harmonic_centrality(graph, precision=precision, device=device, timings=timings)
+    if mesh is not None and mesh.devices.size > 1:
+        c = harmonic_centrality_sharded(graph, mesh, precision=precision, timings=timings)
+    else:
+        c = harmonic_centrality(graph, precision=precision, device=device, timings=timings)
     _store(c, output_path, timings)
     return c
 

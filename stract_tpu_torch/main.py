@@ -8,6 +8,8 @@
         [--steps 120] [--batch 16] [--triples 512] [--device cuda]
     python -m stract_tpu_torch.main centrality \
         {harmonic,approx-harmonic,harmonic-nearest-seed} CONFIG [--device cuda]
+    python -m stract_tpu_torch.main search-server CONFIG [--device cuda]
+    python -m stract_tpu_torch.main api CONFIG [--device cuda]
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -40,6 +42,16 @@ OUT/cross_encoder; --device cuda needs a card.
 (configs/centrality.toml); the job reads the webgraph at webgraph_path and
 writes the kv store at output_path, and prints what the JAX package prints.
 --device cuda needs a card.
+
+`search-server` and `api` are the JAX package's two serving roles of the
+same names: CONFIG is a SearchServerConfig TOML (configs/search_server.toml)
+or an ApiConfig TOML (configs/api.toml). A search server serves one index
+directory over sonic RPC (entrypoint/search_server.py) and announces itself
+by gossip; with mesh_search = "auto" and more than one card it serves the
+segments one per card (parallel/search.py). The api role joins gossip, fans
+each search out to the shards it finds and serves the search route over
+HTTP (entrypoint/api.py). Both speak the JAX package's wire forms, so the
+roles of the two packages mix. --device cpu runs the plain versions.
 """
 
 from __future__ import annotations
@@ -58,8 +70,7 @@ def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
     """The serving stack over one local shard, with the ranking pipeline's
     models loaded from the given paths onto `device` and the shard search in
     the given configuration (InvertedIndex's arguments) → ApiSearcher."""
-    from .ranking.pipeline import PrecisionStage, RankingPipeline, RecallStage
-
+    from .entrypoint.api import build_pipeline
     from .index.inverted import InvertedIndex
     from .searcher.api import ApiSearcher
     from .searcher.distributed import LocalShardedSearcher
@@ -70,21 +81,8 @@ def build_searcher(index_dir: str, device: str, dual_encoder: str | None = None,
                           merge_kernel=merge_kernel)
     for seg in index.segments:
         index.device_segment_for(seg)  # upload before the first request
-    recall, precision = RecallStage(), PrecisionStage()
-    if dual_encoder:
-        from .models.dual_encoder import DualEncoder
-
-        recall.dual_encoder = DualEncoder.load(dual_encoder, device=device)
-    if cross_encoder:
-        from .ranking.models.cross_encoder import CrossEncoderModel
-
-        precision.cross_encoder = CrossEncoderModel.load(cross_encoder, device=device)
-    if lambdamart:
-        from .ranking.models.lambdamart import LambdaMART
-
-        recall.lambdamart = precision.lambdamart = LambdaMART.load(lambdamart, device=device)
     return ApiSearcher(LocalShardedSearcher([LocalSearcher(index)]),
-                       RankingPipeline(recall, precision))
+                       build_pipeline(device, dual_encoder, cross_encoder, lambdamart))
 
 
 class ServerThread:
@@ -158,6 +156,12 @@ def run_centrality(mode: str, config: str, device: str = "cuda",
     return c
 
 
+def _wait_forever():
+    stop = threading.Event()
+    while not stop.wait(3600):
+        pass
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="stract_tpu_torch.main")
     sub = ap.add_subparsers(dest="role", required=True)
@@ -191,7 +195,33 @@ def main(argv=None):
     cp.add_argument("mode", choices=["harmonic", "approx-harmonic", "harmonic-nearest-seed"])
     cp.add_argument("config")
     cp.add_argument("--device", default="cuda", help="cuda or cpu")
+    for role, what in (("search-server", "a search shard over sonic RPC, announced by gossip"),
+                       ("api", "the coordinator: gossip, shard fan-out, HTTP search API")):
+        rp = sub.add_parser(role, help=what)
+        rp.add_argument("config")
+        rp.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args(argv)
+
+    if args.role == "search-server":
+        from .config import GossipConfig, _from_dict, load_config
+        from .entrypoint.search_server import run
+
+        cfg = load_config("search-server", args.config)
+        g = _from_dict(GossipConfig, cfg.gossip or {})
+        server, cluster = run(cfg.index_path, cfg.shard, cfg.host, cfg.port, g.addr_tuple(),
+                              g.seed_tuples(), linear_model_path=cfg.linear_model_path,
+                              mesh=cfg.mesh_search, device=args.device)
+        print(f"search-server shard={cfg.shard} rpc={server.addr} gossip={cluster.gossip_addr}",
+              flush=True)
+        _wait_forever()
+        return
+
+    if args.role == "api":
+        from .config import load_config
+        from .entrypoint.api import run
+
+        run(load_config("api", args.config), device=args.device)
+        return
 
     if args.role == "centrality":
         run_centrality(args.mode, args.config, args.device)

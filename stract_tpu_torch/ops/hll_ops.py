@@ -12,9 +12,14 @@ with no atomics, writes the new rows into a second buffer (so every read sees
 the round start, as the reference's gather-then-scatter), estimates the new
 rows' sizes in its epilogue and sets one flag when any row changed.
 
-`merge_iteration_plain` and `estimate_sizes_plain` are the plain PyTorch
-versions; the public functions take them for tensors on the CPU and launch the
-kernels for tensors on a card (or raise).
+The sharded HyperBall (webgraph/centrality.py) runs a round as ring steps
+over its register shards: `ring_step` (K8) takes the max of a shard's
+running rows and the ring buffer's rows over one (shard, ring distance)
+bucket of edges, pulled over the bucket's reverse CSR like K6a.
+
+`merge_iteration_plain`, `estimate_sizes_plain` and `ring_step_plain` are
+the plain PyTorch versions; the public functions take them for tensors on
+the CPU and launch the kernels for tensors on a card (or raise).
 """
 
 from __future__ import annotations
@@ -124,3 +129,45 @@ def estimate_sizes(regs):
     sizes = torch.empty(regs.shape[0], dtype=torch.float32, device=regs.device)
     kernels.hll_estimate(regs, hll_alpha(regs.shape[1]), sizes)
     return sizes
+
+
+def ring_step_plain(out, buf, csr: InCSR):
+    """One ring step plainly, as the reference's `out.at[t].max(buf[s])`:
+    each edge's ring-buffer row max-reduced into its target's row of `out`
+    (in place) → out."""
+    S = out.shape[0]
+    deg = (csr.offsets[1:] - csr.offsets[:-1]).long()
+    tgt = torch.repeat_interleave(torch.arange(S, device=out.device), deg)
+    src = csr.sources.long()
+    chunk = max(1, PLAIN_CHUNK_BYTES // max(out.shape[1], 1))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="index_reduce")  # "in beta"
+        for s in range(0, src.numel(), chunk):
+            out.index_reduce_(0, tgt[s:s + chunk], buf[src[s:s + chunk]], "amax")
+    return out
+
+
+def ring_step(out, buf, csr: InCSR, start=None, sizes: bool = False):
+    """K8, one ring step of one shard: `out` u8[S, m] (updated in place) ∪=
+    the rows of the ring buffer `buf` (another tensor, never written) over
+    the bucket's reverse CSR. At the round's last step `start` is the
+    round-start shard: → (changed i32[1], f32[S] sizes of the new rows when
+    `sizes`, else None); at the other steps → (None, None). A CPU tensor
+    takes the plain version, a card tensor the kernel (or raises)."""
+    if buf is out:
+        raise ValueError("the ring buffer must be another tensor than the rows it updates")
+    if not out.is_cuda:
+        ring_step_plain(out, buf, csr)
+        if start is None:
+            return None, None
+        changed = torch.tensor([int(not torch.equal(out, start))], dtype=torch.int32)
+        return changed, estimate_sizes_plain(out) if sizes else None
+    S, m = out.shape
+    changed = sz = None
+    if start is not None:
+        changed = torch.empty(1, dtype=torch.int32, device=out.device)
+        if sizes:
+            sz = torch.empty(S, dtype=torch.float32, device=out.device)
+    kernels.hll_ring_step(out, buf, csr.offsets, csr.sources, csr.long_rows, LONG_ROW,
+                          hll_alpha(m), start, sz, changed)
+    return changed, sz

@@ -10,11 +10,12 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     stage A through the P-way bitonic merge, K2 stage B, K3 pass-2
                     signals, K11 the device factor join (alone, and inside stage B
                     and pass 2), K12 pass 2 from the slots' L-row prefixes, K10 the
-                    dense rerank
+                    dense rerank, K9 the global top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
-                    size estimate, K7 BFS relaxation
+                    size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
+                    ring step
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
                     backward
 
@@ -78,7 +79,8 @@ LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, 
             "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
             "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
             "moe_router": 0, "moe_select": 0, "loss_heads": 0, "adamw_bf16": 0,
-            "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0}
+            "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0, "mesh_topk": 0,
+            "hll_ring_step": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # the server launches from two worker threads
@@ -195,10 +197,12 @@ def _load(name: str):
                 lib.stract_signals_search.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
                                                       P, P, P, P]
                 lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
+                lib.stract_mesh_topk.argtypes = [P, P, I, I, I, I, P, P, P, P]
                 fns = (lib.stract_stage_a, lib.stract_stage_a_merge, lib.stract_stage_b,
                        lib.stract_signals_q16,
                        lib.stract_factors_join, lib.stract_stage_b_joined,
-                       lib.stract_signals_search, lib.stract_dense_rerank)
+                       lib.stract_signals_search, lib.stract_dense_rerank,
+                       lib.stract_mesh_topk)
             elif name == "forest":
                 lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
@@ -206,7 +210,9 @@ def _load(name: str):
                 lib.stract_hll_merge.argtypes = [P, P, P, P, I, I, I, I, F, P, P, P, P]
                 lib.stract_hll_estimate.argtypes = [P, I, I, F, P, P]
                 lib.stract_bfs_relax.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
-                fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_relax)
+                lib.stract_hll_ring_step.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P]
+                fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_relax,
+                       lib.stract_hll_ring_step)
             elif name == "moe":
                 lib.stract_moe_router.argtypes = [P, P, P, I, I, I, P, P, P, P]
                 lib.stract_moe_router_backward.argtypes = [P, P, P, P, I, I, I, P, P, P]
@@ -465,6 +471,29 @@ def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_
     counted("dense_rerank")
 
 
+# limits of the mesh merge in csrc/scoring.cu: gathered entries per query, kept
+MESH_MAX_N = 8192
+MESH_MAX_K = 1024
+
+
+def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores) -> None:
+    """K9: scores f32[B, n, K], docs i32[B, n, K] → out_docs, out_shards
+    i32[B, k], out_scores f32[B, k], lax.top_k over each query's n*K entries
+    (ops/scoring.py allocates)."""
+    B, n, K = scores.shape
+    if not (1 <= B <= 65535 and n * K <= MESH_MAX_N and 1 <= k <= min(K, MESH_MAX_K)):
+        raise ValueError(f"the mesh merge takes 1..65535 queries of n*K <= {MESH_MAX_N} entries "
+                         f"and keeps 1..min(K, {MESH_MAX_K}), not {tuple(scores.shape)} and {k}")
+    i32, f32 = torch.int32, torch.float32
+    ins = (_ptr(scores, f32, (B, n, K)), _ptr(docs, i32, (B, n, K)))
+    outs = (_ptr(out_docs, i32, (B, k)), _ptr(out_shards, i32, (B, k)),
+            _ptr(out_scores, f32, (B, k)))
+    lib = _load("scoring")
+    rc = lib.stract_mesh_topk(*ins, B, n, K, k, *outs, _stream())
+    _check(rc, "stract_mesh_topk")
+    counted("mesh_topk")
+
+
 def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) -> None:
     """K4 over x f32[K, F] into out f32[K] (ops/forest.py allocates)."""
     T, N = feature.shape
@@ -617,3 +646,27 @@ def bfs_relax(dist, offsets, sources, long_rows, long_cut: int, out, changed) ->
                               _ptr(out, i32, (n, S)), _ptr(changed, i32, (1,)), _stream())
     _check(rc, "stract_bfs_relax")
     counted("bfs_relax")
+
+
+def hll_ring_step(out, buf, offsets, sources, long_rows, long_cut: int, alpha: float,
+                  start=None, sizes=None, changed=None) -> None:
+    """K8, one ring step of one shard: out u8[S, m] (in place) ∪= buf u8[S, m]
+    over the bucket's reverse CSR (offsets i32[S + 1], sources i32[E] rows of
+    buf, long_rows i32[L]); at the round's last step start u8[S, m] (the
+    round-start shard) with changed i32[1], and sizes f32[S] or None."""
+    S, m = out.shape
+    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
+        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    if buf.data_ptr() == out.data_ptr():
+        raise ValueError("the ring buffer must be another tensor than the rows it updates")
+    if (start is None) != (changed is None) or (sizes is not None and start is None):
+        raise ValueError("the last step takes start with changed (and sizes); the others none")
+    off, src, lr, n_long = _csr_ptrs(S, offsets, sources, long_rows)
+    u8 = torch.uint8
+    lib = _load("graph")
+    rc = lib.stract_hll_ring_step(_ptr(out, u8, (S, m)), _ptr(buf, u8, (S, m)), off, src, lr,
+                                  n_long, S, m, long_cut, alpha, _ptr(start, u8, (S, m)),
+                                  _ptr(sizes, torch.float32, (S,)),
+                                  _ptr(changed, torch.int32, (1,)), _stream())
+    _check(rc, "stract_hll_ring_step")
+    counted("hll_ring_step")

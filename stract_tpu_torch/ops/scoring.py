@@ -18,6 +18,8 @@ it has no Pallas kernel):
            compute_signals_joined[_batch[_q16]]
                                        the same with the device join
            compute_signals[_batch]     from the slots' first L rows only
+  merge    mesh_topk                   the global top-k over a mesh's shards
+                                       (parallel/search.py)
 
 Each has a plain PyTorch version here (`*_plain`), written after the JAX
 program, and a hand-written CUDA kernel (csrc/scoring.cu, ops/kernels.py).
@@ -864,6 +866,37 @@ def compute_signals_batch(seg: SegmentArrays, qs, aggs, cands, L: int = DEFAULT_
 
 def compute_signals(seg, q, aggs, cand, L: int = DEFAULT_L):
     return compute_signals_batch(seg, stack([q]), stack([aggs]), np.asarray(cand)[None], L)[0]
+
+
+# ---- the mesh's merge ---------------------------------------------------------------
+def mesh_topk_plain(scores, docs, k: int):
+    """lax.top_k over each query's gathered n*K scores, plainly: a stable
+    descending sort of the flattened row keeps equal scores (and the -inf
+    pads) in flat-index order, which is lax.top_k's tie rule."""
+    B, n, K = scores.shape
+    vals, idx = torch.sort(scores.reshape(B, n * K), dim=1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return (torch.gather(docs.reshape(B, n * K), 1, idx).to(torch.int32),
+            (idx // K).to(torch.int32), vals[:, :k].contiguous())
+
+
+def mesh_topk(scores, docs, k: int | None = None):
+    """The merge of the mesh's search programs: scores f32[B, n, K], docs
+    i32[B, n, K] (each shard's top K of each query, gathered shard-major) →
+    (docs i32[B, k], shards i32[B, k], scores f32[B, k]), the global top k
+    (k = K by default) in lax.top_k's order: descending, ties to the lower
+    shard, then the lower rank within it."""
+    B, n, K = scores.shape
+    k = K if k is None else k
+    if not scores.is_cuda:
+        return mesh_topk_plain(scores, docs, k)
+    dev = scores.device
+    out_docs = torch.empty((B, k), dtype=torch.int32, device=dev)
+    out_shards = torch.empty((B, k), dtype=torch.int32, device=dev)
+    out_scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    kernels.mesh_topk(scores.contiguous(), _on(docs, dev, torch.int32), k, out_docs, out_shards,
+                      out_scores)
+    return out_docs, out_shards, out_scores
 
 
 # ---- host side ------------------------------------------------------------------

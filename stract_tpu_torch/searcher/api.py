@@ -136,7 +136,12 @@ class ApiSearcher:
         return results
 
     def _ensure_blocks(self, items: list) -> None:
-        self.searcher.ensure_blocks_many(items)
+        """Lazy signal rows of blocks, batched across the request batch.
+        Shard servers send their rows with the block, so a searcher without
+        ensure_blocks_many (DistributedSearcher) has nothing to do."""
+        ensure = getattr(self.searcher, "ensure_blocks_many", None)
+        if ensure is not None:
+            ensure(items)
 
     def search_websites_approx_offsets(self, sq: SearchQuery) -> WebsitesResult:
         """Deep paging: per-shard offset skip, dedup merge, take num_results,

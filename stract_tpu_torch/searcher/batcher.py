@@ -1,10 +1,15 @@
-"""Two-stage request micro-batcher for the HTTP route (the port of
-stract_tpu/searcher/batcher.py PipelinedBatcher).
+"""Request micro-batchers (the port of stract_tpu/searcher/batcher.py).
 
-Concurrent searches queue; worker 1 drains up to `max_batch` every
-`window_ms` and runs phase 1 (parse + the batched device search), worker 2
-runs phase 2 (merge, page signals, retrieve, snippets) and resolves the
-callers' futures. Batch k's host tail overlaps batch k+1's device work."""
+PipelinedBatcher serves the HTTP route: concurrent searches queue; worker 1
+drains up to `max_batch` every `window_ms` and runs phase 1 (parse + the
+batched device search), worker 2 runs phase 2 (merge, page signals,
+retrieve, snippets) and resolves the callers' futures. Batch k's host tail
+overlaps batch k+1's device work.
+
+MicroBatcher / QueryBatcher serve a shard server: concurrent `search` RPCs
+queue, one worker drains a batch and runs the whole shard-side flow batched
+(LocalSearcher.search_initial_many), so concurrent queries share one set of
+launches."""
 
 from __future__ import annotations
 
@@ -15,6 +20,55 @@ from concurrent.futures import Future
 
 # a caller waits at most this long for its result
 SUBMIT_TIMEOUT_S = 300.0
+
+
+class MicroBatcher:
+    """Generic request micro-batcher: callers block on submit(), one worker
+    thread drains up to `max_batch` items per `window_ms` and runs
+    `process_many(items) → results`."""
+
+    def __init__(self, process_many, max_batch: int = 64, window_ms: float = 4.0):
+        self.process_many = process_many
+        self.max_batch = max_batch
+        self.window = window_ms / 1000.0
+        self._q: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def submit(self, item):
+        fut: Future = Future()
+        self._q.put((item, fut))
+        return fut.result(timeout=SUBMIT_TIMEOUT_S)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.window
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                results = self.process_many([item for item, _ in batch])
+                for (_, fut), res in zip(batch, results):
+                    fut.set_result(res)
+            except Exception as e:  # noqa: BLE001 — propagate to all callers
+                for _, fut in batch:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=2)
 
 
 class PipelinedBatcher:
@@ -118,3 +172,22 @@ class PipelinedBatcher:
                         fut.set_exception(err)
             except queue.Empty:
                 break
+
+
+class QueryBatcher(MicroBatcher):
+    """Shard-side micro-batcher over LocalSearcher.search_initial_many."""
+
+    def __init__(self, searcher, max_batch: int = 64, window_ms: float = 4.0,
+                 top_k: int = 300):
+        self.searcher = searcher
+        self.top_k = top_k
+        super().__init__(self._process, max_batch=max_batch, window_ms=window_ms)
+
+    def search_initial(self, sq, max_candidates: int | None = None):
+        """Blocking: enqueue + wait → (candidates, count)."""
+        cands, count = self.submit(sq)
+        mc = max_candidates or self.top_k
+        return cands[:mc], count
+
+    def _process(self, sqs: list) -> list:
+        return self.searcher.search_initial_many(sqs, self.top_k)

@@ -1,10 +1,15 @@
-"""LocalSearcher — one shard's search (the port of stract_tpu/searcher/local.py,
-without the multi-device mesh and the shard-server micro-batcher).
+"""LocalSearcher — one shard's search (the port of stract_tpu/searcher/local.py).
 
-Flow per batch of queries: Query.parse → InvertedIndex.search_arrays_batch
-(stages A and B on the device) → phrase filter → host column / embedding
-gathers → one array-carried CandidateBlock per query. Signal matrices stay
-lazy: the coordinator materialises the final page's rows.
+Flow per batch of queries: Query.parse → pass 1 (InvertedIndex.
+search_arrays_batch: stages A and B per segment on the device; or, with a
+mesh of more than one entry, parallel/search.py MeshShardedSearcher: the
+segments one per mesh entry, one two-stage program per query shape and the
+mesh merge) → phrase filter → pass 2 (the signal rows; skipped in lazy mode,
+where the coordinator materialises the final page's rows) → host column /
+embedding gathers → one array-carried CandidateBlock per query.
+
+The linear model of the JAX package's shard servers (linear_model_path) is
+not ported: ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -28,9 +33,28 @@ DEDUP_COLUMNS = [
 
 
 class LocalSearcher:
-    def __init__(self, index: InvertedIndex, shard_id: int = 0):
+    def __init__(self, index: InvertedIndex, shard_id: int = 0, linear_model=None,
+                 batcher=None, lazy_signals: bool = True, mesh=None):
+        if linear_model is not None:
+            raise NotImplementedError("the shard's linear model is not ported yet "
+                                      "(ROADMAP queue 1 item 3)")
         self.index = index
         self.shard_id = shard_id
+        self.linear_model = None  # read by the shard flow, as the JAX package's
+        self.batcher = batcher  # searcher/batcher.py QueryBatcher (shard servers)
+        # with a mesh of more than one entry the index's segments are spread one
+        # per entry and pass 1 runs the sharded two-stage program
+        self._sharded = None
+        if mesh is not None and int(mesh.devices.size) > 1:
+            from ..parallel.search import MeshShardedSearcher
+
+            self._sharded = MeshShardedSearcher(index, mesh)
+        # lazy: no pass-2 signal rows at search time; the coordinator
+        # materialises the final page's (materialize_signals). Shard servers
+        # build with lazy_signals=False: their candidates cross sonic with
+        # their rows, and one batched pass 2 here is cheaper than a pass per
+        # query later.
+        self.lazy_signals = lazy_signals
 
     def parse_query(self, sq: SearchQuery) -> Query:
         if sq.optic or sq.host_rankings is not None:
@@ -44,6 +68,18 @@ class LocalSearcher:
                 TermGroup("nsfw", ["safety_classification"], required=False, excluded=True,
                           scoring=False))
         return q
+
+    def search_initial(self, sq: SearchQuery, max_candidates: int = NUM_PIPELINE_RANKING_RESULTS):
+        """→ (candidates: list[RankedCandidate], count: ApproxCount)."""
+        if self.batcher is not None:
+            return self.batcher.search_initial(sq, max_candidates)
+        return self.search_initial_many([sq], max_candidates)[0]
+
+    def search_initial_many(self, sqs: list, max_candidates: int = NUM_PIPELINE_RANKING_RESULTS):
+        """search_blocks_many with per-result objects → list of (candidates,
+        count)."""
+        return [(block.to_candidates(), count)
+                for block, count in self.search_blocks_many(sqs, max_candidates)]
 
     def search_blocks_many(self, sqs: list, max_candidates: int = NUM_PIPELINE_RANKING_RESULTS):
         """Shard-side flow for a batch of queries → list of (CandidateBlock,
@@ -60,9 +96,20 @@ class LocalSearcher:
         if not live:
             return out
 
-        batch_res = self.index.search_arrays_batch([ctxs[i] for i in live], top_k=max_candidates)
+        if self._sharded is not None:
+            batch_res = []
+            for ptrs, scores in self._sharded.search_batch([ctxs[i] for i in live],
+                                                           top_k=max_candidates):
+                n = len(ptrs)
+                batch_res.append((np.fromiter((p.segment for p in ptrs), np.int32, n),
+                                  np.fromiter((p.doc for p in ptrs), np.int64, n),
+                                  np.asarray(scores, dtype=np.float32)))
+        else:
+            batch_res = self.index.search_arrays_batch([ctxs[i] for i in live],
+                                                       top_k=max_candidates)
         # every ctx carries the segment-list snapshot its ordinals index
         snap = getattr(ctxs[live[0]], "_segments", None)
+        seg_names = [s.name for s in snap] if snap is not None else None
 
         per_query: list = []
         counts: dict = {}
@@ -80,6 +127,13 @@ class LocalSearcher:
                 counts[i] = ApproxCount(n_found, True)
             per_query.append((i, segs_a, docs_a, scores_a))
 
+        # pass 2, batched across queries (skipped in lazy mode)
+        if self.lazy_signals:
+            sigs = [None] * len(per_query)
+        else:
+            sigs = self.index.compute_signals_arrays_many(
+                [(ctxs[i], segs_a, docs_a) for i, segs_a, docs_a, _ in per_query])
+
         flat_segs = np.concatenate([s for _, s, _, _ in per_query])
         flat_docs = np.concatenate([d for _, _, d, _ in per_query])
         t_emb = self.index.gather_embeddings_arr(flat_segs, flat_docs, "title_embeddings",
@@ -90,7 +144,7 @@ class LocalSearcher:
                                              DEDUP_COLUMNS + ["host_node_id"], segments=snap)
 
         off = 0
-        for i, segs_a, docs_a, scores_a in per_query:
+        for (i, segs_a, docs_a, scores_a), sig in zip(per_query, sigs):
             n = len(docs_a)
             sl = slice(off, off + n)
             off += n
@@ -101,12 +155,15 @@ class LocalSearcher:
                 score=scores_a.astype(np.float32, copy=False),
                 dedup={name: cols[name][sl] for name in DEDUP_COLUMNS},
                 host_id=cols["host_node_id"][sl],
+                signals=sig,
                 title_emb=t_emb[sl] if t_emb is not None else None,
                 keyword_emb=k_emb[sl] if k_emb is not None else None,
                 # the search-time ctx: page materialisation reuses its caches
                 # (slots, stage-B factor columns, fused signal rows)
                 ctxs={self.shard_id: ctxs[i]},
             )
+            if seg_names is not None:
+                block.seg_names = {self.shard_id: seg_names}
             block.cols.update(self._slop_columns(ctxs[i], segs_a, docs_a, snap))
             out[i] = (block, counts[i])
         return out
@@ -135,6 +192,47 @@ class LocalSearcher:
                     segs[int(ord_)], fid, tokens, doc_arr[rows], term_hash)
         return out
 
+    def materialize_signals(self, sq: SearchQuery, candidates: list) -> None:
+        """Fill `signals` of lazily built candidates (pass 2 over just these
+        pointers)."""
+        self.materialize_signals_many([(sq, candidates)])
+
+    def materialize_signals_many(self, items: list) -> None:
+        """items = [(sq, candidates)]: one pass 2 across all queries; the
+        search-time ctx the candidates carry is reused (its caches turn the
+        factor fill into a gather)."""
+        todo = []
+        for sq, candidates in items:
+            cands = [c for c in candidates if c.signals is None]
+            if cands:
+                ctx = getattr(cands[0], "_ctx", None)
+                if ctx is None:
+                    ctx = self.parse_query(sq).context()
+                todo.append((ctx, cands))
+        if not todo:
+            return
+        sigs = self.index.compute_signals_batch_many(
+            [(ctx, [c.pointer for c in cands]) for ctx, cands in todo])
+        for (_, cands), sig in zip(todo, sigs):
+            for i, c in enumerate(cands):
+                c.signals = sig[i]
+
     def retrieve(self, sq: SearchQuery, pointers: list, segments: list | None = None) -> list:
         q = self.parse_query(sq)
         return self.index.retrieve(pointers, q.simple_terms, segments=segments)
+
+    def search(self, sq: SearchQuery) -> dict:
+        """Single-shard end-to-end search (no coordinator pipeline)."""
+        candidates, count = self.search_initial(sq)
+        page = candidates[sq.offset() : sq.offset() + sq.num_results]
+        snap = getattr(getattr(page[0], "_ctx", None), "_segments", None) if page else None
+        docs = self.retrieve(sq, [c.pointer for c in page], segments=snap)
+        for c, d in zip(page, docs):
+            c.retrieved = d
+        return {
+            "webpages": [
+                {**(c.retrieved or {}), "score": c.score, "shard": c.shard}
+                for c in page
+            ],
+            "num_hits": count.to_json(),
+        }

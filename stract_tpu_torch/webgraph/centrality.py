@@ -12,8 +12,15 @@ reverse CSR (webgraph/csr.py), which also estimates the new rows' sizes
 Kahan-compensated f64 on the host, as the reference does (kahan_sum.rs). On
 the CPU a round is the plain merge and estimate.
 
-The sharded variant (the JAX package's ring exchange over a mesh, K8) is not
-ported: it waits for the multi-device work (ROADMAP queue 1 item 13).
+The sharded variant (harmonic_centrality_sharded) partitions the nodes over
+the entries of a mesh (parallel/mesh.py; entries may share a card) and runs
+each round as the JAX package's ring exchange: n steps per shard, where at
+step k shard d takes the max over its edges whose source lives in shard
+(d + k) mod n, read from that shard's round-start registers (the "ppermute"
+is a reference to the shard, a copy when it lies on another card; it is
+never written). On a card a step is one launch of K8 (hll_ring_step) over
+the (shard, step) bucket's reverse CSR, built on the host; the last step
+also flags a change against the round start and estimates the new rows.
 """
 
 from __future__ import annotations
@@ -106,10 +113,116 @@ def _hyperball(n, edge_from, edge_to, precision, max_rounds, device="cuda",
 
 
 def harmonic_centrality_sharded(graph: Webgraph, mesh, precision: int = DEFAULT_PRECISION,
-                                max_rounds: int = 64) -> dict[str, float]:
-    """The JAX package's multi-device HyperBall (ring exchange of register
-    shards, K8) is not ported yet."""
-    raise NotImplementedError("sharded HyperBall is not ported yet (ROADMAP queue 1 item 13)")
+                                max_rounds: int = 64,
+                                timings: dict | None = None) -> dict[str, float]:
+    """HyperBall over the shards of `mesh` (one register shard of N/n rows
+    per entry, the ring exchange of the JAX package) → {node_name:
+    centrality}, normalized by (N-1). `timings` as _hyperball_sharded's."""
+    n = graph.num_nodes
+    if n == 0:
+        return {}
+    out_off = np.asarray(graph.out_offsets, dtype=np.int64)
+    sources = np.repeat(np.arange(n, dtype=np.int32), np.diff(out_off))
+    targets = np.asarray(graph.out_targets, dtype=np.int32)
+    acc = _hyperball_sharded(n, sources, targets, mesh, precision, max_rounds, timings)
+    norm = max(n - 1, 1)
+    return dict(zip(graph.names(), (acc / norm).tolist()))
+
+
+def ring_buckets(n: int, sources, targets, devices: list) -> list:
+    """The edges bucketed as the JAX package buckets them, by (owner of the
+    target, ring distance to the owner of the source), each bucket as the
+    reverse CSR over local rows on its shard's device → buckets[d][k], the
+    edges of shard d whose source lies in shard (d + k) mod n. Shards hold S
+    = ceil(N / n) rows; the last is padded, and padding rows have no edges."""
+    n_dev = len(devices)
+    S = -(-n // n_dev)
+    sources = np.asarray(sources, dtype=np.int64)
+    targets = np.asarray(targets, dtype=np.int64)
+    tgt_owner = targets // S
+    key = tgt_owner * n_dev + (sources // S - tgt_owner) % n_dev
+    order = np.argsort(key, kind="stable")
+    sources, targets, key = sources[order], targets[order], key[order]
+    bounds = np.searchsorted(key, np.arange(n_dev * n_dev + 1))
+    buckets = []
+    for d, dev in enumerate(devices):
+        row = []
+        for k in range(n_dev):
+            lo, hi = bounds[d * n_dev + k], bounds[d * n_dev + k + 1]
+            row.append(in_csr(S, sources[lo:hi] % S, targets[lo:hi] - d * S, dev))
+        buckets.append(row)
+    return buckets
+
+
+def ring_round(shards: list, buckets: list, sizes: bool = True) -> tuple:
+    """One HyperBall round over register shards u8[S, m] (one per mesh
+    entry, on its device): shard d's new rows are the max of its round-start
+    rows and, at step k, the rows of shard (d + k) mod n over buckets[d][k]
+    → (new shards, per-shard f32[S] sizes of the new rows or None, per-shard
+    i32[1] changed flags). Every read sees the round start (Jacobi)."""
+    n_dev = len(shards)
+    new, sz, changed = [], [], []
+    for d, start in enumerate(shards):
+        out = start.clone()
+        for k in range(n_dev):
+            buf = shards[(d + k) % n_dev].to(start.device)
+            last = k == n_dev - 1
+            c, s = hll_ops.ring_step(out, buf, buckets[d][k], start=start if last else None,
+                                     sizes=sizes and last)
+        new.append(out)
+        sz.append(s)
+        changed.append(c)
+    return new, sz, changed
+
+
+def _hyperball_sharded(n, sources, targets, mesh, precision=DEFAULT_PRECISION, max_rounds=64,
+                       timings: dict | None = None) -> np.ndarray:
+    """Raw ring-exchange HyperBall over the entries of `mesh` → unnormalized
+    centrality f64[n]. `timings`, when given, receives the seconds of
+    bucketing the edges on the host and copying the buckets' CSRs to the
+    devices ("bucket"), of the registers' set-up ("setup"), of the first
+    size estimate ("estimate"; the rounds' estimates are in the last ring
+    step's epilogue), of the rounds ("rounds", and each round's in
+    "round_s"), and the round count ("n_rounds")."""
+    devices = [resolve_device(d) for d in mesh.devices.flat]
+    n_dev = len(devices)
+    S = -(-n // n_dev)
+    t0 = time.perf_counter()
+    buckets = ring_buckets(n, sources, targets, devices)
+    t1 = time.perf_counter()
+    regs0 = np.zeros((S * n_dev, 1 << precision), dtype=np.uint8)
+    regs0[:n] = hll_ops.init_registers(n, precision)
+    shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(dev)
+              for d, dev in enumerate(devices)]
+    t2 = time.perf_counter()
+    # the estimate over the padded registers, then cut to the real nodes
+    sizes = torch.cat([hll_ops.estimate_sizes(s).cpu() for s in shards])[:n].numpy()
+    sizes = sizes.astype(np.float64)
+    t3 = time.perf_counter()
+    acc = np.zeros(n, dtype=np.float64)
+    comp = np.zeros(n, dtype=np.float64)
+    rounds = 0
+    round_s = []
+    for r in range(1, max_rounds + 1):
+        tr = time.perf_counter()
+        new, new_sizes, changed = ring_round(shards, buckets)
+        # the change flag reduced over every shard
+        if not any(int(c.item()) for c in changed):
+            break
+        rounds = r
+        shards = new
+        new_sizes = torch.cat([s.cpu() for s in new_sizes])[:n].numpy().astype(np.float64)
+        delta = (new_sizes - sizes) / r
+        y = delta - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+        sizes = new_sizes
+        round_s.append(time.perf_counter() - tr)
+    if timings is not None:
+        timings.update(bucket=t1 - t0, setup=t2 - t1, estimate=t3 - t2,
+                       rounds=time.perf_counter() - t3, n_rounds=rounds, round_s=round_s)
+    return acc
 
 
 def exact_harmonic_centrality(graph: Webgraph) -> dict[str, float]:

@@ -21,6 +21,7 @@ import os
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from stract_tpu.kv import Db as JaxDb
@@ -33,6 +34,7 @@ from stract_tpu_torch.entrypoint.bench_centrality import make_edges
 from stract_tpu_torch.kv import Db
 from stract_tpu_torch.main import main as port_main
 from stract_tpu_torch.ops import hll_ops
+from stract_tpu_torch.parallel import mesh as PM
 from stract_tpu_torch.webgraph import Webgraph
 from stract_tpu_torch.webgraph import centrality as PC
 from stract_tpu_torch.webgraph import shortest_path as PS
@@ -76,6 +78,19 @@ def graph(request, tmp_path_factory):
             b.insert(Edge(f, t, label=f"link {f}->{t}"))
         b.build(path)
     return request.param, JaxWebgraph(path), Webgraph(path)
+
+
+def _jax_mesh(n: int):
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    if len(jax.devices()) < n:
+        pytest.skip("needs 8 virtual devices")
+    return JaxMesh(np.array(jax.devices()[:n]), axis_names=("x",))
+
+
+def _port_mesh(n: int):
+    return PM.Mesh([torch.device("cpu")] * n, axis_names=("x",))
 
 
 def _edge_arrays(g):
@@ -273,5 +288,149 @@ def test_cuda_without_a_card_raises(tmp_path):
                      tmp_path, str(tmp_path / "g"))[("port", "harmonic")])])):
         with pytest.raises(RuntimeError):
             call()
-    with pytest.raises(NotImplementedError):
-        PC.harmonic_centrality_sharded(g, mesh=None)
+    with pytest.raises(RuntimeError):  # a mesh of two shards on the card
+        PC.harmonic_centrality_sharded(g, _cuda_mesh(2))
+    with pytest.raises(RuntimeError):
+        PM.make_mesh(2, ("x",), device="cuda")
+
+
+def _cuda_mesh(n: int):
+    return PM.Mesh([torch.device("cuda", 0)] * n, axis_names=("x",))
+
+
+# ---- the sharded HyperBall (K8's twin), on a mesh of CPU entries ---------------------------
+def _graph_edges(name: str):
+    """(n, sources i32, targets i32): the ring of tests/test_webgraph.py and
+    the 40-host random graph of tests/test_sharded_search.py."""
+    if name == "ring":
+        edges = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 0), (0, 2), (1, 3)]
+        n = 5
+    else:
+        rng = np.random.default_rng(5)
+        n = 40
+        edges = []
+        for _ in range(200):
+            i, j = rng.integers(0, n, 2)
+            if i != j:
+                edges.append((int(i), int(j)))
+    src, dst = (np.array(x, dtype=np.int32) for x in zip(*edges))
+    return n, src, dst
+
+
+@pytest.mark.parametrize("graph", ["ring", "random40"])
+@pytest.mark.parametrize("n_shards", [1, 3, 4, 8])
+def test_sharded_hyperball_rounds_bit_equal_to_jax(monkeypatch, graph, n_shards):
+    """The port's ring rounds (hll_ring_step's plain twin) against the JAX
+    package's round_fn: the padded registers bit-equal after every round,
+    the same round count, centrality within rtol 1e-5 of JAX's and 1e-9 of
+    the port's single-device form. Uneven shards (5 nodes over 3, 4, 8)
+    pad."""
+    from stract_tpu.ops import hll_ops as jax_hll
+    from stract_tpu.webgraph import centrality as JC
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.webgraph import centrality as PC
+
+    n, src, dst = _graph_edges(graph)
+    seen = []  # the JAX registers each size estimate reads: the start, then every round
+    real_jit = jax.jit
+
+    def spy_jit(f, *a, **k):
+        g = real_jit(f, *a, **k)
+        if f is jax_hll.estimate_sizes:
+            def rec(x):
+                seen.append(np.asarray(x))
+                return g(x)
+            return rec
+        return g
+
+    monkeypatch.setattr(jax, "jit", spy_jit)
+    acc_j = JC._hyperball_sharded(n, src, dst, _jax_mesh(n_shards), 6)
+    monkeypatch.undo()
+    assert len(seen) >= 2
+
+    mesh = _port_mesh(n_shards)
+    devices = list(mesh.devices.flat)
+    S = -(-n // n_shards)
+    buckets = PC.ring_buckets(n, src, dst, devices)
+    regs0 = np.zeros((S * n_shards, 64), np.uint8)
+    regs0[:n] = hll_ops.init_registers(n, 6)
+    np.testing.assert_array_equal(regs0, seen[0])
+    shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]) for d in range(n_shards)]
+    for want in seen[1:]:
+        shards, _, changed = PC.ring_round(shards, buckets)
+        assert any(int(c.item()) for c in changed)
+        np.testing.assert_array_equal(torch.cat(shards).numpy(), want)
+    _, _, changed = PC.ring_round(shards, buckets)
+    assert not any(int(c.item()) for c in changed)  # JAX stopped here too
+
+    timings: dict = {}
+    acc_p = PC._hyperball_sharded(n, src, dst, mesh, 6, timings=timings)
+    assert timings["n_rounds"] == len(seen) - 1
+    np.testing.assert_allclose(acc_p, acc_j, rtol=1e-5)
+    acc_1 = PC._hyperball(n, src, dst, 6, 64, "cpu")
+    np.testing.assert_allclose(acc_p, acc_1, rtol=0, atol=1e-9)
+
+
+def test_harmonic_centrality_sharded_on_the_40_host_graph(tmp_path):
+    """harmonic_centrality_sharded on a 4-entry mesh against the JAX
+    package's on 4 devices (rtol 1e-5) and the port's single-device form
+    (1e-9), on the 40-host graph of tests/test_sharded_search.py;
+    run_harmonic(mesh=) takes it."""
+    from stract_tpu.webgraph.centrality import harmonic_centrality_sharded as jax_sharded
+    from stract_tpu.webgraph.edge import Edge
+    from stract_tpu.webgraph.store import Webgraph as JaxWebgraph, WebgraphBuilder
+    from stract_tpu_torch.entrypoint.centrality import run_harmonic
+    from stract_tpu_torch.webgraph import Webgraph
+    from stract_tpu_torch.webgraph.centrality import (harmonic_centrality,
+                                                      harmonic_centrality_sharded)
+
+    rng = np.random.default_rng(5)
+    b = WebgraphBuilder(host_graph=True)
+    names = [f"h{i}.com" for i in range(40)]
+    for _ in range(200):
+        i, j = rng.integers(0, 40, 2)
+        if i != j:
+            b.insert(Edge(names[i], names[j]))
+    path = b.build(str(tmp_path / "g")).path
+    pg = Webgraph(path)
+    want = jax_sharded(JaxWebgraph(path), _jax_mesh(4))
+    got = harmonic_centrality_sharded(pg, _port_mesh(4))
+    single = harmonic_centrality(pg, device="cpu")
+    assert set(got) == set(want) == set(single)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]) and abs(got[k] - single[k]) < 1e-9, k
+    timings: dict = {}
+    c = run_harmonic(path, str(tmp_path / "kv"), device="cpu", timings=timings,
+                     mesh=_port_mesh(4))
+    assert c == got and {"bucket", "setup", "estimate", "rounds", "n_rounds"} <= set(timings)
+
+
+def test_sharded_harmonic_matches_jax(graph):
+    """harmonic_centrality_sharded on a mesh of 4 CPU entries against the
+    JAX package's on 4 devices (rtol 1e-5) and the port's single-device
+    form (1e-9), with the same round count, on every graph of this file."""
+    _, jg, pg = graph
+    want = JC.harmonic_centrality_sharded(jg, _jax_mesh(4))
+    timings: dict = {}
+    got = PC.harmonic_centrality_sharded(pg, _port_mesh(4), timings=timings)
+    single = PC.harmonic_centrality(pg, device="cpu")
+    assert list(got) == list(single) and set(got) == set(want)
+    assert timings["n_rounds"] == _jax_rounds(jg, 6)
+    np.testing.assert_allclose([got[k] for k in want], [want[k] for k in want], rtol=1e-5,
+                               atol=1e-12)
+    np.testing.assert_allclose([got[k] for k in single], [single[k] for k in single], rtol=0,
+                               atol=1e-9)
+
+
+def test_bench_sharded_arm_matches_the_single_device_hyperball(tmp_path):
+    """bench_centrality's --sharded arm (on CPU entries here; the command
+    line times it on the card): parity with the single-device HyperBall of
+    as many rounds, and the tool's fields."""
+    from stract_tpu_torch.entrypoint.bench_centrality import sharded_arm
+
+    src, dst = make_edges(3000, 30_000, seed=0)
+    g = write_graph(str(tmp_path / "g"), [f"h{i}.example" for i in range(3000)], src, dst)
+    rec = sharded_arm(g, 3, 8, torch.device("cpu"))
+    assert rec["parity_vs_single_device"] and rec["devices"] == 3 and rec["rounds_run"] == 8
+    assert rec["per_device_reg_mb"] == 3 * 1000 * 64 / 1e6
+    assert {"round_s_median", "total_s", "bucket_s", "allgather_design_reg_mb"} <= set(rec)

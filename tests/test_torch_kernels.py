@@ -3,7 +3,9 @@ walk, ops/forest.py), K5a-d (attention, residual + LayerNorm, bias + GELU,
 mean pool, ops/encoder.py), the training kernels K14a-d (the backward of
 K5a-c, ops/encoder.py, and the fused AdamW update, optim.py) and K15a-d (the
 MoE router and select-and-scale, ops/moe.py; the loss heads, ops/losses.py;
-the bf16 AdamW update, optim.py). This file
+the bf16 AdamW update, optim.py), and the mesh's two (K9, the global top-k
+of the shards, ops/scoring.py; K8, the sharded HyperBall's ring step,
+ops/hll_ops.py and webgraph/centrality.py). This file
 imports the port alone (no jax, no flax), so it also runs on a machine with
 a card and no JAX package:
 
@@ -38,6 +40,7 @@ Tolerances, kernel against plain twin on one card:
     another order, rounded to bf16: one bf16 step);
   - the loss heads: rtol 1e-5 (sums over B in another order; exp and log in
     another implementation);
+  - K9 and K8: bit-equal (a selection; a max), K8's sizes rel 1e-6 (K6b's);
   - the bf16 AdamW over 3 steps: within one bf16 step of the plain twin
     (each operation rounds to bf16; Triton's division and square root are
     not correctly rounded in f32, which may move a value across a bf16
@@ -715,6 +718,9 @@ def test_bfs_kernel_matches_plain(S):
     ("entrypoint.centrality", "run_harmonic"),
     ("entrypoint.centrality", "run_approx_harmonic"),
     ("entrypoint.centrality", "run_harmonic_nearest_seed"),
+    ("entrypoint.search_server", "run"),
+    ("entrypoint.api", "run"),
+    ("entrypoint.api", "build_coordinator"),
     ("webgraph.centrality", "harmonic_centrality"),
     ("webgraph.shortest_path", "approx_harmonic_centrality"),
 ])
@@ -738,3 +744,122 @@ def test_entry_points_default_to_the_card(where, name):
         x = np.random.default_rng(0).normal(size=(40, 46)).astype(np.float32)
         with pytest.raises((RuntimeError, AssertionError)):
             LambdaMART.train(x, x[:, 0], num_trees=2, max_depth=2)
+
+
+# ---- the mesh's kernels: K9 (the global top-k of the shards), K8 (the ring step) --------
+def _gathered(B: int, n: int, K: int, seed: int = 0):
+    """Seeded per-shard top-K lists gathered shard-major → (scores f32[B, n, K],
+    docs i32[B, n, K]): scores on a coarse grid, so many tie across and
+    within shards, each shard's list descending with a -inf tail (a shard
+    with fewer matches than K), one shard all -inf, and a -0 beside +0."""
+    rng = np.random.default_rng(seed)
+    scores = np.sort(rng.integers(0, 40, (B, n, K)).astype(np.float32) / 4, axis=2)[..., ::-1]
+    scores = np.ascontiguousarray(scores)
+    for b in range(B):
+        for d in range(n):
+            scores[b, d, rng.integers(K // 2, K + 1):] = -np.inf
+    scores[:, -1, :] = -np.inf
+    scores[0, 0, :2] = [0.0, -0.0]
+    docs = rng.integers(0, 1_000_000, (B, n, K)).astype(np.int32)
+    return torch.from_numpy(scores), torch.from_numpy(docs)
+
+
+def test_mesh_wrappers_dispatch_and_check(monkeypatch):
+    """The mesh merge and the ring step take their plain twins on CPU
+    tensors; a CUDA tensor calls the kernel (stand-ins here); arguments the
+    kernels do not take raise before any build or launch."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.ops import scoring as O
+
+    scores, docs = _gathered(2, 4, 64)
+    got = O.mesh_topk(scores, docs, 32)
+    want = O.mesh_topk_plain(scores, docs, 32)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    regs = torch.from_numpy(hll_ops.init_registers(50, 4))
+    src, dst = _graph(50, 10)
+    csr = in_csr(50, src % 50, dst, "cpu")
+    out = regs.clone()
+    changed, sizes = hll_ops.ring_step(out, regs.flip(0).contiguous(), csr, start=regs,
+                                       sizes=True)
+    assert bool(changed.item()) and sizes.shape == (50,)
+    with pytest.raises(ValueError):  # the ring buffer is the tensor it updates
+        hll_ops.ring_step(out, out, csr)
+    called = []
+    monkeypatch.setattr(O, "mesh_topk_plain", lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(hll_ops, "ring_step_plain", lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(kernels, "mesh_topk", lambda *a, **k: called.append("mesh_topk"))
+    monkeypatch.setattr(kernels, "hll_ring_step", lambda *a, **k: called.append("ring"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    O.mesh_topk(scores, docs, 32)
+    hll_ops.ring_step(out, regs, csr, start=regs, sizes=True)
+    assert called == ["mesh_topk", "ring"]
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    big_s, big_d = _gathered(1, 9, 1024)
+    with pytest.raises(ValueError):  # 9 x 1024 entries: more than one block holds
+        kernels.mesh_topk(big_s, big_d, 1024, *(torch.zeros((1, 1024), dtype=t)
+                                                for t in (torch.int32, torch.int32,
+                                                          torch.float32)))
+    with pytest.raises(ValueError):  # keeps more than each shard gave
+        kernels.mesh_topk(scores, docs, 65, *(torch.zeros((2, 65), dtype=t)
+                                              for t in (torch.int32, torch.int32,
+                                                        torch.float32)))
+    with pytest.raises(ValueError):  # the ring buffer aliases the rows it updates
+        kernels.hll_ring_step(out, out, *csr, 64, 0.7)
+    with pytest.raises(ValueError):  # a change flag without the round-start shard
+        kernels.hll_ring_step(out, regs, *csr, 64, 0.7, changed=torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K", [(1, 512), (4, 1024), (8, 1024), (8, 512)])
+def test_mesh_topk_kernel_matches_plain(n, K):
+    """K9 against its plain twin (a stable sort, lax.top_k's order): docs,
+    shards and scores equal, ties (planted across and within shards, -inf
+    tails, a -0 beside +0) in flat-index order; k = K and k = 10."""
+    from stract_tpu_torch.ops import scoring as O
+
+    dev = _card()
+    scores, docs = _gathered(5, n, K, seed=n)
+    scores, docs = scores.to(dev), docs.to(dev)
+    for k in (K, 10):
+        c = kernels.LAUNCHES["mesh_topk"]
+        got = O.mesh_topk(scores, docs, k)
+        assert kernels.LAUNCHES["mesh_topk"] == c + 1
+        for a, b in zip(got, O.mesh_topk_plain(scores, docs, k)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+def test_ring_step_kernel_matches_plain(n_shards):
+    """K8 round by round over the ring buckets of a Pareto graph with a hub
+    of 50k in-edges (long rows) and uneven shards: every shard's registers
+    bit-equal to the plain ring steps', its change flag to the plain
+    comparison, the sizes of the last step within rel 1e-6 of the plain
+    estimate."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.webgraph import centrality as PC
+
+    dev = _card()
+    n = 50_003
+    src, dst = _graph(n, 50_000, seed=2)
+    S = -(-n // n_shards)
+    regs0 = np.zeros((S * n_shards, 64), np.uint8)
+    regs0[:n] = hll_ops.init_registers(n, 6)
+    shards = {where: [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(where)
+                      for d in range(n_shards)] for where in (dev, "cpu")}
+    buckets = {where: PC.ring_buckets(n, src, dst, [torch.device(where)] * n_shards)
+               for where in (dev, "cpu")}
+    assert any(b.long_rows.numel() for row in buckets[dev] for b in row)
+    for _ in range(4):
+        c = kernels.LAUNCHES["hll_ring_step"]
+        got, got_sz, got_ch = PC.ring_round(shards[dev], buckets[dev])
+        assert kernels.LAUNCHES["hll_ring_step"] == c + n_shards * n_shards
+        want, _, want_ch = PC.ring_round(shards["cpu"], buckets["cpu"])
+        for g, w, gs, gc, wc in zip(got, want, got_sz, got_ch, want_ch):
+            assert torch.equal(g.cpu(), w)
+            assert int(gc.item()) == int(wc.item())
+            torch.testing.assert_close(gs.cpu(), hll_ops.estimate_sizes_plain(w), rtol=1e-6,
+                                       atol=0)
+        shards = {dev: got, "cpu": want}

@@ -331,9 +331,119 @@ def _hll_init(orig, copy, rng):
 
 
 def _config(orig, copy, rng):
-    path = os.path.join(REPO, "configs", "centrality.toml")
-    a, b = orig.load_config("centrality", path), copy.load_config("centrality", path)
-    assert _fields(a) == _fields(b)
+    for kind, name in (("centrality", "centrality.toml"), ("api", "api.toml"),
+                       ("search-server", "search_server.toml")):
+        path = os.path.join(REPO, "configs", name)
+        a, b = orig.load_config(kind, path), copy.load_config(kind, path)
+        assert _fields(a) == _fields(b), kind
+    g = {"addr": "127.0.0.1:47001", "seeds": ["127.0.0.1:47000", "10.0.0.2:9"]}
+    a, b = orig._from_dict(orig.GossipConfig, g), copy._from_dict(copy.GossipConfig, g)
+    assert (a.addr_tuple(), a.seed_tuples()) == (b.addr_tuple(), b.seed_tuples())
+
+
+class _Echo:
+    def echo(self, body):
+        return body
+
+    def fail(self, body):
+        raise ValueError("no")
+
+
+def _sonic(orig, copy, rng):
+    """A server of either package answers a client of the other, numpy
+    arrays and errors included."""
+    body = {"a": rng.random((3, 4)).astype(np.float32), "b": [1, "x", None],
+            "c": rng.integers(0, 9, 5, dtype=np.int64), "d": b"raw"}
+    assert orig.unpack(copy.pack(body))["d"] == body["d"]
+    for srv_mod, cli_mod in ((orig, copy), (copy, orig)):
+        srv = srv_mod.serve_in_thread(_Echo())
+        try:
+            cli = cli_mod.RemoteClient(srv.addr, timeout=30)
+            got = cli.send("echo", body)
+            np.testing.assert_array_equal(got["a"], body["a"])
+            np.testing.assert_array_equal(got["c"], body["c"])
+            assert got["b"] == body["b"] and got["d"] == body["d"]
+            with pytest.raises(cli_mod.RpcError):
+                cli.send("fail", {})
+            cli.close()
+        finally:
+            srv.stop()
+
+
+def _cluster(orig, copy, rng):
+    """Members of the two packages' gossip find each other."""
+    svc = dict(kind="search-server", host=("127.0.0.1", 4711), shard=3)
+    assert orig.Service(**svc).to_json() == copy.Service(**svc).to_json()
+    a = orig.Cluster.join(orig.Service("api"), interval=0.05)
+    b = copy.Cluster.join(copy.Service(**svc), seeds=[a.gossip_addr], interval=0.05)
+    try:
+        found = a.await_member(lambda m: m.service.kind == "search-server", timeout=60)
+        assert found is not None and found.service.shard == 3
+        assert b.await_member(lambda m: m.service.kind == "api", timeout=60) is not None
+    finally:
+        a.shutdown()
+        b.shutdown()
+
+
+def _replication(orig, copy, rng):
+    """The selectors choose alike; a sharded client of either package fans
+    out to servers of the other."""
+    ids = [0, 3, 5]
+    assert copy.AllShardsSelector().select(ids) == orig.AllShardsSelector().select(ids)
+    assert copy.SpecificShardSelector(3).select(ids) == orig.SpecificShardSelector(3).select(ids)
+    assert copy.SpecificReplicaSelector(1).select(ids) == \
+        orig.SpecificReplicaSelector(1).select(ids)
+    sonic = importlib.import_module(orig.__name__.replace("replication", "sonic"))
+    srvs = [sonic.serve_in_thread(_Echo()) for _ in range(2)]
+    try:
+        for mod in (orig, copy):
+            cli = mod.ShardedClient({i: mod.ReplicatedClient([s.addr]) for i, s in enumerate(srvs)})
+            assert cli.send("echo", {"x": 1}) == {0: [{"x": 1}], 1: [{"x": 1}]}
+    finally:
+        for s in srvs:
+            s.stop()
+
+
+def _remote_cp(orig, copy, rng):
+    """A tree served by either package's RemoteCpService downloads alike
+    through the other's download_tree."""
+    import tempfile
+
+    from stract_tpu.distributed.sonic import serve_in_thread
+
+    from stract_tpu_torch.distributed.sonic import RemoteClient
+
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "src")
+        os.makedirs(os.path.join(src, "sub"))
+        files = {"a.bin": rng.bytes(3 << 19), os.path.join("sub", "b.txt"): b"hello"}
+        for rel, data in files.items():
+            with open(os.path.join(src, rel), "wb") as fh:
+                fh.write(data)
+        for srv_mod, cli_mod in ((orig, copy), (copy, orig)):
+            srv = serve_in_thread(srv_mod.RemoteCpService(src))
+            try:
+                dest = os.path.join(d, f"dst-{srv_mod.__name__}")
+                assert cli_mod.download_tree(RemoteClient(srv.addr), dest) == len(files)
+                for rel, data in files.items():
+                    with open(os.path.join(dest, rel), "rb") as fh:
+                        assert fh.read() == data
+                assert cli_mod.download_tree(RemoteClient(srv.addr), dest) == 0  # digests match
+            finally:
+                srv.stop()
+
+
+def _distributed_package(orig, copy, rng):
+    names = lambda pkg: sorted(n for n in dir(pkg) if not n.startswith("_"))  # noqa: E731
+    assert [n for n in names(orig) if n not in names(copy)] == []
+
+
+def _executor(orig, copy, rng):
+    xs = rng.integers(0, 100, 50).tolist()
+    for n in (1, 4, None):
+        assert copy.Executor.multi_thread(n).map(lambda x: x * x, xs) == \
+            orig.Executor.multi_thread(n).map(lambda x: x * x, xs)
+    assert copy.Executor.single_thread().map(str, xs) == orig.Executor.single_thread().map(str, xs)
 
 
 COPIES = {
@@ -347,6 +457,9 @@ COPIES = {
     "ranking.pipeline.recall": _pipeline_stages, "bangs": _bangs, "snippet": _snippet,
     "prettifier": _prettifier, "native": _native, "kv.db": _kv, "webgraph.node": _edge_node,
     "webgraph.edge": _webgraph_edge, "ops.hll_ops": _hll_init, "config": _config,
+    "distributed": _distributed_package, "distributed.sonic": _sonic,
+    "distributed.cluster": _cluster, "distributed.replication": _replication,
+    "distributed.remote_cp": _remote_cp, "utils.executor": _executor,
 }
 
 
