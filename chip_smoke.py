@@ -71,6 +71,19 @@ same loss curve within 5 % per step; one step is timed with kernels and
 with plain versions, and K15a-d are held against their plain versions at
 the step's shapes.
 
+Then the pipeline-parallel train step (parallel/pipeline.py, K16) at
+MiniLM-L6's width: six single-head f32 stages (hidden 384, FFN 1536, 128
+tokens) on a (pp=6, dp=2) Mesh of entries of the card, 8 microbatches of 16
+rows from a numpy seed. K16a-d (the stage's attention, its backward, the
+tanh GELU forward and backward, the SGD update) are held against their
+plain versions at the step's shapes and timed beside SDPA, its backward,
+F.gelu and torch._foreach_add_; the pipelined forward against
+reference_forward through the plain versions (rtol 2e-4, atol 2e-5); 20
+SGD steps at lr 5e-2 with the kernels, launch counts reset just before and
+read just after (every K16 kernel launched, the loss finite), beside the
+same 20 steps through the plain versions from the same parameters (the
+curves within 1e-3 per step); a step timed with each, in turns.
+
 Then the mesh of shards on the card (parallel/mesh.py: Mesh([cuda:0] * 4)):
 a 4-segment index of 4 x 250,000 pages (seeds 1-4, written by four child
 processes while the main corpus is built) served by a search shard server
@@ -94,7 +107,9 @@ call computing the same function where there is one, qps, p50 and p99, the
 centrality jobs' stage times, and as its last line the device record. Any
 failure raises, so the exit code is non-zero; without a card it exits 2
 before doing anything; it fails when the native host library does not
-load. Imports nothing of JAX.
+load. Every phase runs under `in_phase`, which prints `[<phase>] FAILED:
+<type>: <message>` to stderr before the exception propagates, so a failed
+run names its phase. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -168,6 +183,13 @@ DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 MESH_SHARDS, MESH_DOCS, MESH_SEEDS = 4, 250_000, (1, 2, 3, 4)
 MESH_SERVING = ("stage_a", "stage_b_joined", "signals_q16", "mesh_topk")
 MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
+# the pipeline-parallel train step (K16) at MiniLM-L6's width, the ranker it
+# exists to scale: a single-head stage for each of its 6 layers, hidden 384,
+# FFN 1536, 128 tokens, a (pp, dp) mesh on the card, M microbatches of MB rows
+# (split over dp); SGD steps and rate, the steps timed; the kernels it launches
+PIPE_S, PIPE_H, PIPE_F, PIPE_T, PIPE_DP, PIPE_M, PIPE_MB = 6, 384, 1536, 128, 2, 8, 16
+PIPE_STEPS, PIPE_LR, PIPE_TIMED = 20, 5e-2, 3
+PIPE_KERNELS = ("stage_attention", "stage_attention_backward", "gelu_tanh", "sgd")
 
 # Tolerances, kernel against plain version on the same card:
 #  stage A  scores rtol 1e-5, atol 5e-2: the plain version takes per-doc sums
@@ -226,6 +248,17 @@ MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
 #  K15d    one bf16 step after 3 steps (every operation rounds to bf16;
 #           Triton's division and square root are not correctly rounded in
 #           f32, which may move a value across a bf16 rounding boundary)
+#  K16a-b  rtol 1e-5, atol 1e-5 x max |plain| (f32 sums of T or H terms in
+#           another order; the backward held to autograd of the plain forward)
+#  K16c    rtol 1e-5, atol 1e-6 x max |x| (tanh through exp: 1 + tanh loses
+#           the same bits near -1 in both)
+#  K16d    bit-equal after 3 steps (the kernel is built without fused
+#           multiply-adds: lr g rounds before the difference, as in the plain
+#           version)
+#  pipeline  the pipelined forward against reference_forward through the
+#           plain versions at the JAX test's rtol 2e-4, atol 2e-5; the 20-step
+#           loss curve through the kernels within 1e-3 per step of the plain
+#           versions' (the same f32 ops, sums in other orders, through SGD)
 #  MoE     the 20-step loss curve through the kernels within 5 % per step of
 #           the plain versions': one-step differences within a bf16 step grow
 #           through AdamW, whose first updates are ~lr x sign(g)
@@ -233,6 +266,7 @@ A_TOL, B_TOL = (1e-5, 5e-2), (1e-5, 1e-4)
 MESH_TOL = 1e-5
 P12_TOL, RERANK_TOL = (1e-5, 1e-5), (1e-6, 2e-6)
 MOE_CURVE_RTOL = 0.05
+PIPE_TOL, PIPE_CURVE_RTOL = (2e-4, 2e-5), 1e-3
 # top-10 pages of a configuration against the default's, scores within rtol
 # 1e-3: the q16 device join must give all of the default's pages (its stage B is
 # held to the host-joined stage B bit for bit in the kernel phase; the page's
@@ -275,7 +309,10 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "adamw_bf16": "1 bf16 step after 3 steps",
             "hll_merge": "registers bit-equal, sizes rel 1e-6",
             "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal",
-            "mesh_topk": "bit-equal", "hll_ring_step": "rows bit-equal, sizes rel 1e-6"}
+            "mesh_topk": "bit-equal", "hll_ring_step": "rows bit-equal, sizes rel 1e-6",
+            "stage_attention": "rtol 1e-5 atol 1e-5*max|plain|",
+            "stage_attention_backward": "rtol 1e-5 atol 1e-5*max|plain| (vs autograd)",
+            "gelu_tanh": "rtol 1e-5 atol 1e-6*max|x|", "sgd": "bit-equal"}
 
 
 def log(*a):
@@ -549,10 +586,10 @@ def plain_versions():
     card (the reference run of the comparisons): K1-K3 in ops/scoring.py, K4
     in ops/forest.py, K5a-d and their gradients K14a-c in ops/encoder.py (the
     dispatchers the autograd Functions call), K14d and K15d in optim.py,
-    K15a-b in ops/moe.py, K15c in ops/losses.py, K6a-b in ops/hll_ops.py and
+    K15a-b in ops/moe.py, K15c in ops/losses.py, K6a-b in ops/hll_ops.py,
     K7 in webgraph/shortest_path.py (over the edges of the reverse CSR the
-    kernels take). Stage A keeps its configuration's arguments (UB bounds,
-    the merge)."""
+    kernels take) and K16a-d in ops/stage.py. Stage A keeps its
+    configuration's arguments (UB bounds, the merge)."""
     import torch
 
     from stract_tpu_torch import optim
@@ -562,6 +599,7 @@ def plain_versions():
     from stract_tpu_torch.ops import losses as LO
     from stract_tpu_torch.ops import moe as MO
     from stract_tpu_torch.ops import scoring as O
+    from stract_tpu_torch.ops import stage as ST
     from stract_tpu_torch.webgraph import shortest_path as SP
 
     def stage_a(seg, qs, L, K, ds, soft_required=False, ub_entry=None, ub_total=None,
@@ -623,7 +661,12 @@ def plain_versions():
              (LO, "pair_loss_forward", LO.pair_loss_plain),
              (LO, "info_nce_forward", LO.info_nce_plain),
              (HO, "merge_csr", hll_merge), (HO, "estimate_sizes", HO.estimate_sizes_plain),
-             (SP, "relax", bfs_relax)]
+             (SP, "relax", bfs_relax),
+             (ST, "stage_attention_forward", ST.stage_attention_plain),
+             (ST, "stage_attention_backward", ST.stage_attention_backward_plain),
+             (ST, "gelu_tanh_forward", ST.gelu_tanh_plain),
+             (ST, "gelu_tanh_backward", ST.gelu_tanh_backward_plain),
+             (ST, "sgd_update", ST.sgd_update_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1555,6 +1598,169 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     return {"record": rec, "rows": rows, "launches": launches, "library": library}
 
 
+def pipeline_phase(card: str) -> dict:
+    """The pipeline-parallel train step (parallel/pipeline.py, K16) at
+    MiniLM-L6's width on a (pp=PIPE_S, dp=PIPE_DP) Mesh of entries of the
+    one card: K16a-d held against their plain versions at the step's shapes
+    (the attention backward against autograd of the plain forward) and timed
+    beside a library call; pipeline_apply with the kernels against
+    reference_forward through the plain versions; PIPE_STEPS SGD steps with
+    the kernels (launch counts reset just before and read just after) and
+    the same steps through the plain versions from the same parameters, the
+    loss finite and the curves within PIPE_CURVE_RTOL; a step timed with
+    each in turns. → {"record", "rows" (name, err, ms, plain ms, shape,
+    bytes, ops), "launches", "library"}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import stage as ST
+    from stract_tpu_torch.parallel import pipeline as PL
+    from stract_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE, 0)
+    S, H, FF, T, D, M, MB = PIPE_S, PIPE_H, PIPE_F, PIPE_T, PIPE_DP, PIPE_M, PIPE_MB
+    mb = MB // D
+    mesh = Mesh([[dev] * D] * S, axis_names=("pp", "dp"))
+    init_fn, step_fn = PL.make_pipeline_train_step(mesh, hidden=H, ffn=FF, learning_rate=PIPE_LR)
+    start = PL.params_to_numpy(init_fn(SEED))
+    n_params = sum(a.size for a in start.values())
+    rng = np.random.default_rng(SEED + 10)
+    mbs = torch.from_numpy(rng.normal(size=(M, MB, T, H)).astype(np.float32)).to(dev)
+    targets = torch.from_numpy(rng.normal(size=(M, MB)).astype(np.float32)).to(dev)
+
+    # K16a-d against their plain versions at the step's shapes (one dp shard's
+    # microbatch), each beside a PyTorch call computing the same function
+    rows, library = [], {}
+    g = torch.Generator().manual_seed(SEED + 11)
+    qkv = torch.randn((mb, T, 3 * H), generator=g).to(dev)
+    dout = torch.randn((mb, T, H), generator=g).to(dev)
+
+    def close(got, want, rtol, atol) -> float:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        return float((got - want).abs().max())
+    out_p = ST.stage_attention_plain(qkv)
+    err = close(ST.stage_attention_forward(qkv), out_p, 1e-5, 1e-5 * float(out_p.abs().max()))
+    pairs = 2 * mb * T * T * H  # one T x T x H product's flops
+    rows.append(("stage_attention", err, time_ms(lambda: ST.stage_attention_forward(qkv)),
+                 time_ms(lambda: ST.stage_attention_plain(qkv)), (mb, T, H),
+                 4 * (3 + 1) * mb * T * H, 2 * pairs + 5 * mb * T * T))
+    leaf = qkv.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout)
+    err = close(ST.stage_attention_backward(qkv, dout), auto, 1e-5, 1e-5 * float(auto.abs().max()))
+    close(ST.stage_attention_backward_plain(qkv, dout), auto, 1e-5, 1e-5 * float(auto.abs().max()))
+    rows.append(("stage_attention_backward", err,
+                 time_ms(lambda: ST.stage_attention_backward(qkv, dout)),
+                 time_ms(lambda: ST.stage_attention_backward_plain(qkv, dout)), (mb, T, H),
+                 4 * (3 + 1 + 3) * mb * T * H, 5 * pairs + 8 * mb * T * T))
+    q, k, v = (qkv[..., i * H:(i + 1) * H].unsqueeze(1).contiguous().requires_grad_(True)
+               for i in range(3))
+    library["stage_attention"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v)
+    do = dout.unsqueeze(1)
+    library["stage_attention_backward"] = time_ms(
+        lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+    sdpa_err = float((o.detach().squeeze(1) - out_p).abs().max())
+
+    x = (3 * torch.randn((mb, T, FF), generator=g)).to(dev)
+    dx = torch.randn((mb, T, FF), generator=g).to(dev)
+    atol = 1e-6 * float(x.abs().max())
+    err = max(close(ST.gelu_tanh_forward(x), ST.gelu_tanh_plain(x), 1e-5, atol),
+              close(ST.gelu_tanh_backward(x, dx), ST.gelu_tanh_backward_plain(x, dx), 1e-5, atol))
+    n = mb * T * FF
+    rows.append(("gelu_tanh", err,
+                 time_ms(lambda: (ST.gelu_tanh_forward(x), ST.gelu_tanh_backward(x, dx))),
+                 time_ms(lambda: (ST.gelu_tanh_plain(x), ST.gelu_tanh_backward_plain(x, dx))),
+                 (mb, T, FF), 4 * (2 + 3) * n, 34 * n))
+    xl = x.clone().requires_grad_(True)
+    y = F.gelu(xl, approximate="tanh")
+    library["gelu_tanh"] = time_ms(lambda: (F.gelu(x, approximate="tanh"),
+                                            torch.autograd.grad(y, xl, dx, retain_graph=True)))
+
+    ps = [torch.from_numpy(a).to(dev) for key in PL.STAGE_KEYS for a in start[key]]
+    ps.append(torch.from_numpy(start["head"]).to(dev))
+    gs = [0.01 * torch.randn(p.shape, generator=g).to(dev) for p in ps]
+
+    def sgd(update):
+        out = [p.clone() for p in ps]
+        for _ in range(3):
+            for p, gg in zip(out, gs):
+                update(p, gg, PIPE_LR)
+        return out
+    if not all(torch.equal(a, b) for a, b in zip(sgd(ST.sgd_update), sgd(ST.sgd_update_plain))):
+        raise AssertionError("the SGD kernel differs from its plain version")
+    work = [p.clone() for p in ps]
+    rows.append(("sgd", 0.0, time_ms(lambda: [ST.sgd_update(p, gg, PIPE_LR) for p, gg in
+                                              zip(work, gs)]),
+                 time_ms(lambda: [ST.sgd_update_plain(p, gg, PIPE_LR) for p, gg in zip(work, gs)]),
+                 n_params, 12 * n_params, 2 * n_params))
+    library["sgd"] = time_ms(lambda: torch._foreach_add_(work, gs, alpha=-PIPE_LR))
+    del work, ps, gs
+
+    # the pipelined forward against the sequential twin through the plain versions
+    params = PL.params_from_numpy(start, mesh)
+    with torch.no_grad():
+        piped = PL.pipeline_apply(mesh, params, mbs)
+        with plain_versions():
+            seq = PL.reference_forward(params, mbs)
+    if piped.shape != (M, MB, T, H) or not bool(torch.isfinite(piped).all()):
+        raise AssertionError(f"the pipelined forward gave {tuple(piped.shape)}, finite="
+                             f"{bool(torch.isfinite(piped).all())}")
+    torch.testing.assert_close(piped, seq, rtol=PIPE_TOL[0], atol=PIPE_TOL[1])
+    fwd_err = float((piped - seq).abs().max())
+    del piped, seq, params
+
+    # the train steps, with the kernels and through the plain versions
+    def run():
+        params = PL.params_from_numpy(start, mesh)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step_fn(params, mbs, targets)[1] for _ in range(PIPE_STEPS)]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        return [float(v) for v in losses], launches, params, torch.cuda.max_memory_allocated()
+
+    losses_k, launches, params, peak = run()
+    with plain_versions():
+        losses_p = run()[0]
+    if not np.isfinite(losses_k).all():
+        raise AssertionError(f"the pipelined steps gave a non-finite loss: {losses_k}")
+    if any(launches[k] == 0 for k in PIPE_KERNELS):
+        raise AssertionError(f"a kernel was not launched by the pipelined steps: {launches}")
+    curve = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    if curve > PIPE_CURVE_RTOL:
+        raise AssertionError(f"pipelined loss curves differ by {curve:.3g} relative: {losses_k} "
+                             f"vs {losses_p}")
+
+    def timed():
+        step_fn(params, mbs, targets)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PIPE_TIMED):
+            step_fn(params, mbs, targets)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / PIPE_TIMED
+    step_ms = {"kernels": [], "plain": []}
+    for kind in ("plain", "kernels", "kernels", "plain"):
+        with plain_versions() if kind == "plain" else contextlib.nullcontext():
+            step_ms[kind].append(timed())
+    rec = {"stages": S, "hidden": H, "ffn": FF, "tokens": T, "mesh": {"pp": S, "dp": D},
+           "microbatches": M, "rows": MB, "params": int(n_params), "steps": PIPE_STEPS,
+           "lr": PIPE_LR, "loss_kernels": losses_k, "loss_plain": losses_p,
+           "curve_max_rel_diff": curve, "forward_max_abs_err": fwd_err,
+           "step_ms_kernels": min(step_ms["kernels"]), "step_ms_plain": min(step_ms["plain"]),
+           "launches_per_step": {k: launches[k] / PIPE_STEPS for k in PIPE_KERNELS},
+           "device_mem_peak_MiB": peak / 2 ** 20, "sdpa_max_abs_diff": sdpa_err,
+           "seconds": time.perf_counter() - t0}
+    log(f"[pipeline] {json.dumps(rec)} card={card}")
+    del params
+    return {"record": rec, "rows": rows, "launches": {k: launches[k] for k in PIPE_KERNELS},
+            "library": library}
+
+
 def centrality_phase(data_dir: str) -> dict:
     """The webgraph centrality job: the benchmark graph (1M nodes, 20M
     Pareto edges, seed 0) written to disk, then `main.py centrality
@@ -2034,7 +2240,7 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card, config_launches, moe_launches, mesh) -> list:
+                   card, config_launches, moe_launches, mesh, pipe) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
@@ -2042,14 +2248,15 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
     the centrality jobs for the graph kernels, its configuration's HTTP round
     for the configurations' kernels, one direct call for the DIRECT three,
     the MoE steps for K15a-d, the mesh's serving round for K9 and its
-    HyperBall for K8, the pipeline-on traffic for the rest). Each measured
-    row is logged too."""
+    HyperBall for K8, the pipelined train steps for K16a-d, the pipeline-on
+    traffic for the rest). Each measured row is logged too."""
     all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
                 for name, ds, err, ms, pms, shape, nb, ops in rows]
     all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
                  for name, err, ms, pms, shape in rows_m]
     all_rows += [(name, err, ms, pms, shape, *bound(nb, ops), True)
-                 for name, err, ms, pms, shape, nb, ops in cent["rows"] + mesh["rows"]]
+                 for name, err, ms, pms, shape, nb, ops in
+                 cent["rows"] + mesh["rows"] + pipe["rows"]]
     for name, err, ms, pms, shape, bms, by, ds in all_rows:
         log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
             f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms "
@@ -2095,7 +2302,15 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "mesh_topk": ("cuda", src + "scoring.cu", "stract_tpu/parallel/search.py:81",
                           MESH_TOPK_SHAPES[0]),
             "hll_ring_step": ("cuda", src + "graph.cu",
-                              "stract_tpu/webgraph/centrality.py:153", None)}
+                              "stract_tpu/webgraph/centrality.py:153", None),
+            "stage_attention": ("cuda", src + "stage.cu", "stract_tpu/parallel/pipeline.py:46",
+                                None),
+            "stage_attention_backward": ("cuda", src + "stage.cu",
+                                         "stract_tpu/parallel/pipeline.py:133", None),
+            "gelu_tanh": ("triton", "stract_tpu_torch/ops/stage.py",
+                          "stract_tpu/parallel/pipeline.py:50", None),
+            "sgd": ("triton", "stract_tpu_torch/ops/stage.py",
+                    "stract_tpu/parallel/pipeline.py:136", None)}
     out = []
     for name, (route, source, replaces, main_shape) in meta.items():
         mine = [r for r in all_rows if r[0] == name]
@@ -2111,6 +2326,10 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             launches, path = train_launches[name], "training"
         elif name in mesh["launches"]:
             launches, path = mesh["launches"][name], mesh["paths"][name]
+        elif name in pipe["launches"]:
+            launches = pipe["launches"][name]
+            path = (f"training: {PIPE_STEPS} pipelined SGD steps on a (pp={PIPE_S}, "
+                    f"dp={PIPE_DP}) mesh")
         elif name == "bfs_relax":
             launches = cent["jobs"]["approx-harmonic"]["launches"][name]
             path = "centrality approx-harmonic"
@@ -2155,6 +2374,17 @@ def work(name: str, shape, forest=None) -> tuple:
     raise KeyError(name)
 
 
+def in_phase(name: str, fn, *args, **kw):
+    """fn(*args, **kw) as the phase `name`: if it raises, print `[name]
+    FAILED: <type>: <message>` to stderr, flush, and re-raise, so a failed
+    run names the phase it failed in and still exits non-zero."""
+    try:
+        return fn(*args, **kw)
+    except BaseException as exc:
+        print(f"[{name}] FAILED: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
+        raise
+
+
 def main() -> int:
     import torch
 
@@ -2169,14 +2399,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}")
+
+    def build():
+        kernels.build(verbose=True)
+        if not native.available():  # else the host factor join drops to Python
+            raise RuntimeError("the native host library (native/) did not build or load")
+
     t_start = t = time.perf_counter()
-    kernels.build(verbose=True)
-    if not native.available():  # else the host factor join drops to Python
-        raise RuntimeError("the native host library (native/) did not build or load")
+    in_phase("build", build)
     log(f"[setup] kernels and the native host library built in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     data_dir = os.path.join(ROOT, "data", "torch_smoke")
-    mesh_proc = start_mesh_corpus(data_dir)
+    mesh_proc = in_phase("mesh corpus", start_mesh_corpus, data_dir)
     try:
         return run_phases(data_dir, mesh_proc, card, t_start, t)
     finally:
@@ -2194,53 +2428,56 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     from stract_tpu_torch.models.dual_encoder import DualEncoder
     from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
 
-    index_dir = bc.ensure_corpus(data_dir, DOCS, seed=SEED, log=log)
+    index_dir = in_phase("corpus", bc.ensure_corpus, data_dir, DOCS, seed=SEED, log=log)
     log(f"[setup] corpus ready in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    searcher = build_searcher(index_dir, DEVICE)
+    searcher = in_phase("index", build_searcher, index_dir, DEVICE)
     index = searcher.searcher.searchers[0].index
     torch.cuda.synchronize()
     log(f"[setup] index on the card in {time.perf_counter() - t:.1f}s; "
         f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB held")
 
     # ---- pipeline off: K1-K3 --------------------------------------------------------
-    rows = kernel_phase(index, DEVICE)
+    rows = in_phase("kernels", kernel_phase, index, DEVICE)
     torch.cuda.reset_peak_memory_stats()
     with join_timer() as join_off:
-        served_off = serve_phase(searcher, SCORING)
+        served_off = in_phase("serve off", serve_phase, searcher, SCORING)
     log(f"[serve off] {json.dumps(served_off)}")
     log(f"[serve off] host factor join: {join_off['calls']} calls, {join_off['seconds']:.3f} s "
         f"of the round's {served_off['wall_s']:.3f} s")
-    default_pages = top10_pages(searcher)
-    cmp = compare_phase(searcher)
+    default_pages = in_phase("compare off", top10_pages, searcher)
+    cmp = in_phase("compare off", compare_phase, searcher)
     log(f"[compare off] top-10 kernels vs plain versions: {json.dumps(cmp)}")
     log(f"[result off] docs={DOCS} qps={served_off['qps']:.2f} "
         f"p50_ms={served_off['p50_ms']:.1f} p99_ms={served_off['p99_ms']:.1f} "
         f"device_mem_peak_MiB={torch.cuda.max_memory_allocated() / 2**20:.0f} card={card}")
 
     # ---- training, then pipeline on: models, embedding columns, K4 + K5a-d, K14a-d ---
-    models = models_phase(searcher, index_dir, os.path.join(data_dir, "models"))
-    dual = DualEncoder.load(models["dual"], device=DEVICE)
-    emb = write_embedding_columns(index_dir, dual, batch=EMB_BATCH, log=log)
+    models = in_phase("models", models_phase, searcher, index_dir,
+                      os.path.join(data_dir, "models"))
+    dual = in_phase("embeddings", DualEncoder.load, models["dual"], device=DEVICE)
+    emb = in_phase("embeddings", write_embedding_columns, index_dir, dual, batch=EMB_BATCH,
+                   log=log)
     torch.cuda.synchronize()
     log(f"[embeddings] {emb['docs']} docs x {emb['dim']} in {emb['seconds']:.1f}s: "
         f"{emb['docs'] / emb['seconds']:.0f} docs/s card={card}")
     tok = dual.tokenizer
     del dual
-    forest = LambdaMART.load(models["forest"], device=DEVICE)
-    rows_m = model_kernel_phase(forest, models["rows"]) + training_kernel_phase(models["dual"])
-    library = library_phase()
-    step_ms = train_step_timing(tok)
+    forest = in_phase("model kernels", LambdaMART.load, models["forest"], device=DEVICE)
+    rows_m = (in_phase("model kernels", model_kernel_phase, forest, models["rows"])
+              + in_phase("training kernels", training_kernel_phase, models["dual"]))
+    library = in_phase("library", library_phase)
+    step_ms = in_phase("train step", train_step_timing, tok)
     log(f"[train step] dual InfoNCE step B={TRAIN_B} T={TRAIN_T}: kernels "
         f"{step_ms['kernels']:.2f} ms, plain versions {step_ms['plain']:.2f} ms card={card}")
     del searcher
     torch.cuda.empty_cache()
-    on = build_searcher(index_dir, DEVICE, dual_encoder=models["dual"],
-                        cross_encoder=models["cross"], lambdamart=models["forest"])
+    on = in_phase("serve on", build_searcher, index_dir, DEVICE, dual_encoder=models["dual"],
+                  cross_encoder=models["cross"], lambdamart=models["forest"])
     torch.cuda.reset_peak_memory_stats()
-    served = serve_phase(on, SERVING, rounds=SERVE_ON_ROUNDS)
+    served = in_phase("serve on", serve_phase, on, SERVING, rounds=SERVE_ON_ROUNDS)
     log(f"[serve on] {json.dumps(served)}")
-    cmp_on = compare_phase(on, forest=on.pipeline.recall.lambdamart)
+    cmp_on = in_phase("compare on", compare_phase, on, forest=on.pipeline.recall.lambdamart)
     log(f"[compare on] top-10 kernels vs plain versions: {json.dumps(cmp_on)}")
     log(f"[result on] docs={DOCS} rounds={served['rounds']} qps={served['qps']:.2f} "
         f"p50_ms={served['p50_ms']:.1f} p99_ms={served['p99_ms']:.1f} device_mem_peak_MiB="
@@ -2252,7 +2489,7 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
 
     # ---- the other configurations: q8 rows, device join, UB; K11, K12, K10 ------------
     t = time.perf_counter()
-    configs = config_phase(index_dir, default_pages, card)
+    configs = in_phase("configs", config_phase, index_dir, default_pages, card)
     for name, rec in configs.items():
         log(f"[result config {name}] qps={rec['qps']:.2f} (default {served_off['qps']:.2f}) "
             f"p50_ms={rec['p50_ms']:.1f} p99_ms={rec['p99_ms']:.1f} failed={rec['failed']} "
@@ -2261,7 +2498,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
             f"{rec['top10_equal_default']}/{rec['compared']} card={card}")
     t_cfg = time.perf_counter() - t
     t = time.perf_counter()
-    rows_c, ops_launches, lib_c = config_kernel_phase(index_dir, models["dual"])
+    rows_c, ops_launches, lib_c = in_phase("config kernels", config_kernel_phase, index_dir,
+                                           models["dual"])
     torch.cuda.empty_cache()
     config_launches = {"stage_a_q8": configs["q8"]["launches"]["stage_a_q8"],
                        "stage_a_ub": configs["ub"]["launches"]["stage_a_ub"],
@@ -2273,7 +2511,7 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
         f"against the plain versions in {time.perf_counter() - t:.1f}s")
 
     # ---- the MoE training path: K15a-d ------------------------------------------------
-    moe = moe_phase(index_dir, models["dual"], card)
+    moe = in_phase("moe", moe_phase, index_dir, models["dual"], card)
     torch.cuda.empty_cache()
     rec = moe["record"]
     log(f"[result moe] experts={MOE_E} steps={MOE_STEPS} pairs={MOE_B} tokens={TRAIN_T} "
@@ -2284,12 +2522,24 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     library.update(lib_c)
     library.update(moe["library"])
 
+    # ---- the pipeline-parallel train step: K16a-d ----------------------------------
+    pipe = in_phase("pipeline", pipeline_phase, card)
+    torch.cuda.empty_cache()
+    rec = pipe["record"]
+    log(f"[result pipeline] stages={PIPE_S} hidden={PIPE_H} ffn={PIPE_F} tokens={PIPE_T} "
+        f"mesh=(pp={PIPE_S}, dp={PIPE_DP}) microbatches={PIPE_M}x{PIPE_MB} steps={PIPE_STEPS} "
+        f"loss_first={rec['loss_kernels'][0]:.4f} loss_last={rec['loss_kernels'][-1]:.4f} "
+        f"curve_max_rel_diff_vs_plain={rec['curve_max_rel_diff']:.3g} forward_max_abs_err="
+        f"{rec['forward_max_abs_err']:.3g} step_ms_kernels={rec['step_ms_kernels']:.2f} "
+        f"step_ms_plain={rec['step_ms_plain']:.2f} seconds={rec['seconds']:.1f} card={card}")
+    library.update(pipe["library"])
+
     # ---- the mesh of shards on the card: the shard server and coordinator, K9 -----------
     t = time.perf_counter()
-    mesh_dir = mesh_corpus(mesh_proc)
+    mesh_dir = in_phase("mesh corpus", mesh_corpus, mesh_proc)
     log(f"[mesh] corpus of {MESH_SHARDS} x {MESH_DOCS} docs ready {time.perf_counter() - t:.1f}s "
         f"after it was awaited: {mesh_dir}")
-    mesh_serve = mesh_serve_phase(mesh_dir, card)
+    mesh_serve = in_phase("mesh serve", mesh_serve_phase, mesh_dir, card)
     log(f"[result mesh serve] docs={mesh_serve['docs']} shards={MESH_SHARDS} qps="
         f"{mesh_serve['qps']:.2f} p50_ms={mesh_serve['p50_ms']:.1f} p99_ms="
         f"{mesh_serve['p99_ms']:.1f} failed={mesh_serve['failed']} mesh_topk_launches="
@@ -2299,10 +2549,10 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
         f"{mesh_serve['unsharded_p99_ms']:.1f} pass1_max_score_diff="
         f"{mesh_serve['pass1_max_score_diff']:.3g} page_max_score_diff="
         f"{mesh_serve['page_max_score_diff']:.3g} card={card}")
-    rows_k9, library["mesh_topk"] = mesh_topk_rows()
+    rows_k9, library["mesh_topk"] = in_phase("mesh topk", mesh_topk_rows)
 
     # ---- the webgraph centrality job: K6a-b, K7 --------------------------------------
-    cent = centrality_phase(os.path.join(data_dir, "centrality"))
+    cent = in_phase("centrality", centrality_phase, os.path.join(data_dir, "centrality"))
     log(f"[result centrality] nodes={GRAPH_NODES} edges={GRAPH_EDGES} graph_s="
         f"{cent['graph_s']:.1f} harmonic_s={cent['jobs']['harmonic']['seconds']:.2f} "
         f"hyperball_rounds={cent['jobs']['harmonic']['timings']['n_rounds']} "
@@ -2311,7 +2561,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
         f"total_s={time.perf_counter() - t_start:.1f} card={card}")
 
     # ---- the webgraph centrality job on a mesh of shards: K8 -------------------------
-    mesh_cent = mesh_centrality_phase(os.path.join(data_dir, "centrality"), cent, card)
+    mesh_cent = in_phase("mesh centrality", mesh_centrality_phase,
+                         os.path.join(data_dir, "centrality"), cent, card)
     log(f"[result mesh centrality] {json.dumps(mesh_cent['record'])} card={card}")
 
     mesh = {"rows": rows_k9 + mesh_cent["rows"],
@@ -2320,9 +2571,9 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
             "paths": {"mesh_topk": f"http, a search shard on a mesh of {MESH_SHARDS} shards "
                                    "behind the coordinator",
                       "hll_ring_step": f"centrality harmonic on a mesh of {MESH_SHARDS} shards"}}
-    kernels_out = kernel_records(rows + rows_c + moe["rows"], rows_m, cent, library,
-                                 served["launches"], models["launches"], forest, card,
-                                 config_launches, moe["launches"], mesh)
+    kernels_out = in_phase("records", kernel_records, rows + rows_c + moe["rows"], rows_m, cent,
+                           library, served["launches"], models["launches"], forest, card,
+                           config_launches, moe["launches"], mesh, pipe)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

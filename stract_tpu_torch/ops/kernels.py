@@ -18,13 +18,16 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     ring step
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
                     backward
+  csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
+                    backward
 
 (K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
 pool, forward and backward, are Triton kernels in ops/encoder.py; K14d and
 K15d, the fused AdamW updates of f32 masters and of bf16 parameters, are in
 optim.py; K15b-c, the MoE select-and-scale and the loss heads, in ops/moe.py
-beside the CUDA router K15a (csrc/moe.cu); they count their launches here
-too.)
+beside the CUDA router K15a (csrc/moe.cu); K16c-d, the pipeline stage's
+f32 tanh GELU and the SGD update, in ops/stage.py; they count their
+launches here too.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches on PyTorch's current stream, raises on a
@@ -47,7 +50,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> source file under csrc/
 SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu",
-           "graph": "graph.cu", "moe": "moe.cu"}
+           "graph": "graph.cu", "moe": "moe.cu", "stage": "stage.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -63,6 +66,9 @@ MAX_SEARCH_P = 8192
 # limits of csrc/encoder.cu: the head width and the longest sequence
 ATTN_HEAD_DIM = 32
 ATTN_MAX_T = 256
+# limits of csrc/stage.cu: the longest sequence and the widest head
+STAGE_MAX_T = 256
+STAGE_MAX_H = 1024
 # a block's shared memory on the card (the forest is staged there whole)
 MAX_SMEM = 227 * 1024
 
@@ -72,7 +78,7 @@ MAX_SMEM = 227 * 1024
 # network, else "stage_a_ub" when it folds UB bounds, else "stage_a_q8" on q8
 # rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
-# backward launches alike)
+# backward launches alike, and so does "gelu_tanh", K16c)
 LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
             "signals_q16": 0, "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0,
             "signals_prefix": 0, "dense_rerank": 0, "forest": 0, "attention": 0,
@@ -80,7 +86,8 @@ LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, 
             "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
             "moe_router": 0, "moe_select": 0, "loss_heads": 0, "adamw_bf16": 0,
             "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0, "mesh_topk": 0,
-            "hll_ring_step": 0}
+            "hll_ring_step": 0, "stage_attention": 0, "stage_attention_backward": 0,
+            "gelu_tanh": 0, "sgd": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()  # the server launches from two worker threads
@@ -217,6 +224,10 @@ def _load(name: str):
                 lib.stract_moe_router.argtypes = [P, P, P, I, I, I, P, P, P, P]
                 lib.stract_moe_router_backward.argtypes = [P, P, P, P, I, I, I, P, P, P]
                 fns = (lib.stract_moe_router, lib.stract_moe_router_backward)
+            elif name == "stage":
+                lib.stract_stage_attention.argtypes = [P, P, I, I, I, P]
+                lib.stract_stage_attention_backward.argtypes = [P, P, P, P, P, I, I, I, P]
+                fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
@@ -547,6 +558,40 @@ def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
                                        B, T, H, _stream())
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
+
+
+def _stage_dims(qkv) -> tuple:
+    B, T, H3 = qkv.shape
+    H = H3 // 3
+    if not (H3 == 3 * H and 1 <= H <= STAGE_MAX_H and 1 <= T <= STAGE_MAX_T and B <= 65535):
+        raise ValueError(f"the stage attention takes qkv [B, T, 3H] with T in 1..{STAGE_MAX_T} "
+                         f"and H in 1..{STAGE_MAX_H}, not {tuple(qkv.shape)}")
+    return B, T, H
+
+
+def stage_attention(qkv, out) -> None:
+    """K16a: qkv f32[B, T, 3H] → out f32[B, T, H] (ops/stage.py allocates)."""
+    B, T, H = _stage_dims(qkv)
+    f32 = torch.float32
+    ptrs = (_ptr(qkv, f32, (B, T, 3 * H)), _ptr(out, f32, (B, T, H)))
+    lib = _load("stage")
+    rc = lib.stract_stage_attention(*ptrs, B, T, H, _stream())
+    _check(rc, "stract_stage_attention")
+    counted("stage_attention")
+
+
+def stage_attention_backward(qkv, dout, probs, dscores, dqkv) -> None:
+    """K16b: qkv f32[B, T, 3H], dout f32[B, T, H] → dqkv f32[B, T, 3H];
+    probs and dscores f32[B, T, T] are scratch (ops/stage.py allocates all)."""
+    B, T, H = _stage_dims(qkv)
+    f32 = torch.float32
+    ptrs = (_ptr(qkv, f32, (B, T, 3 * H)), _ptr(dout, f32, (B, T, H)),
+            _ptr(probs, f32, (B, T, T)), _ptr(dscores, f32, (B, T, T)),
+            _ptr(dqkv, f32, (B, T, 3 * H)))
+    lib = _load("stage")
+    rc = lib.stract_stage_attention_backward(*ptrs, B, T, H, _stream())
+    _check(rc, "stract_stage_attention_backward")
+    counted("stage_attention_backward")
 
 
 # limit of csrc/moe.cu: experts per router

@@ -1,0 +1,404 @@
+"""The port's pipeline-parallel train step (stract_tpu_torch/parallel/
+pipeline.py, K16) and its f32 stage ops (ops/stage.py, K16a-d) against the
+JAX package's stract_tpu/parallel/pipeline.py, on the 8 CPU devices of
+tests/conftest.py (the JAX side exactly as tests/test_pipeline_parallel.py
+runs it) and on CPU Meshes of the port. Inputs come from numpy seeds; the
+JAX package's parameters cross over through params_from_numpy.
+
+Tolerances:
+  - the stage and its gradients against jax.vjp: rtol 1e-5, atol 1e-6 x
+    the largest |JAX value| of each array (f32 sums over H and T in other
+    orders, tanh and exp in other implementations: each package is ~1e-7 of
+    that magnitude from an f64 evaluation, and the gradients of a unit
+    cotangent summed over the rows reach 30);
+  - the pipelined forward: the JAX test's rtol 2e-4, atol 2e-5;
+  - 30 SGD steps of the JAX test's recipe: losses within a relative 1e-5
+    at every step, final parameters within 1e-6;
+  - dp = 2 against dp = 1: rtol 1e-5, atol 1e-7 (the dp shards' gradients
+    summed in another order);
+  - on the card (`cuda`-marked; they import the port alone, so they also
+    run where the JAX package's flax is absent:
+    `python -m pytest tests/test_torch_pipeline.py -m cuda -q`), kernel
+    against plain twin: attention forward and backward rtol 1e-5, atol
+    1e-5 x max |plain| (f32 sums of up to 1,024 terms in another order),
+    GELU rtol 1e-5, atol 1e-6 x max |x| (1 + tanh loses the same bits in
+    both near -1), SGD bit-equal (the kernel is compiled without fused
+    multiply-adds: lr * g rounds before the difference, as in the twin).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from stract_tpu_torch.ops import kernels
+from stract_tpu_torch.ops import stage as ST
+from stract_tpu_torch.parallel import pipeline as TP
+from stract_tpu_torch.parallel.mesh import Mesh
+
+CPU = torch.device("cpu")
+PIPE_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX side, imported here so that the `cuda` tests run without it."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JMesh, PartitionSpec as P
+
+    from stract_tpu.parallel import pipeline as JP
+
+    return jax, jnp, JMesh, P, JP
+
+
+def _cpu_mesh(pp: int, dp: int) -> Mesh:
+    return Mesh([[CPU] * dp] * pp, axis_names=("pp", "dp"))
+
+
+def _stage_np(rng, H: int, F: int) -> dict:
+    """Stage weights at 1 / sqrt(fan-in), so the stage's values stay O(1)
+    and its attention is far from uniform (the reference's 0.02 makes it
+    nearly so at these widths)."""
+    return {k: (rng.normal(size=shape) / np.sqrt(shape[0])).astype(np.float32) for k, shape in (
+        ("attn_qkv", (H, 3 * H)), ("attn_out", (H, H)), ("ffn_in", (H, F)), ("ffn_out", (F, H)))}
+
+
+# ---- the stage and its gradients ---------------------------------------------------------
+@pytest.mark.parametrize("H,T", [(16, 4), (16, 16), (32, 4), (32, 16)])
+def test_apply_stage_and_its_gradients_match_jax(jx, H, T):
+    jax, jnp, _, _, JP = jx
+    rng = np.random.default_rng(H * 100 + T)
+    p = _stage_np(rng, H, 2 * H)
+    x = rng.normal(size=(3, T, H)).astype(np.float32)
+    ct = rng.normal(size=(3, T, H)).astype(np.float32)
+    out_j, vjp = jax.vjp(JP._apply_stage, {k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x))
+    dp_j, dx_j = vjp(jnp.asarray(ct))
+    pt = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out_t = TP._apply_stage(pt, xt)
+    grads = torch.autograd.grad(out_t, [xt, *pt.values()], torch.from_numpy(ct))
+    for name, got, want in (("out", out_t.detach(), out_j), ("x", grads[0], dx_j),
+                            *((k, g, dp_j[k]) for k, g in zip(pt, grads[1:]))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+# ---- the pipelined forward -----------------------------------------------------------------
+@pytest.mark.parametrize("pp,dp", [(4, 2), (2, 1), (4, 1)])
+def test_pipeline_apply_matches_jax_and_the_sequential_twin(jx, pp, dp):
+    jax, jnp, JMesh, P, JP = jx
+    H, F, M, MB, T = 16, 32, 6, 4, 4
+    params = JP.init_stage_params(jax.random.PRNGKey(0), H, F, pp)
+    mbs = np.random.default_rng(pp * 10 + dp).normal(size=(M, MB, T, H)).astype(np.float32)
+    jmesh = JMesh(np.array(jax.devices()[:pp * dp]).reshape(pp, dp), axis_names=("pp", "dp"))
+    spec = {k: P("pp", None, None) for k in params}
+    piped_j = jax.jit(jax.shard_map(
+        JP.pipeline_apply, mesh=jmesh, in_specs=(spec, P(None, "dp", None, None)),
+        out_specs=P(None, "dp", None, None)))(params, jnp.asarray(mbs))
+    mesh = _cpu_mesh(pp, dp)
+    pt = TP.params_from_numpy({k: np.asarray(v) for k, v in params.items()}, mesh)
+    with torch.no_grad():
+        piped = TP.pipeline_apply(mesh, pt, torch.from_numpy(mbs))
+        seq = TP.reference_forward(pt, torch.from_numpy(mbs))
+    assert piped.shape == (M, MB, T, H)
+    np.testing.assert_allclose(piped.numpy(), np.asarray(piped_j), **PIPE_TOL)
+    np.testing.assert_allclose(piped.numpy(), seq.numpy(), **PIPE_TOL)
+    np.testing.assert_allclose(seq.numpy(), np.asarray(JP.reference_forward(params, mbs)),
+                               **PIPE_TOL)
+
+
+# ---- the train step ------------------------------------------------------------------------
+def _recipe(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    M, MB, T, H = 4, 4, 4, 16
+    return (rng.normal(size=(M, MB, T, H)).astype(np.float32),
+            rng.normal(size=(M, MB)).astype(np.float32))
+
+
+def test_train_step_follows_jax_for_30_steps(jx):
+    """The JAX test's recipe on (pp=4, dp=2): H=16, FFN=32, M=4, mb=4, T=4,
+    lr 5e-2, 30 steps from the same parameters."""
+    jax, jnp, JMesh, _, JP = jx
+    jmesh = JMesh(np.array(jax.devices()[:8]).reshape(4, 2), axis_names=("pp", "dp"))
+    init_j, step_j = JP.make_pipeline_train_step(jmesh, hidden=16, ffn=32, learning_rate=5e-2)
+    mesh = _cpu_mesh(4, 2)
+    _, step_t = TP.make_pipeline_train_step(mesh, hidden=16, ffn=32, learning_rate=5e-2)
+    pj = init_j(jax.random.PRNGKey(1))
+    pt = TP.params_from_numpy({k: np.asarray(v) for k, v in pj.items()}, mesh)
+    mbs, targets = _recipe()
+    lj, lt = [], []
+    with jmesh:
+        for _ in range(30):
+            pj, loss = step_j(pj, jnp.asarray(mbs), jnp.asarray(targets))
+            lj.append(float(loss))
+    for _ in range(30):
+        pt, loss = step_t(pt, torch.from_numpy(mbs), torch.from_numpy(targets))
+        lt.append(float(loss))
+    np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=0)
+    assert lt[-1] < lt[0] * 0.5, lt[:3] + lt[-3:]
+    final = TP.params_to_numpy(pt)
+    assert set(final) == set(pj)
+    for k, v in final.items():
+        np.testing.assert_allclose(v, np.asarray(pj[k]), rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_dp_shards_sum_their_gradients():
+    """A step on (pp=4, dp=2) equals the step on (pp=4, dp=1): autograd's sum
+    over the dp shards' reads of each stage is the all-reduce."""
+    mbs, targets = _recipe(3)
+    runs = []
+    for dp in (2, 1):
+        mesh = _cpu_mesh(4, dp)
+        init_fn, step_fn = TP.make_pipeline_train_step(mesh, hidden=16, ffn=32, learning_rate=5e-2)
+        params = init_fn(5)
+        losses = [float(step_fn(params, torch.from_numpy(mbs), torch.from_numpy(targets))[1])
+                  for _ in range(3)]
+        runs.append((losses, TP.params_to_numpy(params)))
+    (l2, p2), (l1, p1) = runs
+    np.testing.assert_allclose(l2, l1, rtol=1e-5, atol=0)
+    for k in p1:
+        np.testing.assert_allclose(p2[k], p1[k], rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def test_init_and_parameter_transfer():
+    """init_stage_params puts each stage on its device with N(0, 0.02)
+    entries from the seed; params_to_numpy / params_from_numpy round-trip
+    the JAX package's stacked layout."""
+    p = TP.init_stage_params(0, 32, 64, 3, devices=[CPU] * 3)
+    assert [t.shape for t in p["attn_qkv"]] == [(32, 96)] * 3
+    again = TP.init_stage_params(0, 32, 64, 3, devices="cpu")
+    assert all(torch.equal(a, b) for k in p for a, b in zip(p[k], again[k]))
+    std = float(torch.cat([t.reshape(-1) for k in p for t in p[k]]).std())
+    assert 0.019 < std < 0.021
+    mesh = _cpu_mesh(3, 2)
+    init_fn, _ = TP.make_pipeline_train_step(mesh, hidden=32, ffn=64)
+    full = init_fn(0)
+    assert all(t.requires_grad for k in TP.STAGE_KEYS for t in full[k])
+    assert full["head"].shape == (32,) and full["head"].requires_grad
+    arrays = TP.params_to_numpy(full)
+    assert arrays["ffn_in"].shape == (3, 32, 64) and arrays["head"].shape == (32,)
+    back = TP.params_to_numpy(TP.params_from_numpy(arrays, mesh))
+    assert all(np.array_equal(back[k], arrays[k]) for k in arrays)
+
+
+# ---- the twins ------------------------------------------------------------------------------
+def test_autograd_functions_pass_gradcheck_in_f64():
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn((2, 5, 12), generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(ST.stage_attention, (qkv,))
+    x = (3 * torch.randn((3, 7), generator=g, dtype=torch.float64)).requires_grad_(True)
+    assert torch.autograd.gradcheck(ST.gelu_tanh, (x,))
+
+
+def test_twins_follow_the_reference_formulas_on_edge_values(jx):
+    """gelu_tanh_plain against jax.nn.gelu(approximate=True) at large |x|
+    and around 0, with its gradient; the attention twin against
+    jax.nn.softmax on a row of equal scores (uniform weights: the mean of v)
+    and on large scores."""
+    jax, jnp, _, _, _ = jx
+    x = np.array([-1e4, -60.0, -12.0, -3.0, -1e-3, 0.0, 1e-6, 0.5, 3.0, 12.0, 60.0, 1e4],
+                 dtype=np.float32)
+    got = ST.gelu_tanh_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.nn.gelu(jnp.asarray(x), approximate=True)),
+                               rtol=1e-6, atol=1e-7)
+    assert np.isfinite(got).all()
+    ct = np.ones_like(x)
+    _, vjp = jax.vjp(lambda a: jax.nn.gelu(a, approximate=True), jnp.asarray(x))
+    np.testing.assert_allclose(
+        ST.gelu_tanh_backward_plain(torch.from_numpy(x), torch.from_numpy(ct)).numpy(),
+        np.asarray(vjp(jnp.asarray(ct))[0]), rtol=1e-5, atol=1e-6)
+
+    rng = np.random.default_rng(1)
+    H, T = 8, 6
+    qkv = rng.normal(size=(2, T, 3 * H)).astype(np.float32)
+    qkv[0, :, H:2 * H] = qkv[0, 0, H:2 * H]  # every key equal: one score a row
+    qkv[1, :, :H] *= 300.0  # scores in the thousands
+    out = ST.stage_attention_plain(torch.from_numpy(qkv)).numpy()
+    np.testing.assert_allclose(out[0], np.broadcast_to(qkv[0, :, 2 * H:].mean(0), (T, H)),
+                               rtol=1e-5, atol=1e-6)
+    q, k, v = (jnp.asarray(qkv[..., i * H:(i + 1) * H]) for i in range(3))
+    att = jax.nn.softmax(jnp.einsum("bth,bsh->bts", q, k) / np.sqrt(H), axis=-1)
+    np.testing.assert_allclose(out, np.asarray(jnp.einsum("bts,bsh->bth", att, v)),
+                               rtol=1e-5, atol=1e-6)
+    assert np.isfinite(out).all()
+
+
+# ---- the entry points and the dispatch -------------------------------------------------------
+def test_cuda_mesh_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cuda = Mesh([[torch.device("cuda", 0)] * 2] * 2, axis_names=("pp", "dp"))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TP.make_pipeline_train_step(cuda)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TP.init_stage_params(0, 16, 32, 2)
+    with pytest.raises(ValueError, match="axes"):
+        TP.make_pipeline_train_step(Mesh([CPU] * 2, axis_names=("dp",)))
+
+
+def test_dispatchers_send_cpu_tensors_to_the_twins(monkeypatch):
+    called = []
+    for name in ("stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
+                 "gelu_tanh_backward_plain", "sgd_update_plain"):
+        monkeypatch.setattr(ST, name, lambda *a, _n=name: called.append(_n))
+    monkeypatch.setattr(ST, "_triton_kernels", lambda: pytest.fail("a kernel was reached"))
+    t = torch.zeros((1, 4, 12))
+    ST.stage_attention_forward(t)
+    ST.stage_attention_backward(t, t[..., :4])
+    ST.gelu_tanh_forward(t)
+    ST.gelu_tanh_backward(t, t)
+    ST.sgd_update(t, t, 0.1)
+    assert called == ["stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
+                      "gelu_tanh_backward_plain", "sgd_update_plain"]
+
+
+class _Launch:
+    """A stand-in Triton kernel: kernel[grid](...) records its name."""
+
+    def __init__(self, name, called):
+        self.name, self.called = name, called
+
+    def __getitem__(self, grid):
+        return lambda *a, **k: self.called.append(self.name)
+
+
+def test_cuda_tensors_launch_the_kernels(monkeypatch):
+    """A CUDA tensor reaches the kernel wrappers, never a twin (stand-ins, so
+    it runs without a card); each wrapper counts its launch."""
+    called = []
+    for name in ("stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
+                 "gelu_tanh_backward_plain", "sgd_update_plain"):
+        monkeypatch.setattr(ST, name, lambda *a, _n=name: pytest.fail(f"{_n} was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build on this machine"))
+    monkeypatch.setattr(kernels, "stage_attention", lambda *a: called.append("K16a"))
+    monkeypatch.setattr(kernels, "stage_attention_backward", lambda *a: called.append("K16b"))
+    monkeypatch.setattr(ST, "_triton_kernels", lambda: {
+        n: _Launch(n, called) for n in ("gelu", "gelu_bwd", "sgd")})
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    kernels.reset_launches()
+    t = torch.zeros((1, 4, 12))
+    ST.stage_attention_forward(t)
+    ST.stage_attention_backward(t, t[..., :4].contiguous())
+    ST.gelu_tanh_forward(t)
+    ST.gelu_tanh_backward(t, t)
+    ST.sgd_update(t, t, 0.1)
+    assert called == ["K16a", "K16b", "gelu", "gelu_bwd", "sgd"]
+    assert kernels.LAUNCHES["gelu_tanh"] == 2 and kernels.LAUNCHES["sgd"] == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 257, 48), (1, 16, 3 * 1025), (1, 16, 50)])
+def test_stage_attention_arguments_are_checked(monkeypatch, shape):
+    """T above 256, H above 1,024 or a width that is not 3H raise before any
+    build or launch."""
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build on this machine"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    with pytest.raises(ValueError, match="stage attention"):
+        ST.stage_attention_forward(torch.zeros(shape))
+
+
+# ---- on the card ----------------------------------------------------------------------------
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    return "cuda"
+
+
+def _close(got, want, rtol, atol_of_max):
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol_of_max * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb,T,H", [(2, 16, 16), (3, 37, 40), (8, 128, 384), (1, 256, 1024)])
+def test_stage_attention_kernels_match_plain(mb, T, H):
+    dev = _card()
+    g = torch.Generator().manual_seed(T + H)
+    qkv = torch.randn((mb, T, 3 * H), generator=g).to(dev)
+    dout = torch.randn((mb, T, H), generator=g).to(dev)
+    n = dict(kernels.LAUNCHES)
+    out = ST.stage_attention_forward(qkv)
+    dqkv = ST.stage_attention_backward(qkv, dout)
+    assert kernels.LAUNCHES["stage_attention"] == n["stage_attention"] + 1
+    assert kernels.LAUNCHES["stage_attention_backward"] == n["stage_attention_backward"] + 1
+    _close(out, ST.stage_attention_plain(qkv), 1e-5, 1e-5)
+    _close(dqkv, ST.stage_attention_backward_plain(qkv, dout), 1e-5, 1e-5)
+    leaf = qkv.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout)
+    _close(dqkv, auto, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 32), (8, 128, 1536)])
+def test_gelu_and_sgd_kernels_match_plain(shape):
+    dev = _card()
+    g = torch.Generator().manual_seed(7)
+    x = (3 * torch.randn(shape, generator=g)).to(dev)
+    dout = torch.randn(shape, generator=g).to(dev)
+    atol = 1e-6 * float(x.abs().max())
+    torch.testing.assert_close(ST.gelu_tanh_forward(x), ST.gelu_tanh_plain(x), rtol=1e-5, atol=atol)
+    torch.testing.assert_close(ST.gelu_tanh_backward(x, dout), ST.gelu_tanh_backward_plain(x, dout),
+                               rtol=1e-5, atol=atol)
+    p = (0.02 * torch.randn(shape, generator=g)).to(dev)
+    p_plain = p.clone()
+    ST.sgd_update(p, dout, 5e-2)
+    ST.sgd_update_plain(p_plain, dout, 5e-2)
+    assert torch.equal(p, p_plain)
+
+
+@pytest.mark.cuda
+def test_stage_attention_kernel_refuses_long_sequences():
+    dev = _card()
+    with pytest.raises(ValueError, match="stage attention"):
+        ST.stage_attention_forward(torch.zeros((1, 257, 48), device=dev))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_follows_the_cpu():
+    """Five steps on Mesh([cuda:0] * 8) as (pp=4, dp=2) with the kernels
+    against the same steps on a CPU mesh (the twins): losses rtol 1e-5."""
+    dev = _card()
+    mbs, targets = _recipe(4)
+    losses = []
+    for mesh in (Mesh([[torch.device(dev, 0)] * 2] * 4, axis_names=("pp", "dp")), _cpu_mesh(4, 2)):
+        init_fn, step_fn = TP.make_pipeline_train_step(mesh, hidden=16, ffn=32, learning_rate=5e-2)
+        params = init_fn(2)
+        losses.append([float(step_fn(params, torch.from_numpy(mbs), torch.from_numpy(targets))[1])
+                       for _ in range(5)])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [1, 2])
+def test_train_step_across_cards_follows_the_cpu(dp):
+    """The stages on different cards (stage s, shard d on cuda:(s * dp + d)):
+    the activations and the dp shards' parameter reads cross cards by peer
+    copies, each kernel launches on its tensor's card; five steps against
+    the same steps on a CPU mesh, losses rtol 1e-5, parameters atol 1e-6."""
+    dev = _card()
+    n = torch.cuda.device_count()
+    if n < 2 * dp:
+        pytest.skip(f"needs {2 * dp} cards, has {n}")
+    pp = n // dp
+    mbs, targets = _recipe(6)
+    cards = Mesh([[torch.device(dev, s * dp + d) for d in range(dp)] for s in range(pp)],
+                 axis_names=("pp", "dp"))
+    runs = []
+    for mesh in (cards, _cpu_mesh(pp, dp)):
+        init_fn, step_fn = TP.make_pipeline_train_step(mesh, hidden=16, ffn=32, learning_rate=5e-2)
+        params = init_fn(3)
+        losses = [float(step_fn(params, torch.from_numpy(mbs), torch.from_numpy(targets))[1])
+                  for _ in range(5)]
+        runs.append((losses, params))
+    assert [t.device.index for t in runs[0][1]["ffn_in"]] == [s * dp for s in range(pp)]
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
+    got, want = TP.params_to_numpy(runs[0][1]), TP.params_to_numpy(runs[1][1])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)

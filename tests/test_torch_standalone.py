@@ -33,23 +33,41 @@ def _port_sources() -> list:
     return sorted(out)
 
 
+def _absolute_imports(path: str) -> list:
+    """(line, module) of every absolute `import` and `from ... import` in a
+    file, at any depth (lazy imports inside functions included)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append((node.lineno, node.module or ""))
+    return out
+
+
+def _names_package(name: str, packages) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in packages)
+
+
 def test_no_port_module_imports_the_jax_package():
     """Every `import` and `from ... import` in the port and the smoke, at any
     depth of the file, names neither stract_tpu nor stract_tpu.*."""
-    bad = []
-    for path in _port_sources():
-        with open(path) as fh:
-            tree = ast.parse(fh.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
-                    if n == "stract_tpu" or n.startswith("stract_tpu.")]
+    bad = [f"{os.path.relpath(path, REPO)}:{line} {name}" for path in _port_sources()
+           for line, name in _absolute_imports(path) if _names_package(name, ("stract_tpu",))]
     assert len(_port_sources()) > 60 and not bad, bad
+
+
+@pytest.mark.parametrize("module", ["ops/stage.py", "parallel/pipeline.py", "parallel/__init__.py"])
+def test_pipeline_modules_import_neither_jax_nor_the_jax_package(module):
+    """The pipeline's modules are in the scan above and import none of jax,
+    jaxlib, flax, optax or stract_tpu."""
+    path = os.path.join(REPO, "stract_tpu_torch", module)
+    assert path in _port_sources()
+    bad = [f"{line} {name}" for line, name in _absolute_imports(path)
+           if _names_package(name, ("jax", "jaxlib", "flax", "optax", "stract_tpu"))]
+    assert not bad, bad
 
 
 # ---- each copied module against its original -------------------------------------------
