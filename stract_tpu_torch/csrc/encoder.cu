@@ -8,22 +8,36 @@
 // projection stay outside (bf16 matrix products, as the JAX package leaves
 // them to XLA's dot).
 //
-// What bounds it: at the encoder's shapes (head dim 32, T <= 256) the whole
-// K and V of one (batch row, head) fit in 33 KB of shared memory, and every
-// query row needs 2 * T * 32 multiply-adds per matrix, so the kernel is
-// bound by CUDA-core arithmetic over shared memory, not by device memory
-// (q, k, v and the context are read or written once per query tile). The
-// design: one block of four warps per (query tile of 32 rows, head, batch
-// row); K and V staged once per block; one warp per query row at a time.
-// For the scores each lane owns keys lane, lane+32, ... and dots its key
-// with the query row (K rows are padded to 17 words so a warp's 32 keys hit
-// 32 different banks); the softmax max and sum are warp reductions; for P.V
-// each lane owns one of the 32 output dimensions and walks the keys in order.
-// Masking by finfo(f32).min and not -inf keeps a fully masked row finite: its
-// scores are all equal, so its weights are uniform, as in the reference.
-// A tensor-core version (mma over 64-row tiles) is later work.
+// What bounds it: at the encoder's shapes (head dim 32, T <= 256) a query
+// row needs 2 * T * 32 multiply-adds for its scores and as many for P.V,
+// about T / 2 flops per byte of q, k, v and context moved, far below the
+// ~295 at which the bf16 tensor cores would bind: device memory bounds it
+// (3.8 us at B = 32, T = 128). Beside the tensor-core products the kernel
+// spends its time in the f32 softmax (an exp and two IEEE divisions a
+// score, as the reference computes them) and in the latency of one
+// load-compute-store pass per block.
+// The design: one warpgroup (4 warps) per (64-query tile, head, batch row).
+// The tile's Q rows and the whole K and V of the (batch row, head) go into
+// shared memory by 16-byte cp.async copies (rows past T zero-filled) in the
+// canonical no-swizzle layout of wgmma operands: 8-row by 16-byte core
+// matrices, an 8-row group's four core matrices (32 columns) in 512
+// contiguous bytes. S = Q.K^T runs as wgmma m64n64k16 (bf16 in, f32
+// accumulated), two k-steps of 16 over d = 32, for each 64-key chunk; all
+// chunks' scores stay in registers (32 floats a thread a chunk), so the
+// softmax is an exact two-pass row softmax in registers (the four lanes of
+// a quad hold a row: max and sum by two shuffles). The probabilities,
+// rounded to bf16, are the A operand of O = P.V straight from registers
+// (wgmma m64n32k16: the f32 accumulator fragment of a 16-key slice is the
+// A fragment of that k-step, packed in pairs), with V read from shared
+// memory as an N-major (transposed) B operand: V is staged in the same
+// layout as K, and an 8-key by 8-dimension core matrix of V is an 8 x 16
+// byte block of it. Keys past T are padding of the 64-key chunk: zero in
+// shared memory and left out of the row max and sum. Masked keys inside T
+// take finfo(f32).min and stay in, so a fully masked row is finite with
+// uniform weights, as in the reference. Query rows past T are not stored.
 
 #include <cfloat>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -31,75 +45,245 @@ namespace {
 
 constexpr int kHeadDim = 32;
 constexpr int kMaxT = 256;
-constexpr int kQueryTile = 32;
-constexpr int kWarps = 4;
-constexpr int kKeyWords = kHeadDim / 2 + 1;  // bf16 pairs per staged K row, padded
+constexpr int kTile = 64;             // query rows of a block, keys of a chunk
+constexpr int kThreads = 128;         // one warpgroup
+constexpr int kGroupBytes = 512;      // an 8-row group: 4 core matrices of 8 x 16 bytes
+constexpr int kCoreBytes = 128;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// the byte offset of 16-byte chunk c (0..3) of row r in a staged tile
+__device__ __forceinline__ uint32_t staged(int r, int c) {
+    return (r >> 3) * kGroupBytes + c * kCoreBytes + (r & 7) * 16;
+}
+
+// a wgmma shared-memory descriptor, no swizzle: start address, the byte
+// offset between core matrices adjacent along K (leading) and along M or N
+// (stride), each in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t leading, uint32_t stride) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(leading >> 4) << 16) |
+           (static_cast<uint64_t>(stride >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(bytes));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, 1, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b));
+}
+
+// d[64 x 32] += A[64 x 16] . B[16 x 32], A in registers (bf16 pairs), B
+// N-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_context(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// keep the compiler from reading (or writing) wgmma registers across the
+// wait: a new definition of each register after it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// x / d, rounded as the division rounds, with x == 0 answered without
+// dividing: the division's fast path refuses a zero dividend and calls a
+// slow subroutine, which the scores of zero-filled keys and the weights of
+// masked keys (exactly 0) would take in bulk (3x K5a's time at T = 193)
+__device__ __forceinline__ float div_nonzero(float x, float d) {
+    if (x == 0.0f) return x;
+    return x / d;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+size_t attention_smem_bytes(int chunks) {
+    return static_cast<size_t>(kTile) * kHeadDim * 2 +          // Q tile
+           2 * static_cast<size_t>(chunks) * kTile * kHeadDim * 2 +  // K and V
+           static_cast<size_t>(chunks) * kTile * sizeof(float);  // the mask
+}
+
+// CHUNKS: 64-key chunks, ceil(T / 64), 1..4
+template <int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
 attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
                  __nv_bfloat16* __restrict__ out, int T, int H) {
-    __shared__ __nv_bfloat162 s_k[kMaxT][kKeyWords];
-    __shared__ __nv_bfloat162 s_v[kMaxT][kHeadDim / 2];
-    __shared__ float s_p[kWarps][kMaxT];
-    __shared__ float s_q[kWarps][kHeadDim];
-    __shared__ unsigned char s_keep[kMaxT];
+    constexpr int kKeys = CHUNKS * kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_q = smem;
+    unsigned char* s_k = s_q + kTile * kHeadDim * 2;
+    unsigned char* s_v = s_k + kKeys * kHeadDim * 2;
+    float* s_keep = reinterpret_cast<float*>(s_v + kKeys * kHeadDim * 2);
 
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQueryTile;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const long long row_stride = static_cast<long long>(H) * kHeadDim;
-    const long long base = static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    const __nv_bfloat16* qb = q + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    const __nv_bfloat16* kb = k + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    const __nv_bfloat16* vb = v + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
 
-    for (int i = threadIdx.x; i < T * (kHeadDim / 2); i += blockDim.x) {
-        const int j = i / (kHeadDim / 2), c = i % (kHeadDim / 2);
-        const long long off = base + j * row_stride;
-        s_k[j][c] = reinterpret_cast<const __nv_bfloat162*>(k + off)[c];
-        s_v[j][c] = reinterpret_cast<const __nv_bfloat162*>(v + off)[c];
+    // 16-byte copies: chunk c of row r; rows past T read nothing and fill zeros
+    for (int i = tid; i < kTile * 4; i += kThreads) {
+        const int r = i / 4, c = i % 4, t = q0 + r;
+        cp_async16(s_q + staged(r, c), qb + (t < T ? t * row_stride : 0) + c * 8, t < T ? 16 : 0);
     }
-    for (int j = threadIdx.x; j < T; j += blockDim.x) s_keep[j] = mask[b * T + j] != 0;
+    for (int i = tid; i < kKeys * 4; i += kThreads) {
+        const int r = i / 4, c = i % 4;
+        const long long off = (r < T ? r * row_stride : 0) + c * 8;
+        const int bytes = r < T ? 16 : 0;
+        cp_async16(s_k + staged(r, c), kb + off, bytes);
+        cp_async16(s_v + staged(r, c), vb + off, bytes);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int j = tid; j < kKeys; j += kThreads)
+        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // the copies and stores above are generic-proxy writes; wgmma reads
+    // shared memory through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
+    // S = Q.K^T: K-major A and B, core matrices 128 bytes apart along K and
+    // 512 along M / N; a k-step of 16 columns is two core matrices (256 bytes)
+    float s[CHUNKS][32];
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[c][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) fence_regs(s[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+            wgmma_scores(s[c], smem_desc(s_q + ks * 256, kCoreBytes, kGroupBytes),
+                         smem_desc(s_k + c * kTile * kHeadDim * 2 + ks * 256, kCoreBytes,
+                                   kGroupBytes));
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) fence_regs(s[c]);
+
+    // the accumulator fragment: s[c][4j + e] is row 16 warp + lane / 4 (+ 8
+    // for e >= 2), key 64 c + 8 j + 2 (lane % 4) + (e & 1)
     // the reference divides the f32 scores by np.sqrt(head_dim) rounded to f32
     const float scale_div = sqrtf(static_cast<float>(kHeadDim));
-    for (int r = warp; r < kQueryTile; r += kWarps) {
-        const int t = q0 + r;
-        if (t >= T) break;  // the same for every lane of the warp
-        const long long qoff = base + static_cast<long long>(t) * row_stride;
-        s_q[warp][lane] = __bfloat162float(q[qoff + lane]);
-        __syncwarp();
-
-        float mx = -FLT_MAX;
-        for (int j = lane; j < T; j += 32) {
-            float acc = 0.0f;
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-            for (int c = 0; c < kHeadDim / 2; ++c) {
-                const float2 kk = __bfloat1622float2(s_k[j][c]);
-                acc += s_q[warp][2 * c] * kk.x;
-                acc += s_q[warp][2 * c + 1] * kk.y;
-            }
-            const float s = s_keep[j] ? acc / scale_div : -FLT_MAX;
-            s_p[warp][j] = s;
-            mx = fmaxf(mx, s);
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            const float keep = s_keep[key];
+            const float x = keep > 0.0f ? div_nonzero(s[c][i], scale_div) : -FLT_MAX;
+            s[c][i] = x;
+            if (keep >= 0.0f) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+        }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            const float e = key < T ? expf(s[c][i] - mx[(i >> 1) & 1]) : 0.0f;
+            s[c][i] = e;
+            sum[(i >> 1) & 1] += e;
         }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.0f;
-        for (int j = lane; j < T; j += 32) {
-            const float e = expf(s_p[warp][j] - mx);
-            s_p[warp][j] = e;
-            sum += e;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        for (int j = lane; j < T; j += 32)
-            s_p[warp][j] = __bfloat162float(__float2bfloat16(s_p[warp][j] / sum));
-        __syncwarp();
+    for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
 
-        float acc = 0.0f;
-        const __nv_bfloat16* s_vh = reinterpret_cast<const __nv_bfloat16*>(&s_v[0][0]);
-        for (int j = 0; j < T; ++j) acc += s_p[warp][j] * __bfloat162float(s_vh[j * kHeadDim + lane]);
-        out[qoff + lane] = __float2bfloat16(acc);
-        __syncwarp();
+    // O = bf16(P).V: k-step kk covers keys 16 kk .. 16 kk + 15, the
+    // accumulator registers 8 (kk % 4) .. + 7 of chunk kk / 4; V's core
+    // matrices (8 keys x 8 dimensions) lie 512 bytes apart along K and 128
+    // along N
+    float o[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    uint32_t a[CHUNKS * 4][4];
+#pragma unroll
+    for (int kk = 0; kk < CHUNKS * 4; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int i = 8 * (kk % 4) + 2 * j;
+            a[kk][j] = pack_bf16(div_nonzero(s[kk / 4][i], sum[j & 1]),
+                                 div_nonzero(s[kk / 4][i + 1], sum[j & 1]));
+        }
+        fence_regs(a[kk]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CHUNKS * 4; ++kk)
+        wgmma_context(o, a[kk], smem_desc(s_v + kk * 2 * kGroupBytes, kGroupBytes, kCoreBytes));
+    wgmma_commit_and_wait();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < CHUNKS * 4; ++kk) fence_regs(a[kk]);
+
+    // o[4j + e]: row 16 warp + lane / 4 (+ 8 for e >= 2), dimension
+    // 8 j + 2 (lane % 4) + (e & 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int t = q0 + 16 * warp + lane / 4 + 8 * r;
+        if (t >= T) continue;
+        __nv_bfloat16* orow = out + (static_cast<long long>(b) * T + t) * row_stride + h * kHeadDim;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
+                __floats2bfloat162_rn(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
     }
 }
 
@@ -266,16 +450,25 @@ attention_backward_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 
 extern "C" {
 
-// q, k, v bf16[B, T, H, 32] and mask i32[B, T] -> out bf16[B, T, H * 32].
-// T must be 1..256. Returns the CUDA status of the launch.
+// q, k, v bf16[B, T, H, 32] (16-byte aligned) and mask i32[B, T] -> out
+// bf16[B, T, H * 32]. T must be 1..256. Returns the CUDA status of the launch.
 int stract_attention(const void* q, const void* k, const void* v, const int* mask, void* out,
                      int B, int T, int H, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
-    const dim3 grid((T + kQueryTile - 1) / kQueryTile, H, B);
-    attention_kernel<<<grid, kWarps * 32, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), T, H);
+    const int chunks = (T + kTile - 1) / kTile;
+    const dim3 grid(chunks, H, B);
+    const size_t smem = attention_smem_bytes(chunks);  // at most 37,888 bytes: no opt-in
+    const auto* qq = static_cast<const __nv_bfloat16*>(q);
+    const auto* kk = static_cast<const __nv_bfloat16*>(k);
+    const auto* vv = static_cast<const __nv_bfloat16*>(v);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    switch (chunks) {
+        case 1: attention_kernel<1><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
+        case 2: attention_kernel<2><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
+        case 3: attention_kernel<3><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
+        default: attention_kernel<4><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H);
+    }
     return cudaGetLastError();
 }
 
@@ -287,7 +480,7 @@ int stract_attention_backward(const void* q, const void* k, const void* v, const
                               cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
         attention_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(backward_smem_bytes(kMaxT)));
     if (attr != cudaSuccess) return attr;

@@ -1,5 +1,6 @@
 // K16a: the single-head f32 attention of the pipeline stage on Hopper
-// (sm_90a), and K16b: its backward.
+// (sm_90a), K16b: its backward, and K16d: the SGD update of all the
+// parameters of a card in one launch (sgd_multi_kernel, at the end).
 //
 // Replaces stract_tpu/parallel/pipeline.py:44-48 (_apply_stage): q, k, v
 // are the three H-wide column blocks of qkv f32[mb, T, 3H] (one head whose
@@ -38,6 +39,7 @@
 // result does not depend on scheduling.
 // Tensor cores (TF32 or 3xTF32 mma, wgmma) are later work.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -268,6 +270,72 @@ stage_attention_bwd_key_kernel(const float* __restrict__ qkv, const float* __res
 // the reference divides by np.sqrt(H), which JAX rounds to f32
 float scale_divisor(int H) { return sqrtf(static_cast<float>(H)); }
 
+// K16d: the SGD update p = p - lr * g of make_pipeline_train_step (:136)
+// over every parameter of a card in one launch. The pointer table travels
+// by value as the kernel's parameter (SgdArgs, about 2 KB of the 4 KB a
+// launch takes), so no device-side table has to outlive the launch. What
+// bounds it: 12 bytes of device memory an element (p read and written, g
+// read), no arithmetic to speak of; one launch over all tensors saves the
+// per-tensor launches, which cost far more than the work at the
+// pipeline's 25 tensors. Block i of the grid finds its tensor by a binary
+// search of the block prefix; a block covers kSgdTile elements, 16-byte
+// loads and stores where both pointers are 16-byte aligned and n % 4 == 0,
+// single floats otherwise (views at an offset, odd sizes). The product
+// rounds before the difference (__fmul_rn, __fsub_rn: never fused), as in
+// the plain version's p - lr * g.
+}  // namespace
+
+// at namespace scope: the C entry point below takes it, and a type of the
+// anonymous namespace would give that function internal linkage
+constexpr int kSgdMaxTensors = 64;
+
+struct SgdArgs {
+    float* p[kSgdMaxTensors];
+    const float* g[kSgdMaxTensors];
+    long long n[kSgdMaxTensors];
+    long long first_block[kSgdMaxTensors + 1];  // prefix of the tensors' block counts
+    int count;
+    float lr;
+};
+
+namespace {
+
+constexpr int kSgdThreads = 256;
+constexpr int kSgdTile = kSgdThreads * 4 * 4;  // elements a block
+
+__global__ void __launch_bounds__(kSgdThreads) sgd_multi_kernel(const SgdArgs args) {
+    const long long blk = blockIdx.x;
+    int lo = 0, hi = args.count - 1;  // the last tensor whose first block <= blk
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (args.first_block[mid] <= blk) lo = mid; else hi = mid - 1;
+    }
+    float* p = args.p[lo];
+    const float* g = args.g[lo];
+    const long long n = args.n[lo];
+    const long long start = (blk - args.first_block[lo]) * kSgdTile;
+    const long long end = min(start + kSgdTile, n);
+    const float lr = args.lr;
+    const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+    if (vec) {
+        float4* p4 = reinterpret_cast<float4*>(p);
+        const float4* g4 = reinterpret_cast<const float4*>(g);
+        for (long long i = start / 4 + threadIdx.x; i < end / 4; i += kSgdThreads) {
+            float4 a = p4[i];
+            const float4 b = g4[i];
+            a.x = __fsub_rn(a.x, __fmul_rn(lr, b.x));
+            a.y = __fsub_rn(a.y, __fmul_rn(lr, b.y));
+            a.z = __fsub_rn(a.z, __fmul_rn(lr, b.z));
+            a.w = __fsub_rn(a.w, __fmul_rn(lr, b.w));
+            p4[i] = a;
+        }
+    } else {
+        for (long long i = start + threadIdx.x; i < end; i += kSgdThreads)
+            p[i] = __fsub_rn(p[i], __fmul_rn(lr, g[i]));
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -278,7 +346,7 @@ int stract_stage_attention(const float* qkv, float* out, int B, int T, int H,
                            cudaStream_t stream) {
     if (B <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT || H <= 0 || H > kMaxH || B > 65535) return cudaErrorInvalidValue;
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
         stage_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(forward_smem_bytes(kMaxT, kMaxH)));
     if (attr != cudaSuccess) return attr;
@@ -297,7 +365,7 @@ int stract_stage_attention_backward(const float* qkv, const float* dout, float* 
                                     cudaStream_t stream) {
     if (B <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT || H <= 0 || H > kMaxH || B > 65535) return cudaErrorInvalidValue;
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
         stage_attention_bwd_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(backward_smem_bytes(kMaxT, kMaxH)));
     if (attr != cudaSuccess) return attr;
@@ -308,6 +376,17 @@ int stract_stage_attention_backward(const float* qkv, const float* dout, float* 
     if (err != cudaSuccess) return err;
     stage_attention_bwd_key_kernel<<<grid, kThreads, 0, stream>>>(qkv, dout, probs, dscores,
                                                                    dqkv, T, H);
+    return cudaGetLastError();
+}
+
+// K16d over args->count (1..64) tensors of one card, args->first_block their
+// block prefix (kSgdTile elements a block) and `blocks` its total. Returns
+// the CUDA status of the launch.
+int stract_sgd_multi(const SgdArgs* args, long long blocks, cudaStream_t stream) {
+    if (blocks <= 0) return cudaSuccess;
+    if (args->count < 1 || args->count > kSgdMaxTensors || blocks > 0x7fffffffLL)
+        return cudaErrorInvalidValue;
+    sgd_multi_kernel<<<static_cast<unsigned>(blocks), kSgdThreads, 0, stream>>>(*args);
     return cudaGetLastError();
 }
 

@@ -182,8 +182,9 @@ def add_layernorm_forward(x, r, weight, bias, eps: float):
     out = torch.empty_like(xs)
     if xs.shape[0]:
         kern = _triton_kernels()["add_layernorm"]
-        kern[(xs.shape[0],)](xs, rs, weight, bias, out, N, float(eps),
-                             BLOCK=max(_next_pow2(N), 32), num_warps=4)
+        with torch.cuda.device(kernels.card_of(xs, rs, weight, bias, out)):
+            kern[(xs.shape[0],)](xs, rs, weight, bias, out, N, float(eps),
+                                 BLOCK=max(_next_pow2(N), 32), num_warps=4)
         kernels.counted("add_layernorm")
     return out.reshape(x.shape)
 
@@ -203,12 +204,13 @@ def add_layernorm_backward(x, r, weight, eps: float, dy):
         parts = _cdiv(M, LN_BWD_ROWS)
         partial = torch.empty((2, parts, N), dtype=torch.float32, device=x.device)
         t = _triton_kernels()
-        t["add_layernorm_bwd"][(parts,)](x, r, weight, dy, ds, partial[0], partial[1], M, N,
-                                         float(eps), ROWS=LN_BWD_ROWS,
-                                         BLOCK=max(_next_pow2(N), 32), num_warps=4)
-        for p, out in ((partial[0], dweight), (partial[1], dbias)):
-            t["col_sum"][(_cdiv(N, 128),)](p, out, parts, N, BLOCK_R=32, BLOCK_N=128,
-                                           num_warps=4)
+        with torch.cuda.device(kernels.card_of(x, r, weight, dy, ds, partial, dweight, dbias)):
+            t["add_layernorm_bwd"][(parts,)](x, r, weight, dy, ds, partial[0], partial[1], M, N,
+                                             float(eps), ROWS=LN_BWD_ROWS,
+                                             BLOCK=max(_next_pow2(N), 32), num_warps=4)
+            for p, out in ((partial[0], dweight), (partial[1], dbias)):
+                t["col_sum"][(_cdiv(N, 128),)](p, out, parts, N, BLOCK_R=32, BLOCK_N=128,
+                                               num_warps=4)
         kernels.counted("add_layernorm_backward")
     return ds, dweight, dbias
 
@@ -269,8 +271,9 @@ def bias_gelu_forward(y, b):
     if total:
         block = 1024
         kern = _triton_kernels()["bias_gelu"]
-        kern[(_cdiv(total, block),)](y, b, out, N, total, GELU_C1, GELU_C2, BLOCK=block,
-                                     num_warps=4)
+        with torch.cuda.device(kernels.card_of(y, b, out)):
+            kern[(_cdiv(total, block),)](y, b, out, N, total, GELU_C1, GELU_C2, BLOCK=block,
+                                         num_warps=4)
         kernels.counted("bias_gelu")
     return out
 
@@ -290,11 +293,12 @@ def bias_gelu_backward(y, b, dout):
         parts = _cdiv(M, GELU_BWD_ROWS)
         partial = torch.empty((parts, N), dtype=torch.float32, device=y.device)
         t = _triton_kernels()
-        t["bias_gelu_bwd"][(parts, _cdiv(N, GELU_BWD_COLS))](
-            y, b, dout, dy, partial, M, N, GELU_C1, GELU_C2, BLOCK_M=GELU_BWD_ROWS,
-            BLOCK_N=GELU_BWD_COLS, num_warps=4)
-        t["col_sum"][(_cdiv(N, 128),)](partial, db, parts, N, BLOCK_R=32, BLOCK_N=128,
-                                       num_warps=4)
+        with torch.cuda.device(kernels.card_of(y, b, dout, dy, partial, db)):
+            t["bias_gelu_bwd"][(parts, _cdiv(N, GELU_BWD_COLS))](
+                y, b, dout, dy, partial, M, N, GELU_C1, GELU_C2, BLOCK_M=GELU_BWD_ROWS,
+                BLOCK_N=GELU_BWD_COLS, num_warps=4)
+            t["col_sum"][(_cdiv(N, 128),)](partial, db, parts, N, BLOCK_R=32, BLOCK_N=128,
+                                           num_warps=4)
         kernels.counted("bias_gelu_backward")
     return dy, db
 
@@ -362,8 +366,9 @@ def mean_pool_forward(h, mask, normalize: bool):
     out = torch.empty((B, H), dtype=torch.float32, device=h.device)
     raw = torch.empty_like(out) if normalize else out
     if B:
-        _triton_kernels()["mean_pool"][(B,)](h, mask, out, raw, T, H, NORMALIZE=normalize,
-                                             BLOCK_T=16, BLOCK_H=_next_pow2(H), num_warps=4)
+        with torch.cuda.device(kernels.card_of(h, mask, out, raw)):
+            _triton_kernels()["mean_pool"][(B,)](h, mask, out, raw, T, H, NORMALIZE=normalize,
+                                                 BLOCK_T=16, BLOCK_H=_next_pow2(H), num_warps=4)
         kernels.counted("mean_pool")
     return out, raw
 
@@ -381,9 +386,10 @@ def mean_pool_backward(mask, raw, g, normalize: bool, dtype):
     kernels._ptr(g, torch.float32, (B, H))
     dh = torch.empty((B, T, H), dtype=BF16, device=raw.device)
     if B:
-        _triton_kernels()["mean_pool_bwd"][(B,)](mask, raw, g, dh, T, H, NORMALIZE=normalize,
-                                                 BLOCK_T=16, BLOCK_H=_next_pow2(H),
-                                                 num_warps=4)
+        with torch.cuda.device(kernels.card_of(mask, raw, g, dh)):
+            _triton_kernels()["mean_pool_bwd"][(B,)](mask, raw, g, dh, T, H, NORMALIZE=normalize,
+                                                     BLOCK_T=16, BLOCK_H=_next_pow2(H),
+                                                     num_warps=4)
         kernels.counted("mean_pool")
     return dh
 

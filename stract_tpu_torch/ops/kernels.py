@@ -19,23 +19,25 @@ time: the CPU tests import this module on machines without nvcc or a card.
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
                     backward
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
-                    backward
+                    backward, K16d the SGD update of a card's parameters in one launch
 
 (K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
 pool, forward and backward, are Triton kernels in ops/encoder.py; K14d and
 K15d, the fused AdamW updates of f32 masters and of bf16 parameters, are in
 optim.py; K15b-c, the MoE select-and-scale and the loss heads, in ops/moe.py
-beside the CUDA router K15a (csrc/moe.cu); K16c-d, the pipeline stage's
-f32 tanh GELU and the SGD update, in ops/stage.py; they count their
-launches here too.)
+beside the CUDA router K15a (csrc/moe.cu); K16c, the pipeline stage's
+f32 tanh GELU, in ops/stage.py; they count their launches here too, and
+launch on their tensors' card as well: `card_of`.)
 
 Each launch function takes tensors already on the card, allocated by its
-caller (ops/*.py), launches on PyTorch's current stream, raises on a
-non-zero CUDA status, and adds one to its entry in LAUNCHES.
+caller (ops/*.py), launches under `on_card` (the card its tensors lie on
+made current, that card's current stream; tensors on two cards raise),
+raises on a non-zero CUDA status, and adds one to its entry in LAUNCHES.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -180,6 +182,17 @@ class AggArgs(ctypes.Structure):
                 ("region_row", ctypes.c_int), ("update_row", ctypes.c_int)]
 
 
+# K16d (csrc/stage.cu): tensors a launch, elements a block
+SGD_MAX_TENSORS, SGD_TILE = 64, 4096
+
+
+class SgdArgs(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p * SGD_MAX_TENSORS), ("g", ctypes.c_void_p * SGD_MAX_TENSORS),
+                ("n", ctypes.c_longlong * SGD_MAX_TENSORS),
+                ("first_block", ctypes.c_longlong * (SGD_MAX_TENSORS + 1)),
+                ("count", ctypes.c_int), ("lr", ctypes.c_float)]
+
+
 def _load(name: str):
     lib = _libs.get(name)
     if lib is not None:
@@ -227,7 +240,9 @@ def _load(name: str):
             elif name == "stage":
                 lib.stract_stage_attention.argtypes = [P, P, I, I, I, P]
                 lib.stract_stage_attention_backward.argtypes = [P, P, P, P, P, I, I, I, P]
-                fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward)
+                lib.stract_sgd_multi.argtypes = [ctypes.POINTER(SgdArgs), LL, P]
+                fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward,
+                       lib.stract_sgd_multi)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
@@ -256,8 +271,33 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def card_of(*tensors) -> torch.device:
+    """The one device that a launch's tensors (None skipped) lie on; raises
+    ValueError when they lie on more than one."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"a launch takes tensors on one card, not on {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+@contextlib.contextmanager
+def on_card(*tensors):
+    """The context of every launch of a csrc/ kernel: the card that the
+    launch's tensors lie on (ValueError when more than one) made current
+    for the launch, and its current stream's handle yielded for the launch
+    to take. So a shard on cuda:1 launches in cuda:1's context on cuda:1's
+    stream, whatever card is current."""
+    dev = card_of(*tensors)
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def _seg_tensors(seg) -> tuple:
+    return (seg.postings, seg.static_cols, seg.static_default, seg.region_ids, seg.last_updated)
+
+
+def _query_tensors(q) -> tuple:
+    return tuple(getattr(q, name) for name, _ in QueryArgs._fields_[:14])
 
 
 def seg_args(seg) -> SegArgs:
@@ -320,12 +360,13 @@ def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required:
     ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    rc = lib.stract_stage_a(
-        ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t, L, K, T,
-        int(default_static), int(soft_required), inv_fs,
-        _ptr(tkey, i32, (B, T)), _ptr(tsum, f32, (B, T)), _ptr(tmask, torch.int64, (B, T)),
-        _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
-        _ptr(out_scores, f32, (B, K)), _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), ub_entry, tkey, out_scores) as stream:
+        rc = lib.stract_stage_a(
+            ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t, L, K, T,
+            int(default_static), int(soft_required), inv_fs,
+            _ptr(tkey, i32, (B, T)), _ptr(tsum, f32, (B, T)), _ptr(tmask, torch.int64, (B, T)),
+            _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
+            _ptr(out_scores, f32, (B, K)), stream)
     _check(rc, "stract_stage_a")
     counted("stage_a_ub" if ub_entry is not None else "stage_a_q8" if w == 2 else "stage_a")
 
@@ -355,9 +396,10 @@ def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: b
     ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    rc = lib.stract_stage_a_merge(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t,
-                                  L, K, int(default_static), int(soft_required), inv_fs, *net,
-                                  *outs, _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), ub_entry, mkey, out_scores) as stream:
+        rc = lib.stract_stage_a_merge(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e,
+                                      ub_t, L, K, int(default_static), int(soft_required), inv_fs,
+                                      *net, *outs, stream)
     _check(rc, "stract_stage_a_merge")
     counted("stage_a_merge")
 
@@ -371,12 +413,13 @@ def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: 
     s, qa = seg_args(seg), query_args(q)
     (B, P), Kd = q.starts.shape, cand.shape[1]
     i32, f32 = torch.int32, torch.float32
-    rc = lib.stract_stage_b(
-        ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), _ptr(factors, i32, (B, P, Kd)),
-        _ptr(cand, i32, (B, Kd)), Kd, int(default_static), inv_fs, k, ks,
-        _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)),
-        _ptr(out_sq, torch.int16, (B, aggs.nsig, ks)), _ptr(out_scale, f32, (B, aggs.nsig)),
-        _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), factors, cand, out_scores) as stream:
+        rc = lib.stract_stage_b(
+            ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), _ptr(factors, i32, (B, P, Kd)),
+            _ptr(cand, i32, (B, Kd)), Kd, int(default_static), inv_fs, k, ks,
+            _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)),
+            _ptr(out_sq, torch.int16, (B, aggs.nsig, ks)), _ptr(out_scale, f32, (B, aggs.nsig)),
+            stream)
     _check(rc, "stract_stage_b")
     counted("stage_b")
 
@@ -387,11 +430,12 @@ def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
     (B, P), K = q.starts.shape, cand.shape[1]
-    rc = lib.stract_signals_q16(
-        ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs),
-        _ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)), K, inv_fs,
-        _ptr(out_q, torch.int16, (B, aggs.nsig, K)), _ptr(out_scale, torch.float32, (B, aggs.nsig)),
-        _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), factors, cand, out_q) as stream:
+        rc = lib.stract_signals_q16(
+            ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs),
+            _ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)), K, inv_fs,
+            _ptr(out_q, torch.int16, (B, aggs.nsig, K)),
+            _ptr(out_scale, torch.float32, (B, aggs.nsig)), stream)
     _check(rc, "stract_signals_q16")
     counted("signals_q16")
 
@@ -408,7 +452,8 @@ def factors_join(seg, starts, lens, cand, out) -> None:
     ptrs = (_ptr(starts, i32, (B, P)), _ptr(lens, i32, (B, P)), _ptr(cand, i32, (B, Kd)))
     o = _ptr(out, i32, (B, P, Kd))
     lib = _load("scoring")
-    rc = lib.stract_factors_join(post, n_rows, w, *ptrs, B, P, Kd, o, _stream())
+    with on_card(seg.postings, starts, lens, cand, out) as stream:
+        rc = lib.stract_factors_join(post, n_rows, w, *ptrs, B, P, Kd, o, stream)
     _check(rc, "stract_factors_join")
     counted("factors_join")
 
@@ -428,8 +473,9 @@ def stage_b_joined(seg, q, cand, default_static: bool, inv_fs: float, k: int, sk
     c = _ptr(cand, i32, (B, Kd))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    rc = lib.stract_stage_b_joined(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, c, Kd,
-                                   int(default_static), inv_fs, k, *ptrs, _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, skey, out_scores) as stream:
+        rc = lib.stract_stage_b_joined(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, c, Kd,
+                                       int(default_static), inv_fs, k, *ptrs, stream)
     _check(rc, "stract_stage_b_joined")
     counted("stage_b_joined")
 
@@ -454,8 +500,9 @@ def signals_search(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int = 0, steps
             _ptr(out_scale, f32, (B, aggs.nsig)))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    rc = lib.stract_signals_search(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
-                                   n_rows, w, c, K, L, steps, inv_fs, *outs, _stream())
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, out_f32, out_q) as stream:
+        rc = lib.stract_signals_search(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
+                                       n_rows, w, c, K, L, steps, inv_fs, *outs, stream)
     _check(rc, "stract_signals_search")
     counted("signals_prefix" if L > 0 else "signals_joined")
 
@@ -477,7 +524,8 @@ def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_
             _ptr(query_emb, f32, (B, H)), _ptr(base, f32, (B, K)))
     outs = (_ptr(out_idx, torch.int32, (B, k)), _ptr(out_scores, f32, (B, k)))
     lib = _load("scoring")
-    rc = lib.stract_dense_rerank(*ptrs, B, K, H, float(weight), k, *outs, _stream())
+    with on_card(cand_emb, query_emb, base, out_idx, out_scores) as stream:
+        rc = lib.stract_dense_rerank(*ptrs, B, K, H, float(weight), k, *outs, stream)
     _check(rc, "stract_dense_rerank")
     counted("dense_rerank")
 
@@ -500,7 +548,8 @@ def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores) -> None:
     outs = (_ptr(out_docs, i32, (B, k)), _ptr(out_shards, i32, (B, k)),
             _ptr(out_scores, f32, (B, k)))
     lib = _load("scoring")
-    rc = lib.stract_mesh_topk(*ins, B, n, K, k, *outs, _stream())
+    with on_card(scores, docs, out_docs, out_shards, out_scores) as stream:
+        rc = lib.stract_mesh_topk(*ins, B, n, K, k, *outs, stream)
     _check(rc, "stract_mesh_topk")
     counted("mesh_topk")
 
@@ -515,34 +564,37 @@ def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) 
         raise ValueError(f"a forest of {T} trees x {N} nodes x {L} leaves over {F} features "
                          "does not fit one block's shared memory")
     lib = _load("forest")
-    rc = lib.stract_forest(
-        _ptr(feature, i32, (T, N)), _ptr(threshold, f32, (T, N)), _ptr(left, i32, (T, N)),
-        _ptr(right, i32, (T, N)), _ptr(leaf_value, f32, (T, L)), _ptr(x, f32, (K, F)),
-        _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), _stream())
+    with on_card(feature, threshold, left, right, leaf_value, x, out) as stream:
+        rc = lib.stract_forest(
+            _ptr(feature, i32, (T, N)), _ptr(threshold, f32, (T, N)), _ptr(left, i32, (T, N)),
+            _ptr(right, i32, (T, N)), _ptr(leaf_value, f32, (T, L)), _ptr(x, f32, (K, F)),
+            _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), stream)
     _check(rc, "stract_forest")
     counted("forest")
 
 
-def _attention_ptrs(tensors, shape) -> list:
+def _attention_ptrs(tensors, shape, align: int = 4) -> list:
     B, T, H, D = shape
     if D != ATTN_HEAD_DIM or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
         raise ValueError(f"attention takes head dim {ATTN_HEAD_DIM} and 1..{ATTN_MAX_T} "
                          f"tokens, not q of shape {tuple(shape)}")
     ptrs = [_ptr(t, torch.bfloat16, (B, T, H, D)) for t in tensors]
-    if any(p % 4 for p in ptrs):
-        raise ValueError("attention reads its rows as bf16 pairs: pointers must be 4-byte aligned")
+    if any(p % align for p in ptrs):
+        raise ValueError(f"attention reads its rows in {align}-byte pieces: pointers must be "
+                         f"{align}-byte aligned")
     return ptrs
 
 
 def attention(q, k, v, mask, out) -> None:
-    """K5a: q, k, v bf16[B, T, H, 32], mask i32[B, T] → out bf16[B, T, H*32]
-    (ops/encoder.py allocates)."""
+    """K5a: q, k, v bf16[B, T, H, 32] (16-byte aligned), mask i32[B, T] →
+    out bf16[B, T, H*32] (ops/encoder.py allocates)."""
     B, T, H, D = q.shape
-    ptrs = _attention_ptrs((q, k, v), q.shape)
+    ptrs = _attention_ptrs((q, k, v), q.shape, align=16)  # 16-byte cp.async copies
     bf16 = torch.bfloat16
     lib = _load("encoder")
-    rc = lib.stract_attention(*ptrs, _ptr(mask, torch.int32, (B, T)),
-                              _ptr(out, bf16, (B, T, H * D)), B, T, H, _stream())
+    with on_card(q, k, v, mask, out) as stream:
+        rc = lib.stract_attention(*ptrs, _ptr(mask, torch.int32, (B, T)),
+                                  _ptr(out, bf16, (B, T, H * D)), B, T, H, stream)
     _check(rc, "stract_attention")
     counted("attention")
 
@@ -554,8 +606,9 @@ def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
     _ptr(dout, torch.bfloat16, (B, T, H * D))
     ptrs = _attention_ptrs((q, k, v, dout.view(B, T, H, D), dq, dk, dv), q.shape)
     lib = _load("encoder")
-    rc = lib.stract_attention_backward(*ptrs[:3], _ptr(mask, torch.int32, (B, T)), *ptrs[3:],
-                                       B, T, H, _stream())
+    with on_card(q, k, v, mask, dout, dq, dk, dv) as stream:
+        rc = lib.stract_attention_backward(*ptrs[:3], _ptr(mask, torch.int32, (B, T)), *ptrs[3:],
+                                           B, T, H, stream)
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
 
@@ -575,7 +628,8 @@ def stage_attention(qkv, out) -> None:
     f32 = torch.float32
     ptrs = (_ptr(qkv, f32, (B, T, 3 * H)), _ptr(out, f32, (B, T, H)))
     lib = _load("stage")
-    rc = lib.stract_stage_attention(*ptrs, B, T, H, _stream())
+    with on_card(qkv, out) as stream:
+        rc = lib.stract_stage_attention(*ptrs, B, T, H, stream)
     _check(rc, "stract_stage_attention")
     counted("stage_attention")
 
@@ -589,9 +643,38 @@ def stage_attention_backward(qkv, dout, probs, dscores, dqkv) -> None:
             _ptr(probs, f32, (B, T, T)), _ptr(dscores, f32, (B, T, T)),
             _ptr(dqkv, f32, (B, T, 3 * H)))
     lib = _load("stage")
-    rc = lib.stract_stage_attention_backward(*ptrs, B, T, H, _stream())
+    with on_card(qkv, dout, probs, dscores, dqkv) as stream:
+        rc = lib.stract_stage_attention_backward(*ptrs, B, T, H, stream)
     _check(rc, "stract_stage_attention_backward")
     counted("stage_attention_backward")
+
+
+def sgd_multi(params: list, grads: list, lr: float) -> None:
+    """K16d: p -= lr * g in place for every pair, f32 tensors of one card
+    (each g of its p's size): one launch per SGD_MAX_TENSORS pairs
+    (ops/stage.py groups by card)."""
+    f32 = torch.float32
+    ps, gs = [_ptr(p, f32) for p in params], [_ptr(g, f32) for g in grads]
+    ns = [p.numel() for p in params]
+    if ns != [g.numel() for g in grads]:
+        raise ValueError("SGD takes a gradient of each parameter's size for each parameter")
+    live = [i for i, n in enumerate(ns) if n]
+    if not live:
+        return
+    lib = _load("stage")
+    for c in range(0, len(live), SGD_MAX_TENSORS):
+        idx = live[c:c + SGD_MAX_TENSORS]
+        k = len(idx)
+        first = [0]
+        for i in idx:
+            first.append(first[-1] - (-ns[i] // SGD_TILE))
+        args = SgdArgs(count=k, lr=lr)
+        args.p[:k], args.g[:k] = [ps[i] for i in idx], [gs[i] for i in idx]
+        args.n[:k], args.first_block[:k + 1] = [ns[i] for i in idx], first
+        with on_card(*(params[i] for i in idx), *(grads[i] for i in idx)) as stream:
+            rc = lib.stract_sgd_multi(ctypes.byref(args), first[-1], stream)
+        _check(rc, "stract_sgd_multi")
+        counted("sgd")
 
 
 # limit of csrc/moe.cu: experts per router
@@ -616,7 +699,8 @@ def moe_router(x, w, bias, probs, top, gate) -> None:
     outs = (_ptr(probs, f32, (N, E)), _ptr(top, torch.int32, (N,)),
             _ptr(gate, torch.bfloat16, (N,)))
     lib = _load("moe")
-    rc = lib.stract_moe_router(*ins, N, H, E, *outs, _stream())
+    with on_card(x, w, bias, probs, top, gate) as stream:
+        rc = lib.stract_moe_router(*ins, N, H, E, *outs, stream)
     _check(rc, "stract_moe_router")
     counted("moe_router")
 
@@ -630,7 +714,8 @@ def moe_router_backward(probs, top, dgate, w, dlogits, dx) -> None:
            _ptr(dgate, torch.bfloat16, (N,)), _ptr(w, f32, (E, H)))
     outs = (_ptr(dlogits, f32, (N, E)), _ptr(dx, torch.bfloat16, (N, H)))
     lib = _load("moe")
-    rc = lib.stract_moe_router_backward(*ins, N, H, E, *outs, _stream())
+    with on_card(probs, top, dgate, w, dlogits, dx) as stream:
+        rc = lib.stract_moe_router_backward(*ins, N, H, E, *outs, stream)
     _check(rc, "stract_moe_router_backward")
     counted("moe_router")
 
@@ -659,9 +744,10 @@ def hll_merge(regs, offsets, sources, long_rows, long_cut: int, alpha: float, ou
     off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
     u8 = torch.uint8
     lib = _load("graph")
-    rc = lib.stract_hll_merge(_ptr(regs, u8, (n, m)), off, src, lr, n_long, n, m, long_cut,
-                              alpha, _ptr(out, u8, (n, m)), _ptr(sizes, torch.float32, (n,)),
-                              _ptr(changed, torch.int32, (1,)), _stream())
+    with on_card(regs, offsets, sources, out, sizes, changed) as stream:
+        rc = lib.stract_hll_merge(_ptr(regs, u8, (n, m)), off, src, lr, n_long, n, m, long_cut,
+                                  alpha, _ptr(out, u8, (n, m)), _ptr(sizes, torch.float32, (n,)),
+                                  _ptr(changed, torch.int32, (1,)), stream)
     _check(rc, "stract_hll_merge")
     counted("hll_merge")
 
@@ -672,8 +758,9 @@ def hll_estimate(regs, alpha: float, sizes) -> None:
     if not 4 <= m <= HLL_MAX_M or m & (m - 1):
         raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
     lib = _load("graph")
-    rc = lib.stract_hll_estimate(_ptr(regs, torch.uint8, (n, m)), n, m, alpha,
-                                 _ptr(sizes, torch.float32, (n,)), _stream())
+    with on_card(regs, sizes) as stream:
+        rc = lib.stract_hll_estimate(_ptr(regs, torch.uint8, (n, m)), n, m, alpha,
+                                     _ptr(sizes, torch.float32, (n,)), stream)
     _check(rc, "stract_hll_estimate")
     counted("hll_estimate")
 
@@ -687,8 +774,9 @@ def bfs_relax(dist, offsets, sources, long_rows, long_cut: int, out, changed) ->
     off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
     i32 = torch.int32
     lib = _load("graph")
-    rc = lib.stract_bfs_relax(_ptr(dist, i32, (n, S)), off, src, lr, n_long, n, S, long_cut,
-                              _ptr(out, i32, (n, S)), _ptr(changed, i32, (1,)), _stream())
+    with on_card(dist, offsets, sources, out, changed) as stream:
+        rc = lib.stract_bfs_relax(_ptr(dist, i32, (n, S)), off, src, lr, n_long, n, S, long_cut,
+                                  _ptr(out, i32, (n, S)), _ptr(changed, i32, (1,)), stream)
     _check(rc, "stract_bfs_relax")
     counted("bfs_relax")
 
@@ -709,9 +797,10 @@ def hll_ring_step(out, buf, offsets, sources, long_rows, long_cut: int, alpha: f
     off, src, lr, n_long = _csr_ptrs(S, offsets, sources, long_rows)
     u8 = torch.uint8
     lib = _load("graph")
-    rc = lib.stract_hll_ring_step(_ptr(out, u8, (S, m)), _ptr(buf, u8, (S, m)), off, src, lr,
-                                  n_long, S, m, long_cut, alpha, _ptr(start, u8, (S, m)),
-                                  _ptr(sizes, torch.float32, (S,)),
-                                  _ptr(changed, torch.int32, (1,)), _stream())
+    with on_card(out, buf, offsets, sources, start, sizes, changed) as stream:
+        rc = lib.stract_hll_ring_step(_ptr(out, u8, (S, m)), _ptr(buf, u8, (S, m)), off, src, lr,
+                                      n_long, S, m, long_cut, alpha, _ptr(start, u8, (S, m)),
+                                      _ptr(sizes, torch.float32, (S,)),
+                                      _ptr(changed, torch.int32, (1,)), stream)
     _check(rc, "stract_hll_ring_step")
     counted("hll_ring_step")

@@ -77,8 +77,9 @@ def pair_loss_forward(s_pos, s_neg, t_pos=None, t_neg=None, alpha: float = 0.0):
         kernels._ptr(t, f32, (B,))
     loss = torch.empty((), dtype=f32, device=s_pos.device)
     d_pos, d_neg = torch.empty_like(ins[0]), torch.empty_like(ins[0])
-    _triton_kernels()["pair"][(1,)](*ins, *tg, loss, d_pos, d_neg, B, float(alpha),
-                                    DISTILL=distill, BLOCK=_next_pow2(B), num_warps=4)
+    with torch.cuda.device(kernels.card_of(*ins, *tg, loss, d_pos, d_neg)):
+        _triton_kernels()["pair"][(1,)](*ins, *tg, loss, d_pos, d_neg, B, float(alpha),
+                                        DISTILL=distill, BLOCK=_next_pow2(B), num_warps=4)
     kernels.counted("loss_heads")
     return loss, d_pos, d_neg
 
@@ -91,7 +92,8 @@ def info_nce_forward(logits):
     kernels._ptr(logits, torch.float32, (B, B))
     loss = torch.empty((), dtype=torch.float32, device=logits.device)
     d = torch.empty_like(logits)
-    _triton_kernels()["info_nce"][(1,)](logits, loss, d, B, BLOCK=_next_pow2(B), num_warps=4)
+    with torch.cuda.device(kernels.card_of(logits, loss, d)):
+        _triton_kernels()["info_nce"][(1,)](logits, loss, d, B, BLOCK=_next_pow2(B), num_warps=4)
     kernels.counted("loss_heads")
     return loss, d
 

@@ -141,8 +141,9 @@ def select_scale_forward(out_e, top, gate):
     E, N, H = out_e.shape
     out = torch.empty((N, H), dtype=BF16, device=out_e.device)
     if N:
-        _triton_kernels()["select"][(N,)](out_e, top, gate, out, N, H,
-                                          BLOCK_H=_next_pow2(H), num_warps=4)
+        with torch.cuda.device(kernels.card_of(out_e, top, gate, out)):
+            _triton_kernels()["select"][(N,)](out_e, top, gate, out, N, H,
+                                              BLOCK_H=_next_pow2(H), num_warps=4)
         kernels.counted("moe_select")
     return out
 
@@ -156,8 +157,9 @@ def select_scale_backward(out_e, top, gate, g):
     d_out = torch.empty_like(out_e)
     d_gate = torch.empty(N, dtype=BF16, device=out_e.device)
     if N:
-        _triton_kernels()["select_bwd"][(N,)](out_e, top, gate, g, d_out, d_gate, E, N, H,
-                                              BLOCK_H=_next_pow2(H), num_warps=4)
+        with torch.cuda.device(kernels.card_of(out_e, top, gate, g, d_out, d_gate)):
+            _triton_kernels()["select_bwd"][(N,)](out_e, top, gate, g, d_out, d_gate, E, N, H,
+                                                  BLOCK_H=_next_pow2(H), num_warps=4)
         kernels.counted("moe_select")
     return d_out, d_gate
 

@@ -12,14 +12,17 @@ twin:
                                  dqkv f32[mb, T, 3H]: CUDA C++, csrc/stage.cu
   K16c gelu_tanh, fwd + bwd      jax.nn.gelu(approximate=True) in f32, no bias
                                  (:50): Triton
-  K16d sgd_update                p - lr * g in place (:136): Triton
+  K16d sgd_update_many           p - lr * g in place (:136) over all of a
+                                 card's parameters in one launch: CUDA C++,
+                                 csrc/stage.cu
 
 The autograd Functions StageAttention and GeluTanh call the module-level
 dispatchers (`stage_attention_forward` / `_backward`, `gelu_tanh_forward` /
-`_backward`) in forward and backward, and `sgd_update` is one too: a CPU
-tensor takes the plain twin, a CUDA tensor launches the kernel or raises,
-on its own card's current stream (the pipeline's stages may sit on
-different cards).
+`_backward`) in forward and backward, and `sgd_update_many` is one too: a
+CPU tensor takes the plain twin, a CUDA tensor launches the kernel or
+raises, on its own card's current stream (the pipeline's stages may sit on
+different cards: ops/kernels.py `on_card`, and `card_of` for the Triton
+launches).
 
 Numerics follow the reference in f32: the scores are divided by sqrt(H)
 rounded to f32 (JAX canonicalises the np.float64 scalar to f32), the
@@ -92,8 +95,7 @@ def stage_attention_forward(qkv):
     qkv = qkv.contiguous()
     mb, T, H3 = qkv.shape
     out = torch.empty((mb, T, H3 // 3), dtype=F32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        kernels.stage_attention(qkv, out)
+    kernels.stage_attention(qkv, out)
     return out
 
 
@@ -105,8 +107,7 @@ def stage_attention_backward(qkv, dout):
     probs = torch.empty((mb, T, T), dtype=F32, device=qkv.device)
     dscores = torch.empty_like(probs)
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        kernels.stage_attention_backward(qkv, dout, probs, dscores, dqkv)
+    kernels.stage_attention_backward(qkv, dout, probs, dscores, dqkv)
     return dqkv
 
 
@@ -153,7 +154,7 @@ def gelu_tanh_forward(x):
     out = torch.empty_like(x)
     n = _flat_f32(x, out)
     if n:
-        with torch.cuda.device(x.device):
+        with torch.cuda.device(kernels.card_of(x, out)):
             _triton_kernels()["gelu"][(-(-n // BLOCK),)](x, out, n, GELU_C1, GELU_C2,
                                                          BLOCK=BLOCK, num_warps=4)
         kernels.counted("gelu_tanh")
@@ -167,7 +168,7 @@ def gelu_tanh_backward(x, dout):
     dx = torch.empty_like(x)
     n = _flat_f32(x, dout, dx)
     if n:
-        with torch.cuda.device(x.device):
+        with torch.cuda.device(kernels.card_of(x, dout, dx)):
             _triton_kernels()["gelu_bwd"][(-(-n // BLOCK),)](x, dout, dx, n, GELU_C1, GELU_C2,
                                                              BLOCK=BLOCK, num_warps=4)
         kernels.counted("gelu_tanh")
@@ -197,26 +198,33 @@ def sgd_update_plain(p, g, lr: float) -> None:
     p.copy_(p - lr * g)
 
 
-def sgd_update(p, g, lr: float) -> None:
-    """One SGD step in place on a parameter's data (no autograd)."""
-    if not p.is_cuda:
-        return sgd_update_plain(p, g, lr)
-    g = g.contiguous()
-    n = _flat_f32(p, g)
-    if n:
-        # unfused, so the product rounds before the difference, as in the twin
-        with torch.cuda.device(p.device):
-            _triton_kernels()["sgd"][(-(-n // BLOCK),)](p, g, n, lr, BLOCK=BLOCK, num_warps=4,
-                                                        enable_fp_fusion=False)
-        kernels.counted("sgd")
+def sgd_update_many_plain(params, grads, lr: float) -> None:
+    """sgd_update_plain over each pair in turn."""
+    for p, g in zip(params, grads):
+        sgd_update_plain(p, g, lr)
+
+
+def sgd_update_many(params, grads, lr: float) -> None:
+    """One SGD step in place on many parameters' data (no autograd): CPU
+    pairs take the plain twin, the CUDA ones launch K16d once per card (per
+    64 tensors), on that card."""
+    by_card: dict = {}
+    for p, g in zip(params, grads):
+        by_card.setdefault(p.device if p.is_cuda else None, []).append((p, g))
+    for dev, pairs in by_card.items():
+        ps, gs = [p for p, _ in pairs], [g for _, g in pairs]
+        if dev is None:
+            sgd_update_many_plain(ps, gs, lr)
+        else:
+            kernels.sgd_multi(ps, [g.contiguous() for g in gs], lr)
 
 
 # ---- the Triton kernels ------------------------------------------------------------------
 def _triton_kernels() -> dict:
-    """K16c ("gelu", "gelu_bwd") and K16d ("sgd"), defined (and triton
-    imported) at first use. Each is one flat pass over memory (8, 12 and 12
-    bytes an element): bound by the card's memory rate, so one program per
-    BLOCK elements and nothing else is the whole design."""
+    """K16c ("gelu", "gelu_bwd"), defined (and triton imported) at first
+    use. Each is one flat pass over memory (8 and 12 bytes an element):
+    bound by the card's memory rate, so one program per BLOCK elements and
+    nothing else is the whole design."""
     if _TRITON:
         return _TRITON
     import triton
@@ -244,13 +252,5 @@ def _triton_kernels() -> dict:
         du = c1 * (1.0 + 3.0 * c2 * (x * x))
         tl.store(DX + offs, g * (0.5 * (1.0 + t)) + g * x * (0.5 * (1.0 - t * t)) * du, mask=m)
 
-    @triton.jit
-    def sgd_kernel(P, G, n, lr, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < n
-        p = tl.load(P + offs, mask=m, other=0.0)
-        g = tl.load(G + offs, mask=m, other=0.0)
-        tl.store(P + offs, p - lr * g, mask=m)
-
-    _TRITON.update(gelu=gelu_kernel, gelu_bwd=gelu_bwd_kernel, sgd=sgd_kernel)
+    _TRITON.update(gelu=gelu_kernel, gelu_bwd=gelu_bwd_kernel)
     return _TRITON

@@ -61,8 +61,9 @@ def adamw_update(p, g, m, v, lr: float, b1: float, b2: float, eps: float, wd: fl
     for t in (p, g, m, v):
         kernels._ptr(t, torch.float32, (n,))
     if n:
-        _triton_kernel()[(-(-n // BLOCK),)](p, g, m, v, n, lr, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-                                           wd, bc1, bc2, BLOCK=BLOCK, num_warps=4)
+        with torch.cuda.device(kernels.card_of(p, g, m, v)):
+            _triton_kernel()[(-(-n // BLOCK),)](p, g, m, v, n, lr, b1, 1.0 - b1, b2, 1.0 - b2, eps,
+                                               wd, bc1, bc2, BLOCK=BLOCK, num_warps=4)
         kernels.counted("adamw")
 
 
@@ -93,8 +94,9 @@ def adamw_bf16_update(p, g, m, v, lr: float, b1: float, b2: float, eps: float, w
         kernels._ptr(t, BF16, (n,))
     if n:
         consts = [_bf16(x) for x in (-lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, bc1, bc2)]
-        _triton_kernels()["adamw_bf16"][(-(-n // BLOCK),)](p, g, m, v, n, *consts, BLOCK=BLOCK,
-                                                           num_warps=4)
+        with torch.cuda.device(kernels.card_of(p, g, m, v)):
+            _triton_kernels()["adamw_bf16"][(-(-n // BLOCK),)](p, g, m, v, n, *consts, BLOCK=BLOCK,
+                                                               num_warps=4)
         kernels.counted("adamw_bf16")
 
 

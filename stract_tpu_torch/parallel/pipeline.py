@@ -148,9 +148,8 @@ def make_pipeline_train_step(mesh, hidden: int = 32, ffn: int = 64,
         loss = ((preds - targets.to(head_dev)) ** 2).mean()
         leaves = _leaves(params)
         grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            for p, g in zip(leaves, grads):
-                ST.sgd_update(p.detach(), g, learning_rate)
+        with torch.no_grad():  # K16d: one launch per card over all the leaves
+            ST.sgd_update_many([p.detach() for p in leaves], grads, learning_rate)
         return params, loss.detach()
 
     return init_fn, step_fn

@@ -49,6 +49,8 @@ Tolerances, kernel against plain twin on one card:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -115,6 +117,75 @@ def test_kernel_arguments_are_checked(monkeypatch):
                     torch.zeros(384, dtype=torch.bfloat16))
 
 
+def test_every_launch_takes_the_stream_of_its_tensors_card():
+    """Every call of a csrc/ kernel in ops/kernels.py (`lib.stract_*`) sits
+    inside `with on_card(...) as <name>` and takes <name>, the stream of its
+    tensors' card, as its last argument: no launch reads the current card's
+    stream."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(kernels))
+    launches = []
+
+    def visit(node, streams):
+        if isinstance(node, ast.With):
+            bound = {item.optional_vars.id for item in node.items
+                     if isinstance(item.context_expr, ast.Call)
+                     and getattr(item.context_expr.func, "id", None) == "on_card"
+                     and isinstance(item.optional_vars, ast.Name)}
+            streams = streams | bound
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr.startswith("stract_")
+                and getattr(node.func.value, "id", None) == "lib"):
+            last = node.args[-1] if node.args else None
+            launches.append((node.func.attr, isinstance(last, ast.Name) and last.id in streams))
+        for child in ast.iter_child_nodes(node):
+            visit(child, streams)
+
+    visit(tree, frozenset())
+    assert len(launches) >= 21, launches
+    assert all(ok for _, ok in launches), [name for name, ok in launches if not ok]
+    assert "_stream" not in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+class _FailingLib:
+    def __getattr__(self, name):
+        return lambda *a: pytest.fail(f"{name} was launched")
+
+
+@pytest.mark.parametrize("kernel", ["attention", "mesh_topk", "sgd_multi", "forest"])
+def test_launch_on_two_cards_raises_before_any_launch(monkeypatch, kernel):
+    """Tensors of one launch on two cards raise ValueError before the
+    library is called (the devices stood in by a patched `Tensor.device`:
+    one argument reports cuda:1, the others cuda:0)."""
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    if kernel == "attention":
+        other = bf(2, 16, 128)
+        args = (bf(2, 16, 4, 32), bf(2, 16, 4, 32), bf(2, 16, 4, 32),
+                torch.ones((2, 16), dtype=torch.int32), other)
+        call = lambda: kernels.attention(*args)  # noqa: E731
+    elif kernel == "mesh_topk":
+        scores, other = _gathered(2, 4, 64)
+        outs = [torch.zeros((2, 32), dtype=t) for t in (torch.int32, torch.int32, torch.float32)]
+        call = lambda: kernels.mesh_topk(scores, other, 32, *outs)  # noqa: E731
+    elif kernel == "sgd_multi":
+        other = torch.zeros(3)
+        ps, gs = [torch.zeros(8), other], [torch.zeros(8), torch.zeros(3)]
+        call = lambda: kernels.sgd_multi(ps, gs, 0.1)  # noqa: E731
+    else:
+        pm = _forest(np.random.default_rng(0))
+        arrays, other = pm._arrays(), torch.zeros((16, 46))
+        call = lambda: kernels.forest(*arrays, other, torch.zeros(16), pm.max_depth)  # noqa: E731
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: torch.device("cuda", 1 if self is other else 0)))
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: pytest.fail("a card was entered"))
+    with pytest.raises(ValueError, match="on one card"):
+        call()
+
+
 def test_training_wrappers_never_take_the_plain_path(monkeypatch):
     """On a CUDA tensor the backward dispatchers, the pool and the AdamW
     update launch their kernels (stand-ins here), never the plain twins."""
@@ -139,6 +210,7 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
         "add_layernorm_bwd", "col_sum", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd")})
     monkeypatch.setattr(optim, "_triton_kernel", lambda: Kern("adamw"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
     mask = torch.ones((2, 16), dtype=torch.int32)
     E.attention_backward(bf(2, 16, 12, 32), bf(2, 16, 12, 32), bf(2, 16, 12, 32), mask,
@@ -243,6 +315,66 @@ def test_attention_kernel_matches_plain(T):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), E.attention_plain(q, k, v, mask).float(),
                                rtol=ENC_RTOL, atol=2 * ENC_ATOL)
+
+
+def _tail_masked(B: int, T: int, dev):
+    """Row 0 keeps all keys; then half masked, fully masked (uniform
+    weights, finite), the last fifth masked; cycled over B."""
+    mask = torch.ones((B, T), dtype=torch.int32)
+    for b in range(B):
+        kind = b % 4
+        if kind == 1:
+            mask[b, T // 2:] = 0
+        elif kind == 2:
+            mask[b] = 0
+        elif kind == 3:
+            mask[b, T - max(1, T // 5):] = 0
+    return mask.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", [1, 7, 16, 63, 64, 65, 128, 200, 256])
+def test_attention_wgmma_kernel_matches_plain_at_tile_tails(T, B):
+    """K5a (wgmma over 64-query tiles and 64-key chunks) at every tail of a
+    tile: T below, at and past multiples of 64, with half, fully and tail
+    masked rows; each call counted once."""
+    dev = _card()
+    g = torch.Generator().manual_seed(T * 10 + B)
+    q, k, v = (torch.randn((B, T, 12, 32), generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    mask = _tail_masked(B, T, dev)
+    n = kernels.LAUNCHES["attention"]
+    got = E.attention(q, k, v, mask)
+    assert kernels.LAUNCHES["attention"] == n + 1
+    assert got.shape == (B, T, 384) and torch.isfinite(got.float()).all()
+    want = E.attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=ENC_RTOL, atol=2 * ENC_ATOL)
+    if B == 4:  # the fully masked row: the mean of V
+        torch.testing.assert_close(got[2].float(), want[2].float(), rtol=ENC_RTOL,
+                                   atol=2 * ENC_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [65, 128])
+def test_attention_autograd_through_both_kernels_matches_plain_vjp(T):
+    """E.attention's autograd Function on the card (K5a forward, K14a
+    backward) against the plain twins' forward and VJP on the same card."""
+    dev = _card()
+    g = torch.Generator().manual_seed(T + 3)
+    ins = [torch.randn((4, T, 12, 32), generator=g).to(dev, torch.bfloat16) for _ in range(3)]
+    dout = torch.randn((4, T, 384), generator=g).to(dev, torch.bfloat16)
+    mask = _tail_masked(4, T, dev)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    n = (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"])
+    out = E.attention(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"]) == \
+        (n[0] + 1, n[1] + 1)
+    torch.testing.assert_close(out.float(), E.attention_plain(*ins, mask).float(),
+                               rtol=ENC_RTOL, atol=2 * ENC_ATOL)
+    for a, b in zip(grads, E.attention_backward_plain(*ins, mask, dout)):
+        _step_close(a, b)
 
 
 @pytest.mark.cuda
@@ -448,6 +580,7 @@ def test_moe_and_loss_wrappers_never_take_the_plain_path(monkeypatch):
                                                         ("pair", "info_nce")})
     monkeypatch.setattr(optim, "_triton_kernels", lambda: {"adamw_bf16": Kern("adamw_bf16")})
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
     top = torch.zeros(8, dtype=torch.int32)
     MO.router_forward(bf(8, 64), torch.zeros(4, 64), torch.zeros(4))
@@ -863,3 +996,33 @@ def test_ring_step_kernel_matches_plain(n_shards):
             torch.testing.assert_close(gs.cpu(), hll_ops.estimate_sizes_plain(w), rtol=1e-6,
                                        atol=0)
         shards = {dev: got, "cpu": want}
+
+
+@pytest.mark.cuda
+def test_mesh_kernels_launch_on_their_tensors_card():
+    """F6: K9 and K8 with their shards on cuda:1 while cuda:0 is current
+    equal their plain twins, and the current card is left as it was."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.ops import scoring as O
+
+    dev = _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    one = torch.device(dev, 1)
+    torch.cuda.set_device(0)
+    scores, docs = _gathered(5, 4, 512, seed=9)
+    got = O.mesh_topk(scores.to(one), docs.to(one), 10)
+    for a, b in zip(got, O.mesh_topk_plain(scores, docs, 10)):
+        assert a.device == one and torch.equal(a.cpu(), b)
+    n = 20_000
+    src, dst = _graph(n, 5_000, seed=4)
+    regs = torch.from_numpy(hll_ops.init_registers(n, 6))
+    csr_one, csr_cpu = in_csr(n, src, dst, one), in_csr(n, src, dst, "cpu")
+    buf = regs.flip(0).contiguous()
+    out_one, out_cpu = regs.to(one), regs.clone()
+    ch1, sz1 = hll_ops.ring_step(out_one, buf.to(one), csr_one, start=regs.to(one), sizes=True)
+    ch0, sz0 = hll_ops.ring_step(out_cpu, buf, csr_cpu, start=regs, sizes=True)
+    torch.cuda.synchronize(one)
+    assert torch.equal(out_one.cpu(), out_cpu) and int(ch1.item()) == int(ch0.item())
+    torch.testing.assert_close(sz1.cpu(), sz0, rtol=1e-6, atol=0)
+    assert torch.cuda.current_device() == 0

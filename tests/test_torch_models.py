@@ -263,6 +263,42 @@ def test_modules_match_flax(module):
     np.testing.assert_allclose(yt, yj, atol=MODULE_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("T", [1, 65, 200])
+def test_plain_attention_matches_flax_at_tile_tails(T):
+    """K5a's plain twin, between the projections of one BertSelfAttention,
+    against flax's at the tails of the kernel's 64-row tiles (T = 1, 65,
+    200), with a half, a fully and a tail masked row; and the twin alone
+    against the reference's body written in jnp."""
+    cfg_j, cfg_t = JB.BertConfig.tiny(), TB.BertConfig.tiny()
+    rng = np.random.default_rng(T)
+    x = rng.normal(size=(4, T, 64)).astype(np.float32)
+    mask = np.ones((4, T), np.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask[3, T - max(1, T // 5):] = 0
+    xj = jnp.asarray(x, dtype=jnp.bfloat16)
+    jmod = JB.BertSelfAttention(cfg_j)
+    params = jmod.init(jax.random.PRNGKey(T), xj, jnp.asarray(mask, bool))
+    yj = np.asarray(jmod.apply(params, xj, jnp.asarray(mask, bool)).astype(jnp.float32))
+    tmod = TB.BertSelfAttention(cfg_t)
+    tmod.load_state_dict(TB.params_from_jax(_unboxed(params)))
+    with torch.no_grad():
+        yt = tmod(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask)).float().numpy()
+    assert yt.shape == yj.shape and np.isfinite(yt).all()
+    np.testing.assert_allclose(yt, yj, atol=MODULE_ATOL, rtol=0)
+
+    q, k, v = (rng.normal(size=(4, T, 3, 32)).astype(np.float32) for _ in range(3))
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    sc = jnp.einsum("bthd,bshd->bhts", qj, kj, preferred_element_type=jnp.float32) / np.sqrt(32)
+    sc = jnp.where(jnp.asarray(mask, bool)[:, None, None, :], sc, jnp.finfo(jnp.float32).min)
+    ctx = jnp.einsum("bhts,bshd->bthd", jax.nn.softmax(sc, -1).astype(jnp.bfloat16), vj,
+                     preferred_element_type=jnp.float32).astype(jnp.bfloat16).reshape(4, T, 96)
+    bt = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    got = E.attention_plain(bt(q), bt(k), bt(v), torch.from_numpy(mask)).float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ctx, np.float32), atol=2e-2)
+    assert np.isfinite(got).all()
+
+
 def test_plain_twins_follow_the_reference_formulas():
     """The three plain twins against jnp written after bert.py: attention
     with a fully masked row, LN of a bf16 sum, tanh GELU with bf16 constants."""

@@ -229,6 +229,50 @@ def test_twins_follow_the_reference_formulas_on_edge_values(jx):
     assert np.isfinite(out).all()
 
 
+def _sgd_pairs(sizes, offsets, seed):
+    """f32 parameters of the given sizes (those at `offsets` views one
+    element into a larger buffer, so not 16-byte aligned) and gradients."""
+    g = torch.Generator().manual_seed(seed)
+    base = [torch.randn(n + 3, generator=g) for n in sizes]
+    ps = [b[1:1 + n] if i in offsets else b[:n] for i, (b, n) in enumerate(zip(base, sizes))]
+    gs = [torch.randn(n, generator=g) for n in sizes]
+    return ps, gs
+
+
+SGD_SIZES = [1, 3, 5, 4096, 4097, 442368, 1000, 384] * 3 + [7]  # 25 tensors
+
+
+def test_sgd_update_many_plain_is_per_tensor_sgd():
+    """The many-tensor twin equals sgd_update_plain tensor by tensor, bit
+    for bit, on 25 tensors of mixed sizes (1 and 3 among them) and views at
+    an element offset; sgd_update_many on CPU tensors takes it."""
+    ps, gs = _sgd_pairs(SGD_SIZES, (1, 9, 17), 0)
+    one, many, twin = ([p.clone() for p in ps] for _ in range(3))
+    for p, g in zip(one, gs):
+        ST.sgd_update_plain(p, g, 5e-2)
+    ST.sgd_update_many_plain(many, gs, 5e-2)
+    ST.sgd_update_many(twin, gs, 5e-2)
+    assert all(torch.equal(a, b) for a, b in zip(many, one))
+    assert all(torch.equal(a, b) for a, b in zip(twin, one))
+    assert not torch.equal(one[5], ps[5])
+
+
+def test_train_step_updates_all_leaves_in_one_call(monkeypatch):
+    """The step hands every leaf (4 keys x S stages + the head) with its
+    gradient to sgd_update_many once: one K16d launch per card a step."""
+    calls = []
+    real = ST.sgd_update_many
+    monkeypatch.setattr(ST, "sgd_update_many",
+                        lambda ps, gs, lr: (calls.append((len(ps), len(gs), lr)), real(ps, gs, lr)))
+    init_fn, step_fn = TP.make_pipeline_train_step(_cpu_mesh(3, 2), hidden=16, ffn=32,
+                                                   learning_rate=5e-2)
+    params = init_fn(0)
+    mbs, targets = _recipe(1)
+    for _ in range(2):
+        step_fn(params, torch.from_numpy(mbs), torch.from_numpy(targets))
+    assert calls == [(4 * 3 + 1, 4 * 3 + 1, 5e-2)] * 2
+
+
 # ---- the entry points and the dispatch -------------------------------------------------------
 def test_cuda_mesh_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -252,7 +296,7 @@ def test_dispatchers_send_cpu_tensors_to_the_twins(monkeypatch):
     ST.stage_attention_backward(t, t[..., :4])
     ST.gelu_tanh_forward(t)
     ST.gelu_tanh_backward(t, t)
-    ST.sgd_update(t, t, 0.1)
+    ST.sgd_update_many([t], [t], 0.1)
     assert called == ["stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
                       "gelu_tanh_backward_plain", "sgd_update_plain"]
 
@@ -267,6 +311,22 @@ class _Launch:
         return lambda *a, **k: self.called.append(self.name)
 
 
+class _Stream:
+    cuda_stream = 0
+
+
+class _StageLib:
+    """A stand-in for csrc/stage.cu's library: stract_sgd_multi records "sgd"
+    and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def stract_sgd_multi(self, args, blocks, stream):
+        self.called.append("sgd")
+        return 0
+
+
 def test_cuda_tensors_launch_the_kernels(monkeypatch):
     """A CUDA tensor reaches the kernel wrappers, never a twin (stand-ins, so
     it runs without a card); each wrapper counts its launch."""
@@ -274,20 +334,21 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
     for name in ("stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
                  "gelu_tanh_backward_plain", "sgd_update_plain"):
         monkeypatch.setattr(ST, name, lambda *a, _n=name: pytest.fail(f"{_n} was reached"))
-    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build on this machine"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _StageLib(called))
     monkeypatch.setattr(kernels, "stage_attention", lambda *a: called.append("K16a"))
     monkeypatch.setattr(kernels, "stage_attention_backward", lambda *a: called.append("K16b"))
     monkeypatch.setattr(ST, "_triton_kernels", lambda: {
-        n: _Launch(n, called) for n in ("gelu", "gelu_bwd", "sgd")})
+        n: _Launch(n, called) for n in ("gelu", "gelu_bwd")})
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     kernels.reset_launches()
     t = torch.zeros((1, 4, 12))
     ST.stage_attention_forward(t)
     ST.stage_attention_backward(t, t[..., :4].contiguous())
     ST.gelu_tanh_forward(t)
     ST.gelu_tanh_backward(t, t)
-    ST.sgd_update(t, t, 0.1)
+    ST.sgd_update_many([t], [t], 0.1)
     assert called == ["K16a", "K16b", "gelu", "gelu_bwd", "sgd"]
     assert kernels.LAUNCHES["gelu_tanh"] == 2 and kernels.LAUNCHES["sgd"] == 1
 
@@ -348,9 +409,30 @@ def test_gelu_and_sgd_kernels_match_plain(shape):
                                rtol=1e-5, atol=atol)
     p = (0.02 * torch.randn(shape, generator=g)).to(dev)
     p_plain = p.clone()
-    ST.sgd_update(p, dout, 5e-2)
+    ST.sgd_update_many([p], [dout], 5e-2)
     ST.sgd_update_plain(p_plain, dout, 5e-2)
     assert torch.equal(p, p_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,launches", [(25, 1), (70, 2)])
+def test_sgd_multi_kernel_matches_plain(count, launches):
+    """K16d over 25 tensors (one launch) and 70 (two: 64 a launch), sizes 1
+    and 3 and views at an element offset among them: bit-equal to the twin,
+    LAUNCHES["sgd"] up by the launches."""
+    dev = _card()
+    sizes = SGD_SIZES if count == 25 else [(i * 997) % 50_000 + 1 for i in range(70)]
+    ps, gs = _sgd_pairs(sizes, (1, 9, 17, 33, 69), count)
+    ps = [p.to(dev) if i not in (1, 9, 17, 33, 69) else
+          torch.cat([torch.zeros(1), p]).to(dev)[1:] for i, p in enumerate(ps)]
+    gs = [g.to(dev) for g in gs]
+    want = [p.clone() for p in ps]
+    n = kernels.LAUNCHES["sgd"]
+    ST.sgd_update_many(ps, gs, 5e-2)
+    ST.sgd_update_many_plain(want, gs, 5e-2)
+    assert kernels.LAUNCHES["sgd"] == n + launches
+    assert any(p.data_ptr() % 16 for p in ps)
+    assert all(torch.equal(a, b) for a, b in zip(ps, want))
 
 
 @pytest.mark.cuda
