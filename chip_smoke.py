@@ -2301,7 +2301,8 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
                        "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
             "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
             "add_layernorm": ("triton", enc, "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
-            "bias_gelu": ("triton", enc, "stract_tpu/models/bert.py:170", ENC_B * ENC_T),
+            "bias_gelu": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:170",
+                          ENC_B * ENC_T),
             "mean_pool": ("triton", enc, "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
             "attention_backward": ("cuda", src + "encoder.cu", step, TRAIN_T),
             "add_layernorm_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),

@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Times K5a (masked attention) and K16d (the pipeline's SGD update) of the
-PyTorch port on one NVIDIA card, each beside the PyTorch call that computes
-the same function, in fresh processes over one or more checkouts:
+"""Times kernels of the PyTorch port on one NVIDIA card, each beside the
+PyTorch call that computes the same function, and whole train steps, in
+fresh processes over one or more checkouts:
 
     python3 scripts/kernel_times.py --runs parent,change,change,parent \
-        [--tree parent=DIR] [--calls 50]
+        [--tree parent=DIR] [--calls 50] [--readings attention_backward,bias_gelu]
 
 Each entry of --runs names a checkout (`change` is this one; others come
 from --tree NAME=DIR, e.g. a `git archive` of the parent commit unpacked
-under data/). Shapes are chip_smoke.py's: attention at B = 32, 12 heads of
-32, T in (16, 65, 128, 200, 256), row 1 half masked and row 2 fully masked;
-SGD over the 25 f32 tensors of the pipelined train step (6 stages of
-attn_qkv, attn_out, ffn_in, ffn_out at H = 384, FFN = 1536, and the head),
-10,617,216 entries; and that whole train step on a (pp=6, dp=2) mesh of the
-card, 8 microbatches of 16 rows of 128 tokens (3 steps timed). For each: `event_ms`, CUDA events around --calls calls
-after 5 warm-ups (what the host can issue and the card finish: the smoke's
-measure), and `device_ms`, the card's own time for one call, the sum of the
-kernels' device time in a torch.profiler window of --calls calls over the
-calls ("not measured" when the profiler saw no device time). The library
-calls: scaled_dot_product_attention with an additive bf16 mask, and
-torch._foreach_add_. Prints the card's name and power limit, a JSON line a
-reading, and a JSON summary last. Needs a card; imports nothing of JAX.
+under data/). --readings picks groups (default all):
+  attention           K5a at B = 32, 12 heads of 32, T in (16, 65, 128,
+                      200, 256), row 1 half masked and row 2 fully masked,
+                      beside scaled_dot_product_attention with an additive
+                      bf16 mask;
+  attention_backward  K14a at B = 64 (the training batch), the same heads,
+                      T and masks, beside SDPA's backward through autograd
+                      (torch.autograd.grad of its output, graph retained);
+  bias_gelu           K5c at 4096 x 1536 (chip_smoke.py's shape), beside
+                      F.gelu(y + b, approximate="tanh");
+  sgd                 K16d over the 25 f32 tensors of the pipelined train
+                      step (6 stages of attn_qkv, attn_out, ffn_in, ffn_out
+                      at H = 384, FFN = 1536, and the head), 10,617,216
+                      entries, beside torch._foreach_add_;
+  pipeline_step       that whole train step on a (pp=6, dp=2) mesh of the
+                      card, 8 microbatches of 16 rows of 128 tokens (3 steps);
+  dual_step           one dual-encoder InfoNCE train step (MiniLM-L6, the
+                      full 30,522-piece vocab, B = 64 + 64, T = 128, random
+                      ids and lengths 8..128 from a seed; chip_smoke.py's
+                      train_step_timing shape; 10 steps).
+For each: `event_ms`, CUDA events around --calls calls (steps for the two
+train steps) after 5 warm-ups (what the host can issue and the card finish:
+the smoke's measure), and `device_ms`, the card's own time for one call,
+the sum of the kernels' device time in a torch.profiler window over the
+same number of calls ("not measured", null, when the profiler saw no
+device time), with each kernel's part where a call runs two to four.
+Prints the card's name and power limit, a JSON line a reading, and a JSON
+summary last. Needs a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,12 +48,15 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTN_B, ATTN_H, ATTN_T = 32, 12, (16, 65, 128, 200, 256)
+TRAIN_B, TRAIN_T, VOCAB = 64, 128, 30522
+GELU_M, GELU_N = 4096, 1536
+READINGS = ("attention", "attention_backward", "bias_gelu", "sgd", "pipeline_step", "dual_step")
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
 
 def measure(fn, calls: int) -> tuple:
-    """(event ms, device ms or None) a call of fn."""
+    """(event ms, device ms or None, {kernel name: device ms}) a call of fn."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -57,12 +75,27 @@ def measure(fn, calls: int) -> tuple:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)  # the kernels' own events
-    return event_ms, (us / 1e3 / calls if us else None)
+    by_kernel = {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}  # the kernels' own events
+    device_ms = sum(by_kernel.values())
+    return event_ms, (device_ms or None), by_kernel
 
 
-def worker(root: str, calls: int) -> list:
+def _masked(B: int, T: int):
+    """Row 1 half masked, row 2 fully masked: the kernel's int32 mask and
+    SDPA's additive bf16 mask [B, 1, 1, T]."""
+    import torch
+
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask = mask.cuda()
+    add = torch.zeros((B, 1, 1, T), dtype=torch.bfloat16, device="cuda")
+    add.masked_fill_(mask[:, None, None, :] == 0, torch.finfo(torch.bfloat16).min)
+    return mask, add
+
+
+def worker(root: str, calls: int, readings: list) -> list:
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as F
@@ -74,44 +107,79 @@ def worker(root: str, calls: int) -> list:
     kernels.build()
     out = []
     g = torch.Generator().manual_seed(0)
-    for T in ATTN_T:
-        q, k, v = (torch.randn((ATTN_B, T, ATTN_H, 32), generator=g).to("cuda", torch.bfloat16)
-                   for _ in range(3))
-        mask = torch.ones((ATTN_B, T), dtype=torch.int32)
-        mask[1, T // 2:] = 0
-        mask[2] = 0
-        mask = mask.cuda()
-        add = torch.zeros((ATTN_B, 1, 1, T), dtype=torch.bfloat16, device="cuda")
-        add.masked_fill_(mask[:, None, None, :] == 0, torch.finfo(torch.bfloat16).min)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        for name, fn in (("K5a", lambda: E.attention_forward(q, k, v, mask)),
-                         ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, add))):
-            ev, dev = measure(fn, calls)
-            out.append({"name": name, "T": T, "event_ms": ev, "device_ms": dev})
-    ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
-    gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
-    if hasattr(ST, "sgd_update_many"):
-        sgd = lambda: ST.sgd_update_many(ps, gs, LR)  # noqa: E731
-    else:  # a checkout from before the one-launch update: one launch a tensor
-        sgd = lambda: [ST.sgd_update(p, gg, LR) for p, gg in zip(ps, gs)]  # noqa: E731
-    for name, fn in (("K16d", sgd), ("foreach_add", lambda: torch._foreach_add_(ps, gs,
-                                                                             alpha=-LR))):
-        ev, dev = measure(fn, calls)
-        out.append({"name": name, "tensors": len(ps), "event_ms": ev, "device_ms": dev})
-    del ps, gs
 
-    # the whole pipelined train step that K16d ends (chip_smoke.py's pipeline phase)
-    from stract_tpu_torch.parallel import pipeline as PL
-    from stract_tpu_torch.parallel.mesh import Mesh
+    def bf(*shape):
+        return torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
 
-    dev0 = torch.device("cuda", 0)
-    mesh = Mesh([[dev0] * 2] * 6, axis_names=("pp", "dp"))
-    init_fn, step_fn = PL.make_pipeline_train_step(mesh, hidden=384, ffn=1536, learning_rate=LR)
-    params = init_fn(0)
-    mbs = torch.randn((8, 16, 128, 384), generator=g).to(dev0)
-    targets = torch.randn((8, 16), generator=g).to(dev0)
-    ev, dev = measure(lambda: step_fn(params, mbs, targets), 3)
-    out.append({"name": "pipeline_step", "steps": 3, "event_ms": ev, "device_ms": dev})
+    def read(pairs, n=calls, **key):  # pairs: (name, fn), kernel first
+        for name, fn in pairs:
+            ev, dev, by_kernel = measure(fn, n)
+            rec = {"name": name, **key, "event_ms": ev, "device_ms": dev}
+            if 1 < len(by_kernel) <= 4:  # a few kernels: each one's share
+                rec["device_ms_by_kernel"] = by_kernel
+            out.append(rec)
+
+    if "attention" in readings:
+        for T in ATTN_T:
+            q, k, v = (bf(ATTN_B, T, ATTN_H, 32) for _ in range(3))
+            mask, add = _masked(ATTN_B, T)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            read((("K5a", lambda: E.attention_forward(q, k, v, mask)),
+                  ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, add))), T=T)
+    if "attention_backward" in readings:
+        for T in ATTN_T:
+            q, k, v = (bf(TRAIN_B, T, ATTN_H, 32) for _ in range(3))
+            dout = bf(TRAIN_B, T, ATTN_H * 32)
+            mask, add = _masked(TRAIN_B, T)
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, add)
+            do = dout.view(TRAIN_B, T, ATTN_H, 32).transpose(1, 2)
+            read((("K14a", lambda: E.attention_backward(q, k, v, mask, dout)),
+                  ("sdpa_backward", lambda: torch.autograd.grad(o, leaves, do,
+                                                                retain_graph=True))), T=T)
+            del o, leaves
+    if "bias_gelu" in readings:
+        y, b = bf(GELU_M, GELU_N), bf(GELU_N)
+        read((("K5c", lambda: E.bias_gelu_forward(y, b)),
+              ("gelu", lambda: F.gelu(y + b, approximate="tanh"))), M=GELU_M)
+    if "sgd" in readings:
+        ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
+        gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
+        if hasattr(ST, "sgd_update_many"):
+            sgd = lambda: ST.sgd_update_many(ps, gs, LR)  # noqa: E731
+        else:  # a checkout from before the one-launch update: one launch a tensor
+            sgd = lambda: [ST.sgd_update(p, gg, LR) for p, gg in zip(ps, gs)]  # noqa: E731
+        read((("K16d", sgd), ("foreach_add", lambda: torch._foreach_add_(ps, gs, alpha=-LR))),
+             tensors=len(ps))
+        del ps, gs
+    if "pipeline_step" in readings:  # the whole pipelined train step that K16d ends
+        from stract_tpu_torch.parallel import pipeline as PL
+        from stract_tpu_torch.parallel.mesh import Mesh
+
+        dev0 = torch.device("cuda", 0)
+        mesh = Mesh([[dev0] * 2] * 6, axis_names=("pp", "dp"))
+        init_fn, step_fn = PL.make_pipeline_train_step(mesh, hidden=384, ffn=1536,
+                                                       learning_rate=LR)
+        params = init_fn(0)
+        mbs = torch.randn((8, 16, 128, 384), generator=g).to(dev0)
+        targets = torch.randn((8, 16), generator=g).to(dev0)
+        read((("pipeline_step", lambda: step_fn(params, mbs, targets)),), n=3, steps=3)
+        del params, mbs
+    if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
+        from stract_tpu_torch.models.bert import BertConfig, BertForEmbedding, random_init
+        from stract_tpu_torch.optim import AdamW
+        from stract_tpu_torch.parallel.train import info_nce_loss, train_step
+
+        model = random_init(BertForEmbedding(BertConfig.mini_lm(vocab_size=VOCAB),
+                                             param_dtype=torch.float32), 0).cuda()
+        opt = AdamW(model.parameters(), 3e-4)
+        ids = torch.randint(5, VOCAB, (2, TRAIN_B, TRAIN_T), generator=g, dtype=torch.int32)
+        lens = torch.randint(8, TRAIN_T + 1, (2, TRAIN_B, 1), generator=g)
+        masks = (torch.arange(TRAIN_T) < lens).to(torch.int32)
+        batch = {"q_ids": ids[0].cuda(), "q_mask": masks[0].cuda(), "d_ids": ids[1].cuda(),
+                 "d_mask": masks[1].cuda()}
+        read((("dual_step", lambda: train_step(model, opt, batch, info_nce_loss)),), n=10,
+             steps=10)
     return out
 
 
@@ -120,10 +188,11 @@ def main() -> int:
     ap.add_argument("--runs", default="change")
     ap.add_argument("--tree", action="append", default=[], help="NAME=DIR")
     ap.add_argument("--calls", type=int, default=50)
+    ap.add_argument("--readings", default=",".join(READINGS), help="groups, comma-separated")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.calls)), flush=True)
+        print(json.dumps(worker(args.worker, args.calls, args.readings.split(","))), flush=True)
         return 0
     import torch
 
@@ -137,7 +206,8 @@ def main() -> int:
     summary = {}
     for n, tree in enumerate(args.runs.split(",")):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               os.path.abspath(trees[tree]), "--calls", str(args.calls)],
+                               os.path.abspath(trees[tree]), "--calls", str(args.calls),
+                               "--readings", args.readings],
                               capture_output=True, text=True, cwd=trees[tree])
         if proc.returncode:
             print(f"[run {n} {tree}] failed:\n{proc.stderr[-3000:]}", flush=True)
@@ -145,7 +215,7 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            key = f"{tree} {rec['name']} {rec.get('T', rec.get('tensors', ''))}"
+            key = f"{tree} {rec['name']} {rec.get('T', rec.get('M', rec.get('tensors', '')))}"
             summary.setdefault(key, []).append((rec["event_ms"], rec["device_ms"]))
     print(json.dumps({"card": card.strip().splitlines()[0], "readings": summary}), flush=True)
     return 0

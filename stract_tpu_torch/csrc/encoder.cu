@@ -1,7 +1,14 @@
-// K5a: masked self-attention of the BERT encoder on Hopper (sm_90a), and
-// K14a: its backward (attention_backward_kernel, below the forward).
+// The BERT encoder's kernels on Hopper (sm_90a): K5a masked self-attention
+// (attention_kernel, here), K14a its backward (the dQ and dK / dV kernels
+// below it) and K5c bias + tanh GELU (bias_gelu_kernel, last). Each has its
+// note above its code: what it replaces, what bounds it on the card and
+// what its design does about that. In short: all three move little data
+// and compute less, so device memory bounds them; K5a and K14a take their
+// products to the tensor cores (wgmma on cp.async-staged tiles) and spend
+// what is left in the f32 softmax and one load-compute-store pass a block;
+// K5c reads and writes 16 bytes a thread with the bias from the index.
 //
-// Replaces the body of stract_tpu/models/bert.py:97-103 (BertSelfAttention):
+// K5a replaces the body of stract_tpu/models/bert.py:97-103 (BertSelfAttention):
 // scores = q.k^T in f32 / sqrt(d), masked keys set to finfo(f32).min, softmax
 // in f32, probabilities cast to bf16, P.V accumulated in f32, context cast to
 // bf16 and laid out [B, T, heads * d]. The q/k/v projections and the output
@@ -49,6 +56,7 @@ constexpr int kTile = 64;             // query rows of a block, keys of a chunk
 constexpr int kThreads = 128;         // one warpgroup
 constexpr int kGroupBytes = 512;      // an 8-row group: 4 core matrices of 8 x 16 bytes
 constexpr int kCoreBytes = 128;
+constexpr int kTileBytes = kTile * kHeadDim * 2;  // a staged 64-row tile
 
 // the byte offset of 16-byte chunk c (0..3) of row r in a staged tile
 __device__ __forceinline__ uint32_t staged(int r, int c) {
@@ -141,56 +149,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-size_t attention_smem_bytes(int chunks) {
-    return static_cast<size_t>(kTile) * kHeadDim * 2 +          // Q tile
-           2 * static_cast<size_t>(chunks) * kTile * kHeadDim * 2 +  // K and V
-           static_cast<size_t>(chunks) * kTile * sizeof(float);  // the mask
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16(x));
 }
 
-// CHUNKS: 64-key chunks, ceil(T / 64), 1..4
+// x0, x1 as hi + lo, each a bf16 pair packed for an A fragment
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// rows first .. first + rows - 1 of a [T, H * 32] tensor's head (src points
+// at row 0 of it) into a staged tile by 16-byte cp.async; rows past T fill zeros
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const __nv_bfloat16* src, int first,
+                                           int rows, int T, long long row_stride) {
+    for (int i = threadIdx.x; i < rows * 4; i += kThreads) {
+        const int r = i / 4, c = i % 4, t = first + r;
+        cp_async16(dst + staged(r, c), src + (t < T ? t * row_stride : 0) + c * 8, t < T ? 16 : 0);
+    }
+}
+
+// d[64 x 64] = A.B^T over the head dimension, A and B staged 64-row tiles:
+// issued, not waited for
+__device__ __forceinline__ void issue_tile_product(float (&d)[32], const unsigned char* a,
+                                                   const unsigned char* b) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+        wgmma_scores(d, smem_desc(a + ks * 256, kCoreBytes, kGroupBytes),
+                     smem_desc(b + ks * 256, kCoreBytes, kGroupBytes));
+}
+
+__device__ __forceinline__ void tile_product(float (&d)[32], const unsigned char* a,
+                                             const unsigned char* b) {
+    issue_tile_product(d, a, b);
+    wgmma_commit_and_wait();
+    fence_regs(d);
+}
+
+// S[64 x 64 c .. 64 c + 63] = Q.K^T for every 64-key chunk c of the staged
+// K rows, in registers: K-major A and B, core matrices 128 bytes apart
+// along K and 512 along M / N; a k-step of 16 columns is two core matrices
+// (256 bytes). s[c][4j + e] is row 16 warp + lane / 4 (+ 8 for e >= 2),
+// key 64 c + 8 j + 2 (lane % 4) + (e & 1)
 template <int CHUNKS>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ out, int T, int H) {
-    constexpr int kKeys = CHUNKS * kTile;
-    extern __shared__ __align__(16) unsigned char smem[];
-    unsigned char* s_q = smem;
-    unsigned char* s_k = s_q + kTile * kHeadDim * 2;
-    unsigned char* s_v = s_k + kKeys * kHeadDim * 2;
-    float* s_keep = reinterpret_cast<float*>(s_v + kKeys * kHeadDim * 2);
-
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const long long row_stride = static_cast<long long>(H) * kHeadDim;
-    const __nv_bfloat16* qb = q + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    const __nv_bfloat16* kb = k + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    const __nv_bfloat16* vb = v + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-
-    // 16-byte copies: chunk c of row r; rows past T read nothing and fill zeros
-    for (int i = tid; i < kTile * 4; i += kThreads) {
-        const int r = i / 4, c = i % 4, t = q0 + r;
-        cp_async16(s_q + staged(r, c), qb + (t < T ? t * row_stride : 0) + c * 8, t < T ? 16 : 0);
-    }
-    for (int i = tid; i < kKeys * 4; i += kThreads) {
-        const int r = i / 4, c = i % 4;
-        const long long off = (r < T ? r * row_stride : 0) + c * 8;
-        const int bytes = r < T ? 16 : 0;
-        cp_async16(s_k + staged(r, c), kb + off, bytes);
-        cp_async16(s_v + staged(r, c), vb + off, bytes);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int j = tid; j < kKeys; j += kThreads)
-        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    // the copies and stores above are generic-proxy writes; wgmma reads
-    // shared memory through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-
-    // S = Q.K^T: K-major A and B, core matrices 128 bytes apart along K and
-    // 512 along M / N; a k-step of 16 columns is two core matrices (256 bytes)
-    float s[CHUNKS][32];
+__device__ __forceinline__ void chunk_scores(float (&s)[CHUNKS][32], const unsigned char* q_tile,
+                                             const unsigned char* k_rows) {
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
@@ -202,15 +212,77 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks)
-            wgmma_scores(s[c], smem_desc(s_q + ks * 256, kCoreBytes, kGroupBytes),
-                         smem_desc(s_k + c * kTile * kHeadDim * 2 + ks * 256, kCoreBytes,
-                                   kGroupBytes));
+            wgmma_scores(s[c], smem_desc(q_tile + ks * 256, kCoreBytes, kGroupBytes),
+                         smem_desc(k_rows + c * kTileBytes + ks * 256, kCoreBytes, kGroupBytes));
     wgmma_commit_and_wait();
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) fence_regs(s[c]);
+}
 
-    // the accumulator fragment: s[c][4j + e] is row 16 warp + lane / 4 (+ 8
-    // for e >= 2), key 64 c + 8 j + 2 (lane % 4) + (e & 1)
+// the B descriptor of k-step kk (16 rows) of a staged tile read N-major
+__device__ __forceinline__ uint64_t rows_desc(const unsigned char* tile, int kk) {
+    return smem_desc(tile + kk * 2 * kGroupBytes, kGroupBytes, kCoreBytes);
+}
+
+// a 64-row tile's [64 x 32] f32 accumulator (acc[4j + e]: row 16 warp +
+// lane / 4 (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1)) as bf16
+// into rows first .. first + 63 of a [T, H * 32] tensor's head (dst at its
+// row 0); rows past T are not stored
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[16], int first,
+                                           int T, long long row_stride) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int t = first + 16 * warp + lane / 4 + 8 * r;
+        if (t >= T) continue;
+        __nv_bfloat16* row = dst + t * row_stride;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * (lane % 4)) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+}
+
+size_t attention_smem_bytes(int chunks) {
+    return static_cast<size_t>(kTileBytes) * (1 + 2 * chunks) +  // Q tile; K and V
+           static_cast<size_t>(chunks) * kTile * sizeof(float);   // the mask
+}
+
+// CHUNKS: 64-key chunks, ceil(T / 64), 1..4
+template <int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ out, int T, int H) {
+    constexpr int kKeys = CHUNKS * kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_q = smem;
+    unsigned char* s_k = s_q + kTileBytes;
+    unsigned char* s_v = s_k + CHUNKS * kTileBytes;
+    float* s_keep = reinterpret_cast<float*>(s_v + CHUNKS * kTileBytes);
+
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
+    const int tid = threadIdx.x, lane = tid % 32;
+    const long long row_stride = static_cast<long long>(H) * kHeadDim;
+    const __nv_bfloat16* qb = q + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    const __nv_bfloat16* kb = k + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    const __nv_bfloat16* vb = v + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+
+    stage_rows(s_q, qb, q0, kTile, T, row_stride);
+    stage_rows(s_k, kb, 0, kKeys, T, row_stride);
+    stage_rows(s_v, vb, 0, kKeys, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int j = tid; j < kKeys; j += kThreads)
+        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // the copies and stores above are generic-proxy writes; wgmma reads
+    // shared memory through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    float s[CHUNKS][32];
+    chunk_scores(s, s_q, s_k);
+
     // the reference divides the f32 scores by np.sqrt(head_dim) rounded to f32
     const float scale_div = sqrtf(static_cast<float>(kHeadDim));
     float mx[2] = {-FLT_MAX, -FLT_MAX};
@@ -267,24 +339,14 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < CHUNKS * 4; ++kk)
-        wgmma_context(o, a[kk], smem_desc(s_v + kk * 2 * kGroupBytes, kGroupBytes, kCoreBytes));
+        wgmma_context(o, a[kk], rows_desc(s_v, kk));
     wgmma_commit_and_wait();
     fence_regs(o);
 #pragma unroll
     for (int kk = 0; kk < CHUNKS * 4; ++kk) fence_regs(a[kk]);
 
-    // o[4j + e]: row 16 warp + lane / 4 (+ 8 for e >= 2), dimension
-    // 8 j + 2 (lane % 4) + (e & 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int t = q0 + 16 * warp + lane / 4 + 8 * r;
-        if (t >= T) continue;
-        __nv_bfloat16* orow = out + (static_cast<long long>(b) * T + t) * row_stride + h * kHeadDim;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
-                __floats2bfloat162_rn(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-    }
+    store_rows(out + static_cast<long long>(b) * T * row_stride + h * kHeadDim, o, q0, T,
+               row_stride);
 }
 
 // K14a: the gradient of the kernel above, as jax.vjp differentiates the
@@ -296,154 +358,401 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // gradient); masked keys get dS = 0 (the gradient of the where); then
 // dQ = bf16(dS K / sqrt(d)) and dK = bf16(dS^T Q / sqrt(d)).
 //
-// What bounds it: like the forward, CUDA-core arithmetic over shared memory
-// (each (batch row, head) reads q, k, v and dO once, about 64 B per token,
-// and does about 7 T^2 d multiply-adds). The design: one block of eight
-// warps per (head, batch row) stages Q, K, V and dO whole in shared memory
-// (rows padded to 17 words, so a warp's 32 rows hit 32 banks; 89 KB at
-// T = 256, dynamic shared memory). Phase 1 walks the query rows, one warp
-// per row: scores and softmax as the forward computes them (lanes own
-// keys), dP and the row sum D, then dS / sqrt(d) into a per-warp row and dQ
-// with lanes owning the 32 output dimensions; it keeps each row's max, sum
-// and D. Phase 2 walks the key rows, one warp per row: lanes own query rows
-// and recompute P (the same expressions, so the same bits) and dP, then
-// lanes own dimensions for dK and dV. No atomics: each output row has one
-// writer, so the result does not depend on scheduling.
-constexpr int kBwdWarps = 8;
-constexpr int kRowWords = kHeadDim / 2 + 1;  // bf16 pairs per staged row, padded
+// What bounds it: each (batch row, head) reads q, k, v and dO once and
+// writes dq, dk, dv (64 B a token each: 0.0132 ms at B = 64, T = 128), and
+// its five products of T^2 d multiply-adds each are below the bf16 ridge
+// on the tensor cores, so the bytes bind; beside them the f32 softmax and
+// its gradient (an exp and a dozen other operations a score, in each
+// kernel) and the latency of one unpipelined load-compute-store pass a
+// block. The design: two kernels on K5a's tiles (the staged layout, the
+// descriptors, cp.async, wgmma), one warpgroup a block, grid (64-row
+// tiles, heads, batch rows), no atomics (each output row has one writer,
+// so two calls are bit-equal):
+//   1. the dQ kernel, a 64-query tile: Q and dO tiles, K and V whole in
+//      shared memory; S = Q.K^T and the masked two-pass softmax as K5a
+//      computes it (all chunks' P in registers); dP = dO.V^T by wgmma a
+//      64-key chunk at a time, rounded to bf16, gives D = rowsum(P dP); dP
+//      is computed again (two wgmma a chunk: cheaper than 128 more
+//      registers or 32 KB of shared memory) for dS, and dQ = dS.K takes dS
+//      from registers as the A operand and K as the N-major B (V's role in
+//      K5a). The row's max, sum and D go to an f32 scratch [B, H, T, 3]
+//      the wrapper allocates.
+//   2. the dK / dV kernel, a 64-key tile: K and V tiles, Q, dO and the
+//      scratch whole; a 64-query chunk at a time S^T = K.Q^T and
+//      dP^T = V.dO^T (one wait for both), P^T from the scratch's max and
+//      sum by the first kernel's expressions, dS^T from its D;
+//      dV += bf16(P^T).dO and dK += dS^T.Q, both with the A operand from
+//      registers.
+// The divisions: by sqrt(d) and by the row sum, each score is multiplied
+// by the correctly rounded reciprocal instead (what PyTorch does for the
+// twin's division by the scalar sqrt(d) on the card; within an ulp of the
+// division for the row sum). A first build with IEEE divisions (three a
+// score in each kernel) and two waits a chunk in the second kernel took
+// twice the card time (0.190 against 0.094 ms at B = 64, T = 128 on the
+// H100), and a multiplication has no slow path, so a zero dividend
+// (zero-filled rows, masked keys' weights, dS of an underflowed P) costs
+// nothing. The exponent is __expf (ex2.approx of x log2(e), as Triton's
+// tl.exp; a few ulp of f32, far under a bf16 step): expf's accurate path
+// took 8 % more card time at T = 128 and 15 % more at T = 256.
+// The f32 operand: the reference multiplies an f32 dS by K and Q; a bf16
+// wgmma would round dS to 8 bits first. dS is split into hi = bf16(dS) and
+// lo = bf16(dS - hi) (the difference is exact in f32), and both go into
+// one f32 accumulator: 16 bits of dS, error <= 2^-17 |dS| a term, far under
+// the bf16 rounding of dQ and dK. Chosen over tf32 (k8) because it keeps
+// the register-A bf16 product of K5a and needs no f32 staging of K and Q
+// (tf32 wgmma takes no transposed B). The other three products (S, dP, dV)
+// have exact bf16 inputs. Shared memory: 41,984 and 44,032 bytes at
+// T = 256, under 48 KB: no opt-in. Registers: P of all chunks (128 a thread
+// at T > 192: ~250 registers, two blocks an SM), as K5a. Masked keys stay
+// in the softmax at finfo(f32).min, so a fully masked row has uniform
+// weights and dQ = 0; keys past T are zero-filled and left out of the
+// sums; query rows past T are not stored, and the second kernel gives them
+// P = dS = 0.
 
-__device__ __forceinline__ float dot_row(const __nv_bfloat162* a, const __nv_bfloat162* b) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kHeadDim / 2; ++c) {
-        const float2 x = __bfloat1622float2(a[c]), y = __bfloat1622float2(b[c]);
-        acc += x.x * y.x;
-        acc += x.y * y.y;
-    }
-    return acc;
+// dS / sqrt(d) of one score (0 at a masked key), as the twin computes it
+__device__ __forceinline__ float grad_score(float p, float dp, float dsum, bool keep,
+                                            float inv_scale) {
+    return keep ? (p * dp - p * dsum) * inv_scale : 0.0f;
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
+// 1 / sqrt(d) rounded to f32: the twin's division by the scalar sqrt(d) on
+// the card (PyTorch multiplies by the scalar's f32 reciprocal)
+__device__ __forceinline__ float inv_sqrt_head_dim() {
+    return __frcp_rn(sqrtf(static_cast<float>(kHeadDim)));
 }
 
-__device__ __forceinline__ float row_elem(const __nv_bfloat162* rows, int j, int d) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(rows + j * kRowWords)[d]);
+size_t backward_dq_smem_bytes(int chunks) {
+    return 2 * static_cast<size_t>(kTileBytes) * (1 + chunks) +      // Q, dO tiles; K, V
+           static_cast<size_t>(chunks) * kTile * sizeof(float);       // the mask
 }
 
-size_t backward_smem_bytes(int T) {
-    return static_cast<size_t>(4 * T * kRowWords) * sizeof(__nv_bfloat162) +
-           static_cast<size_t>(3 * T + 2 * kBwdWarps * T) * sizeof(float) + T;
+size_t backward_dkv_smem_bytes(int chunks) {
+    return 2 * static_cast<size_t>(kTileBytes) * (1 + chunks) +      // K, V tiles; Q, dO
+           3 * static_cast<size_t>(chunks) * kTile * sizeof(float);   // max, sum, D a query
 }
 
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_backward_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
-                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                          int T, int H) {
+template <int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
+attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+                             const __nv_bfloat16* __restrict__ dout,
+                             __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int T,
+                             int H) {
+    constexpr int kKeys = CHUNKS * kTile;
     extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat162* s_q = reinterpret_cast<__nv_bfloat162*>(smem);
-    __nv_bfloat162* s_k = s_q + T * kRowWords;
-    __nv_bfloat162* s_v = s_k + T * kRowWords;
-    __nv_bfloat162* s_do = s_v + T * kRowWords;
-    float* s_max = reinterpret_cast<float*>(s_do + T * kRowWords);
-    float* s_sum = s_max + T;
-    float* s_dsum = s_sum + T;
-    float* s_a = s_dsum + T;               // [kBwdWarps][T]: a warp's dS / sqrt(d) row
-    float* s_b = s_a + kBwdWarps * T;      // [kBwdWarps][T]: a warp's dP or bf16(P) row
-    unsigned char* s_keep = reinterpret_cast<unsigned char*>(s_b + kBwdWarps * T);
+    unsigned char* s_q = smem;
+    unsigned char* s_do = s_q + kTileBytes;
+    unsigned char* s_k = s_do + kTileBytes;
+    unsigned char* s_v = s_k + CHUNKS * kTileBytes;
+    float* s_keep = reinterpret_cast<float*>(s_v + CHUNKS * kTileBytes);
 
-    const int h = blockIdx.x, b = blockIdx.y;
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const long long row_stride = static_cast<long long>(H) * kHeadDim;
     const long long base = static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-
-    for (int i = threadIdx.x; i < T * (kHeadDim / 2); i += blockDim.x) {
-        const int j = i / (kHeadDim / 2), c = i % (kHeadDim / 2);
-        const long long off = base + j * row_stride;
-        s_q[j * kRowWords + c] = reinterpret_cast<const __nv_bfloat162*>(q + off)[c];
-        s_k[j * kRowWords + c] = reinterpret_cast<const __nv_bfloat162*>(k + off)[c];
-        s_v[j * kRowWords + c] = reinterpret_cast<const __nv_bfloat162*>(v + off)[c];
-        s_do[j * kRowWords + c] = reinterpret_cast<const __nv_bfloat162*>(dout + off)[c];
-    }
-    for (int j = threadIdx.x; j < T; j += blockDim.x) s_keep[j] = mask[b * T + j] != 0;
+    stage_rows(s_q, q + base, q0, kTile, T, row_stride);
+    stage_rows(s_do, dout + base, q0, kTile, T, row_stride);
+    stage_rows(s_k, k + base, 0, kKeys, T, row_stride);
+    stage_rows(s_v, v + base, 0, kKeys, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int j = threadIdx.x; j < kKeys; j += kThreads)
+        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    const float scale_div = sqrtf(static_cast<float>(kHeadDim));
-    float* a = s_a + warp * T;
-    float* p_row = s_b + warp * T;
+    // S = Q.K^T for every chunk, then P by K5a's masked two-pass softmax
+    // with the reciprocals and __expf
+    float p[CHUNKS][32];
+    chunk_scores(p, s_q, s_k);
 
-    // phase 1: one warp per query row t -> dQ[t], and the row's max, sum, D
-    for (int t = warp; t < T; t += kBwdWarps) {
-        const __nv_bfloat162* qt = s_q + t * kRowWords;
-        const __nv_bfloat162* do_t = s_do + t * kRowWords;
-        float mx = -FLT_MAX;
-        for (int j = lane; j < T; j += 32) {
-            const float s = s_keep[j] ? dot_row(qt, s_k + j * kRowWords) / scale_div : -FLT_MAX;
-            a[j] = s;
-            mx = fmaxf(mx, s);
-        }
+    const float inv_scale = inv_sqrt_head_dim();
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.0f;
-        for (int j = lane; j < T; j += 32) {
-            const float e = expf(a[j] - mx);
-            a[j] = e;
-            sum += e;
-        }
+    for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        float dsum = 0.0f;
-        for (int j = lane; j < T; j += 32) {
-            const float p = a[j] / sum;
-            const float dp = round_bf16(dot_row(do_t, s_v + j * kRowWords));
-            a[j] = p;
-            p_row[j] = dp;
-            dsum += p * dp;
+        for (int i = 0; i < 32; ++i) {
+            const float keep = s_keep[c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1)];
+            const float x = keep > 0.0f ? p[c][i] * inv_scale : -FLT_MAX;
+            p[c][i] = x;
+            if (keep >= 0.0f) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
         }
+    float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-        for (int j = lane; j < T; j += 32) {
-            const float p = a[j];
-            a[j] = s_keep[j] ? (p * p_row[j] - p * dsum) / scale_div : 0.0f;
-        }
-        if (lane == 0) {
-            s_max[t] = mx;
-            s_sum[t] = sum;
-            s_dsum[t] = dsum;
-        }
-        __syncwarp();
-        float acc = 0.0f;
-        for (int j = 0; j < T; ++j) acc += a[j] * row_elem(s_k, j, lane);
-        dq[base + static_cast<long long>(t) * row_stride + lane] = __float2bfloat16(acc);
-        __syncwarp();
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            const float e = key < T ? __expf(p[c][i] - mx[(i >> 1) & 1]) : 0.0f;
+            p[c][i] = e;
+            sum[(i >> 1) & 1] += e;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    const float rsum[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) p[c][i] *= rsum[(i >> 1) & 1];
+
+    // D = rowsum(P bf16(dO.V^T)), a key chunk at a time
+    float dsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+        float dp[32];
+        tile_product(dp, s_do, s_v + c * kTileBytes);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dsum[(i >> 1) & 1] += p[c][i] * round_bf16(dp[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int t = q0 + 16 * warp + lane / 4 + 8 * r;
+            if (t >= T) continue;
+            float* st = stats + ((static_cast<long long>(b) * H + h) * T + t) * 3;
+            st[0] = mx[r];
+            st[1] = sum[r];
+            st[2] = dsum[r];
+        }
+    }
+
+    // dQ = (dS / sqrt(d)).K with dS = hi + lo from registers: k-step kk of
+    // chunk c covers keys 64 c + 16 kk .. + 15, registers 8 kk .. 8 kk + 7
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+        float dp[32];
+        tile_product(dp, s_do, s_v + c * kTileBytes);
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int i = 8 * kk + 2 * j;
+                const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4);
+                const float d = dsum[j & 1];
+                split_bf16(grad_score(p[c][i], round_bf16(dp[i]), d, s_keep[key] > 0.0f, inv_scale),
+                           grad_score(p[c][i + 1], round_bf16(dp[i + 1]), d,
+                                      s_keep[key + 1] > 0.0f, inv_scale),
+                           hi[kk][j], lo[kk][j]);
+            }
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(hi[kk]);
+            fence_regs(lo[kk]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            wgmma_context(acc, hi[kk], rows_desc(s_k, c * 4 + kk));
+            wgmma_context(acc, lo[kk], rows_desc(s_k, c * 4 + kk));
+        }
+        wgmma_commit_and_wait();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(hi[kk]);
+            fence_regs(lo[kk]);
+        }
+    }
+    store_rows(dq + base, acc, q0, T, row_stride);
+}
+
+template <int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
+attention_backward_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int T, int H) {
+    constexpr int kQueries = CHUNKS * kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_k = smem;
+    unsigned char* s_v = s_k + kTileBytes;
+    unsigned char* s_q = s_v + kTileBytes;
+    unsigned char* s_do = s_q + CHUNKS * kTileBytes;
+    float* s_stat = reinterpret_cast<float*>(s_do + CHUNKS * kTileBytes);
+
+    const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long row_stride = static_cast<long long>(H) * kHeadDim;
+    const long long base = static_cast<long long>(b) * T * row_stride + h * kHeadDim;
+    stage_rows(s_k, k + base, k0, kTile, T, row_stride);
+    stage_rows(s_v, v + base, k0, kTile, T, row_stride);
+    stage_rows(s_q, q + base, 0, kQueries, T, row_stride);
+    stage_rows(s_do, dout + base, 0, kQueries, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* st = stats + (static_cast<long long>(b) * H + h) * T * 3;
+    for (int j = threadIdx.x; j < T * 3; j += kThreads)  // the sum as its reciprocal
+        s_stat[j] = j % 3 == 1 ? __frcp_rn(st[j]) : st[j];
+    bool keep[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * warp + lane / 4 + 8 * r;
+        keep[r] = key < T && mask[b * T + key] != 0;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    // phase 2: one warp per key row s -> dK[s], dV[s]
-    for (int s = warp; s < T; s += kBwdWarps) {
-        const __nv_bfloat162* ks = s_k + s * kRowWords;
-        const __nv_bfloat162* vs = s_v + s * kRowWords;
-        const bool keep = s_keep[s];
-        for (int i = lane; i < T; i += 32) {
-            const float sc = keep ? dot_row(s_q + i * kRowWords, ks) / scale_div : -FLT_MAX;
-            const float p = expf(sc - s_max[i]) / s_sum[i];
-            const float dp = round_bf16(dot_row(s_do + i * kRowWords, vs));
-            a[i] = keep ? (p * dp - p * s_dsum[i]) / scale_div : 0.0f;
-            p_row[i] = round_bf16(p);
+    const float inv_scale = inv_sqrt_head_dim();
+    float acc_k[16], acc_v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc_k[i] = acc_v[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+        // s[4j + e] and dp[4j + e]: key k0 + 16 warp + lane / 4 (+ 8 for
+        // e >= 2), query 64 c + 8 j + 2 (lane % 4) + (e & 1)
+        float s[32], dp[32];
+        issue_tile_product(s, s_k, s_q + c * kTileBytes);
+        issue_tile_product(dp, s_v, s_do + c * kTileBytes);
+        wgmma_commit_and_wait();
+        fence_regs(s);
+        fence_regs(dp);
+        uint32_t pb[4][4], hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float pv[2], ds[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int i = 8 * kk + 2 * j + e;
+                    const int t = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + e;
+                    pv[e] = ds[e] = 0.0f;
+                    if (t < T) {
+                        const float* sq = s_stat + 3 * t;
+                        const float x = keep[j & 1] ? s[i] * inv_scale : -FLT_MAX;
+                        pv[e] = __expf(x - sq[0]) * sq[1];
+                        ds[e] = grad_score(pv[e], round_bf16(dp[i]), sq[2], keep[j & 1],
+                                           inv_scale);
+                    }
+                }
+                pb[kk][j] = pack_bf16(pv[0], pv[1]);
+                split_bf16(ds[0], ds[1], hi[kk][j], lo[kk][j]);
+            }
+        fence_regs(acc_k);
+        fence_regs(acc_v);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pb[kk]);
+            fence_regs(hi[kk]);
+            fence_regs(lo[kk]);
         }
-        __syncwarp();
-        float acc_k = 0.0f, acc_v = 0.0f;
-        for (int i = 0; i < T; ++i) {
-            acc_k += a[i] * row_elem(s_q, i, lane);
-            acc_v += p_row[i] * row_elem(s_do, i, lane);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            wgmma_context(acc_v, pb[kk], rows_desc(s_do, c * 4 + kk));
+            wgmma_context(acc_k, hi[kk], rows_desc(s_q, c * 4 + kk));
+            wgmma_context(acc_k, lo[kk], rows_desc(s_q, c * 4 + kk));
         }
-        const long long off = base + static_cast<long long>(s) * row_stride + lane;
-        dk[off] = __float2bfloat16(acc_k);
-        dv[off] = __float2bfloat16(acc_v);
-        __syncwarp();
+        wgmma_commit_and_wait();
+        fence_regs(acc_k);
+        fence_regs(acc_v);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pb[kk]);
+            fence_regs(hi[kk]);
+            fence_regs(lo[kk]);
+        }
     }
+    store_rows(dk + base, acc_k, k0, T, row_stride);
+    store_rows(dv + base, acc_v, k0, T, row_stride);
+}
+
+// K5c: bf16 bias add + tanh GELU (bert.py:170-171: nn.Dense's bias, then
+// jax.nn.gelu's tanh form at its bf16 constants): s = bf16(y + b), then in
+// f32 u = c1 (s + c2 s^3), tanh(u) = 1 - 2 / (exp(2u) + 1), out =
+// bf16(s (1 + tanh(u)) / 2). What bounds it: device memory (y read and out
+// written once, 4 bytes an element; 0.0075 ms at 4096 x 1536), with ~25
+// f32 instructions and two MUFU operations an element close behind
+// (--fmad=false: no multiply-add is fused). The design: a 2-D grid, blocks
+// of 32 eight-column groups x 8 rows, each thread 2 rows of one group (1.5
+// waves of blocks at 4096 rows, so the loads of some overlap the
+// arithmetic of others: 7 % under 4 rows a thread), the bias column from
+// the index (its 16 bytes loaded once a thread), every load and store 16
+// bytes, a warp's 512 contiguous. exp is __expf (ex2.approx, as the Triton kernel it
+// replaces computed it); 2 / (e + 1) is 2 rcp_rn(e + 1), the division's
+// value exactly (a power-of-two scaling of a correctly rounded reciprocal)
+// without its slow path. That exact reciprocal costs 1.6 us at 4096 x 1536
+// against __fdividef's approximation (0.0103 against 0.0087 ms on the H100).
+constexpr int kGeluGroups = 32;  // 8-column groups a block (x)
+constexpr int kGeluRows = 8;     // thread rows a block (y)
+constexpr int kGeluRowsPerThread = 2;
+
+__device__ __forceinline__ float gelu_tanh(float y, float bias, float c1, float c2) {
+    const float s = round_bf16(y + bias);
+    const float u = c1 * (s + c2 * (s * s * s));
+    const float t = 1.0f - 2.0f * __frcp_rn(__expf(2.0f * u) + 1.0f);
+    return s * (0.5f * (1.0f + t));
+}
+
+__global__ void __launch_bounds__(kGeluGroups * kGeluRows)
+bias_gelu_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ out, long long M, int N, float c1, float c2) {
+    const int col = (blockIdx.x * kGeluGroups + threadIdx.x) * 8;
+    if (col >= N) return;
+    const uint4 bw = *reinterpret_cast<const uint4*>(bias + col);
+    const __nv_bfloat162* bp = reinterpret_cast<const __nv_bfloat162*>(&bw);
+    float2 bf[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bf[j] = __bfloat1622float2(bp[j]);
+    constexpr int kBlockRows = kGeluRows * kGeluRowsPerThread;
+    for (long long r0 = static_cast<long long>(blockIdx.y) * kBlockRows + threadIdx.y; r0 < M;
+         r0 += static_cast<long long>(gridDim.y) * kBlockRows) {
+        uint4 w[kGeluRowsPerThread];
+#pragma unroll
+        for (int i = 0; i < kGeluRowsPerThread; ++i) {
+            const long long row = r0 + i * kGeluRows;
+            if (row < M) w[i] = *reinterpret_cast<const uint4*>(y + row * N + col);
+        }
+#pragma unroll
+        for (int i = 0; i < kGeluRowsPerThread; ++i) {
+            const long long row = r0 + i * kGeluRows;
+            if (row >= M) break;
+            __nv_bfloat162* yp = reinterpret_cast<__nv_bfloat162*>(&w[i]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float2 x = __bfloat1622float2(yp[j]);
+                yp[j] = __floats2bfloat162_rn(gelu_tanh(x.x, bf[j].x, c1, c2),
+                                              gelu_tanh(x.y, bf[j].y, c1, c2));
+            }
+            *reinterpret_cast<uint4*>(out + row * N + col) = w[i];
+        }
+    }
+}
+
+template <int CHUNKS>
+cudaError_t launch_backward(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                            const __nv_bfloat16* v, const int* mask, const __nv_bfloat16* dout,
+                            __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                            float* stats, int B, int T, int H, cudaStream_t stream) {
+    const dim3 grid(CHUNKS, H, B);
+    attention_backward_dq_kernel<CHUNKS><<<grid, kThreads, backward_dq_smem_bytes(CHUNKS),
+                                           stream>>>(q, k, v, mask, dout, dq, stats, T, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attention_backward_dkv_kernel<CHUNKS><<<grid, kThreads, backward_dkv_smem_bytes(CHUNKS),
+                                            stream>>>(q, k, v, mask, dout, stats, dk, dv, T, H);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -472,24 +781,46 @@ int stract_attention(const void* q, const void* k, const void* v, const int* mas
     return cudaGetLastError();
 }
 
-// q, k, v, dout bf16[B, T, H, 32] (dout the gradient of the [B, T, H * 32]
-// context), mask i32[B, T] -> dq, dk, dv bf16[B, T, H, 32]. T must be
-// 1..256. Returns the CUDA status of the launch.
+// q, k, v, dout bf16[B, T, H, 32] (16-byte aligned; dout the gradient of
+// the [B, T, H * 32] context), mask i32[B, T] -> dq, dk, dv bf16[B, T, H, 32];
+// stats f32[B, H, T, 3] is scratch (each query row's max, sum and D). T
+// must be 1..256. Two launches on the stream; returns the CUDA status.
 int stract_attention_backward(const void* q, const void* k, const void* v, const int* mask,
-                              const void* dout, void* dq, void* dk, void* dv, int B, int T, int H,
-                              cudaStream_t stream) {
+                              const void* dout, void* dq, void* dk, void* dv, float* stats,
+                              int B, int T, int H, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
-    const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
-        attention_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(backward_smem_bytes(kMaxT)));
-    if (attr != cudaSuccess) return attr;
-    const dim3 grid(H, B);
-    attention_backward_kernel<<<grid, kBwdWarps * 32, backward_smem_bytes(T), stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<const __nv_bfloat16*>(dout),
-        static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), T, H);
+    const auto* qq = static_cast<const __nv_bfloat16*>(q);
+    const auto* kk = static_cast<const __nv_bfloat16*>(k);
+    const auto* vv = static_cast<const __nv_bfloat16*>(v);
+    const auto* go = static_cast<const __nv_bfloat16*>(dout);
+    auto* gq = static_cast<__nv_bfloat16*>(dq);
+    auto* gk = static_cast<__nv_bfloat16*>(dk);
+    auto* gv = static_cast<__nv_bfloat16*>(dv);
+    // shared memory at most 44,032 bytes (T = 256): no opt-in
+    switch ((T + kTile - 1) / kTile) {
+        case 1: return launch_backward<1>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        case 2: return launch_backward<2>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        case 3: return launch_backward<3>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        default:
+            return launch_backward<4>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+    }
+}
+
+// y bf16[M, N], bias bf16[N] -> out bf16[M, N] (all 16-byte aligned, N a
+// multiple of 8): out = gelu_tanh(bf16(y + bias)) at the constants c1, c2.
+// Returns the CUDA status of the launch.
+int stract_bias_gelu(const void* y, const void* bias, void* out, long long M, int N, float c1,
+                     float c2, cudaStream_t stream) {
+    if (M <= 0) return cudaSuccess;
+    if (N <= 0 || N % 8) return cudaErrorInvalidValue;
+    constexpr long long kBlockRows = kGeluRows * kGeluRowsPerThread;
+    const long long row_blocks = (M + kBlockRows - 1) / kBlockRows;
+    const dim3 grid((N / 8 + kGeluGroups - 1) / kGeluGroups,
+                    static_cast<unsigned>(row_blocks < 65535 ? row_blocks : 65535));
+    bias_gelu_kernel<<<grid, dim3(kGeluGroups, kGeluRows), 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(out), M, N, c1, c2);
     return cudaGetLastError();
 }
 

@@ -9,8 +9,9 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
   K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
   K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
                             :204-205): Triton
-  K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): Triton
-  K14c  ... backward
+  K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): CUDA
+                            C++, csrc/encoder.cu
+  K14c  ... backward        Triton
   K5d  mean_pool            masked mean pool, optionally L2-normalised
        (+ its backward)     (bert.py:222-226, :243-245): Triton
 
@@ -265,16 +266,8 @@ def bias_gelu_forward(y, b):
         return bias_gelu_plain(y, b)
     N = y.shape[-1]
     kernels._ptr(y, BF16)
-    kernels._ptr(b, BF16, (N,))
     out = torch.empty_like(y)
-    total = y.numel()
-    if total:
-        block = 1024
-        kern = _triton_kernels()["bias_gelu"]
-        with torch.cuda.device(kernels.card_of(y, b, out)):
-            kern[(_cdiv(total, block),)](y, b, out, N, total, GELU_C1, GELU_C2, BLOCK=block,
-                                         num_warps=4)
-        kernels.counted("bias_gelu")
+    kernels.bias_gelu(y.view(-1, N), b, out.view(-1, N), GELU_C1, GELU_C2)
     return out
 
 
@@ -505,18 +498,6 @@ def _triton_kernels() -> dict:
         tl.store(OUT + cols, acc.to(OUT.dtype.element_ty), mask=cm)
 
     @triton.jit
-    def bias_gelu_kernel(Y, Bias, O, N, total, c1, c2, BLOCK: tl.constexpr):
-        # a flat pass: s = bf16(y + b[col]); tanh GELU in f32; bf16 out
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < total
-        y = tl.load(Y + offs, mask=m, other=0.0).to(tl.float32)
-        b = tl.load(Bias + offs % N, mask=m, other=0.0).to(tl.float32)
-        s = (y + b).to(tl.bfloat16).to(tl.float32)
-        u = c1 * (s + c2 * (s * s * s))
-        t = 1.0 - 2.0 / (tl.exp(2.0 * u) + 1.0)  # tanh(u), exact at both tails
-        tl.store(O + offs, (s * (0.5 * (1.0 + t))).to(tl.bfloat16), mask=m)
-
-    @triton.jit
     def bias_gelu_bwd_kernel(Y, Bias, DO, DY, DBP, M, N, c1, c2, BLOCK_M: tl.constexpr,
                              BLOCK_N: tl.constexpr):
         # a [BLOCK_M, BLOCK_N] tile: dy = bf16(dO * gelu'(s)) at the bf16
@@ -600,7 +581,6 @@ def _triton_kernels() -> dict:
                      mask=(ts < T)[:, None] & cm[None, :])
 
     _TRITON.update(add_layernorm=add_layernorm_kernel, add_layernorm_bwd=add_layernorm_bwd_kernel,
-                   col_sum=col_sum_kernel, bias_gelu=bias_gelu_kernel,
-                   bias_gelu_bwd=bias_gelu_bwd_kernel, mean_pool=mean_pool_kernel,
-                   mean_pool_bwd=mean_pool_bwd_kernel)
+                   col_sum=col_sum_kernel, bias_gelu_bwd=bias_gelu_bwd_kernel,
+                   mean_pool=mean_pool_kernel, mean_pool_bwd=mean_pool_bwd_kernel)
     return _TRITON

@@ -12,7 +12,8 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     and pass 2), K12 pass 2 from the slots' L-row prefixes, K10 the
                     dense rerank, K9 the global top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
-  csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward
+  csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward, K5c
+                    bias + tanh GELU
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
                     size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
                     ring step
@@ -21,13 +22,13 @@ time: the CPU tests import this module on machines without nvcc or a card.
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
                     backward, K16d the SGD update of a card's parameters in one launch
 
-(K5b-d and K14b-c, the encoder's residual + LayerNorm, bias + GELU and mean
-pool, forward and backward, are Triton kernels in ops/encoder.py; K14d and
-K15d, the fused AdamW updates of f32 masters and of bf16 parameters, are in
-optim.py; K15b-c, the MoE select-and-scale and the loss heads, in ops/moe.py
-beside the CUDA router K15a (csrc/moe.cu); K16c, the pipeline stage's
-f32 tanh GELU, in ops/stage.py; they count their launches here too, and
-launch on their tensors' card as well: `card_of`.)
+(K5b, K5d and K14b-c, the encoder's residual + LayerNorm and mean pool,
+forward and backward, and the bias + GELU backward, are Triton kernels in
+ops/encoder.py; K14d and K15d, the fused AdamW updates of f32 masters and of
+bf16 parameters, are in optim.py; K15b-c, the MoE select-and-scale and the
+loss heads, in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); K16c,
+the pipeline stage's f32 tanh GELU, in ops/stage.py; they count their
+launches here too, and launch on their tensors' card as well: `card_of`.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches under `on_card` (the card its tensors lie on
@@ -37,7 +38,6 @@ raises on a non-zero CUDA status, and adds one to its entry in LAUNCHES.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 import shutil
@@ -245,8 +245,9 @@ def _load(name: str):
                        lib.stract_sgd_multi)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
-                lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
-                fns = (lib.stract_attention, lib.stract_attention_backward)
+                lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, P]
+                lib.stract_bias_gelu.argtypes = [P, P, P, LL, I, F, F, P]
+                fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -280,16 +281,27 @@ def card_of(*tensors) -> torch.device:
     return devs.pop()
 
 
-@contextlib.contextmanager
-def on_card(*tensors):
+class on_card:
     """The context of every launch of a csrc/ kernel: the card that the
     launch's tensors lie on (ValueError when more than one) made current
     for the launch, and its current stream's handle yielded for the launch
     to take. So a shard on cuda:1 launches in cuda:1's context on cuda:1's
-    stream, whatever card is current."""
-    dev = card_of(*tensors)
-    with torch.cuda.device(dev):
-        yield torch.cuda.current_stream(dev).cuda_stream
+    stream, whatever card is current. (The raw handle, not
+    torch.cuda.current_stream(dev): that builds a Stream object under a
+    second device switch, 9 of the 14 us this context took on the H100.)"""
+
+    __slots__ = ("_idx", "_prev")
+
+    def __init__(self, *tensors):
+        self._idx = card_of(*tensors).index
+
+    def __enter__(self) -> int:
+        self._prev = torch.cuda._exchange_device(self._idx)
+        return torch._C._cuda_getCurrentRawStream(self._idx)
+
+    def __exit__(self, *exc) -> bool:
+        torch.cuda._maybe_exchange_device(self._prev)
+        return False
 
 
 def _seg_tensors(seg) -> tuple:
@@ -599,18 +611,41 @@ def attention(q, k, v, mask, out) -> None:
     counted("attention")
 
 
-def attention_backward(q, k, v, mask, dout, dq, dk, dv) -> None:
+def attention_backward(q, k, v, mask, dout, dq, dk, dv, stats=None) -> None:
     """K14a: q, k, v bf16[B, T, H, 32], mask i32[B, T], dout bf16[B, T, H*32]
-    → dq, dk, dv bf16[B, T, H, 32] (ops/encoder.py allocates)."""
+    (all 16-byte aligned) → dq, dk, dv bf16[B, T, H, 32] (ops/encoder.py
+    allocates); stats f32[B, H, T, 3] is the scratch of each query row's
+    max, sum and D that the dQ kernel writes and the dK / dV kernel reads
+    (allocated here when None)."""
     B, T, H, D = q.shape
     _ptr(dout, torch.bfloat16, (B, T, H * D))
-    ptrs = _attention_ptrs((q, k, v, dout.view(B, T, H, D), dq, dk, dv), q.shape)
+    ptrs = _attention_ptrs((q, k, v, dout.view(B, T, H, D), dq, dk, dv), q.shape, align=16)
+    if stats is None:
+        stats = torch.empty((B, H, T, 3), dtype=torch.float32, device=q.device)
+    st = _ptr(stats, torch.float32, (B, H, T, 3))
     lib = _load("encoder")
-    with on_card(q, k, v, mask, dout, dq, dk, dv) as stream:
+    with on_card(q, k, v, mask, dout, dq, dk, dv, stats) as stream:
         rc = lib.stract_attention_backward(*ptrs[:3], _ptr(mask, torch.int32, (B, T)), *ptrs[3:],
-                                           B, T, H, stream)
+                                           st, B, T, H, stream)
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
+
+
+def bias_gelu(y, b, out, c1: float, c2: float) -> None:
+    """K5c: y bf16[M, N], b bf16[N] → out bf16[M, N], the tanh GELU of
+    bf16(y + b) at the constants c1, c2 (ops/encoder.py allocates). N must
+    be a multiple of 8 and every pointer 16-byte aligned (16-byte loads)."""
+    M, N = y.shape
+    bf16 = torch.bfloat16
+    ptrs = (_ptr(y, bf16, (M, N)), _ptr(b, bf16, (N,)), _ptr(out, bf16, (M, N)))
+    if N % 8 or any(p % 16 for p in ptrs):
+        raise ValueError(f"bias + GELU reads rows of 8-column groups by 16 bytes: N must be a "
+                         f"multiple of 8 (not {N}) and pointers 16-byte aligned")
+    lib = _load("encoder")
+    with on_card(y, b, out) as stream:
+        rc = lib.stract_bias_gelu(*ptrs, M, N, c1, c2, stream)
+    _check(rc, "stract_bias_gelu")
+    counted("bias_gelu")
 
 
 def _stage_dims(qkv) -> tuple:

@@ -246,6 +246,26 @@ def test_training_kernel_arguments_are_checked(monkeypatch):
                            1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
 
 
+def test_bias_gelu_kernel_arguments_are_checked(monkeypatch):
+    """K5c reads 16-byte vectors: a width that is not a multiple of 8 and a
+    view that is not 16-byte aligned raise before any build or launch."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        E.bias_gelu(torch.zeros((4, 1540), dtype=torch.bfloat16),
+                    torch.zeros(1540, dtype=torch.bfloat16))
+    flat = torch.zeros(4 * 1536 + 8, dtype=torch.bfloat16)
+    start = next(i for i in range(8) if (flat.data_ptr() + 2 * i) % 16)
+    y = flat[start:start + 4 * 1536].view(4, 1536)  # contiguous, 16-byte misaligned
+    assert y.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        E.bias_gelu(y, torch.zeros(1536, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.bias_gelu(torch.zeros((4, 1536), dtype=torch.bfloat16),
+                          flat[start:start + 1536], torch.zeros((4, 1536), dtype=torch.bfloat16),
+                          E.GELU_C1, E.GELU_C2)
+
+
 def test_adamw_keeps_parameters_and_gradients_in_its_buffers():
     """Parameters and gradients are views into the flat buffers the fused
     update reads; a gradient replaced behind the optimizer's back raises."""
@@ -284,6 +304,23 @@ def _card():
 
 
 @pytest.mark.cuda
+def test_launch_context_takes_the_current_stream_of_the_tensors_card():
+    """on_card yields the raw handle of the current stream of its tensors'
+    card (a side stream while one is current) and leaves the current card
+    as it found it."""
+    _card()
+    x = torch.zeros(8, device="cuda")
+    side = torch.cuda.Stream()
+    before = torch.cuda.current_device()
+    with torch.cuda.stream(side), kernels.on_card(x, None) as stream:
+        assert stream == side.cuda_stream
+        assert torch.cuda.current_device() == x.device.index
+    with kernels.on_card(x) as stream:
+        assert stream == torch.cuda.current_stream().cuda_stream
+    assert torch.cuda.current_device() == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [256, 16384])
 def test_forest_kernel_matches_plain(k):
     dev = _card()
@@ -315,6 +352,10 @@ def test_attention_kernel_matches_plain(T):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), E.attention_plain(q, k, v, mask).float(),
                                rtol=ENC_RTOL, atol=2 * ENC_ATOL)
+
+
+# sequence lengths below, at and past the 64-row tiles of K5a and K14a
+TAIL_T = [1, 16, 64, 65, 128, 193, 200, 256]
 
 
 def _tail_masked(B: int, T: int, dev):
@@ -356,7 +397,7 @@ def test_attention_wgmma_kernel_matches_plain_at_tile_tails(T, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [65, 128])
+@pytest.mark.parametrize("T", TAIL_T)
 def test_attention_autograd_through_both_kernels_matches_plain_vjp(T):
     """E.attention's autograd Function on the card (K5a forward, K14a
     backward) against the plain twins' forward and VJP on the same card."""
@@ -393,6 +434,24 @@ def test_layernorm_and_gelu_kernels_match_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4096, 4099])
+def test_bias_gelu_kernel_matches_plain_at_row_tails(M):
+    """K5c (CUDA, 16-byte vectors) at the serving shape 4096 x 1536 and at
+    an odd row count, with a non-zero bias: the tolerance of
+    test_layernorm_and_gelu_kernels_match_plain; each call counted once."""
+    dev = _card()
+    g = torch.Generator().manual_seed(M)
+    y = (3 * torch.randn((M, 1536), generator=g)).to(dev, torch.bfloat16)
+    bias = torch.randn(1536, generator=g).to(dev, torch.bfloat16)
+    n = kernels.LAUNCHES["bias_gelu"]
+    got = E.bias_gelu(y, bias)
+    assert kernels.LAUNCHES["bias_gelu"] == n + 1
+    assert got.shape == (M, 1536) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), E.bias_gelu_plain(y, bias).float(),
+                               rtol=ENC_RTOL, atol=ENC_ATOL)
+
+
+@pytest.mark.cuda
 def test_dual_encoder_on_the_card_matches_the_cpu(tmp_path):
     """MiniLM-L6 at full width: saved, loaded onto the card and onto the
     CPU, the same texts embed alike (kernels against plain twins end to end)."""
@@ -412,23 +471,61 @@ def _step_close(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16, 128, 256])
-def test_attention_backward_kernel_matches_plain(T):
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", TAIL_T)
+def test_attention_backward_kernel_matches_plain(T, B):
+    """K14a (the dQ and dK / dV kernels on wgmma) at every tail of a tile,
+    with half, fully and tail masked rows: within one bf16 step of the
+    twin, the fully masked row's dQ 0, each call counted once, and a second
+    call bit-equal to the first (no atomics)."""
     dev = _card()
-    g = torch.Generator().manual_seed(T)
-    q, k, v = (torch.randn((4, T, 12, 32), generator=g).to(dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(T * 10 + B)
+    q, k, v = (torch.randn((B, T, 12, 32), generator=g).to(dev, torch.bfloat16)
                for _ in range(3))
-    dout = torch.randn((4, T, 384), generator=g).to(dev, torch.bfloat16)
-    mask = torch.ones((4, T), dtype=torch.int32)
-    mask[1, T // 3:] = 0
-    mask[3] = 0
-    mask = mask.to(dev)
+    dout = torch.randn((B, T, 384), generator=g).to(dev, torch.bfloat16)
+    mask = _tail_masked(B, T, dev)
     n = kernels.LAUNCHES["attention_backward"]
     got = E.attention_backward(q, k, v, mask, dout)
     assert kernels.LAUNCHES["attention_backward"] == n + 1
     for a, b in zip(got, E.attention_backward_plain(q, k, v, mask, dout)):
         _step_close(a, b)
-    assert not got[0][3].float().any()
+    for a, b in zip(got, E.attention_backward(q, k, v, mask, dout)):
+        assert torch.equal(a, b)
+    if B == 4:
+        assert not got[0][2].float().any()
+
+
+@pytest.mark.cuda
+def test_attention_backward_scratch_holds_each_rows_statistics():
+    """At T = 256 (the largest shared-memory tiles, four chunks a block) the
+    dQ kernel's scratch holds each query row's max, sum and D of the plain
+    softmax: max and sum rtol 1e-5 (f32 sums in another order), D within
+    one bf16 step of its largest magnitude (dP rounds to bf16); the dK / dV
+    kernel reads it back, so the gradients match the twin."""
+    dev = _card()
+    B, T, H = 8, 256, 12
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((B, T, H, 32), generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    dout = torch.randn((B, T, H * 32), generator=g).to(dev, torch.bfloat16)
+    mask = _tail_masked(B, T, dev)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    stats = torch.full((B, H, T, 3), float("nan"), device=dev)
+    kernels.attention_backward(q, k, v, mask, dout, *grads, stats)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    keep = (mask != 0)[:, None, None, :]
+    x = torch.where(keep, torch.einsum("bthd,bshd->bhts", qf, kf) / np.sqrt(32),
+                    torch.finfo(torch.float32).min)
+    mx = x.amax(dim=-1)
+    e = torch.exp(x - mx[..., None])
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bthd,bshd->bhts", dout.view(B, T, H, 32).float(), vf)
+    dsum = (p * dp.to(torch.bfloat16).float()).sum(dim=-1)
+    torch.testing.assert_close(stats[..., 0], mx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(stats[..., 1], e.sum(dim=-1), rtol=1e-5, atol=0)
+    _step_close(stats[..., 2], dsum)
+    for a, b in zip(grads, E.attention_backward_plain(q, k, v, mask, dout)):
+        _step_close(a, b)
 
 
 @pytest.mark.cuda

@@ -311,10 +311,6 @@ class _Launch:
         return lambda *a, **k: self.called.append(self.name)
 
 
-class _Stream:
-    cuda_stream = 0
-
-
 class _StageLib:
     """A stand-in for csrc/stage.cu's library: stract_sgd_multi records "sgd"
     and returns success."""
@@ -341,7 +337,7 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
         n: _Launch(n, called) for n in ("gelu", "gelu_bwd")})
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))  # card, stream
     kernels.reset_launches()
     t = torch.zeros((1, 4, 12))
     ST.stage_attention_forward(t)

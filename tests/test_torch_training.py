@@ -90,15 +90,10 @@ def corpus_index(tmp_path_factory):
 
 
 # ---- the backward twins against jax.vjp of the reference bodies --------------------------
-def test_attention_backward_twin_matches_jax_vjp():
-    """bert.py:97-103, with one half- and one fully padded row."""
-    rng = np.random.default_rng(5)
-    B, T, h, d = 3, 12, 4, 32
-    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
-    dout = rng.normal(size=(B, T, h * d)).astype(np.float32)
-    mask = np.ones((B, T), np.int32)
-    mask[1, 7:] = 0
-    mask[2] = 0
+def _attention_vjp(q, k, v, mask, dout):
+    """jax.vjp of bert.py:97-103 on bf16 q, k, v [B, T, h, d] (f32 arrays
+    rounded to bf16), cotangent dout [B, T, h * d] → (dq, dk, dv)."""
+    B, T, h, d = q.shape
 
     def body(q, k, v):
         scores = jnp.einsum("bthd,bshd->bhts", q, k, preferred_element_type=jnp.float32)
@@ -110,12 +105,92 @@ def test_attention_backward_twin_matches_jax_vjp():
         return ctx.astype(BF).reshape(B, T, h * d)
 
     _, vjp = jax.vjp(body, *(jnp.asarray(a, BF) for a in (q, k, v)))
-    ref = vjp(jnp.asarray(dout, BF))
+    return vjp(jnp.asarray(dout, BF))
+
+
+def test_attention_backward_twin_matches_jax_vjp():
+    """bert.py:97-103, with one half- and one fully padded row."""
+    rng = np.random.default_rng(5)
+    B, T, h, d = 3, 12, 4, 32
+    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.normal(size=(B, T, h * d)).astype(np.float32)
+    mask = np.ones((B, T), np.int32)
+    mask[1, 7:] = 0
+    mask[2] = 0
+
+    ref = _attention_vjp(q, k, v, mask, dout)
     got = E.attention_backward_plain(_bt(q), _bt(k), _bt(v), torch.from_numpy(mask), _bt(dout))
     for g, r in zip(got, ref):
         assert g.dtype == torch.bfloat16
         assert_one_bf16_step(g, r)
     assert not _np(got[0])[2].any()  # the fully padded row: no score gradient
+
+
+def _split_product(eq: str, ds, x):
+    """eq's product of an f32 dS with bf16 x as K14a's tensor cores take it:
+    dS = hi + lo, two bf16 parts, both summed into one f32 result."""
+    hi = ds.to(torch.bfloat16).float()
+    return torch.einsum(eq, hi, x) + torch.einsum(eq, (ds - hi).to(torch.bfloat16).float(), x)
+
+
+def _k14a_emulation(q, k, v, mask, dout):
+    """K14a's decomposition in plain torch (test-only, no kernel path calls
+    it): the dQ pass takes P as a masked two-pass softmax, the divisions by
+    sqrt(d) and by the row sum as multiplications by the f32 reciprocal,
+    dP = bf16(dO.V^T) and D = rowsum(P dP), keeps each query row's (max,
+    sum, D) in a scratch [B, h, T, 3], and multiplies dS / sqrt(d) by K
+    split into bf16 hi + lo; the dK / dV pass forms P from the scratch's max
+    and sum and dS from its D, dV = bf16(P)^T.dO and dK = dS^T.Q split
+    alike → (dq, dk, dv) bf16."""
+    B, T, h, d = q.shape
+    bf = torch.bfloat16
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    g = dout.reshape(B, T, h, d).float()
+    keep = (mask != 0)[:, None, None, :]
+    inv_scale = 1 / torch.tensor(d, dtype=torch.float32).sqrt()
+    x = torch.where(keep, torch.einsum("bthd,bshd->bhts", qf, kf) * inv_scale,
+                    torch.finfo(torch.float32).min)
+    dp = torch.einsum("bthd,bshd->bhts", g, vf).to(bf).float()
+
+    def grad_scores(p, dsum):
+        return torch.where(keep, (p * dp - p * dsum) * inv_scale, 0.0)
+
+    # the dQ pass
+    mx = x.amax(dim=-1, keepdim=True)
+    e = torch.exp(x - mx)
+    total = e.sum(dim=-1, keepdim=True)
+    p = e * (1 / total)
+    dsum = (p * dp).sum(dim=-1, keepdim=True)
+    stats = torch.cat([mx, total, dsum], dim=-1)
+    dq = _split_product("bhts,bshd->bthd", grad_scores(p, dsum), kf)
+    # the dK / dV pass, from the scratch
+    p = torch.exp(x - stats[..., :1]) * (1 / stats[..., 1:2])
+    dk = _split_product("bhts,bthd->bshd", grad_scores(p, stats[..., 2:]), qf)
+    dv = torch.einsum("bhts,bthd->bshd", p.to(bf).float(), g)
+    return dq.to(bf), dk.to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("T", [16, 65, 200])
+def test_k14a_decomposition_matches_jax_vjp(T):
+    """K14a's rounding (dP staged in bf16, dS as bf16 hi + lo into f32 sums,
+    the dQ pass's statistics reused by the dK / dV pass) fits the card
+    test's tolerance against jax.vjp of the reference: within one bf16 step
+    of the largest magnitude; rows half, fully and tail masked."""
+    rng = np.random.default_rng(T)
+    B, h, d = 4, 3, 32
+    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.normal(size=(B, T, h * d)).astype(np.float32)
+    mask = np.ones((B, T), np.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask[3, T - max(1, T // 5):] = 0
+    ref = _attention_vjp(q, k, v, mask, dout)
+    got = _k14a_emulation(_bt(q), _bt(k), _bt(v), torch.from_numpy(mask), _bt(dout))
+    for g, r in zip(got, ref):
+        g, r = _np(g), _np(r)
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=STEP_RTOL, atol=STEP_RTOL * np.abs(r).max())
+    assert not _np(got[0])[2].any()  # the fully masked row: dQ = 0
 
 
 def test_layernorm_backward_twin_matches_jax_vjp():
