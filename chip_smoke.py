@@ -143,6 +143,13 @@ CUSTOM = {"host_centrality": 3.0, "bm25_clean_body": -0.2}
 # encoder batch of the kernel phase, sequence lengths, forest rows
 VOCAB, TOK_DOCS, FOREST_QUERIES, ENC_B = 30522, 20_000, 32, 32
 ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 65, 128, 200, 256), 128, (256, 16384), 4096
+# K5a and K14a over every head dim they take (BertConfig.tiny's 16, MiniLM's
+# 32, BERT-base's 64) at tile tails below, at and past the 256 tokens of
+# their one-pass forms and at 512, for a batch of GRID_B x 12 heads
+GRID_D, GRID_T, GRID_B = (16, 32, 64), (1, 65, 256, 257, 512), 8
+# BERT-base width (BertConfig(): 12 layers, 768 wide, 12 heads of 64): one
+# embedded batch at the dual encoder's 256 tokens, two training steps at 512
+BASE_EMBED_B, BASE_TRAIN_B, BASE_TRAIN_T, BASE_STEPS = 8, 4, 512, 2
 # training: the dual encoder's batch and length (the kernel phase's shapes),
 # the held-out bar of tools/train_bench_encoders.py, and the step count
 # (the tool's default; cut, and the cut printed, if training outgrows the run)
@@ -197,6 +204,9 @@ MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
 PIPE_S, PIPE_H, PIPE_F, PIPE_T, PIPE_DP, PIPE_M, PIPE_MB = 6, 384, 1536, 128, 2, 8, 16
 PIPE_STEPS, PIPE_LR, PIPE_TIMED = 20, 5e-2, 3
 PIPE_KERNELS = ("stage_attention", "stage_attention_backward", "gelu_tanh", "sgd")
+# K16a-b also held against their plain versions at the longest rows and the
+# widest head they take, (T, H) beside the step's (PIPE_T, PIPE_H)
+PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 
 # Tolerances, kernel against plain version on the same card:
 #  stage A  scores rtol 1e-5, atol 5e-2: the plain version takes per-doc sums
@@ -933,8 +943,9 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     (held to a numpy rerank). Then K1 on q8 rows, K1 with UB, K11 alone and
     inside stage B and pass 2, K12 and K10 against their plain versions on
     the same slots; then K13 at P = MERGE_P: the network's keys and payloads
-    bit-equal to the plain merge's, the candidates at stage A's tolerance,
-    and torch.sort of the keys with a gather of the payloads timed beside it.
+    bit-equal to the plain merge's, the candidates at stage A's tolerance;
+    the network alone on doc-ordered slots (a sort there) timed beside
+    torch.sort of the keys with a gather of the payloads.
     → (rows as kernel_phase's, launches of the driven calls, {kernel: the
     library call's ms})."""
     import numpy as np
@@ -1134,16 +1145,32 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     add("stage_a_merge", err, run_k, run_p, (MERGE_P, L, C),
         12 * scanned_m + sum(x.numel() * 4 for x in qm) + 8 * B * C,
         B * (N // 2 * stages + 10 * N))
-    kf, cf, af = (x.reshape(B, -1) for x in (keys, contrib, aux))
+    # the network alone (the K = 0 launch) beside torch.sort + gathers of the
+    # same entries, like for like: on the queries' own doc-ordered slots
+    # (no impact prefix), whose tiles ascend, so the merge is a sort
+    qd = O.to_tensors(O.stack([pad_slots(q, MERGE_P) for q, _ in slots]), DEVICE)
+    kn = O.stage_a_network(dev.arrays, qd, L)[0]
+    asc = [b for b in range(B) if bool((kn[b, 1:] >= kn[b, :-1]).all())]
+    if not asc:
+        raise AssertionError("no query's doc-ordered slots merge into ascending keys")
+    qd = O.QuerySlots(*(x[asc] for x in qd))
+    keys, contrib, aux, _ = O._stage_a_entries(dev.arrays, qd, L)
+    kf, cf, af = (x.reshape(len(asc), -1) for x in (keys, contrib, aux))
 
     def sort_gather():
         sk, perm = torch.sort(kf, dim=-1)
         return sk, cf.gather(1, perm), af.gather(1, perm)
-    lib_ms = {"stage_a_merge": time_ms(sort_gather)}
+    if not torch.equal(sort_gather()[0], O.stage_a_network(dev.arrays, qd, L)[0]):
+        raise AssertionError("the merge network's keys differ from torch.sort's on ascending rows")
+    net_ms = time_ms(lambda: O.stage_a_network(dev.arrays, qd, L))
+    sort_ms = time_ms(sort_gather)
     log(f"[config kernels] K13 at B={B} P={MERGE_P} L={L} C={C}: network bit-equal to the "
         f"plain merge; {ascending} of {B} queries' merged keys ascending (the others hold "
-        f"tf-ordered impact slots); torch.sort + gather {lib_ms['stage_a_merge']:.3f} ms "
-        f"(the same function only where every row ascends)")
+        f"tf-ordered impact slots). The network alone (the K = 0 launch) on {len(asc)} "
+        f"queries' doc-ordered slots, whose keys it sorts as torch.sort does: {net_ms:.4f} ms "
+        f"beside torch.sort + gathers {sort_ms:.4f} ms (the whole of stage A has no library "
+        f"call)")
+    lib_ms = {}
     return rows, launches, lib_ms
 
 
@@ -1377,6 +1404,159 @@ def training_kernel_phase(dual_dir: str) -> list:
                                              0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
     out.append(("adamw", err, time_ms(run_k), time_ms(run_p), n))
     return out
+
+
+def attention_grid_phase() -> list:
+    """K5a and K14a against their plain versions at every head dim d in
+    GRID_D and T in GRID_T (B = GRID_B, 12 heads; row 1 half, row 2 fully,
+    row 3 tail masked), each timed beside scaled_dot_product_attention with
+    the additive mask (forward) and its backward through autograd; each
+    row logged. → rows (name, err, ms, plain ms, shape, bytes, ops, peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch.ops import encoder as E
+
+    out = []
+    g = torch.Generator().manual_seed(SEED + 12)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
+    Bg, Hg = GRID_B, 12
+    for d in GRID_D:
+        for t in GRID_T:
+            q, k, v, dout = bf(Bg, t, Hg, d), bf(Bg, t, Hg, d), bf(Bg, t, Hg, d), bf(Bg, t, Hg * d)
+            mask = torch.ones((Bg, t), dtype=torch.int32)
+            mask[1, t // 2:] = 0
+            mask[2] = 0
+            mask[3, t - max(1, t // 5):] = 0
+            mask = mask.to(DEVICE)
+            add = torch.zeros((Bg, 1, 1, t), dtype=torch.bfloat16, device=DEVICE)
+            add.masked_fill_(mask[:, None, None, :] == 0, torch.finfo(torch.bfloat16).min)
+            a = E.attention_forward(q, k, v, mask).float()
+            b = E.attention_plain(q, k, v, mask).float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"attention gave a non-finite value at d={d}, T={t}")
+            torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=2 * ENC_TOL[1])
+            fwd_err = float((a - b).abs().max())
+            bwd_err = max(_step_close(x, y) for x, y in zip(
+                E.attention_backward(q, k, v, mask, dout),
+                E.attention_backward_plain(q, k, v, mask, dout)))
+            leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, add)
+            do = dout.view(Bg, t, Hg, d).transpose(1, 2)
+            times = (time_ms(lambda: E.attention_forward(q, k, v, mask)),
+                     time_ms(lambda: E.attention_plain(q, k, v, mask)),
+                     time_ms(lambda: F.scaled_dot_product_attention(*(x.detach() for x in leaves),
+                                                                    add)),
+                     time_ms(lambda: E.attention_backward(q, k, v, mask, dout)),
+                     time_ms(lambda: E.attention_backward_plain(q, k, v, mask, dout)),
+                     time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)))
+            del o, leaves
+            shape = (Bg, t, Hg, d)
+            elems = Bg * t * Hg * d
+            out.append(("attention", fwd_err, times[0], times[1], shape, 4 * elems * 2 + 4 * Bg * t,
+                        4 * Bg * Hg * t * t * d, PEAK_BF16))
+            out.append(("attention_backward", bwd_err, times[3], times[4], shape,
+                        7 * elems * 2 + 4 * Bg * t, 14 * Bg * Hg * t * t * d, PEAK_BF16))
+            log(f"[attention grid] d={d} T={t} B={Bg} heads={Hg}: forward kernel "
+                f"{times[0]:.4f} ms plain {times[1]:.4f} sdpa {times[2]:.4f} max_abs_err "
+                f"{fwd_err:.3g}; backward kernel {times[3]:.4f} ms plain {times[4]:.4f} sdpa "
+                f"{times[5]:.4f} max_abs_err {bwd_err:.3g}")
+    return out
+
+
+def train_encoders_phase(index_dir: str, out_dir: str) -> dict:
+    """`python -m stract_tpu_torch.main train-encoders both INDEX OUT --steps
+    2` at its other defaults (--device cuda, BertConfig.tiny: head dim 16,
+    the dual's 48 tokens and the cross's 64) through the entry point's main,
+    its output captured; launch counts reset just before and read just
+    after: K5a and K14a launched, every printed loss finite, both encoders
+    saved. → {"losses", "launches", "seconds"}."""
+    import io
+    import re
+
+    import numpy as np
+
+    from stract_tpu_torch.main import main as port_main
+    from stract_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        port_main(["train-encoders", "both", index_dir, out_dir, "--steps", "2"])
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(x) for pair in re.findall(r"\(loss (\S+) → (\S+)\)", printed.getvalue())
+              for x in pair]
+    if len(losses) != 4 or not np.isfinite(losses).all():
+        raise AssertionError(f"train-encoders printed the losses {losses}:\n{printed.getvalue()}")
+    if not (launches["attention"] and launches["attention_backward"]):
+        raise AssertionError(f"train-encoders launched no attention kernel: {launches}")
+    for kind in ("dual", "cross"):
+        if not os.path.exists(os.path.join(out_dir, f"{kind}_encoder", "config.json")):
+            raise AssertionError(f"train-encoders saved no {kind} encoder")
+    return {"losses": losses, "launches": {k: v for k, v in launches.items() if v},
+            "seconds": time.perf_counter() - t0}
+
+
+def bert_base_phase(index_dir: str, out_dir: str, tok) -> dict:
+    """BERT-base width (BertConfig(): 12 layers, 768 wide, 12 heads of 64)
+    on the card: DualEncoder.random_init embeds one batch of BASE_EMBED_B long
+    texts at 256 tokens, held to the same encoder through the plain versions
+    (cosine >= 0.999 a row); then train_dual_encoder(cfg=BertConfig(),
+    max_len=512) takes BASE_STEPS steps at batch BASE_TRAIN_B, losses finite.
+    Launch counts reset just before each and read just after: K5a (and in
+    training K14a) launched. → the record."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.entrypoint.train_encoders import train_dual_encoder
+    from stract_tpu_torch.models.bert import BertConfig
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    cfg = BertConfig()
+    rng = np.random.default_rng(SEED + 13)
+    texts = [" ".join(bc.sample_queries(rng, 150)) for _ in range(BASE_EMBED_B)]
+    enc = DualEncoder.random_init(cfg, tok, seed=SEED, device=DEVICE)
+    filled = tok.encode_batch(texts, enc.max_len)[1].sum(axis=1)
+    if enc.max_len != 256 or int(filled.max()) != 256:
+        raise AssertionError("the BERT-base batch does not fill 256 tokens")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    emb = enc.embed(texts)
+    torch.cuda.synchronize()
+    embed_launches = dict(kernels.LAUNCHES)
+    with plain_versions():
+        ref = enc.embed(texts)
+    cos = float((emb * ref).sum(axis=1).min())
+    if emb.shape != (BASE_EMBED_B, 768) or not np.isfinite(emb).all() or cos < 0.999:
+        raise AssertionError(f"BERT-base embeddings {emb.shape}, finite={np.isfinite(emb).all()},"
+                             f" cosine to the plain versions {cos}")
+    if not embed_launches["attention"]:
+        raise AssertionError(f"the BERT-base embedding launched no attention: {embed_launches}")
+    del enc
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    timing = {}
+    losses = train_dual_encoder(index_dir, out_dir, steps=BASE_STEPS, batch=BASE_TRAIN_B,
+                                max_len=BASE_TRAIN_T, cfg=cfg, tokenizer=tok, log=lambda m: None,
+                                device=DEVICE, timing=timing)
+    train_launches = dict(kernels.LAUNCHES)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"BERT-base training gave the losses {losses}")
+    if not (train_launches["attention"] and train_launches["attention_backward"]):
+        raise AssertionError(f"BERT-base training launched no attention: {train_launches}")
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+            "head_dim": cfg.hidden_size // cfg.num_heads, "embed_tokens": 256,
+            "embed_min_cosine_vs_plain": cos, "train_tokens": BASE_TRAIN_T,
+            "train_batch": BASE_TRAIN_B, "losses": [float(x) for x in losses],
+            "s_per_step": timing["seconds"] / timing["steps"],
+            "embed_launches": {k: v for k, v in embed_launches.items() if v},
+            "train_launches": {k: v for k, v in train_launches.items() if v},
+            "seconds": time.perf_counter() - t0}
 
 
 def train_step_timing(tok, steps: int = 5) -> dict:
@@ -1657,34 +1837,46 @@ def pipeline_phase(card: str) -> dict:
     # microbatch), each beside a PyTorch call computing the same function
     rows, library = [], {}
     g = torch.Generator().manual_seed(SEED + 11)
-    qkv = torch.randn((mb, T, 3 * H), generator=g).to(dev)
-    dout = torch.randn((mb, T, H), generator=g).to(dev)
 
     def close(got, want, rtol, atol) -> float:
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
         return float((got - want).abs().max())
-    out_p = ST.stage_attention_plain(qkv)
-    err = close(ST.stage_attention_forward(qkv), out_p, 1e-5, 1e-5 * float(out_p.abs().max()))
-    pairs = 2 * mb * T * T * H  # one T x T x H product's flops
-    rows.append(("stage_attention", err, time_ms(lambda: ST.stage_attention_forward(qkv)),
-                 time_ms(lambda: ST.stage_attention_plain(qkv)), (mb, T, H),
-                 4 * (3 + 1) * mb * T * H, 2 * pairs + 5 * mb * T * T))
-    leaf = qkv.clone().requires_grad_(True)
-    (auto,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout)
-    err = close(ST.stage_attention_backward(qkv, dout), auto, 1e-5, 1e-5 * float(auto.abs().max()))
-    close(ST.stage_attention_backward_plain(qkv, dout), auto, 1e-5, 1e-5 * float(auto.abs().max()))
-    rows.append(("stage_attention_backward", err,
-                 time_ms(lambda: ST.stage_attention_backward(qkv, dout)),
-                 time_ms(lambda: ST.stage_attention_backward_plain(qkv, dout)), (mb, T, H),
-                 4 * (3 + 1 + 3) * mb * T * H, 5 * pairs + 8 * mb * T * T))
-    q, k, v = (qkv[..., i * H:(i + 1) * H].unsqueeze(1).contiguous().requires_grad_(True)
-               for i in range(3))
-    library["stage_attention"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    o = F.scaled_dot_product_attention(q, k, v)
-    do = dout.unsqueeze(1)
-    library["stage_attention_backward"] = time_ms(
-        lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
-    sdpa_err = float((o.detach().squeeze(1) - out_p).abs().max())
+    # K16a-b at the step's shape, then at T = 512 and at H = 1,024; each beside
+    # SDPA in f32 and its backward
+    sdpa_err = None
+    for T_, H_ in ((T, H),) + PIPE_WIDE:
+        qkv = torch.randn((mb, T_, 3 * H_), generator=g).to(dev)
+        dout = torch.randn((mb, T_, H_), generator=g).to(dev)
+        out_p = ST.stage_attention_plain(qkv)
+        out_k = ST.stage_attention_forward(qkv)
+        err = close(out_k, out_p, 1e-5, 1e-5 * float(out_p.abs().max()))
+        if not torch.equal(ST.stage_attention_forward(qkv), out_k):
+            raise AssertionError("two calls of the stage attention kernel differ")
+        pairs = 2 * mb * T_ * T_ * H_  # one T x T x H product's flops
+        rows.append(("stage_attention", err, time_ms(lambda: ST.stage_attention_forward(qkv)),
+                     time_ms(lambda: ST.stage_attention_plain(qkv)), (mb, T_, H_),
+                     4 * (3 + 1) * mb * T_ * H_, 3 * 2 * pairs, PEAK_TF32))
+        leaf = qkv.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout)
+        atol = 1e-5 * float(auto.abs().max())
+        err = close(ST.stage_attention_backward(qkv, dout), auto, 1e-5, atol)
+        close(ST.stage_attention_backward_plain(qkv, dout), auto, 1e-5, atol)
+        rows.append(("stage_attention_backward", err,
+                     time_ms(lambda: ST.stage_attention_backward(qkv, dout)),
+                     time_ms(lambda: ST.stage_attention_backward_plain(qkv, dout)), (mb, T_, H_),
+                     4 * (3 + 1 + 3) * mb * T_ * H_, 5 * pairs + 8 * mb * T_ * T_))
+        q, k, v = (qkv[..., i * H_:(i + 1) * H_].unsqueeze(1).contiguous().requires_grad_(True)
+                   for i in range(3))
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v)
+        do = dout.unsqueeze(1)
+        lib_b = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+        if sdpa_err is None:  # the step's shape: the kernels' library times
+            library["stage_attention"], library["stage_attention_backward"] = lib_f, lib_b
+            sdpa_err = float((o.detach().squeeze(1) - out_p).abs().max())
+        log(f"[pipeline] K16a/K16b at mb={mb} T={T_} H={H_}: sdpa {lib_f:.4f} ms, its backward "
+            f"{lib_b:.4f} ms")
+        del o, q, k, v, leaf, auto
 
     x = (3 * torch.randn((mb, T, FF), generator=g)).to(dev)
     dx = torch.randn((mb, T, FF), generator=g).to(dev)
@@ -2204,8 +2396,10 @@ def mesh_centrality_phase(data_dir: str, cent: dict, card: str) -> dict:
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
-# bf16 tensor-core FLOP/s, f32 (and integer) FLOP/s outside the tensor cores
+# bf16 tensor-core FLOP/s, f32 (and integer) FLOP/s outside the tensor cores,
+# TF32 tensor-core FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+PEAK_TF32 = 495e12  # TF32 on the tensor cores (K16a's 3xTF32 products)
 
 
 def bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> tuple:
@@ -2261,7 +2455,7 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card, config_launches, moe_launches, mesh, pipe) -> list:
+                   card, config_launches, moe_launches, mesh, pipe, grid) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
@@ -2270,14 +2464,15 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
     for the configurations' kernels, one direct call for the DIRECT three,
     the MoE steps for K15a-d, the mesh's serving round for K9 and its
     HyperBall for K8, the pipelined train steps for K16a-d, the pipeline-on
-    traffic for the rest). Each measured row is logged too."""
+    traffic for the rest; `grid`: the attention grid's rows, each with its
+    own bound). Each measured row is logged too."""
     all_rows = [(name, err, ms, pms, shape, *bound(nb, ops), ds)
                 for name, ds, err, ms, pms, shape, nb, ops in rows]
     all_rows += [(name, err, ms, pms, shape, *bound(*work(name, shape, forest)), True)
                  for name, err, ms, pms, shape in rows_m]
-    all_rows += [(name, err, ms, pms, shape, *bound(nb, ops), True)
-                 for name, err, ms, pms, shape, nb, ops in
-                 cent["rows"] + mesh["rows"] + pipe["rows"]]
+    all_rows += [(name, err, ms, pms, shape, *bound(nb, ops, *peak), True)
+                 for name, err, ms, pms, shape, nb, ops, *peak in
+                 cent["rows"] + mesh["rows"] + pipe["rows"] + grid]
     for name, err, ms, pms, shape, bms, by, ds in all_rows:
         log(f"[kernel] {name:13s} default_static={ds!s:5s} shape={shape} max_abs_err={err:.3g} "
             f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms "
@@ -2487,10 +2682,19 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     forest = in_phase("model kernels", LambdaMART.load, models["forest"], device=DEVICE)
     rows_m = (in_phase("model kernels", model_kernel_phase, forest, models["rows"])
               + in_phase("training kernels", training_kernel_phase, models["dual"]))
+    grid = in_phase("attention grid", attention_grid_phase)
     library = in_phase("library", library_phase)
     step_ms = in_phase("train step", train_step_timing, tok)
     log(f"[train step] dual InfoNCE step B={TRAIN_B} T={TRAIN_T}: kernels "
         f"{step_ms['kernels']:.2f} ms, plain versions {step_ms['plain']:.2f} ms card={card}")
+    te = in_phase("train-encoders", train_encoders_phase, index_dir,
+                  os.path.join(data_dir, "train_encoders"))
+    log(f"[result train-encoders] main.py train-encoders both INDEX OUT --steps 2 (tiny, head "
+        f"dim 16): losses {te['losses']} launches {json.dumps(te['launches'])} seconds="
+        f"{te['seconds']:.1f} card={card}")
+    base = in_phase("bert-base", bert_base_phase, index_dir,
+                    os.path.join(data_dir, "bert_base_dual"), tok)
+    log(f"[result bert-base] {json.dumps(base)} card={card}")
     del searcher
     torch.cuda.empty_cache()
     on = in_phase("serve on", build_searcher, index_dir, DEVICE, dual_encoder=models["dual"],
@@ -2594,7 +2798,7 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                       "hll_ring_step": f"centrality harmonic on a mesh of {MESH_SHARDS} shards"}}
     kernels_out = in_phase("records", kernel_records, rows + rows_c + moe["rows"], rows_m, cent,
                            library, served["launches"], models["launches"], forest, card,
-                           config_launches, moe["launches"], mesh, pipe)
+                           config_launches, moe["launches"], mesh, pipe, grid)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,15 @@ under data/). --readings picks groups (default all):
   attention_backward  K14a at B = 64 (the training batch), the same heads,
                       T and masks, beside SDPA's backward through autograd
                       (torch.autograd.grad of its output, graph retained);
+  attention_wide      K5a and K14a at B = 8, 12 heads of d, (d, T) in
+                      ATTN_WIDE (BERT-base's head dim at 256 and 512
+                      tokens, BertConfig.tiny's at 512), the masks above,
+                      beside SDPA and its backward (a tree whose kernels
+                      refuse the shape records the refusal);
+  stage_attention     K16a at mb = 8 (the pipelined step's microbatch on
+                      one dp shard), (T, H) in STAGE_SHAPES, beside
+                      scaled_dot_product_attention in f32 over one head of
+                      width H (matmuls in full f32: allow_tf32 off);
   bias_gelu           K5c at 4096 x 1536 (chip_smoke.py's shape), beside
                       F.gelu(y + b, approximate="tanh");
   sgd                 K16d over the 25 f32 tensors of the pipelined train
@@ -50,7 +59,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTN_B, ATTN_H, ATTN_T = 32, 12, (16, 65, 128, 200, 256)
 TRAIN_B, TRAIN_T, VOCAB = 64, 128, 30522
 GELU_M, GELU_N = 4096, 1536
-READINGS = ("attention", "attention_backward", "bias_gelu", "sgd", "pipeline_step", "dual_step")
+ATTN_WIDE = ((64, 256), (64, 512), (16, 512))
+STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024))
+READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention", "bias_gelu",
+            "sgd", "pipeline_step", "dual_step")
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -138,6 +150,41 @@ def worker(root: str, calls: int, readings: list) -> list:
                   ("sdpa_backward", lambda: torch.autograd.grad(o, leaves, do,
                                                                 retain_graph=True))), T=T)
             del o, leaves
+    if "attention_wide" in readings:
+        for d, T in ATTN_WIDE:
+            q, k, v = (bf(8, T, ATTN_H, d) for _ in range(3))
+            dout = bf(8, T, ATTN_H * d)
+            mask, add = _masked(8, T)
+            try:
+                E.attention_forward(q, k, v, mask)
+                E.attention_backward(q, k, v, mask, dout)
+            except ValueError as exc:  # a tree whose kernels do not take the shape
+                out.append({"name": "K5a+K14a", "d": d, "T": T, "refused": str(exc),
+                            "event_ms": None, "device_ms": None})
+                continue
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, add)
+            do = dout.view(8, T, ATTN_H, d).transpose(1, 2)
+            qt, kt, vt = (t.detach() for t in leaves)
+            read((("K5a", lambda: E.attention_forward(q, k, v, mask)),
+                  ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, add)),
+                  ("K14a", lambda: E.attention_backward(q, k, v, mask, dout)),
+                  ("sdpa_backward", lambda: torch.autograd.grad(o, leaves, do,
+                                                                retain_graph=True))), d=d, T=T)
+            del o, leaves
+    if "stage_attention" in readings:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for T, H in STAGE_SHAPES:
+            qkv = torch.randn((STAGE_MB, T, 3 * H), generator=g).cuda()
+            try:
+                ST.stage_attention_forward(qkv)
+            except ValueError as exc:
+                out.append({"name": "K16a", "T": T, "H": H, "refused": str(exc),
+                            "event_ms": None, "device_ms": None})
+                continue
+            q, k, v = (qkv[..., i * H:(i + 1) * H].unsqueeze(1).contiguous() for i in range(3))
+            read((("K16a", lambda: ST.stage_attention_forward(qkv)),
+                  ("sdpa_f32", lambda: F.scaled_dot_product_attention(q, k, v))), T=T, H=H)
     if "bias_gelu" in readings:
         y, b = bf(GELU_M, GELU_N), bf(GELU_N)
         read((("K5c", lambda: E.bias_gelu_forward(y, b)),
@@ -215,7 +262,8 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            key = f"{tree} {rec['name']} {rec.get('T', rec.get('M', rec.get('tensors', '')))}"
+            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "tensors") if f in rec)
+            key = f"{tree} {rec['name']} {shape}"
             summary.setdefault(key, []).append((rec["event_ms"], rec["device_ms"]))
     print(json.dumps({"card": card.strip().splitlines()[0], "readings": summary}), flush=True)
     return 0

@@ -1,12 +1,13 @@
 // The BERT encoder's kernels on Hopper (sm_90a): K5a masked self-attention
-// (attention_kernel, here), K14a its backward (the dQ and dK / dV kernels
-// below it) and K5c bias + tanh GELU (bias_gelu_kernel, last). Each has its
-// note above its code: what it replaces, what bounds it on the card and
-// what its design does about that. In short: all three move little data
-// and compute less, so device memory bounds them; K5a and K14a take their
-// products to the tensor cores (wgmma on cp.async-staged tiles) and spend
-// what is left in the f32 softmax and one load-compute-store pass a block;
-// K5c reads and writes 16 bytes a thread with the bias from the index.
+// (attention_kernel and attention_long_kernel, here), K14a its backward (the
+// dQ and dK / dV kernels below them) and K5c bias + tanh GELU
+// (bias_gelu_kernel, last). Each has its note above its code: what it
+// replaces, what bounds it on the card and what its design does about that.
+// In short: all three move little data and compute less, so device memory
+// bounds them; K5a and K14a take their products to the tensor cores (wgmma
+// on cp.async-staged tiles) and spend what is left in the f32 softmax and
+// one load-compute-store pass a block; K5c reads and writes 16 bytes a
+// thread with the bias from the index.
 //
 // K5a replaces the body of stract_tpu/models/bert.py:97-103 (BertSelfAttention):
 // scores = q.k^T in f32 / sqrt(d), masked keys set to finfo(f32).min, softmax
@@ -15,33 +16,50 @@
 // projection stay outside (bf16 matrix products, as the JAX package leaves
 // them to XLA's dot).
 //
-// What bounds it: at the encoder's shapes (head dim 32, T <= 256) a query
-// row needs 2 * T * 32 multiply-adds for its scores and as many for P.V,
-// about T / 2 flops per byte of q, k, v and context moved, far below the
-// ~295 at which the bf16 tensor cores would bind: device memory bounds it
-// (3.8 us at B = 32, T = 128). Beside the tensor-core products the kernel
-// spends its time in the f32 softmax (an exp and two IEEE divisions a
-// score, as the reference computes them) and in the latency of one
-// load-compute-store pass per block.
+// Shapes: head dim d in {16, 32, 64} (BertConfig.tiny, MiniLM, BERT-base and
+// -large), a template parameter; T in 1..512 (the reference's positions end
+// at 511), a runtime argument.
+// What bounds it: a query row needs 2 T d multiply-adds for its scores and
+// as many for P.V, about T / 2 flops per byte of q, k, v and context moved,
+// far below the ~295 at which the bf16 tensor cores would bind: device
+// memory bounds it (3.8 us at B = 32, 12 x 32, T = 128). Beside the
+// tensor-core products the kernel spends its time in the f32 softmax (an
+// exp and two IEEE divisions a score, as the reference computes them) and
+// in the latency of one load-compute-store pass per block.
 // The design: one warpgroup (4 warps) per (64-query tile, head, batch row).
-// The tile's Q rows and the whole K and V of the (batch row, head) go into
-// shared memory by 16-byte cp.async copies (rows past T zero-filled) in the
+// The tile's Q rows and the K and V of the (batch row, head) go into shared
+// memory by 16-byte cp.async copies (rows past T zero-filled) in the
 // canonical no-swizzle layout of wgmma operands: 8-row by 16-byte core
-// matrices, an 8-row group's four core matrices (32 columns) in 512
-// contiguous bytes. S = Q.K^T runs as wgmma m64n64k16 (bf16 in, f32
-// accumulated), two k-steps of 16 over d = 32, for each 64-key chunk; all
-// chunks' scores stay in registers (32 floats a thread a chunk), so the
-// softmax is an exact two-pass row softmax in registers (the four lanes of
-// a quad hold a row: max and sum by two shuffles). The probabilities,
-// rounded to bf16, are the A operand of O = P.V straight from registers
-// (wgmma m64n32k16: the f32 accumulator fragment of a 16-key slice is the
-// A fragment of that k-step, packed in pairs), with V read from shared
-// memory as an N-major (transposed) B operand: V is staged in the same
-// layout as K, and an 8-key by 8-dimension core matrix of V is an 8 x 16
-// byte block of it. Keys past T are padding of the 64-key chunk: zero in
-// shared memory and left out of the row max and sum. Masked keys inside T
-// take finfo(f32).min and stay in, so a fully masked row is finite with
-// uniform weights, as in the reference. Query rows past T are not stored.
+// matrices, an 8-row group's d / 8 core matrices (d columns) in 16 d
+// contiguous bytes. S = Q.K^T runs as wgmma m64n64k16
+// (bf16 in, f32 accumulated), d / 16 k-steps, for each 64-key chunk. The
+// probabilities, rounded to bf16, are the A operand of O = P.V straight
+// from registers (wgmma m64ndk16: the f32 accumulator fragment of a 16-key
+// slice is the A fragment of that k-step, packed in pairs), with V read
+// from shared memory as an N-major (transposed) B operand: V is staged in
+// the same layout as K, and an 8-key by 8-dimension core matrix of V is an
+// 8 x 16 byte block of it. Two forms of the softmax:
+//   - one pass (attention_kernel, T <= 256 at d <= 32, T <= 128 at d = 64):
+//     K and V staged whole, all chunks' scores in registers (32 floats a
+//     thread a chunk), an exact two-pass row softmax in registers (the four
+//     lanes of a quad hold a row: max and sum by two shuffles);
+//   - chunked (attention_long_kernel, the longer rows): pass 1 walks the
+//     key chunks for the row max and sum (the running sum scaled by
+//     exp(old max - new max) when the max grows: exp(0) = 1, exact, when it
+//     does not), pass 2 computes each chunk's scores again and forms
+//     p = exp(s - max) / sum, rounds it to bf16 and feeds it to P.V, so the
+//     normalised probabilities round to bf16 as the reference's do
+//     (bert.py:101-102); registers do not grow with T. K and V stream
+//     through double buffers, a chunk's cp.async copies in flight while the
+//     one before it computes (stream_chunks): 43 KB of shared memory at
+//     d = 64 for any T, so five blocks share an SM. A first build staged K
+//     and V whole (141 KB at T = 512, d = 64: one block, one warpgroup an
+//     SM) and took 0.358 ms at B = 8, 12 heads of 64 (SDPA 0.029) on the
+//     H100.
+// Keys past T are padding of the 64-key chunk: zero in shared memory and
+// left out of the row max and sum. Masked keys inside T take
+// finfo(f32).min and stay in, so a fully masked row is finite with uniform
+// weights, as in the reference. Query rows past T are not stored.
 
 #include <cfloat>
 #include <cstdint>
@@ -50,17 +68,31 @@
 
 namespace {
 
-constexpr int kHeadDim = 32;
-constexpr int kMaxT = 256;
+constexpr int kMaxT = 512;
 constexpr int kTile = 64;             // query rows of a block, keys of a chunk
 constexpr int kThreads = 128;         // one warpgroup
-constexpr int kGroupBytes = 512;      // an 8-row group: 4 core matrices of 8 x 16 bytes
-constexpr int kCoreBytes = 128;
-constexpr int kTileBytes = kTile * kHeadDim * 2;  // a staged 64-row tile
+constexpr int kCoreBytes = 128;       // a core matrix: 8 rows x 16 bytes
+constexpr size_t kDefaultSmem = 48 * 1024;  // above it a kernel must opt in
 
-// the byte offset of 16-byte chunk c (0..3) of row r in a staged tile
+// a staged 64-row tile of head dim D
+template <int D>
+struct Tile {
+    static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
+    static constexpr int kGroupBytes = 16 * D;  // an 8-row group: D / 8 core matrices
+    static constexpr int kBytes = kTile * D * 2;
+    static constexpr int kRowPieces = D / 8;    // 16-byte pieces of a row
+    static constexpr int kSteps = D / 16;       // wgmma k-steps over the head dim
+};
+
+// the most 64-key chunks whose scores the one-pass kernels hold in registers
+// (32 a thread a chunk beside a [64 x D] accumulator of D / 2)
+template <int D>
+constexpr int kHeldChunks = D == 64 ? 2 : 4;
+
+// the byte offset of 16-byte piece c of row r in a staged tile
+template <int D>
 __device__ __forceinline__ uint32_t staged(int r, int c) {
-    return (r >> 3) * kGroupBytes + c * kCoreBytes + (r & 7) * 16;
+    return (r >> 3) * Tile<D>::kGroupBytes + c * kCoreBytes + (r & 7) * 16;
 }
 
 // a wgmma shared-memory descriptor, no swizzle: start address, the byte
@@ -106,19 +138,47 @@ __device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t a, uint64_
         : "l"(a), "l"(b));
 }
 
-// d[64 x 32] += A[64 x 16] . B[16 x 32], A in registers (bf16 pairs), B
+// d[64 x D] += A[64 x 16] . B[16 x D], A in registers (bf16 pairs), B
 // N-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_context(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+template <int D>
+__device__ __forceinline__ void wgmma_context(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    if constexpr (D == 16) {
+        asm volatile(
+            "{\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+    } else if constexpr (D == 32) {
+        asm volatile(
+            "{\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+    } else {
+        asm volatile(
+            "{\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+            "}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+    }
 }
 
 // keep the compiler from reading (or writing) wgmma registers across the
@@ -162,45 +222,70 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
     lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// rows first .. first + rows - 1 of a [T, H * 32] tensor's head (src points
+// a row's max and sum over the four lanes of its quad
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows first .. first + rows - 1 of a [T, H * D] tensor's head (src points
 // at row 0 of it) into a staged tile by 16-byte cp.async; rows past T fill zeros
+template <int D>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const __nv_bfloat16* src, int first,
                                            int rows, int T, long long row_stride) {
-    for (int i = threadIdx.x; i < rows * 4; i += kThreads) {
-        const int r = i / 4, c = i % 4, t = first + r;
-        cp_async16(dst + staged(r, c), src + (t < T ? t * row_stride : 0) + c * 8, t < T ? 16 : 0);
+    constexpr int kPieces = Tile<D>::kRowPieces;
+    for (int i = threadIdx.x; i < rows * kPieces; i += kThreads) {
+        const int r = i / kPieces, c = i % kPieces, t = first + r;
+        cp_async16(dst + staged<D>(r, c), src + (t < T ? t * row_stride : 0) + c * 8,
+                   t < T ? 16 : 0);
     }
 }
 
+// each key's place in the softmax, keys 0 .. keys - 1 of batch row b: 1
+// kept, 0 masked (finfo(f32).min), -1 past T (left out)
+__device__ __forceinline__ void stage_keep(float* keep, const int* mask, int b, int keys, int T) {
+    for (int j = threadIdx.x; j < keys; j += kThreads)
+        keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+}
+
 // d[64 x 64] = A.B^T over the head dimension, A and B staged 64-row tiles:
-// issued, not waited for
+// issued, not waited for. K-major A and B, core matrices 128 bytes apart
+// along K and a group apart along M / N; a k-step of 16 columns is two core
+// matrices (256 bytes)
+template <int D>
 __device__ __forceinline__ void issue_tile_product(float (&d)[32], const unsigned char* a,
                                                    const unsigned char* b) {
+    constexpr uint32_t G = Tile<D>::kGroupBytes;
 #pragma unroll
     for (int i = 0; i < 32; ++i) d[i] = 0.0f;
     fence_regs(d);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-        wgmma_scores(d, smem_desc(a + ks * 256, kCoreBytes, kGroupBytes),
-                     smem_desc(b + ks * 256, kCoreBytes, kGroupBytes));
+    for (int ks = 0; ks < Tile<D>::kSteps; ++ks)
+        wgmma_scores(d, smem_desc(a + ks * 256, kCoreBytes, G),
+                     smem_desc(b + ks * 256, kCoreBytes, G));
 }
 
+template <int D>
 __device__ __forceinline__ void tile_product(float (&d)[32], const unsigned char* a,
                                              const unsigned char* b) {
-    issue_tile_product(d, a, b);
+    issue_tile_product<D>(d, a, b);
     wgmma_commit_and_wait();
     fence_regs(d);
 }
 
 // S[64 x 64 c .. 64 c + 63] = Q.K^T for every 64-key chunk c of the staged
-// K rows, in registers: K-major A and B, core matrices 128 bytes apart
-// along K and 512 along M / N; a k-step of 16 columns is two core matrices
-// (256 bytes). s[c][4j + e] is row 16 warp + lane / 4 (+ 8 for e >= 2),
-// key 64 c + 8 j + 2 (lane % 4) + (e & 1)
-template <int CHUNKS>
+// K rows, in registers. s[c][4j + e] is row 16 warp + lane / 4 (+ 8 for
+// e >= 2), key 64 c + 8 j + 2 (lane % 4) + (e & 1)
+template <int D, int CHUNKS>
 __device__ __forceinline__ void chunk_scores(float (&s)[CHUNKS][32], const unsigned char* q_tile,
                                              const unsigned char* k_rows) {
+    constexpr uint32_t G = Tile<D>::kGroupBytes;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
@@ -211,25 +296,46 @@ __device__ __forceinline__ void chunk_scores(float (&s)[CHUNKS][32], const unsig
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-            wgmma_scores(s[c], smem_desc(q_tile + ks * 256, kCoreBytes, kGroupBytes),
-                         smem_desc(k_rows + c * kTileBytes + ks * 256, kCoreBytes, kGroupBytes));
+        for (int ks = 0; ks < Tile<D>::kSteps; ++ks)
+            wgmma_scores(s[c], smem_desc(q_tile + ks * 256, kCoreBytes, G),
+                         smem_desc(k_rows + c * Tile<D>::kBytes + ks * 256, kCoreBytes, G));
     wgmma_commit_and_wait();
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) fence_regs(s[c]);
 }
 
-// the B descriptor of k-step kk (16 rows) of a staged tile read N-major
-__device__ __forceinline__ uint64_t rows_desc(const unsigned char* tile, int kk) {
-    return smem_desc(tile + kk * 2 * kGroupBytes, kGroupBytes, kCoreBytes);
+// one 64-key chunk's scores scaled (divided by sqrt(d) when DIVIDE, else
+// multiplied by its reciprocal), masked keys at finfo(f32).min; the max of
+// the keys inside T into mx[row] (keep: the chunk's entries of stage_keep)
+template <bool DIVIDE>
+__device__ __forceinline__ void mask_scores(float (&s)[32], const float* keep, float scale,
+                                            float (&mx)[2]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        const float k = keep[(i / 4) * 8 + 2 * (lane % 4) + (i & 1)];
+        const float x = k > 0.0f ? (DIVIDE ? div_nonzero(s[i], scale) : s[i] * scale) : -FLT_MAX;
+        s[i] = x;
+        if (k >= 0.0f) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
 }
 
-// a 64-row tile's [64 x 32] f32 accumulator (acc[4j + e]: row 16 warp +
+// the B descriptor of k-step kk (16 rows) of a staged tile read N-major:
+// core matrices (8 rows x 8 dimensions) a group apart along K and 128 bytes
+// apart along N
+template <int D>
+__device__ __forceinline__ uint64_t rows_desc(const unsigned char* tile, int kk) {
+    constexpr uint32_t G = Tile<D>::kGroupBytes;
+    return smem_desc(tile + kk * 2 * G, G, kCoreBytes);
+}
+
+// a 64-row tile's [64 x D] f32 accumulator (acc[4j + e]: row 16 warp +
 // lane / 4 (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1)) as bf16
-// into rows first .. first + 63 of a [T, H * 32] tensor's head (dst at its
+// into rows first .. first + 63 of a [T, H * D] tensor's head (dst at its
 // row 0); rows past T are not stored
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[16], int first,
-                                           int T, long long row_stride) {
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 2],
+                                           int first, int T, long long row_stride) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -237,71 +343,104 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc
         if (t >= T) continue;
         __nv_bfloat16* row = dst + t * row_stride;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < D / 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * (lane % 4)) =
                 __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
 }
 
+template <int D>
 size_t attention_smem_bytes(int chunks) {
-    return static_cast<size_t>(kTileBytes) * (1 + 2 * chunks) +  // Q tile; K and V
-           static_cast<size_t>(chunks) * kTile * sizeof(float);   // the mask
+    return static_cast<size_t>(Tile<D>::kBytes) * (1 + 2 * chunks) +  // Q tile; K and V
+           static_cast<size_t>(chunks) * kTile * sizeof(float);      // the mask
 }
 
-// CHUNKS: 64-key chunks, ceil(T / 64), 1..4
-template <int CHUNKS>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ out, int T, int H) {
-    constexpr int kKeys = CHUNKS * kTile;
-    extern __shared__ __align__(16) unsigned char smem[];
-    unsigned char* s_q = smem;
-    unsigned char* s_k = s_q + kTileBytes;
-    unsigned char* s_v = s_k + CHUNKS * kTileBytes;
-    float* s_keep = reinterpret_cast<float*>(s_v + CHUNKS * kTileBytes);
+// the chunked kernel: Q tile, two chunks of K and of V, the mask
+template <int D>
+size_t attention_long_smem_bytes(int chunks) {
+    return static_cast<size_t>(Tile<D>::kBytes) * 5 +
+           static_cast<size_t>(chunks) * kTile * sizeof(float);
+}
 
+// the shared staging of both forward kernels: the query tile, K and V of
+// `chunks` 64-key chunks and the keys' places → (s_q, s_k, s_v, s_keep)
+template <int D>
+__device__ __forceinline__ void stage_forward(unsigned char* smem, const __nv_bfloat16* q,
+                                              const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                              const int* mask, int chunks, int T, int H,
+                                              unsigned char*& s_q, unsigned char*& s_k,
+                                              unsigned char*& s_v, float*& s_keep) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    s_q = smem;
+    s_k = s_q + kBytes;
+    s_v = s_k + chunks * kBytes;
+    s_keep = reinterpret_cast<float*>(s_v + chunks * kBytes);
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-    const int tid = threadIdx.x, lane = tid % 32;
-    const long long row_stride = static_cast<long long>(H) * kHeadDim;
-    const __nv_bfloat16* qb = q + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    const __nv_bfloat16* kb = k + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    const __nv_bfloat16* vb = v + static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-
-    stage_rows(s_q, qb, q0, kTile, T, row_stride);
-    stage_rows(s_k, kb, 0, kKeys, T, row_stride);
-    stage_rows(s_v, vb, 0, kKeys, T, row_stride);
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(b) * T * row_stride + h * D;
+    stage_rows<D>(s_q, q + base, q0, kTile, T, row_stride);
+    stage_rows<D>(s_k, k + base, 0, chunks * kTile, T, row_stride);
+    stage_rows<D>(s_v, v + base, 0, chunks * kTile, T, row_stride);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int j = tid; j < kKeys; j += kThreads)
-        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+    stage_keep(s_keep, mask, b, chunks * kTile, T);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     // the copies and stores above are generic-proxy writes; wgmma reads
     // shared memory through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
+}
+
+// the 64-row chunks of one or two [T, H * D] heads (a, and b unless null;
+// src at row 0) through double buffers of shared memory: chunk c + 1 is
+// copied by cp.async while fn(c, a's tile, b's tile) computes on chunk c.
+// Copies issued before the call (a query tile) land before fn's first call
+template <int D, typename F>
+__device__ __forceinline__ void stream_chunks(int chunks, int T, long long row_stride,
+                                              const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                              unsigned char* a_buf, unsigned char* b_buf,
+                                              F&& fn) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    auto load = [&](int c) {
+        if (c < chunks) {
+            stage_rows<D>(a_buf + (c & 1) * kBytes, a, c * kTile, kTile, T, row_stride);
+            if (b) stage_rows<D>(b_buf + (c & 1) * kBytes, b, c * kTile, kTile, T, row_stride);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");  // empty past the last chunk
+    };
+    load(0);
+    for (int c = 0; c < chunks; ++c) {
+        load(c + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // all but chunk c + 1's
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        fn(c, a_buf + (c & 1) * kBytes, b_buf + (c & 1) * kBytes);
+        __syncthreads();  // chunk c's buffers are read before chunk c + 2 fills them
+    }
+}
+
+// K5a, one pass: CHUNKS 64-key chunks, ceil(T / 64), 1 .. kHeldChunks<D>
+template <int D, int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ out, int T, int H) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char *s_q, *s_k, *s_v;
+    float* s_keep;
+    stage_forward<D>(smem, q, k, v, mask, CHUNKS, T, H, s_q, s_k, s_v, s_keep);
+    const int lane = threadIdx.x % 32;
 
     float s[CHUNKS][32];
-    chunk_scores(s, s_q, s_k);
+    chunk_scores<D, CHUNKS>(s, s_q, s_k);
 
     // the reference divides the f32 scores by np.sqrt(head_dim) rounded to f32
-    const float scale_div = sqrtf(static_cast<float>(kHeadDim));
+    const float scale_div = sqrtf(static_cast<float>(D));
     float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
-            const float keep = s_keep[key];
-            const float x = keep > 0.0f ? div_nonzero(s[c][i], scale_div) : -FLT_MAX;
-            s[c][i] = x;
-            if (keep >= 0.0f) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-        }
+    for (int c = 0; c < CHUNKS; ++c) mask_scores<true>(s[c], s_keep + c * kTile, scale_div, mx);
     float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
+    for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
@@ -312,18 +451,13 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
             sum[(i >> 1) & 1] += e;
         }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    }
+    for (int r = 0; r < 2; ++r) sum[r] = quad_sum(sum[r]);
 
     // O = bf16(P).V: k-step kk covers keys 16 kk .. 16 kk + 15, the
-    // accumulator registers 8 (kk % 4) .. + 7 of chunk kk / 4; V's core
-    // matrices (8 keys x 8 dimensions) lie 512 bytes apart along K and 128
-    // along N
-    float o[16];
+    // accumulator registers 8 (kk % 4) .. + 7 of chunk kk / 4
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     uint32_t a[CHUNKS * 4][4];
 #pragma unroll
     for (int kk = 0; kk < CHUNKS * 4; ++kk) {
@@ -338,18 +472,100 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < CHUNKS * 4; ++kk)
-        wgmma_context(o, a[kk], rows_desc(s_v, kk));
+    for (int kk = 0; kk < CHUNKS * 4; ++kk) wgmma_context<D>(o, a[kk], rows_desc<D>(s_v, kk));
     wgmma_commit_and_wait();
     fence_regs(o);
 #pragma unroll
     for (int kk = 0; kk < CHUNKS * 4; ++kk) fence_regs(a[kk]);
 
-    store_rows(out + static_cast<long long>(b) * T * row_stride + h * kHeadDim, o, q0, T,
-               row_stride);
+    const long long row_stride = static_cast<long long>(H) * D;
+    store_rows<D>(out + static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D, o,
+                  blockIdx.x * kTile, T, row_stride);
 }
 
-// K14a: the gradient of the kernel above, as jax.vjp differentiates the
+// K5a, chunked: any T up to kMaxT, the scores of one 64-key chunk at a time;
+// K and V stream through double buffers (five tiles of shared memory in all,
+// so several blocks share an SM)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+                      __nv_bfloat16* __restrict__ out, int T, int H) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    const int chunks = (T + kTile - 1) / kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_q = smem;
+    unsigned char* s_k = s_q + kBytes;      // two chunks' K
+    unsigned char* s_v = s_k + 2 * kBytes;  // two chunks' V
+    float* s_keep = reinterpret_cast<float*>(s_v + 2 * kBytes);
+    const int b = blockIdx.z, lane = threadIdx.x % 32;
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(b) * T * row_stride + blockIdx.y * D;
+    stage_rows<D>(s_q, q + base, blockIdx.x * kTile, kTile, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_keep(s_keep, mask, b, chunks * kTile, T);
+    const float scale_div = sqrtf(static_cast<float>(D));
+
+    // pass 1: the row max and sum (each lane's part of the sum, scaled when
+    // the row max grows)
+    float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.0f, 0.0f};
+    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr,
+                     [&](int c, const unsigned char* kt, const unsigned char*) {
+        float s[32];
+        tile_product<D>(s, s_q, kt);
+        float cm[2] = {-FLT_MAX, -FLT_MAX};
+        mask_scores<true>(s, s_keep + c * kTile, scale_div, cm);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float m = fmaxf(mx[r], quad_max(cm[r]));
+            sum[r] *= expf(mx[r] - m);
+            mx[r] = m;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            if (key < T) sum[(i >> 1) & 1] += expf(s[i] - mx[(i >> 1) & 1]);
+        }
+    });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sum[r] = quad_sum(sum[r]);
+
+    // pass 2: O = bf16(exp(s - max) / sum).V, a chunk's four k-steps at a time
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+                     [&](int c, const unsigned char* kt, const unsigned char* vt) {
+        float s[32];
+        tile_product<D>(s, s_q, kt);
+        float unused[2] = {-FLT_MAX, -FLT_MAX};
+        mask_scores<true>(s, s_keep + c * kTile, scale_div, unused);
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int i = 8 * kk + 2 * j;
+                const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4);
+                const float e0 = key < T ? expf(s[i] - mx[j & 1]) : 0.0f;
+                const float e1 = key + 1 < T ? expf(s[i + 1] - mx[j & 1]) : 0.0f;
+                a[kk][j] = pack_bf16(div_nonzero(e0, sum[j & 1]), div_nonzero(e1, sum[j & 1]));
+            }
+            fence_regs(a[kk]);
+        }
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_context<D>(o, a[kk], rows_desc<D>(vt, kk));
+        wgmma_commit_and_wait();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+    });
+    store_rows<D>(out + base, o, blockIdx.x * kTile, T, row_stride);
+}
+
+// K14a: the gradient of the kernels above, as jax.vjp differentiates the
 // reference body (the training steps of stract_tpu/entrypoint/
 // train_encoders.py:244 and parallel/train.py:87,115 through bert.py:97-103).
 // With g = f32(dO): dV = bf16(Pb^T g) with Pb = bf16(P), the probabilities
@@ -359,30 +575,37 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // dQ = bf16(dS K / sqrt(d)) and dK = bf16(dS^T Q / sqrt(d)).
 //
 // What bounds it: each (batch row, head) reads q, k, v and dO once and
-// writes dq, dk, dv (64 B a token each: 0.0132 ms at B = 64, T = 128), and
-// its five products of T^2 d multiply-adds each are below the bf16 ridge
-// on the tensor cores, so the bytes bind; beside them the f32 softmax and
-// its gradient (an exp and a dozen other operations a score, in each
-// kernel) and the latency of one unpipelined load-compute-store pass a
+// writes dq, dk, dv (64 B a token each at d = 32: 0.0132 ms at B = 64,
+// T = 128), and its five products of T^2 d multiply-adds each are below the
+// bf16 ridge on the tensor cores, so the bytes bind; beside them the f32
+// softmax and its gradient (an exp and a dozen other operations a score, in
+// each kernel) and the latency of one unpipelined load-compute-store pass a
 // block. The design: two kernels on K5a's tiles (the staged layout, the
 // descriptors, cp.async, wgmma), one warpgroup a block, grid (64-row
 // tiles, heads, batch rows), no atomics (each output row has one writer,
 // so two calls are bit-equal):
 //   1. the dQ kernel, a 64-query tile: Q and dO tiles, K and V whole in
-//      shared memory; S = Q.K^T and the masked two-pass softmax as K5a
-//      computes it (all chunks' P in registers); dP = dO.V^T by wgmma a
-//      64-key chunk at a time, rounded to bf16, gives D = rowsum(P dP); dP
-//      is computed again (two wgmma a chunk: cheaper than 128 more
-//      registers or 32 KB of shared memory) for dS, and dQ = dS.K takes dS
-//      from registers as the A operand and K as the N-major B (V's role in
-//      K5a). The row's max, sum and D go to an f32 scratch [B, H, T, 3]
-//      the wrapper allocates.
+//      shared memory. One pass (T <= 256 at d <= 32, T <= 128 at d = 64):
+//      S = Q.K^T and the masked two-pass softmax as K5a computes it (all
+//      chunks' P in registers); dP = dO.V^T by wgmma a 64-key chunk at a
+//      time, rounded to bf16, gives D = rowsum(P dP); dP is computed again
+//      (two wgmma a chunk: cheaper than 128 more registers or 32 KB of
+//      shared memory) for dS, and dQ = dS.K takes dS from registers as the
+//      A operand and K as the N-major B (V's role in K5a). Chunked (the
+//      longer rows): three passes over the key chunks, nothing of a chunk
+//      kept in registers between them: the row max and sum (as K5a's
+//      chunked pass 1), then S and dP again for D, then S and dP again for
+//      dS and dQ, K and V streamed as in K5a's chunked kernel. The row's
+//      max, sum and D go to an f32 scratch [B, H, T, 3] the wrapper
+//      allocates.
 //   2. the dK / dV kernel, a 64-key tile: K and V tiles, Q, dO and the
 //      scratch whole; a 64-query chunk at a time S^T = K.Q^T and
 //      dP^T = V.dO^T (one wait for both), P^T from the scratch's max and
 //      sum by the first kernel's expressions, dS^T from its D;
 //      dV += bf16(P^T).dO and dK += dS^T.Q, both with the A operand from
-//      registers.
+//      registers. Its registers do not grow with T: the query chunks are a
+//      loop, unrolled over Q and dO staged whole up to K5a's one-pass
+//      lengths, beyond them Q and dO streamed through double buffers.
 // The divisions: by sqrt(d) and by the row sum, each score is multiplied
 // by the correctly rounded reciprocal instead (what PyTorch does for the
 // twin's division by the scalar sqrt(d) on the card; within an ulp of the
@@ -402,12 +625,13 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // the register-A bf16 product of K5a and needs no f32 staging of K and Q
 // (tf32 wgmma takes no transposed B). The other three products (S, dP, dV)
 // have exact bf16 inputs. Shared memory: 41,984 and 44,032 bytes at
-// T = 256, under 48 KB: no opt-in. Registers: P of all chunks (128 a thread
-// at T > 192: ~250 registers, two blocks an SM), as K5a. Masked keys stay
-// in the softmax at finfo(f32).min, so a fully masked row has uniform
-// weights and dQ = 0; keys past T are zero-filled and left out of the
-// sums; query rows past T are not stored, and the second kernel gives them
-// P = dS = 0.
+// T = 256, d = 32; 51,200 and 55,296 at T = 512, d = 64 (a kernel opts in
+// above 48 KB). Registers: the one-pass dQ kernel holds P of all chunks
+// (128 a thread at T > 192, d = 32: ~250 registers, two blocks an SM), as
+// K5a. Masked keys stay in the softmax at finfo(f32).min, so a fully masked
+// row has uniform weights and dQ = 0; keys past T are zero-filled and left
+// out of the sums; query rows past T are not stored, and the second kernel
+// gives them P = dS = 0.
 
 // dS / sqrt(d) of one score (0 at a masked key), as the twin computes it
 __device__ __forceinline__ float grad_score(float p, float dp, float dsum, bool keep,
@@ -417,21 +641,127 @@ __device__ __forceinline__ float grad_score(float p, float dp, float dsum, bool 
 
 // 1 / sqrt(d) rounded to f32: the twin's division by the scalar sqrt(d) on
 // the card (PyTorch multiplies by the scalar's f32 reciprocal)
+template <int D>
 __device__ __forceinline__ float inv_sqrt_head_dim() {
-    return __frcp_rn(sqrtf(static_cast<float>(kHeadDim)));
+    return __frcp_rn(sqrtf(static_cast<float>(D)));
 }
 
+template <int D>
 size_t backward_dq_smem_bytes(int chunks) {
-    return 2 * static_cast<size_t>(kTileBytes) * (1 + chunks) +      // Q, dO tiles; K, V
-           static_cast<size_t>(chunks) * kTile * sizeof(float);       // the mask
+    return 2 * static_cast<size_t>(Tile<D>::kBytes) * (1 + chunks) +  // Q, dO tiles; K, V
+           static_cast<size_t>(chunks) * kTile * sizeof(float);        // the mask
 }
 
+template <int D>
 size_t backward_dkv_smem_bytes(int chunks) {
-    return 2 * static_cast<size_t>(kTileBytes) * (1 + chunks) +      // K, V tiles; Q, dO
-           3 * static_cast<size_t>(chunks) * kTile * sizeof(float);   // max, sum, D a query
+    return 2 * static_cast<size_t>(Tile<D>::kBytes) * (1 + chunks) +  // K, V tiles; Q, dO
+           3 * static_cast<size_t>(chunks) * kTile * sizeof(float);    // max, sum, D a query
 }
 
-template <int CHUNKS>
+// the chunked kernels: two tiles (Q and dO, or K and V) and two chunks of the
+// other two; the mask, or the queries' statistics
+template <int D>
+size_t backward_dq_long_smem_bytes(int chunks) {
+    return 6 * static_cast<size_t>(Tile<D>::kBytes) +
+           static_cast<size_t>(chunks) * kTile * sizeof(float);
+}
+
+template <int D>
+size_t backward_dkv_long_smem_bytes(int chunks) {
+    return 6 * static_cast<size_t>(Tile<D>::kBytes) +
+           3 * static_cast<size_t>(chunks) * kTile * sizeof(float);
+}
+
+// the dQ kernels' staging: the query tile's Q and dO, K and V of `chunks`
+// 64-key chunks and the keys' places → (s_q, s_do, s_k, s_v, s_keep)
+template <int D>
+__device__ __forceinline__ void stage_dq(unsigned char* smem, const __nv_bfloat16* q,
+                                         const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                         const int* mask, const __nv_bfloat16* dout,
+                                         int chunks, int T, long long base,
+                                         long long row_stride, unsigned char*& s_q,
+                                         unsigned char*& s_do, unsigned char*& s_k,
+                                         unsigned char*& s_v, float*& s_keep) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    s_q = smem;
+    s_do = s_q + kBytes;
+    s_k = s_do + kBytes;
+    s_v = s_k + chunks * kBytes;
+    s_keep = reinterpret_cast<float*>(s_v + chunks * kBytes);
+    const int q0 = blockIdx.x * kTile;
+    stage_rows<D>(s_q, q + base, q0, kTile, T, row_stride);
+    stage_rows<D>(s_do, dout + base, q0, kTile, T, row_stride);
+    stage_rows<D>(s_k, k + base, 0, chunks * kTile, T, row_stride);
+    stage_rows<D>(s_v, v + base, 0, chunks * kTile, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_keep(s_keep, mask, blockIdx.z, chunks * kTile, T);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+}
+
+// each query row's max, sum and D into the scratch
+__device__ __forceinline__ void store_stats(float* stats, const float (&mx)[2],
+                                            const float (&sum)[2], const float (&dsum)[2], int T,
+                                            int H) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane % 4) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int t = blockIdx.x * kTile + 16 * warp + lane / 4 + 8 * r;
+        if (t >= T) continue;
+        float* st = stats + ((static_cast<long long>(blockIdx.z) * H + blockIdx.y) * T + t) * 3;
+        st[0] = mx[r];
+        st[1] = sum[r];
+        st[2] = dsum[r];
+    }
+}
+
+// dQ += (dS / sqrt(d)).K over one 64-key chunk (its K tile kt): dS from
+// the chunk's p (0 past T), bf16(dp) and the row's D, split hi + lo; k-step
+// kk covers the chunk's keys 16 kk .. + 15, registers 8 kk .. 8 kk + 7
+template <int D>
+__device__ __forceinline__ void dq_chunk(float (&acc)[D / 2], const float (&p)[32],
+                                         const float (&dp)[32], const float (&dsum)[2],
+                                         const float* keep, const unsigned char* kt,
+                                         float inv_scale) {
+    const int lane = threadIdx.x % 32;
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int i = 8 * kk + 2 * j;
+            const int key = (i / 4) * 8 + 2 * (lane % 4);
+            const float d = dsum[j & 1];
+            split_bf16(grad_score(p[i], round_bf16(dp[i]), d, keep[key] > 0.0f, inv_scale),
+                       grad_score(p[i + 1], round_bf16(dp[i + 1]), d, keep[key + 1] > 0.0f,
+                                  inv_scale),
+                       hi[kk][j], lo[kk][j]);
+        }
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(hi[kk]);
+        fence_regs(lo[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        wgmma_context<D>(acc, hi[kk], rows_desc<D>(kt, kk));
+        wgmma_context<D>(acc, lo[kk], rows_desc<D>(kt, kk));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(hi[kk]);
+        fence_regs(lo[kk]);
+    }
+}
+
+// K14a's dQ kernel, one pass: CHUNKS = ceil(T / 64), 1 .. kHeldChunks<D>
+template <int D, int CHUNKS>
 __global__ void __launch_bounds__(kThreads)
 attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -439,51 +769,27 @@ attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ dout,
                              __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int T,
                              int H) {
-    constexpr int kKeys = CHUNKS * kTile;
+    constexpr int kBytes = Tile<D>::kBytes;
     extern __shared__ __align__(16) unsigned char smem[];
-    unsigned char* s_q = smem;
-    unsigned char* s_do = s_q + kTileBytes;
-    unsigned char* s_k = s_do + kTileBytes;
-    unsigned char* s_v = s_k + CHUNKS * kTileBytes;
-    float* s_keep = reinterpret_cast<float*>(s_v + CHUNKS * kTileBytes);
-
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const long long row_stride = static_cast<long long>(H) * kHeadDim;
-    const long long base = static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    stage_rows(s_q, q + base, q0, kTile, T, row_stride);
-    stage_rows(s_do, dout + base, q0, kTile, T, row_stride);
-    stage_rows(s_k, k + base, 0, kKeys, T, row_stride);
-    stage_rows(s_v, v + base, 0, kKeys, T, row_stride);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int j = threadIdx.x; j < kKeys; j += kThreads)
-        s_keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
+    const int lane = threadIdx.x % 32;
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
+    unsigned char *s_q, *s_do, *s_k, *s_v;
+    float* s_keep;
+    stage_dq<D>(smem, q, k, v, mask, dout, CHUNKS, T, base, row_stride, s_q, s_do, s_k, s_v,
+                s_keep);
 
     // S = Q.K^T for every chunk, then P by K5a's masked two-pass softmax
     // with the reciprocals and __expf
     float p[CHUNKS][32];
-    chunk_scores(p, s_q, s_k);
-
-    const float inv_scale = inv_sqrt_head_dim();
+    chunk_scores<D, CHUNKS>(p, s_q, s_k);
+    const float inv_scale = inv_sqrt_head_dim<D>();
     float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            const float keep = s_keep[c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1)];
-            const float x = keep > 0.0f ? p[c][i] * inv_scale : -FLT_MAX;
-            p[c][i] = x;
-            if (keep >= 0.0f) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-        }
+    for (int c = 0; c < CHUNKS; ++c) mask_scores<false>(p[c], s_keep + c * kTile, inv_scale, mx);
     float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
+    for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
 #pragma unroll
@@ -494,10 +800,7 @@ attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
             sum[(i >> 1) & 1] += e;
         }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    }
+    for (int r = 0; r < 2; ++r) sum[r] = quad_sum(sum[r]);
     const float rsum[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
@@ -509,73 +812,205 @@ attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
         float dp[32];
-        tile_product(dp, s_do, s_v + c * kTileBytes);
+        tile_product<D>(dp, s_do, s_v + c * kBytes);
 #pragma unroll
         for (int i = 0; i < 32; ++i) dsum[(i >> 1) & 1] += p[c][i] * round_bf16(dp[i]);
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-    }
-    if (lane % 4 == 0) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int t = q0 + 16 * warp + lane / 4 + 8 * r;
-            if (t >= T) continue;
-            float* st = stats + ((static_cast<long long>(b) * H + h) * T + t) * 3;
-            st[0] = mx[r];
-            st[1] = sum[r];
-            st[2] = dsum[r];
-        }
-    }
+    for (int r = 0; r < 2; ++r) dsum[r] = quad_sum(dsum[r]);
+    store_stats(stats, mx, sum, dsum, T, H);
 
-    // dQ = (dS / sqrt(d)).K with dS = hi + lo from registers: k-step kk of
-    // chunk c covers keys 64 c + 16 kk .. + 15, registers 8 kk .. 8 kk + 7
-    float acc[16];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
         float dp[32];
-        tile_product(dp, s_do, s_v + c * kTileBytes);
-        uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int i = 8 * kk + 2 * j;
-                const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4);
-                const float d = dsum[j & 1];
-                split_bf16(grad_score(p[c][i], round_bf16(dp[i]), d, s_keep[key] > 0.0f, inv_scale),
-                           grad_score(p[c][i + 1], round_bf16(dp[i + 1]), d,
-                                      s_keep[key + 1] > 0.0f, inv_scale),
-                           hi[kk][j], lo[kk][j]);
-            }
-        fence_regs(acc);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            fence_regs(hi[kk]);
-            fence_regs(lo[kk]);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            wgmma_context(acc, hi[kk], rows_desc(s_k, c * 4 + kk));
-            wgmma_context(acc, lo[kk], rows_desc(s_k, c * 4 + kk));
-        }
-        wgmma_commit_and_wait();
-        fence_regs(acc);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            fence_regs(hi[kk]);
-            fence_regs(lo[kk]);
-        }
+        tile_product<D>(dp, s_do, s_v + c * kBytes);
+        dq_chunk<D>(acc, p[c], dp, dsum, s_keep + c * kTile, s_k + c * kBytes, inv_scale);
     }
-    store_rows(dq + base, acc, q0, T, row_stride);
+    store_rows<D>(dq + base, acc, blockIdx.x * kTile, T, row_stride);
 }
 
-template <int CHUNKS>
+// K14a's dQ kernel, chunked: any T up to kMaxT, one 64-key chunk's scores
+// at a time in three passes, K and V streamed through double buffers
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const int* __restrict__ mask,
+                                  const __nv_bfloat16* __restrict__ dout,
+                                  __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
+                                  int T, int H) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    const int chunks = (T + kTile - 1) / kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_q = smem;
+    unsigned char* s_do = s_q + kBytes;
+    unsigned char* s_k = s_do + kBytes;     // two chunks' K
+    unsigned char* s_v = s_k + 2 * kBytes;  // two chunks' V
+    float* s_keep = reinterpret_cast<float*>(s_v + 2 * kBytes);
+    const int lane = threadIdx.x % 32;
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
+    stage_rows<D>(s_q, q + base, blockIdx.x * kTile, kTile, T, row_stride);
+    stage_rows<D>(s_do, dout + base, blockIdx.x * kTile, kTile, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage_keep(s_keep, mask, blockIdx.z, chunks * kTile, T);
+    const float inv_scale = inv_sqrt_head_dim<D>();
+
+    // pass 1: the row max and sum, as K5a's chunked pass 1 (with __expf)
+    float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.0f, 0.0f};
+    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr,
+                     [&](int c, const unsigned char* kt, const unsigned char*) {
+        float s[32];
+        tile_product<D>(s, s_q, kt);
+        float cm[2] = {-FLT_MAX, -FLT_MAX};
+        mask_scores<false>(s, s_keep + c * kTile, inv_scale, cm);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float m = fmaxf(mx[r], quad_max(cm[r]));
+            sum[r] *= __expf(mx[r] - m);
+            mx[r] = m;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            if (key < T) sum[(i >> 1) & 1] += __expf(s[i] - mx[(i >> 1) & 1]);
+        }
+    });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sum[r] = quad_sum(sum[r]);
+    const float rsum[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+
+    // chunk c's P (0 past T) and dP = dO.V^T, both products under one wait
+    auto chunk = [&](int c, const unsigned char* kt, const unsigned char* vt, float (&s)[32],
+                     float (&dp)[32]) {
+        issue_tile_product<D>(s, s_q, kt);
+        issue_tile_product<D>(dp, s_do, vt);
+        wgmma_commit_and_wait();
+        fence_regs(s);
+        fence_regs(dp);
+        float unused[2] = {-FLT_MAX, -FLT_MAX};
+        mask_scores<false>(s, s_keep + c * kTile, inv_scale, unused);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+            s[i] = key < T ? __expf(s[i] - mx[(i >> 1) & 1]) * rsum[(i >> 1) & 1] : 0.0f;
+        }
+    };
+
+    // pass 2: D = rowsum(P bf16(dP))
+    float dsum[2] = {0.0f, 0.0f};
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+                     [&](int c, const unsigned char* kt, const unsigned char* vt) {
+        float p[32], dp[32];
+        chunk(c, kt, vt, p, dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dsum[(i >> 1) & 1] += p[i] * round_bf16(dp[i]);
+    });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) dsum[r] = quad_sum(dsum[r]);
+    store_stats(stats, mx, sum, dsum, T, H);
+
+    // pass 3: dQ
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+                     [&](int c, const unsigned char* kt, const unsigned char* vt) {
+        float p[32], dp[32];
+        chunk(c, kt, vt, p, dp);
+        dq_chunk<D>(acc, p, dp, dsum, s_keep + c * kTile, kt, inv_scale);
+    });
+    store_rows<D>(dq + base, acc, blockIdx.x * kTile, T, row_stride);
+}
+
+// dK += dS^T.Q and dV += bf16(P^T).dO over one 64-query chunk c (its Q and
+// dO tiles qt, dot; the queries' max, 1 / sum and D in st, three a query
+// from chunk 0; keep: this thread's two key rows kept)
+template <int D>
+__device__ __forceinline__ void dkv_chunk(float (&acc_k)[D / 2], float (&acc_v)[D / 2],
+                                          const unsigned char* s_k, const unsigned char* s_v,
+                                          const unsigned char* qt, const unsigned char* dot,
+                                          int c, const float* st, const bool (&keep)[2], int T,
+                                          float inv_scale) {
+    const int lane = threadIdx.x % 32;
+    // s[4j + e] and dp[4j + e]: key k0 + 16 warp + lane / 4 (+ 8 for
+    // e >= 2), query 64 c + 8 j + 2 (lane % 4) + (e & 1)
+    float s[32], dp[32];
+    issue_tile_product<D>(s, s_k, qt);
+    issue_tile_product<D>(dp, s_v, dot);
+    wgmma_commit_and_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    uint32_t pb[4][4], hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            float pv[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int i = 8 * kk + 2 * j + e;
+                const int t = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + e;
+                pv[e] = ds[e] = 0.0f;
+                if (t < T) {
+                    const float* sq = st + 3 * t;
+                    const float x = keep[j & 1] ? s[i] * inv_scale : -FLT_MAX;
+                    pv[e] = __expf(x - sq[0]) * sq[1];
+                    ds[e] = grad_score(pv[e], round_bf16(dp[i]), sq[2], keep[j & 1], inv_scale);
+                }
+            }
+            pb[kk][j] = pack_bf16(pv[0], pv[1]);
+            split_bf16(ds[0], ds[1], hi[kk][j], lo[kk][j]);
+        }
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pb[kk]);
+        fence_regs(hi[kk]);
+        fence_regs(lo[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        wgmma_context<D>(acc_v, pb[kk], rows_desc<D>(dot, kk));
+        wgmma_context<D>(acc_k, hi[kk], rows_desc<D>(qt, kk));
+        wgmma_context<D>(acc_k, lo[kk], rows_desc<D>(qt, kk));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pb[kk]);
+        fence_regs(hi[kk]);
+        fence_regs(lo[kk]);
+    }
+}
+
+// the dK / dV kernels' common part: the key tile's K and V rows (committed,
+// not waited for), the queries' statistics (the sum as its reciprocal) and
+// this thread's two key rows kept → keep
+__device__ __forceinline__ void stage_dkv_stats(float* s_stat, const float* stats, const int* mask,
+                                                int T, int H, bool (&keep)[2]) {
+    const int b = blockIdx.z, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const float* st = stats + (static_cast<long long>(b) * H + blockIdx.y) * T * 3;
+    for (int j = threadIdx.x; j < T * 3; j += kThreads)
+        s_stat[j] = j % 3 == 1 ? __frcp_rn(st[j]) : st[j];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = blockIdx.x * kTile + 16 * warp + lane / 4 + 8 * r;
+        keep[r] = key < T && mask[b * T + key] != 0;
+    }
+}
+
+// K14a's dK / dV kernel, Q and dO staged whole: CHUNKS 64-query chunks,
+// ceil(T / 64), 1 .. kHeldChunks<D>, unrolled
+template <int D, int CHUNKS>
 __global__ void __launch_bounds__(kThreads)
 attention_backward_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
@@ -583,99 +1018,78 @@ attention_backward_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
                               __nv_bfloat16* __restrict__ dv, int T, int H) {
-    constexpr int kQueries = CHUNKS * kTile;
+    constexpr int kBytes = Tile<D>::kBytes;
     extern __shared__ __align__(16) unsigned char smem[];
     unsigned char* s_k = smem;
-    unsigned char* s_v = s_k + kTileBytes;
-    unsigned char* s_q = s_v + kTileBytes;
-    unsigned char* s_do = s_q + CHUNKS * kTileBytes;
-    float* s_stat = reinterpret_cast<float*>(s_do + CHUNKS * kTileBytes);
-
-    const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const long long row_stride = static_cast<long long>(H) * kHeadDim;
-    const long long base = static_cast<long long>(b) * T * row_stride + h * kHeadDim;
-    stage_rows(s_k, k + base, k0, kTile, T, row_stride);
-    stage_rows(s_v, v + base, k0, kTile, T, row_stride);
-    stage_rows(s_q, q + base, 0, kQueries, T, row_stride);
-    stage_rows(s_do, dout + base, 0, kQueries, T, row_stride);
+    unsigned char* s_v = s_k + kBytes;
+    unsigned char* s_q = s_v + kBytes;
+    unsigned char* s_do = s_q + CHUNKS * kBytes;
+    float* s_stat = reinterpret_cast<float*>(s_do + CHUNKS * kBytes);
+    const int k0 = blockIdx.x * kTile;
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
+    stage_rows<D>(s_k, k + base, k0, kTile, T, row_stride);
+    stage_rows<D>(s_v, v + base, k0, kTile, T, row_stride);
+    stage_rows<D>(s_q, q + base, 0, CHUNKS * kTile, T, row_stride);
+    stage_rows<D>(s_do, dout + base, 0, CHUNKS * kTile, T, row_stride);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const float* st = stats + (static_cast<long long>(b) * H + h) * T * 3;
-    for (int j = threadIdx.x; j < T * 3; j += kThreads)  // the sum as its reciprocal
-        s_stat[j] = j % 3 == 1 ? __frcp_rn(st[j]) : st[j];
     bool keep[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int key = k0 + 16 * warp + lane / 4 + 8 * r;
-        keep[r] = key < T && mask[b * T + key] != 0;
-    }
+    stage_dkv_stats(s_stat, stats, mask, T, H, keep);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    const float inv_scale = inv_sqrt_head_dim();
-    float acc_k[16], acc_v[16];
+    const float inv_scale = inv_sqrt_head_dim<D>();
+    float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc_k[i] = acc_v[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-        // s[4j + e] and dp[4j + e]: key k0 + 16 warp + lane / 4 (+ 8 for
-        // e >= 2), query 64 c + 8 j + 2 (lane % 4) + (e & 1)
-        float s[32], dp[32];
-        issue_tile_product(s, s_k, s_q + c * kTileBytes);
-        issue_tile_product(dp, s_v, s_do + c * kTileBytes);
-        wgmma_commit_and_wait();
-        fence_regs(s);
-        fence_regs(dp);
-        uint32_t pb[4][4], hi[4][4], lo[4][4];
+    for (int c = 0; c < CHUNKS; ++c)
+        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, s_q + c * kBytes, s_do + c * kBytes, c, s_stat, keep,
+                     T, inv_scale);
+    store_rows<D>(dk + base, acc_k, k0, T, row_stride);
+    store_rows<D>(dv + base, acc_v, k0, T, row_stride);
+}
+
+// K14a's dK / dV kernel, chunked: any T up to kMaxT, Q and dO streamed a
+// 64-query chunk at a time through double buffers
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_backward_dkv_long_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   const int* __restrict__ mask,
+                                   const __nv_bfloat16* __restrict__ dout,
+                                   const float* __restrict__ stats,
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv, int T, int H) {
+    constexpr int kBytes = Tile<D>::kBytes;
+    const int chunks = (T + kTile - 1) / kTile;
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_k = smem;
+    unsigned char* s_v = s_k + kBytes;
+    unsigned char* s_q = s_v + kBytes;       // two chunks' Q
+    unsigned char* s_do = s_q + 2 * kBytes;  // two chunks' dO
+    float* s_stat = reinterpret_cast<float*>(s_do + 2 * kBytes);
+    const int k0 = blockIdx.x * kTile;
+    const long long row_stride = static_cast<long long>(H) * D;
+    const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
+    stage_rows<D>(s_k, k + base, k0, kTile, T, row_stride);
+    stage_rows<D>(s_v, v + base, k0, kTile, T, row_stride);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    bool keep[2];
+    stage_dkv_stats(s_stat, stats, mask, T, H, keep);
+
+    const float inv_scale = inv_sqrt_head_dim<D>();
+    float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                float pv[2], ds[2];
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int i = 8 * kk + 2 * j + e;
-                    const int t = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + e;
-                    pv[e] = ds[e] = 0.0f;
-                    if (t < T) {
-                        const float* sq = s_stat + 3 * t;
-                        const float x = keep[j & 1] ? s[i] * inv_scale : -FLT_MAX;
-                        pv[e] = __expf(x - sq[0]) * sq[1];
-                        ds[e] = grad_score(pv[e], round_bf16(dp[i]), sq[2], keep[j & 1],
-                                           inv_scale);
-                    }
-                }
-                pb[kk][j] = pack_bf16(pv[0], pv[1]);
-                split_bf16(ds[0], ds[1], hi[kk][j], lo[kk][j]);
-            }
-        fence_regs(acc_k);
-        fence_regs(acc_v);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            fence_regs(pb[kk]);
-            fence_regs(hi[kk]);
-            fence_regs(lo[kk]);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            wgmma_context(acc_v, pb[kk], rows_desc(s_do, c * 4 + kk));
-            wgmma_context(acc_k, hi[kk], rows_desc(s_q, c * 4 + kk));
-            wgmma_context(acc_k, lo[kk], rows_desc(s_q, c * 4 + kk));
-        }
-        wgmma_commit_and_wait();
-        fence_regs(acc_k);
-        fence_regs(acc_v);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            fence_regs(pb[kk]);
-            fence_regs(hi[kk]);
-            fence_regs(lo[kk]);
-        }
-    }
-    store_rows(dk + base, acc_k, k0, T, row_stride);
-    store_rows(dv + base, acc_v, k0, T, row_stride);
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
+    stream_chunks<D>(chunks, T, row_stride, q + base, dout + base, s_q, s_do,
+                     [&](int c, const unsigned char* qt, const unsigned char* dot) {
+        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, qt, dot, c, s_stat, keep, T, inv_scale);
+    });
+    store_rows<D>(dk + base, acc_k, k0, T, row_stride);
+    store_rows<D>(dv + base, acc_v, k0, T, row_stride);
 }
 
 // K5c: bf16 bias add + tanh GELU (bert.py:170-171: nn.Dense's bias, then
@@ -740,54 +1154,128 @@ bias_gelu_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __res
     }
 }
 
-template <int CHUNKS>
+// a launch with `smem` bytes of dynamic shared memory, opting the kernel
+// in when that is above the default 48 KB (per card: set at every such
+// launch) → the CUDA status of the launch
+template <typename... P, typename... A>
+cudaError_t launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
+                   cudaStream_t stream, A... args) {
+    if (smem > kDefaultSmem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, block, smem, stream>>>(args...);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_forward(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                           const __nv_bfloat16* v, const int* mask, __nv_bfloat16* out, int B,
+                           int T, int H, cudaStream_t stream) {
+    const int chunks = (T + kTile - 1) / kTile;
+    const dim3 grid(chunks, H, B);
+    const size_t smem = attention_smem_bytes<D>(chunks);
+    if (chunks == 1)
+        return launch(attention_kernel<D, 1>, grid, kThreads, smem, stream, q, k, v, mask, out,
+                      T, H);
+    if (chunks == 2)
+        return launch(attention_kernel<D, 2>, grid, kThreads, smem, stream, q, k, v, mask, out,
+                      T, H);
+    if constexpr (kHeldChunks<D> == 4) {
+        if (chunks == 3)
+            return launch(attention_kernel<D, 3>, grid, kThreads, smem, stream, q, k, v, mask, out,
+                          T, H);
+        if (chunks == 4)
+            return launch(attention_kernel<D, 4>, grid, kThreads, smem, stream, q, k, v, mask, out,
+                          T, H);
+    }
+    return launch(attention_long_kernel<D>, grid, kThreads, attention_long_smem_bytes<D>(chunks),
+                  stream, q, k, v, mask, out, T, H);
+}
+
+// the dQ kernel, then the dK / dV kernel: one pass over CHUNKS chunks
+// staged whole, or chunked (CHUNKS = 0)
+template <int D, int CHUNKS>
+cudaError_t launch_backward_as(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                               const __nv_bfloat16* v, const int* mask, const __nv_bfloat16* dout,
+                               __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                               float* stats, int B, int T, int H, cudaStream_t stream) {
+    const int chunks = (T + kTile - 1) / kTile;
+    const dim3 grid(chunks, H, B);
+    const float* st = stats;
+    cudaError_t err;
+    if constexpr (CHUNKS > 0) {
+        err = launch(attention_backward_dq_kernel<D, CHUNKS>, grid, kThreads,
+                     backward_dq_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, dq, stats, T,
+                     H);
+        if (err != cudaSuccess) return err;
+        return launch(attention_backward_dkv_kernel<D, CHUNKS>, grid, kThreads,
+                      backward_dkv_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, st, dk, dv,
+                      T, H);
+    } else {
+        err = launch(attention_backward_dq_long_kernel<D>, grid, kThreads,
+                     backward_dq_long_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, dq,
+                     stats, T, H);
+        if (err != cudaSuccess) return err;
+        return launch(attention_backward_dkv_long_kernel<D>, grid, kThreads,
+                      backward_dkv_long_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, st,
+                      dk, dv, T, H);
+    }
+}
+
+template <int D>
 cudaError_t launch_backward(const __nv_bfloat16* q, const __nv_bfloat16* k,
                             const __nv_bfloat16* v, const int* mask, const __nv_bfloat16* dout,
                             __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
                             float* stats, int B, int T, int H, cudaStream_t stream) {
-    const dim3 grid(CHUNKS, H, B);
-    attention_backward_dq_kernel<CHUNKS><<<grid, kThreads, backward_dq_smem_bytes(CHUNKS),
-                                           stream>>>(q, k, v, mask, dout, dq, stats, T, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    attention_backward_dkv_kernel<CHUNKS><<<grid, kThreads, backward_dkv_smem_bytes(CHUNKS),
-                                            stream>>>(q, k, v, mask, dout, stats, dk, dv, T, H);
-    return cudaGetLastError();
+    const int chunks = (T + kTile - 1) / kTile;
+    if (chunks == 1)
+        return launch_backward_as<D, 1>(q, k, v, mask, dout, dq, dk, dv, stats, B, T, H, stream);
+    if (chunks == 2)
+        return launch_backward_as<D, 2>(q, k, v, mask, dout, dq, dk, dv, stats, B, T, H, stream);
+    if constexpr (kHeldChunks<D> == 4) {
+        if (chunks == 3)
+            return launch_backward_as<D, 3>(q, k, v, mask, dout, dq, dk, dv, stats, B, T, H,
+                                            stream);
+        if (chunks == 4)
+            return launch_backward_as<D, 4>(q, k, v, mask, dout, dq, dk, dv, stats, B, T, H,
+                                            stream);
+    }
+    return launch_backward_as<D, 0>(q, k, v, mask, dout, dq, dk, dv, stats, B, T, H, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v bf16[B, T, H, 32] (16-byte aligned) and mask i32[B, T] -> out
-// bf16[B, T, H * 32]. T must be 1..256. Returns the CUDA status of the launch.
+// q, k, v bf16[B, T, H, D] (16-byte aligned) and mask i32[B, T] -> out
+// bf16[B, T, H * D]. D must be 16, 32 or 64 and T 1..512. Returns the CUDA
+// status of the launch.
 int stract_attention(const void* q, const void* k, const void* v, const int* mask, void* out,
-                     int B, int T, int H, cudaStream_t stream) {
+                     int B, int T, int H, int D, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
-    const int chunks = (T + kTile - 1) / kTile;
-    const dim3 grid(chunks, H, B);
-    const size_t smem = attention_smem_bytes(chunks);  // at most 37,888 bytes: no opt-in
     const auto* qq = static_cast<const __nv_bfloat16*>(q);
     const auto* kk = static_cast<const __nv_bfloat16*>(k);
     const auto* vv = static_cast<const __nv_bfloat16*>(v);
     auto* o = static_cast<__nv_bfloat16*>(out);
-    switch (chunks) {
-        case 1: attention_kernel<1><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
-        case 2: attention_kernel<2><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
-        case 3: attention_kernel<3><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H); break;
-        default: attention_kernel<4><<<grid, kThreads, smem, stream>>>(qq, kk, vv, mask, o, T, H);
+    switch (D) {
+        case 16: return launch_forward<16>(qq, kk, vv, mask, o, B, T, H, stream);
+        case 32: return launch_forward<32>(qq, kk, vv, mask, o, B, T, H, stream);
+        case 64: return launch_forward<64>(qq, kk, vv, mask, o, B, T, H, stream);
+        default: return cudaErrorInvalidValue;
     }
-    return cudaGetLastError();
 }
 
-// q, k, v, dout bf16[B, T, H, 32] (16-byte aligned; dout the gradient of
-// the [B, T, H * 32] context), mask i32[B, T] -> dq, dk, dv bf16[B, T, H, 32];
-// stats f32[B, H, T, 3] is scratch (each query row's max, sum and D). T
-// must be 1..256. Two launches on the stream; returns the CUDA status.
+// q, k, v, dout bf16[B, T, H, D] (16-byte aligned; dout the gradient of
+// the [B, T, H * D] context), mask i32[B, T] -> dq, dk, dv bf16[B, T, H, D];
+// stats f32[B, H, T, 3] is scratch (each query row's max, sum and D). D
+// must be 16, 32 or 64 and T 1..512. Two launches on the stream; returns
+// the CUDA status.
 int stract_attention_backward(const void* q, const void* k, const void* v, const int* mask,
                               const void* dout, void* dq, void* dk, void* dv, float* stats,
-                              int B, int T, int H, cudaStream_t stream) {
+                              int B, int T, int H, int D, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
     const auto* qq = static_cast<const __nv_bfloat16*>(q);
@@ -797,13 +1285,14 @@ int stract_attention_backward(const void* q, const void* k, const void* v, const
     auto* gq = static_cast<__nv_bfloat16*>(dq);
     auto* gk = static_cast<__nv_bfloat16*>(dk);
     auto* gv = static_cast<__nv_bfloat16*>(dv);
-    // shared memory at most 44,032 bytes (T = 256): no opt-in
-    switch ((T + kTile - 1) / kTile) {
-        case 1: return launch_backward<1>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
-        case 2: return launch_backward<2>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
-        case 3: return launch_backward<3>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
-        default:
-            return launch_backward<4>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+    switch (D) {
+        case 16:
+            return launch_backward<16>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        case 32:
+            return launch_backward<32>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        case 64:
+            return launch_backward<64>(qq, kk, vv, mask, go, gq, gk, gv, stats, B, T, H, stream);
+        default: return cudaErrorInvalidValue;
     }
 }
 

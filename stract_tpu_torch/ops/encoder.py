@@ -5,7 +5,9 @@ port of the body of stract_tpu/models/bert.py:81-247 and of what
 Each piece is a kernel with its plain PyTorch twin, forward and backward:
 
   K5a  attention            masked softmax attention (bert.py:97-103): CUDA C++,
-  K14a attention backward   csrc/encoder.cu, bound through ops/kernels.py
+  K14a attention backward   csrc/encoder.cu, bound through ops/kernels.py; head
+                            dims 16, 32 and 64, 1 to 512 tokens (other shapes
+                            on a card raise)
   K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
   K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
                             :204-205): Triton

@@ -65,11 +65,11 @@ MAX_SIG_K = 64
 MAX_NSIG = 64
 MAX_H = 1024
 MAX_SEARCH_P = 8192
-# limits of csrc/encoder.cu: the head width and the longest sequence
-ATTN_HEAD_DIM = 32
-ATTN_MAX_T = 256
+# limits of csrc/encoder.cu: the head widths and the longest sequence
+ATTN_HEAD_DIMS = (16, 32, 64)
+ATTN_MAX_T = 512
 # limits of csrc/stage.cu: the longest sequence and the widest head
-STAGE_MAX_T = 256
+STAGE_MAX_T = 512
 STAGE_MAX_H = 1024
 # a block's shared memory on the card (the forest is staged there whole)
 MAX_SMEM = 227 * 1024
@@ -244,8 +244,9 @@ def _load(name: str):
                 fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward,
                        lib.stract_sgd_multi)
             else:
-                lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, P]
-                lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, P]
+                lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, I, P]
+                lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                                          P]
                 lib.stract_bias_gelu.argtypes = [P, P, P, LL, I, F, F, P]
                 fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu)
             for fn in fns:
@@ -587,8 +588,8 @@ def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) 
 
 def _attention_ptrs(tensors, shape, align: int = 4) -> list:
     B, T, H, D = shape
-    if D != ATTN_HEAD_DIM or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
-        raise ValueError(f"attention takes head dim {ATTN_HEAD_DIM} and 1..{ATTN_MAX_T} "
+    if D not in ATTN_HEAD_DIMS or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
+        raise ValueError(f"attention takes head dims {ATTN_HEAD_DIMS} and 1..{ATTN_MAX_T} "
                          f"tokens, not q of shape {tuple(shape)}")
     ptrs = [_ptr(t, torch.bfloat16, (B, T, H, D)) for t in tensors]
     if any(p % align for p in ptrs):
@@ -598,22 +599,23 @@ def _attention_ptrs(tensors, shape, align: int = 4) -> list:
 
 
 def attention(q, k, v, mask, out) -> None:
-    """K5a: q, k, v bf16[B, T, H, 32] (16-byte aligned), mask i32[B, T] →
-    out bf16[B, T, H*32] (ops/encoder.py allocates)."""
+    """K5a: q, k, v bf16[B, T, H, D] (16-byte aligned; D in ATTN_HEAD_DIMS,
+    T up to ATTN_MAX_T), mask i32[B, T] → out bf16[B, T, H*D]
+    (ops/encoder.py allocates)."""
     B, T, H, D = q.shape
     ptrs = _attention_ptrs((q, k, v), q.shape, align=16)  # 16-byte cp.async copies
     bf16 = torch.bfloat16
     lib = _load("encoder")
     with on_card(q, k, v, mask, out) as stream:
         rc = lib.stract_attention(*ptrs, _ptr(mask, torch.int32, (B, T)),
-                                  _ptr(out, bf16, (B, T, H * D)), B, T, H, stream)
+                                  _ptr(out, bf16, (B, T, H * D)), B, T, H, D, stream)
     _check(rc, "stract_attention")
     counted("attention")
 
 
 def attention_backward(q, k, v, mask, dout, dq, dk, dv, stats=None) -> None:
-    """K14a: q, k, v bf16[B, T, H, 32], mask i32[B, T], dout bf16[B, T, H*32]
-    (all 16-byte aligned) → dq, dk, dv bf16[B, T, H, 32] (ops/encoder.py
+    """K14a: q, k, v bf16[B, T, H, D], mask i32[B, T], dout bf16[B, T, H*D]
+    (all 16-byte aligned; D and T as K5a's) → dq, dk, dv bf16[B, T, H, D] (ops/encoder.py
     allocates); stats f32[B, H, T, 3] is the scratch of each query row's
     max, sum and D that the dQ kernel writes and the dK / dV kernel reads
     (allocated here when None)."""
@@ -626,7 +628,7 @@ def attention_backward(q, k, v, mask, dout, dq, dk, dv, stats=None) -> None:
     lib = _load("encoder")
     with on_card(q, k, v, mask, dout, dq, dk, dv, stats) as stream:
         rc = lib.stract_attention_backward(*ptrs[:3], _ptr(mask, torch.int32, (B, T)), *ptrs[3:],
-                                           st, B, T, H, stream)
+                                           st, B, T, H, D, stream)
     _check(rc, "stract_attention_backward")
     counted("attention_backward")
 

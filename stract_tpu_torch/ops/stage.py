@@ -7,7 +7,8 @@ twin:
   K16a stage attention           softmax(q k^T / f32(sqrt(H))) v over q, k, v,
                                  the three H-wide column blocks of qkv
                                  f32[mb, T, 3H] (one head of width H, no mask,
-                                 :46-48): CUDA C++, csrc/stage.cu
+                                 :46-48): CUDA C++, csrc/stage.cu (3xTF32 on
+                                 the tensor cores); T <= 512, H <= 1,024
   K16b  ... backward             dq, dk, dv into the three column blocks of one
                                  dqkv f32[mb, T, 3H]: CUDA C++, csrc/stage.cu
   K16c gelu_tanh, fwd + bwd      jax.nn.gelu(approximate=True) in f32, no bias

@@ -99,14 +99,14 @@ def test_kernel_arguments_are_checked(monkeypatch):
     with pytest.raises(ValueError):  # a forest too large for one block's shared memory
         kernels.forest(big, big.float(), big, big, torch.zeros((4000, 8)), torch.zeros((4, 46)),
                        torch.zeros(4), 5)
-    bf = torch.zeros((1, 300, 12, 32), dtype=torch.bfloat16)
+    bf = torch.zeros((1, 600, 12, 32), dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # more tokens than the attention kernel stages
-        kernels.attention(bf, bf, bf, torch.ones((1, 300), dtype=torch.int32),
-                          torch.zeros((1, 300, 384), dtype=torch.bfloat16))
-    d16 = torch.zeros((1, 16, 4, 16), dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head width other than 32
-        kernels.attention(d16, d16, d16, torch.ones((1, 16), dtype=torch.int32),
-                          torch.zeros((1, 16, 64), dtype=torch.bfloat16))
+        kernels.attention(bf, bf, bf, torch.ones((1, 600), dtype=torch.int32),
+                          torch.zeros((1, 600, 384), dtype=torch.bfloat16))
+    d24 = torch.zeros((1, 16, 4, 24), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a head width other than 16, 32 or 64
+        kernels.attention(d24, d24, d24, torch.ones((1, 16), dtype=torch.int32),
+                          torch.zeros((1, 16, 96), dtype=torch.bfloat16))
     x = torch.zeros((8, 384), dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # f32 residual
         E.add_layernorm(x, x.float(), torch.ones(384), torch.zeros(384), 1e-12)
@@ -115,6 +115,25 @@ def test_kernel_arguments_are_checked(monkeypatch):
     with pytest.raises(ValueError):  # not contiguous
         E.bias_gelu(torch.zeros((384, 8), dtype=torch.bfloat16).t(),
                     torch.zeros(384, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 4, 24), (2, 513, 4, 16), (2, 513, 2, 64)])
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_attention_wrappers_reject_other_head_dims_and_long_rows(monkeypatch, kind, shape):
+    """K5a and K14a take head dims 16, 32 and 64 and up to 512 tokens: a
+    head dim of 24, or 513 tokens, raises through ops/encoder.py's
+    dispatchers before the library is loaded or a kernel launched, with a
+    message that names what they take."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+    B, T, h, d = shape
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64\) and 1..512 tokens"):
+        if kind == "forward":
+            E.attention_forward(q, q, q, mask)
+        else:
+            E.attention_backward(q, q, q, mask, torch.zeros((B, T, h * d), dtype=torch.bfloat16))
 
 
 def test_every_launch_takes_the_stream_of_its_tensors_card():
@@ -416,6 +435,64 @@ def test_attention_autograd_through_both_kernels_matches_plain_vjp(T):
                                rtol=ENC_RTOL, atol=2 * ENC_ATOL)
     for a, b in zip(grads, E.attention_backward_plain(*ins, mask, dout)):
         _step_close(a, b)
+
+
+# every head dim K5a and K14a take, at tile tails below, at and past the 256
+# tokens of their one-pass forms, and at 512
+GRID_D, GRID_T = [16, 32, 64], [1, 65, 256, 257, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", GRID_T)
+@pytest.mark.parametrize("D", GRID_D)
+def test_attention_kernels_match_plain_at_every_head_dim(D, T):
+    """K5a and K14a at head dims 16, 32 and 64 and T = 1 .. 512 (one pass,
+    or chunked past 256 tokens, past 128 at d = 64), rows half, fully and
+    tail masked: the forward at rtol 2^-7, atol 2e-2, the backward within
+    one bf16 step, each call counted once, a second call of each bit-equal
+    to the first, the fully masked row's dQ 0."""
+    dev = _card()
+    g = torch.Generator().manual_seed(D * 1000 + T)
+    q, k, v = (torch.randn((4, T, 3, D), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    dout = torch.randn((4, T, 3 * D), generator=g).to(dev, torch.bfloat16)
+    mask = _tail_masked(4, T, dev)
+    n = (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"])
+    out = E.attention_forward(q, k, v, mask)
+    grads = E.attention_backward(q, k, v, mask, dout)
+    assert (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"]) == \
+        (n[0] + 1, n[1] + 1)
+    assert out.shape == (4, T, 3 * D) and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), E.attention_plain(q, k, v, mask).float(),
+                               rtol=ENC_RTOL, atol=2 * ENC_ATOL)
+    for a, b in zip(grads, E.attention_backward_plain(q, k, v, mask, dout)):
+        _step_close(a, b)
+    assert torch.equal(E.attention_forward(q, k, v, mask), out)
+    for a, b in zip(grads, E.attention_backward(q, k, v, mask, dout)):
+        assert torch.equal(a, b)
+    assert not grads[0][2].float().any()
+
+
+@pytest.mark.cuda
+def test_main_train_encoders_runs_on_the_card_at_its_defaults(tmp_path, capsys):
+    """`main.py train-encoders both INDEX OUT --steps 2` at its defaults
+    (--device cuda, BertConfig.tiny: head dim 16) on a 3,000-doc corpus
+    written by the port: both encoders train through K5a and K14a, their
+    losses finite, and save."""
+    import re
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.main import main
+
+    _card()
+    index = bc.ensure_corpus(str(tmp_path), 3000, seed=0, log=lambda *a: None)
+    kernels.reset_launches()
+    main(["train-encoders", "both", index, str(tmp_path / "out"), "--steps", "2"])
+    assert kernels.LAUNCHES["attention"] > 0 and kernels.LAUNCHES["attention_backward"] > 0
+    losses = [float(x) for pair in re.findall(r"\(loss (\S+) → (\S+)\)", capsys.readouterr().out)
+              for x in pair]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    for kind in ("dual", "cross"):
+        assert (tmp_path / "out" / f"{kind}_encoder" / "config.json").exists()
 
 
 @pytest.mark.cuda

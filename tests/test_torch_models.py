@@ -299,6 +299,62 @@ def test_plain_attention_matches_flax_at_tile_tails(T):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (128, 2)])
+def test_attention_twin_matches_flax_at_other_head_dims(hidden, heads, T):
+    """K5a's plain twin inside one BertSelfAttention at head dim 16 (hidden
+    64 / 4 heads, BertConfig.tiny's) and 64 (hidden 128 / 2 heads, BERT-base's
+    head), past the 256 tokens of the one-pass kernels and at 512 (the
+    reference's last position), against flax's; rows half, fully and tail
+    masked."""
+    cfg_j = JB.BertConfig.tiny(hidden_size=hidden, num_heads=heads)
+    cfg_t = TB.BertConfig.tiny(hidden_size=hidden, num_heads=heads)
+    rng = np.random.default_rng(T + hidden)
+    x = rng.normal(size=(4, T, hidden)).astype(np.float32)
+    mask = np.ones((4, T), np.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask[3, T - T // 5:] = 0
+    xj = jnp.asarray(x, dtype=jnp.bfloat16)
+    jmod = JB.BertSelfAttention(cfg_j)
+    params = jmod.init(jax.random.PRNGKey(T), xj, jnp.asarray(mask, bool))
+    yj = np.asarray(jmod.apply(params, xj, jnp.asarray(mask, bool)).astype(jnp.float32))
+    tmod = TB.BertSelfAttention(cfg_t)
+    tmod.load_state_dict(TB.params_from_jax(_unboxed(params)))
+    with torch.no_grad():
+        yt = tmod(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask)).float().numpy()
+    assert yt.shape == yj.shape == (4, T, hidden) and np.isfinite(yt).all()
+    np.testing.assert_allclose(yt, yj, atol=MODULE_ATOL, rtol=0)
+
+
+def test_bert_encoder_clamps_positions_past_the_table_as_jax():
+    """BertEncoder at T = 520 over a 512-row position table: tokens 511 .. 519
+    all take position 511, as the reference's jnp.minimum clamps them
+    (bert.py:194); the port's hidden states against flax's, a half-padded
+    row included, at the single modules' tolerance (two layers at
+    BertConfig.tiny differ by one bf16 step at most)."""
+    cfg_j = JB.BertConfig.tiny(max_position_embeddings=512)
+    cfg_t = TB.BertConfig.tiny(max_position_embeddings=512)
+    rng = np.random.default_rng(520)
+    ids = rng.integers(5, cfg_j.vocab_size, size=(2, 520)).astype(np.int32)
+    mask = np.ones((2, 520), np.int32)
+    mask[1, 260:] = 0
+    jmod = JB.BertEncoder(cfg_j)
+    params = jmod.init(jax.random.PRNGKey(5), jnp.asarray(ids), jnp.asarray(mask))
+    yj = np.asarray(jmod.apply(params, jnp.asarray(ids), jnp.asarray(mask)).astype(jnp.float32))
+    tmod = TB.BertEncoder(cfg_t)
+    tmod.load_state_dict(TB.params_from_jax(_unboxed(params)))
+    with torch.no_grad():
+        yt = tmod(torch.from_numpy(ids), torch.from_numpy(mask)).float().numpy()
+    assert yt.shape == yj.shape == (2, 520, cfg_t.hidden_size) and np.isfinite(yt).all()
+    np.testing.assert_allclose(yt, yj, atol=MODULE_ATOL, rtol=0)
+    # the clamp: tokens past 511 see position 511's row, so equal ids there
+    # give equal embeddings
+    table = tmod.position_embeddings.weight
+    pos = torch.arange(520).clamp_max(511)
+    assert torch.equal(table[pos][511:], table[511].expand(9, -1))
+
+
 def test_plain_twins_follow_the_reference_formulas():
     """The three plain twins against jnp written after bert.py: attention
     with a fully masked row, LN of a bf16 sum, tanh GELU with bf16 constants."""

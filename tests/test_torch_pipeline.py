@@ -229,6 +229,46 @@ def test_twins_follow_the_reference_formulas_on_edge_values(jx):
     assert np.isfinite(out).all()
 
 
+def _tf32(x):
+    """f32 → the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32):
+    the low 13 bits of the pattern rounded off."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_product(eq: str, a, b, split: bool):
+    """einsum eq of f32 a and b as K16a's mma.sync takes them: TF32 inputs
+    (exact products, f32 sums); split: 3xTF32, a = hi + lo with hi = tf32(a),
+    lo = tf32(a - hi), and a.b as lo.hi + hi.lo + hi.hi."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024)])
+def test_3xtf32_products_keep_the_f32_tolerance(mb, T, H):
+    """K16a's arithmetic emulated on the CPU at the smoke's shape and the
+    largest it takes: both products in 3xTF32, the softmax in f32 as the
+    twin computes it. Against the attention in f64 of the same f32 inputs
+    it stays within the card test's rtol 1e-5, atol 1e-5 x max |out|, as the
+    f32 twin does; with plain TF32 products (10-bit mantissas) it does not."""
+    g = torch.Generator().manual_seed(T + H)
+    qkv = torch.randn((mb, T, 3 * H), generator=g)
+    want = ST.stage_attention_plain(qkv.double())
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+    def emulated(split: bool):
+        q, k, v = (qkv[..., i * H:(i + 1) * H] for i in range(3))
+        scores = _tensor_core_product("bth,bsh->bts", q, k, split) / ST._scale(H, torch.float32)
+        return _tensor_core_product("bts,bsh->bth", torch.softmax(scores, dim=-1), v, split)
+    torch.testing.assert_close(emulated(True).double(), want, **tol)
+    torch.testing.assert_close(ST.stage_attention_plain(qkv).double(), want, **tol)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(emulated(False).double(), want, **tol)
+
+
 def _sgd_pairs(sizes, offsets, seed):
     """f32 parameters of the given sizes (those at `offsets` views one
     element into a larger buffer, so not 16-byte aligned) and gradients."""
@@ -349,9 +389,9 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
     assert kernels.LAUNCHES["gelu_tanh"] == 2 and kernels.LAUNCHES["sgd"] == 1
 
 
-@pytest.mark.parametrize("shape", [(1, 257, 48), (1, 16, 3 * 1025), (1, 16, 50)])
+@pytest.mark.parametrize("shape", [(1, 513, 48), (1, 16, 3 * 1025), (1, 16, 50)])
 def test_stage_attention_arguments_are_checked(monkeypatch, shape):
-    """T above 256, H above 1,024 or a width that is not 3H raise before any
+    """T above 512, H above 1,024 or a width that is not 3H raise before any
     build or launch."""
     monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build on this machine"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -374,8 +414,15 @@ def _close(got, want, rtol, atol_of_max):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb,T,H", [(2, 16, 16), (3, 37, 40), (8, 128, 384), (1, 256, 1024)])
+@pytest.mark.parametrize("mb,T,H", [(2, 16, 16), (3, 37, 40), (8, 128, 384), (1, 256, 1024),
+                                    (2, 257, 768), (1, 512, 1024), (2, 512, 384),
+                                    (3, 65, 36), (1, 1, 8), (2, 33, 30)])
 def test_stage_attention_kernels_match_plain(mb, T, H):
+    """K16a (3xTF32 on the tensor cores) and K16b against the f32 twins at
+    rtol 1e-5, atol 1e-5 x max |plain|, from tiny shapes and widths that are
+    not multiples of 8 or of 128 (H = 30: rows staged by 4-byte copies) up
+    to T = 512 and H = 1,024; each call counted once, and a second call
+    bit-equal to the first."""
     dev = _card()
     g = torch.Generator().manual_seed(T + H)
     qkv = torch.randn((mb, T, 3 * H), generator=g).to(dev)
@@ -390,6 +437,8 @@ def test_stage_attention_kernels_match_plain(mb, T, H):
     leaf = qkv.clone().requires_grad_(True)
     (auto,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout)
     _close(dqkv, auto, 1e-5, 1e-5)
+    assert torch.equal(ST.stage_attention_forward(qkv), out)
+    assert torch.equal(ST.stage_attention_backward(qkv, dout), dqkv)
 
 
 @pytest.mark.cuda
@@ -435,7 +484,7 @@ def test_sgd_multi_kernel_matches_plain(count, launches):
 def test_stage_attention_kernel_refuses_long_sequences():
     dev = _card()
     with pytest.raises(ValueError, match="stage attention"):
-        ST.stage_attention_forward(torch.zeros((1, 257, 48), device=dev))
+        ST.stage_attention_forward(torch.zeros((1, 513, 48), device=dev))
 
 
 @pytest.mark.cuda

@@ -126,6 +126,81 @@ def test_attention_backward_twin_matches_jax_vjp():
     assert not _np(got[0])[2].any()  # the fully padded row: no score gradient
 
 
+@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("h,d", [(4, 16), (2, 64)])
+def test_attention_backward_twin_matches_jax_vjp_at_other_head_dims(h, d, T):
+    """The twin at head dim 16 (BertConfig.tiny's) and 64 (BERT-base's),
+    past the one-pass kernels' 256 tokens and at 512; rows half, fully and
+    tail masked. One bf16 step relative, plus 2^-12 (not 2^-16) x the
+    largest magnitude near zero: dV sums 257-512 bf16 products a element,
+    which XLA's CPU dot and torch's einsum take in other orders (2^-12.8 of
+    the largest magnitude at most, at T = 512)."""
+    rng = np.random.default_rng(T + d)
+    B = 4
+    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.normal(size=(B, T, h * d)).astype(np.float32)
+    mask = _masks(B, T)
+    ref = _attention_vjp(q, k, v, mask, dout)
+    got = E.attention_backward_plain(_bt(q), _bt(k), _bt(v), torch.from_numpy(mask), _bt(dout))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == (B, T, h, d)
+        g, r = _np(g), _np(r)
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=STEP_RTOL, atol=2 ** -12 * np.abs(r).max())
+    assert not _np(got[0])[2].any()
+
+
+def _masks(B: int, T: int) -> np.ndarray:
+    """Row 0 keeps every key; row 1 half, row 2 fully, row 3 its last fifth masked."""
+    mask = np.ones((B, T), np.int32)
+    mask[1, T // 2:] = 0
+    mask[2] = 0
+    mask[3, T - max(1, T // 5):] = 0
+    return mask
+
+
+def _chunked_stats(x, exp):
+    """Each row's max and sum of exp(x - max) as the chunked kernels take
+    them: a 64-key chunk at a time, the running sum scaled by
+    exp(old max - new max) when the max grows (x [..., T], keys past T not
+    in it) → (max, sum), each [..., 1]."""
+    mx = torch.full(x.shape[:-1] + (1,), torch.finfo(torch.float32).min)
+    total = torch.zeros_like(mx)
+    for c in range(0, x.shape[-1], 64):
+        chunk = x[..., c:c + 64]
+        m = torch.maximum(mx, chunk.amax(dim=-1, keepdim=True))
+        total = total * exp(mx - m) + exp(chunk - m).sum(dim=-1, keepdim=True)
+        mx = m
+    return mx, total
+
+
+@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("h,d", [(4, 16), (3, 32), (2, 64)])
+def test_chunked_attention_rounding_matches_jax(h, d, T):
+    """K5a's chunked form (the row's max and sum from 64-key chunks, the sum
+    rescaled as the max grows; p = exp(s - max) / sum rounded to bf16, as
+    the reference rounds its normalised probabilities) fits the card test's
+    tolerance against the reference body in jnp: rtol 2^-7, atol 2e-2."""
+    rng = np.random.default_rng(T * d)
+    B = 4
+    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
+    mask = _masks(B, T)
+    qj, kj, vj = (jnp.asarray(a, BF) for a in (q, k, v))
+    sc = jnp.einsum("bthd,bshd->bhts", qj, kj, preferred_element_type=jnp.float32) / np.sqrt(d)
+    sc = jnp.where(jnp.asarray(mask, bool)[:, None, None, :], sc, jnp.finfo(jnp.float32).min)
+    ref = jnp.einsum("bhts,bshd->bthd", jax.nn.softmax(sc, -1).astype(BF), vj,
+                     preferred_element_type=jnp.float32).astype(BF).reshape(B, T, h * d)
+
+    qf, kf, vf = (_bt(a).float() for a in (q, k, v))
+    x = torch.einsum("bthd,bshd->bhts", qf, kf) / torch.tensor(d, dtype=torch.float32).sqrt()
+    x = torch.where(torch.from_numpy(mask != 0)[:, None, None, :], x,
+                    torch.finfo(torch.float32).min)
+    mx, total = _chunked_stats(x, torch.exp)
+    p = (torch.exp(x - mx) / total).to(torch.bfloat16).float()
+    got = torch.einsum("bhts,bshd->bthd", p, vf).to(torch.bfloat16).reshape(B, T, h * d)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=STEP_RTOL, atol=2e-2)
+
+
 def _split_product(eq: str, ds, x):
     """eq's product of an f32 dS with bf16 x as K14a's tensor cores take it:
     dS = hi + lo, two bf16 parts, both summed into one f32 result."""
@@ -133,7 +208,7 @@ def _split_product(eq: str, ds, x):
     return torch.einsum(eq, hi, x) + torch.einsum(eq, (ds - hi).to(torch.bfloat16).float(), x)
 
 
-def _k14a_emulation(q, k, v, mask, dout):
+def _k14a_emulation(q, k, v, mask, dout, chunked: bool = False):
     """K14a's decomposition in plain torch (test-only, no kernel path calls
     it): the dQ pass takes P as a masked two-pass softmax, the divisions by
     sqrt(d) and by the row sum as multiplications by the f32 reciprocal,
@@ -141,7 +216,8 @@ def _k14a_emulation(q, k, v, mask, dout):
     sum, D) in a scratch [B, h, T, 3], and multiplies dS / sqrt(d) by K
     split into bf16 hi + lo; the dK / dV pass forms P from the scratch's max
     and sum and dS from its D, dV = bf16(P)^T.dO and dK = dS^T.Q split
-    alike → (dq, dk, dv) bf16."""
+    alike → (dq, dk, dv) bf16. chunked: the dQ pass's max and sum as the
+    chunked dQ kernel takes them (_chunked_stats)."""
     B, T, h, d = q.shape
     bf = torch.bfloat16
     qf, kf, vf = (t.float() for t in (q, k, v))
@@ -156,9 +232,13 @@ def _k14a_emulation(q, k, v, mask, dout):
         return torch.where(keep, (p * dp - p * dsum) * inv_scale, 0.0)
 
     # the dQ pass
-    mx = x.amax(dim=-1, keepdim=True)
-    e = torch.exp(x - mx)
-    total = e.sum(dim=-1, keepdim=True)
+    if chunked:
+        mx, total = _chunked_stats(x, torch.exp)
+        e = torch.exp(x - mx)
+    else:
+        mx = x.amax(dim=-1, keepdim=True)
+        e = torch.exp(x - mx)
+        total = e.sum(dim=-1, keepdim=True)
     p = e * (1 / total)
     dsum = (p * dp).sum(dim=-1, keepdim=True)
     stats = torch.cat([mx, total, dsum], dim=-1)
@@ -191,6 +271,27 @@ def test_k14a_decomposition_matches_jax_vjp(T):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, r, rtol=STEP_RTOL, atol=STEP_RTOL * np.abs(r).max())
     assert not _np(got[0])[2].any()  # the fully masked row: dQ = 0
+
+
+@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("h,d", [(4, 16), (2, 64)])
+def test_chunked_k14a_decomposition_matches_jax_vjp(h, d, T):
+    """The chunked dQ kernel's statistics (_chunked_stats, as K5a's chunked
+    pass 1) through K14a's decomposition at head dims 16 and 64 past 256
+    tokens: within one bf16 step of jax.vjp's largest magnitude."""
+    rng = np.random.default_rng(T + 7 * d)
+    B = 4
+    q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
+    dout = rng.normal(size=(B, T, h * d)).astype(np.float32)
+    mask = _masks(B, T)
+    ref = _attention_vjp(q, k, v, mask, dout)
+    got = _k14a_emulation(_bt(q), _bt(k), _bt(v), torch.from_numpy(mask), _bt(dout),
+                          chunked=True)
+    for g, r in zip(got, ref):
+        g, r = _np(g), _np(r)
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=STEP_RTOL, atol=STEP_RTOL * np.abs(r).max())
+    assert not _np(got[0])[2].any()
 
 
 def test_layernorm_backward_twin_matches_jax_vjp():
