@@ -21,7 +21,8 @@ K5d) and the forward kernels (K5a-c) must be launched by that training. A
 40-tree depth-3 forest is trained on the pipeline-off signal rows. The
 trained dual encoder writes the corpus's embedding columns on the card; the
 forest (K4), encoder (K5a-d) and training (K14a-d) kernels are held against
-their plain versions, and one whole train step is timed with kernels and
+their plain versions (K14b at the widths 64, 384 and 768), and one whole
+train step is timed with kernels and
 with plain versions; the stack is served again with the three models loaded
 as `main.py serve --dual-encoder/--cross-encoder/--lambdamart` loads them,
 every serving kernel must be launched by that traffic, and its top-10 pages
@@ -81,8 +82,9 @@ MiniLM-L6's width: six single-head f32 stages (hidden 384, FFN 1536, 128
 tokens) on a (pp=6, dp=2) Mesh of entries of the card, 8 microbatches of 16
 rows from a numpy seed. K16a-d (the stage's attention, its backward, the
 tanh GELU forward and backward, the SGD update) are held against their
-plain versions at the step's shapes and timed beside SDPA, its backward,
-F.gelu and torch._foreach_add_; the pipelined forward against
+plain versions at the step's shapes (K16a-b also at T = 512 and at H =
+1,024) and timed beside SDPA in f32, its backward through autograd, F.gelu
+and torch._foreach_add_; the pipelined forward against
 reference_forward through the plain versions (rtol 2e-4, atol 2e-5); 20
 SGD steps at lr 5e-2 with the kernels, launch counts reset just before and
 read just after (every K16 kernel launched, the loss finite), beside the
@@ -100,7 +102,8 @@ global top-k (K9) launched; then the same index without a mesh serves the
 same round, and the 8 compare queries' pass-1 top-10s (rtol 1e-5, docs up to
 ties) and top-10 pages must agree; K9 is held against its plain version at
 (4, 512), (4, 1024) and (8, 1024) with planted ties, bit-equal, and timed
-beside torch.topk. After the centrality phase, `run_harmonic(mesh=)` over 4
+beside torch.topk and the two gathers that give the docs and shards. After
+the centrality phase, `run_harmonic(mesh=)` over 4
 register shards of the 1M-node graph (counts reset before, read after: K8
 and K6b launched): the same rounds and centrality as the single-card job;
 its rounds again against K6a, every round's registers bit-equal; K8 on one
@@ -293,6 +296,8 @@ PIPE_TOL, PIPE_CURVE_RTOL = (2e-4, 2e-5), 1e-3
 PAGE_RTOL = 1e-3
 ENC_TOL = (2 ** -7, 1e-2)
 STEP = 2 ** -7
+# K14b's widths: MiniLM's (the main row), BertConfig.tiny's and BERT-base's
+LN_WIDTHS = (384, 64, 768)
 # model signals, kernels against plain versions on one card: embedding
 # similarities within 2e-2, cross-encoder sigmoids within 1e-2; page scores
 # within 5e-3 + 1e-3 relative (0.01 and 0.17 are those signals' weights)
@@ -1325,6 +1330,22 @@ def _step_close(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def layernorm_backward_library(x, r, w, dy):
+    """K14b's library call on its inputs: the backward of F.layer_norm over
+    the f32 widened sum through autograd (native_layer_norm_backward),
+    graph retained (it rounds differently from the reference: a timing
+    only). → the function to time."""
+    import torch
+    import torch.nn.functional as F
+
+    N = x.shape[-1]
+    s = (x + r).float().requires_grad_(True)
+    wl, bl = w.clone().requires_grad_(True), torch.zeros_like(w).requires_grad_(True)
+    y = F.layer_norm(s, (N,), wl, bl, 1e-12)
+    g = dy.float()
+    return lambda: torch.autograd.grad(y, (s, wl, bl), g, retain_graph=True)
+
+
 def training_kernel_phase(dual_dir: str) -> list:
     """K14a-d and K5d against their plain versions at the training shapes:
     attention backward at B=TRAIN_B, T=TRAIN_T with one fully and one half
@@ -1353,16 +1374,23 @@ def training_kernel_phase(dual_dir: str) -> list:
     out.append(("attention_backward", err, time_ms(run_k), time_ms(run_p), T))
 
     m = B * T
-    x, r, dy = bf(m, 384), bf(m, 384), bf(m, 384)
-    w = (1 + 0.1 * torch.randn(384, generator=g)).to(DEVICE)
-    run_k = lambda: E.add_layernorm_backward(x, r, w, 1e-12, dy)  # noqa: E731
-    run_p = lambda: E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)  # noqa: E731
-    (ds, dw, db), (ps, pw, pb) = run_k(), run_p()
-    err = _step_close(ds, ps)
-    for a, b in ((dw, pw), (db, pb)):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
-        err = max(err, float((a - b).abs().max()))
-    out.append(("add_layernorm_backward", err, time_ms(run_k), time_ms(run_p), m))
+    for N in LN_WIDTHS:  # MiniLM's first (the main row), then BertConfig.tiny's and BERT-base's
+        x, r, dy = bf(m, N), bf(m, N), bf(m, N)
+        w = (1 + 0.1 * torch.randn(N, generator=g)).to(DEVICE)
+        run_k = lambda: E.add_layernorm_backward(x, r, w, 1e-12, dy)  # noqa: E731
+        run_p = lambda: E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)  # noqa: E731
+        (ds, dw, db), (ps, pw, pb) = run_k(), run_p()
+        err = _step_close(ds, ps)
+        for a, b in ((dw, pw), (db, pb)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+            err = max(err, float((a - b).abs().max()))
+        if not all(torch.equal(a, b) for a, b in zip(run_k(), (ds, dw, db))):
+            raise AssertionError(f"two calls of the LayerNorm backward kernel differ at N={N}")
+        lib = time_ms(layernorm_backward_library(x, r, w, dy))
+        log(f"[train] K14b at {m} x {N}: native_layer_norm_backward through autograd "
+            f"{lib:.4f} ms")
+        out.append(("add_layernorm_backward", err, time_ms(run_k), time_ms(run_p),
+                    m if N == 384 else (m, N)))
 
     y, gout = bf(m, 1536), bf(m, 1536)
     yb = (0.5 * torch.randn(1536, generator=g)).to(DEVICE, torch.bfloat16)
@@ -1601,6 +1629,21 @@ def train_step_timing(tok, steps: int = 5) -> dict:
     return {k: min(v) for k, v in res.items()}
 
 
+def cross_entropy_library(logits, labels):
+    """K15c's library call on its inputs: F.cross_entropy's value and its
+    gradient with respect to the logits (torch.autograd.grad), as the kernel
+    returns both. → the function to time."""
+    import torch
+    import torch.nn.functional as F
+
+    leaf = logits.detach().requires_grad_(True)
+
+    def run():
+        loss = F.cross_entropy(leaf, labels)
+        return loss, torch.autograd.grad(loss, leaf)
+    return run
+
+
 def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     """The MoE training path on the card: a MiniLM-L6 cross encoder (full
     width, the 30,522-piece vocab, mean readout) from
@@ -1615,7 +1658,6 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     "library"}."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from stract_tpu_torch import optim
     from stract_tpu_torch.entrypoint.train_encoders import synthesize_triples
@@ -1755,7 +1797,7 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
         err = max(err, float((a - c).abs().max()))
     labels = torch.arange(TRAIN_B, device=DEVICE)
-    library["loss_heads"] = time_ms(lambda: F.cross_entropy(logits, labels))
+    library["loss_heads"] = time_ms(cross_entropy_library(logits, labels))
     rows.append(("loss_heads", True, err, time_ms(lambda: LO.info_nce_forward(logits)),
                  time_ms(lambda: LO.info_nce_plain(logits)), TRAIN_B,
                  4 * TRAIN_B * TRAIN_B * 2 + 4, 8 * TRAIN_B * TRAIN_B))
@@ -1793,8 +1835,8 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
            "pair_head_ms": pair_ms, "seconds": time.perf_counter() - t0,
            "launches": {k: launches[k] for k in MOE_KERNELS}}
     log(f"[moe] {json.dumps(rec)} card={card}")
-    log(f"[moe] K15c beside F.cross_entropy (the value only), K15d beside "
-        f"torch._fused_adamw_ on the bf16 tensors (f32 math inside, one rounding per "
+    log(f"[moe] K15c beside F.cross_entropy and its gradient (torch.autograd.grad), K15d "
+        f"beside torch._fused_adamw_ on the bf16 tensors (f32 math inside, one rounding per "
         f"tensor write: it rounds differently from optax's bf16 steps) card={card}")
     del model, opt
     return {"record": rec, "rows": rows, "launches": launches, "library": library}
@@ -1861,10 +1903,15 @@ def pipeline_phase(card: str) -> dict:
         atol = 1e-5 * float(auto.abs().max())
         err = close(ST.stage_attention_backward(qkv, dout), auto, 1e-5, atol)
         close(ST.stage_attention_backward_plain(qkv, dout), auto, 1e-5, atol)
+        if not torch.equal(ST.stage_attention_backward(qkv, dout),
+                           ST.stage_attention_backward(qkv, dout)):
+            raise AssertionError("two calls of the stage attention backward kernel differ")
+        # qkv, dout read and dqkv written once (the kernel's P / dS scratch is
+        # its own design, not the function's); five products, each three TF32
         rows.append(("stage_attention_backward", err,
                      time_ms(lambda: ST.stage_attention_backward(qkv, dout)),
                      time_ms(lambda: ST.stage_attention_backward_plain(qkv, dout)), (mb, T_, H_),
-                     4 * (3 + 1 + 3) * mb * T_ * H_, 5 * pairs + 8 * mb * T_ * T_))
+                     4 * (3 + 1 + 3) * mb * T_ * H_, 3 * 5 * pairs, PEAK_TF32))
         q, k, v = (qkv[..., i * H_:(i + 1) * H_].unsqueeze(1).contiguous().requires_grad_(True)
                    for i in range(3))
         lib_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
@@ -2165,10 +2212,27 @@ def gathered(B: int, n: int, K: int, seed: int):
     return torch.from_numpy(scores).to(DEVICE), torch.from_numpy(docs).to(DEVICE)
 
 
+def topk_library(scores, docs, K: int):
+    """K9's library call on its inputs: torch.topk over each query's
+    flattened n*K scores, then the docs gathered by the indices and the
+    shard of each (index // K), the three outputs K9 returns (torch.topk
+    does not promise lax.top_k's tie order: a timing only). → the function
+    to time."""
+    import torch
+
+    B, n, _ = scores.shape
+    flat, flat_docs = scores.view(B, n * K), docs.view(B, n * K)
+
+    def run():
+        vals, idx = torch.topk(flat, K)
+        return torch.gather(flat_docs, 1, idx), torch.div(idx, K, rounding_mode="floor"), vals
+    return run
+
+
 def mesh_topk_rows() -> tuple:
     """K9 against its plain version (a stable sort: lax.top_k's order) at
     MESH_TOPK_SHAPES, B = MESH_TOPK_B queries: docs, shards and scores
-    bit-equal; timed beside torch.topk over the same flattened rows. →
+    bit-equal; timed beside torch.topk and the gathers (topk_library). →
     (rows (name, err, ms, plain ms, (n, K, B), bytes, ops), library ms at the
     first shape)."""
     import torch
@@ -2184,13 +2248,12 @@ def mesh_topk_rows() -> tuple:
         for a, b in zip(run_k(), run_p()):
             if not torch.equal(a, b):
                 raise AssertionError(f"K9 differs from its plain version at n={n} K={K}")
-        flat = scores.view(B, n * K)
-        lib = time_ms(lambda: torch.topk(flat, K))
+        lib = time_ms(topk_library(scores, docs, K))
         library = library if library is not None else lib
         rows.append(("mesh_topk", 0.0, time_ms(run_k), time_ms(run_p), (n, K, B),
                      8 * B * n * K + 12 * B * K, B * n * K))
-        log(f"[mesh] K9 n={n} K={K} B={B}: bit-equal to the plain version; torch.topk "
-            f"{lib:.4f} ms")
+        log(f"[mesh] K9 n={n} K={K} B={B}: bit-equal to the plain version; torch.topk and "
+            f"the docs' and shards' gathers {lib:.4f} ms (torch.topk keeps no set tie order)")
     return rows, library
 
 
@@ -2415,8 +2478,9 @@ def library_phase() -> dict:
     where one exists, at the kernel's main shape (used nowhere in the port):
     K5a scaled_dot_product_attention with the additive mask, K14a its
     backward through autograd, K5b layer_norm over the sum, K5c the tanh GELU
-    over the sum, K14d torch._fused_adamw_ (what AdamW(fused=True) calls). →
-    {kernel: ms}."""
+    over the sum, K14b native_layer_norm_backward through autograd, K14c
+    aten.gelu_backward (tanh) and the bias's column sum, K14d
+    torch._fused_adamw_ (what AdamW(fused=True) calls). → {kernel: ms}."""
     import torch
     import torch.nn.functional as F
 
@@ -2444,6 +2508,13 @@ def library_phase() -> dict:
                                                         b.to(x.dtype), 1e-12))
     y, yb = bf(m, 1536), bf(1536)
     out["bias_gelu"] = time_ms(lambda: F.gelu(y + yb, approximate="tanh"))
+    m = TRAIN_B * TRAIN_T  # the backward kernels' shapes
+    x, r, dy = bf(m, 384), bf(m, 384), bf(m, 384)
+    out["add_layernorm_backward"] = time_ms(layernorm_backward_library(x, r, w, dy))
+    y, yb, gout = bf(m, 1536), bf(1536), bf(m, 1536)
+    s = y + yb
+    out["bias_gelu_backward"] = time_ms(lambda: torch.ops.aten.gelu_backward(
+        gout, s, approximate="tanh").float().sum(dim=0))
     n = 22_565_376
     p, gr, mo, ve = (torch.randn(n, generator=g).to(DEVICE) for _ in range(4))
     ve.abs_()
@@ -2500,7 +2571,7 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
                           ENC_B * ENC_T),
             "mean_pool": ("triton", enc, "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
             "attention_backward": ("cuda", src + "encoder.cu", step, TRAIN_T),
-            "add_layernorm_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),
+            "add_layernorm_backward": ("cuda", src + "encoder.cu", step, TRAIN_B * TRAIN_T),
             "bias_gelu_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),
             "adamw": ("triton", "stract_tpu_torch/optim.py", step, None),
             "hll_merge": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:50", None),
@@ -2577,8 +2648,9 @@ def work(name: str, shape, forest=None) -> tuple:
             14 * TRAIN_B * 12 * shape * shape * 32, PEAK_BF16
     if name == "add_layernorm":
         return 3 * shape * H * 2 + 8 * H, 8 * shape * H, PEAK_F32
-    if name == "add_layernorm_backward":
-        return 4 * shape * H * 2 + 12 * H, 12 * shape * H, PEAK_F32
+    if name == "add_layernorm_backward":  # shape: rows, or (rows, N) off MiniLM's width
+        M, N = shape if isinstance(shape, tuple) else (shape, H)
+        return 4 * M * N * 2 + 12 * N, 12 * M * N, PEAK_F32
     if name == "bias_gelu":
         return 2 * shape * F_ * 2 + 2 * F_, 20 * shape * F_, PEAK_F32
     if name == "bias_gelu_backward":

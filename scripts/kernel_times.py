@@ -25,6 +25,20 @@ under data/). --readings picks groups (default all):
                       one dp shard), (T, H) in STAGE_SHAPES, beside
                       scaled_dot_product_attention in f32 over one head of
                       width H (matmuls in full f32: allow_tf32 off);
+  stage_attention_backward
+                      K16b at the same shapes, beside SDPA's f32 backward
+                      (torch.autograd.grad of its output over q, k, v, one
+                      head of width H, graph retained; allow_tf32 off);
+  layernorm_backward  K14b at 8192 x N (the dual step's rows), N in
+                      LN_WIDTHS (BertConfig.tiny's, MiniLM's, BERT-base's
+                      width), beside the backward of F.layer_norm over the
+                      f32 widened sum through autograd
+                      (native_layer_norm_backward; chip_smoke.py's
+                      layernorm_backward_library);
+  loss_heads          K15c's InfoNCE head at B = 64 (value and B x B
+                      gradient), beside F.cross_entropy and its gradient
+                      (torch.autograd.grad; chip_smoke.py's
+                      cross_entropy_library);
   bias_gelu           K5c at 4096 x 1536 (chip_smoke.py's shape), beside
                       F.gelu(y + b, approximate="tanh");
   sgd                 K16d over the 25 f32 tensors of the pipelined train
@@ -61,8 +75,10 @@ TRAIN_B, TRAIN_T, VOCAB = 64, 128, 30522
 GELU_M, GELU_N = 4096, 1536
 ATTN_WIDE = ((64, 256), (64, 512), (16, 512))
 STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024))
-READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention", "bias_gelu",
-            "sgd", "pipeline_step", "dual_step")
+LN_WIDTHS = (64, 384, 768)
+READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
+            "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu", "sgd",
+            "pipeline_step", "dual_step")
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -107,6 +123,18 @@ def _masked(B: int, T: int):
     return mask, add
 
 
+def _smoke():
+    """chip_smoke.py of this checkout, whichever tree the kernels come from:
+    the library calls it times for K14b and K15c are timed here from the
+    same code."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def worker(root: str, calls: int, readings: list) -> list:
     sys.path.insert(0, root)
     import torch
@@ -117,6 +145,7 @@ def worker(root: str, calls: int, readings: list) -> list:
     from stract_tpu_torch.ops import stage as ST
 
     kernels.build()
+    smoke = _smoke()
     out = []
     g = torch.Generator().manual_seed(0)
 
@@ -185,6 +214,41 @@ def worker(root: str, calls: int, readings: list) -> list:
             q, k, v = (qkv[..., i * H:(i + 1) * H].unsqueeze(1).contiguous() for i in range(3))
             read((("K16a", lambda: ST.stage_attention_forward(qkv)),
                   ("sdpa_f32", lambda: F.scaled_dot_product_attention(q, k, v))), T=T, H=H)
+    if "stage_attention_backward" in readings:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for T, H in STAGE_SHAPES:
+            qkv = torch.randn((STAGE_MB, T, 3 * H), generator=g).cuda()
+            dout = torch.randn((STAGE_MB, T, H), generator=g).cuda()
+            try:
+                ST.stage_attention_backward(qkv, dout)
+            except ValueError as exc:
+                out.append({"name": "K16b", "T": T, "H": H, "refused": str(exc),
+                            "event_ms": None, "device_ms": None})
+                continue
+            leaves = [qkv[..., i * H:(i + 1) * H].unsqueeze(1).contiguous().requires_grad_()
+                      for i in range(3)]
+            o = F.scaled_dot_product_attention(*leaves)
+            do = dout.unsqueeze(1)
+            read((("K16b", lambda: ST.stage_attention_backward(qkv, dout)),
+                  ("sdpa_f32_backward", lambda: torch.autograd.grad(o, leaves, do,
+                                                                    retain_graph=True))),
+                 T=T, H=H)
+            del o, leaves
+    if "layernorm_backward" in readings:
+        for N in LN_WIDTHS:
+            M = TRAIN_B * TRAIN_T
+            x, r, dy = bf(M, N), bf(M, N), bf(M, N)
+            w = (1 + 0.1 * torch.randn(N, generator=g)).cuda()
+            read((("K14b", lambda: E.add_layernorm_backward(x, r, w, 1e-12, dy)),
+                  ("layer_norm_backward", smoke.layernorm_backward_library(x, r, w, dy))),
+                 M=M, N=N)
+    if "loss_heads" in readings:
+        from stract_tpu_torch.ops import losses as LO
+
+        logits = 20.0 * torch.randn((TRAIN_B, TRAIN_B), generator=g).cuda()
+        labels = torch.arange(TRAIN_B, device="cuda")
+        read((("K15c", lambda: LO.info_nce_forward(logits)),
+              ("cross_entropy", smoke.cross_entropy_library(logits, labels))), B=TRAIN_B)
     if "bias_gelu" in readings:
         y, b = bf(GELU_M, GELU_N), bf(GELU_N)
         read((("K5c", lambda: E.bias_gelu_forward(y, b)),
@@ -262,7 +326,8 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "tensors") if f in rec)
+            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "tensors")
+                             if f in rec)
             key = f"{tree} {rec['name']} {shape}"
             summary.setdefault(key, []).append((rec["event_ms"], rec["device_ms"]))
     print(json.dumps({"card": card.strip().splitlines()[0], "readings": summary}), flush=True)

@@ -1,13 +1,15 @@
 // The BERT encoder's kernels on Hopper (sm_90a): K5a masked self-attention
 // (attention_kernel and attention_long_kernel, here), K14a its backward (the
-// dQ and dK / dV kernels below them) and K5c bias + tanh GELU
-// (bias_gelu_kernel, last). Each has its note above its code: what it
-// replaces, what bounds it on the card and what its design does about that.
-// In short: all three move little data and compute less, so device memory
-// bounds them; K5a and K14a take their products to the tensor cores (wgmma
-// on cp.async-staged tiles) and spend what is left in the f32 softmax and
-// one load-compute-store pass a block; K5c reads and writes 16 bytes a
-// thread with the bias from the index.
+// dQ and dK / dV kernels below them), K5c bias + tanh GELU
+// (bias_gelu_kernel) and K14b the residual + LayerNorm backward
+// (add_layernorm_bwd_kernel, last). Each has its note above its code: what
+// it replaces, what bounds it on the card and what its design does about
+// that. In short: all four move little data and compute less, so device
+// memory bounds them; K5a and K14a take their products to the tensor cores
+// (wgmma on cp.async-staged tiles) and spend what is left in the f32
+// softmax and one load-compute-store pass a block; K5c reads and writes 16
+// bytes a thread with the bias from the index; K14b takes a row a warp and
+// sums its column partials without atomics.
 //
 // K5a replaces the body of stract_tpu/models/bert.py:97-103 (BertSelfAttention):
 // scores = q.k^T in f32 / sqrt(d), masked keys set to finfo(f32).min, softmax
@@ -1154,6 +1156,225 @@ bias_gelu_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __res
     }
 }
 
+// K14b: the backward of the residual add + LayerNorm (bert.py:164-165,
+// :173-174 and the embedding LN :204-205: flax's LayerNorm(dtype=f32) of
+// s = bf16(x + r), cast to bf16), as jax.vjp takes it and
+// add_layernorm_backward_plain (ops/encoder.py) computes it: per row, in
+// f32, mean = sum(s) / N, z = sum(s^2) / N - mean^2, var = max(z, 0),
+// rinv = 1 / sqrt(var + eps), xc = s - mean; dxc = g (rinv w), dz =
+// [z > 0] sum(g xc w) (-0.5 rinv / (var + eps)), dmean = -sum(dxc) - 2 mean
+// dz; ds = bf16(bf16(dxc) + bf16(dmean / N + (dz / N)(2 s))), the cotangent
+// of both x and r; dweight = sum over rows of g xc rinv, dbias = sum of g.
+// What bounds it: device memory (x, r, dy read and ds written, 8 bytes an
+// element: 0.0075 ms at 8,192 x 384); ~30 f32 operations an element and
+// five warp sums a row are far below the card's rates. The design: a warp a
+// row, the row held in registers as bf16 (s is a bf16 value, dy one: a
+// piece of W of them, one piece per lane of every 32; 8-byte loads and
+// stores when N is a multiple of 4 and the pointers 8-byte aligned, else
+// 2-byte ones; N up to kLnMaxN), the row's sums by shuffles, w read where
+// it is used (from L1): registers bound how many rows an SM holds in
+// flight. A fixed grid of kLnBlocks blocks (fewer when M is small) strides
+// over the rows; each lane keeps its columns' dweight and dbias partials
+// in f32 registers, the block sums its warps' in shared memory in warp
+// order into partials [2][blocks][N], and a second kernel sums those over
+// the blocks (kLnSumGroups interleaved groups, then the groups, each in a
+// fixed order): no atomics, so two calls are bit-equal and the grid does not
+// depend on the card. Both kernels run in one call, dweight, dbias and the
+// partials in one allocation: in the host-bound train step the host's cost
+// of a call, not the card's, sets what this kernel costs.
+constexpr int kLnWarps = 8;      // rows in flight a block: a warp a row
+constexpr int kLnBlocks = 264;   // the grid's most blocks: two for each of the H100's SMs
+constexpr int kLnMaxN = 1024;
+constexpr int kLnSumCols = 32;   // the column sum: columns a block (one a lane) ...
+constexpr int kLnSumGroups = 8;  // ... and groups of the blocks' partials (one a warp)
+
+// W bf16 values of a row, as their bits
+template <int W>
+struct Piece;
+
+template <>
+struct Piece<4> {
+    uint2 bits;
+    __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+        bits = *reinterpret_cast<const uint2*>(p);
+    }
+    __device__ __forceinline__ void store(__nv_bfloat16* p) const {
+        *reinterpret_cast<uint2*>(p) = bits;
+    }
+    __device__ __forceinline__ void get(float (&v)[4]) const {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits.x));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits.y));
+        v[0] = a.x;
+        v[1] = a.y;
+        v[2] = b.x;
+        v[3] = b.y;
+    }
+    __device__ __forceinline__ void set(const float (&v)[4]) {  // rounded to nearest
+        const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+        bits.x = *reinterpret_cast<const uint32_t*>(&a);
+        bits.y = *reinterpret_cast<const uint32_t*>(&b);
+    }
+};
+
+template <>
+struct Piece<1> {
+    __nv_bfloat16 bits;
+    __device__ __forceinline__ void load(const __nv_bfloat16* p) { bits = *p; }
+    __device__ __forceinline__ void store(__nv_bfloat16* p) const { *p = bits; }
+    __device__ __forceinline__ void get(float (&v)[1]) const { v[0] = __bfloat162float(bits); }
+    __device__ __forceinline__ void set(const float (&v)[1]) { bits = __float2bfloat16_rn(v[0]); }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// W bf16s a piece, at most P pieces a lane (N <= 32 P W)
+template <int W, int P>
+__global__ void __launch_bounds__(kLnWarps * 32)
+add_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ r,
+                         const __nv_bfloat16* __restrict__ dy, const float* __restrict__ w,
+                         __nv_bfloat16* __restrict__ ds, float* __restrict__ partials,
+                         long long M, int N, float eps) {
+    __shared__ float s_part[kLnWarps][kLnMaxN];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, pieces = N / W;
+    const float n = static_cast<float>(N);
+    float dw[P][W], db[P][W];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int e = 0; e < W; ++e) dw[i][e] = db[i][e] = 0.0f;
+    for (long long row = static_cast<long long>(blockIdx.x) * kLnWarps + warp; row < M;
+         row += static_cast<long long>(gridDim.x) * kLnWarps) {
+        const long long off = row * N;
+        Piece<W> s[P], g[P];
+        float sum = 0.0f, sq = 0.0f;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {  // guarded, not cut short: every piece's loads go out at once
+            const int p = lane + 32 * i;
+            float a[W] = {}, b[W] = {};
+            if (p < pieces) {
+                Piece<W> xp, rp;
+                xp.load(x + off + p * W);
+                rp.load(r + off + p * W);
+                g[i].load(dy + off + p * W);
+                xp.get(a);
+                rp.get(b);
+            }
+#pragma unroll
+            for (int e = 0; e < W; ++e) {  // pieces past N: s = 0 adds nothing
+                a[e] = round_bf16(a[e] + b[e]);
+                sum += a[e];
+                sq += a[e] * a[e];
+            }
+            s[i].set(a);  // exact: a bf16 value
+        }
+        sum = warp_sum(sum);
+        sq = warp_sum(sq);
+        const float mean = sum / n;
+        const float z = sq / n - mean * mean;
+        const float var = fmaxf(z, 0.0f);
+        const float rinv = 1.0f / sqrtf(var + eps);
+        float dsum = 0.0f, drs = 0.0f;  // sum(dxc), sum(g xc w)
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            const int p = lane + 32 * i;
+            if (p < pieces) {
+                float sv[W], gv[W];
+                s[i].get(sv);
+                g[i].get(gv);
+#pragma unroll
+                for (int e = 0; e < W; ++e) {
+                    const float xc = sv[e] - mean, wv = __ldg(w + p * W + e);
+                    db[i][e] += gv[e];
+                    dw[i][e] += gv[e] * xc * rinv;
+                    dsum += gv[e] * (rinv * wv);
+                    drs += gv[e] * xc * wv;
+                }
+            }
+        }
+        dsum = warp_sum(dsum);
+        drs = warp_sum(drs);
+        const float dz = z > 0.0f ? drs * (-0.5f * (rinv / (var + eps))) : 0.0f;
+        const float dmean = -dsum - 2.0f * mean * dz;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            const int p = lane + 32 * i;
+            if (p < pieces) {
+                float sv[W], gv[W], out[W];
+                s[i].get(sv);
+                g[i].get(gv);
+#pragma unroll
+                for (int e = 0; e < W; ++e) {
+                    const float dxc = gv[e] * (rinv * __ldg(w + p * W + e));
+                    out[e] = round_bf16(dxc) + round_bf16(dmean / n + (dz / n) * (2.0f * sv[e]));
+                }
+                Piece<W> o;
+                o.set(out);
+                o.store(ds + off + p * W);
+            }
+        }
+    }
+    // the block's column partials: its warps' summed in warp order
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            const int p = lane + 32 * i;
+            if (p < pieces) {
+#pragma unroll
+                for (int e = 0; e < W; ++e) s_part[warp][p * W + e] = k == 0 ? dw[i][e] : db[i][e];
+            }
+        }
+        __syncthreads();
+        for (int c = threadIdx.x; c < N; c += kLnWarps * 32) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int v = 0; v < kLnWarps; ++v) acc += s_part[v][c];
+            partials[(static_cast<long long>(k) * gridDim.x + blockIdx.x) * N + c] = acc;
+        }
+        __syncthreads();
+    }
+}
+
+// dweight and dbias: the blocks' partials summed for kLnSumCols columns of
+// one of them a block, warp j summing blocks j, j + kLnSumGroups, ... in
+// order, then the groups summed in order
+__global__ void __launch_bounds__(kLnSumCols * kLnSumGroups)
+layernorm_col_sum_kernel(const float* __restrict__ partials, int blocks, int N,
+                         float* __restrict__ dweight, float* __restrict__ dbias) {
+    __shared__ float s_sum[kLnSumGroups][kLnSumCols];
+    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
+    const int k = blockIdx.x / col_blocks;  // 0: dweight, 1: dbias
+    const int c = blockIdx.x % col_blocks * kLnSumCols + threadIdx.x;
+    const int j = threadIdx.y;
+    float acc = 0.0f;
+    if (c < N) {
+        const float* p = partials + static_cast<long long>(k) * blocks * N + c;
+        for (int b = j; b < blocks; b += kLnSumGroups) acc += p[static_cast<long long>(b) * N];
+    }
+    s_sum[j][threadIdx.x] = acc;
+    __syncthreads();
+    if (j == 0 && c < N) {
+        float total = 0.0f;
+#pragma unroll
+        for (int v = 0; v < kLnSumGroups; ++v) total += s_sum[v][threadIdx.x];
+        (k == 0 ? dweight : dbias)[c] = total;
+    }
+}
+
+template <int W, int P>
+cudaError_t launch_layernorm_backward(const __nv_bfloat16* x, const __nv_bfloat16* r,
+                                      const __nv_bfloat16* dy, const float* w,
+                                      __nv_bfloat16* ds, float* partials, long long M, int N,
+                                      int blocks, float eps, cudaStream_t stream) {
+    add_layernorm_bwd_kernel<W, P><<<blocks, kLnWarps * 32, 0, stream>>>(x, r, dy, w, ds,
+                                                                        partials, M, N, eps);
+    return cudaGetLastError();
+}
+
 // a launch with `smem` bytes of dynamic shared memory, opting the kernel
 // in when that is above the default 48 KB (per card: set at every such
 // launch) → the CUDA status of the launch
@@ -1310,6 +1531,51 @@ int stract_bias_gelu(const void* y, const void* bias, void* out, long long M, in
     bias_gelu_kernel<<<grid, dim3(kGeluGroups, kGeluRows), 0, stream>>>(
         static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(bias),
         static_cast<__nv_bfloat16*>(out), M, N, c1, c2);
+    return cudaGetLastError();
+}
+
+// x, r, dy bf16[M, N], w f32[N] -> ds bf16[M, N], dweight and dbias f32[N]
+// (K14b); partials f32[2, blocks, N] is scratch. N must be 1..1024, blocks
+// 1..264 when M > 0 (0 when M = 0: dweight and dbias are zeros). Two
+// launches on the stream; returns the CUDA status.
+int stract_add_layernorm_backward(const void* x, const void* r, const void* dy, const float* w,
+                                  void* ds, float* dweight, float* dbias, float* partials,
+                                  long long M, int N, int blocks, float eps,
+                                  cudaStream_t stream) {
+    if (M < 0 || N <= 0 || N > kLnMaxN || blocks < 0 || blocks > kLnBlocks ||
+        (M > 0) != (blocks > 0))
+        return cudaErrorInvalidValue;
+    if (M > 0) {
+        const auto* xx = static_cast<const __nv_bfloat16*>(x);
+        const auto* rr = static_cast<const __nv_bfloat16*>(r);
+        const auto* gg = static_cast<const __nv_bfloat16*>(dy);
+        auto* out = static_cast<__nv_bfloat16*>(ds);
+        const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(r) |
+                               reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(ds);
+        cudaError_t err;
+        if (N % 4 == 0 && bits % 8 == 0) {  // 8-byte pieces
+            const int per = (N / 4 + 31) / 32;
+            err = per <= 1 ? launch_layernorm_backward<4, 1>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream)
+                : per <= 2 ? launch_layernorm_backward<4, 2>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream)
+                : per <= 3 ? launch_layernorm_backward<4, 3>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream)
+                : per <= 4 ? launch_layernorm_backward<4, 4>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream)
+                : per <= 6 ? launch_layernorm_backward<4, 6>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream)
+                           : launch_layernorm_backward<4, 8>(xx, rr, gg, w, out, partials, M, N,
+                                                             blocks, eps, stream);
+        } else {  // single elements: N not a multiple of 4, or a pointer not 8-byte aligned
+            err = launch_layernorm_backward<1, 32>(xx, rr, gg, w, out, partials, M, N, blocks, eps,
+                                                   stream);
+        }
+        if (err != cudaSuccess) return err;
+    }
+    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
+    layernorm_col_sum_kernel<<<2 * col_blocks, dim3(kLnSumCols, kLnSumGroups), 0, stream>>>(
+        partials, blocks, N, dweight, dbias);
     return cudaGetLastError();
 }
 

@@ -17,67 +17,72 @@
 // What bounds it: every query row needs 2 T H multiply-adds for its scores
 // and 2 T H for P.V (the backward five such products); at the smoke's
 // shapes (T = 128, H = 384) that is ~64 flops per byte of q, k, v moved, so
-// arithmetic binds: on the CUDA cores in f32 (K16b), on the tensor cores
-// in 3xTF32 (K16a: three TF32 products a product, 0.0012 ms at mb = 8,
-// T = 128, H = 384 over 495 TFLOP/s). The head width is a runtime argument
-// (up to 1,024): one key row is 1.5 KB at H = 384, so K and V cannot be
-// staged whole; they are staged in chunks.
+// arithmetic binds, on the tensor cores in 3xTF32 (three TF32 products a
+// product: K16a 0.0012 ms at mb = 8, T = 128, H = 384 over 495 TFLOP/s,
+// K16b 0.0031). The head width is a runtime argument (up to 1,024): one key
+// row is 1.5 KB at H = 384, so K and V cannot be staged whole; they are
+// staged in chunks.
 //
-// The forward (stage_attention_tc_kernel) on the tensor cores: one block of
-// 16 warps per (tile of 16 query rows, batch row), mma.sync.m16n8k8 TF32
-// products with f32 accumulators. Each f32 operand a is split as
-// hi = tf32(a) (cvt.rna), lo = tf32(a - hi) (the difference is exact), and
-// a.b is taken as lo.hi + hi.lo + hi.hi (lo.lo, ~2^-22 |a b|, left out):
-// about 21 bits of each product against TF32's 10, so the kernel keeps the
-// f32 twin's tolerance (rtol 1e-5, atol 1e-5 x max |out|), which TF32 alone
-// misses by orders of magnitude (tests/test_torch_pipeline.py emulates both
-// against f64). The tensor cores' f32 sums do not round to nearest: a chain
-// of mma into one accumulator drifts (384 of them at H = 1,024 missed the
-// tolerance on the H100 at T = 512), so each chain covers kTcGroup k-steps
-// from zero and its part is added to the running sum in f32 (four chains a
-// group, hi.hi apart from the small terms and even k-steps apart from odd,
-// took 0.037 against 0.032 ms at mb = 8, T = 128, H = 384). mma.sync
-// over wgmma: TF32 wgmma takes B only K-major, so P.V would need V
+// Both run on the tensor cores: blocks of 16 warps, each block one tile of
+// 16 rows (query rows, or key rows in K16b's second kernel) of one batch
+// row, mma.sync.m16n8k8 TF32 products with f32 accumulators. Each f32
+// operand a is split as hi = tf32(a) (cvt.rna), lo = tf32(a - hi) (the
+// difference is exact), and a.b is taken as lo.hi + hi.lo + hi.hi (lo.lo,
+// ~2^-22 |a b|, left out): about 21 bits of each product against TF32's
+// 10, so the kernels keep the f32 twin's tolerance (rtol 1e-5, atol 1e-5 x
+// max |out|), which TF32 alone misses by orders of magnitude
+// (tests/test_torch_pipeline.py emulates both against f64, the backward's
+// five products too). The tensor cores' f32 sums do not round to nearest: a
+// chain of mma into one accumulator drifts (384 of them at H = 1,024 missed
+// the tolerance on the H100 at T = 512), so each chain covers kTcGroup
+// k-steps from zero and its part is added to the running sum in f32 (four
+// chains a group, hi.hi apart from the small terms and even k-steps apart
+// from odd, took 0.037 against 0.032 ms at mb = 8, T = 128, H = 384).
+// mma.sync over wgmma: TF32 wgmma takes B only K-major, so P.V would need V
 // transposed in shared memory; mma.sync's B fragment is loaded from
 // registers, read from V as it is staged, and split in registers as it is
 // loaded; an operand every warp reads (Q, P) is split once into TF32 hi and
-// lo planes in shared memory. The steps:
-//   1. S = Q.K^T / sqrt(H): for each chunk of 128 keys (each warp owns 8 of
-//      them: one n8 tile), Q's 16 rows and the chunk's K rows are staged
-//      64 columns of H at a time (f32, rows padded to 68 floats so a
-//      fragment's 32 loads hit 32 banks; Q's slice then split into its
-//      planes), and the chunk's scores, divided
-//      by sqrt(H) (an IEEE division, as the twin divides), go to a [16, T]
-//      score tile in shared memory;
-//   2. the softmax of each row in place, one warp a row (max, exp, sum,
-//      division by the sum: the twin's expressions), P written as its TF32
-//      hi and lo planes (split once, not by every warp that reads it), keys
-//      past T 0;
-//   3. O = P.V: for each slice of 128 output columns (each warp owns 8: one
-//      n8 tile), V is staged 64 keys at a time (rows padded to 136
-//      floats) and P's A fragments are read from the two planes; the slice
-//      is stored to out.
+// lo planes in shared memory. Every product is one of two kinds:
+//   - a row product (rows_product: S = Q.K^T, dP = dO.V^T): for each chunk
+//     of 128 of B's rows (each warp owns 8 of them: one n8 tile), A's 16
+//     rows and the chunk are staged 64 columns of H at a time (f32, rows
+//     padded to 68 floats so a fragment's 32 loads hit 32 banks; A's slice
+//     then split into its planes), and the chunk's [16, 128] results go to a
+//     [16, T] tile in shared memory (S divided by sqrt(H), an IEEE division
+//     as the twin divides);
+//   - a planes product (planes_product: O = P.V, dQ = dS.K, dV = P^T.dO,
+//     dK = dS^T.Q): A is a [16, T] tile held as TF32 hi and lo planes; for
+//     each slice of 128 output columns (each warp owns 8: one n8 tile), B is
+//     staged 64 of its rows at a time (rows padded to 136 floats) and the
+//     slice is stored to its output rows.
 // Every staging is a round of cp.async copies into one of two buffers, the
-// next round's copies in flight while this one computes (the first V
-// slice's during the softmax): the grid has 64 blocks at the pipelined
-// step's shapes, one an SM, so latency binds, and 16 warps an SM hide more
-// of it than 8 (0.043 ms) or 4 warps with each round's loads waited for
-// (0.061 ms) did on the H100. Shared memory: the score tile and P's lo
-// plane (16 x (T rounded up to 128, + 4) floats each) and two staging
-// buffers of 43,520 bytes; 153,088 bytes at T = 512 (the kernel opts in).
-// No atomics: every output element has one writer.
+// next round's copies in flight while this one computes (a planes
+// product's first round while the tile is formed): the grid has 64 blocks
+// at the pipelined step's shapes, one an SM, so latency binds, and 16 warps
+// an SM hide more of it than 8 (0.043 ms) or 4 warps with each round's loads
+// waited for (0.061 ms) did on the H100 (K16a). Shared memory: two [16,
+// T rounded up to 128, + 4] tiles and two staging buffers of 43,520 bytes;
+// 153,088 bytes at T = 512 (the kernels opt in). No atomics: every output
+// element has one writer, so two calls are bit-equal.
 //
-// The backward (CUDA cores): kernel 1, per (tile of 8 query rows, batch
-// row), recomputes the scores (K chunks of 32 keys, rows padded to an odd
-// stride so a warp's 32 keys hit 32 banks) and dP = dO V^T (V chunks) as
-// dot products, the softmax, D = rowsum(P dP) and dS; writes P and dS to
-// scratch f32[mb, T, T] and dQ = dS K (each thread owns up to 4 of the H
-// columns and walks the keys in order, the 8 rows' sums in registers).
-// Kernel 2, per (tile of 8 key rows, batch row), stages its 8 columns of P
-// and dS and walks the query rows: dK = dS^T Q and dV = P^T dO, 8 rows of
-// each in registers. No atomics: every output element has one writer, so
-// the result does not depend on scheduling. Tensor cores for the backward
-// (3xTF32 as the forward) are later work.
+// K16a (stage_attention_tc_kernel), per query tile: S, the softmax of each
+// row in place (one warp a row: max, exp, sum, division by the sum: the
+// twin's expressions), P written as its TF32 hi and lo planes (split once,
+// not by every warp that reads it; keys past T 0), O = P.V.
+//
+// K16b, kernel 1 (stage_attention_bwd_query_kernel), per query tile: S and
+// dP as row products into the two tiles; the softmax, D = rowsum(P dP) and
+// dS = P (dP - D) / sqrt(H) in f32 (the twin's expressions, a warp a row);
+// P and dS written transposed to the scratch f32[mb, T, T] (key j's 16
+// entries of the tile contiguous, so kernel 2 stages its rows as they lie);
+// dS split into planes (its lo part over P) and dQ = dS.K. Kernel 2
+// (stage_attention_bwd_key_kernel), per tile of 16 key rows: its rows of
+// P^T staged from the scratch and split, dV = P^T.dO; then dS^T's, dK =
+// dS^T.Q. Each Q and dO row is read T / 16 times (an earlier form on the
+// CUDA cores read them T / 8 times, unstaged, one serial H-long dot a key a
+// lane, and lost 5.4x to the twin's cuBLAS products at T = 512); the
+// scratch (2 mb T^2 floats, 4 MB at mb = 8, T = 512) stays in the 50 MB L2
+// between the kernels.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,55 +90,8 @@
 
 namespace {
 
-constexpr int kRows = 8;             // query (or key) rows per block
-constexpr int kChunk = 32;           // keys per staged chunk
-constexpr int kThreads = kRows * 32; // one warp per row of the tile
 constexpr int kMaxT = 512;
 constexpr int kMaxH = 1024;
-constexpr int kCols = kMaxH / kThreads;  // output columns a thread owns, at most
-
-__host__ __device__ inline int key_stride(int H) { return H | 1; }
-
-size_t backward_smem_bytes(int T, int H) {
-    return sizeof(float) *
-           (2 * static_cast<size_t>(kRows) * H + kChunk * key_stride(H) + 2 * kRows * T);
-}
-
-// Stage rows q0..q0+kRows-1 of the first H columns of src (q in qkv, or
-// dout) into s[kRows][H]; rows past T are zeros.
-__device__ void stage_rows(const float* __restrict__ src, long long row0, int ld, int q0, int T,
-                           int H, float* s) {
-    for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
-        const int r = i / H, c = i % H;
-        s[i] = q0 + r < T ? src[(row0 + q0 + r) * ld + c] : 0.0f;
-    }
-}
-
-// out[r][j] = dot(a[r], qkv[row0 + j, col : col + H]) (/ scale if divide) for
-// the tile's kRows rows a (in shared memory) and all T keys, the keys staged
-// kChunk at a time in s_k. Ends synchronised.
-__device__ void row_dots(const float* __restrict__ qkv, long long row0, int col, int T, int H,
-                         const float* a, float* s_k, float* out, bool divide, float scale) {
-    const int ld = 3 * H, ks = key_stride(H);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int j0 = 0; j0 < T; j0 += kChunk) {
-        const int n = min(kChunk, T - j0);
-        __syncthreads();  // the previous chunk is read
-        for (int i = threadIdx.x; i < n * H; i += kThreads) {
-            const int j = i / H, c = i % H;
-            s_k[j * ks + c] = qkv[(row0 + j0 + j) * ld + col + c];
-        }
-        __syncthreads();
-        if (lane < n) {
-            const float* ar = a + warp * H;
-            const float* kr = s_k + lane * ks;
-            float acc = 0.0f;
-            for (int c = 0; c < H; ++c) acc += ar[c] * kr[c];
-            out[warp * T + j0 + lane] = divide ? acc / scale : acc;
-        }
-    }
-    __syncthreads();
-}
 
 // Softmax of one row of T scores in place, by one warp (the row's max and
 // sum are not kept: the backward recomputes them).
@@ -154,64 +112,29 @@ __device__ void softmax_row(float* row, int T) {
     for (int j = lane; j < T; j += 32) row[j] = row[j] / sum;
 }
 
-// out[r][d] = sum_j w[r][j] * qkv[row0 + j, col + d] for the tile's rows
-// (weights w[kRows][T] in shared memory), written to
-// dst[(row0 + q0 + r) * ld_dst + d] for rows below T.
-__device__ void weighted_rows(const float* __restrict__ qkv, long long row0, int col, int T,
-                              int H, const float* w, float* __restrict__ dst, int ld_dst,
-                              int q0) {
-    const int ld = 3 * H;
-    float acc[kCols][kRows];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = 0.0f;
-    for (int j = 0; j < T; ++j) {
-        const float* src = qkv + (row0 + j) * ld + col;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-            const int d = threadIdx.x + c * kThreads;
-            if (d < H) {
-                const float x = src[d];
-#pragma unroll
-                for (int r = 0; r < kRows; ++r) acc[c][r] += w[r * T + j] * x;
-            }
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-        if (q0 + r >= T) break;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-            const int d = threadIdx.x + c * kThreads;
-            if (d < H) dst[(row0 + q0 + r) * ld_dst + d] = acc[c][r];
-        }
-    }
-}
-
-
-// ---- K16a on the tensor cores ------------------------------------------------------
-constexpr int kTcRows = 16;               // query rows a block: one mma tile
-constexpr int kTcWarps = 16;             // a warp owns one n8 tile of keys, then of outputs
+// ---- the tiles of the tensor-core products -----------------------------------------
+constexpr int kTcRows = 16;               // rows of a block's tile: one mma tile
+constexpr int kTcWarps = 16;              // a warp owns one n8 tile of keys, or of outputs
 constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcKeys = 128;              // keys of a staged chunk (scores)
-constexpr int kTcCols = 64;               // columns of H of a staged Q and K slice
-constexpr int kTcVKeys = 64;              // keys of a staged V slice
-constexpr int kTcVCols = 128;             // columns of a staged V slice (outputs)
-constexpr int kLdQK = kTcCols + 4;        // row stride of staged Q and K slices (floats)
-constexpr int kLdV = kTcVCols + 8;        // row stride of a staged V slice
+constexpr int kTcKeys = 128;              // B rows of a staged chunk (row products)
+constexpr int kTcCols = 64;               // columns of H of a staged A and B slice
+constexpr int kTcVKeys = 64;              // B rows of a staged slice (planes products)
+constexpr int kTcVCols = 128;             // columns of that slice (outputs)
+constexpr int kLdQK = kTcCols + 4;        // row stride of a row product's slices (floats)
+constexpr int kLdV = kTcVCols + 8;        // row stride of a planes product's slice
 constexpr int kTcGroup = 4;               // k-steps summed in one accumulator chain
-// floats of one staging buffer: a Q slice, a K slice and the Q slice's TF32
-// lo plane, or a V slice
+// floats of one staging buffer: a row product's A slice, B slice and A's
+// TF32 lo plane, or a planes product's B slice
 constexpr int kTcStage = (2 * kTcRows + kTcKeys) * kLdQK > kTcVKeys * kLdV
                              ? (2 * kTcRows + kTcKeys) * kLdQK : kTcVKeys * kLdV;
 
-// the score tile's row stride: T rounded up to a chunk, + 4 (conflict-free A fragments)
+// a [16, T] tile's row stride: T rounded up to a chunk, + 4 (conflict-free A fragments)
 __host__ __device__ inline int score_stride(int T) {
     return (T + kTcKeys - 1) / kTcKeys * kTcKeys + 4;
 }
 
-// the score tile (then P's TF32 hi part), P's lo part, two staging buffers
+// two [16, T] tiles (scores and P's planes, or dP and dS's, or P^T's and
+// dS^T's planes) and two staging buffers
 size_t tc_smem_bytes(int T) {
     return sizeof(float) * (2 * static_cast<size_t>(kTcRows) * score_stride(T) + 2 * kTcStage);
 }
@@ -298,6 +221,149 @@ __device__ __forceinline__ void cp_async_wait_prior() {
     __syncthreads();
 }
 
+// ---- the two products every kernel here is made of ----------------------------------
+// A row product: s_out[r][j] = A_r . B_j for A's 16 rows and B's T rows,
+// both H wide (S = Q.K^T, dP = dO.V^T). Round r stages A's rows and B's
+// key chunk r / slices, columns slice r % slices of H, into buffer r % 2;
+// each warp owns one n8 tile of a chunk's keys.
+__device__ void stage_row_round(float* s_buf, int r, const float* __restrict__ a, long long lda,
+                                int a_rows, const float* __restrict__ b, long long ldb, int T,
+                                int H, bool vec) {
+    const int slices = (H + kTcCols - 1) / kTcCols, chunks = (T + kTcKeys - 1) / kTcKeys;
+    if (r < chunks * slices) {
+        float* buf = s_buf + (r & 1) * kTcStage;
+        const int k0 = r / slices * kTcKeys, h0 = r % slices * kTcCols;
+        const int cols = min(kTcCols, H - h0);
+        stage_f32(buf, kLdQK, a + h0, lda, kTcRows, kTcCols, a_rows, cols, vec);
+        stage_f32(buf + kTcRows * kLdQK, kLdQK, b + k0 * ldb + h0, ldb, kTcKeys, kTcCols, T - k0,
+                  cols, vec);
+    }
+    cp_async_commit();
+}
+
+// s_out[r][j] (row stride ldp) = A_r . B_j, divided by scale when divide (an
+// IEEE division, as the twin divides), for j below T rounded up to a chunk
+// (keys past T: 0). A: a_rows valid rows at a (row stride lda), B: T rows at
+// b (row stride ldb). A's slice is split once into its TF32 hi (in place)
+// and lo planes: every warp reads all of it. Ends synchronised.
+__device__ __forceinline__ void rows_product(float* s_out, int ldp, float* s_buf,
+                                             const float* __restrict__ a, long long lda,
+                                             int a_rows, const float* __restrict__ b,
+                                             long long ldb, int T, int H, bool vec, bool divide,
+                                             float scale) {
+    const int slices = (H + kTcCols - 1) / kTcCols, chunks = (T + kTcKeys - 1) / kTcKeys;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int n0 = 8 * warp;  // this warp's n8 tile: its first key in a chunk
+    stage_row_round(s_buf, 0, a, lda, a_rows, b, ldb, T, H, vec);
+    float acc[4] = {};
+    for (int r = 0; r < chunks * slices; ++r) {
+        stage_row_round(s_buf, r + 1, a, lda, a_rows, b, ldb, T, H, vec);
+        cp_async_wait_prior();
+        float* s_a = s_buf + (r & 1) * kTcStage;
+        const float* s_b = s_a + kTcRows * kLdQK;
+        float* s_alo = s_a + (kTcRows + kTcKeys) * kLdQK;
+        for (int i = threadIdx.x; i < kTcRows * kTcCols; i += kTcThreads) {
+            float* x = s_a + (i / kTcCols) * kLdQK + i % kTcCols;
+            uint32_t h, l;
+            split_tf32(*x, h, l);
+            *x = __uint_as_float(h);
+            s_alo[x - s_a] = __uint_as_float(l);
+        }
+        __syncthreads();
+        const int k0 = r / slices * kTcKeys, cols = min(kTcCols, H - r % slices * kTcCols);
+        if (k0 + n0 < T) {
+            for (int k0g = 0; k0g < cols; k0g += 8 * kTcGroup) {
+                float part[4] = {};
+                for (int k = k0g; k < min(cols, k0g + 8 * kTcGroup); k += 8) {
+                    uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+                    load_a_split(s_a, s_alo, kLdQK, k, a_hi, a_lo);
+                    const float* br = s_b + (n0 + g) * kLdQK + k + t;
+                    split_tf32(br[0], b_hi[0], b_lo[0]);
+                    split_tf32(br[4], b_hi[1], b_lo[1]);
+                    mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
+                }
+                add_part(acc, part);
+            }
+        }
+        if (r % slices == slices - 1) {  // the chunk's products are whole
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s_out[(g + 8 * (e >> 1)) * ldp + k0 + n0 + 2 * t + (e & 1)] =
+                    divide ? acc[e] / scale : acc[e];
+                acc[e] = 0.0f;
+            }
+        }
+        __syncthreads();  // the buffer is read before round r + 2 fills it
+    }
+}
+
+// A planes product: dst_r = sum_j A[r][j] B_j for a [16, T] A held as TF32
+// hi and lo planes (row stride ldp; columns past T zero) and B's T rows, H
+// wide (O = P.V, dQ = dS.K, dV = P^T.dO, dK = dS^T.Q). Round r stages B's
+// rows r % vchunks (64 of them), columns slice r / vchunks (128), into
+// buffer r % 2; each warp owns one n8 tile of a slice's columns.
+__device__ void stage_col_round(float* s_buf, int r, const float* __restrict__ b, long long ldb,
+                                int T, int H, bool vec) {
+    const int vchunks = (T + kTcVKeys - 1) / kTcVKeys, outs = (H + kTcVCols - 1) / kTcVCols;
+    if (r < outs * vchunks) {
+        const int o0 = r / vchunks * kTcVCols, k0 = r % vchunks * kTcVKeys;
+        stage_f32(s_buf + (r & 1) * kTcStage, kLdV, b + k0 * ldb + o0, ldb, kTcVKeys, kTcVCols,
+                  T - k0, min(kTcVCols, H - o0), vec);
+    }
+    cp_async_commit();
+}
+
+// dst[r * ld_dst + c] = sum_j A[r][j] B_j[c] for the rows r below rows. The
+// caller has committed round 0 (stage_col_round(s_buf, 0, ...)), so its
+// copies overlap the caller's work on the planes; the first wait also
+// orders the planes' writes before their reads. Ends synchronised.
+__device__ __forceinline__ void planes_product(const float* s_hi, const float* s_lo, int ldp,
+                                               float* s_buf, const float* __restrict__ b,
+                                               long long ldb, int T, int H, bool vec,
+                                               float* __restrict__ dst, long long ld_dst,
+                                               int rows) {
+    const int vchunks = (T + kTcVKeys - 1) / kTcVKeys, outs = (H + kTcVCols - 1) / kTcVCols;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int n0 = 8 * warp;  // this warp's n8 tile: its first column in a slice
+    float oacc[4] = {};
+    for (int r = 0; r < outs * vchunks; ++r) {
+        stage_col_round(s_buf, r + 1, b, ldb, T, H, vec);
+        cp_async_wait_prior();
+        const float* s_b = s_buf + (r & 1) * kTcStage;
+        const int o0 = r / vchunks * kTcVCols, k0 = r % vchunks * kTcVKeys;
+        const int cols = min(kTcVCols, H - o0), keys = min(kTcVKeys, T - k0);
+        if (n0 < cols) {
+            for (int k0g = 0; k0g < keys; k0g += 8 * kTcGroup) {
+                float part[4] = {};
+                for (int k = k0g; k < min(keys, k0g + 8 * kTcGroup); k += 8) {
+                    uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+                    load_a_split(s_hi, s_lo, ldp, k0 + k, a_hi, a_lo);
+                    const float* br = s_b + (k + t) * kLdV + n0 + g;
+                    split_tf32(br[0], b_hi[0], b_lo[0]);
+                    split_tf32(br[4 * kLdV], b_hi[1], b_lo[1]);
+                    mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
+                }
+                add_part(oacc, part);
+            }
+        }
+        if (r % vchunks == vchunks - 1) {  // the output slice is whole
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = g + 8 * (e >> 1), col = o0 + n0 + 2 * t + (e & 1);
+                if (row < rows && col < H) dst[row * ld_dst + col] = oacc[e];
+                oacc[e] = 0.0f;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// both operands staged by 16-byte copies: widths a multiple of 4, pointers 16-byte aligned
+__device__ __forceinline__ bool vec_rows(int H, const float* a, const float* b) {
+    return H % 4 == 0 &&
+           ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+}
+
 __global__ void __launch_bounds__(kTcThreads)
 stage_attention_tc_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T, int H,
                           float scale) {
@@ -309,81 +375,15 @@ stage_attention_tc_kernel(const float* __restrict__ qkv, float* __restrict__ out
     const int q0 = blockIdx.x * kTcRows;
     const long long row0 = static_cast<long long>(blockIdx.y) * T;
     const long long ld = 3LL * H;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    const bool vec = H % 4 == 0 && (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool vec = vec_rows(H, qkv, qkv);
+    const float* base = qkv + row0 * ld;
 
-    // 1. the scores: round r stages Q's 16 rows and key chunk r / slices'
-    // K rows, columns slice r % slices of H, into buffer r % 2 while round
-    // r - 1 computes
-    const int slices = (H + kTcCols - 1) / kTcCols, chunks = (T + kTcKeys - 1) / kTcKeys;
-    auto stage_scores = [&](int r) {
-        if (r < chunks * slices) {
-            float* buf = s_buf + (r & 1) * kTcStage;
-            const int k0 = r / slices * kTcKeys, h0 = r % slices * kTcCols;
-            const int cols = min(kTcCols, H - h0);
-            stage_f32(buf, kLdQK, qkv + (row0 + q0) * ld + h0, ld, kTcRows, kTcCols, T - q0,
-                      cols, vec);
-            stage_f32(buf + kTcRows * kLdQK, kLdQK, qkv + (row0 + k0) * ld + H + h0, ld,
-                      kTcKeys, kTcCols, T - k0, cols, vec);
-        }
-        cp_async_commit();
-    };
-    stage_scores(0);
-    float acc[4] = {};
-    const int n0 = 8 * warp;  // this warp's n8 tile: its first key in a chunk
-    for (int r = 0; r < chunks * slices; ++r) {
-        stage_scores(r + 1);
-        cp_async_wait_prior();
-        float* s_q = s_buf + (r & 1) * kTcStage;
-        const float* s_k = s_q + kTcRows * kLdQK;
-        float* s_qlo = s_q + (kTcRows + kTcKeys) * kLdQK;
-        // Q's slice split once into its TF32 hi (in place) and lo planes:
-        // every warp reads all of it
-        for (int i = threadIdx.x; i < kTcRows * kTcCols; i += kTcThreads) {
-            float* x = s_q + (i / kTcCols) * kLdQK + i % kTcCols;
-            uint32_t h, l;
-            split_tf32(*x, h, l);
-            *x = __uint_as_float(h);
-            s_qlo[x - s_q] = __uint_as_float(l);
-        }
-        __syncthreads();
-        const int k0 = r / slices * kTcKeys, cols = min(kTcCols, H - r % slices * kTcCols);
-        if (k0 + n0 < T) {
-            for (int k0g = 0; k0g < cols; k0g += 8 * kTcGroup) {
-                float part[4] = {};
-                for (int k = k0g; k < min(cols, k0g + 8 * kTcGroup); k += 8) {
-                    uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
-                    load_a_split(s_q, s_qlo, kLdQK, k, a_hi, a_lo);
-                    const float* kr = s_k + (n0 + g) * kLdQK + k + t;
-                    split_tf32(kr[0], b_hi[0], b_lo[0]);
-                    split_tf32(kr[4], b_hi[1], b_lo[1]);
-                    mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
-                }
-                add_part(acc, part);
-            }
-        }
-        if (r % slices == slices - 1) {  // the chunk's scores are whole
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s_p[(g + 8 * (e >> 1)) * ldp + k0 + n0 + 2 * t + (e & 1)] = acc[e] / scale;
-                acc[e] = 0.0f;
-            }
-        }
-        __syncthreads();  // the buffer is read before round r + 2 fills it
-    }
-
+    // 1. the scores
+    rows_product(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H, ld, T, H, vec, true,
+                 scale);
     // 3's first V slice is copied while 2 runs
-    const int vchunks = (T + kTcVKeys - 1) / kTcVKeys, outs = (H + kTcVCols - 1) / kTcVCols;
-    auto stage_values = [&](int r) {
-        if (r < outs * vchunks) {
-            const int o0 = r / vchunks * kTcVCols, k0 = r % vchunks * kTcVKeys;
-            stage_f32(s_buf + (r & 1) * kTcStage, kLdV, qkv + (row0 + k0) * ld + 2 * H + o0, ld,
-                      kTcVKeys, kTcVCols, T - k0, min(kTcVCols, H - o0), vec);
-        }
-        cp_async_commit();
-    };
-    stage_values(0);
-
+    stage_col_round(s_buf, 0, base + 2 * H, ld, T, H, vec);
     // 2. the softmax of each row, P split into its TF32 hi and lo planes;
     // keys past T weigh 0
     for (int row = warp; row < kTcRows; row += kTcWarps) {
@@ -397,135 +397,109 @@ stage_attention_tc_kernel(const float* __restrict__ qkv, float* __restrict__ out
             lo[j] = __uint_as_float(l);
         }
     }
-
-    // 3. O = P.V: round r takes output slice r / vchunks, keys of V slice
-    // r % vchunks
-    float oacc[4] = {};
-    for (int r = 0; r < outs * vchunks; ++r) {
-        stage_values(r + 1);
-        cp_async_wait_prior();  // also: P is written
-        const float* s_v = s_buf + (r & 1) * kTcStage;
-        const int o0 = r / vchunks * kTcVCols, k0 = r % vchunks * kTcVKeys;
-        const int cols = min(kTcVCols, H - o0), keys = min(kTcVKeys, T - k0);
-        if (n0 < cols) {  // n0: this warp's n8 tile, its first column in the slice
-            for (int k0g = 0; k0g < keys; k0g += 8 * kTcGroup) {
-                float part[4] = {};
-                for (int k = k0g; k < min(keys, k0g + 8 * kTcGroup); k += 8) {
-                    uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
-                    load_a_split(s_p, s_plo, ldp, k0 + k, a_hi, a_lo);
-                    const float* vr = s_v + (k + t) * kLdV + n0 + g;
-                    split_tf32(vr[0], b_hi[0], b_lo[0]);
-                    split_tf32(vr[4 * kLdV], b_hi[1], b_lo[1]);
-                    mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
-                }
-                add_part(oacc, part);
-            }
-        }
-        if (r % vchunks == vchunks - 1) {  // the output slice is whole
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = q0 + g + 8 * (e >> 1), col = o0 + n0 + 2 * t + (e & 1);
-                if (row < T && col < H) out[(row0 + row) * H + col] = oacc[e];
-                oacc[e] = 0.0f;
-            }
-        }
-        __syncthreads();
-    }
+    // 3. O = P.V
+    planes_product(s_p, s_plo, ldp, s_buf, base + 2 * H, ld, T, H, vec, out + (row0 + q0) * H, H,
+                   T - q0);
 }
 
-// K16b, kernel 1: per query tile, P and dS into scratch, dQ into dqkv.
-__global__ void __launch_bounds__(kThreads)
+// K16b, kernel 1: per tile of 16 query rows, S and dP = dO.V^T as row
+// products, the softmax, D and dS in f32; P^T and dS^T to the scratch; dQ =
+// dS.K into dqkv's first column block.
+__global__ void __launch_bounds__(kTcThreads)
 stage_attention_bwd_query_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                                 float* __restrict__ probs, float* __restrict__ dscores,
+                                 float* __restrict__ probs_t, float* __restrict__ dscores_t,
                                  float* __restrict__ dqkv, int T, int H, float scale) {
     extern __shared__ __align__(16) float smem[];
-    float* s_q = smem;                           // [kRows][H]
-    float* s_do = s_q + kRows * H;               // [kRows][H]
-    float* s_k = s_do + kRows * H;               // [kChunk][H | 1]
-    float* s_p = s_k + kChunk * key_stride(H);   // [kRows][T]: scores, then P
-    float* s_dp = s_p + kRows * T;               // [kRows][T]: dP, then dS
-    const int q0 = blockIdx.x * kRows;
+    const int ldp = score_stride(T);
+    float* s_p = smem;                       // [16][ldp]: S, then P, then dS's lo part
+    float* s_ds = s_p + kTcRows * ldp;       // [16][ldp]: dP, then dS, then its hi part
+    float* s_buf = s_ds + kTcRows * ldp;     // two staging buffers of kTcStage floats
+    const int q0 = blockIdx.x * kTcRows;
     const long long row0 = static_cast<long long>(blockIdx.y) * T;
+    const long long ld = 3LL * H;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool vec = vec_rows(H, qkv, dout);
+    const float* base = qkv + row0 * ld;
 
-    stage_rows(qkv, row0, 3 * H, q0, T, H, s_q);
-    stage_rows(dout, row0, H, q0, T, H, s_do);
-    row_dots(qkv, row0, H, T, H, s_q, s_k, s_p, true, scale);
-    row_dots(qkv, row0, 2 * H, T, H, s_do, s_k, s_dp, false, scale);
-    softmax_row(s_p + warp * T, T);
-    {   // D = rowsum(P dP); dS = P (dP - D) / sqrt(H); P and dS to scratch
-        const float* p = s_p + warp * T;
-        float* ds = s_dp + warp * T;
+    rows_product(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H, ld, T, H, vec, true,
+                 scale);
+    rows_product(s_ds, ldp, s_buf, dout + (row0 + q0) * H, H, T - q0, base + 2 * H, ld, T, H,
+                 vec, false, scale);
+    stage_col_round(s_buf, 0, base + H, ld, T, H, vec);  // dQ's first K slice meanwhile
+    // the softmax, D = rowsum(P dP) and dS = P (dP - D) / sqrt(H), a warp a
+    // row, in the twin's expressions; keys past T: dS = 0
+    for (int row = warp; row < kTcRows; row += kTcWarps) {
+        float* p = s_p + row * ldp;
+        float* ds = s_ds + row * ldp;
+        softmax_row(p, T);
+        __syncwarp();
         float dsum = 0.0f;
         for (int j = lane; j < T; j += 32) dsum += p[j] * ds[j];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-        const bool live = q0 + warp < T;
-        const long long out_row = (row0 + q0 + warp) * T;
-        for (int j = lane; j < T; j += 32) {
-            const float v = p[j] * (ds[j] - dsum) / scale;
-            ds[j] = v;
-            if (live) {
-                probs[out_row + j] = p[j];
-                dscores[out_row + j] = v;
-            }
+        for (int j = lane; j < ldp; j += 32) ds[j] = j < T ? p[j] * (ds[j] - dsum) / scale : 0.0f;
+    }
+    __syncthreads();
+    // P^T and dS^T to the scratch: key j's 16 entries of this tile contiguous
+    const int rows = min(kTcRows, T - q0);
+    for (int i = threadIdx.x; i < kTcRows * T; i += kTcThreads) {
+        const int j = i / kTcRows, q = i % kTcRows;
+        if (q < rows) {
+            const long long at = (row0 + j) * T + q0 + q;
+            probs_t[at] = s_p[q * ldp + j];
+            dscores_t[at] = s_ds[q * ldp + j];
         }
     }
     __syncthreads();
-    weighted_rows(qkv, row0, H, T, H, s_dp, dqkv, 3 * H, q0);
+    // dS split into its TF32 planes: hi in place, lo over P
+    for (int i = threadIdx.x; i < kTcRows * ldp; i += kTcThreads) {
+        uint32_t h, l;
+        split_tf32(s_ds[i], h, l);
+        s_ds[i] = __uint_as_float(h);
+        s_p[i] = __uint_as_float(l);
+    }
+    planes_product(s_ds, s_p, ldp, s_buf, base + H, ld, T, H, vec, dqkv + (row0 + q0) * ld, ld,
+                   rows);
 }
 
-// K16b, kernel 2: per key tile, dK = dS^T Q and dV = P^T dO into dqkv.
-__global__ void __launch_bounds__(kThreads)
+// K16b, kernel 2: per tile of 16 key rows, dV = P^T.dO and dK = dS^T.Q into
+// dqkv's third and second column blocks, each as a planes product with the
+// tile's 16 rows of P^T (then dS^T) staged from the scratch and split.
+__global__ void __launch_bounds__(kTcThreads)
 stage_attention_bwd_key_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                               const float* __restrict__ probs,
-                               const float* __restrict__ dscores, float* __restrict__ dqkv,
+                               const float* __restrict__ probs_t,
+                               const float* __restrict__ dscores_t, float* __restrict__ dqkv,
                                int T, int H) {
-    __shared__ float s_p[kMaxT][kRows];
-    __shared__ float s_ds[kMaxT][kRows];
-    const int k0 = blockIdx.x * kRows;
+    extern __shared__ __align__(16) float smem[];
+    const int ldp = score_stride(T);
+    float* s_hi = smem;                      // [16][ldp]: the tile's rows, then their hi part
+    float* s_lo = s_hi + kTcRows * ldp;      // [16][ldp]: their lo part
+    float* s_buf = s_lo + kTcRows * ldp;     // two staging buffers of kTcStage floats
+    const int k0 = blockIdx.x * kTcRows;
     const long long row0 = static_cast<long long>(blockIdx.y) * T;
-    for (int i = threadIdx.x; i < T * kRows; i += kThreads) {
-        const int r = i / kRows, c = i % kRows;
-        const bool live = k0 + c < T;
-        s_p[r][c] = live ? probs[(row0 + r) * T + k0 + c] : 0.0f;
-        s_ds[r][c] = live ? dscores[(row0 + r) * T + k0 + c] : 0.0f;
-    }
-    __syncthreads();
-
-    float acc_k[kCols][kRows], acc_v[kCols][kRows];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc_k[c][r] = acc_v[c][r] = 0.0f;
-    for (int i = 0; i < T; ++i) {
-        const float* q = qkv + (row0 + i) * 3 * H;
-        const float* g = dout + (row0 + i) * H;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-            const int d = threadIdx.x + c * kThreads;
-            if (d < H) {
-                const float qd = q[d], gd = g[d];
-#pragma unroll
-                for (int r = 0; r < kRows; ++r) {
-                    acc_k[c][r] += s_ds[i][r] * qd;
-                    acc_v[c][r] += s_p[i][r] * gd;
-                }
-            }
+    const long long ld = 3LL * H;
+    const bool vec = vec_rows(H, qkv, dout);
+    const bool tvec = T % 4 == 0 && ((reinterpret_cast<uintptr_t>(probs_t) |
+                                      reinterpret_cast<uintptr_t>(dscores_t)) & 15) == 0;
+    const int cols = (T + 7) / 8 * 8;        // the columns the k-steps read (past T: 0)
+    const int rows = min(kTcRows, T - k0);
+    for (int pass = 0; pass < 2; ++pass) {
+        const float* a = (pass == 0 ? probs_t : dscores_t) + (row0 + k0) * T;
+        const float* b = pass == 0 ? dout + row0 * H : qkv + row0 * ld;  // dO or Q
+        const long long ldb = pass == 0 ? H : ld;
+        stage_f32(s_hi, ldp, a, T, kTcRows, cols, rows, T, tvec);
+        cp_async_commit();
+        stage_col_round(s_buf, 0, b, ldb, T, H, vec);
+        cp_async_wait_prior();  // the tile's rows
+        for (int i = threadIdx.x; i < kTcRows * cols; i += kTcThreads) {
+            float* x = s_hi + (i / cols) * ldp + i % cols;
+            uint32_t h, l;
+            split_tf32(*x, h, l);
+            *x = __uint_as_float(h);
+            s_lo[x - s_hi] = __uint_as_float(l);
         }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-        if (k0 + r >= T) break;
-        float* dst = dqkv + (row0 + k0 + r) * 3 * H;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-            const int d = threadIdx.x + c * kThreads;
-            if (d < H) {
-                dst[H + d] = acc_k[c][r];
-                dst[2 * H + d] = acc_v[c][r];
-            }
-        }
+        planes_product(s_hi, s_lo, ldp, s_buf, b, ldb, T, H, vec,
+                       dqkv + (row0 + k0) * ld + (pass == 0 ? 2 * H : H), ld, rows);
     }
 }
 
@@ -620,24 +594,27 @@ int stract_stage_attention(const float* qkv, float* out, int B, int T, int H,
 
 // qkv f32[B, T, 3H], dout f32[B, T, H] (the gradient of the output) ->
 // dqkv f32[B, T, 3H]; probs and dscores f32[B, T, T] are scratch (P and
-// dS, written by the first kernel, read by the second). T must be 1..512
-// and H 1..1024. Returns the CUDA status of the launches.
+// dS transposed, written by the first kernel, read by the second). T must
+// be 1..512 and H 1..1024. Returns the CUDA status of the launches.
 int stract_stage_attention_backward(const float* qkv, const float* dout, float* probs,
                                     float* dscores, float* dqkv, int B, int T, int H,
                                     cudaStream_t stream) {
     if (B <= 0) return cudaSuccess;
     if (T <= 0 || T > kMaxT || H <= 0 || H > kMaxH || B > 65535) return cudaErrorInvalidValue;
-    const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
-        stage_attention_bwd_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(backward_smem_bytes(kMaxT, kMaxH)));
+    const int smem_max = static_cast<int>(tc_smem_bytes(kMaxT));
+    cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
+        stage_attention_bwd_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (attr == cudaSuccess)
+        attr = cudaFuncSetAttribute(stage_attention_bwd_key_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     if (attr != cudaSuccess) return attr;
-    const dim3 grid((T + kRows - 1) / kRows, B);
-    stage_attention_bwd_query_kernel<<<grid, kThreads, backward_smem_bytes(T, H), stream>>>(
+    const dim3 grid((T + kTcRows - 1) / kTcRows, B);
+    stage_attention_bwd_query_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
         qkv, dout, probs, dscores, dqkv, T, H, scale_divisor(H));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    stage_attention_bwd_key_kernel<<<grid, kThreads, 0, stream>>>(qkv, dout, probs, dscores,
-                                                                   dqkv, T, H);
+    stage_attention_bwd_key_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
+        qkv, dout, probs, dscores, dqkv, T, H);
     return cudaGetLastError();
 }
 

@@ -9,8 +9,10 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
                             dims 16, 32 and 64, 1 to 512 tokens (other shapes
                             on a card raise)
   K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
-  K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
+                            (bert.py:164-165, :173-174, and the embedding LN at
                             :204-205): Triton
+  K14b  ... backward        CUDA C++, csrc/encoder.cu; rows of up to 1,024
+                            columns (wider ones on a card raise)
   K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): CUDA
                             C++, csrc/encoder.cu
   K14c  ... backward        Triton
@@ -57,8 +59,8 @@ BF16 = torch.bfloat16
 # jax.nn.gelu(approximate=True) on a bf16 input: its constants in bf16
 GELU_C1 = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=BF16))  # 0.796875
 GELU_C2 = float(torch.tensor(0.044715, dtype=BF16))                   # 0.044677734375
-# rows per program of K14b's column partials, and of K14c's tiles
-LN_BWD_ROWS, GELU_BWD_ROWS, GELU_BWD_COLS = 32, 32, 256
+# rows and columns of K14c's tiles
+GELU_BWD_ROWS, GELU_BWD_COLS = 32, 256
 _TRITON: dict = {}
 
 
@@ -169,7 +171,7 @@ def add_layernorm_backward_plain(x, r, weight, eps: float, dy):
     return ds, dweight.to(weight.dtype), dbias.to(weight.dtype)
 
 
-def _check_add_layernorm(x, r, weight, bias=None) -> None:
+def _check_add_layernorm(x, r, weight, bias) -> None:
     N = x.shape[-1]
     for t, dtype, shape in ((x, BF16, None), (r, BF16, x.shape), (weight, torch.float32, (N,)),
                             (bias, torch.float32, (N,))):
@@ -195,27 +197,7 @@ def add_layernorm_forward(x, r, weight, bias, eps: float):
 def add_layernorm_backward(x, r, weight, eps: float, dy):
     if not x.is_cuda:
         return add_layernorm_backward_plain(x, r, weight, eps, dy)
-    dy = dy.contiguous()
-    _check_add_layernorm(x, r, weight)
-    kernels._ptr(dy, BF16, x.shape)
-    N = x.shape[-1]
-    M = x.numel() // N
-    ds = torch.empty_like(x)
-    dweight = torch.zeros(N, dtype=torch.float32, device=x.device)
-    dbias = torch.zeros_like(dweight)
-    if M:
-        parts = _cdiv(M, LN_BWD_ROWS)
-        partial = torch.empty((2, parts, N), dtype=torch.float32, device=x.device)
-        t = _triton_kernels()
-        with torch.cuda.device(kernels.card_of(x, r, weight, dy, ds, partial, dweight, dbias)):
-            t["add_layernorm_bwd"][(parts,)](x, r, weight, dy, ds, partial[0], partial[1], M, N,
-                                             float(eps), ROWS=LN_BWD_ROWS,
-                                             BLOCK=max(_next_pow2(N), 32), num_warps=4)
-            for p, out in ((partial[0], dweight), (partial[1], dbias)):
-                t["col_sum"][(_cdiv(N, 128),)](p, out, parts, N, BLOCK_R=32, BLOCK_N=128,
-                                               num_warps=4)
-        kernels.counted("add_layernorm_backward")
-    return ds, dweight, dbias
+    return kernels.add_layernorm_backward(x, r, dy.contiguous(), weight, eps)
 
 
 class _AddLayerNorm(torch.autograd.Function):
@@ -452,41 +434,6 @@ def _triton_kernels() -> dict:
         tl.store(Y + row * N + cols, ((s - mean) * mul + b).to(tl.bfloat16), mask=m)
 
     @triton.jit
-    def add_layernorm_bwd_kernel(X, R, W, DY, DS, DWP, DBP, M, N, eps, ROWS: tl.constexpr,
-                                 BLOCK: tl.constexpr):
-        # ROWS rows per program: recompute s = bf16(x + r) and its f32
-        # statistics as the forward does, write ds = dx = dr (bf16), and this
-        # program's column partials of dweight and dbias (f32)
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        cm = cols < N
-        w = tl.load(W + cols, mask=cm, other=0.0)
-        dw = tl.zeros([BLOCK], dtype=tl.float32)
-        db = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(ROWS):
-            row = (pid * ROWS + i).to(tl.int64)
-            m = cm & (row < M)
-            x = tl.load(X + row * N + cols, mask=m, other=0.0).to(tl.float32)
-            r = tl.load(R + row * N + cols, mask=m, other=0.0).to(tl.float32)
-            s = (x + r).to(tl.bfloat16).to(tl.float32)
-            mean = tl.sum(s, axis=0) / N
-            z = tl.sum(s * s, axis=0) / N - mean * mean
-            var = tl.maximum(z, 0.0)
-            rinv = 1.0 / tl.sqrt(var + eps)
-            g = tl.load(DY + row * N + cols, mask=m, other=0.0).to(tl.float32)
-            xc = tl.where(m, s - mean, 0.0)
-            db += g
-            dw += g * xc * rinv
-            dxc = g * (rinv * w)
-            drinv = tl.sum(g * xc * w, axis=0)
-            dz = tl.where(z > 0, drinv * (-0.5 * (rinv / (var + eps))), 0.0)
-            dmean = -tl.sum(dxc, axis=0) - 2.0 * mean * dz
-            ds = _rd(dxc) + _rd(dmean / N + (dz / N) * (2.0 * s))
-            tl.store(DS + row * N + cols, ds.to(tl.bfloat16), mask=m)
-        tl.store(DWP + pid * N + cols, dw, mask=cm)
-        tl.store(DBP + pid * N + cols, db, mask=cm)
-
-    @triton.jit
     def col_sum_kernel(P, OUT, R, N, BLOCK_R: tl.constexpr, BLOCK_N: tl.constexpr):
         # OUT[c] = sum over the R rows of P[:, c], cast to OUT's dtype
         cols = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
@@ -582,7 +529,7 @@ def _triton_kernels() -> dict:
             tl.store(DH + (b * T + ts)[:, None] * H + cols[None, :], val,
                      mask=(ts < T)[:, None] & cm[None, :])
 
-    _TRITON.update(add_layernorm=add_layernorm_kernel, add_layernorm_bwd=add_layernorm_bwd_kernel,
-                   col_sum=col_sum_kernel, bias_gelu_bwd=bias_gelu_bwd_kernel,
-                   mean_pool=mean_pool_kernel, mean_pool_bwd=mean_pool_bwd_kernel)
+    _TRITON.update(add_layernorm=add_layernorm_kernel, col_sum=col_sum_kernel,
+                   bias_gelu_bwd=bias_gelu_bwd_kernel, mean_pool=mean_pool_kernel,
+                   mean_pool_bwd=mean_pool_bwd_kernel)
     return _TRITON

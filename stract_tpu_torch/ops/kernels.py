@@ -13,7 +13,7 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     dense rerank, K9 the global top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward, K5c
-                    bias + tanh GELU
+                    bias + tanh GELU, K14b the residual + LayerNorm backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
                     size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
                     ring step
@@ -22,9 +22,9 @@ time: the CPU tests import this module on machines without nvcc or a card.
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
                     backward, K16d the SGD update of a card's parameters in one launch
 
-(K5b, K5d and K14b-c, the encoder's residual + LayerNorm and mean pool,
-forward and backward, and the bias + GELU backward, are Triton kernels in
-ops/encoder.py; K14d and K15d, the fused AdamW updates of f32 masters and of
+(K5b, K5d and K14c, the encoder's residual + LayerNorm forward, the mean
+pool, forward and backward, and the bias + GELU backward, are Triton kernels
+in ops/encoder.py; K14d and K15d, the fused AdamW updates of f32 masters and of
 bf16 parameters, are in optim.py; K15b-c, the MoE select-and-scale and the
 loss heads, in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); K16c,
 the pipeline stage's f32 tanh GELU, in ops/stage.py; they count their
@@ -68,6 +68,10 @@ MAX_SEARCH_P = 8192
 # limits of csrc/encoder.cu: the head widths and the longest sequence
 ATTN_HEAD_DIMS = (16, 32, 64)
 ATTN_MAX_T = 512
+# limits of K14b (csrc/encoder.cu): the widest row, and the rows a block and
+# most blocks of its fixed grid
+LN_MAX_N = 1024
+LN_BWD_WARPS, LN_BWD_BLOCKS = 8, 264
 # limits of csrc/stage.cu: the longest sequence and the widest head
 STAGE_MAX_T = 512
 STAGE_MAX_H = 1024
@@ -248,7 +252,10 @@ def _load(name: str):
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
                                                           P]
                 lib.stract_bias_gelu.argtypes = [P, P, P, LL, I, F, F, P]
-                fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu)
+                lib.stract_add_layernorm_backward.argtypes = [P, P, P, P, P, P, P, P, LL, I, I, F,
+                                                              P]
+                fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu,
+                       lib.stract_add_layernorm_backward)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -648,6 +655,31 @@ def bias_gelu(y, b, out, c1: float, c2: float) -> None:
         rc = lib.stract_bias_gelu(*ptrs, M, N, c1, c2, stream)
     _check(rc, "stract_bias_gelu")
     counted("bias_gelu")
+
+
+def add_layernorm_backward(x, r, dy, weight, eps: float) -> tuple:
+    """K14b: x, r, dy bf16[..., N] (contiguous), weight f32[N] → (ds bf16 of
+    x's shape, the cotangent of both x and r; dweight, dbias f32[N]); N in
+    1..LN_MAX_N, any number of rows. dweight, dbias and the partials f32[2,
+    blocks, N] of the fixed grid (LN_BWD_BLOCKS blocks of LN_BWD_WARPS rows
+    at most) share one allocation."""
+    N = x.shape[-1]
+    if not 1 <= N <= LN_MAX_N:
+        raise ValueError(f"the LayerNorm backward takes rows of 1..{LN_MAX_N} columns, not {N}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    ptrs = [_ptr(t, bf16, x.shape) for t in (x, r, dy)] + [_ptr(weight, f32, (N,))]
+    M = x.numel() // N
+    blocks = min(LN_BWD_BLOCKS, -(-M // LN_BWD_WARPS))
+    ds = torch.empty_like(x)
+    out = torch.empty((2 + 2 * blocks) * N, dtype=f32, device=x.device)
+    base = out.data_ptr()
+    lib = _load("encoder")
+    with on_card(x, r, dy, weight, ds, out) as stream:
+        rc = lib.stract_add_layernorm_backward(*ptrs, ds.data_ptr(), base, base + 4 * N,
+                                               base + 8 * N, M, N, blocks, float(eps), stream)
+    _check(rc, "stract_add_layernorm_backward")
+    counted("add_layernorm_backward")
+    return ds, out[:N], out[N:2 * N]
 
 
 def _stage_dims(qkv) -> tuple:

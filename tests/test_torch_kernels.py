@@ -225,8 +225,9 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
         monkeypatch.setattr(E, name, lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(optim, "adamw_update_plain", lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(kernels, "attention_backward", lambda *a, **k: called.append("attn"))
+    monkeypatch.setattr(kernels, "add_layernorm_backward", lambda *a, **k: called.append("ln"))
     monkeypatch.setattr(E, "_triton_kernels", lambda: {n: Kern(n) for n in (
-        "add_layernorm_bwd", "col_sum", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd")})
+        "col_sum", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd")})
     monkeypatch.setattr(optim, "_triton_kernel", lambda: Kern("adamw"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -240,8 +241,68 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
     E.mean_pool_backward(mask, torch.zeros(2, 384), torch.zeros(2, 384), True, torch.bfloat16)
     f = torch.zeros(4096)
     optim.adamw_update(f, f, f, f, 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
-    assert called == ["attn", "add_layernorm_bwd", "col_sum", "col_sum", "bias_gelu_bwd",
-                      "col_sum", "mean_pool", "mean_pool_bwd", "adamw"]
+    assert called == ["attn", "ln", "bias_gelu_bwd", "col_sum", "mean_pool", "mean_pool_bwd",
+                      "adamw"]
+
+
+class _EncoderLib:
+    """A stand-in for csrc/encoder.cu's library: stract_add_layernorm_backward
+    records its arguments and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def stract_add_layernorm_backward(self, *args):
+        self.called.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 384), (5, 40), (0, 64)])
+def test_layernorm_backward_reaches_its_c_entry_point(monkeypatch, shape):
+    """K14b on CUDA tensors (stand-ins) calls stract_add_layernorm_backward
+    once with the rows flattened, the fixed grid's block count and its
+    partials, launches nothing of Triton (not imported) and counts one
+    launch; the same tensors on the CPU take the twin."""
+    import sys
+
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    N = shape[-1]
+    M = int(np.prod(shape[:-1]))
+    args = (bf(*shape), bf(*shape), torch.ones(N), 1e-12, bf(*shape))
+    twin = []
+    monkeypatch.setattr(E, "add_layernorm_backward_plain", lambda *a: twin.append(a) or (a[0],) * 3)
+    E.add_layernorm_backward(*args)
+    assert len(twin) == 1
+    called = []
+    monkeypatch.setattr(E, "add_layernorm_backward_plain",
+                        lambda *a: pytest.fail("the twin was reached"))
+    monkeypatch.setattr(E, "_triton_kernels", lambda: pytest.fail("a Triton kernel was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _EncoderLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    ds, dw, db = E.add_layernorm_backward(*args)
+    assert ds.shape == shape and dw.shape == db.shape == (N,)
+    assert len(called) == 1 and kernels.LAUNCHES["add_layernorm_backward"] == 1
+    *_, m, n, blocks, eps, stream = called[0]
+    assert (m, n, eps, stream) == (M, N, 1e-12, 0)
+    assert blocks == min(kernels.LN_BWD_BLOCKS, -(-M // kernels.LN_BWD_WARPS))
+    assert "triton" not in sys.modules
+
+
+@pytest.mark.parametrize("N", [1025, 4096])
+def test_layernorm_backward_refuses_wider_rows_before_any_launch(monkeypatch, N):
+    """A row wider than the kernel holds (kernels.LN_MAX_N = 1,024 columns)
+    raises ValueError naming the widths it takes, before any build or
+    launch."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+    x = torch.zeros((4, N), dtype=torch.bfloat16)
+    before = kernels.LAUNCHES["add_layernorm_backward"]
+    with pytest.raises(ValueError, match="1..1024 columns"):
+        E.add_layernorm_backward(x, x, torch.ones(N), 1e-12, x)
+    assert kernels.LAUNCHES["add_layernorm_backward"] == before
 
 
 def test_training_kernel_arguments_are_checked(monkeypatch):
@@ -606,26 +667,57 @@ def test_attention_backward_scratch_holds_each_rows_statistics():
 
 
 @pytest.mark.cuda
-def test_layernorm_and_gelu_backward_kernels_match_plain():
+@pytest.mark.parametrize("M,N", [(8192, 384), (257, 64), (1000, 768), (33, 1024), (5, 40),
+                                 (257, 65)])
+def test_layernorm_and_gelu_backward_kernels_match_plain(M, N):
+    """K14b (CUDA, a warp a row) at every width the configurations use (64,
+    384, 768, 1,024), at 40 and at an odd 65 (single-element loads), M odd or
+    not a multiple of the grid's rows: ds within one bf16 step of the twin,
+    dweight and dbias rtol 1e-4, one launch counted, a second call bit-equal;
+    K14c at (M, 4 N)."""
     dev = _card()
     g = torch.Generator().manual_seed(1)
-    x, r, dy = (torch.randn((32 * 128, 384), generator=g).to(dev, torch.bfloat16)
-                for _ in range(3))
-    w = (1 + 0.1 * torch.randn(384, generator=g)).to(dev)
+    x, r, dy = (torch.randn((M, N), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    w = (1 + 0.1 * torch.randn(N, generator=g)).to(dev)
+    n = kernels.LAUNCHES["add_layernorm_backward"]
     ds, dw, db = E.add_layernorm_backward(x, r, w, 1e-12, dy)
+    assert kernels.LAUNCHES["add_layernorm_backward"] == n + 1
     ps, pw, pb = E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)
     _step_close(ds, ps)
     for a, b in ((dw, pw), (db, pb)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
-    y, dout = (torch.randn((32 * 128, 1536), generator=g).to(dev, torch.bfloat16)
-               for _ in range(2))
-    bias = (0.5 * torch.randn(1536, generator=g)).to(dev, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(E.add_layernorm_backward(x, r, w, 1e-12, dy),
+                                                 (ds, dw, db)))
+    y, dout = (torch.randn((M, 4 * N), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    bias = (0.5 * torch.randn(4 * N, generator=g)).to(dev, torch.bfloat16)
     n = kernels.LAUNCHES["bias_gelu_backward"]
     gy, gb = E.bias_gelu_backward(y, bias, dout)
     assert kernels.LAUNCHES["bias_gelu_backward"] == n + 1
     py, pb = E.bias_gelu_backward_plain(y, bias, dout)
     _step_close(gy, py)
     _step_close(gb, pb)
+
+
+@pytest.mark.cuda
+def test_layernorm_backward_kernel_takes_misaligned_views():
+    """K14b on contiguous views that start 2 bytes past an 8-byte boundary
+    (single-element loads at a width that is a multiple of 4): ds within one
+    bf16 step of the twin, dweight and dbias rtol 1e-4, a second call
+    bit-equal."""
+    dev = _card()
+    M, N = 300, 384
+    g = torch.Generator().manual_seed(2)
+    x, r, dy = (torch.randn(M * N + 1, generator=g).to(dev, torch.bfloat16)[1:].view(M, N)
+                for _ in range(3))
+    assert all(t.is_contiguous() and t.data_ptr() % 8 == 2 for t in (x, r, dy))
+    w = (1 + 0.1 * torch.randn(N, generator=g)).to(dev)
+    ds, dw, db = E.add_layernorm_backward(x, r, w, 1e-12, dy)
+    ps, pw, pb = E.add_layernorm_backward_plain(x, r, w, 1e-12, dy)
+    _step_close(ds, ps)
+    for a, b in ((dw, pw), (db, pb)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(E.add_layernorm_backward(x, r, w, 1e-12, dy),
+                                                 (ds, dw, db)))
 
 
 @pytest.mark.cuda

@@ -269,6 +269,51 @@ def test_3xtf32_products_keep_the_f32_tolerance(mb, T, H):
         torch.testing.assert_close(emulated(False).double(), want, **tol)
 
 
+def _grouped_product(eq: str, a, b, axis_a: int, axis_b: int, split: bool):
+    """_tensor_core_product with the kernels' chain grouping: the
+    contracted axis (axis_a of a, axis_b of b) cut into chains of kTcGroup
+    = 4 k-steps (32 entries), each chain's product a part in f32, the parts
+    added to the running sum in f32 in order."""
+    n, out = a.shape[axis_a], None
+    for c in range(0, n, 32):
+        part = _tensor_core_product(eq, a.narrow(axis_a, c, min(32, n - c)),
+                                    b.narrow(axis_b, c, min(32, n - c)), split)
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024)])
+def test_3xtf32_backward_products_keep_the_f32_tolerance(mb, T, H):
+    """K16b's arithmetic emulated on the CPU at the smoke's shape and the
+    largest it takes: its five products (S = Q.K^T, dP = dO.V^T, dQ = dS.K,
+    dV = P^T.dO, dK = dS^T.Q) in 3xTF32 with the kernels' chain grouping, the
+    softmax, D and dS in f32 as the twin computes them. Against autograd in
+    f64 of the same f32 inputs it stays within the card test's rtol 1e-5,
+    atol 1e-5 x max |dqkv|; with plain TF32 products it does not."""
+    g = torch.Generator().manual_seed(T + H + 1)
+    qkv = torch.randn((mb, T, 3 * H), generator=g)
+    dout = torch.randn((mb, T, H), generator=g)
+    leaf = qkv.double().requires_grad_(True)
+    (want,) = torch.autograd.grad(ST.stage_attention_plain(leaf), leaf, dout.double())
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    scale = ST._scale(H, torch.float32)
+
+    def emulated(split: bool):
+        q, k, v = (qkv[..., i * H:(i + 1) * H] for i in range(3))
+        prod = lambda eq, a, b, ia, ib: _grouped_product(eq, a, b, ia, ib, split)  # noqa: E731
+        p = torch.softmax(prod("bth,bsh->bts", q, k, 2, 2) / scale, dim=-1)
+        dp = prod("bth,bsh->bts", dout, v, 2, 2)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) / scale
+        dq = prod("bts,bsh->bth", ds, k, 2, 1)
+        dk = prod("bts,bth->bsh", ds, q, 1, 1)
+        dv = prod("bts,bth->bsh", p, dout, 1, 1)
+        return torch.cat([dq, dk, dv], dim=-1)
+    torch.testing.assert_close(emulated(True).double(), want, **tol)
+    torch.testing.assert_close(ST.stage_attention_backward_plain(qkv, dout).double(), want, **tol)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(emulated(False).double(), want, **tol)
+
+
 def _sgd_pairs(sizes, offsets, seed):
     """f32 parameters of the given sizes (those at `offsets` views one
     element into a larger buffer, so not 16-byte aligned) and gradients."""

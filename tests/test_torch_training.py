@@ -294,12 +294,29 @@ def test_chunked_k14a_decomposition_matches_jax_vjp(h, d, T):
     assert not _np(got[0])[2].any()
 
 
-def test_layernorm_backward_twin_matches_jax_vjp():
-    """flax's LayerNorm(dtype=f32) of a bf16 sum, cast to bf16 (bert.py:164-165)."""
+# (N, M) where a term of ds rounds one bf16 step apart from JAX's (see below)
+_LN_TERM_ROUNDING = {(768, 37)}
+
+
+@pytest.mark.parametrize("M", [40, 37])
+@pytest.mark.parametrize("N", [64, 384, 768])
+def test_layernorm_backward_twin_matches_jax_vjp(N, M):
+    """flax's LayerNorm(dtype=f32) of a bf16 sum, cast to bf16 (bert.py:164-165),
+    at the widths of BertConfig.tiny, MiniLM and BERT-base, over 40 rows and
+    an odd 37: ds, dweight and dbias within one bf16 step of jax.vjp.
+
+    One shape is held otherwise. ds is the bf16 sum of two bf16-rounded terms
+    (the (s - mean) path and the statistics' path), each an f32 expression
+    whose sums over the row run in another order in JAX: a term that lies on
+    a bf16 rounding boundary can round one step apart, which moves ds by a
+    step of that term, not of ds. At N = 768, M = 37 this happens to one of
+    the 28,416 values, where the terms cancel (4 steps of ds). There ds is
+    held within one bf16 step at all but 0.1 % of its values, and those
+    within one step of ds plus one of each term."""
     rng = np.random.default_rng(6)
-    x, r, dy = (rng.normal(size=(40, 64)).astype(np.float32) for _ in range(3))
-    w = (1 + 0.1 * rng.normal(size=64)).astype(np.float32)
-    b = (0.1 * rng.normal(size=64)).astype(np.float32)
+    x, r, dy = (rng.normal(size=(M, N)).astype(np.float32) for _ in range(3))
+    w = (1 + 0.1 * rng.normal(size=N)).astype(np.float32)
+    b = (0.1 * rng.normal(size=N)).astype(np.float32)
     ln = nn.LayerNorm(epsilon=1e-12, dtype=jnp.float32)
 
     def body(x, r, w, b):
@@ -310,8 +327,28 @@ def test_layernorm_backward_twin_matches_jax_vjp():
     ds, dw, db = E.add_layernorm_backward_plain(_bt(x), _bt(r), torch.from_numpy(w), 1e-12,
                                                 _bt(dy))
     assert ds.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
-    for got, ref in ((ds, gx), (ds, gr), (dw, gw), (db, gb)):
+    for got, ref in ((dw, gw), (db, gb)):
         assert_one_bf16_step(got, ref)
+    if (N, M) not in _LN_TERM_ROUNDING:
+        for ref in (gx, gr):
+            assert_one_bf16_step(ds, ref)
+        return
+    # the two terms of ds, in f64 from the same bf16 sum
+    sd = _np(_bt(x) + _bt(r)).astype(np.float64)
+    mean = sd.mean(-1, keepdims=True)
+    z = (sd * sd).mean(-1, keepdims=True) - mean * mean
+    rinv = 1 / np.sqrt(np.maximum(z, 0) + 1e-12)
+    gd = _np(_bt(dy)).astype(np.float64)
+    dxc = gd * rinv * w
+    dz = np.where(z > 0, (gd * (sd - mean) * w).sum(-1, keepdims=True) * -0.5 * rinv ** 3, 0)
+    stats = (-dxc.sum(-1, keepdims=True) - 2 * mean * dz) / N + dz / N * 2 * sd
+    for ref in (gx, gr):
+        got, ref = _np(ds), _np(ref)
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        off = np.abs(got - ref) > STEP_RTOL * np.abs(ref) + 2 ** -16 * np.abs(ref).max()
+        assert off.mean() <= 1e-3, off.sum()
+        slack = STEP_RTOL * (np.abs(ref) + np.abs(dxc) + np.abs(stats))
+        np.testing.assert_array_less(np.abs(got - ref)[off], slack[off])
 
 
 def test_gelu_backward_twin_matches_jax_vjp():
