@@ -17,11 +17,13 @@ train_bench_encoders at its defaults: 400 steps, dual batch 64, 128 tokens,
 4,096 triples; then the cross encoder warm-started from the dual trunk and
 distilled from it), saves both and loads them back, and fails when the dual
 encoder's held-out accuracy is under 0.65; every training kernel (K14a-d,
-K5d) and the forward kernels (K5a-c) must be launched by that training. A
-40-tree depth-3 forest is trained on the pipeline-off signal rows. The
+K5d, both loss heads of K15c) and the forward kernels (K5a-c) must be
+launched by that training. A 40-tree depth-3 forest is trained on the
+pipeline-off signal rows. The
 trained dual encoder writes the corpus's embedding columns on the card; the
 forest (K4), encoder (K5a-d) and training (K14a-d) kernels are held against
-their plain versions (K14b at the widths 64, 384 and 768), and one whole
+their plain versions (K14b at the widths 64, 384 and 768; K14c at 1,536 and
+3,072, at 1,000 and on a misaligned view, two calls bit-equal), and one whole
 train step is timed with kernels and
 with plain versions; the stack is served again with the three models loaded
 as `main.py serve --dual-encoder/--cross-encoder/--lambdamart` loads them,
@@ -71,11 +73,12 @@ warm-started from the trained dual encoder), 20 distilled steps at 32 pairs
 x 128 tokens on the smoke's triples, launch counts reset just before and
 read just after: the loss must be finite and fall (mean of the last 5 steps
 under the mean of the first 5), the router (K15a), select-and-scale (K15b),
-loss heads (K15c) and bf16 AdamW (K15d) must be launched by those steps,
+the pair head (K15c) and bf16 AdamW (K15d) must be launched by those steps,
 and the same 20 steps through the plain versions on the card must give the
 same loss curve within 5 % per step; one step is timed with kernels and
 with plain versions, and K15a-d are held against their plain versions at
-the step's shapes.
+the step's shapes (K15c's pair head plain and distilled at 32 pairs, its
+InfoNCE head at 32, 64 and 256 rows, two calls bit-equal).
 
 Then the pipeline-parallel train step (parallel/pipeline.py, K16) at
 MiniLM-L6's width: six single-head f32 stages (hidden 384, FFN 1536, 128
@@ -177,7 +180,14 @@ DIRECT = ("factors_join", "signals_prefix", "dense_rerank")
 RERANK_K, RERANK_TOP, RERANK_W = 1024, 20, 0.01
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
-            "add_layernorm_backward", "bias_gelu_backward", "adamw")
+            "add_layernorm_backward", "bias_gelu_backward", "adamw", "info_nce", "pair_loss")
+# K15c's two heads: their launches are counted over every path that runs one
+# (the dual encoder's InfoNCE steps, the cross encoder's and the MoE's pair
+# steps, main.py train-encoders)
+LOSS_HEADS = ("pair_loss", "info_nce")
+# K15c's InfoNCE head held against its plain version at these rows (the
+# train-encoders default, the dual step's, a large batch)
+INFO_NCE_B = (32, 64, 256)
 # the centrality job: the benchmark graph (entrypoint/bench_centrality.py)
 # and the sampled sources of approx-harmonic
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
@@ -191,7 +201,7 @@ MERGE_P = 64
 # steps timed; the kernels the steps must launch
 MOE_E, MOE_STEPS, MOE_B, MOE_LR, MOE_ALPHA, TEACHER_SCALE = 4, 20, 32, 3e-4, 2.0, 5.0
 MOE_TIMED = 3
-MOE_KERNELS = ("moe_router", "moe_select", "loss_heads", "adamw_bf16", "adamw")
+MOE_KERNELS = ("moe_router", "moe_select", "pair_loss", "adamw_bf16", "adamw")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 # the mesh of shards on the card: its corpus (a segment a shard, 1M pages in
 # all), the kernels its serving round must launch, and K9 held against its
@@ -263,8 +273,8 @@ PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 #           cotangent rtol 1e-5, atol 1e-6 x max |plain|
 #  K15b    forward and the experts' cotangent bit-equal; the gate's cotangent
 #           (an f32 row sum in another order, rounded to bf16) one bf16 step
-#  K15c    rtol 1e-5 (sums over B in another order, exp and log in another
-#           implementation)
+#  K15c    rtol 1e-5, atol 1e-7 (sums over B in another order, exp and log in
+#           another implementation); two calls bit-equal (fixed-order sums)
 #  K15d    one bf16 step after 3 steps (every operation rounds to bf16;
 #           Triton's division and square root are not correctly rounded in
 #           f32, which may move a value across a bf16 rounding boundary)
@@ -322,12 +332,13 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "mean_pool": "rtol 2^-7 atol 2^-7*max|plain|",
             "attention_backward": "rtol 2^-7 atol 2^-7*max|plain|",
             "add_layernorm_backward": "rtol 2^-7 atol 2^-7*max|plain|; dw, db rtol 1e-4",
-            "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|",
+            "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|; two calls bit-equal",
             "adamw": "rtol 1e-6 atol 1e-6*max|plain|",
             "stage_a_merge": f"network bit-equal; rtol {A_TOL[0]} atol {A_TOL[1]}",
             "moe_router": "probs rtol 1e-5; gate, dx 1 bf16 step; dlogits rtol 1e-5",
             "moe_select": "bit-equal; d gate 1 bf16 step",
-            "loss_heads": "rtol 1e-5",
+            "pair_loss": "rtol 1e-5 atol 1e-7; two calls bit-equal",
+            "info_nce": "rtol 1e-5 atol 1e-7; two calls bit-equal",
             "adamw_bf16": "1 bf16 step after 3 steps",
             "hll_merge": "registers bit-equal, sizes rel 1e-6",
             "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal",
@@ -1346,6 +1357,19 @@ def layernorm_backward_library(x, r, w, dy):
     return lambda: torch.autograd.grad(y, (s, wl, bl), g, retain_graph=True)
 
 
+def bias_gelu_backward_library(y, b, gout):
+    """K14c's library call on its inputs: aten.gelu_backward (tanh) at y + b,
+    the bias add inside it, and the f32 column sum of the result cast to
+    bf16 (it rounds once, not at each step of the chain as the reference:
+    a timing only). → the function to time."""
+    import torch
+
+    def run():
+        dy = torch.ops.aten.gelu_backward(gout, y + b, approximate="tanh")
+        return dy, dy.float().sum(dim=0).to(torch.bfloat16)
+    return run
+
+
 def training_kernel_phase(dual_dir: str) -> list:
     """K14a-d and K5d against their plain versions at the training shapes:
     attention backward at B=TRAIN_B, T=TRAIN_T with one fully and one half
@@ -1392,12 +1416,36 @@ def training_kernel_phase(dual_dir: str) -> list:
         out.append(("add_layernorm_backward", err, time_ms(run_k), time_ms(run_p),
                     m if N == 384 else (m, N)))
 
-    y, gout = bf(m, 1536), bf(m, 1536)
-    yb = (0.5 * torch.randn(1536, generator=g)).to(DEVICE, torch.bfloat16)
-    run_k = lambda: E.bias_gelu_backward(y, yb, gout)  # noqa: E731
-    run_p = lambda: E.bias_gelu_backward_plain(y, yb, gout)  # noqa: E731
-    err = max(_step_close(a, b) for a, b in zip(run_k(), run_p()))
-    out.append(("bias_gelu_backward", err, time_ms(run_k), time_ms(run_p), m))
+    # K14c: MiniLM's FFN at the dual step's rows (the main row), BERT-base's at
+    # 4 x 512 tokens (timed); a width off the 16-byte path and a misaligned
+    # view (checked); each call's second run bit-equal
+    k14c, checked = [], 0.0
+    for M, N, timed in ((m, 1536, True), (4 * 512, 3072, True), (33, 1000, False),
+                        (300, 1536, False)):
+        if timed or N != 1536:
+            y, gout = bf(M, N), bf(M, N)
+            yb = (0.5 * torch.randn(N, generator=g)).to(DEVICE, torch.bfloat16)
+        else:  # contiguous views 2 bytes past a 16-byte boundary: single elements
+            y, gout, yb = (bf(n + 1)[1:] for n in (M * N, M * N, N))
+            y, gout = y.view(M, N), gout.view(M, N)
+        run_k = lambda: E.bias_gelu_backward(y, yb, gout)  # noqa: E731
+        run_p = lambda: E.bias_gelu_backward_plain(y, yb, gout)  # noqa: E731
+        got = run_k()
+        err = max(_step_close(a, b) for a, b in zip(got, run_p()))
+        if not all(torch.equal(a, b) for a, b in zip(run_k(), got)):
+            raise AssertionError(f"two calls of the GELU backward kernel differ at {M} x {N}")
+        if timed:
+            lib = time_ms(bias_gelu_backward_library(y, yb, gout))
+            log(f"[train] K14c at {M} x {N}: aten.gelu_backward (tanh) of y + b and the "
+                f"column sum {lib:.4f} ms")
+            k14c.append((err, time_ms(run_k), time_ms(run_p),
+                         m if (M, N) == (m, 1536) else (M, N)))
+        else:
+            checked = max(checked, err)
+            log(f"[train] K14c at {M} x {N} ({'misaligned view' if N == 1536 else 'odd width'}): "
+                f"max abs err {err:.3g}, two calls bit-equal")
+    out += [("bias_gelu_backward", max(err, checked), ms, pms, shape)
+            for err, ms, pms, shape in k14c]
 
     h, cot = bf(B, T, 384), torch.randn((B, 384), generator=g).to(DEVICE)
 
@@ -1644,6 +1692,69 @@ def cross_entropy_library(logits, labels):
     return run
 
 
+def soft_margin_library(s_pos, s_neg):
+    """K15c's pair head's library call on its inputs: F.soft_margin_loss of
+    s_pos - s_neg against ones (mean softplus(-x), the undistilled head) and
+    its gradients in both scores through autograd. → the function to time."""
+    import torch
+    import torch.nn.functional as F
+
+    a, b = (t.detach().requires_grad_(True) for t in (s_pos, s_neg))
+    ones = torch.ones_like(a)
+
+    def run():
+        loss = F.soft_margin_loss(a - b, ones)
+        return loss, torch.autograd.grad(loss, (a, b))
+    return run
+
+
+def loss_head_rows(g, library: dict) -> list:
+    """K15c's two heads against their plain versions (rtol 1e-5, atol 1e-7)
+    on the card, two calls of each bit-equal: the pair head at MOE_B pairs,
+    plain and distilled (the cross encoder's and the MoE steps' shapes),
+    beside F.soft_margin_loss and its gradient; the InfoNCE head at each
+    INFO_NCE_B rows, beside F.cross_entropy and its gradient. Library times
+    go into `library` under each head's main shape. → kernel_phase rows
+    (name, default_static, err, ms, plain ms, shape, bytes, ops)."""
+    import torch
+
+    from stract_tpu_torch.ops import losses as LO
+
+    def held(run_k, run_p, what) -> float:
+        got, err = run_k(), 0.0
+        for a, c in zip(got, run_p()):
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
+            err = max(err, float((a - c).abs().max()))
+        if not all(torch.equal(a, c) for a, c in zip(run_k(), got)):
+            raise AssertionError(f"two calls of the {what} head differ")
+        return err
+
+    rows = []
+    sp_, sn_, tp_, tn_ = (torch.randn(MOE_B, generator=g).to(DEVICE) for _ in range(4))
+    for kind, args in (("pairwise", (sp_, sn_)), ("distilled", (sp_, sn_, tp_, tn_, MOE_ALPHA))):
+        run_k = lambda: LO.pair_loss_forward(*args)  # noqa: E731
+        run_p = lambda: LO.pair_loss_plain(*args)  # noqa: E731
+        err = held(run_k, run_p, f"{kind} pair")
+        n_in = 4 if kind == "distilled" else 2
+        rows.append(("pair_loss", True, err, time_ms(run_k), time_ms(run_p), (MOE_B, kind),
+                     4 * MOE_B * (n_in + 2) + 4, 20 * MOE_B))
+    lib = time_ms(soft_margin_library(sp_, sn_))
+    library["pair_loss"] = lib
+    log(f"[moe] K15c pair head at {MOE_B} pairs: F.soft_margin_loss and its gradient {lib:.4f} ms")
+    for B in INFO_NCE_B:
+        logits = 20.0 * torch.randn((B, B), generator=g).to(DEVICE)
+        run_k = lambda: LO.info_nce_forward(logits)  # noqa: E731
+        run_p = lambda: LO.info_nce_plain(logits)  # noqa: E731
+        err = held(run_k, run_p, "InfoNCE")
+        rows.append(("info_nce", True, err, time_ms(run_k), time_ms(run_p), B,
+                     4 * B * B * 2 + 4, 8 * B * B))
+        lib = time_ms(cross_entropy_library(logits, torch.arange(B, device=DEVICE)))
+        if B == TRAIN_B:
+            library["info_nce"] = lib
+        log(f"[moe] K15c InfoNCE head at B = {B}: F.cross_entropy and its gradient {lib:.4f} ms")
+    return rows
+
+
 def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     """The MoE training path on the card: a MiniLM-L6 cross encoder (full
     width, the 30,522-piece vocab, mean readout) from
@@ -1664,7 +1775,6 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     from stract_tpu_torch.models.dual_encoder import DualEncoder
     from stract_tpu_torch.models.store import load_encoder
     from stract_tpu_torch.ops import kernels
-    from stract_tpu_torch.ops import losses as LO
     from stract_tpu_torch.ops import moe as MO
     from stract_tpu_torch.parallel.train import distill_loss, make_train_state, train_step
 
@@ -1786,22 +1896,7 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
                  (2 * N * H + 6 * N + 2 * N * H)  # forward: the chosen rows, top, gate
                  + (4 * N * H + 6 * N + 2 * Ex * N * H + 2 * N),  # backward
                  N * H + 2 * N * H))
-    sp_, sn_, tp_, tn_ = (torch.randn(MOE_B, generator=g).to(DEVICE) for _ in range(4))
-    pair = (sp_, sn_, tp_, tn_, MOE_ALPHA)
-    err = 0.0
-    for a, c in zip(LO.pair_loss_forward(*pair), LO.pair_loss_plain(*pair)):
-        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
-        err = max(err, float((a - c).abs().max()))
-    logits = 20.0 * torch.randn((TRAIN_B, TRAIN_B), generator=g).to(DEVICE)
-    for a, c in zip(LO.info_nce_forward(logits), LO.info_nce_plain(logits)):
-        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-7)
-        err = max(err, float((a - c).abs().max()))
-    labels = torch.arange(TRAIN_B, device=DEVICE)
-    library["loss_heads"] = time_ms(cross_entropy_library(logits, labels))
-    rows.append(("loss_heads", True, err, time_ms(lambda: LO.info_nce_forward(logits)),
-                 time_ms(lambda: LO.info_nce_plain(logits)), TRAIN_B,
-                 4 * TRAIN_B * TRAIN_B * 2 + 4, 8 * TRAIN_B * TRAIN_B))
-    pair_ms = time_ms(lambda: LO.pair_loss_forward(*pair))
+    rows += loss_head_rows(g, library)
     grp = opt.groups[torch.bfloat16]
     p0 = grp.flat.detach().clone()
     grads = [(0.01 * torch.randn(p0.numel(), generator=g)).to(DEVICE, torch.bfloat16)
@@ -1832,12 +1927,14 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
            "expert_params": n_expert, "loss_first5": first, "loss_last5": last,
            "loss_kernels": losses_k, "loss_plain": losses_p, "curve_max_rel_diff": curve,
            "step_ms_kernels": step_ms["kernels"], "step_ms_plain": step_ms["plain"],
-           "pair_head_ms": pair_ms, "seconds": time.perf_counter() - t0,
+           "seconds": time.perf_counter() - t0,
            "launches": {k: launches[k] for k in MOE_KERNELS}}
     log(f"[moe] {json.dumps(rec)} card={card}")
-    log(f"[moe] K15c beside F.cross_entropy and its gradient (torch.autograd.grad), K15d "
-        f"beside torch._fused_adamw_ on the bf16 tensors (f32 math inside, one rounding per "
-        f"tensor write: it rounds differently from optax's bf16 steps) card={card}")
+    log(f"[moe] K15c's InfoNCE head beside F.cross_entropy and its gradient, its pair head "
+        f"beside F.soft_margin_loss and its gradient (torch.autograd.grad; the undistilled "
+        f"head), K15d beside torch._fused_adamw_ on the bf16 tensors (f32 math inside, one "
+        f"rounding per tensor write: it rounds differently from optax's bf16 steps) "
+        f"card={card}")
     del model, opt
     return {"record": rec, "rows": rows, "launches": launches, "library": library}
 
@@ -2479,7 +2576,7 @@ def library_phase() -> dict:
     K5a scaled_dot_product_attention with the additive mask, K14a its
     backward through autograd, K5b layer_norm over the sum, K5c the tanh GELU
     over the sum, K14b native_layer_norm_backward through autograd, K14c
-    aten.gelu_backward (tanh) and the bias's column sum, K14d
+    aten.gelu_backward (tanh) of the sum and the column sum, K14d
     torch._fused_adamw_ (what AdamW(fused=True) calls). → {kernel: ms}."""
     import torch
     import torch.nn.functional as F
@@ -2512,9 +2609,7 @@ def library_phase() -> dict:
     x, r, dy = bf(m, 384), bf(m, 384), bf(m, 384)
     out["add_layernorm_backward"] = time_ms(layernorm_backward_library(x, r, w, dy))
     y, yb, gout = bf(m, 1536), bf(1536), bf(m, 1536)
-    s = y + yb
-    out["bias_gelu_backward"] = time_ms(lambda: torch.ops.aten.gelu_backward(
-        gout, s, approximate="tanh").float().sum(dim=0))
+    out["bias_gelu_backward"] = time_ms(bias_gelu_backward_library(y, yb, gout))
     n = 22_565_376
     p, gr, mo, ve = (torch.randn(n, generator=g).to(DEVICE) for _ in range(4))
     ve.abs_()
@@ -2526,14 +2621,15 @@ def library_phase() -> dict:
 
 
 def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, forest,
-                   card, config_launches, moe_launches, mesh, pipe, grid) -> list:
+                   card, config_launches, moe_launches, mesh, pipe, grid, te_launches) -> list:
     """Every kernel's entry of the `kernels` line: its largest error against
     the plain version; its time, the plain version's, the bound and the
     library call's at the main shape; its launches in the run of its own
     path, named under "path" (training for the training kernels and the pool,
     the centrality jobs for the graph kernels, its configuration's HTTP round
     for the configurations' kernels, one direct call for the DIRECT three,
-    the MoE steps for K15a-d, the mesh's serving round for K9 and its
+    the MoE steps for K15a-d, K15c's heads summed over the training, the MoE
+    steps and train-encoders (`te_launches`), the mesh's serving round for K9 and its
     HyperBall for K8, the pipelined train steps for K16a-d, the pipeline-on
     traffic for the rest; `grid`: the attention grid's rows, each with its
     own bound). Each measured row is logged too."""
@@ -2572,7 +2668,7 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "mean_pool": ("triton", enc, "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
             "attention_backward": ("cuda", src + "encoder.cu", step, TRAIN_T),
             "add_layernorm_backward": ("cuda", src + "encoder.cu", step, TRAIN_B * TRAIN_T),
-            "bias_gelu_backward": ("triton", enc, step, TRAIN_B * TRAIN_T),
+            "bias_gelu_backward": ("cuda", src + "encoder.cu", step, TRAIN_B * TRAIN_T),
             "adamw": ("triton", "stract_tpu_torch/optim.py", step, None),
             "hll_merge": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:50", None),
             "hll_estimate": ("cuda", src + "graph.cu", "stract_tpu/ops/hll_ops.py:64", None),
@@ -2583,8 +2679,10 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "moe_router": ("cuda", src + "moe.cu", "stract_tpu/models/bert.py:124", None),
             "moe_select": ("triton", "stract_tpu_torch/ops/moe.py",
                            "stract_tpu/models/bert.py:151", None),
-            "loss_heads": ("triton", "stract_tpu_torch/ops/losses.py",
-                           "stract_tpu/entrypoint/train_encoders.py:249", None),
+            "pair_loss": ("cuda", src + "losses.cu", "stract_tpu/parallel/train.py:26",
+                          (MOE_B, "distilled")),
+            "info_nce": ("cuda", src + "losses.cu",
+                         "stract_tpu/entrypoint/train_encoders.py:249", TRAIN_B),
             "adamw_bf16": ("triton", "stract_tpu_torch/optim.py",
                            "stract_tpu/parallel/train.py:36", None),
             "mesh_topk": ("cuda", src + "scoring.cu", "stract_tpu/parallel/search.py:81",
@@ -2603,7 +2701,13 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
         mine = [r for r in all_rows if r[0] == name]
         main_row = next(r for r in mine if r[7] and main_shape in (
             None, r[4], r[4][:2] if isinstance(r[4], tuple) else None))
-        if name in DIRECT:
+        if name in LOSS_HEADS:
+            launches = (train_launches[name] + moe_launches[name]
+                        + te_launches.get(name, 0))
+            path = ("training: the dual encoder's steps, main.py train-encoders"
+                    if name == "info_nce" else "training: the cross encoder's distilled steps, "
+                    "the MoE steps, main.py train-encoders")
+        elif name in DIRECT:
             launches, path = config_launches[name], "direct call: no entry point reaches it"
         elif name in MOE_KERNELS[:4]:
             launches, path = moe_launches[name], "training: the MoE cross encoder's steps"
@@ -2653,8 +2757,9 @@ def work(name: str, shape, forest=None) -> tuple:
         return 4 * M * N * 2 + 12 * N, 12 * M * N, PEAK_F32
     if name == "bias_gelu":
         return 2 * shape * F_ * 2 + 2 * F_, 20 * shape * F_, PEAK_F32
-    if name == "bias_gelu_backward":
-        return 3 * shape * F_ * 2 + 4 * F_, 40 * shape * F_, PEAK_F32
+    if name == "bias_gelu_backward":  # shape: rows, or (rows, N) off MiniLM's FFN width
+        M, N = shape if isinstance(shape, tuple) else (shape, F_)
+        return 3 * M * N * 2 + 4 * N, 40 * M * N, PEAK_F32
     if name == "mean_pool":  # forward + backward over TRAIN_B rows of TRAIN_T tokens
         return 2 * shape * H * 2 + 8 * shape + 4 * TRAIN_B * H * 4, 4 * shape * H, PEAK_F32
     if name == "adamw":  # p, g, m, v in; p, m, v out
@@ -2870,7 +2975,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                       "hll_ring_step": f"centrality harmonic on a mesh of {MESH_SHARDS} shards"}}
     kernels_out = in_phase("records", kernel_records, rows + rows_c + moe["rows"], rows_m, cent,
                            library, served["launches"], models["launches"], forest, card,
-                           config_launches, moe["launches"], mesh, pipe, grid)
+                           config_launches, moe["launches"], mesh, pipe, grid,
+                           te["launches"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

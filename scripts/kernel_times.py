@@ -35,10 +35,22 @@ under data/). --readings picks groups (default all):
                       f32 widened sum through autograd
                       (native_layer_norm_backward; chip_smoke.py's
                       layernorm_backward_library);
-  loss_heads          K15c's InfoNCE head at B = 64 (value and B x B
-                      gradient), beside F.cross_entropy and its gradient
-                      (torch.autograd.grad; chip_smoke.py's
-                      cross_entropy_library);
+  loss_heads          K15c's InfoNCE head at B in INFO_NCE_B (the
+                      train-encoders default 32, the dual step's 64, 128,
+                      256; value and B x B gradient), beside F.cross_entropy
+                      and its gradient (torch.autograd.grad; chip_smoke.py's
+                      cross_entropy_library), and, on a tree that has both,
+                      its one-block and grid forms (kernels.info_nce's
+                      `blocks`: the crossover); its pair head at 32 pairs (the
+                      cross encoder's and the MoE steps' batch), plain and
+                      distilled, beside F.soft_margin_loss(s+ - s-, ones)
+                      and its gradients (the plain head; chip_smoke.py's
+                      soft_margin_library);
+  bias_gelu_backward  K14c at (M, N) in GELU_BWD_SHAPES (the dual step's
+                      8,192 x 1,536, BERT-base's 4 x 512 tokens x 3,072),
+                      beside aten.gelu_backward (tanh) of y + b and the f32
+                      column sum cast to bf16 (the bias add inside the timed
+                      call; chip_smoke.py's bias_gelu_backward_library);
   bias_gelu           K5c at 4096 x 1536 (chip_smoke.py's shape), beside
                       F.gelu(y + b, approximate="tanh");
   sgd                 K16d over the 25 f32 tensors of the pipelined train
@@ -76,9 +88,11 @@ GELU_M, GELU_N = 4096, 1536
 ATTN_WIDE = ((64, 256), (64, 512), (16, 512))
 STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024))
 LN_WIDTHS = (64, 384, 768)
+INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
+GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
-            "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu", "sgd",
-            "pipeline_step", "dual_step")
+            "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
+            "bias_gelu_backward", "sgd", "pipeline_step", "dual_step")
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -125,8 +139,8 @@ def _masked(B: int, T: int):
 
 def _smoke():
     """chip_smoke.py of this checkout, whichever tree the kernels come from:
-    the library calls it times for K14b and K15c are timed here from the
-    same code."""
+    the library calls it times for K14b, K14c and K15c are timed here from
+    the same code."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -245,14 +259,32 @@ def worker(root: str, calls: int, readings: list) -> list:
     if "loss_heads" in readings:
         from stract_tpu_torch.ops import losses as LO
 
-        logits = 20.0 * torch.randn((TRAIN_B, TRAIN_B), generator=g).cuda()
-        labels = torch.arange(TRAIN_B, device="cuda")
-        read((("K15c", lambda: LO.info_nce_forward(logits)),
-              ("cross_entropy", smoke.cross_entropy_library(logits, labels))), B=TRAIN_B)
+        for B in INFO_NCE_B:
+            logits = 20.0 * torch.randn((B, B), generator=g).cuda()
+            labels = torch.arange(B, device="cuda")
+            read((("K15c_info_nce", lambda: LO.info_nce_forward(logits)),
+                  ("cross_entropy", smoke.cross_entropy_library(logits, labels))), B=B)
+            if hasattr(kernels, "INFO_NCE_GRID_ROWS"):  # both forms, for the crossover
+                loss, d = torch.empty((), device="cuda"), torch.empty_like(logits)
+                grid = -(-B // kernels.INFO_NCE_GRID_ROWS)
+                read((("K15c_info_nce_one_block",
+                       lambda: kernels.info_nce(logits, loss, d, blocks=1)),
+                      ("K15c_info_nce_grid",
+                       lambda: kernels.info_nce(logits, loss, d, blocks=grid))), B=B)
+        sp, sn, tp, tn = (torch.randn(PAIR_B, generator=g).cuda() for _ in range(4))
+        read((("K15c_pair", lambda: LO.pair_loss_forward(sp, sn)),
+              ("K15c_pair_distilled", lambda: LO.pair_loss_forward(sp, sn, tp, tn, 2.0)),
+              ("soft_margin", smoke.soft_margin_library(sp, sn))), B=PAIR_B)
     if "bias_gelu" in readings:
         y, b = bf(GELU_M, GELU_N), bf(GELU_N)
         read((("K5c", lambda: E.bias_gelu_forward(y, b)),
               ("gelu", lambda: F.gelu(y + b, approximate="tanh"))), M=GELU_M)
+    if "bias_gelu_backward" in readings:
+        for M, N in GELU_BWD_SHAPES:
+            y, dout = bf(M, N), bf(M, N)
+            b = (0.5 * torch.randn(N, generator=g)).to("cuda", torch.bfloat16)
+            read((("K14c", lambda: E.bias_gelu_backward(y, b, dout)),
+                  ("gelu_backward", smoke.bias_gelu_backward_library(y, b, dout))), M=M, N=N)
     if "sgd" in readings:
         ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
         gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
@@ -326,7 +358,8 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "tensors")
+            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B",
+                                                       "tensors")
                              if f in rec)
             key = f"{tree} {rec['name']} {shape}"
             summary.setdefault(key, []).append((rec["event_ms"], rec["device_ms"]))

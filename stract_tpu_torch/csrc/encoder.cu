@@ -1,15 +1,17 @@
 // The BERT encoder's kernels on Hopper (sm_90a): K5a masked self-attention
 // (attention_kernel and attention_long_kernel, here), K14a its backward (the
 // dQ and dK / dV kernels below them), K5c bias + tanh GELU
-// (bias_gelu_kernel) and K14b the residual + LayerNorm backward
-// (add_layernorm_bwd_kernel, last). Each has its note above its code: what
+// (bias_gelu_kernel), K14b the residual + LayerNorm backward
+// (add_layernorm_bwd_kernel) and K14c the bias + GELU backward
+// (bias_gelu_bwd_kernel, last). Each has its note above its code: what
 // it replaces, what bounds it on the card and what its design does about
-// that. In short: all four move little data and compute less, so device
+// that. In short: all five move little data and compute less, so device
 // memory bounds them; K5a and K14a take their products to the tensor cores
 // (wgmma on cp.async-staged tiles) and spend what is left in the f32
 // softmax and one load-compute-store pass a block; K5c reads and writes 16
 // bytes a thread with the bias from the index; K14b takes a row a warp and
-// sums its column partials without atomics.
+// sums its column partials without atomics; K14c takes K5c's pieces and
+// sums its column partials as K14b does.
 //
 // K5a replaces the body of stract_tpu/models/bert.py:97-103 (BertSelfAttention):
 // scores = q.k^T in f32 / sqrt(d), masked keys set to finfo(f32).min, softmax
@@ -1339,15 +1341,22 @@ add_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
     }
 }
 
-// dweight and dbias: the blocks' partials summed for kLnSumCols columns of
-// one of them a block, warp j summing blocks j, j + kLnSumGroups, ... in
-// order, then the groups summed in order
+// the column sums of K14b (dweight, dbias) and K14c (db): the blocks'
+// partials [outputs][blocks][N] summed for kLnSumCols columns of one output
+// a block, warp j summing blocks j, j + kLnSumGroups, ... in order, then the
+// groups summed in order, the total stored as T (f32, or bf16 rounded to
+// nearest); grid: outputs x the column blocks
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kLnSumCols * kLnSumGroups)
-layernorm_col_sum_kernel(const float* __restrict__ partials, int blocks, int N,
-                         float* __restrict__ dweight, float* __restrict__ dbias) {
+col_sum_kernel(const float* __restrict__ partials, int blocks, int N, T* out0, T* out1) {
     __shared__ float s_sum[kLnSumGroups][kLnSumCols];
     const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
-    const int k = blockIdx.x / col_blocks;  // 0: dweight, 1: dbias
+    const int k = blockIdx.x / col_blocks;  // the output: 0 or 1
     const int c = blockIdx.x % col_blocks * kLnSumCols + threadIdx.x;
     const int j = threadIdx.y;
     float acc = 0.0f;
@@ -1361,8 +1370,206 @@ layernorm_col_sum_kernel(const float* __restrict__ partials, int blocks, int N,
         float total = 0.0f;
 #pragma unroll
         for (int v = 0; v < kLnSumGroups; ++v) total += s_sum[v][threadIdx.x];
-        (k == 0 ? dweight : dbias)[c] = total;
+        store_as((k == 0 ? out0 : out1) + c, total);
     }
+}
+
+template <typename T>
+cudaError_t launch_col_sum(const float* partials, int outputs, int blocks, int N, T* out0,
+                           T* out1, cudaStream_t stream) {
+    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
+    col_sum_kernel<T><<<outputs * col_blocks, dim3(kLnSumCols, kLnSumGroups), 0, stream>>>(
+        partials, blocks, N, out0, out1);
+    return cudaGetLastError();
+}
+
+// K14c: the backward of the bias add + tanh GELU (bert.py:170-171), the VJP
+// of jax.nn.gelu(bf16(y + b)) as jax.value_and_grad takes it through the
+// train steps (train_encoders.py:244, parallel/train.py:87,115) and
+// bias_gelu_backward_plain (ops/encoder.py) writes it: s = bf16(y + b), c =
+// dout, every step of the chain rule rounded to bf16 in the twin's order at
+// the bf16 constants c1, c2 (s2 = s s, u = c1 (s + c2 s2 s), th = tanh(u),
+// t = (s c / 2)(1 - th), w = c1 (t + t th), dy = (c (1 + th) / 2 + w) +
+// (c2 w)(3 s2)); db = the column sum of the rounded dy in f32, cast to bf16.
+// tanh is K5c's (1 - 2 rcp_rn(__expf(2u) + 1), gelu_tanh above), so the
+// forward and the backward take the same th.
+// What bounds it: device memory (y and dout read, dy written: 6 bytes an
+// element, 0.0225 ms at 8,192 x 1,536), if the ~25 roundings an element
+// stay cheap. Each step of the chain is one op on two bf16 values (the
+// constants are bf16 too), whose f32 result rounded to bf16 is the bf16
+// op's own result: products of two bf16 values are exact in f32, and a sum
+// that f32 rounds differs from the exact one by far less than half a bf16
+// step. So the chain runs as packed bf16x2 ops (mul.rn / add.rn / sub.rn
+// .bf16x2: round to nearest even, never contracted into an fma), two
+// elements an instruction at the f32 rate, on the pairs as they are loaded;
+// only tanh widens to f32 and rounds back (one packed conversion a pair).
+// A first build rounded each f32 step with cvt.rn.bf16.f32 (16 a clock an
+// SM, a quarter of the f32 rate; ~25 an element take ~0.085 ms at 8,192 x
+// 1,536): 0.083 ms on the H100; the packed ops take 0.0305.
+// The design: K5c's 2-D grid, a block 256 columns (32 threads of 8) x
+// kGeluBwdRows thread rows: a thread's 8 columns one 16-byte piece when
+// N % 8 == 0 and every pointer is 16-byte aligned, else 8 single elements
+// 32 apart (one instantiation: any N and any view, the same grid), each
+// thread two rows a step with all four loads issued before the arithmetic,
+// the bias read once a thread. db without atomics: the caller fixes the
+// grid's row blocks (ops/kernels.py: 264 blocks in all over the column
+// blocks, two an SM; fewer when M is small), each thread keeps its
+// columns' partials in f32 registers, the block sums its thread rows' in
+// order into partials [blocks][N], and col_sum_kernel sums those in fixed
+// groups. Two calls are bit-equal, and the grid does not depend on the card.
+constexpr int kGeluBwdPieces = 32;   // threads a block's row (x), 8 columns each
+constexpr int kGeluBwdRows = 16;     // thread rows a block (y), two rows each a step
+
+// packed bf16x2 ops, each half rounded to nearest even
+__device__ __forceinline__ uint32_t bmul(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+__device__ __forceinline__ uint32_t badd(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+__device__ __forceinline__ uint32_t bsub(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+__device__ __forceinline__ float lo_f32(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ uint32_t splat_bf16(float x) { return pack_bf16(x, x); }
+
+// K5c's tanh of both halves, each rounded to bf16
+__device__ __forceinline__ uint32_t tanh_bf16x2(uint32_t u) {
+    const float a = lo_f32(u), b = hi_f32(u);
+    return pack_bf16(1.0f - 2.0f * __frcp_rn(__expf(2.0f * a) + 1.0f),
+                     1.0f - 2.0f * __frcp_rn(__expf(2.0f * b) + 1.0f));
+}
+
+// the chain rule at two elements, in bias_gelu_backward_plain's order: y,
+// bias, the cotangent c as bf16 pairs; k1, k2 the constants c1, c2, and
+// half, one, three, each in both halves → the pair of dy
+__device__ __forceinline__ uint32_t gelu_grad_bf16x2(uint32_t y, uint32_t bias, uint32_t c,
+                                                     uint32_t k1, uint32_t k2, uint32_t half,
+                                                     uint32_t one, uint32_t three) {
+    const uint32_t s = badd(y, bias);
+    const uint32_t s2 = bmul(s, s);
+    const uint32_t u = bmul(k1, badd(s, bmul(k2, bmul(s2, s))));
+    const uint32_t th = tanh_bf16x2(u);
+    const uint32_t t = bmul(bmul(half, bmul(s, c)), bsub(one, th));
+    const uint32_t w = bmul(k1, badd(t, bmul(t, th)));
+    return badd(badd(bmul(c, bmul(half, badd(one, th))), w), bmul(bmul(k2, w), bmul(three, s2)));
+}
+
+// a thread's 8 columns of a row as four bf16 pairs: VEC, one 16-byte piece
+// (columns col .. col + 7; N % 8 == 0, so wholly inside the row or past
+// it); else 8 single elements 32 apart (columns col + 32 e, each guarded:
+// any N, any alignment)
+template <bool VEC>
+struct Eight {
+    uint32_t w[4];
+    __device__ __forceinline__ void load(const __nv_bfloat16* p, int col, int N) {
+        if constexpr (VEC) {
+            const uint4 v = *reinterpret_cast<const uint4*>(p + col);
+            w[0] = v.x;
+            w[1] = v.y;
+            w[2] = v.z;
+            w[3] = v.w;
+        } else {
+            const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+            uint32_t h[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) h[e] = col + 32 * e < N ? q[col + 32 * e] : 0u;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] = h[2 * j] | (h[2 * j + 1] << 16);
+        }
+    }
+    __device__ __forceinline__ void store(__nv_bfloat16* p, int col, int N) const {
+        if constexpr (VEC) {
+            *reinterpret_cast<uint4*>(p + col) = make_uint4(w[0], w[1], w[2], w[3]);
+        } else {
+            unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                if (col + 32 * e < N)
+                    q[col + 32 * e] = static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)));
+        }
+    }
+};
+
+// a block: 256 columns (32 threads of 8) x kGeluBwdRows thread rows, the
+// grid's x the column blocks and y the caller's row blocks, in both forms
+template <bool VEC>
+__global__ void __launch_bounds__(kGeluBwdPieces * kGeluBwdRows)
+bias_gelu_bwd_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ bias,
+                     const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dy,
+                     float* __restrict__ partials, long long M, int N, float c1, float c2) {
+    constexpr int kCols = kGeluBwdPieces * 8;
+    __shared__ float s_part[kGeluBwdRows][kCols];
+    const int base = blockIdx.x * kCols;
+    const int local = VEC ? threadIdx.x * 8 : threadIdx.x;  // the thread's first column
+    const int stride = VEC ? 1 : 32;                        // ... and the step to its next
+    const int col = base + local;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+    if (col < N) {
+        const uint32_t k1 = splat_bf16(c1), k2 = splat_bf16(c2), half = splat_bf16(0.5f),
+                       one = splat_bf16(1.0f), three = splat_bf16(3.0f);
+        Eight<VEC> b;
+        b.load(bias, col, N);
+        const long long step = static_cast<long long>(gridDim.y) * kGeluBwdRows;
+        // one row's dy from its loaded columns, stored, and added to the partials
+        auto finish = [&](long long row, const Eight<VEC>& yp, const Eight<VEC>& gp) {
+            Eight<VEC> o;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                o.w[j] = gelu_grad_bf16x2(yp.w[j], b.w[j], gp.w[j], k1, k2, half, one, three);
+                acc[2 * j] += lo_f32(o.w[j]);
+                acc[2 * j + 1] += hi_f32(o.w[j]);
+            }
+            o.store(dy + row * N, col, N);
+        };
+        for (long long r0 = static_cast<long long>(blockIdx.y) * kGeluBwdRows + threadIdx.y;
+             r0 < M; r0 += 2 * step) {
+            const long long r1 = r0 + step;
+            Eight<VEC> y0, g0, y1, g1;  // all four loads issued before the arithmetic
+            y0.load(y + r0 * N, col, N);
+            g0.load(dout + r0 * N, col, N);
+            if (r1 < M) {
+                y1.load(y + r1 * N, col, N);
+                g1.load(dout + r1 * N, col, N);
+            }
+            finish(r0, y0, g0);
+            if (r1 < M) finish(r1, y1, g1);
+        }
+    }
+    // the block's column partials: its thread rows' summed in order (columns
+    // past N hold zeros and are not stored)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s_part[threadIdx.y][local + stride * e] = acc[e];
+    __syncthreads();
+    for (int i = threadIdx.y * kGeluBwdPieces + threadIdx.x; i < kCols;
+         i += kGeluBwdPieces * kGeluBwdRows) {
+        if (base + i < N) {
+            float total = 0.0f;
+#pragma unroll
+            for (int v = 0; v < kGeluBwdRows; ++v) total += s_part[v][i];
+            partials[static_cast<long long>(blockIdx.y) * N + base + i] = total;
+        }
+    }
+}
+
+template <bool VEC>
+cudaError_t launch_bias_gelu_backward(const __nv_bfloat16* y, const __nv_bfloat16* bias,
+                                      const __nv_bfloat16* dout, __nv_bfloat16* dy,
+                                      float* partials, long long M, int N, int blocks, float c1,
+                                      float c2, cudaStream_t stream) {
+    const int col_blocks = (N + kGeluBwdPieces * 8 - 1) / (kGeluBwdPieces * 8);
+    bias_gelu_bwd_kernel<VEC><<<dim3(col_blocks, blocks), dim3(kGeluBwdPieces, kGeluBwdRows), 0,
+                                stream>>>(y, bias, dout, dy, partials, M, N, c1, c2);
+    return cudaGetLastError();
 }
 
 template <int W, int P>
@@ -1573,10 +1780,33 @@ int stract_add_layernorm_backward(const void* x, const void* r, const void* dy, 
         }
         if (err != cudaSuccess) return err;
     }
-    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
-    layernorm_col_sum_kernel<<<2 * col_blocks, dim3(kLnSumCols, kLnSumGroups), 0, stream>>>(
-        partials, blocks, N, dweight, dbias);
-    return cudaGetLastError();
+    return launch_col_sum(static_cast<const float*>(partials), 2, blocks, N, dweight, dbias,
+                          stream);
+}
+
+// y, dout bf16[M, N], bias bf16[N] -> dy bf16[M, N] and db bf16[N] (K14c);
+// partials f32[blocks, N] is scratch. M must be at least 1 (the caller
+// gives db its zeros when M = 0), N at least 1, blocks 1..65535 (the grid's
+// row blocks). Two launches on the stream; returns the CUDA status.
+int stract_bias_gelu_backward(const void* y, const void* bias, const void* dout, void* dy,
+                              void* db, float* partials, long long M, int N, int blocks,
+                              float c1, float c2, cudaStream_t stream) {
+    if (M <= 0 || N <= 0 || blocks <= 0 || blocks > 65535) return cudaErrorInvalidValue;
+    const auto* yy = static_cast<const __nv_bfloat16*>(y);
+    const auto* bb = static_cast<const __nv_bfloat16*>(bias);
+    const auto* gg = static_cast<const __nv_bfloat16*>(dout);
+    auto* out = static_cast<__nv_bfloat16*>(dy);
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(bias) |
+                           reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dy);
+    const cudaError_t err =
+        N % 8 == 0 && bits % 16 == 0
+            ? launch_bias_gelu_backward<true>(yy, bb, gg, out, partials, M, N, blocks, c1, c2,
+                                              stream)
+            : launch_bias_gelu_backward<false>(yy, bb, gg, out, partials, M, N, blocks, c1, c2,
+                                               stream);
+    if (err != cudaSuccess) return err;
+    auto* sum = static_cast<__nv_bfloat16*>(db);
+    return launch_col_sum(static_cast<const float*>(partials), 1, blocks, N, sum, sum, stream);
 }
 
 }  // extern "C"

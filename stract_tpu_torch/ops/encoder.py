@@ -15,7 +15,7 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
                             columns (wider ones on a card raise)
   K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): CUDA
                             C++, csrc/encoder.cu
-  K14c  ... backward        Triton
+  K14c  ... backward        CUDA C++, csrc/encoder.cu; any width and any view
   K5d  mean_pool            masked mean pool, optionally L2-normalised
        (+ its backward)     (bert.py:222-226, :243-245): Triton
 
@@ -59,8 +59,6 @@ BF16 = torch.bfloat16
 # jax.nn.gelu(approximate=True) on a bf16 input: its constants in bf16
 GELU_C1 = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=BF16))  # 0.796875
 GELU_C2 = float(torch.tensor(0.044715, dtype=BF16))                   # 0.044677734375
-# rows and columns of K14c's tiles
-GELU_BWD_ROWS, GELU_BWD_COLS = 32, 256
 _TRITON: dict = {}
 
 
@@ -263,21 +261,10 @@ def bias_gelu_backward(y, b, dout):
     kernels._ptr(y, BF16)
     kernels._ptr(b, BF16, (N,))
     kernels._ptr(dout, BF16, y.shape)
-    M = y.numel() // N
-    dy = torch.empty_like(y)
-    db = torch.zeros(N, dtype=BF16, device=y.device)
-    if M:
-        parts = _cdiv(M, GELU_BWD_ROWS)
-        partial = torch.empty((parts, N), dtype=torch.float32, device=y.device)
-        t = _triton_kernels()
-        with torch.cuda.device(kernels.card_of(y, b, dout, dy, partial, db)):
-            t["bias_gelu_bwd"][(parts, _cdiv(N, GELU_BWD_COLS))](
-                y, b, dout, dy, partial, M, N, GELU_C1, GELU_C2, BLOCK_M=GELU_BWD_ROWS,
-                BLOCK_N=GELU_BWD_COLS, num_warps=4)
-            t["col_sum"][(_cdiv(N, 128),)](partial, db, parts, N, BLOCK_R=32, BLOCK_N=128,
-                                           num_warps=4)
-        kernels.counted("bias_gelu_backward")
-    return dy, db
+    if y.numel() == 0:  # no rows: no launch, db is zeros
+        return torch.empty_like(y), torch.zeros(N, dtype=BF16, device=y.device)
+    dy, db = kernels.bias_gelu_backward(y.view(-1, N), b, dout.view(-1, N), GELU_C1, GELU_C2)
+    return dy.view(y.shape), db
 
 
 class _BiasGelu(torch.autograd.Function):
@@ -396,26 +383,12 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def _triton_kernels() -> dict:
     """The Triton kernels, defined (and triton imported) at first use."""
     if _TRITON:
         return _TRITON
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def _rd(x):
-        # round an f32 value to bf16 (to nearest, ties to even) and widen it
-        # back, on the bits: the compiler drops some f32 -> bf16 -> f32
-        # round trips written as two casts (measured on the H100: the GELU
-        # chain then skipped roundings the reference makes)
-        u = x.to(tl.uint32, bitcast=True)
-        u = u + (((u >> 16) & 1) + 0x7FFF)
-        return ((u >> 16) << 16).to(tl.float32, bitcast=True)
 
     @triton.jit
     def add_layernorm_kernel(X, R, W, Bias, Y, N, eps, BLOCK: tl.constexpr):
@@ -432,46 +405,6 @@ def _triton_kernels() -> dict:
         b = tl.load(Bias + cols, mask=m, other=0.0)
         mul = (1.0 / tl.sqrt(var + eps)) * w
         tl.store(Y + row * N + cols, ((s - mean) * mul + b).to(tl.bfloat16), mask=m)
-
-    @triton.jit
-    def col_sum_kernel(P, OUT, R, N, BLOCK_R: tl.constexpr, BLOCK_N: tl.constexpr):
-        # OUT[c] = sum over the R rows of P[:, c], cast to OUT's dtype
-        cols = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-        cm = cols < N
-        acc = tl.zeros([BLOCK_N], dtype=tl.float32)
-        for r0 in range(0, R, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            tile = tl.load(P + rows[:, None] * N + cols[None, :],
-                           mask=(rows[:, None] < R) & cm[None, :], other=0.0)
-            acc += tl.sum(tile, axis=0)
-        tl.store(OUT + cols, acc.to(OUT.dtype.element_ty), mask=cm)
-
-    @triton.jit
-    def bias_gelu_bwd_kernel(Y, Bias, DO, DY, DBP, M, N, c1, c2, BLOCK_M: tl.constexpr,
-                             BLOCK_N: tl.constexpr):
-        # a [BLOCK_M, BLOCK_N] tile: dy = bf16(dO * gelu'(s)) at the bf16
-        # constants, and the tile's column partial of db over the rounded dy
-        pm = tl.program_id(0)
-        rows = pm * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.program_id(1) * BLOCK_N + tl.arange(0, BLOCK_N)
-        cm = cols < N
-        m = (rows[:, None] < M) & cm[None, :]
-        offs = rows[:, None].to(tl.int64) * N + cols[None, :]
-        y = tl.load(Y + offs, mask=m, other=0.0).to(tl.float32)
-        b = tl.load(Bias + cols, mask=cm, other=0.0).to(tl.float32)
-        s = (y + b[None, :]).to(tl.bfloat16).to(tl.float32)
-        c = tl.load(DO + offs, mask=m, other=0.0).to(tl.float32)
-        # the chain rule step by step, each step rounded to bf16 (as the
-        # reference's bf16 ops round; bias_gelu_backward_plain's order)
-        s2 = _rd(s * s)
-        u = _rd(c1 * _rd(s + _rd(c2 * _rd(s2 * s))))
-        th = _rd(1.0 - 2.0 / (tl.exp(2.0 * u) + 1.0))  # tanh(u)
-        t = _rd(_rd(0.5 * _rd(s * c)) * _rd(1.0 - th))
-        w = _rd(c1 * _rd(t + _rd(t * th)))
-        dy = _rd(_rd(_rd(c * _rd(0.5 * _rd(1.0 + th))) + w) + _rd(_rd(c2 * w) * _rd(3.0 * s2)))
-        dy = tl.where(m, dy, 0.0).to(tl.bfloat16)
-        tl.store(DY + offs, dy, mask=m)
-        tl.store(DBP + pm * N + cols, tl.sum(dy.to(tl.float32), axis=0), mask=cm)
 
     @triton.jit
     def mean_pool_kernel(Hs, Mask, Out, Raw, T, H, NORMALIZE: tl.constexpr,
@@ -529,7 +462,6 @@ def _triton_kernels() -> dict:
             tl.store(DH + (b * T + ts)[:, None] * H + cols[None, :], val,
                      mask=(ts < T)[:, None] & cm[None, :])
 
-    _TRITON.update(add_layernorm=add_layernorm_kernel, col_sum=col_sum_kernel,
-                   bias_gelu_bwd=bias_gelu_bwd_kernel, mean_pool=mean_pool_kernel,
+    _TRITON.update(add_layernorm=add_layernorm_kernel, mean_pool=mean_pool_kernel,
                    mean_pool_bwd=mean_pool_bwd_kernel)
     return _TRITON

@@ -13,22 +13,25 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     dense rerank, K9 the global top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward, K5c
-                    bias + tanh GELU, K14b the residual + LayerNorm backward
+                    bias + tanh GELU, K14b the residual + LayerNorm backward, K14c
+                    the bias + GELU backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
                     size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
                     ring step
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
                     backward
+  csrc/losses.cu    K15c the loss heads: the pairwise logistic head (plain and
+                    distilled) and the in-batch InfoNCE head, value and gradient
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
                     backward, K16d the SGD update of a card's parameters in one launch
 
-(K5b, K5d and K14c, the encoder's residual + LayerNorm forward, the mean
-pool, forward and backward, and the bias + GELU backward, are Triton kernels
-in ops/encoder.py; K14d and K15d, the fused AdamW updates of f32 masters and of
-bf16 parameters, are in optim.py; K15b-c, the MoE select-and-scale and the
-loss heads, in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); K16c,
-the pipeline stage's f32 tanh GELU, in ops/stage.py; they count their
-launches here too, and launch on their tensors' card as well: `card_of`.)
+(K5b and K5d, the encoder's residual + LayerNorm forward and the mean pool,
+forward and backward, are Triton kernels in ops/encoder.py; K14d and K15d,
+the fused AdamW updates of f32 masters and of bf16 parameters, are in
+optim.py; K15b, the MoE select-and-scale, in ops/moe.py beside the CUDA
+router K15a (csrc/moe.cu); K16c, the pipeline stage's f32 tanh GELU, in
+ops/stage.py; they count their launches here too, and launch on their
+tensors' card as well: `card_of`.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches under `on_card` (the card its tensors lie on
@@ -52,7 +55,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> source file under csrc/
 SOURCES = {"scoring": "scoring.cu", "forest": "forest.cu", "encoder": "encoder.cu",
-           "graph": "graph.cu", "moe": "moe.cu", "stage": "stage.cu"}
+           "graph": "graph.cu", "moe": "moe.cu", "stage": "stage.cu", "losses": "losses.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -72,6 +75,13 @@ ATTN_MAX_T = 512
 # most blocks of its fixed grid
 LN_MAX_N = 1024
 LN_BWD_WARPS, LN_BWD_BLOCKS = 8, 264
+# K14c (csrc/encoder.cu): the rows a block takes a step, the columns of a
+# block, and the most blocks of its fixed grid
+GELU_BWD_ROWS, GELU_BWD_COLS, GELU_BWD_BLOCKS = 32, 256, 264
+# K15c's InfoNCE head (csrc/losses.cu): the most rows that one block takes
+# (more go to the grid of INFO_NCE_GRID_ROWS rows a block and a second,
+# ordered pass: the same result; the crossover is in csrc/losses.cu's note)
+INFO_NCE_ONE_BLOCK, INFO_NCE_GRID_ROWS = 64, 8
 # limits of csrc/stage.cu: the longest sequence and the widest head
 STAGE_MAX_T = 512
 STAGE_MAX_H = 1024
@@ -84,13 +94,14 @@ MAX_SMEM = 227 * 1024
 # network, else "stage_a_ub" when it folds UB bounds, else "stage_a_q8" on q8
 # rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
-# backward launches alike, and so does "gelu_tanh", K16c)
+# backward launches alike, and so does "gelu_tanh", K16c; "pair_loss" and
+# "info_nce" are K15c's two heads)
 LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
             "signals_q16": 0, "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0,
             "signals_prefix": 0, "dense_rerank": 0, "forest": 0, "attention": 0,
             "add_layernorm": 0, "bias_gelu": 0, "mean_pool": 0, "attention_backward": 0,
             "add_layernorm_backward": 0, "bias_gelu_backward": 0, "adamw": 0,
-            "moe_router": 0, "moe_select": 0, "loss_heads": 0, "adamw_bf16": 0,
+            "moe_router": 0, "moe_select": 0, "pair_loss": 0, "info_nce": 0, "adamw_bf16": 0,
             "hll_merge": 0, "hll_estimate": 0, "bfs_relax": 0, "mesh_topk": 0,
             "hll_ring_step": 0, "stage_attention": 0, "stage_attention_backward": 0,
             "gelu_tanh": 0, "sgd": 0}
@@ -247,6 +258,10 @@ def _load(name: str):
                 lib.stract_sgd_multi.argtypes = [ctypes.POINTER(SgdArgs), LL, P]
                 fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward,
                        lib.stract_sgd_multi)
+            elif name == "losses":
+                lib.stract_info_nce.argtypes = [P, P, P, P, I, I, P]
+                lib.stract_pair_loss.argtypes = [P, P, P, P, P, P, P, I, F, I, P]
+                fns = (lib.stract_info_nce, lib.stract_pair_loss)
             else:
                 lib.stract_attention.argtypes = [P, P, P, P, P, I, I, I, I, P]
                 lib.stract_attention_backward.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
@@ -254,8 +269,9 @@ def _load(name: str):
                 lib.stract_bias_gelu.argtypes = [P, P, P, LL, I, F, F, P]
                 lib.stract_add_layernorm_backward.argtypes = [P, P, P, P, P, P, P, P, LL, I, I, F,
                                                               P]
+                lib.stract_bias_gelu_backward.argtypes = [P, P, P, P, P, P, LL, I, I, F, F, P]
                 fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu,
-                       lib.stract_add_layernorm_backward)
+                       lib.stract_add_layernorm_backward, lib.stract_bias_gelu_backward)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -682,6 +698,39 @@ def add_layernorm_backward(x, r, dy, weight, eps: float) -> tuple:
     return ds, out[:N], out[N:2 * N]
 
 
+def gelu_backward_blocks(M: int, N: int) -> int:
+    """K14c's row blocks: GELU_BWD_BLOCKS blocks in all over the column
+    blocks, at least one, at most one for each GELU_BWD_ROWS rows."""
+    cols = -(-N // GELU_BWD_COLS)
+    return max(1, min(-(-M // GELU_BWD_ROWS), GELU_BWD_BLOCKS // cols))
+
+
+def bias_gelu_backward(y, b, dout, c1: float, c2: float) -> tuple:
+    """K14c: y, dout bf16[M, N] (contiguous, any N, any alignment: 16-byte
+    pieces where N % 8 == 0 and the pointers allow, else single elements,
+    on the same grid),
+    b bf16[N] → (dy bf16[M, N], db bf16[N]), the VJP of the tanh GELU of
+    bf16(y + b) at the constants c1, c2; M >= 1 (ops/encoder.py gives db its
+    zeros when M = 0). The fixed grid's partials f32[blocks, N] are one
+    allocation; the column sum runs in the same call."""
+    M, N = y.shape
+    bf16 = torch.bfloat16
+    ptrs = (_ptr(y, bf16, (M, N)), _ptr(b, bf16, (N,)), _ptr(dout, bf16, (M, N)))
+    if M < 1:
+        raise ValueError("the bias + GELU backward takes at least one row")
+    blocks = gelu_backward_blocks(M, N)
+    dy = torch.empty_like(y)
+    db = torch.empty(N, dtype=bf16, device=y.device)
+    partials = torch.empty((blocks, N), dtype=torch.float32, device=y.device)
+    lib = _load("encoder")
+    with on_card(y, b, dout, dy, db, partials) as stream:
+        rc = lib.stract_bias_gelu_backward(*ptrs, dy.data_ptr(), db.data_ptr(),
+                                           partials.data_ptr(), M, N, blocks, c1, c2, stream)
+    _check(rc, "stract_bias_gelu_backward")
+    counted("bias_gelu_backward")
+    return dy, db
+
+
 def _stage_dims(qkv) -> tuple:
     B, T, H3 = qkv.shape
     H = H3 // 3
@@ -787,6 +836,47 @@ def moe_router_backward(probs, top, dgate, w, dlogits, dx) -> None:
         rc = lib.stract_moe_router_backward(*ins, N, H, E, *outs, stream)
     _check(rc, "stract_moe_router_backward")
     counted("moe_router")
+
+
+def info_nce(logits, loss, d, blocks: int | None = None) -> None:
+    """K15c's InfoNCE head: logits f32[B, B] → loss f32[], d f32[B, B]
+    (ops/losses.py allocates). blocks: 1, one block (up to 12,288 rows), or
+    ceil(B / INFO_NCE_GRID_ROWS), the grid and its ordered second pass over
+    a scratch of the rows' terms allocated here; by default one block up to
+    INFO_NCE_ONE_BLOCK rows. Both give the same bits."""
+    B = logits.shape[0]
+    grid = -(-B // INFO_NCE_GRID_ROWS)
+    if blocks is None:
+        blocks = 1 if B <= INFO_NCE_ONE_BLOCK else grid
+    if blocks not in (1, grid) or (blocks == 1 and B > 12288):
+        raise ValueError(f"the InfoNCE head takes 1 or {grid} blocks at B = {B} (one block up "
+                         f"to 12288 rows), not {blocks}")
+    f32 = torch.float32
+    ptrs = (_ptr(logits, f32, (B, B)), _ptr(loss, f32, ()), _ptr(d, f32, (B, B)))
+    terms = torch.empty(B, dtype=f32, device=logits.device) if blocks > 1 else None
+    lib = _load("losses")
+    with on_card(logits, loss, d, terms) as stream:
+        rc = lib.stract_info_nce(*ptrs, _ptr(terms, f32, (B,)), B, blocks, stream)
+    _check(rc, "stract_info_nce")
+    counted("info_nce")
+
+
+def pair_loss(s_pos, s_neg, t_pos, t_neg, alpha: float, loss, d_pos, d_neg) -> None:
+    """K15c's pair head: s_pos, s_neg f32[B] and, distilled, the targets
+    t_pos, t_neg f32[B] (None: the plain pairwise head) → loss f32[], d_pos,
+    d_neg f32[B] (ops/losses.py allocates)."""
+    B = s_pos.shape[0]
+    f32 = torch.float32
+    distill = t_pos is not None
+    ins = [_ptr(t, f32, (B,)) for t in (s_pos, s_neg, t_pos, t_neg)]
+    outs = (_ptr(loss, f32, ()), _ptr(d_pos, f32, (B,)), _ptr(d_neg, f32, (B,)))
+    if distill != (t_neg is not None):
+        raise ValueError("the distilled pair head takes both targets")
+    lib = _load("losses")
+    with on_card(s_pos, s_neg, t_pos, t_neg, loss, d_pos, d_neg) as stream:
+        rc = lib.stract_pair_loss(*ins, *outs, B, float(alpha), int(distill), stream)
+    _check(rc, "stract_pair_loss")
+    counted("pair_loss")
 
 
 # limits of csrc/graph.cu: registers per row (a power of two, 4..1024)

@@ -226,8 +226,10 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(optim, "adamw_update_plain", lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(kernels, "attention_backward", lambda *a, **k: called.append("attn"))
     monkeypatch.setattr(kernels, "add_layernorm_backward", lambda *a, **k: called.append("ln"))
+    monkeypatch.setattr(kernels, "bias_gelu_backward",
+                        lambda y, b, *a: called.append("bias_gelu_bwd") or (y, b))
     monkeypatch.setattr(E, "_triton_kernels", lambda: {n: Kern(n) for n in (
-        "col_sum", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd")})
+        "mean_pool", "mean_pool_bwd")})
     monkeypatch.setattr(optim, "_triton_kernel", lambda: Kern("adamw"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -241,8 +243,7 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
     E.mean_pool_backward(mask, torch.zeros(2, 384), torch.zeros(2, 384), True, torch.bfloat16)
     f = torch.zeros(4096)
     optim.adamw_update(f, f, f, f, 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
-    assert called == ["attn", "ln", "bias_gelu_bwd", "col_sum", "mean_pool", "mean_pool_bwd",
-                      "adamw"]
+    assert called == ["attn", "ln", "bias_gelu_bwd", "mean_pool", "mean_pool_bwd", "adamw"]
 
 
 class _EncoderLib:
@@ -289,6 +290,141 @@ def test_layernorm_backward_reaches_its_c_entry_point(monkeypatch, shape):
     assert (m, n, eps, stream) == (M, N, 1e-12, 0)
     assert blocks == min(kernels.LN_BWD_BLOCKS, -(-M // kernels.LN_BWD_WARPS))
     assert "triton" not in sys.modules
+
+
+class _GeluLib:
+    """A stand-in for csrc/encoder.cu's library: stract_bias_gelu_backward
+    records its arguments and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def stract_bias_gelu_backward(self, *args):
+        self.called.append(args)
+        return 0
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor of `shape` that starts 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=dtype)
+    start = next(i for i in range(8) if (flat.data_ptr() + 2 * i) % 16)
+    return flat[start:start + n].view(shape)
+
+
+@pytest.mark.parametrize("shape,misaligned", [
+    ((64, 128, 1536), False), ((4, 128), False), ((3, 11, 3072), False), ((5, 1000), False),
+    ((7, 1536), True), ((0, 1536), False)])
+def test_bias_gelu_backward_reaches_its_c_entry_point(monkeypatch, shape, misaligned):
+    """K14c on CUDA tensors (stand-ins) calls stract_bias_gelu_backward once
+    with the rows flattened, the grid's row blocks and partials f32[blocks,
+    N] the wrapper computes (any width, a misaligned view too: the kernel
+    picks its piece width), launches nothing of Triton (not imported) and
+    counts one launch; with no rows it launches nothing and gives db zeros;
+    the same tensors on the CPU take the twin."""
+    import sys
+
+    N = shape[-1]
+    M = int(np.prod(shape[:-1]))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    y = _misaligned(shape) if misaligned else bf(*shape)
+    args = (y, bf(N), bf(*shape))
+    twin = []
+    monkeypatch.setattr(E, "bias_gelu_backward_plain", lambda *a: twin.append(a) or a[:2])
+    E.bias_gelu_backward(*args)
+    assert len(twin) == 1
+    called = []
+    monkeypatch.setattr(E, "bias_gelu_backward_plain", lambda *a: pytest.fail("the twin ran"))
+    monkeypatch.setattr(E, "_triton_kernels", lambda: pytest.fail("a Triton kernel was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _GeluLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    dy, db = E.bias_gelu_backward(*args)
+    assert dy.shape == shape and db.shape == (N,) and db.dtype == torch.bfloat16
+    assert "triton" not in sys.modules
+    if M == 0:
+        assert called == [] and kernels.LAUNCHES["bias_gelu_backward"] == 0
+        assert not db.any()
+        return
+    assert len(called) == 1 and kernels.LAUNCHES["bias_gelu_backward"] == 1
+    yp, bp, gp, dyp, dbp, partials, m, n, blocks, c1, c2, stream = called[0]
+    assert (yp, m, n, c1, c2, stream) == (y.data_ptr(), M, N, E.GELU_C1, E.GELU_C2, 0)
+    assert (dyp, dbp) == (dy.data_ptr(), db.data_ptr())
+    cols = -(-N // kernels.GELU_BWD_COLS)
+    assert blocks == max(1, min(-(-M // kernels.GELU_BWD_ROWS), kernels.GELU_BWD_BLOCKS // cols))
+    assert blocks * cols <= kernels.GELU_BWD_BLOCKS or blocks == 1
+    if shape == (64, 128, 1536):  # the dual step's shape: 6 column blocks x 44 row blocks
+        assert blocks == 44
+    assert partials % 16 == 0
+
+
+class _LossLib:
+    """A stand-in for csrc/losses.cu's library: each entry point records its
+    name and arguments and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def __getattr__(self, name):
+        return lambda *args: self.called.append((name, args)) or 0
+
+
+def test_loss_heads_reach_their_c_entry_points(monkeypatch):
+    """K15c on CUDA tensors (stand-ins) calls stract_pair_loss (targets
+    NULL and distill 0 undistilled, both targets and distill 1 distilled)
+    and stract_info_nce once each, counts each head under its own name,
+    and neither names nor imports triton."""
+    import sys
+
+    from stract_tpu_torch.ops import losses as LO
+
+    called = []
+    monkeypatch.setattr(kernels, "_load", lambda name: _LossLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    sp, sn, tp, tn = (torch.zeros(32) for _ in range(4))
+    LO.pair_loss_forward(sp, sn)
+    LO.pair_loss_forward(sp, sn, tp, tn.double(), 2.0)
+    LO.info_nce_forward(torch.zeros(64, 64))
+    LO.info_nce_forward(torch.zeros(65, 65))
+    assert [name for name, _ in called] == ["stract_pair_loss", "stract_pair_loss",
+                                            "stract_info_nce", "stract_info_nce"]
+    plain, distilled, one, grid = (args for _, args in called)
+    assert plain[2:4] == (None, None) and plain[-4:] == (32, 0.0, 0, 0)
+    assert distilled[2] == tp.data_ptr() and distilled[3] is not None
+    assert distilled[-4:] == (32, 2.0, 1, 0)
+    # one block up to INFO_NCE_ONE_BLOCK rows (no scratch), past it the grid
+    # of INFO_NCE_GRID_ROWS rows a block over a scratch of the rows' terms
+    assert kernels.INFO_NCE_ONE_BLOCK == 64 and kernels.INFO_NCE_GRID_ROWS == 8
+    assert one[3] is None and one[-3:] == (64, 1, 0)
+    assert grid[3] is not None and grid[-3:] == (65, 9, 0)
+    assert kernels.LAUNCHES["pair_loss"] == 2 and kernels.LAUNCHES["info_nce"] == 2
+    with pytest.raises(ValueError, match="1 or 9 blocks"):
+        kernels.info_nce(torch.zeros(65, 65), torch.zeros(()), torch.zeros(65, 65), blocks=4)
+    assert kernels.LAUNCHES["info_nce"] == 2
+    assert "triton" not in sys.modules
+
+
+def test_loss_heads_module_names_no_triton():
+    """ops/losses.py launches its heads through ops/kernels.py alone: its
+    source neither imports nor names triton."""
+    import ast
+    import inspect
+
+    from stract_tpu_torch.ops import losses as LO
+
+    src = inspect.getsource(LO)
+    assert "triton" not in src.lower()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
+            assert not any("triton" in n for n in names)
+    assert not hasattr(LO, "_triton_kernels")
 
 
 @pytest.mark.parametrize("N", [1025, 4096])
@@ -699,6 +835,46 @@ def test_layernorm_and_gelu_backward_kernels_match_plain(M, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [128, 1536, 3072, 1000])
+@pytest.mark.parametrize("M", [1, 33, 8192])
+def test_bias_gelu_backward_kernel_matches_plain(M, N):
+    """K14c (CUDA: 16-byte pieces at N = 128, 1,536, 3,072; single elements
+    at 1,000) at one row, an odd row count and the dual step's 8,192 rows:
+    dy and db within one bf16 step of the twin's largest magnitude, one
+    launch counted, a second call bit-equal."""
+    dev = _card()
+    g = torch.Generator().manual_seed(M + N)
+    y, dout = ((2 * torch.randn((M, N), generator=g)).to(dev, torch.bfloat16) for _ in range(2))
+    bias = (0.5 * torch.randn(N, generator=g)).to(dev, torch.bfloat16)
+    n = kernels.LAUNCHES["bias_gelu_backward"]
+    gy, gb = E.bias_gelu_backward(y, bias, dout)
+    assert kernels.LAUNCHES["bias_gelu_backward"] == n + 1
+    py, pb = E.bias_gelu_backward_plain(y, bias, dout)
+    _step_close(gy, py)
+    _step_close(gb, pb)
+    assert all(torch.equal(a, b) for a, b in zip(E.bias_gelu_backward(y, bias, dout), (gy, gb)))
+
+
+@pytest.mark.cuda
+def test_bias_gelu_backward_kernel_takes_misaligned_views():
+    """K14c on contiguous views that start 2 bytes past a 16-byte boundary
+    (single-element loads at a width that is a multiple of 8): dy and db
+    within one bf16 step of the twin, a second call bit-equal."""
+    dev = _card()
+    M, N = 300, 1536
+    g = torch.Generator().manual_seed(3)
+    y, dout = (torch.randn(M * N + 1, generator=g).to(dev, torch.bfloat16)[1:].view(M, N)
+               for _ in range(2))
+    bias = (0.5 * torch.randn(N + 1, generator=g)).to(dev, torch.bfloat16)[1:]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 2 for t in (y, dout, bias))
+    gy, gb = E.bias_gelu_backward(y, bias, dout)
+    py, pb = E.bias_gelu_backward_plain(y, bias, dout)
+    _step_close(gy, py)
+    _step_close(gb, pb)
+    assert all(torch.equal(a, b) for a, b in zip(E.bias_gelu_backward(y, bias, dout), (gy, gb)))
+
+
+@pytest.mark.cuda
 def test_layernorm_backward_kernel_takes_misaligned_views():
     """K14b on contiguous views that start 2 bytes past an 8-byte boundary
     (single-element loads at a width that is a multiple of 4): ds within one
@@ -842,8 +1018,8 @@ def test_moe_and_loss_wrappers_never_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(kernels, "moe_router_backward", lambda *a: called.append("router_bwd"))
     monkeypatch.setattr(MO, "_triton_kernels", lambda: {n: Kern(n) for n in
                                                         ("select", "select_bwd")})
-    monkeypatch.setattr(LO, "_triton_kernels", lambda: {n: Kern(n) for n in
-                                                        ("pair", "info_nce")})
+    monkeypatch.setattr(kernels, "pair_loss", lambda *a: called.append("pair"))
+    monkeypatch.setattr(kernels, "info_nce", lambda *a: called.append("info_nce"))
     monkeypatch.setattr(optim, "_triton_kernels", lambda: {"adamw_bf16": Kern("adamw_bf16")})
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -888,7 +1064,7 @@ def test_moe_kernel_arguments_are_checked(monkeypatch):
         LO.info_nce_forward(torch.zeros(8, 4))
     with pytest.raises(ValueError):  # f32 buffers through the bf16 update
         optim.adamw_bf16_update(*[torch.zeros(8)] * 4, 1e-3, 0.9, 0.999, 1e-8, 1e-4, 0.1, 0.001)
-    for name in ("moe_router", "moe_select", "loss_heads", "adamw_bf16"):
+    for name in ("moe_router", "moe_select", "pair_loss", "info_nce", "adamw_bf16"):
         assert name in kernels.LAUNCHES
 
 
@@ -959,18 +1135,35 @@ def test_moe_select_kernels_match_plain():
 
 @pytest.mark.cuda
 def test_loss_head_kernels_match_plain():
+    """K15c (csrc/losses.cu) at B = 1, 8, 32 (the pair head's batch), 64
+    (InfoNCE's), 65 (past one block's 32 warps and past the one-block form),
+    256: both heads within rtol 1e-5 of their twins, a second call
+    bit-equal, each call counted once under its head's name; the InfoNCE
+    head's one-block and grid forms bit-equal."""
     from stract_tpu_torch.ops import losses as LO
 
     dev = _card()
     g = torch.Generator().manual_seed(13)
-    for B in (8, 32, 64):
+    for B in (1, 8, 32, 64, 65, 256):
         sp, sn, tp, tn = (torch.randn(B, generator=g).to(dev) for _ in range(4))
         for args in ((sp, sn), (sp, sn, tp, tn, 0.5)):
-            for a, b in zip(LO.pair_loss_forward(*args), LO.pair_loss_plain(*args)):
+            n = kernels.LAUNCHES["pair_loss"]
+            got = LO.pair_loss_forward(*args)
+            assert kernels.LAUNCHES["pair_loss"] == n + 1
+            for a, b in zip(got, LO.pair_loss_plain(*args)):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+            assert all(torch.equal(a, b) for a, b in zip(LO.pair_loss_forward(*args), got))
         logits = 20.0 * torch.randn((B, B), generator=g).to(dev)
-        for a, b in zip(LO.info_nce_forward(logits), LO.info_nce_plain(logits)):
+        n = kernels.LAUNCHES["info_nce"]
+        got = LO.info_nce_forward(logits)
+        assert kernels.LAUNCHES["info_nce"] == n + 1
+        for a, b in zip(got, LO.info_nce_plain(logits)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+        assert all(torch.equal(a, b) for a, b in zip(LO.info_nce_forward(logits), got))
+        for blocks in (1, -(-B // kernels.INFO_NCE_GRID_ROWS)):  # either form: the same bits
+            loss, d = torch.empty((), device=dev), torch.empty_like(logits)
+            kernels.info_nce(logits, loss, d, blocks=blocks)
+            assert torch.equal(loss, got[0]) and torch.equal(d, got[1]), blocks
 
 
 @pytest.mark.cuda

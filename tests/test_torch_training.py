@@ -368,6 +368,69 @@ def test_gelu_backward_twin_matches_jax_vjp():
     assert_one_bf16_step(db, exact)
 
 
+@pytest.mark.parametrize("M,N", [(40, 1000), (12, 3072), (0, 1536)])
+def test_gelu_backward_matches_jax_vjp_at_the_kernels_widths(M, N):
+    """K14c's dispatcher on CPU tensors (its twin) against jax.vjp at the
+    widths its card tests take besides MiniLM's: 1,000 (the kernel's
+    single-element path), 3,072 (BERT-base's FFN) and no rows at all (no
+    launch on a card; db zeros, as jax's)."""
+    rng = np.random.default_rng(M + N)
+    y, dout = (rng.normal(0, 2, size=(M, N)).astype(np.float32) for _ in range(2))
+    bias = (0.5 * rng.normal(size=N)).astype(np.float32)
+
+    _, vjp = jax.vjp(lambda y, b: jax.nn.gelu(y + b.astype(BF)), jnp.asarray(y, BF),
+                     jnp.asarray(bias))
+    gy, _ = vjp(jnp.asarray(dout, BF))
+    dy, db = E.bias_gelu_backward(_bt(y), _bt(bias), _bt(dout))
+    assert dy.dtype == db.dtype == torch.bfloat16 and db.shape == (N,)
+    exact = _np(gy).astype(np.float64).sum(0)
+    if M == 0:
+        assert dy.shape == (0, N) and not db.any() and not exact.any()
+        return
+    assert_one_bf16_step(dy, gy)
+    assert_one_bf16_step(db, exact)
+
+
+@pytest.mark.parametrize("head", ["pair", "distill", "info_nce"])
+@pytest.mark.parametrize("B", [1, 65, 256])
+def test_loss_heads_match_jax_at_the_card_tests_batches(B, head):
+    """K15c's twins (what the card's kernels are held to) against
+    jax.value_and_grad of the reference heads at one pair or row, at 65
+    (past the kernels' 32 warps) and at 256: ranking_loss
+    (parallel/train.py:26), its distilled form at alpha 2 (:92-99), optax's
+    InfoNCE mean (train_encoders.py:249-251)."""
+    from stract_tpu_torch.ops import losses as LO
+
+    rng = np.random.default_rng(B)
+    if head == "info_nce":
+        logits = (20.0 * rng.normal(0, 0.3, (B, B))).astype(np.float32)
+        loss_j, g_j = jax.value_and_grad(
+            lambda lg: optax.softmax_cross_entropy_with_integer_labels(
+                lg, jnp.arange(B)).mean())(jnp.asarray(logits))
+        loss_t, g_t = LO.info_nce_forward(torch.from_numpy(logits))
+        grads = [(g_t, g_j)]
+    else:
+        sp, sn, tp, tn = (rng.normal(0, 3, B).astype(np.float32) for _ in range(4))
+
+        def ref(a, b):
+            loss = JPT.ranking_loss(a, b)
+            if head == "distill":
+                loss = loss + 2.0 * (jnp.mean((a - tp) ** 2) + jnp.mean((b - tn) ** 2))
+            return loss
+
+        loss_j, (ga, gb) = jax.value_and_grad(ref, argnums=(0, 1))(jnp.asarray(sp),
+                                                                    jnp.asarray(sn))
+        targets = (torch.from_numpy(tp), torch.from_numpy(tn), 2.0) if head == "distill" else ()
+        loss_t, da, db = LO.pair_loss_forward(torch.from_numpy(sp), torch.from_numpy(sn),
+                                              *targets)
+        grads = [(da, ga), (db, gb)]
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    for got, want in grads:
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-7 * max(1.0, np.abs(want).max()))
+
+
 @pytest.mark.parametrize("normalize", [True, False])
 def test_pool_backward_twin_matches_jax_vjp(normalize):
     """The masked mean (+ L2 norm) of bert.py:222-226 / :243-245."""
