@@ -308,6 +308,12 @@ ENC_TOL = (2 ** -7, 1e-2)
 STEP = 2 ** -7
 # K14b's widths: MiniLM's (the main row), BertConfig.tiny's and BERT-base's
 LN_WIDTHS = (384, 64, 768)
+# K5b held against its plain version at these widths (LN_WIDTHS and 1,000,
+# off the 8-byte pieces' grid) and rows (ENC_B x ENC_T, the main row, first)
+LN_FWD_WIDTHS, LN_FWD_ROWS = LN_WIDTHS + (1000,), (4096, 0, 1, 4099)
+# K5d held against its plain version at these batch rows and tokens (the
+# dual step's, the main row, first), normalised and not
+POOL_B, POOL_T = (64, 1, 256), (128, 1, 17, 512)
 # model signals, kernels against plain versions on one card: embedding
 # similarities within 2e-2, cross-encoder sigmoids within 1e-2; page scores
 # within 5e-3 + 1e-3 relative (0.01 and 0.17 are those signals' weights)
@@ -327,9 +333,9 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "dense_rerank": f"rtol {RERANK_TOL[0]} atol {RERANK_TOL[1]}",
             "forest": "rtol 1e-6 atol 1e-6*sum|leaf|",
             "attention": f"rtol 2^-7 atol {2 * ENC_TOL[1]}",
-            "add_layernorm": f"rtol 2^-7 atol {ENC_TOL[1]}",
+            "add_layernorm": "1 bf16 step (beyond 2^-16*max|plain|); two calls bit-equal",
             "bias_gelu": f"rtol 2^-7 atol {ENC_TOL[1]}",
-            "mean_pool": "rtol 2^-7 atol 2^-7*max|plain|",
+            "mean_pool": "rtol 2^-7 atol 2^-7*max|plain|; two calls bit-equal",
             "attention_backward": "rtol 2^-7 atol 2^-7*max|plain|",
             "add_layernorm_backward": "rtol 2^-7 atol 2^-7*max|plain|; dw, db rtol 1e-4",
             "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|; two calls bit-equal",
@@ -1276,7 +1282,8 @@ def model_kernel_phase(forest, rows) -> list:
     """K4 and K5a-c against their plain versions at the pipeline's shapes:
     the forest at K in FOREST_K over resampled training rows; attention at
     T in ATTN_T for a batch of ENC_B with one fully and one half masked row;
-    LN and GELU at M = ENC_B x ENC_T. → rows (name, err, ms, plain ms, shape)."""
+    LN at LN_FWD_ROWS x LN_FWD_WIDTHS (timed at M = ENC_B x ENC_T, N = 384)
+    and GELU at M = ENC_B x ENC_T. → rows (name, err, ms, plain ms, shape)."""
     import numpy as np
     import torch
 
@@ -1311,14 +1318,21 @@ def model_kernel_phase(forest, rows) -> list:
         out.append(("attention", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), t))
 
     m = ENC_B * ENC_T
-    x, r = bf(m, 384), bf(m, 384)
-    w = (1 + 0.1 * torch.randn(384, generator=g)).to(DEVICE)
-    bias = (0.1 * torch.randn(384, generator=g)).to(DEVICE)
-    run_k = lambda: E.add_layernorm(x, r, w, bias, 1e-12)  # noqa: E731
-    run_p = lambda: E.add_layernorm_plain(x, r, w, bias, 1e-12)  # noqa: E731
-    a, b = run_k().float(), run_p().float()
-    torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=ENC_TOL[1])
-    out.append(("add_layernorm", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), m))
+    err = 0.0
+    for N in LN_FWD_WIDTHS:
+        for M in LN_FWD_ROWS:
+            x, r = bf(M, N), bf(M, N)
+            w = (1 + 0.1 * torch.randn(N, generator=g)).to(DEVICE)
+            bias = (0.1 * torch.randn(N, generator=g)).to(DEVICE)
+            run_k = lambda: E.add_layernorm(x, r, w, bias, 1e-12)  # noqa: E731
+            run_p = lambda: E.add_layernorm_plain(x, r, w, bias, 1e-12)  # noqa: E731
+            got = run_k()
+            err = max(err, bf16_step_close(got, run_p()))
+            if not torch.equal(run_k(), got):
+                raise AssertionError(f"two calls of the LayerNorm kernel differ at {M} x {N}")
+            if (M, N) == (m, 384):
+                ms, pms = time_ms(run_k), time_ms(run_p)
+    out.append(("add_layernorm", err, ms, pms, m))
 
     y, yb = bf(m, 1536), (0.1 * torch.randn(1536, generator=g)).to(DEVICE, torch.bfloat16)
     run_k = lambda: E.bias_gelu(y, yb)  # noqa: E731
@@ -1327,6 +1341,29 @@ def model_kernel_phase(forest, rows) -> list:
     torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=ENC_TOL[1])
     out.append(("bias_gelu", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), m))
     return out
+
+
+def bf16_step_close(a, b) -> float:
+    """Raise unless bf16 tensors a and b are equal or neighbouring bf16
+    values wherever they differ by more than f32 rounding of b's largest
+    magnitude (2^-16 max |b|: a value that cancels to near 0 is only as exact
+    as its terms); → max |a - b|."""
+    import torch
+
+    if not torch.isfinite(a.float()).all():
+        raise AssertionError("a kernel gave a non-finite value")
+    if not a.numel():
+        return 0.0
+
+    def ordinal(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    diff = (a.float() - b.float()).abs()
+    far = diff > 2 ** -16 * float(b.float().abs().max())
+    steps = int(((ordinal(a) - ordinal(b)).abs() * far).max())
+    if steps > 1:
+        raise AssertionError(f"{steps} bf16 steps from the plain version")
+    return float(diff.max())
 
 
 def _step_close(a, b) -> float:
@@ -1339,6 +1376,18 @@ def _step_close(a, b) -> float:
         raise AssertionError("a kernel gave a non-finite value")
     torch.testing.assert_close(a, b, rtol=STEP, atol=STEP * float(b.abs().max()))
     return float((a - b).abs().max())
+
+
+def layernorm_library(x, r, w, b):
+    """K5b's library call on its inputs: F.layer_norm of the bf16 sum
+    widened to f32, with the f32 weight and bias, cast to bf16 (the
+    reference's function; PyTorch's CUDA layer_norm takes no bf16 input with
+    an f32 weight). → the function to time."""
+    import torch
+    import torch.nn.functional as F
+
+    N = x.shape[-1]
+    return lambda: F.layer_norm((x + r).float(), (N,), w, b, 1e-12).to(torch.bfloat16)
 
 
 def layernorm_backward_library(x, r, w, dy):
@@ -1447,15 +1496,36 @@ def training_kernel_phase(dual_dir: str) -> list:
     out += [("bias_gelu_backward", max(err, checked), ms, pms, shape)
             for err, ms, pms, shape in k14c]
 
-    h, cot = bf(B, T, 384), torch.randn((B, 384), generator=g).to(DEVICE)
+    # K5d: the main row at the dual step's shape (the attention's mask above,
+    # normalised), then POOL_B x POOL_T with random lengths, the last row fully
+    # masked past one row; normalised and not, second calls bit-equal
+    err = 0.0
+    for Bp in POOL_B:
+        for Tp in POOL_T:
+            if (Bp, Tp) == (B, T):
+                mp = mask
+            else:
+                lens = torch.randint(1, Tp + 1, (Bp, 1), generator=g)
+                lens[0] = Tp
+                if Bp > 1:
+                    lens[-1] = 0
+                mp = (torch.arange(Tp) < lens).to(torch.int32).to(DEVICE)
+            for normalize in (True, False):
+                h, cot = bf(Bp, Tp, 384), torch.randn((Bp, 384), generator=g).to(DEVICE)
 
-    def pool(fwd, bwd):
-        pooled, raw = fwd(h, mask, True)
-        return pooled, raw, bwd(mask, raw, cot, True, torch.bfloat16)
-    run_k = lambda: pool(E.mean_pool_forward, E.mean_pool_backward)  # noqa: E731
-    run_p = lambda: pool(E.mean_pool_plain, E.mean_pool_backward_plain)  # noqa: E731
-    err = max(_step_close(a, b) for a, b in zip(run_k(), run_p()))
-    out.append(("mean_pool", err, time_ms(run_k), time_ms(run_p), B * T))
+                def pool(fwd, bwd):
+                    pooled, raw = fwd(h, mp, normalize)
+                    return pooled, raw, bwd(mp, raw, cot, normalize, torch.bfloat16)
+                run_k = lambda: pool(E.mean_pool_forward, E.mean_pool_backward)  # noqa: E731
+                run_p = lambda: pool(E.mean_pool_plain,  # noqa: E731
+                                     E.mean_pool_backward_plain)
+                got = run_k()
+                err = max(err, *(_step_close(a, b) for a, b in zip(got, run_p())))
+                if not all(torch.equal(a, b) for a, b in zip(run_k(), got)):
+                    raise AssertionError(f"two calls of the pool kernels differ at {Bp} x {Tp}")
+                if (Bp, Tp, normalize) == (B, T, True):
+                    ms, pms = time_ms(run_k), time_ms(run_p)
+    out.append(("mean_pool", err, ms, pms, B * T))
 
     _, masters, _, _ = load_encoder(dual_dir, "dual")
     p0 = torch.cat([t.reshape(-1) for t in masters.values()]).to(DEVICE)
@@ -2574,8 +2644,10 @@ def library_phase() -> dict:
     """The time of one PyTorch call that computes the function of a kernel,
     where one exists, at the kernel's main shape (used nowhere in the port):
     K5a scaled_dot_product_attention with the additive mask, K14a its
-    backward through autograd, K5b layer_norm over the sum, K5c the tanh GELU
-    over the sum, K14b native_layer_norm_backward through autograd, K14c
+    backward through autograd, K5b layer_norm of the sum widened to f32 with
+    the f32 weight and bias, cast to bf16 (PyTorch's CUDA layer_norm refuses
+    a bf16 input with an f32 weight; the call with both in bf16, which
+    rounds the affine, is logged beside it), K5c the tanh GELU over the sum, K14b native_layer_norm_backward through autograd, K14c
     aten.gelu_backward (tanh) of the sum and the column sum, K14d
     torch._fused_adamw_ (what AdamW(fused=True) calls). → {kernel: ms}."""
     import torch
@@ -2601,8 +2673,10 @@ def library_phase() -> dict:
     m = ENC_B * ENC_T
     x, r = bf(m, 384), bf(m, 384)
     w, b = torch.ones(384, device=DEVICE), torch.zeros(384, device=DEVICE)
-    out["add_layernorm"] = time_ms(lambda: F.layer_norm(x + r, (384,), w.to(x.dtype),
-                                                        b.to(x.dtype), 1e-12))
+    out["add_layernorm"] = time_ms(layernorm_library(x, r, w, b))
+    log(f"[library] K5b's library call with a bf16 weight and bias: "
+        f"{time_ms(lambda: F.layer_norm(x + r, (384,), w.to(x.dtype), b.to(x.dtype), 1e-12)):.4f}"
+        " ms")
     y, yb = bf(m, 1536), bf(1536)
     out["bias_gelu"] = time_ms(lambda: F.gelu(y + yb, approximate="tanh"))
     m = TRAIN_B * TRAIN_T  # the backward kernels' shapes
@@ -2645,7 +2719,7 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             f"tolerance=({TOL_TEXT[name]}) kernel={ms:.3f} ms plain={pms:.3f} ms "
             f"bound={bms:.4f} ms ({by}) library={library.get(name)} card={card}")
 
-    src, enc = "stract_tpu_torch/csrc/", "stract_tpu_torch/ops/encoder.py"
+    src = "stract_tpu_torch/csrc/"
     step = "stract_tpu/entrypoint/train_encoders.py:244"
     meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
             "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
@@ -2662,10 +2736,12 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "forest": ("cuda", src + "forest.cu",
                        "stract_tpu/ranking/models/lambdamart.py:195", FOREST_K[-1]),
             "attention": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:97", ENC_T),
-            "add_layernorm": ("triton", enc, "stract_tpu/models/bert.py:164", ENC_B * ENC_T),
+            "add_layernorm": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:164",
+                              ENC_B * ENC_T),
             "bias_gelu": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:170",
                           ENC_B * ENC_T),
-            "mean_pool": ("triton", enc, "stract_tpu/models/bert.py:222", TRAIN_B * TRAIN_T),
+            "mean_pool": ("cuda", src + "encoder.cu", "stract_tpu/models/bert.py:222",
+                          TRAIN_B * TRAIN_T),
             "attention_backward": ("cuda", src + "encoder.cu", step, TRAIN_T),
             "add_layernorm_backward": ("cuda", src + "encoder.cu", step, TRAIN_B * TRAIN_T),
             "bias_gelu_backward": ("cuda", src + "encoder.cu", step, TRAIN_B * TRAIN_T),
@@ -2760,8 +2836,12 @@ def work(name: str, shape, forest=None) -> tuple:
     if name == "bias_gelu_backward":  # shape: rows, or (rows, N) off MiniLM's FFN width
         M, N = shape if isinstance(shape, tuple) else (shape, F_)
         return 3 * M * N * 2 + 4 * N, 40 * M * N, PEAK_F32
-    if name == "mean_pool":  # forward + backward over TRAIN_B rows of TRAIN_T tokens
-        return 2 * shape * H * 2 + 8 * shape + 4 * TRAIN_B * H * 4, 4 * shape * H, PEAK_F32
+    if name == "mean_pool":  # forward + backward over TRAIN_B rows of TRAIN_T tokens: the
+        # forward reads the kept tokens' rows (the smoke's mask drops row 1's second half
+        # and row 2), the backward writes every row
+        kept = shape - TRAIN_T // 2 - TRAIN_T
+        return (kept + shape) * H * 2 + 8 * shape + 4 * TRAIN_B * H * 4, 4 * shape * H, \
+            PEAK_F32
     if name == "adamw":  # p, g, m, v in; p, m, v out
         return 28 * shape, 15 * shape, PEAK_F32
     raise KeyError(name)

@@ -53,6 +53,20 @@ under data/). --readings picks groups (default all):
                       call; chip_smoke.py's bias_gelu_backward_library);
   bias_gelu           K5c at 4096 x 1536 (chip_smoke.py's shape), beside
                       F.gelu(y + b, approximate="tanh");
+  layernorm           K5b at M x N, M in LN_ROWS (chip_smoke.py's 4,096
+                      rows and the dual step's 8,192), N in LN_WIDTHS,
+                      beside F.layer_norm of the sum widened to f32 with the
+                      kernel's f32 weight and bias, cast to bf16 (the same
+                      function; chip_smoke.py's layernorm_library: PyTorch's
+                      CUDA layer_norm refuses a bf16 input with an f32
+                      weight) and F.layer_norm(x + r) with the weight and
+                      bias rounded to bf16 (fewer launches, another
+                      function);
+  mean_pool           K5d forward + backward at 64 x 128 x 384 (the dual
+                      step's; normalised, row 1 half and row 2 fully
+                      masked), and the forward alone at POOL_SERVE (32
+                      queries of 32 tokens, normalised; lengths 8..32 from
+                      a seed); no one PyTorch call computes either;
   sgd                 K16d over the 25 f32 tensors of the pipelined train
                       step (6 stages of attn_qkv, attn_out, ffn_in, ffn_out
                       at H = 384, FFN = 1536, and the head), 10,617,216
@@ -88,11 +102,13 @@ GELU_M, GELU_N = 4096, 1536
 ATTN_WIDE = ((64, 256), (64, 512), (16, 512))
 STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024))
 LN_WIDTHS = (64, 384, 768)
+LN_ROWS = (4096, TRAIN_B * TRAIN_T)
+POOL_SERVE = (32, 32, 384)
 INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
 GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
-            "bias_gelu_backward", "sgd", "pipeline_step", "dual_step")
+            "bias_gelu_backward", "layernorm", "mean_pool", "sgd", "pipeline_step", "dual_step")
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -285,6 +301,31 @@ def worker(root: str, calls: int, readings: list) -> list:
             b = (0.5 * torch.randn(N, generator=g)).to("cuda", torch.bfloat16)
             read((("K14c", lambda: E.bias_gelu_backward(y, b, dout)),
                   ("gelu_backward", smoke.bias_gelu_backward_library(y, b, dout))), M=M, N=N)
+    if "layernorm" in readings:
+        for M in LN_ROWS:
+            for N in LN_WIDTHS:
+                x, r = bf(M, N), bf(M, N)
+                w = (1 + 0.1 * torch.randn(N, generator=g)).cuda()
+                b = (0.1 * torch.randn(N, generator=g)).cuda()
+                wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+                read((("K5b", lambda: E.add_layernorm_forward(x, r, w, b, 1e-12)),
+                      ("layer_norm_f32", smoke.layernorm_library(x, r, w, b)),
+                      ("layer_norm_bf16", lambda: F.layer_norm(x + r, (N,), wb, bb, 1e-12))),
+                     M=M, N=N)
+    if "mean_pool" in readings:
+        B, T, H = TRAIN_B, TRAIN_T, 384
+        h, cot = bf(B, T, H), torch.randn((B, H), generator=g).cuda()
+        mask, _ = _masked(B, T)
+
+        def pool():
+            pooled, raw = E.mean_pool_forward(h, mask, True)
+            return E.mean_pool_backward(mask, raw, cot, True, torch.bfloat16)
+        read((("K5d", pool),), B=B, T=T)
+        B, T, H = POOL_SERVE
+        hq = bf(B, T, H)
+        lens = torch.randint(8, T + 1, (B, 1), generator=g)
+        qmask = (torch.arange(T) < lens).to(torch.int32).cuda()
+        read((("K5d_forward", lambda: E.mean_pool_forward(hq, qmask, True)),), B=B, T=T)
     if "sgd" in readings:
         ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
         gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]

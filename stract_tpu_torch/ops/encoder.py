@@ -9,15 +9,16 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
                             dims 16, 32 and 64, 1 to 512 tokens (other shapes
                             on a card raise)
   K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
-                            (bert.py:164-165, :173-174, and the embedding LN at
-                            :204-205): Triton
-  K14b  ... backward        CUDA C++, csrc/encoder.cu; rows of up to 1,024
-                            columns (wider ones on a card raise)
+  K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
+                            :204-205): CUDA C++, csrc/encoder.cu; rows of up to
+                            1,024 columns (wider ones on a card raise)
   K5c  bias_gelu            bf16 bias add + tanh GELU (bert.py:170-171): CUDA
                             C++, csrc/encoder.cu
   K14c  ... backward        CUDA C++, csrc/encoder.cu; any width and any view
   K5d  mean_pool            masked mean pool, optionally L2-normalised
-       (+ its backward)     (bert.py:222-226, :243-245): Triton
+       (+ its backward)     (bert.py:222-226, :243-245): CUDA C++,
+                            csrc/encoder.cu; 1 to 512 tokens, widths that are
+                            multiples of 8 up to 1,024 (others on a card raise)
 
 The public functions (attention, add_layernorm, bias_gelu, mean_pool) are
 `torch.autograd.Function`s. Their forward and backward each pick by where
@@ -43,8 +44,8 @@ The twins compute in the input's dtype with float32-or-wider sums, so given
 float64 inputs they round nowhere, and torch.autograd.gradcheck can check
 each backward twin against its forward.
 
-Triton is imported inside the launching function only: the CPU tests import
-this module where there is no triton.
+Every kernel is bound through ops/kernels.py, which builds csrc/encoder.cu
+at first launch: the CPU tests import this module where there is no nvcc.
 """
 
 from __future__ import annotations
@@ -59,7 +60,6 @@ BF16 = torch.bfloat16
 # jax.nn.gelu(approximate=True) on a bf16 input: its constants in bf16
 GELU_C1 = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=BF16))  # 0.796875
 GELU_C2 = float(torch.tensor(0.044715, dtype=BF16))                   # 0.044677734375
-_TRITON: dict = {}
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -169,27 +169,15 @@ def add_layernorm_backward_plain(x, r, weight, eps: float, dy):
     return ds, dweight.to(weight.dtype), dbias.to(weight.dtype)
 
 
-def _check_add_layernorm(x, r, weight, bias) -> None:
-    N = x.shape[-1]
-    for t, dtype, shape in ((x, BF16, None), (r, BF16, x.shape), (weight, torch.float32, (N,)),
-                            (bias, torch.float32, (N,))):
-        kernels._ptr(t, dtype, shape)
-
-
 def add_layernorm_forward(x, r, weight, bias, eps: float):
     if not x.is_cuda:
         return add_layernorm_plain(x, r, weight, bias, eps)
-    _check_add_layernorm(x, r, weight, bias)
     N = x.shape[-1]
-    xs, rs = x.reshape(-1, N), r.reshape(-1, N)
-    out = torch.empty_like(xs)
-    if xs.shape[0]:
-        kern = _triton_kernels()["add_layernorm"]
-        with torch.cuda.device(kernels.card_of(xs, rs, weight, bias, out)):
-            kern[(xs.shape[0],)](xs, rs, weight, bias, out, N, float(eps),
-                                 BLOCK=max(_next_pow2(N), 32), num_warps=4)
-        kernels.counted("add_layernorm")
-    return out.reshape(x.shape)
+    kernels._ptr(x, BF16)
+    kernels._ptr(r, BF16, x.shape)
+    out = torch.empty_like(x)
+    kernels.add_layernorm(x.view(-1, N), r.view(-1, N), weight, bias, out.view(-1, N), eps)
+    return out
 
 
 def add_layernorm_backward(x, r, weight, eps: float, dy):
@@ -325,36 +313,20 @@ def mean_pool_forward(h, mask, normalize: bool):
     if not h.is_cuda:
         return mean_pool_plain(h, mask, normalize)
     B, T, H = h.shape
-    kernels._ptr(h, BF16)
-    kernels._ptr(mask, torch.int32, (B, T))
     out = torch.empty((B, H), dtype=torch.float32, device=h.device)
     raw = torch.empty_like(out) if normalize else out
-    if B:
-        with torch.cuda.device(kernels.card_of(h, mask, out, raw)):
-            _triton_kernels()["mean_pool"][(B,)](h, mask, out, raw, T, H, NORMALIZE=normalize,
-                                                 BLOCK_T=16, BLOCK_H=_next_pow2(H), num_warps=4)
-        kernels.counted("mean_pool")
+    kernels.mean_pool(h, mask, out, raw, normalize)
     return out, raw
 
 
 def mean_pool_backward(mask, raw, g, normalize: bool, dtype):
     if not raw.is_cuda:
         return mean_pool_backward_plain(mask, raw, g, normalize, dtype)
-    g = g.contiguous()
-    B, H = raw.shape
-    T = mask.shape[1]
     if dtype != BF16:
         raise ValueError(f"the pool kernel writes bf16 gradients, not {dtype}")
-    kernels._ptr(mask, torch.int32, (B, T))
-    kernels._ptr(raw, torch.float32, (B, H))
-    kernels._ptr(g, torch.float32, (B, H))
-    dh = torch.empty((B, T, H), dtype=BF16, device=raw.device)
-    if B:
-        with torch.cuda.device(kernels.card_of(mask, raw, g, dh)):
-            _triton_kernels()["mean_pool_bwd"][(B,)](mask, raw, g, dh, T, H, NORMALIZE=normalize,
-                                                     BLOCK_T=16, BLOCK_H=_next_pow2(H),
-                                                     num_warps=4)
-        kernels.counted("mean_pool")
+    B, H = raw.shape
+    dh = torch.empty((B, mask.shape[1], H), dtype=BF16, device=raw.device)
+    kernels.mean_pool_backward(mask, raw, g.contiguous(), dh, normalize)
     return dh
 
 
@@ -376,92 +348,3 @@ def mean_pool(h, mask, normalize: bool = False):
     """The masked mean of h over its tokens (f32[B, H]), L2-normalised when
     `normalize`; differentiable in h. mask: int32[B, T]."""
     return _MeanPool.apply(h, mask, normalize)
-
-
-# ---- the Triton kernels ------------------------------------------------------------------
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
-
-
-def _triton_kernels() -> dict:
-    """The Triton kernels, defined (and triton imported) at first use."""
-    if _TRITON:
-        return _TRITON
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def add_layernorm_kernel(X, R, W, Bias, Y, N, eps, BLOCK: tl.constexpr):
-        # one program per row: s = bf16(x + r); f32 statistics; bf16 out
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        m = cols < N
-        x = tl.load(X + row * N + cols, mask=m, other=0.0).to(tl.float32)
-        r = tl.load(R + row * N + cols, mask=m, other=0.0).to(tl.float32)
-        s = (x + r).to(tl.bfloat16).to(tl.float32)
-        mean = tl.sum(s, axis=0) / N
-        var = tl.maximum(tl.sum(s * s, axis=0) / N - mean * mean, 0.0)
-        w = tl.load(W + cols, mask=m, other=0.0)
-        b = tl.load(Bias + cols, mask=m, other=0.0)
-        mul = (1.0 / tl.sqrt(var + eps)) * w
-        tl.store(Y + row * N + cols, ((s - mean) * mul + b).to(tl.bfloat16), mask=m)
-
-    @triton.jit
-    def mean_pool_kernel(Hs, Mask, Out, Raw, T, H, NORMALIZE: tl.constexpr,
-                         BLOCK_T: tl.constexpr, BLOCK_H: tl.constexpr):
-        # one program per batch row: f32 sum of the kept tokens, rounded to
-        # bf16, divided by bf16(max(count, 1)) and rounded again; then the
-        # L2 normalisation in f32
-        b = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_H)
-        cm = cols < H
-        acc = tl.zeros([BLOCK_H], dtype=tl.float32)
-        cnt = tl.zeros([BLOCK_T], dtype=tl.float32)
-        for t0 in range(0, T, BLOCK_T):
-            ts = t0 + tl.arange(0, BLOCK_T)
-            keep = (tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0) & (ts < T)
-            h = tl.load(Hs + (b * T + ts)[:, None] * H + cols[None, :],
-                        mask=keep[:, None] & cm[None, :], other=0.0).to(tl.float32)
-            acc += tl.sum(h, axis=0)
-            cnt += keep.to(tl.float32)
-        count = tl.maximum(tl.sum(cnt, axis=0).to(tl.bfloat16).to(tl.float32), 1.0)
-        raw = (acc.to(tl.bfloat16).to(tl.float32) / count).to(tl.bfloat16).to(tl.float32)
-        if NORMALIZE:
-            tl.store(Raw + b * H + cols, raw, mask=cm)
-            nrm = tl.sqrt(tl.sum(raw * raw, axis=0))
-            raw = raw / tl.maximum(nrm, 1e-9)
-        tl.store(Out + b * H + cols, raw, mask=cm)
-
-    @triton.jit
-    def mean_pool_bwd_kernel(Mask, Raw, G, DH, T, H, NORMALIZE: tl.constexpr,
-                             BLOCK_T: tl.constexpr, BLOCK_H: tl.constexpr):
-        # one program per batch row: the cotangent of the (normalised) mean,
-        # rounded to bf16, divided by the bf16 count, written to every kept
-        # token's row (0 elsewhere)
-        b = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_H)
-        cm = cols < H
-        g = tl.load(G + b * H + cols, mask=cm, other=0.0)
-        if NORMALIZE:
-            raw = tl.load(Raw + b * H + cols, mask=cm, other=0.0)
-            nrm = tl.sqrt(tl.sum(raw * raw, axis=0))
-            n = tl.maximum(nrm, 1e-9)
-            dn = -tl.sum(g * raw, axis=0) / (n * n)
-            g = g / n + raw * tl.where(nrm > 1e-9, dn * 0.5 / nrm * 2.0, 0.0)
-        cnt = tl.zeros([BLOCK_T], dtype=tl.float32)
-        for t0 in range(0, T, BLOCK_T):
-            ts = t0 + tl.arange(0, BLOCK_T)
-            cnt += ((tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0) & (ts < T)).to(
-                tl.float32)
-        count = tl.maximum(tl.sum(cnt, axis=0).to(tl.bfloat16).to(tl.float32), 1.0)
-        dsum = (g.to(tl.bfloat16).to(tl.float32) / count).to(tl.bfloat16)
-        for t0 in range(0, T, BLOCK_T):
-            ts = t0 + tl.arange(0, BLOCK_T)
-            keep = (tl.load(Mask + b * T + ts, mask=ts < T, other=0) != 0)
-            val = tl.where(keep[:, None], dsum[None, :], 0.0).to(tl.bfloat16)
-            tl.store(DH + (b * T + ts)[:, None] * H + cols[None, :], val,
-                     mask=(ts < T)[:, None] & cm[None, :])
-
-    _TRITON.update(add_layernorm=add_layernorm_kernel, mean_pool=mean_pool_kernel,
-                   mean_pool_bwd=mean_pool_bwd_kernel)
-    return _TRITON

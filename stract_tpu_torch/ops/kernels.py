@@ -13,8 +13,9 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     dense rerank, K9 the global top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward, K5c
-                    bias + tanh GELU, K14b the residual + LayerNorm backward, K14c
-                    the bias + GELU backward
+                    bias + tanh GELU, K5b the residual + LayerNorm, K14b its backward,
+                    K14c the bias + GELU backward, K5d the masked mean pool and its
+                    backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
                     size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
                     ring step
@@ -25,13 +26,11 @@ time: the CPU tests import this module on machines without nvcc or a card.
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
                     backward, K16d the SGD update of a card's parameters in one launch
 
-(K5b and K5d, the encoder's residual + LayerNorm forward and the mean pool,
-forward and backward, are Triton kernels in ops/encoder.py; K14d and K15d,
-the fused AdamW updates of f32 masters and of bf16 parameters, are in
-optim.py; K15b, the MoE select-and-scale, in ops/moe.py beside the CUDA
-router K15a (csrc/moe.cu); K16c, the pipeline stage's f32 tanh GELU, in
-ops/stage.py; they count their launches here too, and launch on their
-tensors' card as well: `card_of`.)
+(K14d and K15d, the fused AdamW updates of f32 masters and of bf16
+parameters, are Triton kernels in optim.py; K15b, the MoE select-and-scale,
+in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); K16c, the pipeline
+stage's f32 tanh GELU, in ops/stage.py; they count their launches here too,
+and launch on their tensors' card as well: `card_of`.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches under `on_card` (the card its tensors lie on
@@ -71,13 +70,16 @@ MAX_SEARCH_P = 8192
 # limits of csrc/encoder.cu: the head widths and the longest sequence
 ATTN_HEAD_DIMS = (16, 32, 64)
 ATTN_MAX_T = 512
-# limits of K14b (csrc/encoder.cu): the widest row, and the rows a block and
-# most blocks of its fixed grid
+# limits of K5b and K14b (csrc/encoder.cu): the widest row; K14b's rows a
+# block and most blocks of its fixed grid
 LN_MAX_N = 1024
 LN_BWD_WARPS, LN_BWD_BLOCKS = 8, 264
 # K14c (csrc/encoder.cu): the rows a block takes a step, the columns of a
 # block, and the most blocks of its fixed grid
 GELU_BWD_ROWS, GELU_BWD_COLS, GELU_BWD_BLOCKS = 32, 256, 264
+# limits of K5d (csrc/encoder.cu): the longest row of tokens and the widest
+# hidden state (a multiple of 8: 16-byte pieces)
+POOL_MAX_T, POOL_MAX_H = 512, 1024
 # K15c's InfoNCE head (csrc/losses.cu): the most rows that one block takes
 # (more go to the grid of INFO_NCE_GRID_ROWS rows a block and a second,
 # ordered pass: the same result; the crossover is in csrc/losses.cu's note)
@@ -95,7 +97,8 @@ MAX_SMEM = 227 * 1024
 # rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
 # backward launches alike, and so does "gelu_tanh", K16c; "pair_loss" and
-# "info_nce" are K15c's two heads)
+# "info_nce" are K15c's two heads; "mean_pool" counts K5d's forward and
+# backward launches alike)
 LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
             "signals_q16": 0, "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0,
             "signals_prefix": 0, "dense_rerank": 0, "forest": 0, "attention": 0,
@@ -270,8 +273,13 @@ def _load(name: str):
                 lib.stract_add_layernorm_backward.argtypes = [P, P, P, P, P, P, P, P, LL, I, I, F,
                                                               P]
                 lib.stract_bias_gelu_backward.argtypes = [P, P, P, P, P, P, LL, I, I, F, F, P]
+                lib.stract_add_layernorm.argtypes = [P, P, P, P, P, LL, I, F, P]
+                lib.stract_mean_pool.argtypes = [P, P, P, P, I, I, I, I, P]
+                lib.stract_mean_pool_backward.argtypes = [P, P, P, P, I, I, I, I, P]
                 fns = (lib.stract_attention, lib.stract_attention_backward, lib.stract_bias_gelu,
-                       lib.stract_add_layernorm_backward, lib.stract_bias_gelu_backward)
+                       lib.stract_add_layernorm_backward, lib.stract_bias_gelu_backward,
+                       lib.stract_add_layernorm, lib.stract_mean_pool,
+                       lib.stract_mean_pool_backward)
             for fn in fns:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -673,6 +681,31 @@ def bias_gelu(y, b, out, c1: float, c2: float) -> None:
     counted("bias_gelu")
 
 
+def ln_width(N: int, what: str = "LayerNorm") -> None:
+    """Raise ValueError unless K5b and K14b take rows of N columns."""
+    if not 1 <= N <= LN_MAX_N:
+        raise ValueError(f"the {what} takes rows of 1..{LN_MAX_N} columns, not {N}")
+
+
+def add_layernorm(x, r, weight, bias, out, eps: float) -> None:
+    """K5b: x, r bf16[M, N], weight, bias f32[N] → out bf16[M, N], LN(bf16(x
+    + r)) in f32 (ops/encoder.py allocates); N in 1..LN_MAX_N, any M (0
+    launches nothing). 8-byte pieces where N % 4 == 0 and the pointers allow,
+    else single elements: the kernel picks."""
+    M, N = x.shape
+    ln_width(N)
+    bf16, f32 = torch.bfloat16, torch.float32
+    ptrs = ([_ptr(t, bf16, (M, N)) for t in (x, r)]
+            + [_ptr(t, f32, (N,)) for t in (weight, bias)] + [_ptr(out, bf16, (M, N))])
+    if M == 0:
+        return
+    lib = _load("encoder")
+    with on_card(x, r, weight, bias, out) as stream:
+        rc = lib.stract_add_layernorm(*ptrs, M, N, float(eps), stream)
+    _check(rc, "stract_add_layernorm")
+    counted("add_layernorm")
+
+
 def add_layernorm_backward(x, r, dy, weight, eps: float) -> tuple:
     """K14b: x, r, dy bf16[..., N] (contiguous), weight f32[N] → (ds bf16 of
     x's shape, the cotangent of both x and r; dweight, dbias f32[N]); N in
@@ -680,8 +713,7 @@ def add_layernorm_backward(x, r, dy, weight, eps: float) -> tuple:
     blocks, N] of the fixed grid (LN_BWD_BLOCKS blocks of LN_BWD_WARPS rows
     at most) share one allocation."""
     N = x.shape[-1]
-    if not 1 <= N <= LN_MAX_N:
-        raise ValueError(f"the LayerNorm backward takes rows of 1..{LN_MAX_N} columns, not {N}")
+    ln_width(N, "LayerNorm backward")
     bf16, f32 = torch.bfloat16, torch.float32
     ptrs = [_ptr(t, bf16, x.shape) for t in (x, r, dy)] + [_ptr(weight, f32, (N,))]
     M = x.numel() // N
@@ -729,6 +761,54 @@ def bias_gelu_backward(y, b, dout, c1: float, c2: float) -> tuple:
     _check(rc, "stract_bias_gelu_backward")
     counted("bias_gelu_backward")
     return dy, db
+
+
+def _pool_dims(B: int, T: int, H: int, h_or_dh) -> None:
+    if not 1 <= T <= POOL_MAX_T or not 8 <= H <= POOL_MAX_H or H % 8:
+        raise ValueError(f"the mean pool takes 1..{POOL_MAX_T} tokens and widths that are "
+                         f"multiples of 8 up to {POOL_MAX_H}, not T = {T}, H = {H}")
+    if _ptr(h_or_dh, torch.bfloat16, (B, T, H)) % 16:
+        raise ValueError("the mean pool moves rows in 16-byte pieces: the hidden states "
+                         "must be 16-byte aligned")
+
+
+def mean_pool(h, mask, out, raw, normalize: bool) -> None:
+    """K5d's forward: h bf16[B, T, H] (16-byte aligned; T in 1..POOL_MAX_T,
+    H a multiple of 8 up to POOL_MAX_H), mask i32[B, T] → out f32[B, H], the
+    masked mean, L2-normalised when `normalize`, and then raw f32[B, H] the
+    mean before it (ops/encoder.py allocates; raw is out when not
+    normalised). B = 0 launches nothing."""
+    B, T, H = h.shape
+    _pool_dims(B, T, H, h)
+    f32 = torch.float32
+    ptrs = (h.data_ptr(), _ptr(mask, torch.int32, (B, T)), _ptr(out, f32, (B, H)),
+            _ptr(raw, f32, (B, H)))
+    if B == 0:
+        return
+    lib = _load("encoder")
+    with on_card(h, mask, out, raw) as stream:
+        rc = lib.stract_mean_pool(*ptrs, B, T, H, int(normalize), stream)
+    _check(rc, "stract_mean_pool")
+    counted("mean_pool")
+
+
+def mean_pool_backward(mask, raw, g, dh, normalize: bool) -> None:
+    """K5d's backward: mask i32[B, T], raw f32[B, H] (the forward's mean
+    before normalisation), g f32[B, H] (the cotangent of its output) → dh
+    bf16[B, T, H] (16-byte aligned; ops/encoder.py allocates), T and H as
+    the forward's. B = 0 launches nothing."""
+    B, T, H = dh.shape
+    _pool_dims(B, T, H, dh)
+    f32 = torch.float32
+    ptrs = (_ptr(mask, torch.int32, (B, T)), _ptr(raw, f32, (B, H)), _ptr(g, f32, (B, H)),
+            dh.data_ptr())
+    if B == 0:
+        return
+    lib = _load("encoder")
+    with on_card(mask, raw, g, dh) as stream:
+        rc = lib.stract_mean_pool_backward(*ptrs, B, T, H, int(normalize), stream)
+    _check(rc, "stract_mean_pool_backward")
+    counted("mean_pool")
 
 
 def _stage_dims(qkv) -> tuple:

@@ -206,8 +206,9 @@ def test_launch_on_two_cards_raises_before_any_launch(monkeypatch, kernel):
 
 
 def test_training_wrappers_never_take_the_plain_path(monkeypatch):
-    """On a CUDA tensor the backward dispatchers, the pool and the AdamW
-    update launch their kernels (stand-ins here), never the plain twins."""
+    """On a CUDA tensor the backward dispatchers, the pool (forward and
+    backward: csrc/encoder.cu's entry points) and the AdamW update launch
+    their kernels (stand-ins here), never the plain twins."""
     from stract_tpu_torch import optim
 
     called = []
@@ -228,8 +229,8 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(kernels, "add_layernorm_backward", lambda *a, **k: called.append("ln"))
     monkeypatch.setattr(kernels, "bias_gelu_backward",
                         lambda y, b, *a: called.append("bias_gelu_bwd") or (y, b))
-    monkeypatch.setattr(E, "_triton_kernels", lambda: {n: Kern(n) for n in (
-        "mean_pool", "mean_pool_bwd")})
+    monkeypatch.setattr(kernels, "mean_pool", lambda *a: called.append("mean_pool"))
+    monkeypatch.setattr(kernels, "mean_pool_backward", lambda *a: called.append("mean_pool_bwd"))
     monkeypatch.setattr(optim, "_triton_kernel", lambda: Kern("adamw"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -248,7 +249,9 @@ def test_training_wrappers_never_take_the_plain_path(monkeypatch):
 
 class _EncoderLib:
     """A stand-in for csrc/encoder.cu's library: stract_add_layernorm_backward
-    records its arguments and returns success."""
+    records its arguments, and stract_add_layernorm, stract_mean_pool and
+    stract_mean_pool_backward their name and arguments; each returns
+    success."""
 
     def __init__(self, called):
         self.called = called
@@ -256,6 +259,11 @@ class _EncoderLib:
     def stract_add_layernorm_backward(self, *args):
         self.called.append(args)
         return 0
+
+    def __getattr__(self, name):
+        if name not in ("stract_add_layernorm", "stract_mean_pool", "stract_mean_pool_backward"):
+            raise AttributeError(name)
+        return lambda *args: self.called.append((name, args)) or 0
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 384), (5, 40), (0, 64)])
@@ -277,7 +285,7 @@ def test_layernorm_backward_reaches_its_c_entry_point(monkeypatch, shape):
     called = []
     monkeypatch.setattr(E, "add_layernorm_backward_plain",
                         lambda *a: pytest.fail("the twin was reached"))
-    monkeypatch.setattr(E, "_triton_kernels", lambda: pytest.fail("a Triton kernel was reached"))
+    assert not hasattr(E, "_triton_kernels")  # no Triton kernel to reach
     monkeypatch.setattr(kernels, "_load", lambda name: _EncoderLib(called))
     monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -290,6 +298,86 @@ def test_layernorm_backward_reaches_its_c_entry_point(monkeypatch, shape):
     assert (m, n, eps, stream) == (M, N, 1e-12, 0)
     assert blocks == min(kernels.LN_BWD_BLOCKS, -(-M // kernels.LN_BWD_WARPS))
     assert "triton" not in sys.modules
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 384), (5, 40), (0, 64)])
+def test_add_layernorm_reaches_its_c_entry_point(monkeypatch, shape):
+    """K5b on CUDA tensors (stand-ins) calls stract_add_layernorm once with
+    the rows flattened, counts one launch and imports no triton; with no
+    rows it launches nothing; the same tensors on the CPU take the twin."""
+    import sys
+
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    N = shape[-1]
+    M = int(np.prod(shape[:-1]))
+    args = (bf(*shape), bf(*shape), torch.ones(N), torch.zeros(N), 1e-12)
+    twin = []
+    monkeypatch.setattr(E, "add_layernorm_plain", lambda *a: twin.append(a) or a[0])
+    E.add_layernorm(*args)
+    assert len(twin) == 1
+    called = []
+    monkeypatch.setattr(E, "add_layernorm_plain", lambda *a: pytest.fail("the twin was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _EncoderLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    y = E.add_layernorm_forward(*args)
+    assert y.shape == shape and y.dtype == torch.bfloat16
+    assert "triton" not in sys.modules
+    if M == 0:
+        assert called == [] and kernels.LAUNCHES["add_layernorm"] == 0
+        return
+    assert len(called) == 1 and kernels.LAUNCHES["add_layernorm"] == 1
+    name, (xp, rp, wp, bp, yp, m, n, eps, stream) = called[0]
+    assert name == "stract_add_layernorm"
+    assert (xp, rp, yp) == (args[0].data_ptr(), args[1].data_ptr(), y.data_ptr())
+    assert (wp, bp) == (args[2].data_ptr(), args[3].data_ptr())
+    assert (m, n, eps, stream) == (M, N, 1e-12, 0)
+
+
+@pytest.mark.parametrize("B,normalize", [(2, True), (2, False), (0, True)])
+def test_mean_pool_reaches_its_c_entry_points(monkeypatch, B, normalize):
+    """K5d on CUDA tensors (stand-ins): the forward calls stract_mean_pool
+    once (raw its own tensor when normalised, the output itself else), the
+    backward stract_mean_pool_backward once, each counted under
+    "mean_pool", triton not imported; with no rows neither launches; the
+    same tensors on the CPU take the twins."""
+    import sys
+
+    T, H = 16, 384
+    h = torch.zeros((B, T, H), dtype=torch.bfloat16)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    g = torch.zeros((B, H))
+    twin = []
+    monkeypatch.setattr(E, "mean_pool_plain", lambda *a: twin.append("fwd") or (g, g))
+    monkeypatch.setattr(E, "mean_pool_backward_plain", lambda *a: twin.append("bwd") or h)
+    E.mean_pool_forward(h, mask, normalize)
+    E.mean_pool_backward(mask, g, g, normalize, torch.bfloat16)
+    assert twin == ["fwd", "bwd"]
+    called = []
+    for name in ("mean_pool_plain", "mean_pool_backward_plain"):
+        monkeypatch.setattr(E, name, lambda *a: pytest.fail("a twin was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _EncoderLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    pooled, raw = E.mean_pool_forward(h, mask, normalize)
+    dh = E.mean_pool_backward(mask, raw, g, normalize, torch.bfloat16)
+    assert pooled.shape == raw.shape == (B, H) and (raw is pooled) == (not normalize)
+    assert dh.shape == (B, T, H) and dh.dtype == torch.bfloat16
+    assert "triton" not in sys.modules
+    if B == 0:
+        assert called == [] and kernels.LAUNCHES["mean_pool"] == 0
+        return
+    assert [name for name, _ in called] == ["stract_mean_pool", "stract_mean_pool_backward"]
+    assert kernels.LAUNCHES["mean_pool"] == 2
+    (_, fwd), (_, bwd) = called
+    assert fwd == (h.data_ptr(), mask.data_ptr(), pooled.data_ptr(), raw.data_ptr(), B, T, H,
+                   int(normalize), 0)
+    assert bwd == (mask.data_ptr(), raw.data_ptr(), g.data_ptr(), dh.data_ptr(), B, T, H,
+                   int(normalize), 0)
 
 
 class _GeluLib:
@@ -336,7 +424,7 @@ def test_bias_gelu_backward_reaches_its_c_entry_point(monkeypatch, shape, misali
     assert len(twin) == 1
     called = []
     monkeypatch.setattr(E, "bias_gelu_backward_plain", lambda *a: pytest.fail("the twin ran"))
-    monkeypatch.setattr(E, "_triton_kernels", lambda: pytest.fail("a Triton kernel was reached"))
+    assert not hasattr(E, "_triton_kernels")  # no Triton kernel to reach
     monkeypatch.setattr(kernels, "_load", lambda name: _GeluLib(called))
     monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -410,35 +498,64 @@ def test_loss_heads_reach_their_c_entry_points(monkeypatch):
     assert "triton" not in sys.modules
 
 
-def test_loss_heads_module_names_no_triton():
-    """ops/losses.py launches its heads through ops/kernels.py alone: its
-    source neither imports nor names triton."""
+@pytest.mark.parametrize("module", ["losses", "encoder"])
+def test_kernel_module_names_no_triton(module):
+    """ops/losses.py (K15c) and ops/encoder.py (K5a-d, K14a-c) launch their
+    kernels through ops/kernels.py alone: neither source imports nor names
+    triton, and neither module has a `_triton_kernels`."""
     import ast
+    import importlib
     import inspect
 
-    from stract_tpu_torch.ops import losses as LO
-
-    src = inspect.getsource(LO)
+    mod = importlib.import_module(f"stract_tpu_torch.ops.{module}")
+    src = inspect.getsource(mod)
     assert "triton" not in src.lower()
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
             assert not any("triton" in n for n in names)
-    assert not hasattr(LO, "_triton_kernels")
+    assert not hasattr(mod, "_triton_kernels")
 
 
 @pytest.mark.parametrize("N", [1025, 4096])
-def test_layernorm_backward_refuses_wider_rows_before_any_launch(monkeypatch, N):
-    """A row wider than the kernel holds (kernels.LN_MAX_N = 1,024 columns)
-    raises ValueError naming the widths it takes, before any build or
+@pytest.mark.parametrize("kind", ["backward", "forward"])
+def test_layernorm_backward_refuses_wider_rows_before_any_launch(monkeypatch, kind, N):
+    """A row wider than K14b and K5b hold (kernels.LN_MAX_N = 1,024 columns)
+    raises ValueError naming the widths they take, before any build or
     launch."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
     x = torch.zeros((4, N), dtype=torch.bfloat16)
-    before = kernels.LAUNCHES["add_layernorm_backward"]
+    name = "add_layernorm" if kind == "forward" else "add_layernorm_backward"
+    before = kernels.LAUNCHES[name]
     with pytest.raises(ValueError, match="1..1024 columns"):
-        E.add_layernorm_backward(x, x, torch.ones(N), 1e-12, x)
-    assert kernels.LAUNCHES["add_layernorm_backward"] == before
+        if kind == "forward":
+            E.add_layernorm_forward(x, x, torch.ones(N), torch.zeros(N), 1e-12)
+        else:
+            E.add_layernorm_backward(x, x, torch.ones(N), 1e-12, x)
+    assert kernels.LAUNCHES[name] == before
+
+
+@pytest.mark.parametrize("T,H,misaligned", [(513, 384, False), (16, 380, False),
+                                             (16, 1032, False), (16, 384, True)])
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_mean_pool_refuses_other_shapes_before_any_launch(monkeypatch, kind, T, H, misaligned):
+    """K5d takes 1..512 tokens, widths that are multiples of 8 up to 1,024
+    and 16-byte aligned hidden states: anything else raises ValueError
+    before any build or launch."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+    mask = torch.ones((2, T), dtype=torch.int32)
+    before = kernels.LAUNCHES["mean_pool"]
+    with pytest.raises(ValueError, match="mean pool"):
+        if kind == "forward":
+            h = _misaligned((2, T, H)) if misaligned else torch.zeros((2, T, H),
+                                                                      dtype=torch.bfloat16)
+            E.mean_pool_forward(h, mask, True)
+        else:
+            dh = _misaligned((2, T, H))
+            kernels.mean_pool_backward(mask, torch.zeros(2, H), torch.zeros(2, H), dh, True)
+    assert kernels.LAUNCHES["mean_pool"] == before
 
 
 def test_training_kernel_arguments_are_checked(monkeypatch):
@@ -692,15 +809,54 @@ def test_main_train_encoders_runs_on_the_card_at_its_defaults(tmp_path, capsys):
         assert (tmp_path / "out" / f"{kind}_encoder" / "config.json").exists()
 
 
+def _bf16_steps(a, b):
+    """The largest distance between a and b, bf16 tensors of one shape, in
+    bf16 steps (0: equal, 1: neighbours; +0 and -0 are one value), over the
+    elements where they differ by more than f32 rounding of the largest |b|
+    (2^-16 max |b|: a value that cancels to near 0 is as exact as its
+    terms)."""
+    if not a.numel():
+        return 0
+
+    def ordinal(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    far = (a.float() - b.float()).abs() > 2 ** -16 * float(b.float().abs().max())
+    return int(((ordinal(a) - ordinal(b)).abs() * far).max())
+
+
+def test_bf16_steps_counts_representable_values():
+    """_bf16_steps: neighbours are one step apart, across 0 and across a
+    power of two, and values within f32 rounding of the largest count 0."""
+    bf = lambda *v: torch.tensor(v, dtype=torch.float32).to(torch.bfloat16)  # noqa: E731
+    assert _bf16_steps(bf(1.0, -2.0, 0.0), bf(1.0, -2.0, -0.0)) == 0
+    assert _bf16_steps(bf(1.0 + 2 ** -7, 4.0), bf(1.0, 4.0)) == 1
+    assert _bf16_steps(bf(1.0 + 2 ** -6, 4.0), bf(1.0, 4.0)) == 2
+    assert _bf16_steps(bf(2.0 - 2 ** -7, 4.0), bf(2.0, 4.0)) == 1
+    assert _bf16_steps(bf(1e-30, 4.0), bf(-1e-30, 4.0)) == 0  # within 2^-16 * 4
+    assert _bf16_steps(bf(1e-3, 4.0), bf(-1e-3, 4.0)) > 1
+    assert _bf16_steps(bf(), bf()) == 0
+
+
 @pytest.mark.cuda
-def test_layernorm_and_gelu_kernels_match_plain():
+@pytest.mark.parametrize("N", [64, 384, 768, 1000])
+@pytest.mark.parametrize("M", [0, 1, 4096, 4099])
+def test_layernorm_and_gelu_kernels_match_plain(M, N):
+    """K5b (CUDA, a warp a row) at BertConfig.tiny's, MiniLM's and
+    BERT-base's widths and at 1,000, over no rows, one, 4,096 and an odd
+    4,099: within one bf16 step of the twin, a second call bit-equal, one
+    launch counted (none for no rows); K5c at 4,096 x 1,536."""
     dev = _card()
-    g = torch.Generator().manual_seed(0)
-    x, r = (torch.randn((32 * 128, 384), generator=g).to(dev, torch.bfloat16) for _ in range(2))
-    w, b = (torch.randn(384, generator=g).to(dev) for _ in range(2))
-    torch.testing.assert_close(E.add_layernorm(x, r, w, b, 1e-12).float(),
-                               E.add_layernorm_plain(x, r, w, b, 1e-12).float(),
-                               rtol=ENC_RTOL, atol=ENC_ATOL)
+    g = torch.Generator().manual_seed(M + N)
+    x, r = (torch.randn((M, N), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    w = (1 + 0.1 * torch.randn(N, generator=g)).to(dev)
+    b = (0.1 * torch.randn(N, generator=g)).to(dev)
+    n = kernels.LAUNCHES["add_layernorm"]
+    got = E.add_layernorm(x, r, w, b, 1e-12)
+    assert kernels.LAUNCHES["add_layernorm"] == n + (M > 0)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _bf16_steps(got, E.add_layernorm_plain(x, r, w, b, 1e-12)) <= 1
+    assert torch.equal(E.add_layernorm(x, r, w, b, 1e-12), got)
     y = torch.randn((32 * 128, 1536), generator=g).to(dev, torch.bfloat16)
     bias = torch.randn(1536, generator=g).to(dev, torch.bfloat16)
     torch.testing.assert_close(E.bias_gelu(y, bias).float(), E.bias_gelu_plain(y, bias).float(),
@@ -896,23 +1052,42 @@ def test_layernorm_backward_kernel_takes_misaligned_views():
                                                  (ds, dw, db)))
 
 
+def pool_mask(B: int, T: int, g):
+    """K5d's test mask: random lengths 1..T, the first row whole and, past
+    one row, the last fully masked."""
+    lens = torch.randint(1, T + 1, (B, 1), generator=g)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    return (torch.arange(T) < lens).to(torch.int32)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 17, 128, 512])
+@pytest.mark.parametrize("B", [1, 64, 256])
 @pytest.mark.parametrize("normalize", [True, False])
-def test_mean_pool_kernels_match_plain(normalize):
+def test_mean_pool_kernels_match_plain(normalize, B, T):
+    """K5d (CUDA) forward and backward at one row, the dual step's 64 and
+    256, over 1, 17, 128 and 512 tokens, a fully masked row past one row,
+    normalised and not: pooled, raw and dh within one bf16 step of the
+    twin's largest magnitude, second calls bit-equal, each call counted."""
     dev = _card()
-    g = torch.Generator().manual_seed(2)
-    h = torch.randn((64, 128, 384), generator=g).to(dev, torch.bfloat16)
-    mask = torch.ones((64, 128), dtype=torch.int32)
-    mask[1, 40:] = 0
-    mask[2] = 0
-    mask = mask.to(dev)
+    g = torch.Generator().manual_seed(B * T + normalize)
+    h = torch.randn((B, T, 384), generator=g).to(dev, torch.bfloat16)
+    mask = pool_mask(B, T, g).to(dev)
+    n = kernels.LAUNCHES["mean_pool"]
     pooled, raw = E.mean_pool_forward(h, mask, normalize)
+    assert kernels.LAUNCHES["mean_pool"] == n + 1
     ref_pooled, ref_raw = E.mean_pool_plain(h, mask, normalize)
     _step_close(pooled, ref_pooled)
     _step_close(raw, ref_raw)
-    cot = torch.randn((64, 384), generator=g).to(dev)
-    _step_close(E.mean_pool_backward(mask, raw, cot, normalize, torch.bfloat16),
-                E.mean_pool_backward_plain(mask, raw, cot, normalize, torch.bfloat16))
+    cot = torch.randn((B, 384), generator=g).to(dev)
+    dh = E.mean_pool_backward(mask, raw, cot, normalize, torch.bfloat16)
+    assert kernels.LAUNCHES["mean_pool"] == n + 2
+    _step_close(dh, E.mean_pool_backward_plain(mask, raw, cot, normalize, torch.bfloat16))
+    again = E.mean_pool_forward(h, mask, normalize)
+    assert torch.equal(again[0], pooled) and torch.equal(again[1], raw)
+    assert torch.equal(E.mean_pool_backward(mask, raw, cot, normalize, torch.bfloat16), dh)
 
 
 @pytest.mark.cuda

@@ -303,7 +303,8 @@ _LN_TERM_ROUNDING = {(768, 37)}
 def test_layernorm_backward_twin_matches_jax_vjp(N, M):
     """flax's LayerNorm(dtype=f32) of a bf16 sum, cast to bf16 (bert.py:164-165),
     at the widths of BertConfig.tiny, MiniLM and BERT-base, over 40 rows and
-    an odd 37: ds, dweight and dbias within one bf16 step of jax.vjp.
+    an odd 37: the forward twin (K5b's) within one bf16 step of the primal
+    output, ds, dweight and dbias within one bf16 step of jax.vjp.
 
     One shape is held otherwise. ds is the bf16 sum of two bf16-rounded terms
     (the (s - mean) path and the statistics' path), each an f32 expression
@@ -322,7 +323,10 @@ def test_layernorm_backward_twin_matches_jax_vjp(N, M):
     def body(x, r, w, b):
         return ln.apply({"params": {"scale": w, "bias": b}}, x + r).astype(BF)
 
-    _, vjp = jax.vjp(body, jnp.asarray(x, BF), jnp.asarray(r, BF), jnp.asarray(w), jnp.asarray(b))
+    y, vjp = jax.vjp(body, jnp.asarray(x, BF), jnp.asarray(r, BF), jnp.asarray(w), jnp.asarray(b))
+    got = E.add_layernorm_plain(_bt(x), _bt(r), torch.from_numpy(w), torch.from_numpy(b), 1e-12)
+    assert got.dtype == torch.bfloat16
+    assert_one_bf16_step(got, y)
     gx, gr, gw, gb = vjp(jnp.asarray(dy, BF))
     ds, dw, db = E.add_layernorm_backward_plain(_bt(x), _bt(r), torch.from_numpy(w), 1e-12,
                                                 _bt(dy))
