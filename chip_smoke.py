@@ -435,6 +435,26 @@ def time_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+def time_reset_ms(fn, reset, iters: int = 10) -> float:
+    """time_ms for a call that changes its own input: reset() before each
+    call, outside the call's pair of CUDA events (each call timed alone)."""
+    import torch
+
+    for _ in range(2):
+        reset()
+        fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for a, b in pairs:
+        reset()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def search_rows(lens, n: int, steps=None, cap=None) -> int:
     """The distinct posting rows that n binary searches over each slot of
     `lens` rows can touch, summed over the slots: step d of a search has at
@@ -663,21 +683,14 @@ def plain_versions():
             O.to_tensors(O._batched(aggs, O.QueryAggregates), dev),
             torch.as_tensor(f).to(dev), torch.as_tensor(c).to(dev))
 
-    def csr_targets(csr, n):
-        counts = (csr.offsets[1:] - csr.offsets[:-1]).long()
-        return torch.repeat_interleave(torch.arange(n, device=csr.offsets.device), counts)
-
     def hll_merge(regs, csr, out=None, sizes=True):
-        new = HO.merge_iteration_plain(regs, csr.sources, csr_targets(csr, regs.shape[0]))
+        new = HO.merge_iteration_plain(regs, csr.sources, SP.csr_targets(csr))
         changed = torch.tensor([int(not torch.equal(new, regs))], dtype=torch.int32,
                                device=regs.device)
         return new, HO.estimate_sizes_plain(new) if sizes else None, changed
 
-    def bfs_relax(dist_ns, csr, out=None):
-        new = SP.relax_plain(dist_ns.t(), csr.sources, csr_targets(csr, dist_ns.shape[0]))
-        new = new.t().contiguous()
-        return new, torch.tensor([int(not torch.equal(new, dist_ns))], dtype=torch.int32,
-                                 device=dist_ns.device)
+    def bfs_step(state, csr, level, out=None):
+        return SP.frontier_step_plain(state, csr.sources, SP.csr_targets(csr), level)
 
     swaps = [(O, "score_candidates_batch", stage_a),
              (O, "score_driver_batch_with_signals", stage_b),
@@ -700,7 +713,7 @@ def plain_versions():
              (LO, "pair_loss_forward", LO.pair_loss_plain),
              (LO, "info_nce_forward", LO.info_nce_plain),
              (HO, "merge_csr", hll_merge), (HO, "estimate_sizes", HO.estimate_sizes_plain),
-             (SP, "relax", bfs_relax),
+             (SP, "frontier_step", bfs_step),
              (ST, "stage_attention_forward", ST.stage_attention_plain),
              (ST, "stage_attention_backward", ST.stage_attention_backward_plain),
              (ST, "gelu_tanh_forward", ST.gelu_tanh_plain),
@@ -2092,16 +2105,24 @@ def pipeline_phase(card: str) -> dict:
             f"{lib_b:.4f} ms")
         del o, q, k, v, leaf, auto
 
+    # K16c at the step's shape (the main row), then at an odd length (single
+    # elements) and on a view 4 bytes past a 16-byte boundary (the same)
     x = (3 * torch.randn((mb, T, FF), generator=g)).to(dev)
     dx = torch.randn((mb, T, FF), generator=g).to(dev)
-    atol = 1e-6 * float(x.abs().max())
-    err = max(close(ST.gelu_tanh_forward(x), ST.gelu_tanh_plain(x), 1e-5, atol),
-              close(ST.gelu_tanh_backward(x, dx), ST.gelu_tanh_backward_plain(x, dx), 1e-5, atol))
     n = mb * T * FF
-    rows.append(("gelu_tanh", err,
-                 time_ms(lambda: (ST.gelu_tanh_forward(x), ST.gelu_tanh_backward(x, dx))),
-                 time_ms(lambda: (ST.gelu_tanh_plain(x), ST.gelu_tanh_backward_plain(x, dx))),
-                 (mb, T, FF), 4 * (2 + 3) * n, 34 * n))
+    odd, dodd = (3 * torch.randn(n + 1, generator=g)).to(dev), torch.randn(n + 1, generator=g)
+    for shape, xv, gv in (((mb, T, FF), x, dx), ((n + 1,), odd, dodd.to(dev)),
+                          (("view at +4 B", n), odd[1:], dx.reshape(-1))):
+        atol = 1e-6 * float(xv.abs().max())
+        err = max(close(ST.gelu_tanh_forward(xv), ST.gelu_tanh_plain(xv), 1e-5, atol),
+                  close(ST.gelu_tanh_backward(xv, gv), ST.gelu_tanh_backward_plain(xv, gv),
+                        1e-5, atol))
+        nv = xv.numel()
+        rows.append(("gelu_tanh", err,
+                     time_ms(lambda: (ST.gelu_tanh_forward(xv), ST.gelu_tanh_backward(xv, gv))),
+                     time_ms(lambda: (ST.gelu_tanh_plain(xv),
+                                      ST.gelu_tanh_backward_plain(xv, gv))),
+                     shape, 4 * (2 + 3) * nv, 34 * nv))
     xl = x.clone().requires_grad_(True)
     y = F.gelu(xl, approximate="tanh")
     library["gelu_tanh"] = time_ms(lambda: (F.gelu(x, approximate="tanh"),
@@ -2309,24 +2330,41 @@ def centrality_phase(data_dir: str) -> dict:
         f"rounds {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, max rel diff "
         f"{float(np.max(np.abs(acc_k - acc_p) / np.maximum(np.abs(acc_p), 1e-300))):.3g}")
 
-    # K7 at S = GRAPH_SAMPLES and S = 1, round by round from the sampled sources
+    # K7 at S = GRAPH_SAMPLES and S = 1, round by round from the sampled sources:
+    # the frontier step's distances bit-equal to the reference's relaxation
+    # (relax_plain) and its changed flag equal, its whole state bit-equal to
+    # its plain twin's; then timed at the fourth round (level 3), seen put
+    # back before each call (the step updates it in place), so every call does
+    # that round's work and writes its distances
     sources = np.random.default_rng(0).choice(n, size=GRAPH_SAMPLES, replace=False)
     for S in (GRAPH_SAMPLES, 1):
-        dist = torch.full((S, n), int(SP.UNREACHABLE), dtype=torch.int32, device=dev)
-        dist[torch.arange(S, device=dev), torch.from_numpy(sources[:S]).to(dev)] = 0
-        for _ in range(3):
-            new, changed = SP.relax(dist.t().contiguous(), csr)
-            plain = SP.relax_plain(dist, eft, ett)
-            if not torch.equal(new.t(), plain) or \
-                    int(changed.item()) != int(not torch.equal(plain, dist)):
-                raise AssertionError(f"K7 distances differ from the plain relaxation at S={S}")
-            dist = plain
-        dns = dist.t().contiguous()
-        out = torch.empty_like(dns)
-        rows.append(("bfs_relax", 0.0, time_ms(lambda: SP.relax(dns, csr, out=out)),
-                     time_ms(lambda: SP.relax_plain(dist, eft, ett), iters=3), (n, S, e),
-                     8 * n * S + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel() + 4,
-                     2 * e * S))
+        state = SP.bfs_start(n, sources[:S], dev)
+        dist = state.dist[:, :S].t().contiguous()  # the reference's [S, N] layout
+        for level in range(4):
+            twin, twin_changed = SP.frontier_step_plain(state, eft, ett, level)
+            if level == 3:
+                break
+            ref = SP.relax_plain(dist, eft, ett)
+            new, changed = SP.frontier_step(state, csr, level)
+            if not (torch.equal(new.dist[:, :S].t(), ref) and torch.equal(new.dist, twin.dist)
+                    and torch.equal(new.seen, twin.seen)
+                    and torch.equal(new.frontier, twin.frontier)) or \
+                    int(changed.item()) != int(not torch.equal(ref, dist)) or \
+                    int(changed.item()) != int(twin_changed.item()):
+                raise AssertionError(f"K7 differs from the relaxation at S={S}, round {level}")
+            state, dist = new, ref
+        written = int((twin.dist != state.dist).sum())
+        W = state.seen.shape[1]
+        seen0, spare = state.seen.clone(), torch.empty_like(state.frontier)
+        plain_ms = time_ms(lambda: SP.frontier_step_plain(state, eft, ett, 3), iters=3)
+        ms = time_reset_ms(lambda: SP.frontier_step(state, csr, 3, out=spare),
+                           lambda: state.seen.copy_(seen0))
+        if not (torch.equal(state.dist, twin.dist) and torch.equal(spare, twin.frontier)):
+            raise AssertionError(f"K7's timed calls differ from the plain step at S={S}")
+        log(f"[centrality] K7 at S={S}, round 3: {written} distances written")
+        rows.append(("bfs_relax", 0.0, ms, plain_ms, (n, S, e),
+                     3 * 4 * n * W + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel()
+                     + 4 * written + 4, e * W + 3 * n * W))
     t_k, t_p = {}, {}
     d_k = SP.bfs(n, ef, et, sources, device=DEVICE, csr=csr, timings=t_k)
     with plain_versions():
@@ -2334,7 +2372,8 @@ def centrality_phase(data_dir: str) -> dict:
     if t_k["n_rounds"] != t_p["n_rounds"] or not np.array_equal(d_k, d_p):
         raise AssertionError("the 256-source BFS through K7 and through the plain version differ")
     log(f"[centrality] whole {GRAPH_SAMPLES}-source BFS, kernels vs plain: {t_k['n_rounds']} "
-        f"rounds each, {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, distances equal")
+        f"rounds each, rounds {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, distances equal "
+        f"card={card_line()}")
     return {"jobs": jobs, "rows": rows, "graph_s": graph_s, "graph": g.path}
 
 
@@ -2769,8 +2808,8 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
                                 None),
             "stage_attention_backward": ("cuda", src + "stage.cu",
                                          "stract_tpu/parallel/pipeline.py:133", None),
-            "gelu_tanh": ("triton", "stract_tpu_torch/ops/stage.py",
-                          "stract_tpu/parallel/pipeline.py:50", None),
+            "gelu_tanh": ("cuda", src + "stage.cu", "stract_tpu/parallel/pipeline.py:50",
+                          None),
             "sgd": ("cuda", src + "stage.cu", "stract_tpu/parallel/pipeline.py:136", None)}
     out = []
     for name, (route, source, replaces, main_shape) in meta.items():

@@ -67,6 +67,20 @@ under data/). --readings picks groups (default all):
                       masked), and the forward alone at POOL_SERVE (32
                       queries of 32 tokens, normalised; lengths 8..32 from
                       a seed); no one PyTorch call computes either;
+  gelu_tanh           K16c forward + backward at 8 x 128 x 1536 (the
+                      pipelined step's FFN activation on one dp shard),
+                      beside F.gelu(approximate="tanh") + its gradient
+                      through autograd (chip_smoke.py's library call);
+  bfs                 the whole SP.bfs from 256 sources (seed 0) on
+                      bench_centrality.write_bench_graph's 1M-node, 20M-edge
+                      graph (written once under data/kernel_times_graph),
+                      the same arguments in both trees, with its round count
+                      and its "rounds" seconds; and one round at
+                      chip_smoke.py's row, the fourth (256 sources, after
+                      three rounds): K7's relaxation in a tree that has
+                      `SP.relax`, else the frontier step with seen put back
+                      before each call (a copy, in the call's event time;
+                      its device time by kernel apart);
   sgd                 K16d over the 25 f32 tensors of the pipelined train
                       step (6 stages of attn_qkv, attn_out, ffn_in, ffn_out
                       at H = 384, FFN = 1536, and the head), 10,617,216
@@ -82,7 +96,8 @@ train steps) after 5 warm-ups (what the host can issue and the card finish:
 the smoke's measure), and `device_ms`, the card's own time for one call,
 the sum of the kernels' device time in a torch.profiler window over the
 same number of calls ("not measured", null, when the profiler saw no
-device time), with each kernel's part where a call runs two to four.
+device time), with each kernel's part where a call runs two to four (and
+for the BFS's readings always).
 Prints the card's name and power limit, a JSON line a reading, and a JSON
 summary last. Needs a card; imports nothing of JAX.
 """
@@ -108,7 +123,9 @@ INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
 GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
-            "bias_gelu_backward", "layernorm", "mean_pool", "sgd", "pipeline_step", "dual_step")
+            "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "sgd",
+            "pipeline_step", "dual_step")
+GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -182,11 +199,11 @@ def worker(root: str, calls: int, readings: list) -> list:
     def bf(*shape):
         return torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
 
-    def read(pairs, n=calls, **key):  # pairs: (name, fn), kernel first
+    def read(pairs, n=calls, parts=False, **key):  # pairs: (name, fn), kernel first
         for name, fn in pairs:
             ev, dev, by_kernel = measure(fn, n)
             rec = {"name": name, **key, "event_ms": ev, "device_ms": dev}
-            if 1 < len(by_kernel) <= 4:  # a few kernels: each one's share
+            if 1 < len(by_kernel) <= 4 or parts:  # a few kernels: each one's share
                 rec["device_ms_by_kernel"] = by_kernel
             out.append(rec)
 
@@ -326,6 +343,51 @@ def worker(root: str, calls: int, readings: list) -> list:
         lens = torch.randint(8, T + 1, (B, 1), generator=g)
         qmask = (torch.arange(T) < lens).to(torch.int32).cuda()
         read((("K5d_forward", lambda: E.mean_pool_forward(hq, qmask, True)),), B=B, T=T)
+    if "gelu_tanh" in readings:
+        x = (3 * torch.randn((STAGE_MB, 128, 1536), generator=g)).cuda()
+        dx = torch.randn(x.shape, generator=g).cuda()
+        xl = x.clone().requires_grad_(True)
+        y = F.gelu(xl, approximate="tanh")
+        read((("K16c", lambda: (ST.gelu_tanh_forward(x), ST.gelu_tanh_backward(x, dx))),
+              ("gelu_tanh_library", lambda: (F.gelu(x, approximate="tanh"),
+                                             torch.autograd.grad(y, xl, dx, retain_graph=True)))),
+             M=STAGE_MB * 128, N=1536)
+        del x, dx, xl, y
+    if "bfs" in readings:
+        import numpy as np
+
+        from stract_tpu_torch.entrypoint import bench_centrality as BC
+        from stract_tpu_torch.webgraph import shortest_path as SP
+        from stract_tpu_torch.webgraph.csr import graph_in_csr
+
+        gr = BC.write_bench_graph(os.path.join(ROOT, "data", "kernel_times_graph"),
+                                  GRAPH_NODES, GRAPH_EDGES)
+        n = gr.num_nodes
+        ef, et = SP.forward_edges(gr)
+        csr = graph_in_csr(gr, "cuda")
+        sources = np.random.default_rng(0).choice(n, size=GRAPH_SAMPLES, replace=False)
+        t = {}
+        read((("bfs", lambda: SP.bfs(n, ef, et, sources, device="cuda", csr=csr, timings=t)),),
+             n=3, parts=True, S=GRAPH_SAMPLES)
+        out[-1].update(n_rounds=t["n_rounds"], rounds_s=t["rounds"])
+        if hasattr(SP, "relax"):  # a tree from before the frontier step
+            dist = torch.full((GRAPH_SAMPLES, n), int(SP.UNREACHABLE), dtype=torch.int32,
+                              device="cuda")
+            dist[torch.arange(GRAPH_SAMPLES), torch.from_numpy(sources).cuda()] = 0
+            dns = dist.t().contiguous()
+            for _ in range(3):
+                dns, _ = SP.relax(dns, csr)
+            spare = torch.empty_like(dns)
+            step = lambda: SP.relax(dns, csr, out=spare)  # noqa: E731
+        else:
+            state = SP.bfs_start(n, sources, "cuda")
+            for level in range(3):
+                state, _ = SP.frontier_step(state, csr, level)
+            seen0, spare = state.seen.clone(), torch.empty_like(state.frontier)
+            step = lambda: (state.seen.copy_(seen0),  # noqa: E731
+                            SP.frontier_step(state, csr, 3, out=spare))
+        read((("bfs_round_3", step),), parts=True, S=GRAPH_SAMPLES)
+        del csr, spare
     if "sgd" in readings:
         ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
         gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
@@ -399,7 +461,7 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B",
+            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "S",
                                                        "tensors")
                              if f in rec)
             key = f"{tree} {rec['name']} {shape}"

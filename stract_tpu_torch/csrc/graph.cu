@@ -1,13 +1,13 @@
 // The webgraph centrality kernels on Hopper (sm_90a): K6a HyperBall register
-// merge, K6b HLL size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
-// ring step.
+// merge, K6b HLL size estimate, K7 the multi-source BFS's frontier step, K8
+// the sharded HyperBall's ring step.
 //
 // K6a replaces stract_tpu/ops/hll_ops.py:50 merge_iteration (a gather of
 // regs[edge_from] and a scatter-max into regs[edge_to]); its epilogue also
 // computes K6b for the new rows. K6b alone replaces hll_ops.py:64
 // estimate_sizes (the initial estimate). K7 replaces
-// stract_tpu/webgraph/shortest_path.py:21 _relax and its vmap over sources
-// (:59).
+// stract_tpu/webgraph/shortest_path.py:21 _relax, its vmap over sources
+// (:59) and its loop to a fixpoint (:60-64), one launch a round.
 //
 // Pull form, no atomics: every target row v reads the round-start rows of its
 // in-neighbours u through the reverse CSR (offsets[v]..offsets[v+1] into
@@ -16,15 +16,13 @@
 // One int flag, zeroed before the launch, is set when any row changed; the
 // host reads 4 bytes a round instead of comparing the registers.
 //
-// What bounds them: each round moves, once, the registers or distances in
-// and out plus the CSR (K6a at 1M nodes x 64 registers and 20M edges: 128 MB
-// + 80 MB of sources), but the gather reads an in-neighbour's row for every
-// edge (20M x 64 B = 1.28 GB for K6a, 20M x S x 4 B for K7), from L2 when
-// the row is there (50 MB L2, 64 MB of registers): the kernels are bound by
-// that gather's memory traffic and its latency, far above the bytes-once
-// bound. Each edge's row is read whole by neighbouring threads (64 B by 16
-// threads for K6a, S x 4 B by one warp for K7 at S >= 32), so each gather is
-// coalesced.
+// What bounds K6a and K8: each round moves, once, the registers in and out
+// plus the CSR (K6a at 1M nodes x 64 registers and 20M edges: 128 MB + 80
+// MB of sources), but the gather reads an in-neighbour's row for every edge
+// (20M x 64 B = 1.28 GB), from L2 when the row is there (50 MB L2, 64 MB of
+// registers): they are bound by that gather's memory traffic and its
+// latency, far above the bytes-once bound. Each edge's row is read whole by
+// neighbouring threads (64 B by 16 threads), so each gather is coalesced.
 //
 // In-degree skew: the Pareto targets of a web graph put most edges on few
 // rows. A row with more than `long_cut` in-edges is split across a whole
@@ -60,9 +58,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxWordsPerThread = 16;  // m <= 16 x 16 x 4 = 1024 registers
 constexpr int kGroupMax = 16;           // threads per register row
-constexpr int kRelaxWarps = kThreads / 32;
-constexpr int kRelaxCols = 8;           // distances per lane per column tile
-constexpr int kRelaxTile = 32 * kRelaxCols;
 
 // the words a thread holds: unrolled to the compile-time maximum and guarded,
 // so its array of words stays in registers
@@ -189,29 +184,59 @@ hll_estimate_kernel(const uint32_t* __restrict__ regs, HllShape s, float* __rest
     if (valid && g == 0) sizes[v] = hll_estimate(sum, zeros, s);
 }
 
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
+// K7, one round r of the multi-source BFS, as a bitset frontier step
+// (MS-BFS: Then et al., "The More the Merrier: Efficient Multi-Source Graph
+// Traversal", VLDB 2015). The reference relaxes every distance every round,
+// dist[v, s] = min(dist[v, s], min over in-edges u of dist[u, s] + 1),
+// which gathers the S-wide distance row of every in-neighbour: at S = 256
+// 1 KB for each of 20M edges, 20.5 GB a round from a 1 GB table that L2
+// cannot hold. From the BFS start state (0 at each source, UNREACHABLE
+// elsewhere) every finite distance after r rounds is the exact level, so
+// only the pairs at level r (the frontier) can lower anything, and only an
+// UNREACHABLE entry, to r + 1: the relaxation's result is "r + 1 where v is
+// not yet seen for s and some in-neighbour is in s's frontier", the same
+// bits round for round, and it changes exactly when that set is not empty.
+//
+// State, node-major, W = ceil(S / 32) words a node: seen u32[N, W] (the
+// padding bits past S set from the start, so they are never reached),
+// frontier u32[N, W] (read) and next u32[N, W] (written: the next round's
+// frontier, a second buffer), dist i32[N, 32 W]. Row v: next = (OR over
+// in-edges u of frontier[u]) & ~seen[v]; seen[v] |= next and dist[v, s] =
+// r + 1 for each bit of next, in place (only v's own threads touch them);
+// `changed` is set when any next is not zero.
+//
+// What bounds it: the bytes once are frontier, seen and next (3 N W 4 B), the
+// CSR (offsets, sources, long rows) and 4 B for each distance written this
+// round: at 1M nodes x 256 sources and 20M edges 96 MB + 84 MB, 0.054 ms
+// over 3.35 TB/s, plus the writes. The gather is W words an edge (32 B at
+// S = 256, 640 MB a round) from a 32 MB frontier table that fits in L2.
+// Lanes: WL lanes (W rounded up to a power of two, at most 32; chunks of
+// 32 words past S = 1,024) read one in-neighbour's words, so its row is one
+// coalesced read (one 32 B sector at S = 256); a row's group has
+// G = max(8, WL) lanes, which read G / WL in-edges at once. The group loads
+// G of the row's sources in one coalesced read and hands them round by
+// shuffles, so each lane has WL loads of the frontier in flight at once.
+// A row with no in-edges, or whose seen bits are all set (it cannot
+// change), skips its edges and writes next = 0. A row with more than
+// `long_cut` in-edges takes a block: its groups stride over the edges and
+// OR their parts in shared memory, and the first group finishes the row.
+constexpr int kStepGroup = 8;  // the fewest lanes of a row's group
 
-// K7 (dist i32[N, S]): one warp per row. For S a multiple of 32 the lanes
-// take the sources, in tiles of 256 columns, and the warp walks the row's
-// edges together, so an in-neighbour's S distances are one coalesced read.
-// For S = 1 (kOne) the lanes take turns over the edges instead (a tile of one
-// column, then a warp min): padded to 32 columns, one source would move 32x
-// the bytes. A long row takes a block whose warps stride over its edges and
-// meet in shared memory. kOne is a template argument so that the S = 1
-// instance keeps one distance a thread, not eight, in registers.
-template <bool kOne>
+template <int WL>
 __global__ void __launch_bounds__(kThreads)
-bfs_relax_kernel(const int* __restrict__ dist, const int* __restrict__ offsets,
-                 const int* __restrict__ sources, const int* __restrict__ long_rows,
-                 int short_blocks, int long_cut, int n, int S, int* __restrict__ out,
-                 int* __restrict__ changed) {
-    constexpr int kCols = kOne ? 1 : kRelaxCols;  // distances a lane holds
-    __shared__ int s_min[kRelaxWarps][32 * kCols];
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+bfs_step_kernel(const uint32_t* __restrict__ frontier, const int* __restrict__ offsets,
+                const int* __restrict__ sources, const int* __restrict__ long_rows,
+                int short_blocks, int long_cut, int n, int W, int level,
+                uint32_t* __restrict__ seen, int* __restrict__ dist,
+                uint32_t* __restrict__ next, int* __restrict__ changed) {
+    constexpr int G = WL < kStepGroup ? kStepGroup : WL;  // lanes of a row's group
+    constexpr int kSlots = G / WL;                        // in-edges the group reads at once
+    constexpr int kGroups = kThreads / G;
+    __shared__ uint32_t s_part[kThreads];
+    const int gl = threadIdx.x % G, group = threadIdx.x / G;
+    const int wl = gl % WL, slot = gl / WL;
+    const unsigned gmask =  // this group's lanes of the warp (G % 32: no shift by 32)
+        G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1) << (threadIdx.x % 32 / G * G);
     const bool long_row = blockIdx.x >= short_blocks;
     long long v;
     bool valid;
@@ -222,56 +247,61 @@ bfs_relax_kernel(const int* __restrict__ dist, const int* __restrict__ offsets,
         start = offsets[v];
         end = offsets[v + 1];
     } else {
-        v = static_cast<long long>(blockIdx.x) * kRelaxWarps + warp;
+        v = static_cast<long long>(blockIdx.x) * kGroups + group;
         valid = v < n;
         if (valid) {
             start = offsets[v];
             end = offsets[v + 1];
             valid = end - start <= long_cut;
+            if (!valid) end = start;  // its own block walks it
         }
     }
-    // this thread's first edge and its stride over the row's edges
-    constexpr int per_warp = kOne ? 32 : 1;
-    const int step = (long_row ? kRelaxWarps : 1) * per_warp;
-    start += (long_row ? warp : 0) * per_warp + (kOne ? lane : 0);
-    const int col = kOne ? 0 : lane;
-    bool diff = false;
-    for (int c0 = 0; c0 < S; c0 += kRelaxTile) {
-        const int cols = kOne ? 1 : min(kRelaxTile, S - c0) / 32;
-        int best[kCols];
+    // this group's first edge and its stride over the row's edges
+    const int first = start + (long_row ? group * G : 0);
+    const int stride = (long_row ? kGroups : 1) * G;
+    const bool writer = valid && (!long_row || group == 0) && slot == 0;
+    bool any = false;
+    for (int c0 = 0; c0 < W; c0 += WL) {
+        const int w = c0 + wl;
+        const long long at = v * W + w;
+        // all ones for a word past W or a row with no in-edges: nothing to gather
+        const uint32_t old = valid && w < W && end > start ? seen[at] : ~0u;
+        uint32_t acc = 0;
+        // the same words in every group of the row: one answer for the group
+        // (and for a long row's whole block)
+        if (!__all_sync(gmask, old == ~0u)) {
+            for (int e0 = first; e0 < end; e0 += stride) {
+                const int cnt = min(G, end - e0);
+                const int idx = gl < cnt ? sources[e0 + gl] : 0;
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) best[j] = INT_MAX;
-        for (int e = start; valid && e < end; e += step) {
-            const int* row = dist + static_cast<long long>(sources[e]) * S + c0 + col;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j)
-                if (j < cols) best[j] = min(best[j], row[32 * j] + 1);
-        }
-        if (kOne) best[0] = warp_min(best[0]);
-        if (long_row) {
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) s_min[warp][lane + 32 * j] = best[j];
-            __syncthreads();
-            if (warp == 0) {
-                for (int q = 1; q < kRelaxWarps; ++q)
-#pragma unroll
-                    for (int j = 0; j < kCols; ++j) best[j] = min(best[j], s_min[q][lane + 32 * j]);
-            }
-            __syncthreads();
-        }
-        if (valid && (!long_row || warp == 0) && (!kOne || lane == 0)) {
-            const long long base = v * S + c0 + col;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) {
-                if (j < cols) {
-                    const int old = dist[base + 32 * j], nv = min(old, best[j]);
-                    out[base + 32 * j] = nv;
-                    diff |= nv != old;
+                for (int j = 0; j < WL; ++j) {
+                    const int k = j * kSlots + slot;
+                    const long long u = __shfl_sync(gmask, idx, k, G);
+                    if (k < cnt && w < W) acc |= frontier[u * W + w];
                 }
             }
         }
+#pragma unroll
+        for (int o = WL; o < G; o <<= 1) acc |= __shfl_xor_sync(gmask, acc, o, G);
+        if (long_row) {
+            s_part[threadIdx.x] = acc;
+            __syncthreads();
+            if (group == 0)
+                for (int q = 1; q < kGroups; ++q) acc |= s_part[q * G + gl];
+            __syncthreads();
+        }
+        if (writer && w < W) {
+            const uint32_t fresh = acc & ~old;
+            next[at] = fresh;
+            if (fresh != 0u) {
+                seen[at] = old | fresh;
+                int* row = dist + v * 32LL * W + 32 * w;
+                for (uint32_t m = fresh; m != 0u; m &= m - 1) row[__ffs(m) - 1] = level + 1;
+                any = true;
+            }
+        }
     }
-    if (diff) *changed = 1;
+    if (any) *changed = 1;
 }
 
 HllShape hll_shape(int n, int m, float alpha) {
@@ -355,22 +385,38 @@ int stract_hll_estimate(const void* regs, int n, int m, float alpha, float* size
     return cudaGetLastError();
 }
 
-// K7: dist i32[n, S] (S = 1, or a multiple of 32) -> out i32[n, S],
-// changed i32[1] (zeroed here); offsets, sources, long_rows as for K6a.
-int stract_bfs_relax(const int* dist, const int* offsets, const int* sources, const int* long_rows,
-                     int n_long, int n, int S, int long_cut, int* out, int* changed,
-                     cudaStream_t stream) {
-    if (n < 0 || n_long < 0 || long_cut < 0 || S < 1 || (S > 1 && S % 32 != 0))
+// K7, round `level` of the BFS: frontier u32[n, W] (read), seen u32[n, W]
+// and dist i32[n, 32 W] (updated in place), next u32[n, W] (written, another
+// buffer than frontier), changed i32[1] (zeroed here); offsets, sources,
+// long_rows as for K6a. The padding bits of seen past the sources must be
+// set. Returns the CUDA status of the launch.
+int stract_bfs_step(const uint32_t* frontier, const int* offsets, const int* sources,
+                    const int* long_rows, int n_long, int n, int W, int long_cut, int level,
+                    uint32_t* seen, int* dist, uint32_t* next, int* changed,
+                    cudaStream_t stream) {
+    if (n < 0 || n_long < 0 || long_cut < 0 || W < 1 || level < 0 || level >= INT_MAX - 1 ||
+        frontier == next)
         return cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), stream);
     if (err != cudaSuccess || n == 0) return err;
-    const int short_blocks = (n + kRelaxWarps - 1) / kRelaxWarps;
-    if (S == 1)
-        bfs_relax_kernel<true><<<short_blocks + n_long, kThreads, 0, stream>>>(
-            dist, offsets, sources, long_rows, short_blocks, long_cut, n, S, out, changed);
-    else
-        bfs_relax_kernel<false><<<short_blocks + n_long, kThreads, 0, stream>>>(
-            dist, offsets, sources, long_rows, short_blocks, long_cut, n, S, out, changed);
+    int wl = 1;  // W rounded up to a power of two, at most 32
+    while (wl < W && wl < 32) wl *= 2;
+    const int groups = kThreads / (wl < kStepGroup ? kStepGroup : wl);
+    const int short_blocks = (n + groups - 1) / groups;
+    const unsigned grid = static_cast<unsigned>(short_blocks + n_long);
+#define STRACT_BFS_STEP(WL)                                                                    \
+    bfs_step_kernel<WL><<<grid, kThreads, 0, stream>>>(frontier, offsets, sources, long_rows, \
+                                                       short_blocks, long_cut, n, W, level,   \
+                                                       seen, dist, next, changed)
+    switch (wl) {
+        case 1: STRACT_BFS_STEP(1); break;
+        case 2: STRACT_BFS_STEP(2); break;
+        case 4: STRACT_BFS_STEP(4); break;
+        case 8: STRACT_BFS_STEP(8); break;
+        case 16: STRACT_BFS_STEP(16); break;
+        default: STRACT_BFS_STEP(32); break;
+    }
+#undef STRACT_BFS_STEP
     return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // K16a: the single-head f32 attention of the pipeline stage on Hopper
-// (sm_90a), K16b: its backward, and K16d: the SGD update of all the
-// parameters of a card in one launch (sgd_multi_kernel, at the end).
+// (sm_90a), K16b: its backward, K16c: the stage's f32 tanh GELU and its
+// backward, and K16d: the SGD update of all the parameters of a card in one
+// launch (K16c and K16d at the end).
 //
 // Replaces stract_tpu/parallel/pipeline.py:44-48 (_apply_stage): q, k, v
 // are the three H-wide column blocks of qkv f32[mb, T, 3H] (one head whose
@@ -572,6 +573,111 @@ __global__ void __launch_bounds__(kSgdThreads) sgd_multi_kernel(const SgdArgs ar
     }
 }
 
+// K16c: the pipeline stage's tanh GELU, jax.nn.gelu(x @ ffn_in,
+// approximate=True) in f32 with no bias (stract_tpu/parallel/pipeline.py:50),
+// and its VJP, which jax.value_and_grad takes through it in
+// make_pipeline_train_step. y = x * 0.5 * (1 + t), t = tanh(c1 (x + c2 x^3)),
+// the cube as x * x * x, c1 = f32(sqrt(2 / pi)), c2 = f32(0.044715) (the
+// constants of ops/stage.py); dx = g * 0.5 * (1 + t) + g * x * 0.5 * (1 -
+// t^2) * c1 * (1 + 3 c2 x^2), in the plain version's order
+// (gelu_tanh_backward_plain). tanh(u) is 1 - 2 / (e^{2u} + 1): exact at both
+// tails (u -> +inf gives 1, u -> -inf gives -1, and no NaN), to a few ulps in
+// between, with expf and __fdividef (2 ulps; 0 for a divisor past 2^126 or
+// infinite, which is the top tail's t = 1); the hardware tanh.approx.f32
+// keeps about 11 bits, short of the plain version's tolerance (rtol 1e-5).
+// The IEEE division takes its slow path on the tails' large e; the
+// approximate one leaves the largest error against the plain versions as it
+// was (the formula's own cancellation near t = -1 sets it).
+//
+// What bounds it: one flat pass over memory, 8 bytes an element forward (x
+// read, y written) and 12 backward (x and g read, dx written), ~35
+// operations an element: 20 B over 3.35 TB/s, 0.0094 ms for the pair at the
+// pipelined step's 8 x 128 x 1536 (the 19 MB a pair touches can stay in the
+// 50 MB L2 from one call to the next, so a pair may read under that bound).
+// The design is the flat pass and nothing
+// else: 16-byte loads and stores where every pointer is 16-byte aligned and
+// n % 4 == 0, single elements otherwise (any n, any contiguous view), on a
+// fixed grid of 8 blocks of 256 an SM (the most that are resident) that
+// strides over the elements: a first build with 4 blocks an SM and the IEEE
+// division read 0.0087-0.0088 ms a pair on the device, this one
+// 0.0071-0.0073 (scripts/kernel_times.py, H100 at 700 W). It is
+// CUDA rather than Triton for the host side, not the work: the ctypes
+// launch under ops/kernels.py on_card costs a few microseconds of host
+// against Triton's Python launcher and device guard, and every other
+// kernel of the port is built the same way.
+constexpr int kGeluThreads = 256;
+constexpr int kGeluBlocksPerSm = 8;
+constexpr float kGeluC1 = 0.7978845608028654f;  // f32(sqrt(2 / pi))
+constexpr float kGeluC2 = 0.044715f;
+// 3 c2 as the plain version forms it: 3.0 * c2 in double, rounded to f32
+constexpr float kGelu3C2 = static_cast<float>(3.0 * static_cast<double>(kGeluC2));
+
+__device__ __forceinline__ float gelu_t(float x) {
+    const float u = kGeluC1 * (x + kGeluC2 * (x * x * x));
+    return 1.0f - __fdividef(2.0f, expf(2.0f * u) + 1.0f);
+}
+
+__device__ __forceinline__ float gelu_fwd(float x) { return x * (0.5f * (1.0f + gelu_t(x))); }
+
+__device__ __forceinline__ float gelu_bwd(float x, float g) {
+    const float t = gelu_t(x);
+    const float du = kGeluC1 * (1.0f + kGelu3C2 * (x * x));
+    return g * (0.5f * (1.0f + t)) + g * x * (0.5f * (1.0f - t * t)) * du;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__global__ void __launch_bounds__(kGeluThreads)
+gelu_tanh_kernel(const float* __restrict__ x, float* __restrict__ y, long long n) {
+    const long long stride = static_cast<long long>(gridDim.x) * kGeluThreads;
+    const long long first = static_cast<long long>(blockIdx.x) * kGeluThreads + threadIdx.x;
+    if (n % 4 == 0 && aligned16(x) && aligned16(y)) {
+        const float4* x4 = reinterpret_cast<const float4*>(x);
+        float4* y4 = reinterpret_cast<float4*>(y);
+        for (long long i = first; i < n / 4; i += stride) {
+            const float4 a = x4[i];
+            y4[i] = make_float4(gelu_fwd(a.x), gelu_fwd(a.y), gelu_fwd(a.z), gelu_fwd(a.w));
+        }
+    } else {
+        for (long long i = first; i < n; i += stride) y[i] = gelu_fwd(x[i]);
+    }
+}
+
+__global__ void __launch_bounds__(kGeluThreads)
+gelu_tanh_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                          float* __restrict__ dx, long long n) {
+    const long long stride = static_cast<long long>(gridDim.x) * kGeluThreads;
+    const long long first = static_cast<long long>(blockIdx.x) * kGeluThreads + threadIdx.x;
+    if (n % 4 == 0 && aligned16(x) && aligned16(g) && aligned16(dx)) {
+        const float4* x4 = reinterpret_cast<const float4*>(x);
+        const float4* g4 = reinterpret_cast<const float4*>(g);
+        float4* d4 = reinterpret_cast<float4*>(dx);
+        for (long long i = first; i < n / 4; i += stride) {
+            const float4 a = x4[i], b = g4[i];
+            d4[i] = make_float4(gelu_bwd(a.x, b.x), gelu_bwd(a.y, b.y), gelu_bwd(a.z, b.z),
+                                gelu_bwd(a.w, b.w));
+        }
+    } else {
+        for (long long i = first; i < n; i += stride) dx[i] = gelu_bwd(x[i], g[i]);
+    }
+}
+
+// the fixed grid of a flat pass over n elements: enough blocks for one
+// 16-byte piece a thread, at most kGeluBlocksPerSm blocks an SM of the
+// current card, at least one
+cudaError_t gelu_grid(long long n, unsigned* blocks) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long long want = (n + 4LL * kGeluThreads - 1) / (4LL * kGeluThreads);
+    const long long cap = static_cast<long long>(sms) * kGeluBlocksPerSm;
+    *blocks = static_cast<unsigned>(want < cap ? (want > 0 ? want : 1) : cap);
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -615,6 +721,31 @@ int stract_stage_attention_backward(const float* qkv, const float* dout, float* 
     if (err != cudaSuccess) return err;
     stage_attention_bwd_key_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
         qkv, dout, probs, dscores, dqkv, T, H);
+    return cudaGetLastError();
+}
+
+// K16c: x f32[n] -> y f32[n], the tanh GELU (any n >= 0; 16-byte pieces
+// where both pointers allow and n % 4 == 0). Returns the CUDA status of the
+// launch (none for n = 0).
+int stract_gelu_tanh(const float* x, float* y, long long n, cudaStream_t stream) {
+    if (n < 0) return cudaErrorInvalidValue;
+    if (n == 0) return cudaSuccess;
+    unsigned blocks = 0;
+    const cudaError_t err = gelu_grid(n, &blocks);
+    if (err != cudaSuccess) return err;
+    gelu_tanh_kernel<<<blocks, kGeluThreads, 0, stream>>>(x, y, n);
+    return cudaGetLastError();
+}
+
+// K16c backward: x, dout f32[n] -> dx f32[n], the VJP of stract_gelu_tanh.
+int stract_gelu_tanh_backward(const float* x, const float* dout, float* dx, long long n,
+                              cudaStream_t stream) {
+    if (n < 0) return cudaErrorInvalidValue;
+    if (n == 0) return cudaSuccess;
+    unsigned blocks = 0;
+    const cudaError_t err = gelu_grid(n, &blocks);
+    if (err != cudaSuccess) return err;
+    gelu_tanh_backward_kernel<<<blocks, kGeluThreads, 0, stream>>>(x, dout, dx, n);
     return cudaGetLastError();
 }
 

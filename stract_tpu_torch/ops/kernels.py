@@ -17,20 +17,20 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     K14c the bias + GELU backward, K5d the masked mean pool and its
                     backward
   csrc/graph.cu     K6a HyperBall register merge (+ K6b in its epilogue), K6b HLL
-                    size estimate, K7 BFS relaxation, K8 the sharded HyperBall's
-                    ring step
+                    size estimate, K7 the BFS's bitset frontier step, K8 the
+                    sharded HyperBall's ring step
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
                     backward
   csrc/losses.cu    K15c the loss heads: the pairwise logistic head (plain and
                     distilled) and the in-batch InfoNCE head, value and gradient
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
-                    backward, K16d the SGD update of a card's parameters in one launch
+                    backward, K16c its f32 tanh GELU and the GELU's backward, K16d
+                    the SGD update of a card's parameters in one launch
 
 (K14d and K15d, the fused AdamW updates of f32 masters and of bf16
 parameters, are Triton kernels in optim.py; K15b, the MoE select-and-scale,
-in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); K16c, the pipeline
-stage's f32 tanh GELU, in ops/stage.py; they count their launches here too,
-and launch on their tensors' card as well: `card_of`.)
+in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); they count their
+launches here too, and launch on their tensors' card as well: `card_of`.)
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches under `on_card` (the card its tensors lie on
@@ -98,7 +98,7 @@ MAX_SMEM = 227 * 1024
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
 # backward launches alike, and so does "gelu_tanh", K16c; "pair_loss" and
 # "info_nce" are K15c's two heads; "mean_pool" counts K5d's forward and
-# backward launches alike)
+# backward launches alike; "bfs_relax" counts K7's frontier steps)
 LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
             "signals_q16": 0, "factors_join": 0, "stage_b_joined": 0, "signals_joined": 0,
             "signals_prefix": 0, "dense_rerank": 0, "forest": 0, "attention": 0,
@@ -247,9 +247,9 @@ def _load(name: str):
             elif name == "graph":
                 lib.stract_hll_merge.argtypes = [P, P, P, P, I, I, I, I, F, P, P, P, P]
                 lib.stract_hll_estimate.argtypes = [P, I, I, F, P, P]
-                lib.stract_bfs_relax.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
+                lib.stract_bfs_step.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, P, P]
                 lib.stract_hll_ring_step.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P]
-                fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_relax,
+                fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_step,
                        lib.stract_hll_ring_step)
             elif name == "moe":
                 lib.stract_moe_router.argtypes = [P, P, P, I, I, I, P, P, P, P]
@@ -259,8 +259,11 @@ def _load(name: str):
                 lib.stract_stage_attention.argtypes = [P, P, I, I, I, P]
                 lib.stract_stage_attention_backward.argtypes = [P, P, P, P, P, I, I, I, P]
                 lib.stract_sgd_multi.argtypes = [ctypes.POINTER(SgdArgs), LL, P]
+                lib.stract_gelu_tanh.argtypes = [P, P, LL, P]
+                lib.stract_gelu_tanh_backward.argtypes = [P, P, P, LL, P]
                 fns = (lib.stract_stage_attention, lib.stract_stage_attention_backward,
-                       lib.stract_sgd_multi)
+                       lib.stract_sgd_multi, lib.stract_gelu_tanh,
+                       lib.stract_gelu_tanh_backward)
             elif name == "losses":
                 lib.stract_info_nce.argtypes = [P, P, P, P, I, I, P]
                 lib.stract_pair_loss.argtypes = [P, P, P, P, P, P, P, I, F, I, P]
@@ -847,6 +850,37 @@ def stage_attention_backward(qkv, dout, probs, dscores, dqkv) -> None:
     counted("stage_attention_backward")
 
 
+def gelu_tanh(x, y) -> None:
+    """K16c: x f32 (contiguous, any shape and view) → y f32 of x's shape,
+    the tanh GELU (ops/stage.py allocates); no elements launch nothing."""
+    f32 = torch.float32
+    ptrs = (_ptr(x, f32), _ptr(y, f32, x.shape))
+    n = x.numel()
+    if n == 0:
+        return
+    lib = _load("stage")
+    with on_card(x, y) as stream:
+        rc = lib.stract_gelu_tanh(*ptrs, n, stream)
+    _check(rc, "stract_gelu_tanh")
+    counted("gelu_tanh")
+
+
+def gelu_tanh_backward(x, dout, dx) -> None:
+    """K16c's backward: x, dout f32 (contiguous, one shape) → dx f32, the
+    VJP of the tanh GELU (ops/stage.py allocates); no elements launch
+    nothing."""
+    f32 = torch.float32
+    ptrs = (_ptr(x, f32), _ptr(dout, f32, x.shape), _ptr(dx, f32, x.shape))
+    n = x.numel()
+    if n == 0:
+        return
+    lib = _load("stage")
+    with on_card(x, dout, dx) as stream:
+        rc = lib.stract_gelu_tanh_backward(*ptrs, n, stream)
+    _check(rc, "stract_gelu_tanh_backward")
+    counted("gelu_tanh")
+
+
 def sgd_multi(params: list, grads: list, lr: float) -> None:
     """K16d: p -= lr * g in place for every pair, f32 tensors of one card
     (each g of its p's size): one launch per SGD_MAX_TENSORS pairs
@@ -1004,19 +1038,31 @@ def hll_estimate(regs, alpha: float, sizes) -> None:
     counted("hll_estimate")
 
 
-def bfs_relax(dist, offsets, sources, long_rows, long_cut: int, out, changed) -> None:
-    """K7: dist i32[N, S] (S = 1 or a multiple of 32) over the reverse CSR →
-    out i32[N, S], changed i32[1] (webgraph/shortest_path.py allocates)."""
-    n, S = dist.shape
-    if S != 1 and S % 32:
-        raise ValueError(f"the relaxation takes 1 or a multiple of 32 sources, not {S}")
+def bfs_step(frontier, seen, dist, offsets, sources, long_rows, long_cut: int, level: int,
+             next_frontier, changed) -> None:
+    """K7, round `level` of the BFS over the reverse CSR: frontier, seen
+    i32[N, W] (32 sources' bits a word; seen's bits past the sources set),
+    dist i32[N, 32 W] → seen and dist updated in place, next_frontier
+    i32[N, W] (another tensor than frontier), changed i32[1]
+    (webgraph/shortest_path.py allocates). Counted as "bfs_relax"."""
+    n, W = frontier.shape
+    if W < 1 or tuple(dist.shape) != (n, 32 * W):
+        raise ValueError(f"the BFS step takes bits i32[N, W], W >= 1, and distances "
+                         f"i32[N, 32 W], not {tuple(frontier.shape)} and {tuple(dist.shape)}")
+    if next_frontier.data_ptr() == frontier.data_ptr():
+        raise ValueError("the next frontier must be another tensor than the frontier")
+    if not 0 <= level < 2 ** 31 - 2:
+        raise ValueError(f"round {level} out of range")
     off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
     i32 = torch.int32
     lib = _load("graph")
-    with on_card(dist, offsets, sources, out, changed) as stream:
-        rc = lib.stract_bfs_relax(_ptr(dist, i32, (n, S)), off, src, lr, n_long, n, S, long_cut,
-                                  _ptr(out, i32, (n, S)), _ptr(changed, i32, (1,)), stream)
-    _check(rc, "stract_bfs_relax")
+    with on_card(frontier, seen, dist, offsets, sources, long_rows, next_frontier,
+                 changed) as stream:
+        rc = lib.stract_bfs_step(_ptr(frontier, i32, (n, W)), off, src, lr, n_long, n, W,
+                                 long_cut, level, _ptr(seen, i32, (n, W)),
+                                 _ptr(dist, i32, (n, 32 * W)), _ptr(next_frontier, i32, (n, W)),
+                                 _ptr(changed, i32, (1,)), stream)
+    _check(rc, "stract_bfs_step")
     counted("bfs_relax")
 
 

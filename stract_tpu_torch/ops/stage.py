@@ -12,7 +12,8 @@ twin:
   K16b  ... backward             dq, dk, dv into the three column blocks of one
                                  dqkv f32[mb, T, 3H]: CUDA C++, csrc/stage.cu
   K16c gelu_tanh, fwd + bwd      jax.nn.gelu(approximate=True) in f32, no bias
-                                 (:50): Triton
+                                 (:50): CUDA C++, csrc/stage.cu (a flat pass
+                                 each way, 16-byte pieces where aligned)
   K16d sgd_update_many           p - lr * g in place (:136) over all of a
                                  card's parameters in one launch: CUDA C++,
                                  csrc/stage.cu
@@ -22,8 +23,7 @@ dispatchers (`stage_attention_forward` / `_backward`, `gelu_tanh_forward` /
 `_backward`) in forward and backward, and `sgd_update_many` is one too: a
 CPU tensor takes the plain twin, a CUDA tensor launches the kernel or
 raises, on its own card's current stream (the pipeline's stages may sit on
-different cards: ops/kernels.py `on_card`, and `card_of` for the Triton
-launches).
+different cards: ops/kernels.py `on_card`).
 
 Numerics follow the reference in f32: the scores are divided by sqrt(H)
 rounded to f32 (JAX canonicalises the np.float64 scalar to f32), the
@@ -35,9 +35,6 @@ P * (g - rowsum(P * g)), gelu'(x) = cdf + x * 0.5 * (1 - t^2) * c1 *
 f32 rounding of these. The twins compute in the input's dtype, so float64
 inputs round nowhere and torch.autograd.gradcheck can check each backward
 against its forward.
-
-Triton is imported inside the launching function only: the CPU tests import
-this module where there is no triton.
 """
 
 from __future__ import annotations
@@ -53,8 +50,6 @@ F32 = torch.float32
 # jax.nn.gelu(approximate=True) on an f32 input: its constants in f32
 GELU_C1 = float(np.float32(np.sqrt(2 / np.pi)))
 GELU_C2 = float(np.float32(0.044715))
-BLOCK = 1024
-_TRITON: dict = {}
 
 
 def _split_qkv(qkv):
@@ -141,24 +136,12 @@ def gelu_tanh_backward_plain(x, dout):
     return dout * (0.5 * (1.0 + t)) + dout * x * (0.5 * (1.0 - t * t)) * du
 
 
-def _flat_f32(*ts) -> int:
-    n = ts[0].numel()
-    for t in ts:
-        kernels._ptr(t, F32, ts[0].shape)
-    return n
-
-
 def gelu_tanh_forward(x):
     if not x.is_cuda:
         return gelu_tanh_plain(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    n = _flat_f32(x, out)
-    if n:
-        with torch.cuda.device(kernels.card_of(x, out)):
-            _triton_kernels()["gelu"][(-(-n // BLOCK),)](x, out, n, GELU_C1, GELU_C2,
-                                                         BLOCK=BLOCK, num_warps=4)
-        kernels.counted("gelu_tanh")
+    kernels.gelu_tanh(x, out)
     return out
 
 
@@ -167,12 +150,7 @@ def gelu_tanh_backward(x, dout):
         return gelu_tanh_backward_plain(x, dout)
     x, dout = x.contiguous(), dout.contiguous()
     dx = torch.empty_like(x)
-    n = _flat_f32(x, dout, dx)
-    if n:
-        with torch.cuda.device(kernels.card_of(x, dout, dx)):
-            _triton_kernels()["gelu_bwd"][(-(-n // BLOCK),)](x, dout, dx, n, GELU_C1, GELU_C2,
-                                                             BLOCK=BLOCK, num_warps=4)
-        kernels.counted("gelu_tanh")
+    kernels.gelu_tanh_backward(x, dout, dx)
     return dx
 
 
@@ -219,39 +197,3 @@ def sgd_update_many(params, grads, lr: float) -> None:
         else:
             kernels.sgd_multi(ps, [g.contiguous() for g in gs], lr)
 
-
-# ---- the Triton kernels ------------------------------------------------------------------
-def _triton_kernels() -> dict:
-    """K16c ("gelu", "gelu_bwd"), defined (and triton imported) at first
-    use. Each is one flat pass over memory (8 and 12 bytes an element):
-    bound by the card's memory rate, so one program per BLOCK elements and
-    nothing else is the whole design."""
-    if _TRITON:
-        return _TRITON
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _tanh(u):
-        return 1.0 - 2.0 / (tl.exp(2.0 * u) + 1.0)  # exact at both tails
-
-    @triton.jit
-    def gelu_kernel(X, Y, n, c1, c2, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < n
-        x = tl.load(X + offs, mask=m, other=0.0)
-        t = _tanh(c1 * (x + c2 * (x * x * x)))
-        tl.store(Y + offs, x * (0.5 * (1.0 + t)), mask=m)
-
-    @triton.jit
-    def gelu_bwd_kernel(X, DO, DX, n, c1, c2, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < n
-        x = tl.load(X + offs, mask=m, other=0.0)
-        g = tl.load(DO + offs, mask=m, other=0.0)
-        t = _tanh(c1 * (x + c2 * (x * x * x)))
-        du = c1 * (1.0 + 3.0 * c2 * (x * x))
-        tl.store(DX + offs, g * (0.5 * (1.0 + t)) + g * x * (0.5 * (1.0 - t * t)) * du, mask=m)
-
-    _TRITON.update(gelu=gelu_kernel, gelu_bwd=gelu_bwd_kernel)
-    return _TRITON

@@ -2,30 +2,39 @@
 stract_tpu/webgraph/shortest_path.py (role of reference
 webgraph/shortest_path.rs BFS and the AMPC shortest-path job).
 
-Edge-parallel Bellman-Ford relaxation, dist[to] = min(dist[to], dist[from] +
-1), repeated to a fixpoint, from one source or from S at once (approximated
-harmonic centrality samples its sources, entrypoint/centrality.rs:73). On a
-card each round is one launch of K7 (csrc/graph.cu) over the reverse CSR with
-the distances held node-major [N, S], so an in-neighbour's S distances are one
-coalesced read; the kernel sets a flag when a distance changed. The public
-functions keep the JAX package's [S, N] layout (the transposes are part of
-their time). On the CPU each round is `relax_plain`.
+The reference relaxes every distance every round, dist[to] = min(dist[to],
+dist[from] + 1), to a fixpoint, from one source or from S at once
+(approximated harmonic centrality samples its sources,
+entrypoint/centrality.rs:73); `relax_plain` is the port's counterpart of
+that round. `bfs` starts where the reference does (0 at each source,
+UNREACHABLE elsewhere), and from that state every finite distance after r
+rounds is the exact level, so the round is a bitset frontier step (MS-BFS):
+a node not yet seen for source s whose in-neighbour is in s's frontier
+(level r) gets r + 1. The same distances round for round, and a round
+changes something exactly when the relaxation would, so the round count is
+the reference's too. The state (`BfsState`) is node-major: 32 sources' bits
+a word, W = ceil(S / 32) words a node (`seen`, with the bits past S set, and
+`frontier`), and the distances i32[N, 32 W]. On a card each round is one
+launch of K7 (csrc/graph.cu) over the reverse CSR; on the CPU it is
+`frontier_step_plain`. The public functions keep the JAX package's [S, N]
+layout (the transpose and the copy back are part of their time).
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops import kernels
-from .csr import LONG_ROW, graph_in_csr, in_csr
+from .csr import LONG_ROW, InCSR, graph_in_csr, in_csr
 from .store import Webgraph
 
 UNREACHABLE = np.int32(2**30)
-# the plain relaxation gathers at most this many bytes of distances at a time
+# the plain versions gather at most this many bytes a chunk of edges
 PLAIN_CHUNK_BYTES = 2 ** 31
 
 
@@ -39,9 +48,9 @@ def forward_edges(graph: Webgraph) -> tuple:
 
 
 def relax_plain(dist, edge_from, edge_to):
-    """One round for S sources, plainly: dist i32[S, N] → new i32[S, N], each
-    chunk of edges gathered from the round-start distances and min-reduced
-    into a copy."""
+    """One round of the reference for S sources, plainly: dist i32[S, N] →
+    new i32[S, N], each chunk of edges gathered from the round-start
+    distances and min-reduced into a copy."""
     S = dist.shape[0]
     ef = torch.as_tensor(edge_from, device=dist.device).long()
     et = torch.as_tensor(edge_to, device=dist.device).long()
@@ -53,51 +62,122 @@ def relax_plain(dist, edge_from, edge_to):
     return new
 
 
-def relax(dist_ns, csr, out=None):
-    """K7 over the reverse CSR: dist i32[N, S] (S = 1 or a multiple of 32) →
-    (new i32[N, S], i32[1] changed flag). Card tensors only."""
-    out = torch.empty_like(dist_ns) if out is None else out
-    changed = torch.empty(1, dtype=torch.int32, device=dist_ns.device)
-    kernels.bfs_relax(dist_ns, csr.offsets, csr.sources, csr.long_rows, LONG_ROW, out, changed)
-    return out, changed
+class BfsState(NamedTuple):
+    """The BFS after some rounds: seen, frontier i32[N, W] (bit s % 32 of
+    word s // 32 for source s; seen's bits past the sources set, so they are
+    never reached) and dist i32[N, 32 W] (UNREACHABLE where not seen)."""
+    seen: torch.Tensor
+    frontier: torch.Tensor
+    dist: torch.Tensor
+
+
+def _to_i32(words: np.ndarray) -> np.ndarray:
+    return np.asarray(words, dtype=np.uint32).view(np.int32)
+
+
+def bfs_start(n: int, sources, device) -> BfsState:
+    """The state of round 0 on `device`: each source seen and in the
+    frontier in its own column, at distance 0."""
+    src = np.asarray(sources, dtype=np.int64)
+    S = len(src)
+    W = max(1, -(-S // 32))
+    seen = torch.zeros((n, W), dtype=torch.int32, device=device)
+    tail = S - 32 * (W - 1)  # the sources of the last word, 0..32
+    if tail < 32:
+        seen[:, W - 1] = int(_to_i32([~((1 << tail) - 1) & 0xFFFFFFFF])[0])
+    cols = np.arange(S)
+    words, inv = np.unique(src * W + cols // 32, return_inverse=True)
+    bits = np.zeros(len(words), dtype=np.uint32)
+    np.bitwise_or.at(bits, inv.reshape(-1), (np.uint32(1) << (cols % 32)).astype(np.uint32))
+    at = torch.from_numpy(words).to(device)
+    frontier = torch.zeros_like(seen)
+    frontier.view(-1)[at] = torch.from_numpy(_to_i32(bits)).to(device)
+    seen.view(-1)[at] |= frontier.view(-1)[at]
+    dist = torch.full((n, 32 * W), int(UNREACHABLE), dtype=torch.int32, device=device)
+    dist[torch.from_numpy(src).to(device), torch.arange(S, device=device)] = 0
+    return BfsState(seen, frontier, dist)
+
+
+def unpack_bits(words):
+    """i32[N, W] words → i32[N, 32 W] of 0 and 1 (column 32 w + b is bit b
+    of word w)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words.unsqueeze(-1) >> shifts) & 1).reshape(words.shape[0], -1)
+
+
+def pack_bits(bits):
+    """[N, 32 W] of 0 and 1 (or bool) → i32[N, W], unpack_bits' inverse."""
+    n = bits.shape[0]
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    v = (bits.reshape(n, -1, 32).long() << shifts).sum(-1)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def frontier_step_plain(state: BfsState, edge_from, edge_to, level: int) -> tuple:
+    """K7's round `level`, plainly, over the forward edges: the frontier's
+    bits unpacked, gathered by edge source and max-reduced into the edge
+    targets (a chunk of edges at a time), less what is seen → (the new
+    BfsState: seen | next, next, dist with level + 1 at next's bits;
+    changed i32[1]). New tensors; the state given is not changed."""
+    seen, frontier, dist = state
+    ef = torch.as_tensor(edge_from, device=frontier.device).long()
+    et = torch.as_tensor(edge_to, device=frontier.device).long()
+    bits = unpack_bits(frontier)
+    cols = bits.shape[1]
+    reached = torch.zeros_like(bits)
+    chunk = max(1, PLAIN_CHUNK_BYTES // (4 * cols))
+    for s in range(0, ef.numel(), chunk):
+        idx = et[s:s + chunk].unsqueeze(1).expand(-1, cols)
+        reached.scatter_reduce_(0, idx, bits[ef[s:s + chunk]], "amax")
+    fresh = (reached == 1) & (unpack_bits(seen) == 0)
+    nxt = pack_bits(fresh)
+    changed = fresh.any().to(torch.int32).reshape(1)
+    return BfsState(seen | nxt, nxt, dist.masked_fill(fresh, level + 1)), changed
+
+
+def csr_targets(csr: InCSR):
+    """The target of each of the reverse CSR's edges (the edges' order)."""
+    n = csr.offsets.numel() - 1
+    counts = (csr.offsets[1:] - csr.offsets[:-1]).long()
+    return torch.repeat_interleave(torch.arange(n, device=csr.offsets.device), counts)
+
+
+def frontier_step(state: BfsState, csr: InCSR, level: int, out=None) -> tuple:
+    """Round `level` of the BFS over the reverse CSR → (BfsState, changed
+    i32[1]). A CPU state takes frontier_step_plain; a card's launches K7,
+    which updates seen and dist in place and writes the next frontier into
+    `out` (i32[N, W], another tensor than the frontier) or a new tensor."""
+    if not state.frontier.is_cuda:
+        return frontier_step_plain(state, csr.sources, csr_targets(csr), level)
+    nxt = torch.empty_like(state.frontier) if out is None else out
+    changed = torch.empty(1, dtype=torch.int32, device=state.frontier.device)
+    kernels.bfs_step(state.frontier, state.seen, state.dist, csr.offsets, csr.sources,
+                     csr.long_rows, LONG_ROW, level, nxt, changed)
+    return BfsState(state.seen, nxt, state.dist), changed
 
 
 def bfs(n: int, edge_from, edge_to, sources, max_rounds: int = 128, device="cuda",
         csr=None, timings: dict | None = None) -> np.ndarray:
-    """Multi-source BFS distances i32[S, N] (UNREACHABLE where no path), by
-    relaxation rounds until nothing changes or max_rounds. On a card the
-    distances are held [N, S'] with S' = S padded to 1 or a multiple of 32
-    (the padding columns stay UNREACHABLE). `timings`, when given, receives
-    the seconds of the rounds ("rounds", the copy back included) and the
-    count of rounds that changed a distance ("n_rounds")."""
+    """Multi-source BFS distances i32[S, N] (UNREACHABLE where no path), a
+    frontier step a round over the reverse CSR (built from the edges unless
+    given) until nothing changes or max_rounds: K7 on a card, the plain step
+    on the CPU. `timings`, when given, receives the seconds of the rounds
+    ("rounds": the start state, the steps and the copy back) and the count
+    of rounds that changed a distance ("n_rounds")."""
     dev = resolve_device(device)
     src = np.asarray(sources, dtype=np.int64)
-    S = len(src)
+    csr = csr if csr is not None else in_csr(n, edge_from, edge_to, dev)
+    t0 = time.perf_counter()
+    state = bfs_start(n, src, dev)
+    spare = torch.empty_like(state.frontier)
     rounds = 0
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        dist = torch.full((S, n), int(UNREACHABLE), dtype=torch.int32)
-        dist[torch.arange(S), torch.from_numpy(src)] = 0
-        ef, et = torch.from_numpy(np.asarray(edge_from)), torch.from_numpy(np.asarray(edge_to))
-        for _ in range(max_rounds):
-            new = relax_plain(dist, ef, et)
-            if torch.equal(new, dist):
-                break
-            dist, rounds = new, rounds + 1
-        out = dist.numpy()
-    else:
-        csr = csr if csr is not None else in_csr(n, edge_from, edge_to, dev)
-        t0 = time.perf_counter()
-        Sp = 1 if S == 1 else -(-S // 32) * 32
-        dist = torch.full((n, Sp), int(UNREACHABLE), dtype=torch.int32, device=dev)
-        dist[torch.from_numpy(src).to(dev), torch.arange(S, device=dev)] = 0
-        spare = torch.empty_like(dist)
-        for _ in range(max_rounds):
-            new, changed = relax(dist, csr, out=spare)
-            if not int(changed.item()):
-                break
-            dist, spare, rounds = new, dist, rounds + 1
-        out = dist[:, :S].t().contiguous().cpu().numpy()
+    for level in range(max_rounds):
+        new, changed = frontier_step(state, csr, level, out=spare)
+        if not int(changed.item()):
+            break
+        spare = state.frontier if new.frontier is spare else spare
+        state, rounds = new, rounds + 1
+    out = state.dist[:, :len(src)].t().contiguous().cpu().numpy()
     if timings is not None:
         timings.update(rounds=time.perf_counter() - t0, n_rounds=rounds)
     return out
@@ -105,13 +185,10 @@ def bfs(n: int, edge_from, edge_to, sources, max_rounds: int = 128, device="cuda
 
 def graph_bfs(graph: Webgraph, sources, max_rounds: int = 128, device="cuda",
               timings: dict | None = None) -> np.ndarray:
-    """bfs over the graph's edges: on a card the store's reverse CSR, on the
-    CPU the forward edges."""
+    """bfs over the store's reverse CSR of the graph."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        return bfs(graph.num_nodes, None, None, sources, max_rounds, dev,
-                   csr=graph_in_csr(graph, dev), timings=timings)
-    return bfs(graph.num_nodes, *forward_edges(graph), sources, max_rounds, dev, timings=timings)
+    return bfs(graph.num_nodes, None, None, sources, max_rounds, dev,
+               csr=graph_in_csr(graph, dev), timings=timings)
 
 
 def distances(graph: Webgraph, source, max_rounds: int = 128, device="cuda") -> dict[str, int]:

@@ -179,6 +179,64 @@ def test_distances_exactly_equal(graph):
         assert PS.distances(pg, s, device="cpu") == JS.distances(jg, s)
 
 
+@pytest.mark.parametrize("S", [1, 3, 32, 40, 256])
+def test_frontier_step_follows_the_relaxation_round_by_round(graph, S):
+    """K7's plain twin, the bitset frontier step, started from the BFS start
+    state from S sources (capped at the node count), gives relax_plain's and
+    the JAX package's vmapped `_relax`'s distances round by round, the same
+    changed flag, seen bits exactly where a distance is finite (the padding
+    bits past S set); bfs with max_rounds under the depth equals
+    distances_many with the same max_rounds."""
+    _, jg, pg = graph
+    n = jg.num_nodes
+    S = min(S, n)
+    ef, et = _edge_arrays(pg)
+    sources = np.random.default_rng(S).choice(n, size=S, replace=False)
+    relax = jax.jit(jax.vmap(JS._relax, in_axes=(0, None, None)))
+    jef, jet = jnp.asarray(ef), jnp.asarray(et)
+    state = PS.bfs_start(n, sources, "cpu")
+    dist = state.dist[:, :S].t().contiguous()
+    depth = 0
+    while True:
+        new, changed = PS.frontier_step_plain(state, ef, et, depth)
+        ref = PS.relax_plain(dist, ef, et)
+        jref = np.asarray(relax(jnp.asarray(dist.numpy()), jef, jet))
+        np.testing.assert_array_equal(ref.numpy(), jref)
+        np.testing.assert_array_equal(new.dist[:, :S].t().numpy(), jref)
+        assert bool(changed.item()) == (not torch.equal(ref, dist))
+        bits = PS.unpack_bits(new.seen)
+        assert torch.equal(bits[:, :S].t().bool(), ref < int(PS.UNREACHABLE))
+        assert bits[:, S:].all()
+        if not changed.item():
+            break
+        state, dist, depth = new, ref, depth + 1
+    src = [int(x) for x in sources]
+    for cap in sorted({0, depth // 2, max(depth - 1, 0)}):
+        np.testing.assert_array_equal(PS.bfs(n, ef, et, src, max_rounds=cap, device="cpu"),
+                                      JS.distances_many(jg, src, max_rounds=cap))
+
+
+def test_bfs_start_and_bit_packing():
+    """Each source in its own column, a repeated source too: seen and the
+    frontier hold its bit alone, its distance 0; the padding bits past S set
+    in seen and clear in the frontier; pack_bits inverts unpack_bits on any
+    words, bit 31 included."""
+    sources = [3, 3, 5] + list(range(30))  # 33 columns: two words, 31 padding bits
+    st = PS.bfs_start(40, sources, "cpu")
+    assert st.seen.shape == (40, 2) and st.dist.shape == (40, 64)
+    want = torch.zeros((40, 64), dtype=torch.int32)
+    want[torch.tensor(sources), torch.arange(33)] = 1
+    assert torch.equal(PS.unpack_bits(st.frontier), want)
+    seen = want.clone()
+    seen[:, 33:] = 1
+    assert torch.equal(PS.unpack_bits(st.seen), seen)
+    assert torch.equal(st.dist == 0, want.bool())
+    assert bool((st.dist[want == 0] == int(PS.UNREACHABLE)).all())
+    words = torch.from_numpy(np.random.default_rng(0).integers(-2**31, 2**31, (7, 3))
+                             .astype(np.int32))
+    assert torch.equal(PS.pack_bits(PS.unpack_bits(words)), words)
+
+
 def test_approx_harmonic_matches_jax(graph):
     _, jg, pg = graph
     for k in (3, 256):

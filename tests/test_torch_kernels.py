@@ -498,11 +498,11 @@ def test_loss_heads_reach_their_c_entry_points(monkeypatch):
     assert "triton" not in sys.modules
 
 
-@pytest.mark.parametrize("module", ["losses", "encoder"])
+@pytest.mark.parametrize("module", ["losses", "encoder", "stage"])
 def test_kernel_module_names_no_triton(module):
-    """ops/losses.py (K15c) and ops/encoder.py (K5a-d, K14a-c) launch their
-    kernels through ops/kernels.py alone: neither source imports nor names
-    triton, and neither module has a `_triton_kernels`."""
+    """ops/losses.py (K15c), ops/encoder.py (K5a-d, K14a-c) and ops/stage.py
+    (K16a-d) launch their kernels through ops/kernels.py alone: no source
+    imports nor names triton, and no module has a `_triton_kernels`."""
     import ast
     import importlib
     import inspect
@@ -1379,8 +1379,10 @@ def _graph(n: int, hub_in: int, seed: int = 0):
 
 
 def test_graph_wrappers_dispatch_and_check(monkeypatch):
-    """CPU tensors take the plain versions; a CUDA tensor calls the kernel
-    (stand-ins here); a register row the kernel does not take raises."""
+    """CPU tensors take the plain versions (the BFS step's over the CSR's
+    edges, the same as over the forward edges); a CUDA tensor calls the
+    kernel (stand-ins here); a register row or a BFS state the kernel does
+    not take raises."""
     from stract_tpu_torch.ops import hll_ops
     from stract_tpu_torch.webgraph import shortest_path as SP
 
@@ -1388,27 +1390,39 @@ def test_graph_wrappers_dispatch_and_check(monkeypatch):
     regs = torch.from_numpy(hll_ops.init_registers(50, 4))
     np.testing.assert_array_equal(hll_ops.merge_iteration(regs, src, dst).numpy(),
                                   hll_ops.merge_iteration_plain(regs, src, dst).numpy())
+    state = SP.bfs_start(50, [0, 7, 9], "cpu")
+    for level in range(3):
+        got, changed = SP.frontier_step(state, in_csr(50, src, dst, "cpu"), level)
+        want, want_changed = SP.frontier_step_plain(state, src, dst, level)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(changed, want_changed)
+        state = got
     called = []
-    for name in ("hll_merge", "hll_estimate", "bfs_relax"):
+    for name in ("hll_merge", "hll_estimate", "bfs_step"):
         monkeypatch.setattr(kernels, name, lambda *a, name=name, **k: called.append(name))
     for name in ("merge_iteration_plain", "estimate_sizes_plain"):
         monkeypatch.setattr(hll_ops, name, lambda *a, **k: called.append("plain"))
-    monkeypatch.setattr(SP, "relax_plain", lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(SP, "frontier_step_plain", lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     csr = InCSR(torch.zeros(51, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
                         torch.zeros(0, dtype=torch.int32))
     hll_ops.merge_csr(regs, csr)
     hll_ops.estimate_sizes(regs)
-    SP.relax(torch.zeros((50, 32), dtype=torch.int32), csr)
-    assert called == ["hll_merge", "hll_estimate", "bfs_relax"]
+    bits = torch.zeros((50, 1), dtype=torch.int32)
+    SP.frontier_step(SP.BfsState(bits, bits.clone(), torch.zeros((50, 32), dtype=torch.int32)),
+                     csr, 0)
+    assert called == ["hll_merge", "hll_estimate", "bfs_step"]
     monkeypatch.undo()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     with pytest.raises(ValueError):  # 48 registers: not a power of two
         kernels.hll_estimate(torch.zeros((4, 48), dtype=torch.uint8), 0.7, torch.zeros(4))
-    with pytest.raises(ValueError):  # 40 sources: neither 1 nor a multiple of 32
-        kernels.bfs_relax(torch.zeros((4, 40), dtype=torch.int32), *csr, 64,
-                          torch.zeros((4, 40), dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.int32))
+    bits, flag = torch.zeros((4, 2), dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="32 W"):  # 40 distance columns: not 32 x 2
+        kernels.bfs_step(bits, bits.clone(), torch.zeros((4, 40), dtype=torch.int32), *csr, 64,
+                         0, bits.clone(), flag)
+    with pytest.raises(ValueError, match="another tensor"):  # next written over the frontier
+        kernels.bfs_step(bits, bits.clone(), torch.zeros((4, 64), dtype=torch.int32), *csr, 64,
+                         0, bits, flag)
 
 
 @pytest.mark.cuda
@@ -1441,28 +1455,42 @@ def test_hll_kernels_match_plain(n, hub_in, precision):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 32, 256])
+@pytest.mark.parametrize("S", [1, 32, 40, 256])
 def test_bfs_kernel_matches_plain(S):
-    """K7 bit-equal to the plain relaxation round by round, UNREACHABLE
-    included, from 1, 32 and 256 sources (the [N, S] layout against the
-    plain [S, N]), over a hub of 100k in-edges."""
-    from stract_tpu_torch.ops import hll_ops
+    """K7's frontier step bit-equal to the reference's relaxation round by
+    round (distances, UNREACHABLE included, and the changed flag) and its
+    whole state to the plain twin's, from 1, 32, 40 (a word of padding bits)
+    and 256 sources over a hub of 100k in-edges (a long row); rows whose
+    seen bits are all set at a round's start (their edges skipped) are among
+    them; a second call on the same input bit-equal to the first; the whole
+    BFS equal to the CPU's."""
     from stract_tpu_torch.webgraph import shortest_path as SP
 
     dev = _card()
     n = 100_003
     src, dst = _graph(n, 100_000, seed=1)
     csr = in_csr(n, src, dst, dev)
+    assert csr.long_rows.numel() > 0
     ef, et = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
     sources = np.random.default_rng(2).choice(n, size=S, replace=False)
-    dist = torch.full((S, n), int(SP.UNREACHABLE), dtype=torch.int32, device=dev)
-    dist[torch.arange(S), torch.from_numpy(sources).to(dev)] = 0
-    for _ in range(12):
-        new, changed = SP.relax(dist.t().contiguous(), csr)
-        plain = SP.relax_plain(dist, ef, et)
-        assert torch.equal(new.t(), plain)
-        assert bool(changed.item()) == (not torch.equal(plain, dist))
-        dist = plain
+    state = SP.bfs_start(n, sources, dev)
+    dist = state.dist[:, :S].t().contiguous()  # the reference's [S, N]
+    skipped = 0
+    for level in range(12):
+        twin, twin_changed = SP.frontier_step_plain(state, ef, et, level)
+        ref = SP.relax_plain(dist, ef, et)
+        seen0, dist0 = state.seen.clone(), state.dist.clone()
+        skipped += int((seen0 == -1).all(dim=1).sum())
+        new, changed = SP.frontier_step(state, csr, level)
+        assert torch.equal(new.dist[:, :S].t(), ref)
+        assert all(torch.equal(a, b) for a, b in zip(new, twin))
+        assert int(changed.item()) == int(twin_changed.item()) == int(not torch.equal(ref, dist))
+        again, again_changed = SP.frontier_step(SP.BfsState(seen0, state.frontier, dist0), csr,
+                                                level)
+        assert all(torch.equal(a, b) for a, b in zip(again, new))
+        assert torch.equal(again_changed, changed)
+        state, dist = new, ref
+    assert skipped > 0
     assert (dist == int(SP.UNREACHABLE)).any()
     got = SP.bfs(n, src, dst, sources, device=dev)
     want = SP.bfs(n, src, dst, sources, device="cpu")

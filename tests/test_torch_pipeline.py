@@ -375,7 +375,7 @@ def test_dispatchers_send_cpu_tensors_to_the_twins(monkeypatch):
     for name in ("stage_attention_plain", "stage_attention_backward_plain", "gelu_tanh_plain",
                  "gelu_tanh_backward_plain", "sgd_update_plain"):
         monkeypatch.setattr(ST, name, lambda *a, _n=name: called.append(_n))
-    monkeypatch.setattr(ST, "_triton_kernels", lambda: pytest.fail("a kernel was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("a kernel was reached"))
     t = torch.zeros((1, 4, 12))
     ST.stage_attention_forward(t)
     ST.stage_attention_backward(t, t[..., :4])
@@ -386,25 +386,28 @@ def test_dispatchers_send_cpu_tensors_to_the_twins(monkeypatch):
                       "gelu_tanh_backward_plain", "sgd_update_plain"]
 
 
-class _Launch:
-    """A stand-in Triton kernel: kernel[grid](...) records its name."""
-
-    def __init__(self, name, called):
-        self.name, self.called = name, called
-
-    def __getitem__(self, grid):
-        return lambda *a, **k: self.called.append(self.name)
-
-
 class _StageLib:
-    """A stand-in for csrc/stage.cu's library: stract_sgd_multi records "sgd"
-    and returns success."""
+    """A stand-in for csrc/stage.cu's library: stract_sgd_multi records "sgd",
+    stract_gelu_tanh and its backward "gelu" and "gelu_bwd" (with their
+    arguments when `args` is given), and each returns success."""
 
-    def __init__(self, called):
-        self.called = called
+    def __init__(self, called, args=None):
+        self.called, self.args = called, args
 
     def stract_sgd_multi(self, args, blocks, stream):
         self.called.append("sgd")
+        return 0
+
+    def stract_gelu_tanh(self, *args):
+        self.called.append("gelu")
+        if self.args is not None:
+            self.args.append(args)
+        return 0
+
+    def stract_gelu_tanh_backward(self, *args):
+        self.called.append("gelu_bwd")
+        if self.args is not None:
+            self.args.append(args)
         return 0
 
 
@@ -418,10 +421,7 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
     monkeypatch.setattr(kernels, "_load", lambda name: _StageLib(called))
     monkeypatch.setattr(kernels, "stage_attention", lambda *a: called.append("K16a"))
     monkeypatch.setattr(kernels, "stage_attention_backward", lambda *a: called.append("K16b"))
-    monkeypatch.setattr(ST, "_triton_kernels", lambda: {
-        n: _Launch(n, called) for n in ("gelu", "gelu_bwd")})
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))  # card, stream
     kernels.reset_launches()
     t = torch.zeros((1, 4, 12))
@@ -432,6 +432,51 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
     ST.sgd_update_many([t], [t], 0.1)
     assert called == ["K16a", "K16b", "gelu", "gelu_bwd", "sgd"]
     assert kernels.LAUNCHES["gelu_tanh"] == 2 and kernels.LAUNCHES["sgd"] == 1
+
+
+def _misaligned_f32(n: int):
+    """A contiguous f32 tensor of n elements that starts 4 bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(n + 4)
+    start = next(i for i in range(4) if (flat.data_ptr() + 4 * i) % 16)
+    return flat[start:start + n]
+
+
+@pytest.mark.parametrize("shape,misaligned", [((8, 128, 1536), False), ((3, 7), False),
+                                              ((1_572_865,), False), ((1001,), True),
+                                              ((0, 1536), False)])
+def test_gelu_tanh_reaches_its_c_entry_points(monkeypatch, shape, misaligned):
+    """K16c on CUDA tensors (stand-ins) calls stract_gelu_tanh and
+    stract_gelu_tanh_backward once each with the flat length and its
+    tensors' pointers, at any length (n % 4 != 0) and on a view at an
+    offset (the kernel picks its piece width), names no Triton and counts one
+    launch each; with no elements it launches and counts nothing. The same
+    tensors on the CPU take the twins."""
+    import sys
+
+    n = int(np.prod(shape))
+    x = _misaligned_f32(n).view(shape) if misaligned else torch.zeros(shape)
+    g = torch.zeros(shape)
+    assert not misaligned or x.data_ptr() % 16
+    torch.testing.assert_close(ST.gelu_tanh_forward(x), ST.gelu_tanh_plain(x))
+    torch.testing.assert_close(ST.gelu_tanh_backward(x, g), ST.gelu_tanh_backward_plain(x, g))
+    called, args = [], []
+    for name in ("gelu_tanh_plain", "gelu_tanh_backward_plain"):
+        monkeypatch.setattr(ST, name, lambda *a, _n=name: pytest.fail(f"{_n} was reached"))
+    monkeypatch.setattr(kernels, "_load", lambda name: _StageLib(called, args))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.delitem(sys.modules, "triton", raising=False)
+    kernels.reset_launches()
+    y = ST.gelu_tanh_forward(x)
+    dx = ST.gelu_tanh_backward(x, g)
+    assert y.shape == shape and dx.shape == shape and "triton" not in sys.modules
+    if n == 0:
+        assert called == [] and kernels.LAUNCHES["gelu_tanh"] == 0
+        return
+    assert called == ["gelu", "gelu_bwd"] and kernels.LAUNCHES["gelu_tanh"] == 2
+    assert args[0] == (x.data_ptr(), y.data_ptr(), n, 0)
+    assert args[1] == (x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, 0)
 
 
 @pytest.mark.parametrize("shape", [(1, 513, 48), (1, 16, 3 * 1025), (1, 16, 50)])
@@ -487,16 +532,36 @@ def test_stage_attention_kernels_match_plain(mb, T, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 16, 32), (8, 128, 1536)])
+@pytest.mark.parametrize("shape", [(2, 16, 32), (8, 128, 1536), (1_572_865,), (1001,)])
 def test_gelu_and_sgd_kernels_match_plain(shape):
+    """K16c forward and backward within rtol 1e-5, atol 1e-6 x max |x| of the
+    twins at the step's shape and odd lengths, on a view 4 bytes past a
+    16-byte boundary too, each call counted once and a second call
+    bit-equal; at |x| = 10, 50, 1e4 finite, with t = +-1 exactly (gelu = x or
+    0, its gradient the cotangent or 0). K16d bit-equal to its twin."""
     dev = _card()
     g = torch.Generator().manual_seed(7)
     x = (3 * torch.randn(shape, generator=g)).to(dev)
     dout = torch.randn(shape, generator=g).to(dev)
-    atol = 1e-6 * float(x.abs().max())
-    torch.testing.assert_close(ST.gelu_tanh_forward(x), ST.gelu_tanh_plain(x), rtol=1e-5, atol=atol)
-    torch.testing.assert_close(ST.gelu_tanh_backward(x, dout), ST.gelu_tanh_backward_plain(x, dout),
-                               rtol=1e-5, atol=atol)
+    n = x.numel()
+    view = torch.cat([torch.zeros(1), x.reshape(-1).cpu()]).to(dev)[1:]  # 4 B past the start
+    assert view.data_ptr() % 16
+    for xv, gv in ((x, dout), (view, dout.reshape(-1))):
+        atol = 1e-6 * float(xv.abs().max())
+        launches = kernels.LAUNCHES["gelu_tanh"]
+        y, dx = ST.gelu_tanh_forward(xv), ST.gelu_tanh_backward(xv, gv)
+        assert kernels.LAUNCHES["gelu_tanh"] == launches + 2
+        torch.testing.assert_close(y, ST.gelu_tanh_plain(xv), rtol=1e-5, atol=atol)
+        torch.testing.assert_close(dx, ST.gelu_tanh_backward_plain(xv, gv), rtol=1e-5, atol=atol)
+        assert torch.equal(ST.gelu_tanh_forward(xv), y)
+        assert torch.equal(ST.gelu_tanh_backward(xv, gv), dx)
+    signs = torch.where(torch.arange(n, device=dev) % 2 == 0, 1.0, -1.0)
+    for mag in (10.0, 50.0, 1e4):
+        big = (mag * signs).reshape(shape)
+        y, dx = ST.gelu_tanh_forward(big), ST.gelu_tanh_backward(big, dout)
+        assert torch.isfinite(y).all() and torch.isfinite(dx).all()
+        assert torch.equal(y, torch.where(big > 0, big, 0.0))
+        assert torch.equal(dx, torch.where(big > 0, dout, 0.0))
     p = (0.02 * torch.randn(shape, generator=g)).to(dev)
     p_plain = p.clone()
     ST.sgd_update_many([p], [dout], 5e-2)
