@@ -191,6 +191,7 @@ INFO_NCE_B = (32, 64, 256)
 # the centrality job: the benchmark graph (entrypoint/bench_centrality.py)
 # and the sampled sources of approx-harmonic
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
+WIDE_SAMPLES = 1_100  # K7 past 1,024 sources (two chunks of 32 words)
 # pipeline-on serving: rounds of the request mix in one process
 SERVE_ON_ROUNDS = 8
 # K13 held against its plain version: slots per query (the index's larger
@@ -346,9 +347,10 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "pair_loss": "rtol 1e-5 atol 1e-7; two calls bit-equal",
             "info_nce": "rtol 1e-5 atol 1e-7; two calls bit-equal",
             "adamw_bf16": "1 bf16 step after 3 steps",
-            "hll_merge": "registers bit-equal, sizes rel 1e-6",
+            "hll_merge": "registers and change bytes bit-equal, sizes rel 1e-6",
             "hll_estimate": "rel 1e-6", "bfs_relax": "bit-equal",
-            "mesh_topk": "bit-equal", "hll_ring_step": "rows bit-equal, sizes rel 1e-6",
+            "mesh_topk": "bit-equal",
+            "hll_ring_step": "rows and change bytes bit-equal, sizes rel 1e-6",
             "stage_attention": "rtol 1e-5 atol 1e-5*max|plain|",
             "stage_attention_backward": "rtol 1e-5 atol 1e-5*max|plain| (vs autograd)",
             "gelu_tanh": "rtol 1e-5 atol 1e-6*max|x|", "sgd": "bit-equal"}
@@ -645,7 +647,8 @@ def plain_versions():
     card (the reference run of the comparisons): K1-K3 in ops/scoring.py, K4
     in ops/forest.py, K5a-d and their gradients K14a-c in ops/encoder.py (the
     dispatchers the autograd Functions call), K14d and K15d in optim.py,
-    K15a-b in ops/moe.py, K15c in ops/losses.py, K6a-b in ops/hll_ops.py,
+    K15a-b in ops/moe.py, K15c in ops/losses.py, K6a-b in ops/hll_ops.py (K6a's
+    systolic round by its twin merge_systolic_plain),
     K7 in webgraph/shortest_path.py (over the edges of the reverse CSR the
     kernels take) and K16a-d in ops/stage.py. Stage A keeps its
     configuration's arguments (UB bounds, the merge)."""
@@ -683,10 +686,11 @@ def plain_versions():
             O.to_tensors(O._batched(aggs, O.QueryAggregates), dev),
             torch.as_tensor(f).to(dev), torch.as_tensor(c).to(dev))
 
-    def hll_merge(regs, csr, out=None, sizes=True):
-        new = HO.merge_iteration_plain(regs, csr.sources, SP.csr_targets(csr))
-        changed = torch.tensor([int(not torch.equal(new, regs))], dtype=torch.int32,
-                               device=regs.device)
+    def hll_merge(regs, csr, out=None, sizes=True, flags=None, flags_out=None):
+        new, rows = HO.merge_systolic_plain(regs, flags, csr.sources, SP.csr_targets(csr))
+        if flags_out is not None:
+            flags_out.copy_(rows)
+        changed = rows.any().to(torch.int32).reshape(1)
         return new, HO.estimate_sizes_plain(new) if sizes else None, changed
 
     def bfs_step(state, csr, level, out=None):
@@ -2217,11 +2221,16 @@ def centrality_phase(data_dir: str) -> dict:
     and read just after; each result checked (every node, finite, the kv
     store holds it) and, on a 2,000-node graph of the same recipe, held to
     the same job on the CPU. Then K6a, K6b and K7 against their plain
-    versions at the job's shapes: registers and distances bit-equal round by
-    round, sizes within rel 1e-6, and the whole HyperBall and the whole
-    256-source BFS through the plain versions: the same round count,
-    centrality within rtol 1e-6, distances equal. → {"jobs", "rows",
-    "graph_s", "graph"}; rows (name, err, ms, plain ms, shape, bytes, ops)."""
+    versions at the job's shapes: K6a in the systolic rounds the job runs
+    (registers bit-equal to the full plain merge and to the systolic twin,
+    change bytes to the plain comparison, sizes within rel 1e-6), timed from
+    round 3's registers with every change byte set and with round 3's bytes
+    (the fourth round); distances bit-equal round by round; the whole
+    HyperBall and the whole 256-source BFS through the plain versions: the
+    same round count, centrality within rtol 1e-6, distances equal; K7 at
+    1,100 sources on a 100,000-node graph of the same recipe, round by round
+    against the relaxation. → {"jobs", "rows", "graph_s", "graph"}; rows
+    (name, err, ms, plain ms, shape, bytes, ops)."""
     import numpy as np
     import torch
 
@@ -2291,24 +2300,44 @@ def centrality_phase(data_dir: str) -> dict:
     eft, ett = torch.from_numpy(ef).to(dev), torch.from_numpy(et).to(dev)
     rows = []
 
-    # K6a (+K6b in its epilogue) over the first rounds, K6b alone
+    # K6a (+K6b in its epilogue) in the systolic rounds the job runs (every
+    # change byte set before round 1), then timed from round 3's registers two
+    # ways: every byte set (round 1's work, the full merge: like for like with
+    # the earlier body) and round 3's change bytes (the fourth round); K6b alone
     regs = torch.from_numpy(HO.init_registers(n, 6)).to(dev)
     m = regs.shape[1]
+    flags = torch.ones(n, dtype=torch.uint8, device=dev)
     sizes_err = 0.0
-    for _ in range(3):
-        new, sizes, changed = HO.merge_csr(regs, csr)
+    for r in range(3):
+        rows_out = torch.empty_like(flags)
+        new, sizes, changed = HO.merge_csr(regs, csr, flags=flags, flags_out=rows_out)
         plain = HO.merge_iteration_plain(regs, eft, ett)
+        twin, twin_rows = HO.merge_systolic_plain(regs, flags, eft, ett)
         ref = HO.estimate_sizes_plain(plain)
-        if not torch.equal(new, plain) or int(changed.item()) != int(not torch.equal(plain, regs)):
-            raise AssertionError("K6a registers differ from the plain merge")
+        if not (torch.equal(new, plain) and torch.equal(twin, plain)) or \
+                not torch.equal(rows_out, twin_rows) or \
+                int(changed.item()) != int(not torch.equal(plain, regs)):
+            raise AssertionError(f"K6a differs from the plain merge in round {r + 1}")
         torch.testing.assert_close(sizes, ref, rtol=1e-6, atol=0)
         sizes_err = max(sizes_err, float(((sizes - ref).abs() / ref.abs()).max()))
-        regs = new
-    spare = torch.empty_like(regs)
-    rows.append(("hll_merge", sizes_err, time_ms(lambda: HO.merge_csr(regs, csr, out=spare)),
-                 time_ms(lambda: HO.merge_iteration_plain(regs, eft, ett), iters=3), (n, m, e),
-                 2 * n * m + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel() + 4 * n + 4,
-                 e * m + 3 * n * m))
+        regs, flags = new, rows_out
+    spare, spare_rows = torch.empty_like(regs), torch.empty_like(flags)
+    plain = HO.merge_iteration_plain(regs, eft, ett)
+    src_rows = csr.sources.long()
+    for name, fl in (("every byte set", torch.ones_like(flags)), ("round 3's bytes", flags)):
+        flagged = int(fl[src_rows].sum())
+        ms = time_ms(lambda: HO.merge_csr(regs, csr, out=spare, flags=fl, flags_out=spare_rows))
+        plain_ms = time_ms(lambda: HO.merge_systolic_plain(regs, fl, eft, ett), iters=3)
+        if not torch.equal(spare, plain) or not torch.equal(spare_rows, (plain != regs).any(1)
+                                                            .to(torch.uint8)):
+            raise AssertionError(f"K6a with {name} differs from the full plain merge")
+        log(f"[centrality] K6a from round 3's registers, {name}: {flagged} of {e} edges flagged "
+            f"(share {flagged / e:.3f}), gather {m * flagged} B, {ms:.3f} ms")
+        # bytes once: registers in and out, the CSR, change bytes in and out,
+        # sizes, the flag; the gather (m B a flagged edge) is in the shape
+        rows.append(("hll_merge", sizes_err, ms, plain_ms, (n, m, e, flagged),
+                     2 * n * m + 4 * (n + 1) + 4 * e + 4 * csr.long_rows.numel() + 2 * n
+                     + 4 * n + 4, flagged * m + 3 * n * m))
     est, ref = HO.estimate_sizes(regs), HO.estimate_sizes_plain(regs)
     torch.testing.assert_close(est, ref, rtol=1e-6, atol=0)
     rows.append(("hll_estimate", float(((est - ref).abs() / ref.abs()).max()),
@@ -2374,6 +2403,31 @@ def centrality_phase(data_dir: str) -> dict:
     log(f"[centrality] whole {GRAPH_SAMPLES}-source BFS, kernels vs plain: {t_k['n_rounds']} "
         f"rounds each, rounds {t_k['rounds']:.3f}s vs {t_p['rounds']:.3f}s, distances equal "
         f"card={card_line()}")
+
+    # K7 past 256 sources: 1,100 (W = 35 words a node, 32 lanes a row over two
+    # chunks of words) on a 100,000-node graph of the same recipe, round by
+    # round from sampled sources against the relaxation and the plain step
+    g9 = BC.write_bench_graph(os.path.join(data_dir, "graph-100000"), 100_000, 2_000_000)
+    ef9, et9 = (torch.from_numpy(a).to(dev) for a in SP.forward_edges(g9))
+    csr9 = graph_in_csr(g9, dev)
+    state = SP.bfs_start(g9.num_nodes, np.random.default_rng(1).choice(
+        g9.num_nodes, size=WIDE_SAMPLES, replace=False), dev)
+    dist = state.dist[:, :WIDE_SAMPLES].t().contiguous()
+    for level in range(4):
+        twin, twin_changed = SP.frontier_step_plain(state, ef9, et9, level)
+        ref = SP.relax_plain(dist, ef9, et9)
+        new, changed = SP.frontier_step(state, csr9, level)
+        if not (torch.equal(new.dist[:, :WIDE_SAMPLES].t(), ref)
+                and all(torch.equal(a, b) for a, b in zip(new, twin))) or \
+                int(changed.item()) != int(twin_changed.item()) or \
+                int(changed.item()) != int(not torch.equal(ref, dist)):
+            raise AssertionError(f"K7 differs from the relaxation at S={WIDE_SAMPLES}, round "
+                                 f"{level}")
+        state, dist = new, ref
+    log(f"[centrality] K7 at S={WIDE_SAMPLES} on {g9.num_nodes} nodes, {g9.num_edges} edges: 4 "
+        f"rounds bit-equal to the relaxation, "
+        f"{int((dist < int(SP.UNREACHABLE)).sum())} distances finite")
+    del state, dist, twin, ref, new
     return {"jobs": jobs, "rows": rows, "graph_s": graph_s, "graph": g.path}
 
 
@@ -2563,11 +2617,13 @@ def mesh_centrality_phase(data_dir: str, cent: dict, card: str) -> dict:
     the centrality phase's graph (1M nodes, 20M edges): run_harmonic(mesh=),
     counts reset just before and read just after (K8 and K6b launched); the
     same rounds as the single-card job and its centrality within rtol 1e-5.
-    Then the rounds again, ring against K6a from the same registers: every
-    round's registers bit-equal and the change flags equal. Then K8 on one
-    (shard, step) bucket against its plain version: the rows bit-equal, and
-    the last step's change flag and sizes (rel 1e-6). → {"record", "rows",
-    "launches"}; rows as centrality_phase's."""
+    Then the rounds again, both systolic, ring against K6a from the same
+    registers: every round's registers and change bytes bit-equal and the
+    change flags equal. Then K8 on one (shard, step) bucket from round 3's
+    registers, with every change byte set and with round 3's bytes, against
+    the plain step: the rows bit-equal; and its last step's change flag,
+    change bytes and sizes (rel 1e-6). → {"record", "rows", "launches"};
+    rows as centrality_phase's."""
     import numpy as np
     import torch
 
@@ -2603,7 +2659,9 @@ def mesh_centrality_phase(data_dir: str, cent: dict, card: str) -> dict:
         f"launches { {k: launches[k] for k in ('hll_ring_step', 'hll_estimate')} } "
         f"centrality max rel diff vs single card {cent_err:.3g} card={card}")
 
-    # the rounds again: the ring against K6a, register for register
+    # the rounds again, both systolic (every change byte set before round 1):
+    # the ring against K6a, register for register and change byte for change
+    # byte, the change flags equal
     g = Webgraph(cent["graph"])
     n = g.num_nodes
     ef, et = SP.forward_edges(g)
@@ -2615,47 +2673,73 @@ def mesh_centrality_phase(data_dir: str, cent: dict, card: str) -> dict:
     regs0[:n] = HO.init_registers(n, 6)
     regs = torch.from_numpy(regs0[:n]).to(dev)
     shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(dev) for d in range(MESH_SHARDS)]
-    spare = torch.empty_like(regs)
+    flags = torch.ones(n, dtype=torch.uint8, device=dev)
+    shard_flags = [torch.ones(S, dtype=torch.uint8, device=dev) for _ in range(MESH_SHARDS)]
+    spare, spare_flags = torch.empty_like(regs), torch.empty_like(flags)
     rounds = 0
     while True:
-        new, _, changed = HO.merge_csr(regs, csr, out=spare, sizes=False)
-        nsh, _, ch = WC.ring_round(shards, buckets, sizes=False)
+        new, _, changed = HO.merge_csr(regs, csr, out=spare, sizes=False, flags=flags,
+                                       flags_out=spare_flags)
+        nsh, _, ch, nfl = WC.ring_round(shards, buckets, sizes=False, flags=shard_flags)
         if not torch.equal(torch.cat(nsh)[:n], new):
             raise AssertionError(f"the ring's registers differ from K6a's after round {rounds + 1}")
+        if not torch.equal(torch.cat(nfl)[:n], spare_flags):
+            raise AssertionError(f"the ring's change bytes differ from K6a's in round {rounds + 1}")
         if int(changed.item()) != int(any(int(x.item()) for x in ch)):
             raise AssertionError("the ring's change flag differs from K6a's")
         if not int(changed.item()):
             break
         rounds += 1
         regs, spare, shards = new, regs, nsh
+        flags, spare_flags, shard_flags = spare_flags, flags, nfl
+        if rounds == 3:  # the state K8 is read from
+            at3 = [t.clone() for t in shards], [f.clone() for f in shard_flags]
     if rounds != timings["n_rounds"]:
         raise AssertionError(f"{rounds} register rounds vs the job's {timings['n_rounds']}")
-    log(f"[mesh centrality] {rounds} rounds, the ring's registers bit-equal to K6a's after "
-        f"each ({time.perf_counter() - t1:.1f}s)")
+    log(f"[mesh centrality] {rounds} rounds, the ring's registers and change bytes bit-equal to "
+        f"K6a's after each ({time.perf_counter() - t1:.1f}s)")
 
-    # K8 alone on one (shard, step) bucket, from the last round's registers
+    # K8 alone on one (shard, step) bucket: its last step from the initial
+    # registers, then timed from round 3's registers with every change byte
+    # set and with round 3's bytes (the fourth round's step)
     bucket = buckets[0][1]
     E, m = int(bucket.sources.numel()), 64
-    start, buf = shards[0], shards[1]
-    out_k, out_p = start.clone(), start.clone()
-    HO.ring_step(out_k, buf, bucket)
-    HO.ring_step_plain(out_p, buf, bucket)
-    if not torch.equal(out_k, out_p):
-        raise AssertionError("K8 differs from its plain version")
     rows_init = torch.from_numpy(regs0[:S]).to(dev)
+    buf0 = torch.from_numpy(regs0[S:2 * S]).to(dev)
     out_k, out_p = rows_init.clone(), rows_init.clone()
-    ch_k, sz_k = HO.ring_step(out_k, torch.from_numpy(regs0[S:2 * S]).to(dev), bucket,
-                              start=rows_init, sizes=True)
-    HO.ring_step_plain(out_p, torch.from_numpy(regs0[S:2 * S]).to(dev), bucket)
+    rows_k = torch.empty(S, dtype=torch.uint8, device=dev)
+    ch_k, sz_k = HO.ring_step(out_k, buf0, bucket, start=rows_init, sizes=True, flags_out=rows_k)
+    HO.ring_step_plain(out_p, buf0, bucket)
     sz_p = HO.estimate_sizes_plain(out_p)
-    if not torch.equal(out_k, out_p) or int(ch_k.item()) != int(not torch.equal(out_p, rows_init)):
+    if not torch.equal(out_k, out_p) or int(ch_k.item()) != int(not torch.equal(out_p, rows_init)) \
+            or not torch.equal(rows_k, (out_p != rows_init).any(1).to(torch.uint8)):
         raise AssertionError("K8's last step differs from its plain version")
     torch.testing.assert_close(sz_k, sz_p, rtol=1e-6, atol=0)
     err = float(((sz_k - sz_p).abs() / sz_p.abs()).max())
-    out_t = start.clone()
-    rows = [("hll_ring_step", err, time_ms(lambda: HO.ring_step(out_t, buf, bucket)),
-             time_ms(lambda: HO.ring_step_plain(out_t, buf, bucket), iters=3), (S, m, E),
-             3 * S * m + 4 * (S + 1) + 4 * E + 4 * bucket.long_rows.numel(), E * m)]
+    start, buf = at3[0][0], at3[0][1]
+    want = HO.ring_step_plain(start.clone(), buf, bucket)
+    src_rows, tgt_rows = bucket.sources.long(), SP.csr_targets(bucket)
+    rows = []
+    for name, fl in (("every byte set", torch.ones(S, dtype=torch.uint8, device=dev)),
+                     ("round 3's bytes", at3[1][1])):
+        out_k = start.clone()
+        HO.ring_step(out_k, buf, bucket, flags=fl)
+        if not (torch.equal(out_k, want)
+                and torch.equal(HO.ring_step_plain(start.clone(), buf, bucket, fl), want)):
+            raise AssertionError(f"K8 with {name} differs from the full plain step")
+        keep = fl[src_rows] != 0
+        flagged = int(keep.sum())
+        out_t = start.clone()
+        ms = time_ms(lambda: HO.ring_step(out_t, buf, bucket, flags=fl))
+        plain_ms = time_ms(lambda: HO.ring_step_plain(out_t, buf, bucket, fl), iters=3)
+        # bytes once: the CSR, the change bytes, each target row that gathers
+        # read and written, each flagged source row read
+        gathered, sources = (int(torch.unique(x[keep]).numel()) for x in (tgt_rows, src_rows))
+        log(f"[mesh centrality] K8 on bucket (0, 1), {name}: {flagged} of {E} edges flagged "
+            f"(share {flagged / E:.3f}), gather {m * flagged} B, {ms:.3f} ms")
+        rows.append(("hll_ring_step", err, ms, plain_ms, (S, m, E, flagged),
+                     4 * (S + 1) + 4 * E + 4 * bucket.long_rows.numel() + S
+                     + m * (2 * gathered + sources), flagged * m))
     log(f"[mesh centrality] K8 on bucket (0, 1): {S} rows, {E} edges, bit-equal to the plain "
         f"version; last step's sizes max rel diff {err:.3g}")
     record = {"shards": MESH_SHARDS, "seconds": seconds, "stages": stage,

@@ -81,6 +81,19 @@ under data/). --readings picks groups (default all):
                       `SP.relax`, else the frontier step with seen put back
                       before each call (a copy, in the call's event time;
                       its device time by kernel apart);
+  hyperball           on the same 1M / 20M graph: the whole WC._hyperball
+                      (precision 6, to its fixpoint) and the whole 4-shard
+                      WC._hyperball_sharded on Mesh([cuda:0] * 4), each with
+                      its round count, its "rounds" seconds (two runs after
+                      a warm-up) and the summed device time of its merge
+                      launches (hll_merge_kernel: K6a's, or K8's on the
+                      mesh) in a third, profiled run; then K6a from round
+                      3's registers and K8 on the ring bucket (0, 1) from
+                      round 3's shards, called without change bytes (the
+                      same call in every tree) and, in a tree that has the
+                      systolic round, with every byte set, with round 3's
+                      bytes (the fourth round) and with none (all but the
+                      gather);
   sgd                 K16d over the 25 f32 tensors of the pipelined train
                       step (6 stages of attn_qkv, attn_out, ffn_in, ffn_out
                       at H = 384, FFN = 1536, and the head), 10,617,216
@@ -97,7 +110,7 @@ the smoke's measure), and `device_ms`, the card's own time for one call,
 the sum of the kernels' device time in a torch.profiler window over the
 same number of calls ("not measured", null, when the profiler saw no
 device time), with each kernel's part where a call runs two to four (and
-for the BFS's readings always).
+for the BFS's and the HyperBall's readings always).
 Prints the card's name and power limit, a JSON line a reading, and a JSON
 summary last. Needs a card; imports nothing of JAX.
 """
@@ -123,9 +136,10 @@ INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
 GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
-            "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "sgd",
-            "pipeline_step", "dual_step")
+            "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
+            "sgd", "pipeline_step", "dual_step")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
+MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
 
@@ -154,6 +168,33 @@ def measure(fn, calls: int) -> tuple:
                  if e.device_type == DeviceType.CUDA}  # the kernels' own events
     device_ms = sum(by_kernel.values())
     return event_ms, (device_ms or None), by_kernel
+
+
+def whole_job(fn, runs: int = 2) -> dict:
+    """A whole HyperBall job fn(timings) after one warm-up: its round count
+    and "rounds" seconds in `runs` runs, then the device time of one
+    profiled run, summed over all kernels and over the merge body's launches
+    (hll_merge_kernel, K6a's and K8's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn({})
+    rounds_s, n_rounds = [], None
+    for _ in range(runs):
+        t = {}
+        fn(t)
+        rounds_s.append(t["rounds"])
+        n_rounds = t["n_rounds"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn({})
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    merge = [e for e in events if "hll_merge_kernel" in e.key]
+    return {"n_rounds": n_rounds, "rounds_s": rounds_s, "event_ms": None,
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3 or None,
+            "merge_device_ms": sum(e.self_device_time_total for e in merge) / 1e3 or None,
+            "merge_launches": sum(e.count for e in merge)}
 
 
 def _masked(B: int, T: int):
@@ -388,6 +429,68 @@ def worker(root: str, calls: int, readings: list) -> list:
                             SP.frontier_step(state, csr, 3, out=spare))
         read((("bfs_round_3", step),), parts=True, S=GRAPH_SAMPLES)
         del csr, spare
+    if "hyperball" in readings:
+        import numpy as np
+
+        from stract_tpu_torch.entrypoint import bench_centrality as BC
+        from stract_tpu_torch.ops import hll_ops as HO
+        from stract_tpu_torch.parallel.mesh import Mesh
+        from stract_tpu_torch.webgraph import centrality as WC
+        from stract_tpu_torch.webgraph import shortest_path as SP
+        from stract_tpu_torch.webgraph.csr import graph_in_csr
+
+        gr = BC.write_bench_graph(os.path.join(ROOT, "data", "kernel_times_graph"),
+                                  GRAPH_NODES, GRAPH_EDGES)
+        n = gr.num_nodes
+        ef, et = SP.forward_edges(gr)
+        csr = graph_in_csr(gr, "cuda")
+        mesh = Mesh([torch.device("cuda", 0)] * MESH_SHARDS, axis_names=("x",))
+        out.append({"name": "hyperball", "N": n, **whole_job(
+            lambda t: WC._hyperball(n, ef, et, 6, 64, "cuda", timings=t, csr=csr))})
+        out.append({"name": "hyperball_sharded", "N": n, "shards": MESH_SHARDS, **whole_job(
+            lambda t: WC._hyperball_sharded(n, ef, et, mesh, 6, 64, timings=t))})
+        systolic = hasattr(HO, "merge_systolic_plain")
+        regs = torch.from_numpy(HO.init_registers(n, 6)).cuda()
+        flags = torch.ones(n, dtype=torch.uint8, device="cuda")
+        for _ in range(3):
+            rows = torch.empty_like(flags)
+            extra = {"flags": flags, "flags_out": rows} if systolic else {}
+            regs = HO.merge_csr(regs, csr, **extra)[0]
+            flags = rows
+        spare, spare_rows = torch.empty_like(regs), torch.empty_like(flags)
+        calls = [("K6a", lambda: HO.merge_csr(regs, csr, out=spare))]
+        if systolic:
+            every, none = torch.ones_like(flags), torch.zeros_like(flags)
+            calls += [("K6a_every_byte", lambda: HO.merge_csr(regs, csr, out=spare, flags=every,
+                                                              flags_out=spare_rows)),
+                      ("K6a_round_4", lambda: HO.merge_csr(regs, csr, out=spare, flags=flags,
+                                                           flags_out=spare_rows)),
+                      ("K6a_no_byte", lambda: HO.merge_csr(regs, csr, out=spare, flags=none,
+                                                           flags_out=spare_rows))]
+        read(calls, parts=True, N=n)
+        S = -(-n // MESH_SHARDS)
+        buckets = WC.ring_buckets(n, ef, et, [torch.device("cuda", 0)] * MESH_SHARDS)
+        regs0 = np.zeros((S * MESH_SHARDS, 64), np.uint8)
+        regs0[:n] = HO.init_registers(n, 6)
+        shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]).cuda() for d in range(MESH_SHARDS)]
+        shard_flags = [torch.ones(S, dtype=torch.uint8, device="cuda") for _ in shards]
+        for _ in range(3):
+            res = WC.ring_round(shards, buckets, sizes=False,
+                                **({"flags": shard_flags} if systolic else {}))
+            shards = res[0]
+            shard_flags = res[3] if systolic else shard_flags
+        bucket, out_t = buckets[0][1], shards[0].clone()
+        calls = [("K8", lambda: HO.ring_step(out_t, shards[1], bucket))]
+        if systolic:
+            every = torch.ones(S, dtype=torch.uint8, device="cuda")
+            none = torch.zeros_like(every)
+            calls += [("K8_every_byte",
+                       lambda: HO.ring_step(out_t, shards[1], bucket, flags=every)),
+                      ("K8_round_4", lambda: HO.ring_step(out_t, shards[1], bucket,
+                                                          flags=shard_flags[1])),
+                      ("K8_no_byte", lambda: HO.ring_step(out_t, shards[1], bucket, flags=none))]
+        read(calls, parts=True, N=S)
+        del csr, buckets, shards, regs, spare
     if "sgd" in readings:
         ps = [torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
         gs = [0.01 * torch.randn(n, generator=g).cuda() for n in PIPE_SIZES]
@@ -462,10 +565,12 @@ def main() -> int:
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
             shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "S",
-                                                       "tensors")
+                                                       "tensors", "shards")
                              if f in rec)
             key = f"{tree} {rec['name']} {shape}"
-            summary.setdefault(key, []).append((rec["event_ms"], rec["device_ms"]))
+            summary.setdefault(key, []).append(
+                (rec["event_ms"], rec["device_ms"]) if "rounds_s" not in rec else
+                (rec["rounds_s"], rec["device_ms"], rec["merge_device_ms"]))
     print(json.dumps({"card": card.strip().splitlines()[0], "readings": summary}), flush=True)
     return 0
 

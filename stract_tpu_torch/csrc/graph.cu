@@ -16,38 +16,68 @@
 // One int flag, zeroed before the launch, is set when any row changed; the
 // host reads 4 bytes a round instead of comparing the registers.
 //
-// What bounds K6a and K8: each round moves, once, the registers in and out
-// plus the CSR (K6a at 1M nodes x 64 registers and 20M edges: 128 MB + 80
-// MB of sources), but the gather reads an in-neighbour's row for every edge
-// (20M x 64 B = 1.28 GB), from L2 when the row is there (50 MB L2, 64 MB of
-// registers): they are bound by that gather's memory traffic and its
-// latency, far above the bytes-once bound. Each edge's row is read whole by
-// neighbouring threads (64 B by 16 threads), so each gather is coalesced.
+// The systolic round (Boldi and Vigna, "In-Core Computation of Geometric
+// Centralities with HyperBall", ICDMW 2013). From round 1 on, a row already
+// holds the max of its in-neighbours' rows of the round before, so an
+// in-neighbour u that did not change in round t adds nothing to round t + 1:
+// regs_{t+1}[v] = max(regs_t[v], max over the in-neighbours u that changed in
+// round t of regs_t[u]). One change byte a row carries that set from round to
+// round: `flags` (read; null: every byte set, the full merge) and
+// `flags_out` (written by the row's own lanes from the epilogue's comparison
+// with the round start). The result is bit-equal to the full merge from any
+// state a HyperBall run reaches (every byte set before round 1), with the
+// same change flag and round count; it is not the full merge for an
+// arbitrary state, so the stateless merge passes no flags.
+//
+// What bounds K6a and K8: the bytes once are the registers in and out, the
+// CSR, the change bytes in and out and the sizes (K6a at 1M nodes x 64
+// registers and 20M edges: 128 MB + 84 MB + 2 MB + 4 MB, 0.065 ms over 3.35
+// TB/s). The gather reads a flagged in-neighbour's whole row for each of its
+// edges: 64 B x the round's flagged edges (all 20M in round 1, 1.28 GB, from a
+// 64 MB table the 50 MB L2 cannot hold; 47 % of them in the fourth round),
+// far above the bytes once, and latency-bound where the rows come from L2.
+// On an H100 the gather of every row takes about 0.8 ms of a 1.36 ms round
+// at that size; the rest, which a round pays even when few rows changed
+// (about 0.5 ms), is the walk of every source and its change byte and the
+// rows in and out: a push from the changed rows would be needed to skip it.
+//
+// The body, `hll_merge_kernel<VEC, LANES, PPL>`, is specialised on the row
+// width: LANES lanes read a row in PPL pieces of VEC words each (16 B pieces
+// from m = 16 registers on; m = 64 is 4 lanes of one piece), so a lane holds
+// VEC x PPL words, at most 8. A row's group has G = max(8, LANES) lanes, which
+// read G / LANES in-edges' rows at once (the slots). The group loads G of the
+// row's sources in one coalesced read, each lane tests its source's change
+// byte (a 1 MB table at 1M nodes that stays in L2), a ballot picks the flagged
+// ones, and the slots take them in turn by shuffles: each lane issues up to U
+// gathers before it maxes any, so no gather waits on the one before, and no
+// lane gathers a row that did not change. The slots' rows meet by shuffles.
 //
 // In-degree skew: the Pareto targets of a web graph put most edges on few
-// rows. A row with more than `long_cut` in-edges is split across a whole
-// block (its groups or warps stride over the edges, then reduce in shared
-// memory); every other row is walked by one group of threads. The short-row
-// blocks cover all rows in order and skip the long ones; blocks past them
-// take one long row each.
+// rows. A row with more than `long_cut` in-edges takes a whole block: its
+// groups stride over the edges, write their partial rows to dynamic shared
+// memory (the block's groups x the row's bytes) and the first group finishes
+// the row; max is exact and order-free, so the result is the same bits. The
+// short-row blocks cover all rows in order and skip the long ones; blocks
+// past them take one long row each.
 //
 // K8, the ring step of the sharded HyperBall, replaces round_fn's step of
 // stract_tpu/webgraph/centrality.py:148-165 (`out.at[let[k]].max(buf[lef[k]],
 // mode="drop")` on each device, then a ppermute of the register shard). It is
 // K6a's body over one (shard, ring distance) bucket: the bucket's edges are
 // sorted by local target into a CSR on the host, the row's running value
-// comes from `out` and the gathered rows from the ring buffer (the round-start
-// shard standing at that distance, never written), so it needs no atomics and
-// the registers stay bit-equal to the reference's. The round's last step
-// compares each row with the round-start shard (the change flag) and
-// estimates it (K6b in the epilogue). Bound like K6a: a gather per edge, over
-// one shard's rows, plus the shard's rows read and written once a step.
+// comes from `out` (updated in place: a row that gathered nothing is neither
+// read nor written, unless the step compares or estimates) and the gathered
+// rows from the ring buffer (the round-start shard standing at that
+// distance, never written), flagged by that shard's change bytes. The
+// round's last step compares each row with the round-start shard (the change
+// flag and the shard's change bytes) and estimates it (K6b in the epilogue).
 //
 // K6b's arithmetic follows the reference in f32: alpha * m * m / sum of
-// 2^-r left to right, the linear-counting branch m * log(m / zeros) when the
-// estimate is <= 2.5 m and zeros remain; logf and exp2f (built with
-// --fmad=false, no fast-math). The sum over a row is taken in another order
-// than XLA's, so sizes agree to a few f32 ulps, not bit for bit.
+// 2^-r, the linear-counting branch m * log(m / zeros) when the estimate is
+// <= 2.5 m and zeros remain; logf and exp2f (built with --fmad=false, no
+// fast-math). The sum over a row is taken in another order than XLA's (each
+// lane its own words, then the row's lanes by shuffles), so sizes agree to a
+// few f32 ulps, not bit for bit.
 
 #include <climits>
 #include <cstdint>
@@ -56,132 +86,249 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxWordsPerThread = 16;  // m <= 16 x 16 x 4 = 1024 registers
-constexpr int kGroupMax = 16;           // threads per register row
+constexpr int kMinGroup = 8;  // the fewest lanes of a row's group
 
-// the words a thread holds: unrolled to the compile-time maximum and guarded,
-// so its array of words stays in registers
-#define FOR_WORDS(k) \
-    _Pragma("unroll") for (int k = 0; k < kMaxWordsPerThread; ++k) if (k < s.wpt)
+// VEC words from p (aligned to 4 VEC bytes) into w, and back
+template <int VEC>
+__device__ __forceinline__ void load_piece(const uint32_t* p, uint32_t (&w)[VEC]) {
+    if constexpr (VEC == 4) {
+        const uint4 x = *reinterpret_cast<const uint4*>(p);
+        w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    } else if constexpr (VEC == 2) {
+        const uint2 x = *reinterpret_cast<const uint2*>(p);
+        w[0] = x.x, w[1] = x.y;
+    } else {
+        w[0] = *p;
+    }
+}
 
-struct HllShape {
-    int n, W, G, wpt;  // rows, u32 words per row, threads per row, words per thread
-    float m, alpha;
-};
+template <int VEC>
+__device__ __forceinline__ void store_piece(uint32_t* p, const uint32_t (&w)[VEC]) {
+    if constexpr (VEC == 4) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (VEC == 2) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+        *p = w[0];
+    }
+}
 
-// sum of 2^-r over one row's registers, and its count of zero registers,
-// reduced over the G threads of the row's group (all 32 lanes take part)
-__device__ void row_sum(const uint32_t* acc, const HllShape& s, float& sum, int& zeros) {
+// the position of the k-th (from 0) set bit of mask, which has more than k
+__device__ __forceinline__ int nth_set(unsigned mask, int k) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+        const int c = __popc((mask >> pos) & ((1u << w) - 1u));
+        if (k >= c) {
+            k -= c;
+            pos += w;
+        }
+    }
+    return pos;
+}
+
+// sum of 2^-r over one row's registers and its count of zero registers: each
+// lane its own words in order, then the LANES lanes of the row (neighbours,
+// lanes of `mask`) by shuffles; every lane of the row gets the row's figures
+template <int LANES, int PPL, int VEC>
+__device__ void row_sum(const uint32_t (&acc)[PPL][VEC], unsigned mask, float& sum, int& zeros) {
     sum = 0.0f;
     zeros = 0;
-    FOR_WORDS(k) {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const unsigned r = (acc[k] >> (8 * b)) & 0xFFu;
-            sum += exp2f(-static_cast<float>(r));
-            zeros += r == 0;
-        }
-    }
-    for (int o = s.G / 2; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        zeros += __shfl_xor_sync(0xffffffffu, zeros, o);
+    for (int p = 0; p < PPL; ++p)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const unsigned r = (acc[p][i] >> (8 * b)) & 0xFFu;
+                sum += exp2f(-static_cast<float>(r));
+                zeros += r == 0;
+            }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(mask, sum, o);
+        zeros += __shfl_xor_sync(mask, zeros, o);
     }
 }
 
-__device__ float hll_estimate(float sum, int zeros, const HllShape& s) {
-    const float est = s.alpha * s.m * s.m / sum;
+__device__ float hll_estimate(float sum, int zeros, float m, float alpha) {
+    const float est = alpha * m * m / sum;
     const float z = static_cast<float>(zeros);
-    const float lc = s.m * logf(s.m / fmaxf(z, 1.0f));
-    return (est <= 2.5f * s.m && z > 0.0f) ? lc : est;
+    const float lc = m * logf(m / fmaxf(z, 1.0f));
+    return (est <= 2.5f * m && z > 0.0f) ? lc : est;
 }
 
-// the epilogue of one row: write the new row, flag a change against `cmp`
-// (when given), estimate (when `sizes` is given)
-__device__ void merge_epilogue(bool valid, long long v, const uint32_t* acc, const uint32_t* cmp,
-                               uint32_t* out, float* __restrict__ sizes, int* __restrict__ changed,
-                               int g, const HllShape& s) {
-    bool diff = false;
-    if (valid) {
-        FOR_WORDS(k) {
-            const long long w = v * s.W + g + k * s.G;
-            if (cmp != nullptr) diff |= acc[k] != cmp[w];
-            out[w] = acc[k];
+// one launch of the merge body. K6a: self = cmp = the round-start registers,
+// src the same, out another buffer. The ring step (K8): self = out (its
+// running rows, in place), src the ring buffer, cmp the round-start shard at
+// the round's last step (else null). A row is read and written by the same
+// lanes, so self may be out (neither is __restrict__); src is never written.
+struct MergeArgs {
+    const uint32_t* self;
+    const uint32_t* src;
+    const uint32_t* cmp;        // null: no comparison (nor change bytes)
+    const uint8_t* flags;       // src's change bytes; null: every byte set
+    const int* offsets;
+    const int* sources;
+    const int* long_rows;
+    int short_blocks, long_cut, n;
+    float m, alpha;
+    uint32_t* out;
+    uint8_t* flags_out;         // the rows' change bytes (may be null)
+    float* sizes;               // may be null
+    int* changed;
+};
+
+template <int VEC, int LANES, int PPL>
+__global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
+    constexpr int W = VEC * LANES * PPL;                     // u32 words a row
+    constexpr int G = LANES < kMinGroup ? kMinGroup : LANES;  // lanes of a row's group
+    constexpr int kSlots = G / LANES;                        // in-edges the group reads at once
+    constexpr int kGroups = kThreads / G;
+    constexpr int U = 4 / PPL < LANES ? 4 / PPL : LANES;     // gathers a lane issues at once
+    extern __shared__ uint32_t s_part[];                     // long rows: kGroups x W words
+    const int gl = threadIdx.x % G, group = threadIdx.x / G;
+    const int lane = gl % LANES, slot = gl / LANES;
+    const int gbase = threadIdx.x % 32 / G * G;
+    const unsigned gmask =  // this group's lanes of the warp (G % 32: no shift by 32)
+        G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1) << gbase;
+    const bool long_row = blockIdx.x >= a.short_blocks;
+    long long v;
+    bool valid;
+    int start = 0, end = 0;
+    if (long_row) {
+        v = a.long_rows[blockIdx.x - a.short_blocks];
+        valid = true;
+        start = a.offsets[v];
+        end = a.offsets[v + 1];
+    } else {
+        v = static_cast<long long>(blockIdx.x) * kGroups + group;
+        valid = v < a.n;
+        if (valid) {
+            start = a.offsets[v];
+            end = a.offsets[v + 1];
+            valid = end - start <= a.long_cut;  // else its own block walks it
+        }
+        if (!valid) end = start;
+    }
+    // this group's first edge and its stride over the row's edges
+    const int first = start + (long_row ? group * G : 0);
+    const int stride = (long_row ? kGroups : 1) * G;
+
+    uint32_t acc[PPL][VEC] = {};
+    bool gathered = false;  // the same in every lane of the group
+    for (int e0 = first; e0 < end; e0 += stride) {
+        const int cnt = min(G, end - e0);
+        const int idx = gl < cnt ? a.sources[e0 + gl] : 0;
+        const bool flagged = gl < cnt && (a.flags == nullptr || a.flags[idx] != 0);
+        const unsigned mask = (__ballot_sync(gmask, flagged) & gmask) >> gbase;
+        const int nf = __popc(mask);
+        gathered |= nf > 0;
+        for (int k0 = 0; k0 < nf; k0 += kSlots * U) {
+            uint32_t got[U][PPL][VEC];
+#pragma unroll
+            for (int j = 0; j < U; ++j) {
+                const int k = k0 + j * kSlots + slot;
+                const long long u = __shfl_sync(gmask, idx, nth_set(mask, min(k, nf - 1)), G);
+                const uint32_t* row = a.src + u * W + lane * VEC;
+#pragma unroll
+                for (int p = 0; p < PPL; ++p) {
+                    if (k < nf) {
+                        load_piece<VEC>(row + p * LANES * VEC, got[j][p]);
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < VEC; ++i) got[j][p][i] = 0u;
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < U; ++j)
+#pragma unroll
+                for (int p = 0; p < PPL; ++p)
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) acc[p][i] = __vmaxu4(acc[p][i], got[j][p][i]);
         }
     }
-    if (sizes != nullptr) {
+    // the slots' rows meet: every slot then holds the group's row
+#pragma unroll
+    for (int o = LANES; o < G; o <<= 1)
+#pragma unroll
+        for (int p = 0; p < PPL; ++p)
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+                acc[p][i] = __vmaxu4(acc[p][i], __shfl_xor_sync(gmask, acc[p][i], o));
+    if (long_row) {
+        // the groups' partial rows meet in shared memory; the first group finishes
+        if (slot == 0) {
+#pragma unroll
+            for (int p = 0; p < PPL; ++p)
+#pragma unroll
+                for (int i = 0; i < VEC; ++i)
+                    s_part[group * W + (p * LANES + lane) * VEC + i] = acc[p][i];
+        }
+        gathered = __syncthreads_or(gathered);
+        if (group != 0) return;
+        for (int q = 1; q < kGroups; ++q)
+#pragma unroll
+            for (int p = 0; p < PPL; ++p)
+#pragma unroll
+                for (int i = 0; i < VEC; ++i)
+                    acc[p][i] = __vmaxu4(acc[p][i], s_part[q * W + (p * LANES + lane) * VEC + i]);
+    }
+    // K6a writes every row into the other buffer; in place, a row that
+    // gathered nothing is left as it is unless it is compared or estimated
+    const bool in_place = a.out == a.self;
+    if (!valid || (in_place && !gathered && a.cmp == nullptr && a.sizes == nullptr)) return;
+    const long long at = v * W + lane * VEC;
+    uint32_t own[PPL][VEC];
+#pragma unroll
+    for (int p = 0; p < PPL; ++p) load_piece<VEC>(a.self + at + p * LANES * VEC, own[p]);
+    bool diff = false;
+#pragma unroll
+    for (int p = 0; p < PPL; ++p) {
+        uint32_t ref[VEC] = {};
+        if (a.cmp != nullptr && a.cmp != a.self) load_piece<VEC>(a.cmp + at + p * LANES * VEC, ref);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+            acc[p][i] = __vmaxu4(acc[p][i], own[p][i]);
+            if (a.cmp != nullptr) diff |= acc[p][i] != (a.cmp == a.self ? own[p][i] : ref[i]);
+        }
+    }
+    if (slot == 0 && (!in_place || gathered)) {
+#pragma unroll
+        for (int p = 0; p < PPL; ++p) store_piece<VEC>(a.out + at + p * LANES * VEC, acc[p]);
+    }
+    if (a.cmp != nullptr) {
+        const bool row_diff = __any_sync(gmask, diff);
+        if (a.flags_out != nullptr && gl == 0) a.flags_out[v] = row_diff;
+        if (row_diff && gl == 0) *a.changed = 1;
+    }
+    if (a.sizes != nullptr) {
         float sum;
         int zeros;
-        row_sum(acc, s, sum, zeros);
-        if (valid && g == 0) sizes[v] = hll_estimate(sum, zeros, s);
+        row_sum<LANES>(acc, gmask, sum, zeros);
+        if (gl == 0) a.sizes[v] = hll_estimate(sum, zeros, a.m, a.alpha);
     }
-    if (diff) *changed = 1;
 }
 
-// K6a and the ring step (K8) in one body: row v of `out` becomes the bytewise
-// max of `self` row v and the `src` rows of its in-edges. K6a reads self,
-// src and cmp from the round-start registers; the ring step reads self from
-// `out` itself (its running row) and src from the ring buffer, a different
-// tensor, and compares with the round-start shard at its last step only. A
-// row is read and written by the same threads, so self may be out (neither is
-// __restrict__); src is never written.
+// K6b alone: LANES lanes a row (all 32 lanes of a warp take part)
+template <int VEC, int LANES, int PPL>
 __global__ void __launch_bounds__(kThreads)
-hll_merge_kernel(const uint32_t* self, const uint32_t* __restrict__ src, const uint32_t* cmp,
-                 const int* __restrict__ offsets, const int* __restrict__ sources,
-                 const int* __restrict__ long_rows, int short_blocks, int long_cut, HllShape s,
-                 uint32_t* out, float* __restrict__ sizes, int* __restrict__ changed) {
-    __shared__ uint32_t s_part[kThreads * kMaxWordsPerThread];
-    const int g = threadIdx.x % s.G, group = threadIdx.x / s.G, groups = kThreads / s.G;
-    uint32_t acc[kMaxWordsPerThread];
-
-    if (blockIdx.x < short_blocks) {
-        // one group of G threads per row; long rows are left to their own blocks
-        const long long v = static_cast<long long>(blockIdx.x) * groups + group;
-        bool valid = v < s.n;
-        int start = 0, end = 0;
-        if (valid) {
-            start = offsets[v];
-            end = offsets[v + 1];
-            valid = end - start <= long_cut;
-        }
-        FOR_WORDS(k) acc[k] = valid ? self[v * s.W + g + k * s.G] : 0u;
-        for (int e = start; valid && e < end; ++e) {
-            const long long u = sources[e];
-            FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], src[u * s.W + g + k * s.G]);
-        }
-        merge_epilogue(valid, v, acc, cmp, out, sizes, changed, g, s);
-        return;
+hll_estimate_kernel(const uint32_t* __restrict__ regs, int n, float m, float alpha,
+                    float* __restrict__ sizes) {
+    constexpr int W = VEC * LANES * PPL;
+    const int lane = threadIdx.x % LANES;
+    const long long v = static_cast<long long>(blockIdx.x) * (kThreads / LANES) + threadIdx.x / LANES;
+    const bool valid = v < n;
+    uint32_t acc[PPL][VEC] = {};
+    if (valid) {
+#pragma unroll
+        for (int p = 0; p < PPL; ++p) load_piece<VEC>(regs + v * W + (p * LANES + lane) * VEC, acc[p]);
     }
-
-    // a long row: the block's groups stride over its edges, then the partial
-    // rows meet in shared memory and the first warp finishes the row
-    const long long v = long_rows[blockIdx.x - short_blocks];
-    const int start = offsets[v], end = offsets[v + 1];
-    FOR_WORDS(k) acc[k] = group == 0 ? self[v * s.W + g + k * s.G] : 0u;
-    for (int e = start + group; e < end; e += groups) {
-        const long long u = sources[e];
-        FOR_WORDS(k) acc[k] = __vmaxu4(acc[k], src[u * s.W + g + k * s.G]);
-    }
-    FOR_WORDS(k) s_part[(group * s.wpt + k) * s.G + g] = acc[k];
-    __syncthreads();
-    if (threadIdx.x >= 32) return;
-    if (group == 0) {
-        FOR_WORDS(k)
-            for (int q = 1; q < groups; ++q) acc[k] = __vmaxu4(acc[k], s_part[(q * s.wpt + k) * s.G + g]);
-    }
-    merge_epilogue(group == 0, v, acc, cmp, out, sizes, changed, g, s);
-}
-
-__global__ void __launch_bounds__(kThreads)
-hll_estimate_kernel(const uint32_t* __restrict__ regs, HllShape s, float* __restrict__ sizes) {
-    const int g = threadIdx.x % s.G, groups = kThreads / s.G;
-    const long long v = static_cast<long long>(blockIdx.x) * groups + threadIdx.x / s.G;
-    const bool valid = v < s.n;
-    uint32_t acc[kMaxWordsPerThread];
-    FOR_WORDS(k) acc[k] = valid ? regs[v * s.W + g + k * s.G] : 0u;
     float sum;
     int zeros;
-    row_sum(acc, s, sum, zeros);
-    if (valid && g == 0) sizes[v] = hll_estimate(sum, zeros, s);
+    row_sum<LANES>(acc, 0xffffffffu, sum, zeros);
+    if (valid && lane == 0) sizes[v] = hll_estimate(sum, zeros, m, alpha);
 }
 
 // K7, one round r of the multi-source BFS, as a bitset frontier step
@@ -304,85 +451,124 @@ bfs_step_kernel(const uint32_t* __restrict__ frontier, const int* __restrict__ o
     if (any) *changed = 1;
 }
 
-HllShape hll_shape(int n, int m, float alpha) {
-    HllShape s;
-    s.n = n;
-    s.W = m / 4;
-    s.G = s.W < kGroupMax ? s.W : kGroupMax;
-    s.wpt = s.W / s.G;
-    s.m = static_cast<float>(m);
-    s.alpha = alpha;
-    return s;
-}
+// the merge body at m registers a row (a power of two, 4..1024): (VEC, LANES,
+// PPL) with VEC x LANES x PPL = m / 4 words
+#define STRACT_HLL_WIDTHS(X)                                                                  \
+    X(4, 1, 1, 1) X(8, 2, 1, 1) X(16, 4, 1, 1) X(32, 4, 2, 1) X(64, 4, 4, 1) X(128, 4, 8, 1) \
+    X(256, 4, 16, 1) X(512, 4, 32, 1) X(1024, 4, 32, 2)
 
 bool hll_shape_ok(int m) {
-    // m a power of two from 4 to 1024 (precision 2..10)
-    return m >= 4 && m <= 4 * kGroupMax * kMaxWordsPerThread && (m & (m - 1)) == 0;
+    return m >= 4 && m <= 1024 && (m & (m - 1)) == 0;
+}
+
+// the registers' pointers must hold whole pieces: 4 VEC bytes (16 from m = 16)
+bool hll_aligned(const void* p, int m) {
+    return reinterpret_cast<uintptr_t>(p) % (m < 16 ? m : 16) == 0;
+}
+
+template <int VEC, int LANES, int PPL>
+cudaError_t launch_merge(MergeArgs a, int n_long, cudaStream_t stream) {
+    constexpr int G = LANES < kMinGroup ? kMinGroup : LANES;
+    constexpr int kGroups = kThreads / G;
+    a.short_blocks = (a.n + kGroups - 1) / kGroups;
+    const size_t smem = n_long > 0 ? sizeof(uint32_t) * kGroups * VEC * LANES * PPL : 0;
+    hll_merge_kernel<VEC, LANES, PPL>
+        <<<static_cast<unsigned>(a.short_blocks + n_long), kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+}
+
+cudaError_t merge(int m, const MergeArgs& a, int n_long, cudaStream_t stream) {
+    switch (m) {
+#define STRACT_HLL_MERGE(M, VEC, LANES, PPL) \
+    case M: return launch_merge<VEC, LANES, PPL>(a, n_long, stream);
+        STRACT_HLL_WIDTHS(STRACT_HLL_MERGE)
+#undef STRACT_HLL_MERGE
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <int VEC, int LANES, int PPL>
+cudaError_t launch_estimate(const uint32_t* regs, int n, float alpha, float* sizes,
+                            cudaStream_t stream) {
+    constexpr int rows = kThreads / LANES;
+    hll_estimate_kernel<VEC, LANES, PPL><<<(n + rows - 1) / rows, kThreads, 0, stream>>>(
+        regs, n, static_cast<float>(4 * VEC * LANES * PPL), alpha, sizes);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K6a (+K6b): regs u8[n, m] -> out u8[n, m], sizes f32[n] (may be null),
-// changed i32[1] (zeroed here). offsets i32[n + 1], sources i32[E]: the
-// reverse CSR; long_rows i32[n_long]: the rows with more than long_cut
-// in-edges, in any order. Returns the CUDA status of the launch.
-int stract_hll_merge(const void* regs, const int* offsets, const int* sources,
-                     const int* long_rows, int n_long, int n, int m, int long_cut, float alpha,
-                     void* out, float* sizes, int* changed, cudaStream_t stream) {
-    if (!hll_shape_ok(m) || n < 0 || n_long < 0 || long_cut < 0) return cudaErrorInvalidValue;
+// K6a (+K6b): regs u8[n, m] -> out u8[n, m] (another buffer), sizes f32[n]
+// (may be null), changed i32[1] (zeroed here). offsets i32[n + 1], sources
+// i32[E]: the reverse CSR; long_rows i32[n_long]: the rows with more than
+// long_cut in-edges, in any order. flags u8[n]: the rows that changed in the
+// round before (only their out-edges are gathered; null: every row, the full
+// merge); flags_out u8[n] (may be null, another buffer than flags): this
+// round's change bytes. Returns the CUDA status of the launch.
+int stract_hll_merge(const void* regs, const uint8_t* flags, const int* offsets,
+                     const int* sources, const int* long_rows, int n_long, int n, int m,
+                     int long_cut, float alpha, void* out, uint8_t* flags_out, float* sizes,
+                     int* changed, cudaStream_t stream) {
+    if (!hll_shape_ok(m) || n < 0 || n_long < 0 || long_cut < 0 || regs == out ||
+        !hll_aligned(regs, m) || !hll_aligned(out, m) ||
+        (flags != nullptr && flags == flags_out))
+        return cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), stream);
     if (err != cudaSuccess || n == 0) return err;
-    const HllShape s = hll_shape(n, m, alpha);
-    const int groups = kThreads / s.G;
-    const int short_blocks = (n + groups - 1) / groups;
     const uint32_t* r = static_cast<const uint32_t*>(regs);
-    hll_merge_kernel<<<short_blocks + n_long, kThreads, 0, stream>>>(
-        r, r, r, offsets, sources, long_rows, short_blocks, long_cut, s,
-        static_cast<uint32_t*>(out), sizes, changed);
-    return cudaGetLastError();
+    MergeArgs a{r, r, r, flags, offsets, sources, long_rows, 0, long_cut, n,
+                static_cast<float>(m), alpha, static_cast<uint32_t*>(out), flags_out, sizes,
+                changed};
+    return merge(m, a, n_long, stream);
 }
 
 // K8, one ring step of one shard: out u8[S, m] (the shard's running rows,
 // updated in place) takes the max over the bucket's edges of the ring
 // buffer's rows buf u8[S, m] (another tensor: the round-start shard that
-// stands at this step's ring distance). offsets i32[S + 1], sources i32[E]:
-// the bucket's edges sorted by local target, sources local rows of buf;
-// long_rows as for K6a. At the round's last step `start` (the round-start
-// shard) is given: changed i32[1] (zeroed here) is set when a row differs
-// from it, and sizes f32[S] (may be null) get K6b's estimate of the new rows.
-int stract_hll_ring_step(void* out, const void* buf, const int* offsets, const int* sources,
-                         const int* long_rows, int n_long, int S, int m, int long_cut, float alpha,
-                         const void* start, float* sizes, int* changed, cudaStream_t stream) {
+// stands at this step's ring distance) whose change byte in flags u8[S] is
+// set (null: every row). offsets i32[S + 1], sources i32[E]: the bucket's
+// edges sorted by local target, sources local rows of buf; long_rows as for
+// K6a. At the round's last step `start` (the round-start shard) is given:
+// changed i32[1] (zeroed here) is set when a row differs from it, flags_out
+// u8[S] (may be null) gets each row's change byte, and sizes f32[S] (may be
+// null) K6b's estimate of the new rows.
+int stract_hll_ring_step(void* out, const void* buf, const uint8_t* flags, const int* offsets,
+                         const int* sources, const int* long_rows, int n_long, int S, int m,
+                         int long_cut, float alpha, const void* start, uint8_t* flags_out,
+                         float* sizes, int* changed, cudaStream_t stream) {
     if (!hll_shape_ok(m) || S < 0 || n_long < 0 || long_cut < 0 || out == buf ||
-        (start != nullptr) != (changed != nullptr) || (sizes != nullptr && start == nullptr))
+        (start != nullptr) != (changed != nullptr) ||
+        ((sizes != nullptr || flags_out != nullptr) && start == nullptr) ||
+        !hll_aligned(out, m) || !hll_aligned(buf, m) ||
+        (start != nullptr && !hll_aligned(start, m)))
         return cudaErrorInvalidValue;
     if (changed != nullptr) {
         cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), stream);
         if (err != cudaSuccess) return err;
     }
     if (S == 0) return cudaSuccess;
-    const HllShape s = hll_shape(S, m, alpha);
-    const int groups = kThreads / s.G;
-    const int short_blocks = (S + groups - 1) / groups;
     uint32_t* o = static_cast<uint32_t*>(out);
-    hll_merge_kernel<<<short_blocks + n_long, kThreads, 0, stream>>>(
-        o, static_cast<const uint32_t*>(buf), static_cast<const uint32_t*>(start), offsets,
-        sources, long_rows, short_blocks, long_cut, s, o, sizes, changed);
-    return cudaGetLastError();
+    MergeArgs a{o, static_cast<const uint32_t*>(buf), static_cast<const uint32_t*>(start), flags,
+                offsets, sources, long_rows, 0, long_cut, S, static_cast<float>(m), alpha, o,
+                flags_out, sizes, changed};
+    return merge(m, a, n_long, stream);
 }
 
 // K6b: regs u8[n, m] -> sizes f32[n].
 int stract_hll_estimate(const void* regs, int n, int m, float alpha, float* sizes,
                         cudaStream_t stream) {
-    if (!hll_shape_ok(m) || n < 0) return cudaErrorInvalidValue;
+    if (!hll_shape_ok(m) || n < 0 || !hll_aligned(regs, m)) return cudaErrorInvalidValue;
     if (n == 0) return cudaSuccess;
-    const HllShape s = hll_shape(n, m, alpha);
-    const int groups = kThreads / s.G;
-    hll_estimate_kernel<<<(n + groups - 1) / groups, kThreads, 0, stream>>>(
-        static_cast<const uint32_t*>(regs), s, sizes);
-    return cudaGetLastError();
+    const uint32_t* r = static_cast<const uint32_t*>(regs);
+    switch (m) {
+#define STRACT_HLL_ESTIMATE(M, VEC, LANES, PPL) \
+    case M: return launch_estimate<VEC, LANES, PPL>(r, n, alpha, sizes, stream);
+        STRACT_HLL_WIDTHS(STRACT_HLL_ESTIMATE)
+#undef STRACT_HLL_ESTIMATE
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // K7, round `level` of the BFS: frontier u32[n, W] (read), seen u32[n, W]

@@ -12,14 +12,24 @@ with no atomics, writes the new rows into a second buffer (so every read sees
 the round start, as the reference's gather-then-scatter), estimates the new
 rows' sizes in its epilogue and sets one flag when any row changed.
 
+A HyperBall run takes the systolic round (Boldi and Vigna, 2013): one change
+byte a row, set where the round before changed the row (every byte before
+round 1). From round 1 on a row already holds the max of its in-neighbours'
+rows of the round before, so only the in-neighbours that changed can add to
+it; the round gathers those alone and gives the full merge's bits, change
+flag and round count. It is not the full merge from an arbitrary state:
+`merge_iteration`, the reference's stateless round, gathers every in-edge.
+
 The sharded HyperBall (webgraph/centrality.py) runs a round as ring steps
 over its register shards: `ring_step` (K8) takes the max of a shard's
 running rows and the ring buffer's rows over one (shard, ring distance)
-bucket of edges, pulled over the bucket's reverse CSR like K6a.
+bucket of edges, pulled over the bucket's reverse CSR like K6a, and gathers
+only the ring buffer's rows whose change byte is set.
 
-`merge_iteration_plain`, `estimate_sizes_plain` and `ring_step_plain` are
-the plain PyTorch versions; the public functions take them for tensors on
-the CPU and launch the kernels for tensors on a card (or raise).
+`merge_iteration_plain`, `merge_systolic_plain`, `estimate_sizes_plain` and
+`ring_step_plain` are the plain PyTorch versions; the public functions take
+them for tensors on the CPU and launch the kernels for tensors on a card (or
+raise).
 """
 
 from __future__ import annotations
@@ -87,6 +97,20 @@ def merge_iteration_plain(regs, edge_from, edge_to):
     return new
 
 
+def merge_systolic_plain(regs, changed, edge_from, edge_to):
+    """One systolic HyperBall round, plainly: only the edges whose source's
+    change byte in `changed` u8[N] is set (None: every edge) max-reduced
+    into a copy of regs → (new regs, new change bytes u8[N], 1 where the row
+    differs from regs)."""
+    ef = torch.as_tensor(edge_from, device=regs.device).long()
+    et = torch.as_tensor(edge_to, device=regs.device).long()
+    if changed is not None:
+        keep = changed[ef] != 0
+        ef, et = ef[keep], et[keep]
+    new = merge_iteration_plain(regs, ef, et)
+    return new, (new != regs).any(dim=1).to(torch.uint8)
+
+
 def estimate_sizes_plain(regs):
     """The vectorized HLL estimate f32[N], the reference's formula in f32."""
     n, m = regs.shape
@@ -100,15 +124,19 @@ def estimate_sizes_plain(regs):
     return torch.where(use_lc, lc, est)
 
 
-def merge_csr(regs, csr: InCSR, out=None, sizes: bool = True):
+def merge_csr(regs, csr: InCSR, out=None, sizes: bool = True, flags=None, flags_out=None):
     """K6a over the reverse CSR, with K6b for the new rows → (new regs, f32[N]
-    sizes or None, i32[1] changed flag). Card tensors only."""
+    sizes or None, i32[1] changed flag). `flags` u8[N]: the systolic round,
+    which gathers only the in-neighbours whose change byte is set and copies
+    a row with none (None: every in-neighbour, the full merge); `flags_out`
+    u8[N], when given, receives this round's change bytes. Card tensors
+    only."""
     n, m = regs.shape
     out = torch.empty_like(regs) if out is None else out
     sz = torch.empty(n, dtype=torch.float32, device=regs.device) if sizes else None
     changed = torch.empty(1, dtype=torch.int32, device=regs.device)
     kernels.hll_merge(regs, csr.offsets, csr.sources, csr.long_rows, LONG_ROW, hll_alpha(m), out,
-                      sz, changed)
+                      sz, changed, flags, flags_out)
     return out, sz, changed
 
 
@@ -131,14 +159,18 @@ def estimate_sizes(regs):
     return sizes
 
 
-def ring_step_plain(out, buf, csr: InCSR):
+def ring_step_plain(out, buf, csr: InCSR, flags=None):
     """One ring step plainly, as the reference's `out.at[t].max(buf[s])`:
     each edge's ring-buffer row max-reduced into its target's row of `out`
-    (in place) → out."""
+    (in place), only the edges whose source's change byte in `flags` u8[S]
+    is set (None: every edge) → out."""
     S = out.shape[0]
     deg = (csr.offsets[1:] - csr.offsets[:-1]).long()
     tgt = torch.repeat_interleave(torch.arange(S, device=out.device), deg)
     src = csr.sources.long()
+    if flags is not None:
+        keep = flags[src] != 0
+        src, tgt = src[keep], tgt[keep]
     chunk = max(1, PLAIN_CHUNK_BYTES // max(out.shape[1], 1))
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="index_reduce")  # "in beta"
@@ -147,20 +179,28 @@ def ring_step_plain(out, buf, csr: InCSR):
     return out
 
 
-def ring_step(out, buf, csr: InCSR, start=None, sizes: bool = False):
+def ring_step(out, buf, csr: InCSR, start=None, sizes: bool = False, flags=None,
+              flags_out=None):
     """K8, one ring step of one shard: `out` u8[S, m] (updated in place) ∪=
     the rows of the ring buffer `buf` (another tensor, never written) over
-    the bucket's reverse CSR. At the round's last step `start` is the
+    the bucket's reverse CSR, only the rows whose change byte in `flags`
+    u8[S] is set (None: every row). At the round's last step `start` is the
     round-start shard: → (changed i32[1], f32[S] sizes of the new rows when
-    `sizes`, else None); at the other steps → (None, None). A CPU tensor
-    takes the plain version, a card tensor the kernel (or raises)."""
+    `sizes`, else None), and `flags_out` u8[S], when given, receives each
+    row's change byte; at the other steps → (None, None). A CPU tensor takes
+    the plain version, a card tensor the kernel (or raises)."""
     if buf is out:
         raise ValueError("the ring buffer must be another tensor than the rows it updates")
+    if flags_out is not None and start is None:
+        raise ValueError("the change bytes are written at the round's last step, with start")
     if not out.is_cuda:
-        ring_step_plain(out, buf, csr)
+        ring_step_plain(out, buf, csr, flags)
         if start is None:
             return None, None
-        changed = torch.tensor([int(not torch.equal(out, start))], dtype=torch.int32)
+        rows = (out != start).any(dim=1)
+        if flags_out is not None:
+            flags_out.copy_(rows)
+        changed = rows.any().to(torch.int32).reshape(1)
         return changed, estimate_sizes_plain(out) if sizes else None
     S, m = out.shape
     changed = sz = None
@@ -169,5 +209,5 @@ def ring_step(out, buf, csr: InCSR, start=None, sizes: bool = False):
         if sizes:
             sz = torch.empty(S, dtype=torch.float32, device=out.device)
     kernels.hll_ring_step(out, buf, csr.offsets, csr.sources, csr.long_rows, LONG_ROW,
-                          hll_alpha(m), start, sz, changed)
+                          hll_alpha(m), start, sz, changed, flags, flags_out)
     return changed, sz

@@ -245,10 +245,11 @@ def _load(name: str):
                 lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
             elif name == "graph":
-                lib.stract_hll_merge.argtypes = [P, P, P, P, I, I, I, I, F, P, P, P, P]
+                lib.stract_hll_merge.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P, P]
                 lib.stract_hll_estimate.argtypes = [P, I, I, F, P, P]
                 lib.stract_bfs_step.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, P, P]
-                lib.stract_hll_ring_step.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P]
+                lib.stract_hll_ring_step.argtypes = [P, P, P, P, P, P, I, I, I, I, F, P, P, P, P,
+                                                     P]
                 fns = (lib.stract_hll_merge, lib.stract_hll_estimate, lib.stract_bfs_step,
                        lib.stract_hll_ring_step)
             elif name == "moe":
@@ -1005,21 +1006,44 @@ def _csr_ptrs(n: int, offsets, sources, long_rows) -> tuple:
             int(long_rows.shape[0]))
 
 
-def hll_merge(regs, offsets, sources, long_rows, long_cut: int, alpha: float, out, sizes,
-              changed) -> None:
-    """K6a (+K6b): regs u8[N, m] over the reverse CSR (offsets i32[N + 1],
-    sources i32[E]; long_rows i32[L], the rows with more than long_cut
-    in-edges) → out u8[N, m], sizes f32[N] (or None), changed i32[1]
-    (ops/hll_ops.py allocates)."""
-    n, m = regs.shape
+def _hll_rows(m: int, *regs) -> None:
+    """Raise unless m registers a row is a width the kernels take and each
+    register tensor starts on a whole piece (min(m, 16) bytes)."""
     if not 4 <= m <= HLL_MAX_M or m & (m - 1):
         raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    for t in regs:
+        if t is not None and t.data_ptr() % min(m, 16):
+            raise ValueError(f"HLL registers must start on a {min(m, 16)}-byte boundary")
+
+
+def _change_bytes(flags, flags_out, n: int) -> tuple:
+    """Pointers of the change bytes u8[n] read and written (None: null);
+    the two must be other tensors."""
+    if flags is not None and flags_out is not None and flags.data_ptr() == flags_out.data_ptr():
+        raise ValueError("the change bytes written must be another tensor than those read")
+    return _ptr(flags, torch.uint8, (n,)), _ptr(flags_out, torch.uint8, (n,))
+
+
+def hll_merge(regs, offsets, sources, long_rows, long_cut: int, alpha: float, out, sizes,
+              changed, flags=None, flags_out=None) -> None:
+    """K6a (+K6b): regs u8[N, m] over the reverse CSR (offsets i32[N + 1],
+    sources i32[E]; long_rows i32[L], the rows with more than long_cut
+    in-edges) → out u8[N, m] (another tensor), sizes f32[N] (or None),
+    changed i32[1]. flags u8[N]: the rows that changed in the round before,
+    the only in-neighbours gathered (None: every row); flags_out u8[N] (or
+    None): this round's change bytes (ops/hll_ops.py allocates)."""
+    n, m = regs.shape
+    _hll_rows(m, regs, out)
+    if out.data_ptr() == regs.data_ptr():
+        raise ValueError("K6a writes its rows into another tensor than the registers it reads")
     off, src, lr, n_long = _csr_ptrs(n, offsets, sources, long_rows)
+    fl, fl_out = _change_bytes(flags, flags_out, n)
     u8 = torch.uint8
     lib = _load("graph")
-    with on_card(regs, offsets, sources, out, sizes, changed) as stream:
-        rc = lib.stract_hll_merge(_ptr(regs, u8, (n, m)), off, src, lr, n_long, n, m, long_cut,
-                                  alpha, _ptr(out, u8, (n, m)), _ptr(sizes, torch.float32, (n,)),
+    with on_card(regs, flags, offsets, sources, out, flags_out, sizes, changed) as stream:
+        rc = lib.stract_hll_merge(_ptr(regs, u8, (n, m)), fl, off, src, lr, n_long, n, m,
+                                  long_cut, alpha, _ptr(out, u8, (n, m)), fl_out,
+                                  _ptr(sizes, torch.float32, (n,)),
                                   _ptr(changed, torch.int32, (1,)), stream)
     _check(rc, "stract_hll_merge")
     counted("hll_merge")
@@ -1028,8 +1052,7 @@ def hll_merge(regs, offsets, sources, long_rows, long_cut: int, alpha: float, ou
 def hll_estimate(regs, alpha: float, sizes) -> None:
     """K6b: regs u8[N, m] → sizes f32[N]."""
     n, m = regs.shape
-    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
-        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    _hll_rows(m, regs)
     lib = _load("graph")
     with on_card(regs, sizes) as stream:
         rc = lib.stract_hll_estimate(_ptr(regs, torch.uint8, (n, m)), n, m, alpha,
@@ -1067,25 +1090,29 @@ def bfs_step(frontier, seen, dist, offsets, sources, long_rows, long_cut: int, l
 
 
 def hll_ring_step(out, buf, offsets, sources, long_rows, long_cut: int, alpha: float,
-                  start=None, sizes=None, changed=None) -> None:
+                  start=None, sizes=None, changed=None, flags=None, flags_out=None) -> None:
     """K8, one ring step of one shard: out u8[S, m] (in place) ∪= buf u8[S, m]
     over the bucket's reverse CSR (offsets i32[S + 1], sources i32[E] rows of
-    buf, long_rows i32[L]); at the round's last step start u8[S, m] (the
-    round-start shard) with changed i32[1], and sizes f32[S] or None."""
+    buf, long_rows i32[L]), gathering only the rows of buf whose change byte
+    in flags u8[S] is set (None: every row); at the round's last step start
+    u8[S, m] (the round-start shard) with changed i32[1], and sizes f32[S]
+    and flags_out u8[S] (the rows' change bytes) or None."""
     S, m = out.shape
-    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
-        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    _hll_rows(m, out, buf, start)
     if buf.data_ptr() == out.data_ptr():
         raise ValueError("the ring buffer must be another tensor than the rows it updates")
-    if (start is None) != (changed is None) or (sizes is not None and start is None):
-        raise ValueError("the last step takes start with changed (and sizes); the others none")
+    if (start is None) != (changed is None) or (
+            (sizes is not None or flags_out is not None) and start is None):
+        raise ValueError("the last step takes start with changed (and sizes, flags_out); "
+                         "the others none")
     off, src, lr, n_long = _csr_ptrs(S, offsets, sources, long_rows)
+    fl, fl_out = _change_bytes(flags, flags_out, S)
     u8 = torch.uint8
     lib = _load("graph")
-    with on_card(out, buf, offsets, sources, start, sizes, changed) as stream:
-        rc = lib.stract_hll_ring_step(_ptr(out, u8, (S, m)), _ptr(buf, u8, (S, m)), off, src, lr,
-                                      n_long, S, m, long_cut, alpha, _ptr(start, u8, (S, m)),
-                                      _ptr(sizes, torch.float32, (S,)),
+    with on_card(out, buf, flags, offsets, sources, start, flags_out, sizes, changed) as stream:
+        rc = lib.stract_hll_ring_step(_ptr(out, u8, (S, m)), _ptr(buf, u8, (S, m)), fl, off, src,
+                                      lr, n_long, S, m, long_cut, alpha, _ptr(start, u8, (S, m)),
+                                      fl_out, _ptr(sizes, torch.float32, (S,)),
                                       _ptr(changed, torch.int32, (1,)), stream)
     _check(rc, "stract_hll_ring_step")
     counted("hll_ring_step")

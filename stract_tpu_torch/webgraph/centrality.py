@@ -5,12 +5,17 @@ webgraph/centrality/harmonic.rs:215-292 in-process HyperBall).
     c(v) = Σ_r (|ball_r(v)| − |ball_{r−1}(v)|) / r
     ball_r(v) = {v} ∪ ⋃_{(w,v)∈E} ball_{r−1}(w)   (nodes that can reach v)
 
-All sketches are one uint8[N, m] register matrix on the device. On a card a
-round is one launch of K6a (ops/hll_ops.py, csrc/graph.cu) over the store's
-reverse CSR (webgraph/csr.py), which also estimates the new rows' sizes
-(K6b) and flags a change; the host reads the flag and the f32 sizes. The per-node Σ/r accumulation uses
-Kahan-compensated f64 on the host, as the reference does (kahan_sum.rs). On
-the CPU a round is the plain merge and estimate.
+All sketches are one uint8[N, m] register matrix on the device. A round is
+the systolic round (ops/hll_ops.py): one change byte a row carries the rows
+the round before changed (every byte before round 1), and only those are
+gathered; the registers, the change flag and the round count are the full
+merge's. On a card a round is one launch of K6a (ops/hll_ops.py,
+csrc/graph.cu) over the store's reverse CSR (webgraph/csr.py), which also
+estimates the new rows' sizes (K6b), writes the next change bytes and flags
+a change; the host reads the flag and the f32 sizes. The per-node Σ/r
+accumulation uses Kahan-compensated f64 on the host, as the reference does
+(kahan_sum.rs). On the CPU a round is the plain systolic merge and the
+plain estimate.
 
 The sharded variant (harmonic_centrality_sharded) partitions the nodes over
 the entries of a mesh (parallel/mesh.py; entries may share a card) and runs
@@ -18,9 +23,11 @@ each round as the JAX package's ring exchange: n steps per shard, where at
 step k shard d takes the max over its edges whose source lives in shard
 (d + k) mod n, read from that shard's round-start registers (the "ppermute"
 is a reference to the shard, a copy when it lies on another card; it is
-never written). On a card a step is one launch of K8 (hll_ring_step) over
-the (shard, step) bucket's reverse CSR, built on the host; the last step
-also flags a change against the round start and estimates the new rows.
+never written) and flagged by that shard's change bytes, which travel with
+it. On a card a step is one launch of K8 (hll_ring_step) over the (shard,
+step) bucket's reverse CSR, built on the host; the last step also flags a
+change against the round start, writes the shard's change bytes and
+estimates the new rows.
 """
 
 from __future__ import annotations
@@ -69,24 +76,29 @@ def harmonic_centrality(graph: Webgraph, precision: int = DEFAULT_PRECISION,
 
 def _hyperball(n, edge_from, edge_to, precision, max_rounds, device="cuda",
                timings: dict | None = None, csr: InCSR | None = None) -> np.ndarray:
-    """Raw HyperBall → unnormalized centrality f64[n]. On a card the rounds
-    walk `csr`, or the edges sorted by target there when it is not given."""
+    """Raw HyperBall → unnormalized centrality f64[n], in systolic rounds. On
+    a card the rounds walk `csr`, or the edges sorted by target there when it
+    is not given."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     regs = torch.from_numpy(hll_ops.init_registers(n, precision)).to(dev)
+    flags = torch.ones(n, dtype=torch.uint8, device=dev)  # every row "changed" before round 1
     if dev.type == "cuda":
         csr = csr if csr is not None else in_csr(n, edge_from, edge_to, dev)
-        spare = torch.empty_like(regs)
+        spare, spare_flags = torch.empty_like(regs), torch.empty_like(flags)
 
-        def step(regs):
-            new, sizes, changed = hll_ops.merge_csr(regs, csr, out=spare)
-            return (new, sizes) if int(changed.item()) else (None, None)
+        def step(regs, flags):
+            new, sizes, changed = hll_ops.merge_csr(regs, csr, out=spare, flags=flags,
+                                                    flags_out=spare_flags)
+            return (new, sizes, spare_flags) if int(changed.item()) else (None, None, None)
     else:
         ef, et = torch.from_numpy(np.asarray(edge_from)), torch.from_numpy(np.asarray(edge_to))
 
-        def step(regs):
-            new = hll_ops.merge_iteration_plain(regs, ef, et)
-            return (None, None) if torch.equal(new, regs) else (new, hll_ops.estimate_sizes(new))
+        def step(regs, flags):
+            new, new_flags = hll_ops.merge_systolic_plain(regs, flags, ef, et)
+            if not bool(new_flags.any()):
+                return None, None, None
+            return new, hll_ops.estimate_sizes(new), new_flags
 
     sizes = hll_ops.estimate_sizes(regs).cpu().numpy().astype(np.float64)
     t1 = time.perf_counter()
@@ -95,11 +107,12 @@ def _hyperball(n, edge_from, edge_to, precision, max_rounds, device="cuda",
     comp = np.zeros(n, dtype=np.float64)
     rounds = 0
     for r in range(1, max_rounds + 1):
-        new_regs, new_sizes = step(regs)
+        new_regs, new_sizes, new_flags = step(regs, flags)
         if new_regs is None:
             break
         rounds = r
         spare, regs = regs, new_regs
+        spare_flags, flags = flags, new_flags
         new_sizes = new_sizes.cpu().numpy().astype(np.float64)
         delta = (new_sizes - sizes) / r
         y = delta - comp
@@ -154,31 +167,40 @@ def ring_buckets(n: int, sources, targets, devices: list) -> list:
     return buckets
 
 
-def ring_round(shards: list, buckets: list, sizes: bool = True) -> tuple:
+def ring_round(shards: list, buckets: list, sizes: bool = True,
+               flags: list | None = None) -> tuple:
     """One HyperBall round over register shards u8[S, m] (one per mesh
     entry, on its device): shard d's new rows are the max of its round-start
-    rows and, at step k, the rows of shard (d + k) mod n over buckets[d][k]
-    → (new shards, per-shard f32[S] sizes of the new rows or None, per-shard
-    i32[1] changed flags). Every read sees the round start (Jacobi)."""
+    rows and, at step k, the rows of shard (d + k) mod n over buckets[d][k],
+    only those whose change byte in flags[(d + k) mod n] u8[S] is set (None:
+    every row, the full round) → (new shards, per-shard f32[S] sizes of the
+    new rows or None, per-shard i32[1] changed flags, per-shard u8[S] change
+    bytes of this round). Every read sees the round start (Jacobi)."""
     n_dev = len(shards)
-    new, sz, changed = [], [], []
+    new, sz, changed, new_flags = [], [], [], []
     for d, start in enumerate(shards):
         out = start.clone()
+        rows = torch.empty(start.shape[0], dtype=torch.uint8, device=start.device)
         for k in range(n_dev):
-            buf = shards[(d + k) % n_dev].to(start.device)
+            src = (d + k) % n_dev
+            buf = shards[src].to(start.device)
+            fl = None if flags is None else flags[src].to(start.device)
             last = k == n_dev - 1
             c, s = hll_ops.ring_step(out, buf, buckets[d][k], start=start if last else None,
-                                     sizes=sizes and last)
+                                     sizes=sizes and last, flags=fl,
+                                     flags_out=rows if last else None)
         new.append(out)
         sz.append(s)
         changed.append(c)
-    return new, sz, changed
+        new_flags.append(rows)
+    return new, sz, changed, new_flags
 
 
 def _hyperball_sharded(n, sources, targets, mesh, precision=DEFAULT_PRECISION, max_rounds=64,
                        timings: dict | None = None) -> np.ndarray:
-    """Raw ring-exchange HyperBall over the entries of `mesh` → unnormalized
-    centrality f64[n]. `timings`, when given, receives the seconds of
+    """Raw ring-exchange HyperBall over the entries of `mesh`, in systolic
+    rounds (each shard's change bytes travel with it, every byte set before
+    round 1) → unnormalized centrality f64[n]. `timings`, when given, receives the seconds of
     bucketing the edges on the host and copying the buckets' CSRs to the
     devices ("bucket"), of the registers' set-up ("setup"), of the first
     size estimate ("estimate"; the rounds' estimates are in the last ring
@@ -199,18 +221,19 @@ def _hyperball_sharded(n, sources, targets, mesh, precision=DEFAULT_PRECISION, m
     sizes = torch.cat([hll_ops.estimate_sizes(s).cpu() for s in shards])[:n].numpy()
     sizes = sizes.astype(np.float64)
     t3 = time.perf_counter()
+    flags = [torch.ones(S, dtype=torch.uint8, device=dev) for dev in devices]
     acc = np.zeros(n, dtype=np.float64)
     comp = np.zeros(n, dtype=np.float64)
     rounds = 0
     round_s = []
     for r in range(1, max_rounds + 1):
         tr = time.perf_counter()
-        new, new_sizes, changed = ring_round(shards, buckets)
+        new, new_sizes, changed, new_flags = ring_round(shards, buckets, flags=flags)
         # the change flag reduced over every shard
         if not any(int(c.item()) for c in changed):
             break
         rounds = r
-        shards = new
+        shards, flags = new, new_flags
         new_sizes = torch.cat([s.cpu() for s in new_sizes])[:n].numpy().astype(np.float64)
         delta = (new_sizes - sizes) / r
         y = delta - comp

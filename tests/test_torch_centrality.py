@@ -112,6 +112,61 @@ def test_merge_rounds_bit_equal_and_estimates_close(graph):
                                        np.asarray(jax_hll.estimate_sizes(rj)), rtol=1e-6)
 
 
+def test_systolic_rounds_bit_equal_to_jax(graph):
+    """The systolic twin (only the in-edges whose source changed in the round
+    before, every byte set before round 1) gives JAX's merge_iteration
+    round by round to the fixpoint, at precision 6 and 8: the same
+    registers, change bytes (new != old).any(1), and the same round count
+    (no byte set exactly where JAX's round changes nothing)."""
+    _, jg, _ = graph
+    ef, et = _edge_arrays(jg)
+    for precision in (6, 8):
+        regs0 = jax_hll.init_registers(jg.num_nodes, precision)
+        rj, rp = jnp.asarray(regs0), torch.from_numpy(regs0)
+        flags = torch.ones(jg.num_nodes, dtype=torch.uint8)
+        for _ in range(64):
+            new_j = jax_hll.merge_iteration(rj, jnp.asarray(ef), jnp.asarray(et))
+            new_p, flags = hll_ops.merge_systolic_plain(rp, flags, torch.from_numpy(ef),
+                                                        torch.from_numpy(et))
+            np.testing.assert_array_equal(new_p.numpy(), np.asarray(new_j))
+            np.testing.assert_array_equal(flags.numpy(),
+                                          np.any(np.asarray(new_j) != np.asarray(rj), axis=1))
+            if not flags.any():
+                assert bool(jnp.all(new_j == rj))
+                break
+            rj, rp = new_j, new_p
+        else:
+            pytest.fail("no fixpoint in 64 rounds")
+
+
+def test_systolic_twin_skips_rows_whose_byte_is_clear():
+    """The change bytes are read, not implied: on the path 0 -> 1 -> 2,
+    after round 1 (which changes rows 1 and 2) clearing row 1's byte keeps
+    row 0's register out of row 2 in round 2, where the full merge brings
+    it in; the flagged ring step skips the same row. With every byte set
+    both twins are the full merge."""
+    regs0 = torch.from_numpy(hll_ops.init_registers(3, 6))
+    assert len({int(torch.argmax(r)) for r in regs0}) == 3  # one register each, apart
+    ef, et = torch.tensor([0, 1]), torch.tensor([1, 2])
+    regs1, flags = hll_ops.merge_systolic_plain(regs0, None, ef, et)
+    assert flags.tolist() == [0, 1, 1]
+    full = hll_ops.merge_iteration_plain(regs1, ef, et)
+    assert torch.equal(hll_ops.merge_systolic_plain(regs1, flags, ef, et)[0], full)
+    assert torch.equal(hll_ops.merge_systolic_plain(regs1, torch.ones(3, dtype=torch.uint8),
+                                                    ef, et)[0], full)
+    cleared = flags.clone()
+    cleared[1] = 0
+    skipped, skipped_flags = hll_ops.merge_systolic_plain(regs1, cleared, ef, et)
+    assert not torch.equal(skipped, full)
+    assert torch.equal(skipped[2], regs1[2]) and skipped_flags.tolist() == [0, 0, 0]
+    assert (full[2] == torch.maximum(regs0[0], regs1[2])).all()
+    csr = in_csr(3, ef.numpy(), et.numpy(), "cpu")
+    for fl, want in ((flags, full), (cleared, skipped), (None, full)):
+        out = regs1.clone()
+        hll_ops.ring_step_plain(out, regs1.clone(), csr, fl)
+        assert torch.equal(out, want)
+
+
 def test_store_reverse_csr_is_the_edges_sorted_by_target(graph):
     """The store's reverse CSR, which the card's jobs walk, equals the
     forward edges sorted by target (in_csr), long rows included."""
@@ -379,10 +434,12 @@ def _graph_edges(name: str):
 @pytest.mark.parametrize("n_shards", [1, 3, 4, 8])
 def test_sharded_hyperball_rounds_bit_equal_to_jax(monkeypatch, graph, n_shards):
     """The port's ring rounds (hll_ring_step's plain twin) against the JAX
-    package's round_fn: the padded registers bit-equal after every round,
-    the same round count, centrality within rtol 1e-5 of JAX's and 1e-9 of
-    the port's single-device form. Uneven shards (5 nodes over 3, 4, 8)
-    pad."""
+    package's round_fn: the full ring and the flagged (systolic) ring, whose
+    change bytes travel with their shards, both give the padded registers
+    bit-equal after every round, the flagged ring's change bytes are
+    (new != old).any(1), the same round count, centrality within rtol 1e-5
+    of JAX's and 1e-9 of the port's single-device form. Uneven shards (5
+    nodes over 3, 4, 8) pad."""
     from stract_tpu.ops import hll_ops as jax_hll
     from stract_tpu.webgraph import centrality as JC
     from stract_tpu_torch.ops import hll_ops
@@ -414,12 +471,21 @@ def test_sharded_hyperball_rounds_bit_equal_to_jax(monkeypatch, graph, n_shards)
     regs0[:n] = hll_ops.init_registers(n, 6)
     np.testing.assert_array_equal(regs0, seen[0])
     shards = [torch.from_numpy(regs0[d * S:(d + 1) * S]) for d in range(n_shards)]
+    flagged = list(shards)
+    flags = [torch.ones(S, dtype=torch.uint8) for _ in range(n_shards)]
     for want in seen[1:]:
-        shards, _, changed = PC.ring_round(shards, buckets)
+        shards, _, changed, _ = PC.ring_round(shards, buckets)
         assert any(int(c.item()) for c in changed)
         np.testing.assert_array_equal(torch.cat(shards).numpy(), want)
-    _, _, changed = PC.ring_round(shards, buckets)
+        old = torch.cat(flagged)
+        flagged, _, changed_f, flags = PC.ring_round(flagged, buckets, flags=flags)
+        np.testing.assert_array_equal(torch.cat(flagged).numpy(), want)
+        np.testing.assert_array_equal(torch.cat(flags).numpy(), np.any(want != old.numpy(), 1))
+        assert [int(c.item()) for c in changed_f] == [int(f.any()) for f in flags]
+    _, _, changed, _ = PC.ring_round(shards, buckets)
     assert not any(int(c.item()) for c in changed)  # JAX stopped here too
+    _, _, changed, flags = PC.ring_round(flagged, buckets, flags=flags)
+    assert not any(int(c.item()) for c in changed) and not any(f.any() for f in flags)
 
     timings: dict = {}
     acc_p = PC._hyperball_sharded(n, src, dst, mesh, 6, timings=timings)

@@ -62,7 +62,7 @@ from stract_tpu_torch.ops import encoder as E
 from stract_tpu_torch.ops import forest as forest_ops
 from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
-from stract_tpu_torch.webgraph.csr import InCSR, in_csr
+from stract_tpu_torch.webgraph.csr import LONG_ROW, InCSR, in_csr
 
 ENC_RTOL, ENC_ATOL = 2 ** -7, 1e-2
 STEP = 2 ** -7
@@ -1425,14 +1425,97 @@ def test_graph_wrappers_dispatch_and_check(monkeypatch):
                          0, bits, flag)
 
 
+class _GraphLib:
+    """A stand-in for csrc/graph.cu's library: stract_hll_merge and
+    stract_hll_ring_step record their name and arguments and return
+    success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def stract_hll_merge(self, *args):
+        self.called.append(("merge", args))
+        return 0
+
+    def stract_hll_ring_step(self, *args):
+        self.called.append(("ring", args))
+        return 0
+
+
+def test_hll_kernels_reach_their_c_entry_points(monkeypatch):
+    """K6a and K8 on CUDA tensors (stand-ins) call their C entry points once
+    a call, the change bytes' pointers in their places (null where none are
+    given: the full merge, a step that writes none), and count one launch
+    each; change bytes written over those read, registers that do not start
+    on a whole piece or that K6a would write over, change bytes of another
+    shape or type, and change bytes written at a step that is not the
+    round's last raise before any launch."""
+    from stract_tpu_torch.ops import hll_ops
+
+    n, m = 50, 64
+    regs = torch.from_numpy(hll_ops.init_registers(n, 6))
+    src, dst = _graph(n, 100)
+    csr = in_csr(n, src, dst, "cpu")
+    assert csr.long_rows.numel() > 0
+    flags, flags_out = torch.ones(n, dtype=torch.uint8), torch.zeros(n, dtype=torch.uint8)
+    alpha = hll_ops.hll_alpha(m)
+    called = []
+    monkeypatch.setattr(kernels, "_load", lambda name: _GraphLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    kernels.reset_launches()
+    out, sizes, changed = hll_ops.merge_csr(regs, csr, flags=flags, flags_out=flags_out)
+    hll_ops.merge_csr(regs, csr, sizes=False)
+    (name, a), (_, b) = called
+    assert name == "merge" and kernels.LAUNCHES["hll_merge"] == 2
+    assert a[:2] == (regs.data_ptr(), flags.data_ptr())
+    assert a[2:5] == tuple(t.data_ptr() for t in csr)
+    assert a[5:10] == (csr.long_rows.numel(), n, m, LONG_ROW, alpha)
+    assert a[10:14] == (out.data_ptr(), flags_out.data_ptr(), sizes.data_ptr(),
+                        changed.data_ptr())
+    assert b[1] is None and b[11] is None and b[12] is None and a[14] == b[14] == 0
+    called.clear()
+    run = out.clone()
+    hll_ops.ring_step(run, regs, csr, flags=flags)
+    last, last_sizes = hll_ops.ring_step(run, regs, csr, start=out, sizes=True, flags=flags,
+                                         flags_out=flags_out)
+    (name, a), (_, b) = called
+    assert name == "ring" and kernels.LAUNCHES["hll_ring_step"] == 2
+    assert a[:3] == (run.data_ptr(), regs.data_ptr(), flags.data_ptr())
+    assert a[6:11] == (csr.long_rows.numel(), n, m, LONG_ROW, alpha)
+    assert a[11:15] == (None, None, None, None)
+    assert b[11:15] == (out.data_ptr(), flags_out.data_ptr(), last_sizes.data_ptr(),
+                        last.data_ptr())
+    called.clear()
+    shifted = torch.zeros(n * m + 16, dtype=torch.uint8)[1:1 + n * m].view(n, m)
+    for call in (lambda: hll_ops.merge_csr(regs, csr, flags=flags, flags_out=flags),
+                 lambda: hll_ops.merge_csr(regs, csr, out=regs),
+                 lambda: hll_ops.merge_csr(shifted, csr),
+                 lambda: hll_ops.merge_csr(regs, csr, flags=flags.int()),
+                 lambda: hll_ops.merge_csr(regs, csr, flags_out=flags[1:].clone()),
+                 lambda: hll_ops.ring_step(run, regs, csr, flags_out=flags_out),
+                 lambda: kernels.hll_ring_step(run, regs, *csr, LONG_ROW, alpha,
+                                               flags_out=flags_out),
+                 lambda: hll_ops.ring_step(run, shifted, csr)):
+        with pytest.raises(ValueError):
+            call()
+    assert not called
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hub_in,precision", [(100_003, 100_000, 6), (5_001, 300, 4),
                                                 (5_001, 300, 10)])
 def test_hll_kernels_match_plain(n, hub_in, precision):
-    """K6a bit-equal to the plain merge round by round (and its changed flag
-    to the plain comparison), K6b (in K6a's epilogue and alone) within rel
-    1e-6 of the plain estimate: a hub of 100k in-edges, N not a multiple of
-    the block, a node with no in-edges, 16 / 64 / 1024 registers a row."""
+    """K6a round by round in the systolic form a HyperBall runs (change
+    bytes carried from round to round, every byte set before round 1):
+    registers bit-equal to the plain merge and to the systolic twin, change
+    bytes to the twin's, the changed flag to the plain comparison, a second
+    call bit-equal to the first; K6b (in K6a's epilogue and alone) within
+    rel 1e-6 of the plain estimate. From a state no run reaches (the rows
+    shuffled) a call with every byte set, or with no change bytes, is the
+    full merge, and a call with no byte set a copy (changed 0, every byte
+    0). A hub of 100k in-edges, N not a multiple of the block, a node with
+    no in-edges, 16 / 64 / 1024 registers a row."""
     from stract_tpu_torch.ops import hll_ops
 
     dev = _card()
@@ -1443,27 +1526,47 @@ def test_hll_kernels_match_plain(n, hub_in, precision):
     regs = torch.from_numpy(hll_ops.init_registers(n, precision)).to(dev)
     torch.testing.assert_close(hll_ops.estimate_sizes(regs), hll_ops.estimate_sizes_plain(regs),
                                rtol=1e-6, atol=0)
+    flags = torch.ones(n, dtype=torch.uint8, device=dev)
     for _ in range(4):
-        new, sizes, changed = hll_ops.merge_csr(regs, csr)
+        flags_out = torch.empty_like(flags)
+        new, sizes, changed = hll_ops.merge_csr(regs, csr, flags=flags, flags_out=flags_out)
         plain = hll_ops.merge_iteration_plain(regs, ef, et)
-        assert torch.equal(new, plain)
+        twin, twin_flags = hll_ops.merge_systolic_plain(regs, flags, ef, et)
+        assert torch.equal(new, plain) and torch.equal(twin, plain)
+        assert torch.equal(flags_out, twin_flags)
         assert bool(changed.item()) == (not torch.equal(plain, regs))
         torch.testing.assert_close(sizes, hll_ops.estimate_sizes_plain(plain), rtol=1e-6, atol=0)
-        regs = new
+        again = torch.empty_like(flags)
+        new2, sizes2, changed2 = hll_ops.merge_csr(regs, csr, flags=flags, flags_out=again)
+        assert torch.equal(new2, new) and torch.equal(sizes2, sizes)
+        assert torch.equal(again, flags_out) and torch.equal(changed2, changed)
+        regs, flags = new, flags_out
+    assert 0 < int(flags.sum()) < n  # the last round gathered some rows, not all
     assert torch.equal(regs[n - 1], torch.from_numpy(hll_ops.init_registers(n, precision)[n - 1])
                        .to(dev))  # no in-edges: the row never changes
+    mixed = regs[torch.randperm(n, generator=torch.Generator().manual_seed(0)).to(dev)]
+    want = hll_ops.merge_iteration_plain(mixed, ef, et)
+    for every in (torch.ones_like(flags), None):
+        got, _, changed = hll_ops.merge_csr(mixed, csr, flags=every)
+        assert torch.equal(got, want)
+        assert int(changed.item()) == int(not torch.equal(want, mixed))
+    none_out = torch.ones_like(flags)
+    copy, _, changed = hll_ops.merge_csr(mixed, csr, flags=torch.zeros_like(flags),
+                                         flags_out=none_out)
+    assert torch.equal(copy, mixed) and int(changed.item()) == 0 and not none_out.any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 32, 40, 256])
+@pytest.mark.parametrize("S", [1, 32, 40, 256, 300, 1100])
 def test_bfs_kernel_matches_plain(S):
     """K7's frontier step bit-equal to the reference's relaxation round by
     round (distances, UNREACHABLE included, and the changed flag) and its
-    whole state to the plain twin's, from 1, 32, 40 (a word of padding bits)
-    and 256 sources over a hub of 100k in-edges (a long row); rows whose
-    seen bits are all set at a round's start (their edges skipped) are among
-    them; a second call on the same input bit-equal to the first; the whole
-    BFS equal to the CPU's."""
+    whole state to the plain twin's, from 1, 32, 40 (a word of padding bits),
+    256, 300 (W = 10: 16 lanes a row) and 1,100 sources (W = 35: 32 lanes in
+    two chunks of words) over a hub of 100k in-edges (a long row); rows whose
+    seen bits are all set at a round's start in a chunk of 32 words (their
+    edges skipped for that chunk) are among them; a second call on the same
+    input bit-equal to the first; the whole BFS equal to the CPU's."""
     from stract_tpu_torch.webgraph import shortest_path as SP
 
     dev = _card()
@@ -1480,7 +1583,8 @@ def test_bfs_kernel_matches_plain(S):
         twin, twin_changed = SP.frontier_step_plain(state, ef, et, level)
         ref = SP.relax_plain(dist, ef, et)
         seen0, dist0 = state.seen.clone(), state.dist.clone()
-        skipped += int((seen0 == -1).all(dim=1).sum())
+        skipped += sum(int((seen0[:, c:c + 32] == -1).all(dim=1).sum())
+                       for c in range(0, seen0.shape[1], 32))
         new, changed = SP.frontier_step(state, csr, level)
         assert torch.equal(new.dist[:, :S].t(), ref)
         assert all(torch.equal(a, b) for a, b in zip(new, twin))
@@ -1629,10 +1733,13 @@ def test_mesh_topk_kernel_matches_plain(n, K):
 @pytest.mark.parametrize("n_shards", [1, 3, 4])
 def test_ring_step_kernel_matches_plain(n_shards):
     """K8 round by round over the ring buckets of a Pareto graph with a hub
-    of 50k in-edges (long rows) and uneven shards: every shard's registers
-    bit-equal to the plain ring steps', its change flag to the plain
-    comparison, the sizes of the last step within rel 1e-6 of the plain
-    estimate."""
+    of 50k in-edges (long rows) and uneven shards, in the systolic form (each
+    shard's change bytes travel with it, every byte set before round 1):
+    every shard's registers bit-equal to the plain ring steps' with the same
+    bytes and to the full plain ring's, its change bytes and change flag to
+    the plain comparison, the sizes of the last step within rel 1e-6 of the
+    plain estimate; then one step with every byte set (given, and not
+    given) bit-equal to the plain step."""
     from stract_tpu_torch.ops import hll_ops
     from stract_tpu_torch.webgraph import centrality as PC
 
@@ -1644,20 +1751,32 @@ def test_ring_step_kernel_matches_plain(n_shards):
     regs0[:n] = hll_ops.init_registers(n, 6)
     shards = {where: [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(where)
                       for d in range(n_shards)] for where in (dev, "cpu")}
+    flags = {where: [torch.ones(S, dtype=torch.uint8, device=where) for _ in range(n_shards)]
+             for where in (dev, "cpu")}
     buckets = {where: PC.ring_buckets(n, src, dst, [torch.device(where)] * n_shards)
                for where in (dev, "cpu")}
     assert any(b.long_rows.numel() for row in buckets[dev] for b in row)
     for _ in range(4):
         c = kernels.LAUNCHES["hll_ring_step"]
-        got, got_sz, got_ch = PC.ring_round(shards[dev], buckets[dev])
+        got, got_sz, got_ch, got_fl = PC.ring_round(shards[dev], buckets[dev], flags=flags[dev])
         assert kernels.LAUNCHES["hll_ring_step"] == c + n_shards * n_shards
-        want, _, want_ch = PC.ring_round(shards["cpu"], buckets["cpu"])
-        for g, w, gs, gc, wc in zip(got, want, got_sz, got_ch, want_ch):
-            assert torch.equal(g.cpu(), w)
-            assert int(gc.item()) == int(wc.item())
+        want, _, want_ch, want_fl = PC.ring_round(shards["cpu"], buckets["cpu"],
+                                                  flags=flags["cpu"])
+        full = PC.ring_round(shards["cpu"], buckets["cpu"], sizes=False)[0]
+        for g, w, f, gs, gc, wc, gf, wf in zip(got, want, full, got_sz, got_ch, want_ch, got_fl,
+                                               want_fl):
+            assert torch.equal(g.cpu(), w) and torch.equal(w, f)
+            assert int(gc.item()) == int(wc.item()) == int(bool(wf.any()))
+            assert torch.equal(gf.cpu(), wf)
             torch.testing.assert_close(gs.cpu(), hll_ops.estimate_sizes_plain(w), rtol=1e-6,
                                        atol=0)
-        shards = {dev: got, "cpu": want}
+        shards, flags = {dev: got, "cpu": want}, {dev: got_fl, "cpu": want_fl}
+    k = 1 % n_shards
+    want = hll_ops.ring_step_plain(shards["cpu"][0].clone(), shards["cpu"][k], buckets["cpu"][0][k])
+    for every in (torch.ones(S, dtype=torch.uint8, device=dev), None):
+        out = shards[dev][0].clone()
+        hll_ops.ring_step(out, shards[dev][k], buckets[dev][0][k], flags=every)
+        assert torch.equal(out.cpu(), want)
 
 
 @pytest.mark.cuda
