@@ -4,7 +4,9 @@
 
 Builds the CUDA kernels from stract_tpu_torch/csrc, builds (or reuses) a
 1,000,000-doc synthetic corpus under data/torch_smoke/, holds each kernel
-against its plain PyTorch version at the main path's shapes, then serves the
+against its plain PyTorch version at the main path's shapes (K1 in each of
+its table forms and in a batch that mixes them, two calls bit-equal; K1 and
+K2 also timed with numpy slots, as the index calls them), then serves the
 corpus over HTTP in process (stract_tpu_torch.main) and drives the search
 route: every answer must be a 200 with webpages, every kernel must have been
 launched by that traffic, and the top-10 of sample queries must match the
@@ -256,7 +258,13 @@ PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 #           (stage B's sums over the slots, joined on the card or on the
 #           host), docs equal up to ties
 #  K1 on q8 rows, K1 with UB  as stage A (UB adds (contrib - ub) + U per
-#           entry and takes n*U back out: the same sums, in the atomics' order)
+#           entry and takes n*U back out: the same sums, in slot order)
+#  K1 over full-length slots (E = P*L, the global table), alone and as one
+#           query among sampled ones (two launches)  as stage A against
+#           the plain version summing in f64 (plain64): its f32 cumsum over
+#           65,536 live entries a query rounds past atol; two calls of every
+#           K1 form give bit-equal scores (one add a doc a slot, in slot
+#           order) and docs (ties to the lower doc)
 #  K11 alone  bit-equal (integer work), and equal to the host join on q16 rows
 #  joined stage B  as stage B; joined pass 2  as pass 2
 #  K12     f32 rows rtol 1e-5, atol 1e-5 (sums over P slots in another order)
@@ -506,14 +514,60 @@ def compacted_slots(slots: list) -> tuple:
                            for f in a._fields})) for q, a in comp], Pc
 
 
+def full_slots(seg, q, rng):
+    """The batch q (numpy QuerySlots, P slots) with every slot a distinct
+    posting list of at least L rows of the segment, drawn by rng, each
+    query's weights those of its first slot, its first slot's group required,
+    the rest optional: E = P*L entries, K1's global table."""
+    import numpy as np
+
+    from stract_tpu_torch.ops import scoring as O
+
+    long_terms = np.nonzero(np.asarray(seg.term_lens) >= L)[0]
+    B, P = q.starts.shape
+    terms = np.stack([rng.choice(long_terms, P, replace=False) for _ in range(B)])
+    first = lambda x: np.repeat(np.asarray(x)[:, :1], P, axis=1)  # noqa: E731
+    group = np.full((B, P), O.OPTIONAL_GROUP, np.int32)
+    group[:, 0] = 0
+    return q._replace(starts=np.asarray(seg.term_starts)[terms].astype(np.int32),
+                      lens=np.asarray(seg.term_lens)[terms].astype(np.int32), group=group,
+                      n_required=np.ones(B, np.int32), idf=first(q.idf), w_bm25=first(q.w_bm25),
+                      w_bm25f=first(q.w_bm25f), w_presence=first(q.w_presence))
+
+
+def plain64(arrays, q, device) -> tuple:
+    """The segment's arrays and the numpy slots q for K1's plain version in
+    f64 (the static columns and the slots' weights; the plain version then
+    sums in f64): with full-length slots its f32 cumsum runs over 65,536 live
+    entries a query, whose rounding (a few ulps of running sums ~1e5-1e6)
+    passes stage A's atol; the kernel's per-doc f32 sums round once a slot.
+    → (arrays, slots) on `device`."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.ops import scoring as O
+
+    q64 = O.QuerySlots(*[torch.as_tensor(np.asarray(x), device=device, dtype=torch.int32
+                                         if f in ("starts", "lens", "group", "n_required")
+                                         else torch.float64) for f, x in zip(q._fields, q)])
+    return arrays._replace(static_cols=arrays.static_cols.double()), q64
+
+
 def kernel_phase(index, device) -> list:
     """K1, K2, K3 against their plain versions on real slots of sampled
-    queries, for both static modes. → rows per (kernel, default_static)."""
+    queries, for both static modes; K1 and K2 also timed as the index calls
+    them, with numpy slots (their upload in the call), and K1 in each table
+    form: the sampled slots (the main path's), a shallow scan of them (L =
+    64: one block a query), 64 full-length slots a query (E = P*L: the
+    global table), and one such query among the sampled ones (two
+    launches), each against its plain version and a second call bit-equal.
+    → rows per (kernel, default_static)."""
     import numpy as np
     import torch
 
     from stract_tpu_torch import bench_corpus as bc
     from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ops import kernels
     from stract_tpu_torch.ops import scoring as O
     from stract_tpu_torch.ranking.computer import QueryContext, build_slots
 
@@ -530,20 +584,49 @@ def kernel_phase(index, device) -> list:
         P = max(q.starts.shape[0] for q, _ in slots)
         if any(q.starts.shape[0] != P for q, _ in slots):
             raise AssertionError("sampled queries must share one slot bucket")
-        qa = O.to_tensors(O.stack([InvertedIndex._augment_with_impact(seg, dev, q)[0]
-                                   for q, _ in slots]), device)
+        qa_np = O.stack([InvertedIndex._augment_with_impact(seg, dev, q)[0] for q, _ in slots])
 
-        # K1: stage A
-        run_k = lambda: O.score_candidates_batch(dev.arrays, qa, L, C, ds, True)  # noqa: E731
-        run_p = lambda: O.score_candidates_batch_plain(dev.arrays, qa, L, C, ds, True)  # noqa: E731
-        d_k, s_k = [x.cpu().numpy() for x in run_k()]
-        d_p, s_p = [x.cpu().numpy() for x in run_p()]
-        err = max(topk_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
-        if not np.isfinite(s_k).any():
-            raise AssertionError("stage A found no candidates")
-        scanned = int(qa.lens.clamp(max=L).sum())  # posting rows of the slots' prefixes
-        rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p), C,
-                     12 * scanned + sum(x.numel() * 4 for x in qa) + 8 * B * C, 10 * scanned))
+        # K1: stage A, in each table form (the main path's first)
+        full = full_slots(seg, qa_np, np.random.default_rng(SEED))
+        mixed = O.QuerySlots(*[np.concatenate([np.asarray(f)[:1], np.asarray(a)[1:]])
+                               for f, a in zip(full, qa_np)])  # a full query among sampled
+        forms = (("main", qa_np, L), ("shallow", qa_np, 64), ("full", full, L),
+                 ("mixed", mixed, L))
+        for form, q_np, L_ in forms:
+            q_t = O.to_tensors(q_np, device)
+            plans = [p for _, p in kernels.stage_a_launches(O.stage_a_entries(q_np.lens, L_), C,
+                                                            kernels.card_sms(device))]
+            run_k = lambda: O.score_candidates_batch(dev.arrays, q_t, L_, C, ds, True)  # noqa
+            run_p = lambda: O.score_candidates_batch_plain(dev.arrays, q_t, L_, C, ds, True)  # noqa
+            if form in ("full", "mixed"):  # the plain version's sums in f64 (see plain64)
+                seg64, q64 = plain64(dev.arrays, q_np, device)
+                check_p = lambda: O.score_candidates_batch_plain(  # noqa: E731
+                    seg64, q64, L_, C, ds, True)
+            else:
+                check_p = run_p
+            (d_k, s_k), (d_2, s_2) = run_k(), run_k()
+            if not (torch.equal(s_k.view(torch.int32), s_2.view(torch.int32))
+                    and torch.equal(d_k, d_2)):
+                raise AssertionError(f"two stage-A calls differ ({form} slots, {plans})")
+            d_k, s_k = d_k.cpu().numpy(), s_k.cpu().numpy()
+            d_p, s_p = [x.cpu().numpy() for x in check_p()]
+            err = max(topk_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
+            if not np.isfinite(s_k).any():
+                raise AssertionError("stage A found no candidates")
+            scanned = int(q_t.lens.clamp(max=L_).sum())  # posting rows of the slots' prefixes
+            shape = (C, *[f"{p.form} E={p.entries} T={p.slots} x{p.cluster}" for p in plans],
+                     f"L={L_}")
+            rows.append(("stage_a", ds, err, time_ms(run_k), time_ms(run_p), shape,
+                         12 * scanned + sum(x.numel() * 4 for x in q_t) + 8 * B * C,
+                         10 * scanned))
+            if form == "main":
+                main_ms = time_ms(lambda: O.score_candidates_batch(dev.arrays, qa_np, L, C, ds,
+                                                                   True))
+                log(f"[kernels] K1 default_static={ds} {plans}: {rows[-1][3]:.4f} ms with the "
+                    f"slots on the card, {main_ms:.4f} ms as the index calls it (numpy slots "
+                    f"uploaded in the call)")
+                cand = d_k
+        d_k = cand
 
         # K2: stage B over stage A's candidates, fused signals
         comp, Pc = compacted_slots(slots)
@@ -555,6 +638,13 @@ def kernel_phase(index, device) -> list:
         f_t, c_t = T(facs), T(d_k)
         run_k = lambda: O.score_driver_batch_with_signals(  # noqa: E731
             dev.arrays, qc, f_t, c_t, ac, ds, OUT_K, SIG_K)
+        qc_np, ac_np = O.stack([q for q, _ in comp]), O.stack([a for _, a in comp])
+        main_ms = time_ms(lambda: O.score_driver_batch_with_signals(
+            dev.arrays, qc_np, facs, d_k, ac_np, ds, OUT_K, SIG_K))
+        log(f"[kernels] K2 default_static={ds} Kd={KD} k={OUT_K} ks={SIG_K} P={Pc} over "
+            f"{kernels.stage_b_cluster(KD)} blocks a query: {time_ms(run_k):.4f} ms with the "
+            f"inputs on the card, {main_ms:.4f} ms as the index calls it (numpy slots, "
+            f"candidates and {facs.nbytes} B of factors uploaded in the call)")
         run_p = lambda: O.score_driver_batch_plain(  # noqa: E731
             dev.arrays, qc, f_t, c_t, ds, OUT_K, ac, SIG_K)
         dk, sk, sigk = O.unpack_stageb(run_k(), OUT_K, 46, SIG_K)
@@ -2844,7 +2934,7 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
 
     src = "stract_tpu_torch/csrc/"
     step = "stract_tpu/entrypoint/train_encoders.py:244"
-    meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", C),
+    meta = {"stage_a": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:807", None),
             "stage_b": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:660", KD),
             "signals_q16": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:886", 512),
             "stage_a_q8": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:162", None),

@@ -103,7 +103,29 @@ under data/). --readings picks groups (default all):
   dual_step           one dual-encoder InfoNCE train step (MiniLM-L6, the
                       full 30,522-piece vocab, B = 64 + 64, T = 128, random
                       ids and lengths 8..128 from a seed; chip_smoke.py's
-                      train_step_timing shape; 10 steps).
+                      train_step_timing shape; 10 steps);
+  scoring             the shard search's kernels at chip_smoke.py's shapes on
+                      its 1M-doc corpus (bench_corpus seed 0, built once under
+                      data/kernel_times_corpus by this checkout and opened by
+                      every tree) and its 32 sampled queries (default static
+                      scores, soft required groups): K1 on q16 rows, on q8 rows
+                      and with UB (ub_lambda 0.5) at L = 1,024, C = 4,096; K13
+                      (stage A under the merge, the slots padded to P = 64); K2
+                      at Kd = 4,096, k = 1,024, 64 fused signal columns over
+                      the compacted slots (Pc = 16) and stage A's candidates
+                      (the plain version's, the same in every tree); K3 at K =
+                      512 over stage B's top 512; K9 at (n, K) = (4, 512),
+                      (4, 1,024), (8, 1,024), 16 queries. K1 and K2 are read
+                      twice: with their inputs on the card (the kernel's call,
+                      `K1`, `K2`) and with numpy slots, candidates and factors,
+                      as index/inverted.py calls them (`K1_main_path`,
+                      `K2_main_path`: the uploads in the call); each reading
+                      names the entries of its largest query (`E_max`). K1
+                      also over 64 full-length slots a query (`K1_full`, E =
+                      P*L: the global table) and with one such query among
+                      the 32 sampled (`K1_mixed`). In a tree that plans K1's
+                      table and K2's clusters, K1 also over 2 and 8 blocks a
+                      query and K2 over one block.
 For each: `event_ms`, CUDA events around --calls calls (steps for the two
 train steps) after 5 warm-ups (what the host can issue and the card finish:
 the smoke's measure), and `device_ms`, the card's own time for one call,
@@ -137,11 +159,19 @@ GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
-            "sgd", "pipeline_step", "dual_step")
+            "sgd", "pipeline_step", "dual_step", "scoring")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
 LR = 5e-2
+# the scoring reading: chip_smoke.py's corpus and shapes
+CORPUS_DOCS, SCORE_B, SCORE_L, SCORE_C, SCORE_KD, SCORE_K, SCORE_SIG = (
+    1_000_000, 32, 1024, 4096, 4096, 1024, 64)
+PAGE_K, MERGE_P, MESH_B, MESH_SHAPES = 512, 64, 16, ((4, 512), (4, 1024), (8, 1024))
+
+
+def corpus_dir() -> str:
+    return os.path.join(ROOT, "data", "kernel_times_corpus")
 
 
 def measure(fn, calls: int) -> tuple:
@@ -514,6 +544,8 @@ def worker(root: str, calls: int, readings: list) -> list:
         targets = torch.randn((8, 16), generator=g).to(dev0)
         read((("pipeline_step", lambda: step_fn(params, mbs, targets)),), n=3, steps=3)
         del params, mbs
+    if "scoring" in readings:
+        scoring_readings(smoke, read)
     if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
         from stract_tpu_torch.models.bert import BertConfig, BertForEmbedding, random_init
         from stract_tpu_torch.optim import AdamW
@@ -530,6 +562,103 @@ def worker(root: str, calls: int, readings: list) -> list:
         read((("dual_step", lambda: train_step(model, opt, batch, info_nce_loss)),), n=10,
              steps=10)
     return out
+
+
+def scoring_readings(smoke, read) -> None:
+    """The scoring group (the module docstring); the inputs are made with this
+    worker's tree, the helpers (slot padding, compaction, K9's gathered
+    lists) come from this checkout's chip_smoke.py."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.index.device import DeviceSegment
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+    from stract_tpu_torch.ranking.computer import QueryContext, build_slots
+
+    B, L, C = SCORE_B, SCORE_L, SCORE_C
+    index = InvertedIndex(os.path.join(corpus_dir(), f"bench-{CORPUS_DOCS}"), "cuda")
+    seg = index.segments[0]
+    dev, dev8 = index.device_segment_for(seg), DeviceSegment(seg, "cuda", "q8")
+    queries = bc.sample_queries(np.random.default_rng(0), B)
+    ctxs = [QueryContext(raw=q, simple_terms=q.split(), current_ts=1.7e9) for q in queries]
+    slots = [build_slots(c, seg, index.num_docs, index.region_scores()) for c in ctxs]
+
+    def augmented(d):
+        aug = [InvertedIndex._augment_with_impact(seg, d, q, L, 0.5) for q, _ in slots]
+        return (O.stack([a[0] for a in aug]), np.stack([a[1] for a in aug]).astype(np.float32),
+                np.array([a[2] for a in aug], dtype=np.float32))
+    (qa, ub, ubt), (qa8, _, _) = augmented(dev), augmented(dev8)
+    on_card = lambda tup: O.to_tensors(tup, "cuda")  # noqa: E731
+    t = lambda x, dt=torch.int32: torch.as_tensor(x, dtype=dt).cuda()  # noqa: E731
+    qa_c, qa8_c = on_card(qa), on_card(qa8)
+    ub_c, ubt_c = t(ub, torch.float32), t(ubt, torch.float32)
+    e_max = int(np.minimum(qa.lens, L).sum(axis=1).max())
+    read((("K1", lambda: O.score_candidates_batch(dev.arrays, qa_c, L, C, True, True)),
+          ("K1_main_path", lambda: O.score_candidates_batch(dev.arrays, qa, L, C, True, True)),
+          ("K1_q8", lambda: O.score_candidates_batch(dev8.arrays, qa8_c, L, C, True, True)),
+          ("K1_ub", lambda: O.score_candidates_batch(dev.arrays, qa_c, L, C, True, True, ub_c,
+                                                     ubt_c))),
+         parts=True, B=B, L=L, C=C, E_max=e_max)
+    # 64 full-length slots a query (E = P*L: K1's global table), and one such
+    # query among the sampled ones
+    full = smoke.full_slots(seg, qa, np.random.default_rng(0))
+    mixed = O.QuerySlots(*[np.concatenate([np.asarray(f)[:1], np.asarray(a)[1:]])
+                           for f, a in zip(full, qa)])
+    full_c, mixed_c = on_card(full), on_card(mixed)
+    for name, q_c in (("K1_full", full_c), ("K1_mixed", mixed_c)):
+        read(((name, lambda q_c=q_c: O.score_candidates_batch(dev.arrays, q_c, L, C, True,
+                                                               True)),),
+             parts=True, B=B, L=L, C=C, E_max=int(np.minimum(full.lens, L).sum(axis=1).max()))
+    if hasattr(kernels, "stage_a_plan"):  # a tree with K1's table plan: other cluster sizes
+        plan_of = kernels.stage_a_plan
+        for c in (2, 8):
+            kernels.stage_a_plan = lambda *a, c=c: plan_of(*a)._replace(cluster=c)
+            read(((f"K1_cluster_{c}", lambda: O.score_candidates_batch(dev.arrays, qa_c, L, C,
+                                                                      True, True)),),
+                 parts=True, B=B, L=L, C=C, E_max=e_max)
+        kernels.stage_a_plan = plan_of
+    qm = on_card(O.stack([smoke.pad_slots(InvertedIndex._augment_with_impact(seg, dev, q)[0],
+                                          MERGE_P) for q, _ in slots]))
+    read((("K13", lambda: O.score_candidates_batch(dev.arrays, qm, L, C, True, True,
+                                                  merge=True)),), parts=True, B=B, P=MERGE_P)
+
+    # stage B over the plain stage A's candidates (the same inputs in every tree)
+    cand = O.score_candidates_batch_plain(dev.arrays, qa_c, L, C, True, True)[0].cpu().numpy()
+    comp, Pc = smoke.compacted_slots(slots)
+    facs = np.zeros((B, Pc, SCORE_KD), np.int32)
+    for j, (q, _) in enumerate(comp):
+        InvertedIndex._slot_factors_for(seg, q, cand[j], out=facs[j])
+    qc, ac = O.stack([q for q, _ in comp]), O.stack([a for _, a in comp])
+    qc_c, ac_c, f_c, c_c = on_card(qc), on_card(ac), t(facs), t(cand)
+    read((("K2", lambda: O.score_driver_batch_with_signals(dev.arrays, qc_c, f_c, c_c, ac_c, True,
+                                                           SCORE_K, SCORE_SIG)),
+          ("K2_main_path", lambda: O.score_driver_batch_with_signals(
+              dev.arrays, qc, facs, cand, ac, True, SCORE_K, SCORE_SIG))),
+         parts=True, B=B, P=Pc, Kd=SCORE_KD, k=SCORE_K, ks=SCORE_SIG)
+    if hasattr(kernels, "stage_b_cluster"):  # a tree with K2's clusters: one block a query
+        cluster_of = kernels.stage_b_cluster
+        kernels.stage_b_cluster = lambda Kd: 1
+        read((("K2_one_block", lambda: O.score_driver_batch_with_signals(
+            dev.arrays, qc_c, f_c, c_c, ac_c, True, SCORE_K, SCORE_SIG)),),
+             parts=True, B=B, P=Pc, Kd=SCORE_KD, k=SCORE_K, ks=SCORE_SIG)
+        kernels.stage_b_cluster = cluster_of
+    page = O.score_driver_batch_plain(dev.arrays, qc_c, f_c, c_c, True, SCORE_K)[0][:, :PAGE_K]
+    page = page.cpu().numpy().astype(np.int32)
+    pf = np.zeros((B, Pc, PAGE_K), np.int32)
+    for j, (q, _) in enumerate(comp):
+        InvertedIndex._slot_factors_for(seg, q, page[j], out=pf[j])
+    pf_c, pg_c = t(pf), t(page)
+    read((("K3", lambda: O.compute_signals_from_factors_batch_q16(dev.arrays, qc_c, ac_c, pf_c,
+                                                                  pg_c)),),
+         parts=True, B=B, P=Pc, K=PAGE_K)
+    for n, K in MESH_SHAPES:
+        scores, docs = smoke.gathered(MESH_B, n, K, 0)
+        read((("K9", lambda: O.mesh_topk(scores, docs, K)),), parts=True, B=MESH_B, shards=n,
+             K=K)
+    del index, dev, dev8
 
 
 def main() -> int:
@@ -549,6 +678,11 @@ def main() -> int:
         print("kernel_times.py needs an NVIDIA card", file=sys.stderr)
         return 1
     trees = {"change": ROOT, **dict(t.split("=", 1) for t in args.tree)}
+    if "scoring" in args.readings.split(","):  # the corpus every tree's worker opens
+        sys.path.insert(0, ROOT)
+        from stract_tpu_torch import bench_corpus as bc
+
+        bc.ensure_corpus(corpus_dir(), CORPUS_DOCS, seed=0, log=lambda *a: None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0], flush=True)
@@ -565,7 +699,7 @@ def main() -> int:
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
             shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "S",
-                                                       "tensors", "shards")
+                                                       "tensors", "shards", "K", "P")
                              if f in rec)
             key = f"{tree} {rec['name']} {shape}"
             summary.setdefault(key, []).append(

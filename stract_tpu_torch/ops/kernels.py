@@ -41,10 +41,12 @@ raises on a non-zero CUDA status, and adds one to its entry in LAUNCHES.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,6 +91,103 @@ STAGE_MAX_T = 512
 STAGE_MAX_H = 1024
 # a block's shared memory on the card (the forest is staged there whole)
 MAX_SMEM = 227 * 1024
+# K1 and K2 (csrc/scoring.cu): the most blocks a query's cluster takes, the
+# dynamic shared memory a block may take (MAX_DYN_SMEM), the bytes of a K1
+# table slot (doc, text sum, mask word, aux word), the least slots a K1
+# block takes while the cluster grows to fill the card
+MAX_CLUSTER = 8
+STAGE_A_DYN_SMEM = 224 * 1024
+STAGE_A_SLOT_BYTES = 20
+STAGE_A_MIN_PART = 1024
+
+
+class StageAPlan(NamedTuple):
+    """K1's table for the queries of one launch: `entries` is the largest
+    query's E = sum_p min(len_p, L), `slots` the power of two >= 3E/2 (at
+    least 64) a query holds, `cluster` the blocks a query takes, `form` where
+    the table lies: "block" or "cluster" (shared memory, slots / cluster a
+    block) or "global" (an [n, slots] table in device memory)."""
+
+    entries: int
+    slots: int
+    cluster: int
+    form: str
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_a_part_max(K: int) -> int:
+    """The most table slots (a power of two) a K1 block holds in shared
+    memory beside the sort buffers of K."""
+    part = 1
+    while 2 * part * STAGE_A_SLOT_BYTES + 8 * _pow2_at_least(K) <= STAGE_A_DYN_SMEM:
+        part *= 2
+    return part
+
+
+def stage_a_plan(entries: int, B: int, K: int, sms: int) -> StageAPlan:
+    """K1's table for B queries from the largest one's entries, on a card of
+    `sms` SMs: T = the power of two >= 3E/2 slots (load at most 2/3). The
+    blocks a query needs are those whose shared memory holds T slots beside
+    the sort buffers; more are taken, in powers of two up to MAX_CLUSTER,
+    while the launch still fits the card's SMs and each block keeps
+    STAGE_A_MIN_PART slots. A table that needs more than MAX_CLUSTER blocks
+    goes to global memory, its select over MAX_CLUSTER blocks a query (each
+    block's keys, 4 B a slot, then fit its shared memory up to T = 262,144
+    at K = 4,096)."""
+    T = max(_pow2_at_least(-(-3 * max(int(entries), 0) // 2)), 64)
+    part_max = _stage_a_part_max(K)
+    fill = 1
+    while 2 * fill <= MAX_CLUSTER and B * 2 * fill <= sms:
+        fill *= 2
+    need = max(1, T // part_max)
+    if need > MAX_CLUSTER:
+        return StageAPlan(int(entries), T, MAX_CLUSTER, "global")
+    cluster = max(need, min(fill, max(1, T // STAGE_A_MIN_PART)))
+    return StageAPlan(int(entries), T, cluster, "block" if cluster == 1 else "cluster")
+
+
+def stage_a_launches(entries, K: int, sms: int) -> list:
+    """K1's launches for a batch whose queries have `entries` (E_b, one a
+    query): one over the batch where every table takes the same kind of
+    memory, else one over the queries whose tables fit shared memory and one
+    over the rest, each planned from its own queries, so a long query never
+    moves the short ones' tables to global memory. → [(rows, plan)], rows
+    the batch's query indices (int32 numpy) or None for the whole batch."""
+    e = np.asarray(entries, dtype=np.int64).reshape(-1)
+    # past 2/3 of MAX_CLUSTER blocks' slots, a table is global (stage_a_plan)
+    glob = 3 * e > 2 * MAX_CLUSTER * _stage_a_part_max(K)
+    if glob.all() or not glob.any():
+        return [(None, stage_a_plan(int(e.max(initial=0)), len(e), K, sms))]
+    out = []
+    for part in (~glob, glob):
+        rows = np.nonzero(part)[0].astype(np.int32)
+        out.append((rows, stage_a_plan(int(e[rows].max()), len(rows), K, sms)))
+    return out
+
+
+_SMS: dict = {}
+
+
+def card_sms(device) -> int:
+    """The SM count of a card (read once a device)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def stage_b_cluster(Kd: int) -> int:
+    """K2's blocks a query: one for each 1,024 candidates, in powers of two up
+    to 4 (Kd = 4,096, the main path's: 4)."""
+    c = 1
+    while 2 * c <= 4 and 2 * c * 1024 <= Kd:
+        c *= 2
+    return c
 
 # launches per kernel since the last reset_launches(): the proof that a run of
 # the main path went through the kernels
@@ -223,11 +322,12 @@ def _load(name: str):
             if name == "scoring":
                 seg, qry = ctypes.POINTER(SegArgs), ctypes.POINTER(QueryArgs)
                 agg = ctypes.POINTER(AggArgs)
-                lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, I, F,
-                                               P, P, P, P, P, P, P, P]
+                lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, P, I, P, P, I, I, I, I, I, I,
+                                               F, P, P, P, P, P, P, P]
                 lib.stract_stage_a_merge.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, F,
                                                      P, P, P, P, P, P, P]
-                lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, P, P, P, P, P]
+                lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, I, P, P, P, P,
+                                               P]
                 lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
                 lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, P, P]
                 lib.stract_stage_b_joined.argtypes = [seg, qry, P, LL, I, P, I, I, F, I,
@@ -298,7 +398,7 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple | None = None)
     if not t.is_cuda or not t.is_contiguous() or t.dtype != dtype:
         raise ValueError(f"kernel argument must be a contiguous CUDA {dtype} tensor, "
                          f"got {t.dtype} on {t.device}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"kernel argument has shape {tuple(t.shape)}, expected {tuple(shape)}")
     return t.data_ptr()
 
@@ -348,11 +448,31 @@ def _query_tensors(q) -> tuple:
     return tuple(getattr(q, name) for name, _ in QueryArgs._fields_[:14])
 
 
+# the argument blocks of the segments launched last: id of the arrays tuple →
+# (the tuple, held so that its tensors and its id stay put, its SegArgs)
+_SEG_ARGS: dict = {}
+_SEG_ARGS_KEPT = 8
+_SEG_ARGS_LOCK = threading.Lock()
+
+
 def seg_args(seg) -> SegArgs:
+    """A segment's argument block, built once a segment (an index's
+    DeviceSegment keeps one arrays tuple): the last _SEG_ARGS_KEPT tuples
+    are held beside their blocks, so every address in a block stays a live
+    tensor's."""
+    with _SEG_ARGS_LOCK:
+        hit = _SEG_ARGS.get(id(seg))
+    if hit is not None and hit[0] is seg:
+        return hit[1]
     f32, db = torch.float32, seg.static_default.shape[0]
-    return SegArgs(_ptr(seg.static_cols, f32, (_NUM_STATIC, db)), _ptr(seg.static_default, f32),
-                   _ptr(seg.region_ids, torch.int32, (db,)), _ptr(seg.last_updated, f32, (db,)),
-                   db, float(seg.static_scale), int(seg.num_docs))
+    s = SegArgs(_ptr(seg.static_cols, f32, (_NUM_STATIC, db)), _ptr(seg.static_default, f32),
+                _ptr(seg.region_ids, torch.int32, (db,)), _ptr(seg.last_updated, f32, (db,)),
+                db, float(seg.static_scale), int(seg.num_docs))
+    with _SEG_ARGS_LOCK:
+        while len(_SEG_ARGS) >= _SEG_ARGS_KEPT:
+            _SEG_ARGS.pop(next(iter(_SEG_ARGS)))
+        _SEG_ARGS[id(seg)] = (seg, s)
+    return s
 
 
 _QUERY_SHAPES = {"starts": "BP", "lens": "BP", "group": "BP", "n_required": "B", "idf": "BP",
@@ -363,14 +483,16 @@ _INT_QUERY_FIELDS = ("starts", "lens", "group", "n_required")
 _NUM_STATIC, _NUM_REGIONS = 11, 16
 
 
+# each slot field's dtype and shape, in QueryArgs order
+_QUERY_FIELDS = tuple((name, torch.int32 if name in _INT_QUERY_FIELDS else torch.float32,
+                       _QUERY_SHAPES[name]) for name, _ in QueryArgs._fields_[:14])
+
+
 def query_args(q) -> QueryArgs:
     B, P = q.starts.shape
-    dims = {"B": B, "P": P, "S": _NUM_STATIC, "R": _NUM_REGIONS}
-    ptrs = [_ptr(getattr(q, name),
-                 torch.int32 if name in _INT_QUERY_FIELDS else torch.float32,
-                 tuple(dims[c] for c in _QUERY_SHAPES[name]))
-            for name, _ in QueryArgs._fields_[:14]]
-    return QueryArgs(*ptrs, B, P)
+    shapes = {"BP": (B, P), "B": (B,), "BS": (B, _NUM_STATIC), "BR": (B, _NUM_REGIONS)}
+    return QueryArgs(*[_ptr(t, dtype, shapes[dims])
+                       for t, (_, dtype, dims) in zip(q, _QUERY_FIELDS)], B, P)
 
 
 def agg_args(a, static_of_sig: torch.Tensor, bm25f_row: int, region_row: int,
@@ -393,28 +515,48 @@ def _postings(seg) -> tuple:
     return _ptr(seg.postings, torch.int32, (n_rows, w)), int(n_rows), int(w)
 
 
-def stage_a(seg, q, L: int, K: int, T: int, default_static: bool, soft_required: bool,
-            inv_fs: float, tkey, tsum, tmask, taux, skey, out_docs, out_scores,
-            ub_entry=None, ub_total=None) -> None:
-    """K1 over q16 or q8 rows; ub_entry f32[B, P] with ub_total f32[B] turn
-    block-max UB scoring on."""
+def stage_a(seg, q, L: int, K: int, plan: StageAPlan, table, default_static: bool,
+            soft_required: bool, inv_fs: float, out_docs, out_scores, ub_entry=None,
+            ub_total=None, rows=None) -> None:
+    """K1 over q16 or q8 rows for the queries `rows` (i32[n] on the card; None:
+    the whole batch) with the table of `plan` (stage_a_plan of their largest
+    query: plan.slots must exceed it); table: for the global form (keys i32,
+    fixed-point sums i64, masks i64, aux i32), each [n, plan.slots], else
+    None. ub_entry f32[B, P] with ub_total f32[B] turn block-max UB scoring
+    on. The outputs' rows of the queries named are written."""
     if not 1 <= K <= MAX_SORT:
         raise ValueError(f"stage A keeps 1..{MAX_SORT} candidates per query, not {K}")
     if (ub_entry is None) != (ub_total is None):
         raise ValueError("UB scoring takes ub_entry and ub_total together")
+    T, cluster = plan.slots, plan.cluster
+    if not (cluster in (1, 2, 4, 8) and T >= cluster and T & (T - 1) == 0):
+        raise ValueError(f"K1 takes a power-of-two table over 1, 2, 4 or 8 blocks, not {T} "
+                         f"slots over {cluster}")
+    if (table is None) != (plan.form != "global"):
+        raise ValueError(f"the {plan.form} form takes {'a' if plan.form == 'global' else 'no'} "
+                         "global table")
+    if table is None and (T // cluster * STAGE_A_SLOT_BYTES + 8 * _pow2_at_least(K)
+                          > STAGE_A_DYN_SMEM):
+        raise ValueError(f"{T // cluster} slots a block and the sort of {K} do not fit a "
+                         "block's shared memory")
     B, P = q.starts.shape
-    i32, f32 = torch.int32, torch.float32
+    n = B if rows is None else rows.shape[0]
+    if rows is not None and (rows.dim() != 1 or not 1 <= n <= B):
+        raise ValueError(f"K1 takes 1..{B} query rows, not {tuple(rows.shape)}")
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
     post, n_rows, w = _postings(seg)
     ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
+    glob = ((None,) * 4 if table is None else
+            tuple(_ptr(t, dt, (n, T)) for t, dt in zip(table, (i32, i64, i64, i32))))
+    outs = (_ptr(out_docs, i32, (B, K)), _ptr(out_scores, f32, (B, K)))
+    rows_p = _ptr(rows, i32, (n,))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    with on_card(*_seg_tensors(seg), *_query_tensors(q), ub_entry, tkey, out_scores) as stream:
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), rows, ub_entry, *(table or ()),
+                 out_scores) as stream:
         rc = lib.stract_stage_a(
-            ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e, ub_t, L, K, T,
-            int(default_static), int(soft_required), inv_fs,
-            _ptr(tkey, i32, (B, T)), _ptr(tsum, f32, (B, T)), _ptr(tmask, torch.int64, (B, T)),
-            _ptr(taux, i32, (B, T)), _ptr(skey, i32, (B, T)), _ptr(out_docs, i32, (B, K)),
-            _ptr(out_scores, f32, (B, K)), stream)
+            ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, rows_p, n, ub_e, ub_t, L, K, T,
+            cluster, int(default_static), int(soft_required), inv_fs, *glob, *outs, stream)
     _check(rc, "stract_stage_a")
     counted("stage_a_ub" if ub_entry is not None else "stage_a_q8" if w == 2 else "stage_a")
 
@@ -454,17 +596,22 @@ def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: b
 
 def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
             k: int, ks: int, out_docs, out_scores, out_sq, out_scale) -> None:
+    """K2 over stage_b_cluster(Kd) blocks a query."""
     if not 1 <= cand.shape[1] <= MAX_SORT or not 0 <= ks <= MAX_SIG_K:
         raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and 0..{MAX_SIG_K} "
                          f"signal columns, not {cand.shape[1]} and {ks}")
+    (B, P), Kd = q.starts.shape, cand.shape[1]
+    cluster = stage_b_cluster(Kd)
+    if cluster not in (1, 2, 4, 8) or cluster > Kd:
+        raise ValueError(f"stage B takes 1, 2, 4 or 8 blocks a query, at most Kd = {Kd}, not "
+                         f"{cluster}")
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    (B, P), Kd = q.starts.shape, cand.shape[1]
     i32, f32 = torch.int32, torch.float32
     with on_card(*_seg_tensors(seg), *_query_tensors(q), factors, cand, out_scores) as stream:
         rc = lib.stract_stage_b(
             ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), _ptr(factors, i32, (B, P, Kd)),
-            _ptr(cand, i32, (B, Kd)), Kd, int(default_static), inv_fs, k, ks,
+            _ptr(cand, i32, (B, Kd)), Kd, int(default_static), inv_fs, k, ks, cluster,
             _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)),
             _ptr(out_sq, torch.int16, (B, aggs.nsig, ks)), _ptr(out_scale, f32, (B, aggs.nsig)),
             stream)

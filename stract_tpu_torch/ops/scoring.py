@@ -169,10 +169,15 @@ def to_tensors(tup, device):
     tensors) → the same tuple of contiguous tensors on `device` (i32 for the
     integer fields, f32 for the rest). Segment scalars stay on the CPU."""
     out = []
+    device = torch.device(device)
     for name, x in zip(tup._fields, tup):
         dtype = torch.int32 if name in _INT_FIELDS else torch.float32
-        dev = "cpu" if (name in _CPU_FIELDS and isinstance(tup, SegmentArrays)) else device
+        dev = (torch.device("cpu") if (name in _CPU_FIELDS and isinstance(tup, SegmentArrays))
+               else device)
         if isinstance(x, torch.Tensor):
+            if x.dtype == dtype and x.device == dev and x.is_contiguous():
+                out.append(x)  # already in place: no call into the dispatcher
+                continue
             t = x.to(device=dev, dtype=dtype)
         else:
             t = torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
@@ -420,6 +425,15 @@ def _next_pow2(n: int) -> int:
 _on = kernels.on_device
 
 
+def stage_a_entries(lens, L: int) -> np.ndarray:
+    """The posting rows stage A reads for each query, E_b = sum_p min(len_bp,
+    L) (lens i32[B, P], or [P] for one query) → i64[B]: numpy lens cost no
+    device work; a tensor is copied to the host once."""
+    x = lens.cpu().numpy() if isinstance(lens, torch.Tensor) else np.asarray(lens)
+    x = np.clip(x.astype(np.int64), 0, L)
+    return x.reshape(-1, x.shape[-1]).sum(axis=1)
+
+
 def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = DEFAULT_K,
                            default_static: bool = True, soft_required: bool = False,
                            ub_entry=None, ub_total=None, merge: bool = False):
@@ -429,9 +443,17 @@ def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = 
     scoring on. merge=True joins in the order of the P-way bitonic merge of
     the [P, L] tiles where merge_applies(P, L) (the merge kernel, K13): on
     rows that are not doc-ascending a doc may then stand in several runs,
-    and so several times in the top-K, as in the reference."""
+    and so several times in the top-K, as in the reference.
+
+    On the card the kernel's tables are sized from the queries' posting rows
+    (stage_a_entries), counted from the slots as passed: numpy slots (the
+    index's) cost nothing, slots already on the card one copy of their lens
+    to the host. A batch whose queries' tables do not all take the same kind
+    of memory is scored in two launches (kernels.stage_a_launches)."""
     dev = seg.postings.device
-    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    qs = _batched(qs, QuerySlots)
+    lens_in = qs.lens
+    qs = to_tensors(qs, dev)
     ub_entry, ub_total = _on(ub_entry, dev, torch.float32), _on(ub_total, dev, torch.float32)
     if not seg.postings.is_cuda:
         return score_candidates_batch_plain(seg, qs, L, K, default_static, soft_required,
@@ -444,14 +466,17 @@ def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = 
         kernels.stage_a_merge(seg, qs, L, K, default_static, soft_required, INV_FACTOR_SCALE,
                               mkey, mcon, maux, skey, docs, scores, ub_entry, ub_total)
         return docs, scores
-    T = max(_next_pow2(2 * P * L), _next_pow2(K))
-    tkey = torch.empty((B, T), dtype=torch.int32, device=dev)
-    tsum = torch.empty((B, T), dtype=torch.float32, device=dev)
-    tmask = torch.empty((B, T), dtype=torch.int64, device=dev)
-    taux = torch.empty((B, T), dtype=torch.int32, device=dev)
-    skey = torch.empty((B, T), dtype=torch.int32, device=dev)
-    kernels.stage_a(seg, qs, L, K, T, default_static, soft_required, INV_FACTOR_SCALE,
-                    tkey, tsum, tmask, taux, skey, docs, scores, ub_entry, ub_total)
+    launches = kernels.stage_a_launches(stage_a_entries(lens_in, L), K, kernels.card_sms(dev))
+    for rows, plan in launches:
+        n = B if rows is None else len(rows)
+        table = None
+        if plan.form == "global":
+            table = tuple(torch.empty((n, plan.slots), dtype=dt, device=dev)
+                          for dt in (torch.int32, torch.int64, torch.int64, torch.int32))
+        if rows is not None:
+            rows = torch.as_tensor(rows, device=dev)
+        kernels.stage_a(seg, qs, L, K, plan, table, default_static, soft_required,
+                        INV_FACTOR_SCALE, docs, scores, ub_entry, ub_total, rows)
     return docs, scores
 
 

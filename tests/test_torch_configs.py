@@ -557,7 +557,8 @@ def test_new_kernel_arguments_are_checked(monkeypatch):
         kernels.signals_search(Seg, q, aggs, i32(2, 8), 1.0, L=128, steps=0,
                                out_f32=f32(2, 46, 8))
     with pytest.raises(ValueError):  # UB takes both arrays
-        kernels.stage_a(Seg, q, 128, 128, 4096, True, True, 1.0, *[None] * 7, ub_entry=f32(2, 16))
+        kernels.stage_a(Seg, q, 128, 128, kernels.stage_a_plan(128, 2, 128, 132), None, True, True,
+                        1.0, None, None, ub_entry=f32(2, 16))
     with pytest.raises(ValueError):  # i32 rows are not embeddings
         kernels.dense_rerank(i32(2, 8, 4), f32(2, 4), f32(2, 8), 1.0, 4, None, None)
     with pytest.raises(ValueError):  # k > K
@@ -594,8 +595,9 @@ def test_new_entry_points_dispatch_on_cuda_tensors_and_keep_structs_live(fixture
     def agg_live(a):
         return live(*[getattr(a, f) for f in ("bm25", "bm25f", "idf", "cov", "static_of_sig")])
 
-    monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(
-        ("stage_a", live(a[-2], a[-1], *a[1]))))
+    monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(  # ..., ub, ub_total, rows
+        ("stage_a", a[-1] is None and live(a[-3], a[-2], *a[1]))))
+    monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
     monkeypatch.setattr(kernels, "factors_join", lambda seg, s, l, c, out: seen.append(
         ("factors_join", live(s, l, c, out))))
     monkeypatch.setattr(kernels, "stage_b_joined", lambda seg, q, cand, *rest: seen.append(

@@ -299,6 +299,7 @@ def test_merge_dispatches_on_cuda_tensors_with_live_arguments(fixture, monkeypat
     monkeypatch.setattr(kernels, "stage_a_merge", lambda seg, q, L, K, ds, soft, fs, *ts, **kw:
                         seen.append(("merge", K, live(*ts, *kw.values(), *q))))
     monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(("stage_a", None, True)))
+    monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
     monkeypatch.setattr(OT, "score_candidates_batch_plain",
                         lambda *a, **k: seen.append(("plain", None, False)))
     monkeypatch.setattr(OT, "merge_sorted_tiles_plain",

@@ -185,6 +185,173 @@ def test_single_query_forms_match_jax(fixture):
     assert (np.abs(sig_t - sig_j) <= 1.001 * step).all()
 
 
+def _without_padding(seg, L):
+    """The fixture's segment without the L pad rows behind its last list."""
+    return seg._replace(postings=np.asarray(seg.postings)[:-L])
+
+
+def _clamped_windows(seg, qs, L):
+    """→ (the used slots whose L-row window the clamp to n_rows - L moves
+    onto the rows before their list, whether one such window holds a doc
+    twice)."""
+    post = np.asarray(seg.postings)
+    n = post.shape[0]
+    lens = np.minimum(np.asarray(qs.lens), L)
+    moved = (lens > 0) & (np.asarray(qs.starts).astype(np.int64) > n - L)
+    twice = False
+    for b, p in zip(*np.nonzero(moved)):
+        docs = post[max(n - L, 0): max(n - L, 0) + lens[b, p], 0]
+        twice |= len(np.unique(docs)) < len(docs)
+    return moved, twice
+
+
+def test_stage_a_plain_matches_jax_on_clamped_windows(fixture):
+    """A slot whose window the clamp moved reads the rows before its list,
+    other lists' rows, so a doc may stand twice in one slot: both packages
+    sum both rows (here: the segment without its tail padding, L = 512, past
+    the last impact prefix)."""
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, _ = query_batch(rng, seg, starts, dfs, impact)
+    seg_n = _without_padding(seg, L)
+    moved, twice = _clamped_windows(seg_n, qs, 512)
+    assert moved.any() and twice
+    _compare_stage_a(seg_n, qs, 512, 128, True, True)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("entries,B,form", [
+    (0, 32, "block"), (500, 32, "block"), (4522, 256, "block"), (6613, 32, "cluster"),
+    (4522, 1, "cluster"), (43690, 32, "cluster"), (43691, 32, "global"), (65536, 4, "global"),
+    (65536, 64, "global"), (200000, 32, "global")])
+def test_stage_a_plan_sizes_the_table_from_entries(entries, B, form, sms):
+    """K1's table: the least power of two of at least 3E/2 (and 64) slots; the
+    blocks a query needs to hold it in shared memory beside the sort
+    buffers, more while the launch fits the card's SMs (an H100 SXM's 132, a
+    PCIe card's 114) and each block keeps STAGE_A_MIN_PART slots; global
+    memory past MAX_CLUSTER blocks, its select over MAX_CLUSTER blocks."""
+    K = 4096
+    plan = kernels.stage_a_plan(entries, B, K, sms)
+    T, c = plan.slots, plan.cluster
+    assert plan.form == form and plan.entries == entries
+    assert T & (T - 1) == 0 and 2 * T >= 3 * entries and T >= 64
+    assert T == 64 or 2 * (T // 2) < 3 * entries
+    assert c in (1, 2, 4, 8) and (c == 1) == (form == "block") or form == "global"
+    fits = lambda blocks: (T // blocks * kernels.STAGE_A_SLOT_BYTES + 8 * K  # noqa: E731
+                           <= kernels.STAGE_A_DYN_SMEM)
+    if form == "global":  # the select over 8 blocks a query
+        assert not fits(kernels.MAX_CLUSTER) and c == kernels.MAX_CLUSTER
+    else:
+        assert fits(c) and (c == 1 or not fits(c // 2) or B * c <= sms)
+        assert c == 1 or T // c >= kernels.STAGE_A_MIN_PART or not fits(c // 2)
+        assert B * c <= sms or c == 1 or not fits(c // 2)
+
+
+@pytest.mark.parametrize("entries,launches", [
+    ([4522, 6613, 0], [(None, "cluster")]),
+    ([65536, 43691], [(None, "global")]),
+    ([4522, 65536, 100, 43691, 43690], [([0, 2, 4], "cluster"), ([1, 3], "global")]),
+    ([65536, 1], [([1], "block"), ([0], "global")])])
+def test_stage_a_launches_keep_short_queries_on_chip(entries, launches):
+    """A batch whose tables all take one kind of memory is one launch planned
+    from its largest query; one that mixes them is two, the queries whose
+    tables fit shared memory planned apart from the rest, so a long query
+    leaves the short ones' tables on chip."""
+    got = kernels.stage_a_launches(np.array(entries), 4096, 132)
+    assert [(None if r is None else r.tolist(), p.form) for r, p in got] == launches
+    for rows, plan in got:
+        idx = np.arange(len(entries)) if rows is None else rows
+        assert rows is None or rows.dtype == np.int32
+        assert plan == kernels.stage_a_plan(max(entries[i] for i in idx), len(idx), 4096, 132)
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_stage_a_counts_entries_from_the_slots_as_passed(fixture, monkeypatch, on_card):
+    """score_candidates_batch sizes K1's table from each query's posting
+    rows, sum_p min(len_p, L): from numpy slots (the index's) with no read
+    of the device (Tensor.cpu refused), from slots already in tensors with
+    one copy of their lens. Stand-in launch, so it runs without a card."""
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, _ = query_batch(rng, seg, starts, dfs, impact)
+    want = np.minimum(qs.lens, L).sum(axis=1)
+    assert (OT.stage_a_entries(qs.lens, L) == want).all()
+    seg_t = segment_arrays_from_numpy(seg, device="cpu")
+    seen, copies = [], []
+    monkeypatch.setattr(kernels, "stage_a", lambda seg, q, L, K, plan, table, *a:
+                        seen.append((plan, table, a[-1])))
+    monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
+    if on_card:
+        qs = OT.to_tensors(qs, "cpu")
+        cpu = torch.Tensor.cpu
+        monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k:
+                            copies.append(tuple(self.shape)) or cpu(self, *a, **k))
+    else:
+        monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k:
+                            pytest.fail("the slots' tensors were read back"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    OT.score_candidates_batch(seg_t, qs, L, 128, True, True)
+    assert seen == [(kernels.stage_a_plan(int(want.max()), qs.starts.shape[0], 128, 132), None,
+                     None)]
+    assert copies == ([tuple(qs.lens.shape)] if on_card else [])
+
+
+def test_stage_a_scores_a_mixed_batch_in_two_launches(fixture, monkeypatch):
+    """A batch of one long query (E past what 8 blocks' shared memory holds)
+    among short ones: the short queries' launch keeps its shared-memory
+    table, the long one gets a global table of its own, [1, T], and each
+    launch names its queries' rows. Stand-in launch."""
+    rng, seg, starts, dfs, impact, _ = fixture
+    L = 1024
+    qs, _ = query_batch(rng, seg, starts, dfs, impact, B=4, P=64)
+    lens = np.zeros((4, 64), np.int32)
+    lens[:, :6] = 700
+    lens[2] = 1024  # E = 65,536
+    qs = qs._replace(lens=lens)
+    seg = segment_arrays_from_numpy(seg, device="cpu")
+    seen = []
+    monkeypatch.setattr(kernels, "stage_a", lambda seg, q, L, K, plan, table, *a:
+                        seen.append((plan, None if table is None else
+                                     [tuple(t.shape) for t in table], a[-1].tolist())))
+    monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    OT.score_candidates_batch(seg, qs, L, 4096, True, True)
+    short, long = kernels.stage_a_plan(4200, 3, 4096, 132), kernels.stage_a_plan(65536, 1, 4096,
+                                                                                   132)
+    assert short.form == "cluster" and long.form == "global"
+    assert seen == [(short, None, [0, 1, 3]), (long, [(1, long.slots)] * 4, [2])]
+
+
+def test_stage_a_and_b_plans_are_checked_before_a_launch(monkeypatch):
+    """K1's plan and table and K2's cluster raise ValueError before the
+    library is loaded."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("reached the launch"))
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
+
+    class Seg:
+        postings = i32(64, 3)
+
+    q = type("Q", (), {"starts": i32(2, 16)})()
+    ok = kernels.stage_a_plan(500, 2, 128, 132)
+    big = kernels.StageAPlan(60000, 131072, 4, "cluster")
+    glob = big._replace(form="global")
+    for plan, table, rows in (
+            (ok._replace(cluster=3), None, None), (ok._replace(cluster=16), None, None),
+            (ok._replace(slots=1000), None, None), (big, None, None),  # a part past shared memory
+            (glob, None, None),  # the global form without its table
+            (ok, (i32(2, ok.slots),) * 4, None),  # a table beside shared memory
+            (glob, (i32(2, 64),) * 4, None),  # a table's shape
+            (glob, (i32(2, glob.slots),) * 4, i32(1)),  # a table of other rows than launched
+            (ok, None, i32(1, 2)), (ok, None, i32(3)), (ok, None, i32(0))):  # the rows' shape
+        with pytest.raises(ValueError):
+            kernels.stage_a(Seg, q, 128, 128, plan, table, True, True, 1.0, None, None,
+                            rows=rows)
+    for cluster in (3, 16, 8):  # 8 blocks for Kd = 4 columns
+        monkeypatch.setattr(kernels, "stage_b_cluster", lambda Kd, c=cluster: c)
+        with pytest.raises(ValueError):
+            kernels.stage_b(Seg, q, None, None, i32(2, 4), True, 1.0, 4, 0, None, None, None,
+                            None)
+
+
 def test_unpack_stageb_contract():
     docs = torch.tensor([[3, 5, 9]], dtype=torch.int32)
     scores = torch.tensor([[2.0, 1.0, float("-inf")]])
@@ -206,6 +373,7 @@ def test_cuda_tensors_never_take_the_plain_path(fixture, monkeypatch):
     monkeypatch.setattr(OT, "score_candidates_batch_plain",
                         lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(kernels, "stage_a", lambda *a, **k: called.append("kernel"))
+    monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     qs, _ = query_batch(rng, seg, starts, dfs, impact)
     OT.score_candidates_batch(seg_t, qs, L, 128, True, True)
@@ -455,3 +623,139 @@ def test_stage_a_merge_kernel_matches_plain(fixture, row_layout, default_static,
         assert_topk_runs_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(),
                                d_k[b].cpu().numpy(), s_k[b].cpu().numpy(), int(seg.num_docs),
                                A_RTOL, A_ATOL)
+
+
+# ---- on the card: K1's table forms and select regimes, K2's clusters -------------------
+def _long_fixture(seed=11):
+    """Lists of 1,100..1,600 docs of 60,000, so full L = 1,024 slots."""
+    return rich_fixture(np.random.default_rng(seed), D=60_000, n_terms=80, L=1024, DB=65536,
+                        df=(1100, 1600))
+
+
+def _form_case(form):
+    """(seg, slots, L, stage A's tolerance) whose queries' entries give K1 the
+    table form `form` at C = 4,096: "block" 7 slots cut to 80 rows;
+    "cluster" 7 full slots of 1,024 rows; "global" 64 of them (E = P*L);
+    "mixed" the global batch with all but its third query cut to 7 slots
+    (two launches); "huge" 256 such slots, lists drawn with repeats (E =
+    262,144: the global table's keys too many for shared memory);
+    "clamped" the fixture without its tail padding at L = 512, where a
+    slot's window reaches back over other lists' rows (a doc twice in one
+    slot)."""
+    rng = np.random.default_rng(5)
+    if form in ("block", "clamped"):
+        seg, starts, dfs, impact, L = rich_fixture(rng)
+        qs, _ = query_batch(rng, seg, starts, dfs, impact, B=4)
+        if form == "block":
+            return seg, qs._replace(lens=np.minimum(qs.lens, 80).astype(np.int32)), L, 2e-3
+        return _without_padding(seg, L), qs, 512, 2e-3
+    seg, starts, dfs, impact, L = _long_fixture()
+    P = {"cluster": 16, "huge": 256}.get(form, 64)
+    qs, _ = query_batch(rng, seg, starts, dfs, impact, B=4, P=P)
+    if form in ("global", "mixed", "huge"):
+        terms = np.stack([rng.permutation(len(dfs))[:P] if P <= len(dfs) else
+                          rng.integers(0, len(dfs), P) for _ in range(4)])
+        lens = dfs[terms].astype(np.int32)
+        if form == "mixed":
+            lens[[0, 1, 3], 7:] = 0
+        qs = qs._replace(starts=starts[terms].astype(np.int32), lens=lens,
+                         group=np.where(np.arange(P) < 2, np.arange(P), OT.OPTIONAL_GROUP)
+                         .astype(np.int32)[None].repeat(4, 0))
+    return seg, qs, L, 5e-2
+
+
+def _plain_f64(seg_c, qs, dev, ube, ubt):
+    """The segment's arrays and the slots for K1's plain version in f64 (its
+    sums then round far below the kernel's f32 ones: over 65,536 and more
+    live entries a query its f32 cumsum alone approaches atol)."""
+    f64 = torch.float64
+    q64 = OT.QuerySlots(*[torch.as_tensor(np.asarray(x), device=dev, dtype=torch.int32
+                                          if f in ("starts", "lens", "group", "n_required")
+                                          else f64) for f, x in zip(qs._fields, qs)])
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev, dtype=f64)  # noqa: E731
+    return seg_c._replace(static_cols=seg_c.static_cols.double()), q64, t(ube), t(ubt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["block", "cluster", "global", "mixed", "huge", "clamped"])
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+@pytest.mark.parametrize("ub", [False, True])
+def test_stage_a_kernel_in_every_table_form(form, row_layout, ub):
+    """K1 at C = 4,096 in each table form (forced through the entries; "mixed"
+    a batch of both, in two launches), on q16 and q8 rows, with and without
+    UB, against its plain version; the select's two regimes: fewer valid
+    docs than C (every query of "block" and "clamped": every nonzero key
+    wins, no radix pass) and more (queries of "cluster" and "global"). Two
+    calls give the same scores and docs, bit for bit (ties at the C-th score
+    to the lower doc in both regimes)."""
+    dev = _card()
+    seg, qs, L, atol = _form_case(form)
+    C = 4096
+    B = qs.starts.shape[0]
+    launches = kernels.stage_a_launches(OT.stage_a_entries(qs.lens, L), C, kernels.card_sms(dev))
+    want = {"clamped": ["cluster"], "mixed": ["cluster", "global"], "huge": ["global"]}.get(
+        form, [form])
+    assert [plan.form for _, plan in launches] == want, launches
+    if form == "clamped":
+        assert _clamped_windows(seg, qs, L)[1]
+    rng = np.random.default_rng(3)
+    ube, ubt = ub_inputs(rng, qs) if ub else (None, None)
+    seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    d_k, s_k = OT.score_candidates_batch(seg_c, qs, L, C, True, True, ube, ubt)
+    d_2, s_2 = OT.score_candidates_batch(seg_c, qs, L, C, True, True, ube, ubt)
+    assert torch.equal(s_k.view(torch.int32), s_2.view(torch.int32)) and torch.equal(d_k, d_2)
+    if form in ("block", "clamped"):
+        t = lambda x: None if x is None else torch.as_tensor(x, device=dev)  # noqa: E731
+        plain = (seg_c, OT.to_tensors(qs, dev), t(ube), t(ubt))
+    else:  # the plain version's sums in f64
+        plain = _plain_f64(seg_c, qs, dev, ube, ubt)
+    d_p, s_p = OT.score_candidates_batch_plain(*plain[:2], L, C, True, True, *plain[2:])
+    s_p = s_p.float()
+    finite = torch.isfinite(s_k).sum(dim=1)
+    assert bool((finite < C).all() if form in ("block", "clamped") else (finite == C).any())
+    for b in range(B):
+        assert_topk_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(), d_k[b].cpu().numpy(),
+                          s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kd,k", [(1, 1), (300, 200), (1024, 1024), (2048, 512), (4096, 1024)])
+@pytest.mark.parametrize("ks", [0, 64])
+@pytest.mark.parametrize("P", [16, 64])
+def test_stage_b_kernel_at_every_cluster_size(Kd, k, ks, P):
+    """K2 over 1, 2 and 4 blocks a query (stage_b_cluster(Kd)), k < Kd and k
+    = Kd, unfused and with 64 fused signal columns, 16 and 64 slots, against
+    its plain version (docs as sets above the k-th score, rtol 1e-5 / atol
+    1e-5, signals within one q16 step); two calls give the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(Kd + P)
+    seg, starts, dfs, impact, L = _long_fixture()
+    qs, aggs = query_batch(rng, seg, starts, dfs, impact, B=4, P=P)
+    qs = doc_only(qs)
+    cands = driver_candidates(rng, seg, 4, Kd)
+    facs = host_factors(seg, qs, cands)
+    seg_c = segment_arrays_from_numpy(seg, device=dev)
+    ks = min(ks, k)
+    n = kernels.LAUNCHES["stage_b"]
+    def run():
+        if ks:
+            return OT.score_driver_batch_with_signals(seg_c, qs, facs, cands, aggs, True, k, ks)
+        return OT.score_driver_batch(seg_c, qs, facs, cands, True, k)
+    res_k, res_2 = run(), run()
+    assert kernels.LAUNCHES["stage_b"] == n + 2
+    assert all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in zip(res_k, res_2))
+    res_p = OT.score_driver_batch_plain(
+        seg_c, OT.to_tensors(qs, dev), torch.as_tensor(facs, device=dev),
+        torch.as_tensor(cands, device=dev), True, k, OT.to_tensors(aggs, dev), ks)
+    if ks:
+        d_k, s_k, sig_k = OT.unpack_stageb(res_k, k, 46, ks)
+        d_p, s_p, sig_p = OT.unpack_stageb(res_p, k, 46, ks)
+    else:
+        (d_k, s_k), (d_p, s_p) = OT.unpack_stageb(res_k, k), OT.unpack_stageb(res_p, k)
+    for b in range(4):
+        assert_topk_match(d_p[b], s_p[b], d_k[b], s_k[b], int(seg.num_docs), B_RTOL, B_ATOL)
+        if ks:
+            _assert_sig_match(d_p[b][:ks], sig_p[b], res_p[3][b].cpu().numpy(), d_k[b][:ks],
+                              sig_k[b], res_k[3][b].cpu().numpy(), int(seg.num_docs))

@@ -11,14 +11,15 @@ from stract_tpu.ranking import bm25_math as BM
 from stract_tpu.ranking import signals as S
 
 
-def rich_fixture(rng, D=3000, n_terms=40, L=256, DB=4096, n_impact=3):
+def rich_fixture(rng, D=3000, n_terms=40, L=256, DB=4096, n_impact=3, df=(5, 400)):
     """A segment's arrays as numpy (the JAX package's SegmentArrays fields):
     doc-ordered posting ranges with distinct bm25 / bm25f factors (q1 often
     >= 32768, i.e. negative packed words), per-doc static, region and
     freshness carried in the aux word, plus tf-factor-ordered impact ranges
-    (rows NOT doc-sorted) for the n_impact longest terms.
+    (rows NOT doc-sorted) for the n_impact longest terms; term lengths drawn
+    from [df[0], df[1]).
     → (seg, term_starts, term_lens, impact {term: (start, len)}, L)."""
-    dfs = rng.integers(5, 400, n_terms)
+    dfs = rng.integers(df[0], df[1], n_terms)
     starts = np.concatenate([[0], np.cumsum(dfs)[:-1]]).astype(np.int64)
     total = int(dfs.sum())
     docs = np.empty(total, dtype=np.int64)
