@@ -79,8 +79,9 @@ the pair head (K15c) and bf16 AdamW (K15d) must be launched by those steps,
 and the same 20 steps through the plain versions on the card must give the
 same loss curve within 5 % per step; one step is timed with kernels and
 with plain versions, and K15a-d are held against their plain versions at
-the step's shapes (K15c's pair head plain and distilled at 32 pairs, its
-InfoNCE head at 32, 64 and 256 rows, two calls bit-equal).
+the step's shapes (K15a's whole VJP, the router's parameter gradients
+included, two calls bit-equal; K15c's pair head plain and distilled at 32
+pairs, its InfoNCE head at 32, 64 and 256 rows, two calls bit-equal).
 
 Then the pipeline-parallel train step (parallel/pipeline.py, K16) at
 MiniLM-L6's width: six single-head f32 stages (hidden 384, FFN 1536, 128
@@ -278,8 +279,10 @@ PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 #           above the C-th score: a doc may stand in several runs
 #  K15a    probabilities rtol 1e-5 (f32 sums over H in another order, expf),
 #           the expert chosen equal where the top two probabilities differ by
-#           more than 1e-5, gate and dx within one bf16 step, the logits'
-#           cotangent rtol 1e-5, atol 1e-6 x max |plain|
+#           more than 1e-5, gate and dx within one bf16 step, the router's
+#           weight and bias gradients rtol 1e-5, atol 1e-6 x max |plain| (f32
+#           sums over the N tokens in another order); two calls of the
+#           backward bit-equal (fixed-order sums, no atomics)
 #  K15b    forward and the experts' cotangent bit-equal; the gate's cotangent
 #           (an f32 row sum in another order, rounded to bf16) one bf16 step
 #  K15c    rtol 1e-5, atol 1e-7 (sums over B in another order, exp and log in
@@ -350,7 +353,8 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "bias_gelu_backward": "rtol 2^-7 atol 2^-7*max|plain|; two calls bit-equal",
             "adamw": "rtol 1e-6 atol 1e-6*max|plain|",
             "stage_a_merge": f"network bit-equal; rtol {A_TOL[0]} atol {A_TOL[1]}",
-            "moe_router": "probs rtol 1e-5; gate, dx 1 bf16 step; dlogits rtol 1e-5",
+            "moe_router": "probs rtol 1e-5; gate, dx 1 bf16 step; dw, db rtol 1e-5; "
+                          "two calls bit-equal",
             "moe_select": "bit-equal; d gate 1 bf16 step",
             "pair_loss": "rtol 1e-5 atol 1e-7; two calls bit-equal",
             "info_nce": "rtol 1e-5 atol 1e-7; two calls bit-equal",
@@ -2041,21 +2045,27 @@ def moe_phase(index_dir: str, dual_dir: str, card: str) -> dict:
     if not torch.equal(tk[clear], tp[clear]):
         raise AssertionError("the router kernel chose other experts")
     err = _step_close(gk, gp)
+    # the router's whole VJP: dx, and the gradients of its weight and bias
     dgate = torch.randn(N, generator=g).to(DEVICE, torch.bfloat16)
-    (dlk, dxk), (dlp, dxp) = (MO.router_backward(pp, tp, dgate, w),
-                              MO.router_backward_plain(pp, tp, dgate, w))
-    torch.testing.assert_close(dlk, dlp, rtol=1e-5, atol=1e-6 * float(dlp.abs().max()))
+    got = MO.router_backward(x, pp, tp, dgate, w)
+    (dxk, dwk, dbk), (dxp, dwp, dbp) = got, MO.router_backward_plain(x, pp, tp, dgate, w)
+    for a, c in ((dwk, dwp), (dbk, dbp)):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max()))
+    if not all(torch.equal(a, c) for a, c in zip(MO.router_backward(x, pp, tp, dgate, w), got)):
+        raise AssertionError("two calls of the router's backward differ")
     err = max(err, float((pk - pp).abs().max()), _step_close(dxk, dxp),
-              float((dlk - dlp).abs().max()))
+              float((dwk - dwp).abs().max()), float((dbk - dbp).abs().max()))
     Ex = MOE_E
     rows.append(("moe_router", True, err,
-                 time_ms(lambda: (MO.router_forward(x, w, b), MO.router_backward(pp, tp, dgate, w))),
+                 time_ms(lambda: (MO.router_forward(x, w, b),
+                                  MO.router_backward(x, pp, tp, dgate, w))),
                  time_ms(lambda: (MO.router_plain(x, w, b),
-                                  MO.router_backward_plain(pp, tp, dgate, w))),
+                                  MO.router_backward_plain(x, pp, tp, dgate, w))),
                  (N, H, Ex),
                  2 * N * H + 4 * (Ex * H + Ex) + 4 * N * Ex + 4 * N + 2 * N  # forward
-                 + 4 * N * Ex + 4 * N + 2 * N + 4 * Ex * H + 4 * N * Ex + 2 * N * H,  # backward
-                 4 * N * H * Ex + 30 * N * Ex))
+                 + 2 * N * H + 4 * N * Ex + 4 * N + 2 * N + 4 * Ex * H  # backward: in
+                 + 2 * N * H + 4 * (Ex * H + Ex),  # backward: dx, dw, db
+                 6 * N * H * Ex + 34 * N * Ex))
     out_e = torch.randn((Ex, N, H), generator=g).to(DEVICE, torch.bfloat16)
     gr = torch.randn((N, H), generator=g).to(DEVICE, torch.bfloat16)
     if not torch.equal(MO.select_scale_forward(out_e, tk, gk), MO.select_scale_plain(out_e, tk, gk)):
@@ -2966,8 +2976,7 @@ def kernel_records(rows, rows_m, cent, library, serve_launches, train_launches, 
             "stage_a_merge": ("cuda", src + "scoring.cu", "stract_tpu/ops/scoring.py:286",
                               (MERGE_P, L, C)),
             "moe_router": ("cuda", src + "moe.cu", "stract_tpu/models/bert.py:124", None),
-            "moe_select": ("triton", "stract_tpu_torch/ops/moe.py",
-                           "stract_tpu/models/bert.py:151", None),
+            "moe_select": ("cuda", src + "moe.cu", "stract_tpu/models/bert.py:151", None),
             "pair_loss": ("cuda", src + "losses.cu", "stract_tpu/parallel/train.py:26",
                           (MOE_B, "distilled")),
             "info_nce": ("cuda", src + "losses.cu",

@@ -100,6 +100,20 @@ under data/). --readings picks groups (default all):
                       entries, beside torch._foreach_add_;
   pipeline_step       that whole train step on a (pp=6, dp=2) mesh of the
                       card, 8 microbatches of 16 rows of 128 tokens (3 steps);
+  moe                 the MoE FFN's router K15a, its whole VJP as the train
+                      step takes it (ops/moe.py router forward, then
+                      torch.autograd.grad of the gate over x, the router's
+                      weight and bias: the backward kernel and, in a tree that
+                      computes them in PyTorch, the parameter gradients), and
+                      K15b select-and-scale forward + backward the same way
+                      (over the experts' rows and the gate), at (N, H, E) in
+                      MOE_SHAPES (the MoE step's 32 pairs x 128 tokens at
+                      MiniLM's width and 4 experts; BERT-base's width with
+                      16 experts);
+  moe_step            one distilled step of make_train_state(MiniLM-L6, the
+                      30,522-piece vocab, mean readout, num_experts=4) at 32
+                      pairs x 128 tokens (random ids and lengths 8..128 from
+                      a seed, random targets; 10 steps);
   dual_step           one dual-encoder InfoNCE train step (MiniLM-L6, the
                       full 30,522-piece vocab, B = 64 + 64, T = 128, random
                       ids and lengths 8..128 from a seed; chip_smoke.py's
@@ -156,10 +170,11 @@ LN_ROWS = (4096, TRAIN_B * TRAIN_T)
 POOL_SERVE = (32, 32, 384)
 INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
 GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
+MOE_PAIRS, MOE_SHAPES = 32, ((32 * 128, 384, 4), (32 * 128, 768, 16))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
-            "sgd", "pipeline_step", "dual_step", "scoring")
+            "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
@@ -544,6 +559,10 @@ def worker(root: str, calls: int, readings: list) -> list:
         targets = torch.randn((8, 16), generator=g).to(dev0)
         read((("pipeline_step", lambda: step_fn(params, mbs, targets)),), n=3, steps=3)
         del params, mbs
+    if "moe" in readings:
+        moe_readings(bf, g, read)
+    if "moe_step" in readings:
+        moe_step_reading(g, read)
     if "scoring" in readings:
         scoring_readings(smoke, read)
     if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
@@ -562,6 +581,58 @@ def worker(root: str, calls: int, readings: list) -> list:
         read((("dual_step", lambda: train_step(model, opt, batch, info_nce_loss)),), n=10,
              steps=10)
     return out
+
+
+def moe_readings(bf, g, read) -> None:
+    """The moe group (the module docstring): through the autograd Functions,
+    so that a tree's backward is read with whatever it runs besides the
+    kernel."""
+    import torch
+
+    from stract_tpu_torch.ops import moe as MO
+
+    for N, H, E in MOE_SHAPES:
+        x = bf(N, H).requires_grad_()
+        w = (0.05 * torch.randn((E, H), generator=g)).cuda().requires_grad_()
+        b = (0.05 * torch.randn(E, generator=g)).cuda().requires_grad_()
+        dgate = bf(N)
+        out_e = bf(E, N, H).requires_grad_()
+        gr = bf(N, H)
+        top, gate = MO.router(x, w, b)
+        gate = gate.detach().requires_grad_()
+
+        def router_vjp():
+            return torch.autograd.grad(MO.router(x, w, b)[1], (x, w, b), dgate)
+
+        def select_vjp():
+            return torch.autograd.grad(MO.select_scale(out_e, top, gate), (out_e, gate), gr)
+        read((("K15a", router_vjp), ("K15b", select_vjp)), N=N, H=H, E=E, parts=True)
+        del x, out_e
+
+
+def moe_step_reading(g, read) -> None:
+    """The moe_step reading (the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from stract_tpu_torch.models.bert import BertConfig
+    from stract_tpu_torch.parallel.train import distill_loss, make_train_state, train_step
+
+    cfg = dataclasses.replace(BertConfig.mini_lm(vocab_size=VOCAB), score_pool="mean")
+    model, opt = make_train_state(cfg, 3e-4, seed=0, num_experts=4, device="cuda")
+    batch = {}
+    for side in ("pos", "neg"):
+        ids = torch.randint(5, VOCAB, (MOE_PAIRS, TRAIN_T), generator=g, dtype=torch.int32)
+        lens = torch.randint(8, TRAIN_T + 1, (MOE_PAIRS, 1), generator=g)
+        batch[f"{side}_ids"] = ids.cuda()
+        batch[f"{side}_mask"] = (torch.arange(TRAIN_T) < lens).to(torch.int32).cuda()
+        batch[f"{side}_types"] = torch.zeros((MOE_PAIRS, TRAIN_T), dtype=torch.int32).cuda()
+    for k in ("t_pos", "t_neg"):
+        batch[k] = (5 * torch.rand(MOE_PAIRS, generator=g)).cuda()
+    read((("moe_step", lambda: train_step(model, opt, batch, distill_loss, alpha=2.0)),),
+         n=10, steps=10)
+    del model, opt
 
 
 def scoring_readings(smoke, read) -> None:
@@ -698,7 +769,7 @@ def main() -> int:
         for rec in json.loads(proc.stdout.strip().splitlines()[-1]):
             rec = {"run": n, "tree": tree, **rec}
             print(json.dumps(rec), flush=True)
-            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "M", "N", "B", "S",
+            shape = " ".join(f"{f}={rec[f]}" for f in ("d", "T", "H", "E", "M", "N", "B", "S",
                                                        "tensors", "shards", "K", "P")
                              if f in rec)
             key = f"{tree} {rec['name']} {shape}"

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "col_sum.cuh"
+
 namespace {
 
 constexpr int kMaxT = 512;
@@ -1203,7 +1205,7 @@ bias_gelu_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __res
 // over the rows; each lane keeps its columns' dweight and dbias partials
 // in f32 registers, the block sums its warps' in shared memory in warp
 // order into partials [2][blocks][N], and a second kernel sums those over
-// the blocks (kLnSumGroups interleaved groups, then the groups, each in a
+// the blocks (kSumGroups interleaved groups, then the groups, each in a
 // fixed order): no atomics, so two calls are bit-equal and the grid does not
 // depend on the card. Both kernels run in one call, dweight, dbias and the
 // partials in one allocation: in the host-bound train step the host's cost
@@ -1211,8 +1213,6 @@ bias_gelu_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __res
 constexpr int kLnWarps = 8;      // rows in flight a block: a warp a row
 constexpr int kLnBlocks = 264;   // the grid's most blocks: two for each of the H100's SMs
 constexpr int kLnMaxN = 1024;
-constexpr int kLnSumCols = 32;   // the column sum: columns a block (one a lane) ...
-constexpr int kLnSumGroups = 8;  // ... and groups of the blocks' partials (one a warp)
 
 // W bf16 values of a row, as their bits
 template <int W>
@@ -1469,47 +1469,6 @@ add_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
     }
 }
 
-// the column sums of K14b (dweight, dbias) and K14c (db): the blocks'
-// partials [outputs][blocks][N] summed for kLnSumCols columns of one output
-// a block, warp j summing blocks j, j + kLnSumGroups, ... in order, then the
-// groups summed in order, the total stored as T (f32, or bf16 rounded to
-// nearest); grid: outputs x the column blocks
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLnSumCols * kLnSumGroups)
-col_sum_kernel(const float* __restrict__ partials, int blocks, int N, T* out0, T* out1) {
-    __shared__ float s_sum[kLnSumGroups][kLnSumCols];
-    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
-    const int k = blockIdx.x / col_blocks;  // the output: 0 or 1
-    const int c = blockIdx.x % col_blocks * kLnSumCols + threadIdx.x;
-    const int j = threadIdx.y;
-    float acc = 0.0f;
-    if (c < N) {
-        const float* p = partials + static_cast<long long>(k) * blocks * N + c;
-        for (int b = j; b < blocks; b += kLnSumGroups) acc += p[static_cast<long long>(b) * N];
-    }
-    s_sum[j][threadIdx.x] = acc;
-    __syncthreads();
-    if (j == 0 && c < N) {
-        float total = 0.0f;
-#pragma unroll
-        for (int v = 0; v < kLnSumGroups; ++v) total += s_sum[v][threadIdx.x];
-        store_as((k == 0 ? out0 : out1) + c, total);
-    }
-}
-
-template <typename T>
-cudaError_t launch_col_sum(const float* partials, int outputs, int blocks, int N, T* out0,
-                           T* out1, cudaStream_t stream) {
-    const int col_blocks = (N + kLnSumCols - 1) / kLnSumCols;
-    col_sum_kernel<T><<<outputs * col_blocks, dim3(kLnSumCols, kLnSumGroups), 0, stream>>>(
-        partials, blocks, N, out0, out1);
-    return cudaGetLastError();
-}
 
 // K14c: the backward of the bias add + tanh GELU (bert.py:170-171), the VJP
 // of jax.nn.gelu(bf16(y + b)) as jax.value_and_grad takes it through the

@@ -20,7 +20,8 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     size estimate, K7 the BFS's bitset frontier step, K8 the
                     sharded HyperBall's ring step
   csrc/moe.cu       K15a the MoE router (logits, softmax, argmax, gate) and its
-                    backward
+                    whole VJP (dx and the parameter gradients), K15b the MoE
+                    select-and-scale and its backward
   csrc/losses.cu    K15c the loss heads: the pairwise logistic head (plain and
                     distilled) and the in-batch InfoNCE head, value and gradient
   csrc/stage.cu     K16a the pipeline stage's f32 single-head attention, K16b its
@@ -28,9 +29,12 @@ time: the CPU tests import this module on machines without nvcc or a card.
                     the SGD update of a card's parameters in one launch
 
 (K14d and K15d, the fused AdamW updates of f32 masters and of bf16
-parameters, are Triton kernels in optim.py; K15b, the MoE select-and-scale,
-in ops/moe.py beside the CUDA router K15a (csrc/moe.cu); they count their
-launches here too, and launch on their tensors' card as well: `card_of`.)
+parameters, are Triton kernels in optim.py; they count their launches here
+too, and launch on their tensors' card as well: `card_of`.)
+
+csrc/col_sum.cuh, the fixed-order column sum of K14b, K14c and K15a's
+backward, is included by encoder.cu and moe.cu: a library is rebuilt when
+its source or a header under csrc/ is newer.
 
 Each launch function takes tensors already on the card, allocated by its
 caller (ops/*.py), launches under `on_card` (the card its tensors lie on
@@ -195,7 +199,8 @@ def stage_b_cluster(Kd: int) -> int:
 # network, else "stage_a_ub" when it folds UB bounds, else "stage_a_q8" on q8
 # rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
-# backward launches alike, and so does "gelu_tanh", K16c; "pair_loss" and
+# backward calls alike (the router's backward call, its kernel and the column
+# sum, once), and "gelu_tanh", K16c, its two launches; "pair_loss" and
 # "info_nce" are K15c's two heads; "mean_pool" counts K5d's forward and
 # backward launches alike; "bfs_relax" counts K7's frontier steps)
 LAUNCHES = {"stage_a": 0, "stage_a_q8": 0, "stage_a_ub": 0, "stage_a_merge": 0, "stage_b": 0,
@@ -251,9 +256,12 @@ def build(verbose: bool = False) -> dict:
     Raises with the compiler's output on any failure."""
     with _lock:
         stale = {}
+        headers = max((os.path.getmtime(os.path.join(CSRC, f)) for f in os.listdir(CSRC)
+                       if f.endswith(".cuh")), default=0.0)
         for name, src in SOURCES.items():
             lib, src = _library(name), os.path.join(CSRC, src)
-            if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
+            if not os.path.exists(lib) or os.path.getmtime(lib) < max(os.path.getmtime(src),
+                                                                      headers):
                 stale[name] = (src, lib)
         if stale:
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -354,8 +362,11 @@ def _load(name: str):
                        lib.stract_hll_ring_step)
             elif name == "moe":
                 lib.stract_moe_router.argtypes = [P, P, P, I, I, I, P, P, P, P]
-                lib.stract_moe_router_backward.argtypes = [P, P, P, P, I, I, I, P, P, P]
-                fns = (lib.stract_moe_router, lib.stract_moe_router_backward)
+                lib.stract_moe_router_backward.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P]
+                lib.stract_moe_select.argtypes = [P, P, P, I, I, P, P]
+                lib.stract_moe_select_backward.argtypes = [P, P, P, P, I, I, I, P, P, P]
+                fns = (lib.stract_moe_router, lib.stract_moe_router_backward,
+                       lib.stract_moe_select, lib.stract_moe_select_backward)
             elif name == "stage":
                 lib.stract_stage_attention.argtypes = [P, P, I, I, I, P]
                 lib.stract_stage_attention_backward.argtypes = [P, P, P, P, P, I, I, I, P]
@@ -1057,8 +1068,10 @@ def sgd_multi(params: list, grads: list, lr: float) -> None:
         counted("sgd")
 
 
-# limit of csrc/moe.cu: experts per router
+# limits of csrc/moe.cu: experts per router; the router backward's fixed grid
+# (at most MOE_BWD_BLOCKS blocks, at least MOE_BWD_TOKENS tokens a block)
 MOE_MAX_E = 16
+MOE_BWD_BLOCKS, MOE_BWD_TOKENS = 264, 16
 
 
 def _router_dims(x, w) -> tuple:
@@ -1085,19 +1098,79 @@ def moe_router(x, w, bias, probs, top, gate) -> None:
     counted("moe_router")
 
 
-def moe_router_backward(probs, top, dgate, w, dlogits, dx) -> None:
-    """K15a backward: probs f32[N, E], top i32[N], dgate bf16[N], w f32[E, H]
-    → dlogits f32[N, E], dx bf16[N, H]."""
-    N, H, E = _router_dims(dx, w)
+def moe_router_backward(x, probs, top, dgate, w) -> tuple:
+    """K15a backward, the router's whole VJP: x bf16[N, H], probs f32[N, E],
+    top i32[N], dgate bf16[N] (the gate's cotangent), w f32[E, H] → (dx
+    bf16[N, H], dw f32[E, H], db f32[E]). One call, counted once: the
+    backward kernel over a fixed grid of at most MOE_BWD_BLOCKS blocks and
+    the column sum of its partials f32[blocks, E*H + E]; dw, db and the
+    partials share one allocation. Two calls give the same bits."""
+    N, H, E = _router_dims(x, w)
     f32 = torch.float32
-    ins = (_ptr(probs, f32, (N, E)), _ptr(top, torch.int32, (N,)),
-           _ptr(dgate, torch.bfloat16, (N,)), _ptr(w, f32, (E, H)))
-    outs = (_ptr(dlogits, f32, (N, E)), _ptr(dx, torch.bfloat16, (N, H)))
+    ins = (_ptr(x, torch.bfloat16, (N, H)), _ptr(probs, f32, (N, E)),
+           _ptr(top, torch.int32, (N,)), _ptr(dgate, torch.bfloat16, (N,)), _ptr(w, f32, (E, H)))
+    blocks = min(MOE_BWD_BLOCKS, -(-N // MOE_BWD_TOKENS))
+    cols = E * H + E
+    dx = torch.empty_like(x)
+    out = torch.empty((blocks + 1) * cols, dtype=f32, device=x.device)
     lib = _load("moe")
-    with on_card(probs, top, dgate, w, dlogits, dx) as stream:
-        rc = lib.stract_moe_router_backward(*ins, N, H, E, *outs, stream)
+    with on_card(x, probs, top, dgate, w, dx, out) as stream:
+        rc = lib.stract_moe_router_backward(*ins, N, H, E, blocks, dx.data_ptr(),
+                                            out.data_ptr(), stream)
     _check(rc, "stract_moe_router_backward")
     counted("moe_router")
+    return dx, out[:E * H].view(E, H), out[E * H:cols]
+
+
+def _select_dims(out_e, top, gate, g=None) -> tuple:
+    """Check K15b's arguments (ValueError before any build or launch) → (E,
+    N, H, their pointers)."""
+    if out_e.dim() != 3:
+        raise ValueError(f"select-and-scale takes the experts' rows [E, N, H], not "
+                         f"{tuple(out_e.shape)}")
+    E, N, H = out_e.shape
+    bf16 = torch.bfloat16
+    ptrs = [_ptr(out_e, bf16), _ptr(top, torch.int32, (N,)), _ptr(gate, bf16, (N,))]
+    if g is not None:
+        ptrs.append(_ptr(g, bf16, (N, H)))
+    if E < 1 or H < 1:
+        raise ValueError(f"select-and-scale takes E, H >= 1, not {tuple(out_e.shape)}")
+    return E, N, H, ptrs
+
+
+def moe_select(out_e, top, gate) -> torch.Tensor:
+    """K15b: out_e bf16[E, N, H], top i32[N] (each in 0..E-1), gate bf16[N] →
+    bf16[N, H], bf16(out_e[top[n], n] * gate[n]). N = 0 launches nothing."""
+    E, N, H, ptrs = _select_dims(out_e, top, gate)
+    out = torch.empty((N, H), dtype=torch.bfloat16, device=out_e.device)
+    if N == 0:
+        return out
+    lib = _load("moe")
+    with on_card(out_e, top, gate, out) as stream:
+        rc = lib.stract_moe_select(*ptrs, N, H, out.data_ptr(), stream)
+    _check(rc, "stract_moe_select")
+    counted("moe_select")
+    return out
+
+
+def moe_select_backward(out_e, top, gate, g) -> tuple:
+    """K15b backward: out_e bf16[E, N, H], top i32[N], gate bf16[N], g
+    bf16[N, H] (the output's cotangent) → (d_out bf16[E, N, H], bf16(g *
+    gate) in row top[n] and zeros in the others; d_gate bf16[N], the f32 row
+    sum of out_e[top[n], n] * g rounded once), one allocation. N = 0
+    launches nothing."""
+    E, N, H, ptrs = _select_dims(out_e, top, gate, g)
+    buf = torch.empty(E * N * H + N, dtype=torch.bfloat16, device=out_e.device)
+    d_out, d_gate = buf[:E * N * H].view(E, N, H), buf[E * N * H:]
+    if N == 0:
+        return d_out, d_gate
+    lib = _load("moe")
+    with on_card(out_e, top, gate, g, buf) as stream:
+        rc = lib.stract_moe_select_backward(*ptrs, E, N, H, buf.data_ptr(),
+                                            buf.data_ptr() + 2 * E * N * H, stream)
+    _check(rc, "stract_moe_select_backward")
+    counted("moe_select")
+    return d_out, d_gate
 
 
 def info_nce(logits, loss, d, blocks: int | None = None) -> None:

@@ -498,11 +498,12 @@ def test_loss_heads_reach_their_c_entry_points(monkeypatch):
     assert "triton" not in sys.modules
 
 
-@pytest.mark.parametrize("module", ["losses", "encoder", "stage"])
+@pytest.mark.parametrize("module", ["losses", "encoder", "stage", "moe"])
 def test_kernel_module_names_no_triton(module):
-    """ops/losses.py (K15c), ops/encoder.py (K5a-d, K14a-c) and ops/stage.py
-    (K16a-d) launch their kernels through ops/kernels.py alone: no source
-    imports nor names triton, and no module has a `_triton_kernels`."""
+    """ops/losses.py (K15c), ops/encoder.py (K5a-d, K14a-c), ops/stage.py
+    (K16a-d) and ops/moe.py (K15a-b) launch their kernels through
+    ops/kernels.py alone: no source imports nor names triton, and no module
+    has a `_triton_kernels`."""
     import ast
     import importlib
     import inspect
@@ -1191,8 +1192,8 @@ def test_moe_and_loss_wrappers_never_take_the_plain_path(monkeypatch):
             monkeypatch.setattr(mod, name, lambda *a, **k: called.append("plain"))
     monkeypatch.setattr(kernels, "moe_router", lambda *a: called.append("router"))
     monkeypatch.setattr(kernels, "moe_router_backward", lambda *a: called.append("router_bwd"))
-    monkeypatch.setattr(MO, "_triton_kernels", lambda: {n: Kern(n) for n in
-                                                        ("select", "select_bwd")})
+    monkeypatch.setattr(kernels, "moe_select", lambda *a: called.append("select"))
+    monkeypatch.setattr(kernels, "moe_select_backward", lambda *a: called.append("select_bwd"))
     monkeypatch.setattr(kernels, "pair_loss", lambda *a: called.append("pair"))
     monkeypatch.setattr(kernels, "info_nce", lambda *a: called.append("info_nce"))
     monkeypatch.setattr(optim, "_triton_kernels", lambda: {"adamw_bf16": Kern("adamw_bf16")})
@@ -1201,7 +1202,7 @@ def test_moe_and_loss_wrappers_never_take_the_plain_path(monkeypatch):
     bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
     top = torch.zeros(8, dtype=torch.int32)
     MO.router_forward(bf(8, 64), torch.zeros(4, 64), torch.zeros(4))
-    MO.router_backward(torch.zeros(8, 4), top, bf(8), torch.zeros(4, 64))
+    MO.router_backward(bf(8, 64), torch.zeros(8, 4), top, bf(8), torch.zeros(4, 64))
     MO.select_scale_forward(bf(4, 8, 64), top, bf(8))
     MO.select_scale_backward(bf(4, 8, 64), top, bf(8), bf(8, 64))
     LO.pair_loss_forward(torch.zeros(8), torch.zeros(8))
@@ -1243,6 +1244,130 @@ def test_moe_kernel_arguments_are_checked(monkeypatch):
         assert name in kernels.LAUNCHES
 
 
+def test_moe_select_checks_its_arguments_before_any_build(monkeypatch):
+    """kernels.moe_select and moe_select_backward raise ValueError on a wrong
+    dtype or shape before they build or launch anything."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("built before the check"))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    top = torch.zeros(8, dtype=torch.int32)
+    n = kernels.LAUNCHES["moe_select"]
+    for args in ((torch.zeros(4, 8, 64), top, bf(8)),  # f32 expert rows
+                 (bf(4, 8, 64), top.long(), bf(8)),  # i64 expert indices
+                 (bf(4, 8, 64), top, torch.zeros(8)),  # an f32 gate
+                 (bf(8, 64), top, bf(8)),  # no expert axis
+                 (bf(4, 8, 64), top[:7], bf(8)),  # fewer indices than tokens
+                 (bf(4, 8, 64), top, bf(9))):  # more gates than tokens
+        with pytest.raises(ValueError):
+            kernels.moe_select(*args)
+        with pytest.raises(ValueError):
+            kernels.moe_select_backward(*args, bf(8, 64))
+    with pytest.raises(ValueError):  # a cotangent of another width
+        kernels.moe_select_backward(bf(4, 8, 64), top, bf(8), bf(8, 32))
+    with pytest.raises(ValueError):  # a transposed cotangent
+        kernels.moe_select_backward(bf(4, 8, 64), top, bf(8), bf(64, 8).t())
+    assert kernels.LAUNCHES["moe_select"] == n
+
+
+class _MoELib:
+    """A stand-in for csrc/moe.cu's library: each entry point records its
+    name and arguments and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def __getattr__(self, name):
+        if not name.startswith("stract_moe_"):
+            raise AttributeError(name)
+        return lambda *args: self.called.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("N, H, E_", [(4096, 384, 4), (17, 100, 16), (1, 64, 1), (0, 64, 4)])
+def test_moe_kernels_reach_their_c_entry_points(monkeypatch, N, H, E_):
+    """K15a's backward and K15b's two directions on CUDA tensors (stand-ins):
+    one C call each, counted once; the router's dw, db and the fixed grid's
+    partials one allocation (dw at its start, db after it, the partials of
+    min(MOE_BWD_BLOCKS, ceil(N / MOE_BWD_TOKENS)) blocks after db), d_out and
+    d_gate one allocation; N = 0 launches no select and the router refuses
+    it before any call."""
+    called = []
+    monkeypatch.setattr(kernels, "_load", lambda name: _MoELib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    bf = lambda *s: torch.zeros(s, dtype=torch.bfloat16)  # noqa: E731
+    top = torch.zeros(N, dtype=torch.int32)
+    kernels.reset_launches()
+    if N:
+        dx, dw, db = kernels.moe_router_backward(bf(N, H), torch.zeros(N, E_), top, bf(N),
+                                                 torch.zeros(E_, H))
+        (name, args), = called
+        assert name == "stract_moe_router_backward" and kernels.LAUNCHES["moe_router"] == 1
+        *_, n, h, e, blocks, dx_ptr, out_ptr, stream = args
+        assert (n, h, e, stream) == (N, H, E_, 0) and dx_ptr == dx.data_ptr()
+        assert blocks == min(kernels.MOE_BWD_BLOCKS, -(-N // kernels.MOE_BWD_TOKENS))
+        assert dw.shape == (E_, H) and db.shape == (E_,) and dx.shape == (N, H)
+        assert dw.data_ptr() == out_ptr and db.data_ptr() == out_ptr + 4 * E_ * H
+        assert dw.untyped_storage().nbytes() == 4 * (blocks + 1) * (E_ * H + E_)
+        called.clear()
+    else:
+        with pytest.raises(ValueError):
+            kernels.moe_router_backward(bf(N, H), torch.zeros(N, E_), top, bf(N),
+                                        torch.zeros(E_, H))
+    out = kernels.moe_select(bf(E_, N, H), top, bf(N))
+    d_out, d_gate = kernels.moe_select_backward(bf(E_, N, H), top, bf(N), bf(N, H))
+    assert out.shape == (N, H) and d_out.shape == (E_, N, H) and d_gate.shape == (N,)
+    assert d_out.untyped_storage().data_ptr() == d_gate.untyped_storage().data_ptr()
+    if not N:
+        assert called == [] and kernels.LAUNCHES["moe_select"] == 0
+        return
+    assert [c[0] for c in called] == ["stract_moe_select", "stract_moe_select_backward"]
+    assert kernels.LAUNCHES["moe_select"] == 2
+    *_, e, n, h, d_ptr, g_ptr, stream = called[1][1]
+    assert (e, n, h, stream) == (E_, N, H, 0)
+    assert d_ptr == d_out.data_ptr() and g_ptr == d_gate.data_ptr() == d_ptr + 2 * E_ * N * H
+
+
+def test_router_backward_on_the_card_is_one_kernel_call(monkeypatch):
+    """On (stand-in) CUDA tensors the router's VJP is one
+    kernels.moe_router_backward call: autograd returns that call's dx, dw
+    and db as the cotangents of x and of the router's weight and bias, and
+    runs no product or sum of its own."""
+    from stract_tpu_torch.ops import moe as MO
+
+    rng = np.random.default_rng(3)
+    N, H, E_ = 8, 64, 4
+    x = torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (E_, H)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, E_).astype(np.float32))
+    outs = (torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(rng.normal(size=(E_, H)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=E_).astype(np.float32)))
+    calls = []
+
+    def router(x_, w_, b_, probs, top, gate):
+        for out, ref in zip((probs, top, gate), MO.router_plain(x_, w_, b_)):
+            out.copy_(ref)
+
+    def backward(*args):
+        calls.append(args)
+        return tuple(t.clone() for t in outs)
+
+    monkeypatch.setattr(kernels, "moe_router", router)
+    monkeypatch.setattr(kernels, "moe_router_backward", backward)
+    monkeypatch.setattr(MO, "router_backward_plain", lambda *a: pytest.fail("plain twin"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    top, gate = MO.router(*leaves)
+    dgate = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(torch.bfloat16)
+    grads = torch.autograd.grad(gate, leaves, dgate)
+    assert len(calls) == 1
+    xs, probs, tops, dg, ws = calls[0]
+    assert torch.equal(xs, x) and torch.equal(ws, w) and torch.equal(dg, dgate)
+    assert torch.equal(tops, top) and probs.shape == (N, E_)
+    for got, want in zip(grads, outs):
+        assert torch.equal(got, want)
+
+
 def test_adamw_groups_f32_and_bf16_parameters():
     """f32 and bf16 parameters each live in their own dtype's flat buffers;
     other dtypes are refused."""
@@ -1264,48 +1389,81 @@ def test_adamw_groups_f32_and_bf16_parameters():
 
 
 @pytest.mark.cuda
-def test_moe_router_kernel_matches_plain():
+@pytest.mark.parametrize("E_", [1, 4, 16])
+@pytest.mark.parametrize("H", [64, 100, 384, 768, 1032, 1100])
+@pytest.mark.parametrize("N", [1, 17, 4096])
+def test_moe_router_kernel_matches_plain(N, H, E_):
+    """K15a at every expert bucket (E = 1, 4, 16), 16-byte pieces (H = 64,
+    384, 768, 1,032) and single elements (H = 100, 1,100), the router's
+    weight staged in shared memory and, past 64 KB (E = 16 at H = 1,032 and
+    1,100), read through L1, with a tied router row (the
+    last expert's row and bias are the second's: it never wins): the
+    probabilities within rtol 1e-5, the chosen expert equal where the top
+    two probabilities differ by more than 1e-5, the gate and dx within one
+    bf16 step; the router's weight and bias gradients within rtol 1e-5,
+    atol 1e-6 x max |plain| (f32 sums over the N tokens in another order),
+    and a second backward call bit-equal (fixed-order sums)."""
     from stract_tpu_torch.ops import moe as MO
 
     dev = _card()
     g = torch.Generator().manual_seed(11)
-    N, H, Ex = 4096, 384, 4
     x = torch.randn((N, H), generator=g).to(dev, torch.bfloat16)
-    w = (0.05 * torch.randn((Ex, H), generator=g)).to(dev)
-    w[3] = w[1]  # a tied router row: expert 3 never wins over expert 1
-    b = (0.1 * torch.randn(Ex, generator=g)).to(dev)
-    b[3] = b[1]
+    w = (0.05 * torch.randn((E_, H), generator=g)).to(dev)
+    b = (0.1 * torch.randn(E_, generator=g)).to(dev)
+    if E_ > 2:
+        w[-1], b[-1] = w[1], b[1]
     pk, tk, gk = MO.router_forward(x, w, b)
     pp, tp, gp = MO.router_plain(x, w, b)
     torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-7)
-    top2 = pp.topk(2, dim=1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-5
-    assert torch.equal(tk[clear], tp[clear]) and not bool((tk == 3).any())
+    clear = torch.ones(N, dtype=torch.bool, device=dev)
+    if E_ > 1:
+        top2 = pp.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+    assert torch.equal(tk[clear], tp[clear])
+    assert E_ <= 2 or not bool((tk == E_ - 1).any())
     _step_close(gk, gp)
     dgate = torch.randn(N, generator=g).to(dev, torch.bfloat16)
-    (dlk, dxk), (dlp, dxp) = MO.router_backward(pp, tp, dgate, w), \
-        MO.router_backward_plain(pp, tp, dgate, w)
-    torch.testing.assert_close(dlk, dlp, rtol=1e-5, atol=1e-6 * float(dlp.abs().max()))
+    n = kernels.LAUNCHES["moe_router"]
+    got = MO.router_backward(x, pp, tp, dgate, w)
+    assert kernels.LAUNCHES["moe_router"] == n + 1  # the column sum counts with its kernel
+    (dxk, dwk, dbk), (dxp, dwp, dbp) = got, MO.router_backward_plain(x, pp, tp, dgate, w)
     _step_close(dxk, dxp)
+    for k, p in ((dwk, dwp), (dbk, dbp)):
+        assert k.shape == p.shape and k.dtype == torch.float32
+        torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-6 * float(p.abs().max()))
+    assert all(torch.equal(a, c) for a, c in zip(MO.router_backward(x, pp, tp, dgate, w), got))
 
 
 @pytest.mark.cuda
-def test_moe_select_kernels_match_plain():
+@pytest.mark.parametrize("E_", [1, 4, 16])
+@pytest.mark.parametrize("H", [64, 100, 384, 768])
+@pytest.mark.parametrize("N", [1, 17, 4096])
+def test_moe_select_kernels_match_plain(N, H, E_):
+    """K15b (csrc/moe.cu) over the same shapes: the forward and the experts'
+    cotangent bit-equal to the plain versions (one rounding of a product
+    that is exact in f32), the gate's cotangent within one bf16 step (an f32
+    row sum in another order); a call counted once; N = 0 launches
+    nothing."""
     from stract_tpu_torch.ops import moe as MO
 
     dev = _card()
     g = torch.Generator().manual_seed(12)
-    Ex, N, H = 4, 4096, 384
-    out_e = torch.randn((Ex, N, H), generator=g).to(dev, torch.bfloat16)
-    top = torch.randint(0, Ex, (N,), generator=g).to(dev, torch.int32)
+    out_e = torch.randn((E_, N, H), generator=g).to(dev, torch.bfloat16)
+    top = torch.randint(0, E_, (N,), generator=g).to(dev, torch.int32)
     gate = torch.rand(N, generator=g).to(dev, torch.bfloat16)
+    n = kernels.LAUNCHES["moe_select"]
     assert torch.equal(MO.select_scale_forward(out_e, top, gate),
                        MO.select_scale_plain(out_e, top, gate))
     gr = torch.randn((N, H), generator=g).to(dev, torch.bfloat16)
     (dk, gk), (dp, gp) = MO.select_scale_backward(out_e, top, gate, gr), \
         MO.select_scale_backward_plain(out_e, top, gate, gr)
+    assert kernels.LAUNCHES["moe_select"] == n + 2
     assert torch.equal(dk, dp)
     _step_close(gk, gp)
+    empty = MO.select_scale_backward(out_e[:, :0], top[:0], gate[:0], gr[:0])
+    assert empty[0].shape == (E_, 0, H) and empty[1].shape == (0,)
+    assert MO.select_scale_forward(out_e[:, :0], top[:0], gate[:0]).shape == (0, H)
+    assert kernels.LAUNCHES["moe_select"] == n + 2
 
 
 @pytest.mark.cuda

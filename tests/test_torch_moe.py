@@ -2,7 +2,8 @@
 port against the JAX package on the CPU at BertConfig.tiny() with E = 4
 experts: MoEMlp and the whole BertForSequenceScore forward against flax with
 weights carried by params_from_jax, the parameter round trip, gradients of
-every parameter against jax.grad, a tied router row, the bf16 AdamW against
+every parameter against jax.grad, MoEMlp's VJP against jax.vjp at E = 1, 4
+and 16, a tied router row, the bf16 AdamW against
 optax.adamw, the loss heads against the JAX expressions, and 5-step loss
 curves against the JAX package's make_train_state(num_experts=4) and its
 train steps. Inputs are made with numpy from seeds.
@@ -218,6 +219,70 @@ def test_moe_gradients_match_jax(kind):
     # experts among them; the distilled loss determines them
     assert determined >= (8 if kind == "pairwise" else 0.6 * len(ref))
     assert kind == "pairwise" or experts >= 4
+
+
+@pytest.mark.parametrize("E", [1, 4, 16])
+def test_moe_mlp_vjp_matches_jax(E):
+    """jax.vjp of the JAX package's MoEMlp (BertConfig.tiny, E experts)
+    against the port's MoEMlp backward on the CPU, the weights carried by
+    params_from_jax and a seeded bf16 cotangent made with numpy: the chosen
+    experts equal where the top two probabilities differ by more than 1e-5;
+    x's cotangent, the router's kernel and bias and both expert tensors at
+    cosine >= 0.999, test_moe_gradients_match_jax's tolerance (K5c's GELU,
+    f32 inside and rounded once, against jax.nn.gelu's bf16 steps, reaches
+    every cotangent through the experts and the gate); a leaf that the
+    reference leaves at zero (the router at E = 1, where the softmax is
+    constant; an expert no token chose) zero in the port."""
+    cfg = JB.BertConfig.tiny()
+    rng = np.random.default_rng(20 + E)
+    x = jnp.asarray(rng.normal(size=(3, 12, 64)), jnp.bfloat16)
+    ct = jnp.asarray(rng.normal(size=(3, 12, 64)), jnp.bfloat16)
+    jm = JB.MoEMlp(cfg, E)
+    params = _init(jm, x, seed=E)
+    _, vjp = jax.vjp(lambda p, xx: jm.apply(p, xx), params, x)
+    grads_j, gx_j = vjp(ct)
+    tm = TB.MoEMlp(TB.BertConfig.tiny(), E)
+    tm.load_state_dict(TB.params_from_jax(params))
+    xt = _bt(x).requires_grad_()
+    tm(xt).backward(_bt(ct))
+    # the chosen experts
+    p = params["params"]["router"]
+    xf = np.asarray(x).astype(np.float32).reshape(-1, 64)
+    probs = np.asarray(jax.nn.softmax(xf @ p["kernel"] + p["bias"], axis=-1))
+    top_t, _ = MO.router(_bt(x).reshape(-1, 64), tm.router.weight, tm.router.bias)
+    ranked = np.sort(probs, axis=-1)
+    clear = ranked[:, -1] - ranked[:, -2] > 1e-5 if E > 1 else np.ones(len(xf), bool)
+    np.testing.assert_array_equal(top_t.numpy()[clear], probs.argmax(-1)[clear])
+    ref = TB.params_from_jax(jax.tree_util.tree_map(np.asarray, grads_j))
+    got = {name: prm.grad for name, prm in tm.named_parameters()}
+    assert set(ref) == set(got) == {"router.weight", "router.bias", "experts_in", "experts_out"}
+    pairs = [(name, got[name], ref[name]) for name in sorted(ref)] + [("x", xt.grad, _bt(gx_j))]
+    for name, g, r in pairs:
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        if not r.float().any():
+            assert not g.float().any(), name
+        else:
+            assert _cos(g.float(), r.float()) >= GRAD_COS, (name, _cos(g.float(), r.float()))
+    assert E == 1 or ref["router.weight"].any()
+
+
+def test_router_backward_plain_keeps_its_arithmetic():
+    """router_backward_plain's parameter gradients are the f32 product and
+    sum the port took in PyTorch over the logits' cotangent, bit for bit:
+    dl.t() @ x.float() and dl.sum(0), with dx = bf16(dl @ w)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(37, 64)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (E_, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, E_).astype(np.float32))
+    dgate = torch.from_numpy(rng.normal(size=37).astype(np.float32)).to(torch.bfloat16)
+    probs, top, _ = MO.router_plain(x, w, b)
+    dx, dw, db = MO.router_backward_plain(x, probs, top, dgate, w)
+    idx = top.long()[:, None]
+    onehot = torch.zeros_like(probs).scatter_(1, idx, probs.gather(1, idx) * dgate.float()[:, None])
+    dl = onehot + probs * (-onehot.sum(dim=-1, keepdim=True))
+    assert torch.equal(dw, dl.t() @ x.float()) and torch.equal(db, dl.sum(dim=0))
+    assert torch.equal(dx, (dl @ w).to(torch.bfloat16))
+    assert dw.dtype == db.dtype == torch.float32 and dx.dtype == torch.bfloat16
 
 
 # ---- the optimizer and the loss heads ----------------------------------------------------
