@@ -198,8 +198,12 @@ WIDE_SAMPLES = 1_100  # K7 past 1,024 sources (two chunks of 32 words)
 # pipeline-on serving: rounds of the request mix in one process
 SERVE_ON_ROUNDS = 8
 # K13 held against its plain version: slots per query (the index's larger
-# stage-A bucket)
-MERGE_P = 64
+# stage-A bucket: the global form at L = 1,024), and past 2 blocks' shared
+# memory for the select's keys
+MERGE_P, MERGE_WIDE_P = 64, 256
+# K3 held against its plain version at these pages (its main path's 128 and
+# 512, and the ends of what it takes)
+PASS2_K = (1, PAGE_K, 512, C)
 # the MoE training path: experts per layer, distilled steps, pairs per step,
 # the smoke's cross recipe (lr, distillation weight, teacher scale), the
 # steps timed; the kernels the steps must launch
@@ -539,6 +543,25 @@ def full_slots(seg, q, rng):
                       w_bm25f=first(q.w_bm25f), w_presence=first(q.w_presence))
 
 
+def crossing_slots(seg, q):
+    """The batch q (numpy QuerySlots, P doc-ordered slots) with its first
+    query's slots all windows of L rows of one list of at least L + 2, started
+    0, 1 or 2 rows in, with that query's first slot's weights: the merge
+    leaves its docs ascending, each in a run of up to P entries, and at P =
+    64 a run crosses every tile boundary of the global form."""
+    import numpy as np
+
+    term = int(np.nonzero(np.asarray(seg.term_lens) >= L + 2)[0][0])
+    P = q.starts.shape[1]
+    fields = {f: np.array(getattr(q, f)) for f in ("starts", "lens", "idf", "w_bm25",
+                                                    "w_bm25f", "w_presence")}
+    fields["starts"][0] = int(np.asarray(seg.term_starts)[term]) + np.arange(P) % 3
+    fields["lens"][0] = L
+    for f in ("idf", "w_bm25", "w_bm25f", "w_presence"):
+        fields[f][0] = fields[f][0, 0]
+    return q._replace(**fields)
+
+
 def plain64(arrays, q, device) -> tuple:
     """The segment's arrays and the numpy slots q for K1's plain version in
     f64 (the static columns and the slots' weights; the plain version then
@@ -670,9 +693,10 @@ def kernel_phase(index, device) -> list:
                      + 8 * B * OUT_K + 2 * B * 46 * SIG_K, 10 * f_t.numel()))
 
         # K3: pass 2 over a page of stage B's winners, and over a 300-row
-        # recall block (the pipeline's K=512 bucket)
-        for page_k in (PAGE_K, 512):
-            page = dk[:, :page_k].astype(np.int32)
+        # recall block (the pipeline's K=512 bucket); also over one column
+        # and over all 4,096 of stage A's candidates (its shape's two ends)
+        for page_k in PASS2_K:
+            page = (dk[:, :page_k] if page_k <= OUT_K else d_k[:, :page_k]).astype(np.int32)
             pf = np.zeros((B, Pc, page_k), np.int32)
             for j, (q, _) in enumerate(comp):
                 InvertedIndex._slot_factors_for(seg, q, page[j], out=pf[j])
@@ -1297,12 +1321,60 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
         raise AssertionError("the merge network's keys differ from torch.sort's on ascending rows")
     net_ms = time_ms(lambda: O.stage_a_network(dev.arrays, qd, L))
     sort_ms = time_ms(sort_gather)
-    log(f"[config kernels] K13 at B={B} P={MERGE_P} L={L} C={C}: network bit-equal to the "
+    log(f"[config kernels] K13 at B={B} P={MERGE_P} L={L} C={C} "
+        f"({kernels.merge_plan(N)}): network bit-equal to the "
         f"plain merge; {ascending} of {B} queries' merged keys ascending (the others hold "
         f"tf-ordered impact slots). The network alone (the K = 0 launch) on {len(asc)} "
         f"queries' doc-ordered slots, whose keys it sorts as torch.sort does: {net_ms:.4f} ms "
         f"beside torch.sort + gathers {sort_ms:.4f} ms (the whole of stage A has no library "
         f"call)")
+    del kf, cf, af, keys, contrib, aux, kp, cp, ap
+    # K13 in its other cases: MERGE_WIDE_P full-length slots a query (the
+    # select's keys past 2 blocks' shared memory), and the doc-ordered batch
+    # with its first query's slots windows of one list, so that its runs
+    # cross every tile boundary of the global form; each network bit-equal to
+    # the plain merge, the candidates against the plain version summing in
+    # f64 (plain64: 65,536 and more live entries a query), two calls bit-equal
+    wide = full_slots(seg, O.stack([pad_slots(q, MERGE_WIDE_P) for q, _ in slots]),
+                      np.random.default_rng(SEED))
+    for name, q_np in (("wide", wide),
+                       ("crossing", crossing_slots(seg, O.stack([pad_slots(q, MERGE_P)
+                                                                 for q, _ in slots])))):
+        q_t = O.to_tensors(q_np, DEVICE)
+        N_ = q_t.starts.shape[1] * L
+        net = O.stage_a_network(dev.arrays, q_t, L)
+        keys, contrib, aux, _ = O._stage_a_entries(dev.arrays, q_t, L)
+        kp, (cp, ap) = O.merge_sorted_tiles_plain(keys, contrib, aux)
+        del keys, contrib, aux
+        if not (torch.equal(net[0], kp) and torch.equal(net[2], ap)
+                and torch.equal(net[1].view(torch.int32), cp.view(torch.int32))):
+            raise AssertionError(f"K13's network ({name}) differs from the plain merge")
+        tile = kernels.MERGE_TILE
+        crossed = sum(int(kp[0, r * tile - 1]) >> 6 == int(kp[0, r * tile]) >> 6
+                      for r in range(1, N_ // tile))
+        if name == "crossing" and crossed != N_ // tile - 1:
+            raise AssertionError(f"the crossing query's runs cross {crossed} of "
+                                 f"{N_ // tile - 1} tile boundaries")
+        del net, kp, cp, ap
+        run_k = lambda: O.score_candidates_batch(dev.arrays, q_t, L, C, True, True,  # noqa
+                                                 merge=True)
+        (d_k, s_k), (d_2, s_2) = run_k(), run_k()
+        if not (torch.equal(d_k, d_2) and torch.equal(s_k.view(torch.int32),
+                                                      s_2.view(torch.int32))):
+            raise AssertionError(f"two K13 calls ({name}) differ")
+        seg64, q64 = plain64(dev.arrays, q_np, DEVICE)
+        d_p, s_p = O.score_candidates_batch_plain(seg64, q64, L, C, True, True, merge=True)
+        d_k, s_k, d_p, s_p = (x.cpu().numpy() for x in (d_k, s_k, d_p, s_p.float()))
+        err = max(topk_runs_match(d_p[b], s_p[b], d_k[b], s_k[b], nd, *A_TOL) for b in range(B))
+        if not np.isfinite(s_k).any():
+            raise AssertionError(f"K13 ({name}) found no candidates")
+        rows.append(("stage_a_merge", True, err, time_ms(run_k), float("nan"),
+                     (q_t.starts.shape[1], L, C, name), 0, 0))
+        log(f"[config kernels] K13 {name} at B={B} P={q_t.starts.shape[1]} L={L} C={C} "
+            f"({kernels.merge_plan(N_)}): network bit-equal, candidates within {err:.3g} of "
+            f"the plain version in f64, two calls bit-equal; the first query's runs cross "
+            f"{crossed} of {N_ // tile - 1} tile boundaries; {rows[-1][3]:.4f} ms")
+        del seg64, q64
     lib_ms = {}
     return rows, launches, lib_ms
 

@@ -124,12 +124,22 @@ under data/). --readings picks groups (default all):
                       every tree) and its 32 sampled queries (default static
                       scores, soft required groups): K1 on q16 rows, on q8 rows
                       and with UB (ub_lambda 0.5) at L = 1,024, C = 4,096; K13
-                      (stage A under the merge, the slots padded to P = 64); K2
+                      (stage A under the merge, the slots padded to P = 64;
+                      in a tree whose plan takes another form there, also
+                      through the global form, `K13_global`), its network
+                      alone (the K = 0 launch, `K13_network`) on the
+                      doc-ordered slots beside torch.sort of the same keys
+                      and the gathers of their payloads, and K13 over 256
+                      full-length slots a query (`K13_wide`, N = 262,144:
+                      the select's keys past 2 blocks' shared memory); K2
                       at Kd = 4,096, k = 1,024, 64 fused signal columns over
                       the compacted slots (Pc = 16) and stage A's candidates
                       (the plain version's, the same in every tree); K3 at K =
-                      512 over stage B's top 512; K9 at (n, K) = (4, 512),
-                      (4, 1,024), (8, 1,024), 16 queries. K1 and K2 are read
+                      512 and 128 over stage B's top K, with its inputs on the
+                      card (`K3`) and with numpy slots, aggregates, factors
+                      and candidates as index/inverted.py calls it
+                      (`K3_main_path`); K9 at (n, K) = (4, 512), (4,
+                      1,024), (8, 1,024), 16 queries. K1 and K2 are read
                       twice: with their inputs on the card (the kernel's call,
                       `K1`, `K2`) and with numpy slots, candidates and factors,
                       as index/inverted.py calls them (`K1_main_path`,
@@ -183,6 +193,7 @@ LR = 5e-2
 CORPUS_DOCS, SCORE_B, SCORE_L, SCORE_C, SCORE_KD, SCORE_K, SCORE_SIG = (
     1_000_000, 32, 1024, 4096, 4096, 1024, 64)
 PAGE_K, MERGE_P, MESH_B, MESH_SHAPES = 512, 64, 16, ((4, 512), (4, 1024), (8, 1024))
+MERGE_WIDE_P = 256
 
 
 def corpus_dir() -> str:
@@ -695,6 +706,34 @@ def scoring_readings(smoke, read) -> None:
                                           MERGE_P) for q, _ in slots]))
     read((("K13", lambda: O.score_candidates_batch(dev.arrays, qm, L, C, True, True,
                                                   merge=True)),), parts=True, B=B, P=MERGE_P)
+    if hasattr(kernels, "merge_plan") and kernels.merge_plan(MERGE_P * L).form != "global":
+        # a tree whose plan takes another form here: the same call, global form
+        plan_of = kernels.merge_plan
+        kernels.merge_plan = lambda N: kernels.MergePlan("global", 0)
+        read((("K13_global", lambda: O.score_candidates_batch(dev.arrays, qm, L, C, True, True,
+                                                             merge=True)),),
+             parts=True, B=B, P=MERGE_P)
+        kernels.merge_plan = plan_of
+    # the network alone (the K = 0 launch) on the queries' doc-ordered slots,
+    # beside torch.sort of the same keys and the gathers of their payloads
+    qd = on_card(O.stack([smoke.pad_slots(q, MERGE_P) for q, _ in slots]))
+    keys, contrib, aux, _ = O._stage_a_entries(dev.arrays, qd, L)
+    kf, cf, af = (x.reshape(B, -1) for x in (keys, contrib, aux))
+
+    def sort_gather():
+        sk, perm = torch.sort(kf, dim=-1)
+        return sk, cf.gather(1, perm), af.gather(1, perm)
+    read((("K13_network", lambda: O.stage_a_network(dev.arrays, qd, L)),
+          ("K13_network_torch_sort", sort_gather)), parts=True, B=B, P=MERGE_P)
+    del keys, contrib, aux, kf, cf, af
+    # MERGE_WIDE_P full-length slots a query (the select over 8 blocks)
+    wide = smoke.full_slots(seg, O.stack([smoke.pad_slots(q, MERGE_WIDE_P) for q, _ in slots]),
+                            np.random.default_rng(0))
+    qw = on_card(wide)
+    read((("K13_wide", lambda: O.score_candidates_batch(dev.arrays, qw, L, C, True, True,
+                                                       merge=True)),),
+         parts=True, B=B, P=MERGE_WIDE_P)
+    del qw
 
     # stage B over the plain stage A's candidates (the same inputs in every tree)
     cand = O.score_candidates_batch_plain(dev.arrays, qa_c, L, C, True, True)[0].cpu().numpy()
@@ -721,10 +760,17 @@ def scoring_readings(smoke, read) -> None:
     pf = np.zeros((B, Pc, PAGE_K), np.int32)
     for j, (q, _) in enumerate(comp):
         InvertedIndex._slot_factors_for(seg, q, page[j], out=pf[j])
-    pf_c, pg_c = t(pf), t(page)
-    read((("K3", lambda: O.compute_signals_from_factors_batch_q16(dev.arrays, qc_c, ac_c, pf_c,
-                                                                  pg_c)),),
-         parts=True, B=B, P=Pc, K=PAGE_K)
+    # K3 at the recall bucket (512) and the page bucket (128) of
+    # index/inverted.py, with its inputs on the card and as the index calls it
+    # (numpy slots, aggregates, factors and candidates)
+    for K in (PAGE_K, 128):
+        pf_k, pg_k = np.ascontiguousarray(pf[:, :, :K]), np.ascontiguousarray(page[:, :K])
+        pf_c, pg_c = t(pf_k), t(pg_k)
+        read((("K3", lambda: O.compute_signals_from_factors_batch_q16(dev.arrays, qc_c, ac_c,
+                                                                      pf_c, pg_c)),
+              ("K3_main_path", lambda: O.compute_signals_from_factors_batch_q16(
+                  dev.arrays, qc, ac, pf_k, pg_k))),
+             parts=True, B=B, P=Pc, K=K)
     for n, K in MESH_SHAPES:
         scores, docs = smoke.gathered(MESH_B, n, K, 0)
         read((("K9", lambda: O.mesh_topk(scores, docs, K)),), parts=True, B=MESH_B, shards=n,

@@ -63,9 +63,21 @@
 //     searches of the other blocks' sorted runs, staged in its shared
 //     memory, so no block sorts the whole of them.
 // K3  stract_signals_q16  replaces compute_signals_from_factors_batch_q16
-//     (:886): one block per (query, signal row); the [46, P] x [P, K] products
-//     are evaluated entry by entry (P <= a few hundred) with a block absmax and
-//     rintf (round half to even, like jnp.round) quantisation to int16.
+//     (:886): a block a query and 2 of its 46 signal rows (23 blocks a
+//     query), 256 threads. The block stages its
+//     rows' [R, P] aggregation coefficients, the slots' idf and the rows'
+//     gather sources once, and lists the slots whose coefficient is nonzero
+//     in any of its rows (a slot feeds about one row of each matrix); a
+//     thread takes a column at a time, issues its gathers (static column,
+//     region, update time) into registers, reads the listed slots' factor
+//     words once for its R rows, and sums each entry over them in the order
+//     of the reference's signal row (signal_entry's): a term with a zero
+//     coefficient adds +-0 to a sum that is never -0, so leaving it out
+//     leaves the same bits. Each row's absmax is reduced over the block, and
+//     the block quantises its rows (rintf, round half to even like
+//     jnp.round) from shared memory in 16-byte pieces. Bound by latency:
+//     ~32 KB of factors a query at K = 512, P = 16, and a chain of loads
+//     and barriers a block.
 //
 //
 // The same programs under the search path's other configurations:
@@ -109,18 +121,28 @@
 //     its input alone, and the kernel follows it stage for stage: keys and
 //     payloads come out bit-equal to the reference's, sorted or not (rows of
 //     a tf-ordered impact slot are not ascending, and then neither is the
-//     output). A query's P*L entries (65,536 x 12 B at the main shape) do not
-//     fit one SM's shared memory, so stages whose compare distance fits a
-//     MERGE_TILE-entry tile run inside a block (the first kernel also fetches
-//     the posting rows and runs every round that fits a tile), and the longer
-//     strides run as passes over global memory, one launch per stage. The
-//     tail is one block per query: each thread walks a contiguous chunk of the
-//     merged order, a segmented block scan carries each run's open sums across
-//     chunks, every run end gets its score, and the shared top-K takes the
-//     top C (ties to the lower position). Bound by the global passes over the
-//     B*P*L*12 B of network state (about 11 launches at P = 64, L = 1024),
-//     and by the tail's chunk walk (most of its time); a
-//     cluster with distributed shared memory would keep more stages on chip.
+//     output). A query of up to 8,192 entries (12 B each: key,
+//     contribution, aux word) lies in one block's shared memory, one launch
+//     a batch (ops/kernels.py merge_plan), 8 entries a thread: stages 256
+//     apart and more in passes over shared memory that take up to three
+//     stages each in registers (8 entries of a group, the round's flip read
+//     through the fold), those under 256 apart in registers, across the
+//     warp's lanes by shuffles; then the tail (8 consecutive entries a
+//     thread, a segmented scan by shuffles, then over the warps) writes each
+//     run end's ordered key over its contribution, and the block's top-K
+//     takes the top C (ties to the lower position). Larger queries (the
+//     main path's P = 64, L = 1,024: N = 65,536) take the global form: the
+//     network in [B, N] rows, tile kernels of 8,192 entries for the fetch
+//     and each round's short stages (a stage at a time in shared memory:
+//     32 registers, two blocks an SM, a batch's tiles in one wave), one
+//     launch a stage for the longer strides, then the tail as a grid of
+//     tiles (their totals carried in tile order by a second launch: a fixed
+//     order, so the same bits every call) and the shared top-K over the
+//     fewest blocks a query whose keys fit their shared memory (2 at the
+//     main shape). A cluster form that held a query of up to 65,536 entries
+//     in the distributed shared memory of 8 blocks, in one launch, measured
+//     slower on the H100 (15 clusters of 8 one-SM blocks at once: 3 waves
+//     for 32 queries) and is gone.
 // K10 stract_dense_rerank replaces rerank_topk[_batch] (ops/dense_rerank.py:18,
 //     :31): one block per query, a warp per candidate row (dot product and
 //     norm in one pass over the f16/bf16/f32 row), then the block's bitonic
@@ -168,10 +190,15 @@ constexpr int CNT_SHIFT = 40;
 // keep per block in static shared memory
 constexpr int MAX_NSIG = 64;
 constexpr int MAX_H = 1024;
-// K13: entries per shared-memory tile of the merge network (12 B each:
-// key, contribution, aux word), and the tail block's thread count
+// K13: the entries a block of the merge holds in shared memory (12 B each:
+// key, contribution, aux word; a query of the one-block form, or a tile of
+// the global form) and its threads (8 entries each)
 constexpr int MERGE_TILE = 8192;
 constexpr int MERGE_THREADS = 1024;
+// K3: threads a block, and the signal rows a block takes (of 1, 2, 4 and 8
+// rows a block, 2 read fastest at the main path's K = 512 and 128)
+constexpr int SIG_THREADS = 256;
+constexpr int SIG_ROWS = 2;
 // K1 and K2: threads a block, the most blocks a query's cluster takes, the
 // bytes of a K1 table slot (doc, text sum, mask word, aux word), the dynamic
 // shared memory a block may take (ops/kernels.py plans within it), and the
@@ -222,6 +249,25 @@ struct AggArgs {
   const float* idf;            // [B, nsig, P]
   const float* cov;            // [B, nsig, P]
   const int* static_of_sig;    // [nsig]: static column of a signal row, or -1
+  int nsig;
+  int bm25f_row;
+  int region_row;
+  int update_row;
+};
+
+// K3's per-query rows: query b's part of each array at its pointer + b x
+// its stride (in floats), so they may be views of one packed upload
+struct SignalArgs {
+  const float* idf;            // [P] the slots' idf
+  const float* region_lut;     // [NUM_REGIONS]
+  const float* current_ts;     // [1]
+  const float* bm25;           // [nsig, P]
+  const float* bm25f;          // [P] (the bm25f row's aggregation)
+  const float* aidf;           // [nsig, P]
+  const float* cov;            // [nsig, P]
+  const int* static_of_sig;    // [nsig]: static column of a signal row, or -1
+  long long stride[7];         // of idf, region_lut, current_ts, bm25, bm25f, aidf, cov
+  int P;
   int nsig;
   int bm25f_row;
   int region_row;
@@ -475,9 +521,9 @@ __device__ void quantize_rows(const float* sv, int nrows, int n, short* out_q, f
 }
 
 // ---- the shared top-K --------------------------------------------------------
-// The blocks that share one selection: one block (K9, K13's tail) or a thread
-// block cluster (K1, K2), whose blocks each hold a part of the keys and reach
-// each other's shared memory.
+// The blocks that share one selection: one block (K9, the joined K2) or a
+// thread block cluster (K1, K2, K13), whose blocks each hold a part of the
+// keys and reach each other's shared memory.
 struct BlockScope {
   __device__ __forceinline__ void sync() { __syncthreads(); }
   __device__ __forceinline__ unsigned rank() { return 0; }
@@ -1124,11 +1170,40 @@ __global__ void __launch_bounds__(SELECT_THREADS, 1) stage_a_kernel(
 
 // ---- K13 ----------------------------------------------------------------------
 // The network state of a query is three [N] rows (N = P*L): keys, the
-// contributions and, when the static score reads them, the aux words (aux
-// null: not carried). Pointers are generic, so the same steps run on a
-// shared-memory tile and on global memory.
+// contributions and, when the static score reads them, the aux words. A
+// block holds them in shared memory (the whole query, or a tile of the
+// global form), each as three arrays.
 
-// one compare-exchange: swap where the first key is greater
+// an entry of the network held in registers
+struct MEnt {
+  int k;
+  float c;
+  int a;
+};
+
+template <bool AUX>
+__device__ __forceinline__ MEnt ment_load(const int* k, const float* c, const int* a, int i) {
+  return MEnt{k[i], c[i], AUX ? a[i] : 0};
+}
+
+template <bool AUX>
+__device__ __forceinline__ void ment_store(int* k, float* c, int* a, int i, const MEnt& v) {
+  k[i] = v.k;
+  c[i] = v.c;
+  if (AUX) a[i] = v.a;
+}
+
+// one compare-exchange of two held entries: swap where the first key is
+// greater (equal keys never swap)
+__device__ __forceinline__ void ment_cx(MEnt& lo, MEnt& hi) {
+  if (lo.k > hi.k) {
+    const MEnt t = lo;
+    lo = hi;
+    hi = t;
+  }
+}
+
+// one compare-exchange in place: swap where the first key is greater
 __device__ __forceinline__ void merge_cx(int* k, float* c, int* a, long long i, long long j) {
   const int ki = k[i], kj = k[j];
   if (ki > kj) {
@@ -1174,7 +1249,7 @@ __device__ __forceinline__ void merge_flip(int* k, float* c, int* a, long long b
   }
 }
 
-// stage d of n entries at row: x against x + d inside blocks of 2d, by the block
+// stage d of n entries: x against x + d inside blocks of 2d, by the block
 __device__ __forceinline__ void merge_stage_block(int* k, float* c, int* a, int n, int d) {
   for (int u = threadIdx.x; u < n / 2; u += blockDim.x) {
     const int i = ((u & ~(d - 1)) << 1) | (u & (d - 1));
@@ -1182,7 +1257,7 @@ __device__ __forceinline__ void merge_stage_block(int* k, float* c, int* a, int 
   }
 }
 
-// a full round in a tile: rows of h = m/2 entries merged pairwise
+// a full round of n entries, a stage at a time (a query of under 8 entries)
 __device__ __forceinline__ void merge_round_block(int* k, float* c, int* a, int n, int m) {
   const int h = m >> 1;
   if (h == 1) {  // the reversal of a one-entry row is itself: a plain stage
@@ -1199,16 +1274,414 @@ __device__ __forceinline__ void merge_round_block(int* k, float* c, int* a, int 
   }
 }
 
-// One tile of `tile` entries of query blockIdx.y in shared memory. fetch:
-// the tile's entries from the posting rows (stage A's fetch, contribution
-// and key, as stage_a_kernel computes them), else from the network rows.
-// Then the stages cont_d .. 1 of a round whose longer strides ran in global
-// memory, and the whole rounds m_lo .. m_hi (m the merged row length).
-__global__ void __launch_bounds__(1024) merge_tile_kernel(
+// The position that folded position f of a round of h-entry rows reads: the
+// reference folds each pair of rows into one, the second reversed behind the
+// first (after its first stage the memory holds the folded layout).
+__device__ __forceinline__ int fold_src(int f, int h) {
+  const int off = f & (2 * h - 1);
+  return off < h ? f : f - off + 3 * h - 1 - off;
+}
+
+// Up to three stages d = lo << 2, lo << 1, lo (those set in mask, bit 2 the
+// first) of a chunk of C entries in shared memory: each thread takes the 8
+// entries g + j lo of its group into registers (consecutive threads on
+// consecutive entries), runs the stages there and writes them back. flip_h:
+// the first stage is the round's flip, the entries read through the fold
+// (all reads before any write). C / 8 groups, one a thread.
+template <bool AUX>
+__device__ void strided_pass(int* k, float* c, int* a, int C, int lo, unsigned mask, int flip_h) {
+  const int g = threadIdx.x, lg = __ffs(lo) - 1;
+  const bool act = g < (C >> 3);
+  const int base = (g & (lo - 1)) | ((g >> lg) << (lg + 3));
+  MEnt v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int f = base + j * lo;
+    v[j] = act ? ment_load<AUX>(k, c, a, flip_h ? fold_src(f, flip_h) : f) : MEnt{0, 0.0f, 0};
+  }
+  if (flip_h) __syncthreads();
+#pragma unroll
+  for (int sb = 2; sb >= 0; --sb) {
+    if (!((mask >> sb) & 1u)) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (!(j & (1 << sb))) ment_cx(v[j], v[j | (1 << sb)]);
+  }
+  if (act) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ment_store<AUX>(k, c, a, base + j * lo, v[j]);
+  }
+}
+
+// The stages d_hi, d_hi / 2, ..., 1 (d_hi <= 128) of a chunk of C >= 8
+// entries, 8 consecutive a thread in registers: d >= 8 across the warp's
+// lanes by shuffles, d < 8 within the thread. flip_h: the first stage is the
+// round's flip (entries read through the fold, all reads before any write).
+template <bool AUX>
+__device__ void consecutive_pass(int* k, float* c, int* a, int C, int d_hi, int flip_h) {
+  const int t = threadIdx.x, lane = t & 31, i0 = 8 * t;
+  const bool act = i0 < C;
+  MEnt v[8];
+  if (act && !flip_h) {  // 16-byte pieces
+    const int4 k0 = *reinterpret_cast<const int4*>(k + i0), k1 = *reinterpret_cast<const int4*>(k + i0 + 4);
+    const float4 c0 = *reinterpret_cast<const float4*>(c + i0),
+                 c1 = *reinterpret_cast<const float4*>(c + i0 + 4);
+    int4 a0 = make_int4(0, 0, 0, 0), a1 = a0;
+    if (AUX) {
+      a0 = *reinterpret_cast<const int4*>(a + i0);
+      a1 = *reinterpret_cast<const int4*>(a + i0 + 4);
+    }
+    v[0] = MEnt{k0.x, c0.x, a0.x};
+    v[1] = MEnt{k0.y, c0.y, a0.y};
+    v[2] = MEnt{k0.z, c0.z, a0.z};
+    v[3] = MEnt{k0.w, c0.w, a0.w};
+    v[4] = MEnt{k1.x, c1.x, a1.x};
+    v[5] = MEnt{k1.y, c1.y, a1.y};
+    v[6] = MEnt{k1.z, c1.z, a1.z};
+    v[7] = MEnt{k1.w, c1.w, a1.w};
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = act ? ment_load<AUX>(k, c, a, fold_src(i0 + j, flip_h)) : MEnt{0, 0.0f, 0};
+  }
+  if (flip_h) __syncthreads();
+  for (int d = d_hi; d >= 8; d >>= 1) {
+    const int o = d >> 3;
+    const bool lower = (lane & o) == 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int pk = __shfl_xor_sync(FULL_MASK, v[j].k, o);
+      const float pc = __shfl_xor_sync(FULL_MASK, v[j].c, o);
+      const int pa = AUX ? __shfl_xor_sync(FULL_MASK, v[j].a, o) : 0;
+      if (lower ? v[j].k > pk : pk > v[j].k) v[j] = MEnt{pk, pc, pa};
+    }
+  }
+  if (d_hi >= 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ment_cx(v[j], v[j + 4]);
+  }
+  if (d_hi >= 2) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 4) {
+      ment_cx(v[j], v[j + 2]);
+      ment_cx(v[j + 1], v[j + 3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) ment_cx(v[j], v[j + 1]);
+  if (!act) return;
+  *reinterpret_cast<int4*>(k + i0) = make_int4(v[0].k, v[1].k, v[2].k, v[3].k);
+  *reinterpret_cast<int4*>(k + i0 + 4) = make_int4(v[4].k, v[5].k, v[6].k, v[7].k);
+  *reinterpret_cast<float4*>(c + i0) = make_float4(v[0].c, v[1].c, v[2].c, v[3].c);
+  *reinterpret_cast<float4*>(c + i0 + 4) = make_float4(v[4].c, v[5].c, v[6].c, v[7].c);
+  if (AUX) {
+    *reinterpret_cast<int4*>(a + i0) = make_int4(v[0].a, v[1].a, v[2].a, v[3].a);
+    *reinterpret_cast<int4*>(a + i0 + 4) = make_int4(v[4].a, v[5].a, v[6].a, v[7].a);
+  }
+}
+
+// The stages d_top, d_top / 2, ..., 1 of a round on a chunk of C >= 8 entries
+// in shared memory (flip: the first is the round's flip, d_top = h): those
+// of 256 and more in strided passes of up to three, the rest in one
+// consecutive pass. Called and ends synchronised.
+template <bool AUX>
+__device__ void local_stages(int* k, float* c, int* a, int C, int d_top, bool flip) {
+  int d = d_top;
+  while (d >= 256) {
+    const int n = d >= 1024 ? 3 : (d >= 512 ? 2 : 1);
+    const int lo = min(d >> (n - 1), C >> 3);  // 8 lo <= C; every stage <= 4 lo
+    unsigned mask = 0;
+    for (int i = 0; i < n; ++i) mask |= 1u << (__ffs(d >> i) - __ffs(lo));
+    strided_pass<AUX>(k, c, a, C, lo, mask, flip ? d : 0);
+    __syncthreads();
+    flip = false;
+    d >>= n;
+  }
+  if (d >= 1) {
+    consecutive_pass<AUX>(k, c, a, C, d, flip ? d : 0);
+    __syncthreads();
+  }
+}
+
+// The whole network of a query whose N entries one block holds. Ends
+// synchronised.
+template <bool AUX>
+__device__ void merge_network(int* k, float* c, int* a, int N, int L) {
+  if (N < 8) {  // a query of under 8 entries: a stage at a time
+    for (int m = 2 * L; m <= N; m <<= 1) merge_round_block(k, c, AUX ? a : nullptr, N, m);
+    return;
+  }
+  for (int h = L; h < N; h <<= 1) local_stages<AUX>(k, c, a, N, h, true);  // rows of h into 2h
+}
+
+// stage A's entries [g0, g0 + n) of query b (positions p * L + l of its [P,
+// L] tiles) from the posting rows, as _stage_a_entries makes them: key doc
+// << 6 | group, contribution (UB: (c - ub) + U), aux word; pads hold the pad
+// doc, no contribution and no aux
+template <bool AUX>
+__device__ void merge_fetch(const int* __restrict__ postings, long long n_rows, int W,
+                            const QueryArgs& q, const float* __restrict__ ub_entry, float U, int L,
+                            float inv_fs, int num_docs, int b, long long g0, int n, int* k, float* c,
+                            int* a) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const long long g = g0 + e;
+    const int p = (int)(g / L), l = (int)(g - (long long)p * L);
+    const int bp = b * q.P + p;
+    const bool valid = l < min(q.lens[bp], L);
+    int doc = num_docs, fac = 0, aux = 0;
+    if (valid) {
+      long long st = q.starts[bp];
+      st = st > n_rows - L ? n_rows - L : st;
+      st = st < 0 ? 0 : st;
+      decode_row(postings, st + l, W, doc, fac, aux);
+    }
+    const float f1 = (float)((fac >> 16) & 0xFFFF) * inv_fs;
+    const float f2 = (float)(fac & 0xFFFF) * inv_fs;
+    float contrib =
+        q.w_bm25[bp] * f1 + q.w_bm25f[bp] * f2 + q.w_presence[bp] * (fac != 0 ? 1.0f : 0.0f);
+    if (ub_entry != nullptr) contrib = valid ? (contrib - ub_entry[bp]) + U : 0.0f;
+    k[e] = (doc << 6) | q.group[bp];
+    c[e] = contrib;
+    if (AUX) a[e] = aux;
+  }
+}
+
+// ---- K13's tail: the run ends of _join_topk over the merged order ----------
+// An entry ends its (doc, group) pair where the next key differs and its doc
+// where the next doc differs (the query's last entry ends both). A run's
+// score takes its contribution sum (UB: minus its entries times U, plus the
+// query's ub_total), the static score of its last entry, its required pairs
+// (the soft bonus or the n_required mask) and its excluded pairs.
+//
+// The sums are taken in one fixed order: a tile of up to MERGE_TILE entries
+// (the one-block form's query, or a tile of the global form), 8 consecutive
+// entries a thread summed in order, the threads' open runs carried by a
+// segmented scan of the warp (shuffles) and of the tile's warps, and the
+// tiles' open runs carried in tile order.
+
+// the run open at the end of a range of the merged order (its sum, required
+// and excluded pairs and entries) and whether the range ends any run
+struct RunSum {
+  float s;
+  int end, req, excl, cnt;
+};
+
+// range a, then range b: b's open run, extended by a's where b ends none
+__device__ __forceinline__ RunSum run_join(const RunSum& a, const RunSum& b) {
+  return b.end ? b : RunSum{a.s + b.s, a.end, a.req + b.req, a.excl + b.excl, a.cnt + b.cnt};
+}
+
+__device__ __forceinline__ RunSum run_shfl_up(const RunSum& x, int o) {
+  return RunSum{__shfl_up_sync(FULL_MASK, x.s, o), __shfl_up_sync(FULL_MASK, x.end, o),
+                __shfl_up_sync(FULL_MASK, x.req, o), __shfl_up_sync(FULL_MASK, x.excl, o),
+                __shfl_up_sync(FULL_MASK, x.cnt, o)};
+}
+
+// the warp's inclusive segmented scan (Hillis-Steele) → (inclusive, exclusive)
+__device__ __forceinline__ void run_scan_warp(RunSum& inc, RunSum& exc) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const RunSum l = run_shfl_up(inc, o);
+    if (lane >= o) inc = run_join(l, inc);
+  }
+  exc = run_shfl_up(inc, 1);
+  if (lane == 0) exc = RunSum{0.0f, 0, 0, 0, 0};
+}
+
+// the tile scan's shared state: each warp's total and carry-in, the tile's
+// total, the carry into the tile
+struct TailScan {
+  RunSum wsum[32];
+  RunSum wex[32];
+  RunSum total;
+  RunSum carry;
+};
+
+// the keys of the thread's 8 entries [i0, i0 + 8) of a tile of n, and the
+// key after each (nk the next tile's first, has_nk whether there is one)
+__device__ __forceinline__ void tail_keys_of(const int* k, int n, int nk, bool has_nk, int i0,
+                                             int* key, int* nxt, bool* has) {
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int i = i0 + j;
+    const int x = i < n ? k[i] : nk;
+    if (j < 8) key[j] = x;
+    if (j > 0) {
+      nxt[j - 1] = x;
+      has[j - 1] = i < n || has_nk;
+    }
+  }
+}
+
+// The tail's scan over a tile of n <= 8 x blockDim entries: → the carry
+// from the tile's start into this thread's first entry (the warp's carry-in
+// joined with the lane's); the tile's total in ts.total. Ends synchronised.
+__device__ RunSum tile_scan(const int* k, const float* c, int n, int nk, bool has_nk,
+                            TailScan& ts) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = blockDim.x >> 5, i0 = 8 * t;
+  int key[8], nxt[8];
+  bool has[8];
+  tail_keys_of(k, n, nk, has_nk, i0, key, nxt, has);
+  RunSum x{0.0f, 0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (i0 + j >= n) break;
+    const bool pe = !has[j] || nxt[j] != key[j];
+    const bool de = !has[j] || (nxt[j] >> 6) != (key[j] >> 6);
+    const int g = key[j] & 63;
+    x.s = x.s + c[i0 + j];
+    x.cnt += 1;
+    if (pe) {
+      x.req += g < MAX_GROUPS;
+      x.excl += g == EXCLUDED_GROUP;
+    }
+    if (de) x = RunSum{0.0f, 1, 0, 0, 0};
+  }
+  RunSum inc = x, lex;
+  run_scan_warp(inc, lex);
+  if (lane == 31) ts.wsum[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    RunSum winc = lane < nw ? ts.wsum[lane] : RunSum{0.0f, 0, 0, 0, 0}, wexc;
+    run_scan_warp(winc, wexc);
+    ts.wex[lane] = wexc;
+    if (lane == nw - 1) ts.total = winc;
+  }
+  __syncthreads();
+  return run_join(ts.wex[w], lex);
+}
+
+// The tiles' carry into tile r: their totals (total(i), i < r) joined in
+// tile order from the last tile before r that ends a run.
+template <class Total>
+__device__ RunSum tile_carry(Total total, int r) {
+  int a = r - 1;
+  while (a > 0 && !total(a).end) --a;
+  RunSum x{0.0f, 0, 0, 0, 0};
+  for (int i = max(a, 0); i < r; ++i) x = run_join(x, total(i));
+  return x;
+}
+
+// The thread's 8 entries of a tile again, from its carry-in x: each run
+// end's ordered key (0: no candidate) written over the entry's contribution
+// (okey aliases c); a the aux words (null: the static score from the
+// segment's columns).
+__device__ void tail_scores(const int* k, float* c, const int* a, int n, int nk, bool has_nk,
+                            RunSum x, const SegArgs& s, const QueryArgs& q, int b,
+                            const float* ub_total, float U, bool default_static,
+                            bool soft_required) {
+  const int i0 = 8 * threadIdx.x;
+  int key[8], nxt[8];
+  bool has[8];
+  tail_keys_of(k, n, nk, has_nk, i0, key, nxt, has);
+  const int nreq = q.n_required[b];
+  unsigned* okey = reinterpret_cast<unsigned*>(c);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int i = i0 + j;
+    if (i >= n) break;
+    const bool pe = !has[j] || nxt[j] != key[j];
+    const bool de = !has[j] || (nxt[j] >> 6) != (key[j] >> 6);
+    const int g = key[j] & 63;
+    x.s = x.s + c[i];
+    x.cnt += 1;
+    if (pe) {
+      x.req += g < MAX_GROUPS;
+      x.excl += g == EXCLUDED_GROUP;
+    }
+    unsigned ok = 0;
+    if (de) {
+      const int doc = key[j] >> 6;
+      if (doc < s.num_docs && x.excl == 0) {
+        float text = x.s;
+        if (ub_total != nullptr) text = (text - (float)x.cnt * U) + ub_total[b];
+        const float st = default_static ? aux_static(q, b, a[i], s.static_scale)
+                                        : query_static(s, q, b, doc, false);
+        float total = text + st;
+        bool valid = true;
+        if (soft_required) {
+          total = total + q.soft_bonus[b] * (float)x.req;
+        } else {
+          valid = x.req >= nreq;
+        }
+        if (valid) ok = order_key(total);
+      }
+      x = RunSum{0.0f, 0, 0, 0, 0};
+    }
+    okey[i] = ok;
+  }
+}
+
+// The merge in one block's shared memory (N <= MERGE_TILE; grid (1, B)):
+// three arrays of N entries, then, for the select, the sort buffer. The
+// fetch, the whole network, then K = 0: the entries out to the network
+// rows; else the tail's scan, each run end's ordered key over its
+// contribution, and the block's top-K (ties to the lower position).
+template <bool AUX>
+__global__ void __launch_bounds__(MERGE_THREADS, 1) merge_block_kernel(
+    const int* __restrict__ postings, long long n_rows, int W, SegArgs s, QueryArgs q,
+    const float* __restrict__ ub_entry, const float* __restrict__ ub_total, int L, float inv_fs,
+    int N, int soft_required, int K, int* out_key, float* out_con, int* out_aux, int* out_docs,
+    float* out_scores) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ SelectState st;
+  __shared__ TailScan ts;
+  __shared__ float sh_U;
+  BlockScope scope;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  int* k = reinterpret_cast<int*>(dyn_smem);
+  float* c = reinterpret_cast<float*>(k + N);
+  int* a = reinterpret_cast<int*>(c + N);
+  unsigned long long* kv = reinterpret_cast<unsigned long long*>(a + N);
+  if (tid < 32) {
+    const float U = ub_entry != nullptr ? warp_max_bound(ub_entry + (long long)b * q.P, q.P) : 0.0f;
+    if (tid == 0) sh_U = U;
+  }
+  __syncthreads();
+  merge_fetch<AUX>(postings, n_rows, W, q, ub_entry, sh_U, L, inv_fs, s.num_docs, b, 0, N, k, c,
+                   a);
+  __syncthreads();
+  merge_network<AUX>(k, c, a, N, L);
+  if (K == 0) {  // the network alone: its rows out
+    const long long o = (long long)b * N;
+    for (int e = tid; e < N; e += blockDim.x) {
+      out_key[o + e] = k[e];
+      out_con[o + e] = c[e];
+      if (AUX) out_aux[o + e] = a[e];
+    }
+    return;
+  }
+  const RunSum inner = tile_scan(k, c, N, 0, false, ts);
+  tail_scores(k, c, AUX ? a : nullptr, N, 0, false, run_join(RunSum{0.0f, 0, 0, 0, 0}, inner), s,
+              q, b, ub_total, sh_U, AUX, soft_required != 0);
+  __syncthreads();
+  const int n_w = top_keys<true>(scope, st, reinterpret_cast<const unsigned*>(c), N, K,
+                                 [&](int i) { return i; }, kv,
+                                 [&](int pos, unsigned key, int i) {
+                                   out_docs[(long long)b * K + pos] = k[i] >> 6;
+                                   out_scores[(long long)b * K + pos] = key_value(key);
+                                 },
+                                 reinterpret_cast<unsigned long long*>(a), N / 2);
+  for (int j = n_w + tid; j < K; j += blockDim.x) {
+    out_docs[(long long)b * K + j] = s.num_docs;
+    out_scores[(long long)b * K + j] = -INFINITY;
+  }
+}
+
+// The global form (N past one block's shared memory). One tile
+// of `tile` entries of query blockIdx.y in shared memory. fetch: the tile's
+// entries from the posting rows, else from the network rows. Then the
+// stages cont_d .. 1 of a round whose longer strides ran in global memory,
+// and the whole rounds of rows of h_lo .. h_hi (0: none), a stage at a time
+// (few registers: two blocks of 1,024 threads an SM, so a batch's tiles
+// take one wave where the register passes' 51-59 registers took two).
+template <bool AUX>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_tile_kernel(
     const int* __restrict__ postings, long long n_rows, int W, QueryArgs q,
     const float* __restrict__ ub_entry, int L, float inv_fs, int num_docs, int* mkey,
-    float* mcon, int* maux, int N, int tile, int fetch, int cont_d, int m_lo, int m_hi) {
-  extern __shared__ int smem[];
+    float* mcon, int* maux, int N, int tile, int fetch, int cont_d, int h_lo, int h_hi) {
+  extern __shared__ __align__(16) int smem[];
   int* k = smem;
   float* c = reinterpret_cast<float*>(smem + tile);
   int* a = smem + 2 * tile;
@@ -1216,51 +1689,32 @@ __global__ void __launch_bounds__(1024) merge_tile_kernel(
   const int b = blockIdx.y;
   const long long t0 = (long long)b * N + (long long)blockIdx.x * tile;
   if (fetch) {
-    if (ub_entry != nullptr) {
-      if (threadIdx.x < 32) {
-        const float m = warp_max_bound(ub_entry + (long long)b * q.P, q.P);
-        if (threadIdx.x == 0) sh_U = m;
-      }
-      __syncthreads();
+    if (threadIdx.x < 32) {
+      const float U =
+          ub_entry != nullptr ? warp_max_bound(ub_entry + (long long)b * q.P, q.P) : 0.0f;
+      if (threadIdx.x == 0) sh_U = U;
     }
-    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      const int g = blockIdx.x * tile + e;
-      const int p = g / L, l = g - p * L;
-      const int bp = b * q.P + p;
-      const bool valid = l < min(q.lens[bp], L);
-      int doc = num_docs, fac = 0, aux = 0;
-      if (valid) {
-        long long st = q.starts[bp];
-        st = st > n_rows - L ? n_rows - L : st;
-        st = st < 0 ? 0 : st;
-        decode_row(postings, st + l, W, doc, fac, aux);
-      }
-      const float f1 = (float)((fac >> 16) & 0xFFFF) * inv_fs;
-      const float f2 = (float)(fac & 0xFFFF) * inv_fs;
-      float contrib = q.w_bm25[bp] * f1 + q.w_bm25f[bp] * f2 +
-                      q.w_presence[bp] * (fac != 0 ? 1.0f : 0.0f);
-      if (ub_entry != nullptr) contrib = valid ? (contrib - ub_entry[bp]) + sh_U : 0.0f;
-      k[e] = (doc << 6) | q.group[bp];
-      c[e] = contrib;
-      a[e] = aux;
-    }
+    __syncthreads();
+    merge_fetch<AUX>(postings, n_rows, W, q, ub_entry, sh_U, L, inv_fs, num_docs, b,
+                     (long long)blockIdx.x * tile, tile, k, c, a);
   } else {
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       k[e] = mkey[t0 + e];
       c[e] = mcon[t0 + e];
-      a[e] = maux != nullptr ? maux[t0 + e] : 0;
+      if (AUX) a[e] = maux[t0 + e];
     }
   }
   __syncthreads();
+  int* ta = AUX ? a : nullptr;
   for (int d = cont_d; d >= 1; d >>= 1) {
-    merge_stage_block(k, c, a, tile, d);
+    merge_stage_block(k, c, ta, tile, d);
     __syncthreads();
   }
-  for (int m = m_lo; m <= m_hi; m <<= 1) merge_round_block(k, c, a, tile, m);
+  for (int h = h_lo; h_lo && h <= h_hi; h <<= 1) merge_round_block(k, c, ta, tile, 2 * h);
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     mkey[t0 + e] = k[e];
     mcon[t0 + e] = c[e];
-    if (maux != nullptr) maux[t0 + e] = a[e];
+    if (AUX) maux[t0 + e] = a[e];
   }
 }
 
@@ -1281,150 +1735,75 @@ __global__ void merge_stage_kernel(int* mkey, float* mcon, int* maux, int N, int
   merge_cx(mkey, mcon, maux, i, i + d);
 }
 
-// The run-end tail of _join_topk over the merged order, one block per query.
-// An entry ends its (doc, group) pair where the next key differs and its doc
-// where the next doc differs (the last entry ends both). Each thread walks a
-// contiguous chunk twice: first for the sums of the run still open at the
-// chunk's end, then, with what a segmented block scan of those carries in,
-// for the score of each run it ends: the run's contribution sum (with UB,
-// minus its entry count times U plus the query's ub_total), the static score
-// of the run's last entry, its required pairs (soft bonus or the n_required
-// mask) and its excluded pairs; 0 (no candidate) elsewhere. Then K1's top-C.
-__global__ void __launch_bounds__(MERGE_THREADS) merge_tail_kernel(
-    const int* mkey, const float* mcon, const int* maux, unsigned* skey, int N, SegArgs s,
+// The global form's tail, first launch: a block a (tile, query) scans its
+// tile of the network rows and writes the tile's total to tsum[b, tile].
+__global__ void __launch_bounds__(MERGE_THREADS) merge_tail_sum_kernel(const int* mkey,
+                                                                       const float* mcon, int N,
+                                                                       RunSum* tsum) {
+  __shared__ TailScan ts;
+  const int r = blockIdx.x, b = blockIdx.y, tiles = gridDim.x;
+  const long long t0 = (long long)b * N + (long long)r * MERGE_TILE;
+  const bool has_next = r + 1 < tiles;
+  tile_scan(mkey + t0, mcon + t0, MERGE_TILE, has_next ? mkey[t0 + MERGE_TILE] : 0, has_next, ts);
+  if (threadIdx.x == 0) tsum[(long long)b * tiles + r] = ts.total;
+}
+
+// second launch: the same scan, the carry into the tile from the totals,
+// and each run end's ordered key over its contribution (mcon in place)
+__global__ void __launch_bounds__(MERGE_THREADS) merge_tail_keys_kernel(
+    const int* mkey, float* mcon, const int* maux, int N, const RunSum* tsum, SegArgs s,
     QueryArgs q, const float* __restrict__ ub_entry, const float* __restrict__ ub_total,
-    int default_static, int soft_required, int K, int* out_docs, float* out_scores) {
-  __shared__ unsigned long long kv[MAX_SORT];  // the top-K's winners; first the scan's
-  __shared__ SelectState sel;
+    int soft_required) {
+  __shared__ TailScan ts;
   __shared__ float sh_U;
-  unsigned* sk = reinterpret_cast<unsigned*>(kv);
-  int* si = reinterpret_cast<int*>(kv) + MAX_SORT;
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const long long row = (long long)b * N;
-  if (ub_entry != nullptr) {
-    if (tid < 32) {
-      const float m = warp_max_bound(ub_entry + (long long)b * q.P, q.P);
-      if (tid == 0) sh_U = m;
-    }
-    __syncthreads();
+  const int r = blockIdx.x, b = blockIdx.y, tiles = gridDim.x;
+  if (threadIdx.x < 32) {
+    const float U = ub_entry != nullptr ? warp_max_bound(ub_entry + (long long)b * q.P, q.P) : 0.0f;
+    if (threadIdx.x == 0) sh_U = U;
   }
-  const int chunk = (N + nt - 1) / nt;
-  const int lo = min(tid * chunk, N), hi = min(lo + chunk, N);
-  auto ends = [&](int i, int key, bool& pair_end, bool& doc_end) {
-    const int nxt = i + 1 < N ? mkey[row + i + 1] : 0;
-    pair_end = i + 1 == N || nxt != key;
-    doc_end = i + 1 == N || (nxt >> 6) != (key >> 6);
-  };
-
-  // pass 1: the run open at the chunk's end (sum, required and excluded
-  // pairs, entries) and whether the chunk ends any run
-  int has_end = 0, req = 0, excl = 0, cnt = 0;
-  float sum = 0.0f;
-  for (int i = lo; i < hi; ++i) {
-    const int key = mkey[row + i];
-    bool pe, de;
-    ends(i, key, pe, de);
-    sum += mcon[row + i];
-    cnt += 1;
-    const int g = key & 63;
-    if (pe) {
-      req += g < MAX_GROUPS;
-      excl += g == EXCLUDED_GROUP;
-    }
-    if (de) {
-      has_end = 1;
-      sum = 0.0f;
-      req = excl = cnt = 0;
-    }
-  }
-  // inclusive segmented scan of the chunk summaries (Hillis-Steele): a chunk
-  // that ends a run restarts the carry, else it extends its left neighbour's
-  float* c_sum = reinterpret_cast<float*>(sk);
-  int* c_end = reinterpret_cast<int*>(sk) + nt;
-  int* c_req = reinterpret_cast<int*>(sk) + 2 * nt;
-  int* c_excl = reinterpret_cast<int*>(sk) + 3 * nt;
-  int* c_cnt = si;
-  c_sum[tid] = sum;
-  c_end[tid] = has_end;
-  c_req[tid] = req;
-  c_excl[tid] = excl;
-  c_cnt[tid] = cnt;
+  const long long t0 = (long long)b * N + (long long)r * MERGE_TILE;
+  const bool has_next = r + 1 < tiles;
+  const int nk = has_next ? mkey[t0 + MERGE_TILE] : 0;
+  const RunSum inner = tile_scan(mkey + t0, mcon + t0, MERGE_TILE, nk, has_next, ts);
+  if (threadIdx.x == 0)
+    ts.carry = tile_carry([&](int i) { return tsum[(long long)b * tiles + i]; }, r);
   __syncthreads();
-  for (int off = 1; off < nt; off <<= 1) {
-    float ps = 0.0f;
-    int pe = 0, pr = 0, px = 0, pc = 0;
-    if (tid >= off) {
-      ps = c_sum[tid - off];
-      pe = c_end[tid - off];
-      pr = c_req[tid - off];
-      px = c_excl[tid - off];
-      pc = c_cnt[tid - off];
-    }
-    __syncthreads();
-    if (tid >= off && !has_end) {
-      sum = ps + sum;
-      req += pr;
-      excl += px;
-      cnt += pc;
-      has_end = pe;
-    }
-    c_sum[tid] = sum;
-    c_end[tid] = has_end;
-    c_req[tid] = req;
-    c_excl[tid] = excl;
-    c_cnt[tid] = cnt;
-    __syncthreads();
-  }
-  // the carry into this chunk: the scan's value left of it
-  float rsum = tid > 0 ? c_sum[tid - 1] : 0.0f;
-  int rreq = tid > 0 ? c_req[tid - 1] : 0, rexcl = tid > 0 ? c_excl[tid - 1] : 0;
-  int rcnt = tid > 0 ? c_cnt[tid - 1] : 0;
+  tail_scores(mkey + t0, mcon + t0, maux != nullptr ? maux + t0 : nullptr, MERGE_TILE, nk,
+              has_next, run_join(ts.carry, inner), s, q, b, ub_total, sh_U, maux != nullptr,
+              soft_required != 0);
+}
 
-  // pass 2: every run end's ordered key
-  const int nreq = q.n_required[b];
-  for (int i = lo; i < hi; ++i) {
-    const int key = mkey[row + i];
-    bool pe, de;
-    ends(i, key, pe, de);
-    rsum += mcon[row + i];
-    rcnt += 1;
-    const int g = key & 63;
-    if (pe) {
-      rreq += g < MAX_GROUPS;
-      rexcl += g == EXCLUDED_GROUP;
-    }
-    unsigned okey = 0;
-    if (de) {
-      const int doc = key >> 6;
-      if (doc < s.num_docs && rexcl == 0) {
-        float text = rsum;
-        if (ub_entry != nullptr) text = (text - (float)rcnt * sh_U) + ub_total[b];
-        const float st = default_static ? aux_static(q, b, maux[row + i], s.static_scale)
-                                        : query_static(s, q, b, doc, false);
-        float total = text + st;
-        bool valid = true;
-        if (soft_required) {
-          total = total + q.soft_bonus[b] * (float)rreq;
-        } else {
-          valid = rreq >= nreq;
-        }
-        if (valid) okey = order_key(total);
-      }
-      rsum = 0.0f;
-      rreq = rexcl = rcnt = 0;
-    }
-    skey[row + i] = okey;
+// third launch: the shared top-K of each query's N ordered keys over a
+// cluster of blocks (N / cluster keys each, staged in shared memory where
+// they fit beside the sort buffer and the other blocks' runs), ties to the
+// lower position
+__global__ void __launch_bounds__(SELECT_THREADS, 1) merge_select_kernel(
+    const int* mkey, const unsigned* okey, int N, int num_docs, int K, int keys_on_chip,
+    int* out_docs, float* out_scores) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ SelectState st;
+  ClusterScope scope;
+  const unsigned CS = scope.size(), rank = scope.rank();
+  const int b = blockIdx.y, n = N / (int)CS, S = next_pow2(K), base = (int)rank * n;
+  unsigned long long* kv = reinterpret_cast<unsigned long long*>(dyn_smem);
+  unsigned long long* stage = kv + S;
+  const unsigned* keys = okey + (long long)b * N + base;
+  if (keys_on_chip) {
+    unsigned* sk = reinterpret_cast<unsigned*>(stage + S);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sk[i] = keys[i];
+    __syncthreads();
+    keys = sk;
   }
-  __syncthreads();
-
-  BlockScope scope;
-  const int n_w = top_keys<true>(scope, sel, skey + row, N, K, [](int i) { return i; }, kv,
-                           [&](int pos, unsigned k, int i) {
-                             out_docs[(long long)b * K + pos] = mkey[row + i] >> 6;
-                             out_scores[(long long)b * K + pos] = key_value(k);
-                           });
+  const int* mk = mkey + (long long)b * N;
+  const int n_w = top_keys<true>(scope, st, keys, n, K, [&](int i) { return base + i; }, kv,
+                                 [&](int pos, unsigned key, int i) {
+                                   out_docs[(long long)b * K + pos] = mk[i] >> 6;
+                                   out_scores[(long long)b * K + pos] = key_value(key);
+                                 },
+                                 stage, S);
+  if (rank != 0) return;
   for (int j = n_w + threadIdx.x; j < K; j += blockDim.x) {
-    out_docs[(long long)b * K + j] = s.num_docs;
+    out_docs[(long long)b * K + j] = num_docs;
     out_scores[(long long)b * K + j] = -INFINITY;
   }
 }
@@ -1527,33 +1906,179 @@ __global__ void __launch_bounds__(SELECT_THREADS, 1) stage_b_kernel(
 }
 
 // ---- K3 ---------------------------------------------------------------------
-__global__ void __launch_bounds__(256) signals_q16_kernel(
+// A block a query and R = SIG_ROWS of its signal rows (grid (B, ceil(nsig /
+// R))). The block stages the rows' aggregation coefficients, the slots' idf,
+// the rows' gather sources and the region table once, and lists the slots
+// whose coefficient is nonzero in any of its rows; a thread then takes the
+// columns j, j + SIG_THREADS, ...: it issues the column's gathers for its
+// rows (a static column, the region id, the update time) into registers,
+// reads the column's factor words of the listed slots once, and folds each
+// of the R rows over them in the order of signal_entry, its terms with a
+// zero coefficient left out, the values into shared memory and each row's
+// largest magnitude into registers. The row maxima are reduced over the
+// block, and the block quantises its rows from shared memory (rintf: half
+// to even), 16-byte pieces where the rows allow.
+__global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
     const int* __restrict__ factors, const int* __restrict__ cand, int K, SegArgs s,
-    QueryArgs q, AggArgs a, float inv_fs, short* out_q, float* out_scale) {
-  __shared__ float sv[MAX_SORT];
-  __shared__ float wmax[32];
-  const int b = blockIdx.x, sg = blockIdx.y;
-  const int* F = factors + (long long)b * q.P * K;
-  float m = 0.0f;
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    const float v = signal_entry(sg, F + j, K, cand[(long long)b * K + j], b, s, q, a, inv_fs);
-    sv[j] = v;
-    m = fmaxf(m, fabsf(v));
+    SignalArgs a, float inv_fs, int vec, short* out_q, float* out_scale) {
+  constexpr int R = SIG_ROWS;
+  extern __shared__ __align__(16) float sig_smem[];
+  __shared__ float wmax[SIG_THREADS / 32][R];
+  __shared__ float sscale[R];
+  __shared__ int src[R];  // a row's static column; -1 none, -2 the region, -3 the update
+  __shared__ float lut[NUM_REGIONS];
+  __shared__ float now;
+  __shared__ int n_live;
+  const int b = blockIdx.x, r0 = blockIdx.y * R, tid = threadIdx.x, P = a.P;
+  const int nr = min(R, a.nsig - r0), rf = a.bm25f_row - r0;
+  const bool has_f = rf >= 0 && rf < nr;
+  float* cb = sig_smem;    // [R][P] the rows' bm25 coefficients
+  float* ci = cb + R * P;  // their idf coefficients
+  float* cc = ci + R * P;  // their coverage coefficients
+  float* cf = cc + R * P;  // [P] the bm25f row's
+  float* sidf = cf + P;    // [P] the slots' idf
+  int* live = reinterpret_cast<int*>(sidf + P);   // [P] the slots any of the rows reads
+  float* sv = reinterpret_cast<float*>(live + P);  // [R][K] the rows' values
+  const float* bm25 = a.bm25 + b * a.stride[3] + (long long)r0 * P;
+  const float* aidf = a.aidf + b * a.stride[5] + (long long)r0 * P;
+  const float* cov = a.cov + b * a.stride[6] + (long long)r0 * P;
+  for (int t = tid; t < R * P; t += SIG_THREADS) {  // rows past nsig hold zeros
+    const bool in = t < nr * P;
+    cb[t] = in ? bm25[t] : 0.0f;
+    ci[t] = in ? aidf[t] : 0.0f;
+    cc[t] = in ? cov[t] : 0.0f;
   }
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) wmax[warp] = m;
+  for (int t = tid; t < P; t += SIG_THREADS) {
+    cf[t] = a.bm25f[b * a.stride[4] + t];
+    sidf[t] = a.idf[b * a.stride[0] + t];
+  }
+  if (tid < nr) {
+    const int sg = r0 + tid;
+    src[tid] = sg == a.region_row ? -2 : sg == a.update_row ? -3 : a.static_of_sig[sg];
+  }
+  if (tid < NUM_REGIONS) lut[tid] = a.region_lut[b * a.stride[1] + tid];
+  if (tid == 0) now = a.current_ts[b * a.stride[2]];
   __syncthreads();
-  if (warp == 0) {
-    m = lane < (int)(blockDim.x >> 5) ? wmax[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) wmax[0] = m;
+  // the slots whose coefficient is nonzero in any of the rows, in order: the
+  // rows are sparse (a slot feeds about one row of each matrix), and a term
+  // with a zero coefficient adds +-0 to a sum that is never -0, so skipping
+  // it leaves the same bits
+  if (tid < 32) {
+    int cnt = 0;
+    for (int p0 = 0; p0 < P; p0 += 32) {
+      const int p = p0 + tid;
+      bool on = false;
+      if (p < P) {
+        on = has_f && cf[p] != 0.0f;
+        for (int r = 0; r < nr; ++r)
+          on = on || cb[r * P + p] != 0.0f || ci[r * P + p] != 0.0f || cc[r * P + p] != 0.0f;
+      }
+      const unsigned bal = __ballot_sync(FULL_MASK, on);
+      if (on) live[cnt + __popc(bal & ((1u << tid) - 1u))] = p;
+      cnt += __popc(bal);
+    }
+    if (tid == 0) n_live = cnt;
   }
   __syncthreads();
-  const float scale = fmaxf(wmax[0], 1e-30f) * (1.0f / 32767.0f);
-  const long long row = (long long)b * a.nsig + sg;
-  if (threadIdx.x == 0) out_scale[row] = scale;
-  for (int j = threadIdx.x; j < K; j += blockDim.x) out_q[row * K + j] = (short)rintf(sv[j] / scale);
+  const int nl = n_live;
+  const int* F = factors + (long long)b * P * K;
+  float m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] = 0.0f;
+  for (int j = tid; j < K; j += SIG_THREADS) {
+    const int doc = cand[(long long)b * K + j];
+    const bool has_doc = doc < s.num_docs;
+    // the column's gathers, raw words in flight while it folds
+    int graw[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int st = r < nr ? src[r] : -1;
+      const int* at = !has_doc  ? nullptr
+                      : st == -2 ? s.region_ids + doc
+                      : st == -3 ? reinterpret_cast<const int*>(s.last_updated) + doc
+                      : st >= 0  ? reinterpret_cast<const int*>(s.static_cols) + (long long)st * s.db + doc
+                                 : nullptr;
+      graw[r] = at != nullptr ? __ldg(at) : 0;
+    }
+    float vb[R], vi[R], vc[R], vf = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) vb[r] = vi[r] = vc[r] = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < nl; ++i) {
+      const int p = live[i];
+      const int f = F[(long long)p * K + j];
+      const float id = sidf[p], pres = f != 0 ? 1.0f : 0.0f;
+      const float x1 = id * ((float)((f >> 16) & 0xFFFF) * inv_fs), xp = id * pres;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float wb = cb[r * P + p], wi = ci[r * P + p], wc = cc[r * P + p];
+        if (wb != 0.0f) vb[r] += wb * x1;
+        if (wi != 0.0f) vi[r] += wi * xp;
+        if (wc != 0.0f) vc[r] += wc * pres;
+      }
+      if (has_f && cf[p] != 0.0f) vf += cf[p] * (id * ((float)(f & 0xFFFF) * inv_fs));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= nr) continue;
+      const int st = src[r];
+      float v = 0.0f;
+      if (has_doc) {
+        const float g = st == -2   ? lut[clamp_region(graw[r])]
+                        : st == -3 ? update_score(__int_as_float(graw[r]), now)
+                                   : __int_as_float(graw[r]);  // the static column, or 0
+        if (st <= -2) {
+          v = g;
+        } else {
+          v = 0.0f + vb[r];
+          if (has_f && r == rf) v = v + vf;
+          v = v + vi[r];
+          v = v + vc[r];
+          v = v + g;
+        }
+      }
+      sv[r * K + j] = v;
+      m[r] = fmaxf(m[r], fabsf(v));
+    }
+  }
+  // each row's largest magnitude over the block
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x = m[r];
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, o));
+    if (lane == 0) wmax[warp][r] = x;
+  }
+  __syncthreads();
+  if (tid < nr) {
+    float x = 0.0f;
+    for (int w = 0; w < SIG_THREADS / 32; ++w) x = fmaxf(x, wmax[w][tid]);
+    const float scale = fmaxf(x, 1e-30f) * (1.0f / 32767.0f);
+    sscale[tid] = scale;
+    out_scale[(long long)b * a.nsig + r0 + tid] = scale;
+  }
+  __syncthreads();
+  short* q = out_q + ((long long)b * a.nsig + r0) * K;
+  if (vec) {  // K and the output's address multiples of 8 entries
+    const int n8 = K >> 3;
+    for (int t = tid; t < nr * n8; t += SIG_THREADS) {
+      const int r = t / n8, j = (t - r * n8) * 8;
+      const float scale = sscale[r];
+      const float* v = sv + r * K + j;
+      unsigned w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        w[u] = (unsigned)(unsigned short)(short)rintf(v[2 * u] / scale) |
+               ((unsigned)(unsigned short)(short)rintf(v[2 * u + 1] / scale) << 16);
+      *reinterpret_cast<int4*>(q + (long long)r * K + j) =
+          make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+    }
+  } else {
+    for (int t = tid; t < nr * K; t += SIG_THREADS) {
+      const int r = t / K;
+      q[t] = (short)rintf(sv[t] / sscale[r]);
+    }
+  }
 }
 
 // ---- K11 ----------------------------------------------------------------------
@@ -1765,11 +2290,11 @@ __global__ void __launch_bounds__(1024) mesh_topk_kernel(
                  });
 }
 
-// a launch of kernel over (cluster x B) blocks of SELECT_THREADS threads in
+// a launch of kernel over (cluster x B) blocks of `threads` threads in
 // clusters of `cluster`, with smem bytes of dynamic shared memory
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), int cluster, int B, size_t smem,
-                            cudaStream_t stream, Args... args) {
+cudaError_t launch_clusters(void (*kernel)(Params...), int cluster, int B, int threads,
+                            size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1780,7 +2305,7 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int cluster, int B, size_
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, B);
-  cfg.blockDim = dim3(SELECT_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -1841,66 +2366,102 @@ int stract_stage_a(const SegArgs* s, const QueryArgs* q, const int* postings, lo
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch_clusters(stage_a_kernel, cluster, n, smem, stream, postings, n_rows,
-                              row_w, *s, *q, rows, ub_entry, ub_total, L, inv_fs, T,
+  return (int)launch_clusters(stage_a_kernel, cluster, n, SELECT_THREADS, smem, stream, postings,
+                              n_rows, row_w, *s, *q, rows, ub_entry, ub_total, L, inv_fs, T,
                               default_static, soft_required, K, gkey, gsum, gmask, gaux,
                               keys_on_chip, out_docs, out_scores);
 }
 
 // K13. Stage A through the merge network: P (a power of two >= 2) tiles of
-// L (a power of two) posting rows per query, row_w as K1. Network rows mkey
-// i32[B, N], mcon f32[B, N], maux i32[B, N] (N = P*L; maux null when
-// default_static is 0); skey u32[B, N] scratch. K = 0 runs the network alone
-// (the rows hold its output; skey, ub_total and the outputs may be null).
-// Out: docs i32[B*K], scores f32[B*K], score-descending.
+// L (a power of two) posting rows per query, row_w as K1, N = P*L <= 2^24.
+// cluster 1: the query's N <= MERGE_TILE entries in one block's shared
+// memory, one launch (ops/kernels.py merge_plan). cluster 0: the global
+// form (N a multiple of MERGE_TILE), the network rows mkey i32[B, N], mcon
+// f32[B, N], maux i32[B, N] (null unless default_static; the tail's ordered
+// keys go over mcon) and the tiles' totals tsum i32[B, N / MERGE_TILE, 5]
+// (K > 0) as scratch. K = 0 runs the network alone: its output goes to
+// mkey, mcon and maux (maux null: the aux words are not carried) in either
+// form. Out: docs i32[B*K], scores f32[B*K], score-descending.
 int stract_stage_a_merge(const SegArgs* s, const QueryArgs* q, const int* postings,
                          long long n_rows, int row_w, const float* ub_entry,
-                         const float* ub_total, int L, int K, int default_static,
+                         const float* ub_total, int L, int K, int cluster, int default_static,
                          int soft_required, float inv_fs, int* mkey, float* mcon, int* maux,
-                         unsigned* skey, int* out_docs, float* out_scores, cudaStream_t stream) {
+                         int* tsum, int* out_docs, float* out_scores, cudaStream_t stream) {
   const int P = q->P;
   if (P < 2 || (P & (P - 1)) != 0 || L < 1 || (L & (L - 1)) != 0 ||
       (long long)P * L > (1ll << 24) || q->B < 1 || q->B > 65535 || K < 0 || K > MAX_SORT ||
-      (row_w != 2 && row_w != 3) || n_rows < 1 || mkey == nullptr || mcon == nullptr ||
-      (default_static && maux == nullptr) ||
-      (K > 0 && ((ub_entry == nullptr) != (ub_total == nullptr) || skey == nullptr ||
-                 out_docs == nullptr || out_scores == nullptr)))
+      (row_w != 2 && row_w != 3) || n_rows < 1 || (cluster != 0 && cluster != 1) ||
+      (K > 0 && ((ub_entry == nullptr) != (ub_total == nullptr) || out_docs == nullptr ||
+                 out_scores == nullptr)) ||
+      ((K == 0 || cluster == 0) && (mkey == nullptr || mcon == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int N = P * L;
-  const int tile = N < MERGE_TILE ? N : MERGE_TILE;
+  // the aux words travel with the entries where the static score reads them
+  const bool aux = K == 0 ? maux != nullptr : default_static != 0;
+  if (cluster == 1) {
+    if (N > MERGE_TILE) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)N * 12 + (K > 0 ? (size_t)next_pow2(K) * 8 : 0);
+    auto kernel = aux ? merge_block_kernel<true> : merge_block_kernel<false>;
+    return (int)launch_clusters(kernel, 1, q->B, MERGE_THREADS, smem, stream, postings, n_rows,
+                                row_w, *s, *q, ub_entry, ub_total, L, inv_fs, N, soft_required,
+                                K, mkey, mcon, aux ? maux : nullptr, out_docs, out_scores);
+  }
+  // the global form: tiles of MERGE_TILE entries
+  if (N % MERGE_TILE != 0 || (aux && maux == nullptr) || (K > 0 && tsum == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int tile = MERGE_TILE, tiles = N / tile;
   const size_t smem = (size_t)tile * 12;
-  cudaError_t err = cudaFuncSetAttribute(merge_tile_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto tile_kernel = aux ? merge_tile_kernel<true> : merge_tile_kernel<false>;
+  int* net_aux = aux ? maux : nullptr;
+  cudaError_t err =
+      cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // the fetch, and every round whose merged rows fit a tile
-  int m_hi = 0;
-  for (int m = 2 * L; m <= tile; m <<= 1) m_hi = m;
-  const dim3 tiles(N / tile, q->B);
-  merge_tile_kernel<<<tiles, 1024, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
-                                                   inv_fs, s->num_docs, mkey, mcon, maux, N,
-                                                   tile, 1, 0, 2 * L, m_hi);
+  int h_hi = 0;
+  for (int h = L; 2 * h <= tile; h <<= 1) h_hi = h;
+  const dim3 grid(tiles, q->B);
+  tile_kernel<<<grid, MERGE_THREADS, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
+                                                     inv_fs, s->num_docs, mkey, mcon, net_aux, N,
+                                                     tile, 1, 0, h_hi ? L : 0, h_hi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // longer rounds: the flip and the long strides in global memory, the rest
   // of the round in tiles
-  for (int m = m_hi ? 2 * m_hi : 2 * L; m <= N; m <<= 1) {
-    merge_flip_kernel<<<dim3((N / 4 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon, maux, N,
-                                                                         m / 2);
+  for (int m = h_hi ? 4 * h_hi : 2 * L; m <= N; m <<= 1) {
+    merge_flip_kernel<<<dim3((N / 4 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon, net_aux,
+                                                                         N, m / 2);
     int d = m / 4;
     for (; 2 * d > tile; d >>= 1)
-      merge_stage_kernel<<<dim3((N / 2 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon, maux,
-                                                                            N, d);
-    merge_tile_kernel<<<tiles, 1024, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
-                                                     inv_fs, s->num_docs, mkey, mcon, maux, N,
-                                                     tile, 0, d, 1, 0);
+      merge_stage_kernel<<<dim3((N / 2 + 255) / 256, q->B), 256, 0, stream>>>(mkey, mcon,
+                                                                            net_aux, N, d);
+    tile_kernel<<<grid, MERGE_THREADS, smem, stream>>>(postings, n_rows, row_w, *q, ub_entry, L,
+                                                       inv_fs, s->num_docs, mkey, mcon, net_aux,
+                                                       N, tile, 0, d, 0, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (K == 0) return (int)cudaSuccess;
-  merge_tail_kernel<<<q->B, MERGE_THREADS, 0, stream>>>(
-      mkey, mcon, default_static ? maux : nullptr, skey, N, *s, *q, ub_entry, ub_total,
-      default_static, soft_required, K, out_docs, out_scores);
-  return (int)cudaGetLastError();
+  RunSum* sums = reinterpret_cast<RunSum*>(tsum);
+  merge_tail_sum_kernel<<<grid, MERGE_THREADS, 0, stream>>>(mkey, mcon, N, sums);
+  merge_tail_keys_kernel<<<grid, MERGE_THREADS, 0, stream>>>(mkey, mcon, net_aux, N, sums, *s,
+                                                             *q, ub_entry, ub_total,
+                                                             soft_required);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the select over the fewest blocks a query (2, 4 or 8) whose keys fit
+  // their shared memory beside the sort buffer and the other blocks' runs
+  // (8, in global memory, past that): a query's candidates lie at the front
+  // of its merged order, the pads behind them, so its first block does most
+  // of the select, and fewer blocks a query run more queries at once
+  const size_t S8 = (size_t)next_pow2(K) * 8;
+  int sel = 2;
+  while (sel < MAX_CLUSTER && 2 * S8 + (size_t)(N / sel) * 4 > (size_t)MAX_DYN_SMEM) sel *= 2;
+  const size_t part = (size_t)(N / sel) * 4;
+  const int keys_on_chip = 2 * S8 + part <= (size_t)MAX_DYN_SMEM;
+  return (int)launch_clusters(merge_select_kernel, sel, q->B, SELECT_THREADS,
+                              2 * S8 + (keys_on_chip ? part : 0), stream, mkey,
+                              reinterpret_cast<const unsigned*>(mcon), N, s->num_docs, K,
+                              keys_on_chip, out_docs, out_scores);
 }
 
 // K2. factors i32[B, P, Kd], cand i32[B, Kd]; k = min(out_k, Kd) outputs per
@@ -1920,18 +2481,29 @@ int stract_stage_b(const SegArgs* s, const QueryArgs* q, const AggArgs* a, const
   const size_t smem = (size_t)next_pow2(k) * 8 + (size_t)Kd * 8 + (size_t)per * 4 +
                       (size_t)a->nsig * ks * 4 +
                       (staged ? (size_t)q->P * ks * 4 : 0);
-  return (int)launch_clusters(stage_b_kernel, cluster, q->B, smem, stream, factors, cand, Kd, *s,
-                              *q, *a, default_static, inv_fs, k, ks, (int)staged, out_docs,
-                              out_scores, out_sq, out_scale);
+  return (int)launch_clusters(stage_b_kernel, cluster, q->B, SELECT_THREADS, smem, stream, factors,
+                              cand, Kd, *s, *q, *a, default_static, inv_fs, k, ks, (int)staged,
+                              out_docs, out_scores, out_sq, out_scale);
 }
 
-// K3. factors i32[B, P, K], cand i32[B, K] -> q i16[B, nsig, K], scale f32[B, nsig].
-int stract_signals_q16(const SegArgs* s, const QueryArgs* q, const AggArgs* a, const int* factors,
-                       const int* cand, int K, float inv_fs, short* out_q, float* out_scale,
+// K3. factors i32[B, P, K], cand i32[B, K] and each query's rows of `a` ->
+// q i16[B, nsig, K], scale f32[B, nsig].
+int stract_signals_q16(const SegArgs* s, const SignalArgs* a, const int* factors, const int* cand,
+                       int B, int K, float inv_fs, short* out_q, float* out_scale,
                        cudaStream_t stream) {
-  if (K < 1 || K > MAX_SORT || q->B < 1 || a->nsig < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(q->B, a->nsig);
-  signals_q16_kernel<<<grid, 256, 0, stream>>>(factors, cand, K, *s, *q, *a, inv_fs, out_q, out_scale);
+  if (K < 1 || K > MAX_SORT || B < 1 || B > 65535 || a->P < 1 || a->nsig < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)(3 * SIG_ROWS + 3) * a->P + (size_t)SIG_ROWS * K) * 4;
+  if (smem > (size_t)MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        signals_q16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec = K % 8 == 0 && (reinterpret_cast<uintptr_t>(out_q) & 15) == 0;
+  const dim3 grid(B, (a->nsig + SIG_ROWS - 1) / SIG_ROWS);
+  signals_q16_kernel<<<grid, SIG_THREADS, smem, stream>>>(factors, cand, K, *s, *a, inv_fs, vec,
+                                                          out_q, out_scale);
   return (int)cudaGetLastError();
 }
 

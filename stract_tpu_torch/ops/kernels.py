@@ -103,6 +103,9 @@ MAX_CLUSTER = 8
 STAGE_A_DYN_SMEM = 224 * 1024
 STAGE_A_SLOT_BYTES = 20
 STAGE_A_MIN_PART = 1024
+# K13 (csrc/scoring.cu): the entries a block of the merge holds in shared
+# memory (a query of the one-block form, a tile of the global form)
+MERGE_TILE = 8192
 
 
 class StageAPlan(NamedTuple):
@@ -185,6 +188,22 @@ def card_sms(device) -> int:
     return _SMS[idx]
 
 
+class MergePlan(NamedTuple):
+    """K13's form for queries of N = P*L entries: "block" (one block's shared
+    memory holds the query; cluster 1) or "global" (the network in [B, N]
+    rows in device memory, tiles of MERGE_TILE; cluster 0)."""
+
+    form: str
+    cluster: int
+
+
+def merge_plan(N: int) -> MergePlan:
+    """K13's form from a query's entries: one block up to MERGE_TILE = 8,192
+    entries (12 B each, 96 KB beside the select's sort buffer, 32 KB at C =
+    4,096), past that the global form (the main path's P = 64, L = 1,024)."""
+    return MergePlan("block", 1) if N <= MERGE_TILE else MergePlan("global", 0)
+
+
 def stage_b_cluster(Kd: int) -> int:
     """K2's blocks a query: one for each 1,024 candidates, in powers of two up
     to 4 (Kd = 4,096, the main path's: 4)."""
@@ -234,6 +253,9 @@ def on_device(x, dev, dtype=None):
     tensor on `dev` (None stays None)."""
     if x is None:
         return None
+    if (isinstance(x, torch.Tensor) and x.device == torch.device(dev)
+            and (dtype is None or x.dtype == dtype) and x.is_contiguous()):
+        return x  # already in place: no call into the dispatcher
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return t.to(device=dev, dtype=dtype).contiguous()
 
@@ -307,6 +329,16 @@ class AggArgs(ctypes.Structure):
                 ("region_row", ctypes.c_int), ("update_row", ctypes.c_int)]
 
 
+class SignalArgs(ctypes.Structure):
+    """K3's per-query rows: each array's query b at its address + b x its
+    stride (floats)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "idf", "region_lut", "current_ts", "bm25", "bm25f", "aidf", "cov", "static_of_sig")] + [
+        ("stride", ctypes.c_longlong * 7), ("P", ctypes.c_int), ("nsig", ctypes.c_int),
+        ("bm25f_row", ctypes.c_int), ("region_row", ctypes.c_int), ("update_row", ctypes.c_int)]
+
+
 # K16d (csrc/stage.cu): tensors a launch, elements a block
 SGD_MAX_TENSORS, SGD_TILE = 64, 4096
 
@@ -332,11 +364,12 @@ def _load(name: str):
                 agg = ctypes.POINTER(AggArgs)
                 lib.stract_stage_a.argtypes = [seg, qry, P, LL, I, P, I, P, P, I, I, I, I, I, I,
                                                F, P, P, P, P, P, P, P]
-                lib.stract_stage_a_merge.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, F,
-                                                     P, P, P, P, P, P, P]
+                lib.stract_stage_a_merge.argtypes = [seg, qry, P, LL, I, P, P, I, I, I, I, I,
+                                                     F, P, P, P, P, P, P, P]
                 lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, I, P, P, P, P,
                                                P]
-                lib.stract_signals_q16.argtypes = [seg, qry, agg, P, P, I, F, P, P, P]
+                lib.stract_signals_q16.argtypes = [seg, ctypes.POINTER(SignalArgs), P, P, I, I,
+                                                   F, P, P, P]
                 lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, P, P]
                 lib.stract_stage_b_joined.argtypes = [seg, qry, P, LL, I, P, I, I, F, I,
                                                       P, P, P, P]
@@ -573,12 +606,14 @@ def stage_a(seg, q, L: int, K: int, plan: StageAPlan, table, default_static: boo
 
 
 def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: bool,
-                  inv_fs: float, mkey, mcon, maux, skey, out_docs, out_scores, ub_entry=None,
+                  inv_fs: float, net, out_docs, out_scores, ub_entry=None,
                   ub_total=None) -> None:
-    """K13: stage A through the P-way bitonic merge of the [P, L] tiles.
-    Network rows mkey i32[B, P*L], mcon f32[B, P*L], maux i32[B, P*L] (None
-    when not default_static), skey i32[B, P*L] scratch; K = 0 runs the
-    network alone (skey, the outputs and ub_total None)."""
+    """K13: stage A through the P-way bitonic merge of the [P, L] tiles, in
+    the form merge_plan(P*L) gives. net: for K = 0 (the network alone)
+    its output rows (mkey i32[B, N], mcon f32[B, N], maux i32[B, N] or None:
+    the aux words not carried); for K > 0 None in shared memory, or the
+    global form's scratch (mkey, mcon, maux (None unless default_static),
+    tsum i32[B, N / MERGE_TILE, 5])."""
     B, P = q.starts.shape
     N = P * L
     if not (P >= 2 and P & (P - 1) == 0 and L >= 1 and L & (L - 1) == 0 and N <= 1 << 24):
@@ -587,20 +622,29 @@ def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: b
         raise ValueError(f"stage A keeps 0..{MAX_SORT} candidates per query, not {K}")
     if K and (ub_entry is None) != (ub_total is None):
         raise ValueError("UB scoring takes ub_entry and ub_total together")
-    if default_static and maux is None:
-        raise ValueError("the default static score reads the aux words: maux is needed")
+    plan = merge_plan(N)
+    glob = plan.form == "global"
+    if (K == 0 or glob) != (net is not None):
+        raise ValueError("the network alone and the global form take their [B, N] rows; "
+                         "the merge in shared memory takes none")
     i32, f32 = torch.int32, torch.float32
-    post, n_rows, w = _postings(seg)
-    net = (_ptr(mkey, i32, (B, N)), _ptr(mcon, f32, (B, N)), _ptr(maux, i32, (B, N)))
-    outs = ((_ptr(skey, i32, (B, N)), _ptr(out_docs, i32, (B, K)), _ptr(out_scores, f32, (B, K)))
-            if K else (None, None, None))
+    rows = (None,) * 4
+    if net is not None:
+        mkey, mcon, maux, *tsum = net
+        if K and glob and default_static and maux is None:
+            raise ValueError("the default static score reads the aux words: maux is needed")
+        rows = (_ptr(mkey, i32, (B, N)), _ptr(mcon, f32, (B, N)), _ptr(maux, i32, (B, N)),
+                _ptr(tsum[0], i32, (B, N // MERGE_TILE, 5)) if K and glob else None)
+    outs = ((_ptr(out_docs, i32, (B, K)), _ptr(out_scores, f32, (B, K))) if K else (None, None))
     ub_e, ub_t = _ptr(ub_entry, f32, (B, P)), _ptr(ub_total, f32, (B,))
+    post, n_rows, w = _postings(seg)
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    with on_card(*_seg_tensors(seg), *_query_tensors(q), ub_entry, mkey, out_scores) as stream:
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), ub_entry, *(net or ()),
+                 out_scores) as stream:
         rc = lib.stract_stage_a_merge(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, ub_e,
-                                      ub_t, L, K, int(default_static), int(soft_required), inv_fs,
-                                      *net, *outs, stream)
+                                      ub_t, L, K, plan.cluster, int(default_static),
+                                      int(soft_required), inv_fs, *rows, *outs, stream)
     _check(rc, "stract_stage_a_merge")
     counted("stage_a_merge")
 
@@ -630,18 +674,59 @@ def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: 
     counted("stage_b")
 
 
-def signals_q16(seg, q, aggs: AggArgs, factors, cand, inv_fs: float, out_q, out_scale) -> None:
-    if not 1 <= cand.shape[1] <= MAX_SORT:
-        raise ValueError(f"pass 2 takes 1..{MAX_SORT} candidates per query, not {cand.shape[1]}")
+def _query_contiguous(t: torch.Tensor) -> bool:
+    """Whether each index of t's first dimension is a contiguous block."""
+    step = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != step:
+            return False
+        step *= size
+    return True
+
+
+def signal_args(rows, static_of_sig: torch.Tensor, bm25f_row: int, region_row: int,
+                update_row: int) -> SignalArgs:
+    """K3's argument block over its per-query rows (idf [B, P], region_lut
+    [B, 16], current_ts [B], bm25 [B, nsig, P], bm25f [B, 1, P], idf rows
+    [B, nsig, P], cov [B, nsig, P], f32 on one card): each query's part of
+    each contiguous, the queries at any stride (views of one packed upload,
+    or the tensors themselves)."""
+    idf, region_lut, current_ts, bm25, bm25f, aidf, cov = rows
+    B, P = idf.shape
+    nsig = bm25.shape[1]
+    shapes = ((P,), (_NUM_REGIONS,), (), (nsig, P), (1, P), (nsig, P), (nsig, P))
+    card_of(*rows, static_of_sig)
+    ptrs, strides = [], []
+    for t, shape in zip(rows, shapes):
+        if (not t.is_cuda or t.dtype != torch.float32 or tuple(t.shape) != (B, *shape)
+                or not _query_contiguous(t)):
+            raise ValueError(f"a pass-2 row is a CUDA f32 [B, {shape}] with each query's part "
+                             f"contiguous, not {t.dtype} {tuple(t.shape)} on {t.device}")
+        ptrs.append(t.data_ptr())
+        strides.append(t.stride(0))
+    return SignalArgs(*ptrs, _ptr(static_of_sig, torch.int32, (nsig,)),
+                      (ctypes.c_longlong * 7)(*strides), P, nsig, bm25f_row, region_row,
+                      update_row)
+
+
+def signals_q16(seg, a: SignalArgs, factors, cand, inv_fs: float, out_q, out_scale) -> None:
+    """K3 (2 signal rows a block): factors i32[B, P, K],
+    cand i32[B, K] and the rows of `a` (signal_args) → out_q i16[B, nsig, K],
+    out_scale f32[B, nsig]."""
+    B, K = cand.shape
+    if not 1 <= K <= MAX_SORT or not 1 <= B <= 65535:
+        raise ValueError(f"pass 2 takes 1..{MAX_SORT} candidates of 1..65535 queries, not "
+                         f"{K} of {B}")
+    if a.nsig < 1 or a.P < 1:
+        raise ValueError(f"pass 2 takes signal rows and slots, not {a.nsig} x {a.P}")
+    P = a.P
+    ptrs = (_ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)),
+            _ptr(out_q, torch.int16, (B, a.nsig, K)), _ptr(out_scale, torch.float32, (B, a.nsig)))
     lib = _load("scoring")
-    s, qa = seg_args(seg), query_args(q)
-    (B, P), K = q.starts.shape, cand.shape[1]
-    with on_card(*_seg_tensors(seg), *_query_tensors(q), factors, cand, out_q) as stream:
-        rc = lib.stract_signals_q16(
-            ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs),
-            _ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)), K, inv_fs,
-            _ptr(out_q, torch.int16, (B, aggs.nsig, K)),
-            _ptr(out_scale, torch.float32, (B, aggs.nsig)), stream)
+    s = seg_args(seg)
+    with on_card(*_seg_tensors(seg), factors, cand, out_q, out_scale) as stream:
+        rc = lib.stract_signals_q16(ctypes.byref(s), ctypes.byref(a), *ptrs[:2], B, K, inv_fs,
+                                    *ptrs[2:], stream)
     _check(rc, "stract_signals_q16")
     counted("signals_q16")
 

@@ -462,9 +462,10 @@ def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = 
     docs = torch.empty((B, K), dtype=torch.int32, device=dev)
     scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     if merge and merge_applies(P, L):
-        mkey, mcon, maux, skey = _merge_scratch(B, P * L, default_static, dev)
+        glob = kernels.merge_plan(P * L).form == "global"
+        net = _merge_rows(B, P * L, default_static, dev, True) if glob else None
         kernels.stage_a_merge(seg, qs, L, K, default_static, soft_required, INV_FACTOR_SCALE,
-                              mkey, mcon, maux, skey, docs, scores, ub_entry, ub_total)
+                              net, docs, scores, ub_entry, ub_total)
         return docs, scores
     launches = kernels.stage_a_launches(stage_a_entries(lens_in, L), K, kernels.card_sms(dev))
     for rows, plan in launches:
@@ -480,14 +481,17 @@ def score_candidates_batch(seg: SegmentArrays, qs, L: int = DEFAULT_L, K: int = 
     return docs, scores
 
 
-def _merge_scratch(B: int, N: int, with_aux: bool, dev):
-    """The merge kernel's [B, N] network arrays (keys, contributions, aux
-    words when the static score reads them) and its ordered score keys."""
+def _merge_rows(B: int, N: int, with_aux: bool, dev, sums: bool = False):
+    """The merge kernel's [B, N] network rows (keys, contributions, aux words
+    when the static score reads them): the network alone's output, or the
+    global form's scratch, then with its tiles' totals (sums)."""
     i32 = torch.int32
-    return (torch.empty((B, N), dtype=i32, device=dev),
+    rows = (torch.empty((B, N), dtype=i32, device=dev),
             torch.empty((B, N), dtype=torch.float32, device=dev),
-            torch.empty((B, N), dtype=i32, device=dev) if with_aux else None,
-            torch.empty((B, N), dtype=i32, device=dev))
+            torch.empty((B, N), dtype=i32, device=dev) if with_aux else None)
+    if sums:
+        rows += (torch.empty((B, N // kernels.MERGE_TILE, 5), dtype=i32, device=dev),)
+    return rows
 
 
 def stage_a_network(seg: SegmentArrays, qs, L: int = DEFAULT_L, ub_entry=None):
@@ -505,10 +509,10 @@ def stage_a_network(seg: SegmentArrays, qs, L: int = DEFAULT_L, ub_entry=None):
         keys, contrib, aux, _ = _stage_a_entries(seg, qs, L, ub_entry)
         k, (c, a) = merge_sorted_tiles_plain(keys, contrib, aux)
         return k, c, a
-    mkey, mcon, maux, _ = _merge_scratch(B, P * L, True, dev)
-    kernels.stage_a_merge(seg, qs, L, 0, True, True, INV_FACTOR_SCALE, mkey, mcon, maux, None,
-                          None, None, ub_entry, None)
-    return mkey, mcon, maux
+    net = _merge_rows(B, P * L, True, dev)
+    kernels.stage_a_merge(seg, qs, L, 0, True, True, INV_FACTOR_SCALE, net, None, None,
+                          ub_entry, None)
+    return net
 
 
 def score_candidates(seg: SegmentArrays, q, L: int = DEFAULT_L, K: int = DEFAULT_K,
@@ -685,21 +689,45 @@ def compute_signals_from_factors_batch_q16_plain(seg, qs, aggs, factors, cands):
     return quantize_signals(_signals_tail_plain(seg, qs, aggs, factors, cands))
 
 
+def _signal_rows(qs, aggs, dev, B: int) -> tuple:
+    """K3's per-query rows on the card: the slots' idf, region_lut and
+    current_ts, and the four aggregation matrices. Tensors already there in
+    f32 are taken as they are; else (the index's numpy slots) the rows are
+    packed into one host buffer and go up in one copy, each a view of it."""
+    fields = (qs.idf, qs.region_lut, qs.current_ts, aggs.agg_bm25, aggs.agg_bm25f,
+              aggs.agg_idf, aggs.agg_cov)
+    if all(isinstance(x, torch.Tensor) and x.device == dev and x.dtype == torch.float32
+           for x in fields):
+        return fields
+    host = [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, dtype=np.float32)
+            for x in fields]
+    packed = torch.from_numpy(np.concatenate([h.reshape(B, -1) for h in host], axis=1)).to(dev)
+    rows, o = [], 0
+    for h in host:
+        n = int(np.prod(h.shape[1:], dtype=np.int64))
+        rows.append(packed[:, o] if h.ndim == 1 else packed[:, o:o + n].unflatten(1, h.shape[1:]))
+        o += n
+    return tuple(rows)
+
+
 def compute_signals_from_factors_batch_q16(seg: SegmentArrays, qs, aggs, factors, cands):
     """Pass 2 on host-joined factors i32[B, P, K] → (q i16[B, 46, K],
-    scale f32[B, 46])."""
+    scale f32[B, 46]). On the card only what K3 reads goes up: the factors
+    and the candidates in one copy each, the slots' and aggregates' rows it
+    reads in one more (_signal_rows)."""
     dev = seg.postings.device
-    qs = to_tensors(_batched(qs, QuerySlots), dev)
-    aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
-    factors = torch.as_tensor(factors, dtype=torch.int32).to(dev).contiguous()
-    cands = torch.as_tensor(cands, dtype=torch.int32).to(dev).contiguous()
+    qs, aggs = _batched(qs, QuerySlots), _batched(aggs, QueryAggregates)
+    factors, cands = _on(factors, dev, torch.int32), _on(cands, dev, torch.int32)
     if not seg.postings.is_cuda:
-        return compute_signals_from_factors_batch_q16_plain(seg, qs, aggs, factors, cands)
+        return compute_signals_from_factors_batch_q16_plain(
+            seg, to_tensors(qs, dev), to_tensors(aggs, dev), factors, cands)
     B, K = cands.shape
+    rows = _signal_rows(qs, aggs, dev, B)  # held through the launch: the struct's addresses
+    a = kernels.signal_args(rows, _static_of_sig(dev), S.BM25_F.id, S.REGION.id,
+                            S.UPDATE_TIMESTAMP.id)
     sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
     scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
-    kernels.signals_q16(seg, qs, _agg_args(aggs, dev), factors, cands, INV_FACTOR_SCALE,
-                        sq, scale)
+    kernels.signals_q16(seg, a, factors, cands, INV_FACTOR_SCALE, sq, scale)
     return sq, scale
 
 

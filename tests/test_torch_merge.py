@@ -263,32 +263,56 @@ def test_merge_kernel_arguments_are_checked(monkeypatch):
         postings = i32(64, 3)
 
     q = lambda P: type("Q", (), {"starts": i32(2, P)})()  # noqa: E731
-    net = lambda N: (i32(2, N), torch.zeros((2, N)), i32(2, N), i32(2, N))  # noqa: E731
+    net = lambda N: (i32(2, N), torch.zeros((2, N)), i32(2, N))  # noqa: E731
+    out = (i32(2, 16), torch.zeros((2, 16)))
     with pytest.raises(ValueError):  # P not a power of two
-        kernels.stage_a_merge(Seg, q(12), 64, 16, True, True, 1.0, *net(768), None, None)
+        kernels.stage_a_merge(Seg, q(12), 64, 16, True, True, 1.0, None, *out)
     with pytest.raises(ValueError):  # L not a power of two
-        kernels.stage_a_merge(Seg, q(16), 100, 16, True, True, 1.0, *net(1600), None, None)
+        kernels.stage_a_merge(Seg, q(16), 100, 16, True, True, 1.0, None, *out)
     with pytest.raises(ValueError):  # more candidates than one block sorts
-        kernels.stage_a_merge(Seg, q(16), 1024, 8192, True, True, 1.0, *net(16384), None, None)
+        kernels.stage_a_merge(Seg, q(16), 1024, 8192, True, True, 1.0, None, *out)
     with pytest.raises(ValueError):  # UB takes both arrays
-        kernels.stage_a_merge(Seg, q(16), 64, 16, True, True, 1.0, *net(1024), None, None,
+        kernels.stage_a_merge(Seg, q(16), 64, 16, True, True, 1.0, None, *out,
                               ub_entry=torch.zeros((2, 16)))
-    mkey, mcon, _, skey = net(1024)
+    with pytest.raises(ValueError):  # the global form takes its [B, N] rows
+        kernels.stage_a_merge(Seg, q(128), 1024, 16, True, True, 1.0, None, *out)
+    with pytest.raises(ValueError):  # the merge in shared memory takes no [B, N] rows
+        kernels.stage_a_merge(Seg, q(16), 64, 16, True, True, 1.0, net(1024), *out)
+    with pytest.raises(ValueError):  # the network alone writes to its rows
+        kernels.stage_a_merge(Seg, q(16), 64, 0, True, True, 1.0, None, None, None)
+    mkey, mcon, _ = net(131072)
     with pytest.raises(ValueError):  # the default static score reads the aux words
-        kernels.stage_a_merge(Seg, q(16), 64, 16, True, True, 1.0, mkey, mcon, None, skey,
-                              None, None)
+        kernels.stage_a_merge(Seg, q(128), 1024, 16, True, True, 1.0,
+                              (mkey, mcon, None, i32(2, 16, 5)), *out)
     assert "stage_a_merge" in kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("N", [2 ** e for e in range(1, 25)])
+def test_merge_plan_holds_every_query_size(N):
+    """K13's plan for N = P*L from 2 to 2^24 entries: one block up to
+    MERGE_TILE entries (96 KB of network beside the 32 KB sort buffer of C =
+    4,096), past that the global form, whose tiles of MERGE_TILE divide N."""
+    plan = kernels.merge_plan(N)
+    if N <= kernels.MERGE_TILE:
+        assert plan == kernels.MergePlan("block", 1)
+        assert 12 * N + 8 * kernels.MAX_SORT <= kernels.STAGE_A_DYN_SMEM
+    else:
+        assert plan == kernels.MergePlan("global", 0) and N % kernels.MERGE_TILE == 0
+    assert kernels.merge_plan(64 * 1024).form == "global"  # the main path's P = 64, L = 1,024
 
 
 def test_merge_dispatches_on_cuda_tensors_with_live_arguments(fixture, monkeypatch):
     """A CUDA segment under merge=True reaches stage_a_merge (the gate
     closed: stage_a), never a plain version, and every tensor handed to the
-    launch is alive. Stand-in launches, so it runs without a card."""
+    launch is alive; a call with K > 0 held in shared memory allocates no
+    [B, N] array (the network alone writes to its three). Stand-in
+    launches, so it runs without a card."""
     rng, seg, starts, dfs, impact, L = fixture
     qs, _ = query_batch(rng, seg, starts, dfs, impact)
     ub, total = ub_inputs(rng, qs)
     seg_t = segment_arrays_from_numpy(seg, device="cpu")
-    seen = []
+    B, P = qs.starts.shape
+    seen, shapes = [], []
 
     def live(*ts):
         with warnings.catch_warnings():
@@ -296,18 +320,36 @@ def test_merge_dispatches_on_cuda_tensors_with_live_arguments(fixture, monkeypat
             alive = {o.data_ptr() for o in gc.get_objects() if isinstance(o, torch.Tensor)}
         return all(t.data_ptr() in alive for t in ts if t is not None)
 
-    monkeypatch.setattr(kernels, "stage_a_merge", lambda seg, q, L, K, ds, soft, fs, *ts, **kw:
-                        seen.append(("merge", K, live(*ts, *kw.values(), *q))))
-    monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(("stage_a", None, True)))
+    def merge(seg, q, L, K, ds, soft, fs, net, *ts, **kw):
+        form = kernels.merge_plan(q.starts.shape[1] * L).form
+        seen.append(("merge", K, form, live(*(net or ()), *ts, *kw.values(), *q)))
+        shapes.append(sum(tuple(t.shape) == (B, P * L) for t in (*(net or ()), *ts)
+                          if t is not None))
+    empty = torch.empty
+
+    def counted_empty(*shape, **kw):
+        shapes.append(tuple(shape[0]) if len(shape) == 1 and isinstance(shape[0], tuple)
+                      else shape)
+        return empty(*shape, **kw)
+    monkeypatch.setattr(kernels, "stage_a_merge", merge)
+    monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(("stage_a", None, None, True)))
     monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
     monkeypatch.setattr(OT, "score_candidates_batch_plain",
-                        lambda *a, **k: seen.append(("plain", None, False)))
+                        lambda *a, **k: seen.append(("plain", None, None, False)))
     monkeypatch.setattr(OT, "merge_sorted_tiles_plain",
-                        lambda *a, **k: seen.append(("plain", None, False)))
+                        lambda *a, **k: seen.append(("plain", None, None, False)))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    OT.score_candidates_batch(seg_t, qs, L, 128, True, True, merge=True)
-    OT.score_candidates_batch(seg_t, qs, L, 128, False, True, ub, total, merge=True)
+    monkeypatch.setattr(torch, "empty", counted_empty)
+    form = kernels.merge_plan(P * L).form
+    assert form == "block"
+    for call in (lambda: OT.score_candidates_batch(seg_t, qs, L, 128, True, True, merge=True),
+                 lambda: OT.score_candidates_batch(seg_t, qs, L, 128, False, True, ub, total,
+                                                   merge=True)):
+        shapes.clear()
+        call()
+        assert (B, P * L) not in shapes and shapes[-1] == 0, shapes  # no [B, N] scratch
     OT.stage_a_network(seg_t, qs, L)
+    assert shapes[-1] == 3  # the network's three output rows
     OT.score_candidates_batch(seg_t, qs, 200, 128, True, True, merge=True)  # L off the gate
-    assert seen == [("merge", 128, True), ("merge", 128, True), ("merge", 0, True),
-                    ("stage_a", None, True)], seen
+    assert seen == [("merge", 128, form, True), ("merge", 128, form, True),
+                    ("merge", 0, form, True), ("stage_a", None, None, True)], seen

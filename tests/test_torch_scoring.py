@@ -420,13 +420,14 @@ def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
     seg_t = segment_arrays_from_numpy(seg, device="cpu")
     seen = []
 
-    def launch(a):
+    def launch(a, fields=("bm25", "bm25f", "idf", "cov", "static_of_sig")):
         with warnings.catch_warnings():  # isinstance touches deprecated module attributes
             warnings.simplefilter("ignore")
             live = {o.data_ptr() for o in gc.get_objects() if isinstance(o, torch.Tensor)}
-        seen.append({f: getattr(a, f) in live
-                     for f in ("bm25", "bm25f", "idf", "cov", "static_of_sig")})
-    monkeypatch.setattr(kernels, "signals_q16", lambda seg, q, a, *rest: launch(a))
+        seen.append({f: getattr(a, f) in live for f in fields})
+    k3_fields = ("idf", "region_lut", "current_ts", "bm25", "bm25f", "aidf", "cov",
+                 "static_of_sig")
+    monkeypatch.setattr(kernels, "signals_q16", lambda seg, a, *rest: launch(a, k3_fields))
     monkeypatch.setattr(kernels, "stage_b", lambda seg, q, a, *rest: launch(a))
     monkeypatch.setattr(kernels, "signals_search", lambda seg, q, a, *rest, **kw: launch(a))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -489,19 +490,106 @@ def test_stage_b_kernel_matches_plain(fixture, default_static):
                           sig_k[b], res_k[3][b].cpu().numpy(), int(seg.num_docs))
 
 
-@pytest.mark.cuda
-def test_signals_kernel_matches_plain(fixture):
-    dev = _card()
+def _pass2_case(fixture, K: int, P: int):
+    """Slots of P (the fixture's 16 slots cut to P, or padded with repeats of
+    their terms past it), their aggregates, K candidates (with pad docs) and
+    their host-joined factors."""
     rng, seg, starts, dfs, impact, L = fixture
     qs, aggs = query_batch(rng, seg, starts, dfs, impact)
     qs = doc_only(qs)
-    cands = driver_candidates(rng, seg, qs.starts.shape[0], 128)
-    facs = host_factors(seg, qs, cands)
+    idx = np.arange(P) % qs.starts.shape[1]
+    qs = qs._replace(**{f: np.ascontiguousarray(getattr(qs, f)[:, idx])
+                        for f in ("starts", "lens", "group", "idf", "w_bm25", "w_bm25f",
+                                  "w_presence")})
+    aggs = type(aggs)(*[np.ascontiguousarray(np.asarray(x)[..., idx]) for x in aggs])
+    D, B, pads = int(seg.num_docs), qs.starts.shape[0], K // 10
+    cands = np.full((B, K), D, np.int32)  # the last tenth pads
+    for b in range(B):
+        cands[b, :K - pads] = np.sort(rng.choice(D, K - pads, replace=K - pads > D))
+    return seg, qs, aggs, cands, host_factors(seg, qs, cands)
+
+
+def test_signals_kernel_arguments_are_checked(monkeypatch):
+    """K3's wrapper raises before any build or launch: no candidates, more
+    than 4,096, no signal rows; its argument block takes each query's rows
+    contiguous, in f32."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("built before the checks"))
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
+    out = lambda K, n=46: (torch.zeros((2, n, K), dtype=torch.int16), torch.zeros((2, n)))  # noqa
+    a = kernels.SignalArgs(P=16, nsig=46)
+    for K in (0, 4097):
+        with pytest.raises(ValueError):
+            kernels.signals_q16(None, a, i32(2, 16, K), i32(2, K), 1.0, *out(K))
+    with pytest.raises(ValueError):
+        kernels.signals_q16(None, kernels.SignalArgs(P=16, nsig=0), i32(2, 16, 8), i32(2, 8),
+                            1.0, *out(8, 0))
+    rows = [torch.zeros(s) for s in ((2, 16), (2, 16), (2,), (2, 46, 16), (2, 1, 16),
+                                     (2, 46, 16), (2, 46, 16))]
+    table = torch.zeros(46, dtype=torch.int32)
+    kernels.signal_args(rows, table, 1, 2, 3)
+    for bad in (torch.zeros((2, 16, 46)).transpose(1, 2), torch.zeros((2, 46, 16)).double()):
+        with pytest.raises(ValueError):
+            kernels.signal_args(rows[:3] + [bad] + rows[4:], table, 1, 2, 3)
+
+
+def test_signals_dispatch_uploads_what_the_kernel_reads(fixture, monkeypatch):
+    """A CUDA segment's pass 2 reaches signals_q16 once, never its plain
+    version. With numpy inputs (the index's) three copies go to the card:
+    the factors, the candidates, and one buffer holding every row the
+    kernel reads (the argument block's rows its views, one stride); with
+    tensors already on the card none, the block pointing at them. Stand-in
+    launch, so it runs without a card."""
+    seg, qs, aggs, cands, facs = _pass2_case(fixture, 128, 16)
+    seg_t = segment_arrays_from_numpy(seg, device="cpu")
+    seen, copies = [], []
+    to = torch.Tensor.to
+
+    def counted_to(self, *a, **kw):
+        copies.append(1)
+        return to(self, *a, **kw)
+    monkeypatch.setattr(kernels, "signals_q16",
+                        lambda seg, a, f, c, fs, q, sc: seen.append((a, f, c, q.shape, sc.shape)))
+    monkeypatch.setattr(OT, "compute_signals_from_factors_batch_q16_plain",
+                        lambda *a: seen.append("plain"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.Tensor, "to", counted_to)
+    OT.compute_signals_from_factors_batch_q16(seg_t, qs, aggs, facs, cands)
+    assert len(seen) == 1 and seen[0] != "plain" and len(copies) == 3, (seen, copies)
+    a, f, c, qshape, sshape = seen[0]
+    B, P = qs.starts.shape
+    width = P + 16 + 1 + 3 * 46 * P + P
+    assert list(a.stride) == [width] * 7 and (a.P, a.nsig) == (P, 46)
+    assert a.region_lut - a.idf == 4 * P and a.cov - a.idf == 4 * (width - 46 * P)
+    assert tuple(f.shape) == (B, P, 128) and qshape == (B, 46, 128) and sshape == (B, 46)
+    q_t, a_t = OT.to_tensors(qs, "cpu"), OT.to_tensors(aggs, "cpu")
+    seen.clear()
+    copies.clear()
+    OT.compute_signals_from_factors_batch_q16(seg_t, q_t, a_t, torch.as_tensor(facs),
+                                              torch.as_tensor(cands))
+    a = seen[0][0]
+    assert not copies and (a.idf, a.bm25, a.cov) == (q_t.idf.data_ptr(), a_t.agg_bm25.data_ptr(),
+                                                    a_t.agg_cov.data_ptr())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 128, 512, 4096])
+@pytest.mark.parametrize("P", [1, 16, 64])
+def test_signals_kernel_matches_plain(fixture, K, P):
+    """K3 (2 signal rows a block) against its plain version
+    (scales rtol 1e-5, q16 rows within one step), its inputs as the index
+    passes them (numpy) and already on the card; two calls bit-equal."""
+    dev = _card()
+    seg, qs, aggs, cands, facs = _pass2_case(fixture, K, P)
     seg_c = segment_arrays_from_numpy(seg, device=dev)
+    n = kernels.LAUNCHES["signals_q16"]
     q_k, scl_k = OT.compute_signals_from_factors_batch_q16(seg_c, qs, aggs, facs, cands)
-    q_p, scl_p = OT.compute_signals_from_factors_batch_q16_plain(
-        seg_c, OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev),
-        torch.as_tensor(facs, device=dev), torch.as_tensor(cands, device=dev))
+    q_c, a_c = OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev)
+    f_c, c_c = torch.as_tensor(facs, device=dev), torch.as_tensor(cands, device=dev)
+    q_2, scl_2 = OT.compute_signals_from_factors_batch_q16(seg_c, q_c, a_c, f_c, c_c)
+    assert kernels.LAUNCHES["signals_q16"] == n + 2
+    assert torch.equal(q_k, q_2) and torch.equal(scl_k.view(torch.int32), scl_2.view(torch.int32))
+    q_p, scl_p = OT.compute_signals_from_factors_batch_q16_plain(seg_c, q_c, a_c, f_c, c_c)
     torch.testing.assert_close(scl_k, scl_p, rtol=1e-5, atol=1e-35)
     assert (q_k.int() - q_p.int()).abs().max().item() <= 1
 
@@ -595,16 +683,45 @@ def test_dense_rerank_kernel_matches_plain(dtype):
     assert (i_k == i_p).float().mean().item() > 0.9
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("row_layout", ["q16", "q8"])
-@pytest.mark.parametrize("default_static,ub", [(True, False), (False, False), (True, True)])
-def test_stage_a_merge_kernel_matches_plain(fixture, row_layout, default_static, ub):
-    """K13: the network's keys and payloads bit-equal to the plain merge's
-    (rows with tf-ordered impact slots included), and the candidates of the
-    tail at stage A's tolerance, compared as multisets of (doc, score)."""
-    dev = _card()
+def _merge_case(fixture, form: str, default_static: bool):
+    """Slots (B = 3) and L whose queries take K13's `form`: "block" the
+    fixture's 16 slots at L = 256 (N = 4,096: one block); "global" 256
+    slots (N = 65,536, the main path's), "global_wide" 512 (N = 131,072),
+    their slots past the fixture's seven each a term of the fixture, so a
+    doc's entries stand in runs across the tiles' boundaries; the third
+    query's slots all windows of the longest list, started 0, 1 or 2 rows
+    in, so that its runs cross every boundary."""
     rng, seg, starts, dfs, impact, L = fixture
-    qs, _ = query_batch(rng, seg, starts, dfs, impact, default_static=default_static)
+    P = {"block": 16, "global": 256, "global_wide": 512}[form]
+    qs, _ = query_batch(rng, seg, starts, dfs, impact, B=3, P=P, default_static=default_static)
+    if P > 16:
+        terms = rng.integers(0, len(dfs), (3, P - 7))
+        st, ln = qs.starts.copy(), qs.lens.copy()
+        st[:, 7:], ln[:, 7:] = starts[terms], dfs[terms]
+        top = int(np.argmax(dfs))
+        st[2], ln[2] = starts[top] + np.arange(P) % 3, dfs[top] - 2
+        idf = np.log1p((int(seg.num_docs) - ln + 0.5) / (ln + 0.5)).astype(np.float32)
+        extra = lambda w, x: np.where(np.arange(P) < 7, w, x).astype(np.float32)  # noqa: E731
+        qs = qs._replace(starts=st, lens=ln, idf=extra(qs.idf, idf),
+                         w_bm25=extra(qs.w_bm25, 0.5 * idf), w_bm25f=extra(qs.w_bm25f, 0.1 * idf),
+                         w_presence=extra(qs.w_presence, 0.05 * idf + 0.1))
+    return rng, seg, qs, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["block", "global", "global_wide"])
+@pytest.mark.parametrize("row_layout", ["q16", "q8"])
+@pytest.mark.parametrize("default_static,ub,soft", [(True, False, True), (False, False, True),
+                                                    (False, False, False), (True, True, True)])
+def test_stage_a_merge_kernel_matches_plain(fixture, form, row_layout, default_static, ub, soft):
+    """K13 in each form (one block; the global form at the main path's N and
+    past it): the network's keys and payloads bit-equal to the plain
+    merge's (rows with tf-ordered impact slots included), the candidates of
+    the tail at stage A's tolerance, compared as multisets of (doc, score);
+    two calls give the same bits."""
+    dev = _card()
+    rng, seg, qs, L = _merge_case(fixture, form, default_static)
+    assert kernels.merge_plan(qs.starts.shape[1] * L).form == form.split("_")[0]
     u, t = ub_inputs(rng, qs) if ub else (None, None)
     seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
     net_k = OT.stage_a_network(seg_c, qs, L, u)
@@ -614,15 +731,27 @@ def test_stage_a_merge_kernel_matches_plain(fixture, row_layout, default_static,
     kp, (cp, ap) = OT.merge_sorted_tiles_plain(keys, contrib, aux)
     assert torch.equal(net_k[0], kp) and torch.equal(net_k[2], ap)
     assert torch.equal(net_k[1].view(torch.int32), cp.view(torch.int32))
-    d_k, s_k = OT.score_candidates_batch(seg_c, qs, L, 128, default_static, True, u, t,
-                                         merge=True)
-    t_c = None if t is None else torch.as_tensor(t, device=dev)
-    d_p, s_p = OT.score_candidates_batch_plain(seg_c, q_c, L, 128, default_static, True, u_c,
-                                               t_c, merge=True)
+    tile = kernels.MERGE_TILE
+    if form != "block":  # the third query's runs cross every boundary
+        assert all(int(kp[2, r * tile - 1]) >> 6 == int(kp[2, r * tile]) >> 6
+                   for r in range(1, kp.shape[1] // tile))
+    run = lambda: OT.score_candidates_batch(seg_c, qs, L, 128, default_static, soft, u, t,  # noqa
+                                            merge=True)
+    n = kernels.LAUNCHES["stage_a_merge"]
+    (d_k, s_k), (d_2, s_2) = run(), run()
+    assert kernels.LAUNCHES["stage_a_merge"] == n + 2
+    assert torch.equal(d_k, d_2) and torch.equal(s_k.view(torch.int32), s_2.view(torch.int32))
+    if form == "block":
+        t_c = None if t is None else torch.as_tensor(t, device=dev)
+        plain, atol = (seg_c, q_c, u_c, t_c), A_ATOL
+    else:  # the plain version's sums in f64: its f32 cumsum runs over 65,536+ entries
+        plain, atol = _plain_f64(seg_c, qs, dev, u, t), 5e-2
+    d_p, s_p = OT.score_candidates_batch_plain(*plain[:2], L, 128, default_static, soft,
+                                               *plain[2:], merge=True)
     for b in range(qs.starts.shape[0]):
-        assert_topk_runs_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(),
+        assert_topk_runs_match(d_p[b].cpu().numpy(), s_p[b].float().cpu().numpy(),
                                d_k[b].cpu().numpy(), s_k[b].cpu().numpy(), int(seg.num_docs),
-                               A_RTOL, A_ATOL)
+                               A_RTOL, atol)
 
 
 # ---- on the card: K1's table forms and select regimes, K2's clusters -------------------
