@@ -56,7 +56,11 @@ rerank_topk_batch over the corpus's f16 title embeddings and the trained dual
 encoder's query embeddings) are driven once at the main shapes and checked
 against the host join and a numpy rerank; then K1 on q8 rows, K1 with UB,
 K11 (alone, in stage B, in pass 2), K12 and K10 are held against their plain
-versions. The merge configuration (merge_kernel: stage A through the P-way
+versions, the joined stage B and pass 2 also against K2 and K3 over the host
+join bit for bit (pass 2 at K = 128 and 512, q16 and f32 rows), and K11 on a
+batch that crosses its plan's length threshold (an empty slot, a one-row
+slot, the last posting list, a range ending at the card array's last row,
+duplicate and pad candidates). The merge configuration (merge_kernel: stage A through the P-way
 bitonic merge, K13) is served the same round; its top-10 pages must match
 the same configuration run with the plain versions on the card (how many
 equal the default's is printed, not gated: on the impact slots' tf-ordered
@@ -151,7 +155,10 @@ CUSTOM = {"host_centrality": 3.0, "bm25_clean_body": -0.2}
 # the ranking pipeline: vocab, tokenizer sample, forest training queries,
 # encoder batch of the kernel phase, sequence lengths, forest rows
 VOCAB, TOK_DOCS, FOREST_QUERIES, ENC_B = 30522, 20_000, 32, 32
-ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 65, 128, 200, 256), 128, (256, 16384), 4096
+ATTN_T, ENC_T, FOREST_K, EMB_BATCH = (16, 65, 128, 200, 256), 128, (1, 255, 256, 16384), 4096
+# K4 also on a forest walked past max_depth: trees of FOREST_DEEP levels
+# evaluated at 3, two negative feature indices
+FOREST_DEEP, FOREST_DEEP_TREES = 5, 12
 # K5a and K14a over every head dim they take (BertConfig.tiny's 16, MiniLM's
 # 32, BERT-base's 64) at tile tails below, at and past the 256 tokens of
 # their one-pass forms and at 512, for a batch of GRID_B x 12 heads
@@ -238,7 +245,8 @@ PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 #           order); fused signals within one q16 step
 #  pass 2   q16 rows within one step, scales rtol 1e-5
 #  forest  rtol 1e-6, atol 1e-6 x sum over trees of max |leaf| (same leaves,
-#           the tree sum in another order)
+#           the tree sum in another order); bit-equal to a tree-order f32 sum
+#           of the plain walk's leaves (the reference's order, the kernel's)
 #  attention, LN, GELU  bf16 outputs within one bf16 step (rtol 2^-7) plus
 #           atol 1e-2: f32 sums in another order, exp / rsqrt / tanh in
 #           another implementation, each may move a value across a rounding
@@ -271,7 +279,9 @@ PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
 #           K1 form give bit-equal scores (one add a doc a slot, in slot
 #           order) and docs (ties to the lower doc)
 #  K11 alone  bit-equal (integer work), and equal to the host join on q16 rows
-#  joined stage B  as stage B; joined pass 2  as pass 2
+#  joined stage B  as stage B, and bit-equal to K2 over the host join (the
+#           same factors through the same kernel); joined pass 2  as pass 2,
+#           and bit-equal to K3 over the host join, q16 and f32 rows
 #  K12     f32 rows rtol 1e-5, atol 1e-5 (sums over P slots in another order)
 #  K10     scores rtol 1e-6, atol 2e-6 (a 384-term dot product summed by a
 #           warp in another order, times the weight, added to base scores of
@@ -343,11 +353,13 @@ TOL_TEXT = {"stage_a": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "stage_a_ub": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "stage_a_ub_q8": f"rtol {A_TOL[0]} atol {A_TOL[1]}",
             "factors_join": "bit-equal",
-            "stage_b_joined": f"rtol {B_TOL[0]} atol {B_TOL[1]}",
-            "signals_joined": "1 q16 step, scales rtol 1e-5",
+            "stage_b_joined": f"rtol {B_TOL[0]} atol {B_TOL[1]}; bit-equal to K2 over the "
+                              "host join",
+            "signals_joined": "1 q16 step, scales rtol 1e-5; bit-equal to K3 over the host "
+                              "join",
             "signals_prefix": f"rtol {P12_TOL[0]} atol {P12_TOL[1]}",
             "dense_rerank": f"rtol {RERANK_TOL[0]} atol {RERANK_TOL[1]}",
-            "forest": "rtol 1e-6 atol 1e-6*sum|leaf|",
+            "forest": "rtol 1e-6 atol 1e-6*sum|leaf|; bit-equal to the tree-order f32 sum",
             "attention": f"rtol 2^-7 atol {2 * ENC_TOL[1]}",
             "add_layernorm": "1 bf16 step (beyond 2^-16*max|plain|); two calls bit-equal",
             "bias_gelu": f"rtol 2^-7 atol {ENC_TOL[1]}",
@@ -560,6 +572,67 @@ def crossing_slots(seg, q):
     for f in ("idf", "w_bm25", "w_bm25f", "w_presence"):
         fields[f][0] = fields[f][0, 0]
     return q._replace(**fields)
+
+
+def join_cases(seg, arrays, qc_np, ac, cand) -> None:
+    """K11 over B queries' compacted slots with their first three queries'
+    slots reset to cross the join plan's length threshold: an empty slot, a
+    one-row slot, the last posting list, the last 100 rows of the card's
+    array (pad rows: a range that ends at its last row), a list's first
+    `sample` rows (staged whole) and first sample + 1 (searched from a
+    sample), and the
+    candidates with duplicates, pad docs and the boundary rows' docs. On
+    q16 and q8 rows the join must equal the plain join; on q16 rows joined
+    stage B must equal K2 over that join, and joined pass 2 at K = 512 K3
+    over it, bit for bit."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+
+    term_starts = np.asarray(seg.term_starts, dtype=np.int64)
+    term_lens = np.asarray(seg.term_lens, dtype=np.int64)
+    n_rows = int(arrays[0].postings.shape[0])
+    plan = kernels.join_plan(KD)
+    last = int(np.argmax(term_starts + term_lens))
+    n_post = int(term_starts[last] + term_lens[last])
+    long_t = int(np.nonzero(term_lens > plan.sample + 1)[0][0])
+    st, ln = np.array(qc_np.starts), np.array(qc_np.lens)
+    st[0, :2], ln[0, :2] = term_starts[long_t], (0, 1)
+    st[1, :2], ln[1, :2] = (term_starts[last], n_rows - 100), (term_lens[last], 100)
+    st[2, :2], ln[2, :2] = term_starts[long_t], (plan.sample, plan.sample + 1)
+    q_np = qc_np._replace(starts=st.astype(np.int32), lens=ln.astype(np.int32))
+    c = cand.clone()
+    post = arrays[0].postings
+    c[:, 7], c[:, 11] = c[:, 3], int(seg.num_docs)
+    c[0, 13] = post[int(term_starts[long_t]), 0]           # the one-row slot's doc
+    c[1, 13] = post[n_post - 1, 0]                         # the last posting's doc
+    c[2, 13] = post[int(term_starts[long_t]) + plan.sample, 0]  # the first sampled row's
+    regimes = {kernels.join_regime(int(n), n_rows, plan) for n in ln[:3].ravel()}
+    if not {"empty", "whole", "sample"} <= regimes:
+        raise AssertionError(f"the crossing batch takes the regimes {regimes}")
+    q_t = O.to_tensors(q_np, DEVICE)
+    for rows in arrays:
+        f_k = O.factors_join(rows, q_t.starts, q_t.lens, c)
+        f_p = O.factors_join_plain(rows.postings, q_t.starts, q_t.lens, c)
+        if not torch.equal(f_k, f_p):
+            raise AssertionError("K11 differs from the plain join on the crossing batch")
+    f_p = O.factors_join_plain(arrays[0].postings, q_t.starts, q_t.lens, c)
+    d_k, s_k = O.score_driver_joined_batch(arrays[0], q_t, c, True, OUT_K)
+    d_2, s_2 = O.score_driver_batch(arrays[0], q_t, f_p, c, True, OUT_K)
+    pg = c[:, :512].contiguous()
+    (q_j, sc_j), (q_3, sc_3) = (O.compute_signals_joined_batch_q16(arrays[0], q_t, ac, pg),
+                                O.compute_signals_from_factors_batch_q16(
+                                    arrays[0], q_t, ac, f_p[:, :, :512].contiguous(), pg))
+    if not (torch.equal(d_k, d_2) and torch.equal(s_k.view(torch.int32), s_2.view(torch.int32))
+            and torch.equal(q_j, q_3) and torch.equal(sc_j.view(torch.int32),
+                                                      sc_3.view(torch.int32))):
+        raise AssertionError("joined stage B or pass 2 differs from K2 / K3 over the join on the "
+                             "crossing batch")
+    log(f"[config kernels] K11 on the crossing batch (regimes {sorted(regimes)}, {plan}): "
+        f"bit-equal to the plain join on q16 and q8 rows; joined stage B and "
+        f"pass 2 bit-equal to K2 and K3 over it")
 
 
 def plain64(arrays, q, device) -> tuple:
@@ -1220,6 +1293,9 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
         lambda: O.factors_join_plain(dev.arrays.postings, qc.starts, qc.lens, cand),
         KD, join_in + 4 * B * Pc * KD, probes, iters=3)
 
+    # ---- K11 over a batch that crosses the join plan's length threshold -----------
+    join_cases(seg, (dev.arrays, dev8.arrays), qc_np, ac, cand)
+
     # ---- joined stage B -------------------------------------------------------------
     run_k = lambda: O.score_driver_joined_batch(dev.arrays, qc, cand, True, OUT_K)  # noqa: E731
     run_p = lambda: O.score_driver_joined_batch_plain(dev.arrays, qc, cand, True, OUT_K)  # noqa
@@ -1234,7 +1310,26 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
         join_in + sum(x.numel() * 4 for x in qc) + 8 * B * OUT_K, probes + 10 * B * Pc * KD,
         iters=3)
 
-    # ---- joined pass 2 at K = 512, K12 ------------------------------------------------
+    # ---- joined pass 2: K3 over the host join, bit for bit, at K = 128 and 512 -------
+    page_np = page.cpu().numpy()
+    for K in (PAGE_K, 512):
+        pg = page[:, :K].contiguous()
+        hp = np.zeros((B, Pc, K), np.int32)
+        for j, (q, _) in enumerate(comp):
+            InvertedIndex._slot_factors_for(seg, q, page_np[j, :K], out=hp[j])
+        hp = T(hp)
+        (qk, sck), (q3, sc3) = (O.compute_signals_joined_batch_q16(dev.arrays, qc, ac, pg),
+                                O.compute_signals_from_factors_batch_q16(dev.arrays, qc, ac, hp,
+                                                                         pg))
+        fk, f3 = (O.compute_signals_joined_batch(dev.arrays, qc, ac, pg),
+                  O._signals_k3(dev.arrays, qc, ac, hp, pg, False))
+        if not (torch.equal(qk, q3) and torch.equal(sck.view(torch.int32), sc3.view(torch.int32))
+                and torch.equal(fk.view(torch.int32), f3.view(torch.int32))):
+            raise AssertionError(f"joined pass 2 at K = {K} differs from K3 over the host join")
+    log(f"[config kernels] joined pass 2 at K = {PAGE_K} and 512: q16 rows, scales and f32 "
+        f"rows bit-equal to K3 over the host join")
+
+    # ---- joined pass 2 at K = 512 against its plain version, K12 ------------------------
     lens_p = int((np.ceil(np.log2(lens + 1)) * 512).sum())
     found_p = int((O.factors_join(dev.arrays, qc.starts, qc.lens, page) != 0).sum())
     sig_bytes = (4 * B * 512 + sum(x.numel() * 4 for x in (*qc, *ac)) + 2 * B * 46 * 512
@@ -1475,14 +1570,24 @@ def model_kernel_phase(forest, rows) -> list:
 
     out = []
     rng = np.random.default_rng(SEED + 4)
-    leaf_sum = float(forest.leaf_value.abs().max(dim=1).values.sum())
-    for k in FOREST_K:
-        x = torch.from_numpy(rows[rng.integers(0, len(rows), size=k)]).to(DEVICE)
-        run_k = lambda: FO.gbdt_forward(*forest._arrays(), x, forest.max_depth)  # noqa: E731
-        run_p = lambda: FO.gbdt_forward_plain(*forest._arrays(), x, forest.max_depth)  # noqa: E731
-        a, b = run_k(), run_p()
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * leaf_sum)
-        out.append(("forest", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), k))
+    deep = deep_forest(rows)
+    for fo, depth in ((forest, forest.max_depth), (deep, 3)):
+        leaf_sum = float(fo.leaf_value.abs().max(dim=1).values.sum())
+        for k in FOREST_K:
+            x = torch.from_numpy(rows[rng.integers(0, len(rows), size=k)]).to(DEVICE)
+            run_k = lambda: FO.gbdt_forward(*fo._arrays(), x, depth)  # noqa: E731
+            run_p = lambda: FO.gbdt_forward_plain(*fo._arrays(), x, depth)  # noqa: E731
+            a, b = run_k(), run_p()
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * leaf_sum)
+            if x.is_cuda and not torch.equal(a.view(torch.int32),
+                                             tree_order_sum(fo, x, depth).view(torch.int32)):
+                raise AssertionError(f"K4 at K = {k} differs from the tree-order f32 sum")
+            if fo is forest:
+                out.append(("forest", float((a - b).abs().max()), time_ms(run_k),
+                            time_ms(run_p), k))
+    log(f"[model kernels] K4 at K = {FOREST_K} on the trained forest and on "
+        f"{FOREST_DEEP_TREES} trees of {FOREST_DEEP} levels walked to depth 3 with negative "
+        f"feature indices: bit-equal to the tree-order f32 sum of the plain walk's leaves")
 
     g = torch.Generator().manual_seed(SEED)
     bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
@@ -1524,6 +1629,38 @@ def model_kernel_phase(forest, rows) -> list:
     torch.testing.assert_close(a, b, rtol=ENC_TOL[0], atol=ENC_TOL[1])
     out.append(("bias_gelu", float((a - b).abs().max()), time_ms(run_k), time_ms(run_p), m))
     return out
+
+
+def deep_forest(rows):
+    """A forest walked past what max_depth 3 lets it reach: FOREST_DEEP_TREES
+    trees of FOREST_DEEP levels trained on the forest's rows (a seeded
+    target), feature indices -3 (wraps into range) and -100 (wraps below 0,
+    clamped) at two roots."""
+    import numpy as np
+
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
+
+    x = np.asarray(rows[:2000], dtype=np.float32)
+    y = x[:, 1] - 3 * x[:, 2] + np.sin(x[:, 9])
+    fo = LambdaMART.train(x, y, num_trees=FOREST_DEEP_TREES, max_depth=FOREST_DEEP,
+                          device="cpu")
+    feature = fo.feature.clone()
+    feature[0, 0], feature[1, 0] = -3, -100
+    return LambdaMART(feature, *(t.numpy() for t in fo._arrays()[1:]), FOREST_DEEP,
+                      device=DEVICE)
+
+
+def tree_order_sum(forest, x, depth: int):
+    """Each tree's leaf value by the plain walk, summed in f32 in tree order
+    t = 0 .. T - 1, the reference's order."""
+    import torch
+
+    from stract_tpu_torch.ops import forest as FO
+
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for t in range(forest.num_trees):
+        acc = acc + FO.gbdt_forward_plain(*(a[t:t + 1] for a in forest._arrays()), x, depth)
+    return acc
 
 
 def bf16_step_close(a, b) -> float:

@@ -149,7 +149,31 @@ under data/). --readings picks groups (default all):
                       P*L: the global table) and with one such query among
                       the 32 sampled (`K1_mixed`). In a tree that plans K1's
                       table and K2's clusters, K1 also over 2 and 8 blocks a
-                      query and K2 over one block.
+                      query and K2 over one block;
+  join                K11, the device factor join, in its three forms on the
+                      scoring group's corpus and queries: alone over the
+                      compacted slots (Pc = 16) and stage A's candidates (the
+                      plain version's, Kd = 4,096: `K11`); joined stage B at
+                      Kd = 4,096, k = 1,024 (`K11_stage_b`); joined pass 2
+                      in q16 rows over the plain joined stage B's top K = 512
+                      and 128 (`K11_pass2`) and in f32 rows at K = 512
+                      (`K11_pass2_f32`); each with its inputs on the card and
+                      with numpy slots and candidates as index/inverted.py
+                      calls it (`..._main_path`; the single-query f32 form
+                      `K11_pass2_f32_single` at K = 128 so only); the slots'
+                      lengths (`K11_slots`: quantiles, and how many are no
+                      longer than 1, 2, 4, 8 and 16 x the candidates). In a
+                      tree with a join plan (`kernels.join_plan`), also each
+                      form at the sample sizes in JOIN_SAMPLES
+                      (`..._plan_sample...`);
+  forest              K4 at K = 256, 4,096 and 16,384 rows of 46 features
+                      (seeded normal rows) through a 40-tree depth-3 forest
+                      (LambdaMART.train on seeded rows, tests' _forest's
+                      recipe), with x on the card (`K4`) and through
+                      LambdaMART.predict on numpy rows (`K4_predict`: the
+                      pad to a power of two and the copies in the call); in
+                      a tree with a forest plan (`kernels.forest_plan`), K4
+                      also over the row tiles in FOREST_TILES.
 For each: `event_ms`, CUDA events around --calls calls (steps for the two
 train steps) after 5 warm-ups (what the host can issue and the card finish:
 the smoke's measure), and `device_ms`, the card's own time for one call,
@@ -184,7 +208,8 @@ MOE_PAIRS, MOE_SHAPES = 32, ((32 * 128, 384, 4), (32 * 128, 768, 16))
 READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
-            "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring")
+            "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring", "join",
+            "forest")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
@@ -194,6 +219,10 @@ CORPUS_DOCS, SCORE_B, SCORE_L, SCORE_C, SCORE_KD, SCORE_K, SCORE_SIG = (
     1_000_000, 32, 1024, 4096, 4096, 1024, 64)
 PAGE_K, MERGE_P, MESH_B, MESH_SHAPES = 512, 64, 16, ((4, 512), (4, 1024), (8, 1024))
 MERGE_WIDE_P = 256
+# the join group's plans: sample sizes of a slot; the forest group's rows,
+# trees, depth and row tiles
+JOIN_SAMPLES = (64, 256, 1024, 4096)
+FOREST_ROWS, FOREST_TREES, FOREST_DEPTH, FOREST_TILES = (256, 4096, 16384), 40, 3, (8, 16, 32, 64)
 
 
 def corpus_dir() -> str:
@@ -576,6 +605,10 @@ def worker(root: str, calls: int, readings: list) -> list:
         moe_step_reading(g, read)
     if "scoring" in readings:
         scoring_readings(smoke, read)
+    if "join" in readings:
+        join_readings(smoke, read, out)
+    if "forest" in readings:
+        forest_readings(read)
     if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
         from stract_tpu_torch.models.bert import BertConfig, BertForEmbedding, random_init
         from stract_tpu_torch.optim import AdamW
@@ -646,6 +679,27 @@ def moe_step_reading(g, read) -> None:
     del model, opt
 
 
+def _shard() -> tuple:
+    """The scoring and join groups' shard: chip_smoke.py's 1M-doc corpus
+    (opened from data/kernel_times_corpus) with its q16 and q8 rows on the
+    card, and its 32 sampled queries' (slots, aggregates) → (index, segment,
+    q16 device segment, q8 device segment, slots)."""
+    import numpy as np
+
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.index.device import DeviceSegment
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ranking.computer import QueryContext, build_slots
+
+    index = InvertedIndex(os.path.join(corpus_dir(), f"bench-{CORPUS_DOCS}"), "cuda")
+    seg = index.segments[0]
+    dev, dev8 = index.device_segment_for(seg), DeviceSegment(seg, "cuda", "q8")
+    queries = bc.sample_queries(np.random.default_rng(0), SCORE_B)
+    ctxs = [QueryContext(raw=q, simple_terms=q.split(), current_ts=1.7e9) for q in queries]
+    slots = [build_slots(c, seg, index.num_docs, index.region_scores()) for c in ctxs]
+    return index, seg, dev, dev8, slots
+
+
 def scoring_readings(smoke, read) -> None:
     """The scoring group (the module docstring); the inputs are made with this
     worker's tree, the helpers (slot padding, compaction, K9's gathered
@@ -653,20 +707,12 @@ def scoring_readings(smoke, read) -> None:
     import numpy as np
     import torch
 
-    from stract_tpu_torch import bench_corpus as bc
-    from stract_tpu_torch.index.device import DeviceSegment
     from stract_tpu_torch.index.inverted import InvertedIndex
     from stract_tpu_torch.ops import kernels
     from stract_tpu_torch.ops import scoring as O
-    from stract_tpu_torch.ranking.computer import QueryContext, build_slots
 
     B, L, C = SCORE_B, SCORE_L, SCORE_C
-    index = InvertedIndex(os.path.join(corpus_dir(), f"bench-{CORPUS_DOCS}"), "cuda")
-    seg = index.segments[0]
-    dev, dev8 = index.device_segment_for(seg), DeviceSegment(seg, "cuda", "q8")
-    queries = bc.sample_queries(np.random.default_rng(0), B)
-    ctxs = [QueryContext(raw=q, simple_terms=q.split(), current_ts=1.7e9) for q in queries]
-    slots = [build_slots(c, seg, index.num_docs, index.region_scores()) for c in ctxs]
+    index, seg, dev, dev8, slots = _shard()
 
     def augmented(d):
         aug = [InvertedIndex._augment_with_impact(seg, d, q, L, 0.5) for q, _ in slots]
@@ -778,6 +824,100 @@ def scoring_readings(smoke, read) -> None:
     del index, dev, dev8
 
 
+def join_readings(smoke, read, out) -> None:
+    """The join group (the module docstring): the inputs are made with this
+    worker's tree; stage A's candidates and pass 2's pages come from plain
+    versions, the same in every tree."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+
+    B, L, C, Kd = SCORE_B, SCORE_L, SCORE_C, SCORE_KD
+    index, seg, dev, dev8, slots = _shard()
+    on_card = lambda tup: O.to_tensors(tup, "cuda")  # noqa: E731
+    aug = [InvertedIndex._augment_with_impact(seg, dev, q, L, 0.5)[0] for q, _ in slots]
+    qa_c = on_card(O.stack(aug))
+    cand = O.score_candidates_batch_plain(dev.arrays, qa_c, L, C, True, True)[0][:, :Kd]
+    comp, Pc = smoke.compacted_slots(slots)
+    qc, ac = O.stack([q for q, _ in comp]), O.stack([a for _, a in comp])
+    qc_c, ac_c, c_c = on_card(qc), on_card(ac), cand.contiguous()
+    c_np = c_c.cpu().numpy()
+    page = O.score_driver_joined_batch_plain(dev.arrays, qc_c, c_c, True, SCORE_K)[0]
+    lens = np.asarray(qc.lens, dtype=np.int64)
+    out.append({"name": "K11_slots", "event_ms": None, "device_ms": None, "B": B, "P": Pc,
+                "lens_quantiles": {str(q): float(np.quantile(lens, q))
+                                   for q in (0, 0.25, 0.5, 0.75, 0.9, 1)},
+                "empty": int((lens == 0).sum()),
+                "at_most_x_candidates": {f"{m} x {K}": int((lens <= m * K).sum())
+                                         for K in (Kd, PAGE_K, 128) for m in (1, 2, 4, 8, 16)}})
+
+    def forms(suffix=""):
+        read(((f"K11{suffix}", lambda: O.factors_join(dev.arrays, qc_c.starts, qc_c.lens, c_c)),
+              (f"K11_main_path{suffix}", lambda: O.factors_join(dev.arrays, qc.starts, qc.lens,
+                                                                c_np))),
+             parts=True, B=B, P=Pc, K=Kd)
+        read(((f"K11_stage_b{suffix}", lambda: O.score_driver_joined_batch(
+                  dev.arrays, qc_c, c_c, True, SCORE_K)),
+              (f"K11_stage_b_main_path{suffix}", lambda: O.score_driver_joined_batch(
+                  dev.arrays, qc, c_np, True, SCORE_K))),
+             parts=True, B=B, P=Pc, K=Kd)
+        for K in (PAGE_K, 128):
+            pg = page[:, :K].contiguous()
+            pg_np = pg.cpu().numpy()
+            read(((f"K11_pass2{suffix}", lambda: O.compute_signals_joined_batch_q16(
+                      dev.arrays, qc_c, ac_c, pg)),
+                  (f"K11_pass2_main_path{suffix}", lambda: O.compute_signals_joined_batch_q16(
+                      dev.arrays, qc, ac, pg_np))),
+                 parts=True, B=B, P=Pc, K=K)
+        pg = page[:, :PAGE_K].contiguous()
+        read(((f"K11_pass2_f32{suffix}", lambda: O.compute_signals_joined_batch(
+                  dev.arrays, qc_c, ac_c, pg)),), parts=True, B=B, P=Pc, K=PAGE_K)
+    forms()
+    q1, a1 = comp[0]
+    pg1 = page[0, :128].cpu().numpy()
+    read((("K11_pass2_f32_single", lambda: O.compute_signals_joined(dev.arrays, q1, a1, pg1)),),
+         parts=True, B=1, P=Pc, K=128)
+    if hasattr(kernels, "join_plan"):  # a tree with a join plan: the others it could take
+        plan_of = kernels.join_plan
+        for sample in JOIN_SAMPLES:
+            kernels.join_plan = lambda *a, f=sample: plan_of(*a)._replace(sample=f)
+            forms(f"_plan_sample{sample}")
+        kernels.join_plan = plan_of
+    del index, dev, dev8
+
+
+def forest_readings(read) -> None:
+    """The forest group (the module docstring)."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.ops import forest as FO
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(400, 46)).astype(np.float32)
+    y = 2 * x[:, 0] + x[:, 5] * x[:, 7] + (x[:, 11] > 0.3)
+    pm = LambdaMART.train(x, y, num_trees=FOREST_TREES, max_depth=FOREST_DEPTH, device="cpu")
+    pm = pm.to("cuda")
+    for K in FOREST_ROWS:
+        rows = rng.normal(size=(K, 46)).astype(np.float32)
+        xc = torch.from_numpy(rows).cuda()
+        read((("K4", lambda: FO.gbdt_forward(*pm._arrays(), xc, pm.max_depth)),
+              ("K4_predict", lambda: pm.predict(rows))), parts=True, K=K)
+        if hasattr(kernels, "forest_plan"):  # a tree with a forest plan: other row tiles
+            plan_of = kernels.forest_plan
+            for tile in FOREST_TILES:
+                kernels.forest_plan = lambda *a, t=tile: plan_of(*a)._replace(rows=t)
+                read(((f"K4_tile{tile}", lambda: FO.gbdt_forward(*pm._arrays(), xc,
+                                                                 pm.max_depth)),),
+                     parts=True, K=K)
+            kernels.forest_plan = plan_of
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", default="change")
@@ -795,7 +935,7 @@ def main() -> int:
         print("kernel_times.py needs an NVIDIA card", file=sys.stderr)
         return 1
     trees = {"change": ROOT, **dict(t.split("=", 1) for t in args.tree)}
-    if "scoring" in args.readings.split(","):  # the corpus every tree's worker opens
+    if {"scoring", "join"} & set(args.readings.split(",")):  # the corpus every worker opens
         sys.path.insert(0, ROOT)
         from stract_tpu_torch import bench_corpus as bc
 

@@ -4,13 +4,21 @@
 // jitted XLA program that advances a [trees, rows] matrix of node indices one
 // level per fori_loop step with gathers, then sums one leaf value per tree.
 //
-// What bounds it: nothing heavy. A forest of T=40 depth-3 trees is 40 x 7
-// nodes; per row the walk is T * max_depth dependent loads from shared memory
-// plus one read of the row's feature vector (46 floats), so the kernel is
-// latency-bound on the dependent loads and, at the serving sizes (K = a few
-// hundred to 16k rows), on the launch itself. The design keeps it simple: one
-// thread per row, the whole forest copied once per block into shared memory,
-// the row's features read through L1, trees summed in order 0..T-1 in f32.
+// What bounds it: nothing heavy. A forest of T = 40 depth-3 trees is 40 x 7
+// nodes; a row's work is T walks of max_depth dependent steps and one read
+// of its 46 features, so the kernel is latency-bound on the dependent steps
+// and, at the serving sizes (K = 256 to 16,384 rows), on the launch itself.
+// The design shortens the chain: a block takes a tile of `rows` rows, stages
+// their features in shared memory with coalesced 16-byte loads (each row at
+// a stride of F + 1 floats, odd where F is even, so that lanes on
+// neighbouring rows read distinct banks), and the forest once, a node as one
+// 16-byte word (feature, threshold, left, right); a thread then walks one
+// (row, tree) pair at a time, lanes on neighbouring rows of one tree, so a
+// thread's chain is max_depth steps, not T x max_depth, and writes the leaf
+// value to shared memory; then one thread a row sums its T leaf values in
+// order t = 0 .. T - 1 in f32, the reference's order, so the output is the
+// same bits as a tree-order f32 loop. ops/kernels.py forest_plan sizes the
+// tile (K = 256 over 32 blocks; K = 16,384 in 512, one wave).
 //
 // Semantics kept from the reference, step for step:
 //   - children >= 0 are internal nodes; leaves are encoded -(leaf + 1) and a
@@ -23,48 +31,82 @@
 //     gather clamps into [0, F).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
+struct Node {
+    int feature;
+    float threshold;
+    int left;
+    int right;
+};
+
+// Dynamic shared memory: the nodes [T * N], the leaves [T * L], the tile's
+// features [rows][F + pad] and its leaf values [T][rows].
 __global__ void __launch_bounds__(kThreads)
 forest_kernel(const int* __restrict__ feature, const float* __restrict__ threshold,
               const int* __restrict__ left, const int* __restrict__ right,
               const float* __restrict__ leaf_value, const float* __restrict__ x,
-              float* __restrict__ out, int T, int N, int L, int K, int F, int max_depth) {
-    extern __shared__ unsigned char smem[];
-    int* s_feat = reinterpret_cast<int*>(smem);
-    float* s_thr = reinterpret_cast<float*>(s_feat + T * N);
-    int* s_left = reinterpret_cast<int*>(s_thr + T * N);
-    int* s_right = s_left + T * N;
-    float* s_leaf = reinterpret_cast<float*>(s_right + T * N);
-    for (int i = threadIdx.x; i < T * N; i += blockDim.x) {
-        s_feat[i] = feature[i];
-        s_thr[i] = threshold[i];
-        s_left[i] = left[i];
-        s_right[i] = right[i];
+              float* __restrict__ out, int T, int N, int L, int K, int F, int max_depth, int rows,
+              int stride) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Node* s_node = reinterpret_cast<Node*>(smem);
+    float* s_leaf = reinterpret_cast<float*>(s_node + T * N);
+    float* s_x = s_leaf + T * L;
+    float* s_val = s_x + rows * stride;
+    const int tid = threadIdx.x;
+    for (int i = tid; i < T * N; i += kThreads)
+        s_node[i] = Node{feature[i], threshold[i], left[i], right[i]};
+    for (int i = tid; i < T * L; i += kThreads) s_leaf[i] = leaf_value[i];
+    // the tile's features: the flat range [row0 F, row0 F + n F), its aligned
+    // body in 16-byte pieces, each value placed at its row's padded stride
+    const int row0 = blockIdx.x * rows, n = min(rows, K - row0);
+    const long long a = (long long)row0 * F, e = a + (long long)n * F;
+    auto place = [&](long long i, float v) {
+        const int rel = (int)(i - a), r = rel / F;
+        s_x[r * stride + rel - r * F] = v;
+    };
+    long long b = (a + 3) & ~3ll;  // the first element on a 16-byte boundary
+    if ((reinterpret_cast<uintptr_t>(x) & 15) != 0) b = e;  // x itself misaligned: no pieces
+    const long long head = b < e ? b : e;
+    for (long long i = a + tid; i < head; i += kThreads) place(i, x[i]);
+    const long long pieces = head < e ? (e - head) / 4 : 0;
+    const float4* x4 = reinterpret_cast<const float4*>(x + head);
+    for (long long pc = tid; pc < pieces; pc += kThreads) {
+        const float4 v = x4[pc];
+        const long long i = head + 4 * pc;
+        place(i, v.x);
+        place(i + 1, v.y);
+        place(i + 2, v.z);
+        place(i + 3, v.w);
     }
-    for (int i = threadIdx.x; i < T * L; i += blockDim.x) s_leaf[i] = leaf_value[i];
+    for (long long i = head + 4 * pieces + tid; i < e; i += kThreads) place(i, x[i]);
     __syncthreads();
 
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= K) return;
-    const float* row = x + static_cast<long long>(k) * F;
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) {
+    // a (row, tree) pair a thread at a time, lanes on neighbouring rows
+    for (int pr = tid; pr < n * T; pr += kThreads) {
+        const int t = pr / n, r = pr - t * n;
+        const float* row = s_x + r * stride;
+        const Node* tree = s_node + t * N;
         int cur = 0;
         for (int s = 0; s < max_depth && cur >= 0; ++s) {
-            const int node = t * N + min(cur, N - 1);
-            int f = s_feat[node];
+            const Node nd = tree[min(cur, N - 1)];
+            int f = nd.feature;
             if (f < 0) f += F;
             f = min(max(f, 0), F - 1);
-            cur = row[f] <= s_thr[node] ? s_left[node] : s_right[node];
+            cur = row[f] <= nd.threshold ? nd.left : nd.right;
         }
-        const int leaf = min(max(-cur - 1, 0), L - 1);
-        acc += s_leaf[t * L + leaf];
+        s_val[t * rows + r] = s_leaf[t * L + min(max(-cur - 1, 0), L - 1)];
     }
-    out[k] = acc;
+    __syncthreads();
+    for (int r = tid; r < n; r += kThreads) {
+        float acc = 0.0f;
+        for (int t = 0; t < T; ++t) acc += s_val[t * rows + r];
+        out[row0 + r] = acc;
+    }
 }
 
 }  // namespace
@@ -72,21 +114,26 @@ forest_kernel(const int* __restrict__ feature, const float* __restrict__ thresho
 extern "C" {
 
 // feature/left/right i32[T, N], threshold f32[T, N], leaf_value f32[T, L],
-// x f32[K, F] -> out f32[K]. Returns the CUDA status of the launch.
+// x f32[K, F] -> out f32[K], `rows` rows a block (ops/kernels.py forest_plan).
+// Returns the CUDA status of the launch.
 int stract_forest(const int* feature, const float* threshold, const int* left,
                   const int* right, const float* leaf_value, const float* x, float* out,
-                  int T, int N, int L, int K, int F, int max_depth, cudaStream_t stream) {
+                  int T, int N, int L, int K, int F, int max_depth, int rows,
+                  cudaStream_t stream) {
     if (K <= 0) return cudaSuccess;
-    // the whole forest in shared memory: four i32/f32 node arrays and the leaves
-    const long long smem = 16LL * T * N + 4LL * T * L;
+    if (T < 1 || N < 1 || L < 1 || F < 1 || rows < 1) return cudaErrorInvalidValue;
+    const int stride = F % 2 == 0 ? F + 1 : F;
+    const long long smem = 16LL * T * N + 4LL * T * L + 4LL * rows * stride + 4LL * T * rows;
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             forest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
         if (err != cudaSuccess) return err;
     }
-    const int blocks = (K + kThreads - 1) / kThreads;
+    const int blocks = (K + rows - 1) / rows;
     forest_kernel<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
-        feature, threshold, left, right, leaf_value, x, out, T, N, L, K, F, max_depth);
+        feature, threshold, left, right, leaf_value, x, out, T, N, L, K, F, max_depth, rows,
+        stride);
     return cudaGetLastError();
 }
 

@@ -46,7 +46,7 @@
 //     the top sig_k columns with their P factor words staged in shared
 //     memory once (each signal entry summed over p in the same order).
 //     Bound by reading the i32[P, Kd] factors once.
-// Top-K (K1, K2, K13's tail, K9, the joined K2): `top_keys` over keys held
+// Top-K (K1, K2, K13's tail, K9): `top_keys` over keys held
 //     by one block or by a cluster's blocks, in the order key descending,
 //     ties to the lower payload (doc, column or index). Zero keys (empty or
 //     invalid) enter no histogram. Where every block's nonzero keys fit its
@@ -55,7 +55,7 @@
 //     histograms take one shared atomic per distinct digit of a warp
 //     (__match_any_sync), and of the keys equal to it those with the lowest
 //     payloads win (in index order where the payloads rise with it: K2,
-//     K13's tail, K9, the joined K2; else, K1's docs, by a second radix
+//     K13's tail, K9; else, K1's docs, by a second radix
 //     select over their payloads where more tie than win), so both regimes
 //     give the same winners, whatever slots K1's hash table gave them. Each
 //     block sorts its winners (bitonic, the stages
@@ -77,7 +77,10 @@
 //     the block quantises its rows (rintf, round half to even like
 //     jnp.round) from shared memory in 16-byte pieces. Bound by latency:
 //     ~32 KB of factors a query at K = 512, P = 16, and a chain of loads
-//     and barriers a block.
+//     and barriers a block. With the join (joined pass 2) it also writes f32
+//     rows, each value as signal_entry sums it, and takes any K and P: past
+//     its shared memory the values wait in an f32 matrix in device memory
+//     and the coefficients are read where they lie.
 //
 //
 // The same programs under the search path's other configurations:
@@ -95,18 +98,28 @@
 //     (sum - n*U) + ub_total, the reference's own expression, so the only
 //     rounding that differs from the reference is the order of the sum
 //     (slot order), as without UB.
-// K11 stract_factors_join replaces factors_join (:749): per (slot, candidate)
-//     a binary search of the candidate's doc in the slot's full doc-ascending
-//     range of the postings on the card (the lockstep loop of :728-737 gives
-//     what a per-thread lower bound gives). Bound by ~log2(len) dependent
-//     random reads per pair; neighbouring threads search the same slot, so the
-//     upper levels of each search come from L1/L2. stract_stage_b_joined
-//     (score_driver_joined[_batch] :760, :770) and stract_signals_search
-//     (compute_signals_joined* :894, :912, :922) run the same search inside
-//     stage B and pass 2 and never write the [B, P, Kd] matrix: stage B holds
-//     a candidate's P factors in registers, pass 2 a chunk of columns in
-//     shared memory.
-// K12 stract_signals_search with L > 0 replaces compute_signals[_batch]
+// K11 stract_factors_join replaces factors_join (:749) and the join inside
+//     score_driver_joined[_batch] (:760, :770) and compute_signals_joined*
+//     (:894, :912, :922): out[b, p, c], the packed factors of candidate c in
+//     slot p's full doc-ascending range. A block a (1,024 candidates, slot,
+//     query), 4 candidates a thread bisected in lockstep; the block stages a
+//     sample of the slot's range in shared memory (every ceil(len /
+//     sample)-th doc; a range no longer than the sample whole), which places
+//     each search in one interval of it; the search ends in global memory
+//     there. Empty slots (three quarters of the main path's compacted slots)
+//     write zeros and leave. ops/kernels.py join_plan picks the sample (256
+//     docs). The output equals the reference's lockstep search on every
+//     doc-ascending range, and a range too long for the reference's fixed
+//     step count to converge on is bisected for those steps alone. Joined
+//     stage B and joined pass 2 are this join into an on-card [B, P, K]
+//     matrix (8 MB at Kd = 4,096, 1 MB at K = 512: L2-resident), then K2
+//     (unfused) and K3 as they stand, so their outputs are those of K2 and
+//     K3 over the host join, bit for bit. Bound by the sectors its probes
+//     touch: about 10 a search below the sample, each its own, in ~40
+//     posting lists of up to 12 MB (a doc sort of the candidates, a merge
+//     path, interpolation probes and the join inside K2's blocks all read
+//     slower: PERF.md §6).
+// K12 stract_signals_prefix replaces compute_signals[_batch]
 //     (:492, :859): pass 2 from the first L rows of each slot only, by the
 //     reference's fixed-step search over the [P, L] tile (_slot_factor_lookup
 //     :450), step for step, so a tf-ordered impact slot gives the
@@ -209,6 +222,13 @@ constexpr int TABLE_SLOT_BYTES = 20;
 constexpr int MAX_DYN_SMEM = 224 * 1024;
 constexpr int TAIL_STAGE_WORDS = 16384;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// K11: a join block's threads, the candidates each searches at once, the
+// candidates a block takes, and the most docs of a slot's sample it stages
+// (ops/kernels.py join_plan picks within it)
+constexpr int JOIN_THREADS = 256;
+constexpr int JOIN_ILP = 4;
+constexpr int JOIN_CANDS = JOIN_THREADS * JOIN_ILP;
+constexpr int JOIN_CAP = 16384;
 
 }  // namespace
 
@@ -422,24 +442,6 @@ __device__ __forceinline__ int row_factors(const int* __restrict__ postings, lon
   return (int)(((((w1 >> 24) & 0xFFu) * 257u) << 16) | (((w1 >> 16) & 0xFFu) * 257u));
 }
 
-// ops/scoring.py _factors_join_one for one (slot, candidate): the packed
-// factors of doc in the slot's doc-ascending range [start, start + len), 0 if
-// absent. Offsets are 64-bit: start + len runs over all Ptot rows.
-__device__ int join_lookup(const int* __restrict__ postings, long long n_rows, int W,
-                           long long start, long long len, int doc) {
-  long long lo = start, hi = start + len;
-  const long long end = hi;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    const long long r = mid < n_rows - 1 ? mid : n_rows - 1;
-    if (row_doc(postings, r, W) < doc) lo = mid + 1;
-    else hi = mid;
-  }
-  if (lo >= end) return 0;
-  const long long r = lo < n_rows - 1 ? lo : n_rows - 1;
-  return row_doc(postings, r, W) == doc ? row_factors(postings, r, W) : 0;
-}
-
 // ops/scoring.py _gather_packed + _slot_factor_lookup for one (slot,
 // candidate): the reference's fixed-step search over the slot's L-row tile
 // (rows past min(len, L) hold the pad doc and no factors), step for step,
@@ -521,7 +523,7 @@ __device__ void quantize_rows(const float* sv, int nrows, int n, short* out_q, f
 }
 
 // ---- the shared top-K --------------------------------------------------------
-// The blocks that share one selection: one block (K9, the joined K2) or a
+// The blocks that share one selection: one block (K9) or a
 // thread block cluster (K1, K2, K13), whose blocks each hold a part of the
 // keys and reach each other's shared memory.
 struct BlockScope {
@@ -1917,10 +1919,15 @@ __global__ void __launch_bounds__(SELECT_THREADS, 1) stage_b_kernel(
 // zero coefficient left out, the values into shared memory and each row's
 // largest magnitude into registers. The row maxima are reduced over the
 // block, and the block quantises its rows from shared memory (rintf: half
-// to even), 16-byte pieces where the rows allow.
+// to even), 16-byte pieces where the rows allow. f32 rows (out_q null) go
+// straight to `rows`, each value as signal_entry sums it, and nothing is
+// quantised. Past what shared memory holds, a q16 call's values wait in
+// `rows` (f32 [B, nsig, K] in device memory) and, past that too (STAGED
+// false), the coefficients are read where they lie, every slot walked.
+template <bool STAGED>
 __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
     const int* __restrict__ factors, const int* __restrict__ cand, int K, SegArgs s,
-    SignalArgs a, float inv_fs, int vec, short* out_q, float* out_scale) {
+    SignalArgs a, float inv_fs, int vec, float* rows, short* out_q, float* out_scale) {
   constexpr int R = SIG_ROWS;
   extern __shared__ __align__(16) float sig_smem[];
   __shared__ float wmax[SIG_THREADS / 32][R];
@@ -1932,26 +1939,43 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
   const int b = blockIdx.x, r0 = blockIdx.y * R, tid = threadIdx.x, P = a.P;
   const int nr = min(R, a.nsig - r0), rf = a.bm25f_row - r0;
   const bool has_f = rf >= 0 && rf < nr;
-  float* cb = sig_smem;    // [R][P] the rows' bm25 coefficients
-  float* ci = cb + R * P;  // their idf coefficients
-  float* cc = ci + R * P;  // their coverage coefficients
-  float* cf = cc + R * P;  // [P] the bm25f row's
-  float* sidf = cf + P;    // [P] the slots' idf
-  int* live = reinterpret_cast<int*>(sidf + P);   // [P] the slots any of the rows reads
-  float* sv = reinterpret_cast<float*>(live + P);  // [R][K] the rows' values
   const float* bm25 = a.bm25 + b * a.stride[3] + (long long)r0 * P;
   const float* aidf = a.aidf + b * a.stride[5] + (long long)r0 * P;
   const float* cov = a.cov + b * a.stride[6] + (long long)r0 * P;
-  for (int t = tid; t < R * P; t += SIG_THREADS) {  // rows past nsig hold zeros
-    const bool in = t < nr * P;
-    cb[t] = in ? bm25[t] : 0.0f;
-    ci[t] = in ? aidf[t] : 0.0f;
-    cc[t] = in ? cov[t] : 0.0f;
+  // [R][P] the rows' bm25, idf and coverage coefficients, [P] the bm25f
+  // row's and the slots' idf, [P] the slots any of the rows reads
+  const float *cb = bm25, *ci = aidf, *cc = cov;
+  const float* cf = a.bm25f + b * a.stride[4];
+  const float* sidf = a.idf + b * a.stride[0];
+  int* live = nullptr;
+  float* sv;  // [R][K] the rows' values
+  if (STAGED) {
+    float* sb = sig_smem;
+    float* si = sb + R * P;
+    float* sc = si + R * P;
+    float* sf = sc + R * P;
+    float* sd = sf + P;
+    int* sl = reinterpret_cast<int*>(sd + P);
+    for (int t = tid; t < R * P; t += SIG_THREADS) {  // rows past nsig hold zeros
+      const bool in = t < nr * P;
+      sb[t] = in ? bm25[t] : 0.0f;
+      si[t] = in ? aidf[t] : 0.0f;
+      sc[t] = in ? cov[t] : 0.0f;
+    }
+    for (int t = tid; t < P; t += SIG_THREADS) {
+      sf[t] = cf[t];
+      sd[t] = sidf[t];
+    }
+    cb = sb, ci = si, cc = sc, cf = sf, sidf = sd, live = sl;
+    sv = reinterpret_cast<float*>(sl + P);
+  } else {
+    sv = sig_smem;
   }
-  for (int t = tid; t < P; t += SIG_THREADS) {
-    cf[t] = a.bm25f[b * a.stride[4] + t];
-    sidf[t] = a.idf[b * a.stride[0] + t];
-  }
+  if (rows != nullptr) sv = rows + ((long long)b * a.nsig + r0) * K;
+  // a row's coefficient of slot p (0 past nsig)
+  auto coef = [&](const float* c, int r, int p) {
+    return (STAGED || r < nr) ? c[r * P + p] : 0.0f;
+  };
   if (tid < nr) {
     const int sg = r0 + tid;
     src[tid] = sg == a.region_row ? -2 : sg == a.update_row ? -3 : a.static_of_sig[sg];
@@ -1963,7 +1987,7 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
   // rows are sparse (a slot feeds about one row of each matrix), and a term
   // with a zero coefficient adds +-0 to a sum that is never -0, so skipping
   // it leaves the same bits
-  if (tid < 32) {
+  if (STAGED && tid < 32) {
     int cnt = 0;
     for (int p0 = 0; p0 < P; p0 += 32) {
       const int p = p0 + tid;
@@ -1980,8 +2004,9 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
     if (tid == 0) n_live = cnt;
   }
   __syncthreads();
-  const int nl = n_live;
+  const int nl = STAGED ? n_live : P;
   const int* F = factors + (long long)b * P * K;
+  const bool quant = out_q != nullptr;
   float m[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) m[r] = 0.0f;
@@ -2005,13 +2030,13 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
     for (int r = 0; r < R; ++r) vb[r] = vi[r] = vc[r] = 0.0f;
 #pragma unroll 4
     for (int i = 0; i < nl; ++i) {
-      const int p = live[i];
+      const int p = STAGED ? live[i] : i;
       const int f = F[(long long)p * K + j];
       const float id = sidf[p], pres = f != 0 ? 1.0f : 0.0f;
       const float x1 = id * ((float)((f >> 16) & 0xFFFF) * inv_fs), xp = id * pres;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float wb = cb[r * P + p], wi = ci[r * P + p], wc = cc[r * P + p];
+        const float wb = coef(cb, r, p), wi = coef(ci, r, p), wc = coef(cc, r, p);
         if (wb != 0.0f) vb[r] += wb * x1;
         if (wi != 0.0f) vi[r] += wi * xp;
         if (wc != 0.0f) vc[r] += wc * pres;
@@ -2041,6 +2066,7 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
       m[r] = fmaxf(m[r], fabsf(v));
     }
   }
+  if (!quant) return;
   // each row's largest magnitude over the block
   const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll
@@ -2082,130 +2108,117 @@ __global__ void __launch_bounds__(SIG_THREADS) signals_q16_kernel(
 }
 
 // ---- K11 ----------------------------------------------------------------------
-// the join alone: out[b, p, c] = factors of cand[b, c] in slot (b, p)
-__global__ void factors_join_kernel(const int* __restrict__ postings, long long n_rows, int W,
-                                    const int* __restrict__ starts, const int* __restrict__ lens,
-                                    const int* __restrict__ cand, int P, int Kd, int* out) {
-  const int b = blockIdx.z, p = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Kd) return;
-  const int bp = b * P + p;
-  out[(long long)bp * Kd + c] =
-      join_lookup(postings, n_rows, W, starts[bp], lens[bp], cand[(long long)b * Kd + c]);
-}
-
-// joined stage B, first half: one thread per candidate joins its P factors
-// and folds them as stage_b_kernel does; the ordered key goes to skey[b, S]
-__global__ void stage_b_joined_keys(const int* __restrict__ postings, long long n_rows, int W,
-                                    const int* __restrict__ cand, int Kd, SegArgs s, QueryArgs q,
-                                    int default_static, float inv_fs, int S, unsigned* skey) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= S) return;
-  const int P = q.P;
-  unsigned key = 0;
-  if (c < Kd) {
-    const int doc = cand[(long long)b * Kd + c];
-    const int* st = q.starts + (long long)b * P;
-    const int* ln = q.lens + (long long)b * P;
-    const int* grp = q.group + (long long)b * P;
-    const float* w1 = q.w_bm25 + (long long)b * P;
-    const float* w2 = q.w_bm25f + (long long)b * P;
-    const float* wp = q.w_presence + (long long)b * P;
-    float text = 0.0f;
-    unsigned m = 0;
-    bool excl = false;
-    for (int p = 0; p < P; ++p) {
-      const int f = join_lookup(postings, n_rows, W, st[p], ln[p], doc);
-      const bool pres = f != 0;
-      const float f1 = (float)((f >> 16) & 0xFFFF) * inv_fs;
-      const float f2 = (float)(f & 0xFFFF) * inv_fs;
-      text += w1[p] * f1 + w2[p] * f2 + wp[p] * (pres ? 1.0f : 0.0f);
-      const int g = grp[p];
-      if (pres) {
-        if (g < MAX_GROUPS) m |= 1u << g;
-        else if (g == EXCLUDED_GROUP) excl = true;
+// The join alone and before K2 and K3: out[b, p, c] = the packed factors of
+// cand[b, c] in slot (b, p), 0 where absent. A block takes JOIN_CANDS
+// candidates of one (slot, query), JOIN_ILP a thread searched in lockstep
+// (the loads of a step in flight together), and first stages a sample of the
+// slot's doc-ascending range in shared memory, read once: every step-th doc,
+// step = ceil(len / sample) (step 1: the whole range, and the search ends
+// there). The sample places each candidate's lower bound in one interval of
+// it, and bisection ends the search in global memory inside that interval.
+// A range of 2^steps rows or more (steps the reference's fixed count, the
+// bit length of n_rows - 1) is bisected whole for those steps alone, as the
+// reference does, so that what it returns where that loop has not converged
+// is the reference's too. Every probe's row is clamped to n_rows - 1;
+// offsets into the rows are 64-bit. Empty slots (most of the compacted
+// slots) write zeros and leave.
+__global__ void __launch_bounds__(JOIN_THREADS) join_kernel(
+    const int* __restrict__ postings, long long n_rows, int W, const int* __restrict__ starts,
+    const int* __restrict__ lens, const int* __restrict__ cand, int P, int Kd, int steps,
+    int sample, int* __restrict__ out) {
+  extern __shared__ int A[];  // the sample [ceil(len / step)]
+  const int b = blockIdx.z, p = blockIdx.y, tid = threadIdx.x;
+  const int c0 = blockIdx.x * JOIN_CANDS, c1 = min(Kd, c0 + JOIN_CANDS);
+  const long long bp = (long long)b * P + p;
+  const long long start = starts[bp];
+  const int len = lens[bp];
+  const int* C = cand + (long long)b * Kd;
+  int* O = out + bp * Kd;
+  if (len <= 0) {
+    for (int j = c0 + tid; j < c1; j += JOIN_THREADS) O[j] = 0;
+    return;
+  }
+  auto row = [&](long long i) {  // range row i, clamped to the last row
+    return start + i < n_rows - 1 ? start + i : n_rows - 1;
+  };
+  const bool reference = (len >> steps) != 0;
+  const int step = reference ? len : (int)(((long long)len + sample - 1) / sample);
+  const int ns = (len + step - 1) / step, cap = reference ? steps : 64;
+  for (int k = tid; k < ns; k += JOIN_THREADS) A[k] = row_doc(postings, row((long long)k * step), W);
+  __syncthreads();
+  int c[JOIN_ILP], lo[JOIN_ILP], hi[JOIN_ILP];
+#pragma unroll
+  for (int u = 0; u < JOIN_ILP; ++u) {
+    const int j = c0 + tid + u * JOIN_THREADS;
+    c[u] = j < c1 ? C[j] : 0;
+    // the first sampled doc not below c: the lower bound is in ((a - 1) step, a step]
+    int a = 0, z = reference ? 0 : ns;
+    while (a < z) {
+      const int m = (a + z) >> 1;
+      if (A[m] < c[u]) a = m + 1;
+      else z = m;
+    }
+    lo[u] = a == 0 ? 0 : (a - 1) * step + 1;
+    hi[u] = reference ? len : a < ns ? a * step : len;
+  }
+  // bisection of the N intervals in lockstep, at most cap steps
+  for (int it = 0; it < cap; ++it) {
+    int d[JOIN_ILP];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < JOIN_ILP; ++u) {
+      if (lo[u] < hi[u]) {
+        any = true;
+        d[u] = row_doc(postings, row((int)(((unsigned)lo[u] + (unsigned)hi[u]) >> 1)), W);
       }
     }
-    const bool valid = doc < s.num_docs && __popc(m) >= q.n_required[b] && !excl;
-    if (valid) key = order_key(text + query_static(s, q, b, doc, default_static != 0));
+    if (!any) break;
+#pragma unroll
+    for (int u = 0; u < JOIN_ILP; ++u) {
+      if (lo[u] < hi[u]) {
+        const int mid = (int)(((unsigned)lo[u] + (unsigned)hi[u]) >> 1);
+        if (d[u] < c[u]) lo[u] = mid + 1;
+        else hi[u] = mid;
+      }
+    }
   }
-  skey[(long long)b * S + c] = key;
-}
-
-// second half: the shared top-K of the Kd keys (K2's selection, so the
-// outputs equal K2's over the same factors), top k out
-__global__ void __launch_bounds__(1024) stage_b_joined_select(
-    const unsigned* __restrict__ skey, const int* __restrict__ cand, int Kd, int num_docs, int k,
-    int S, int* out_docs, float* out_scores) {
-  __shared__ unsigned long long kv[MAX_SORT];
-  __shared__ SelectState sel;
-  const int b = blockIdx.x;
-  const int* C = cand + (long long)b * Kd;
-  BlockScope scope;
-  const int n_w = top_keys<true>(scope, sel, skey + (long long)b * S, Kd, k,
-                                 [](int i) { return i; }, kv, [&](int pos, unsigned key, int c) {
-                             out_docs[(long long)b * k + pos] = C[c];
-                             out_scores[(long long)b * k + pos] = key_value(key);
-                           });
-  for (int j = n_w + threadIdx.x; j < k; j += blockDim.x) {
-    out_docs[(long long)b * k + j] = num_docs;
-    out_scores[(long long)b * k + j] = -INFINITY;
+  // the factor word of row lo where it lies in the range and holds c
+#pragma unroll
+  for (int u = 0; u < JOIN_ILP; ++u) {
+    const int j = c0 + tid + u * JOIN_THREADS;
+    if (j >= c1) continue;
+    const bool in = lo[u] < len && row_doc(postings, row(lo[u]), W) == c[u];
+    O[j] = in ? row_factors(postings, row(lo[u]), W) : 0;
   }
 }
 
-// ---- K11 in pass 2, and K12 ---------------------------------------------------
+// ---- K12 ------------------------------------------------------------------------
 // One block per query. The candidates go through in chunks of CH columns:
-// the block searches the chunk's P x CH factors into shared memory (the full
-// range join, or with PREFIX the reference's L-row tile search), then
-// evaluates the nsig x CH signal entries from them (K3's tail). f32 rows go
-// straight out; q16 rows need each row's absmax first, so the chunks are
-// walked twice: once for the absmax, once to quantise.
-template <bool PREFIX>
-__global__ void __launch_bounds__(512) signals_search_kernel(
+// the block searches the chunk's P x CH factors into shared memory (the
+// reference's L-row tile search), then evaluates the nsig x CH signal
+// entries from them (K3's tail) straight into the f32 rows.
+__global__ void __launch_bounds__(512) signals_prefix_kernel(
     const int* __restrict__ postings, long long n_rows, int W, const int* __restrict__ cand, int K,
-    int L, int steps, int CH, SegArgs s, QueryArgs q, AggArgs a, float inv_fs, float* out_f32,
-    short* out_q, float* out_scale) {
+    int L, int steps, int CH, SegArgs s, QueryArgs q, AggArgs a, float inv_fs, float* out) {
   extern __shared__ int fac[];  // [P][CH]
-  __shared__ unsigned amax[MAX_NSIG];
   const int b = blockIdx.x, P = q.P;
   const int* C = cand + (long long)b * K;
   const int* st = q.starts + (long long)b * P;
   const int* ln = q.lens + (long long)b * P;
-  const bool quant = out_q != nullptr;
-  for (int i = threadIdx.x; i < a.nsig; i += blockDim.x) amax[i] = 0u;
-  __syncthreads();
-  for (int pass = 0; pass < (quant ? 2 : 1); ++pass) {
-    for (int c0 = 0; c0 < K; c0 += CH) {
-      const int n = K - c0 < CH ? K - c0 : CH;
-      for (int t = threadIdx.x; t < P * n; t += blockDim.x) {
-        const int p = t / n, j = t - p * n;
-        const int doc = C[c0 + j];
-        fac[p * CH + j] = PREFIX
-            ? prefix_lookup(postings, n_rows, W, st[p], ln[p], L, steps, doc, s.num_docs)
-            : join_lookup(postings, n_rows, W, st[p], ln[p], doc);
-      }
-      __syncthreads();
-      for (int t = threadIdx.x; t < a.nsig * n; t += blockDim.x) {
-        const int sg = t / n, j = t - sg * n;
-        const float v = signal_entry(sg, fac + j, CH, C[c0 + j], b, s, q, a, inv_fs);
-        const long long o = ((long long)b * a.nsig + sg) * K + c0 + j;
-        if (!quant) {
-          out_f32[o] = v;
-        } else if (pass == 0) {
-          atomicMax(&amax[sg], __float_as_uint(fabsf(v)));  // non-negative floats order as bits
-        } else {
-          const float scale = fmaxf(__uint_as_float(amax[sg]), 1e-30f) * (1.0f / 32767.0f);
-          out_q[o] = (short)rintf(v / scale);
-        }
-      }
-      __syncthreads();
+  for (int c0 = 0; c0 < K; c0 += CH) {
+    const int n = K - c0 < CH ? K - c0 : CH;
+    for (int t = threadIdx.x; t < P * n; t += blockDim.x) {
+      const int p = t / n, j = t - p * n;
+      fac[p * CH + j] = prefix_lookup(postings, n_rows, W, st[p], ln[p], L, steps, C[c0 + j],
+                                      s.num_docs);
     }
-    if (quant && pass == 0) {
-      for (int i = threadIdx.x; i < a.nsig; i += blockDim.x)
-        out_scale[(long long)b * a.nsig + i] =
-            fmaxf(__uint_as_float(amax[i]), 1e-30f) * (1.0f / 32767.0f);
+    __syncthreads();
+    for (int t = threadIdx.x; t < a.nsig * n; t += blockDim.x) {
+      const int sg = t / n, j = t - sg * n;
+      out[((long long)b * a.nsig + sg) * K + c0 + j] =
+          signal_entry(sg, fac + j, CH, C[c0 + j], b, s, q, a, inv_fs);
     }
+    __syncthreads();
   }
 }
 
@@ -2487,85 +2500,71 @@ int stract_stage_b(const SegArgs* s, const QueryArgs* q, const AggArgs* a, const
 }
 
 // K3. factors i32[B, P, K], cand i32[B, K] and each query's rows of `a` ->
-// q i16[B, nsig, K], scale f32[B, nsig].
+// q i16[B, nsig, K], scale f32[B, nsig]; or (out_q null) the f32 rows
+// `rows` [B, nsig, K]. staged: the coefficients in shared memory; rows
+// non-null with out_q: the q16 form's values wait there (f32 [B, nsig, K]),
+// null: in shared memory. ops/kernels.py signals_plan picks both within
+// MAX_DYN_SMEM.
 int stract_signals_q16(const SegArgs* s, const SignalArgs* a, const int* factors, const int* cand,
-                       int B, int K, float inv_fs, short* out_q, float* out_scale,
-                       cudaStream_t stream) {
-  if (K < 1 || K > MAX_SORT || B < 1 || B > 65535 || a->P < 1 || a->nsig < 1)
+                       int B, int K, float inv_fs, int staged, float* rows, short* out_q,
+                       float* out_scale, cudaStream_t stream) {
+  if (K < 1 || B < 1 || B > 65535 || a->P < 1 || a->nsig < 1 ||
+      (out_q == nullptr && rows == nullptr) || (out_q != nullptr && out_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)(3 * SIG_ROWS + 3) * a->P + (size_t)SIG_ROWS * K) * 4;
+  const size_t smem = (staged ? (size_t)(3 * SIG_ROWS + 3) * a->P * 4 : 0) +
+                      (rows == nullptr ? (size_t)SIG_ROWS * K * 4 : 0);
   if (smem > (size_t)MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = staged ? signals_q16_kernel<true> : signals_q16_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        signals_q16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int vec = K % 8 == 0 && (reinterpret_cast<uintptr_t>(out_q) & 15) == 0;
   const dim3 grid(B, (a->nsig + SIG_ROWS - 1) / SIG_ROWS);
-  signals_q16_kernel<<<grid, SIG_THREADS, smem, stream>>>(factors, cand, K, *s, *a, inv_fs, vec,
-                                                          out_q, out_scale);
+  kernel<<<grid, SIG_THREADS, smem, stream>>>(factors, cand, K, *s, *a, inv_fs, vec, rows, out_q,
+                                              out_scale);
   return (int)cudaGetLastError();
 }
 
 // K11. postings i32[n_rows, row_w]; starts, lens i32[B, P]; cand i32[B, Kd] ->
-// out i32[B, P, Kd].
+// out i32[B, P, Kd], the ranges doc-ascending. Each range is sampled at up
+// to `sample` <= JOIN_CAP docs (ops/kernels.py join_plan); steps is the
+// reference's step count, the bit length of n_rows - 1 (at least 1).
 int stract_factors_join(const int* postings, long long n_rows, int row_w, const int* starts,
-                        const int* lens, const int* cand, int B, int P, int Kd, int* out,
-                        cudaStream_t stream) {
+                        const int* lens, const int* cand, int B, int P, int Kd, int steps,
+                        int sample, int* out, cudaStream_t stream) {
   if (B < 1 || B > 65535 || P < 1 || P > 65535 || Kd < 1 || n_rows < 1 ||
-      (row_w != 2 && row_w != 3))
+      (row_w != 2 && row_w != 3) || steps < 1 || steps > 62 || sample < 1 || sample > JOIN_CAP)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Kd + 255) / 256, P, B);
-  factors_join_kernel<<<grid, 256, 0, stream>>>(postings, n_rows, row_w, starts, lens, cand, P, Kd,
-                                                out);
+  const size_t smem = (size_t)sample * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((Kd + JOIN_CANDS - 1) / JOIN_CANDS, P, B);
+  join_kernel<<<grid, JOIN_THREADS, smem, stream>>>(postings, n_rows, row_w, starts, lens, cand,
+                                                    P, Kd, steps, sample, out);
   return (int)cudaGetLastError();
 }
 
-// K2 with K11 inside. cand i32[B, Kd]; scratch skey u32[B, S], S the power of
-// two >= Kd; k = min(out_k, Kd) outputs per query.
-int stract_stage_b_joined(const SegArgs* s, const QueryArgs* q, const int* postings,
-                          long long n_rows, int row_w, const int* cand, int Kd, int default_static,
-                          float inv_fs, int k, unsigned* skey, int* out_docs, float* out_scores,
-                          cudaStream_t stream) {
-  if (Kd < 1 || Kd > MAX_SORT || k < 1 || k > Kd || q->B < 1 || q->B > 65535 || n_rows < 1 ||
-      (row_w != 2 && row_w != 3))
-    return (int)cudaErrorInvalidValue;
-  const int S = next_pow2(Kd);
-  dim3 grid((S + 127) / 128, q->B);
-  stage_b_joined_keys<<<grid, 128, 0, stream>>>(postings, n_rows, row_w, cand, Kd, *s, *q,
-                                                default_static, inv_fs, S, skey);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stage_b_joined_select<<<q->B, 1024, 0, stream>>>(skey, cand, Kd, s->num_docs, k, S, out_docs,
-                                                   out_scores);
-  return (int)cudaGetLastError();
-}
-
-// K3 with K11 inside (L = 0: the full-range join) and K12 (L > 0: the first L
-// rows of each slot, `steps` search steps). cand i32[B, K] -> out_f32
-// f32[B, nsig, K], or (out_f32 null) out_q i16[B, nsig, K] with out_scale
-// f32[B, nsig].
-int stract_signals_search(const SegArgs* s, const QueryArgs* q, const AggArgs* a,
+// K12: pass 2 from the first L >= 1 rows of each slot, `steps` search steps.
+// cand i32[B, K] -> out f32[B, nsig, K].
+int stract_signals_prefix(const SegArgs* s, const QueryArgs* q, const AggArgs* a,
                           const int* postings, long long n_rows, int row_w, const int* cand, int K,
-                          int L, int steps, float inv_fs, float* out_f32, short* out_q,
-                          float* out_scale, cudaStream_t stream) {
-  if (K < 1 || q->B < 1 || q->P < 1 || q->P > 8192 || a->nsig < 1 || a->nsig > MAX_NSIG ||
-      n_rows < 1 || (row_w != 2 && row_w != 3) || L < 0 || (L > 0 && steps < 1) ||
-      (out_f32 == nullptr) == (out_q == nullptr) || (out_q != nullptr && out_scale == nullptr))
+                          int L, int steps, float inv_fs, float* out, cudaStream_t stream) {
+  if (K < 1 || q->B < 1 || q->B > 65535 || q->P < 1 || q->P > 8192 || a->nsig < 1 ||
+      a->nsig > MAX_NSIG || n_rows < 1 || (row_w != 2 && row_w != 3) || L < 1 || steps < 1 ||
+      out == nullptr)
     return (int)cudaErrorInvalidValue;
   // a chunk's P x CH factors stay under 32 KB of shared memory
   int CH = 8192 / q->P;
   if (CH >= 32) CH &= ~31;
   if (CH > K) CH = K;
   const size_t smem = (size_t)q->P * CH * sizeof(int);
-  if (L > 0)
-    signals_search_kernel<true><<<q->B, 512, smem, stream>>>(
-        postings, n_rows, row_w, cand, K, L, steps, CH, *s, *q, *a, inv_fs, out_f32, out_q,
-        out_scale);
-  else
-    signals_search_kernel<false><<<q->B, 512, smem, stream>>>(
-        postings, n_rows, row_w, cand, K, L, steps, CH, *s, *q, *a, inv_fs, out_f32, out_q,
-        out_scale);
+  signals_prefix_kernel<<<q->B, 512, smem, stream>>>(postings, n_rows, row_w, cand, K, L, steps,
+                                                     CH, *s, *q, *a, inv_fs, out);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,10 @@ time: the CPU tests import this module on machines without nvcc or a card.
 
   csrc/scoring.cu   K1 stage A (q16 or q8 rows, with or without block-max UB), K13
                     stage A through the P-way bitonic merge, K2 stage B, K3 pass-2
-                    signals, K11 the device factor join (alone, and inside stage B
-                    and pass 2), K12 pass 2 from the slots' L-row prefixes, K10 the
-                    dense rerank, K9 the global top-k of the mesh's search
+                    signals, K11 the device factor join (alone, and before K2 and
+                    K3 in the joined stage B and pass 2), K12 pass 2 from the
+                    slots' L-row prefixes, K10 the dense rerank, K9 the global
+                    top-k of the mesh's search
   csrc/forest.cu    K4 LambdaMART forest walk
   csrc/encoder.cu   K5a masked attention of the BERT encoder, K14a its backward, K5c
                     bias + tanh GELU, K5b the residual + LayerNorm, K14b its backward,
@@ -68,11 +69,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # page one block sorts in shared memory, and the most fused signal columns
 MAX_SORT = 4096
 MAX_SIG_K = 64
-# limits of the search and rerank kernels (MAX_NSIG, MAX_H, the slot count whose
-# factor chunk fits the block's shared memory)
+# limits of K12 and the rerank (MAX_NSIG, MAX_H, the slot count whose factor
+# chunk fits K12's shared memory)
 MAX_NSIG = 64
 MAX_H = 1024
 MAX_SEARCH_P = 8192
+# K11 (csrc/scoring.cu): the most docs of a slot's sample a join block
+# stages
+JOIN_CAP = 16384
+# K3: the signal rows a block takes; its dynamic shared memory (MAX_DYN_SMEM)
+SIG_ROWS = 2
+SIG_DYN_SMEM = 224 * 1024
 # limits of csrc/encoder.cu: the head widths and the longest sequence
 ATTN_HEAD_DIMS = (16, 32, 64)
 ATTN_MAX_T = 512
@@ -95,6 +102,9 @@ STAGE_MAX_T = 512
 STAGE_MAX_H = 1024
 # a block's shared memory on the card (the forest is staged there whole)
 MAX_SMEM = 227 * 1024
+# K4 (csrc/forest.cu): threads a block, and the most blocks before its
+# tile grows (4 an SM on 132 SMs: half a wave of its 256-thread blocks)
+FOREST_THREADS, FOREST_BLOCKS = 256, 4 * 132
 # K1 and K2 (csrc/scoring.cu): the most blocks a query's cluster takes, the
 # dynamic shared memory a block may take (MAX_DYN_SMEM), the bytes of a K1
 # table slot (doc, text sum, mask word, aux word), the least slots a K1
@@ -204,6 +214,56 @@ def merge_plan(N: int) -> MergePlan:
     return MergePlan("block", 1) if N <= MERGE_TILE else MergePlan("global", 0)
 
 
+class JoinPlan(NamedTuple):
+    """K11's sample of each slot: at most `sample` docs (within JOIN_CAP) in
+    a block's shared memory; a range no longer is staged whole."""
+
+    sample: int
+
+
+def join_plan(Kd: int) -> JoinPlan:
+    """K11's plan for Kd candidates a query (PERF.md §6 has the readings it
+    rests on)."""
+    return JoinPlan(256)
+
+
+def join_steps(n_rows: int) -> int:
+    """The reference's fixed step count of the search over n_rows rows (the
+    bit length of n_rows - 1, at least 1)."""
+    return max(int(n_rows - 1).bit_length(), 1)
+
+
+def join_regime(length: int, n_rows: int, plan: JoinPlan) -> str:
+    """How K11 joins a slot of `length` rows: "empty", "whole" (staged whole,
+    searched in shared memory), "sample" (searched from a sample), or
+    "reference" (a range of 2^steps rows or more, where the reference's
+    fixed step count stops short: bisected whole for those steps alone)."""
+    if length <= 0:
+        return "empty"
+    if length >> join_steps(n_rows):
+        return "reference"
+    return "whole" if length <= plan.sample else "sample"
+
+
+class SignalsPlan(NamedTuple):
+    """K3's shared memory: `staged`, the rows' coefficients there (else read
+    where they lie); `rows_on_chip`, a q16 call's values there (else in an
+    f32 [B, nsig, K] matrix in device memory; f32 rows go there always)."""
+
+    staged: bool
+    rows_on_chip: bool
+
+
+def signals_plan(P: int, K: int, q16: bool) -> SignalsPlan:
+    """K3's plan for P slots and K columns: everything in shared memory where
+    it fits (the main path's P = 16, K <= 4,096), else the values, then the
+    coefficients, in device memory."""
+    coef, rows = (3 * SIG_ROWS + 3) * P * 4, SIG_ROWS * K * 4
+    if q16 and coef + rows <= SIG_DYN_SMEM:
+        return SignalsPlan(True, True)
+    return SignalsPlan(coef <= SIG_DYN_SMEM, False)
+
+
 def stage_b_cluster(Kd: int) -> int:
     """K2's blocks a query: one for each 1,024 candidates, in powers of two up
     to 4 (Kd = 4,096, the main path's: 4)."""
@@ -216,7 +276,9 @@ def stage_b_cluster(Kd: int) -> int:
 # the main path went through the kernels
 # (a stage-A launch counts once: under "stage_a_merge" through the merge
 # network, else "stage_a_ub" when it folds UB bounds, else "stage_a_q8" on q8
-# rows, else "stage_a"; "signals_joined" is pass 2 with the join inside,
+# rows, else "stage_a"; K11's launches count under the entry point they
+# serve: "factors_join" alone, "stage_b_joined" and "signals_joined" before
+# K2 ("stage_b") and K3 ("signals_q16") in the joined stage B and pass 2;
 # "signals_prefix" is K12; "moe_router" and "moe_select" count forward and
 # backward calls alike (the router's backward call, its kernel and the column
 # sum, once), and "gelu_tanh", K16c, its two launches; "pair_loss" and
@@ -369,21 +431,19 @@ def _load(name: str):
                 lib.stract_stage_b.argtypes = [seg, qry, agg, P, P, I, I, F, I, I, I, P, P, P, P,
                                                P]
                 lib.stract_signals_q16.argtypes = [seg, ctypes.POINTER(SignalArgs), P, P, I, I,
-                                                   F, P, P, P]
-                lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, P, P]
-                lib.stract_stage_b_joined.argtypes = [seg, qry, P, LL, I, P, I, I, F, I,
-                                                      P, P, P, P]
-                lib.stract_signals_search.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
-                                                      P, P, P, P]
+                                                   F, I, P, P, P, P]
+                lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, I, I, P, P]
+                lib.stract_signals_prefix.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
+                                                      P, P]
                 lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
                 lib.stract_mesh_topk.argtypes = [P, P, I, I, I, I, P, P, P, P]
                 fns = (lib.stract_stage_a, lib.stract_stage_a_merge, lib.stract_stage_b,
                        lib.stract_signals_q16,
-                       lib.stract_factors_join, lib.stract_stage_b_joined,
-                       lib.stract_signals_search, lib.stract_dense_rerank,
+                       lib.stract_factors_join, lib.stract_signals_prefix,
+                       lib.stract_dense_rerank,
                        lib.stract_mesh_topk)
             elif name == "forest":
-                lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+                lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
             elif name == "graph":
                 lib.stract_hll_merge.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P, P]
@@ -649,13 +709,21 @@ def stage_a_merge(seg, q, L: int, K: int, default_static: bool, soft_required: b
     counted("stage_a_merge")
 
 
+def check_stage_b(Kd: int, k: int, ks: int = 0) -> None:
+    """K2's shape limits (ValueError): 1..MAX_SORT candidates, 1..Kd kept,
+    0..MAX_SIG_K signal columns. The joined stage B checks them before its
+    join."""
+    if not 1 <= Kd <= MAX_SORT or not 1 <= k <= Kd or not 0 <= ks <= min(MAX_SIG_K, k):
+        raise ValueError(f"stage B takes 1..{MAX_SORT} candidates, keeps 1..Kd and fuses "
+                         f"0..{MAX_SIG_K} signal columns, not {Kd}, {k} and {ks}")
+
+
 def stage_b(seg, q, aggs: AggArgs, factors, cand, default_static: bool, inv_fs: float,
             k: int, ks: int, out_docs, out_scores, out_sq, out_scale) -> None:
     """K2 over stage_b_cluster(Kd) blocks a query."""
-    if not 1 <= cand.shape[1] <= MAX_SORT or not 0 <= ks <= MAX_SIG_K:
-        raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and 0..{MAX_SIG_K} "
-                         f"signal columns, not {cand.shape[1]} and {ks}")
-    (B, P), Kd = q.starts.shape, cand.shape[1]
+    Kd = cand.shape[1]
+    check_stage_b(Kd, k, ks)
+    B, P = q.starts.shape
     cluster = stage_b_cluster(Kd)
     if cluster not in (1, 2, 4, 8) or cluster > Kd:
         raise ValueError(f"stage B takes 1, 2, 4 or 8 blocks a query, at most Kd = {Kd}, not "
@@ -709,32 +777,43 @@ def signal_args(rows, static_of_sig: torch.Tensor, bm25f_row: int, region_row: i
                       update_row)
 
 
-def signals_q16(seg, a: SignalArgs, factors, cand, inv_fs: float, out_q, out_scale) -> None:
-    """K3 (2 signal rows a block): factors i32[B, P, K],
-    cand i32[B, K] and the rows of `a` (signal_args) → out_q i16[B, nsig, K],
-    out_scale f32[B, nsig]."""
+def signals_q16(seg, a: SignalArgs, factors, cand, inv_fs: float, out_q, out_scale,
+                rows=None) -> None:
+    """K3 (2 signal rows a block): factors i32[B, P, K], cand i32[B, K] and
+    the rows of `a` (signal_args) → out_q i16[B, nsig, K], out_scale f32[B,
+    nsig]; or, with out_q and out_scale None, the f32 rows `rows` [B, nsig,
+    K] (as signal_entry sums them: the values the q16 rows quantise). Any K
+    and P: signals_plan keeps in shared memory what fits."""
     B, K = cand.shape
-    if not 1 <= K <= MAX_SORT or not 1 <= B <= 65535:
-        raise ValueError(f"pass 2 takes 1..{MAX_SORT} candidates of 1..65535 queries, not "
-                         f"{K} of {B}")
-    if a.nsig < 1 or a.P < 1:
-        raise ValueError(f"pass 2 takes signal rows and slots, not {a.nsig} x {a.P}")
-    P = a.P
-    ptrs = (_ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)),
-            _ptr(out_q, torch.int16, (B, a.nsig, K)), _ptr(out_scale, torch.float32, (B, a.nsig)))
+    if K < 1 or not 1 <= B <= 65535 or a.nsig < 1 or a.P < 1:
+        raise ValueError(f"pass 2 takes candidates of 1..65535 queries, signal rows and slots, "
+                         f"not {K} of {B}, {a.nsig} x {a.P}")
+    if (out_q is None) != (out_scale is None) or (out_q is None) == (rows is None):
+        raise ValueError("pass 2 writes q16 rows with their scales, or f32 rows")
+    P, f32 = a.P, torch.float32
+    plan = signals_plan(P, K, out_q is not None)
+    if out_q is not None and not plan.rows_on_chip:  # the values wait in device memory
+        rows = torch.empty((B, a.nsig, K), dtype=f32, device=cand.device)
+    ptrs = (_ptr(factors, torch.int32, (B, P, K)), _ptr(cand, torch.int32, (B, K)))
+    outs = (_ptr(rows, f32, (B, a.nsig, K)), _ptr(out_q, torch.int16, (B, a.nsig, K)),
+            _ptr(out_scale, f32, (B, a.nsig)))
     lib = _load("scoring")
     s = seg_args(seg)
-    with on_card(*_seg_tensors(seg), factors, cand, out_q, out_scale) as stream:
-        rc = lib.stract_signals_q16(ctypes.byref(s), ctypes.byref(a), *ptrs[:2], B, K, inv_fs,
-                                    *ptrs[2:], stream)
+    with on_card(*_seg_tensors(seg), factors, cand, rows, out_q, out_scale) as stream:
+        rc = lib.stract_signals_q16(ctypes.byref(s), ctypes.byref(a), *ptrs, B, K, inv_fs,
+                                    int(plan.staged), *outs, stream)
     _check(rc, "stract_signals_q16")
     counted("signals_q16")
 
 
-def factors_join(seg, starts, lens, cand, out) -> None:
-    """K11 alone: starts, lens i32[B, P], cand i32[B, Kd] → out i32[B, P, Kd],
-    the packed factors of each candidate in each slot's full posting range
-    (ops/scoring.py allocates)."""
+def factors_join(seg, starts, lens, cand, out, count: str = "factors_join") -> None:
+    """K11: starts, lens i32[B, P], cand i32[B, Kd] → out i32[B, P, Kd], the
+    packed factors of each candidate in each slot's full posting range
+    (ops/scoring.py allocates), each slot as join_plan picks. The ranges must
+    be doc-ascending, as the index's stage-B and pass-2 slots are (their
+    compacted slots carry no impact prefix): there the output equals the
+    reference's lockstep search bit for bit. `count` names the entry point
+    whose launch this is (factors_join, stage_b_joined, signals_joined)."""
     (B, P), Kd = starts.shape, cand.shape[1]
     if not (1 <= B <= 65535 and 1 <= P <= 65535 and Kd >= 1):
         raise ValueError(f"the join takes 1..65535 queries and slots, not {B} x {P} x {Kd}")
@@ -742,60 +821,37 @@ def factors_join(seg, starts, lens, cand, out) -> None:
     post, n_rows, w = _postings(seg)
     ptrs = (_ptr(starts, i32, (B, P)), _ptr(lens, i32, (B, P)), _ptr(cand, i32, (B, Kd)))
     o = _ptr(out, i32, (B, P, Kd))
+    plan = join_plan(Kd)
+    if not 1 <= plan.sample <= JOIN_CAP:
+        raise ValueError(f"the join samples 1..{JOIN_CAP} docs of a slot, not {plan}")
     lib = _load("scoring")
     with on_card(seg.postings, starts, lens, cand, out) as stream:
-        rc = lib.stract_factors_join(post, n_rows, w, *ptrs, B, P, Kd, o, stream)
+        rc = lib.stract_factors_join(post, n_rows, w, *ptrs, B, P, Kd, join_steps(n_rows),
+                                     plan.sample, o, stream)
     _check(rc, "stract_factors_join")
-    counted("factors_join")
+    counted(count)
 
 
-def stage_b_joined(seg, q, cand, default_static: bool, inv_fs: float, k: int, skey,
-                   out_docs, out_scores) -> None:
-    """K2 with the join inside: cand i32[B, Kd] → out_docs i32[B, k],
-    out_scores f32[B, k]; skey i32[B, S] is scratch, S the power of two >= Kd."""
-    (B, _), Kd = q.starts.shape, cand.shape[1]
-    if not 1 <= Kd <= MAX_SORT or not 1 <= k <= Kd or B > 65535:
-        raise ValueError(f"stage B takes 1..{MAX_SORT} candidates and keeps 1..Kd, not "
-                         f"{Kd} and {k}")
-    S = 1 << (Kd - 1).bit_length()
-    i32, f32 = torch.int32, torch.float32
-    post, n_rows, w = _postings(seg)
-    ptrs = (_ptr(skey, i32, (B, S)), _ptr(out_docs, i32, (B, k)), _ptr(out_scores, f32, (B, k)))
-    c = _ptr(cand, i32, (B, Kd))
-    lib = _load("scoring")
-    s, qa = seg_args(seg), query_args(q)
-    with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, skey, out_scores) as stream:
-        rc = lib.stract_stage_b_joined(ctypes.byref(s), ctypes.byref(qa), post, n_rows, w, c, Kd,
-                                       int(default_static), inv_fs, k, *ptrs, stream)
-    _check(rc, "stract_stage_b_joined")
-    counted("stage_b_joined")
-
-
-def signals_search(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int = 0, steps: int = 0,
-                   out_f32=None, out_q=None, out_scale=None) -> None:
-    """Pass 2 that finds its own factors: L = 0 joins each candidate over the
-    slots' full ranges (K11 inside K3), L > 0 searches the first L rows of
-    each slot in `steps` steps (K12). cand i32[B, K] → out_f32 f32[B, nsig, K],
-    or out_q i16[B, nsig, K] with out_scale f32[B, nsig]."""
+def signals_prefix(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int, steps: int,
+                   out) -> None:
+    """K12: pass 2 from the first L >= 1 rows of each slot, searched in
+    `steps` steps. cand i32[B, K] → out f32[B, nsig, K]."""
     (B, P), K = q.starts.shape, cand.shape[1]
-    if (out_f32 is None) == (out_q is None) or (out_q is not None and out_scale is None):
-        raise ValueError("pass 2 writes f32 rows, or q16 rows with their scales")
-    if K < 1 or not 1 <= P <= MAX_SEARCH_P or not 1 <= aggs.nsig <= MAX_NSIG or L < 0 or \
-            (L > 0 and steps < 1):
+    if K < 1 or not 1 <= P <= MAX_SEARCH_P or not 1 <= aggs.nsig <= MAX_NSIG or L < 1 or \
+            steps < 1:
         raise ValueError(f"pass 2 takes 1..{MAX_SEARCH_P} slots, 1..{MAX_NSIG} signal rows and "
-                         f"a prefix of L >= 0 rows, not {P}, {aggs.nsig}, {L}")
-    f32 = torch.float32
+                         f"a prefix of L >= 1 rows in steps >= 1, not {P}, {aggs.nsig}, {L}, "
+                         f"{steps}")
     post, n_rows, w = _postings(seg)
     c = _ptr(cand, torch.int32, (B, K))
-    outs = (_ptr(out_f32, f32, (B, aggs.nsig, K)), _ptr(out_q, torch.int16, (B, aggs.nsig, K)),
-            _ptr(out_scale, f32, (B, aggs.nsig)))
+    o = _ptr(out, torch.float32, (B, aggs.nsig, K))
     lib = _load("scoring")
     s, qa = seg_args(seg), query_args(q)
-    with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, out_f32, out_q) as stream:
-        rc = lib.stract_signals_search(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
-                                       n_rows, w, c, K, L, steps, inv_fs, *outs, stream)
-    _check(rc, "stract_signals_search")
-    counted("signals_prefix" if L > 0 else "signals_joined")
+    with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, out) as stream:
+        rc = lib.stract_signals_prefix(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
+                                       n_rows, w, c, K, L, steps, inv_fs, o, stream)
+    _check(rc, "stract_signals_prefix")
+    counted("signals_prefix")
 
 
 _RERANK_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -845,21 +901,56 @@ def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores) -> None:
     counted("mesh_topk")
 
 
+class ForestPlan(NamedTuple):
+    """K4's launch: `rows` rows a block (FOREST_THREADS threads walking its
+    (row, tree) pairs)."""
+
+    rows: int
+
+
+def _forest_smem(T: int, N: int, L: int, F: int, rows: int) -> int:
+    """csrc/forest.cu's shared memory: 16-byte nodes, the leaves, the tile's
+    features at a stride of F + 1 floats (F even) and its leaf values."""
+    stride = F + 1 if F % 2 == 0 else F
+    return 16 * T * N + 4 * T * L + 4 * rows * stride + 4 * T * rows
+
+
+def forest_plan(T: int, N: int, L: int, F: int, K: int) -> ForestPlan:
+    """K4's tile: 8 rows a block (K = 256 over 32 SMs, K = 4,096 in 512
+    blocks), doubled, up to 64, while the blocks outnumber FOREST_BLOCKS
+    (K = 16,384: 32 rows, 512 blocks, one wave); fewer where the forest
+    leaves less shared memory. The readings it rests on are in PERF.md §6.
+    ValueError when the forest with one row does not fit a block's shared
+    memory."""
+    if min(T, N, L, F) < 1:
+        raise ValueError(f"a forest takes trees, nodes, leaves and features, not {T}, {N}, {L}, "
+                         f"{F}")
+    if _forest_smem(T, N, L, F, 1) > MAX_SMEM:
+        raise ValueError(f"a forest of {T} trees x {N} nodes x {L} leaves over {F} features "
+                         "does not fit one block's shared memory")
+    rows = 8
+    while rows < 64 and -(-K // rows) > FOREST_BLOCKS:
+        rows *= 2
+    while rows > 1 and _forest_smem(T, N, L, F, rows) > MAX_SMEM:
+        rows //= 2
+    return ForestPlan(rows)
+
+
 def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) -> None:
-    """K4 over x f32[K, F] into out f32[K] (ops/forest.py allocates)."""
+    """K4 over x f32[K, F] into out f32[K] (ops/forest.py allocates), in
+    forest_plan's tiles; a forest too large for shared memory raises
+    ValueError before any build or launch."""
     T, N = feature.shape
     L = leaf_value.shape[1]
     K, F = x.shape
     i32, f32 = torch.int32, torch.float32
-    if 16 * T * N + 4 * T * L > MAX_SMEM or min(T, N, L, F) < 1:
-        raise ValueError(f"a forest of {T} trees x {N} nodes x {L} leaves over {F} features "
-                         "does not fit one block's shared memory")
+    plan = forest_plan(T, N, L, F, K)
     lib = _load("forest")
     with on_card(feature, threshold, left, right, leaf_value, x, out) as stream:
         rc = lib.stract_forest(
             _ptr(feature, i32, (T, N)), _ptr(threshold, f32, (T, N)), _ptr(left, i32, (T, N)),
             _ptr(right, i32, (T, N)), _ptr(leaf_value, f32, (T, L)), _ptr(x, f32, (K, F)),
-            _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), stream)
+            _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), plan.rows, stream)
     _check(rc, "stract_forest")
     counted("forest")
 

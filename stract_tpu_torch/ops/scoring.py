@@ -415,13 +415,6 @@ def score_candidates_batch_plain(seg: SegmentArrays, qs: QuerySlots, L: int, K: 
     return top_docs.to(torch.int32), top_scores
 
 
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
 _on = kernels.on_device
 
 
@@ -710,6 +703,25 @@ def _signal_rows(qs, aggs, dev, B: int) -> tuple:
     return tuple(rows)
 
 
+def _signals_k3(seg, qs, aggs, factors, cands, q16: bool):
+    """K3 over factors i32[B, P, K] on the card → (q i16[B, 46, K], scale
+    f32[B, 46]), or f32[B, 46, K] rows. Only what it reads goes up: the
+    slots' and aggregates' rows in one copy (_signal_rows)."""
+    dev = seg.postings.device
+    B, K = cands.shape
+    rows = _signal_rows(qs, aggs, dev, B)  # held through the launch: the struct's addresses
+    a = kernels.signal_args(rows, _static_of_sig(dev), S.BM25_F.id, S.REGION.id,
+                            S.UPDATE_TIMESTAMP.id)
+    if not q16:
+        sig = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.float32, device=dev)
+        kernels.signals_q16(seg, a, factors, cands, INV_FACTOR_SCALE, None, None, rows=sig)
+        return sig
+    sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
+    scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
+    kernels.signals_q16(seg, a, factors, cands, INV_FACTOR_SCALE, sq, scale)
+    return sq, scale
+
+
 def compute_signals_from_factors_batch_q16(seg: SegmentArrays, qs, aggs, factors, cands):
     """Pass 2 on host-joined factors i32[B, P, K] → (q i16[B, 46, K],
     scale f32[B, 46]). On the card only what K3 reads goes up: the factors
@@ -721,14 +733,7 @@ def compute_signals_from_factors_batch_q16(seg: SegmentArrays, qs, aggs, factors
     if not seg.postings.is_cuda:
         return compute_signals_from_factors_batch_q16_plain(
             seg, to_tensors(qs, dev), to_tensors(aggs, dev), factors, cands)
-    B, K = cands.shape
-    rows = _signal_rows(qs, aggs, dev, B)  # held through the launch: the struct's addresses
-    a = kernels.signal_args(rows, _static_of_sig(dev), S.BM25_F.id, S.REGION.id,
-                            S.UPDATE_TIMESTAMP.id)
-    sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
-    scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
-    kernels.signals_q16(seg, a, factors, cands, INV_FACTOR_SCALE, sq, scale)
-    return sq, scale
+    return _signals_k3(seg, qs, aggs, factors, cands, True)
 
 
 def compute_signals_from_factors(seg, q, aggs, factors, cand) -> np.ndarray:
@@ -771,11 +776,20 @@ def factors_join_plain(postings, starts, lens, cand):
     return torch.where(found, facs, torch.zeros_like(facs))
 
 
+def _join(seg, starts, lens, cand, count: str) -> torch.Tensor:
+    """K11 on the card: i32[B, P, Kd] of tensors there."""
+    out = torch.empty((*starts.shape, cand.shape[1]), dtype=torch.int32,
+                      device=seg.postings.device)
+    kernels.factors_join(seg, starts, lens, cand, out, count)
+    return out
+
+
 def factors_join(seg: SegmentArrays, starts, lens, cand) -> torch.Tensor:
     """Packed factors i32[P, Kd] of candidate docs joined on the device (or
     i32[B, P, Kd] when the inputs carry a batch dimension): what the host
     join (index/inverted.py _slot_factors_for) returns, without the host's
-    searches and without the upload."""
+    searches and without the upload. The slots' ranges are doc-ascending
+    (the index's compacted slots carry no impact prefix)."""
     dev = seg.postings.device
     starts, lens, cand = (_on(x, dev, torch.int32) for x in (starts, lens, cand))
     single = cand.dim() == 1
@@ -784,8 +798,7 @@ def factors_join(seg: SegmentArrays, starts, lens, cand) -> torch.Tensor:
     if not seg.postings.is_cuda:
         out = factors_join_plain(seg.postings, starts, lens, cand)
     else:
-        out = torch.empty((*starts.shape, cand.shape[1]), dtype=torch.int32, device=dev)
-        kernels.factors_join(seg, starts, lens, cand, out)
+        out = _join(seg, starts, lens, cand, "factors_join")
     return out[0] if single else out
 
 
@@ -798,21 +811,19 @@ def score_driver_joined_batch_plain(seg, qs, driver_docs, default_static: bool,
 def score_driver_joined_batch(seg: SegmentArrays, qs, driver_docs, default_static: bool = True,
                               out_k: int | None = None):
     """Stage B with the factors joined on the device: no host searches, no
-    factor upload → (docs i32[B, k], scores f32[B, k]). The kernel searches
-    inside the verify and never writes the [B, P, Kd] matrix."""
+    factor upload → (docs i32[B, k], scores f32[B, k]). K11 joins into an
+    i32[B, P, Kd] matrix on the card, then K2 (unfused) runs on it as on the
+    host join's: the same outputs, bit for bit, on the index's doc-ascending
+    slots."""
     dev = seg.postings.device
     qs = to_tensors(_batched(qs, QuerySlots), dev)
     driver_docs = _on(driver_docs, dev, torch.int32)
     if not seg.postings.is_cuda:
         return score_driver_joined_batch_plain(seg, qs, driver_docs, default_static, out_k)
-    B, Kd = driver_docs.shape
-    k = min(out_k or Kd, Kd)
-    skey = torch.empty((B, _next_pow2(Kd)), dtype=torch.int32, device=dev)
-    docs = torch.empty((B, k), dtype=torch.int32, device=dev)
-    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
-    kernels.stage_b_joined(seg, qs, driver_docs, default_static, INV_FACTOR_SCALE, k, skey,
-                           docs, scores)
-    return docs, scores
+    Kd = driver_docs.shape[1]
+    kernels.check_stage_b(Kd, min(out_k or Kd, Kd))
+    factors = _join(seg, qs.starts, qs.lens, driver_docs, "stage_b_joined")
+    return _stage_b(seg, qs, factors, driver_docs, None, default_static, out_k, 0)
 
 
 def score_driver_joined(seg, q, driver_docs, default_static: bool = True,
@@ -827,38 +838,30 @@ def compute_signals_joined_batch_plain(seg, qs, aggs, cands):
     return _signals_tail_plain(seg, qs, aggs, factors, cands)
 
 
-def _signals_search(seg, qs, aggs, cands, L: int, q16: bool):
-    """Pass 2 that finds its own factors: the device join (L = 0) or the
-    slots' first L rows (K12) → f32[B, 46, K], or (q, scale) when q16."""
+def _signals_joined(seg, qs, aggs, cands, q16: bool):
+    """Pass 2 with the device join: K11 into an i32[B, P, K] matrix on the
+    card, then K3 on it as on the host join's → f32[B, 46, K], or (q, scale)
+    when q16 (then K3's over the host join, bit for bit)."""
     dev = seg.postings.device
-    qs = to_tensors(_batched(qs, QuerySlots), dev)
-    aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
+    qs, aggs = _batched(qs, QuerySlots), _batched(aggs, QueryAggregates)
     cands = _on(cands, dev, torch.int32)
     if not seg.postings.is_cuda:
-        sig = (compute_signals_batch_plain(seg, qs, aggs, cands, L) if L
-               else compute_signals_joined_batch_plain(seg, qs, aggs, cands))
+        sig = compute_signals_joined_batch_plain(seg, to_tensors(qs, dev),
+                                                 to_tensors(aggs, dev), cands)
         return quantize_signals(sig) if q16 else sig
-    B, K = cands.shape
-    a = _agg_args(aggs, dev)
-    if q16:
-        sq = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.int16, device=dev)
-        scale = torch.empty((B, S.NUM_SIGNALS), dtype=torch.float32, device=dev)
-        kernels.signals_search(seg, qs, a, cands, INV_FACTOR_SCALE, L, _lookup_steps(L),
-                               out_q=sq, out_scale=scale)
-        return sq, scale
-    sig = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.float32, device=dev)
-    kernels.signals_search(seg, qs, a, cands, INV_FACTOR_SCALE, L, _lookup_steps(L), out_f32=sig)
-    return sig
+    factors = _join(seg, _on(qs.starts, dev, torch.int32), _on(qs.lens, dev, torch.int32), cands,
+                    "signals_joined")
+    return _signals_k3(seg, qs, aggs, factors, cands, q16)
 
 
 def compute_signals_joined_batch(seg: SegmentArrays, qs, aggs, cands):
     """Pass 2 with the device join → f32[B, NUM_SIGNALS, K]."""
-    return _signals_search(seg, qs, aggs, cands, 0, False)
+    return _signals_joined(seg, qs, aggs, cands, False)
 
 
 def compute_signals_joined_batch_q16(seg: SegmentArrays, qs, aggs, cands):
     """Pass 2 with the device join → (q i16[B, 46, K], scale f32[B, 46])."""
-    return _signals_search(seg, qs, aggs, cands, 0, True)
+    return _signals_joined(seg, qs, aggs, cands, True)
 
 
 def compute_signals_joined(seg, q, aggs, cand):
@@ -914,7 +917,17 @@ def compute_signals_batch_plain(seg, qs, aggs, cands, L: int):
 def compute_signals_batch(seg: SegmentArrays, qs, aggs, cands, L: int = DEFAULT_L):
     """Pass 2 from the first L rows of each slot only → f32[B, NUM_SIGNALS, K]
     (the device-only variant; serving uses the exact forms above)."""
-    return _signals_search(seg, qs, aggs, cands, L, False)
+    dev = seg.postings.device
+    qs = to_tensors(_batched(qs, QuerySlots), dev)
+    aggs = to_tensors(_batched(aggs, QueryAggregates), dev)
+    cands = _on(cands, dev, torch.int32)
+    if not seg.postings.is_cuda:
+        return compute_signals_batch_plain(seg, qs, aggs, cands, L)
+    B, K = cands.shape
+    sig = torch.empty((B, S.NUM_SIGNALS, K), dtype=torch.float32, device=dev)
+    kernels.signals_prefix(seg, qs, _agg_args(aggs, dev), cands, INV_FACTOR_SCALE, L,
+                           _lookup_steps(L), sig)
+    return sig
 
 
 def compute_signals(seg, q, aggs, cand, L: int = DEFAULT_L):

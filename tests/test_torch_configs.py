@@ -543,19 +543,24 @@ def test_new_kernel_arguments_are_checked(monkeypatch):
     Seg.postings = i32(64, 2)
     with pytest.raises(ValueError):  # out of the wrong shape
         kernels.factors_join(Seg, i32(2, 16), i32(2, 16), i32(2, 8), i32(2, 8, 16))
-    with pytest.raises(ValueError):  # more candidates than one block sorts
-        kernels.stage_b_joined(Seg, q, i32(2, 8192), True, 1.0, 1, None, None, None)
+    with pytest.raises(ValueError):  # more candidates than K2 sorts
+        kernels.check_stage_b(8192, 1)
     with pytest.raises(ValueError):  # k > Kd
-        kernels.stage_b_joined(Seg, q, i32(2, 128), True, 1.0, 256, None, None, None)
+        kernels.check_stage_b(128, 256)
     aggs = type("A", (), {"nsig": 46})()
-    with pytest.raises(ValueError):  # f32 rows or q16 rows, not both, not neither
-        kernels.signals_search(Seg, q, aggs, i32(2, 8), 1.0)
+    sig = type("S", (), {"nsig": 46, "P": 16})()
+    i16 = torch.zeros((2, 46, 8), dtype=torch.int16)
+    with pytest.raises(ValueError):  # K3 writes f32 rows or q16 rows, not both, not neither
+        kernels.signals_q16(Seg, sig, i32(2, 16, 8), i32(2, 8), 1.0, None, None)
+    with pytest.raises(ValueError):
+        kernels.signals_q16(Seg, sig, i32(2, 16, 8), i32(2, 8), 1.0, i16, f32(2, 46),
+                            rows=f32(2, 46, 8))
     with pytest.raises(ValueError):  # q16 rows need their scales
-        kernels.signals_search(Seg, q, aggs, i32(2, 8), 1.0,
-                               out_q=torch.zeros((2, 46, 8), dtype=torch.int16))
-    with pytest.raises(ValueError):  # a prefix search needs its step count
-        kernels.signals_search(Seg, q, aggs, i32(2, 8), 1.0, L=128, steps=0,
-                               out_f32=f32(2, 46, 8))
+        kernels.signals_q16(Seg, sig, i32(2, 16, 8), i32(2, 8), 1.0, i16, None)
+    with pytest.raises(ValueError):  # a prefix search needs its rows and its step count
+        kernels.signals_prefix(Seg, q, aggs, i32(2, 8), 1.0, 0, 1, f32(2, 46, 8))
+    with pytest.raises(ValueError):
+        kernels.signals_prefix(Seg, q, aggs, i32(2, 8), 1.0, 128, 0, f32(2, 46, 8))
     with pytest.raises(ValueError):  # UB takes both arrays
         kernels.stage_a(Seg, q, 128, 128, kernels.stage_a_plan(128, 2, 128, 132), None, True, True,
                         1.0, None, None, ub_entry=f32(2, 16))
@@ -598,12 +603,16 @@ def test_new_entry_points_dispatch_on_cuda_tensors_and_keep_structs_live(fixture
     monkeypatch.setattr(kernels, "stage_a", lambda *a: seen.append(  # ..., ub, ub_total, rows
         ("stage_a", a[-1] is None and live(a[-3], a[-2], *a[1]))))
     monkeypatch.setattr(kernels, "card_sms", lambda dev: 132)
-    monkeypatch.setattr(kernels, "factors_join", lambda seg, s, l, c, out: seen.append(
-        ("factors_join", live(s, l, c, out))))
-    monkeypatch.setattr(kernels, "stage_b_joined", lambda seg, q, cand, *rest: seen.append(
-        ("stage_b_joined", live(cand, *q))))
-    monkeypatch.setattr(kernels, "signals_search", lambda seg, q, a, cand, *rest, **kw: seen.append(
-        ("signals_search", agg_live(a) and live(cand, *q))))
+    k3_fields = ("idf", "region_lut", "current_ts", "bm25", "bm25f", "aidf", "cov",
+                 "static_of_sig")
+    monkeypatch.setattr(kernels, "factors_join", lambda seg, s, l, c, out, count: seen.append(
+        (count, live(s, l, c, out))))
+    monkeypatch.setattr(kernels, "stage_b", lambda seg, q, a, f, cand, *rest: seen.append(
+        ("stage_b", live(f, cand, *q))))
+    monkeypatch.setattr(kernels, "signals_q16", lambda seg, a, f, cand, *rest, **kw: seen.append(
+        ("signals_q16", live(f, cand, *[getattr(a, n) for n in k3_fields]))))
+    monkeypatch.setattr(kernels, "signals_prefix", lambda seg, q, a, cand, *rest: seen.append(
+        ("signals_prefix", agg_live(a) and live(cand, *q))))
     monkeypatch.setattr(kernels, "dense_rerank", lambda e, qe, b, *rest: seen.append(
         ("dense_rerank", live(e, qe, b))))
     for name in ("score_candidates_batch_plain", "factors_join_plain",
@@ -620,7 +629,8 @@ def test_new_entry_points_dispatch_on_cuda_tensors_and_keep_structs_live(fixture
     OT.compute_signals_batch(seg_t, qs, aggs, cands, L)
     RT.rerank_topk_batch(torch.zeros((2, 8, 4)), np.zeros((2, 4), np.float32),
                          np.zeros((2, 8), np.float32), 1.0, 4)
-    assert [n for n, _ in seen] == ["stage_a", "factors_join", "stage_b_joined",
-                                    "signals_search", "signals_search", "signals_search",
-                                    "dense_rerank"]
+    # the joined stage B and pass 2: the join (counted under their names), then K2 / K3
+    assert [n for n, _ in seen] == ["stage_a", "factors_join", "stage_b_joined", "stage_b",
+                                    "signals_joined", "signals_q16", "signals_joined",
+                                    "signals_q16", "signals_prefix", "dense_rerank"]
     assert all(ok for _, ok in seen), seen

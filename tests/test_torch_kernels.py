@@ -654,17 +654,61 @@ def test_launch_context_takes_the_current_stream_of_the_tensors_card():
     assert torch.cuda.current_device() == before
 
 
+def _deep_forest(rng):
+    """A forest walked past what max_depth lets it reach: 12 depth-5 trees
+    evaluated at max_depth 3, and two negative feature indices (one that
+    wraps into range, one that wraps below 0 and is clamped). → (forest,
+    the max_depth to evaluate at)."""
+    x = rng.normal(size=(400, 46)).astype(np.float32)
+    y = x[:, 1] - 3 * x[:, 2] + np.sin(x[:, 9])
+    pm = LambdaMART.train(x, y, num_trees=12, max_depth=5, device="cpu")
+    feature = pm.feature.clone()
+    feature[0, 0], feature[1, 0] = -3, -100
+    return LambdaMART(feature, *(t.numpy() for t in pm._arrays()[1:]), 5, device="cpu"), 3
+
+
+def _tree_order_sum(pm, x, max_depth):
+    """Each tree's leaf value by the plain walk, summed in f32 in tree order
+    t = 0 .. T - 1 (the reference's order)."""
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for t in range(pm.num_trees):
+        acc = acc + forest_ops.gbdt_forward_plain(*(a[t:t + 1] for a in pm._arrays()), x,
+                                                  max_depth)
+    return acc
+
+
+def test_forest_plan_tiles_the_rows():
+    """K4's tile: K = 256 over more than 2 SMs, K = 16,384 in one wave (at
+    most FOREST_BLOCKS blocks; 8 of 256 threads fit an SM), 64 rows a block
+    at most; a forest too large for a block's shared memory raises."""
+    assert -(-256 // kernels.forest_plan(40, 7, 8, 46, 256).rows) > 2
+    assert -(-16384 // kernels.forest_plan(40, 7, 8, 46, 16384).rows) <= kernels.FOREST_BLOCKS
+    assert kernels.forest_plan(40, 7, 8, 46, 1 << 20).rows == 64
+    assert kernels.forest_plan(40, 7, 8, 46, 1).rows >= 1
+    with pytest.raises(ValueError):
+        kernels.forest_plan(4000, 4000, 8, 46, 256)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [256, 16384])
-def test_forest_kernel_matches_plain(k):
+@pytest.mark.parametrize("k", [1, 255, 256, 16384])
+@pytest.mark.parametrize("shape", ["trained", "deep"])
+def test_forest_kernel_matches_plain(k, shape):
+    """K4 bit-equal to a tree-order f32 sum of the plain walk's leaves, and
+    within the forest tolerance of the plain version (which sums the trees
+    in another order), at row counts off and on its tiles, on a trained
+    forest and on one walked past max_depth with negative feature indices."""
     dev = _card()
     rng = np.random.default_rng(3)
-    pm = _forest(rng).to(dev)
-    x = torch.from_numpy(rng.normal(size=(k, 46)).astype(np.float32)).to(dev)
+    pm, depth = _deep_forest(rng) if shape == "deep" else (_forest(rng), 3)
+    pm = pm.to(dev)
+    x = torch.from_numpy(rng.normal(size=(k, 46)).astype(np.float32))
+    x[0, 5] = float("nan")  # NaN goes right
+    x = x.to(dev)
     n = kernels.LAUNCHES["forest"]
-    got = forest_ops.gbdt_forward(*pm._arrays(), x, pm.max_depth)
+    got = forest_ops.gbdt_forward(*pm._arrays(), x, depth)
     assert kernels.LAUNCHES["forest"] == n + 1
-    ref = forest_ops.gbdt_forward_plain(*pm._arrays(), x, pm.max_depth)
+    assert torch.equal(got.view(torch.int32), _tree_order_sum(pm, x, depth).view(torch.int32))
+    ref = forest_ops.gbdt_forward_plain(*pm._arrays(), x, depth)
     leaf_sum = float(pm.leaf_value.abs().max(dim=1).values.sum())
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * leaf_sum)
 

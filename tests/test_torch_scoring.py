@@ -400,9 +400,10 @@ def test_kernel_arguments_are_checked(monkeypatch):
 
 
 def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
-    """At the launch of K2 and K3, and of pass 2 with the join or the prefix
-    search inside, every address in their aggregation struct belongs to a
-    tensor that is still alive (tests/test_torch_configs.py holds the other
+    """At the launch of K2 and K3 (also after the join, in the joined pass
+    2) and of K12, the prefix search, every address in their aggregation
+    struct belongs to a tensor that is still alive
+    (tests/test_torch_configs.py holds the other
     new entry points' arrays to the same). A table made inside the
     struct's builder and dropped before the launch is free memory that
     another thread's allocation may take and write first; the kernel then
@@ -427,9 +428,10 @@ def test_launch_structs_point_into_live_tensors(fixture, monkeypatch):
         seen.append({f: getattr(a, f) in live for f in fields})
     k3_fields = ("idf", "region_lut", "current_ts", "bm25", "bm25f", "aidf", "cov",
                  "static_of_sig")
-    monkeypatch.setattr(kernels, "signals_q16", lambda seg, a, *rest: launch(a, k3_fields))
+    monkeypatch.setattr(kernels, "signals_q16", lambda seg, a, *rest, **kw: launch(a, k3_fields))
     monkeypatch.setattr(kernels, "stage_b", lambda seg, q, a, *rest: launch(a))
-    monkeypatch.setattr(kernels, "signals_search", lambda seg, q, a, *rest, **kw: launch(a))
+    monkeypatch.setattr(kernels, "factors_join", lambda *a: None)
+    monkeypatch.setattr(kernels, "signals_prefix", lambda seg, q, a, *rest: launch(a))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     OT.compute_signals_from_factors_batch_q16(seg_t, qs, aggs, facs, cands)
     OT.score_driver_batch_with_signals(seg_t, qs, facs, cands, aggs, True, 64, 32)
@@ -509,18 +511,63 @@ def _pass2_case(fixture, K: int, P: int):
     return seg, qs, aggs, cands, host_factors(seg, qs, cands)
 
 
+@pytest.mark.parametrize("Kd", [1, 2, 127, 128, 512, 4095, 4096])
+def test_join_plan_over_lengths_and_candidates(Kd):
+    """K11's plan: a slot no longer than the sample is staged whole, a longer
+    one searched from its sample (within JOIN_CAP docs, a block's shared
+    memory within 64 KB), an empty one written as zeros, and one of 2^steps
+    rows or more (the reference's step count stops short) takes the
+    reference's loop."""
+    plan = kernels.join_plan(Kd)
+    assert 1 <= plan.sample <= kernels.JOIN_CAP and 4 * plan.sample <= 64 * 1024
+    n_rows = (1 << 24) + 1
+    for length in sorted({0, 1, 2, plan.sample, plan.sample + 1, 1 << 12, 1 << 20, 1 << 24}):
+        want = "empty" if length == 0 else "whole" if length <= plan.sample else "sample"
+        assert kernels.join_regime(length, n_rows, plan) == want, length
+    assert kernels.join_steps(1 << 24) == 24
+    assert kernels.join_regime(1 << 24, 1 << 24, plan) == "reference"
+    assert kernels.join_regime((1 << 24) - 1, 1 << 24, plan) != "reference"
+    assert kernels.join_steps(2) == 1 and kernels.join_regime(2, 2, plan) == "reference"
+
+
+def test_signals_plan_keeps_the_main_path_on_chip():
+    """K3's plan: the main path's P = 16 up to K = 4,096 wholly in shared
+    memory; larger K with its values in device memory; P past shared memory
+    with its coefficients read where they lie; f32 rows always go out."""
+    for K in (1, 128, 512, 4096):
+        assert kernels.signals_plan(16, K, True) == kernels.SignalsPlan(True, True)
+        assert kernels.signals_plan(16, K, False) == kernels.SignalsPlan(True, False)
+    assert kernels.signals_plan(16, 100_000, True) == kernels.SignalsPlan(True, False)
+    assert kernels.signals_plan(8192, 128, True) == kernels.SignalsPlan(False, False)
+
+
+def test_joined_forms_check_before_any_launch(fixture, monkeypatch):
+    """The joined stage B refuses what K2 refuses (more than 4,096 candidates,
+    k > Kd) before the join launches."""
+    rng, seg, starts, dfs, impact, L = fixture
+    qs, _ = query_batch(rng, seg, starts, dfs, impact)
+    seg_t = segment_arrays_from_numpy(seg, device="cpu")
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "factors_join", lambda *a: pytest.fail("the join launched"))
+    B = qs.starts.shape[0]
+    for Kd in (4097, 8192):
+        with pytest.raises(ValueError):
+            OT.score_driver_joined_batch(seg_t, qs, np.zeros((B, Kd), np.int32), True, 128)
+
+
 def test_signals_kernel_arguments_are_checked(monkeypatch):
     """K3's wrapper raises before any build or launch: no candidates, more
-    than 4,096, no signal rows; its argument block takes each query's rows
-    contiguous, in f32."""
+    than 65,535 queries, no signal rows; its argument block takes each
+    query's rows contiguous, in f32."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("built before the checks"))
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
     out = lambda K, n=46: (torch.zeros((2, n, K), dtype=torch.int16), torch.zeros((2, n)))  # noqa
     a = kernels.SignalArgs(P=16, nsig=46)
-    for K in (0, 4097):
-        with pytest.raises(ValueError):
-            kernels.signals_q16(None, a, i32(2, 16, K), i32(2, K), 1.0, *out(K))
+    with pytest.raises(ValueError):
+        kernels.signals_q16(None, a, i32(2, 16, 0), i32(2, 0), 1.0, *out(0))
+    with pytest.raises(ValueError):
+        kernels.signals_q16(None, a, i32(1), i32(65536, 8), 1.0, *out(8))
     with pytest.raises(ValueError):
         kernels.signals_q16(None, kernels.SignalArgs(P=16, nsig=0), i32(2, 16, 8), i32(2, 8),
                             1.0, *out(8, 0))
@@ -616,34 +663,109 @@ def test_stage_a_q8_ub_kernel_matches_plain(fixture, row_layout, ub):
                           s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, 5e-3)
 
 
+# K11's two regimes forced on every slot: each range staged whole, and each
+# searched from an 8-doc sample (the probes in device memory below it)
+JOIN_REGIMES = {"whole": kernels.JoinPlan(kernels.JOIN_CAP), "sample": kernels.JoinPlan(8)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("row_layout", ["q16", "q8"])
-def test_join_kernels_match_plain(fixture, row_layout):
-    """stract_factors_join bit-equal; joined stage B and joined pass 2 against
-    their plain versions (f32 rows rtol 1e-5, q16 rows within one step)."""
+@pytest.mark.parametrize("regime", ["whole", "sample"])
+def test_join_kernels_match_plain(fixture, row_layout, regime, monkeypatch):
+    """K11 bit-equal to the plain join in each regime, on candidates with
+    duplicates and pad docs, two calls bit-equal; joined stage B equal to K2
+    over that join bit for bit (and to its plain version within stage B's
+    tolerance); joined pass 2 equal to K3 over it bit for bit, q16 and f32
+    rows (and within one q16 step, f32 rtol 1e-5, of the plain version)."""
     dev = _card()
+    monkeypatch.setattr(kernels, "join_plan", lambda Kd: JOIN_REGIMES[regime])
     rng, seg, starts, dfs, impact, L = fixture
     qs, aggs = query_batch(rng, seg, starts, dfs, impact)
     qs = doc_only(qs)
     cands = driver_candidates(rng, seg, qs.starts.shape[0], 512)
+    cands[:, 5], cands[:, 9] = cands[:, 3], int(seg.num_docs)  # a duplicate, a pad doc
     seg_c = segment_arrays_from_numpy(row_layout_of(seg, row_layout), device=dev)
+    n_rows = seg_c.postings.shape[0]
+    assert regime in {kernels.join_regime(int(n), n_rows, JOIN_REGIMES[regime])
+                      for n in qs.lens.ravel()}
     q_c, a_c = OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev)
     c_c = torch.as_tensor(cands, device=dev)
     f_k = OT.factors_join(seg_c, qs.starts, qs.lens, cands)
     f_p = OT.factors_join_plain(seg_c.postings, q_c.starts, q_c.lens, c_c)
     assert torch.equal(f_k, f_p) and bool((f_k != 0).any())
+    assert torch.equal(OT.factors_join(seg_c, q_c.starts, q_c.lens, c_c), f_k)
+    n = dict(kernels.LAUNCHES)
     d_k, s_k = OT.score_driver_joined_batch(seg_c, qs, cands, True, 128)
+    assert [kernels.LAUNCHES[k] - n[k] for k in ("stage_b_joined", "stage_b")] == [1, 1]
+    d_2, s_2 = OT.score_driver_batch(seg_c, q_c, f_p, c_c, True, 128)
+    assert torch.equal(d_k, d_2) and torch.equal(s_k.view(torch.int32), s_2.view(torch.int32))
     d_p, s_p = OT.score_driver_joined_batch_plain(seg_c, q_c, c_c, True, 128)
     for b in range(qs.starts.shape[0]):
         assert_topk_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(), d_k[b].cpu().numpy(),
                           s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, 1e-5)
-    sig_p = OT.compute_signals_joined_batch_plain(seg_c, q_c, a_c, c_c)
-    sig_k = OT.compute_signals_joined_batch(seg_c, qs, aggs, cands)
-    torch.testing.assert_close(sig_k, sig_p, rtol=1e-5, atol=1e-6)
-    q_k, scl_k = OT.compute_signals_joined_batch_q16(seg_c, qs, aggs, cands)
-    q_p, scl_p = OT.quantize_signals(sig_p)
+    f32_rows = {}
+    for K in (128, 512):
+        page = c_c[:, :K].contiguous()
+        facs = f_p[:, :, :K].contiguous()
+        n = dict(kernels.LAUNCHES)
+        q_k, scl_k = OT.compute_signals_joined_batch_q16(seg_c, qs, aggs, page)
+        assert [kernels.LAUNCHES[k] - n[k] for k in ("signals_joined", "signals_q16")] == [1, 1]
+        q_3, scl_3 = OT.compute_signals_from_factors_batch_q16(seg_c, q_c, a_c, facs, page)
+        assert torch.equal(q_k, q_3) and torch.equal(scl_k.view(torch.int32),
+                                                     scl_3.view(torch.int32))
+        sig_k = OT.compute_signals_joined_batch(seg_c, qs, aggs, page)
+        f32_rows[K] = OT._signals_k3(seg_c, q_c, a_c, facs, page, False)
+        assert torch.equal(sig_k.view(torch.int32), f32_rows[K].view(torch.int32))
+        sig_p = OT.compute_signals_joined_batch_plain(seg_c, q_c, a_c, page)
+        torch.testing.assert_close(sig_k, sig_p, rtol=1e-5, atol=1e-6)
+        q_p, scl_p = OT.quantize_signals(sig_p)
+        torch.testing.assert_close(scl_k, scl_p, rtol=1e-5, atol=1e-35)
+        assert (q_k.int() - q_p.int()).abs().max().item() <= 1
+    sig1 = OT.compute_signals_joined(seg_c, OJ.QuerySlots(*[x[0] for x in qs]),
+                                     OJ.QueryAggregates(*[x[0] for x in aggs]), cands[0, :128])
+    assert torch.equal(sig1.view(torch.int32), f32_rows[128][0].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_join_kernel_keeps_the_references_step_count():
+    """A slot whose range is all of 64 rows (a power of two): the reference's
+    6 steps stop short of its lower bound, and K11 returns what the
+    reference returns there; one row fewer converges, as the searches do."""
+    dev = _card()
+    docs = np.arange(0, 128, 2, dtype=np.int32)
+    post = np.stack([docs, docs + 1000, np.zeros_like(docs)], axis=1)
+    postings = torch.as_tensor(post, device=dev)
+    seg = type("Seg", (), {"postings": postings})()
+    cand = torch.as_tensor(np.arange(0, 130, dtype=np.int32)[None], device=dev)
+    for n in (64, 63):
+        starts = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        lens = torch.full((1, 1), n, dtype=torch.int32, device=dev)
+        out = torch.empty((1, 1, 130), dtype=torch.int32, device=dev)
+        kernels.factors_join(seg, starts, lens, cand, out)
+        assert torch.equal(out, OT.factors_join_plain(postings, starts, lens, cand))
+    assert kernels.join_regime(64, 64, kernels.join_plan(130)) == "reference"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, P", [(4100, 16), (300, 6000), (512, 16)])
+def test_signals_kernel_takes_any_k_and_p(fixture, K, P):
+    """K3 past its shared memory (the values in device memory at K = 4,100;
+    the coefficients read where they lie too at P = 6,000) against its plain
+    version, and its f32 rows, which quantise to its q16 rows bit for bit."""
+    dev = _card()
+    seg, qs, aggs, cands, facs = _pass2_case(fixture, K, P)
+    seg_c = segment_arrays_from_numpy(seg, device=dev)
+    q_c, a_c = OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev)
+    f_c, c_c = torch.as_tensor(facs, device=dev), torch.as_tensor(cands, device=dev)
+    q_k, scl_k = OT.compute_signals_from_factors_batch_q16(seg_c, q_c, a_c, f_c, c_c)
+    q_p, scl_p = OT.compute_signals_from_factors_batch_q16_plain(seg_c, q_c, a_c, f_c, c_c)
     torch.testing.assert_close(scl_k, scl_p, rtol=1e-5, atol=1e-35)
     assert (q_k.int() - q_p.int()).abs().max().item() <= 1
+    sig_k = OT._signals_k3(seg_c, q_c, a_c, f_c, c_c, False)
+    torch.testing.assert_close(sig_k, OT._signals_tail_plain(seg_c, q_c, a_c, f_c, c_c),
+                               rtol=1e-5, atol=1e-6)
+    q_f, scl_f = OT.quantize_signals(sig_k)
+    assert torch.equal(q_f, q_k) and torch.equal(scl_f.view(torch.int32), scl_k.view(torch.int32))
 
 
 @pytest.mark.cuda
