@@ -35,6 +35,18 @@ must match the plain versions'.
 The pipeline-on route serves 8 rounds of the request mix in one process,
 and every request must be answered.
 
+Then the shapes past the smoke's own models: two seeded LightGBM dumps (500
+trees of 31 leaves, LightGBM's default, and 1,000 of 255) written as text
+and read back as `--lambdamart` reads them, each past one block's shared
+memory, so K4 walks it in chunks of trees, held bit-equal to the tree-order
+f32 sum at 16,384 rows; the 500-tree text is served one pipeline-on HTTP
+round through build_searcher's lambdamart path. K5a, K14a and K5d past 512
+tokens against their plain versions (1,024 and 2,048 tokens at MiniLM's
+heads, 16,384 tokens of 2 heads of 64; the pool at 1,024 and 4,096 tokens),
+and 3 train_dual_encoder steps at max_len 1,024 on MiniLM-L6 at full width,
+batch 8. The pipeline phase below holds K16a-b also at T = 2,048 and at
+H = 1,536 and 2,048, and records its step's bound.
+
 Then the webgraph centrality job (entrypoint/bench_centrality.py's graph:
 1,000,000 nodes, 20,000,000 Pareto edges, seed 0, written to disk): `main.py
 centrality harmonic` and `approx-harmonic` (256 sampled sources) on the card
@@ -232,9 +244,24 @@ MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
 PIPE_S, PIPE_H, PIPE_F, PIPE_T, PIPE_DP, PIPE_M, PIPE_MB = 6, 384, 1536, 128, 2, 8, 16
 PIPE_STEPS, PIPE_LR, PIPE_TIMED = 20, 5e-2, 3
 PIPE_KERNELS = ("stage_attention", "stage_attention_backward", "gelu_tanh", "sgd")
-# K16a-b also held against their plain versions at the longest rows and the
-# widest head they take, (T, H) beside the step's (PIPE_T, PIPE_H)
-PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024))
+# K16a-b also held against their plain versions at longer rows and wider
+# heads, (T, H) beside the step's (PIPE_T, PIPE_H): where the one-tile forms
+# once stopped (512, 1,024), then past 1,024 keys (the key-chunked forms) and
+# past H = 1,024
+PIPE_WIDE = ((512, PIPE_H), (PIPE_T, 1024), (2048, PIPE_H), (PIPE_T, 1536), (PIPE_T, 2048))
+# K4 on LightGBM dumps at production sizes, (trees, leaves): LightGBM's
+# default 31 leaves, then 255, each past one block's shared memory (walked in
+# chunks of trees); the first is served over HTTP through --lambdamart.
+# Rows and features of the kernel check (the forest's 46 signal columns)
+LGBM_FORESTS, LGBM_K, LGBM_F = ((500, 31), (1000, 255)), 16384, 46
+# K5a and K14a past 512 tokens, (B, T, heads, d): MiniLM's heads at 1,024 and
+# 2,048 tokens, and 16,384 tokens of 2 heads of 64, past the length at which
+# their chunked kernels' mask and statistics, staged whole, would have left
+# a block's 227 KB; K5d at (B, T) of MiniLM's width; train_dual_encoder on
+# MiniLM-L6 at LONG_TRAIN_T tokens, batch LONG_TRAIN_B, LONG_TRAIN_STEPS steps
+LONG_ATTN = ((8, 1024, 12, 32), (1, 2048, 12, 32), (1, 16384, 2, 64))
+LONG_POOL = ((8, 1024), (8, 4096))
+LONG_TRAIN_T, LONG_TRAIN_B, LONG_TRAIN_STEPS = 1024, 8, 3
 
 # Tolerances, kernel against plain version on the same card:
 #  stage A  scores rtol 1e-5, atol 5e-2: the plain version takes per-doc sums
@@ -1579,8 +1606,8 @@ def model_kernel_phase(forest, rows) -> list:
             run_p = lambda: FO.gbdt_forward_plain(*fo._arrays(), x, depth)  # noqa: E731
             a, b = run_k(), run_p()
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * leaf_sum)
-            if x.is_cuda and not torch.equal(a.view(torch.int32),
-                                             tree_order_sum(fo, x, depth).view(torch.int32)):
+            want = tree_order_sum(walk_leaves(fo, x, depth)[0])
+            if x.is_cuda and not torch.equal(a.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"K4 at K = {k} differs from the tree-order f32 sum")
             if fo is forest:
                 out.append(("forest", float((a - b).abs().max()), time_ms(run_k),
@@ -1650,17 +1677,231 @@ def deep_forest(rows):
                       device=DEVICE)
 
 
-def tree_order_sum(forest, x, depth: int):
-    """Each tree's leaf value by the plain walk, summed in f32 in tree order
-    t = 0 .. T - 1, the reference's order."""
+def tree_order_sum(vals):
+    """Leaf values f32[T, K] (walk_leaves) summed in f32 in tree order t = 0
+    .. T - 1, the reference's order."""
+    import torch
+
+    acc = torch.zeros(vals.shape[1], dtype=torch.float32, device=vals.device)
+    for t in range(vals.shape[0]):
+        acc = acc + vals[t]
+    return acc
+
+
+def walk_leaves(forest, x, depth: int) -> tuple:
+    """The plain walk of every (tree, row) pair as the reference takes it,
+    without the sum → (leaf values f32[T, K], the node visits it made: the
+    steps taken before each walk reached its leaf or max_depth)."""
+    import torch
+
+    feature, threshold, left, right, leaf_value = forest._arrays()
+    T, N = feature.shape
+    K, F = x.shape
+    cur = torch.zeros((T, K), dtype=torch.int32, device=x.device)
+    rows = torch.arange(K, device=x.device)[None, :].expand(T, K)
+    steps = 0
+    for _ in range(depth):
+        live = cur >= 0
+        steps += int(live.sum())
+        node = cur.clamp(0, N - 1).long()
+        f = torch.gather(feature, 1, node).long()
+        f = torch.where(f < 0, f + F, f).clamp(0, F - 1)
+        nxt = torch.where(x[rows, f] <= torch.gather(threshold, 1, node),
+                          torch.gather(left, 1, node), torch.gather(right, 1, node))
+        cur = torch.where(live, nxt, cur)
+    leaf = (-cur - 1).clamp(0, leaf_value.shape[1] - 1).long()
+    return torch.gather(leaf_value, 1, leaf), steps
+
+
+def lgbm_forest_phase(data_dir: str) -> dict:
+    """K4 on LightGBM dumps at production sizes (LGBM_FORESTS), each written
+    as LightGBM text from a seed (synthetic_lightgbm) and read back by
+    LambdaMART.load, as `main.py serve --lambdamart FILE` reads it; both are
+    past one block's shared memory, so K4 walks them in chunks of trees (the
+    plan is checked to say so). At LGBM_K seeded normal rows each is held
+    bit-equal to the tree-order f32 sum of the plain walk's leaves and
+    within the forest tolerance of the plain version, and timed; its bound
+    counts the node visits this run's rows make. → {"paths", "rows" (name,
+    err, ms, plain ms, shape, bytes, ops, peak)}."""
+    import numpy as np
     import torch
 
     from stract_tpu_torch.ops import forest as FO
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.bench_corpus import synthetic_lightgbm
+    from stract_tpu_torch.ranking.models.lambdamart import LambdaMART
 
-    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    for t in range(forest.num_trees):
-        acc = acc + FO.gbdt_forward_plain(*(a[t:t + 1] for a in forest._arrays()), x, depth)
-    return acc
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy(rng.normal(size=(LGBM_K, LGBM_F)).astype(np.float32)).to(DEVICE)
+    paths, rows = [], []
+    for trees, leaves in LGBM_FORESTS:
+        path = os.path.join(data_dir, f"lightgbm_{trees}x{leaves}.txt")
+        with open(path, "w") as fh:
+            fh.write(synthetic_lightgbm(trees, leaves, LGBM_F, SEED + trees))
+        fo = LambdaMART.load(path, device=DEVICE)
+        T, N = fo.feature.shape
+        L = fo.leaf_value.shape[1]
+        plan = kernels.forest_plan(T, N, L, LGBM_F, LGBM_K)
+        if (T, L) != (trees, leaves) or plan.trees >= T:
+            raise AssertionError(f"the LightGBM forest read back as {T} x {L}, plan {plan}")
+        depth = fo.max_depth
+        run_k = lambda: FO.gbdt_forward(*fo._arrays(), x, depth)  # noqa: E731
+        run_p = lambda: FO.gbdt_forward_plain(*fo._arrays(), x, depth)  # noqa: E731
+        a, b = run_k(), run_p()
+        leaf_sum = float(fo.leaf_value.abs().max(dim=1).values.sum())
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * leaf_sum)
+        vals, steps = walk_leaves(fo, x, depth)
+        if x.is_cuda and not torch.equal(a.view(torch.int32),
+                                         tree_order_sum(vals).view(torch.int32)):
+            raise AssertionError(f"K4 on {trees} x {leaves} leaves differs from the tree-order "
+                                 "f32 sum")
+        ms, pms = time_ms(run_k), time_ms(run_p)
+        rows.append(("forest", float((a - b).abs().max()), ms, pms, (LGBM_K, f"{trees}x{leaves}"),
+                     4 * LGBM_K * (LGBM_F + 1) + 16 * T * N + 4 * T * L, 2 * steps, PEAK_F32))
+        log(f"[lightgbm] K4 on {trees} trees x {leaves} leaves (depth {depth}) at K = {LGBM_K}: "
+            f"plan {tuple(plan)}, bit-equal to the tree-order f32 sum, kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms, {steps} node visits")
+        paths.append(path)
+        del vals, fo
+    return {"paths": paths, "rows": rows}
+
+
+def lgbm_serve_phase(index_dir: str, models: dict, path: str) -> dict:
+    """One pipeline-on HTTP round of the request mix with the LightGBM text at
+    `path` as the forest, loaded as `main.py serve --lambdamart FILE` loads it
+    (build_searcher's lambdamart, entrypoint/api.py build_pipeline), the
+    trained encoders beside it: every request answered and every serving
+    kernel, K4 on the chunked forest among them, launched. → serve_phase's
+    record."""
+    import torch
+
+    from stract_tpu_torch.main import build_searcher
+
+    on = build_searcher(index_dir, DEVICE, dual_encoder=models["dual"],
+                        cross_encoder=models["cross"], lambdamart=path)
+    forest = on.pipeline.recall.lambdamart
+    if forest.num_trees != LGBM_FORESTS[0][0]:
+        raise AssertionError(f"--lambdamart loaded {forest.num_trees} trees")
+    served = serve_phase(on, SERVING, rounds=1)
+    del on, forest
+    torch.cuda.empty_cache()
+    return served
+
+
+def long_encoder_phase(index_dir: str, out_dir: str, tok) -> dict:
+    """K5a, K14a and K5d past 512 tokens: K5a and K14a within one bf16 step
+    of their plain versions' largest magnitude at LONG_ATTN (row 1 half, row
+    2 fully, row 3 tail masked where B > 1; else the row's last fifth), each
+    timed beside
+    scaled_dot_product_attention with the additive mask and its backward; K5d
+    forward + backward at LONG_POOL x 384 (random lengths, the last row fully
+    masked), normalised, two calls bit-equal, timed; then
+    train_dual_encoder(max_len=LONG_TRAIN_T) on MiniLM-L6 at full width (the
+    30,522-piece vocab), batch LONG_TRAIN_B, LONG_TRAIN_STEPS steps, launch
+    counts reset just before and read just after: K5a, K14a and K5d launched,
+    the losses finite. → {"rows" (name, err, ms, plain ms, shape, bytes, ops,
+    peak), "record"}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch.entrypoint.train_encoders import train_dual_encoder
+    from stract_tpu_torch.models.bert import BertConfig
+    from stract_tpu_torch.ops import encoder as E
+    from stract_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    out = []
+    g = torch.Generator().manual_seed(SEED + 15)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(DEVICE, torch.bfloat16)  # noqa: E731
+    for Bl, Tl, Hl, d in LONG_ATTN:
+        q, k, v, dout = bf(Bl, Tl, Hl, d), bf(Bl, Tl, Hl, d), bf(Bl, Tl, Hl, d), bf(Bl, Tl, Hl * d)
+        mask = torch.ones((Bl, Tl), dtype=torch.int32)
+        if Bl > 1:
+            mask[1, Tl // 2:] = 0
+            mask[2] = 0
+            mask[3, Tl - Tl // 5:] = 0
+        else:
+            mask[0, Tl - Tl // 5:] = 0
+        mask = mask.to(DEVICE)
+        add = torch.zeros((Bl, 1, 1, Tl), dtype=torch.bfloat16, device=DEVICE)
+        add.masked_fill_(mask[:, None, None, :] == 0, torch.finfo(torch.bfloat16).min)
+        a, b = E.attention_forward(q, k, v, mask).float(), E.attention_plain(q, k, v, mask).float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"attention gave a non-finite value at T = {Tl}")
+        fwd_err = _step_close(a, b)
+        del a, b
+        got = E.attention_backward(q, k, v, mask, dout)
+        bwd_err = max(_step_close(x, y) for x, y in
+                      zip(got, E.attention_backward_plain(q, k, v, mask, dout)))
+        if not all(torch.equal(x, y) for x, y in zip(E.attention_backward(q, k, v, mask, dout),
+                                                     got)):
+            raise AssertionError(f"two calls of the attention backward differ at T = {Tl}")
+        del got
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, add)
+        do = dout.view(Bl, Tl, Hl, d).transpose(1, 2)
+        times = (time_ms(lambda: E.attention_forward(q, k, v, mask)),
+                 time_ms(lambda: E.attention_plain(q, k, v, mask), 3),
+                 time_ms(lambda: F.scaled_dot_product_attention(*(x.detach() for x in leaves),
+                                                                add)),
+                 time_ms(lambda: E.attention_backward(q, k, v, mask, dout)),
+                 time_ms(lambda: E.attention_backward_plain(q, k, v, mask, dout), 3),
+                 time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)))
+        del o, leaves
+        elems = Bl * Tl * Hl * d
+        shape = (Bl, Tl, Hl, d)
+        out.append(("attention", fwd_err, times[0], times[1], shape, 4 * elems * 2 + 4 * Bl * Tl,
+                    4 * Bl * Hl * Tl * Tl * d, PEAK_BF16))
+        out.append(("attention_backward", bwd_err, times[3], times[4], shape,
+                    7 * elems * 2 + 4 * Bl * Tl, 10 * Bl * Hl * Tl * Tl * d, PEAK_BF16))
+        log(f"[long] K5a/K14a B={Bl} T={Tl} heads={Hl} d={d}: forward kernel {times[0]:.4f} ms "
+            f"plain {times[1]:.4f} sdpa {times[2]:.4f} max_abs_err {fwd_err:.3g}; backward kernel "
+            f"{times[3]:.4f} ms plain {times[4]:.4f} sdpa {times[5]:.4f} max_abs_err {bwd_err:.3g}")
+        torch.cuda.empty_cache()
+
+    for Bp, Tp in LONG_POOL:
+        lens = torch.randint(1, Tp + 1, (Bp, 1), generator=g)
+        lens[0], lens[-1] = Tp, 0
+        mp = (torch.arange(Tp) < lens).to(torch.int32).to(DEVICE)
+        h, cot = bf(Bp, Tp, 384), torch.randn((Bp, 384), generator=g).to(DEVICE)
+
+        def pool(fwd, bwd):
+            pooled, raw = fwd(h, mp, True)
+            return pooled, raw, bwd(mp, raw, cot, True, torch.bfloat16)
+        run_k = lambda: pool(E.mean_pool_forward, E.mean_pool_backward)  # noqa: E731
+        run_p = lambda: pool(E.mean_pool_plain, E.mean_pool_backward_plain)  # noqa: E731
+        got = run_k()
+        err = max(_step_close(a, b) for a, b in zip(got, run_p()))
+        if not all(torch.equal(a, b) for a, b in zip(run_k(), got)):
+            raise AssertionError(f"two calls of the pool kernels differ at {Bp} x {Tp}")
+        kept = int(mp.sum())
+        ms, pms = time_ms(run_k), time_ms(run_p)
+        out.append(("mean_pool", err, ms, pms, (Bp, Tp, 384),
+                    (kept + Bp * Tp) * 384 * 2 + 8 * Bp * Tp + 4 * Bp * 384 * 4,
+                    4 * Bp * Tp * 384, PEAK_F32))
+        log(f"[long] K5d forward + backward at {Bp} x {Tp} x 384: kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms max_abs_err {err:.3g}, two calls bit-equal")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    timing = {}
+    losses = train_dual_encoder(index_dir, out_dir, steps=LONG_TRAIN_STEPS, batch=LONG_TRAIN_B,
+                                max_len=LONG_TRAIN_T, cfg=BertConfig.mini_lm(vocab_size=VOCAB),
+                                tokenizer=tok, log=lambda m: None, device=DEVICE, timing=timing)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if len(losses) != LONG_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training at {LONG_TRAIN_T} tokens gave the losses {losses}")
+    if not all(launches[k] for k in ("attention", "attention_backward", "mean_pool")):
+        raise AssertionError(f"training at {LONG_TRAIN_T} tokens missed a kernel: {launches}")
+    torch.cuda.empty_cache()
+    return {"rows": out, "record": {
+        "train_tokens": LONG_TRAIN_T, "train_batch": LONG_TRAIN_B, "steps": LONG_TRAIN_STEPS,
+        "losses": [float(x) for x in losses], "s_per_step": timing["seconds"] / timing["steps"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "seconds": time.perf_counter() - t0}}
 
 
 def bf16_step_close(a, b) -> float:
@@ -1922,7 +2163,7 @@ def attention_grid_phase() -> list:
             out.append(("attention", fwd_err, times[0], times[1], shape, 4 * elems * 2 + 4 * Bg * t,
                         4 * Bg * Hg * t * t * d, PEAK_BF16))
             out.append(("attention_backward", bwd_err, times[3], times[4], shape,
-                        7 * elems * 2 + 4 * Bg * t, 14 * Bg * Hg * t * t * d, PEAK_BF16))
+                        7 * elems * 2 + 4 * Bg * t, 10 * Bg * Hg * t * t * d, PEAK_BF16))
             log(f"[attention grid] d={d} T={t} B={Bg} heads={Hg}: forward kernel "
                 f"{times[0]:.4f} ms plain {times[1]:.4f} sdpa {times[2]:.4f} max_abs_err "
                 f"{fwd_err:.3g}; backward kernel {times[3]:.4f} ms plain {times[4]:.4f} sdpa "
@@ -2508,12 +2749,30 @@ def pipeline_phase(card: str) -> dict:
     for kind in ("plain", "kernels", "kernels", "plain"):
         with plain_versions() if kind == "plain" else contextlib.nullcontext():
             step_ms[kind].append(timed())
+    # the step's bound: each kernel's bound at the step's shape (the first
+    # row of each above) times its launches a step (K16c's rows are a
+    # forward + backward pair; K16d's covers every parameter once), the
+    # stages' f32 weight products (four a stage forward, twice as many
+    # backward, at the f32 peak: allow_tf32 is off) and the activations and
+    # their gradients copied between stages (read and written once)
+    first = {}
+    for name, _, _, _, _, nb, ops, *pk in rows:
+        first.setdefault(name, bound(nb, ops, *pk)[0])
+    per_step = {k: launches[k] / PIPE_STEPS for k in PIPE_KERNELS}
+    tokens = M * MB * T
+    parts = {"stage_attention": per_step["stage_attention"] * first["stage_attention"],
+             "stage_attention_backward": per_step["stage_attention_backward"]
+             * first["stage_attention_backward"],
+             "gelu_tanh": per_step["gelu_tanh"] / 2 * first["gelu_tanh"], "sgd": first["sgd"],
+             "products": 1e3 * 3 * S * tokens * 2 * (4 * H * H + 2 * H * FF) / PEAK_F32,
+             "copies": 1e3 * 2 * 2 * (S - 1) * tokens * H * 4 / PEAK_BYTES}
     rec = {"stages": S, "hidden": H, "ffn": FF, "tokens": T, "mesh": {"pp": S, "dp": D},
            "microbatches": M, "rows": MB, "params": int(n_params), "steps": PIPE_STEPS,
            "lr": PIPE_LR, "loss_kernels": losses_k, "loss_plain": losses_p,
            "curve_max_rel_diff": curve, "forward_max_abs_err": fwd_err,
            "step_ms_kernels": min(step_ms["kernels"]), "step_ms_plain": min(step_ms["plain"]),
-           "launches_per_step": {k: launches[k] / PIPE_STEPS for k in PIPE_KERNELS},
+           "launches_per_step": per_step, "step_bound_ms": sum(parts.values()),
+           "step_bound_parts_ms": parts,
            "device_mem_peak_MiB": peak / 2 ** 20, "sdpa_max_abs_diff": sdpa_err,
            "seconds": time.perf_counter() - t0}
     log(f"[pipeline] {json.dumps(rec)} card={card}")
@@ -3254,9 +3513,9 @@ def work(name: str, shape, forest=None) -> tuple:
     if name == "attention":  # B=ENC_B, T=shape, 12 heads x 32
         return 4 * ENC_B * shape * H * 2 + 4 * ENC_B * shape, \
             4 * ENC_B * 12 * shape * shape * 32, PEAK_BF16
-    if name == "attention_backward":  # B=TRAIN_B, T=shape; ~7 T^2 d multiply-adds per head
+    if name == "attention_backward":  # B=TRAIN_B, T=shape; S, dP, dV, dK, dQ: 5 T^2 d FMAs a head
         return 7 * TRAIN_B * shape * H * 2 + 4 * TRAIN_B * shape, \
-            14 * TRAIN_B * 12 * shape * shape * 32, PEAK_BF16
+            10 * TRAIN_B * 12 * shape * shape * 32, PEAK_BF16
     if name == "add_layernorm":
         return 3 * shape * H * 2 + 8 * H, 8 * shape * H, PEAK_F32
     if name == "add_layernorm_backward":  # shape: rows, or (rows, N) off MiniLM's width
@@ -3383,6 +3642,13 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     base = in_phase("bert-base", bert_base_phase, index_dir,
                     os.path.join(data_dir, "bert_base_dual"), tok)
     log(f"[result bert-base] {json.dumps(base)} card={card}")
+    t = time.perf_counter()
+    lgbm = in_phase("lightgbm", lgbm_forest_phase, os.path.join(data_dir, "lightgbm"))
+    longer = in_phase("long", long_encoder_phase, index_dir,
+                      os.path.join(data_dir, "long_dual"), tok)
+    log(f"[result long] {json.dumps(longer['record'])} card={card}")
+    grid += lgbm["rows"] + longer["rows"]
+    t_added = time.perf_counter() - t
     del searcher
     torch.cuda.empty_cache()
     on = in_phase("serve on", build_searcher, index_dir, DEVICE, dual_encoder=models["dual"],
@@ -3399,6 +3665,15 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
         f"{emb['docs'] / emb['seconds']:.0f} card={card}")
     del on
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    served_lgbm = in_phase("lightgbm serve", lgbm_serve_phase, index_dir, models,
+                           lgbm["paths"][0])
+    t_added += time.perf_counter() - t
+    log(f"[result lightgbm serve] --lambdamart {os.path.basename(lgbm['paths'][0])} "
+        f"({LGBM_FORESTS[0][0]} trees x {LGBM_FORESTS[0][1]} leaves) qps={served_lgbm['qps']:.2f} "
+        f"p50_ms={served_lgbm['p50_ms']:.1f} p99_ms={served_lgbm['p99_ms']:.1f} failed="
+        f"{served_lgbm['failed']} forest_launches={served_lgbm['launches']['forest']} "
+        f"seconds_of_the_added_phases={t_added:.1f} card={card}")
 
     # ---- the other configurations: q8 rows, device join, UB; K11, K12, K10 ------------
     t = time.perf_counter()

@@ -21,8 +21,18 @@ under data/). --readings picks groups (default all):
                       tokens, BertConfig.tiny's at 512), the masks above,
                       beside SDPA and its backward (a tree whose kernels
                       refuse the shape records the refusal);
+  attention_long      K5a and K14a past 512 tokens at (B, T, heads, d) in
+                      ATTN_LONG (B = 1: MiniLM's 12 heads of 32 at 2,048
+                      tokens, 2 heads of 64 at 16,384), the row's last fifth
+                      masked, beside SDPA and its backward (a tree whose
+                      kernels refuse the shape records the refusal);
+  mean_pool_long      K5d forward + backward at 8 x T x 384 for T in
+                      POOL_LONG (lengths from a seed, the last row fully
+                      masked; normalised), the refusal recorded as above;
   stage_attention     K16a at mb = 8 (the pipelined step's microbatch on
-                      one dp shard), (T, H) in STAGE_SHAPES, beside
+                      one dp shard), (T, H) in STAGE_SHAPES (the step's, the
+                      one-tile form's old ends, past 1,024 keys and past
+                      H = 1,024), beside
                       scaled_dot_product_attention in f32 over one head of
                       width H (matmuls in full f32: allow_tf32 off);
   stage_attention_backward
@@ -173,7 +183,16 @@ under data/). --readings picks groups (default all):
                       LambdaMART.predict on numpy rows (`K4_predict`: the
                       pad to a power of two and the copies in the call); in
                       a tree with a forest plan (`kernels.forest_plan`), K4
-                      also over the row tiles in FOREST_TILES.
+                      also over the row tiles in FOREST_TILES;
+  forest_lightgbm     K4 at K = 16,384 rows of 46 features through LightGBM
+                      dumps of (trees, leaves) in LGBM_FORESTS
+                      (bench_corpus.synthetic_lightgbm, seeded; past a block's
+                      shared memory: walked in chunks), at forest_plan's
+                      plan and at the plans of rows in LGBM_ROWS and chunk
+                      budgets in LGBM_BUDGETS (the most trees a chunk that
+                      fit), `K4_rows{r}_smem{b}`; a tree without the
+                      dump writer or whose kernel refuses the forest
+                      records the refusal.
 For each: `event_ms`, CUDA events around --calls calls (steps for the two
 train steps) after 5 warm-ups (what the host can issue and the card finish:
 the smoke's measure), and `device_ms`, the card's own time for one call,
@@ -198,14 +217,16 @@ ATTN_B, ATTN_H, ATTN_T = 32, 12, (16, 65, 128, 200, 256)
 TRAIN_B, TRAIN_T, VOCAB = 64, 128, 30522
 GELU_M, GELU_N = 4096, 1536
 ATTN_WIDE = ((64, 256), (64, 512), (16, 512))
-STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024))
+STAGE_MB, STAGE_SHAPES = 8, ((128, 384), (512, 384), (128, 1024), (2048, 384), (128, 2048))
+ATTN_LONG, POOL_LONG = ((1, 2048, 12, 32), (1, 16384, 2, 64)), (1024, 4096)
 LN_WIDTHS = (64, 384, 768)
 LN_ROWS = (4096, TRAIN_B * TRAIN_T)
 POOL_SERVE = (32, 32, 384)
 INFO_NCE_B, PAIR_B = (32, 64, 128, 256), 32
 GELU_BWD_SHAPES = ((TRAIN_B * TRAIN_T, 1536), (4 * 512, 3072))
 MOE_PAIRS, MOE_SHAPES = 32, ((32 * 128, 384, 4), (32 * 128, 768, 16))
-READINGS = ("attention", "attention_backward", "attention_wide", "stage_attention",
+READINGS = ("attention", "attention_backward", "attention_wide", "attention_long",
+            "mean_pool_long", "forest_lightgbm", "stage_attention",
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
             "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring", "join",
@@ -223,6 +244,8 @@ MERGE_WIDE_P = 256
 # trees, depth and row tiles
 JOIN_SAMPLES = (64, 256, 1024, 4096)
 FOREST_ROWS, FOREST_TREES, FOREST_DEPTH, FOREST_TILES = (256, 4096, 16384), 40, 3, (8, 16, 32, 64)
+LGBM_FORESTS, LGBM_K, LGBM_ROWS = ((500, 31), (1000, 255)), 16384, (16, 32, 64, 128)
+LGBM_BUDGETS = (227 * 1024 // 4, 227 * 1024 // 2, 227 * 1024)
 
 
 def corpus_dir() -> str:
@@ -374,6 +397,52 @@ def worker(root: str, calls: int, readings: list) -> list:
                   ("sdpa_backward", lambda: torch.autograd.grad(o, leaves, do,
                                                                 retain_graph=True))), d=d, T=T)
             del o, leaves
+    if "attention_long" in readings:
+        for B, T, H, d in ATTN_LONG:
+            q, k, v = (bf(B, T, H, d) for _ in range(3))
+            dout = bf(B, T, H * d)
+            mask = torch.ones((B, T), dtype=torch.int32)
+            mask[:, T - T // 5:] = 0
+            mask = mask.cuda()
+            add = torch.zeros((B, 1, 1, T), dtype=torch.bfloat16, device="cuda")
+            add.masked_fill_(mask[:, None, None, :] == 0, torch.finfo(torch.bfloat16).min)
+            try:
+                E.attention_forward(q, k, v, mask)
+                E.attention_backward(q, k, v, mask, dout)
+            except ValueError as exc:
+                out.append({"name": "K5a+K14a", "B": B, "T": T, "H": H, "d": d,
+                            "refused": str(exc), "event_ms": None, "device_ms": None})
+                continue
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, add)
+            do = dout.view(B, T, H, d).transpose(1, 2)
+            qt, kt, vt = (t.detach() for t in leaves)
+            read((("K5a", lambda: E.attention_forward(q, k, v, mask)),
+                  ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, add)),
+                  ("K14a", lambda: E.attention_backward(q, k, v, mask, dout)),
+                  ("sdpa_backward", lambda: torch.autograd.grad(o, leaves, do,
+                                                                retain_graph=True))),
+                 n=min(calls, 10), B=B, T=T, H=H, d=d)
+            del o, leaves
+    if "mean_pool_long" in readings:
+        for T in POOL_LONG:
+            lens = torch.randint(1, T + 1, (8, 1), generator=g)
+            lens[0], lens[-1] = T, 0
+            mask = (torch.arange(T) < lens).to(torch.int32).cuda()
+            h, cot = bf(8, T, 384), torch.randn((8, 384), generator=g).cuda()
+
+            def pool():
+                pooled, raw = E.mean_pool_forward(h, mask, True)
+                return E.mean_pool_backward(mask, raw, cot, True, torch.bfloat16)
+            try:
+                pool()
+            except ValueError as exc:
+                out.append({"name": "K5d", "B": 8, "T": T, "refused": str(exc),
+                            "event_ms": None, "device_ms": None})
+                continue
+            read((("K5d", pool),), parts=True, B=8, T=T)
+    if "forest_lightgbm" in readings:
+        forest_lightgbm_readings(read, out)
     if "stage_attention" in readings:
         torch.backends.cuda.matmul.allow_tf32 = False
         for T, H in STAGE_SHAPES:
@@ -916,6 +985,49 @@ def forest_readings(read) -> None:
                                                                  pm.max_depth)),),
                      parts=True, K=K)
             kernels.forest_plan = plan_of
+
+
+def forest_lightgbm_readings(read, out) -> None:
+    """The forest_lightgbm group (the module docstring)."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.ops import forest as FO
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch import bench_corpus as bc
+    from stract_tpu_torch.ranking.models import lambdamart as LM
+
+    rng = np.random.default_rng(5)
+    xc = torch.from_numpy(rng.normal(size=(LGBM_K, 46)).astype(np.float32)).cuda()
+    for trees, leaves in LGBM_FORESTS:
+        key = {"K": LGBM_K, "S": f"{trees}x{leaves}"}
+        try:
+            pm = LM.LambdaMART.parse_lightgbm(bc.synthetic_lightgbm(trees, leaves, 46, trees),
+                                              device="cuda")
+            FO.gbdt_forward(*pm._arrays(), xc, pm.max_depth)
+        except (AttributeError, ValueError) as exc:
+            out.append({"name": "K4", **key, "refused": str(exc), "event_ms": None,
+                        "device_ms": None})
+            continue
+        read((("K4", lambda: FO.gbdt_forward(*pm._arrays(), xc, pm.max_depth)),), parts=True,
+             **key)
+        T, N = pm.feature.shape
+        L = pm.leaf_value.shape[1]
+        plan_of = kernels.forest_plan
+        for rows in LGBM_ROWS:
+            for budget in LGBM_BUDGETS:
+                per = kernels._forest_smem(2, N, L, 46, rows) - kernels._forest_smem(1, N, L, 46,
+                                                                                      rows)
+                first = kernels._forest_smem(1, N, L, 46, rows)
+                if first > budget:
+                    continue
+                plan = kernels.ForestPlan(rows, min(T, 1 + (budget - first) // per), True)
+                kernels.forest_plan = lambda *a, p=plan: p
+                read(((f"K4_rows{rows}_smem{budget}",
+                       lambda: FO.gbdt_forward(*pm._arrays(), xc, pm.max_depth)),),
+                     parts=True, **key)
+        kernels.forest_plan = plan_of
+        del pm
 
 
 def main() -> int:

@@ -17,7 +17,9 @@ with pure-numpy array construction:
 
 The result opens with the ordinary InvertedIndex/Segment readers — nothing in
 the serving path is bench-specific. Corpus scale via docs=; the default query
-workload generator is also here so chip_smoke.py and tests share it.
+workload generator is also here so chip_smoke.py and tests share it, and so is
+synthetic_lightgbm, a seeded LightGBM text dump of random trees at production
+sizes (500 trees of 31 leaves) for the forest walk.
 """
 
 from __future__ import annotations
@@ -305,3 +307,50 @@ def sample_queries(rng, n: int, max_common: int = 300) -> list:
         b = int(rng.integers(max_common, 20_000))
         out.append(f"{token_of(a)} {token_of(b)}")
     return out
+
+
+def synthetic_lightgbm(num_trees: int, num_leaves: int, num_features: int, seed: int) -> str:
+    """A LightGBM text dump of `num_trees` random trees of `num_leaves`
+    leaves over `num_features` features, from a numpy seed: the shape of an
+    ordinary LambdaRank dump (LightGBM's default num_leaves is 31), for
+    exercising the forest walk at production sizes without LightGBM. Each
+    tree grows leaf-wise as LightGBM's do: a random leaf of depth below
+    ceil(log2(num_leaves)) + 2 (the depth parse_lightgbm walks) splits, the
+    left child keeping its leaf index and the right taking the next;
+    thresholds and leaf values are normal draws (leaf values scaled by
+    0.1), printed to 17 digits."""
+    rng = np.random.default_rng(seed)
+    depth_cap = int(np.ceil(np.log2(max(num_leaves, 2)))) + 2
+    lines = ["tree", "version=v4", "num_class=1", "num_tree_per_iteration=1",
+             "label_index=0", f"max_feature_idx={num_features - 1}", "objective=lambdarank",
+             "feature_names=" + " ".join(f"Column_{i}" for i in range(num_features)), ""]
+    for t in range(num_trees):
+        left, right = [], []
+        leaf_at = [(None, 0)]  # leaf i: (its parent node, the side), at leaf_depth[i]
+        leaf_depth = [0]
+        open_leaves = [0]  # the leaves below the cap, in index order
+        for _ in range(num_leaves - 1):
+            i = open_leaves[rng.integers(len(open_leaves))]
+            node, new = len(left), len(leaf_depth)
+            parent, side = leaf_at[i]
+            if parent is not None:
+                (left if side == 0 else right)[parent] = node
+            left.append(-(i + 1))
+            right.append(-(new + 1))
+            leaf_at[i], leaf_depth[i] = (node, 0), leaf_depth[i] + 1
+            leaf_at.append((node, 1))
+            leaf_depth.append(leaf_depth[i])
+            if leaf_depth[i] >= depth_cap:
+                open_leaves.remove(i)
+            else:
+                open_leaves.append(new)
+        n = len(left)
+        fmt = lambda a: " ".join(f"{v:.17g}" for v in a)  # noqa: E731
+        lines += [f"Tree={t}", f"num_leaves={num_leaves}", "num_cat=0",
+                  "split_feature=" + " ".join(str(int(f)) for f in
+                                              rng.integers(0, num_features, n)),
+                  "threshold=" + fmt(rng.normal(size=n)), "decision_type=" + " ".join(["2"] * n),
+                  "left_child=" + " ".join(map(str, left)),
+                  "right_child=" + " ".join(map(str, right)),
+                  "leaf_value=" + fmt(0.1 * rng.normal(size=num_leaves)), "shrinkage=0.1", ""]
+    return "\n".join(lines + ["end of trees", ""])

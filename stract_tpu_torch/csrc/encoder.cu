@@ -24,8 +24,9 @@
 // them to XLA's dot).
 //
 // Shapes: head dim d in {16, 32, 64} (BertConfig.tiny, MiniLM, BERT-base and
-// -large), a template parameter; T in 1..512 (the reference's positions end
-// at 511), a runtime argument.
+// -large), a template parameter; any T >= 1 (the reference clamps its
+// positions at 511 and attends over any length), a runtime argument; batch
+// rows and heads up to the grid's 65,535.
 // What bounds it: a query row needs 2 T d multiply-adds for its scores and
 // as many for P.V, about T / 2 flops per byte of q, k, v and context moved,
 // far below the ~295 at which the bf16 tensor cores would bind: device
@@ -58,11 +59,13 @@
 //     normalised probabilities round to bf16 as the reference's do
 //     (bert.py:101-102); registers do not grow with T. K and V stream
 //     through double buffers, a chunk's cp.async copies in flight while the
-//     one before it computes (stream_chunks): 43 KB of shared memory at
-//     d = 64 for any T, so five blocks share an SM. A first build staged K
-//     and V whole (141 KB at T = 512, d = 64: one block, one warpgroup an
-//     SM) and took 0.358 ms at B = 8, 12 heads of 64 (SDPA 0.029) on the
-//     H100.
+//     one before it computes (stream_chunks), and so does the chunk's key
+//     mask (64 ints by 4-byte cp.async): 41 KB of shared memory at d = 64
+//     for any T, so five blocks share an SM, and nothing staged grows with
+//     T. A first build staged K and V whole (141 KB at T = 512, d = 64: one
+//     block, one warpgroup an SM) and took 0.358 ms at B = 8, 12 heads of 64
+//     (SDPA 0.029) on the H100; a later one staged the whole mask (4 bytes a
+//     key: past ~45,000 tokens at d = 64 it would leave a block's 227 KB).
 // Keys past T are padding of the 64-key chunk: zero in shared memory and
 // left out of the row max and sum. Masked keys inside T take
 // finfo(f32).min and stay in, so a fully masked row is finite with uniform
@@ -78,7 +81,6 @@
 
 namespace {
 
-constexpr int kMaxT = 512;
 constexpr int kTile = 64;             // query rows of a block, keys of a chunk
 constexpr int kThreads = 128;         // one warpgroup
 constexpr int kCoreBytes = 128;       // a core matrix: 8 rows x 16 bytes
@@ -118,6 +120,13 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t leading, u
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(bytes));
+}
+
+// a 4-byte copy (src_bytes 0: zero-fill, src not read)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                  "r"(bytes));
 }
 
@@ -279,7 +288,7 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const __nv_bfloat
 // kept, 0 masked (finfo(f32).min), -1 past T (left out)
 __device__ __forceinline__ void stage_keep(float* keep, const int* mask, int b, int keys, int T) {
     for (int j = threadIdx.x; j < keys; j += kThreads)
-        keep[j] = j >= T ? -1.0f : (mask[b * T + j] != 0 ? 1.0f : 0.0f);
+        keep[j] = j >= T ? -1.0f : (mask[static_cast<long long>(b) * T + j] != 0 ? 1.0f : 0.0f);
 }
 
 // d[64 x 64] = A.B^T over the head dimension, A and B staged 64-row tiles:
@@ -384,11 +393,10 @@ size_t attention_smem_bytes(int chunks) {
            static_cast<size_t>(chunks) * kTile * sizeof(float);      // the mask
 }
 
-// the chunked kernel: Q tile, two chunks of K and of V, the mask
+// the chunked kernel: Q tile, two chunks of K and of V and of the mask
 template <int D>
-size_t attention_long_smem_bytes(int chunks) {
-    return static_cast<size_t>(Tile<D>::kBytes) * 5 +
-           static_cast<size_t>(chunks) * kTile * sizeof(float);
+constexpr size_t attention_long_smem_bytes() {
+    return static_cast<size_t>(Tile<D>::kBytes) * 5 + 2 * kTile * sizeof(int);
 }
 
 // the shared staging of both forward kernels: the query tile, K and V of
@@ -419,20 +427,78 @@ __device__ __forceinline__ void stage_forward(unsigned char* smem, const __nv_bf
     __syncthreads();
 }
 
+// what streams beside a chunk's rows: nothing, a key chunk's 64 mask
+// entries (made the keys' places, as stage_keep gives them), or a query
+// chunk's 64 x 3 statistics (max, 1 / sum, D, as dkv_chunk reads them),
+// each into one of two buffers by 4-byte cp.async, zero-filled past T.
+// start(c) is called as chunk c's rows are, ready(c) after they land, by
+// each thread for its own copies
+struct NoSide {
+    __device__ __forceinline__ void start(int) const {}
+    __device__ __forceinline__ void ready(int) const {}
+};
+
+struct MaskSide {
+    const int* m;  // the batch row's mask
+    int* buf;      // two chunks' 64 entries: the mask, then the places
+    int T;
+    __device__ __forceinline__ void start(int c) const {
+        for (int j = threadIdx.x; j < kTile; j += kThreads) {
+            const int key = c * kTile + j;
+            cp_async4(buf + (c & 1) * kTile + j, m + (key < T ? key : 0), key < T ? 4 : 0);
+        }
+    }
+    __device__ __forceinline__ void ready(int c) const {  // 1 kept, 0 masked, -1 past T
+        for (int j = threadIdx.x; j < kTile; j += kThreads) {
+            int* x = buf + (c & 1) * kTile + j;
+            const float place = c * kTile + j >= T ? -1.0f : (*x != 0 ? 1.0f : 0.0f);
+            *reinterpret_cast<float*>(x) = place;
+        }
+    }
+    __device__ __forceinline__ const float* keep(int c) const {
+        return reinterpret_cast<const float*>(buf + (c & 1) * kTile);
+    }
+};
+
+struct StatSide {
+    const float* st;  // the (batch row, head)'s [T, 3] statistics
+    float* buf;       // two chunks' 64 x 3
+    int T;
+    __device__ __forceinline__ void start(int c) const {
+        for (int j = threadIdx.x; j < 3 * kTile; j += kThreads) {
+            const long long i = 3LL * c * kTile + j;
+            const bool in = c * kTile + j / 3 < T;
+            cp_async4(buf + (c & 1) * 3 * kTile + j, st + (in ? i : 0), in ? 4 : 0);
+        }
+    }
+    __device__ __forceinline__ void ready(int c) const {  // the sums as their reciprocals
+        for (int j = threadIdx.x; j < 3 * kTile; j += kThreads)
+            if (j % 3 == 1) {
+                float* x = buf + (c & 1) * 3 * kTile + j;
+                *x = __frcp_rn(*x);
+            }
+    }
+    __device__ __forceinline__ const float* chunk(int c) const {
+        return buf + (c & 1) * 3 * kTile;
+    }
+};
+
 // the 64-row chunks of one or two [T, H * D] heads (a, and b unless null;
-// src at row 0) through double buffers of shared memory: chunk c + 1 is
-// copied by cp.async while fn(c, a's tile, b's tile) computes on chunk c.
-// Copies issued before the call (a query tile) land before fn's first call
-template <int D, typename F>
+// src at row 0) through double buffers of shared memory, and `side`'s
+// entries with them: chunk c + 1 is copied by cp.async while fn(c, a's
+// tile, b's tile) computes on chunk c. Copies started before the call (a
+// query tile) land before fn's first call
+template <int D, typename S, typename F>
 __device__ __forceinline__ void stream_chunks(int chunks, int T, long long row_stride,
                                               const __nv_bfloat16* a, const __nv_bfloat16* b,
                                               unsigned char* a_buf, unsigned char* b_buf,
-                                              F&& fn) {
+                                              const S& side, F&& fn) {
     constexpr int kBytes = Tile<D>::kBytes;
     auto load = [&](int c) {
         if (c < chunks) {
             stage_rows<D>(a_buf + (c & 1) * kBytes, a, c * kTile, kTile, T, row_stride);
             if (b) stage_rows<D>(b_buf + (c & 1) * kBytes, b, c * kTile, kTile, T, row_stride);
+            side.start(c);
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");  // empty past the last chunk
     };
@@ -440,6 +506,7 @@ __device__ __forceinline__ void stream_chunks(int chunks, int T, long long row_s
     for (int c = 0; c < chunks; ++c) {
         load(c + 1);
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // all but chunk c + 1's
+        side.ready(c);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncthreads();
         fn(c, a_buf + (c & 1) * kBytes, b_buf + (c & 1) * kBytes);
@@ -512,9 +579,9 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                   blockIdx.x * kTile, T, row_stride);
 }
 
-// K5a, chunked: any T up to kMaxT, the scores of one 64-key chunk at a time;
-// K and V stream through double buffers (five tiles of shared memory in all,
-// so several blocks share an SM)
+// K5a, chunked: any T, the scores of one 64-key chunk at a time; K, V and the
+// chunk's mask stream through double buffers (five tiles of shared memory
+// and 512 bytes in all, for any T, so several blocks share an SM)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -526,24 +593,24 @@ attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     unsigned char* s_q = smem;
     unsigned char* s_k = s_q + kBytes;      // two chunks' K
     unsigned char* s_v = s_k + 2 * kBytes;  // two chunks' V
-    float* s_keep = reinterpret_cast<float*>(s_v + 2 * kBytes);
     const int b = blockIdx.z, lane = threadIdx.x % 32;
+    const MaskSide side{mask + static_cast<long long>(b) * T,
+                        reinterpret_cast<int*>(s_v + 2 * kBytes), T};
     const long long row_stride = static_cast<long long>(H) * D;
     const long long base = static_cast<long long>(b) * T * row_stride + blockIdx.y * D;
     stage_rows<D>(s_q, q + base, blockIdx.x * kTile, kTile, T, row_stride);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    stage_keep(s_keep, mask, b, chunks * kTile, T);
     const float scale_div = sqrtf(static_cast<float>(D));
 
     // pass 1: the row max and sum (each lane's part of the sum, scaled when
     // the row max grows)
     float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.0f, 0.0f};
-    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr,
+    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr, side,
                      [&](int c, const unsigned char* kt, const unsigned char*) {
         float s[32];
         tile_product<D>(s, s_q, kt);
         float cm[2] = {-FLT_MAX, -FLT_MAX};
-        mask_scores<true>(s, s_keep + c * kTile, scale_div, cm);
+        mask_scores<true>(s, side.keep(c), scale_div, cm);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const float m = fmaxf(mx[r], quad_max(cm[r]));
@@ -563,12 +630,12 @@ attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v, side,
                      [&](int c, const unsigned char* kt, const unsigned char* vt) {
         float s[32];
         tile_product<D>(s, s_q, kt);
         float unused[2] = {-FLT_MAX, -FLT_MAX};
-        mask_scores<true>(s, s_keep + c * kTile, scale_div, unused);
+        mask_scores<true>(s, side.keep(c), scale_div, unused);
         uint32_t a[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
@@ -624,9 +691,9 @@ attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 //      longer rows): three passes over the key chunks, nothing of a chunk
 //      kept in registers between them: the row max and sum (as K5a's
 //      chunked pass 1), then S and dP again for D, then S and dP again for
-//      dS and dQ, K and V streamed as in K5a's chunked kernel. The row's
-//      max, sum and D go to an f32 scratch [B, H, T, 3] the wrapper
-//      allocates.
+//      dS and dQ, K, V and the mask streamed as in K5a's chunked kernel.
+//      The row's max, sum and D go to an f32 scratch [B, H, T, 3] the
+//      wrapper allocates.
 //   2. the dK / dV kernel, a 64-key tile: K and V tiles, Q, dO and the
 //      scratch whole; a 64-query chunk at a time S^T = K.Q^T and
 //      dP^T = V.dO^T (one wait for both), P^T from the scratch's max and
@@ -634,7 +701,10 @@ attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 //      dV += bf16(P^T).dO and dK += dS^T.Q, both with the A operand from
 //      registers. Its registers do not grow with T: the query chunks are a
 //      loop, unrolled over Q and dO staged whole up to K5a's one-pass
-//      lengths, beyond them Q and dO streamed through double buffers.
+//      lengths, beyond them Q, dO and the chunk's 64 x 3 statistics
+//      streamed through double buffers (the statistics staged whole, 12
+//      bytes a query, would leave a block's 227 KB at ~15,000 tokens at
+//      d = 64); no shared memory of the chunked kernels grows with T.
 // The divisions: by sqrt(d) and by the row sum, each score is multiplied
 // by the correctly rounded reciprocal instead (what PyTorch does for the
 // twin's division by the scalar sqrt(d) on the card; within an ulp of the
@@ -654,8 +724,9 @@ attention_long_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // the register-A bf16 product of K5a and needs no f32 staging of K and Q
 // (tf32 wgmma takes no transposed B). The other three products (S, dP, dV)
 // have exact bf16 inputs. Shared memory: 41,984 and 44,032 bytes at
-// T = 256, d = 32; 51,200 and 55,296 at T = 512, d = 64 (a kernel opts in
-// above 48 KB). Registers: the one-pass dQ kernel holds P of all chunks
+// T = 256, d = 32 (one pass); chunked, 49,664 and 50,688 at d = 64 for any
+// T (a kernel opts in above 48 KB).
+// Registers: the one-pass dQ kernel holds P of all chunks
 // (128 a thread at T > 192, d = 32: ~250 registers, two blocks an SM), as
 // K5a. Masked keys stay in the softmax at finfo(f32).min, so a fully masked
 // row has uniform weights and dQ = 0; keys past T are zero-filled and left
@@ -688,17 +759,15 @@ size_t backward_dkv_smem_bytes(int chunks) {
 }
 
 // the chunked kernels: two tiles (Q and dO, or K and V) and two chunks of the
-// other two; the mask, or the queries' statistics
+// other two, and of the mask or of the queries' statistics
 template <int D>
-size_t backward_dq_long_smem_bytes(int chunks) {
-    return 6 * static_cast<size_t>(Tile<D>::kBytes) +
-           static_cast<size_t>(chunks) * kTile * sizeof(float);
+constexpr size_t backward_dq_long_smem_bytes() {
+    return 6 * static_cast<size_t>(Tile<D>::kBytes) + 2 * kTile * sizeof(int);
 }
 
 template <int D>
-size_t backward_dkv_long_smem_bytes(int chunks) {
-    return 6 * static_cast<size_t>(Tile<D>::kBytes) +
-           3 * static_cast<size_t>(chunks) * kTile * sizeof(float);
+constexpr size_t backward_dkv_long_smem_bytes() {
+    return 6 * static_cast<size_t>(Tile<D>::kBytes) + 2 * 3 * kTile * sizeof(float);
 }
 
 // the dQ kernels' staging: the query tile's Q and dO, K and V of `chunks`
@@ -861,8 +930,8 @@ attention_backward_dq_kernel(const __nv_bfloat16* __restrict__ q,
     store_rows<D>(dq + base, acc, blockIdx.x * kTile, T, row_stride);
 }
 
-// K14a's dQ kernel, chunked: any T up to kMaxT, one 64-key chunk's scores
-// at a time in three passes, K and V streamed through double buffers
+// K14a's dQ kernel, chunked: any T, one 64-key chunk's scores at a time in
+// three passes, K, V and the chunk's mask streamed through double buffers
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
@@ -879,24 +948,24 @@ attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
     unsigned char* s_do = s_q + kBytes;
     unsigned char* s_k = s_do + kBytes;     // two chunks' K
     unsigned char* s_v = s_k + 2 * kBytes;  // two chunks' V
-    float* s_keep = reinterpret_cast<float*>(s_v + 2 * kBytes);
+    const MaskSide side{mask + static_cast<long long>(blockIdx.z) * T,
+                        reinterpret_cast<int*>(s_v + 2 * kBytes), T};
     const int lane = threadIdx.x % 32;
     const long long row_stride = static_cast<long long>(H) * D;
     const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
     stage_rows<D>(s_q, q + base, blockIdx.x * kTile, kTile, T, row_stride);
     stage_rows<D>(s_do, dout + base, blockIdx.x * kTile, kTile, T, row_stride);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    stage_keep(s_keep, mask, blockIdx.z, chunks * kTile, T);
     const float inv_scale = inv_sqrt_head_dim<D>();
 
     // pass 1: the row max and sum, as K5a's chunked pass 1 (with __expf)
     float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.0f, 0.0f};
-    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr,
+    stream_chunks<D>(chunks, T, row_stride, k + base, nullptr, s_k, nullptr, side,
                      [&](int c, const unsigned char* kt, const unsigned char*) {
         float s[32];
         tile_product<D>(s, s_q, kt);
         float cm[2] = {-FLT_MAX, -FLT_MAX};
-        mask_scores<false>(s, s_keep + c * kTile, inv_scale, cm);
+        mask_scores<false>(s, side.keep(c), inv_scale, cm);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const float m = fmaxf(mx[r], quad_max(cm[r]));
@@ -922,7 +991,7 @@ attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
         fence_regs(s);
         fence_regs(dp);
         float unused[2] = {-FLT_MAX, -FLT_MAX};
-        mask_scores<false>(s, s_keep + c * kTile, inv_scale, unused);
+        mask_scores<false>(s, side.keep(c), inv_scale, unused);
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
             const int key = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
@@ -932,7 +1001,7 @@ attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
 
     // pass 2: D = rowsum(P bf16(dP))
     float dsum[2] = {0.0f, 0.0f};
-    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v, side,
                      [&](int c, const unsigned char* kt, const unsigned char* vt) {
         float p[32], dp[32];
         chunk(c, kt, vt, p, dp);
@@ -947,18 +1016,18 @@ attention_backward_dq_long_kernel(const __nv_bfloat16* __restrict__ q,
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v,
+    stream_chunks<D>(chunks, T, row_stride, k + base, v + base, s_k, s_v, side,
                      [&](int c, const unsigned char* kt, const unsigned char* vt) {
         float p[32], dp[32];
         chunk(c, kt, vt, p, dp);
-        dq_chunk<D>(acc, p, dp, dsum, s_keep + c * kTile, kt, inv_scale);
+        dq_chunk<D>(acc, p, dp, dsum, side.keep(c), kt, inv_scale);
     });
     store_rows<D>(dq + base, acc, blockIdx.x * kTile, T, row_stride);
 }
 
 // dK += dS^T.Q and dV += bf16(P^T).dO over one 64-query chunk c (its Q and
-// dO tiles qt, dot; the queries' max, 1 / sum and D in st, three a query
-// from chunk 0; keep: this thread's two key rows kept)
+// dO tiles qt, dot; the chunk's queries' max, 1 / sum and D in st, three a
+// query from the chunk's first; keep: this thread's two key rows kept)
 template <int D>
 __device__ __forceinline__ void dkv_chunk(float (&acc_k)[D / 2], float (&acc_v)[D / 2],
                                           const unsigned char* s_k, const unsigned char* s_v,
@@ -986,7 +1055,7 @@ __device__ __forceinline__ void dkv_chunk(float (&acc_k)[D / 2], float (&acc_v)[
                 const int t = c * kTile + (i / 4) * 8 + 2 * (lane % 4) + e;
                 pv[e] = ds[e] = 0.0f;
                 if (t < T) {
-                    const float* sq = st + 3 * t;
+                    const float* sq = st + 3 * (t - c * kTile);
                     const float x = keep[j & 1] ? s[i] * inv_scale : -FLT_MAX;
                     pv[e] = __expf(x - sq[0]) * sq[1];
                     ds[e] = grad_score(pv[e], round_bf16(dp[i]), sq[2], keep[j & 1], inv_scale);
@@ -1021,20 +1090,29 @@ __device__ __forceinline__ void dkv_chunk(float (&acc_k)[D / 2], float (&acc_v)[
     }
 }
 
-// the dK / dV kernels' common part: the key tile's K and V rows (committed,
-// not waited for), the queries' statistics (the sum as its reciprocal) and
-// this thread's two key rows kept → keep
-__device__ __forceinline__ void stage_dkv_stats(float* s_stat, const float* stats, const int* mask,
-                                                int T, int H, bool (&keep)[2]) {
-    const int b = blockIdx.z, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const float* st = stats + (static_cast<long long>(b) * H + blockIdx.y) * T * 3;
-    for (int j = threadIdx.x; j < T * 3; j += kThreads)
-        s_stat[j] = j % 3 == 1 ? __frcp_rn(st[j]) : st[j];
+// the (batch row, head)'s [T, 3] statistics in the scratch
+__device__ __forceinline__ const float* head_stats(const float* stats, int T, int H) {
+    return stats + (static_cast<long long>(blockIdx.z) * H + blockIdx.y) * T * 3;
+}
+
+// this thread's two key rows of the dK / dV kernels' tile kept → keep
+__device__ __forceinline__ void key_rows_kept(const int* mask, int T, bool (&keep)[2]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int key = blockIdx.x * kTile + 16 * warp + lane / 4 + 8 * r;
-        keep[r] = key < T && mask[b * T + key] != 0;
+        keep[r] = key < T && mask[static_cast<long long>(blockIdx.z) * T + key] != 0;
     }
+}
+
+// the one-pass dK / dV kernel's statistics, all T queries' (the sum as its
+// reciprocal), and this thread's two key rows kept → keep
+__device__ __forceinline__ void stage_dkv_stats(float* s_stat, const float* stats, const int* mask,
+                                                int T, int H, bool (&keep)[2]) {
+    const float* st = head_stats(stats, T, H);
+    for (int j = threadIdx.x; j < T * 3; j += kThreads)
+        s_stat[j] = j % 3 == 1 ? __frcp_rn(st[j]) : st[j];
+    key_rows_kept(mask, T, keep);
 }
 
 // K14a's dK / dV kernel, Q and dO staged whole: CHUNKS 64-query chunks,
@@ -1074,14 +1152,14 @@ attention_backward_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c)
-        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, s_q + c * kBytes, s_do + c * kBytes, c, s_stat, keep,
-                     T, inv_scale);
+        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, s_q + c * kBytes, s_do + c * kBytes, c,
+                     s_stat + 3 * c * kTile, keep, T, inv_scale);
     store_rows<D>(dk + base, acc_k, k0, T, row_stride);
     store_rows<D>(dv + base, acc_v, k0, T, row_stride);
 }
 
-// K14a's dK / dV kernel, chunked: any T up to kMaxT, Q and dO streamed a
-// 64-query chunk at a time through double buffers
+// K14a's dK / dV kernel, chunked: any T, Q, dO and the chunk's statistics
+// streamed a 64-query chunk at a time through double buffers
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_backward_dkv_long_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1099,7 +1177,7 @@ attention_backward_dkv_long_kernel(const __nv_bfloat16* __restrict__ q,
     unsigned char* s_v = s_k + kBytes;
     unsigned char* s_q = s_v + kBytes;       // two chunks' Q
     unsigned char* s_do = s_q + 2 * kBytes;  // two chunks' dO
-    float* s_stat = reinterpret_cast<float*>(s_do + 2 * kBytes);
+    const StatSide side{head_stats(stats, T, H), reinterpret_cast<float*>(s_do + 2 * kBytes), T};
     const int k0 = blockIdx.x * kTile;
     const long long row_stride = static_cast<long long>(H) * D;
     const long long base = static_cast<long long>(blockIdx.z) * T * row_stride + blockIdx.y * D;
@@ -1107,15 +1185,15 @@ attention_backward_dkv_long_kernel(const __nv_bfloat16* __restrict__ q,
     stage_rows<D>(s_v, v + base, k0, kTile, T, row_stride);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     bool keep[2];
-    stage_dkv_stats(s_stat, stats, mask, T, H, keep);
+    key_rows_kept(mask, T, keep);
 
     const float inv_scale = inv_sqrt_head_dim<D>();
     float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
-    stream_chunks<D>(chunks, T, row_stride, q + base, dout + base, s_q, s_do,
+    stream_chunks<D>(chunks, T, row_stride, q + base, dout + base, s_q, s_do, side,
                      [&](int c, const unsigned char* qt, const unsigned char* dot) {
-        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, qt, dot, c, s_stat, keep, T, inv_scale);
+        dkv_chunk<D>(acc_k, acc_v, s_k, s_v, qt, dot, c, side.chunk(c), keep, T, inv_scale);
     });
     store_rows<D>(dk + base, acc_k, k0, T, row_stride);
     store_rows<D>(dv + base, acc_v, k0, T, row_stride);
@@ -1668,14 +1746,15 @@ cudaError_t launch_bias_gelu_backward(const __nv_bfloat16* y, const __nv_bfloat1
 // raw by block_sum (H floats and T ints: cheap), forms dsum once in shared
 // memory and writes its tokens' rows by 16-byte stores. No atomics and
 // every sum in a fixed order: two calls are bit-equal. H a multiple of 8
-// up to kPoolMaxH, T up to kPoolMaxT; h and dh 16-byte aligned.
+// up to kPoolMaxH, any T up to the backward grid's 65,535 spans (2,097,120
+// tokens): nothing staged grows with T; h and dh 16-byte aligned.
 // A first forward of 8 warps a block, 8 tokens a warp in flight, took
 // 0.0077 ms at 64 x 128 x 384 on the H100 (its backward 0.0041).
 constexpr int kPoolFwdWarps = 16;
 constexpr int kPoolWarps = 8;  // the backward's
 constexpr int kPoolMaxH = 1024;
-constexpr int kPoolMaxT = 512;
 constexpr int kPoolSpan = 32;  // the backward's tokens a block
+constexpr int kPoolMaxSpans = 65535;  // the backward grid's y
 
 // max(bf16(count of the kept tokens), 1) of one row of T mask entries, as
 // the reference rounds its bf16 mask sum; every thread of the block calls it
@@ -1886,7 +1965,7 @@ cudaError_t launch_forward(const __nv_bfloat16* q, const __nv_bfloat16* k,
             return launch(attention_kernel<D, 4>, grid, kThreads, smem, stream, q, k, v, mask, out,
                           T, H);
     }
-    return launch(attention_long_kernel<D>, grid, kThreads, attention_long_smem_bytes<D>(chunks),
+    return launch(attention_long_kernel<D>, grid, kThreads, attention_long_smem_bytes<D>(),
                   stream, q, k, v, mask, out, T, H);
 }
 
@@ -1911,11 +1990,11 @@ cudaError_t launch_backward_as(const __nv_bfloat16* q, const __nv_bfloat16* k,
                       T, H);
     } else {
         err = launch(attention_backward_dq_long_kernel<D>, grid, kThreads,
-                     backward_dq_long_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, dq,
+                     backward_dq_long_smem_bytes<D>(), stream, q, k, v, mask, dout, dq,
                      stats, T, H);
         if (err != cudaSuccess) return err;
         return launch(attention_backward_dkv_long_kernel<D>, grid, kThreads,
-                      backward_dkv_long_smem_bytes<D>(chunks), stream, q, k, v, mask, dout, st,
+                      backward_dkv_long_smem_bytes<D>(), stream, q, k, v, mask, dout, st,
                       dk, dv, T, H);
     }
 }
@@ -1946,12 +2025,12 @@ cudaError_t launch_backward(const __nv_bfloat16* q, const __nv_bfloat16* k,
 extern "C" {
 
 // q, k, v bf16[B, T, H, D] (16-byte aligned) and mask i32[B, T] -> out
-// bf16[B, T, H * D]. D must be 16, 32 or 64 and T 1..512. Returns the CUDA
-// status of the launch.
+// bf16[B, T, H * D]. D must be 16, 32 or 64, T at least 1, B and H at most
+// 65,535 (the grid's y and z). Returns the CUDA status of the launch.
 int stract_attention(const void* q, const void* k, const void* v, const int* mask, void* out,
                      int B, int T, int H, int D, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
-    if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
+    if (T <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
     const auto* qq = static_cast<const __nv_bfloat16*>(q);
     const auto* kk = static_cast<const __nv_bfloat16*>(k);
     const auto* vv = static_cast<const __nv_bfloat16*>(v);
@@ -1966,14 +2045,14 @@ int stract_attention(const void* q, const void* k, const void* v, const int* mas
 
 // q, k, v, dout bf16[B, T, H, D] (16-byte aligned; dout the gradient of
 // the [B, T, H * D] context), mask i32[B, T] -> dq, dk, dv bf16[B, T, H, D];
-// stats f32[B, H, T, 3] is scratch (each query row's max, sum and D). D
-// must be 16, 32 or 64 and T 1..512. Two launches on the stream; returns
-// the CUDA status.
+// stats f32[B, H, T, 3] is scratch (each query row's max, sum and D). D,
+// T, B and H as stract_attention's. Two launches on the stream; returns the
+// CUDA status.
 int stract_attention_backward(const void* q, const void* k, const void* v, const int* mask,
                               const void* dout, void* dq, void* dk, void* dv, float* stats,
                               int B, int T, int H, int D, cudaStream_t stream) {
     if (B <= 0 || H <= 0) return cudaSuccess;
-    if (T <= 0 || T > kMaxT) return cudaErrorInvalidValue;
+    if (T <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
     const auto* qq = static_cast<const __nv_bfloat16*>(q);
     const auto* kk = static_cast<const __nv_bfloat16*>(k);
     const auto* vv = static_cast<const __nv_bfloat16*>(v);
@@ -2087,12 +2166,13 @@ int stract_bias_gelu_backward(const void* y, const void* bias, const void* dout,
 
 // h bf16[B, T, H] (16-byte aligned), mask i32[B, T] -> out f32[B, H], the
 // masked mean (K5d), L2-normalised when `normalize`, and then raw f32[B, H]
-// the mean before it (raw is not written otherwise). T must be 1..512, H a
-// multiple of 8 up to 1024; B = 0 launches nothing. Returns the CUDA status
-// of the launch.
+// the mean before it (raw is not written otherwise). T must be 1..2,097,120
+// (the backward grid's), H a multiple of 8 up to 1024; B = 0 launches
+// nothing. Returns the CUDA status of the launch.
 int stract_mean_pool(const void* h, const int* mask, float* out, float* raw, int B, int T, int H,
                      int normalize, cudaStream_t stream) {
-    if (B < 0 || T <= 0 || T > kPoolMaxT || H <= 0 || H > kPoolMaxH || H % 8)
+    if (B < 0 || T <= 0 || (T + kPoolSpan - 1) / kPoolSpan > kPoolMaxSpans || H <= 0 ||
+        H > kPoolMaxH || H % 8)
         return cudaErrorInvalidValue;
     if (B == 0) return cudaSuccess;
     const auto* hh = static_cast<const __nv_bfloat16*>(h);
@@ -2112,7 +2192,8 @@ int stract_mean_pool(const void* h, const int* mask, float* out, float* raw, int
 // the launch.
 int stract_mean_pool_backward(const int* mask, const float* raw, const float* g, void* dh, int B,
                               int T, int H, int normalize, cudaStream_t stream) {
-    if (B < 0 || T <= 0 || T > kPoolMaxT || H <= 0 || H > kPoolMaxH || H % 8)
+    if (B < 0 || T <= 0 || (T + kPoolSpan - 1) / kPoolSpan > kPoolMaxSpans || H <= 0 ||
+        H > kPoolMaxH || H % 8)
         return cudaErrorInvalidValue;
     if (B == 0) return cudaSuccess;
     mean_pool_bwd_kernel<<<dim3(B, (T + kPoolSpan - 1) / kPoolSpan), kPoolWarps * 32, 0, stream>>>(

@@ -13,7 +13,8 @@
 // dQ = dS K, dK = dS^T Q, written into the three column blocks of one
 // dqkv f32[mb, T, 3H]. The products around it (x @ attn_qkv, @ attn_out)
 // stay cuBLAS f32 matrix products, as the JAX package leaves them to XLA.
-// Both take T up to 512 and H up to 1,024 (the reference has no limit).
+// Both take any T and H, as the reference does (up to 65,535 batch rows:
+// the grid's y).
 //
 // What bounds it: every query row needs 2 T H multiply-adds for its scores
 // and 2 T H for P.V (the backward five such products); at the smoke's
@@ -38,7 +39,10 @@
 // the tolerance on the H100 at T = 512), so each chain covers kTcGroup
 // k-steps from zero and its part is added to the running sum in f32 (four
 // chains a group, hi.hi apart from the small terms and even k-steps apart
-// from odd, took 0.037 against 0.032 ms at mb = 8, T = 128, H = 384).
+// from odd, took 0.037 against 0.032 ms at mb = 8, T = 128, H = 384). Past
+// H = 1,024 nothing changes: a product over H is H / 32 such parts added
+// in f32 (64 at H = 2,048; tests/test_torch_pipeline.py emulates the
+// grouping there), and the output slices are a loop.
 // mma.sync over wgmma: TF32 wgmma takes B only K-major, so P.V would need V
 // transposed in shared memory; mma.sync's B fragment is loaded from
 // registers, read from V as it is staged, and split in registers as it is
@@ -63,8 +67,23 @@
 // an SM hide more of it than 8 (0.043 ms) or 4 warps with each round's loads
 // waited for (0.061 ms) did on the H100 (K16a). Shared memory: two [16,
 // T rounded up to 128, + 4] tiles and two staging buffers of 43,520 bytes;
-// 153,088 bytes at T = 512 (the kernels opt in). No atomics: every output
-// element has one writer, so two calls are bit-equal.
+// 153,088 bytes at T = 512, 218,624 at T = 1,024, the most that fits a
+// block (the kernels opt in). No atomics: every output element has one
+// writer, so two calls are bit-equal.
+//
+// Past T = 1,024 (kTcChunk) the [16, T] tiles no longer fit, and the keys
+// (the queries in K16b's key-tile kernel) are taken in chunks of 1,024 with
+// [16, 1,024] tiles: K16a's and K16b's query-tile kernels walk the chunks
+// of S once for each row's max and sum (the sum scaled by
+// exp(old max - new max) when the max grows, one warp a row), then again
+// for p = exp(s - max) / sum, the twin's expressions; K16a feeds each
+// chunk's P to P.V, K16b forms D = rowsum(P dP) from the chunks of S and
+// dP and writes P^T and dP^T to the scratch, then reads each chunk back for
+// dS = P (dP - D) / sqrt(H), writes dS^T over dP^T and feeds dS to dQ; the
+// key-tile kernel takes its rows of P^T and dS^T a query chunk at a time.
+// A planes product adds each chunk's part of an output row to what the
+// chunks before it stored there (the block owns those rows: no atomics, the
+// same order every call).
 //
 // K16a (stage_attention_tc_kernel), per query tile: S, the softmax of each
 // row in place (one warp a row: max, exp, sum, division by the sum: the
@@ -90,9 +109,6 @@
 #include <math_constants.h>
 
 namespace {
-
-constexpr int kMaxT = 512;
-constexpr int kMaxH = 1024;
 
 // Softmax of one row of T scores in place, by one warp (the row's max and
 // sum are not kept: the backward recomputes them).
@@ -129,6 +145,11 @@ constexpr int kTcGroup = 4;               // k-steps summed in one accumulator c
 constexpr int kTcStage = (2 * kTcRows + kTcKeys) * kLdQK > kTcVKeys * kLdV
                              ? (2 * kTcRows + kTcKeys) * kLdQK : kTcVKeys * kLdV;
 
+// the most keys (or queries) of a [16, T] tile: past it the kernels take
+// them in chunks of kTcChunk
+constexpr int kTcChunk = 1024;
+static_assert(kTcWarps == kTcRows, "a warp a row of the tile");
+
 // a [16, T] tile's row stride: T rounded up to a chunk, + 4 (conflict-free A fragments)
 __host__ __device__ inline int score_stride(int T) {
     return (T + kTcKeys - 1) / kTcKeys * kTcKeys + 4;
@@ -139,6 +160,10 @@ __host__ __device__ inline int score_stride(int T) {
 size_t tc_smem_bytes(int T) {
     return sizeof(float) * (2 * static_cast<size_t>(kTcRows) * score_stride(T) + 2 * kTcStage);
 }
+
+// the chunked kernels': two [16, kTcChunk] tiles, the staging buffers and
+// each row's D (K16b)
+size_t tc_chunked_smem_bytes() { return tc_smem_bytes(kTcChunk) + sizeof(float) * kTcRows; }
 
 // x as hi + lo, each a TF32 value (the low 13 bits of its f32 pattern zero)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
@@ -314,7 +339,8 @@ __device__ void stage_col_round(float* s_buf, int r, const float* __restrict__ b
     cp_async_commit();
 }
 
-// dst[r * ld_dst + c] = sum_j A[r][j] B_j[c] for the rows r below rows. The
+// dst[r * ld_dst + c] = sum_j A[r][j] B_j[c] for the rows r below rows
+// (added to what dst holds when accumulate: a later chunk of keys). The
 // caller has committed round 0 (stage_col_round(s_buf, 0, ...)), so its
 // copies overlap the caller's work on the planes; the first wait also
 // orders the planes' writes before their reads. Ends synchronised.
@@ -322,7 +348,7 @@ __device__ __forceinline__ void planes_product(const float* s_hi, const float* s
                                                float* s_buf, const float* __restrict__ b,
                                                long long ldb, int T, int H, bool vec,
                                                float* __restrict__ dst, long long ld_dst,
-                                               int rows) {
+                                               int rows, bool accumulate = false) {
     const int vchunks = (T + kTcVKeys - 1) / kTcVKeys, outs = (H + kTcVCols - 1) / kTcVCols;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int n0 = 8 * warp;  // this warp's n8 tile: its first column in a slice
@@ -351,7 +377,10 @@ __device__ __forceinline__ void planes_product(const float* s_hi, const float* s
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int row = g + 8 * (e >> 1), col = o0 + n0 + 2 * t + (e & 1);
-                if (row < rows && col < H) dst[row * ld_dst + col] = oacc[e];
+                if (row < rows && col < H) {
+                    float* o = dst + row * ld_dst + col;
+                    *o = accumulate ? *o + oacc[e] : oacc[e];
+                }
                 oacc[e] = 0.0f;
             }
         }
@@ -465,14 +494,16 @@ stage_attention_bwd_query_kernel(const float* __restrict__ qkv, const float* __r
 
 // K16b, kernel 2: per tile of 16 key rows, dV = P^T.dO and dK = dS^T.Q into
 // dqkv's third and second column blocks, each as a planes product with the
-// tile's 16 rows of P^T (then dS^T) staged from the scratch and split.
+// tile's 16 rows of P^T (then dS^T) staged from the scratch and split, a
+// chunk of kTcChunk queries at a time past that many.
 __global__ void __launch_bounds__(kTcThreads)
 stage_attention_bwd_key_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                                const float* __restrict__ probs_t,
                                const float* __restrict__ dscores_t, float* __restrict__ dqkv,
                                int T, int H) {
     extern __shared__ __align__(16) float smem[];
-    const int ldp = score_stride(T);
+    const int chunk = min(T, kTcChunk);
+    const int ldp = score_stride(chunk);
     float* s_hi = smem;                      // [16][ldp]: the tile's rows, then their hi part
     float* s_lo = s_hi + kTcRows * ldp;      // [16][ldp]: their lo part
     float* s_buf = s_lo + kTcRows * ldp;     // two staging buffers of kTcStage floats
@@ -482,25 +513,181 @@ stage_attention_bwd_key_kernel(const float* __restrict__ qkv, const float* __res
     const bool vec = vec_rows(H, qkv, dout);
     const bool tvec = T % 4 == 0 && ((reinterpret_cast<uintptr_t>(probs_t) |
                                       reinterpret_cast<uintptr_t>(dscores_t)) & 15) == 0;
-    const int cols = (T + 7) / 8 * 8;        // the columns the k-steps read (past T: 0)
     const int rows = min(kTcRows, T - k0);
     for (int pass = 0; pass < 2; ++pass) {
         const float* a = (pass == 0 ? probs_t : dscores_t) + (row0 + k0) * T;
         const float* b = pass == 0 ? dout + row0 * H : qkv + row0 * ld;  // dO or Q
         const long long ldb = pass == 0 ? H : ld;
-        stage_f32(s_hi, ldp, a, T, kTcRows, cols, rows, T, tvec);
-        cp_async_commit();
-        stage_col_round(s_buf, 0, b, ldb, T, H, vec);
-        cp_async_wait_prior();  // the tile's rows
-        for (int i = threadIdx.x; i < kTcRows * cols; i += kTcThreads) {
-            float* x = s_hi + (i / cols) * ldp + i % cols;
-            uint32_t h, l;
-            split_tf32(*x, h, l);
-            *x = __uint_as_float(h);
-            s_lo[x - s_hi] = __uint_as_float(l);
+        for (int c0 = 0; c0 < T; c0 += chunk) {
+            const int n = min(chunk, T - c0);
+            const int cols = (n + 7) / 8 * 8;  // the columns the k-steps read (past n: 0)
+            stage_f32(s_hi, ldp, a + c0, T, kTcRows, cols, rows, n, tvec);
+            cp_async_commit();
+            stage_col_round(s_buf, 0, b + c0 * ldb, ldb, n, H, vec);
+            cp_async_wait_prior();  // the tile's rows
+            for (int i = threadIdx.x; i < kTcRows * cols; i += kTcThreads) {
+                float* x = s_hi + (i / cols) * ldp + i % cols;
+                uint32_t h, l;
+                split_tf32(*x, h, l);
+                *x = __uint_as_float(h);
+                s_lo[x - s_hi] = __uint_as_float(l);
+            }
+            planes_product(s_hi, s_lo, ldp, s_buf, b + c0 * ldb, ldb, n, H, vec,
+                           dqkv + (row0 + k0) * ld + (pass == 0 ? 2 * H : H), ld, rows, c0 > 0);
         }
-        planes_product(s_hi, s_lo, ldp, s_buf, b, ldb, T, H, vec,
-                       dqkv + (row0 + k0) * ld + (pass == 0 ? 2 * H : H), ld, rows);
+    }
+}
+
+// ---- the chunked forms past kTcChunk keys ----------------------------------------------
+// a warp's row of n scores folded into its running max and sum (every lane
+// gets the same): the sum scaled by exp(old max - new max), the chunk's
+// exp(s - new max) added
+__device__ __forceinline__ void running_max_sum(const float* row, int n, float& mx, float& sum) {
+    const int lane = threadIdx.x % 32;
+    float m = -CUDART_INF_F;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float nm = fmaxf(mx, m);
+    float e = 0.0f;
+    for (int j = lane; j < n; j += 32) e += expf(row[j] - nm);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(0xffffffffu, e, o);
+    sum = sum * expf(mx - nm) + e;  // mx = -inf at the first chunk: the old sum weighs 0
+    mx = nm;
+}
+
+// pass 1 of the chunked kernels: S = Q.K^T / sqrt(H) a chunk of keys at a
+// time into s_p, this warp's row's max and sum over all T keys → mx, sum
+__device__ __forceinline__ void chunked_max_sum(float* s_p, int ldp, float* s_buf,
+                                                const float* q_rows, long long ld, int q_valid,
+                                                const float* k_rows, int T, int H, bool vec,
+                                                float scale, float& mx, float& sum) {
+    const int warp = threadIdx.x / 32;
+    mx = -CUDART_INF_F;
+    sum = 0.0f;
+    for (int k0 = 0; k0 < T; k0 += kTcChunk) {
+        const int n = min(kTcChunk, T - k0);
+        rows_product(s_p, ldp, s_buf, q_rows, ld, q_valid, k_rows + k0 * ld, ld, n, H, vec, true,
+                     scale);
+        running_max_sum(s_p + warp * ldp, n, mx, sum);
+        __syncthreads();  // the rows read before the next chunk's scores
+    }
+}
+
+// K16a past kTcChunk keys: per tile of 16 query rows, the row max and sum
+// over the chunks of S, then each chunk's S again, P = exp(s - max) / sum
+// split into its planes, O += P.V_chunk
+__global__ void __launch_bounds__(kTcThreads)
+stage_attention_chunked_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T,
+                               int H, float scale) {
+    extern __shared__ __align__(16) float smem[];
+    const int ldp = score_stride(kTcChunk);
+    float* s_p = smem;                       // [16][ldp]: a chunk's scores, then P's hi part
+    float* s_plo = s_p + kTcRows * ldp;      // [16][ldp]: P's lo part
+    float* s_buf = s_plo + kTcRows * ldp;    // two staging buffers of kTcStage floats
+    const int q0 = blockIdx.x * kTcRows;
+    const long long row0 = static_cast<long long>(blockIdx.y) * T;
+    const long long ld = 3LL * H;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool vec = vec_rows(H, qkv, qkv);
+    const float* base = qkv + row0 * ld;
+    float mx, sum;
+    chunked_max_sum(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H, T, H, vec, scale, mx,
+                    sum);
+    for (int k0 = 0; k0 < T; k0 += kTcChunk) {
+        const int n = min(kTcChunk, T - k0);
+        rows_product(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H + k0 * ld, ld, n, H,
+                     vec, true, scale);
+        stage_col_round(s_buf, 0, base + 2 * H + k0 * ld, ld, n, H, vec);
+        float* p = s_p + warp * ldp;
+        float* lo = s_plo + warp * ldp;
+        for (int j = lane; j < ldp; j += 32) {  // keys past n weigh 0
+            uint32_t h = 0, l = 0;
+            if (j < n) split_tf32(expf(p[j] - mx) / sum, h, l);
+            p[j] = __uint_as_float(h);
+            lo[j] = __uint_as_float(l);
+        }
+        planes_product(s_p, s_plo, ldp, s_buf, base + 2 * H + k0 * ld, ld, n, H, vec,
+                       out + (row0 + q0) * H, H, T - q0, k0 > 0);
+    }
+}
+
+// K16b's kernel 1 past kTcChunk keys: per tile of 16 query rows, the row
+// max and sum over the chunks of S; then each chunk's S and dP again, P,
+// D's part, P^T and dP^T to the scratch; then each chunk read back, dS =
+// P (dP - D) / sqrt(H) written over dP^T, dQ += dS.K_chunk.
+__global__ void __launch_bounds__(kTcThreads)
+stage_attention_bwd_query_chunked_kernel(const float* __restrict__ qkv,
+                                         const float* __restrict__ dout,
+                                         float* __restrict__ probs_t,
+                                         float* __restrict__ dscores_t,
+                                         float* __restrict__ dqkv, int T, int H, float scale) {
+    extern __shared__ __align__(16) float smem[];
+    const int ldp = score_stride(kTcChunk);
+    float* s_p = smem;                       // [16][ldp]: S, then P; then dS's lo part
+    float* s_ds = s_p + kTcRows * ldp;       // [16][ldp]: dP; then dS's hi part
+    float* s_buf = s_ds + kTcRows * ldp;     // two staging buffers of kTcStage floats
+    float* s_d = s_buf + 2 * kTcStage;       // [16]: each row's D
+    const int q0 = blockIdx.x * kTcRows;
+    const long long row0 = static_cast<long long>(blockIdx.y) * T;
+    const long long ld = 3LL * H;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool vec = vec_rows(H, qkv, dout);
+    const float* base = qkv + row0 * ld;
+    const int rows = min(kTcRows, T - q0);
+    float mx, sum;
+    chunked_max_sum(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H, T, H, vec, scale, mx,
+                    sum);
+    float dsum = 0.0f;  // this lane's part of its warp's row's D
+    for (int k0 = 0; k0 < T; k0 += kTcChunk) {
+        const int n = min(kTcChunk, T - k0);
+        rows_product(s_p, ldp, s_buf, base + q0 * ld, ld, T - q0, base + H + k0 * ld, ld, n, H,
+                     vec, true, scale);
+        rows_product(s_ds, ldp, s_buf, dout + (row0 + q0) * H, H, T - q0, base + 2 * H + k0 * ld,
+                     ld, n, H, vec, false, scale);
+        float* p = s_p + warp * ldp;
+        const float* dp = s_ds + warp * ldp;
+        for (int j = lane; j < n; j += 32) {
+            p[j] = expf(p[j] - mx) / sum;
+            dsum += p[j] * dp[j];
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < kTcRows * n; i += kTcThreads) {  // key j's 16 contiguous
+            const int j = i / kTcRows, q = i % kTcRows;
+            if (q < rows) {
+                const long long at = (row0 + k0 + j) * T + q0 + q;
+                probs_t[at] = s_p[q * ldp + j];
+                dscores_t[at] = s_ds[q * ldp + j];
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
+    if (lane == 0) s_d[warp] = dsum;
+    __syncthreads();
+    for (int k0 = 0; k0 < T; k0 += kTcChunk) {
+        const int n = min(kTcChunk, T - k0);
+        stage_col_round(s_buf, 0, base + H + k0 * ld, ld, n, H, vec);  // dQ's first K slice
+        // the chunk's P and dP back from the scratch, dS = P (dP - D) / sqrt(H)
+        // over dP^T, split into its planes (hi in s_ds, lo in s_p); past n or
+        // past the tile's rows: 0
+        for (int i = threadIdx.x; i < kTcRows * ldp; i += kTcThreads) {
+            const int j = i / kTcRows, q = i % kTcRows;
+            float ds = 0.0f;
+            if (j < n && q < rows) {
+                const long long at = (row0 + k0 + j) * T + q0 + q;
+                ds = probs_t[at] * (dscores_t[at] - s_d[q]) / scale;
+                dscores_t[at] = ds;
+            }
+            uint32_t h, l;
+            split_tf32(ds, h, l);
+            s_ds[q * ldp + j] = __uint_as_float(h);
+            s_p[q * ldp + j] = __uint_as_float(l);
+        }
+        planes_product(s_ds, s_p, ldp, s_buf, base + H + k0 * ld, ld, n, H, vec,
+                       dqkv + (row0 + q0) * ld, ld, rows, k0 > 0);
     }
 }
 
@@ -682,44 +869,50 @@ cudaError_t gelu_grid(long long n, unsigned* blocks) {
 
 extern "C" {
 
-// qkv f32[B, T, 3H] -> out f32[B, T, H]. T must be 1..512 and H 1..1024.
-// Returns the CUDA status of the launch.
+// qkv f32[B, T, 3H] -> out f32[B, T, H]: T and H at least 1, B at most
+// 65,535. Returns the CUDA status of the launch.
 int stract_stage_attention(const float* qkv, float* out, int B, int T, int H,
                            cudaStream_t stream) {
     if (B <= 0) return cudaSuccess;
-    if (T <= 0 || T > kMaxT || H <= 0 || H > kMaxH || B > 65535) return cudaErrorInvalidValue;
+    if (T <= 0 || H <= 0 || B > 65535) return cudaErrorInvalidValue;
+    const bool chunked = T > kTcChunk;
+    auto* kernel = chunked ? stage_attention_chunked_kernel : stage_attention_tc_kernel;
+    const size_t smem = chunked ? tc_chunked_smem_bytes() : tc_smem_bytes(T);
     const cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
-        stage_attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(tc_smem_bytes(kMaxT)));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (attr != cudaSuccess) return attr;
     const dim3 grid((T + kTcRows - 1) / kTcRows, B);
-    stage_attention_tc_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
-        qkv, out, T, H, scale_divisor(H));
+    kernel<<<grid, kTcThreads, smem, stream>>>(qkv, out, T, H, scale_divisor(H));
     return cudaGetLastError();
 }
 
 // qkv f32[B, T, 3H], dout f32[B, T, H] (the gradient of the output) ->
 // dqkv f32[B, T, 3H]; probs and dscores f32[B, T, T] are scratch (P and
-// dS transposed, written by the first kernel, read by the second). T must
-// be 1..512 and H 1..1024. Returns the CUDA status of the launches.
+// dS transposed, written by the first kernel, read by the second). T, H and
+// B as stract_stage_attention's. Returns the CUDA status of the launches.
 int stract_stage_attention_backward(const float* qkv, const float* dout, float* probs,
                                     float* dscores, float* dqkv, int B, int T, int H,
                                     cudaStream_t stream) {
     if (B <= 0) return cudaSuccess;
-    if (T <= 0 || T > kMaxT || H <= 0 || H > kMaxH || B > 65535) return cudaErrorInvalidValue;
-    const int smem_max = static_cast<int>(tc_smem_bytes(kMaxT));
+    if (T <= 0 || H <= 0 || B > 65535) return cudaErrorInvalidValue;
+    const bool chunked = T > kTcChunk;
+    auto* query = chunked ? stage_attention_bwd_query_chunked_kernel
+                          : stage_attention_bwd_query_kernel;
+    const size_t smem_query = chunked ? tc_chunked_smem_bytes() : tc_smem_bytes(T);
+    const size_t smem_key = tc_smem_bytes(T < kTcChunk ? T : kTcChunk);
     cudaError_t attr = cudaFuncSetAttribute(  // per card: set at every launch
-        stage_attention_bwd_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+        query, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_query));
     if (attr == cudaSuccess)
         attr = cudaFuncSetAttribute(stage_attention_bwd_key_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem_key));
     if (attr != cudaSuccess) return attr;
     const dim3 grid((T + kTcRows - 1) / kTcRows, B);
-    stage_attention_bwd_query_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
-        qkv, dout, probs, dscores, dqkv, T, H, scale_divisor(H));
+    query<<<grid, kTcThreads, smem_query, stream>>>(qkv, dout, probs, dscores, dqkv, T, H,
+                                                   scale_divisor(H));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    stage_attention_bwd_key_kernel<<<grid, kTcThreads, tc_smem_bytes(T), stream>>>(
+    stage_attention_bwd_key_kernel<<<grid, kTcThreads, smem_key, stream>>>(
         qkv, dout, probs, dscores, dqkv, T, H);
     return cudaGetLastError();
 }

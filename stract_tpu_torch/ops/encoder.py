@@ -6,8 +6,8 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
 
   K5a  attention            masked softmax attention (bert.py:97-103): CUDA C++,
   K14a attention backward   csrc/encoder.cu, bound through ops/kernels.py; head
-                            dims 16, 32 and 64, 1 to 512 tokens (other shapes
-                            on a card raise)
+                            dims 16, 32 and 64, any number of tokens (other
+                            head dims on a card raise)
   K5b  add_layernorm        bf16 residual add + f32 LayerNorm, cast to bf16
   K14b  ... backward        (bert.py:164-165, :173-174, and the embedding LN at
                             :204-205): CUDA C++, csrc/encoder.cu; rows of up to
@@ -17,8 +17,9 @@ Each piece is a kernel with its plain PyTorch twin, forward and backward:
   K14c  ... backward        CUDA C++, csrc/encoder.cu; any width and any view
   K5d  mean_pool            masked mean pool, optionally L2-normalised
        (+ its backward)     (bert.py:222-226, :243-245): CUDA C++,
-                            csrc/encoder.cu; 1 to 512 tokens, widths that are
-                            multiples of 8 up to 1,024 (others on a card raise)
+                            csrc/encoder.cu; any number of tokens up to the
+                            grid's 2,097,120, widths that are multiples of 8
+                            up to 1,024 (others on a card raise)
 
 The public functions (attention, add_layernorm, bias_gelu, mean_pool) are
 `torch.autograd.Function`s. Their forward and backward each pick by where

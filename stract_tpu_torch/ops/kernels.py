@@ -80,9 +80,11 @@ JOIN_CAP = 16384
 # K3: the signal rows a block takes; its dynamic shared memory (MAX_DYN_SMEM)
 SIG_ROWS = 2
 SIG_DYN_SMEM = 224 * 1024
-# limits of csrc/encoder.cu: the head widths and the longest sequence
+# limits of csrc/encoder.cu: the head widths (any T); a grid's y and z
+# dimensions (K5a's and K14a's heads and batch rows, K5d's spans, K16a-b's
+# batch rows)
 ATTN_HEAD_DIMS = (16, 32, 64)
-ATTN_MAX_T = 512
+GRID_YZ = 65535
 # limits of K5b and K14b (csrc/encoder.cu): the widest row; K14b's rows a
 # block and most blocks of its fixed grid
 LN_MAX_N = 1024
@@ -90,21 +92,24 @@ LN_BWD_WARPS, LN_BWD_BLOCKS = 8, 264
 # K14c (csrc/encoder.cu): the rows a block takes a step, the columns of a
 # block, and the most blocks of its fixed grid
 GELU_BWD_ROWS, GELU_BWD_COLS, GELU_BWD_BLOCKS = 32, 256, 264
-# limits of K5d (csrc/encoder.cu): the longest row of tokens and the widest
-# hidden state (a multiple of 8: 16-byte pieces)
-POOL_MAX_T, POOL_MAX_H = 512, 1024
+# limits of K5d (csrc/encoder.cu): the backward's tokens a block (its
+# grid's y: at most GRID_YZ spans) and the widest hidden state (a multiple
+# of 8: 16-byte pieces)
+POOL_SPAN, POOL_MAX_H = 32, 1024
 # K15c's InfoNCE head (csrc/losses.cu): the most rows that one block takes
 # (more go to the grid of INFO_NCE_GRID_ROWS rows a block and a second,
 # ordered pass: the same result; the crossover is in csrc/losses.cu's note)
 INFO_NCE_ONE_BLOCK, INFO_NCE_GRID_ROWS = 64, 8
-# limits of csrc/stage.cu: the longest sequence and the widest head
-STAGE_MAX_T = 512
-STAGE_MAX_H = 1024
-# a block's shared memory on the card (the forest is staged there whole)
+# a block's shared memory on the card
 MAX_SMEM = 227 * 1024
 # K4 (csrc/forest.cu): threads a block, and the most blocks before its
-# tile grows (4 an SM on 132 SMs: half a wave of its 256-thread blocks)
+# tile grows (4 an SM on 132 SMs: half a wave of its 256-thread blocks);
+# a forest staged in chunks: the most blocks before its tile grows (one an
+# SM), a chunk's shared memory (the first of FOREST_CHUNK_SMEM whose chunk
+# holds FOREST_CHUNK_TREES trees: 3, 2 or 1 blocks an SM)
 FOREST_THREADS, FOREST_BLOCKS = 256, 4 * 132
+FOREST_SMS, FOREST_CHUNK_TREES = 132, 16
+FOREST_CHUNK_SMEM = (MAX_SMEM // 4, MAX_SMEM // 2, MAX_SMEM)
 # K1 and K2 (csrc/scoring.cu): the most blocks a query's cluster takes, the
 # dynamic shared memory a block may take (MAX_DYN_SMEM), the bytes of a K1
 # table slot (doc, text sum, mask word, aux word), the least slots a K1
@@ -443,7 +448,7 @@ def _load(name: str):
                        lib.stract_dense_rerank,
                        lib.stract_mesh_topk)
             elif name == "forest":
-                lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+                lib.stract_forest.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
                 fns = (lib.stract_forest,)
             elif name == "graph":
                 lib.stract_hll_merge.argtypes = [P, P, P, P, P, I, I, I, I, F, P, P, P, P, P]
@@ -903,43 +908,72 @@ def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores) -> None:
 
 class ForestPlan(NamedTuple):
     """K4's launch: `rows` rows a block (FOREST_THREADS threads walking its
-    (row, tree) pairs)."""
+    (row, tree) pairs), the forest in chunks of `trees` trees, staged in
+    shared memory when `staged`, else read where it lies (a tree too large
+    for a block's shared memory, or rows too wide)."""
 
     rows: int
+    trees: int
+    staged: bool
 
 
 def _forest_smem(T: int, N: int, L: int, F: int, rows: int) -> int:
-    """csrc/forest.cu's shared memory: 16-byte nodes, the leaves, the tile's
-    features at a stride of F + 1 floats (F even) and its leaf values."""
+    """csrc/forest.cu's shared memory for a chunk of T trees: 16-byte nodes,
+    the leaves, the tile's features at a stride of F + 1 floats (F even) and
+    its leaf values."""
     stride = F + 1 if F % 2 == 0 else F
     return 16 * T * N + 4 * T * L + 4 * rows * stride + 4 * T * rows
 
 
-def forest_plan(T: int, N: int, L: int, F: int, K: int) -> ForestPlan:
-    """K4's tile: 8 rows a block (K = 256 over 32 SMs, K = 4,096 in 512
-    blocks), doubled, up to 64, while the blocks outnumber FOREST_BLOCKS
-    (K = 16,384: 32 rows, 512 blocks, one wave); fewer where the forest
-    leaves less shared memory. The readings it rests on are in PERF.md §6.
-    ValueError when the forest with one row does not fit a block's shared
-    memory."""
-    if min(T, N, L, F) < 1:
-        raise ValueError(f"a forest takes trees, nodes, leaves and features, not {T}, {N}, {L}, "
-                         f"{F}")
-    if _forest_smem(T, N, L, F, 1) > MAX_SMEM:
-        raise ValueError(f"a forest of {T} trees x {N} nodes x {L} leaves over {F} features "
-                         "does not fit one block's shared memory")
+def _forest_tile(K: int, blocks: int) -> int:
+    """8 rows a block, doubled, up to 64, while the blocks outnumber
+    `blocks`."""
     rows = 8
-    while rows < 64 and -(-K // rows) > FOREST_BLOCKS:
+    while rows < 64 and -(-K // rows) > blocks:
         rows *= 2
-    while rows > 1 and _forest_smem(T, N, L, F, rows) > MAX_SMEM:
-        rows //= 2
-    return ForestPlan(rows)
+    return rows
+
+
+def forest_plan(T: int, N: int, L: int, F: int, K: int) -> ForestPlan:
+    """K4's tile and chunks. A forest that fits a block's shared memory
+    beside a tile of 8 rows (K = 256 over 32 SMs, K = 4,096 in 512 blocks),
+    doubled, up to 64, while the blocks outnumber FOREST_BLOCKS (K = 16,384:
+    32 rows, 512 blocks, one wave), is one chunk. A larger forest is walked
+    in chunks, the tile doubled while the blocks outnumber the card's SMs
+    (every block stages the whole forest), a chunk as many trees as the
+    first budget of FOREST_CHUNK_SMEM holds beside the tile that holds
+    FOREST_CHUNK_TREES (500 trees of 31 leaves: 53 trees in a quarter of
+    the shared memory, 3 blocks an SM; 1,000 of 255: 19 in half), else the
+    largest budget's; a forest whose single tree, or whose one row, does not
+    fit takes the global form, chunks of leaf values alone in shared memory.
+    The readings it rests on are in PERF.md §6. ValueError only for a
+    malformed forest (no trees, nodes, leaves or features, or K < 0), never
+    for a large one."""
+    if min(T, N, L, F) < 1 or K < 0:
+        raise ValueError(f"a forest takes trees, nodes, leaves and features, not {T}, {N}, {L}, "
+                         f"{F} over {K} rows")
+    rows = _forest_tile(K, FOREST_BLOCKS)
+    if _forest_smem(T, N, L, F, rows) <= MAX_SMEM:
+        return ForestPlan(rows, T, True)
+    rows = _forest_tile(K, FOREST_SMS)
+    plan = None
+    for budget in FOREST_CHUNK_SMEM:
+        r = rows
+        while r > 1 and _forest_smem(1, N, L, F, r) > budget:
+            r //= 2
+        first = _forest_smem(1, N, L, F, r)
+        if first > budget:
+            continue
+        per_tree = _forest_smem(2, N, L, F, r) - first
+        plan = ForestPlan(r, min(T, 1 + (budget - first) // per_tree), True)
+        if plan.trees >= min(T, FOREST_CHUNK_TREES):
+            return plan
+    return plan or ForestPlan(rows, min(T, MAX_SMEM // 2 // (4 * rows)), False)
 
 
 def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) -> None:
     """K4 over x f32[K, F] into out f32[K] (ops/forest.py allocates), in
-    forest_plan's tiles; a forest too large for shared memory raises
-    ValueError before any build or launch."""
+    forest_plan's tiles and chunks, a forest of any size."""
     T, N = feature.shape
     L = leaf_value.shape[1]
     K, F = x.shape
@@ -950,16 +984,17 @@ def forest(feature, threshold, left, right, leaf_value, x, out, max_depth: int) 
         rc = lib.stract_forest(
             _ptr(feature, i32, (T, N)), _ptr(threshold, f32, (T, N)), _ptr(left, i32, (T, N)),
             _ptr(right, i32, (T, N)), _ptr(leaf_value, f32, (T, L)), _ptr(x, f32, (K, F)),
-            _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), plan.rows, stream)
+            _ptr(out, f32, (K,)), T, N, L, K, F, int(max_depth), plan.rows, plan.trees,
+            int(plan.staged), stream)
     _check(rc, "stract_forest")
     counted("forest")
 
 
 def _attention_ptrs(tensors, shape, align: int = 4) -> list:
     B, T, H, D = shape
-    if D not in ATTN_HEAD_DIMS or not 1 <= T <= ATTN_MAX_T or B > 65535 or H > 65535:
-        raise ValueError(f"attention takes head dims {ATTN_HEAD_DIMS} and 1..{ATTN_MAX_T} "
-                         f"tokens, not q of shape {tuple(shape)}")
+    if D not in ATTN_HEAD_DIMS or T < 1 or B > GRID_YZ or H > GRID_YZ:
+        raise ValueError(f"attention takes head dims {ATTN_HEAD_DIMS}, at least one token and "
+                         f"up to {GRID_YZ} batch rows and heads, not q of shape {tuple(shape)}")
     ptrs = [_ptr(t, torch.bfloat16, (B, T, H, D)) for t in tensors]
     if any(p % align for p in ptrs):
         raise ValueError(f"attention reads its rows in {align}-byte pieces: pointers must be "
@@ -969,7 +1004,7 @@ def _attention_ptrs(tensors, shape, align: int = 4) -> list:
 
 def attention(q, k, v, mask, out) -> None:
     """K5a: q, k, v bf16[B, T, H, D] (16-byte aligned; D in ATTN_HEAD_DIMS,
-    T up to ATTN_MAX_T), mask i32[B, T] → out bf16[B, T, H*D]
+    any T), mask i32[B, T] → out bf16[B, T, H*D]
     (ops/encoder.py allocates)."""
     B, T, H, D = q.shape
     ptrs = _attention_ptrs((q, k, v), q.shape, align=16)  # 16-byte cp.async copies
@@ -1102,8 +1137,8 @@ def bias_gelu_backward(y, b, dout, c1: float, c2: float) -> tuple:
 
 
 def _pool_dims(B: int, T: int, H: int, h_or_dh) -> None:
-    if not 1 <= T <= POOL_MAX_T or not 8 <= H <= POOL_MAX_H or H % 8:
-        raise ValueError(f"the mean pool takes 1..{POOL_MAX_T} tokens and widths that are "
+    if not 1 <= -(-T // POOL_SPAN) <= GRID_YZ or not 8 <= H <= POOL_MAX_H or H % 8:
+        raise ValueError(f"the mean pool takes 1..{GRID_YZ * POOL_SPAN} tokens and widths that are "
                          f"multiples of 8 up to {POOL_MAX_H}, not T = {T}, H = {H}")
     if _ptr(h_or_dh, torch.bfloat16, (B, T, H)) % 16:
         raise ValueError("the mean pool moves rows in 16-byte pieces: the hidden states "
@@ -1111,7 +1146,7 @@ def _pool_dims(B: int, T: int, H: int, h_or_dh) -> None:
 
 
 def mean_pool(h, mask, out, raw, normalize: bool) -> None:
-    """K5d's forward: h bf16[B, T, H] (16-byte aligned; T in 1..POOL_MAX_T,
+    """K5d's forward: h bf16[B, T, H] (16-byte aligned; T in 1..GRID_YZ x POOL_SPAN,
     H a multiple of 8 up to POOL_MAX_H), mask i32[B, T] → out f32[B, H], the
     masked mean, L2-normalised when `normalize`, and then raw f32[B, H] the
     mean before it (ops/encoder.py allocates; raw is out when not
@@ -1152,9 +1187,9 @@ def mean_pool_backward(mask, raw, g, dh, normalize: bool) -> None:
 def _stage_dims(qkv) -> tuple:
     B, T, H3 = qkv.shape
     H = H3 // 3
-    if not (H3 == 3 * H and 1 <= H <= STAGE_MAX_H and 1 <= T <= STAGE_MAX_T and B <= 65535):
-        raise ValueError(f"the stage attention takes qkv [B, T, 3H] with T in 1..{STAGE_MAX_T} "
-                         f"and H in 1..{STAGE_MAX_H}, not {tuple(qkv.shape)}")
+    if not (H3 == 3 * H and H >= 1 and T >= 1 and B <= GRID_YZ):
+        raise ValueError(f"the stage attention takes qkv [B, T, 3H] with T, H >= 1 and up to "
+                         f"{GRID_YZ} batch rows, not {tuple(qkv.shape)}")
     return B, T, H
 
 

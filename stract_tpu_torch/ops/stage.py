@@ -8,7 +8,8 @@ twin:
                                  the three H-wide column blocks of qkv
                                  f32[mb, T, 3H] (one head of width H, no mask,
                                  :46-48): CUDA C++, csrc/stage.cu (3xTF32 on
-                                 the tensor cores); T <= 512, H <= 1,024
+                                 the tensor cores); any T and H (past
+                                 1,024 tokens the keys in chunks)
   K16b  ... backward             dq, dk, dv into the three column blocks of one
                                  dqkv f32[mb, T, 3H]: CUDA C++, csrc/stage.cu
   K16c gelu_tanh, fwd + bwd      jax.nn.gelu(approximate=True) in f32, no bias

@@ -95,14 +95,14 @@ def test_kernel_arguments_are_checked(monkeypatch):
     """Shapes, dtypes and layouts a kernel does not take raise before any
     build or launch."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    big = torch.zeros((4000, 4000), dtype=torch.int32)
-    with pytest.raises(ValueError):  # a forest too large for one block's shared memory
-        kernels.forest(big, big.float(), big, big, torch.zeros((4000, 8)), torch.zeros((4, 46)),
-                       torch.zeros(4), 5)
-    bf = torch.zeros((1, 600, 12, 32), dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # more tokens than the attention kernel stages
-        kernels.attention(bf, bf, bf, torch.ones((1, 600), dtype=torch.int32),
-                          torch.zeros((1, 600, 384), dtype=torch.bfloat16))
+    empty = torch.zeros((40, 0), dtype=torch.int32)
+    with pytest.raises(ValueError):  # a malformed forest: trees without nodes
+        kernels.forest(empty, empty.float(), empty, empty, torch.zeros((40, 8)),
+                       torch.zeros((4, 46)), torch.zeros(4), 5)
+    bf = torch.zeros((65536, 1, 1, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # more batch rows than the grid's 65,535
+        kernels.attention(bf, bf, bf, torch.ones((65536, 1), dtype=torch.int32),
+                          torch.zeros((65536, 1, 16), dtype=torch.bfloat16))
     d24 = torch.zeros((1, 16, 4, 24), dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # a head width other than 16, 32 or 64
         kernels.attention(d24, d24, d24, torch.ones((1, 16), dtype=torch.int32),
@@ -117,23 +117,54 @@ def test_kernel_arguments_are_checked(monkeypatch):
                     torch.zeros(384, dtype=torch.bfloat16))
 
 
+class _RecordingLib:
+    """A stand-in library: every stract_* entry point records its name and
+    arguments and returns success."""
+
+    def __init__(self, called):
+        self.called = called
+
+    def __getattr__(self, name):
+        if not name.startswith("stract_"):
+            raise AttributeError(name)
+        return lambda *args: self.called.append((name, args)) or 0
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 4, 24), (2, 513, 4, 16), (2, 513, 2, 64)])
 @pytest.mark.parametrize("kind", ["forward", "backward"])
 def test_attention_wrappers_reject_other_head_dims_and_long_rows(monkeypatch, kind, shape):
-    """K5a and K14a take head dims 16, 32 and 64 and up to 512 tokens: a
-    head dim of 24, or 513 tokens, raises through ops/encoder.py's
-    dispatchers before the library is loaded or a kernel launched, with a
-    message that names what they take."""
+    """K5a and K14a take head dims 16, 32 and 64 and any number of tokens: a
+    head dim of 24 raises through ops/encoder.py's dispatchers before the
+    library is loaded or a kernel launched, with a message that names what
+    they take; 513 tokens (past the 512 they once stopped at) reach the C
+    entry point with T = 513, counted once."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
     B, T, h, d = shape
     q = torch.zeros(shape, dtype=torch.bfloat16)
     mask = torch.ones((B, T), dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64\) and 1..512 tokens"):
-        if kind == "forward":
-            E.attention_forward(q, q, q, mask)
-        else:
-            E.attention_backward(q, q, q, mask, torch.zeros((B, T, h * d), dtype=torch.bfloat16))
+    dout = torch.zeros((B, T, h * d), dtype=torch.bfloat16)
+    if d not in kernels.ATTN_HEAD_DIMS:
+        monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
+        with pytest.raises(ValueError, match=r"head dims \(16, 32, 64\), at least one token"):
+            if kind == "forward":
+                E.attention_forward(q, q, q, mask)
+            else:
+                E.attention_backward(q, q, q, mask, dout)
+        return
+    called = []
+    monkeypatch.setattr(kernels, "_load", lambda name: _RecordingLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    kernels.reset_launches()
+    if kind == "forward":
+        out = E.attention_forward(q, q, q, mask)
+        assert out.shape == (B, T, h * d)
+    else:
+        grads = E.attention_backward(q, q, q, mask, dout)
+        assert [g.shape for g in grads] == [shape] * 3
+    name = "stract_attention" if kind == "forward" else "stract_attention_backward"
+    assert [c[0] for c in called] == [name]
+    assert called[0][1][-5:] == (B, T, h, d, 0)
+    assert kernels.LAUNCHES["attention" if kind == "forward" else "attention_backward"] == 1
 
 
 def test_every_launch_takes_the_stream_of_its_tensors_card():
@@ -541,12 +572,29 @@ def test_layernorm_backward_refuses_wider_rows_before_any_launch(monkeypatch, ki
                                              (16, 1032, False), (16, 384, True)])
 @pytest.mark.parametrize("kind", ["forward", "backward"])
 def test_mean_pool_refuses_other_shapes_before_any_launch(monkeypatch, kind, T, H, misaligned):
-    """K5d takes 1..512 tokens, widths that are multiples of 8 up to 1,024
-    and 16-byte aligned hidden states: anything else raises ValueError
-    before any build or launch."""
+    """K5d takes any number of tokens (up to its backward grid's 65,535
+    spans of 32), widths that are multiples of 8 up to 1,024 and 16-byte
+    aligned hidden states: 513 tokens (past the 512 it once stopped at)
+    reach the C entry point with T = 513; a width of 380 or 1,032 or a
+    misaligned view raises ValueError before any build or launch."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
     mask = torch.ones((2, T), dtype=torch.int32)
+    if T > 512:
+        called = []
+        monkeypatch.setattr(kernels, "_load", lambda name: _RecordingLib(called))
+        monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+        h = torch.zeros((2, T, H), dtype=torch.bfloat16)
+        kernels.reset_launches()
+        if kind == "forward":
+            pooled, raw = E.mean_pool_forward(h, mask, True)
+            assert pooled.shape == raw.shape == (2, H)
+        else:
+            kernels.mean_pool_backward(mask, torch.zeros(2, H), torch.zeros(2, H), h, True)
+        name = "stract_mean_pool" if kind == "forward" else "stract_mean_pool_backward"
+        assert [c[0] for c in called] == [name] and called[0][1][-5:] == (2, T, H, 1, 0)
+        assert kernels.LAUNCHES["mean_pool"] == 1
+        return
+    monkeypatch.setattr(kernels, "_load", lambda name: _FailingLib())
     before = kernels.LAUNCHES["mean_pool"]
     with pytest.raises(ValueError, match="mean pool"):
         if kind == "forward":
@@ -680,26 +728,93 @@ def _tree_order_sum(pm, x, max_depth):
 def test_forest_plan_tiles_the_rows():
     """K4's tile: K = 256 over more than 2 SMs, K = 16,384 in one wave (at
     most FOREST_BLOCKS blocks; 8 of 256 threads fit an SM), 64 rows a block
-    at most; a forest too large for a block's shared memory raises."""
+    at most, the repo's 40-tree forest one staged chunk; a forest too large
+    for a block's shared memory is walked in chunks (4,000 trees of 4,000
+    nodes: a tree a chunk) and raises nothing; only a malformed forest
+    raises."""
     assert -(-256 // kernels.forest_plan(40, 7, 8, 46, 256).rows) > 2
     assert -(-16384 // kernels.forest_plan(40, 7, 8, 46, 16384).rows) <= kernels.FOREST_BLOCKS
     assert kernels.forest_plan(40, 7, 8, 46, 1 << 20).rows == 64
     assert kernels.forest_plan(40, 7, 8, 46, 1).rows >= 1
-    with pytest.raises(ValueError):
-        kernels.forest_plan(4000, 4000, 8, 46, 256)
+    for K in (1, 256, 16384):
+        assert kernels.forest_plan(40, 7, 8, 46, K)[1:] == (40, True)
+    assert kernels.forest_plan(4000, 4000, 8, 46, 256) == (8, 3, True)
+    for bad in ((0, 7, 8, 46, 256), (40, 0, 8, 46, 256), (40, 7, 0, 46, 256),
+                (40, 7, 8, 0, 256), (40, 7, 8, 46, -1)):
+        with pytest.raises(ValueError):
+            kernels.forest_plan(*bad)
+
+
+@pytest.mark.parametrize("T,N,L,F", [(500, 30, 31, 46), (4000, 4000, 8, 46),
+                                     (1000, 254, 255, 46), (3, 20000, 20001, 46)])
+@pytest.mark.parametrize("K", [1, 256, 16384])
+def test_forest_plan_chunks_large_forests(T, N, L, F, K):
+    """Past one block's shared memory K4 walks the forest in chunks: a
+    chunk's nodes, leaves, the tile's features and its leaf values fill the
+    first budget of FOREST_CHUNK_SMEM (a quarter, a half or all of a block's
+    shared memory) whose chunk holds FOREST_CHUNK_TREES trees, else the
+    largest (4,000-node trees: 3 a chunk); the tile grows to 64 rows while
+    the blocks outnumber the card's SMs (every block stages the whole
+    forest); a single tree past shared memory (20,000 nodes: 320 KB) takes
+    the global form, whose chunk of leaf values alone fits."""
+    plan = kernels.forest_plan(T, N, L, F, K)
+    assert 1 <= plan.rows <= 64 and 1 <= plan.trees <= T
+    assert plan.rows == 64 or -(-K // plan.rows) <= kernels.FOREST_SMS
+    if kernels._forest_smem(1, N, L, F, 1) > kernels.MAX_SMEM:
+        assert not plan.staged and 4 * plan.trees * plan.rows <= kernels.MAX_SMEM // 2
+        return
+    assert plan.staged and plan.trees < T
+    smem = lambda trees: kernels._forest_smem(trees, N, L, F, plan.rows)  # noqa: E731
+    budget = next(b for b in kernels.FOREST_CHUNK_SMEM if smem(plan.trees) <= b)
+    assert smem(plan.trees + 1) > budget
+    assert plan.trees >= kernels.FOREST_CHUNK_TREES or budget == kernels.MAX_SMEM
+    assert all(smem(kernels.FOREST_CHUNK_TREES) > b for b in kernels.FOREST_CHUNK_SMEM
+               if b < budget)
+
+
+def test_forest_wrapper_passes_its_plan_to_the_c_entry_point(monkeypatch):
+    """K4 on stand-in CUDA tensors over a LightGBM dump of 500 trees of 31
+    leaves (past a block's shared memory): one stract_forest call with
+    forest_plan's rows, trees a chunk and form, counted once."""
+    from stract_tpu_torch.bench_corpus import synthetic_lightgbm
+
+    pm = LambdaMART.parse_lightgbm(synthetic_lightgbm(500, 31, 46, 0), device="cpu")
+    x, out = torch.zeros((16384, 46)), torch.zeros(16384)
+    called = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(kernels, "_load", lambda name: _RecordingLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    kernels.reset_launches()
+    kernels.forest(*pm._arrays(), x, out, pm.max_depth)
+    plan = kernels.forest_plan(500, 30, 31, 46, 16384)
+    assert plan.staged and plan.trees < 500
+    assert [c[0] for c in called] == ["stract_forest"]
+    assert called[0][1][7:] == (500, 30, 31, 16384, 46, pm.max_depth, plan.rows, plan.trees, 1, 0)
+    assert kernels.LAUNCHES["forest"] == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 255, 256, 16384])
-@pytest.mark.parametrize("shape", ["trained", "deep"])
+@pytest.mark.parametrize("shape", ["trained", "deep", "lightgbm_500x31", "lightgbm_1000x255",
+                                   "lightgbm_3x12000"])
 def test_forest_kernel_matches_plain(k, shape):
     """K4 bit-equal to a tree-order f32 sum of the plain walk's leaves, and
     within the forest tolerance of the plain version (which sums the trees
     in another order), at row counts off and on its tiles, on a trained
-    forest and on one walked past max_depth with negative feature indices."""
+    forest, on one walked past max_depth with negative feature indices, on
+    LightGBM dumps of 500 trees of 31 leaves and 1,000 of 255 (walked in
+    chunks of trees: past one block's shared memory), and on 3 trees of
+    12,000 leaves (a tree past a block: the global form)."""
+    from stract_tpu_torch.bench_corpus import synthetic_lightgbm
+
     dev = _card()
     rng = np.random.default_rng(3)
-    pm, depth = _deep_forest(rng) if shape == "deep" else (_forest(rng), 3)
+    if shape.startswith("lightgbm"):
+        trees, leaves = map(int, shape.split("_")[1].split("x"))
+        pm = LambdaMART.parse_lightgbm(synthetic_lightgbm(trees, leaves, 46, trees), device="cpu")
+        depth = pm.max_depth
+    else:
+        pm, depth = _deep_forest(rng) if shape == "deep" else (_forest(rng), 3)
     pm = pm.to(dev)
     x = torch.from_numpy(rng.normal(size=(k, 46)).astype(np.float32))
     x[0, 5] = float("nan")  # NaN goes right
@@ -714,7 +829,7 @@ def test_forest_kernel_matches_plain(k, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16, 128, 256])
+@pytest.mark.parametrize("T", [16, 128, 256, 1024, 2048])
 def test_attention_kernel_matches_plain(T):
     dev = _card()
     g = torch.Generator().manual_seed(T)
@@ -797,8 +912,8 @@ def test_attention_autograd_through_both_kernels_matches_plain_vjp(T):
 
 
 # every head dim K5a and K14a take, at tile tails below, at and past the 256
-# tokens of their one-pass forms, and at 512
-GRID_D, GRID_T = [16, 32, 64], [1, 65, 256, 257, 512]
+# tokens of their one-pass forms, at 512 and past it
+GRID_D, GRID_T = [16, 32, 64], [1, 65, 256, 257, 512, 1024, 1100]
 
 
 @pytest.mark.cuda
@@ -829,6 +944,35 @@ def test_attention_kernels_match_plain_at_every_head_dim(D, T):
     for a, b in zip(grads, E.attention_backward(q, k, v, mask, dout)):
         assert torch.equal(a, b)
     assert not grads[0][2].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,D", [(16384, 2, 64), (4096, 12, 32)])
+def test_attention_kernels_match_plain_past_the_staged_lengths(T, H, D):
+    """K5a and K14a at B = 1 past the lengths at which the chunked kernels'
+    mask and statistics, staged whole, would have left a block's shared
+    memory (16,384 tokens at d = 64): the forward and the backward within
+    one bf16 step of the plain versions' largest magnitude (a typical output
+    there, ~1/sqrt(13,000), is under the shorter rows' atol), the row's last
+    fifth masked, each call counted once, a second call bit-equal."""
+    dev = _card()
+    g = torch.Generator().manual_seed(T + D)
+    q, k, v = (torch.randn((1, T, H, D), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    dout = torch.randn((1, T, H * D), generator=g).to(dev, torch.bfloat16)
+    mask = torch.ones((1, T), dtype=torch.int32)
+    mask[0, T - T // 5:] = 0
+    mask = mask.to(dev)
+    n = (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"])
+    out = E.attention_forward(q, k, v, mask)
+    grads = E.attention_backward(q, k, v, mask, dout)
+    assert (kernels.LAUNCHES["attention"], kernels.LAUNCHES["attention_backward"]) == \
+        (n[0] + 1, n[1] + 1)
+    _step_close(out, E.attention_plain(q, k, v, mask))
+    for a, b in zip(grads, E.attention_backward_plain(q, k, v, mask, dout)):
+        _step_close(a, b)
+    assert torch.equal(E.attention_forward(q, k, v, mask), out)
+    for a, b in zip(grads, E.attention_backward(q, k, v, mask, dout)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1108,12 +1252,12 @@ def pool_mask(B: int, T: int, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 17, 128, 512])
+@pytest.mark.parametrize("T", [1, 17, 128, 512, 1024, 4096])
 @pytest.mark.parametrize("B", [1, 64, 256])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_mean_pool_kernels_match_plain(normalize, B, T):
     """K5d (CUDA) forward and backward at one row, the dual step's 64 and
-    256, over 1, 17, 128 and 512 tokens, a fully masked row past one row,
+    256, over 1, 17, 128, 512, 1,024 and 4,096 tokens, a fully masked row past one row,
     normalised and not: pooled, raw and dh within one bf16 step of the
     twin's largest magnitude, second calls bit-equal, each call counted."""
     dev = _card()

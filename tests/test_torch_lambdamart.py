@@ -115,6 +115,28 @@ def test_lightgbm_fixture_matches_jax(tmp_path):
                                       pm.predict(x))
 
 
+def test_production_sized_lightgbm_dump_matches_jax(tmp_path):
+    """A seeded LightGBM dump of 500 trees of 31 leaves (LightGBM's default
+    num_leaves; past one block of the card's shared memory, so K4 walks it
+    in chunks of trees), parsed by both packages' parse_lightgbm into the
+    same tensors, scored by the port's plain walk and by _gbdt_forward on
+    300 seeded rows within the forest tolerance; LambdaMART.load (the
+    serving loader of `main.py serve --lambdamart`) reads the same forest."""
+    from stract_tpu_torch.bench_corpus import synthetic_lightgbm
+
+    text = synthetic_lightgbm(500, 31, 46, 0)
+    jm, pm = JaxLM.parse_lightgbm(text), LambdaMART.parse_lightgbm(text, device="cpu")
+    assert pm.feature.shape == (500, 30) and pm.leaf_value.shape == (500, 31)
+    assert pm.max_depth == jm.max_depth
+    for a, b in zip(pm._arrays(), (jm.feature, jm.threshold, jm.left, jm.right, jm.leaf_value)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    x = np.random.default_rng(7).normal(size=(300, 46)).astype(np.float32)
+    _assert_same(pm.predict(x), _jax_scores(jm, x), jm.leaf_value)
+    (tmp_path / "model.txt").write_text(text)
+    np.testing.assert_array_equal(LambdaMART.load(str(tmp_path / "model.txt"),
+                                                  device="cpu").predict(x), pm.predict(x))
+
+
 def test_tree_deeper_than_max_depth():
     """A walk still on an internal node after max_depth steps reads
     leaf_value[t, 0] (the reference's clip), in both packages."""

@@ -38,6 +38,7 @@ from stract_tpu_torch.ops import kernels
 from stract_tpu_torch.ops import stage as ST
 from stract_tpu_torch.parallel import pipeline as TP
 from stract_tpu_torch.parallel.mesh import Mesh
+from test_torch_kernels import _RecordingLib
 
 CPU = torch.device("cpu")
 PIPE_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -68,7 +69,7 @@ def _stage_np(rng, H: int, F: int) -> dict:
 
 
 # ---- the stage and its gradients ---------------------------------------------------------
-@pytest.mark.parametrize("H,T", [(16, 4), (16, 16), (32, 4), (32, 16)])
+@pytest.mark.parametrize("H,T", [(16, 4), (16, 16), (32, 4), (32, 16), (16, 600), (1040, 8)])
 def test_apply_stage_and_its_gradients_match_jax(jx, H, T):
     jax, jnp, _, _, JP = jx
     rng = np.random.default_rng(H * 100 + T)
@@ -247,10 +248,12 @@ def _tensor_core_product(eq: str, a, b, split: bool):
             + torch.einsum(eq, a_hi, b_hi))
 
 
-@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024)])
+@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024), (1, 2048, 384),
+                                    (1, 128, 2048)])
 def test_3xtf32_products_keep_the_f32_tolerance(mb, T, H):
-    """K16a's arithmetic emulated on the CPU at the smoke's shape and the
-    largest it takes: both products in 3xTF32, the softmax in f32 as the
+    """K16a's arithmetic emulated on the CPU at the smoke's shape, at the
+    largest its one-tile form once took, past 1,024 keys (its chunked form)
+    and past H = 1,024: both products in 3xTF32, the softmax in f32 as the
     twin computes it. Against the attention in f64 of the same f32 inputs
     it stays within the card test's rtol 1e-5, atol 1e-5 x max |out|, as the
     f32 twin does; with plain TF32 products (10-bit mantissas) it does not."""
@@ -282,10 +285,13 @@ def _grouped_product(eq: str, a, b, axis_a: int, axis_b: int, split: bool):
     return out
 
 
-@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024)])
+@pytest.mark.parametrize("mb,T,H", [(8, 128, 384), (1, 512, 1024), (1, 2048, 384),
+                                    (1, 128, 2048)])
 def test_3xtf32_backward_products_keep_the_f32_tolerance(mb, T, H):
-    """K16b's arithmetic emulated on the CPU at the smoke's shape and the
-    largest it takes: its five products (S = Q.K^T, dP = dO.V^T, dQ = dS.K,
+    """K16b's arithmetic emulated on the CPU at the smoke's shape, at the
+    largest its one-tile form once took, past 1,024 keys and past H =
+    1,024 (64 chains of 4 k-steps added in f32 for each product over H):
+    its five products (S = Q.K^T, dP = dO.V^T, dQ = dS.K,
     dV = P^T.dO, dK = dS^T.Q) in 3xTF32 with the kernels' chain grouping, the
     softmax, D and dS in f32 as the twin computes them. Against autograd in
     f64 of the same f32 inputs it stays within the card test's rtol 1e-5,
@@ -481,13 +487,28 @@ def test_gelu_tanh_reaches_its_c_entry_points(monkeypatch, shape, misaligned):
 
 @pytest.mark.parametrize("shape", [(1, 513, 48), (1, 16, 3 * 1025), (1, 16, 50)])
 def test_stage_attention_arguments_are_checked(monkeypatch, shape):
-    """T above 512, H above 1,024 or a width that is not 3H raise before any
-    build or launch."""
-    monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build on this machine"))
+    """A width that is not 3H raises before any build or launch; T above
+    512 and H above 1,024 (where K16a-b once stopped) reach the C entry
+    points with that T and H, forward and backward, each counted once."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    with pytest.raises(ValueError, match="stage attention"):
-        ST.stage_attention_forward(torch.zeros(shape))
+    if shape[2] % 3:
+        monkeypatch.setattr(kernels, "_load", lambda name: pytest.fail("no build here"))
+        with pytest.raises(ValueError, match="stage attention"):
+            ST.stage_attention_forward(torch.zeros(shape))
+        return
+    called = []
+    monkeypatch.setattr(kernels, "_load", lambda name: _RecordingLib(called))
+    monkeypatch.setattr(kernels, "on_card", lambda *t: contextlib.nullcontext(0))
+    kernels.reset_launches()
+    mb, T, H = shape[0], shape[1], shape[2] // 3
+    out = ST.stage_attention_forward(torch.zeros(shape))
+    dqkv = ST.stage_attention_backward(torch.zeros(shape), torch.zeros((mb, T, H)))
+    assert out.shape == (mb, T, H) and dqkv.shape == shape
+    assert [c[0] for c in called] == ["stract_stage_attention",
+                                      "stract_stage_attention_backward"]
+    assert all(c[1][-4:] == (mb, T, H, 0) for c in called)
+    assert kernels.LAUNCHES["stage_attention"] == kernels.LAUNCHES["stage_attention_backward"] == 1
 
 
 # ---- on the card ----------------------------------------------------------------------------
@@ -505,14 +526,17 @@ def _close(got, want, rtol, atol_of_max):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mb,T,H", [(2, 16, 16), (3, 37, 40), (8, 128, 384), (1, 256, 1024),
-                                    (2, 257, 768), (1, 512, 1024), (2, 512, 384),
+                                    (2, 257, 768), (1, 512, 1024), (2, 512, 384), (1, 1024, 384),
+                                    (1, 2048, 384), (2, 1031, 36), (1, 128, 2048),
+                                    (1, 300, 1536),
                                     (3, 65, 36), (1, 1, 8), (2, 33, 30)])
 def test_stage_attention_kernels_match_plain(mb, T, H):
     """K16a (3xTF32 on the tensor cores) and K16b against the f32 twins at
     rtol 1e-5, atol 1e-5 x max |plain|, from tiny shapes and widths that are
     not multiples of 8 or of 128 (H = 30: rows staged by 4-byte copies) up
-    to T = 512 and H = 1,024; each call counted once, and a second call
-    bit-equal to the first."""
+    to T = 1,024 (the one-tile forms), past it (the key-chunked forms: T =
+    1,031 with H = 36 staged by 4-byte copies, 2,048) and past H = 1,024;
+    each call counted once, and a second call bit-equal to the first."""
     dev = _card()
     g = torch.Generator().manual_seed(T + H)
     qkv = torch.randn((mb, T, 3 * H), generator=g).to(dev)
@@ -592,9 +616,20 @@ def test_sgd_multi_kernel_matches_plain(count, launches):
 
 @pytest.mark.cuda
 def test_stage_attention_kernel_refuses_long_sequences():
+    """The length it once refused and past the one-tile forms' 1,024: T =
+    1,536 at H = 48 (half a chunk in the last) takes the key-chunked K16a
+    and K16b within rtol 1e-5, atol 1e-5 x max |plain| of the twins, each
+    counted once."""
     dev = _card()
-    with pytest.raises(ValueError, match="stage attention"):
-        ST.stage_attention_forward(torch.zeros((1, 513, 48), device=dev))
+    g = torch.Generator().manual_seed(1536)
+    qkv = torch.randn((1, 1536, 144), generator=g).to(dev)
+    dout = torch.randn((1, 1536, 48), generator=g).to(dev)
+    n = dict(kernels.LAUNCHES)
+    _close(ST.stage_attention_forward(qkv), ST.stage_attention_plain(qkv), 1e-5, 1e-5)
+    _close(ST.stage_attention_backward(qkv, dout), ST.stage_attention_backward_plain(qkv, dout),
+           1e-5, 1e-5)
+    assert kernels.LAUNCHES["stage_attention"] == n["stage_attention"] + 1
+    assert kernels.LAUNCHES["stage_attention_backward"] == n["stage_attention_backward"] + 1
 
 
 @pytest.mark.cuda

@@ -126,12 +126,12 @@ def test_attention_backward_twin_matches_jax_vjp():
     assert not _np(got[0])[2].any()  # the fully padded row: no score gradient
 
 
-@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("T", [257, 512, 600, 1100])
 @pytest.mark.parametrize("h,d", [(4, 16), (2, 64)])
 def test_attention_backward_twin_matches_jax_vjp_at_other_head_dims(h, d, T):
     """The twin at head dim 16 (BertConfig.tiny's) and 64 (BERT-base's),
-    past the one-pass kernels' 256 tokens and at 512; rows half, fully and
-    tail masked. One bf16 step relative, plus 2^-12 (not 2^-16) x the
+    past the one-pass kernels' 256 tokens, at 512 and past it; rows half,
+    fully and tail masked. One bf16 step relative, plus 2^-12 (not 2^-16) x the
     largest magnitude near zero: dV sums 257-512 bf16 products a element,
     which XLA's CPU dot and torch's einsum take in other orders (2^-12.8 of
     the largest magnitude at most, at T = 512)."""
@@ -174,7 +174,7 @@ def _chunked_stats(x, exp):
     return mx, total
 
 
-@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("T", [257, 512, 600, 1100])
 @pytest.mark.parametrize("h,d", [(4, 16), (3, 32), (2, 64)])
 def test_chunked_attention_rounding_matches_jax(h, d, T):
     """K5a's chunked form (the row's max and sum from 64-key chunks, the sum
@@ -273,12 +273,13 @@ def test_k14a_decomposition_matches_jax_vjp(T):
     assert not _np(got[0])[2].any()  # the fully masked row: dQ = 0
 
 
-@pytest.mark.parametrize("T", [257, 512])
+@pytest.mark.parametrize("T", [257, 512, 600, 1100])
 @pytest.mark.parametrize("h,d", [(4, 16), (2, 64)])
 def test_chunked_k14a_decomposition_matches_jax_vjp(h, d, T):
     """The chunked dQ kernel's statistics (_chunked_stats, as K5a's chunked
     pass 1) through K14a's decomposition at head dims 16 and 64 past 256
-    tokens: within one bf16 step of jax.vjp's largest magnitude."""
+    tokens, at 512 and past it (the lengths the kernels once refused):
+    within one bf16 step of jax.vjp's largest magnitude."""
     rng = np.random.default_rng(T + 7 * d)
     B = 4
     q, k, v = (rng.normal(size=(B, T, h, d)).astype(np.float32) for _ in range(3))
