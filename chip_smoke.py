@@ -220,6 +220,9 @@ SERVE_ON_ROUNDS = 8
 # stage-A bucket: the global form at L = 1,024), and past 2 blocks' shared
 # memory for the select's keys
 MERGE_P, MERGE_WIDE_P = 64, 256
+# K12 held against its plain version also over this many full-length slots a
+# query (their L-row prefixes pass one block's staging)
+PREFIX_WIDE_P = 64
 # K3 held against its plain version at these pages (its main path's 128 and
 # 512, and the ends of what it takes)
 PASS2_K = (1, PAGE_K, 512, C)
@@ -1385,6 +1388,41 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     add("signals_prefix", float((sig_k - sig_p).abs().max()), run_k, run_p, 512,
         sig_bytes + 2 * B * 46 * 512 + 4 * search_rows(lens, 512, steps, cap=L) + 4 * found_l,
         n_slots * 512 * steps + 2 * 46 * B * Pc * 512, iters=3)
+    plan = kernels.prefix_plan(Pc, L, 512, 46)
+    blocks = -(-512 // plan.cands) * B
+    if blocks <= B:
+        raise AssertionError(f"K12 takes {blocks} blocks for {B} queries")
+    log(f"[config kernels] K12 at P = {Pc}, L = {L}, K = 512: {blocks} blocks for {B} queries "
+        f"(plan {tuple(plan)})")
+    # K12 over PREFIX_WIDE_P full-length slots a query: 64 prefixes of L rows
+    # pass one block's staging (kernels.prefix_plan takes them in groups)
+    rng = np.random.default_rng(SEED + 12)
+    qw_np = full_slots(seg, O.stack([pad_slots(q, PREFIX_WIDE_P) for q, _ in comp]), rng)
+    plan = kernels.prefix_plan(PREFIX_WIDE_P, L, 512, 46)
+    if not 0 < plan.group < PREFIX_WIDE_P:
+        raise AssertionError(f"K12's plan {plan} stages {PREFIX_WIDE_P} prefixes in one group")
+    ac_np = O.stack([a for _, a in comp])
+    cyc = np.arange(PREFIX_WIDE_P) % Pc
+    aw = O.to_tensors(ac_np._replace(**{f: np.asarray(getattr(ac_np, f))[..., cyc]
+                                        for f in ac_np._fields}), DEVICE)
+    qw = O.to_tensors(qw_np, DEVICE)
+    heads = [np.concatenate([np.arange(s, s + L) for s in qw_np.starts[j]]) for j in range(B)]
+    rows_w = T(np.stack([rng.choice(h, 256, replace=False) for h in heads]), torch.int64)
+    page_w = torch.cat([dev.arrays.postings[rows_w, 0], page[:, :256]], dim=1).contiguous()
+    run_k = lambda: O.compute_signals_batch(dev.arrays, qw, aw, page_w, L)  # noqa: E731
+    run_p = lambda: O.compute_signals_batch_plain(dev.arrays, qw, aw, page_w, L)  # noqa: E731
+    sig_k, sig_p = run_k(), run_p()
+    torch.testing.assert_close(sig_k, sig_p, rtol=P12_TOL[0], atol=P12_TOL[1])
+    lens_w = qw_np.lens.astype(np.int64)
+    found_w = int((O._slot_factor_lookup(*O._gather_packed(dev.arrays, qw, L), page_w, L)
+                   != 0).sum())
+    add("signals_prefix", float((sig_k - sig_p).abs().max()), run_k, run_p,
+        (512, f"{PREFIX_WIDE_P} full slots"),
+        4 * B * 512 + sum(x.numel() * 4 for x in (*qw, *aw)) + 4 * B * 46 * 512
+        + 4 * search_rows(lens_w, 512, steps, cap=L) + 4 * found_w,
+        int((lens_w > 0).sum()) * 512 * steps + 2 * 46 * B * PREFIX_WIDE_P * 512, iters=3)
+    log(f"[config kernels] K12 over {PREFIX_WIDE_P} full slots a query (plan {tuple(plan)}): "
+        f"within rtol {P12_TOL[0]} of its plain version, {found_w} factors found")
 
     # ---- K10 -------------------------------------------------------------------------
     run_k = lambda: R.rerank_topk_batch(emb, q_emb, base, RERANK_W, RERANK_TOP)  # noqa: E731
@@ -3059,29 +3097,60 @@ def topk_library(scores, docs, K: int):
 
 def mesh_topk_rows() -> tuple:
     """K9 against its plain version (a stable sort: lax.top_k's order) at
-    MESH_TOPK_SHAPES, B = MESH_TOPK_B queries: docs, shards and scores
-    bit-equal; timed beside torch.topk and the gathers (topk_library). →
-    (rows (name, err, ms, plain ms, (n, K, B), bytes, ops), library ms at the
-    first shape)."""
+    MESH_TOPK_SHAPES, B = MESH_TOPK_B queries, called as the mesh's merge
+    calls it (each shard's [B, K] list where it lies: mesh_topk_lists) and
+    stacked: docs, shards and scores bit-equal, every query in the merge
+    form; timed (the per-shard call) beside torch.topk and the gathers
+    (topk_library). Then at MESH_TOPK_SHAPES[1] with one list of query 3
+    out of order: that query takes the select form, the others the merge,
+    in one launch, bit-equal. → (rows (name, err, ms, plain ms, (n, K, B),
+    bytes, ops), library ms at the first shape)."""
     import torch
 
+    from stract_tpu_torch.ops import kernels
     from stract_tpu_torch.ops import scoring as O
 
     rows, library = [], None
+    B = MESH_TOPK_B
     for i, (n, K) in enumerate(MESH_TOPK_SHAPES):
-        B = MESH_TOPK_B
         scores, docs = gathered(B, n, K, SEED + 20 + i)
-        run_k = lambda: O.mesh_topk(scores, docs, K)  # noqa: E731
+        s_l = [scores[:, j].contiguous() for j in range(n)]
+        d_l = [docs[:, j].contiguous() for j in range(n)]
+        forms = torch.full((B,), -1, dtype=torch.int32, device=DEVICE)
+        run_k = lambda: O.mesh_topk_lists(s_l, d_l, K)  # noqa: E731
         run_p = lambda: O.mesh_topk_plain(scores, docs, K)  # noqa: E731
-        for a, b in zip(run_k(), run_p()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K9 differs from its plain version at n={n} K={K}")
+        for got in (O.mesh_topk_lists(s_l, d_l, K, forms), O.mesh_topk(scores, docs, K)):
+            for a, b in zip(got, run_p()):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K9 differs from its plain version at n={n} K={K}")
+        if forms.tolist() != [0] * B:
+            raise AssertionError(f"K9 took the select form on sorted lists: {forms.tolist()}")
         lib = time_ms(topk_library(scores, docs, K))
         library = library if library is not None else lib
         rows.append(("mesh_topk", 0.0, time_ms(run_k), time_ms(run_p), (n, K, B),
                      8 * B * n * K + 12 * B * K, B * n * K))
-        log(f"[mesh] K9 n={n} K={K} B={B}: bit-equal to the plain version; torch.topk and "
-            f"the docs' and shards' gathers {lib:.4f} ms (torch.topk keeps no set tie order)")
+        log(f"[mesh] K9 n={n} K={K} B={B}: bit-equal to the plain version, per shard and "
+            f"stacked, every query merged; per-shard {rows[-1][2]:.4f} ms, stacked "
+            f"{time_ms(lambda: O.mesh_topk(scores, docs, K)):.4f} ms; torch.topk and the "
+            f"docs' and shards' gathers {lib:.4f} ms (torch.topk keeps no set tie order)")
+    n, K = MESH_TOPK_SHAPES[1]
+    scores, docs = gathered(B, n, K, SEED + 29)
+    scores[3, 2, K - 1] = 100.0  # query 3's list 2 out of order
+    s_l = [scores[:, j].contiguous() for j in range(n)]
+    d_l = [docs[:, j].contiguous() for j in range(n)]
+    forms = torch.full((B,), -1, dtype=torch.int32, device=DEVICE)
+    kernels.reset_launches()
+    got = O.mesh_topk_lists(s_l, d_l, K, forms)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["mesh_topk"] != 1:
+        raise AssertionError(f"K9 launched {kernels.LAUNCHES['mesh_topk']} times for one call")
+    for a, b in zip(got, O.mesh_topk_plain(scores, docs, K)):
+        if not torch.equal(a, b):
+            raise AssertionError("K9 with a list out of order differs from its plain version")
+    if forms.tolist() != [int(b == 3) for b in range(B)]:
+        raise AssertionError(f"K9's forms with query 3 out of order: {forms.tolist()}")
+    log(f"[mesh] K9 n={n} K={K} B={B} with one list out of order: one launch, query 3 in the "
+        f"select form and {B - 1} merged, bit-equal to the plain version")
     return rows, library
 
 
@@ -3097,7 +3166,8 @@ def mesh_serve_phase(index_dir: str, card: str) -> dict:
     top-10 candidates (stage B's exact scores) within rtol 1e-5 with docs
     equal up to ties, and the top-10 pages within PAGE_RTOL (their scores
     come from q16 signal rows: the shard's eager pass 2 against the lazy
-    page materialisation, as the configurations'). → record."""
+    page materialisation, as the configurations'). K9 must have been called
+    per shard (its lists where they lie), never stacked. → record."""
     import numpy as np
     import torch
 
@@ -3105,6 +3175,7 @@ def mesh_serve_phase(index_dir: str, card: str) -> dict:
     from stract_tpu_torch.entrypoint import search_server
     from stract_tpu_torch.entrypoint.api import build_coordinator
     from stract_tpu_torch.main import build_searcher
+    from stract_tpu_torch.ops import kernels
     from stract_tpu_torch.parallel.mesh import Mesh
     from stract_tpu_torch.searcher.query import SearchQuery
 
@@ -3125,6 +3196,9 @@ def mesh_serve_phase(index_dir: str, card: str) -> dict:
             raise AssertionError("the coordinator did not find the shard server")
         setup_s = time.perf_counter() - t0
         served = serve_phase(api, MESH_SERVING)
+        calls = dict(kernels.MESH_TOPK_CALLS)
+        if calls["stacked"] or not calls["lists"]:
+            raise AssertionError(f"the mesh's merge called K9 as {calls}, not per shard")
         stats = dict(sharded.stats)
         log(f"[mesh serve] {json.dumps(served)} card={card}")
         bodies = compare_bodies()
@@ -3172,7 +3246,7 @@ def mesh_serve_phase(index_dir: str, card: str) -> dict:
     return {"docs": MESH_DOCS * MESH_SHARDS, "shards": MESH_SHARDS, "setup_s": setup_s,
             "qps": served["qps"], "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
             "failed": served["failed"], "requests": served["requests"],
-            "launches": served["launches"],
+            "launches": served["launches"], "mesh_topk_calls": calls,
             "driver_share": stats["driver"] / max(stats["queries"], 1), "shard_stats": stats,
             "unsharded_qps": served_ref["qps"], "unsharded_p50_ms": served_ref["p50_ms"],
             "unsharded_p99_ms": served_ref["p99_ms"], "compared": len(bodies),

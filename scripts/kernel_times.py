@@ -184,6 +184,21 @@ under data/). --readings picks groups (default all):
                       pad to a power of two and the copies in the call); in
                       a tree with a forest plan (`kernels.forest_plan`), K4
                       also over the row tiles in FOREST_TILES;
+  mesh_merge          K9 at (n, K) = (4, 512), (4, 1,024), (8, 1,024), 16
+                      queries, on chip_smoke.py's gathered lists (seed 0):
+                      stacked (`K9`), per shard where the tree has
+                      mesh_topk_lists (`K9_lists`), and through
+                      parallel/search.py _merge as the mesh's serving path
+                      calls it, the shards' [B, K] lists on one card
+                      (`K9_merge`: the parent's stacks them first);
+  prefix              K12 at chip_smoke.py's shape on the scoring group's
+                      corpus and queries (compacted slots, Pc = 16, L =
+                      1,024, K = 512 candidates from the plain joined stage
+                      B), and over 64 full-length slots a query
+                      (`K12_wide`), and in a tree with kernels.prefix_plan
+                      under caps of 64, 256 and 512 candidates a block
+                      (`K12_cands{c}`) and with the prefixes left in L2
+                      (`K12_unstaged`);
   forest_lightgbm     K4 at K = 16,384 rows of 46 features through LightGBM
                       dumps of (trees, leaves) in LGBM_FORESTS
                       (bench_corpus.synthetic_lightgbm, seeded; past a block's
@@ -230,7 +245,7 @@ READINGS = ("attention", "attention_backward", "attention_wide", "attention_long
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
             "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring", "join",
-            "forest")
+            "forest", "mesh_merge", "prefix")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
@@ -240,6 +255,9 @@ CORPUS_DOCS, SCORE_B, SCORE_L, SCORE_C, SCORE_KD, SCORE_K, SCORE_SIG = (
     1_000_000, 32, 1024, 4096, 4096, 1024, 64)
 PAGE_K, MERGE_P, MESH_B, MESH_SHAPES = 512, 64, 16, ((4, 512), (4, 1024), (8, 1024))
 MERGE_WIDE_P = 256
+# the prefix group's caps of candidates a block (K12's plan under each) and
+# its wide case's slots a query
+PREFIX_CANDS, PREFIX_WIDE_P = (64, 256, 512), 64
 # the join group's plans: sample sizes of a slot; the forest group's rows,
 # trees, depth and row tiles
 JOIN_SAMPLES = (64, 256, 1024, 4096)
@@ -676,6 +694,10 @@ def worker(root: str, calls: int, readings: list) -> list:
         scoring_readings(smoke, read)
     if "join" in readings:
         join_readings(smoke, read, out)
+    if "mesh_merge" in readings:
+        mesh_merge_readings(smoke, read)
+    if "prefix" in readings:
+        prefix_readings(smoke, read)
     if "forest" in readings:
         forest_readings(read)
     if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
@@ -958,6 +980,82 @@ def join_readings(smoke, read, out) -> None:
     del index, dev, dev8
 
 
+def mesh_merge_readings(smoke, read) -> None:
+    """The mesh_merge group (the module docstring): K9 at MESH_SHAPES over
+    chip_smoke.py's gathered lists (descending, -inf tails, seed 0, the same
+    in every tree), stacked, per shard where the tree has the call, and
+    through parallel/search.py _merge as the mesh's serving path calls it
+    (the shards' [B, K] lists on one card)."""
+    import torch
+
+    from stract_tpu_torch.ops import scoring as O
+    from stract_tpu_torch.parallel import search as PS
+
+    dev = torch.device("cuda", 0)
+    for n, K in MESH_SHAPES:
+        scores, docs = smoke.gathered(MESH_B, n, K, 0)
+        s_l = [scores[:, i].contiguous() for i in range(n)]
+        d_l = [docs[:, i].contiguous() for i in range(n)]
+        parts = list(zip(d_l, s_l))
+        pairs = [("K9", lambda: O.mesh_topk(scores, docs, K))]
+        if hasattr(O, "mesh_topk_lists"):
+            pairs.append(("K9_lists", lambda: O.mesh_topk_lists(s_l, d_l, K)))
+        pairs.append(("K9_merge", lambda: PS._merge(parts, dev, K)))
+        read(pairs, parts=True, B=MESH_B, shards=n, K=K)
+
+
+def prefix_readings(smoke, read) -> None:
+    """The prefix group (the module docstring): K12 at chip_smoke.py's shape
+    (its 32 sampled queries' compacted slots, Pc = 16, L = 1,024, the plain
+    joined stage B's top 512 as candidates: the same inputs in every tree),
+    with its inputs on the card; over PREFIX_WIDE_P full-length slots a query
+    (`K12_wide`: chip_smoke.py's full_slots, seed 12, the aggregates' columns
+    repeated); in a tree with kernels.prefix_plan, also under its plan with
+    each cap of candidates a block in PREFIX_CANDS (`K12_cands{c}`), and
+    with the prefixes left in L2 (`K12_unstaged`: group 0)."""
+    import numpy as np
+
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+
+    B, L, C, Kd = SCORE_B, SCORE_L, SCORE_C, SCORE_KD
+    index, seg, dev, dev8, slots = _shard()
+    on_card = lambda tup: O.to_tensors(tup, "cuda")  # noqa: E731
+    aug = [InvertedIndex._augment_with_impact(seg, dev, q, L, 0.5)[0] for q, _ in slots]
+    cand = O.score_candidates_batch_plain(dev.arrays, on_card(O.stack(aug)), L, C, True,
+                                          True)[0][:, :Kd].contiguous()
+    comp, Pc = smoke.compacted_slots(slots)
+    qc, ac = O.stack([q for q, _ in comp]), O.stack([a for _, a in comp])
+    qc_c, ac_c = on_card(qc), on_card(ac)
+    page = O.score_driver_joined_batch_plain(dev.arrays, qc_c, cand, True, SCORE_K)[0]
+    page = page[:, :PAGE_K].contiguous()
+    rng = np.random.default_rng(12)
+    qw = smoke.full_slots(seg, O.stack([smoke.pad_slots(q, PREFIX_WIDE_P) for q, _ in comp]),
+                          rng)
+    cyc = np.arange(PREFIX_WIDE_P) % Pc
+    aw_c = on_card(ac._replace(**{f: np.asarray(getattr(ac, f))[..., cyc] for f in ac._fields}))
+    qw_c = on_card(qw)
+
+    def run(suffix=""):
+        read(((f"K12{suffix}", lambda: O.compute_signals_batch(dev.arrays, qc_c, ac_c, page, L)),),
+             parts=True, B=B, P=Pc, K=PAGE_K)
+        read(((f"K12_wide{suffix}", lambda: O.compute_signals_batch(dev.arrays, qw_c, aw_c, page,
+                                                                    L)),),
+             parts=True, B=B, P=PREFIX_WIDE_P, K=PAGE_K)
+    run()
+    if hasattr(kernels, "prefix_plan"):  # a tree with K12's plan: other tiles of candidates
+        cap, plan_of = kernels.PREFIX_CANDS, kernels.prefix_plan
+        for c in PREFIX_CANDS:
+            kernels.PREFIX_CANDS = c
+            run(f"_cands{c}")
+        kernels.PREFIX_CANDS = cap
+        kernels.prefix_plan = lambda *a: plan_of(*a)._replace(group=0)
+        run("_unstaged")
+        kernels.prefix_plan = plan_of
+    del index, dev, dev8
+
+
 def forest_readings(read) -> None:
     """The forest group (the module docstring)."""
     import numpy as np
@@ -1047,7 +1145,7 @@ def main() -> int:
         print("kernel_times.py needs an NVIDIA card", file=sys.stderr)
         return 1
     trees = {"change": ROOT, **dict(t.split("=", 1) for t in args.tree)}
-    if {"scoring", "join"} & set(args.readings.split(",")):  # the corpus every worker opens
+    if {"scoring", "join", "prefix"} & set(args.readings.split(",")):  # the corpus every worker opens
         sys.path.insert(0, ROOT)
         from stract_tpu_torch import bench_corpus as bc
 

@@ -46,7 +46,7 @@
 //     the top sig_k columns with their P factor words staged in shared
 //     memory once (each signal entry summed over p in the same order).
 //     Bound by reading the i32[P, Kd] factors once.
-// Top-K (K1, K2, K13's tail, K9): `top_keys` over keys held
+// Top-K (K1, K2, K13's tail, K9's select form): `top_keys` over keys held
 //     by one block or by a cluster's blocks, in the order key descending,
 //     ties to the lower payload (doc, column or index). Zero keys (empty or
 //     invalid) enter no histogram. Where every block's nonzero keys fit its
@@ -123,7 +123,22 @@
 //     (:492, :859): pass 2 from the first L rows of each slot only, by the
 //     reference's fixed-step search over the [P, L] tile (_slot_factor_lookup
 //     :450), step for step, so a tf-ordered impact slot gives the
-//     reference's answer too.
+//     reference's answer too. A grid of (tile of 128 candidates, query)
+//     blocks (128 blocks at the smoke's B = 32, K = 512): each stages the
+//     first min(len, L) doc ids of the query's live slots in its shared
+//     memory (4 KB a slot at L = 1,024; past what a block holds, the slots
+//     go in groups), runs every search of its candidates against them (rows
+//     past the prefix read as num_docs, the mid clamped), reads each found
+//     factor word once, then sums the signal entries as K3 does, a thread a
+//     (candidate, run of rows) with the run's gathers issued together: the
+//     coefficients staged once with each row's list of nonzero slots, terms
+//     with a zero coefficient left out (the same bits). ops/kernels.py
+//     prefix_plan sizes the tile, the groups and the staging. A query's
+//     blocks as one cluster, each staging a quarter of the prefixes and the
+//     searches reading the others' through distributed shared memory, read
+//     2.4x slower (0.034 ms against 0.014 at the smoke's shape) and went.
+//     Bound by latency: its time moved with the blocks in flight, not with
+//     the prefix bytes (the prefixes left in L2 read within 15 %).
 // K13 stract_stage_a_merge replaces stage A under the reference's merge switch
 //     (merge_sorted_tiles :286-312 with _bitonic_stages :260-283, fed by
 //     _join_topk :345-366 from the [P, L] tiles of score_candidates_batch
@@ -162,14 +177,22 @@
 //     select with ties to the lower index, as lax.top_k. Bound by reading the
 //     B*K*H embedding rows once.
 // K9  stract_mesh_topk replaces the merge of the mesh's search programs
-//     (stract_tpu/parallel/search.py:40-44 and :83-85: the all-gather of each
-//     shard's top K, then lax.top_k over the n*K gathered scores): one block
-//     per query keeps the n*K <= 8,192 scores as ordered keys in shared
-//     memory, and the shared top-K keeps lax.top_k's set (the radix select's
-//     k-th, keys equal to it taken in index order by a block-wide count) in
-//     its order (ties to the lower index). Latency-bound: the work is 8,192 entries a query
-//     (about 64 KB read), a few microseconds of bytes; the select's four
-//     passes and the sort's 55 stages of block barriers set its time.
+//     (stract_tpu/parallel/search.py:39-42 and :78-81: the all-gather of each
+//     shard's top K, then lax.top_k over the n*K gathered scores). Each
+//     shard's list arrives descending (a top-K), so the global top k is a
+//     merge of n sorted lists: the entry at position p of list i has the
+//     rank p + (entries of lists before i with a key >= its key) + (entries
+//     of lists after i with a key > its key), lax.top_k's tie rule, each
+//     count a bisection over a list staged in shared memory, and wins where
+//     its rank is below k. A block a (list, query), every rank independent:
+//     one barrier after the load, no select and no sort. The kernel reads
+//     the lists where they lie through a table of n (scores, docs) pointers
+//     (the shards' [B, K] tensors, or a stacked [B, n, K] tensor), and
+//     checks that every list of a query is non-increasing (-0 and +0 one
+//     key); a query where one is not takes the shared top-K below over its
+//     n*K keys in the same launch (the select form: its radix select and
+//     sort of the k winners), the same output. Latency-bound: the work is up
+//     to 8,192 keys a query (32 KB).
 //
 // Built with --fmad=false so a*b+c rounds like the separate multiply and add
 // of the reference and the plain PyTorch versions.
@@ -229,6 +252,21 @@ constexpr int JOIN_THREADS = 256;
 constexpr int JOIN_ILP = 4;
 constexpr int JOIN_CANDS = JOIN_THREADS * JOIN_ILP;
 constexpr int JOIN_CAP = 16384;
+// K12: a block's threads, the searches a thread runs at once, the most
+// slots a query takes (a slot's list of row indices is 16-bit)
+constexpr int PREFIX_THREADS = 512;
+constexpr int PREFIX_ILP = 4;
+constexpr int PREFIX_MAX_P = 8192;
+// K12: the prefix rows a thread loads at once while it stages, the most
+// candidates a block takes, and the most signal rows a thread sums
+constexpr int PREFIX_STAGE = 8;
+constexpr int PREFIX_MAX_CANDS = 512;
+constexpr int PREFIX_MAX_RPG = 16;
+// K9: the gathered entries of one query (n lists x K), the most it keeps,
+// and the most lists a call's table names one by one
+constexpr int MESH_MAX_N = 8192;
+constexpr int MESH_MAX_K = 1024;
+constexpr int MESH_MAX_LISTS = 64;
 
 }  // namespace
 
@@ -292,6 +330,17 @@ struct SignalArgs {
   int bm25f_row;
   int region_row;
   int update_row;
+};
+
+// K9's lists: list j of query b starts at scores[t] + (j - t) x K + b x
+// qstride, t = min(j, ntab - 1). One entry a list (ntab = n: each shard's
+// [B, K] tensor where it lies, qstride K) or one entry for all (ntab = 1: a
+// stacked [B, n, K] tensor, qstride n x K).
+struct MeshLists {
+  const float* scores[MESH_MAX_LISTS];
+  const int* docs[MESH_MAX_LISTS];
+  long long qstride;
+  int ntab;
 };
 
 namespace {
@@ -440,31 +489,6 @@ __device__ __forceinline__ int row_factors(const int* __restrict__ postings, lon
   if (W == 3) return postings[r * 3 + 1];
   const unsigned w1 = (unsigned)postings[r * 2 + 1];
   return (int)(((((w1 >> 24) & 0xFFu) * 257u) << 16) | (((w1 >> 16) & 0xFFu) * 257u));
-}
-
-// ops/scoring.py _gather_packed + _slot_factor_lookup for one (slot,
-// candidate): the reference's fixed-step search over the slot's L-row tile
-// (rows past min(len, L) hold the pad doc and no factors), step for step,
-// whatever order the rows are in.
-__device__ int prefix_lookup(const int* __restrict__ postings, long long n_rows, int W,
-                             long long start, int len, int L, int steps, int doc, int num_docs) {
-  const int vl = len < L ? len : L;
-  auto tile_row = [&](int i) {
-    long long r = start + i;
-    r = r < 0 ? 0 : (r > n_rows - 1 ? n_rows - 1 : r);
-    return r;
-  };
-  auto tile_doc = [&](int i) { return i < vl ? row_doc(postings, tile_row(i), W) : num_docs; };
-  int lo = 0, hi = L;
-  for (int st = 0; st < steps; ++st) {
-    const int mid = (lo + hi) / 2;
-    const int m = mid < 0 ? 0 : (mid > L - 1 ? L - 1 : mid);
-    if (tile_doc(m) < doc) lo = mid + 1;
-    else hi = mid;
-  }
-  const int pos = lo < 0 ? 0 : (lo > L - 1 ? L - 1 : lo);
-  if (tile_doc(pos) != doc || pos >= vl) return 0;
-  return row_factors(postings, tile_row(pos), W);
 }
 
 // the largest of a query's P per-slot bounds, by the calling warp
@@ -2193,32 +2217,225 @@ __global__ void __launch_bounds__(JOIN_THREADS) join_kernel(
 }
 
 // ---- K12 ------------------------------------------------------------------------
-// One block per query. The candidates go through in chunks of CH columns:
-// the block searches the chunk's P x CH factors into shared memory (the
-// reference's L-row tile search), then evaluates the nsig x CH signal
-// entries from them (K3's tail) straight into the f32 rows.
-__global__ void __launch_bounds__(512) signals_prefix_kernel(
+// A block a (tile of PT candidates, query): grid (ceil(K / PT), B). The block
+// lists the query's live slots (min(len, L) > 0), stages the signal rows'
+// coefficients once (STAGED) with each row's list of the slots whose
+// coefficient is nonzero, then takes the live slots G at a time: it copies
+// each one's first min(len, L) doc ids into shared memory (G x L words; G =
+// 0: the searches read the rows where they lie), PREFIX_STAGE rows a thread
+// in flight, and runs the reference's fixed-step search for every (slot,
+// candidate) of the group against them,
+// PREFIX_ILP searches a thread in lockstep; rows past min(len, L) read as
+// num_docs, the mid is clamped to [0, L - 1], so each search takes the
+// reference's steps and ends where it ends, whatever order the rows are in
+// (a tf-ordered impact slot). A found row's factor word is read once, into
+// the block's [P][PT] factor tile. Then a thread a (candidate, run of signal
+// rows) issues the run's gathers together and sums each entry as
+// signal_entry sums it, over the row's listed slots only (a term with a zero
+// coefficient adds +-0 to a sum that is never -0: the same bits).
+template <bool STAGED>
+__global__ void __launch_bounds__(PREFIX_THREADS) signals_prefix_kernel(
     const int* __restrict__ postings, long long n_rows, int W, const int* __restrict__ cand, int K,
-    int L, int steps, int CH, SegArgs s, QueryArgs q, AggArgs a, float inv_fs, float* out) {
-  extern __shared__ int fac[];  // [P][CH]
-  const int b = blockIdx.x, P = q.P;
+    int L, int steps, int PT, int G, SegArgs s, QueryArgs q, AggArgs a, float inv_fs,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) int pre_smem[];
+  __shared__ int n_live;
+  __shared__ int row_n[MAX_NSIG];
+  __shared__ int src[MAX_NSIG];  // a row's static column; -1 none, -2 the region, -3 the update
+  __shared__ float lut[NUM_REGIONS];
+  __shared__ float now;
+  const int b = blockIdx.y, c0 = blockIdx.x * PT, tid = threadIdx.x, P = q.P, nsig = a.nsig;
+  const int nc = min(PT, K - c0);
+  int* fac = pre_smem;           // [P][PT] the candidates' factor words
+  int* live = fac + P * PT;      // [P] the live slots, in order
+  int* lstart = live + P;        // [P] their first rows
+  int* lvl = lstart + P;         // [P] their min(len, L)
+  int* tile = lvl + P;           // [G][L] a group's doc ids
+  float* cb = reinterpret_cast<float*>(tile + G * L);  // STAGED: [nsig][P] bm25, idf, cov
+  float* ci = cb + nsig * P;
+  float* cc = ci + nsig * P;
+  float* cf = cc + nsig * P;     // [P] the bm25f row's
+  float* sd = cf + P;            // [P] the slots' idf
+  unsigned short* rl = reinterpret_cast<unsigned short*>(sd + P);  // [nsig][P] each row's slots
+  const float* ab = a.bm25 + (long long)b * nsig * P;
+  const float* ai = a.idf + (long long)b * nsig * P;
+  const float* ac = a.cov + (long long)b * nsig * P;
+  const float* af = a.bm25f + (long long)b * P;
+  const float* sidf = q.idf + (long long)b * P;
   const int* C = cand + (long long)b * K;
-  const int* st = q.starts + (long long)b * P;
-  const int* ln = q.lens + (long long)b * P;
-  for (int c0 = 0; c0 < K; c0 += CH) {
-    const int n = K - c0 < CH ? K - c0 : CH;
-    for (int t = threadIdx.x; t < P * n; t += blockDim.x) {
-      const int p = t / n, j = t - p * n;
-      fac[p * CH + j] = prefix_lookup(postings, n_rows, W, st[p], ln[p], L, steps, C[c0 + j],
-                                      s.num_docs);
+  for (int t = tid; t < P * PT; t += PREFIX_THREADS) fac[t] = 0;
+  if (STAGED) {
+    for (int t = tid; t < nsig * P; t += PREFIX_THREADS) {
+      cb[t] = ab[t];
+      ci[t] = ai[t];
+      cc[t] = ac[t];
+    }
+    for (int t = tid; t < P; t += PREFIX_THREADS) {
+      cf[t] = af[t];
+      sd[t] = sidf[t];
+    }
+    ab = cb, ai = ci, ac = cc, af = cf, sidf = sd;
+  }
+  for (int t = tid; t < nsig; t += PREFIX_THREADS)
+    src[t] = t == a.region_row ? -2 : t == a.update_row ? -3 : a.static_of_sig[t];
+  if (tid < NUM_REGIONS) lut[tid] = q.region_lut[b * NUM_REGIONS + tid];
+  if (tid == 0) now = q.current_ts[b];
+  if (tid < 32) {  // the live slots, in order
+    int cnt = 0;
+    for (int p0 = 0; p0 < P; p0 += 32) {
+      const int p = p0 + tid;
+      const int len = p < P ? q.lens[(long long)b * P + p] : 0;
+      const bool on = len > 0;
+      const unsigned bal = __ballot_sync(FULL_MASK, on);
+      if (on) {
+        const int at = cnt + __popc(bal & ((1u << tid) - 1u));
+        live[at] = p;
+        lstart[at] = q.starts[(long long)b * P + p];
+        lvl[at] = len < L ? len : L;
+      }
+      cnt += __popc(bal);
+    }
+    if (tid == 0) n_live = cnt;
+  }
+  __syncthreads();
+  if (STAGED) {  // each row's slots with a nonzero coefficient, in order (a warp a row)
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int sg = warp; sg < nsig; sg += PREFIX_THREADS / 32) {
+      const bool is_f = sg == a.bm25f_row;
+      int cnt = 0;
+      for (int p0 = 0; p0 < P; p0 += 32) {
+        const int p = p0 + lane;
+        const bool on = p < P && (cb[sg * P + p] != 0.0f || ci[sg * P + p] != 0.0f ||
+                                  cc[sg * P + p] != 0.0f || (is_f && cf[p] != 0.0f));
+        const unsigned bal = __ballot_sync(FULL_MASK, on);
+        if (on) rl[sg * P + cnt + __popc(bal & ((1u << lane) - 1u))] = (unsigned short)p;
+        cnt += __popc(bal);
+      }
+      if (lane == 0) row_n[sg] = cnt;
+    }
+  }
+  __syncthreads();
+  const int nl = n_live, per = G > 0 ? G : nl;
+  for (int g0 = 0; g0 < nl; g0 += per) {
+    const int ng = min(per, nl - g0);
+    if (G > 0) {  // PREFIX_STAGE rows a thread in flight at once
+      for (int t0 = tid; t0 < ng * L; t0 += PREFIX_THREADS * PREFIX_STAGE) {
+        int d[PREFIX_STAGE];
+#pragma unroll
+        for (int u = 0; u < PREFIX_STAGE; ++u) {
+          const int t = t0 + u * PREFIX_THREADS, gi = t / L, r = t - gi * L;
+          d[u] = 0;
+          if (t < ng * L && r < lvl[g0 + gi]) {
+            long long row = (long long)lstart[g0 + gi] + r;
+            row = row < 0 ? 0 : (row > n_rows - 1 ? n_rows - 1 : row);
+            d[u] = row_doc(postings, row, W);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PREFIX_STAGE; ++u) {
+          const int t = t0 + u * PREFIX_THREADS;
+          if (t < ng * L) tile[t] = d[u];
+        }
+      }
+      __syncthreads();
+    }
+    // row r of the group's slot gi: the staged doc id, or the row where it
+    // lies; past min(len, L) the pad doc
+    auto doc_at = [&](int gi, int r) {
+      if (r >= lvl[g0 + gi]) return s.num_docs;
+      if (G > 0) return tile[gi * L + r];
+      long long row = (long long)lstart[g0 + gi] + r;
+      row = row < 0 ? 0 : (row > n_rows - 1 ? n_rows - 1 : row);
+      return row_doc(postings, row, W);
+    };
+    for (int t0 = tid; t0 < ng * nc; t0 += PREFIX_THREADS * PREFIX_ILP) {
+      int lo[PREFIX_ILP], hi[PREFIX_ILP], c[PREFIX_ILP], gi[PREFIX_ILP], j[PREFIX_ILP];
+#pragma unroll
+      for (int u = 0; u < PREFIX_ILP; ++u) {
+        const int t = t0 + u * PREFIX_THREADS;
+        const bool on = t < ng * nc;
+        gi[u] = on ? t / nc : 0;
+        j[u] = on ? t - gi[u] * nc : -1;
+        c[u] = on ? C[c0 + j[u]] : 0;
+        lo[u] = 0;
+        hi[u] = L;
+      }
+      for (int st = 0; st < steps; ++st) {
+#pragma unroll
+        for (int u = 0; u < PREFIX_ILP; ++u) {
+          const int mid = (lo[u] + hi[u]) / 2;
+          const int m = mid < 0 ? 0 : (mid > L - 1 ? L - 1 : mid);
+          if (doc_at(gi[u], m) < c[u]) lo[u] = mid + 1;
+          else hi[u] = mid;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < PREFIX_ILP; ++u) {
+        if (j[u] < 0) continue;
+        const int pos = lo[u] < 0 ? 0 : (lo[u] > L - 1 ? L - 1 : lo[u]);
+        if (pos < lvl[g0 + gi[u]] && doc_at(gi[u], pos) == c[u]) {
+          long long row = (long long)lstart[g0 + gi[u]] + pos;
+          row = row < 0 ? 0 : (row > n_rows - 1 ? n_rows - 1 : row);
+          fac[live[g0 + gi[u]] * PT + j[u]] = row_factors(postings, row, W);
+        }
+      }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < a.nsig * n; t += blockDim.x) {
-      const int sg = t / n, j = t - sg * n;
-      out[((long long)b * a.nsig + sg) * K + c0 + j] =
-          signal_entry(sg, fac + j, CH, C[c0 + j], b, s, q, a, inv_fs);
+  }
+  // the signal entries: a thread a (candidate, run of RPG rows), a warp
+  // along the candidates of one run (coalesced stores); the thread reads its
+  // candidate once and issues its rows' gathers (a static column, the
+  // region id, the update time) together before it sums
+  const int rg_n = max((nsig + PREFIX_MAX_RPG - 1) / PREFIX_MAX_RPG, min(nsig, PREFIX_THREADS / nc));
+  const int rpg = (nsig + rg_n - 1) / rg_n;
+  for (int t = tid; t < nc * rg_n; t += PREFIX_THREADS) {
+    const int jj = t % nc, r0 = (t / nc) * rpg, nr = min(rpg, nsig - r0);
+    const int doc = C[c0 + jj];
+    const bool has_doc = doc < s.num_docs;
+    int graw[PREFIX_MAX_RPG];
+#pragma unroll
+    for (int r = 0; r < PREFIX_MAX_RPG; ++r) {
+      const int st = r < nr ? src[r0 + r] : -1;
+      const int* at = !has_doc  ? nullptr
+                      : st == -2 ? s.region_ids + doc
+                      : st == -3 ? reinterpret_cast<const int*>(s.last_updated) + doc
+                      : st >= 0  ? reinterpret_cast<const int*>(s.static_cols) + (long long)st * s.db + doc
+                                 : nullptr;
+      graw[r] = at != nullptr ? __ldg(at) : 0;
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < PREFIX_MAX_RPG; ++r) {
+      if (r >= nr) break;
+      const int sg = r0 + r, st = src[sg];
+      float v = 0.0f;
+      if (has_doc) {
+        if (st == -2) {
+          v = lut[clamp_region(graw[r])];
+        } else if (st == -3) {
+          v = update_score(__int_as_float(graw[r]), now);
+        } else {
+          const bool is_f = sg == a.bm25f_row;
+          float vb = 0.0f, vf = 0.0f, vi = 0.0f, vc = 0.0f;
+          const int nt = STAGED ? row_n[sg] : P;
+          for (int u = 0; u < nt; ++u) {
+            const int p = STAGED ? (int)rl[sg * P + u] : u;
+            const float wb = ab[sg * P + p], wi = ai[sg * P + p], wc = ac[sg * P + p];
+            const int f = fac[p * PT + jj];
+            const float id = sidf[p], pres = f != 0 ? 1.0f : 0.0f;
+            if (wb != 0.0f) vb += wb * (id * ((float)((f >> 16) & 0xFFFF) * inv_fs));
+            if (is_f && af[p] != 0.0f) vf += af[p] * (id * ((float)(f & 0xFFFF) * inv_fs));
+            if (wi != 0.0f) vi += wi * (id * pres);
+            if (wc != 0.0f) vc += wc * pres;
+          }
+          v = 0.0f + vb;
+          if (is_f) v = v + vf;
+          v = v + vi;
+          v = v + vc;
+          v = v + (st >= 0 ? __int_as_float(graw[r]) : 0.0f);
+        }
+      }
+      out[((long long)b * nsig + sg) * K + c0 + jj] = v;
+    }
   }
 }
 
@@ -2270,37 +2487,91 @@ __global__ void __launch_bounds__(1024) dense_rerank_kernel(
 }
 
 // ---- K9 -----------------------------------------------------------------------
-// the gathered entries of one query (N = n shards x K, shard-major) and the
-// top k, in lax.top_k's order
-constexpr int MESH_MAX_N = 8192;
-constexpr int MESH_MAX_K = 1024;
+template <class T>
+__device__ __forceinline__ const T* mesh_list(const T* const* tab, const MeshLists& t, int j,
+                                              int K, int b) {
+  const int e = j < t.ntab ? j : t.ntab - 1;
+  return tab[e] + (long long)(j - e) * K + (long long)b * t.qstride;
+}
 
-// one block per query: the N gathered scores as ordered keys in shared
-// memory, the stable top k, then each winner's doc and shard (index / K)
+// A block a (list i, query b). Every block stages the query's N keys (-0
+// and +0 one key) and checks that each list is non-increasing in them. Where
+// all are (the merge form: each shard's list comes from a top-K), the entry
+// at position p < k of list i has the global rank r = p + #{entries of lists
+// j < i with key >= its key} + #{entries of lists j > i with key > its
+// key}, lax.top_k's order (ties to the lower list, then the lower
+// position); each count is a bisection over list j's first k - r keys, and
+// the entry is written at r where r < k. Ranks are independent, so the n
+// blocks of a query need nothing of each other. Where a list is not
+// non-increasing (the select form), block 0 takes the shared top-K over the
+// N keys and the other blocks leave. forms (null: not written) gets 0
+// (merge) or 1 (select) a query.
 __global__ void __launch_bounds__(1024) mesh_topk_kernel(
-    const float* __restrict__ scores, const int* __restrict__ docs, int N, int K, int k,
-    int* __restrict__ out_docs, int* __restrict__ out_shards, float* __restrict__ out_scores) {
+    const MeshLists t, int n, int K, int k, int* __restrict__ out_docs,
+    int* __restrict__ out_shards, float* __restrict__ out_scores, int* __restrict__ forms) {
   __shared__ unsigned keys[MESH_MAX_N];
   __shared__ unsigned long long kv[MESH_MAX_K];
   __shared__ SelectState sel;
-  const long long base = (long long)blockIdx.x * N;
-  // -0 and +0 compare equal in lax.top_k: one key for both (a -0 comes out +0)
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float x = scores[base + i];
-    keys[i] = order_key(x == 0.0f ? 0.0f : x);
+  const int i = blockIdx.x, b = blockIdx.y, N = n * K;
+  for (int j = 0; j < n; ++j) {
+    const float* row = mesh_list(t.scores, t, j, K, b);
+    for (int p = threadIdx.x; p < K; p += blockDim.x) {
+      const float x = row[p];
+      keys[j * K + p] = order_key(x == 0.0f ? 0.0f : x);
+    }
   }
   __syncthreads();
-  // every key is nonzero (order_key maps each float above 0), so k of them
-  // win: those above the k-th and its ties in index order, sorted with ties
-  // to the lower index
-  BlockScope scope;
-  top_keys<true>(scope, sel, keys, N, k, [](int i) { return i; }, kv,
-                 [&](int pos, unsigned key, int i) {
-                   const long long o = (long long)blockIdx.x * k + pos;
-                   out_docs[o] = docs[base + i];
-                   out_shards[o] = i / K;
-                   out_scores[o] = key_value(key);
-                 });
+  int rising = 0;
+  for (int e = threadIdx.x; e < N; e += blockDim.x)
+    rising |= (e + 1) % K != 0 && keys[e] < keys[e + 1];
+  const bool merge = !__syncthreads_or(rising);
+  const long long o = (long long)b * k;
+  if (forms != nullptr && i == 0 && threadIdx.x == 0) forms[b] = merge ? 0 : 1;
+  if (!merge) {
+    if (i != 0) return;
+    // every key is nonzero (order_key maps each float above 0), so k of them
+    // win: those above the k-th and its ties in index order, sorted with
+    // ties to the lower index
+    BlockScope scope;
+    top_keys<true>(scope, sel, keys, N, k, [](int e) { return e; }, kv,
+                   [&](int pos, unsigned key, int e) {
+                     const int j = e / K;
+                     out_docs[o + pos] = mesh_list(t.docs, t, j, K, b)[e - j * K];
+                     out_shards[o + pos] = j;
+                     out_scores[o + pos] = key_value(key);
+                   });
+    return;
+  }
+  const unsigned* mine = keys + i * K;
+  const int* docs = mesh_list(t.docs, t, i, K, b);
+  for (int p = threadIdx.x; p < k; p += blockDim.x) {
+    const unsigned x = mine[p];
+    int r = p;
+    for (int j = 0; j < n && r < k; ++j) {
+      if (j == i) continue;
+      const unsigned* l = keys + j * K;
+      int lo = 0, hi = k - r;  // a count of k - r or more puts the entry past k
+      if (j < i) {
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (l[mid] >= x) lo = mid + 1;
+          else hi = mid;
+        }
+      } else {
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (l[mid] > x) lo = mid + 1;
+          else hi = mid;
+        }
+      }
+      r += lo;
+    }
+    if (r < k) {
+      out_docs[o + r] = docs[p];
+      out_shards[o + r] = i;
+      out_scores[o + r] = key_value(x);
+    }
+  }
 }
 
 // a launch of kernel over (cluster x B) blocks of `threads` threads in
@@ -2550,21 +2821,32 @@ int stract_factors_join(const int* postings, long long n_rows, int row_w, const 
 }
 
 // K12: pass 2 from the first L >= 1 rows of each slot, `steps` search steps.
-// cand i32[B, K] -> out f32[B, nsig, K].
+// cand i32[B, K] -> out f32[B, nsig, K]. A block takes `cands` candidates
+// and stages `group` slots' prefixes at a time (0: none, the rows read
+// where they lie), and the coefficients where `staged`; ops/kernels.py
+// prefix_plan picks all three within MAX_DYN_SMEM.
 int stract_signals_prefix(const SegArgs* s, const QueryArgs* q, const AggArgs* a,
                           const int* postings, long long n_rows, int row_w, const int* cand, int K,
-                          int L, int steps, float inv_fs, float* out, cudaStream_t stream) {
-  if (K < 1 || q->B < 1 || q->B > 65535 || q->P < 1 || q->P > 8192 || a->nsig < 1 ||
+                          int L, int steps, int cands, int group, int staged, float inv_fs,
+                          float* out, cudaStream_t stream) {
+  if (K < 1 || q->B < 1 || q->B > 65535 || q->P < 1 || q->P > PREFIX_MAX_P || a->nsig < 1 ||
       a->nsig > MAX_NSIG || n_rows < 1 || (row_w != 2 && row_w != 3) || L < 1 || steps < 1 ||
-      out == nullptr)
+      out == nullptr || cands < 1 || cands > PREFIX_MAX_CANDS || group < 0 || group > q->P)
     return (int)cudaErrorInvalidValue;
-  // a chunk's P x CH factors stay under 32 KB of shared memory
-  int CH = 8192 / q->P;
-  if (CH >= 32) CH &= ~31;
-  if (CH > K) CH = K;
-  const size_t smem = (size_t)q->P * CH * sizeof(int);
-  signals_prefix_kernel<<<q->B, 512, smem, stream>>>(postings, n_rows, row_w, cand, K, L, steps,
-                                                     CH, *s, *q, *a, inv_fs, out);
+  const long long P = q->P, nsig = a->nsig;
+  const long long smem = 4 * (P * cands + 3 * P + (long long)group * L) +
+                         (staged ? 4 * (3 * nsig + 2) * P + 2 * nsig * P : 0);
+  if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = staged ? signals_prefix_kernel<true> : signals_prefix_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((K + cands - 1) / cands), q->B);
+  kernel<<<grid, PREFIX_THREADS, (size_t)smem, stream>>>(postings, n_rows, row_w, cand, K, L,
+                                                         steps, cands, group, *s, *q, *a,
+                                                         inv_fs, out);
   return (int)cudaGetLastError();
 }
 
@@ -2590,17 +2872,20 @@ int stract_dense_rerank(const void* emb, int dtype, const float* qemb, const flo
   return (int)cudaGetLastError();
 }
 
-// K9: scores f32[B, n, K], docs i32[B, n, K] (the per-shard top K of each
-// query, gathered shard-major) -> out_docs, out_shards i32[B, k], out_scores
-// f32[B, k], lax.top_k over the flattened n*K: descending, ties (and the -inf
-// pads) to the lower flat index.
-int stract_mesh_topk(const float* scores, const int* docs, int B, int n, int K, int k,
-                     int* out_docs, int* out_shards, float* out_scores, cudaStream_t stream) {
+// K9: the table's n lists of K entries a query (each descending for the
+// merge form; any order takes the select form) -> out_docs, out_shards
+// i32[B, k], out_scores f32[B, k], lax.top_k over the n*K entries in list
+// order: descending, ties (and the -inf pads) to the lower list, then the
+// lower position; forms i32[B] (null: not written) 0 where a query took the
+// merge, 1 the select.
+int stract_mesh_topk(const MeshLists* t, int B, int n, int K, int k, int* out_docs,
+                     int* out_shards, float* out_scores, int* forms, cudaStream_t stream) {
   if (B < 1 || B > 65535 || n < 1 || K < 1 || (long long)n * K > MESH_MAX_N || k < 1 ||
-      k > K || k > MESH_MAX_K)
+      k > K || k > MESH_MAX_K || t->ntab < 1 || t->ntab > MESH_MAX_LISTS ||
+      (t->ntab != 1 && t->ntab != n))
     return (int)cudaErrorInvalidValue;
-  mesh_topk_kernel<<<B, 1024, 0, stream>>>(scores, docs, n * K, K, k, out_docs,
-                                           out_shards, out_scores);
+  mesh_topk_kernel<<<dim3(n, B), 1024, 0, stream>>>(*t, n, K, k, out_docs, out_shards,
+                                                     out_scores, forms);
   return (int)cudaGetLastError();
 }
 

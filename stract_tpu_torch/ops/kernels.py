@@ -69,11 +69,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # page one block sorts in shared memory, and the most fused signal columns
 MAX_SORT = 4096
 MAX_SIG_K = 64
-# limits of K12 and the rerank (MAX_NSIG, MAX_H, the slot count whose factor
-# chunk fits K12's shared memory)
+# limits of K12 and the rerank (MAX_NSIG, MAX_H, the most slots K12 takes)
 MAX_NSIG = 64
 MAX_H = 1024
 MAX_SEARCH_P = 8192
+# K12 (csrc/scoring.cu): the most candidates a block takes, the most words of
+# its [P, candidates] factor tile, the most shared memory its staged
+# coefficients and row lists take
+PREFIX_CANDS, PREFIX_FAC_WORDS, PREFIX_COEF_SMEM = 128, 8192, 96 * 1024
 # K11 (csrc/scoring.cu): the most docs of a slot's sample a join block
 # stages
 JOIN_CAP = 16384
@@ -121,6 +124,30 @@ STAGE_A_MIN_PART = 1024
 # K13 (csrc/scoring.cu): the entries a block of the merge holds in shared
 # memory (a query of the one-block form, a tile of the global form)
 MERGE_TILE = 8192
+
+
+class PrefixPlan(NamedTuple):
+    """K12's launch: `cands` candidates a block (a grid of ceil(K / cands) x B
+    blocks), the live slots' L-row prefixes staged `group` at a time (0: the
+    searches read the rows where they lie), the coefficients in shared memory
+    where `staged`."""
+
+    cands: int
+    group: int
+    staged: bool
+
+
+def prefix_plan(P: int, L: int, K: int, nsig: int) -> PrefixPlan:
+    """K12's blocks for P slots, L-row prefixes, K candidates and nsig signal
+    rows, within a block's dynamic shared memory (STAGE_A_DYN_SMEM): the
+    factor tile, the live slots' (slot, start, length), the coefficients with
+    each row's 16-bit slot list where they fit PREFIX_COEF_SMEM, and as many
+    prefixes as the rest holds."""
+    cands = max(1, min(PREFIX_CANDS, K, PREFIX_FAC_WORDS // P))
+    coef = 4 * (3 * nsig + 2) * P + 2 * nsig * P
+    staged = coef <= PREFIX_COEF_SMEM
+    fixed = 4 * (P * cands + 3 * P) + (coef if staged else 0)
+    return PrefixPlan(cands, min(P, (STAGE_A_DYN_SMEM - fixed) // (4 * L)), staged)
 
 
 class StageAPlan(NamedTuple):
@@ -308,6 +335,8 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for k in MESH_TOPK_CALLS:
+            MESH_TOPK_CALLS[k] = 0
 
 
 def counted(name: str) -> None:
@@ -438,10 +467,11 @@ def _load(name: str):
                 lib.stract_signals_q16.argtypes = [seg, ctypes.POINTER(SignalArgs), P, P, I, I,
                                                    F, I, P, P, P, P]
                 lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, I, I, P, P]
-                lib.stract_signals_prefix.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, F,
-                                                      P, P]
+                lib.stract_signals_prefix.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, I,
+                                                      I, I, F, P, P]
                 lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
-                lib.stract_mesh_topk.argtypes = [P, P, I, I, I, I, P, P, P, P]
+                lib.stract_mesh_topk.argtypes = [ctypes.POINTER(MeshLists), I, I, I, I, P, P, P,
+                                                 P, P]
                 fns = (lib.stract_stage_a, lib.stract_stage_a_merge, lib.stract_stage_b,
                        lib.stract_signals_q16,
                        lib.stract_factors_join, lib.stract_signals_prefix,
@@ -840,13 +870,15 @@ def factors_join(seg, starts, lens, cand, out, count: str = "factors_join") -> N
 def signals_prefix(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int, steps: int,
                    out) -> None:
     """K12: pass 2 from the first L >= 1 rows of each slot, searched in
-    `steps` steps. cand i32[B, K] → out f32[B, nsig, K]."""
+    `steps` steps, over prefix_plan's blocks. cand i32[B, K] → out f32[B,
+    nsig, K]."""
     (B, P), K = q.starts.shape, cand.shape[1]
     if K < 1 or not 1 <= P <= MAX_SEARCH_P or not 1 <= aggs.nsig <= MAX_NSIG or L < 1 or \
             steps < 1:
         raise ValueError(f"pass 2 takes 1..{MAX_SEARCH_P} slots, 1..{MAX_NSIG} signal rows and "
                          f"a prefix of L >= 1 rows in steps >= 1, not {P}, {aggs.nsig}, {L}, "
                          f"{steps}")
+    plan = prefix_plan(P, L, K, aggs.nsig)
     post, n_rows, w = _postings(seg)
     c = _ptr(cand, torch.int32, (B, K))
     o = _ptr(out, torch.float32, (B, aggs.nsig, K))
@@ -854,7 +886,8 @@ def signals_prefix(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int, steps: in
     s, qa = seg_args(seg), query_args(q)
     with on_card(*_seg_tensors(seg), *_query_tensors(q), cand, out) as stream:
         rc = lib.stract_signals_prefix(ctypes.byref(s), ctypes.byref(qa), ctypes.byref(aggs), post,
-                                       n_rows, w, c, K, L, steps, inv_fs, o, stream)
+                                       n_rows, w, c, K, L, steps, plan.cands, plan.group,
+                                       int(plan.staged), inv_fs, o, stream)
     _check(rc, "stract_signals_prefix")
     counted("signals_prefix")
 
@@ -882,28 +915,79 @@ def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_
     counted("dense_rerank")
 
 
-# limits of the mesh merge in csrc/scoring.cu: gathered entries per query, kept
+# limits of the mesh merge in csrc/scoring.cu: gathered entries per query,
+# kept, lists a table names one by one
 MESH_MAX_N = 8192
 MESH_MAX_K = 1024
+MESH_MAX_LISTS = 64
 
 
-def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores) -> None:
-    """K9: scores f32[B, n, K], docs i32[B, n, K] → out_docs, out_shards
-    i32[B, k], out_scores f32[B, k], lax.top_k over each query's n*K entries
-    (ops/scoring.py allocates)."""
-    B, n, K = scores.shape
+class MeshLists(ctypes.Structure):
+    """K9's table: list j of query b at scores[t] + (j - t) x K + b x qstride,
+    t = min(j, ntab - 1) (elements)."""
+
+    _fields_ = [("scores", ctypes.c_void_p * MESH_MAX_LISTS),
+                ("docs", ctypes.c_void_p * MESH_MAX_LISTS), ("qstride", ctypes.c_longlong),
+                ("ntab", ctypes.c_int)]
+
+
+# K9's calls since the last reset_launches() by how they named the lists:
+# "stacked" ([B, n, K] tensors), "lists" (each shard's [B, K] where it lies)
+MESH_TOPK_CALLS = {"stacked": 0, "lists": 0}
+
+
+def _mesh_dims(B: int, n: int, K: int, k: int) -> None:
     if not (1 <= B <= 65535 and n * K <= MESH_MAX_N and 1 <= k <= min(K, MESH_MAX_K)):
         raise ValueError(f"the mesh merge takes 1..65535 queries of n*K <= {MESH_MAX_N} entries "
-                         f"and keeps 1..min(K, {MESH_MAX_K}), not {tuple(scores.shape)} and {k}")
-    i32, f32 = torch.int32, torch.float32
-    ins = (_ptr(scores, f32, (B, n, K)), _ptr(docs, i32, (B, n, K)))
+                         f"and keeps 1..min(K, {MESH_MAX_K}), not {(B, n, K)} and {k}")
+
+
+def _mesh_launch(table: MeshLists, ins: list, B: int, n: int, K: int, k: int, out_docs,
+                 out_shards, out_scores, forms, how: str) -> None:
+    i32 = torch.int32
     outs = (_ptr(out_docs, i32, (B, k)), _ptr(out_shards, i32, (B, k)),
-            _ptr(out_scores, f32, (B, k)))
+            _ptr(out_scores, torch.float32, (B, k)), _ptr(forms, i32, (B,)))
     lib = _load("scoring")
-    with on_card(scores, docs, out_docs, out_shards, out_scores) as stream:
-        rc = lib.stract_mesh_topk(*ins, B, n, K, k, *outs, stream)
+    with on_card(*ins, out_docs, out_shards, out_scores, forms) as stream:
+        rc = lib.stract_mesh_topk(ctypes.byref(table), B, n, K, k, *outs, stream)
     _check(rc, "stract_mesh_topk")
     counted("mesh_topk")
+    with _count_lock:
+        MESH_TOPK_CALLS[how] += 1
+
+
+def mesh_topk(scores, docs, k: int, out_docs, out_shards, out_scores, forms=None) -> None:
+    """K9: scores f32[B, n, K], docs i32[B, n, K] → out_docs, out_shards
+    i32[B, k], out_scores f32[B, k], lax.top_k over each query's n*K entries
+    (ops/scoring.py allocates); forms i32[B] (None: not written) 0 where a
+    query's lists were all descending (the merge), 1 where not (the
+    select)."""
+    B, n, K = scores.shape
+    _mesh_dims(B, n, K, k)
+    table = MeshLists(qstride=n * K, ntab=1)
+    table.scores[0] = _ptr(scores, torch.float32, (B, n, K))
+    table.docs[0] = _ptr(docs, torch.int32, (B, n, K))
+    _mesh_launch(table, [scores, docs], B, n, K, k, out_docs, out_shards, out_scores, forms,
+                 "stacked")
+
+
+def mesh_topk_lists(scores: list, docs: list, k: int, out_docs, out_shards, out_scores,
+                    forms=None) -> None:
+    """K9 over n <= MESH_MAX_LISTS lists read where they lie: scores[i]
+    f32[B, K] and docs[i] i32[B, K], shard i's, all on one card; the outputs
+    as mesh_topk's."""
+    n = len(scores)
+    if not 1 <= n <= MESH_MAX_LISTS or len(docs) != n:
+        raise ValueError(f"the mesh merge names 1..{MESH_MAX_LISTS} lists of scores and as many "
+                         f"of docs, not {n} and {len(docs)}")
+    B, K = scores[0].shape
+    _mesh_dims(B, n, K, k)
+    table = MeshLists(qstride=K, ntab=n)
+    for i, (s, d) in enumerate(zip(scores, docs)):
+        table.scores[i] = _ptr(s, torch.float32, (B, K))
+        table.docs[i] = _ptr(d, torch.int32, (B, K))
+    _mesh_launch(table, [*scores, *docs], B, n, K, k, out_docs, out_shards, out_scores, forms,
+                 "lists")
 
 
 class ForestPlan(NamedTuple):

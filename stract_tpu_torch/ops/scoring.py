@@ -946,23 +946,45 @@ def mesh_topk_plain(scores, docs, k: int):
             (idx // K).to(torch.int32), vals[:, :k].contiguous())
 
 
-def mesh_topk(scores, docs, k: int | None = None):
+def _mesh_outputs(B: int, k: int, dev) -> tuple:
+    return (torch.empty((B, k), dtype=torch.int32, device=dev),
+            torch.empty((B, k), dtype=torch.int32, device=dev),
+            torch.empty((B, k), dtype=torch.float32, device=dev))
+
+
+def mesh_topk(scores, docs, k: int | None = None, forms=None):
     """The merge of the mesh's search programs: scores f32[B, n, K], docs
     i32[B, n, K] (each shard's top K of each query, gathered shard-major) →
     (docs i32[B, k], shards i32[B, k], scores f32[B, k]), the global top k
     (k = K by default) in lax.top_k's order: descending, ties to the lower
-    shard, then the lower rank within it."""
+    shard, then the lower rank within it. On the card, `forms` (i32[B], or
+    None) gets each query's form of K9: 0 the merge of descending lists, 1
+    the select."""
     B, n, K = scores.shape
     k = K if k is None else k
     if not scores.is_cuda:
         return mesh_topk_plain(scores, docs, k)
     dev = scores.device
-    out_docs = torch.empty((B, k), dtype=torch.int32, device=dev)
-    out_shards = torch.empty((B, k), dtype=torch.int32, device=dev)
-    out_scores = torch.empty((B, k), dtype=torch.float32, device=dev)
-    kernels.mesh_topk(scores.contiguous(), _on(docs, dev, torch.int32), k, out_docs, out_shards,
-                      out_scores)
-    return out_docs, out_shards, out_scores
+    out = _mesh_outputs(B, k, dev)
+    kernels.mesh_topk(scores.contiguous(), _on(docs, dev, torch.int32), k, *out, forms)
+    return out
+
+
+def mesh_topk_lists(scores: list, docs: list, k: int | None = None, forms=None):
+    """mesh_topk over the shards' lists where they lie: scores[i] f32[B, K]
+    and docs[i] i32[B, K], shard i's, all on one device (no stacked copy on
+    the card; past kernels.MESH_MAX_LISTS lists, and on the CPU, they are
+    stacked) → mesh_topk's outputs."""
+    if not scores[0].is_cuda or len(scores) > kernels.MESH_MAX_LISTS:
+        return mesh_topk(torch.stack(list(scores), 1), torch.stack(list(docs), 1), k, forms)
+    B, K = scores[0].shape
+    k = K if k is None else k
+    dev = scores[0].device
+    scores = [s.contiguous() for s in scores]
+    docs = [_on(d, dev, torch.int32) for d in docs]
+    out = _mesh_outputs(B, k, dev)
+    kernels.mesh_topk_lists(scores, docs, k, *out, forms)
+    return out
 
 
 # ---- host side ------------------------------------------------------------------

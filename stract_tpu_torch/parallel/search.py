@@ -9,8 +9,9 @@ lax.top_k. The port runs the same program from one controller: per shard the
 stage-A and joined stage-B kernels on the shard's device (ops/scoring.py),
 the "all-gather" a copy of each shard's top K to the mesh's first device (no
 copy when the shards share a card), and the global top-k the mesh merge
-kernel (ops.scoring.mesh_topk, K9). Launches are queued for every shard,
-and for every query of a batch, before anything is fetched.
+kernel (ops.scoring.mesh_topk_lists, K9), which reads each shard's list
+where it lies. Launches are queued for every shard, and for every query of a
+batch, before anything is fetched.
 
 The cross-host layer (distributed/, gossip + sonic) still fans out between
 processes; this module is the fan-out inside one process, where the shards
@@ -88,11 +89,10 @@ def _check_shards(per_shard: list, n: int) -> list:
 
 
 def _merge(parts: list, dev, k: int):
-    """The all-gather of each shard's (docs, scores) [B, K] to `dev`, then
-    the global top k → (docs, shards, scores) [B, k]."""
-    docs = torch.stack([d.to(dev) for d, _ in parts], dim=1)
-    scores = torch.stack([s.to(dev) for _, s in parts], dim=1)
-    return O.mesh_topk(scores, docs, k)
+    """The all-gather of each shard's (docs, scores) [B, K] to `dev` (no copy
+    where a shard lies there), then the global top k over the shards' lists
+    where they lie → (docs, shards, scores) [B, k]."""
+    return O.mesh_topk_lists([s.to(dev) for _, s in parts], [d.to(dev) for d, _ in parts], k)
 
 
 def sharded_two_stage_batch(mesh, segs, qas: list, qcs: list, L: int, C: int, K: int,

@@ -2076,6 +2076,44 @@ def test_mesh_topk_kernel_matches_plain(n, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_of_order", [False, True])
+@pytest.mark.parametrize("n,K", [(1, 512), (4, 512), (4, 1024), (8, 1024), (16, 512)])
+def test_mesh_topk_merge_and_select_forms_match_plain(n, K, out_of_order):
+    """K9 over the shards' lists where they lie (mesh_topk_lists, as the
+    mesh's merge calls it) and over the stacked tensor, at k = K and k = 10:
+    docs, shards and scores bit-equal to the plain twin. Every list
+    descending (each list's head made descending, -0 after +0 in a run)
+    takes the merge form for every query; with one list of query 2 out of
+    order, that query takes the select form and the others the merge."""
+    from stract_tpu_torch.ops import scoring as O
+
+    dev = _card()
+    B = 5
+    scores, docs = _gathered(B, n, K, seed=n + K)
+    scores[0, 0, :2] = scores[0, 0, 2]  # _gathered's +0, -0 head: a tie, in order
+    scores[1, 0, 2:6] = torch.tensor([0.0, 0.0, -0.0, -0.0])
+    scores[1, 0, :2] = 1.0
+    scores[1, 0, 6:] = scores[1, 0, 6:].clamp(max=-0.25)
+    if out_of_order:
+        scores[2, 0, K - 1] = 100.0
+    scores, docs = scores.to(dev), docs.to(dev)
+    s_l = [scores[:, i].contiguous() for i in range(n)]
+    d_l = [docs[:, i].contiguous() for i in range(n)]
+    want_forms = [0, 0, int(out_of_order), 0, 0]
+    for k in (K, 10):
+        plain = O.mesh_topk_plain(scores, docs, k)
+        for call in ("lists", "stacked"):
+            forms = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            kernels.reset_launches()
+            got = (O.mesh_topk_lists(s_l, d_l, k, forms) if call == "lists"
+                   else O.mesh_topk(scores, docs, k, forms))
+            assert kernels.LAUNCHES["mesh_topk"] == 1 and kernels.MESH_TOPK_CALLS[call] == 1
+            for a, b in zip(got, plain):
+                assert torch.equal(a, b), (call, k)
+            assert forms.tolist() == want_forms
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_shards", [1, 3, 4])
 def test_ring_step_kernel_matches_plain(n_shards):
     """K8 round by round over the ring buckets of a Pareto graph with a hub

@@ -789,6 +789,44 @@ def test_prefix_signals_kernel_matches_plain(fixture, row_layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["plan", "groups_of_1", "groups_of_3", "unstaged_tile",
+                                  "unstaged_coefficients", "one_candidate", "one_block"])
+def test_prefix_signals_kernel_matches_plain_over_its_plans(fixture, plan, monkeypatch):
+    """K12 over 64 live slots a query at L = 1,024 (64 x 4 KB pass one
+    block's staging: prefix_plan takes them in two groups), an impact slot
+    among them, and under other plans: one and three prefixes at a time, the
+    prefixes read where they lie (group 0), the coefficients read where they
+    lie, one candidate a block, and 512 (one block a query, a thread summing
+    16 rows). The same rows as the plan's, bit for bit (the same searches
+    and sums), and within P12's tolerance of the plain version."""
+    dev = _card()
+    rng, seg, starts, dfs, impact, _ = fixture
+    qs, aggs = query_batch(rng, seg, starts, dfs, impact, P=64)
+    B, L = qs.starts.shape[0], 1024
+    terms = rng.integers(0, len(dfs), (B, 57))
+    qs.starts[:, 7:], qs.lens[:, 7:], qs.idf[:, 7:] = starts[terms], dfs[terms], 1.5
+    for b in range(B):
+        for p in range(7, 64):
+            aggs.agg_bm25[b, 5 + p % 7, p] = aggs.agg_cov[b, 20 + p % 5, p] = 0.25
+    cands = driver_candidates(rng, seg, B, 512)
+    seg_c = segment_arrays_from_numpy(seg, device=dev)
+    plan_of = kernels.prefix_plan
+    assert 0 < plan_of(64, L, 512, 46).group < 64
+    want = OT.compute_signals_batch(seg_c, qs, aggs, cands, L)
+    change = {"plan": {}, "groups_of_1": {"group": 1}, "groups_of_3": {"group": 3},
+              "unstaged_tile": {"group": 0}, "unstaged_coefficients": {"staged": False},
+              "one_candidate": {"cands": 1},
+              "one_block": {"cands": 512, "staged": False, "group": 8}}[plan]
+    monkeypatch.setattr(kernels, "prefix_plan", lambda *a: plan_of(*a)._replace(**change))
+    got = OT.compute_signals_batch(seg_c, qs, aggs, cands, L)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    sig_p = OT.compute_signals_batch_plain(seg_c, OT.to_tensors(qs, dev), OT.to_tensors(aggs, dev),
+                                           torch.as_tensor(cands, device=dev), L)
+    torch.testing.assert_close(got, sig_p, rtol=1e-5, atol=1e-5)
+    assert bool((got != 0).any())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_dense_rerank_kernel_matches_plain(dtype):
     dev = _card()
