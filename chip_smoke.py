@@ -198,8 +198,10 @@ CONFIGS = {
 # keeps them as library functions): the smoke calls each wrapper once at the main
 # shapes, so their `launches` show that the wrapper launches, not a served path
 DIRECT = ("factors_join", "signals_prefix", "dense_rerank")
-# the dense rerank: candidates per query, kept, the similarity's weight
+# the dense rerank: candidates per query, kept, the similarity's weight; the
+# candidates and dims of its check past the old kernel's limits (k = K)
 RERANK_K, RERANK_TOP, RERANK_W = 1024, 20, 0.01
+RERANK_LONG = (5000, 1536)
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
             "add_layernorm_backward", "bias_gelu_backward", "adamw", "info_nce", "pair_loss")
@@ -213,6 +215,10 @@ INFO_NCE_B = (32, 64, 256)
 # the centrality job: the benchmark graph (entrypoint/bench_centrality.py)
 # and the sampled sources of approx-harmonic
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
+# HLL precisions past the job's 6 that the JAX package computes (a config's
+# `precision`): 2, 2,048 and 4,096 registers a row, K6a, K6b and K8 held to
+# their plain versions there on the 2,000-node graph
+HLL_PRECISIONS = (1, 11, 12)
 WIDE_SAMPLES = 1_100  # K7 past 1,024 sources (two chunks of 32 words)
 # pipeline-on serving: rounds of the request mix in one process
 SERVE_ON_ROUNDS = 8
@@ -447,6 +453,22 @@ def topk_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol) -> floa
                 err = max(err, abs(mb[d] - s))
                 np.testing.assert_allclose(mb[d], s, rtol=rtol, atol=atol)
     return err
+
+
+def rerank_match(got, want) -> float:
+    """K10's (indices, scores) [B, k] against its plain version's: scores
+    within RERANK_TOL, indices equal except where the plain score ties with
+    another within that tolerance; → max |score diff|."""
+    import numpy as np
+
+    (i_k, s_k), (i_p, s_p) = ([t.cpu().numpy() for t in x] for x in (got, want))
+    np.testing.assert_allclose(s_k, s_p, rtol=RERANK_TOL[0], atol=RERANK_TOL[1])
+    for b, pos in zip(*np.nonzero(i_k != i_p)):
+        near = np.abs(s_p[b] - s_p[b, pos]) <= RERANK_TOL[1] + RERANK_TOL[0] * abs(s_p[b, pos])
+        if near.sum() < 2:
+            raise AssertionError(f"K10's index {i_k[b, pos]} at query {b}, place {pos}: the "
+                                 f"plain version has {i_p[b, pos]}, no tie")
+    return float(np.abs(s_k - s_p).max())
 
 
 def topk_runs_match(docs_a, scores_a, docs_b, scores_b, num_docs, rtol, atol) -> float:
@@ -1202,7 +1224,9 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     B's top RERANK_K docs with the trained dual encoder's query embeddings
     (held to a numpy rerank). Then K1 on q8 rows, K1 with UB, K11 alone and
     inside stage B and pass 2, K12 and K10 against their plain versions on
-    the same slots; then K13 at P = MERGE_P: the network's keys and payloads
+    the same slots (K10's indices equal but for ties within its tolerance;
+    also at RERANK_LONG, k = K, in f32, f16 and bf16, and on -0 / +0
+    totals, +0 first); then K13 at P = MERGE_P: the network's keys and payloads
     bit-equal to the plain merge's, the candidates at stage A's tolerance;
     the network alone on doc-ordered slots (a sort there) timed beside
     torch.sort of the keys with a gather of the payloads.
@@ -1427,17 +1451,39 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
     # ---- K10 -------------------------------------------------------------------------
     run_k = lambda: R.rerank_topk_batch(emb, q_emb, base, RERANK_W, RERANK_TOP)  # noqa: E731
     run_p = lambda: R.rerank_topk_batch_plain(emb, q_emb, base, RERANK_W, RERANK_TOP)  # noqa
-    (ik, rk), (ip, rp) = ([x.cpu().numpy() for x in r()] for r in (run_k, run_p))
-    err = max(topk_match(ip[b], rp[b], ik[b], rk[b], -1, *RERANK_TOL) for b in range(B))
+    err = rerank_match(run_k(), run_p())
     H = emb.shape[2]
     add("dense_rerank", err, run_k, run_p, RERANK_K,
         2 * emb.numel() + 4 * (q_emb.numel() + base.numel()) + 8 * B * RERANK_TOP,
         4 * B * RERANK_K * H)
     e32 = emb.float()
-    lib = time_ms(lambda: torch.topk(base + RERANK_W * torch.einsum(
+    rerank_lib = time_ms(lambda: torch.topk(base + RERANK_W * torch.einsum(
         "bkh,bh->bk", F.normalize(e32, dim=2, eps=1e-6), q_emb), RERANK_TOP))
     log(f"[config kernels] K10 beside three PyTorch calls (normalize, einsum, topk; not one "
-        f"call, so no library_ms): {lib:.3f} ms")
+        f"call): {rerank_lib:.3f} ms")
+    # past the old kernel's 4,096 candidates and 1,024 dims, every candidate kept
+    g = torch.Generator().manual_seed(10)
+    Kl, Hl = RERANK_LONG
+    e_l = F.normalize(torch.randn((4, Kl, Hl), generator=g), dim=2)
+    e_l[:, ::10] = 0
+    q_l, b_l = torch.randn((4, Hl), generator=g).to(DEVICE), torch.randn((4, Kl), generator=g)
+    b_l = b_l.to(DEVICE)
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        e_d = e_l.to(DEVICE, dt)
+        lerr = rerank_match(R.rerank_topk_batch(e_d, q_l, b_l, 0.5, Kl),
+                            R.rerank_topk_batch_plain(e_d, q_l, b_l, 0.5, Kl))
+        log(f"[config kernels] K10 at K = {Kl}, H = {Hl}, k = K, {dt}: within rtol "
+            f"{RERANK_TOL[0]} atol {RERANK_TOL[1]} of its plain version (max {lerr:.2g})")
+    del e_l, e_d
+    z_emb, z_q = torch.zeros((2, 4, 64), device=DEVICE), torch.ones((2, 64), device=DEVICE)
+    z_base = torch.tensor([[-0.0, 0.0, -0.0, 0.0], [0.0, -0.0, -0.0, 0.0]], device=DEVICE)
+    z_k = R.rerank_topk_batch(z_emb, z_q, z_base, -1.0, 4)
+    z_p = R.rerank_topk_batch_plain(z_emb, z_q, z_base, -1.0, 4)
+    if z_k[0].tolist() != [[1, 3, 0, 2], [0, 3, 1, 2]] or not torch.equal(z_k[0], z_p[0]) or \
+            not torch.equal(torch.signbit(z_k[1]), torch.signbit(z_p[1])):
+        raise AssertionError(f"K10 orders -0 / +0 totals as {z_k[0].tolist()}, not +0 first")
+    log("[config kernels] K10 on -0 / +0 totals: +0 above -0, ties to the lower index, as "
+        "its plain version and lax.top_k")
 
     # ---- K13: stage A through the merge network -----------------------------------
     qm = O.to_tensors(O.stack([pad_slots(InvertedIndex._augment_with_impact(seg, dev, q)[0],
@@ -1535,7 +1581,7 @@ def config_kernel_phase(index_dir: str, dual_dir: str) -> tuple:
             f"the plain version in f64, two calls bit-equal; the first query's runs cross "
             f"{crossed} of {N_ // tile - 1} tile boundaries; {rows[-1][3]:.4f} ms")
         del seg64, q64
-    lib_ms = {}
+    lib_ms = {"dense_rerank": rerank_lib}
     return rows, launches, lib_ms
 
 
@@ -2819,6 +2865,70 @@ def pipeline_phase(card: str) -> dict:
             "library": library}
 
 
+def hll_width_checks(g, dev) -> None:
+    """K6a, K6b and K8 at HLL_PRECISIONS on graph g against their plain
+    versions: three systolic rounds of K6a (registers and change bytes
+    bit-equal to the plain merge and its twin, sizes within rel 1e-6 of the
+    plain estimate and bit-equal to K6b alone on the same rows), then three
+    systolic ring rounds over 3 shards (K8: registers, change bytes and flags
+    bit-equal to the plain ring's, sizes rel 1e-6)."""
+    import torch
+
+    from stract_tpu_torch.ops import hll_ops as HO
+    from stract_tpu_torch.webgraph import centrality as WC
+    from stract_tpu_torch.webgraph import shortest_path as SP
+    from stract_tpu_torch.webgraph.csr import graph_in_csr
+
+    n = g.num_nodes
+    ef, et = SP.forward_edges(g)
+    csr = graph_in_csr(g, dev)
+    eft, ett = torch.from_numpy(ef).to(dev), torch.from_numpy(et).to(dev)
+    shards_n = 3
+    S = -(-n // shards_n)
+    buckets = {w: WC.ring_buckets(n, ef, et, [torch.device(w)] * shards_n) for w in (dev, "cpu")}
+    for p in HLL_PRECISIONS:
+        m, err = 1 << p, 0.0
+        regs = torch.from_numpy(HO.init_registers(n, p)).to(dev)
+        est, ref = HO.estimate_sizes(regs), HO.estimate_sizes_plain(regs)
+        torch.testing.assert_close(est, ref, rtol=1e-6, atol=0)
+        flags = torch.ones(n, dtype=torch.uint8, device=dev)
+        for r in range(3):
+            rows_out = torch.empty_like(flags)
+            new, sizes, _ = HO.merge_csr(regs, csr, flags=flags, flags_out=rows_out)
+            plain = HO.merge_iteration_plain(regs, eft, ett)
+            twin, twin_rows = HO.merge_systolic_plain(regs, flags, eft, ett)
+            if not (torch.equal(new, plain) and torch.equal(twin, plain)
+                    and torch.equal(rows_out, twin_rows)):
+                raise AssertionError(f"K6a at m = {m} differs from the plain merge, round {r + 1}")
+            ref = HO.estimate_sizes_plain(plain)
+            torch.testing.assert_close(sizes, ref, rtol=1e-6, atol=0)
+            if not torch.equal(sizes, HO.estimate_sizes(new)):
+                raise AssertionError(f"K6a's sizes at m = {m} are not K6b's bits")
+            err = max(err, float(((sizes - ref).abs() / ref.abs()).max()))
+            regs, flags = new, rows_out
+        regs0 = torch.zeros((S * shards_n, m), dtype=torch.uint8)
+        regs0[:n] = torch.from_numpy(HO.init_registers(n, p))
+        shards = {w: [regs0[d * S:(d + 1) * S].to(w) for d in range(shards_n)]
+                  for w in (dev, "cpu")}
+        fl = {w: [torch.ones(S, dtype=torch.uint8, device=w) for _ in range(shards_n)]
+              for w in (dev, "cpu")}
+        for r in range(3):
+            got, got_sz, got_ch, got_fl = WC.ring_round(shards[dev], buckets[dev], flags=fl[dev])
+            want, _, want_ch, want_fl = WC.ring_round(shards["cpu"], buckets["cpu"],
+                                                      flags=fl["cpu"])
+            for a, b, sz, ca, cb, fa, fb in zip(got, want, got_sz, got_ch, want_ch, got_fl,
+                                                want_fl):
+                if not (torch.equal(a.cpu(), b) and torch.equal(fa.cpu(), fb)
+                        and int(ca.item()) == int(cb.item())):
+                    raise AssertionError(f"K8 at m = {m} differs from the plain ring, round "
+                                         f"{r + 1}")
+                torch.testing.assert_close(sz.cpu(), HO.estimate_sizes_plain(b), rtol=1e-6,
+                                           atol=0)
+            shards, fl = {dev: got, "cpu": want}, {dev: got_fl, "cpu": want_fl}
+        log(f"[centrality] K6a / K6b / K8 at {m} registers a row ({n} nodes): registers and "
+            f"change bytes bit-equal to plain, K6a's sizes K6b's bits, sizes max rel {err:.2g}")
+
+
 def centrality_phase(data_dir: str) -> dict:
     """The webgraph centrality job: the benchmark graph (1M nodes, 20M
     Pareto edges, seed 0) written to disk, then `main.py centrality
@@ -2835,7 +2945,8 @@ def centrality_phase(data_dir: str) -> dict:
     HyperBall and the whole 256-source BFS through the plain versions: the
     same round count, centrality within rtol 1e-6, distances equal; K7 at
     1,100 sources on a 100,000-node graph of the same recipe, round by round
-    against the relaxation. → {"jobs", "rows", "graph_s", "graph"}; rows
+    against the relaxation; K6a, K6b and K8 at HLL_PRECISIONS on the
+    2,000-node graph (hll_width_checks). → {"jobs", "rows", "graph_s", "graph"}; rows
     (name, err, ms, plain ms, shape, bytes, ops)."""
     import numpy as np
     import torch
@@ -2950,6 +3061,8 @@ def centrality_phase(data_dir: str) -> dict:
                  time_ms(lambda: HO.estimate_sizes(regs)),
                  time_ms(lambda: HO.estimate_sizes_plain(regs)), (n, m), n * m + 4 * n,
                  3 * n * m))
+
+    hll_width_checks(small, dev)
 
     # the whole HyperBall through the kernels and through the plain versions
     hb = {}

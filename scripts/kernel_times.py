@@ -199,6 +199,16 @@ under data/). --readings picks groups (default all):
                       under caps of 64, 256 and 512 candidates a block
                       (`K12_cands{c}`) and with the prefixes left in L2
                       (`K12_unstaged`);
+  rerank              K10 at RERANK_SHAPES (B, K, H, k): chip_smoke.py's
+                      32 x 1,024 x 384 f16, k = 20, and past 4,096
+                      candidates, 4 x 5,000 x 384 f16, k = K (L2-normalised
+                      seeded rows, a tenth zero; the parent refuses past
+                      4,096 and records the refusal), beside the three
+                      PyTorch calls that compute it (F.normalize, einsum,
+                      torch.topk: `rerank_three_calls`, not one call);
+  hll_estimate        K6b at 1M x 64 registers: on init_registers(1M, 6)
+                      (`K6b`, linear counting's branch) and on seeded ranks
+                      1..8 with no zero (`K6b_ranks`, the estimate's);
   forest_lightgbm     K4 at K = 16,384 rows of 46 features through LightGBM
                       dumps of (trees, leaves) in LGBM_FORESTS
                       (bench_corpus.synthetic_lightgbm, seeded; past a block's
@@ -245,7 +255,7 @@ READINGS = ("attention", "attention_backward", "attention_wide", "attention_long
             "stage_attention_backward", "layernorm_backward", "loss_heads", "bias_gelu",
             "bias_gelu_backward", "layernorm", "mean_pool", "gelu_tanh", "bfs", "hyperball",
             "sgd", "pipeline_step", "dual_step", "moe", "moe_step", "scoring", "join",
-            "forest", "mesh_merge", "prefix")
+            "forest", "mesh_merge", "prefix", "rerank", "hll_estimate")
 GRAPH_NODES, GRAPH_EDGES, GRAPH_SAMPLES = 1_000_000, 20_000_000, 256
 MESH_SHARDS = 4
 PIPE_SIZES = [384 * 1152, 384 * 384, 384 * 1536, 1536 * 384] * 6 + [384]
@@ -264,6 +274,7 @@ JOIN_SAMPLES = (64, 256, 1024, 4096)
 FOREST_ROWS, FOREST_TREES, FOREST_DEPTH, FOREST_TILES = (256, 4096, 16384), 40, 3, (8, 16, 32, 64)
 LGBM_FORESTS, LGBM_K, LGBM_ROWS = ((500, 31), (1000, 255)), 16384, (16, 32, 64, 128)
 LGBM_BUDGETS = (227 * 1024 // 4, 227 * 1024 // 2, 227 * 1024)
+RERANK_SHAPES = ((32, 1024, 384, 20), (4, 5000, 384, 5000))
 
 
 def corpus_dir() -> str:
@@ -700,6 +711,17 @@ def worker(root: str, calls: int, readings: list) -> list:
         prefix_readings(smoke, read)
     if "forest" in readings:
         forest_readings(read)
+    if "rerank" in readings:
+        rerank_readings(read, out)
+    if "hll_estimate" in readings:
+        from stract_tpu_torch.ops import hll_ops as HO
+
+        n = GRAPH_NODES
+        regs = torch.from_numpy(HO.init_registers(n, 6)).cuda()
+        ranks = torch.randint(1, 9, (n, 64), generator=g, dtype=torch.uint8).cuda()
+        read((("K6b", lambda: HO.estimate_sizes(regs)),), N=n)
+        read((("K6b_ranks", lambda: HO.estimate_sizes(ranks)),), N=n)
+        del regs, ranks
     if "dual_step" in readings:  # one dual-encoder InfoNCE step: K14a runs 12 times
         from stract_tpu_torch.models.bert import BertConfig, BertForEmbedding, random_init
         from stract_tpu_torch.optim import AdamW
@@ -1054,6 +1076,32 @@ def prefix_readings(smoke, read) -> None:
         run("_unstaged")
         kernels.prefix_plan = plan_of
     del index, dev, dev8
+
+
+def rerank_readings(read, out) -> None:
+    """The rerank group (the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stract_tpu_torch.ops import dense_rerank as R
+
+    g = torch.Generator().manual_seed(3)
+    for B, K, H, k in RERANK_SHAPES:
+        emb = F.normalize(torch.randn((B, K, H), generator=g), dim=2)
+        emb[:, ::10] = 0
+        emb = emb.to("cuda", torch.float16)
+        q = torch.randn((B, H), generator=g).cuda()
+        base = (0.1 * torch.randn((B, K), generator=g)).cuda()
+        try:
+            R.rerank_topk_batch(emb, q, base, 0.01, k)
+        except ValueError as exc:  # a tree whose kernel does not take the shape
+            out.append({"name": "K10", "B": B, "K": K, "H": H, "refused": str(exc),
+                        "event_ms": None, "device_ms": None})
+            continue
+        e32 = emb.float()
+        read((("K10", lambda: R.rerank_topk_batch(emb, q, base, 0.01, k)),
+              ("rerank_three_calls", lambda: torch.topk(base + 0.01 * torch.einsum(
+                  "bkh,bh->bk", F.normalize(e32, dim=2, eps=1e-6), q), k))), B=B, K=K, H=H)
 
 
 def forest_readings(read) -> None:

@@ -41,10 +41,11 @@
 // (about 0.5 ms), is the walk of every source and its change byte and the
 // rows in and out: a push from the changed rows would be needed to skip it.
 //
-// The body, `hll_merge_kernel<VEC, LANES, PPL>`, is specialised on the row
-// width: LANES lanes read a row in PPL pieces of VEC words each (16 B pieces
-// from m = 16 registers on; m = 64 is 4 lanes of one piece), so a lane holds
-// VEC x PPL words, at most 8. A row's group has G = max(8, LANES) lanes, which
+// The body, `hll_merge_kernel<VEC, LANES, PPL, BYTES>`, is specialised on the
+// row width: LANES lanes read a row in PPL pieces of VEC words each (16 B
+// pieces from m = 16 registers on; m = 64 is 4 lanes of one piece; a word is
+// BYTES bytes, 4 but at m = 2 and 1, whose rows are half a word and a byte),
+// so a lane holds VEC x PPL words, at most 8. A row's group has G = max(8, LANES) lanes, which
 // read G / LANES in-edges' rows at once (the slots). The group loads G of the
 // row's sources in one coalesced read, each lane tests its source's change
 // byte (a 1 MB table at 1M nodes that stays in L2), a ballot picks the flagged
@@ -72,12 +73,28 @@
 // round's last step compares each row with the round-start shard (the change
 // flag and the shard's change bytes) and estimates it (K6b in the epilogue).
 //
+// Rows wider than a warp takes (m >= 2,048 registers, up to 65,536) go to
+// `hll_wide_kernel<T, PPL>`: a block of T = min(1,024, m / 16) threads a row,
+// each PPL (at most 4) pieces of 16 B, so a thread holds at most 16 words.
+// The block walks the row's in-edges T at a time: each thread loads one
+// source and tests its change byte, the flagged ones are listed in shared
+// memory, and every thread gathers its pieces of U of them at once. The row's
+// figures for K6b (below) meet over the warps in shared memory, summed in warp
+// order.
+//
 // K6b's arithmetic follows the reference in f32: alpha * m * m / sum of
 // 2^-r, the linear-counting branch m * log(m / zeros) when the estimate is
-// <= 2.5 m and zeros remain; logf and exp2f (built with --fmad=false, no
-// fast-math). The sum over a row is taken in another order than XLA's (each
-// lane its own words, then the row's lanes by shuffles), so sizes agree to a
-// few f32 ulps, not bit for bit.
+// <= 2.5 m and zeros remain (logf; built with --fmad=false, no fast-math).
+// 2^-r is a power of two: its bits are (127 - r) << 23 for r <= 125, built
+// from a word's four bytes at once with integer operations (no int-to-float
+// conversion, no exp2f: those two were quarter-rate work for every register
+// and made the old K6b twice its byte bound); from r = 126 on it is 0, as
+// XLA's exp2 gives on the CPU (it flushes 2^-126). Zeros are counted a word
+// at a time. The sum over a row is taken in another order than XLA's (each
+// lane its own words, then the row's lanes by shuffles, then a wide row's
+// warps in order), so sizes agree to a few f32 ulps, not bit for bit; K6b
+// alone and the merge's epilogue take one routine in one order, so a row
+// gets the same bits from K6a, K6b and K8.
 
 #include <climits>
 #include <cstdint>
@@ -87,29 +104,46 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinGroup = 8;  // the fewest lanes of a row's group
+constexpr int kEstRows = 4;   // rows a lane group of K6b alone loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
-// VEC words from p (aligned to 4 VEC bytes) into w, and back
-template <int VEC>
-__device__ __forceinline__ void load_piece(const uint32_t* p, uint32_t (&w)[VEC]) {
-    if constexpr (VEC == 4) {
+// word i of a row of BYTES-byte words at p
+template <int BYTES, class P>
+__device__ __forceinline__ P word_at(P p, long long i) {
+    return p + i * BYTES;
+}
+
+// VEC words of BYTES bytes from p (aligned to VEC x BYTES bytes) into w
+// (zero-extended), and back; a word of 2 or 1 bytes is a piece alone
+template <int VEC, int BYTES>
+__device__ __forceinline__ void load_piece(const uint8_t* p, uint32_t (&w)[VEC]) {
+    if constexpr (BYTES == 1) {
+        w[0] = *p;
+    } else if constexpr (BYTES == 2) {
+        w[0] = *reinterpret_cast<const uint16_t*>(p);
+    } else if constexpr (VEC == 4) {
         const uint4 x = *reinterpret_cast<const uint4*>(p);
         w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
     } else if constexpr (VEC == 2) {
         const uint2 x = *reinterpret_cast<const uint2*>(p);
         w[0] = x.x, w[1] = x.y;
     } else {
-        w[0] = *p;
+        w[0] = *reinterpret_cast<const uint32_t*>(p);
     }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_piece(uint32_t* p, const uint32_t (&w)[VEC]) {
-    if constexpr (VEC == 4) {
+template <int VEC, int BYTES>
+__device__ __forceinline__ void store_piece(uint8_t* p, const uint32_t (&w)[VEC]) {
+    if constexpr (BYTES == 1) {
+        *p = static_cast<uint8_t>(w[0]);
+    } else if constexpr (BYTES == 2) {
+        *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
+    } else if constexpr (VEC == 4) {
         *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
     } else if constexpr (VEC == 2) {
         *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
     } else {
-        *p = w[0];
+        *reinterpret_cast<uint32_t*>(p) = w[0];
     }
 }
 
@@ -127,27 +161,70 @@ __device__ __forceinline__ int nth_set(unsigned mask, int k) {
     return pos;
 }
 
+// the low NB bytes of register word w: 2^-r of each added to sum in byte
+// order, and its zero bytes counted. Where every byte is below 126 (the test
+// flags a byte >= 126, or any byte past one >= 254), 127 - r of all four
+// bytes is one subtraction without borrows, and each byte shifted to the
+// exponent field is 2^-r; else byte by byte, 0 from r = 126 on. Both paths
+// add the same values in the same order.
+template <int NB>
+__device__ __forceinline__ void word_sum(uint32_t w, float& sum, int& zeros) {
+    constexpr uint32_t kHigh = NB == 4 ? 0x80808080u : NB == 2 ? 0x8080u : 0x80u;
+    zeros += __popc(~(((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & kHigh);
+    if ((((w + 0x02020202u) | w) & 0x80808080u) == 0u) {
+        const uint32_t d = 0x7F7F7F7Fu - w;
+        constexpr uint32_t kExp = 0x3F800000u;  // the exponent bits of 2^0 .. 2^-126
+        sum += __uint_as_float((d << 23) & kExp);
+        if (NB > 1) sum += __uint_as_float((d << 15) & kExp);
+        if (NB > 2) {
+            sum += __uint_as_float((d << 7) & kExp);
+            sum += __uint_as_float((d >> 1) & kExp);
+        }
+    } else {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+            const uint32_t r = (w >> (8 * b)) & 0xFFu;
+            sum += __uint_as_float(r < 126u ? (127u - r) << 23 : 0u);
+        }
+    }
+}
+
 // sum of 2^-r over one row's registers and its count of zero registers: each
 // lane its own words in order, then the LANES lanes of the row (neighbours,
 // lanes of `mask`) by shuffles; every lane of the row gets the row's figures
-template <int LANES, int PPL, int VEC>
+template <int LANES, int PPL, int VEC, int BYTES>
 __device__ void row_sum(const uint32_t (&acc)[PPL][VEC], unsigned mask, float& sum, int& zeros) {
     sum = 0.0f;
     zeros = 0;
 #pragma unroll
     for (int p = 0; p < PPL; ++p)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                const unsigned r = (acc[p][i] >> (8 * b)) & 0xFFu;
-                sum += exp2f(-static_cast<float>(r));
-                zeros += r == 0;
-            }
+        for (int i = 0; i < VEC; ++i) word_sum<BYTES>(acc[p][i], sum, zeros);
 #pragma unroll
     for (int o = LANES / 2; o > 0; o >>= 1) {
         sum += __shfl_xor_sync(mask, sum, o);
         zeros += __shfl_xor_sync(mask, zeros, o);
+    }
+}
+
+// a wide row's figures (every thread of the block calls, each with its PPL
+// pieces of 16 B): row_sum over each warp, then the warps' partials in warp
+// order; every thread gets the row's figures
+template <int T, int PPL>
+__device__ void wide_row_sum(const uint32_t (&acc)[PPL][4], float* s_sum, int* s_zero,
+                             float& sum, int& zeros) {
+    row_sum<32, PPL, 4, 4>(acc, kFull, sum, zeros);
+    if (threadIdx.x % 32 == 0) {
+        s_sum[threadIdx.x / 32] = sum;
+        s_zero[threadIdx.x / 32] = zeros;
+    }
+    __syncthreads();
+    sum = 0.0f;
+    zeros = 0;
+#pragma unroll
+    for (int w = 0; w < T / 32; ++w) {
+        sum += s_sum[w];
+        zeros += s_zero[w];
     }
 }
 
@@ -164,24 +241,24 @@ __device__ float hll_estimate(float sum, int zeros, float m, float alpha) {
 // the round's last step (else null). A row is read and written by the same
 // lanes, so self may be out (neither is __restrict__); src is never written.
 struct MergeArgs {
-    const uint32_t* self;
-    const uint32_t* src;
-    const uint32_t* cmp;        // null: no comparison (nor change bytes)
+    const uint8_t* self;
+    const uint8_t* src;
+    const uint8_t* cmp;         // null: no comparison (nor change bytes)
     const uint8_t* flags;       // src's change bytes; null: every byte set
     const int* offsets;
     const int* sources;
     const int* long_rows;
     int short_blocks, long_cut, n;
     float m, alpha;
-    uint32_t* out;
+    uint8_t* out;
     uint8_t* flags_out;         // the rows' change bytes (may be null)
     float* sizes;               // may be null
     int* changed;
 };
 
-template <int VEC, int LANES, int PPL>
+template <int VEC, int LANES, int PPL, int BYTES>
 __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
-    constexpr int W = VEC * LANES * PPL;                     // u32 words a row
+    constexpr int W = VEC * LANES * PPL;                     // words a row
     constexpr int G = LANES < kMinGroup ? kMinGroup : LANES;  // lanes of a row's group
     constexpr int kSlots = G / LANES;                        // in-edges the group reads at once
     constexpr int kGroups = kThreads / G;
@@ -191,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
     const int lane = gl % LANES, slot = gl / LANES;
     const int gbase = threadIdx.x % 32 / G * G;
     const unsigned gmask =  // this group's lanes of the warp (G % 32: no shift by 32)
-        G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1) << gbase;
+        G == 32 ? kFull : ((1u << (G % 32)) - 1) << gbase;
     const bool long_row = blockIdx.x >= a.short_blocks;
     long long v;
     bool valid;
@@ -230,11 +307,11 @@ __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
             for (int j = 0; j < U; ++j) {
                 const int k = k0 + j * kSlots + slot;
                 const long long u = __shfl_sync(gmask, idx, nth_set(mask, min(k, nf - 1)), G);
-                const uint32_t* row = a.src + u * W + lane * VEC;
 #pragma unroll
                 for (int p = 0; p < PPL; ++p) {
                     if (k < nf) {
-                        load_piece<VEC>(row + p * LANES * VEC, got[j][p]);
+                        load_piece<VEC, BYTES>(
+                            word_at<BYTES>(a.src, u * W + (p * LANES + lane) * VEC), got[j][p]);
                     } else {
 #pragma unroll
                         for (int i = 0; i < VEC; ++i) got[j][p][i] = 0u;
@@ -282,12 +359,14 @@ __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
     const long long at = v * W + lane * VEC;
     uint32_t own[PPL][VEC];
 #pragma unroll
-    for (int p = 0; p < PPL; ++p) load_piece<VEC>(a.self + at + p * LANES * VEC, own[p]);
+    for (int p = 0; p < PPL; ++p)
+        load_piece<VEC, BYTES>(word_at<BYTES>(a.self, at + p * LANES * VEC), own[p]);
     bool diff = false;
 #pragma unroll
     for (int p = 0; p < PPL; ++p) {
         uint32_t ref[VEC] = {};
-        if (a.cmp != nullptr && a.cmp != a.self) load_piece<VEC>(a.cmp + at + p * LANES * VEC, ref);
+        if (a.cmp != nullptr && a.cmp != a.self)
+            load_piece<VEC, BYTES>(word_at<BYTES>(a.cmp, at + p * LANES * VEC), ref);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
             acc[p][i] = __vmaxu4(acc[p][i], own[p][i]);
@@ -296,7 +375,8 @@ __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
     }
     if (slot == 0 && (!in_place || gathered)) {
 #pragma unroll
-        for (int p = 0; p < PPL; ++p) store_piece<VEC>(a.out + at + p * LANES * VEC, acc[p]);
+        for (int p = 0; p < PPL; ++p)
+            store_piece<VEC, BYTES>(word_at<BYTES>(a.out, at + p * LANES * VEC), acc[p]);
     }
     if (a.cmp != nullptr) {
         const bool row_diff = __any_sync(gmask, diff);
@@ -306,29 +386,144 @@ __global__ void __launch_bounds__(kThreads) hll_merge_kernel(MergeArgs a) {
     if (a.sizes != nullptr) {
         float sum;
         int zeros;
-        row_sum<LANES>(acc, gmask, sum, zeros);
+        row_sum<LANES, PPL, VEC, BYTES>(acc, gmask, sum, zeros);
         if (gl == 0) a.sizes[v] = hll_estimate(sum, zeros, a.m, a.alpha);
     }
 }
 
-// K6b alone: LANES lanes a row (all 32 lanes of a warp take part)
-template <int VEC, int LANES, int PPL>
+// the merge body for rows past a warp: a block of T threads a row, thread t
+// holding pieces t, T + t, ... (PPL of 16 B); the row's in-edges T at a time,
+// the flagged sources listed in shared memory (in any order: max is
+// order-free) and gathered U at once. Every row is its own block, so the
+// long rows need no list of their own. The epilogue is the narrow body's,
+// over the block.
+template <int T, int PPL>
+__global__ void __launch_bounds__(T) hll_wide_kernel(MergeArgs a) {
+    constexpr int W = 4 * T * PPL;           // words a row
+    constexpr int U = PPL < 4 ? 4 / PPL : 1;  // rows a thread gathers at once
+    __shared__ int s_src[T];
+    __shared__ int s_n;
+    __shared__ float s_sum[T / 32];
+    __shared__ int s_zero[T / 32];
+    const int tid = threadIdx.x;
+    const long long v = blockIdx.x;
+    const int start = a.offsets[v], end = a.offsets[v + 1];
+    uint32_t acc[PPL][4] = {};
+    bool gathered = false;  // the same in every thread
+    for (int e0 = start; e0 < end; e0 += T) {
+        const int cnt = min(T, end - e0);
+        const int idx = tid < cnt ? a.sources[e0 + tid] : 0;
+        const bool flagged = tid < cnt && (a.flags == nullptr || a.flags[idx] != 0);
+        if (tid == 0) s_n = 0;
+        __syncthreads();
+        if (flagged) s_src[atomicAdd(&s_n, 1)] = idx;
+        __syncthreads();
+        const int nf = s_n;
+        gathered |= nf > 0;
+        for (int k0 = 0; k0 < nf; k0 += U) {
+            uint32_t got[U][PPL][4];
+#pragma unroll
+            for (int j = 0; j < U; ++j) {
+                const long long u = s_src[min(k0 + j, nf - 1)];
+#pragma unroll
+                for (int p = 0; p < PPL; ++p) {
+                    if (k0 + j < nf) {
+                        load_piece<4, 4>(word_at<4>(a.src, u * W + (p * T + tid) * 4), got[j][p]);
+                    } else {
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) got[j][p][i] = 0u;
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < U; ++j)
+#pragma unroll
+                for (int p = 0; p < PPL; ++p)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) acc[p][i] = __vmaxu4(acc[p][i], got[j][p][i]);
+        }
+        __syncthreads();  // the list is rewritten for the next edges
+    }
+    const bool in_place = a.out == a.self;
+    if (in_place && !gathered && a.cmp == nullptr && a.sizes == nullptr) return;
+    bool diff = false;
+#pragma unroll
+    for (int p = 0; p < PPL; ++p) {
+        const long long at = v * W + (p * T + tid) * 4;
+        uint32_t own[4], ref[4] = {};
+        load_piece<4, 4>(word_at<4>(a.self, at), own);
+        if (a.cmp != nullptr && a.cmp != a.self) load_piece<4, 4>(word_at<4>(a.cmp, at), ref);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            acc[p][i] = __vmaxu4(acc[p][i], own[i]);
+            if (a.cmp != nullptr) diff |= acc[p][i] != (a.cmp == a.self ? own[i] : ref[i]);
+        }
+        if (!in_place || gathered) store_piece<4, 4>(word_at<4>(a.out, at), acc[p]);
+    }
+    if (a.cmp != nullptr) {
+        const bool row_diff = __syncthreads_or(diff);
+        if (tid == 0) {
+            if (a.flags_out != nullptr) a.flags_out[v] = row_diff;
+            if (row_diff) *a.changed = 1;
+        }
+    }
+    if (a.sizes != nullptr) {
+        float sum;
+        int zeros;
+        wide_row_sum<T, PPL>(acc, s_sum, s_zero, sum, zeros);
+        if (tid == 0) a.sizes[v] = hll_estimate(sum, zeros, a.m, a.alpha);
+    }
+}
+
+// K6b alone: LANES lanes a row (all 32 lanes of a warp take part), each lane
+// group kEstRows rows, all their loads issued before any sum
+template <int VEC, int LANES, int PPL, int BYTES>
 __global__ void __launch_bounds__(kThreads)
-hll_estimate_kernel(const uint32_t* __restrict__ regs, int n, float m, float alpha,
+hll_estimate_kernel(const uint8_t* __restrict__ regs, int n, float m, float alpha,
                     float* __restrict__ sizes) {
     constexpr int W = VEC * LANES * PPL;
+    constexpr int kRows = kThreads / LANES;  // rows a block takes at once
     const int lane = threadIdx.x % LANES;
-    const long long v = static_cast<long long>(blockIdx.x) * (kThreads / LANES) + threadIdx.x / LANES;
-    const bool valid = v < n;
-    uint32_t acc[PPL][VEC] = {};
-    if (valid) {
+    const long long v0 =
+        static_cast<long long>(blockIdx.x) * kRows * kEstRows + threadIdx.x / LANES;
+    uint32_t acc[kEstRows][PPL][VEC] = {};
 #pragma unroll
-        for (int p = 0; p < PPL; ++p) load_piece<VEC>(regs + v * W + (p * LANES + lane) * VEC, acc[p]);
+    for (int j = 0; j < kEstRows; ++j) {
+        const long long v = v0 + j * kRows;
+        if (v < n) {
+#pragma unroll
+            for (int p = 0; p < PPL; ++p)
+                load_piece<VEC, BYTES>(word_at<BYTES>(regs, v * W + (p * LANES + lane) * VEC),
+                                       acc[j][p]);
+        }
     }
+#pragma unroll
+    for (int j = 0; j < kEstRows; ++j) {
+        float sum;
+        int zeros;
+        row_sum<LANES, PPL, VEC, BYTES>(acc[j], kFull, sum, zeros);
+        const long long v = v0 + j * kRows;
+        if (v < n && lane == 0) sizes[v] = hll_estimate(sum, zeros, m, alpha);
+    }
+}
+
+// K6b alone on rows past a warp: a block a row, as hll_wide_kernel's epilogue
+template <int T, int PPL>
+__global__ void __launch_bounds__(T)
+hll_wide_estimate_kernel(const uint8_t* __restrict__ regs, float m, float alpha,
+                         float* __restrict__ sizes) {
+    constexpr int W = 4 * T * PPL;
+    __shared__ float s_sum[T / 32];
+    __shared__ int s_zero[T / 32];
+    const long long v = blockIdx.x;
+    uint32_t acc[PPL][4];
+#pragma unroll
+    for (int p = 0; p < PPL; ++p)
+        load_piece<4, 4>(word_at<4>(regs, v * W + (p * T + threadIdx.x) * 4), acc[p]);
     float sum;
     int zeros;
-    row_sum<LANES>(acc, 0xffffffffu, sum, zeros);
-    if (valid && lane == 0) sizes[v] = hll_estimate(sum, zeros, m, alpha);
+    wide_row_sum<T, PPL>(acc, s_sum, s_zero, sum, zeros);
+    if (threadIdx.x == 0) sizes[v] = hll_estimate(sum, zeros, m, alpha);
 }
 
 // K7, one round r of the multi-source BFS, as a bitset frontier step
@@ -451,48 +646,74 @@ bfs_step_kernel(const uint32_t* __restrict__ frontier, const int* __restrict__ o
     if (any) *changed = 1;
 }
 
-// the merge body at m registers a row (a power of two, 4..1024): (VEC, LANES,
-// PPL) with VEC x LANES x PPL = m / 4 words
-#define STRACT_HLL_WIDTHS(X)                                                                  \
-    X(4, 1, 1, 1) X(8, 2, 1, 1) X(16, 4, 1, 1) X(32, 4, 2, 1) X(64, 4, 4, 1) X(128, 4, 8, 1) \
-    X(256, 4, 16, 1) X(512, 4, 32, 1) X(1024, 4, 32, 2)
+// the merge body at m registers a row up to a warp's (a power of two,
+// 1..1,024): (VEC, LANES, PPL, BYTES) with VEC x LANES x PPL words of BYTES
+// bytes = m bytes
+#define STRACT_HLL_WIDTHS(X)                                                              \
+    X(1, 1, 1, 1, 1) X(2, 1, 1, 1, 2) X(4, 1, 1, 1, 4) X(8, 2, 1, 1, 4) X(16, 4, 1, 1, 4) \
+    X(32, 4, 2, 1, 4) X(64, 4, 4, 1, 4) X(128, 4, 8, 1, 4) X(256, 4, 16, 1, 4)            \
+    X(512, 4, 32, 1, 4) X(1024, 4, 32, 2, 4)
+// past it, a block a row: (T, PPL) with T x PPL pieces of 16 B = m bytes
+#define STRACT_HLL_WIDE(X)                                                        \
+    X(2048, 128, 1) X(4096, 256, 1) X(8192, 512, 1) X(16384, 1024, 1) X(32768, 1024, 2) \
+    X(65536, 1024, 4)
+
+constexpr int kMaxM = 65536;
 
 bool hll_shape_ok(int m) {
-    return m >= 4 && m <= 1024 && (m & (m - 1)) == 0;
+    return m >= 1 && m <= kMaxM && (m & (m - 1)) == 0;
 }
 
-// the registers' pointers must hold whole pieces: 4 VEC bytes (16 from m = 16)
+// the registers' pointers must hold whole pieces: min(m, 16) bytes
 bool hll_aligned(const void* p, int m) {
     return reinterpret_cast<uintptr_t>(p) % (m < 16 ? m : 16) == 0;
 }
 
-template <int VEC, int LANES, int PPL>
+template <int VEC, int LANES, int PPL, int BYTES>
 cudaError_t launch_merge(MergeArgs a, int n_long, cudaStream_t stream) {
     constexpr int G = LANES < kMinGroup ? kMinGroup : LANES;
     constexpr int kGroups = kThreads / G;
     a.short_blocks = (a.n + kGroups - 1) / kGroups;
     const size_t smem = n_long > 0 ? sizeof(uint32_t) * kGroups * VEC * LANES * PPL : 0;
-    hll_merge_kernel<VEC, LANES, PPL>
+    hll_merge_kernel<VEC, LANES, PPL, BYTES>
         <<<static_cast<unsigned>(a.short_blocks + n_long), kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+}
+
+template <int T, int PPL>
+cudaError_t launch_wide(const MergeArgs& a, cudaStream_t stream) {
+    hll_wide_kernel<T, PPL><<<static_cast<unsigned>(a.n), T, 0, stream>>>(a);
     return cudaGetLastError();
 }
 
 cudaError_t merge(int m, const MergeArgs& a, int n_long, cudaStream_t stream) {
     switch (m) {
-#define STRACT_HLL_MERGE(M, VEC, LANES, PPL) \
-    case M: return launch_merge<VEC, LANES, PPL>(a, n_long, stream);
+#define STRACT_HLL_MERGE(M, VEC, LANES, PPL, BYTES) \
+    case M: return launch_merge<VEC, LANES, PPL, BYTES>(a, n_long, stream);
         STRACT_HLL_WIDTHS(STRACT_HLL_MERGE)
 #undef STRACT_HLL_MERGE
+#define STRACT_HLL_MERGE_WIDE(M, T, PPL) \
+    case M: return launch_wide<T, PPL>(a, stream);
+        STRACT_HLL_WIDE(STRACT_HLL_MERGE_WIDE)
+#undef STRACT_HLL_MERGE_WIDE
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <int VEC, int LANES, int PPL>
-cudaError_t launch_estimate(const uint32_t* regs, int n, float alpha, float* sizes,
+template <int VEC, int LANES, int PPL, int BYTES>
+cudaError_t launch_estimate(const uint8_t* regs, int n, float alpha, float* sizes,
                             cudaStream_t stream) {
-    constexpr int rows = kThreads / LANES;
-    hll_estimate_kernel<VEC, LANES, PPL><<<(n + rows - 1) / rows, kThreads, 0, stream>>>(
-        regs, n, static_cast<float>(4 * VEC * LANES * PPL), alpha, sizes);
+    constexpr int rows = kThreads / LANES * kEstRows;
+    hll_estimate_kernel<VEC, LANES, PPL, BYTES><<<(n + rows - 1) / rows, kThreads, 0, stream>>>(
+        regs, n, static_cast<float>(BYTES * VEC * LANES * PPL), alpha, sizes);
+    return cudaGetLastError();
+}
+
+template <int T, int PPL>
+cudaError_t launch_wide_estimate(const uint8_t* regs, int n, float alpha, float* sizes,
+                                 cudaStream_t stream) {
+    hll_wide_estimate_kernel<T, PPL><<<static_cast<unsigned>(n), T, 0, stream>>>(
+        regs, static_cast<float>(16 * T * PPL), alpha, sizes);
     return cudaGetLastError();
 }
 
@@ -517,9 +738,9 @@ int stract_hll_merge(const void* regs, const uint8_t* flags, const int* offsets,
         return cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), stream);
     if (err != cudaSuccess || n == 0) return err;
-    const uint32_t* r = static_cast<const uint32_t*>(regs);
+    const uint8_t* r = static_cast<const uint8_t*>(regs);
     MergeArgs a{r, r, r, flags, offsets, sources, long_rows, 0, long_cut, n,
-                static_cast<float>(m), alpha, static_cast<uint32_t*>(out), flags_out, sizes,
+                static_cast<float>(m), alpha, static_cast<uint8_t*>(out), flags_out, sizes,
                 changed};
     return merge(m, a, n_long, stream);
 }
@@ -549,24 +770,28 @@ int stract_hll_ring_step(void* out, const void* buf, const uint8_t* flags, const
         if (err != cudaSuccess) return err;
     }
     if (S == 0) return cudaSuccess;
-    uint32_t* o = static_cast<uint32_t*>(out);
-    MergeArgs a{o, static_cast<const uint32_t*>(buf), static_cast<const uint32_t*>(start), flags,
+    uint8_t* o = static_cast<uint8_t*>(out);
+    MergeArgs a{o, static_cast<const uint8_t*>(buf), static_cast<const uint8_t*>(start), flags,
                 offsets, sources, long_rows, 0, long_cut, S, static_cast<float>(m), alpha, o,
                 flags_out, sizes, changed};
     return merge(m, a, n_long, stream);
 }
 
-// K6b: regs u8[n, m] -> sizes f32[n].
+// K6b: regs u8[n, m] -> sizes f32[n]; m a power of two, 1..65,536.
 int stract_hll_estimate(const void* regs, int n, int m, float alpha, float* sizes,
                         cudaStream_t stream) {
     if (!hll_shape_ok(m) || n < 0 || !hll_aligned(regs, m)) return cudaErrorInvalidValue;
     if (n == 0) return cudaSuccess;
-    const uint32_t* r = static_cast<const uint32_t*>(regs);
+    const uint8_t* r = static_cast<const uint8_t*>(regs);
     switch (m) {
-#define STRACT_HLL_ESTIMATE(M, VEC, LANES, PPL) \
-    case M: return launch_estimate<VEC, LANES, PPL>(r, n, alpha, sizes, stream);
+#define STRACT_HLL_ESTIMATE(M, VEC, LANES, PPL, BYTES) \
+    case M: return launch_estimate<VEC, LANES, PPL, BYTES>(r, n, alpha, sizes, stream);
         STRACT_HLL_WIDTHS(STRACT_HLL_ESTIMATE)
 #undef STRACT_HLL_ESTIMATE
+#define STRACT_HLL_ESTIMATE_WIDE(M, T, PPL) \
+    case M: return launch_wide_estimate<T, PPL>(r, n, alpha, sizes, stream);
+        STRACT_HLL_WIDE(STRACT_HLL_ESTIMATE_WIDE)
+#undef STRACT_HLL_ESTIMATE_WIDE
         default: return cudaErrorInvalidValue;
     }
 }

@@ -46,7 +46,7 @@
 //     the top sig_k columns with their P factor words staged in shared
 //     memory once (each signal entry summed over p in the same order).
 //     Bound by reading the i32[P, Kd] factors once.
-// Top-K (K1, K2, K13's tail, K9's select form): `top_keys` over keys held
+// Top-K (K1, K2, K13's tail, K9's select form, K10): `top_keys` over keys held
 //     by one block or by a cluster's blocks, in the order key descending,
 //     ties to the lower payload (doc, column or index). Zero keys (empty or
 //     invalid) enter no histogram. Where every block's nonzero keys fit its
@@ -172,10 +172,30 @@
 //     slower on the H100 (15 clusters of 8 one-SM blocks at once: 3 waves
 //     for 32 queries) and is gone.
 // K10 stract_dense_rerank replaces rerank_topk[_batch] (ops/dense_rerank.py:18,
-//     :31): one block per query, a warp per candidate row (dot product and
-//     norm in one pass over the f16/bf16/f32 row), then the block's bitonic
-//     select with ties to the lower index, as lax.top_k. Bound by reading the
-//     B*K*H embedding rows once.
+//     :31). Bound by reading the B*K*H embedding rows once (25 MB at the
+//     smoke's 32 x 1,024 x 384 f16: 0.0075 ms). The old form, one block a
+//     query (32 blocks on 132 SMs), 2 bytes a lane a load and a bitonic sort
+//     of all K keys, read 8x that. A grid of (128-candidate tile, query)
+//     blocks of 512 threads (256 at that shape: one wave at two an SM), a
+//     group of 8 lanes taking 2 rows one after the other, each
+//     lane's 16-byte pieces (6 at H = 384 f16) issued before any arithmetic,
+//     the query staged in shared memory in chunks (any H), dot and sum of
+//     squares in f32 and the lanes' shuffles. The top k without a sort of
+//     all K keys: the tiles write their keys to a [B, K] scratch, and the
+//     last tile block of the query to arrive (a ticket a query, fenced,
+//     left at zero for the next call) selects over them: for k <= 32 each
+//     warp keeps the 32 largest of its keys in a warp list (sorted and
+//     merged by shuffles) and the lists meet pairwise, 4 barriers (the
+//     shared top-K's radix passes took 8.3 of 17 us at the smoke's shape);
+//     past 32 the shared top-K, a radix select for the k-th key, then a
+//     sort of the k winners. (A merge
+//     form, each tile sorting its keys and the last block ranking the
+//     tiles' lists by bisections as K9 does, read 0.018 against 0.017 ms at
+//     that shape and 0.137 against 0.116-0.121 at 4 x 5,000, k = K, on the
+//     H100, and went.) Keys are order_key of the total, so +0 sorts above
+//     -0 and ties go to the lower index: lax.top_k's order. Any K and H,
+//     any k <= K (past RERANK_STAGE winners their sort buffer lies in
+//     global memory).
 // K9  stract_mesh_topk replaces the merge of the mesh's search programs
 //     (stract_tpu/parallel/search.py:39-42 and :78-81: the all-gather of each
 //     shard's top K, then lax.top_k over the n*K gathered scores). Each
@@ -188,8 +208,9 @@
 //     one barrier after the load, no select and no sort. The kernel reads
 //     the lists where they lie through a table of n (scores, docs) pointers
 //     (the shards' [B, K] tensors, or a stacked [B, n, K] tensor), and
-//     checks that every list of a query is non-increasing (-0 and +0 one
-//     key); a query where one is not takes the shared top-K below over its
+//     checks that every list of a query is non-increasing in the key (+0
+//     above -0, as lax.top_k ranks them on the CPU); a query where one is
+//     not takes the shared top-K below over its
 //     n*K keys in the same launch (the select form: its radix select and
 //     sort of the k winners), the same output. Latency-bound: the work is up
 //     to 8,192 keys a query (32 KB).
@@ -203,6 +224,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -222,10 +245,18 @@ constexpr unsigned long long EXCL_BIT = 1ull << 32;
 // UB scoring counts a doc's seen entries in the mask word above this bit
 // (P*L <= 2^24 entries per query)
 constexpr int CNT_SHIFT = 40;
-// most signal rows and the widest embedding row the search / rerank kernels
-// keep per block in static shared memory
+// most signal rows the search kernels keep per block in static shared memory
 constexpr int MAX_NSIG = 64;
-constexpr int MAX_H = 1024;
+// K10: candidates a block, lanes a candidate row, threads a block (a group of
+// lanes takes 2 rows), pieces a lane loads at once, query dims staged at a
+// time, and the most select winners the last block sorts in dynamic shared
+// memory
+constexpr int RERANK_TILE = 128;
+constexpr int RERANK_LANES = 8;
+constexpr int RERANK_THREADS = 512;
+constexpr int RERANK_ILP = 8;
+constexpr int RERANK_QCH = 4096;
+constexpr int RERANK_STAGE = 8192;
 // K13: the entries a block of the merge holds in shared memory (12 B each:
 // key, contribution, aux word; a query of the one-block form, or a tile of
 // the global form) and its threads (8 entries each)
@@ -414,33 +445,6 @@ __device__ float aux_static(const QueryArgs& q, int b, int aux, float static_sca
   const float ts = days > 0.0f ? days * 86400.0f + 1577836800.0f : 0.0f;
   const float upd = update_score(ts, q.current_ts[b]);
   return st + q.coeff_region[b] * rs + q.coeff_update[b] * upd;
-}
-
-// descending bitonic sort of n (a power of two) keys with their payload,
-// whole block cooperating, ties to the lower payload (lax.top_k's order):
-// payloads are distinct, so the order is total and the result does not
-// depend on the network; ends synchronised
-__device__ void bitonic_desc_stable(unsigned* key, int* idx, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned a = key[i], c = key[ixj];
-          const int ia = idx[i], ic = idx[ixj];
-          const bool i_first = a > c || (a == c && ia < ic);
-          const bool desc = (i & k) == 0;
-          if (desc ? !i_first : i_first) {
-            key[i] = c;
-            key[ixj] = a;
-            idx[i] = ic;
-            idx[ixj] = ia;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // ops/scoring.py _decode_rows: a posting row's words (W = 3: q16 rows, w2
@@ -2444,46 +2448,201 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// element i (0 or 1) of a 32-bit word of T, in address order
 template <typename T>
-__global__ void __launch_bounds__(1024) dense_rerank_kernel(
+__device__ __forceinline__ float word_elem(unsigned w, int i) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__ushort_as_half((unsigned short)(i ? w >> 16 : w & 0xFFFFu)));
+  } else {
+    return __uint_as_float(i ? w & 0xFFFF0000u : w << 16);  // bf16 -> f32 is exact
+  }
+}
+
+// a warp's 32 words (one a lane) sorted descending across its lanes by
+// the bitonic network in shuffles
+__device__ __forceinline__ unsigned long long warp_sort32(unsigned long long x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(FULL_MASK, x, j);
+      // the lower place of a descending pair keeps the larger word
+      x = (((lane & j) == 0) == ((lane & k) == 0)) ? (x > o ? x : o) : (x < o ? x : o);
+    }
+  return x;
+}
+
+// the 32 largest of two descending warp lists a and c, descending: a
+// against c reversed, the larger of each pair (a bitonic sequence), then
+// the bitonic merge
+__device__ __forceinline__ unsigned long long warp_merge32(unsigned long long a,
+                                                           unsigned long long c) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long r = __shfl_sync(FULL_MASK, c, 31 - lane);
+  unsigned long long x = a > r ? a : r;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(FULL_MASK, x, j);
+    x = (lane & j) == 0 ? (x > o ? x : o) : (x < o ? x : o);
+  }
+  return x;
+}
+
+// the top k <= 32 of a block's n keys (0: none), as words (key, ~index):
+// each warp keeps the 32 largest of its stride of keys in a warp list, 32
+// keys at a time (sorted, then merged in); the warps' lists meet pairwise
+// through `lists` (32 words a warp) in log2(warps) rounds; warp 0 ends with
+// the block's list, descending (ties to the lower index). Every thread of
+// the block calls.
+__device__ unsigned long long block_top32(const unsigned* keys, int n,
+                                          unsigned long long* lists) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  unsigned long long list = 0ull;
+  for (int i0 = warp * 32; i0 < n; i0 += 2 * blockDim.x) {  // two batches' loads at once
+    const int i = i0 + lane, i2 = i + blockDim.x;
+    const unsigned key = i < n ? keys[i] : 0u, key2 = i2 < n ? keys[i2] : 0u;
+    list = warp_merge32(list, warp_sort32(key != 0u ? pack_entry(key, i) : 0ull));
+    list = warp_merge32(list, warp_sort32(key2 != 0u ? pack_entry(key2, i2) : 0ull));
+  }
+  for (int step = 1; step < nw; step <<= 1) {
+    lists[threadIdx.x] = list;
+    __syncthreads();
+    if (warp % (2 * step) == 0 && warp + step < nw)
+      list = warp_merge32(list, lists[(warp + step) * 32 + lane]);
+    __syncthreads();
+  }
+  return list;
+}
+
+// A block a (tile of RERANK_TILE candidates, query b): a group of 8 lanes
+// takes rows g and g + 64 of the tile, one after the other; each lane's
+// pieces (16 B where the rows allow, else single elements) loaded RERANK_ILP
+// at a time before any arithmetic (the first batch issued before the query
+// is staged in shared memory, RERANK_QCH dims at a time); dot and sum of
+// squares as f32 fused multiply-adds, then the lanes' shuffles; the keys to
+// a [B, K] scratch. The last tile block of a query to arrive (a ticket a
+// query, left at zero for the next call) selects the query's top k over
+// its K keys: warp lists for k <= 32 (`block_top32`), else the shared
+// top-K; no sort of all K keys.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(RERANK_THREADS, 2) dense_rerank_kernel(
     const T* __restrict__ emb, const float* __restrict__ qemb, const float* __restrict__ base,
-    int K, int H, float weight, int k, int S, int* out_idx, float* out_scores) {
-  __shared__ unsigned sk[MAX_SORT];
-  __shared__ int si[MAX_SORT];
-  __shared__ float qv[MAX_H];
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) qv[h] = qemb[(long long)b * H + h];
-  __syncthreads();
-  for (int r = warp; r < S; r += nw) {
-    unsigned key = 0;
-    if (r < K) {
-      const T* row = emb + ((long long)b * K + r) * H;
-      float dot = 0.0f, ss = 0.0f;
-      for (int h = lane; h < H; h += 32) {
-        const float x = to_f32(row[h]);
-        dot += x * qv[h];
-        ss += x * x;
+    int K, int H, float weight, int k, int staged, unsigned* keys,
+    unsigned long long* kv_global, unsigned* tickets, int* out_idx, float* out_scores) {
+  constexpr int PE = VEC ? 16 / (int)sizeof(T) : 1;  // elements a piece
+  constexpr int kGroups = RERANK_THREADS / RERANK_LANES;
+  constexpr int kRows = RERANK_TILE / kGroups;      // rows a group takes
+  using Piece = typename std::conditional<VEC, uint4, float>::type;
+  __shared__ __align__(16) float qs[RERANK_QCH];
+  __shared__ SelectState sel;
+  __shared__ unsigned long long warp_lists[RERANK_THREADS];
+  __shared__ bool last;
+  extern __shared__ unsigned long long dyn[];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int g = tid / RERANK_LANES, lane = tid % RERANK_LANES;
+  const int r0 = blockIdx.x * RERANK_TILE + g;
+  float bs[kRows], dot[kRows] = {}, ss[kRows] = {};
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int r = r0 + rr * kGroups;
+    bs[rr] = r < K ? base[(long long)b * K + r] : 0.0f;
+  }
+  Piece v[RERANK_ILP];
+  // a batch of row rr's pieces j0, j0 + 8, ... of the chunk at c0 into v
+  auto load = [&](int rr, int c0, int np, int j0) {
+    const T* row = emb + ((long long)b * K + r0 + rr * kGroups) * H + c0;
+#pragma unroll
+    for (int u = 0; u < RERANK_ILP; ++u) {
+      const int j = j0 + u * RERANK_LANES;
+      if constexpr (VEC) {
+        if (j < np) v[u] = *reinterpret_cast<const uint4*>(row + j * PE);
+      } else {
+        v[u] = j < np ? to_f32(row[j]) : 0.0f;
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      }
-      const float norm = sqrtf(ss);
-      const float sim = norm > 1e-6f ? dot / fmaxf(norm, 1e-6f) : 0.0f;
-      key = order_key(base[(long long)b * K + r] + weight * sim);
     }
-    if (lane == 0) {
-      sk[r] = key;
-      si[r] = r;
+  };
+  auto accumulate = [&](int rr, int np, int j0) {
+#pragma unroll
+    for (int u = 0; u < RERANK_ILP; ++u) {
+      const int j = j0 + u * RERANK_LANES;
+      if (j >= np) continue;
+      if constexpr (VEC) {
+        const unsigned w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        const float4* q4 = reinterpret_cast<const float4*>(qs + j * PE);
+#pragma unroll
+        for (int c = 0; c < PE / 4; ++c) {
+          const float4 q = q4[c];
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int el = 4 * c + e;
+            const float x = word_elem<T>(w[el * (int)sizeof(T) / 4], el % (4 / (int)sizeof(T)));
+            dot[rr] = __fmaf_rn(x, qv[e], dot[rr]);
+            ss[rr] = __fmaf_rn(x, x, ss[rr]);
+          }
+        }
+      } else {
+        dot[rr] = __fmaf_rn(v[u], qs[j], dot[rr]);
+        ss[rr] = __fmaf_rn(v[u], v[u], ss[rr]);
+      }
+    }
+  };
+  for (int c0 = 0; c0 < H; c0 += RERANK_QCH) {
+    const int ch = min(RERANK_QCH, H - c0), np = ch / PE;
+    if (r0 < K) load(0, c0, np, lane);  // in flight while the query is staged
+    if (c0 > 0) __syncthreads();
+    for (int h = tid; h < ch; h += RERANK_THREADS) qs[h] = qemb[(long long)b * H + c0 + h];
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      if (r0 + rr * kGroups >= K) continue;
+      for (int j0 = lane; j0 < np; j0 += RERANK_LANES * RERANK_ILP) {
+        if (rr > 0 || j0 > lane) load(rr, c0, np, j0);
+        accumulate(rr, np, j0);
+      }
     }
   }
-  __syncthreads();
-  bitonic_desc_stable(sk, si, S);
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    out_idx[(long long)b * k + j] = si[j];
-    out_scores[(long long)b * k + j] = key_value(sk[j]);
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+    for (int o = RERANK_LANES / 2; o > 0; o >>= 1) {
+      dot[rr] += __shfl_xor_sync(FULL_MASK, dot[rr], o);
+      ss[rr] += __shfl_xor_sync(FULL_MASK, ss[rr], o);
+    }
+    const int r = r0 + rr * kGroups;
+    if (lane == 0 && r < K) {
+      const float norm = sqrtf(ss[rr]);
+      const float sim = norm > 1e-6f ? dot[rr] / fmaxf(norm, 1e-6f) : 0.0f;
+      keys[(long long)b * K + r] = order_key(bs[rr] + weight * sim);
+    }
   }
+  // the last block of the query to arrive takes its top k
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tickets[b], 1u) == gridDim.x - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid == 0) tickets[b] = 0u;
+  const long long o = (long long)b * k;
+  if (k <= 32) {
+    const unsigned long long top = block_top32(keys + (long long)b * K, K, warp_lists);
+    if (tid < k) {
+      out_idx[o + tid] = entry_payload(top);
+      out_scores[o + tid] = key_value(entry_key(top));
+    }
+    return;
+  }
+  unsigned long long* kv = staged ? dyn : kv_global + (long long)b * next_pow2(k);
+  BlockScope scope;
+  top_keys<true>(scope, sel, keys + (long long)b * K, K, k, [](int i) { return i; }, kv,
+                 [&](int pos, unsigned kx, int i) {
+                   out_idx[o + pos] = i;
+                   out_scores[o + pos] = key_value(kx);
+                 });
 }
 
 // ---- K9 -----------------------------------------------------------------------
@@ -2494,8 +2653,8 @@ __device__ __forceinline__ const T* mesh_list(const T* const* tab, const MeshLis
   return tab[e] + (long long)(j - e) * K + (long long)b * t.qstride;
 }
 
-// A block a (list i, query b). Every block stages the query's N keys (-0
-// and +0 one key) and checks that each list is non-increasing in them. Where
+// A block a (list i, query b). Every block stages the query's N keys (+0
+// above -0) and checks that each list is non-increasing in them. Where
 // all are (the merge form: each shard's list comes from a top-K), the entry
 // at position p < k of list i has the global rank r = p + #{entries of lists
 // j < i with key >= its key} + #{entries of lists j > i with key > its
@@ -2517,7 +2676,7 @@ __global__ void __launch_bounds__(1024) mesh_topk_kernel(
     const float* row = mesh_list(t.scores, t, j, K, b);
     for (int p = threadIdx.x; p < K; p += blockDim.x) {
       const float x = row[p];
-      keys[j * K + p] = order_key(x == 0.0f ? 0.0f : x);
+      keys[j * K + p] = order_key(x);
     }
   }
   __syncthreads();
@@ -2852,24 +3011,43 @@ int stract_signals_prefix(const SegArgs* s, const QueryArgs* q, const AggArgs* a
 
 // K10. emb [B, K, H] of dtype 0 = f32, 1 = f16, 2 = bf16; qemb f32[B, H];
 // base f32[B, K] -> out_idx i32[B, k], out_scores f32[B, k], score-descending,
-// ties to the lower index.
+// +0 above -0, ties to the lower index (lax.top_k's order). scratch: the
+// keys u32[B, K], then (past RERANK_STAGE winners) the winners' sort buffer
+// u64[B, next_pow2(k)] at the next 8-byte boundary; tickets u32[B], zero
+// (and left at zero).
 int stract_dense_rerank(const void* emb, int dtype, const float* qemb, const float* base, int B,
-                        int K, int H, float weight, int k, int* out_idx, float* out_scores,
-                        cudaStream_t stream) {
-  if (B < 1 || K < 1 || K > MAX_SORT || H < 1 || H > MAX_H || k < 1 || k > K || dtype < 0 ||
-      dtype > 2)
+                        int K, int H, float weight, int k, void* scratch, unsigned* tickets,
+                        int* out_idx, float* out_scores, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || K < 1 || H < 1 || k < 1 || k > K || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
-  const int S = next_pow2(K);
-  if (dtype == 0)
-    dense_rerank_kernel<float><<<B, 1024, 0, stream>>>(
-        (const float*)emb, qemb, base, K, H, weight, k, S, out_idx, out_scores);
-  else if (dtype == 1)
-    dense_rerank_kernel<__half><<<B, 1024, 0, stream>>>(
-        (const __half*)emb, qemb, base, K, H, weight, k, S, out_idx, out_scores);
-  else
-    dense_rerank_kernel<__nv_bfloat16><<<B, 1024, 0, stream>>>(
-        (const __nv_bfloat16*)emb, qemb, base, K, H, weight, k, S, out_idx, out_scores);
-  return (int)cudaGetLastError();
+  const int staged = next_pow2(k) <= RERANK_STAGE;
+  const size_t smem = staged ? sizeof(unsigned long long) * next_pow2(k) : 0;
+  unsigned* keys = (unsigned*)scratch;
+  unsigned long long* kv =
+      (unsigned long long*)((char*)scratch + ((sizeof(unsigned) * B * (size_t)K + 7) & ~(size_t)7));
+  const dim3 grid((unsigned)((K + RERANK_TILE - 1) / RERANK_TILE), (unsigned)B);
+  int err = 0;
+  auto launch = [&](auto kernel, auto* rows) {
+    if (smem > 16 * 1024) {  // with the ~21 KB of static shared memory, past 48 KB
+      err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+      if (err) return;
+    }
+    kernel<<<grid, RERANK_THREADS, smem, stream>>>(rows, qemb, base, K, H, weight, k, staged,
+                                                  keys, kv, tickets, out_idx, out_scores);
+    err = (int)cudaGetLastError();
+  };
+  auto typed = [&](auto* e) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(e)>>;
+    if (((size_t)H * sizeof(T)) % 16 == 0 && (uintptr_t)emb % 16 == 0)
+      launch(dense_rerank_kernel<T, true>, e);
+    else
+      launch(dense_rerank_kernel<T, false>, e);
+  };
+  if (dtype == 0) typed((const float*)emb);
+  else if (dtype == 1) typed((const __half*)emb);
+  else typed((const __nv_bfloat16*)emb);
+  return err;
 }
 
 // K9: the table's n lists of K entries a query (each descending for the

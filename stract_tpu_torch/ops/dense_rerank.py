@@ -5,10 +5,13 @@
     total = base + weight * sims  →  top-k
 
 The plain version follows the reference; the kernel (K10, csrc/scoring.cu
-stract_dense_rerank) takes one block per query and a warp per candidate row.
-CPU tensors take the plain version, CUDA tensors launch the kernel or raise.
-Ties go to the lower index on both (lax.top_k's order; torch.topk's order
-among equal values is not fixed, so the plain version sorts stably).
+stract_dense_rerank) takes a grid of (128-candidate tile, query) blocks that
+write their keys, and the last block of each query selects its top k. CPU tensors
+take the plain version, CUDA tensors launch the kernel or raise. Both order
+the totals as lax.top_k does on the CPU: descending, +0 above -0, ties to
+the lower index (the plain version sorts the kernel's order keys stably;
+torch.topk's order among equal values is not fixed, and a float sort takes
+-0 and +0 as equal).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ def rerank_topk_batch_plain(cand_emb, query_emb, base_scores, weight: float, k: 
     norms = torch.linalg.norm(emb, dim=2)
     sims = torch.where(norms > 1e-6, sims / torch.clamp(norms, min=1e-6), torch.zeros_like(sims))
     total = base_scores + weight * sims
-    order = torch.sort(total, dim=1, descending=True, stable=True).indices[:, :k]
+    order = kernels.top_order(total, k)
     return order.to(torch.int32), torch.gather(total, 1, order)
 
 

@@ -111,13 +111,20 @@ def merge_systolic_plain(regs, changed, edge_from, edge_to):
     return new, (new != regs).any(dim=1).to(torch.uint8)
 
 
+def exp2_neg(regs):
+    """2^-r f32 of uint8 registers, as the kernels build it: the exponent bits
+    (127 - r) << 23 for r <= 125, and 0 from r = 126 on, which is what XLA's
+    exp2 gives on the CPU (it flushes 2^-126)."""
+    r = regs.to(torch.int32)
+    return torch.where(r < 126, (127 - r) << 23, 0).view(torch.float32)
+
+
 def estimate_sizes_plain(regs):
     """The vectorized HLL estimate f32[N], the reference's formula in f32."""
     n, m = regs.shape
     mf = float(m)
     alpha = torch.tensor(hll_alpha(m), dtype=torch.float32, device=regs.device)
-    r = regs.to(torch.float32)
-    est = alpha * mf * mf / torch.exp2(-r).sum(dim=1)
+    est = alpha * mf * mf / exp2_neg(regs).sum(dim=1)
     zeros = (regs == 0).to(torch.float32).sum(dim=1)
     lc = mf * torch.log(mf / zeros.clamp_min(1.0))
     use_lc = (est <= 2.5 * mf) & (zeros > 0)

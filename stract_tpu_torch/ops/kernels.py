@@ -69,10 +69,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # page one block sorts in shared memory, and the most fused signal columns
 MAX_SORT = 4096
 MAX_SIG_K = 64
-# limits of K12 and the rerank (MAX_NSIG, MAX_H, the most slots K12 takes)
+# limits of K12 (MAX_NSIG, the most slots it takes)
 MAX_NSIG = 64
-MAX_H = 1024
 MAX_SEARCH_P = 8192
+# K10 (csrc/scoring.cu): candidates a tile block, the most winners its last
+# block sorts in shared memory
+RERANK_TILE, RERANK_STAGE = 128, 8192
 # K12 (csrc/scoring.cu): the most candidates a block takes, the most words of
 # its [P, candidates] factor tile, the most shared memory its staged
 # coefficients and row lists take
@@ -469,7 +471,7 @@ def _load(name: str):
                 lib.stract_factors_join.argtypes = [P, LL, I, P, P, P, I, I, I, I, I, P, P]
                 lib.stract_signals_prefix.argtypes = [seg, qry, agg, P, LL, I, P, I, I, I, I,
                                                       I, I, F, P, P]
-                lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P]
+                lib.stract_dense_rerank.argtypes = [P, I, P, P, I, I, I, F, I, P, P, P, P, P]
                 lib.stract_mesh_topk.argtypes = [ctypes.POINTER(MeshLists), I, I, I, I, P, P, P,
                                                  P, P]
                 fns = (lib.stract_stage_a, lib.stract_stage_a_merge, lib.stract_stage_b,
@@ -893,6 +895,29 @@ def signals_prefix(seg, q, aggs: AggArgs, cand, inv_fs: float, L: int, steps: in
 
 
 _RERANK_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# K10's tickets a query: u32 zeros on each (card, stream), left at zero by
+# every launch, grown when a batch is larger
+_RERANK_TICKETS: dict = {}
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """csrc/scoring.cu's order_key of f32 x, as int64: a monotone map under
+    which +0 sorts above -0, as lax.top_k ranks them on the CPU."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, u ^ 0xFFFFFFFF, u | 2 ** 31)
+
+
+def top_order(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the k largest of f32 x along its last dim in
+    lax.top_k's order: descending, +0 above -0, ties to the lower index."""
+    return torch.sort(order_keys(x), dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def rerank_scratch_bytes(B: int, K: int, k: int) -> int:
+    """K10's scratch: the keys u32[B, K], then, past RERANK_STAGE winners,
+    their sort buffer u64[B, next_pow2(k)] at the next 8-byte boundary."""
+    s = 1 << (k - 1).bit_length()
+    return (4 * B * K + 7) // 8 * 8 + (8 * B * s if s > RERANK_STAGE else 0)
 
 
 def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_scores) -> None:
@@ -901,16 +926,23 @@ def dense_rerank(cand_emb, query_emb, base, weight: float, k: int, out_idx, out_
     B, K, H = cand_emb.shape
     if cand_emb.dtype not in _RERANK_DTYPES:
         raise ValueError(f"the rerank reads f32, f16 or bf16 rows, not {cand_emb.dtype}")
-    if not (B >= 1 and 1 <= K <= MAX_SORT and 1 <= H <= MAX_H and 1 <= k <= K):
-        raise ValueError(f"the rerank takes 1..{MAX_SORT} candidates of 1..{MAX_H} dims and "
-                         f"keeps 1..K, not {K}, {H}, {k}")
+    if not (1 <= B <= GRID_YZ and 1 <= K < 2 ** 31 and H >= 1 and 1 <= k <= K):
+        raise ValueError(f"the rerank's grid takes 1..{GRID_YZ} queries of 1..2^31 - 1 "
+                         f"candidates and keeps 1..K, not B = {B}, K = {K}, k = {k}")
     f32 = torch.float32
     ptrs = (_ptr(cand_emb, cand_emb.dtype), _RERANK_DTYPES[cand_emb.dtype],
             _ptr(query_emb, f32, (B, H)), _ptr(base, f32, (B, K)))
     outs = (_ptr(out_idx, torch.int32, (B, k)), _ptr(out_scores, f32, (B, k)))
     lib = _load("scoring")
     with on_card(cand_emb, query_emb, base, out_idx, out_scores) as stream:
-        rc = lib.stract_dense_rerank(*ptrs, B, K, H, float(weight), k, *outs, stream)
+        dev = cand_emb.device
+        scratch = torch.empty(rerank_scratch_bytes(B, K, k), dtype=torch.uint8, device=dev)
+        tickets = _RERANK_TICKETS.get((dev.index, stream))
+        if tickets is None or tickets.numel() < B:
+            tickets = _RERANK_TICKETS[(dev.index, stream)] = torch.zeros(
+                max(B, 64), dtype=torch.int32, device=dev)
+        rc = lib.stract_dense_rerank(*ptrs, B, K, H, float(weight), k, scratch.data_ptr(),
+                                     tickets.data_ptr(), *outs, stream)
     _check(rc, "stract_dense_rerank")
     counted("dense_rerank")
 
@@ -1509,8 +1541,9 @@ def pair_loss(s_pos, s_neg, t_pos, t_neg, alpha: float, loss, d_pos, d_neg) -> N
     counted("pair_loss")
 
 
-# limits of csrc/graph.cu: registers per row (a power of two, 4..1024)
-HLL_MAX_M = 1024
+# limits of csrc/graph.cu: registers per row (a power of two up to 65,536;
+# past 1,024 a block a row)
+HLL_MAX_M = 65536
 
 
 def _csr_ptrs(n: int, offsets, sources, long_rows) -> tuple:
@@ -1522,13 +1555,17 @@ def _csr_ptrs(n: int, offsets, sources, long_rows) -> tuple:
 
 
 def _hll_rows(m: int, *regs) -> None:
-    """Raise unless m registers a row is a width the kernels take and each
-    register tensor starts on a whole piece (min(m, 16) bytes)."""
-    if not 4 <= m <= HLL_MAX_M or m & (m - 1):
-        raise ValueError(f"HLL rows of {m} registers: the kernel takes a power of two, 4..1024")
+    """Raise for what no graph kernel takes: a row width that is not a power
+    of two, one past HLL_MAX_M registers, or a register tensor that does not
+    start on a whole piece (min(m, 16) bytes)."""
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"HLL rows of {m} registers: not a power of two")
+    if m > HLL_MAX_M:
+        raise ValueError(f"HLL rows of {m} registers: past the kernels' {HLL_MAX_M:,}")
     for t in regs:
         if t is not None and t.data_ptr() % min(m, 16):
-            raise ValueError(f"HLL registers must start on a {min(m, 16)}-byte boundary")
+            raise ValueError(f"HLL registers of {m} a row must start on a {min(m, 16)}-byte "
+                             f"boundary")
 
 
 def _change_bytes(flags, flags_out, n: int) -> tuple:

@@ -937,13 +937,14 @@ def compute_signals(seg, q, aggs, cand, L: int = DEFAULT_L):
 # ---- the mesh's merge ---------------------------------------------------------------
 def mesh_topk_plain(scores, docs, k: int):
     """lax.top_k over each query's gathered n*K scores, plainly: a stable
-    descending sort of the flattened row keeps equal scores (and the -inf
-    pads) in flat-index order, which is lax.top_k's tie rule."""
+    descending sort of the flattened row's order keys (+0 above -0) keeps
+    equal scores (and the -inf pads) in flat-index order, which is
+    lax.top_k's tie rule."""
     B, n, K = scores.shape
-    vals, idx = torch.sort(scores.reshape(B, n * K), dim=1, descending=True, stable=True)
-    idx = idx[:, :k]
+    flat = scores.reshape(B, n * K)
+    idx = kernels.top_order(flat, k)
     return (torch.gather(docs.reshape(B, n * K), 1, idx).to(torch.int32),
-            (idx // K).to(torch.int32), vals[:, :k].contiguous())
+            (idx // K).to(torch.int32), torch.gather(flat, 1, idx))
 
 
 def _mesh_outputs(B: int, k: int, dev) -> tuple:

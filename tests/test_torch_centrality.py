@@ -112,6 +112,49 @@ def test_merge_rounds_bit_equal_and_estimates_close(graph):
                                        np.asarray(jax_hll.estimate_sizes(rj)), rtol=1e-6)
 
 
+@pytest.mark.parametrize("precision", [1, 11, 12])
+def test_estimates_match_jax_at_other_widths(precision):
+    """The size estimate (K6b's plain version, whose 2^-r the kernels build
+    from the exponent bits) within rel 1e-6 of the JAX package's at 2, 2,048
+    and 4,096 registers a row, on the initial registers, after 4 merges over
+    the 2,000-node Pareto graph, and on rows holding the bytes 126, 127, 149,
+    150 and 255 (2^-r is 0 from r = 126 on in both: XLA's exp2 flushes
+    2^-126 on the CPU), one of them all 126 (inf in both)."""
+    src, dst = make_edges(2000, 40_000, seed=0)
+    regs = jax_hll.init_registers(2000, precision)
+    rj = jnp.asarray(regs)
+    for _ in range(4):
+        rj = jax_hll.merge_iteration(rj, jnp.asarray(src), jnp.asarray(dst))
+    m = 1 << precision
+    edge = np.resize(np.array([126, 127, 149, 150, 255, 3, 0], np.uint8), (4, m))
+    edge[1] = np.resize(np.array([126, 127, 149, 150, 255, 5], np.uint8), m)
+    edge[2] = 126
+    edge[3, 0] = 7
+    for r in (regs, np.asarray(rj), edge):
+        want = np.asarray(jax_hll.estimate_sizes(jnp.asarray(r)))
+        got = hll_ops.estimate_sizes(torch.from_numpy(np.array(r))).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert np.isinf(want[2])
+
+
+def test_harmonic_centrality_matches_jax_at_precision_11(tmp_path):
+    """harmonic_centrality at precision 11 (2,048 registers a row, as
+    `main.py centrality` runs it with precision = 11 in its config) on the
+    2,000-node Pareto graph: the JAX package's round count, centrality
+    within rtol 1e-5, ranks equal up to ties."""
+    path = str(tmp_path / "g")
+    src, dst = make_edges(2000, 40_000, seed=0)
+    write_graph(path, [f"h{i}.example" for i in range(2000)], src, dst)
+    jg, pg = JaxWebgraph(path), Webgraph(path)
+    cj = JC.harmonic_centrality(jg, precision=11)
+    timings = {}
+    cp = PC.harmonic_centrality(pg, precision=11, device="cpu", timings=timings)
+    assert timings["n_rounds"] == _jax_rounds(jg, 11)
+    assert list(cp) == list(cj)
+    np.testing.assert_allclose([cp[k] for k in cj], [cj[k] for k in cj], rtol=1e-5, atol=1e-12)
+    _assert_ranks_equal_up_to_ties(cj, cp, 2e-5)
+
+
 def test_systolic_rounds_bit_equal_to_jax(graph):
     """The systolic twin (only the in-edges whose source changed in the round
     before, every byte set before round 1) gives JAX's merge_iteration

@@ -528,6 +528,48 @@ def test_rerank_topk_matches_jax(dtype):
     np.testing.assert_array_equal(i1_t.numpy(), np.asarray(i1_j))
 
 
+@pytest.mark.parametrize("k", [1, 5000])
+def test_rerank_topk_takes_any_k_and_h_as_jax(k):
+    """Past the old kernel's 4,096 candidates and 1,024 dims (K = 5,000,
+    H = 1,100), k = 1 and k = K: the JAX package's indices (except where
+    two of its scores tie within 2e-6) and scores within atol 1e-6; a tenth
+    of the rows zero (their bases alone) and the bases on a 0.1 grid (ties
+    to the lower index)."""
+    rng = np.random.default_rng(11)
+    B, K, H = 2, 5000, 1100
+    emb = rng.normal(0, 1, (B, K, H)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=2, keepdims=True)
+    emb[:, ::10] = 0
+    q = rng.normal(0, 1, (B, H)).astype(np.float32)
+    base = np.round(rng.normal(0, 1, (B, K)), 1).astype(np.float32)
+    i_j, s_j = RJ.rerank_topk_batch(jnp.asarray(emb), jnp.asarray(q), jnp.asarray(base), 0.01, k)
+    i_t, s_t = RT.rerank_topk_batch(torch.as_tensor(emb), q, base, 0.01, k)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=0, atol=1e-6)
+    i_j, s_j = np.asarray(i_j), np.asarray(s_j)
+    for b, pos in zip(*np.nonzero(i_t.numpy() != i_j)):
+        assert (np.abs(s_j[b] - s_j[b, pos]) <= 2e-6).sum() > 1
+    assert (i_t.numpy() == i_j).mean() > 0.99
+
+
+def test_rerank_topk_orders_signed_zeros_as_jax():
+    """Totals of -0 and +0 (zero rows, weight -1, bases -0 and +0): the JAX
+    package's lax.top_k on the CPU ranks +0 above -0, ties to the lower
+    index, and so does the port: indices [1, 3, 0, 2], the zeros' signs as
+    the JAX package's."""
+    emb = np.zeros((2, 4, 8), np.float32)
+    q = np.ones((2, 8), np.float32)
+    base = np.array([[-0.0, 0.0, -0.0, 0.0], [0.0, -0.0, -0.0, 0.0]], np.float32)
+    i_j, s_j = RJ.rerank_topk_batch(jnp.asarray(emb), jnp.asarray(q), jnp.asarray(base), -1.0, 4)
+    i_t, s_t = RT.rerank_topk_batch(torch.as_tensor(emb), q, base, -1.0, 4)
+    assert np.asarray(i_j).tolist() == [[1, 3, 0, 2], [0, 3, 1, 2]]
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(np.signbit(s_t.numpy()), np.signbit(np.asarray(s_j)))
+    for k in (1, 2, 3):  # every k keeps the first k of that order
+        np.testing.assert_array_equal(
+            RT.rerank_topk_batch(torch.as_tensor(emb), q, base, -1.0, k)[0].numpy(),
+            np.asarray(i_j)[:, :k])
+
+
 # ---- wrappers: argument checks, dispatch, live launch structs ----------------------
 def test_new_kernel_arguments_are_checked(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -568,8 +610,8 @@ def test_new_kernel_arguments_are_checked(monkeypatch):
         kernels.dense_rerank(i32(2, 8, 4), f32(2, 4), f32(2, 8), 1.0, 4, None, None)
     with pytest.raises(ValueError):  # k > K
         kernels.dense_rerank(f32(2, 8, 4), f32(2, 4), f32(2, 8), 1.0, 16, None, None)
-    with pytest.raises(ValueError):  # wider rows than the block stages
-        kernels.dense_rerank(f32(1, 8, 2048), f32(1, 2048), f32(1, 8), 1.0, 4, None, None)
+    with pytest.raises(ValueError):  # more queries than the grid takes
+        kernels.dense_rerank(f32(65536, 1, 1), f32(65536, 1), f32(65536, 1), 1.0, 1, None, None)
     for name in ("stage_a_q8", "stage_a_ub", "factors_join", "stage_b_joined", "signals_joined",
                  "signals_prefix", "dense_rerank"):
         assert name in kernels.LAUNCHES

@@ -1848,9 +1848,130 @@ def test_hll_kernels_reach_their_c_entry_points(monkeypatch):
     assert not called
 
 
+def test_hll_rows_refuse_only_what_no_kernel_takes():
+    """The graph kernels take every power of two from 1 to 65,536 registers
+    a row (m = 2: half a 32-bit word); `_hll_rows` refuses a width that is
+    not a power of two, one past 65,536, and registers that do not start on
+    a whole piece (min(m, 16) bytes), and says which."""
+    for m in (1, 2, 4, 1024, 2048, 65536):
+        kernels._hll_rows(m, torch.zeros((3, m), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="not a power of two"):
+        kernels._hll_rows(48)
+    with pytest.raises(ValueError, match="past the kernels' 65,536"):
+        kernels._hll_rows(131072)
+    wide = torch.zeros(4 * 2048 + 16, dtype=torch.uint8)[8:8 + 4 * 2048].view(4, 2048)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernels._hll_rows(2048, wide)
+    half = torch.zeros(9, dtype=torch.uint8)[1:].view(4, 2)
+    with pytest.raises(ValueError, match="2-byte boundary"):
+        kernels._hll_rows(2, half)
+
+
+def _word_sum_model(w: np.ndarray) -> tuple:
+    """csrc/graph.cu word_sum over u32 words: the 2^-r bits of the four bytes
+    by the fast path (127 - r of all four bytes in one subtraction, each
+    shifted to the exponent field) and by the byte path, where the fast test
+    lets a word through, and the zero-byte count."""
+    w = w.astype(np.uint32)
+    fast = (((w + np.uint32(0x02020202)) | w) & np.uint32(0x80808080)) == 0
+    d, e = np.uint32(0x7F7F7F7F) - w, np.uint32(0x3F800000)
+    fast_bits = np.stack([(d << np.uint32(s)) & e for s in (23, 15, 7)] + [(d >> np.uint32(1)) & e],
+                         axis=-1)
+    r = np.stack([(w >> np.uint32(8 * b)) & np.uint32(0xFF) for b in range(4)], axis=-1)
+    byte_bits = np.where(r < 126, (np.uint32(127) - r) << np.uint32(23), 0).astype(np.uint32)
+    t = ~(((w & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F)) | w) & np.uint32(0x80808080)
+    zeros = np.array([bin(int(x)).count("1") for x in t])
+    return fast, fast_bits, byte_bits, r, zeros
+
+
+def test_hll_powers_of_two_are_built_from_the_exponent_bits():
+    """(127 - r) << 23 is the f32 bits of 2^-r for r = 0 ... 126. K6b's two
+    paths (numpy model of word_sum) give the same bits wherever the fast
+    test lets a word through, the test lets none through that holds a byte
+    >= 126, every word of bytes < 126 with no byte >= 254 goes through, the
+    zero-byte count is exact, and the plain version's 2^-r (hll_ops.exp2_neg)
+    equals the byte path: 0 from r = 126 on."""
+    from stract_tpu_torch.ops import hll_ops
+
+    r = np.arange(127, dtype=np.uint32)
+    np.testing.assert_array_equal(((np.uint32(127) - r) << np.uint32(23)).view(np.float32),
+                                  (2.0 ** -r.astype(np.float64)).astype(np.float32))
+    rng = np.random.default_rng(0)
+    edge = np.array([0, 1, 63, 64, 124, 125, 126, 127, 128, 149, 150, 253, 254, 255], np.uint32)
+    b = np.concatenate([rng.integers(0, 256, (50_000, 4)), rng.integers(0, 126, (50_000, 4)),
+                        np.stack(np.meshgrid(*[edge] * 4), -1).reshape(-1, 4)]).astype(np.uint32)
+    w = b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
+    fast, fast_bits, byte_bits, bytes_, zeros = _word_sum_model(w)
+    assert fast.sum() > 50_000
+    np.testing.assert_array_equal(fast_bits[fast], byte_bits[fast])
+    assert not (bytes_[fast] >= 126).any()
+    assert fast[(bytes_ < 126).all(axis=1)].all()
+    np.testing.assert_array_equal(zeros, (bytes_ == 0).sum(axis=1))
+    got = hll_ops.exp2_neg(torch.from_numpy(bytes_.astype(np.uint8)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), byte_bits)
+
+
+def _warp_sort32(x: np.ndarray) -> np.ndarray:
+    """csrc/scoring.cu warp_sort32 over a warp's 32 words (lane i at x[i])."""
+    lane = np.arange(32)
+    k = 2
+    while k <= 32:
+        j = k >> 1
+        while j:
+            o = x[lane ^ j]
+            larger = ((lane & j) == 0) == ((lane & k) == 0)
+            x = np.where(larger, np.maximum(x, o), np.minimum(x, o))
+            j >>= 1
+        k <<= 1
+    return x
+
+
+def _warp_merge32(a: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """csrc/scoring.cu warp_merge32: the 32 largest of two descending lists."""
+    lane = np.arange(32)
+    x = np.maximum(a, c[31 - lane])
+    j = 16
+    while j:
+        o = x[lane ^ j]
+        x = np.where((lane & j) == 0, np.maximum(x, o), np.minimum(x, o))
+        j >>= 1
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 21, 32, 1000, 1024, 5000])
+def test_rerank_warp_list_select_model(n):
+    """A numpy model of K10's select for k <= 32 (csrc/scoring.cu
+    block_top32: 16 warps, each keeping the 32 largest (key, ~index) words
+    of its stride of keys, 32 at a time sorted by the bitonic network and
+    merged in; the lists merged pairwise in 4 rounds): the block's list is
+    the 32 largest words, descending, ties to the lower index, zero keys
+    (none) last, on keys with many ties."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 40, n).astype(np.uint64)
+    words = np.where(keys != 0, keys << np.uint64(32) | (~np.arange(n, dtype=np.uint64)
+                                                       & np.uint64(0xFFFFFFFF)), 0)
+    words = words.astype(np.uint64)
+    lists = []
+    for w in range(16):
+        lst = np.zeros(32, np.uint64)
+        for i0 in range(32 * w, n, 512):  # the kernel's loop takes these two at a time
+            i = i0 + np.arange(32)
+            lst = _warp_merge32(lst, _warp_sort32(np.where(i < n, words[np.minimum(i, n - 1)], 0)
+                                                  .astype(np.uint64)))
+        lists.append(lst)
+    step = 1
+    while step < 16:
+        lists = [_warp_merge32(lists[w], lists[w + step]) if w % (2 * step) == 0 else lists[w]
+                 for w in range(16 - step)] + lists[16 - step:]
+        step *= 2
+    want = np.concatenate([np.sort(words)[::-1], np.zeros(32, np.uint64)])[:32]
+    np.testing.assert_array_equal(lists[0], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hub_in,precision", [(100_003, 100_000, 6), (5_001, 300, 4),
-                                                (5_001, 300, 10)])
+                                                (5_001, 300, 10), (5_001, 300, 1),
+                                                (20_003, 20_000, 11), (5_001, 3_000, 12)])
 def test_hll_kernels_match_plain(n, hub_in, precision):
     """K6a round by round in the systolic form a HyperBall runs (change
     bytes carried from round to round, every byte set before round 1):
@@ -1861,7 +1982,8 @@ def test_hll_kernels_match_plain(n, hub_in, precision):
     shuffled) a call with every byte set, or with no change bytes, is the
     full merge, and a call with no byte set a copy (changed 0, every byte
     0). A hub of 100k in-edges, N not a multiple of the block, a node with
-    no in-edges, 16 / 64 / 1024 registers a row."""
+    no in-edges, 2 / 16 / 64 / 1,024 registers a row, and 2,048 and 4,096 (a
+    block a row)."""
     from stract_tpu_torch.ops import hll_ops
 
     dev = _card()
@@ -1900,6 +2022,61 @@ def test_hll_kernels_match_plain(n, hub_in, precision):
     copy, _, changed = hll_ops.merge_csr(mixed, csr, flags=torch.zeros_like(flags),
                                          flags_out=none_out)
     assert torch.equal(copy, mixed) and int(changed.item()) == 0 and not none_out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", range(17))
+def test_hll_estimate_kernel_matches_plain_at_every_width(precision):
+    """K6b at m = 2^precision registers a row, 1 ... 65,536 (a byte, half a
+    word, a warp's lanes, past 1,024 a block a row), on seeded registers
+    (zero-free rows of geometric ranks, which take the estimate, and rows
+    with zeros, which take linear counting), a row all 0, a row of the bytes
+    125, 126, 127, 149, 150, 255 and a row all 126 (inf): within rel 1e-6 of
+    the plain version, two calls bit-equal, a row count that is not a
+    multiple of a block's."""
+    from stract_tpu_torch.ops import hll_ops
+
+    dev = _card()
+    m = 1 << precision
+    n = min(20_003, (1 << 24) // m + 3)
+    rng = np.random.default_rng(precision)
+    regs = np.minimum(rng.geometric(0.5, (n, m)), 65 - precision)
+    regs[::2] -= 1
+    regs = regs.astype(np.uint8)
+    regs[0] = 0
+    regs[1] = np.resize(np.array([125, 126, 127, 149, 150, 255], np.uint8), m)
+    regs[2] = 126
+    t = torch.from_numpy(regs).to(dev)
+    got = hll_ops.estimate_sizes(t)
+    want = hll_ops.estimate_sizes_plain(torch.from_numpy(regs))
+    assert torch.isinf(want[2]) and bool(torch.isfinite(want[3:]).all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(hll_ops.estimate_sizes(t), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [1, 4, 6, 10, 11, 12, 16])
+def test_hll_merge_sizes_bit_equal_to_the_estimate(precision):
+    """K6a's epilogue (two rounds) and K8's last ring step estimate the rows
+    they write bit-equal to K6b alone on the same rows, at 2 ... 65,536
+    registers a row: one routine, one order."""
+    from stract_tpu_torch.ops import hll_ops
+    from stract_tpu_torch.webgraph import centrality as PC
+
+    dev = _card()
+    m = 1 << precision
+    n = min(5_001, (1 << 24) // m + 1)
+    src, dst = _graph(n, min(300, n - 2))
+    csr = in_csr(n, src, dst, dev)
+    regs = torch.from_numpy(hll_ops.init_registers(n, precision)).to(dev)
+    for _ in range(2):
+        new, sizes, _ = hll_ops.merge_csr(regs, csr)
+        assert torch.equal(sizes, hll_ops.estimate_sizes(new))
+        regs = new
+    bucket = PC.ring_buckets(n, src, dst, [torch.device(dev)])[0][0]
+    out = regs.clone()
+    _, sizes = hll_ops.ring_step(out, regs, bucket, start=regs, sizes=True)
+    assert torch.equal(sizes, hll_ops.estimate_sizes(out))
 
 
 @pytest.mark.cuda
@@ -2124,15 +2301,26 @@ def test_ring_step_kernel_matches_plain(n_shards):
     the plain comparison, the sizes of the last step within rel 1e-6 of the
     plain estimate; then one step with every byte set (given, and not
     given) bit-equal to the plain step."""
+    _ring_rounds_match_plain(n_shards, 50_003, 50_000, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards,precision", [(3, 1), (3, 11), (4, 12)])
+def test_ring_step_kernel_matches_plain_at_other_widths(n_shards, precision):
+    """test_ring_step_kernel_matches_plain at 2 registers a row (half a
+    word) and at 2,048 and 4,096 (a block a row)."""
+    _ring_rounds_match_plain(n_shards, 5_003, 3_000, precision)
+
+
+def _ring_rounds_match_plain(n_shards: int, n: int, hub_in: int, precision: int) -> None:
     from stract_tpu_torch.ops import hll_ops
     from stract_tpu_torch.webgraph import centrality as PC
 
     dev = _card()
-    n = 50_003
-    src, dst = _graph(n, 50_000, seed=2)
+    src, dst = _graph(n, hub_in, seed=2)
     S = -(-n // n_shards)
-    regs0 = np.zeros((S * n_shards, 64), np.uint8)
-    regs0[:n] = hll_ops.init_registers(n, 6)
+    regs0 = np.zeros((S * n_shards, 1 << precision), np.uint8)
+    regs0[:n] = hll_ops.init_registers(n, precision)
     shards = {where: [torch.from_numpy(regs0[d * S:(d + 1) * S]).to(where)
                       for d in range(n_shards)] for where in (dev, "cpu")}
     flags = {where: [torch.ones(S, dtype=torch.uint8, device=where) for _ in range(n_shards)]

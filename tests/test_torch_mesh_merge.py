@@ -4,7 +4,8 @@ A numpy model of the kernel's two forms (the rank merge where every list of
 a query is descending, the select where one is not) is held bit-equal to
 the plain twin (ops/scoring.py mesh_topk_plain) and to jax.lax.top_k over
 the flattened n*K scores, on seeded lists with ties within and across
-shards, -0 beside +0, -inf tails, an all -inf shard and k < K. The
+shards, -0 beside +0 (+0 ranks above -0, as lax.top_k on the CPU), -inf
+tails, an all -inf shard and k < K. The
 per-shard call (ops/scoring.py mesh_topk_lists) is held to the stacked
 merge on the CPU, its wrapper's checks run before any build, and on a
 stand-in card the mesh's merge (parallel/search.py _merge) hands the
@@ -27,8 +28,8 @@ from stract_tpu_torch.parallel import search as PS
 
 
 def _keys(scores: np.ndarray) -> np.ndarray:
-    """order_key of csrc/scoring.cu over f32 scores, -0 taken as +0."""
-    u = np.where(scores == 0, np.float32(0), scores).astype(np.float32).view(np.uint32)
+    """order_key of csrc/scoring.cu over f32 scores (+0 above -0)."""
+    u = scores.astype(np.float32).view(np.uint32)
     return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
 
 
@@ -88,7 +89,9 @@ def _lists(B: int, n: int, K: int, seed: int, unsorted: bool, zero_run=(0.0,)) -
     a coarse grid (ties within and across shards), -inf tails, the last
     shard of query 0 all -inf; in query 1 a run of zeros where each list
     crosses 0: +0 +0 -0 -0 in the last list, four of zero_run[0] in the
-    others; with `unsorted`, one list of query 1 out of order."""
+    others (the zeros past a run that ends in -0 made -0, so every list
+    descends in the kernel's key, +0 above -0); with `unsorted`, one list of
+    query 1 out of order."""
     rng = np.random.default_rng(seed)
     scores = np.sort(rng.integers(-8, 24, (B, n, K)).astype(np.float32) / 4, axis=2)[..., ::-1]
     scores = np.ascontiguousarray(scores)
@@ -100,6 +103,9 @@ def _lists(B: int, n: int, K: int, seed: int, unsorted: bool, zero_run=(0.0,)) -
                 q = int(np.argmax(scores[b, d] <= 0))
                 run = [0.0, 0.0, -0.0, -0.0] if d == n - 1 else [zero_run[0]] * 4
                 scores[b, d, q:q + 4] = np.array(run, np.float32)[:K - q]
+                if np.signbit(run[-1]):  # the zeros after a -0 are -0: still descending
+                    tail = scores[b, d, q + 4:]
+                    tail[tail == 0] = -0.0
     scores[0, -1] = -np.inf
     if unsorted:
         scores[1, n // 2, 0], scores[1, n // 2, K - 1] = -5.0, 9.0
@@ -124,17 +130,15 @@ def _model_equals_plain(scores, docs, k):
 def test_k9_model_equals_plain_and_lax_top_k(n, K, k, unsorted):
     """The model's rank merge (and its select, for a query with a list out
     of order) bit-equal to mesh_topk_plain and to lax.top_k: docs, shards,
-    scores (value for value: a -0 comes out +0 from the kernel, equal to
-    -0), and each query's form. lax.top_k on the CPU ranks +0 above -0,
-    where the merge takes them as one key: every +0 here lies before every
-    -0 in flat order, where the two orders agree."""
+    scores (bit for bit, the zeros' signs too), and each query's form."""
     B = 3
     scores, docs = _lists(B, n, K, seed=n * 100 + K + k, unsorted=unsorted)
     got_d, got_h, got_s, forms = _model_equals_plain(scores, docs, k)
     for b in range(B):
         top_s, idx = jax.lax.top_k(jnp.asarray(scores[b].reshape(-1)), k)
         idx = np.asarray(idx)
-        np.testing.assert_array_equal(got_s[b], np.asarray(top_s))
+        np.testing.assert_array_equal(got_s[b].view(np.uint32),
+                                      np.asarray(top_s).view(np.uint32))
         np.testing.assert_array_equal(got_d[b], docs[b].reshape(-1)[idx])
         np.testing.assert_array_equal(got_h[b], idx // K)
     assert forms.tolist() == [0, int(unsorted), 0]
@@ -142,10 +146,44 @@ def test_k9_model_equals_plain_and_lax_top_k(n, K, k, unsorted):
 
 @pytest.mark.parametrize("n,K,k", [(2, 64, 64), (4, 128, 50)])
 def test_k9_model_takes_minus_zero_before_plus_zero_as_ties(n, K, k):
-    """-0 in the earlier lists and +0 in the later ones: one key, so ties in
-    flat order, as the plain twin's stable sort takes them (bit-equal)."""
+    """-0 in the earlier lists and +0 in the later ones, where lax.top_k on
+    the CPU ranks +0 above -0 (the JAX mesh's merge, stract_tpu/parallel/
+    search.py:42, 81): so do the model and the plain twin, bit-equal to it
+    and each other; every list stays descending (the merge form)."""
     scores, docs = _lists(3, n, K, seed=7 * n + k, unsorted=False, zero_run=(-0.0,))
-    assert _model_equals_plain(scores, docs, k)[3].tolist() == [0, 0, 0]
+    got_d, got_h, got_s, forms = _model_equals_plain(scores, docs, k)
+    assert forms.tolist() == [0, 0, 0]
+    top_s, idx = jax.lax.top_k(jnp.asarray(scores[1].reshape(-1)), k)
+    np.testing.assert_array_equal(got_h[1], np.asarray(idx) // K)
+    np.testing.assert_array_equal(got_s[1].view(np.uint32), np.asarray(top_s).view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_k9_plain_merge_ranks_signed_zeros_as_lax_top_k(n):
+    """The per-shard call's CPU path (mesh_topk_lists) and mesh_topk_plain
+    against jax.lax.top_k over the gathered scores, as the JAX mesh's merge
+    calls it, on lists of -0 and +0 in both orders across shards (-0 first
+    in the earlier lists, +0 first in the later): the same shards, docs and
+    scores bit for bit, +0 above -0."""
+    B, K = 2, 8
+    scores = np.zeros((B, n, K), np.float32)
+    scores[0, : n // 2] = -0.0
+    scores[1, n // 2:] = -0.0
+    scores[:, :, 0] = 1.0
+    scores[:, :, -2:] = -np.inf
+    docs = np.arange(B * n * K, dtype=np.int32).reshape(B, n, K)
+    s_lists = [torch.from_numpy(scores[:, i].copy()) for i in range(n)]
+    d_lists = [torch.from_numpy(docs[:, i].copy()) for i in range(n)]
+    for got in (O.mesh_topk_lists(s_lists, d_lists, K),
+                O.mesh_topk_plain(torch.from_numpy(scores), torch.from_numpy(docs), K)):
+        for b in range(B):
+            top_s, idx = jax.lax.top_k(jnp.asarray(scores[b].reshape(-1)), K)
+            idx = np.asarray(idx)
+            np.testing.assert_array_equal(got[0][b].numpy(), docs[b].reshape(-1)[idx])
+            np.testing.assert_array_equal(got[1][b].numpy(), idx // K)
+            np.testing.assert_array_equal(got[2][b].numpy().view(np.uint32),
+                                          np.asarray(top_s).view(np.uint32))
+            assert not np.signbit(got[2][b].numpy()[n:2 * n - n // 2]).any()
 
 
 @pytest.mark.parametrize("n", [1, 4, 8])

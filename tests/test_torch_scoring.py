@@ -826,21 +826,82 @@ def test_prefix_signals_kernel_matches_plain_over_its_plans(fixture, plan, monke
     assert bool((got != 0).any())
 
 
+RERANK_TOL = (1e-6, 2e-6)  # rtol, atol: the dot products' sums in another order
+
+
+def _rerank_case(B: int, K: int, H: int, dtype, dev, seed: int):
+    """Seeded rerank inputs on the card: L2-normalised rows (row 3 zero,
+    rows 7 and 8 equal with equal bases: a tie), a query a row, small
+    bases."""
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.nn.functional.normalize(torch.randn((B, K, H), generator=g), dim=2)
+    emb[:, 3] = 0
+    emb[:, 8] = emb[:, 7]
+    base = 0.1 * torch.randn((B, K), generator=g)
+    base[:, 8] = base[:, 7]
+    return emb.to(dev, dtype), torch.randn((B, H), generator=g).to(dev), base.to(dev)
+
+
+def _assert_rerank_matches(got, want) -> None:
+    """Scores within RERANK_TOL, indices equal except where the plain
+    version's score ties with another within that tolerance."""
+    (i_k, s_k), (i_p, s_p) = got, want
+    torch.testing.assert_close(s_k, s_p, rtol=RERANK_TOL[0], atol=RERANK_TOL[1])
+    i_k, i_p, s_p = i_k.cpu().numpy(), i_p.cpu().numpy(), s_p.cpu().numpy()
+    for b, pos in zip(*np.nonzero(i_k != i_p)):
+        near = np.abs(s_p[b] - s_p[b, pos]) <= RERANK_TOL[1] + RERANK_TOL[0] * abs(s_p[b, pos])
+        assert near.sum() > 1, (b, pos)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_dense_rerank_kernel_matches_plain(dtype):
+    """K10 at the smoke's shape (32 queries x 1,024 candidates x 384 dims,
+    k = 20) against its plain version: scores within rtol 1e-6, atol 2e-6,
+    indices equal except ties within that tolerance (the tied rows 7 and 8
+    in index order); two calls bit-equal (the tickets left at zero)."""
     dev = _card()
-    g = torch.Generator().manual_seed(2)
-    B, K, H, k = 4, 1000, 384, 20
-    emb = torch.nn.functional.normalize(torch.randn((B, K, H), generator=g), dim=2)
-    emb[:, 3] = 0
-    emb = emb.to(dev, dtype)
-    q = torch.randn((B, H), generator=g).to(dev)
-    base = (0.1 * torch.randn((B, K), generator=g)).to(dev)
-    i_k, s_k = RT.rerank_topk_batch(emb, q, base, 1.0, k)
-    i_p, s_p = RT.rerank_topk_batch_plain(emb, q, base, 1.0, k)
-    torch.testing.assert_close(s_k, s_p, rtol=0, atol=2e-6)
-    assert (i_k == i_p).float().mean().item() > 0.9
+    emb, q, base = _rerank_case(32, 1024, 384, dtype, dev, seed=2)
+    for weight in (1.0, 0.01):
+        got = RT.rerank_topk_batch(emb, q, base, weight, 20)
+        _assert_rerank_matches(got, RT.rerank_topk_batch_plain(emb, q, base, weight, 20))
+        again = RT.rerank_topk_batch(emb, q, base, weight, 20)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("K,H", [(5000, 1536), (5000, 1100), (4097, 4100), (10_000, 64),
+                                 (1, 384)])
+def test_dense_rerank_kernel_takes_any_k_and_h(K, H, dtype):
+    """K10 past the old limits of 4,096 candidates and 1,024 dims: k = 1,
+    20 and K (every candidate; at K = 10,000 the tiles' lists are read
+    where they lie, past shared memory), rows of 16-byte pieces (H = 1,536)
+    and of single elements (H = 1,100; 4,100 in f16 and bf16: the query
+    staged in two chunks), one candidate; against the plain version as
+    above."""
+    dev = _card()
+    emb, q, base = (_rerank_case(3, K, H, dtype, dev, seed=K + H) if K > 8 else
+                    (torch.ones((3, 1, H), device=dev, dtype=dtype),
+                     torch.ones((3, H), device=dev), torch.zeros((3, 1), device=dev)))
+    for k in sorted({1, min(20, K), K}):
+        _assert_rerank_matches(RT.rerank_topk_batch(emb, q, base, 0.5, k),
+                               RT.rerank_topk_batch_plain(emb, q, base, 0.5, k))
+
+
+@pytest.mark.cuda
+def test_dense_rerank_kernel_orders_signed_zeros():
+    """Totals of -0 and +0 (zero rows, weight -1, bases -0 and +0) come out
+    +0 above -0, ties to the lower index, as lax.top_k on the CPU and the
+    plain version order them: indices [1, 3, 0, 2]."""
+    dev = _card()
+    emb = torch.zeros((2, 4, 64), device=dev)
+    q = torch.ones((2, 64), device=dev)
+    base = torch.tensor([[-0.0, 0.0, -0.0, 0.0]] * 2, device=dev)
+    idx, scores = RT.rerank_topk_batch(emb, q, base, -1.0, 4)
+    assert idx.tolist() == [[1, 3, 0, 2]] * 2
+    assert torch.signbit(scores).tolist() == [[False, False, True, True]] * 2
+    assert torch.equal(idx, RT.rerank_topk_batch_plain(emb, q, base, -1.0, 4)[0])
 
 
 def _merge_case(fixture, form: str, default_static: bool):
