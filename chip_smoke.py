@@ -12,6 +12,24 @@ route: every answer must be a 200 with webpages, every kernel must have been
 launched by that traffic, and the top-10 of sample queries must match the
 same stack run with the plain versions on the card.
 
+Then optics, the shard's linear model and the side answers on the same
+stack: the optic bodies of OPTICS (a DiscardNonMatching site, whose site
+group drives stage B; a discarded site; three discarded wildcard site
+patterns, 333 excluded slots of ~2,000 postings, past L; likes, dislikes
+and a boost, the coordinator's residual) on a rare-term query (the driver
+path), a head-term query (the scan path) and its fifth page of 20 (pass 2),
+served over HTTP (every request answered, the configuration's kernels
+launched), then each first page searched alone with every scoring launch
+timed and its table recorded (K1's form, slots and entries; K13's P; K2's
+and K11's P and Kd; K3's P and K) and against the plain versions (top-10s
+by compare_phase's rule); an O1 page holds site7.com alone, an O2 or O3
+page no discarded site, and O3's head-term query must take K1's global
+form at T >= 524,288 (and K13 its P = 512 bucket under the merge: the
+merge and join configurations run the same phase in their rounds). A
+LinearRegression with seeded weights in a SearchService (pass 2 at search
+time: K3 launched) gives the plain versions' top-10s; the widget, spell
+check, autosuggest and sidebar routes answer over HTTP.
+
 Then the ranking pipeline: a 30,522-piece WordPiece vocab fit on the corpus;
 the train phase trains MiniLM-L6 dual and cross encoders on the card from
 triples synthesised from the corpus (stract_tpu_torch.entrypoint.
@@ -202,6 +220,26 @@ DIRECT = ("factors_join", "signals_prefix", "dense_rerank")
 # candidates and dims of its check past the old kernel's limits (k = K)
 RERANK_K, RERANK_TOP, RERANK_W = 1024, 20, 0.01
 RERANK_LONG = (5000, 1536)
+# optics on the corpus's sites (bench_corpus.py: site0.com ... site499.com):
+# a DiscardNonMatching site (its required group can drive stage B), a
+# discarded site, three discarded wildcard patterns (111 sites each, 333
+# excluded slots of ~2,000 postings: past L), likes / dislikes and a boost
+# (the residual on the host)
+OPTICS = {
+    "O1": 'DiscardNonMatching; Rule { Matches { Site("|site7.com|") } };',
+    "O2": 'Rule { Matches { Site("|site3.com|") }, Action(Discard) };',
+    "O3": 'Rule { Matches { Site("site1") }, Matches { Site("site2") }, '
+          'Matches { Site("site3") }, Action(Discard) };',
+    "O4": 'Like(Site("site5.com")); Dislike(Site("site6.com")); '
+          'Rule { Matches { Site("|site8.com|") }, Action(Boost(3)) };',
+}
+# what O3's head-term query must reach: K1's global form at T of at least
+# this many slots (default and join), K13 this P bucket (merge)
+OPTIC_GATE = {"default": ("stage_a", 524_288), "join": ("stage_a", 524_288),
+              "merge": ("stage_a_merge", 512)}
+# the shard's linear model: its signals and their seeded weights' scale
+LINEAR_SIGNALS = ("host_centrality", "bm25_title", "bm25_clean_body", "title_coverage",
+                  "fetch_time_ms")
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
             "add_layernorm_backward", "bias_gelu_backward", "adamw", "info_nce", "pair_loss")
@@ -976,18 +1014,18 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def serve_phase(searcher, expect, rounds: int = 1) -> dict:
+def serve_phase(searcher, expect, rounds: int = 1, bodies=None) -> dict:
     """HTTP traffic through the in-process server, `rounds` rounds of the
-    request mix; counters reset first. Every request must be answered, and
-    every kernel named in `expect` launched by that traffic. qps is over all
-    rounds; "round_qps" lists each round's."""
+    request mix (or of `bodies`); counters reset first. Every request must be
+    answered, and every kernel named in `expect` launched by that traffic.
+    qps is over all rounds; "round_qps" lists each round's."""
     import numpy as np
 
     from stract_tpu_torch.api.server import build_app
     from stract_tpu_torch.main import ServerThread
     from stract_tpu_torch.ops import kernels
 
-    bodies = requests_mix(N_REQUESTS)
+    bodies = bodies or requests_mix(N_REQUESTS)
     server = ServerThread(build_app(searcher, max_concurrency=2 * CLIENTS))
     results, round_qps = [], []
     try:
@@ -1064,6 +1102,18 @@ def compare_pipeline_page(pp, pk, forest) -> tuple:
     return err, int(flips.sum())
 
 
+def page_match(wk, wp) -> float:
+    """Two pages (kernels, plain versions) hold the same documents with the
+    same scores: rtol 1e-3, atol 1e-3, documents tied at the cut as sets. →
+    the largest score difference."""
+    import numpy as np
+
+    ids = {w["url"]: i for i, w in enumerate(wk + wp)}
+    return topk_match(np.array([ids[w["url"]] for w in wp]), np.array([w["score"] for w in wp]),
+                      np.array([ids[w["url"]] for w in wk]), np.array([w["score"] for w in wk]),
+                      -1, 1e-3, 1e-3)
+
+
 def compare_phase(searcher, forest=None) -> dict:
     """Top-10 of 8 queries: kernels against the plain versions, same card.
     With the pipeline on (`forest` given), pages carry their signals and
@@ -1085,11 +1135,7 @@ def compare_phase(searcher, forest=None) -> dict:
             e, f = compare_pipeline_page(pp, pk, forest)
             err, flipped = max(err, e), flipped + f
         else:
-            ids = {w["url"]: i for i, w in enumerate(wk + wp)}
-            err = max(err, topk_match(np.array([ids[w["url"]] for w in wp]),
-                                      np.array([w["score"] for w in wp]),
-                                      np.array([ids[w["url"]] for w in wk]),
-                                      np.array([w["score"] for w in wk]), -1, 1e-3, 1e-3))
+            err = max(err, page_match(wk, wp))
         n += len(wk)
     if n == 0:
         raise AssertionError("the compared queries returned nothing")
@@ -1154,6 +1200,277 @@ def page_diff(wa, wb, rtol: float):
     return max((abs(sa[u] - sb[u]) for u in sa.keys() & sb.keys()), default=0.0)
 
 
+def optic_bodies() -> list:
+    """Each optic of OPTICS on a rare-term query (requests_mix's kind 0: the
+    driver path) and a head-term query (its kind 1, two head terms: the scan
+    path through K1 or K13), and on the head-term query's fifth page of 20
+    (past stage B's fused signal rows: pass 2 runs)."""
+    mix = requests_mix(64)
+    rare, head = mix[0]["query"], mix[1]["query"]
+    return [{"query": q, "optic": src, **extra} for src in OPTICS.values()
+            for q, extra in ((rare, {}), (head, {}), (head, {"page": 4, "numResults": 20}))]
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Wrap each (module, name, shape) of `targets` while the block runs:
+    every call records shape(*args) with its ms (CUDA events around the
+    call, synchronised after it; no ms without a card) → {name: [...]}."""
+    import torch
+
+    got, saved = {}, [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def wrap(name, real, shape):
+        def call(*a, **kw):
+            rec = shape(*a, **kw)
+            if not torch.cuda.is_available():
+                out = real(*a, **kw)
+            else:
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = real(*a, **kw)
+                t1.record()
+                t1.synchronize()
+                rec["ms"] = t0.elapsed_time(t1)
+            got.setdefault(name, []).append(rec)
+            return out
+        return call
+
+    for (mod, name, shape), (_, _, real) in zip(targets, saved):
+        setattr(mod, name, wrap(name, real, shape))
+    try:
+        yield got
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def scoring_targets() -> tuple:
+    """timed_calls' targets for the optic searches: the scoring kernels'
+    launch wrappers (K1 with its table's form, slots T and largest entries
+    E; K13; K2; K11; K3), and the ops/scoring.py entry points that
+    plain_versions routes to the plain versions (their calls as the index
+    makes them, numpy slots uploaded inside)."""
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ops import scoring as O
+
+    def p_of(q):  # numpy slots, or tensors on the card
+        return int(q.starts.shape[-1])
+
+    launches = [
+        (kernels, "stage_a", lambda seg, q, L, K, plan, *r, **kw: {
+            "form": plan.form, "T": plan.slots, "E": plan.entries, "P": p_of(q), "L": L,
+            "B": int(q.starts.shape[0])}),
+        (kernels, "stage_a_merge", lambda seg, q, L, K, *r, **kw: {
+            "form": kernels.merge_plan(p_of(q) * L).form, "P": p_of(q), "L": L,
+            "B": int(q.starts.shape[0])}),
+        (kernels, "stage_b", lambda seg, q, aggs, f, cand, *r, **kw: {
+            "P": p_of(q), "Kd": int(cand.shape[-1]), "B": int(cand.shape[0])}),
+        (kernels, "factors_join", lambda seg, starts, lens, cand, *r, **kw: {
+            "P": int(starts.shape[-1]), "Kd": int(cand.shape[-1])}),
+        (kernels, "signals_q16", lambda seg, a, f, cand, *r, **kw: {
+            "P": int(a.P), "K": int(cand.shape[-1]), "B": int(cand.shape[0])})]
+    entries = [
+        (O, "score_candidates_batch", lambda seg, qs, L, K, *r, **kw: {"P": p_of(qs), "L": L}),
+        (O, "score_driver_batch_with_signals", lambda seg, qs, f, d, *r, **kw: {
+            "P": p_of(qs), "Kd": int(d.shape[-1])}),
+        (O, "score_driver_batch", lambda seg, qs, f, d, *r, **kw: {
+            "P": p_of(qs), "Kd": int(d.shape[-1])}),
+        (O, "compute_signals_from_factors_batch_q16", lambda seg, qs, a, f, c: {
+            "P": p_of(qs), "K": int(c.shape[-1])})]
+    return launches, entries
+
+
+@contextlib.contextmanager
+def shard_paths():
+    """Record the shard's path of each (query, segment) while the block runs
+    (InvertedIndex._driver_docs: "driver Kd=<candidates>" or "scan")."""
+    from stract_tpu_torch.index.inverted import InvertedIndex
+
+    real, got = InvertedIndex.__dict__["_driver_docs"], []
+
+    def driver_docs(seg, q):
+        docs = real.__func__(seg, q)
+        got.append("scan" if docs is None else f"driver Kd={len(docs)}")
+        return docs
+
+    InvertedIndex._driver_docs = staticmethod(driver_docs)
+    try:
+        yield got
+    finally:
+        InvertedIndex._driver_docs = real
+
+
+def optic_phase(searcher, config: str, expect, card: str) -> dict:
+    """The optic bodies served over HTTP (counts reset before, read after:
+    every request answered, every kernel of `expect` launched; the host
+    factor join timed); then each body's first page of 10 searched alone with
+    K1's and K13's tables recorded, against the same search through the plain
+    versions (page_match), and the filters held: every document of an O1
+    page on site7.com, none of an O2 or O3 page on a site they discard.
+    O3's head-term query must reach OPTIC_GATE[config]. → record."""
+    from urllib.parse import urlparse
+
+    from stract_tpu_torch.optics import Optic
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    t0 = time.perf_counter()
+    bodies = optic_bodies()
+    with join_timer() as jt:
+        served = serve_phase(searcher, expect, bodies=bodies)
+    firsts = [{**b, "numResults": 10} for b in bodies if "page" not in b]
+    launches, entries = scoring_targets()
+    kern, calls, plain, plain_calls = [], [], [], []
+    for body in firsts:  # warm: the HTTP round served the same body
+        with shard_paths() as paths, timed_calls(launches) as got:
+            kern.append(searcher.search(SearchQuery.from_json(body)).to_json()["webpages"])
+        calls.append({"paths": paths, **got})
+    with plain_versions():
+        for body in firsts:
+            with timed_calls(entries) as got:
+                plain.append(searcher.search(SearchQuery.from_json(body)).to_json()["webpages"])
+            plain_calls.append(got)
+    names = {src: name for name, src in OPTICS.items()}
+    discarded = {"O2": Optic.parse(OPTICS["O2"]), "O3": Optic.parse(OPTICS["O3"])}
+    err, rows = 0.0, []
+    for body, wk, wp, got, pgot in zip(firsts, kern, plain, calls, plain_calls):
+        err = max(err, page_match(wk, wp))
+        name = names[body["optic"]]
+        sites = [urlparse(w["url"]).netloc for w in wk]
+        if name == "O1" and any(site != "site7.com" for site in sites):
+            raise AssertionError(f"O1: a page holds other sites than site7.com: {sites}")
+        if name in discarded and any(r.matches({"site": site})
+                                     for r in discarded[name].rules for site in sites):
+            raise AssertionError(f"{name}: a page holds a discarded site: {sites}")
+        rows.append({"optic": name, "query": body["query"], "webpages": len(wk),
+                     "path": ",".join(got.pop("paths")), "launches": got, "plain": pgot})
+    if not any(r["webpages"] for r in rows):
+        raise AssertionError("the optic pages are all empty")
+    gate = OPTIC_GATE.get(config)
+    if gate is not None:
+        kernel, least = gate
+        o3 = [r for r in rows if r["optic"] == "O3" and r["path"] == "scan"]
+        key = "T" if kernel == "stage_a" else "P"
+        reached = [t[key] for r in o3 for t in r["launches"].get(kernel, [])
+                   if kernel != "stage_a" or t["form"] == "global"]
+        if not reached or max(reached) < least:
+            raise AssertionError(f"{config}: O3's scan-path query did not reach {kernel} "
+                                 f"at {key} >= {least}: {o3}")
+    rec = {"config": config, "requests": served["requests"], "failed": served["failed"],
+           "qps": served["qps"], "p50_ms": served["p50_ms"], "p99_ms": served["p99_ms"],
+           "host_join_calls": jt["calls"], "host_join_s": jt["seconds"],
+           "launches": {k: v for k, v in served["launches"].items() if v},
+           "top10_max_score_diff": err, "pages": rows, "seconds": time.perf_counter() - t0}
+    for r in rows:
+        log(f"[optics {config}] {r['optic']} {r['query']!r}: {r['path']} path, "
+            f"{r['webpages']} webpages; launches {json.dumps(r['launches'])}; plain versions "
+            f"{json.dumps(r['plain'])} card={card}")
+    log(f"[result optics {config}] requests={rec['requests']} failed={rec['failed']} "
+        f"qps={rec['qps']:.2f} p50_ms={rec['p50_ms']:.1f} p99_ms={rec['p99_ms']:.1f} "
+        f"host_join_calls={jt['calls']} host_join_s={jt['seconds']:.3f} "
+        f"top10_max_score_diff_vs_plain={err:.3g} launches={json.dumps(rec['launches'])} "
+        f"seconds={rec['seconds']:.1f} card={card}")
+    return rec
+
+
+def linear_phase(index, card: str) -> dict:
+    """The shard's linear model as `search_server.run` serves it: a
+    LinearRegression with seeded weights over LINEAR_SIGNALS (its JSON read
+    back) in a SearchService; one search_block_batch of the compare queries
+    with the counts reset before and read after (K3, pass 2 at search time,
+    must launch; every query's candidates carry their rows), then the
+    top-10 pages of the coordinator over that shard against the plain
+    versions (page_match). → record."""
+    import numpy as np
+
+    from stract_tpu_torch.entrypoint.search_server import SearchService
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ranking.models.linear import LinearRegression
+    from stract_tpu_torch.searcher.api import ApiSearcher
+    from stract_tpu_torch.searcher.distributed import LocalShardedSearcher
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    t0 = time.perf_counter()
+    w = np.random.default_rng(SEED + 5).normal(size=len(LINEAR_SIGNALS))
+    model = LinearRegression.from_json(LinearRegression(
+        dict(zip(LINEAR_SIGNALS, w.tolist())), intercept=0.25).to_json())
+    svc = SearchService(index, linear_model=model, batching=False, mesh=None)
+    bodies = compare_bodies()
+    kernels.reset_launches()
+    res = svc.search_block_batch({"queries": [SearchQuery.from_json(b).to_json()
+                                              for b in bodies]})
+    launches = dict(kernels.LAUNCHES)
+    if launches["signals_q16"] == 0 or launches["stage_b"] == 0:
+        raise AssertionError(f"the linear model's round launched no pass 2: {launches}")
+    if any(r["block"]["signals"] is None for r in res if len(r["block"]["doc"])):
+        raise AssertionError("a candidate block came without its signal rows")
+    api = ApiSearcher(LocalShardedSearcher([svc.searcher]))
+    kern = [api.search(SearchQuery.from_json({**b, "numResults": 10})).to_json()["webpages"]
+            for b in bodies]
+    with plain_versions():
+        plain = [api.search(SearchQuery.from_json({**b, "numResults": 10})).to_json()[
+            "webpages"] for b in bodies]
+    err = max(page_match(wk, wp) for wk, wp in zip(kern, plain))
+    rec = {"weights": model.weights, "queries": len(bodies),
+           "candidates": sum(len(r["block"]["doc"]) for r in res),
+           "webpages": sum(len(p) for p in kern), "top10_max_score_diff_vs_plain": err,
+           "launches": {k: v for k, v in launches.items() if v},
+           "seconds": time.perf_counter() - t0}
+    log(f"[result linear] {json.dumps(rec)} card={card}")
+    return rec
+
+
+def side_phase(searcher, card: str) -> dict:
+    """The page's side answers over HTTP, once each, on the default index:
+    the widget, a spell correction (a checker trained here from a seeded
+    text, as tests/test_product_surface.py trains one), autosuggest, and the
+    sidebar (the StackOverflow optic search: the corpus holds no QAPage, so
+    it answers null). → {route: answer}."""
+    import numpy as np
+
+    from stract_tpu_torch.api.server import build_app
+    from stract_tpu_torch.autosuggest import Autosuggest
+    from stract_tpu_torch.main import ServerThread
+    from stract_tpu_torch.searcher.api import ApiSearcher
+    from stract_tpu_torch.spell import SpellChecker, StupidBackoff, TermFreqs
+    from stract_tpu_torch.widgets import WidgetManager
+
+    rng = np.random.default_rng(SEED + 6)
+    words = ["rust", "programming", "language", "python", "search", "engine", "fast"]
+    text = " . ".join(" ".join(rng.choice(words, 6)) for _ in range(200))
+    freqs, lm = TermFreqs(), StupidBackoff()
+    freqs.observe_text(text)
+    lm.observe_text(text)
+    api = ApiSearcher(searcher.searcher, searcher.pipeline, spell_checker=SpellChecker(freqs, lm),
+                      widget_manager=WidgetManager())
+    suggest = Autosuggest.from_queries(["rust programming", "rust language", "python search"])
+    server = ServerThread(build_app(api, autosuggest=suggest, max_concurrency=4))
+    out = {}
+    try:
+        for path, body in (("/beta/api/search/widget", {"query": "12 * (3 + 4)"}),
+                           ("/beta/api/search/spellcheck", {"query": "rust programing langage"}),
+                           ("/beta/api/autosuggest", {"q": "rust"}),
+                           ("/beta/api/search/sidebar", {"query": "w1 w6"})):
+            status, data, seconds = post(server.url + path, body)
+            if status != 200:
+                raise AssertionError(f"{path}: {status} {data}")
+            out[path] = {"answer": data, "ms": seconds * 1e3}
+    finally:
+        server.stop()
+    if out["/beta/api/search/widget"]["answer"]["widget"]["result"] != "84":
+        raise AssertionError(f"the widget answered {out['/beta/api/search/widget']}")
+    if out["/beta/api/search/spellcheck"]["answer"]["correction"]["corrected"] != \
+            "rust programming language":
+        raise AssertionError(f"the spell check answered {out['/beta/api/search/spellcheck']}")
+    if [s["raw"] for s in out["/beta/api/autosuggest"]["answer"]] != ["rust language",
+                                                                      "rust programming"]:
+        raise AssertionError(f"autosuggest answered {out['/beta/api/autosuggest']}")
+    if out["/beta/api/search/sidebar"]["answer"] != {"sidebar": None}:
+        raise AssertionError(f"the sidebar answered {out['/beta/api/search/sidebar']}")
+    log(f"[result side answers] {json.dumps(out)} card={card}")
+    return out
+
+
 def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
     """Each configuration of CONFIGS: built through build_searcher, served one
     round of the request mix over HTTP (pipeline off) with the host join
@@ -1210,6 +1527,8 @@ def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
             rec["vs_plain"] = compare_phase(searcher)
             log(f"[config merge] top-10 kernels vs plain versions: {json.dumps(rec['vs_plain'])} "
                 f"card={card}")
+        if name in OPTIC_GATE:  # the optic bodies in this configuration's round
+            rec["optics"] = optic_phase(searcher, name, expect, card)
         out[name] = rec
         del searcher, index, rows
         torch.cuda.empty_cache()
@@ -3798,6 +4117,9 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     default_pages = in_phase("compare off", top10_pages, searcher)
     cmp = in_phase("compare off", compare_phase, searcher)
     log(f"[compare off] top-10 kernels vs plain versions: {json.dumps(cmp)}")
+    in_phase("optics", optic_phase, searcher, "default", SCORING, card)
+    in_phase("linear", linear_phase, index, card)
+    in_phase("side answers", side_phase, searcher, card)
     log(f"[result off] docs={DOCS} qps={served_off['qps']:.2f} "
         f"p50_ms={served_off['p50_ms']:.1f} p99_ms={served_off['p99_ms']:.1f} "
         f"device_mem_peak_MiB={torch.cuda.max_memory_allocated() / 2**20:.0f} card={card}")

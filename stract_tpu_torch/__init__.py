@@ -27,9 +27,15 @@ Layout mirrors stract_tpu/:
                      embedding-column writer
   ranking/, query/   slot planning, cross encoder, LambdaMART, query parser
                      and planner
-  searcher/, api/    local shard, coordinator, batcher, HTTP route
+  searcher/, api/    local shard, coordinator, batcher, HTTP routes (search
+                     and the side answers)
+  optics/            the optics DSL; compile_groups lowers an optic into
+                     constraint groups of the device plan
+  spell/, widgets/,  spell correction and its trainer, the calculator and
+  autosuggest.py     thesaurus widgets, query autosuggest
   bench_corpus.py    synthetic corpus writer and query generator
-  main.py            `serve`, `train-encoders` and `centrality`
+  main.py            `serve`, `train-encoders`, `centrality`, `search-server`,
+                     `api` and `web-spell`
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """TOML config structs — the part of stract_tpu/config/__init__.py the
 port's command line reads (role of reference crates/core/src/config/,
-main.rs:267-275 load_toml_config): the coordinator's, the search shard's and
-the centrality job's configs, read from the same TOML files
-(configs/api.toml, configs/search_server.toml, configs/centrality.toml)."""
+main.rs:267-275 load_toml_config): the coordinator's, the search shard's,
+the centrality job's and the spell trainer's configs, read from the same
+TOML files (configs/api.toml, configs/search_server.toml,
+configs/centrality.toml, a web-spell TOML: index_path, output_path)."""
 
 from __future__ import annotations
 
@@ -78,8 +79,14 @@ class CentralityConfig:
     discount_factor: float = 0.85
 
 
+@dataclass
+class WebSpellConfig:
+    index_path: str = "data/index"
+    output_path: str = "data/web_spell"
+
+
 CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
-                "centrality": CentralityConfig}
+                "centrality": CentralityConfig, "web-spell": WebSpellConfig}
 
 
 def load_config(kind: str, path: str):

@@ -221,14 +221,19 @@ def run(index_path: str, shard_id: int, host: str = "127.0.0.1", port: int = 0,
         gossip_addr=("127.0.0.1", 0), gossip_seeds=(), linear_model_path: str = "",
         mesh="auto", device="cuda"):
     """Start a search shard on `device`: the RPC server and its gossip
-    membership → (server, cluster)."""
-    if linear_model_path:
-        raise NotImplementedError("the shard's linear model is not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
+    membership → (server, cluster). A linear_model_path (LinearRegression
+    JSON, either package's) adds the model's predictions to the shard's
+    scores."""
     index = InvertedIndex(index_path, device)
     for seg in index.segments:
         index.device_segment_for(seg)  # upload before the first request
-    service = SearchService(index, shard_id=shard_id, mesh=mesh)
+    linear_model = None
+    if linear_model_path:
+        from ..ranking.models.linear import LinearRegression
+
+        with open(linear_model_path) as f:
+            linear_model = LinearRegression.from_json(f.read())
+    service = SearchService(index, shard_id=shard_id, linear_model=linear_model, mesh=mesh)
     server = serve_in_thread(service, host, port)
     cluster = Cluster.join(
         Service("search-server", host=server.addr, shard=shard_id),

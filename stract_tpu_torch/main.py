@@ -10,6 +10,7 @@
         {harmonic,approx-harmonic,harmonic-nearest-seed} CONFIG [--device cuda]
     python -m stract_tpu_torch.main search-server CONFIG [--device cuda]
     python -m stract_tpu_torch.main api CONFIG [--device cuda]
+    python -m stract_tpu_torch.main web-spell CONFIG
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -52,6 +53,12 @@ segments one per card (parallel/search.py). The api role joins gossip, fans
 each search out to the shards it finds and serves the search route over
 HTTP (entrypoint/api.py). Both speak the JAX package's wire forms, so the
 roles of the two packages mix. --device cpu runs the plain versions.
+
+`web-spell` is the JAX package's subcommand of the same name: CONFIG is a
+WebSpellConfig TOML (index_path, output_path). It reads the stored docs of
+an index directory of either package on the host (no device work) and
+writes the term frequencies, the language model and the error model that
+the coordinator's spell_path loads.
 """
 
 from __future__ import annotations
@@ -195,6 +202,8 @@ def main(argv=None):
     cp.add_argument("mode", choices=["harmonic", "approx-harmonic", "harmonic-nearest-seed"])
     cp.add_argument("config")
     cp.add_argument("--device", default="cuda", help="cuda or cpu")
+    wp = sub.add_parser("web-spell", help="train spell-correction models from an index")
+    wp.add_argument("config")
     for role, what in (("search-server", "a search shard over sonic RPC, announced by gossip"),
                        ("api", "the coordinator: gossip, shard fan-out, HTTP search API")):
         rp = sub.add_parser(role, help=what)
@@ -225,6 +234,17 @@ def main(argv=None):
 
     if args.role == "centrality":
         run_centrality(args.mode, args.config, args.device)
+        return
+
+    if args.role == "web-spell":
+        from .config import load_config
+        from .index.inverted import InvertedIndex
+        from .spell.trainer import train_from_index
+
+        cfg = load_config("web-spell", args.config)
+        # the stored docs are read on the host: the index is never uploaded
+        train_from_index(InvertedIndex(cfg.index_path, "cpu"), cfg.output_path)
+        print(f"spell models → {cfg.output_path}")
         return
 
     if args.role == "train-encoders":

@@ -1,6 +1,6 @@
 """Query — parsed query + planning into term groups (the port of
 stract_tpu/query/query.py; role of reference query/mod.rs:77 Query::parse:
-term→field expansion + boolean plan; optics are not ported yet).
+term→field expansion + boolean plan + optics).
 
 Maps the term AST (parser.py) onto ranking/computer.py TermGroups:
   SIMPLE    → required group over the default field expansion
@@ -43,6 +43,9 @@ class Query:
     coefficients: dict = field(default_factory=dict)
     selected_region: int = 0
     current_ts: float = 0.0
+    host_rankings: object = None  # optics HostRankings (liked/disliked/blocked)
+    optic: object = None
+    optic_residual: object = None  # host post-filter part after device compilation
 
     @classmethod
     def parse(
@@ -51,6 +54,7 @@ class Query:
         coefficients: dict | None = None,
         selected_region: int = 0,
         current_ts: float = 0.0,
+        optic=None,
     ) -> "Query":
         q = cls(
             raw=raw,
@@ -58,9 +62,18 @@ class Query:
             coefficients=dict(coefficients or {}),
             selected_region=selected_region,
             current_ts=current_ts,
+            optic=optic,
         )
         for t in q.terms:
             q._plan_term(t)
+        if optic is not None:
+            q.coefficients = {**optic.coefficients(), **q.coefficients}
+            q.host_rankings = optic.host_rankings
+            # compile site/url/domain constraints into the device candidate
+            # plan (reference query/optic.rs); prepended so the MAX_GROUPS
+            # truncation never drops a filter before a scoring term
+            optic_groups, q.optic_residual = optic.compile_groups()
+            q.groups = optic_groups + q.groups
         return q
 
     def _plan_term(self, t: Term, excluded: bool = False) -> None:

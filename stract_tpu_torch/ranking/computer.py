@@ -64,6 +64,33 @@ class TermGroup:
     scoring: bool = True    # contributes text-signal scores
 
 
+class OpticConstraintGroup(TermGroup):
+    """Constraint group lowering optic patterns into the DEVICE candidate plan
+    (role of reference query/optic.rs compiling optic rules into the tantivy
+    boolean query, query/optic.rs:1-200). Slots are explicit (field, value)
+    pairs, plus wildcard site/domain patterns expanded against each segment's
+    distinct-value dictionary at slot-build time (PatternQuery role). The group
+    matches a doc if ANY slot matches — so one excluded group carries every
+    discard/blocked pattern and one required group carries DiscardNonMatching
+    membership."""
+
+    MAX_EXPANSIONS = 256  # wildcard safety cap (host residual still re-filters)
+
+    def __init__(self, pairs=(), patterns=(), required: bool = True, excluded: bool = False):
+        super().__init__(text="", fields=[], required=required, excluded=excluded, scoring=False)
+        self.pairs = list(pairs)
+        # patterns: [(dict_name 'site'|'domain', field_name, Matching)]
+        self.patterns = list(patterns)
+
+    def expand(self, segment) -> list:
+        out = list(self.pairs)
+        for dict_name, fname, matching in self.patterns:
+            values = segment.value_dict(dict_name)
+            hits = [v for v in values if matching.matches(v)]
+            out.extend((fname, v) for v in hits[: self.MAX_EXPANSIONS])
+        return out
+
+
 @dataclass
 class QueryContext:
     """Parsed-query inputs to slot construction."""

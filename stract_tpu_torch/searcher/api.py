@@ -1,10 +1,19 @@
 """ApiSearcher — the coordinator's search flow (the port of
 stract_tpu/searcher/api.py: bangs, batched shard fan-out, cross-shard merge,
-recall stage, page signals, retrieve + snippets, precision stage). The ranking
-pipeline is this package's copy of the JAX package's host code; it takes
-the port's models duck-typed (dual encoder `embed`, cross encoder
-`score_pairs`, forest `predict`). Without models its stages are the linear
-rescoring and the slop signals."""
+the optics residual, recall stage, page signals, retrieve + snippets,
+precision stage) and the page's side answers (spell correction, widgets,
+the sidebar). The ranking pipeline is this package's copy of the JAX
+package's host code; it takes the port's models duck-typed (dual encoder
+`embed`, cross encoder `score_pairs`, forest `predict`). Without models its
+stages are the linear rescoring and the slop signals.
+
+An optic's Site, Domain and Url rules reach the shards as constraint groups
+of their device plans (Query.parse → Optic.compile_groups); what is left,
+the residual (boosts, content and schema patterns, discards that do not
+compile), runs here after the merge, over the candidates' retrieved fields.
+The sidebar is the StackOverflow optic search, through the same block path
+and residual; the entity sidebar comes with the entity slice (ROADMAP queue 1
+item 3b)."""
 
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import numpy as np
 from ..bangs import Bangs
 from ..ranking import signals as S
 from ..ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS, RankingPipeline
-from ..ranking.pipeline.block import merge_blocks
+from ..ranking.pipeline.block import CandidateBlock, merge_blocks
 
 from ..query.query import Query
 from .query import SearchQuery
@@ -53,10 +62,12 @@ class BangResult:
 
 class ApiSearcher:
     def __init__(self, distributed_searcher, pipeline: RankingPipeline | None = None,
-                 bangs: Bangs | None = None):
+                 bangs: Bangs | None = None, spell_checker=None, widget_manager=None):
         self.searcher = distributed_searcher
         self.pipeline = pipeline or RankingPipeline()
         self.bangs = bangs or Bangs.builtin()
+        self.spell_checker = spell_checker
+        self.widgets = widget_manager
 
     def search(self, sq: SearchQuery):
         return self.search_many([sq])[0]
@@ -93,15 +104,14 @@ class ApiSearcher:
         return sqs, results, live, parsed, shard_res, t0, qemb_fetch
 
     def search_phase2(self, state) -> list:
-        """Host tail: merge → recall (with the prefetched query embeddings)
-        → page cut → one batched page-signal materialisation →
-        retrieve/snippets → precision."""
+        """Host tail: merge → optics residual → recall (with the prefetched
+        query embeddings) → page cut → one batched page-signal
+        materialisation → retrieve/snippets → precision."""
         sqs, results, live, parsed, shard_res, t0, qemb_fetch = state
         merged_items = []
         for j, i in enumerate(live):
-            block, count = shard_res[j]
-            merged = merge_blocks([block], NUM_PIPELINE_RANKING_RESULTS)
-            merged_items.append((i, parsed[j].context(), merged, count))
+            ctx, merged, count = self._merge_block(sqs[i], parsed[j], *shard_res[j])
+            merged_items.append((i, ctx, merged, count))
 
         if self.pipeline.recall.has_scorers:
             self._ensure_blocks([(sqs[i], merged) for i, _, merged, _ in merged_items])
@@ -134,6 +144,106 @@ class ApiSearcher:
             res.search_duration_ms = (time.perf_counter() - t0) * 1000
             results[i] = res
         return results
+
+    def _merge_block(self, sq: SearchQuery, q: Query, block, count):
+        """Array-carried merge → optics residual. Signals may still be lazy:
+        the recall and page stages materialise them, batched across
+        queries."""
+        merged = merge_blocks([block], NUM_PIPELINE_RANKING_RESULTS)
+        residual = self._residual(sq)
+        if residual is not None:  # it reads retrieved fields: a bridge to objects
+            cands = merged.to_candidates()
+            self.searcher.retrieve(sq, [c for c in cands if c.retrieved is None])
+            kept = residual.apply(cands, self._optic_fields)
+            mb = CandidateBlock.from_candidates(kept)
+            mb.ctxs, mb.seg_names = merged.ctxs, merged.seg_names
+            # the page cut re-materialises these rows: keep the retrieved docs
+            # so their snippets are not generated twice
+            mb.retrieved_map = {
+                (int(c.shard), int(c.pointer.segment), int(c.pointer.doc)): c.retrieved
+                for c in kept if c.retrieved is not None}
+            merged = mb
+        return q.context(), merged, count
+
+    @staticmethod
+    def _residual(sq: SearchQuery):
+        """The part of the request's optic that the shards' device plans do
+        not hold (Optic.compile_groups), or None where there is none."""
+        if not sq.optic:
+            return None
+        from ..optics import Optic
+
+        _, residual = Optic.parse(sq.optic).compile_groups()
+        if residual.rules or residual.host_rankings.blocked or residual.discard_non_matching:
+            return residual
+        return None
+
+    def spell_correction(self, query: str):
+        if self.spell_checker is None:
+            return None
+        return self.spell_checker.correct(query)
+
+    def widget(self, query: str):
+        if self.widgets is None:
+            return None
+        return self.widgets.widget(query)
+
+    # reference searcher/api/stackoverflow.optic + sidebar.rs:109-157
+    SO_SIDEBAR_OPTIC = (
+        "DiscardNonMatching;\n"
+        'Rule { Matches { Domain("stackoverflow.com"), Schema("QAPage"), '
+        'Schema("acceptedAnswer") } }'
+    )
+    # the gate is on a [0, 1] relevance, the fraction of the query's terms in
+    # the result's title (the fused score sits far above 1 for any weak match)
+    SO_SIDEBAR_THRESHOLD = 0.5
+
+    def sidebar_for(self, query: str):
+        """The StackOverflow accepted-answer sidebar (reference
+        sidebar.rs:158-173, without its entity sidebar)."""
+        return self.stackoverflow_sidebar(query)
+
+    def stackoverflow_sidebar(self, query: str):
+        """Search with the stackoverflow optic; its top result above the
+        threshold → {type, title, answer} from its QAPage schema
+        (sidebar.rs:109), else None."""
+        import json
+
+        from ..prettifier import _answer, _many, _one
+
+        try:
+            sq = SearchQuery(query=query, num_results=1, optic=self.SO_SIDEBAR_OPTIC)
+            block, count = self.searcher.search_blocks_many([sq])[0]
+            # the optic's Schema(...) matchers are residual host filters
+            _, merged, _ = self._merge_block(sq, Query.parse(query), block, count)
+        except Exception:  # noqa: BLE001 — a sidebar never fails a search
+            return None
+        if len(merged) == 0:
+            return None
+        top_block = merged.take(slice(0, 1))
+        self._ensure_blocks([(sq, top_block)])
+        top = top_block.to_candidates()[0]
+        title_cov = float(top.signals[S.TITLE_COVERAGE.id]) if top.signals is not None else 0.0
+        if title_cov < self.SO_SIDEBAR_THRESHOLD:
+            return None
+        if top.retrieved is None:
+            self.searcher.retrieve(sq, [top])
+        raw = (top.retrieved or {}).get("stored", {}).get("schema_org_json", "")
+        try:
+            items = json.loads(raw) if raw else []
+        except ValueError:
+            return None
+        qa = next((it for it in items
+                   if isinstance(it, dict) and "QAPage" in _many(it.get("@type"))), None)
+        question = _one(qa.get("mainEntity")) if qa else None
+        if not isinstance(question, dict):
+            return None
+        title = _one(question.get("name"))
+        acc = _one(question.get("acceptedAnswer"))
+        answer = _answer(acc, accepted=True) if acc is not None else None
+        if not title or answer is None:
+            return None
+        return {"type": "stackOverflow", "title": str(title), "answer": answer}
 
     def _ensure_blocks(self, items: list) -> None:
         """Lazy signal rows of blocks, batched across the request batch.
@@ -180,3 +290,19 @@ class ApiSearcher:
             webpages.append(w)
         return WebsitesResult(webpages=webpages, num_hits=count.to_json(),
                               has_more_results=has_more)
+
+    @staticmethod
+    def _optic_fields(c) -> dict:
+        """A retrieved candidate's fields by optic match location."""
+        d = c.retrieved or {}
+        stored = d.get("stored", {})
+        return {
+            "site": d.get("site", ""),
+            "url": d.get("url", ""),
+            "domain": d.get("domain", ""),
+            "title": d.get("title", ""),
+            "description": d.get("description", ""),
+            "content": stored.get("clean_text", d.get("snippet", "")),
+            "schema": stored.get("schema_org_json", "") or d.get("schema_org_json", ""),
+            "microformattag": "",
+        }

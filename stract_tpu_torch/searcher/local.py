@@ -8,8 +8,13 @@ mesh merge) → phrase filter → pass 2 (the signal rows; skipped in lazy mode,
 where the coordinator materialises the final page's rows) → host column /
 embedding gathers → one array-carried CandidateBlock per query.
 
-The linear model of the JAX package's shard servers (linear_model_path) is
-not ported: ROADMAP queue 1 item 3.
+A request's optic (SearchQuery.optic, host_rankings) is parsed into the
+query: Optic.compile_groups lowers its Site, Domain and Url rules and its
+blocked hosts into constraint groups of the device plan, so stages A and B
+and pass 2 take them as posting slots; the residual runs at the
+coordinator. A linear model (the shard servers' linear_model_path) turns
+lazy mode off, so pass 2 runs over every query's candidates at search
+time, and adds predict(signal rows) to each candidate's score.
 """
 
 from __future__ import annotations
@@ -35,12 +40,9 @@ DEDUP_COLUMNS = [
 class LocalSearcher:
     def __init__(self, index: InvertedIndex, shard_id: int = 0, linear_model=None,
                  batcher=None, lazy_signals: bool = True, mesh=None):
-        if linear_model is not None:
-            raise NotImplementedError("the shard's linear model is not ported yet "
-                                      "(ROADMAP queue 1 item 3)")
         self.index = index
         self.shard_id = shard_id
-        self.linear_model = None  # read by the shard flow, as the JAX package's
+        self.linear_model = linear_model
         self.batcher = batcher  # searcher/batcher.py QueryBatcher (shard servers)
         # with a mesh of more than one entry the index's segments are spread one
         # per entry and pass 1 runs the sharded two-stage program
@@ -53,20 +55,23 @@ class LocalSearcher:
         # materialises the final page's (materialize_signals). Shard servers
         # build with lazy_signals=False: their candidates cross sonic with
         # their rows, and one batched pass 2 here is cheaper than a pass per
-        # query later.
-        self.lazy_signals = lazy_signals
+        # query later. A linear model reads every candidate's rows.
+        self.lazy_signals = lazy_signals and linear_model is None
 
     def parse_query(self, sq: SearchQuery) -> Query:
-        if sq.optic or sq.host_rankings is not None:
-            # Optic.compile_groups builds the JAX package's constraint groups
-            # (it imports stract_tpu.ranking.computer): a later slice
-            raise NotImplementedError("optics are not ported yet")
+        optic = None
+        if sq.optic:
+            from ..optics import Optic
+
+            optic = Optic.parse(sq.optic)
         q = Query.parse(sq.query, coefficients=sq.signal_coefficients,
-                        selected_region=sq.selected_region)
+                        selected_region=sq.selected_region, optic=optic)
         if sq.safe_search:
             q.groups.append(
                 TermGroup("nsfw", ["safety_classification"], required=False, excluded=True,
                           scoring=False))
+        if sq.host_rankings is not None:
+            q.host_rankings = sq.host_rankings
         return q
 
     def search_initial(self, sq: SearchQuery, max_candidates: int = NUM_PIPELINE_RANKING_RESULTS):
@@ -148,11 +153,14 @@ class LocalSearcher:
             n = len(docs_a)
             sl = slice(off, off + n)
             off += n
+            scores = scores_a.astype(np.float32, copy=False)
+            if self.linear_model is not None and n:
+                scores = scores + np.asarray(self.linear_model.predict(sig), dtype=np.float32)
             block = CandidateBlock(
                 shard=np.full(n, self.shard_id, dtype=np.int32),
                 segment=segs_a.astype(np.int32, copy=False),
                 doc=docs_a.astype(np.int64, copy=False),
-                score=scores_a.astype(np.float32, copy=False),
+                score=scores,
                 dedup={name: cols[name][sl] for name in DEDUP_COLUMNS},
                 host_id=cols["host_node_id"][sl],
                 signals=sig,

@@ -238,22 +238,63 @@ def test_closed_coordinator_client_lets_a_shard_stop():
             srv.stop()
 
 
-def test_unported_options_raise(index_dir):
-    """The coordinator's options that are not ported, and the shard's linear
-    model, raise NotImplementedError naming their ROADMAP item; the roles
-    default to the card, which raises without one."""
+def test_unported_options_raise(index_dir, tmp_path):
+    """The coordinator's options that are not ported (the entity index, the
+    page graph, the entity image store, the improvement log), each alone,
+    and configs/api.toml, which sets the entity index, raise
+    NotImplementedError naming their ROADMAP item. A config with the ported
+    spell_path, autosuggest_path and host_graph_path builds on the CPU, as
+    does a shard with a linear_model_path (its parity is
+    tests/test_torch_optics.py's). The roles default to the card, which
+    raises without one."""
     import inspect
 
+    from stract_tpu_torch.autosuggest import Autosuggest
     from stract_tpu_torch.config import ApiConfig, load_config
+    from stract_tpu_torch.distributed.sonic import RemoteClient
     from stract_tpu_torch.entrypoint import api as api_role
     from stract_tpu_torch.entrypoint import search_server
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.ranking.models.linear import LinearRegression
+    from stract_tpu_torch.spell.trainer import train_from_index
+    from stract_tpu_torch.webgraph.store import write_graph
 
-    for path in ("configs/api.toml",):
-        cfg = load_config("api", os.path.join(REPO, path))
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            api_role.build_coordinator(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        search_server.run(index_dir, 0, linear_model_path="model.json", device="cpu")
+    for name in ("entity_index_path", "page_graph_path", "entity_image_store_path",
+                 "improvement_log_path"):
+        with pytest.raises(NotImplementedError, match=f"{name}.*queue 1 item 3b"):
+            api_role.build_coordinator(ApiConfig(**{name: "x"}), device="cpu")
+    cfg = load_config("api", os.path.join(REPO, "configs/api.toml"))
+    with pytest.raises(NotImplementedError, match="^entity_index_path: .*queue 1 item 3b"):
+        api_role.build_coordinator(cfg, device="cpu")
+
+    train_from_index(InvertedIndex(index_dir, "cpu"), str(tmp_path / "spell"))
+    Autosuggest.from_queries(["w1 w2", "w1 w3"]).save(str(tmp_path / "suggest.bin"))
+    write_graph(str(tmp_path / "hosts"), ["a.com", "b.com", "c.com"], np.array([0, 0, 1]),
+                np.array([1, 2, 2]), host_graph=True)
+    cfg = ApiConfig(spell_path=str(tmp_path / "spell"), autosuggest_path=str(tmp_path /
+                                                                             "suggest.bin"),
+                    host_graph_path=str(tmp_path / "hosts"), max_concurrency=2)
+    api, cluster = api_role.build_coordinator(cfg, device="cpu")
+    try:
+        assert api.spell_checker is not None and api.widget("2+3")["result"] == "5"
+        assert [h for h, _ in api.pipeline.recall.inbound.similar_hosts(["c.com"], 5)] == \
+            ["b.com"]
+        assert api_role.coordinator_app(cfg, api) is not None
+    finally:
+        cluster.shutdown()
+
+    model = tmp_path / "linear.json"
+    model.write_text(LinearRegression({"host_centrality": 2.0}, 0.5).to_json())
+    server, cluster = search_server.run(index_dir, 0, linear_model_path=str(model),
+                                        device="cpu", mesh=None)
+    try:
+        client = RemoteClient(server.addr, timeout=RPC_TIMEOUT)
+        res = client.send("search", {"query": "w1 w2"})
+        client.close()
+        assert res["candidates"] and all(c["signals"] is not None for c in res["candidates"])
+    finally:
+        server.stop()
+        cluster.shutdown()
     for fn in (api_role.run, api_role.build_coordinator, search_server.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():

@@ -1069,6 +1069,48 @@ def test_stage_a_kernel_in_every_table_form(form, row_layout, ub):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,P", [(524_288, 256), (1_048_576, 512)])
+def test_stage_a_global_form_past_the_shared_keys(T, P):
+    """K1's global form at tables past the 262,144 slots whose keys fit a
+    block's shared memory (the keys then stay in the global table), in an
+    optic's plan: two required terms, scoring slots and an excluded group of
+    zero-weight slots, P full slots of 1,024 rows a query (E = P*L), soft
+    required as the index calls it. Against the plain version in f64 at C =
+    4,096; two calls bit-equal."""
+    dev = _card()
+    rng = np.random.default_rng(P)
+    seg, starts, dfs, impact, L = _long_fixture()
+    qs, _ = query_batch(rng, seg, starts, dfs, impact, B=4, P=P)
+    terms = rng.integers(0, len(dfs), (4, P))
+    slot = np.arange(P)
+    group = np.where(slot < 2, slot, np.where(slot < P // 2, OT.OPTIONAL_GROUP,
+                                              OT.EXCLUDED_GROUP)).astype(np.int32)
+    scoring = (group != OT.EXCLUDED_GROUP)[None]
+    zero = lambda w: np.where(scoring, w, 0).astype(np.float32)  # noqa: E731
+    qs = qs._replace(starts=starts[terms].astype(np.int32), lens=dfs[terms].astype(np.int32),
+                     group=group[None].repeat(4, 0), n_required=np.full(4, 2, np.int32),
+                     w_bm25=zero(qs.w_bm25), w_bm25f=zero(qs.w_bm25f),
+                     w_presence=zero(qs.w_presence))
+    C = 4096
+    (rows, plan), = kernels.stage_a_launches(OT.stage_a_entries(qs.lens, L), C,
+                                             kernels.card_sms(dev))
+    assert rows is None and plan.form == "global" and plan.slots == T, plan
+    seg_c = segment_arrays_from_numpy(seg, device=dev)
+    n = kernels.LAUNCHES["stage_a"]
+    d_k, s_k = OT.score_candidates_batch(seg_c, qs, L, C, True, True)
+    d_2, s_2 = OT.score_candidates_batch(seg_c, qs, L, C, True, True)
+    assert kernels.LAUNCHES["stage_a"] == n + 2
+    assert torch.equal(s_k.view(torch.int32), s_2.view(torch.int32)) and torch.equal(d_k, d_2)
+    plain = _plain_f64(seg_c, qs, dev, None, None)
+    d_p, s_p = OT.score_candidates_batch_plain(*plain[:2], L, C, True, True, *plain[2:])
+    s_p = s_p.float()
+    assert bool((torch.isfinite(s_k).sum(dim=1) > 0).all())
+    for b in range(4):
+        assert_topk_match(d_p[b].cpu().numpy(), s_p[b].cpu().numpy(), d_k[b].cpu().numpy(),
+                          s_k[b].cpu().numpy(), int(seg.num_docs), 1e-5, 5e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Kd,k", [(1, 1), (300, 200), (1024, 1024), (2048, 512), (4096, 1024)])
 @pytest.mark.parametrize("ks", [0, 64])
 @pytest.mark.parametrize("P", [16, 64])

@@ -350,7 +350,7 @@ def _hll_init(orig, copy, rng):
 
 def _config(orig, copy, rng):
     for kind, name in (("centrality", "centrality.toml"), ("api", "api.toml"),
-                       ("search-server", "search_server.toml")):
+                       ("search-server", "search_server.toml"), ("web-spell", "web_spell.toml")):
         path = os.path.join(REPO, "configs", name)
         a, b = orig.load_config(kind, path), copy.load_config(kind, path)
         assert _fields(a) == _fields(b), kind
@@ -464,6 +464,94 @@ def _executor(orig, copy, rng):
     assert copy.Executor.single_thread().map(str, xs) == orig.Executor.single_thread().map(str, xs)
 
 
+def _optic(orig, copy, rng):
+    src = ('DiscardNonMatching; Rule { Matches { Site("|a.com|") }, Matches { Domain("b*") } };'
+           ' Rule { Matches { Url("*spam*") }, Action(Discard) }; Like(Site("c.org"));')
+    a, b = orig.Optic.parse(src), copy.Optic.parse(src)
+    assert a.to_string() == b.to_string()
+    for m in ("a.com", "b.org", "https://x.io/spam/1", "c.org"):
+        assert [r.matches({"site": m, "domain": m, "url": m}) for r in a.rules] == \
+            [r.matches({"site": m, "domain": m, "url": m}) for r in b.rules]
+    (ga, ra), (gb, rb) = a.compile_groups(), b.compile_groups()
+    assert [(g.required, g.excluded, g.pairs) for g in ga] == \
+        [(g.required, g.excluded, g.pairs) for g in gb]
+    assert ra.to_string() == rb.to_string()
+
+
+def _spell_parts(orig, copy, rng):
+    for mod in (orig, copy):
+        assert mod.__name__.endswith(("term_freqs", "stupid_backoff", "error_model"))
+    if orig.__name__.endswith("error_model"):
+        for a, b in (("teh", "the"), ("fox", "foxes"), ("", "ab")):
+            assert copy.possible_errors(a, b) == orig.possible_errors(a, b)
+        return
+    cls = "TermFreqs" if orig.__name__.endswith("term_freqs") else "StupidBackoff"
+    a, b = getattr(orig, cls)(), getattr(copy, cls)()
+    a.observe_text(TEXT)
+    b.observe_text(TEXT)
+    if cls == "TermFreqs":
+        assert [a.freq(w) for w in ("rust", "fox", "zz")] == [b.freq(w) for w in ("rust", "fox",
+                                                                                   "zz")]
+    else:
+        for ctx in ((), ("rust",), ("the", "quick")):
+            assert a.score("fox", ctx) == b.score("fox", ctx)
+
+
+def _spell_checker(orig, copy, rng):
+    import importlib
+
+    out = []
+    for mod in (orig, copy):
+        pkg = importlib.import_module(mod.__name__.rsplit(".", 1)[0])
+        f, lm = pkg.TermFreqs(), pkg.StupidBackoff()
+        f.observe_text(TEXT * 4)
+        lm.observe_text(TEXT * 4)
+        c = mod.SpellChecker(f, lm).correct("rust programing lnguage fox")
+        out.append(c.to_json() if c else None)
+    assert out[0] == out[1]
+
+
+def _widgets(orig, copy, rng):
+    for q in ("2 + 3 * 4", "sqrt(2)^2", "define happy", "big meaning", "plain words", "1/0"):
+        assert copy.WidgetManager().widget(q) == orig.WidgetManager().widget(q), q
+
+
+def _autosuggest(orig, copy, rng):
+    qs = ["rust lang", "rust lang", "rust book", "python", "Rust Async"]
+    for p in ("ru", "rust l", "p", "x"):
+        assert copy.Autosuggest.from_queries(qs).suggest(p) == \
+            orig.Autosuggest.from_queries(qs).suggest(p)
+
+
+def _linear(orig, copy, rng):
+    import importlib
+
+    sig = importlib.import_module(orig.__name__.replace("models.linear", "signals"))
+    x = rng.random((50, sig.NUM_SIGNALS)).astype(np.float32)
+    y = rng.random(50)
+    a, b = orig.LinearRegression.train(x, y), copy.LinearRegression.train(x, y)
+    assert a.to_json() == b.to_json()
+    np.testing.assert_array_equal(copy.LinearRegression.from_json(a.to_json()).predict(x),
+                                  a.predict(x))
+
+
+def _inbound(orig, copy, rng):
+    import tempfile
+
+    from stract_tpu_torch.webgraph.store import write_graph
+
+    names = [f"h{i}.com" for i in range(12)]
+    src, dst = rng.integers(0, 12, 60), rng.integers(0, 12, 60)
+    with tempfile.TemporaryDirectory() as d:
+        write_graph(d, names, src, dst, host_graph=True)
+        a = orig.InboundSimilarity(importlib.import_module("stract_tpu.webgraph.store").Webgraph(d))
+        b = copy.InboundSimilarity(importlib.import_module(
+            "stract_tpu_torch.webgraph.store").Webgraph(d))
+        for hosts in (["h1.com"], ["h2.com", "h3.com"]):
+            assert a.similar_hosts(hosts, 5) == b.similar_hosts(hosts, 5)
+    assert copy.host_node_id("h1.com") == orig.host_node_id("h1.com")
+
+
 COPIES = {
     "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
     "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
@@ -478,6 +566,10 @@ COPIES = {
     "distributed": _distributed_package, "distributed.sonic": _sonic,
     "distributed.cluster": _cluster, "distributed.replication": _replication,
     "distributed.remote_cp": _remote_cp, "utils.executor": _executor,
+    "optics.optic": _optic, "spell.term_freqs": _spell_parts,
+    "spell.stupid_backoff": _spell_parts, "spell.error_model": _spell_parts,
+    "spell.checker": _spell_checker, "widgets": _widgets, "autosuggest": _autosuggest,
+    "ranking.models.linear": _linear, "ranking.inbound_similarity": _inbound,
 }
 
 
