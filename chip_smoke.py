@@ -30,6 +30,27 @@ LinearRegression with seeded weights in a SearchService (pass 2 at search
 time: K3 launched) gives the plain versions' top-10s; the widget, spell
 check, autosuggest and sidebar routes answer over HTTP.
 
+Then the coordinator's whole page (page_phase): a seeded ZIM of 100,000
+articles (titles from the corpus's vocabulary, every tenth with an infobox
+image) written by the port's ZimWriter, `main.py indexer entity` as a
+process (timed) while the page graph (the corpus's 1,000,000 URLs, the
+centrality job's 20,000,000 edges) and the host graph (its 500 sites) are
+written, `main.py entity-search-server` as a process joined to gossip, and
+the coordinator on the card without an entity index: its sidebar and entity
+images come from that server (RemoteSidebarManager, RemoteEntityImageStore,
+as entrypoint/api.py page_services wires them). Over HTTP at 16 clients the
+request mix alone, then mixed with a sidebar request on each query, 32
+requests on each link route (hosts and pages, in and out), 32 entity images
+(half misses), browser autosuggest, the improvement routes, health, the
+spec and the UI: every sidebar answer must be a local SidebarManager's over
+the same index or, without an entity, the StackOverflow search's; every
+link route the graph's edges; every image hit the store's bytes; K1-K3
+launched by that traffic; and search_websites (the object path) must give
+the batched path's top-10s on the compare queries, launching K1 and K2.
+`[result page]` prints the build times, the sidebar's p50 and p99 on entity
+hits and on misses (the search on the card), each route's p50 and the mixed
+round's qps beside the mix's alone.
+
 Then the ranking pipeline: a 30,522-piece WordPiece vocab fit on the corpus;
 the train phase trains MiniLM-L6 dual and cross encoders on the card from
 triples synthesised from the corpus (stract_tpu_torch.entrypoint.
@@ -241,6 +262,17 @@ OPTIC_GATE = {"default": ("stage_a", 524_288), "join": ("stage_a", 524_288),
 LINEAR_SIGNALS = ("host_centrality", "bm25_title", "bm25_clean_body", "title_coverage",
                   "fetch_time_ms")
 SERVING = SCORING + ("forest", "attention", "add_layernorm", "bias_gelu", "mean_pool")
+# the coordinator's whole page: a seeded ZIM of PAGE_ENTITIES articles (the
+# low end of the reference's 1e5-1e6 entity corpora; every tenth with an
+# infobox image) whose titles come from the corpus's w<N> vocabulary: the
+# mid-frequency terms below PAGE_ENTITY_TERMS (a query whose mid term lies
+# past it finds no entity and falls through to the StackOverflow search on
+# the card) and every fourth request of the mix's query as a title; the page
+# graph over the corpus's URLs with the centrality job's 20M edges, the host
+# graph over its sites; PAGE_LINKS requests on each link route, PAGE_IMAGES
+# on the entity image route (half of them misses)
+PAGE_ENTITIES, PAGE_ENTITY_TERMS, PAGE_IMAGE_EVERY = 100_000, 10_150, 10
+PAGE_HOST_EDGES, PAGE_LINKS, PAGE_IMAGES = 50_000, 32, 32
 TRAINING = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "attention_backward",
             "add_layernorm_backward", "bias_gelu_backward", "adamw", "info_nce", "pair_loss")
 # K15c's two heads: their launches are counted over every path that runs one
@@ -1469,6 +1501,350 @@ def side_phase(searcher, card: str) -> dict:
         raise AssertionError(f"the sidebar answered {out['/beta/api/search/sidebar']}")
     log(f"[result side answers] {json.dumps(out)} card={card}")
     return out
+
+
+def entity_articles(n: int, exact: list, seed: int) -> tuple:
+    """n seeded wiki articles → ([(url, title, html)], {image key: bytes}):
+    the `exact` titles first, then titles of 1-3 and abstracts of 12-20
+    terms drawn from w300 ... w<PAGE_ENTITY_TERMS>; every PAGE_IMAGE_EVERY-th
+    article has an infobox with an image, whose bytes the image store holds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    terms = rng.integers(300, PAGE_ENTITY_TERMS, (n, 23))
+    n_title, n_abs = rng.integers(1, 4, n), rng.integers(12, 21, n)
+    arts, images = [], {}
+    for i in range(n):
+        row = [f"w{t}" for t in terms[i]]
+        title = exact[i] if i < len(exact) else " ".join(row[:n_title[i]])
+        box = ""
+        if i % PAGE_IMAGE_EVERY == 0:
+            key = f"e{i}.webp"
+            images[key] = b"RIFF" + rng.bytes(int(rng.integers(512, 4096)))
+            box = (f"<table class='infobox'><tr><td><img src='{key}'></td></tr><tr><th>id</th>"
+                   f"<td>{i}</td></tr></table>")
+        arts.append((f"E{i}", title, f"<html><body><p>{' '.join(row[3:3 + n_abs[i]])}</p>{box}"
+                                     "</body></html>"))
+    return arts, images
+
+
+def entity_scores(index, query: str) -> dict:
+    """EntityIndex.search's BM25 of every entity the query's terms reach,
+    summed in sorted term order → {entity id: score} (search sums in the set
+    order of its process: two processes may differ in the last bits)."""
+    import math
+
+    from stract_tpu_torch.tokenizer import tokenize
+
+    n = len(index.entities)
+    avg_title = max(sum(index.title_lens) / n, 1e-6)
+    scores: dict = {}
+    for tok in sorted(set(tokenize(query))):
+        for postings, weight, avg in ((index.title_postings.get(tok, []), 4.0, avg_title),
+                                      (index.abstract_postings.get(tok, []), 1.0, 50.0)):
+            if postings:
+                idf = math.log1p((n - len(postings) + 0.5) / (len(postings) + 0.5))
+                for eid, tf in postings:
+                    flen = index.title_lens[eid] if weight == 4.0 else 50
+                    norm = 1.2 * (1 - 0.75 + 0.75 * flen / avg)
+                    scores[eid] = scores.get(eid, 0.0) + weight * idf * tf * 2.2 / (tf + norm)
+    return scores
+
+
+def same_entity(index, query: str, got: dict, want: dict) -> bool:
+    """The remote sidebar's entity is the local one, or one whose score ties
+    the local winner's within rtol 1e-9 (the two processes' sums in other
+    orders)."""
+    if got == want:
+        return True
+    if got is None or want is None or got.get("type") != "entity":
+        return False
+    scores = entity_scores(index, query)
+    top = max(scores.values(), default=0.0)
+    return any(index.entities[eid] == got["value"] and s >= top * (1 - 1e-9)
+               for eid, s in scores.items())
+
+
+def call(url: str, method: str = "GET", body=None) -> tuple:
+    """One HTTP request → (status, body bytes, content type, seconds); an
+    error status is an answer, not an exception."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"content-type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = (resp.status, resp.read(), resp.headers.get_content_type())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.read(), e.headers.get_content_type())
+    return (*out, time.perf_counter() - t0)
+
+
+def page_phase(searcher, index, data_dir: str, card: str) -> dict:
+    """The coordinator's whole page on the card over the 1M-doc corpus: a
+    seeded ZIM of PAGE_ENTITIES articles written by the port's ZimWriter;
+    `main.py indexer entity` builds the entity index as a process while the
+    page graph (the corpus's URLs, the centrality job's 20M edges) and the
+    host graph (its sites) are written; `main.py entity-search-server` serves
+    the index and the image store as a process joined to gossip. The
+    coordinator has no entity_index_path: entrypoint/api.py page_services
+    gives it a RemoteSidebarManager and a RemoteEntityImageStore over the
+    gossip-found server, beside the page graph; a local SidebarManager over
+    the same index checks its answers. Over HTTP at CLIENTS clients: the
+    request mix alone, then mixed with a sidebar request on each query,
+    PAGE_LINKS requests on each link route, PAGE_IMAGES entity images (half
+    misses), autosuggest/browser, the improvement routes, health, the spec
+    and the UI. Every sidebar answer must be the local SidebarManager's or,
+    where it finds no entity, the StackOverflow search's; every link route
+    the graph's edges; every image hit the store's bytes; K1-K3 launched by
+    the mixed round; search_websites' top-10s the batched path's, K1 and K2
+    launched by it."""
+    import numpy as np
+
+    from stract_tpu_torch.api.server import build_app
+    from stract_tpu_torch.autosuggest import Autosuggest
+    from stract_tpu_torch.config import ApiConfig
+    from stract_tpu_torch.distributed.cluster import Cluster, Service
+    from stract_tpu_torch.entity_index import EntityIndex
+    from stract_tpu_torch.entity_index.index import SidebarManager
+    from stract_tpu_torch.entrypoint import bench_centrality as BC
+    from stract_tpu_torch.entrypoint.api import page_services
+    from stract_tpu_torch.image_store import ImageStore
+    from stract_tpu_torch.main import ServerThread
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.ranking.inbound_similarity import InboundSimilarity
+    from stract_tpu_torch.searcher.api import ApiSearcher
+    from stract_tpu_torch.searcher.query import SearchQuery
+    from stract_tpu_torch.webgraph.store import write_graph
+    from stract_tpu_torch.widgets import WidgetManager
+    from stract_tpu_torch.zim import ZimWriter
+
+    root = os.path.join(data_dir, "page")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    mix = requests_mix(N_REQUESTS)
+    queries = [b["query"] for b in mix]
+    t0 = time.perf_counter()
+    arts, images = entity_articles(PAGE_ENTITIES, queries[::4], SEED + 7)
+    zw = ZimWriter()
+    for url, title, html in arts:
+        zw.add_article(url, title, html)
+    zw.write(os.path.join(root, "entities.zim"))
+    ImageStore(os.path.join(root, "images")).insert_many(images)
+    zim_s = time.perf_counter() - t0
+    with open(os.path.join(root, "indexer.toml"), "w") as fh:
+        fh.write(f'zim_path = "{root}/entities.zim"\noutput_path = "{root}/entities"\n')
+    t0 = time.perf_counter()
+    indexer = subprocess.Popen([sys.executable, "-m", "stract_tpu_torch.main", "indexer",
+                                "entity", os.path.join(root, "indexer.toml")], cwd=ROOT,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t1 = time.perf_counter()
+        sites = index.segments[0].column("host_node_id").astype(np.int64)
+        urls = [f"https://site{s}.com/doc{i}" for i, s in enumerate(sites.tolist())]
+        src, dst = BC.make_edges(len(urls), GRAPH_EDGES, seed=0)
+        pages = write_graph(os.path.join(root, "pages"), urls, src, dst)
+        n_sites = int(sites.max()) + 1
+        hs, hd = BC.make_edges(n_sites, PAGE_HOST_EDGES, seed=1)
+        hosts = write_graph(os.path.join(root, "hosts"), [f"site{i}.com" for i in range(n_sites)],
+                            hs, hd, host_graph=True)
+        graph_s = time.perf_counter() - t1
+        out, err = indexer.communicate(timeout=600)
+    finally:
+        if indexer.poll() is None:
+            indexer.kill()
+            indexer.wait()
+    index_s = time.perf_counter() - t0
+    if indexer.returncode != 0:
+        raise RuntimeError(f"main.py indexer entity failed: {err[-2000:]}")
+    local = SidebarManager(EntityIndex(os.path.join(root, "entities")))
+    if len(local.index) != PAGE_ENTITIES or out.strip() != \
+            f"indexed {PAGE_ENTITIES} entities → {root}/entities":
+        raise AssertionError(f"the entity index holds {len(local.index)} entities: {out}")
+    log(f"[page] ZIM of {PAGE_ENTITIES} articles and {len(images)} images in {zim_s:.1f}s; "
+        f"the index built in {index_s:.1f}s beside the graphs' {graph_s:.1f}s "
+        f"({pages.num_nodes} pages, {pages.num_edges} links; {hosts.num_nodes} hosts)")
+
+    cluster = Cluster.join(Service("api"), interval=0.2)
+    with open(os.path.join(root, "ess.toml"), "w") as fh:
+        fh.write(f'index_path = "{root}/entities"\nimage_store_path = "{root}/images"\n'
+                 f'[gossip]\nseeds = ["{cluster.gossip_addr[0]}:{cluster.gossip_addr[1]}"]\n')
+    ess = subprocess.Popen([sys.executable, "-m", "stract_tpu_torch.main",
+                            "entity-search-server", os.path.join(root, "ess.toml")], cwd=ROOT,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    server = None
+    try:
+        if cluster.await_member(lambda m: m.service.kind == "entity-search", timeout=300) is None:
+            raise RuntimeError("the entity-search server did not join gossip: "
+                               f"{ess.stderr.read()[-2000:] if ess.poll() is not None else ''}")
+        sidebar, page_graph, remote_images = page_services(
+            ApiConfig(page_graph_path=pages.path), cluster)
+        api = ApiSearcher(searcher.searcher, searcher.pipeline, widget_manager=WidgetManager(),
+                          sidebar_manager=sidebar)
+        server = ServerThread(build_app(
+            api, autosuggest=Autosuggest.from_queries(queries), similar_hosts=InboundSimilarity(
+                hosts), page_graph=page_graph, image_store=remote_images,
+            max_concurrency=2 * CLIENTS))
+        rec = page_traffic(server.url, api, local, pages, hosts, mix, images, root)
+    finally:
+        if server is not None:
+            server.stop()
+        ess.kill()
+        ess.wait()
+        cluster.shutdown()
+
+    # search_websites (the object path) against search_many on the compare bodies
+    bodies = [{**b, "numResults": 10} for b in compare_bodies()]
+    kernels.reset_launches()
+    obj = [api.search_websites(SearchQuery.from_json(b)).to_json()["webpages"] for b in bodies]
+    launches_obj = dict(kernels.LAUNCHES)
+    batched = [p.to_json()["webpages"] for p in api.search_many([SearchQuery.from_json(b)
+                                                                  for b in bodies])]
+    rec["search_websites_max_score_diff"] = max(page_match(o, b) for o, b in zip(obj, batched))
+    # K3 runs only for a page whose rows stage B's fused signals miss
+    rec["search_websites_launches"] = {k: launches_obj[k] for k in SCORING}
+    if sum(map(len, obj)) == 0 or any(launches_obj[k] == 0 for k in SCORING[:2]):
+        raise AssertionError(f"search_websites found nothing or skipped K1 / K2: {launches_obj}")
+    rec.update(entities=PAGE_ENTITIES, images=len(images), zim_s=zim_s, index_s=index_s,
+               graph_s=graph_s, page_nodes=pages.num_nodes, page_edges=pages.num_edges,
+               host_nodes=hosts.num_nodes)
+    return rec
+
+
+@contextlib.contextmanager
+def timed_method(obj, name: str, seconds: list):
+    """obj.name(...) timed on each call (seconds appended) while the block
+    runs; the instance attribute shadowing the method goes after."""
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+    try:
+        yield seconds
+    finally:
+        delattr(obj, name)
+
+
+def page_traffic(url: str, api, local, pages, hosts, mix: list, images: dict, root: str) -> dict:
+    """The page phase's HTTP rounds and their checks (page_phase) → its record."""
+    import numpy as np
+
+    from stract_tpu_torch.api.server import MAX_LINKS
+    from stract_tpu_torch.image_store import ImageStore
+    from stract_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 8)
+    search = [("search", "POST", "/beta/api/search", b) for b in mix]
+    side = [("sidebar", "POST", "/beta/api/search/sidebar", {"query": b["query"]}) for b in mix]
+    links = []
+    for level, graph, key in (("page", pages, "page"), ("host", hosts, "host")):
+        deg_in, deg_out = np.diff(graph.in_offsets), np.diff(graph.out_offsets)
+        for way, deg in (("ingoing", deg_in), ("outgoing", deg_out)):
+            live = np.flatnonzero(deg > 0)
+            ranks = rng.choice(live, PAGE_LINKS - 1, replace=len(live) < PAGE_LINKS).tolist()
+            ranks.append(int(np.argmax(deg)))  # the node past the link cap, where there is one
+            for r in ranks:
+                node = graph.name_of(r)
+                shown = f"https://{node}/" if level == "host" and r % 2 else node
+                links.append((f"{level}/{way}", "POST",
+                              f"/beta/api/webgraph/{level}/{way}", {key: shown}, node))
+    keys = sorted(images)
+    hits = [keys[i] for i in rng.choice(len(keys), PAGE_IMAGES // 2, replace=False)]
+    pics = [("entity_image", "GET", f"/beta/api/entity_image?imageId={k}", None)
+            for k in hits + [f"missing{i}.webp" for i in range(PAGE_IMAGES - len(hits))]]
+    misc = [("autosuggest/browser", "GET", f"/beta/api/autosuggest/browser?q={q.split()[0]}",
+             None) for q in [b["query"] for b in mix[:4]]]
+    misc += [("improvement/store", "POST", "/improvement/store",
+              {"query": mix[i]["query"], "urls": ["https://site1.com/doc1"]}) for i in range(4)]
+    misc += [("improvement/click", "POST", "/improvement/click", {"qid": "0" * 32, "click": "u"})
+             for _ in range(4)]
+    misc += [(p.strip("/") or "ui", "GET", p, None) for p in ("/health", "/health",
+                                                               "/beta/api/docs/openapi.json",
+                                                               "/", "/search", "/explore",
+                                                               "/static/app.js")]
+
+    def fire(reqs: list) -> tuple:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CLIENTS) as pool:
+            got = list(pool.map(lambda r: call(url + r[2], r[1], r[3]), reqs))
+        return got, time.perf_counter() - t0
+
+    call(url + "/beta/api/search", "POST", {"query": "w1 w2"})  # warm-up, not counted
+    plain, plain_s = fire(search)
+    mixed_reqs = search + side + [r[:4] for r in links] + pics + misc
+    order = rng.permutation(len(mixed_reqs))
+    kernels.reset_launches()
+    # a sidebar request's two parts, timed where the coordinator calls them:
+    # the entity server's RPC, and on a miss the StackOverflow search
+    parts = {"rpc": [], "stackoverflow": []}
+    with timed_method(api.sidebar, "sidebar", parts["rpc"]), \
+            timed_method(api, "stackoverflow_sidebar", parts["stackoverflow"]):
+        shuffled, mixed_s = fire([mixed_reqs[i] for i in order])
+    launches = {k: kernels.LAUNCHES[k] for k in SCORING}
+    got = [None] * len(mixed_reqs)
+    for i, g in zip(order, shuffled):
+        got[i] = g
+    bad = [(r[:3], g[0]) for r, g in zip(mixed_reqs, got)
+           if g[0] != (404 if r[2].startswith("/beta/api/entity_image?imageId=missing")
+                       else 200)]
+    bad += [(r[:3], g[0]) for r, g in zip(search, plain) if g[0] != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} bad answers, the first {bad[0]}")
+    if any(launches[k] == 0 for k in SCORING):
+        raise AssertionError(f"K1-K3 were not all launched by the page's traffic: {launches}")
+
+    # the sidebar: the local SidebarManager's entity, or the StackOverflow search's answer
+    n = len(mix)
+    lat = {"hit": [], "miss": []}
+    for b, g in zip(mix, got[n:2 * n]):
+        answer = json.loads(g[1])["sidebar"]
+        want = local.sidebar(b["query"])
+        if want is None:
+            want = api.stackoverflow_sidebar(b["query"])
+        want = json.loads(json.dumps(want))
+        if not same_entity(local.index, b["query"], answer, want):
+            raise AssertionError(f"the sidebar of {b['query']!r} answered {str(answer)[:200]}, "
+                                 f"not {str(want)[:200]}")
+        lat["hit" if local.sidebar(b["query"]) is not None else "miss"].append(g[3])
+    # the link routes: the graph's first MAX_LINKS edges of the node
+    capped = 0
+    for r, g in zip(links, got[2 * n:2 * n + len(links)]):
+        graph = pages if r[0].startswith("page") else hosts
+        way = graph.backlinks if r[0].endswith("ingoing") else graph.forwardlinks
+        ends = [graph.name_of(o) for o, _ in way(r[4])[:MAX_LINKS]]
+        edges = json.loads(g[1])
+        pair = ("from", "to") if r[0].endswith("ingoing") else ("to", "from")
+        if [e[pair[0]] for e in edges] != ends or any(e[pair[1]] != r[4] for e in edges):
+            raise AssertionError(f"{r[0]} of {r[4]} answered {len(edges)} edges, the graph has "
+                                 f"{len(ends)}")
+        capped += len(way(r[4])) > MAX_LINKS
+    # the images: each hit the store's blob, byte for byte
+    store = ImageStore(os.path.join(root, "images"))
+    start = 2 * n + len(links)
+    for r, g in zip(pics, got[start:start + len(pics)]):
+        key = r[2].split("=", 1)[1]
+        if g[0] == 200 and (g[1] != store.get(key) or g[1] != images[key]
+                            or g[2] != "image/webp"):
+            raise AssertionError(f"the entity image {key} is not the store's bytes")
+    by_route: dict = {}
+    for r, g in zip(mixed_reqs, got):
+        by_route.setdefault(r[0], []).append(g[3])
+    pct = lambda xs, q: float(np.quantile(xs, q) * 1e3) if xs else None  # noqa: E731
+    return {"plain_requests": n, "plain_qps": n / plain_s, "mixed_requests": len(mixed_reqs),
+            "mixed_qps": len(mixed_reqs) / mixed_s, "sidebar_hits": len(lat["hit"]),
+            "sidebar_misses": len(lat["miss"]),
+            "sidebar_hit_p50_ms": pct(lat["hit"], 0.5), "sidebar_hit_p99_ms": pct(lat["hit"], 0.99),
+            "sidebar_miss_p50_ms": pct(lat["miss"], 0.5),
+            "sidebar_miss_p99_ms": pct(lat["miss"], 0.99),
+            "route_p50_ms": {k: pct(v, 0.5) for k, v in sorted(by_route.items())},
+            "sidebar_parts_ms": {k: [pct(v, 0.5), pct(v, 0.99), max(v, default=0.0) * 1e3]
+                                 for k, v in parts.items()},
+            "links_past_the_cap": capped, "image_hits": len(hits), "launches": launches}
 
 
 def config_phase(index_dir: str, default_pages: list, card: str) -> dict:
@@ -3621,7 +3997,7 @@ def mesh_serve_phase(index_dir: str, card: str) -> dict:
         if sharded is None or sharded.n != MESH_SHARDS or len(sharded._segments) != MESH_SHARDS:
             raise AssertionError("the shard server did not take the mesh path")
         host, port = shard_cluster.gossip_addr
-        api, api_cluster = build_coordinator(
+        api, api_cluster, _pages = build_coordinator(
             ApiConfig(gossip={"addr": "127.0.0.1:0", "seeds": [f"{host}:{port}"]}), DEVICE)
         if api_cluster.await_member(lambda m: m.service.kind == "search-server",
                                     timeout=30) is None:
@@ -4120,6 +4496,22 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     in_phase("optics", optic_phase, searcher, "default", SCORING, card)
     in_phase("linear", linear_phase, index, card)
     in_phase("side answers", side_phase, searcher, card)
+    t = time.perf_counter()
+    page = in_phase("page", page_phase, searcher, index, data_dir, card)
+    log(f"[result page] entities={page['entities']} images={page['images']} zim_s="
+        f"{page['zim_s']:.1f} index_s={page['index_s']:.1f} graph_s={page['graph_s']:.1f} "
+        f"page_graph={page['page_nodes']}x{page['page_edges']} host_graph={page['host_nodes']} "
+        f"sidebar_hits={page['sidebar_hits']} hit_p50_ms={page['sidebar_hit_p50_ms']:.1f} "
+        f"hit_p99_ms={page['sidebar_hit_p99_ms']:.1f} sidebar_misses={page['sidebar_misses']} "
+        f"miss_p50_ms={page['sidebar_miss_p50_ms']:.1f} miss_p99_ms="
+        f"{page['sidebar_miss_p99_ms']:.1f} sidebar_parts_p50_p99_max_ms="
+        f"{json.dumps(page['sidebar_parts_ms'])} route_p50_ms={json.dumps(page['route_p50_ms'])} "
+        f"mixed_qps={page['mixed_qps']:.2f} ({page['mixed_requests']} requests) plain_mix_qps="
+        f"{page['plain_qps']:.2f} ({page['plain_requests']}) links_past_the_cap="
+        f"{page['links_past_the_cap']} search_websites_max_score_diff="
+        f"{page['search_websites_max_score_diff']:.3g} search_websites_launches="
+        f"{json.dumps(page['search_websites_launches'])} launches={json.dumps(page['launches'])} "
+        f"seconds={time.perf_counter() - t:.1f} card={card}")
     log(f"[result off] docs={DOCS} qps={served_off['qps']:.2f} "
         f"p50_ms={served_off['p50_ms']:.1f} p99_ms={served_off['p99_ms']:.1f} "
         f"device_mem_peak_MiB={torch.cuda.max_memory_allocated() / 2**20:.0f} card={card}")

@@ -27,15 +27,24 @@ Layout mirrors stract_tpu/:
                      embedding-column writer
   ranking/, query/   slot planning, cross encoder, LambdaMART, query parser
                      and planner
-  searcher/, api/    local shard, coordinator, batcher, HTTP routes (search
-                     and the side answers)
+  searcher/, api/    local shard, coordinator (the batched block path and the
+                     object path), batcher, HTTP routes (search, the side
+                     answers, links, entity images, improvement log, docs,
+                     the UI of frontend/), user counts
+  entity_index/,     the entity sidebar's host BM25 index, its ZIM reader and
+  zim.py,            writer, its image store; entrypoint/entity.py builds it,
+  image_store.py     entrypoint/entity_search_server.py serves it over RPC
+  generic_query/,    the two-phase generic queries, the external-SERP scraper,
+  leechy.py,         the optics language server (python -m
+  optics_lsp.py      stract_tpu_torch.optics_lsp)
   optics/            the optics DSL; compile_groups lowers an optic into
                      constraint groups of the device plan
   spell/, widgets/,  spell correction and its trainer, the calculator and
   autosuggest.py     thesaurus widgets, query autosuggest
   bench_corpus.py    synthetic corpus writer and query generator
   main.py            `serve`, `train-encoders`, `centrality`, `search-server`,
-                     `api` and `web-spell`
+                     `api`, `web-spell`, `indexer entity` and
+                     `entity-search-server`
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
 """TOML config structs — the part of stract_tpu/config/__init__.py the
 port's command line reads (role of reference crates/core/src/config/,
 main.rs:267-275 load_toml_config): the coordinator's, the search shard's,
-the centrality job's and the spell trainer's configs, read from the same
-TOML files (configs/api.toml, configs/search_server.toml,
-configs/centrality.toml, a web-spell TOML: index_path, output_path)."""
+the entity search server's, the indexer's, the centrality job's and the
+spell trainer's configs, read from the same TOML files (configs/api.toml,
+configs/search_server.toml, configs/indexer.toml, configs/centrality.toml, a
+web-spell TOML: index_path, output_path; an entity-search-server TOML:
+index_path, image_store_path, host, port, [gossip])."""
 
 from __future__ import annotations
 
@@ -68,6 +70,21 @@ class SearchServerConfig:
 
 
 @dataclass
+class IndexerConfig:
+    warc_paths: list = field(default_factory=list)
+    output_path: str = "data/index"
+    host_centrality_path: str = ""
+    page_centrality_path: str = ""
+    safety_model_path: str = ""
+    dual_encoder_path: str = ""
+    embedding_dim: int = 0
+    merge: bool = True
+    # `indexer entity` (entrypoint/entity.rs) / `indexer canonical` (canonical.rs)
+    zim_path: str = ""
+    entity_limit: int = 0
+
+
+@dataclass
 class CentralityConfig:
     webgraph_path: str = "data/webgraph"
     output_path: str = "data/centrality"
@@ -85,7 +102,19 @@ class WebSpellConfig:
     output_path: str = "data/web_spell"
 
 
+@dataclass
+class EntitySearchServerConfig:
+    """(role of reference config::EntitySearchServerConfig)"""
+
+    index_path: str = "data/entity"
+    image_store_path: str = ""
+    host: str = "127.0.0.1"
+    port: int = 0
+    gossip: dict = field(default_factory=dict)
+
+
 CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
+                "entity-search-server": EntitySearchServerConfig, "indexer": IndexerConfig,
                 "centrality": CentralityConfig, "web-spell": WebSpellConfig}
 
 

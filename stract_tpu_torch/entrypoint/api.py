@@ -8,16 +8,19 @@ answers, autosuggest, similar hosts, the optic exports, /metrics).
 spell_path loads the spell checker (spell/trainer.py load_checker, the
 files `main.py web-spell` writes), autosuggest_path the autosuggest
 queries, host_graph_path the host graph whose inbound similarity serves the
-similar-hosts route and the recall stage's liked / disliked hosts; the
-widgets (calculator, thesaurus) are always on.
+similar-hosts route, the host link routes and the recall stage's liked /
+disliked hosts; the widgets (calculator, thesaurus) are always on.
 
-The entity sidebar is not ported: without entity_index_path the JAX
-coordinator asks gossip-found entity-search servers for it, and the port
-passes no sidebar manager, so the sidebar route answers the StackOverflow
-optic search alone. The entity index, its image store, the page graph and
-the improvement log are not ported (ROADMAP queue 1 item 3b): a config that
-sets one raises. The live-index tier is not ported either (queue 1 item 5),
-so the coordinator fans out to the search shards alone.
+The page's other services, as the JAX coordinator wires them
+(page_services): entity_index_path loads the entity index for a local
+SidebarManager; without it the sidebar and the entity images come from
+gossip-found `entity-search` servers (RemoteSidebarManager,
+RemoteEntityImageStore). page_graph_path loads the page graph of the page
+link routes, entity_image_store_path the image store of the entity image
+route. improvement_log_path is read nowhere, as in the JAX package (its app
+keeps the improvement log in memory; ROADMAP queue 3). The live-index tier
+is not ported (queue 1 item 5), so the coordinator fans out to the search
+shards alone.
 """
 
 from __future__ import annotations
@@ -29,15 +32,15 @@ from ..config import ApiConfig, GossipConfig, _from_dict
 from ..device import resolve_device
 from ..distributed.cluster import Cluster, Service
 from ..distributed.replication import ReusableShardedClient
+from ..entity_index.index import EntityIndex, SidebarManager
+from ..image_store import ImageStore
 from ..ranking.inbound_similarity import InboundSimilarity
 from ..searcher.api import ApiSearcher
 from ..searcher.distributed import DistributedSearcher
 from ..spell.trainer import load_checker
 from ..webgraph.store import Webgraph
 from ..widgets import WidgetManager
-
-UNPORTED = ("entity_index_path", "page_graph_path", "entity_image_store_path",
-            "improvement_log_path")
+from .entity_search_server import RemoteEntityImageStore, RemoteSidebarManager
 
 
 def build_pipeline(device, dual_encoder: str = "", cross_encoder: str = "",
@@ -64,16 +67,32 @@ def build_pipeline(device, dual_encoder: str = "", cross_encoder: str = "",
     return RankingPipeline(recall, precision)
 
 
+def page_services(cfg: ApiConfig, cluster) -> tuple:
+    """The entity sidebar, the page graph and the entity image store of the
+    config, as the JAX coordinator wires them → (sidebar, page_graph,
+    image_store). Without entity_index_path the sidebar is a
+    RemoteSidebarManager over the cluster's `entity-search` servers, and so
+    is the image store unless entity_image_store_path names one."""
+    if cfg.entity_index_path:
+        sidebar = SidebarManager(EntityIndex(cfg.entity_index_path))
+    else:
+        sidebar = RemoteSidebarManager(ReusableShardedClient(cluster, "entity-search"))
+    page_graph = Webgraph(cfg.page_graph_path) if cfg.page_graph_path else None
+    image_store = None
+    if cfg.entity_image_store_path:
+        image_store = ImageStore(cfg.entity_image_store_path)
+    elif not cfg.entity_index_path:
+        image_store = RemoteEntityImageStore(ReusableShardedClient(cluster, "entity-search"))
+    return sidebar, page_graph, image_store
+
+
 def build_coordinator(cfg: ApiConfig, device="cuda") -> tuple:
     """The coordinator's searcher over the gossip-discovered search shards →
-    (ApiSearcher, cluster). The models run on `device`; the spell checker,
-    the widgets and the host graph's inbound similarity (in the recall stage)
-    are loaded from the config's paths."""
+    (ApiSearcher, cluster, pages). The models run on `device`; the spell
+    checker, the widgets, the host graph's inbound similarity (in the recall
+    stage) and the entity sidebar are loaded from the config's paths; pages
+    is page_services' (page_graph, image_store) pair, for coordinator_app."""
     resolve_device(device)
-    unported = [name for name in UNPORTED if getattr(cfg, name)]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported yet "
-                                  "(ROADMAP queue 1 item 3b)")
     pipeline = build_pipeline(device, cfg.dual_encoder_path, cfg.cross_encoder_path,
                               cfg.lambdamart_path)
     if cfg.host_graph_path:
@@ -82,22 +101,28 @@ def build_coordinator(cfg: ApiConfig, device="cuda") -> tuple:
     cluster = Cluster.join(Service("api"), gossip_addr=gossip.addr_tuple(),
                            seeds=gossip.seed_tuples())
     searcher = DistributedSearcher(ReusableShardedClient(cluster, "search-server"))
+    sidebar, page_graph, image_store = page_services(cfg, cluster)
     api = ApiSearcher(
         searcher,
         pipeline=pipeline,
         bangs=Bangs.from_path(cfg.bangs_path) if cfg.bangs_path else Bangs.builtin(),
         spell_checker=load_checker(cfg.spell_path) if cfg.spell_path else None,
         widget_manager=WidgetManager(),
+        sidebar_manager=sidebar,
     )
-    return api, cluster
+    return api, cluster, (page_graph, image_store)
 
 
-def coordinator_app(cfg: ApiConfig, api: ApiSearcher):
+def coordinator_app(cfg: ApiConfig, api: ApiSearcher, pages: tuple = (None, None)):
     """The HTTP app of a coordinator built by build_coordinator: autosuggest
-    from cfg.autosuggest_path, similar hosts from the recall stage's
-    inbound similarity."""
+    from cfg.autosuggest_path, similar hosts and the host links from the
+    recall stage's inbound similarity, the page graph and the image store
+    from `pages`, the (page_graph, image_store) pair build_coordinator
+    returns."""
+    page_graph, image_store = pages
     suggest = Autosuggest.load(cfg.autosuggest_path) if cfg.autosuggest_path else None
     return build_app(api, autosuggest=suggest, similar_hosts=api.pipeline.recall.inbound,
+                     page_graph=page_graph, image_store=image_store,
                      max_concurrency=cfg.max_concurrency)
 
 
@@ -105,5 +130,5 @@ def run(cfg: ApiConfig, device="cuda"):
     """Serve the search route on cfg.host:cfg.port until stopped."""
     from aiohttp import web
 
-    api, _cluster = build_coordinator(cfg, device)
-    web.run_app(coordinator_app(cfg, api), host=cfg.host, port=cfg.port)
+    api, _cluster, pages = build_coordinator(cfg, device)
+    web.run_app(coordinator_app(cfg, api, pages), host=cfg.host, port=cfg.port)

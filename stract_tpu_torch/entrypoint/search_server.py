@@ -54,7 +54,7 @@ def candidate_from_wire(d):
 
     c = RankedCandidate(
         shard=d["shard"],
-        pointer=DocPointer(d["segment"], d["doc"]),
+        pointer=DocPointer.from_json(d),
         score=d["score"],
         signals=np.asarray(d["signals"], dtype=np.float32),
         title_embedding=d.get("title_embedding"),

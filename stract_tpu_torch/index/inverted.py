@@ -106,6 +106,10 @@ class DocPointer:
     def to_json(self):
         return {"segment": self.segment, "doc": self.doc}
 
+    @classmethod
+    def from_json(cls, d):
+        return cls(d["segment"], d["doc"])
+
     def __repr__(self):
         return f"DocPointer({self.segment},{self.doc})"
 

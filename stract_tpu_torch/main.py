@@ -11,6 +11,8 @@
     python -m stract_tpu_torch.main search-server CONFIG [--device cuda]
     python -m stract_tpu_torch.main api CONFIG [--device cuda]
     python -m stract_tpu_torch.main web-spell CONFIG
+    python -m stract_tpu_torch.main indexer entity CONFIG
+    python -m stract_tpu_torch.main entity-search-server CONFIG
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -59,6 +61,21 @@ WebSpellConfig TOML (index_path, output_path). It reads the stored docs of
 an index directory of either package on the host (no device work) and
 writes the term frequencies, the language model and the error model that
 the coordinator's spell_path loads.
+
+`indexer entity` is the JAX package's `indexer` action of the same name:
+CONFIG is an IndexerConfig TOML (zim_path, output_path, entity_limit). It
+reads the ZIM at zim_path on the host (zim.py), parses each article's
+abstract, infobox and image (entrypoint/entity.py) and writes the entity
+index (entities.bin, the JAX package's layout) to output_path. The actions
+`search`, `merge` and `canonical` build the search index, which the port
+does not yet write (ROADMAP queue 1 item 4): they raise before any work.
+
+`entity-search-server` is the JAX package's role of the same name: CONFIG is
+an EntitySearchServerConfig TOML (index_path, image_store_path, host, port,
+[gossip]). It serves the entity index's search and the image store's images
+over sonic RPC and announces itself by gossip as `entity-search`; a
+coordinator without entity_index_path asks it for the sidebar and the entity
+images. It does no device work, so it takes no --device.
 """
 
 from __future__ import annotations
@@ -204,6 +221,12 @@ def main(argv=None):
     cp.add_argument("--device", default="cuda", help="cuda or cpu")
     wp = sub.add_parser("web-spell", help="train spell-correction models from an index")
     wp.add_argument("config")
+    ip = sub.add_parser("indexer", help="build the entity index from a ZIM dump")
+    ip.add_argument("action", choices=["search", "merge", "entity", "canonical"])
+    ip.add_argument("config")
+    ep = sub.add_parser("entity-search-server",
+                        help="the entity sidebar's server over sonic RPC, announced by gossip")
+    ep.add_argument("config")
     for role, what in (("search-server", "a search shard over sonic RPC, announced by gossip"),
                        ("api", "the coordinator: gossip, shard fan-out, HTTP search API")):
         rp = sub.add_parser(role, help=what)
@@ -222,6 +245,31 @@ def main(argv=None):
                               mesh=cfg.mesh_search, device=args.device)
         print(f"search-server shard={cfg.shard} rpc={server.addr} gossip={cluster.gossip_addr}",
               flush=True)
+        _wait_forever()
+        return
+
+    if args.role == "indexer":
+        from .config import load_config
+
+        if args.action != "entity":
+            raise NotImplementedError(f"indexer {args.action}: the port does not yet build "
+                                      "search indexes (ROADMAP queue 1 item 4)")
+        from .entrypoint.entity import build_entity_index
+
+        cfg = load_config("indexer", args.config)
+        idx = build_entity_index(cfg.zim_path, cfg.output_path, limit=cfg.entity_limit or None)
+        print(f"indexed {len(idx)} entities → {cfg.output_path}", flush=True)
+        return
+
+    if args.role == "entity-search-server":
+        from .config import GossipConfig, _from_dict, load_config
+        from .entrypoint.entity_search_server import run
+
+        cfg = load_config("entity-search-server", args.config)
+        g = _from_dict(GossipConfig, cfg.gossip or {})
+        server, cluster = run(cfg.index_path, cfg.image_store_path, cfg.host, cfg.port,
+                              g.addr_tuple(), g.seed_tuples())
+        print(f"entity-search-server rpc={server.addr} gossip={cluster.gossip_addr}", flush=True)
         _wait_forever()
         return
 

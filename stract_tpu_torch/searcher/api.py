@@ -11,9 +11,15 @@ An optic's Site, Domain and Url rules reach the shards as constraint groups
 of their device plans (Query.parse → Optic.compile_groups); what is left,
 the residual (boosts, content and schema patterns, discards that do not
 compile), runs here after the merge, over the candidates' retrieved fields.
-The sidebar is the StackOverflow optic search, through the same block path
-and residual; the entity sidebar comes with the entity slice (ROADMAP queue 1
-item 3b)."""
+The sidebar is the entity sidebar first (a SidebarManager over a local entity
+index, or a RemoteSidebarManager over gossip-found entity-search servers),
+else the StackOverflow optic search, through the same block path and
+residual.
+
+search_websites is the object path for single-query callers: the shards'
+candidates as objects (search_initial: K1, K2 on the card) through a
+BucketCollector merge, then search_phase2's stages for a batch of one, the
+lazy signal rows from ensure_signals_many (K3: the shard's pass 2)."""
 
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..bangs import Bangs
+from ..collector import BucketCollector
 from ..ranking import signals as S
 from ..ranking.pipeline import NUM_PIPELINE_RANKING_RESULTS, RankingPipeline
 from ..ranking.pipeline.block import CandidateBlock, merge_blocks
@@ -62,12 +69,14 @@ class BangResult:
 
 class ApiSearcher:
     def __init__(self, distributed_searcher, pipeline: RankingPipeline | None = None,
-                 bangs: Bangs | None = None, spell_checker=None, widget_manager=None):
+                 bangs: Bangs | None = None, spell_checker=None, widget_manager=None,
+                 sidebar_manager=None):
         self.searcher = distributed_searcher
         self.pipeline = pipeline or RankingPipeline()
         self.bangs = bangs or Bangs.builtin()
         self.spell_checker = spell_checker
         self.widgets = widget_manager
+        self.sidebar = sidebar_manager
 
     def search(self, sq: SearchQuery):
         return self.search_many([sq])[0]
@@ -199,8 +208,13 @@ class ApiSearcher:
     SO_SIDEBAR_THRESHOLD = 0.5
 
     def sidebar_for(self, query: str):
-        """The StackOverflow accepted-answer sidebar (reference
-        sidebar.rs:158-173, without its entity sidebar)."""
+        """Entity sidebar first, else a StackOverflow accepted-answer sidebar
+        (reference sidebar.rs:158-173: an entity above the threshold wins,
+        otherwise the stackoverflow-optic search's top result)."""
+        if self.sidebar is not None:
+            ent = self.sidebar.sidebar(query)
+            if ent is not None:
+                return ent
         return self.stackoverflow_sidebar(query)
 
     def stackoverflow_sidebar(self, query: str):
@@ -271,6 +285,55 @@ class ApiSearcher:
         page = page_block.to_candidates()
         self.searcher.retrieve(sq, [c for c in page if c.retrieved is None])
         return self._serialize_page(sq, page, count, has_more)
+
+    # -- the object path (reference :554-642) -------------------------------------
+    def search_websites(self, sq: SearchQuery, q: Query | None = None) -> WebsitesResult:
+        """One query through the shard's candidate objects (search_initial),
+        as the JAX package's object path. No role calls it yet: its merge
+        and residual (_merge_candidates) copy _merge_block's, until its
+        first caller, ltr, merges it into the block path (ROADMAP item 3b)."""
+        q = q or Query.parse(sq.query, coefficients=sq.signal_coefficients,
+                             selected_region=sq.selected_region)
+        candidates, count = self.searcher.search_initial(sq)
+        return self._finish(sq, q, candidates, count)
+
+    def _finish(self, sq: SearchQuery, q: Query, candidates, count) -> WebsitesResult:
+        """search_phase2's stages on candidate objects, a batch of one."""
+        ctx, merged, count = self._merge_candidates(sq, q, candidates, count)
+        if self.pipeline.recall.has_scorers:
+            self._ensure_many([(sq, merged)])
+        merged = self.pipeline.rank_recall(ctx, merged)
+        page, has_more = self._page_from_ranked(sq, merged)
+        self._ensure_many([(sq, page)])
+        if sq.page < MAX_PRECISION_PAGE:
+            page = self.pipeline.rank_precision(ctx, page)
+        return self._serialize_page(sq, page, count, has_more)
+
+    def _merge_candidates(self, sq: SearchQuery, q: Query, candidates, count):
+        """Cross-shard merge with dedup (reference combine_results :412-465),
+        then the optics residual. Signals may still be lazy."""
+        collector = BucketCollector(NUM_PIPELINE_RANKING_RESULTS)
+        collector.extend(candidates)
+        merged = collector.into_sorted_vec()
+        residual = self._residual(sq)
+        if residual is not None:
+            self.searcher.retrieve(sq, [c for c in merged if c.retrieved is None])
+            merged = residual.apply(merged, self._optic_fields)
+        return q.context(), merged, count
+
+    def _page_from_ranked(self, sq: SearchQuery, merged: list):
+        """The page's cut of the ranked candidates, retrieved (stored docs,
+        snippets) → (page, has_more)."""
+        offset = sq.offset()
+        page = merged[offset : offset + sq.num_results]
+        has_more = len(merged) > offset + sq.num_results
+        self.searcher.retrieve(sq, [c for c in page if c.retrieved is None])
+        return page, has_more
+
+    def _ensure_many(self, items: list) -> None:
+        """Lazy signal rows of [(sq, candidates)], one pass a shard across the
+        items (remote shards send their rows with the candidates)."""
+        self.searcher.ensure_signals_many(items)
 
     def _serialize_page(self, sq: SearchQuery, page, count, has_more) -> WebsitesResult:
         from ..prettifier import rich_snippet

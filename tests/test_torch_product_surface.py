@@ -10,7 +10,7 @@ CPU, on tests/test_product_surface.py's inputs:
   ApiSearcher.sidebar_for;
 - the routes, through aiohttp's TestClient on an app of each package over
   the same index and the same inputs: widget (and its alias), sidebar (the
-  StackOverflow fall-through: the port has no entity sidebar), spellcheck,
+  StackOverflow fall-through: these apps have no entity index), spellcheck,
   autosuggest (GET and POST), hosts/export, explore/export and
   webgraph/host/similar answer the same JSON or text.
 """

@@ -238,43 +238,81 @@ def test_closed_coordinator_client_lets_a_shard_stop():
             srv.stop()
 
 
-def test_unported_options_raise(index_dir, tmp_path):
-    """The coordinator's options that are not ported (the entity index, the
-    page graph, the entity image store, the improvement log), each alone,
-    and configs/api.toml, which sets the entity index, raise
-    NotImplementedError naming their ROADMAP item. A config with the ported
-    spell_path, autosuggest_path and host_graph_path builds on the CPU, as
-    does a shard with a linear_model_path (its parity is
-    tests/test_torch_optics.py's). The roles default to the card, which
-    raises without one."""
+def test_coordinator_options_build_on_the_cpu(index_dir, tmp_path, monkeypatch):
+    """Each of the coordinator's page options alone, and configs/api.toml,
+    build a coordinator on the CPU, wired as the JAX package's: a local
+    SidebarManager when entity_index_path is set, else a RemoteSidebarManager
+    and (without entity_image_store_path) a RemoteEntityImageStore over the
+    gossip-found entity-search servers; the page graph and the image store
+    when they are set; improvement_log_path read nowhere (the JAX app keeps
+    its log in memory). configs/api.toml is built from a directory holding
+    the files its relative paths name, on a free gossip port. A config with
+    the spell_path, autosuggest_path and host_graph_path builds, as does a
+    shard with a linear_model_path (its parity is tests/test_torch_optics.py's).
+    The roles default to the card, which raises without one."""
+    import dataclasses
     import inspect
 
     from stract_tpu_torch.autosuggest import Autosuggest
     from stract_tpu_torch.config import ApiConfig, load_config
     from stract_tpu_torch.distributed.sonic import RemoteClient
+    from stract_tpu_torch.entity_index.index import EntityIndex, SidebarManager
     from stract_tpu_torch.entrypoint import api as api_role
     from stract_tpu_torch.entrypoint import search_server
+    from stract_tpu_torch.entrypoint.entity_search_server import (RemoteEntityImageStore,
+                                                                  RemoteSidebarManager)
+    from stract_tpu_torch.image_store import ImageStore
     from stract_tpu_torch.index.inverted import InvertedIndex
     from stract_tpu_torch.ranking.models.linear import LinearRegression
     from stract_tpu_torch.spell.trainer import train_from_index
-    from stract_tpu_torch.webgraph.store import write_graph
+    from stract_tpu_torch.webgraph.store import Webgraph, write_graph
 
-    for name in ("entity_index_path", "page_graph_path", "entity_image_store_path",
-                 "improvement_log_path"):
-        with pytest.raises(NotImplementedError, match=f"{name}.*queue 1 item 3b"):
-            api_role.build_coordinator(ApiConfig(**{name: "x"}), device="cpu")
-    cfg = load_config("api", os.path.join(REPO, "configs/api.toml"))
-    with pytest.raises(NotImplementedError, match="^entity_index_path: .*queue 1 item 3b"):
-        api_role.build_coordinator(cfg, device="cpu")
-
-    train_from_index(InvertedIndex(index_dir, "cpu"), str(tmp_path / "spell"))
-    Autosuggest.from_queries(["w1 w2", "w1 w3"]).save(str(tmp_path / "suggest.bin"))
-    write_graph(str(tmp_path / "hosts"), ["a.com", "b.com", "c.com"], np.array([0, 0, 1]),
+    data = tmp_path / "data"
+    train_from_index(InvertedIndex(index_dir, "cpu"), str(data / "web_spell"))
+    Autosuggest.from_queries(["w1 w2", "w1 w3"]).save(str(data / "autosuggest.bin"))
+    write_graph(str(data / "webgraph_host"), ["a.com", "b.com", "c.com"], np.array([0, 0, 1]),
                 np.array([1, 2, 2]), host_graph=True)
-    cfg = ApiConfig(spell_path=str(tmp_path / "spell"), autosuggest_path=str(tmp_path /
-                                                                             "suggest.bin"),
-                    host_graph_path=str(tmp_path / "hosts"), max_concurrency=2)
-    api, cluster = api_role.build_coordinator(cfg, device="cpu")
+    write_graph(str(data / "pages"), ["https://a.com/", "https://b.com/x"], np.array([0]),
+                np.array([1]))
+    ei = EntityIndex(str(data / "entity_index"))
+    ei.commit()
+    ImageStore(str(data / "images")).insert("w1.webp", b"RIFF")
+    fields = {"entity_index_path": str(data / "entity_index"),
+              "page_graph_path": str(data / "pages"),
+              "entity_image_store_path": str(data / "images"),
+              "improvement_log_path": str(tmp_path / "improvements.jsonl")}
+    for name, path in fields.items():
+        cfg = ApiConfig(**{name: path}, max_concurrency=2)
+        api, cluster, pages = api_role.build_coordinator(cfg, device="cpu")
+        try:
+            local = name == "entity_index_path"
+            page_graph, image_store = pages
+            assert isinstance(api.sidebar, SidebarManager if local else RemoteSidebarManager)
+            assert isinstance(page_graph, Webgraph) == (name == "page_graph_path")
+            assert isinstance(image_store, ImageStore) == (name == "entity_image_store_path")
+            assert isinstance(image_store, RemoteEntityImageStore) == (
+                name in ("page_graph_path", "improvement_log_path"))
+            assert not hasattr(api, "page_graph") and not hasattr(api, "image_store")
+            assert api_role.coordinator_app(cfg, api, pages) is not None
+            api.searcher.client.close()
+        finally:
+            cluster.shutdown()
+    assert not os.path.exists(fields["improvement_log_path"])
+    monkeypatch.chdir(tmp_path)
+    cfg = load_config("api", os.path.join(REPO, "configs/api.toml"))
+    cfg = dataclasses.replace(cfg, gossip={"addr": "127.0.0.1:0"})
+    api, cluster, pages = api_role.build_coordinator(cfg, device="cpu")
+    try:
+        assert isinstance(api.sidebar, SidebarManager) and pages[1] is None
+        assert api.spell_checker is not None and api.pipeline.recall.inbound is not None
+        assert api_role.coordinator_app(cfg, api, pages) is not None
+    finally:
+        cluster.shutdown()
+    monkeypatch.undo()
+
+    cfg = ApiConfig(spell_path=str(data / "web_spell"), autosuggest_path=str(
+        data / "autosuggest.bin"), host_graph_path=str(data / "webgraph_host"), max_concurrency=2)
+    api, cluster, _pages = api_role.build_coordinator(cfg, device="cpu")
     try:
         assert api.spell_checker is not None and api.widget("2+3")["result"] == "5"
         assert [h for h, _ in api.pipeline.recall.inbound.similar_hosts(["c.com"], 5)] == \

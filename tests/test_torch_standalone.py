@@ -70,6 +70,24 @@ def test_pipeline_modules_import_neither_jax_nor_the_jax_package(module):
     assert not bad, bad
 
 
+def test_port_imports_no_lxml_at_module_level():
+    """The card's machine has no lxml: no file of the port imports it at module
+    level (entrypoint/entity.py parses with html.parser; leechy.py imports
+    lxml inside the call that evaluates an engine's XPath)."""
+    bad, lazy = [], []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        top = {id(n) for n in tree.body}
+        for line, name in _absolute_imports(path):
+            if _names_package(name, ("lxml",)):
+                node = next(n for n in ast.walk(tree) if getattr(n, "lineno", None) == line
+                            and isinstance(n, (ast.Import, ast.ImportFrom)))
+                (bad if id(node) in top else lazy).append(f"{os.path.relpath(path, REPO)}:{line}")
+    assert not bad and [p.split(":")[0] for p in lazy] == ["stract_tpu_torch/leechy.py"], \
+        (bad, lazy)
+
+
 # ---- each copied module against its original -------------------------------------------
 def _fields(obj) -> tuple:
     return tuple(sorted(dataclasses.asdict(obj).items()))
@@ -350,10 +368,14 @@ def _hll_init(orig, copy, rng):
 
 def _config(orig, copy, rng):
     for kind, name in (("centrality", "centrality.toml"), ("api", "api.toml"),
-                       ("search-server", "search_server.toml"), ("web-spell", "web_spell.toml")):
+                       ("search-server", "search_server.toml"), ("web-spell", "web_spell.toml"),
+                       ("indexer", "indexer.toml")):
         path = os.path.join(REPO, "configs", name)
         a, b = orig.load_config(kind, path), copy.load_config(kind, path)
         assert _fields(a) == _fields(b), kind
+    ess = {"index_path": "e", "image_store_path": "i", "port": 9, "gossip": {"addr": "h:1"}}
+    assert _fields(orig._from_dict(orig.EntitySearchServerConfig, ess)) == \
+        _fields(copy._from_dict(copy.EntitySearchServerConfig, ess))
     g = {"addr": "127.0.0.1:47001", "seeds": ["127.0.0.1:47000", "10.0.0.2:9"]}
     a, b = orig._from_dict(orig.GossipConfig, g), copy._from_dict(copy.GossipConfig, g)
     assert (a.addr_tuple(), a.seed_tuples()) == (b.addr_tuple(), b.seed_tuples())
@@ -552,6 +574,111 @@ def _inbound(orig, copy, rng):
     assert copy.host_node_id("h1.com") == orig.host_node_id("h1.com")
 
 
+def _zim(orig, copy, rng):
+    import tempfile
+
+    arts = [(f"a{i}", f"title {i}", "<p>" + "x" * int(n) + "</p>")
+            for i, n in enumerate(rng.integers(0, 200, 20))]
+    with tempfile.TemporaryDirectory() as d:
+        data = []
+        for name, mod in (("o", orig), ("c", copy)):
+            w = mod.ZimWriter()
+            for a in arts:
+                w.add_article(*a)
+            w.write(os.path.join(d, name))
+            with open(os.path.join(d, name), "rb") as fh:
+                data.append(fh.read())
+        assert data[0] == data[1]
+        z = copy.ZimFile(os.path.join(d, "o"))
+        assert [(a.url, a.title, a.text()) for a in z.articles()] == \
+            [(u, t, h) for u, t, h in arts]
+        z.close()
+
+
+def _image_store(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        blobs = [rng.bytes(int(n)) for n in rng.integers(1, 300, 10)]
+        a, b = orig.ImageStore(os.path.join(d, "o")), copy.ImageStore(os.path.join(d, "c"))
+        assert [a.insert(f"k{i}", x) for i, x in enumerate(blobs)] == \
+            [b.insert(f"k{i}", x) for i, x in enumerate(blobs)]
+        assert [copy.ImageStore(os.path.join(d, "o")).get(f"k{i}") for i in range(10)] == blobs
+        many = copy.ImageStore(os.path.join(d, "m"))
+        assert many.insert_many({f"k{i}": x for i, x in enumerate(blobs)}) == \
+            [a.insert(f"k{i}", x) for i, x in enumerate(blobs)]
+        assert [orig.ImageStore(os.path.join(d, "m")).get(f"k{i}") for i in range(10)] == blobs
+        assert len(many.index.segments) == 1
+
+
+def _entity_index(orig, copy, rng):
+    import tempfile
+
+    words = [f"w{i}" for i in range(12)]
+    ents = [(" ".join(rng.choice(words, 2)), " ".join(rng.choice(words, 8))) for _ in range(40)]
+    with tempfile.TemporaryDirectory() as d:
+        out = []
+        for name, mod in (("o", orig), ("c", copy)):
+            ei = mod.EntityIndex(os.path.join(d, name))
+            for t, a in ents:
+                ei.insert(mod.Entity(t, a))
+            out.append([[e.to_json() for e in ei.search(q, 3)] for q in words + [ents[0][0]]])
+            sm = mod.SidebarManager(ei)
+            out.append([sm.sidebar(q) for q in words])
+        assert out[0] == out[2] and out[1] == out[3]
+
+
+def _entity_parse(orig, copy, rng):
+    html = ("<html><body><p>" + "an abstract long enough to be kept here. " * 2 + "</p>"
+            "<table class='infobox'><tr><th>k</th><td>v</td></tr><tr><td><img src='i.png'>"
+            "</td></tr></table></body></html>")
+    assert copy.parse_wiki_article(html, "T").to_json() == \
+        orig.parse_wiki_article(html, "T").to_json()
+
+
+def _hyperloglog(orig, copy, rng):
+    a, b = orig.HyperLogLog(8), copy.HyperLogLog(8)
+    values = rng.integers(0, 2 ** 63, 500, dtype=np.uint64)
+    a.add_many_u64(values)
+    b.add_many_u64(values)
+    assert a.to_bytes() == b.to_bytes() and a.size() == b.size()
+
+
+def _user_count(orig, copy, rng):
+    a, b = orig.UserCount(8), copy.UserCount(8)
+    for i, u in enumerate(rng.integers(0, 300, 400)):
+        a.observe(str(u), now=1e9 + 600 * i)
+        b.observe(str(u), now=1e9 + 600 * i)
+    assert (a.daily_active(), a.monthly_active()) == (b.daily_active(), b.monthly_active())
+
+
+def _improvement(orig, copy, rng):
+    qa, qb = orig.LeakyQueue(5), copy.LeakyQueue(5)
+    for x in rng.integers(0, 100, 12).tolist():
+        qa.push(x)
+        qb.push(x)
+    assert qa.drain() == qb.drain()
+
+
+def _docs(orig, copy, rng):
+    assert copy.openapi_spec() == orig.openapi_spec() and copy.docs_html() == orig.docs_html()
+
+
+def _leechy(orig, copy, rng):
+    serp = '<a class="result__a" href="https://a.b/">x</a><a href="https://c.d/">y</a>'
+    engines = lambda m: [m.Engine("e", "https://e/?q={query}", "//a")]  # noqa: E731
+    fetch = lambda url: (200, serp, 0)  # noqa: E731
+    assert copy.Leechy(fetch, engines(copy)).annotate(["q"]) == \
+        orig.Leechy(fetch, engines(orig)).annotate(["q"])
+
+
+def _optics_lsp(orig, copy, rng):
+    assert copy.DOCS == orig.DOCS and copy.COMPLETIONS == orig.COMPLETIONS
+    for text in ('Rule { Matches { Site("|x|" } };', "Rule {};", 'Like(Site("a.com"));'):
+        assert copy._diagnostics(text) == orig._diagnostics(text)
+        assert copy._word_at(text, 0, 3) == orig._word_at(text, 0, 3)
+
+
 COPIES = {
     "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
     "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
@@ -570,6 +697,10 @@ COPIES = {
     "spell.stupid_backoff": _spell_parts, "spell.error_model": _spell_parts,
     "spell.checker": _spell_checker, "widgets": _widgets, "autosuggest": _autosuggest,
     "ranking.models.linear": _linear, "ranking.inbound_similarity": _inbound,
+    "zim": _zim, "image_store": _image_store, "entity_index.index": _entity_index,
+    "entrypoint.entity": _entity_parse, "utils.hyperloglog": _hyperloglog,
+    "api.user_count": _user_count, "api.improvement": _improvement, "api.docs": _docs,
+    "leechy": _leechy, "optics_lsp": _optics_lsp,
 }
 
 
