@@ -71,6 +71,27 @@ as `main.py serve --dual-encoder/--cross-encoder/--lambdamart` loads them,
 every serving kernel must be launched by that traffic, and its top-10 pages
 must match the plain versions'.
 
+Between the training and the kernel checks, the port builds its own index
+(index_phase): 2 seeded WARC files of 1,000 pages over 500 hosts written by
+the port's WarcWriter (stract_tpu_torch/warc_corpus.py: titles with a token
+of their own, descriptions, h1-h3, 300-1,500 words of paragraphs, 20-60
+links with some rel flags, JSON-LD on 1 in 10, microdata on 1 in 20,
+robots noindex on 1 in 50), their host graph, its harmonic centrality on
+the card (K6a / K6b launched), entrypoint/indexer.py run with that
+centrality and the trained dual encoder on the card (K5a-d launched by the
+title and keyword embeddings), two commits and merge_all, while `main.py
+indexer search` and `indexer canonical` run on the first file as
+processes. The doc count must be the pages less the noindex ones, the
+merged segment's docs, terms (the union), postings and stored docs those
+of the two segments, the stored title embeddings the f16 of what embed()
+gave, and the stemmer live (stem('running') == 'run'). The index is served
+through build_searcher with the dual encoder in recall: 64 sampled pages
+found at rank 1 by their own title token, a round of 32 queries (stop-word
+pairs and triples on the scan path, stems and title words on the driver
+path, deep pages) launching K1-K3, its top-10s the plain versions'.
+`[result index]` prints the counts, each stage's seconds, pages/s and the
+launches.
+
 The pipeline-on route serves 8 rounds of the request mix in one process,
 and every request must be answered.
 
@@ -308,6 +329,12 @@ PASS2_K = (1, PAGE_K, 512, C)
 MOE_E, MOE_STEPS, MOE_B, MOE_LR, MOE_ALPHA, TEACHER_SCALE = 4, 20, 32, 3e-4, 2.0, 5.0
 MOE_TIMED = 3
 MOE_KERNELS = ("moe_router", "moe_select", "pair_loss", "adamw_bf16", "adamw")
+# the index build: 2 WARC files of 1,000 pages over 500 hosts (a Common Crawl
+# file holds tens of thousands; the indexer's host rate sets the cut), 64
+# sampled pages found by their own title token, a round of 32 queries
+INDEX_FILES, INDEX_PAGES, INDEX_HOSTS, INDEX_SAMPLED, INDEX_QUERIES = 2, 1000, 500, 64, 32
+INDEX_BUILD_KERNELS = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "hll_merge",
+                       "hll_estimate")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
 # the mesh of shards on the card: its corpus (a segment a shard, 1M pages in
 # all), the kernels its serving round must launch, and K9 held against its
@@ -1146,16 +1173,16 @@ def page_match(wk, wp) -> float:
                       -1, 1e-3, 1e-3)
 
 
-def compare_phase(searcher, forest=None) -> dict:
-    """Top-10 of 8 queries: kernels against the plain versions, same card.
-    With the pipeline on (`forest` given), pages carry their signals and
-    compare through compare_pipeline_page."""
+def compare_phase(searcher, forest=None, bodies=None) -> dict:
+    """Top-10 of 8 queries (or of `bodies`): kernels against the plain
+    versions, same card. With the pipeline on (`forest` given), pages carry
+    their signals and compare through compare_pipeline_page."""
     import numpy as np
 
     from stract_tpu_torch.searcher.query import SearchQuery
 
     extra = {"numResults": 10, "returnRankingSignals": forest is not None}
-    bodies = compare_bodies()
+    bodies = bodies or compare_bodies()
     kern = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json() for b in bodies]
     with plain_versions():
         plain = [searcher.search(SearchQuery.from_json({**b, **extra})).to_json()
@@ -2317,6 +2344,219 @@ def train_phase(index_dir: str, out_dir: str, tok) -> dict:
     return {"dual": os.path.join(out_dir, f"dual_encoder-{DOCS}"),
             "cross": os.path.join(out_dir, f"cross_encoder-{DOCS}"),
             "summary": summary, "timing": timing, "launches": launches}
+
+
+def index_bodies(seg, rng) -> list:
+    """The index phase's round: 2- and 3-term queries of the pages' stop
+    words (in nearly every page, their groups pass the driver budget of
+    4,096 postings: the scan path, K1), of stems and title words (the driver
+    path), and deep pages (pass 2, K3)."""
+    from stract_tpu_torch import warc_corpus as WC
+
+    out = []
+    for i in range(INDEX_QUERIES):
+        n = 2 + i % 2
+        if i % 4 == 3:
+            words = seg.stored_doc(int(rng.integers(seg.num_docs)))["title"].lower().split()[:n]
+        else:
+            vocab = WC.EN_STOP[:12] if i % 4 < 2 else WC.EN_STEMS[:24]
+            words = [vocab[k] for k in rng.choice(len(vocab), n, replace=False)]
+        body = {"query": " ".join(words)}
+        if i % 4 == 1:
+            body.update(page=4, numResults=20)
+        out.append(body)
+    return out
+
+
+def index_phase(data_dir: str, dual_dir: str, card: str) -> dict:
+    """The port builds its own index on the card's machine: INDEX_FILES
+    seeded WARC files of INDEX_PAGES pages (stract_tpu_torch/warc_corpus.py)
+    → the host graph (entrypoint/webgraph_build.py) → its harmonic
+    centrality (run_harmonic: K6a / K6b) → entrypoint/indexer.py run with the
+    host centrality and the trained dual encoder on the card (title and
+    keyword embeddings: K5a-d), one segment a file, then merge_all; `main.py
+    indexer search` and `indexer canonical` on the first file as processes
+    beside it. The index is then served through main.build_searcher with the
+    dual encoder in recall: each of INDEX_SAMPLED pages' own title token
+    finds it at rank 1, a round of 2- and 3-term queries launches K1-K3, and
+    their top-10s match the plain versions'. Launches counted from 0 over
+    the build and over the round. → the phase's record."""
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch import warc_corpus as WC
+    from stract_tpu_torch.entrypoint import indexer as IX
+    from stract_tpu_torch.entrypoint.centrality import run_harmonic
+    from stract_tpu_torch.entrypoint.webgraph_build import build_from_warcs
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.kv import Db
+    from stract_tpu_torch.main import build_searcher
+    from stract_tpu_torch.models.dual_encoder import DualEncoder
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.searcher.query import SearchQuery
+    from stract_tpu_torch.tokenizer.stemmer import stem
+
+    stemmed = stem("running")
+    log(f"[index] the port's stemmer: stem('running') = {stemmed!r}")
+    if stemmed != "run":
+        raise AssertionError(f"the stemmer is not live: stem('running') = {stemmed!r}")
+    root = os.path.join(data_dir, "index_build")
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir, graph_dir, cent_dir = (os.path.join(root, n) for n in ("index", "graph", "cent"))
+    t_phase = t = time.perf_counter()
+    info = WC.write_warcs(os.path.join(root, "warc"), files=INDEX_FILES, pages=INDEX_PAGES,
+                          seed=SEED, hosts=INDEX_HOSTS)
+    secs = {"warc": time.perf_counter() - t}
+    procs = {}
+    for action in ("search", "canonical"):
+        cfg = os.path.join(root, f"{action}.toml")
+        with open(cfg, "w") as fh:
+            fh.write(f'warc_paths = ["{info.paths[0]}"]\n'
+                     f'output_path = "{os.path.join(root, "cli_" + action)}"\n')
+        procs[action] = subprocess.Popen(
+            [sys.executable, "-m", "stract_tpu_torch.main", "indexer", action, cfg], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        dual = DualEncoder.load(dual_dir, device=DEVICE)
+        embed_s, commit_s, merge_s, pre, stored = [], [], [], [], {}
+        real_attach = IX.IndexingWorker.attach_embeddings
+        real_commit, real_merge = InvertedIndex.commit, InvertedIndex.merge_all
+
+        def attach(self, docs):
+            t0 = time.perf_counter()
+            real_attach(self, docs)
+            embed_s.append(time.perf_counter() - t0)
+            stored.update((d["url"], d["title_embedding"]) for d in docs)
+
+        def commit(self):
+            t0 = time.perf_counter()
+            real_commit(self)
+            commit_s.append(time.perf_counter() - t0)
+            seg = self.segments[-1]
+            pre.append((seg.num_docs, np.array(seg.term_hashes), seg.meta["num_postings"],
+                        len(seg.stored_offsets) - 1))
+
+        def merge_all(self):
+            t0 = time.perf_counter()
+            real_merge(self)
+            merge_s.append(time.perf_counter() - t0)
+
+        kernels.reset_launches()
+        t = time.perf_counter()
+        build_from_warcs(info.paths, graph_dir, level="host")
+        secs["graph"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run_harmonic(graph_dir, cent_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        secs["centrality"] = time.perf_counter() - t
+        worker = IX.IndexingWorker(host_centrality=Db.open(cent_dir), dual_encoder=dual)
+        IX.IndexingWorker.attach_embeddings = attach
+        InvertedIndex.commit, InvertedIndex.merge_all = commit, merge_all
+        t = time.perf_counter()
+        try:
+            index = IX.run(info.paths, out_dir, worker, embedding_dim=dual.embedding_dim,
+                           device=DEVICE)
+        finally:
+            IX.IndexingWorker.attach_embeddings = real_attach
+            InvertedIndex.commit, InvertedIndex.merge_all = real_commit, real_merge
+        secs["indexer"] = time.perf_counter() - t
+        build_launches = dict(kernels.LAUNCHES)
+        secs.update(embedding=sum(embed_s), commit=sum(commit_s), merge=sum(merge_s))
+        secs["parse_index"] = secs["indexer"] - secs["embedding"] - secs["commit"] - secs["merge"]
+        missing = [k for k in INDEX_BUILD_KERNELS if build_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the build launched no {missing}: {build_launches}")
+
+        # ---- what the build wrote ---------------------------------------------------
+        docs = info.pages - info.noindex
+        seg = index.segments[0]
+        if index.num_docs != docs or len(pre) != INDEX_FILES or len(index.segments) != 1:
+            raise AssertionError(f"{index.num_docs} docs in {len(index.segments)} segments "
+                                 f"from {len(pre)} commits; {docs} pages to index")
+        want = (sum(p[0] for p in pre), len(np.unique(np.concatenate([p[1] for p in pre]))),
+                sum(p[2] for p in pre), sum(p[3] for p in pre))
+        got = (seg.num_docs, seg.meta["num_terms"], seg.meta["num_postings"],
+               len(seg.stored_offsets) - 1)
+        if got != want:
+            raise AssertionError(f"merged (docs, terms, postings, stored) {got} != {want}")
+        emb = np.asarray(seg.embeddings("title_embeddings"))
+        urls = [seg.stored_doc(d)["url"] for d in range(seg.num_docs)]
+        store_err = max(float(np.abs(emb[d].astype(np.float32) - np.asarray(
+            stored[u], np.float16).astype(np.float32)).max()) for d, u in enumerate(urls))
+        if store_err != 0.0:
+            raise AssertionError(f"stored title embeddings differ from embed(): {store_err}")
+        titles = [seg.stored_doc(d)["title"] for d in range(256)]
+        fresh_err = float(np.abs(dual.embed(titles) - emb[:256].astype(np.float32)).max())
+        if fresh_err > 2e-2 + 1e-3:
+            raise AssertionError(f"title embeddings re-embedded differ by {fresh_err}")
+
+        # ---- serve it on the card, the dual encoder in recall ----------------------------
+        t = time.perf_counter()
+        searcher = build_searcher(out_dir, DEVICE, dual_encoder=dual_dir)
+        rng = np.random.default_rng(SEED + 26)
+        sampled = [urls[d] for d in rng.choice(len(urls), INDEX_SAMPLED, replace=False)]
+        for url in sampled:
+            page = searcher.search(SearchQuery.from_json({"query": info.unique[url]})).to_json()
+            if not page["webpages"] or page["webpages"][0]["url"] != url:
+                raise AssertionError(f"{info.unique[url]} does not find {url} at rank 1: "
+                                     f"{[w['url'] for w in page['webpages'][:3]]}")
+        bodies = index_bodies(seg, rng)
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        hits = sum(len(searcher.search(SearchQuery.from_json(b)).to_json()["webpages"])
+                   for b in bodies)
+        round_s = time.perf_counter() - t1
+        serve_launches = dict(kernels.LAUNCHES)
+        if hits == 0 or any(serve_launches[k] == 0 for k in SCORING):
+            raise AssertionError(f"the round's {hits} results launched {serve_launches}")
+        cmp = compare_phase(searcher, bodies=[{"query": b["query"]} for b in bodies])
+        secs["serve"] = time.perf_counter() - t
+        del searcher
+
+        # ---- the command line's processes --------------------------------------------
+        t = time.perf_counter()
+        cli = {}
+        for action, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"main.py indexer {action} exited {proc.returncode}: "
+                                     f"{out[-2000:]}")
+            cli[action] = out.strip().splitlines()[-1]
+        secs["cli_wait"] = time.perf_counter() - t
+        cli_docs = InvertedIndex(os.path.join(root, "cli_search"), "cpu").num_docs
+        if cli_docs != pre[0][0]:
+            raise AssertionError(f"main.py indexer search indexed {cli_docs} docs, not "
+                                 f"{pre[0][0]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs["phase"] = time.perf_counter() - t_phase
+    return {"pages": info.pages, "noindex": info.noindex, "docs": seg.num_docs,
+            "segments_before_merge": len(pre), "terms": seg.meta["num_terms"],
+            "postings": seg.meta["num_postings"], "seconds": secs,
+            "pages_per_s": info.pages / secs["indexer"], "build_launches": build_launches,
+            "serve_launches": serve_launches, "round_queries": len(bodies),
+            "round_s": round_s, "sampled_rank1": len(sampled), "store_err": store_err,
+            "reembed_err": fresh_err, "vs_plain": cmp, "cli": cli, "stem": stemmed}
+
+
+def index_line(rec: dict, card: str) -> str:
+    """The `[result index]` line of index_phase's record."""
+    secs = " ".join(f"{k}_s={v:.2f}" for k, v in rec["seconds"].items())
+    k5 = {k: rec["build_launches"][k] for k in ("attention", "add_layernorm", "bias_gelu",
+                                                 "mean_pool")}
+    k6 = {k: rec["build_launches"][k] for k in ("hll_merge", "hll_estimate")}
+    k13 = {k: rec["serve_launches"][k] for k in SCORING}
+    return (f"[result index] pages={rec['pages']} noindex={rec['noindex']} docs={rec['docs']} "
+            f"segments={rec['segments_before_merge']}->1 terms={rec['terms']} postings="
+            f"{rec['postings']} {secs} pages_per_s={rec['pages_per_s']:.1f} "
+            f"k5_launches={json.dumps(k5)} k6_launches={json.dumps(k6)} k1_k3_launches="
+            f"{json.dumps(k13)} round={rec['round_queries']} queries in {rec['round_s']:.2f}s "
+            f"rank1={rec['sampled_rank1']}/{INDEX_SAMPLED} store_err={rec['store_err']} "
+            f"reembed_err={rec['reembed_err']:.3g} vs_plain={json.dumps(rec['vs_plain'])} "
+            f"stem={rec['stem']!r} cli={json.dumps(rec['cli'])} card={card}")
 
 
 def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
@@ -4527,6 +4767,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
         f"{emb['docs'] / emb['seconds']:.0f} docs/s card={card}")
     tok = dual.tokenizer
     del dual
+    built = in_phase("index build", index_phase, data_dir, models["dual"], card)
+    log(index_line(built, card))
     forest = in_phase("model kernels", LambdaMART.load, models["forest"], device=DEVICE)
     rows_m = (in_phase("model kernels", model_kernel_phase, forest, models["rows"])
               + in_phase("training kernels", training_kernel_phase, models["dual"]))
@@ -4664,6 +4906,10 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                            library, served["launches"], models["launches"], forest, card,
                            config_launches, moe["launches"], mesh, pipe, grid,
                            te["launches"])
+    for rec in kernels_out:  # the index phase's launches beside the main path's
+        if rec["name"] in INDEX_BUILD_KERNELS + SCORING:
+            rec["index_launches"] = (built["build_launches"][rec["name"]]
+                                     + built["serve_launches"][rec["name"]])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

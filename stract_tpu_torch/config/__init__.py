@@ -1,11 +1,13 @@
 """TOML config structs — the part of stract_tpu/config/__init__.py the
 port's command line reads (role of reference crates/core/src/config/,
 main.rs:267-275 load_toml_config): the coordinator's, the search shard's,
-the entity search server's, the indexer's, the centrality job's and the
-spell trainer's configs, read from the same TOML files (configs/api.toml,
-configs/search_server.toml, configs/indexer.toml, configs/centrality.toml, a
-web-spell TOML: index_path, output_path; an entity-search-server TOML:
-index_path, image_store_path, host, port, [gossip])."""
+the entity search server's, the indexer's, the centrality job's, the
+spell trainer's and the site-stats job's configs, read from the same TOML
+files (configs/api.toml, configs/search_server.toml, configs/indexer.toml,
+configs/centrality.toml, a web-spell TOML: index_path, output_path; an
+entity-search-server TOML: index_path, image_store_path, host, port,
+[gossip]; a site-stats TOML: index_path, output_path,
+host_centrality_path)."""
 
 from __future__ import annotations
 
@@ -113,9 +115,19 @@ class EntitySearchServerConfig:
     gossip: dict = field(default_factory=dict)
 
 
+@dataclass
+class SiteStatsConfig:
+    """(role of reference config::SiteStatsConfig, entrypoint/site_stats.rs)"""
+
+    index_path: str = "data/index"
+    output_path: str = "data/site_stats"
+    host_centrality_path: str = ""
+
+
 CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
                 "entity-search-server": EntitySearchServerConfig, "indexer": IndexerConfig,
-                "centrality": CentralityConfig, "web-spell": WebSpellConfig}
+                "centrality": CentralityConfig, "web-spell": WebSpellConfig,
+                "site-stats": SiteStatsConfig}
 
 
 def load_config(kind: str, path: str):

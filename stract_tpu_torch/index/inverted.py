@@ -1,8 +1,11 @@
-"""InvertedIndex — the serving subset of stract_tpu/index/inverted.py on torch.
+"""InvertedIndex — the port of stract_tpu/index/inverted.py on torch.
 
-Opens the JAX package's index directory (<path>/index_meta.json and
-<path>/segments/), uploads each segment to the device the caller names, and
-serves the two-phase protocol:
+Writes and opens the JAX package's index directory (<path>/index_meta.json
+and <path>/segments/, created empty where absent): insert / commit build a
+segment on the host (index/segment.py SegmentBuilder), merge_all compacts
+the segments into one (index/merge.py), merge_from adopts another index's.
+A search uploads each segment to the device the caller names and serves the
+two-phase protocol:
 
     search_arrays_batch(ctxs)         → ranked (segs, docs, scores) per query
     compute_signals_arrays_many(...)  → signal matrices for the final page
@@ -47,6 +50,8 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import uuid
 
 import numpy as np
 import torch
@@ -57,7 +62,8 @@ from ..ranking import signals as S
 from ..ops import scoring as O
 from ..ranking.computer import QueryContext, build_slots, choose_L, uses_default_static
 from .device import DeviceSegment, IMPACT_L, build_device_postings
-from .segment import Segment
+from .merge import merge_segments
+from .segment import Segment, SegmentBuilder
 
 # driver mode: when the smallest required group's postings fit this budget
 # they are the candidates (exact, no prefix truncation)
@@ -127,7 +133,8 @@ def _nonneg(q) -> bool:
 
 class InvertedIndex:
     def __init__(self, path: str, device, row_layout: str = "q16", device_join: bool = False,
-                 ub_lambda: float = 0.0, verify_c: int = 0, merge_kernel: bool = False):
+                 ub_lambda: float = 0.0, verify_c: int = 0, merge_kernel: bool = False,
+                 embedding_dim: int = 0):
         if row_layout not in ("q16", "q8"):
             raise ValueError(f"row_layout is 'q16' or 'q8', not {row_layout!r}")
         self.path = path
@@ -137,16 +144,83 @@ class InvertedIndex:
         self.ub_lambda = float(ub_lambda)
         self.verify_c = int(verify_c)
         self.merge_kernel = bool(merge_kernel)
-        with open(os.path.join(path, "index_meta.json")) as fh:
-            self.meta = json.load(fh)
+        os.makedirs(os.path.join(path, "segments"), exist_ok=True)
+        self._meta_path = os.path.join(path, "index_meta.json")
+        if os.path.exists(self._meta_path):
+            with open(self._meta_path) as fh:
+                self.meta = json.load(fh)
+        else:
+            self.meta = {"segments": [], "embedding_dim": embedding_dim}
+            self._save_meta()
+        self.embedding_dim = self.meta.get("embedding_dim", embedding_dim)
         self.segments: list[Segment] = [
             Segment(os.path.join(path, "segments", name)) for name in self.meta["segments"]
         ]
         self._device: dict[int, DeviceSegment] = {}
+        self._builder: SegmentBuilder | None = None
+
+    # -- lifecycle ------------------------------------------------------------
+    @classmethod
+    def temporary(cls, device, embedding_dim: int = 0) -> "InvertedIndex":
+        import tempfile
+
+        return cls(tempfile.mkdtemp(prefix="sti-"), device, embedding_dim=embedding_dim)
+
+    def _save_meta(self):
+        # atomic replace: a crash mid-write never leaves a torn segment manifest
+        tmp = self._meta_path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(self.meta, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, self._meta_path)
 
     @property
     def num_docs(self) -> int:
         return sum(s.num_docs for s in self.segments)
+
+    # -- writing (host only: no segment goes to the device here) ---------------
+    def insert(self, doc: dict) -> None:
+        if self._builder is None:
+            self._builder = SegmentBuilder(embedding_dim=self.embedding_dim)
+        self._builder.add(doc)
+
+    def commit(self) -> None:
+        """Flush pending docs as a new segment."""
+        if self._builder is None or len(self._builder) == 0:
+            return
+        name = f"seg-{uuid.uuid4().hex[:12]}"
+        seg = self._builder.build(os.path.join(self.path, "segments", name))
+        self.segments.append(seg)
+        self.meta["segments"].append(name)
+        self._save_meta()
+        self._builder = None
+
+    def merge_all(self) -> None:
+        """Compact all segments into one (drops the device copies; pointers
+        into the old segments no longer hold)."""
+        if len(self.segments) <= 1:
+            return
+        name = f"seg-{uuid.uuid4().hex[:12]}"
+        merged = merge_segments(self.segments, os.path.join(self.path, "segments", name))
+        for old in self.meta["segments"]:
+            shutil.rmtree(os.path.join(self.path, "segments", old), ignore_errors=True)
+        self.segments = [merged]
+        self.meta["segments"] = [name]
+        self._save_meta()
+        self._device.clear()
+
+    def merge_from(self, other: "InvertedIndex") -> None:
+        """Adopt another index's segments (reference indexer merge-search path)."""
+        for name in other.meta["segments"]:
+            new_name = f"seg-{uuid.uuid4().hex[:12]}"
+            shutil.copytree(
+                os.path.join(other.path, "segments", name),
+                os.path.join(self.path, "segments", new_name),
+            )
+            self.segments.append(Segment(os.path.join(self.path, "segments", new_name)))
+            self.meta["segments"].append(new_name)
+        self._save_meta()
 
     @property
     def fused(self) -> bool:
@@ -156,6 +230,9 @@ class InvertedIndex:
         return self.device.type == "cuda" and not self.device_join
 
     # -- device -------------------------------------------------------------------
+    def device_segment(self, ord_: int) -> DeviceSegment:
+        return self.device_segment_for(self.segments[ord_])
+
     def device_segment_for(self, seg: Segment) -> DeviceSegment:
         """Device tensors keyed by segment identity (a search keeps the
         segment list it started with)."""
@@ -703,13 +780,29 @@ class InvertedIndex:
                 return True
         return False
 
+    @staticmethod
+    def _phrase_checks(phrases: list, field_phrases: list | None) -> list:
+        return ([(None, w) for w in phrases]
+                + [((f,), w) for f, w in (field_phrases or [])])
+
+    def filter_phrases(self, pointers: list, phrases: list, segments: list | None = None,
+                       field_phrases: list | None = None) -> list:
+        """Indices of pointers satisfying every phrase (incl. field-scoped)."""
+        checks = self._phrase_checks(phrases, field_phrases)
+        if not checks:
+            return list(range(len(pointers)))
+        return [
+            i for i, p in enumerate(pointers)
+            if all(self.verify_phrase(p, words, segments, fields=flds)
+                   for flds, words in checks)
+        ]
+
     def filter_phrases_arr(self, seg_arr: np.ndarray, doc_arr: np.ndarray,
                            phrases: list, segments: list | None = None,
                            field_phrases: list | None = None) -> np.ndarray:
         """bool mask[N]: rows satisfying every phrase (incl. field-scoped)."""
         keep = np.ones(len(doc_arr), dtype=bool)
-        checks = ([(None, w) for w in phrases]
-                  + [((f,), w) for f, w in (field_phrases or [])])
+        checks = self._phrase_checks(phrases, field_phrases)
         if not checks:
             return keep
         for i in range(len(doc_arr)):
@@ -744,6 +837,21 @@ class InvertedIndex:
                 }
             )
         return out
+
+    # -- embeddings and columns of pointer lists -------------------------------------
+    def gather_embeddings(self, pointers: list, name: str,
+                          segments: list | None = None) -> np.ndarray | None:
+        return self.gather_embeddings_arr(*self._pointer_arrays(pointers), name, segments)
+
+    def gather_columns(self, pointers: list, names: list,
+                       segments: list | None = None) -> dict:
+        """Per-candidate column values {name: i64[len(pointers)]}."""
+        return self.gather_columns_arr(*self._pointer_arrays(pointers), names, segments)
+
+    @staticmethod
+    def _pointer_arrays(pointers: list) -> tuple:
+        return (np.fromiter((p.segment for p in pointers), dtype=np.int64, count=len(pointers)),
+                np.fromiter((p.doc for p in pointers), dtype=np.int64, count=len(pointers)))
 
     def gather_embeddings_arr(self, seg_arr: np.ndarray, doc_arr: np.ndarray,
                               name: str, segments: list | None = None) -> np.ndarray | None:

@@ -11,7 +11,11 @@
     python -m stract_tpu_torch.main search-server CONFIG [--device cuda]
     python -m stract_tpu_torch.main api CONFIG [--device cuda]
     python -m stract_tpu_torch.main web-spell CONFIG
-    python -m stract_tpu_torch.main indexer entity CONFIG
+    python -m stract_tpu_torch.main indexer {search,merge,canonical,entity} CONFIG
+    python -m stract_tpu_torch.main configure [--data-dir data] [--device cuda]
+    python -m stract_tpu_torch.main site-stats CONFIG
+    python -m stract_tpu_torch.main safety-classifier {train DATA MODEL,predict MODEL TEXT...}
+    python -m stract_tpu_torch.main admin {index-stats PATH,top-keyphrases PATH,status HOST:PORT}
     python -m stract_tpu_torch.main entity-search-server CONFIG
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
@@ -62,13 +66,31 @@ an index directory of either package on the host (no device work) and
 writes the term frequencies, the language model and the error model that
 the coordinator's spell_path loads.
 
-`indexer entity` is the JAX package's `indexer` action of the same name:
-CONFIG is an IndexerConfig TOML (zim_path, output_path, entity_limit). It
-reads the ZIM at zim_path on the host (zim.py), parses each article's
-abstract, infobox and image (entrypoint/entity.py) and writes the entity
-index (entities.bin, the JAX package's layout) to output_path. The actions
-`search`, `merge` and `canonical` build the search index, which the port
-does not yet write (ROADMAP queue 1 item 4): they raise before any work.
+`indexer` is the JAX package's subcommand of the same name: CONFIG is an
+IndexerConfig TOML (configs/indexer.toml). `search` and `merge` index the
+pages of the WARC files at warc_paths (entrypoint/indexer.py: parse, the
+host and page centralities of the kv stores at host_centrality_path and
+page_centrality_path, keywords, one segment a file) into the search index
+at output_path, merged into one segment for `merge` or when the config sets
+merge; `canonical` writes the canonical-URL store of the pages'
+rel=canonical links (canon_index.py); `entity` reads the ZIM at zim_path
+(zim.py), parses each article's abstract, infobox and image
+(entrypoint/entity.py) and writes the entity index (entities.bin) to
+output_path, stopping at entity_limit. All four are host work, and each
+writes the JAX package's files. As in the JAX package, dual_encoder_path and
+safety_model_path are read nowhere here: entrypoint/indexer.py run takes a
+dual encoder (IndexingWorker(dual_encoder=...)), whose embeddings run on
+the card it was loaded onto.
+
+`configure` is the JAX package's dev bootstrap (entrypoint/configure.py): a
+small synthetic WARC, its host graph, the graph's harmonic centrality (on
+--device), the index, the spell models, autosuggest and an entity index,
+all under --data-dir.
+
+`site-stats` (a SiteStatsConfig TOML: index_path, output_path,
+host_centrality_path), `safety-classifier train DATA MODEL | predict MODEL
+TEXT` and `admin index-stats PATH | top-keyphrases PATH | status HOST:PORT`
+are the JAX package's subcommands of the same names, host work all.
 
 `entity-search-server` is the JAX package's role of the same name: CONFIG is
 an EntitySearchServerConfig TOML (index_path, image_store_path, host, port,
@@ -180,6 +202,89 @@ def run_centrality(mode: str, config: str, device: str = "cuda",
     return c
 
 
+def _indexer(action: str, config: str) -> None:
+    """`main.py indexer ACTION CONFIG` (stract_tpu/main.py's indexer actions)."""
+    from .config import load_config
+
+    cfg = load_config("indexer", config)
+    if action == "entity":
+        from .entrypoint.entity import build_entity_index
+
+        idx = build_entity_index(cfg.zim_path, cfg.output_path, limit=cfg.entity_limit or None)
+        print(f"indexed {len(idx)} entities → {cfg.output_path}", flush=True)
+    elif action == "canonical":
+        from .canon_index import build_from_warcs as build_canonical
+
+        build_canonical(cfg.warc_paths, cfg.output_path)
+        print(f"canonical index → {cfg.output_path}", flush=True)
+    else:
+        from .entrypoint.indexer import IndexingWorker, run
+        from .kv import Db
+
+        worker = IndexingWorker(
+            host_centrality=Db.open(cfg.host_centrality_path) if cfg.host_centrality_path else None,
+            page_centrality=Db.open(cfg.page_centrality_path) if cfg.page_centrality_path else None,
+        )
+        idx = run(cfg.warc_paths, cfg.output_path, worker, embedding_dim=cfg.embedding_dim,
+                  merge=(action == "merge" or cfg.merge))
+        print(f"indexed {idx.num_docs} docs → {cfg.output_path}", flush=True)
+
+
+def _safety(action: str, rest: list) -> None:
+    from .webpage.safety import SafetyClassifier
+
+    if action == "train":
+        import json
+
+        data_path, model_path = rest
+        texts, labels = [], []
+        with open(data_path) as fh:
+            for line in fh:
+                d = json.loads(line)
+                texts.append(d["text"])
+                labels.append(d["label"])
+        SafetyClassifier.train(texts, labels).save(model_path)
+        print(f"model → {model_path}")
+    else:
+        model_path, text = rest[0], " ".join(rest[1:])
+        print(SafetyClassifier.load(model_path).classify(text))
+
+
+def _admin(action: str, path) -> None:
+    # the index is read on the host (stored docs and segment metadata)
+    if action == "index-stats" and path:
+        from .index.inverted import InvertedIndex
+
+        idx = InvertedIndex(path, "cpu")
+        print(f"docs={idx.num_docs} segments={len(idx.segments)}")
+        for s in idx.segments:
+            print(f"  {s.path}: docs={s.num_docs} terms={s.meta['num_terms']} "
+                  f"postings={s.meta['num_postings']}")
+    elif action == "top-keyphrases" and path:
+        from .generic_query import TopKeyPhrasesQuery, run_generic_query
+        from .index.inverted import InvertedIndex
+        from .searcher.local import LocalSearcher
+
+        phrases = run_generic_query(
+            TopKeyPhrasesQuery(50), [LocalSearcher(InvertedIndex(path, "cpu"), 0)])
+        for phrase, count in sorted(phrases.items(), key=lambda kv: -kv[1]):
+            print(f"{count:6d}  {phrase}")
+    elif action == "status" and path:
+        import time
+
+        from .distributed.cluster import Cluster, Service
+
+        h, p = path.rsplit(":", 1)
+        c = Cluster.join(Service("admin"), seeds=[(h, int(p))])
+        time.sleep(3)
+        for m in c.members():
+            svc = m.service
+            print(f"{m.id} kind={svc.kind} shard={svc.shard} host={svc.host} alive={m.is_alive()}")
+        c.shutdown()
+    else:
+        print("usage: admin status <gossip-seed host:port> | admin index-stats <path>")
+
+
 def _wait_forever():
     stop = threading.Event()
     while not stop.wait(3600):
@@ -221,9 +326,20 @@ def main(argv=None):
     cp.add_argument("--device", default="cuda", help="cuda or cpu")
     wp = sub.add_parser("web-spell", help="train spell-correction models from an index")
     wp.add_argument("config")
-    ip = sub.add_parser("indexer", help="build the entity index from a ZIM dump")
+    ip = sub.add_parser("indexer", help="build search/entity/canonical indexes")
     ip.add_argument("action", choices=["search", "merge", "entity", "canonical"])
     ip.add_argument("config")
+    cf = sub.add_parser("configure", help="build a tiny dev deployment in data/")
+    cf.add_argument("--data-dir", default="data")
+    cf.add_argument("--device", default="cuda", help="cuda or cpu")
+    ss = sub.add_parser("site-stats", help="aggregate per-site statistics")
+    ss.add_argument("config")
+    sc = sub.add_parser("safety-classifier")
+    sc.add_argument("action", choices=["train", "predict"])
+    sc.add_argument("args", nargs="*")
+    ad = sub.add_parser("admin")
+    ad.add_argument("action", choices=["status", "index-stats", "top-keyphrases"])
+    ad.add_argument("path", nargs="?", help="index path, or gossip seed host:port for status")
     ep = sub.add_parser("entity-search-server",
                         help="the entity sidebar's server over sonic RPC, announced by gossip")
     ep.add_argument("config")
@@ -249,16 +365,34 @@ def main(argv=None):
         return
 
     if args.role == "indexer":
+        _indexer(args.action, args.config)
+        return
+
+    if args.role == "configure":
+        from .entrypoint.configure import run as configure_run
+
+        configure_run(args.data_dir, device=args.device)
+        return
+
+    if args.role == "site-stats":
+        from . import site_stats
         from .config import load_config
+        from .index.inverted import InvertedIndex
+        from .kv import Db
 
-        if args.action != "entity":
-            raise NotImplementedError(f"indexer {args.action}: the port does not yet build "
-                                      "search indexes (ROADMAP queue 1 item 4)")
-        from .entrypoint.entity import build_entity_index
+        cfg = load_config("site-stats", args.config)
+        hc = Db.open(cfg.host_centrality_path) if cfg.host_centrality_path else None
+        # the stored docs are read on the host: the index is never uploaded
+        site_stats.run(InvertedIndex(cfg.index_path, "cpu"), cfg.output_path, hc)
+        print(f"site stats → {cfg.output_path}")
+        return
 
-        cfg = load_config("indexer", args.config)
-        idx = build_entity_index(cfg.zim_path, cfg.output_path, limit=cfg.entity_limit or None)
-        print(f"indexed {len(idx)} entities → {cfg.output_path}", flush=True)
+    if args.role == "safety-classifier":
+        _safety(args.action, args.args)
+        return
+
+    if args.role == "admin":
+        _admin(args.action, args.path)
         return
 
     if args.role == "entity-search-server":

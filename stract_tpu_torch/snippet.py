@@ -21,6 +21,7 @@ import re
 from dataclasses import dataclass, field
 
 from .tokenizer import tokenize
+from .tokenizer.stemmer import stem
 
 
 # body words repeat heavily ACROSS documents and requests — cache word-level
@@ -33,12 +34,7 @@ def _word_tokens(w: str) -> tuple:
 
 @functools.lru_cache(maxsize=262144)
 def _word_stem(t: str) -> str:
-    try:
-        from .tokenizer.stemmer import stem
-
-        return stem(t)
-    except Exception:  # noqa: BLE001 — stemmer optional
-        return t
+    return stem(t)
 
 MAX_CONSIDERED_WORDS = 10_000
 DESIRED_NUM_CHARS = 275

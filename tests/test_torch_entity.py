@@ -356,8 +356,8 @@ def _entity_zim(tmp_path, n: int = 120) -> str:
 def test_main_indexer_entity_of_each_package_writes_the_same_index(tmp_path):
     """`python -m stract_tpu_torch.main indexer entity CONFIG` as a process and
     the JAX package's `main indexer entity` on the same ZIM: the same
-    entities.bin, also under entity_limit; the other actions raise in the
-    port, naming their ROADMAP item, before they read the config."""
+    entities.bin, also under entity_limit; the other actions (search,
+    merge, canonical) run too, over a WARC file, and write what they name."""
     from stract_tpu.main import main as jax_main
 
     zim = _entity_zim(tmp_path)
@@ -374,11 +374,22 @@ def test_main_indexer_entity_of_each_package_writes_the_same_index(tmp_path):
         with open(os.path.join(outs[0], "entities.bin"), "rb") as a, \
                 open(os.path.join(outs[1], "entities.bin"), "rb") as b:
             assert a.read() == b.read()
+    from stract_tpu_torch.index.inverted import InvertedIndex
+    from stract_tpu_torch.kv import Db
     from stract_tpu_torch.main import main
+    from stract_tpu_torch.warc import WarcWriter
 
+    warc = str(tmp_path / "pages.warc.gz")
+    with WarcWriter.open(warc) as w:
+        w.write_record("https://a.org/x", '<html><head><title>Alpha</title><link rel="canonical" '
+                       'href="https://a.org/"></head><body><p>alpha beta</p></body></html>')
     for action in ("search", "merge", "canonical"):
-        with pytest.raises(NotImplementedError, match=f"indexer {action}: .*queue 1 item 4"):
-            main(["indexer", action, str(tmp_path / "no-such-config.toml")])
+        cfg = tmp_path / f"{action}.toml"
+        cfg.write_text(f'warc_paths = ["{warc}"]\noutput_path = "{tmp_path / action}"\n')
+        main(["indexer", action, str(cfg)])
+    for action in ("search", "merge"):
+        assert InvertedIndex(str(tmp_path / action), "cpu").num_docs == 1
+    assert Db.open(str(tmp_path / "canonical")).get(b"https://a.org/x") == "https://a.org/"
 
 
 def _service(pkg: str, tmp_path):

@@ -70,6 +70,14 @@ def test_pipeline_modules_import_neither_jax_nor_the_jax_package(module):
     assert not bad, bad
 
 
+def test_port_imports_no_nltk():
+    """The port stems with its own Snowball copy (tokenizer/snowball.py): no
+    file of the port or the smoke imports nltk, at any depth."""
+    bad = [f"{os.path.relpath(path, REPO)}:{line} {name}" for path in _port_sources()
+           for line, name in _absolute_imports(path) if _names_package(name, ("nltk",))]
+    assert not bad, bad
+
+
 def test_port_imports_no_lxml_at_module_level():
     """The card's machine has no lxml: no file of the port imports it at module
     level (entrypoint/entity.py parses with html.parser; leechy.py imports
@@ -369,7 +377,7 @@ def _hll_init(orig, copy, rng):
 def _config(orig, copy, rng):
     for kind, name in (("centrality", "centrality.toml"), ("api", "api.toml"),
                        ("search-server", "search_server.toml"), ("web-spell", "web_spell.toml"),
-                       ("indexer", "indexer.toml")):
+                       ("indexer", "indexer.toml"), ("site-stats", "web_spell.toml")):
         path = os.path.join(REPO, "configs", name)
         a, b = orig.load_config(kind, path), copy.load_config(kind, path)
         assert _fields(a) == _fields(b), kind
@@ -679,6 +687,179 @@ def _optics_lsp(orig, copy, rng):
         assert copy._word_at(text, 0, 3) == orig._word_at(text, 0, 3)
 
 
+# ---- the index build's copies (tests/test_torch_webpage.py, test_torch_indexer.py and
+# test_torch_configure.py hold them at size) ---------------------------------------------
+PAGE = ('<!DOCTYPE html><html lang="en"><head><title>Rust &amp; the borrow checker</title>'
+        '<meta name="description" content="d"><link rel="canonical" href="https://c.org/x">'
+        '<script type="application/ld+json">{"@type": "Article", "headline": "h"}</script>'
+        '<script src="https://www.googletagmanager.com/gtm.js"></script></head><body>'
+        '<nav><a href="/a" rel="nofollow">nav</a></nav><h1>Rust</h1><p>' + TEXT + '</p>'
+        '<div itemscope itemtype="https://schema.org/Recipe"><span itemprop="name">n</span>'
+        '</div><footer><a href="https://other.org/">f</a></footer></body></html>')
+
+
+def _pinned_clock():
+    from unittest import mock
+
+    return mock.patch("time.time", return_value=1.7e9)
+
+
+def _simhash(orig, copy, rng):
+    assert copy.simhash_text(TEXT) == orig.simhash_text(TEXT)
+    assert copy.is_near_duplicate(5, 7) == orig.is_near_duplicate(5, 7)
+
+
+def _region(orig, copy, rng):
+    for text, hint in ((TEXT, ""), ("der die und das", ""), ("", "fr-CA"), ("x", "zz")):
+        assert copy.detect_lang(text, hint) == orig.detect_lang(text, hint)
+    assert [int(copy.Region.from_lang(c)) for c in ("en", "nb", "pl", "")] == \
+        [int(orig.Region.from_lang(c)) for c in ("en", "nb", "pl", "")]
+
+
+def _adservers(orig, copy, rng):
+    urls = ["https://ads.doubleclick.net/x", "//www.hotjar.com/h.js", "https://a.org/", "bad["]
+    assert copy.count_trackers(urls) == orig.count_trackers(urls)
+
+
+def _schema_org(orig, copy, rng):
+    from stract_tpu_torch.webpage.tree import fromstring
+
+    import lxml.html
+
+    items = copy.parse_json_ld(fromstring(PAGE)) + copy.parse_microdata(fromstring(PAGE))
+    ref = (orig.parse_json_ld(lxml.html.fromstring(PAGE))
+           + orig.parse_microdata(lxml.html.fromstring(PAGE)))
+    assert items == ref and copy.flatten(items) == orig.flatten(ref)
+
+
+def _just_text(orig, copy, rng):
+    from stract_tpu_torch.webpage.tree import fromstring
+
+    import lxml.html
+
+    assert copy.extract_paragraphs(fromstring(PAGE)) == \
+        orig.extract_paragraphs(lxml.html.fromstring(PAGE))
+
+
+def _html(orig, copy, rng):
+    with _pinned_clock():
+        assert copy.Html(PAGE, "https://www.x.org/p").prepare() == \
+            orig.Html(PAGE, "https://www.x.org/p").prepare()
+
+
+def _webpage(orig, copy, rng):
+    with _pinned_clock():
+        assert copy.Webpage.parse(PAGE, "https://x.org/", keywords=["k"]).as_document() == \
+            orig.Webpage.parse(PAGE, "https://x.org/", keywords=["k"]).as_document()
+
+
+def _naive_bayes(orig, copy, rng):
+    texts, labels = ["a b c", "c d e", "a a b", "e e d"], ["x", "y", "x", "y"]
+    a, b = orig.NaiveBayes(), copy.NaiveBayes()
+    a.fit(texts, labels)
+    b.fit(texts, labels)
+    assert b.predict_proba("a c e") == a.predict_proba("a c e")
+
+
+def _safety(orig, copy, rng):
+    texts, labels = ["adult xxx", "cooking pasta", "xxx nsfw", "code tutorial"], \
+        ["nsfw", "sfw", "nsfw", "sfw"]
+    assert copy.SafetyClassifier.train(texts, labels).classify("xxx adult") == \
+        orig.SafetyClassifier.train(texts, labels).classify("xxx adult")
+
+
+def _keywords(orig, copy, rng):
+    assert copy.rake_keywords(TEXT) == orig.rake_keywords(TEXT)
+
+
+def _warc(orig, copy, rng):
+    import tempfile
+    import uuid
+    from unittest import mock
+
+    with tempfile.TemporaryDirectory() as d:
+        data = []
+        for name, mod in (("o", orig), ("c", copy)):
+            path = os.path.join(d, name)
+            with mock.patch("uuid.uuid4", return_value=uuid.UUID(int=7)), \
+                    mod.WarcWriter.open(path) as w:
+                w.write_record("https://a.org/", PAGE, date="2024-01-01T00:00:00Z")
+            data.append(open(path, "rb").read())
+            assert [r.url for r in copy.WarcReader.open(path)] == ["https://a.org/"]
+        assert data[0] == data[1]
+
+
+def _index_build(orig, copy, rng):
+    """SegmentBuilder (index.segment's writer) and merge_segments: the same
+    files from the same prepared docs."""
+    import tempfile
+
+    from stract_tpu.index import segment as orig_segment
+    from stract_tpu_torch.index import segment as copy_segment
+
+    docs = [{"url": f"https://s{i}.org/p", "title": f"t{i} rust", "clean_text": TEXT,
+             "site": f"s{i}.org", "host_centrality": float(x)}
+            for i, x in enumerate(rng.random(5))]
+    with tempfile.TemporaryDirectory() as d:
+        for name, seg_mod, merge_mod in (("o", orig_segment, orig), ("c", copy_segment, copy)):
+            segs = []
+            for k in range(2):
+                builder = seg_mod.SegmentBuilder()
+                for doc in docs[k::2]:
+                    builder.add(dict(doc))
+                segs.append(builder.build(os.path.join(d, name, str(k))))
+            merge_mod.merge_segments(segs, os.path.join(d, name, "m"))
+        trees = []
+        for name in ("o", "c"):
+            root = os.path.join(d, name)
+            trees.append({os.path.relpath(os.path.join(r, f), root):
+                          open(os.path.join(r, f), "rb").read()
+                          for r, _, fs in os.walk(root) for f in fs})
+        assert trees[0] == trees[1] and len(trees[0]) > 30
+
+
+def _canon_index(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        a, b = orig.CanonicalIndex(os.path.join(d, "o")), copy.CanonicalIndex(os.path.join(d, "c"))
+        for ci in (a, b):
+            ci.insert("https://a.org/1", "https://a.org/")
+            ci.insert("https://a.org/", "https://a.org/")
+            ci.commit()
+        assert [b.canonical_of(u) for u in ("https://a.org/1", "https://b.org/")] == \
+            [a.canonical_of(u) for u in ("https://a.org/1", "https://b.org/")]
+
+
+def _webgraph_build(orig, copy, rng):
+    assert copy.SKIP_FLAGS == orig.SKIP_FLAGS
+
+
+def _site_stats(orig, copy, rng):
+    class _Seg:
+        num_docs = 3
+
+        def stored_doc(self, i):
+            return {"site": ("a.org", "b.org", "")[i], "lang": "en"}
+
+    class _Index:
+        segments = [_Seg(), _Seg()]
+
+    assert copy.compute_site_stats(_Index()) == orig.compute_site_stats(_Index())
+
+
+def _indexer(orig, copy, rng):
+    with _pinned_clock():
+        a = orig.IndexingWorker().prepare(PAGE, "https://www.x.org/p")
+        b = copy.IndexingWorker().prepare(PAGE, "https://www.x.org/p")
+    assert a == b and copy.IndexingWorker().prepare(
+        '<meta name="robots" content="noindex">', "https://x.org/") is None
+
+
+def _configure(orig, copy, rng):
+    assert copy._PAGES == orig._PAGES
+
+
 COPIES = {
     "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
     "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
@@ -701,6 +882,13 @@ COPIES = {
     "entrypoint.entity": _entity_parse, "utils.hyperloglog": _hyperloglog,
     "api.user_count": _user_count, "api.improvement": _improvement, "api.docs": _docs,
     "leechy": _leechy, "optics_lsp": _optics_lsp,
+    "utils.simhash": _simhash, "webpage.region": _region, "webpage.adservers": _adservers,
+    "webpage.schema_org": _schema_org, "webpage.just_text": _just_text, "webpage.html": _html,
+    "webpage": _webpage, "utils.naive_bayes": _naive_bayes, "webpage.safety": _safety,
+    "keywords": _keywords, "warc": _warc, "index.merge": _index_build,
+    "canon_index": _canon_index, "entrypoint.webgraph_build": _webgraph_build,
+    "site_stats": _site_stats, "entrypoint.indexer": _indexer,
+    "entrypoint.configure": _configure,
 }
 
 
