@@ -92,6 +92,27 @@ path, deep pages) launching K1-K3, its top-10s the plain versions'.
 `[result index]` prints the counts, each stage's seconds, pages/s and the
 launches.
 
+Then the freshness tier (live_phase): a fake web of 50 seeded sites of 20
+pages (warc_corpus.py pages under seed 27, 80-300 words; 60 % published
+before the crawl, the rest over 26 simulated hours) on an http.server at
+127.0.0.1, each with an RSS or Atom feed, a sitemap (every fifth a
+sitemapindex; raw `&` in some locs), a front page and a robots.txt; two
+live-index replicas of shard 0 on the card (entrypoint/live_index.py run,
+sonic, gossip) fed by a LiveCrawler through LiveIndexClient(0.5), the
+replicas ticking every 10 simulated minutes (~150 autocommits, hourly
+compaction); the coordinator (entrypoint/api.py) over gossip with the index
+phase's index as its search shard. Before compaction, after it and after a
+jump past the 60-day TTL: 64 HTTP queries whose pages each hold a live
+candidate (shard >= LIVE_SHARD_OFFSET), 64 queries' top 10 from replica 0
+against a CPU LiveIndex on a copy of its directory (rtol / atol 1e-3), K1-K3
+launched by the live shard's own searches; card memory after the last
+compaction-and-prune cycle within one segment's device copy of the first's;
+a quorum write with a replica down (0.5 acks, 1.0 raises); `main.py
+live-index serve` as a process answering a search found by gossip; the
+crawl roles (coordinator, router, worker over sonic) crawling 5 sites into
+WARC files, robots obeyed. `[result live]` prints the stages' seconds, the
+segment counts and the launches.
+
 The pipeline-on route serves 8 rounds of the request mix in one process,
 and every request must be answered.
 
@@ -336,6 +357,16 @@ INDEX_FILES, INDEX_PAGES, INDEX_HOSTS, INDEX_SAMPLED, INDEX_QUERIES = 2, 1000, 5
 INDEX_BUILD_KERNELS = ("attention", "add_layernorm", "bias_gelu", "mean_pool", "hll_merge",
                        "hll_estimate")
 DEVICE = "cuda"  # the phases run here; a CPU rehearsal of the flow sets "cpu"
+# the freshness tier: seeded sites and pages of the fake web (short pages: the
+# replicas prepare every page on the host), the share published before the
+# crawl starts, the simulated hours crawled, the feed's and front page's
+# links, queries a checkpoint, the hours a jump past the TTL drops, the live
+# shard of `main.py live-index serve`, the sites the crawl roles crawl; the
+# live top 10 against a CPU LiveIndex at rtol / atol 1e-3
+LIVE_SEED, LIVE_SITES, LIVE_SITE_PAGES, LIVE_WORDS = 27, 50, 20, (80, 300)
+LIVE_BACKLOG, LIVE_HOURS, LIVE_FEED_ITEMS, LIVE_FRONT_LINKS = 0.6, 26, 8, 10
+LIVE_QUERIES, LIVE_PRUNED_HOURS, LIVE_CLI_SHARD, LIVE_ROLE_SITES = 64, 3, 7, 5
+LIVE_TOL = (1e-3, 1e-3)
 # the mesh of shards on the card: its corpus (a segment a shard, 1M pages in
 # all), the kernels its serving round must launch, and K9 held against its
 # plain version at (shards, K): the serving path's K = 512 (the bucket of the
@@ -2559,6 +2590,588 @@ def index_line(rec: dict, card: str) -> str:
             f"stem={rec['stem']!r} cli={json.dumps(rec['cli'])} card={card}")
 
 
+# ---- the freshness tier: a fake web, the live crawler, two live replicas ----------------
+class FakeWeb:
+    """LIVE_SITES seeded sites of LIVE_SITE_PAGES pages (warc_corpus.page under
+    LIVE_SEED), served by an http.server on 127.0.0.1 in a thread. A page is
+    published at its seeded time of the simulated clock `now[0]` (most
+    before the crawl starts, the rest over LIVE_HOURS): each site's feed (RSS
+    2.0 or Atom, half each) lists its LIVE_FEED_ITEMS latest pages, its
+    sitemap every published page (every fifth site a sitemapindex over two
+    urlsets; a raw `&` in every seventh loc), its front page the latest
+    LIVE_FRONT_LINKS, and its robots.txt disallows one page. fetch() maps
+    https://{site}/... to the loopback server over a kept-alive HTTP/1.1
+    connection a thread, so nothing leaves the machine."""
+
+    def __init__(self, now: list, t0: float):
+        import re
+        import threading
+
+        import numpy as np
+
+        from stract_tpu_torch import warc_corpus as WC
+
+        self.now = now
+        rng = np.random.default_rng(LIVE_SEED)
+        self.sites = [f"live{s}.example" for s in range(LIVE_SITES)]
+        self.pages = {}  # site → [(path, html, title, published)]
+        for s, site in enumerate(self.sites):
+            rows = []
+            for k in range(LIVE_SITE_PAGES):
+                url, html, _ = WC.page(rng, LIVE_SEED, 1 + s * LIVE_SITE_PAGES + k, [site],
+                                       words=LIVE_WORDS)
+                title = re.search(r"<title>(.*?)</title>", html).group(1)
+                published = (t0 - 1.0 if rng.random() < LIVE_BACKLOG
+                             else t0 + float(rng.uniform(0, LIVE_HOURS * 3600)))
+                rows.append((url.split(site, 1)[1], html, title, published))
+            self.pages[site] = rows
+        self.fetched: list = []
+        self.server = self.thread = None
+        self._conns = threading.local()
+
+    def disallowed(self, site: str) -> str:
+        return self.pages[site][-1][0]
+
+    def published(self, site: str) -> list:
+        return sorted((p for p in self.pages[site] if p[3] <= self.now[0]), key=lambda p: p[3])
+
+    def body(self, site: str, path: str) -> tuple:
+        """(status, text) of https://{site}{path} at the simulated time."""
+        from xml.sax.saxutils import escape
+
+        if site not in self.pages:
+            return 404, ""
+        pub = self.published(site)
+        s = self.sites.index(site)
+        base = f"https://{site}"
+        if path == "/robots.txt":
+            return 200, f"User-agent: *\nDisallow: {self.disallowed(site)}\n"
+        if path == "/":
+            links = "".join(f'<a href="{p[0]}">{escape(p[2])}</a>'
+                            for p in pub[-LIVE_FRONT_LINKS:])
+            return 200, f"<html><head><title>{site}</title></head><body>{links}</body></html>"
+        if path == "/feed.xml":
+            latest = pub[-LIVE_FEED_ITEMS:][::-1]
+            if s % 2 == 0:
+                items = "".join(f"<item><title>{escape(p[2])}</title><link>{base}{p[0]}</link>"
+                                f"<pubDate>{p[3]:.0f}</pubDate></item>" for p in latest)
+                return 200, (f'<?xml version="1.0"?><rss version="2.0"><channel><title>{site}'
+                             f"</title>{items}</channel></rss>")
+            entries = "".join(f'<entry><title>{escape(p[2])}</title><link rel="alternate" '
+                              f'href="{base}{p[0]}"/><updated>{p[3]:.0f}</updated></entry>'
+                              for p in latest)
+            return 200, (f'<feed xmlns="http://www.w3.org/2005/Atom"><title>{site}</title>'
+                         f"{entries}</feed>")
+        locs = [base + p[0] + ("?src=sitemap&utm=1" if k % 7 == 3 else "")
+                for k, p in enumerate(pub)]
+        urlset = lambda ls: ('<urlset xmlns="http://www.sitemaps.org/schemas/sitemap/0.9">'  # noqa: E731
+                             + "".join(f"<url><loc>{u}</loc></url>" for u in ls) + "</urlset>")
+        if path == "/sitemap.xml":
+            if s % 5 == 0:
+                return 200, ("<sitemapindex>" + "".join(
+                    f"<sitemap><loc>{base}/sitemap-{k}.xml</loc></sitemap>" for k in (0, 1))
+                    + "</sitemapindex>")
+            return 200, urlset(locs)
+        if path in ("/sitemap-0.xml", "/sitemap-1.xml"):
+            return 200, urlset(locs[int(path[9])::2])
+        for p in pub:
+            if p[0] == path:
+                return 200, p[1]
+        return 404, ""
+
+    def start(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        web = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"  # keep-alive: one connection a crawler thread
+            disable_nagle_algorithm = True  # headers and body go out as they are written
+
+            def do_GET(self):
+                site, _, rest = self.path.lstrip("/").partition("/")
+                status, text = web.body(site, "/" + rest.split("?", 1)[0])
+                data = text.encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        return self
+
+    def fetch(self, url: str, timeout: float = 30.0):
+        """The crawlers' fetch_fn: https://{site}{path} → (status, body, ms)
+        from the loopback server (the form of crawler/worker.py
+        default_fetch; any failure is status 0)."""
+        import http.client
+
+        self.fetched.append(url)
+        t = time.perf_counter()
+        for _ in range(2):  # a dropped kept-alive connection: one new one
+            conn = getattr(self._conns, "conn", None)
+            if conn is None:
+                conn = self._conns.conn = http.client.HTTPConnection(
+                    "127.0.0.1", self.server.server_address[1], timeout=timeout)
+            try:
+                conn.request("GET", "/" + url.split("://", 1)[1])
+                resp = conn.getresponse()
+                body = resp.read().decode("utf-8", errors="replace")
+                return resp.status, body, int((time.perf_counter() - t) * 1000)
+            except (OSError, http.client.HTTPException):
+                conn.close()
+                self._conns.conn = None
+        return 0, "", int((time.perf_counter() - t) * 1000)
+
+    def stop(self):
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+            self.thread.join(timeout=30)
+
+
+def cuda_tensors() -> dict:
+    """{(shape, dtype): count} of the CUDA tensors the garbage collector
+    reaches: what a growth of card memory is made of."""
+    import collections
+    import gc
+
+    import torch
+
+    out = collections.Counter()
+    for o in gc.get_objects():
+        try:
+            if torch.is_tensor(o) and o.is_cuda:
+                out[(tuple(o.shape), str(o.dtype))] += 1
+        except Exception:  # noqa: BLE001 — an object that fails isinstance checks is no tensor
+            continue
+    return out
+
+
+def segment_device_bytes(index) -> int:
+    """The card bytes of the largest of the index's device copies."""
+    import torch
+
+    best = 0
+    for dev in list(index._device.values()):
+        best = max(best, sum(t.numel() * t.element_size() for t in dev.arrays
+                             if torch.is_tensor(t)))
+    return best
+
+
+def live_check(replica, cpu_root: str, clock, queries: list, stage: str) -> dict:
+    """Each query's top 10 from live replica 0 over sonic (its search on the
+    card) against the same search on a device="cpu" LiveIndex opened on a
+    copy of the replica's directory: docs equal up to ties at the cut, scores
+    within LIVE_TOL. → the largest score difference and the hits."""
+    import numpy as np
+
+    from stract_tpu_torch.distributed.sonic import RemoteClient
+    from stract_tpu_torch.entrypoint.search_server import candidate_to_wire
+    from stract_tpu_torch.live_index import LiveIndex
+    from stract_tpu_torch.searcher.local import LocalSearcher
+    from stract_tpu_torch.searcher.query import SearchQuery
+
+    live = replica["service"].live
+    copy = os.path.join(cpu_root, stage)
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(live.path, copy)
+    cpu = LiveIndex(copy, device="cpu", clock=clock)
+    if cpu.index.meta["segments"] != live.index.meta["segments"]:
+        raise AssertionError(f"[live {stage}] the copy opened other segments")
+    cpu_search = LocalSearcher(cpu.index, shard_id=0, lazy_signals=False)
+    client = RemoteClient(replica["server"].addr, timeout=120)
+    names = list(live.index.meta["segments"])
+    err, hits = 0.0, 0
+
+    def top10(cands):
+        cands = sorted(cands, key=lambda c: -c[1])[:10]
+        keys = np.array([names.index(s) << 32 | d for (s, d), _ in cands], dtype=np.int64)
+        return keys, np.array([sc for _, sc in cands], dtype=np.float64)
+
+    for q in queries:
+        sq = SearchQuery.from_json({"query": q})
+        card = [((c["seg"], c["doc"]), c["score"])
+                for c in client.send("search", sq.to_json())["candidates"]]
+        plain = [((w["seg"], w["doc"]), w["score"]) for w in
+                 map(candidate_to_wire, cpu_search.search_initial(sq)[0])]
+        ka, sa = top10(card)
+        kb, sb = top10(plain)
+        if len(ka) != len(kb):
+            raise AssertionError(f"[live {stage}] {q!r}: {len(ka)} results on the card, "
+                                 f"{len(kb)} on the cpu")
+        err = max(err, topk_match(ka, sa, kb, sb, -1, *LIVE_TOL))
+        hits += len(ka)
+    cpu.wal.close()
+    return {"max_score_diff": err, "hits": hits}
+
+
+def live_phase(data_dir: str, card: str) -> dict:
+    """The freshness tier on the card: a FakeWeb of LIVE_SITES sites on
+    127.0.0.1; two live-index replicas of shard 0 (entrypoint/live_index.py
+    run on the card, over sonic, joined by gossip to a search shard over the
+    index phase's index); a LiveCrawler with a crawled-URLs Db ticking over
+    the sites every 10 simulated minutes for LIVE_HOURS hours and pushing its
+    batches through LiveIndexClient(consistency_fraction=0.5), each replica's
+    tick() between crawls (autocommit, hourly compaction, the TTL); the
+    coordinator (entrypoint/api.py over gossip) and its HTTP route in front.
+    Before compaction, after it and after a jump past the 60-day TTL: 64
+    queries over HTTP, each page holding a live candidate (shard >=
+    LIVE_SHARD_OFFSET), and 64 queries' top 10 from replica 0 against a CPU
+    LiveIndex on a copy of its directory. Card memory after the last
+    compaction-and-prune cycle within one segment's device copy of the
+    first's; a quorum write at fraction 0.5 with a replica down acks, at 1.0
+    raises; `main.py live-index serve` as a process answers a search found by
+    gossip; the crawl roles (coordinator, router, worker over sonic) crawl
+    LIVE_ROLE_SITES sites into WARC files, robots obeyed. K1-K3 launches of
+    the live shards' own searches, counted from 0 around them. → record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from stract_tpu_torch.config import ApiConfig
+    from stract_tpu_torch.crawler import CrawlCoordinator, Job, Router
+    from stract_tpu_torch.crawler.worker import WorkerThread
+    from stract_tpu_torch.distributed.cluster import Cluster, Service
+    from stract_tpu_torch.distributed.replication import ReplicatedClient
+    from stract_tpu_torch.distributed.sonic import RemoteClient, RpcError, serve_in_thread
+    from stract_tpu_torch.entrypoint import live_index as LE
+    from stract_tpu_torch.entrypoint import search_server
+    from stract_tpu_torch.entrypoint.api import build_coordinator, coordinator_app
+    from stract_tpu_torch.kv import Db
+    from stract_tpu_torch.live_index import LiveCrawler
+    from stract_tpu_torch.live_index.index import TTL_SECONDS
+    from stract_tpu_torch.main import ServerThread
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.searcher.distributed import LIVE_SHARD_OFFSET
+    from stract_tpu_torch.warc import WarcReader, WarcWriter
+
+    root = os.path.join(data_dir, "live")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    t0 = NOW
+    now = [t0]
+    clock = lambda: now[0]  # noqa: E731
+    web = FakeWeb(now, t0).start()
+    secs = {k: 0.0 for k in ("crawl", "insert", "commit", "compact", "tick", "search", "http",
+                             "roles", "cli")}
+    clusters, servers, api_cluster, http, cli_proc = [], [], None, None, None
+    backbone_svc = None
+    rec = {"segments": {}}
+    try:
+        # ---- the backbone shard, two live replicas, the coordinator --------------------
+        backbone = os.path.join(data_dir, "index_build", "index")
+        bsrv, bcl = search_server.run(backbone, 0, device=DEVICE, mesh="off")
+        backbone_svc = bsrv.server.service
+        servers.append(bsrv)
+        clusters.append(bcl)
+        seed = [f"{bcl.gossip_addr[0]}:{bcl.gossip_addr[1]}"]
+        replicas = []
+        for r in range(2):
+            srv, cl = LE.run(os.path.join(root, f"replica{r}"), 0, device=DEVICE, clock=clock,
+                             gossip_seeds=[tuple(bcl.gossip_addr)])
+            servers.append(srv)
+            clusters.append(cl)
+            replicas.append({"server": srv, "cluster": cl, "service": srv.server.service})
+        for rep in replicas:  # time the replicas' commits and compactions
+            live = rep["service"].live
+            for name in ("commit", "compact"):
+                def timed(fn=getattr(live, name), name=name):
+                    t = time.perf_counter()
+                    fn()
+                    secs[name] += time.perf_counter() - t
+                setattr(live, name, timed)
+        cli_dir = os.path.join(root, "cli")
+        with open(os.path.join(root, "cli.toml"), "w") as fh:
+            fh.write(f'path = "{cli_dir}"\nshard = {LIVE_CLI_SHARD}\nhost = "127.0.0.1"\n'
+                     f'[gossip]\naddr = "127.0.0.1:0"\nseeds = ["{seed[0]}"]\n')
+        cli_proc = subprocess.Popen(
+            [sys.executable, "-m", "stract_tpu_torch.main", "live-index", "serve",
+             os.path.join(root, "cli.toml"), "--device", DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        cfg = ApiConfig(gossip={"addr": "127.0.0.1:0", "seeds": seed})
+        api, api_cluster, pages = build_coordinator(cfg, DEVICE)
+        for want in ("search-server", "live-index"):
+            if api_cluster.await_member(lambda m: m.service.kind == want, timeout=60) is None:
+                raise AssertionError(f"the coordinator did not find a {want}")
+        if not api_cluster.await_member(
+                lambda m: m.service.kind == "live-index" and m.service.host == tuple(
+                    replicas[1]["server"].addr), timeout=60):
+            raise AssertionError("the coordinator did not find the second replica")
+        http = ServerThread(coordinator_app(cfg, api, pages))
+        dist = api.searcher
+        page_shards, placeholders = {}, {}  # query → its page's shards; its empty docs
+        real_retrieve = dist.retrieve
+
+        def retrieve(sq, candidates):
+            page_shards.setdefault(sq.query, []).extend(int(c.shard) for c in candidates)
+            real_retrieve(sq, candidates)
+            placeholders[sq.query] = placeholders.get(sq.query, 0) + sum(
+                not c.retrieved and c.shard >= LIVE_SHARD_OFFSET for c in candidates)
+        dist.retrieve = retrieve
+
+        # ---- the crawl: LIVE_HOURS simulated hours, a tick every 10 minutes ---------------
+        client = LE.LiveIndexClient(ReplicatedClient([r["server"].addr for r in replicas],
+                                                     timeout=600), consistency_fraction=0.5)
+        indexed = [0]
+
+        def index_fn(batch):
+            t = time.perf_counter()
+            indexed[0] += client.index_webpages([{"url": u, "html": h} for u, h in batch])
+            secs["insert"] += time.perf_counter() - t
+
+        crawled = Db.open(os.path.join(root, "db"))
+        crawler = LiveCrawler(web.fetch, index_fn, crawled_db=crawled, clock=clock)
+        for site in web.sites:
+            crawler.add_site(site, feeds=[f"https://{site}/feed.xml"],
+                             sitemaps=[f"https://{site}/sitemap.xml"])
+        checks, mem = {}, {}
+        rng_q = np.random.default_rng(LIVE_SEED + 2)
+
+        def segments() -> list:
+            return [len(r["service"].live.index.segments) for r in replicas]
+
+        def queries() -> tuple:
+            """64 HTTP queries from the indexed live pages' titles (a title
+            word and the title's own token) and 64 for the top-10 check
+            (title-word pairs, stop-word pairs: the scan path and pass 2)."""
+            live = replicas[0]["service"].live
+            titles = [seg.stored_doc(d)["title"] for seg in live.index.segments
+                      for d in range(seg.num_docs)]
+            if not titles:
+                raise AssertionError("the live replica holds no docs")
+            picks = rng_q.choice(len(titles), LIVE_QUERIES, replace=len(titles) < LIVE_QUERIES)
+            http_q = [" ".join(titles[i].split()[:1] + titles[i].split()[-1:]) for i in picks]
+            words = [titles[i].split()[:-1] for i in picks]
+            stops = ("the and", "of to", "in is", "the of", "and a", "for with", "to the",
+                     "is that")
+            check_q = [" ".join(w[:2]) if len(w) > 1 else w[0] for w in words[:48]]
+            check_q += [stops[k % len(stops)] for k in range(LIVE_QUERIES - len(check_q))]
+            return http_q, check_q
+
+        def checkpoint(stage: str):
+            t = time.perf_counter()
+            http_q, check_q = queries()
+            kernels.reset_launches()
+            res = live_check(replicas[0], os.path.join(root, "cpu"), clock, check_q, stage)
+            launches = {k: kernels.LAUNCHES[k] for k in SCORING}
+            secs["search"] += time.perf_counter() - t
+            t = time.perf_counter()
+            page_shards.clear()
+            placeholders.clear()
+            with ThreadPoolExecutor(CLIENTS) as pool:
+                answers = list(pool.map(lambda q: post(http.url + "/beta/api/search",
+                                                       {"query": q}), http_q))
+            secs["http"] += time.perf_counter() - t
+            no_live, live_urls = [], 0
+            for q, (status, data, _) in zip(http_q, answers):
+                if status != 200 or data.get("type") != "websites":
+                    raise AssertionError(f"[live {stage}] {q!r}: {status} {str(data)[:200]}")
+                shards = page_shards.get(q, [])
+                if not any(s >= LIVE_SHARD_OFFSET for s in shards):
+                    no_live.append(q)
+                live_urls += any(".example/" in w.get("url", "") for w in data["webpages"])
+            if no_live:
+                raise AssertionError(f"[live {stage}] {len(no_live)} of {len(http_q)} pages hold "
+                                     f"no live result, the first {no_live[0]!r}")
+            empty = sum(placeholders.values())
+            checks[stage] = {**res, "segments": segments(), "launches": launches,
+                             "pages_with_a_live_url": live_urls, "live_placeholders": empty,
+                             "http_queries": len(http_q)}
+            log(f"[live {stage}] segments={segments()} docs="
+                f"{replicas[0]['service'].live.index.num_docs} top10_vs_cpu_max_score_diff="
+                f"{res['max_score_diff']:.3g} hits={res['hits']} pages_with_a_live_url="
+                f"{live_urls}/{len(http_q)} live_placeholders={empty} "
+                f"replica0_launches={json.dumps(launches)} card={card}")
+
+        def replica_ticks():
+            t = time.perf_counter()
+            for r in replicas:
+                RemoteClient(r["server"].addr, timeout=600).send("tick", None)
+            secs["tick"] += time.perf_counter() - t
+
+        tensors = {}
+
+        def memory(point: str) -> int:
+            gc.collect()
+            if DEVICE != "cuda":
+                return 0
+            torch.cuda.synchronize()
+            tensors[point] = cuda_tensors()
+            return torch.cuda.memory_allocated()
+
+        seg_bytes = 0
+        for step in range(LIVE_HOURS * 6):
+            now[0] = t0 + 600.0 * step
+            t = time.perf_counter()
+            crawler.tick()
+            if step % 6 == 5:
+                # the crawled-URL store gains a segment a tick (LiveCrawler
+                # commits it and never merges, as in the JAX package) and a
+                # lookup reads every segment: merged hourly here
+                crawled.merge_segments()
+            secs["crawl"] += time.perf_counter() - t
+            replica_ticks()
+            if step % 6 == 0:
+                rec["segments"][f"hour {step // 6}"] = segments()
+            if step == 5:
+                checkpoint("before compaction")
+                seg_bytes = max(segment_device_bytes(r["service"].live.index) for r in replicas)
+            if step == 6:
+                mem["first"] = memory("first")
+                checkpoint("after compaction")
+            if step % 36 == 35:
+                log(f"[live hour {(step + 1) // 6}] segments={segments()} "
+                    f"seconds={json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+        secs["crawl"] -= secs["insert"]
+        rec["segments"]["end"] = segments()
+        # a jump past the TTL: the first LIVE_PRUNED_HOURS hours' segments drop
+        now[0] = t0 + TTL_SECONDS + LIVE_PRUNED_HOURS * 3600.0
+        before = segments()
+        replica_ticks()
+        mem["last"] = memory("last")
+        rec["segments"]["after the ttl"] = segments()
+        if not all(a < b for a, b in zip(segments(), before)):
+            raise AssertionError(f"the TTL dropped no segment: {before} -> {segments()}")
+        checkpoint("after the prune")
+        if mem["last"] > mem["first"] + seg_bytes:
+            grown = tensors["last"] - tensors["first"]
+            raise AssertionError(f"card memory grew across compactions: {mem['last']} bytes "
+                                 f"after the last cycle, {mem['first']} after the first, one "
+                                 f"segment {seg_bytes}; CUDA tensors the collector reaches "
+                                 f"added: {sorted(grown.items(), key=lambda kv: -kv[1])[:12]}")
+        launches = {k: sum(c["launches"][k] for c in checks.values()) for k in SCORING}
+        if DEVICE == "cuda" and any(v == 0 for v in launches.values()):
+            raise AssertionError(f"the live shards' searches launched {launches}")
+        docs = replicas[0]["service"].live.index.num_docs
+        if docs != replicas[1]["service"].live.index.num_docs:
+            raise AssertionError("the replicas hold different counts of docs")
+
+        # ---- a quorum with one replica down ---------------------------------------------
+        dist.retrieve = real_retrieve
+        http.stop()
+        http = None
+        api.searcher.client.close()
+        api.searcher.live_client.close()
+        replicas[1]["cluster"].shutdown()
+        clusters.remove(replicas[1]["cluster"])
+        replicas[1]["server"].stop()
+        servers.remove(replicas[1]["server"])
+        addrs = [r["server"].addr for r in replicas]
+        one = [{"url": f"https://{web.sites[0]}/quorum", "html": web.pages[web.sites[0]][0][1]}]
+        acked = LE.LiveIndexClient(ReplicatedClient(addrs, timeout=30), 0.5).index_webpages(one)
+        try:
+            LE.LiveIndexClient(ReplicatedClient(addrs, timeout=30), 1.0).index_webpages(one)
+            raise AssertionError("a write at fraction 1.0 acked with a replica down")
+        except RpcError as e:
+            quorum = {"fraction_0.5_acked": acked, "fraction_1.0": str(e)}
+
+        # ---- main.py live-index serve as a process ----------------------------------------
+        t = time.perf_counter()
+        m = api_cluster.await_member(lambda m: m.service.kind == "live-index"
+                                     and m.service.shard == LIVE_CLI_SHARD, timeout=300)
+        if m is None:
+            raise AssertionError("main.py live-index serve did not join gossip: "
+                                 + (cli_proc.stdout.read() if cli_proc.poll() is not None
+                                    else "still running"))
+        cli = RemoteClient(tuple(m.service.host), timeout=300)
+        pages3 = [{"url": f"https://{s}{p[0]}", "html": p[1]}
+                  for s in web.sites[:3] for p in web.pages[s][:2]]
+        cli.send("index_webpages", {"pages": pages3})
+        cli.send("commit", None)
+        title = web.pages[web.sites[0]][0][2]
+        found = cli.send("search", {"query": title.split()[-1]})
+        if not found["candidates"]:
+            raise AssertionError(f"main.py live-index serve found nothing for {title!r}")
+        secs["cli"] = time.perf_counter() - t
+
+        # ---- the crawl roles over sonic ------------------------------------------------------
+        t = time.perf_counter()
+        crawl_root = os.path.join(root, "crawl")
+        coord = CrawlCoordinator(os.path.join(crawl_root, "jobs"),
+                                 os.path.join(crawl_root, "discovered"))
+        role_sites = web.sites[:LIVE_ROLE_SITES]
+        coord.add_jobs([Job(site, [f"https://{site}{p[0]}" for p in web.pages[site]])
+                        for site in role_sites])
+        csrv = serve_in_thread(coord)
+        servers.append(csrv)
+        rsrv = serve_in_thread(Router([csrv.addr]))
+        servers.append(rsrv)
+        os.makedirs(os.path.join(crawl_root, "warc"))
+        web.fetched.clear()
+        done = WorkerThread(RemoteClient(rsrv.addr, timeout=600), fetch_fn=web.fetch,
+                            warc_factory=lambda d: WarcWriter.open(
+                                os.path.join(crawl_root, "warc", d + ".warc.gz")),
+                            sleep_fn=lambda s: None).run()
+        records = {}
+        for site in role_sites:
+            reader = WarcReader.open(os.path.join(crawl_root, "warc", site + ".warc.gz"))
+            records[site] = sorted(r.url for r in reader)
+            reader.fileobj.close()
+        for site in role_sites:
+            bad = f"https://{site}{web.disallowed(site)}"
+            if bad in web.fetched:
+                raise AssertionError(f"the worker fetched {bad}, which robots.txt disallows")
+            allowed = sorted(f"https://{site}{p[0]}" for p in web.pages[site][:-1])
+            if records[site] != allowed:
+                raise AssertionError(f"{site}: {len(records[site])} WARC records, "
+                                     f"{len(allowed)} pages allowed")
+        secs["roles"] = time.perf_counter() - t
+        rec.update(
+            sites=LIVE_SITES, pages=LIVE_SITES * LIVE_SITE_PAGES, indexed=indexed[0],
+            docs=docs, checks=checks, launches=launches, memory=mem,
+            segment_device_bytes=seg_bytes, quorum=quorum, cli_candidates=len(found["candidates"]),
+            role_jobs=done, role_records=sum(len(v) for v in records.values()),
+            fetches=len(web.fetched), seconds=secs)
+    finally:
+        if http is not None:
+            http.stop()
+        if api_cluster is not None:
+            api.searcher.client.close()
+            api.searcher.live_client.close()
+            api_cluster.shutdown()
+        if cli_proc is not None:
+            cli_proc.terminate()
+            try:
+                cli_proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                cli_proc.kill()
+                cli_proc.communicate(timeout=30)
+        for cl in clusters:
+            cl.shutdown()
+        for srv in servers:
+            srv.stop()
+        if backbone_svc is not None and backbone_svc.searcher.batcher is not None:
+            backbone_svc.searcher.batcher.stop()
+        web.stop()
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    return rec
+
+
+def live_line(rec: dict, card: str) -> str:
+    """The `[result live]` line of live_phase's record."""
+    secs = " ".join(f"{k}_s={v:.2f}" for k, v in rec["seconds"].items())
+    checks = {k: {"max_score_diff": v["max_score_diff"], "hits": v["hits"],
+                  "segments": v["segments"], "pages_with_a_live_url": v["pages_with_a_live_url"],
+                  "live_placeholders": v["live_placeholders"]} for k, v in rec["checks"].items()}
+    return (f"[result live] sites={rec['sites']} pages={rec['pages']} indexed={rec['indexed']} "
+            f"docs={rec['docs']} {secs} segments={json.dumps(rec['segments'])} checks="
+            f"{json.dumps(checks)} k1_k3_launches={json.dumps(rec['launches'])} memory_bytes="
+            f"{json.dumps(rec['memory'])} one_segment_bytes={rec['segment_device_bytes']} "
+            f"quorum={json.dumps(rec['quorum'])} cli_candidates={rec['cli_candidates']} "
+            f"roles={rec['role_jobs']} jobs {rec['role_records']} records fetches="
+            f"{rec['fetches']} card={card}")
+
+
 def models_phase(searcher, index_dir: str, out_dir: str) -> dict:
     """Tokenizer, MiniLM dual and cross encoders trained on the card (the
     train phase), and a forest trained on pipeline-off signal rows, saved
@@ -4769,6 +5382,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
     del dual
     built = in_phase("index build", index_phase, data_dir, models["dual"], card)
     log(index_line(built, card))
+    live = in_phase("live", live_phase, data_dir, card)
+    log(live_line(live, card))
     forest = in_phase("model kernels", LambdaMART.load, models["forest"], device=DEVICE)
     rows_m = (in_phase("model kernels", model_kernel_phase, forest, models["rows"])
               + in_phase("training kernels", training_kernel_phase, models["dual"]))
@@ -4906,10 +5521,12 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                            library, served["launches"], models["launches"], forest, card,
                            config_launches, moe["launches"], mesh, pipe, grid,
                            te["launches"])
-    for rec in kernels_out:  # the index phase's launches beside the main path's
+    for rec in kernels_out:  # the index and live phases' launches beside the main path's
         if rec["name"] in INDEX_BUILD_KERNELS + SCORING:
             rec["index_launches"] = (built["build_launches"][rec["name"]]
                                      + built["serve_launches"][rec["name"]])
+        if rec["name"] in SCORING:
+            rec["live_launches"] = live["launches"][rec["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,15 @@
 port's command line reads (role of reference crates/core/src/config/,
 main.rs:267-275 load_toml_config): the coordinator's, the search shard's,
 the entity search server's, the indexer's, the centrality job's, the
-spell trainer's and the site-stats job's configs, read from the same TOML
+spell trainer's, the site-stats job's, the live-index shard's and the
+crawl roles' configs, read from the same TOML
 files (configs/api.toml, configs/search_server.toml, configs/indexer.toml,
 configs/centrality.toml, a web-spell TOML: index_path, output_path; an
 entity-search-server TOML: index_path, image_store_path, host, port,
 [gossip]; a site-stats TOML: index_path, output_path,
-host_centrality_path)."""
+host_centrality_path; a live-index TOML: path, shard, host, port, [gossip],
+consistency_fraction; a crawler TOML: queue_path, discovered_path,
+warc_output_dir, coordinator_addrs, router_addr)."""
 
 from __future__ import annotations
 
@@ -72,6 +75,16 @@ class SearchServerConfig:
 
 
 @dataclass
+class LiveIndexConfig:
+    path: str = "data/live"
+    shard: int = 0
+    host: str = "127.0.0.1"
+    port: int = 0
+    gossip: dict = field(default_factory=dict)
+    consistency_fraction: float = 0.5
+
+
+@dataclass
 class IndexerConfig:
     warc_paths: list = field(default_factory=list)
     output_path: str = "data/index"
@@ -116,6 +129,17 @@ class EntitySearchServerConfig:
 
 
 @dataclass
+class CrawlerConfig:
+    queue_path: str = "data/crawl/jobs"
+    discovered_path: str = "data/crawl/discovered"
+    warc_output_dir: str = "data/crawl/warc"
+    coordinator_addrs: list = field(default_factory=list)
+    router_addr: str = ""
+    politeness_delay: float = 1.0
+    num_worker_threads: int = 4
+
+
+@dataclass
 class SiteStatsConfig:
     """(role of reference config::SiteStatsConfig, entrypoint/site_stats.rs)"""
 
@@ -125,8 +149,9 @@ class SiteStatsConfig:
 
 
 CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
-                "entity-search-server": EntitySearchServerConfig, "indexer": IndexerConfig,
-                "centrality": CentralityConfig, "web-spell": WebSpellConfig,
+                "entity-search-server": EntitySearchServerConfig, "live-index": LiveIndexConfig,
+                "indexer": IndexerConfig, "centrality": CentralityConfig,
+                "crawler": CrawlerConfig, "web-spell": WebSpellConfig,
                 "site-stats": SiteStatsConfig}
 
 

@@ -18,9 +18,11 @@ gossip-found `entity-search` servers (RemoteSidebarManager,
 RemoteEntityImageStore). page_graph_path loads the page graph of the page
 link routes, entity_image_store_path the image store of the entity image
 route. improvement_log_path is read nowhere, as in the JAX package (its app
-keeps the improvement log in memory; ROADMAP queue 3). The live-index tier
-is not ported (queue 1 item 5), so the coordinator fans out to the search
-shards alone.
+keeps the improvement log in memory; ROADMAP queue 3). The coordinator
+also fans every search out to the gossip-found `live-index` shards (the
+freshness tier, entrypoint/live_index.py) and merges their candidates with
+the search shards' (searcher/distributed.py LIVE_SHARD_OFFSET), as the JAX
+coordinator does.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def page_services(cfg: ApiConfig, cluster) -> tuple:
 
 
 def build_coordinator(cfg: ApiConfig, device="cuda") -> tuple:
-    """The coordinator's searcher over the gossip-discovered search shards →
+    """The coordinator's searcher over the gossip-discovered search shards
+    and live-index shards →
     (ApiSearcher, cluster, pages). The models run on `device`; the spell
     checker, the widgets, the host graph's inbound similarity (in the recall
     stage) and the entity sidebar are loaded from the config's paths; pages
@@ -100,7 +103,8 @@ def build_coordinator(cfg: ApiConfig, device="cuda") -> tuple:
     gossip = _from_dict(GossipConfig, cfg.gossip or {})
     cluster = Cluster.join(Service("api"), gossip_addr=gossip.addr_tuple(),
                            seeds=gossip.seed_tuples())
-    searcher = DistributedSearcher(ReusableShardedClient(cluster, "search-server"))
+    searcher = DistributedSearcher(ReusableShardedClient(cluster, "search-server"),
+                                   live_client=ReusableShardedClient(cluster, "live-index"))
     sidebar, page_graph, image_store = page_services(cfg, cluster)
     api = ApiSearcher(
         searcher,

@@ -19,6 +19,7 @@ L-deep scan has not seen.
 from __future__ import annotations
 
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from ..ranking import bm25_math as BM
 from ..ranking import signals as S
 from ..schema import text_field
 
+from ..ops import kernels
 from ..ops import scoring as O
 from .segment import Segment
 
@@ -390,6 +392,8 @@ class DeviceSegment:
             last_updated=last_updated,
             num_docs=np.int32(D),
         ), device=self.device)
+        # the launch-argument cache holds this tuple until this copy goes
+        weakref.finalize(self, kernels.forget_seg_args, self.arrays)
 
     def impact_bound_f1(self, ti: int, L: int) -> float:
         """Quantised-f1 upper bound of term ti's rows unseen by an L-deep scan

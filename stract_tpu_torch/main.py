@@ -17,6 +17,8 @@
     python -m stract_tpu_torch.main safety-classifier {train DATA MODEL,predict MODEL TEXT...}
     python -m stract_tpu_torch.main admin {index-stats PATH,top-keyphrases PATH,status HOST:PORT}
     python -m stract_tpu_torch.main entity-search-server CONFIG
+    python -m stract_tpu_torch.main live-index {serve,crawler} CONFIG [--device cuda]
+    python -m stract_tpu_torch.main crawler {worker,coordinator,router,plan} CONFIG
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -98,6 +100,24 @@ an EntitySearchServerConfig TOML (index_path, image_store_path, host, port,
 over sonic RPC and announces itself by gossip as `entity-search`; a
 coordinator without entity_index_path asks it for the sidebar and the entity
 images. It does no device work, so it takes no --device.
+
+`live-index serve` is the JAX package's role of the same name: CONFIG is a
+LiveIndexConfig TOML (path, shard, host, port, [gossip]). It serves the
+live directory at `path` (entrypoint/live_index.py: a WAL, hourly
+compaction, a 60-day TTL) over sonic RPC and announces itself by gossip as
+`live-index`; a coordinator merges its candidates with the search shards'.
+Its searches run on --device (K1-K3 on a card). `live-index crawler` and
+`crawler plan` print a line, as in the JAX package: the live crawler takes
+a site list through its Python API (live_index/crawler.py LiveCrawler), the
+plan make_crawl_plan (crawler/planner.py).
+
+`crawler coordinator | router | worker` are the JAX package's crawl roles:
+CONFIG is a CrawlerConfig TOML (queue_path, discovered_path,
+warc_output_dir, coordinator_addrs, router_addr). The coordinator serves
+the job queue at queue_path, the router round-robins the coordinators at
+coordinator_addrs, a worker takes jobs from the router at router_addr until
+none is left and writes a WARC file a job under warc_output_dir. Host work
+all: no --device.
 """
 
 from __future__ import annotations
@@ -285,6 +305,44 @@ def _admin(action: str, path) -> None:
         print("usage: admin status <gossip-seed host:port> | admin index-stats <path>")
 
 
+def _crawler_role(role: str, config: str) -> None:
+    """`main.py crawler ROLE CONFIG` (stract_tpu/main.py _run_crawler_role)."""
+    import os
+    import time
+
+    from .config import load_config
+    from .distributed.sonic import RemoteClient, serve_in_thread
+
+    cfg = load_config("crawler", config)
+    if role == "coordinator":
+        from .crawler import CrawlCoordinator
+
+        srv = serve_in_thread(CrawlCoordinator(cfg.queue_path, cfg.discovered_path), port=0)
+        print(f"crawl coordinator rpc={srv.addr}", flush=True)
+        _wait_forever()
+    elif role == "router":
+        from .crawler import Router
+
+        addrs = [(a.rsplit(":", 1)[0], int(a.rsplit(":", 1)[1])) for a in cfg.coordinator_addrs]
+        srv = serve_in_thread(Router(addrs), port=0)
+        print(f"crawl router rpc={srv.addr}", flush=True)
+        _wait_forever()
+    elif role == "worker":
+        from .crawler.worker import WorkerThread
+        from .warc import WarcWriter
+
+        h, p = cfg.router_addr.rsplit(":", 1)
+        os.makedirs(cfg.warc_output_dir, exist_ok=True)
+
+        def warc_factory(domain):
+            return WarcWriter.open(f"{cfg.warc_output_dir}/{domain}-{int(time.time())}.warc.gz")
+
+        n = WorkerThread(RemoteClient((h, int(p))), warc_factory=warc_factory).run()
+        print(f"crawled {n} jobs", flush=True)
+    else:
+        print("use stract_tpu_torch.crawler.planner.make_crawl_plan with centrality + url stores")
+
+
 def _wait_forever():
     stop = threading.Event()
     while not stop.wait(3600):
@@ -343,6 +401,13 @@ def main(argv=None):
     ep = sub.add_parser("entity-search-server",
                         help="the entity sidebar's server over sonic RPC, announced by gossip")
     ep.add_argument("config")
+    lp = sub.add_parser("live-index", help="freshness tier")
+    lp.add_argument("action", choices=["serve", "crawler"])
+    lp.add_argument("config")
+    lp.add_argument("--device", default="cuda", help="cuda or cpu")
+    cr = sub.add_parser("crawler", help="distributed crawler roles")
+    cr.add_argument("crawl_role", choices=["worker", "coordinator", "router", "plan"])
+    cr.add_argument("config")
     for role, what in (("search-server", "a search shard over sonic RPC, announced by gossip"),
                        ("api", "the coordinator: gossip, shard fan-out, HTTP search API")):
         rp = sub.add_parser(role, help=what)
@@ -366,6 +431,27 @@ def main(argv=None):
 
     if args.role == "indexer":
         _indexer(args.action, args.config)
+        return
+
+    if args.role == "live-index":
+        from .config import GossipConfig, _from_dict, load_config
+
+        cfg = load_config("live-index", args.config)
+        if args.action == "serve":
+            from .entrypoint.live_index import run
+
+            g = _from_dict(GossipConfig, cfg.gossip or {})
+            server, cluster = run(cfg.path, cfg.shard, cfg.host, cfg.port, g.addr_tuple(),
+                                  g.seed_tuples(), device=args.device)
+            print(f"live-index shard={cfg.shard} rpc={server.addr} gossip={cluster.gossip_addr}",
+                  flush=True)
+            _wait_forever()
+        else:
+            print("live crawler requires a site list; see stract_tpu_torch/live_index/crawler.py")
+        return
+
+    if args.role == "crawler":
+        _crawler_role(args.crawl_role, args.config)
         return
 
     if args.role == "configure":

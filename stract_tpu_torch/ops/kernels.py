@@ -616,6 +616,17 @@ def seg_args(seg) -> SegArgs:
     return s
 
 
+def forget_seg_args(seg) -> None:
+    """Drop the argument block of the arrays tuple `seg`, releasing its
+    tensors; the owner calls it when it lets the tuple go (a DeviceSegment
+    the live index dropped frees its card memory then, not after
+    _SEG_ARGS_KEPT later launches). A launch under way holds `seg` itself."""
+    with _SEG_ARGS_LOCK:
+        hit = _SEG_ARGS.get(id(seg))
+        if hit is not None and hit[0] is seg:
+            del _SEG_ARGS[id(seg)]
+
+
 _QUERY_SHAPES = {"starts": "BP", "lens": "BP", "group": "BP", "n_required": "B", "idf": "BP",
                  "w_bm25": "BP", "w_bm25f": "BP", "w_presence": "BP", "static_coeffs": "BS",
                  "region_lut": "BR", "coeff_region": "B", "coeff_update": "B",

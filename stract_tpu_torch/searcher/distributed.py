@@ -3,8 +3,12 @@ port of stract_tpu/searcher/distributed.py; role of reference
 searcher/distributed.rs:287: search_initial to AllShards with
 RandomReplicaSelector, retrieve to the owning shards). It speaks the JAX
 package's wire forms over sonic, so its shards may be servers of either
-package. LocalShardedSearcher is the in-process variant: LocalSearchers
-behind the same interface, without sockets."""
+package. With a live client, the live-index shards' candidates (the
+freshness tier, entrypoint/live_index.py) merge with the backbone's under
+shard ids offset by LIVE_SHARD_OFFSET in all three search forms, and their
+retrieval goes back to the live client; the live fan-out is best-effort, as
+in the reference. LocalShardedSearcher is the in-process variant:
+LocalSearchers behind the same interface, without sockets."""
 
 from __future__ import annotations
 
@@ -17,15 +21,22 @@ from ..distributed.replication import (
 from ..entrypoint.search_server import candidate_from_wire
 from .query import SearchQuery
 
-class DistributedSearcher:
-    def __init__(self, client):
-        """client: ShardedClient | ReusableShardedClient over 'search-server'.
-        The JAX package's live-index tier (a second client whose results merge
-        with these) is not ported (ROADMAP queue 1 item 5)."""
-        self.client = client
+# live-index shard ids are offset so they never collide with backbone shard ids
+# (reference ShardId::{Backbone, Live}, inverted_index/mod.rs:90)
+LIVE_SHARD_OFFSET = 1 << 20
 
-    def search_initial(self, sq: SearchQuery):
-        results = self.client.send(
+
+class DistributedSearcher:
+    def __init__(self, client, live_client=None):
+        """client: ShardedClient | ReusableShardedClient over 'search-server'.
+        live_client: optional client over 'live-index' shards — fresh results
+        merge with the backbone (reference ShardId::{Backbone,Live},
+        inverted_index/mod.rs:90)."""
+        self.client = client
+        self.live_client = live_client
+
+    def _fan_search(self, client, sq: SearchQuery, shard_offset: int):
+        results = client.send(
             "search", sq.to_json(), shard_selector=AllShardsSelector(),
             replica_selector=RandomReplicaSelector(),
         )
@@ -35,9 +46,20 @@ class DistributedSearcher:
             r = replies[0]
             for c in r["candidates"]:
                 cand = candidate_from_wire(c)
-                cand.shard = sid
+                cand.shard = sid + shard_offset
                 candidates.append(cand)
             count = count + ApproxCount(r["count"]["value"], r["count"]["exact"])
+        return candidates, count
+
+    def search_initial(self, sq: SearchQuery):
+        candidates, count = self._fan_search(self.client, sq, 0)
+        if self.live_client is not None:
+            try:
+                live_c, live_n = self._fan_search(self.live_client, sq, LIVE_SHARD_OFFSET)
+                candidates.extend(live_c)
+                count = count + live_n
+            except Exception:  # noqa: BLE001 — freshness tier is best-effort
+                pass
         return candidates, count
 
     def search_initial_many(self, sqs: list) -> list:
@@ -56,6 +78,14 @@ class DistributedSearcher:
                     cand.shard = sid
                     cands.append(cand)
                 out[qi] = (cands, count + ApproxCount(r["count"]["value"], r["count"]["exact"]))
+        if self.live_client is not None:
+            for qi, sq in enumerate(sqs):
+                try:
+                    live_c, live_n = self._fan_search(self.live_client, sq, LIVE_SHARD_OFFSET)
+                    out[qi][0].extend(live_c)
+                    out[qi] = (out[qi][0], out[qi][1] + live_n)
+                except Exception:  # noqa: BLE001
+                    pass
         return out
 
     def search_blocks_many(self, sqs: list, max_candidates: int | None = None) -> list:
@@ -79,6 +109,14 @@ class DistributedSearcher:
             for qi, r in enumerate(replies[0]):
                 blocks[qi].append(block_from_wire(r["block"], sid))
                 counts[qi] = counts[qi] + ApproxCount(r["count"]["value"], r["count"]["exact"])
+        if self.live_client is not None:
+            for qi, sq in enumerate(sqs):
+                try:
+                    live_c, live_n = self._fan_search(self.live_client, sq, LIVE_SHARD_OFFSET)
+                    blocks[qi].append(CandidateBlock.from_candidates(live_c))
+                    counts[qi] = counts[qi] + live_n
+                except Exception:  # noqa: BLE001 — freshness tier is best-effort
+                    pass
         return [(CandidateBlock.concat(bl), cnt) for bl, cnt in zip(blocks, counts)]
 
     def retrieve(self, sq: SearchQuery, candidates: list) -> None:
@@ -94,11 +132,15 @@ class DistributedSearcher:
                     for c in cands
                 ],
             }
-            replies = self.client.send(
-                "retrieve", body, shard_selector=SpecificShardSelector(sid),
+            if sid >= LIVE_SHARD_OFFSET and self.live_client is not None:
+                client, real_sid = self.live_client, sid - LIVE_SHARD_OFFSET
+            else:
+                client, real_sid = self.client, sid
+            replies = client.send(
+                "retrieve", body, shard_selector=SpecificShardSelector(real_sid),
                 replica_selector=RandomReplicaSelector(),
             )
-            docs = replies[sid][0]
+            docs = replies[real_sid][0]
             for c, d in zip(cands, docs):
                 c.retrieved = d
 

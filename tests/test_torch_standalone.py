@@ -96,6 +96,29 @@ def test_port_imports_no_lxml_at_module_level():
         (bad, lazy)
 
 
+FRESHNESS = ["sitemap.py", "feed.py", "xml_recover.py", "live_index/__init__.py",
+             "live_index/wal.py", "live_index/index.py", "live_index/crawler.py",
+             "entrypoint/live_index.py", "crawler/__init__.py", "crawler/robots.py",
+             "crawler/file_queue.py", "crawler/coordinator.py", "crawler/router.py",
+             "crawler/wander_prioritiser.py", "crawler/worker.py", "crawler/planner.py"]
+
+
+@pytest.mark.parametrize("module", FRESHNESS)
+def test_freshness_modules_import_no_lxml_jax_or_nltk_at_any_depth(module):
+    """The freshness tier and the crawler run on the card's machine, which
+    has no lxml: their sources import none of lxml, jax, jaxlib, flax,
+    optax, nltk or stract_tpu in any import statement, lazy ones inside
+    functions included (feeds and sitemaps read on xml_recover.py)."""
+    path = os.path.join(REPO, "stract_tpu_torch", module)
+    assert path in _port_sources()
+    bad = [f"{line} {name}" for line, name in _absolute_imports(path)
+           if _names_package(name, ("lxml", "jax", "jaxlib", "flax", "optax", "nltk",
+                                    "stract_tpu"))]
+    with open(path) as fh:
+        text = fh.read()
+    assert not bad and "importlib" not in text and "__import__" not in text, bad
+
+
 # ---- each copied module against its original -------------------------------------------
 def _fields(obj) -> tuple:
     return tuple(sorted(dataclasses.asdict(obj).items()))
@@ -381,6 +404,10 @@ def _config(orig, copy, rng):
         path = os.path.join(REPO, "configs", name)
         a, b = orig.load_config(kind, path), copy.load_config(kind, path)
         assert _fields(a) == _fields(b), kind
+    for kind, name in (("live-index", "live_index.toml"), ("crawler", "crawler/worker.toml"),
+                       ("crawler", "crawler/coordinator.toml")):
+        path = os.path.join(REPO, "configs", name)
+        assert _fields(orig.load_config(kind, path)) == _fields(copy.load_config(kind, path))
     ess = {"index_path": "e", "image_store_path": "i", "port": 9, "gossip": {"addr": "h:1"}}
     assert _fields(orig._from_dict(orig.EntitySearchServerConfig, ess)) == \
         _fields(copy._from_dict(copy.EntitySearchServerConfig, ess))
@@ -860,6 +887,163 @@ def _configure(orig, copy, rng):
     assert copy._PAGES == orig._PAGES
 
 
+def _wal(orig, copy, rng):
+    import tempfile
+
+    entries = [{"url": f"https://a.org/{i}", "n": int(i), "f": float(rng.random())}
+               for i in rng.integers(0, 99, 20)]
+    with tempfile.TemporaryDirectory() as d:
+        blobs = []
+        for mod, name in ((orig, "o"), (copy, "c")):
+            w = mod.Wal(os.path.join(d, name, "live.wal"))
+            for e in entries:
+                w.write(e)
+            assert list(w.iter()) == entries
+            w.close()
+            with open(os.path.join(d, name, "live.wal"), "rb") as fh:
+                blobs.append(fh.read())
+        assert blobs[0] == blobs[1]
+
+
+def _live_index(orig, copy, rng):
+    for name in ("TTL_SECONDS", "COMPACT_INTERVAL", "AUTOCOMMIT_INTERVAL", "DROP_GRACE_SECONDS"):
+        assert getattr(copy, name) == getattr(orig, name), name
+
+
+def _live_package(orig, copy, rng):
+    for name in ("Wal", "LiveIndex", "LiveCrawler", "SiteChecker"):
+        assert getattr(copy, name).__module__.startswith("stract_tpu_torch.live_index.")
+
+
+def _live_crawler(orig, copy, rng):
+    assert copy.CHECK_INTERVALS == orig.CHECK_INTERVALS
+    a, b = orig.SiteChecker("x.org"), copy.SiteChecker("x.org")
+    for now in rng.integers(0, 8000, 30).tolist():
+        for kind in orig.CHECK_INTERVALS:
+            assert b.due(kind, now) == a.due(kind, now)
+    assert dataclasses.astuple(b) == dataclasses.astuple(a)
+
+
+class _Replica:
+    def __init__(self, up: bool, err):
+        self.up, self.err = up, err
+
+    def send(self, method, body):
+        if not self.up:
+            raise self.err("down")
+        return {"indexed": len(body["pages"])}
+
+
+def _live_entrypoint(orig, copy, rng):
+    """The quorum max(1, ceil(fraction * n)) decides alike."""
+    assert copy.DEFAULT_CONSISTENCY_FRACTION == orig.DEFAULT_CONSISTENCY_FRACTION
+    for n in range(1, 6):
+        for up in range(0, n + 1):
+            for frac in (0.0, 0.34, 0.5, 0.51, 1.0):
+                outcomes = []
+                for mod in (orig, copy):
+                    reps = type("R", (), {"clients": [_Replica(i < up, mod.RpcError)
+                                                      for i in range(n)]})()
+                    try:
+                        outcomes.append(mod.LiveIndexClient(reps, frac).index_webpages([{}, {}]))
+                    except mod.RpcError:
+                        outcomes.append("quorum failed")
+                assert outcomes[0] == outcomes[1], (n, up, frac)
+
+
+def _robots(orig, copy, rng):
+    text = "User-agent: *\nDisallow: /a*\nAllow: /a/ok$\nCrawl-delay: 3\nSitemap: https://s/x"
+    a, b = orig.Robots.parse(text), copy.Robots.parse(text)
+    for p in ("/", "/a", "/a/ok", "/a/ok/x", "/b"):
+        assert b.is_allowed("Bot", p) == a.is_allowed("Bot", p)
+    assert (b.crawl_delay("Bot"), b.sitemaps) == (a.crawl_delay("Bot"), a.sitemaps)
+
+
+def _file_queue(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        for mod, name in ((orig, "o"), (copy, "c")):
+            q = mod.FileQueue(os.path.join(d, name, "q"))
+            q.push_many([{"i": i} for i in range(5)])
+            assert q.pop() == {"i": 0} and len(q) == 4
+        for suffix in (".q", ".pos"):
+            with open(os.path.join(d, "o", "q" + suffix), "rb") as x, \
+                    open(os.path.join(d, "c", "q" + suffix), "rb") as y:
+                assert x.read() == y.read()
+
+
+def _crawl_coordinator(orig, copy, rng):
+    j = {"domain": "d.org", "urls": ["https://d.org/1"], "wandering_urls": 3}
+    assert copy.Job.from_json(j).to_json() == orig.Job.from_json(j).to_json() == j
+    assert copy.UrlToInsert("u", 2.0).to_json() == orig.UrlToInsert("u", 2.0).to_json()
+
+
+def _router(orig, copy, rng):
+    class _Coord:
+        def __init__(self, jobs):
+            self.jobs = list(jobs)
+
+        def send(self, method, body):
+            return self.jobs.pop(0) if self.jobs else None
+
+    out = []
+    for mod in (orig, copy):
+        r = mod.Router([])
+        r.clients = [_Coord([1, 2]), _Coord([]), _Coord([3])]
+        r._rr = __import__("itertools").cycle(range(3))
+        out.append([r.new_job() for _ in range(5)])
+    assert out[0] == out[1] == [1, 2, 3, None, None]
+
+
+def _wander(orig, copy, rng):
+    a, b = orig.WanderPrioritiser(), copy.WanderPrioritiser()
+    for u in ("https://x.org/1", "https://www.x.org/2", "https://x.org/1", "https://y.org/"):
+        a.observe(u)
+        b.observe(u)
+    assert [b.pop_best("x.org") for _ in range(3)] == [a.pop_best("x.org") for _ in range(3)]
+
+
+def _worker(orig, copy, rng):
+    for name in ("USER_AGENT", "DEFAULT_POLITENESS_DELAY", "MAX_POLITENESS_DELAY",
+                 "MAX_URL_SLOWDOWN_RETRIES"):
+        assert getattr(copy, name) == getattr(orig, name)
+    assert [f.name for f in dataclasses.fields(copy.CrawlDatum)] == \
+        [f.name for f in dataclasses.fields(orig.CrawlDatum)]
+
+
+def _planner(orig, copy, rng):
+    assert copy.NUM_JOB_GROUPS == orig.NUM_JOB_GROUPS
+    known = {f"h{i}.org": [f"https://h{i}.org/{k}" for k in range(i)] for i in range(8)}
+    cent = {f"h{i}.org": float(rng.random()) for i in range(8)}
+    assert [j.to_json() for j in copy.make_crawl_plan(cent, known, 30)] == \
+        [j.to_json() for j in orig.make_crawl_plan(cent, known, 30)]
+
+
+def _crawler_package(orig, copy, rng):
+    for name in ("Robots", "CrawlCoordinator", "Job", "UrlToInsert", "Router", "WorkerThread",
+                 "JobExecutor", "make_crawl_plan"):
+        assert getattr(copy, name).__module__.startswith("stract_tpu_torch.crawler.")
+
+
+def _sitemap(orig, copy, rng):
+    doc = ('<sitemapindex xmlns="http://www.sitemaps.org/schemas/sitemap/0.9"><sitemap><loc>'
+           'https://s.org/a.xml?x=1&y=2</loc><lastmod>2024</lastmod></sitemap></sitemapindex>')
+    assert [dataclasses.asdict(e) for e in copy.parse_sitemap(doc)] == \
+        [dataclasses.asdict(e) for e in orig.parse_sitemap(doc)]
+
+
+def _feed(orig, copy, rng):
+    doc = ('<feed xmlns="http://www.w3.org/2005/Atom"><title>A &amp; B</title><entry><link '
+           'href="https://a.org/1"/><title><![CDATA[x <b>]]></title><updated>2024</updated>'
+           '</entry></feed>')
+    assert dataclasses.asdict(copy.parse_feed(doc)) == dataclasses.asdict(orig.parse_feed(doc))
+
+
+def _distributed_searcher(orig, copy, rng):
+    assert copy.LIVE_SHARD_OFFSET == orig.LIVE_SHARD_OFFSET == 1 << 20
+
+
 COPIES = {
     "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
     "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
@@ -888,7 +1072,13 @@ COPIES = {
     "keywords": _keywords, "warc": _warc, "index.merge": _index_build,
     "canon_index": _canon_index, "entrypoint.webgraph_build": _webgraph_build,
     "site_stats": _site_stats, "entrypoint.indexer": _indexer,
-    "entrypoint.configure": _configure,
+    "entrypoint.configure": _configure, "live_index.wal": _wal, "live_index.index": _live_index,
+    "live_index": _live_package, "live_index.crawler": _live_crawler,
+    "entrypoint.live_index": _live_entrypoint, "crawler.robots": _robots,
+    "crawler.file_queue": _file_queue, "crawler.coordinator": _crawl_coordinator,
+    "crawler.router": _router, "crawler.wander_prioritiser": _wander, "crawler.worker": _worker,
+    "crawler.planner": _planner, "crawler": _crawler_package, "sitemap": _sitemap,
+    "feed": _feed, "searcher.distributed": _distributed_searcher,
 }
 
 
