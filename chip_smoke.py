@@ -212,6 +212,23 @@ and K6b launched): the same rounds and centrality as the single-card job;
 its rounds again against K6a, every round's registers bit-equal; K8 on one
 (shard, step) bucket bit-equal to its plain version.
 
+Then the rest of the graph (graph_roles_phase): `main.py webgraph create` over
+2 seeded WARC files of 150 pages (page level) and `webgraph merge`; the two
+graphs served as webgraph shards found by gossip, shard 1 by `main.py
+webgraph-server` as a process: RemoteWebgraph answers 48 sampled nodes' every
+method as the merged graph does. The AMPC harmonic job on bench_centrality's
+graph cut to 10,000 nodes and 200,000 edges (the job's DHT is Python dicts
+behind sonic RPC, one msgpack pair a key): 2 DHT shards, 4 harmonic workers
+on the card and the coordinator of entrypoint/ampc.py over gossip, counts
+reset just before and read just after (K6a launched rounds x 4 times); the
+same job with CPU workers beside a stopped worker of shard 0, bit-equal; both
+within 1e-4 of `main.py centrality harmonic` on the card. Shortest paths over
+4 shortest-path workers equal K7's BFS; approx-harmonic over 4 sources equals
+the single-card approx-harmonic within rtol 1e-12; a 3-replica raft group
+keeps taking writes after its leader is stopped. `[result graph roles]`
+prints each part's seconds, the rounds and K6a's launches, and K6a's record
+in the kernels line gains `ampc_launches`.
+
 Prints per-kernel times beside the least time the card could take (bytes
 once over 3.35 TB/s or operations over the peak) and the time of a PyTorch
 call computing the same function where there is one, qps, p50 and p99, the
@@ -374,6 +391,12 @@ LIVE_TOL = (1e-3, 1e-3)
 MESH_SHARDS, MESH_DOCS, MESH_SEEDS = 4, 250_000, (1, 2, 3, 4)
 MESH_SERVING = ("stage_a", "stage_b_joined", "signals_q16", "mesh_topk")
 MESH_TOPK_SHAPES, MESH_TOPK_B = ((4, 512), (4, 1024), (8, 1024)), 16
+# the graph roles: the AMPC job's graph (bench_centrality's recipe, cut from the
+# centrality phase's 1M nodes: the job's DHT is Python dicts behind sonic RPC,
+# one msgpack pair a key), its worker and DHT shards, the approx-harmonic
+# samples; the webgraph servers' WARC files (pages a file, hosts, words)
+ROLES_NODES, ROLES_EDGES, ROLES_SHARDS, ROLES_DHT, ROLES_SAMPLES = 10_000, 200_000, 4, 2, 4
+ROLES_PAGES, ROLES_HOSTS, ROLES_WORDS = 150, 40, (60, 150)
 # the pipeline-parallel train step (K16) at MiniLM-L6's width, the ranker it
 # exists to scale: a single-head stage for each of its 6 layers, hidden 384,
 # FFN 1536, 128 tokens, a (pp, dp) mesh on the card, M microbatches of MB rows
@@ -5058,6 +5081,300 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 PEAK_TF32 = 495e12  # TF32 on the tensor cores (K16a's 3xTF32 products)
 
 
+@contextlib.contextmanager
+def counted_rounds(cls):
+    """cls.run's return values (the AMPC coordinator's rounds) appended to
+    the yielded list while the block runs."""
+    real, rounds = cls.run, []
+
+    def run(self, *a, **kw):
+        rounds.append(real(self, *a, **kw))
+        return rounds[-1]
+    cls.run = run
+    try:
+        yield rounds
+    finally:
+        cls.run = real
+
+
+def close_clients(*clients) -> None:
+    """Close RemoteClients' pooled connections (a sonic server's stop waits
+    on the open ones)."""
+    for c in clients:
+        c.close()
+
+
+def graph_roles_phase(data_dir: str) -> dict:
+    """The rest of the graph (main.py webgraph | webgraph-server | ampc):
+    `webgraph create` over 2 seeded WARC files (page level), then `merge`;
+    the two graphs served as webgraph shards, shard 1 by `main.py
+    webgraph-server` as a process, shard 0 by entrypoint/webgraph_server.py
+    run, both found by gossip: RemoteWebgraph answers every method as the
+    merged graph does (links and labels as multisets, group sketches by
+    their register bytes, exact groups as sets) and similar_hosts as the two
+    local services merged. Then the AMPC harmonic job on bench_centrality's
+    graph (ROLES_NODES, ROLES_EDGES, seed 0, precision 6): ROLES_DHT DHT shards and
+    ROLES_SHARDS harmonic workers on DEVICE over gossip, the coordinator
+    through entrypoint/ampc.py, counts reset just before and read just
+    after: K6a launched rounds x shards times. The same job with CPU workers
+    beside a worker of shard 0 stopped before the run: the same
+    centralities, bit for bit; both within 1e-4 of `main.py centrality
+    harmonic` on DEVICE. Shortest paths from one source over ROLES_SHARDS
+    shortest-path workers equal webgraph/shortest_path.distances on DEVICE
+    (K7); approx-harmonic over ROLES_SAMPLES sources equals
+    approx_harmonic_centrality on DEVICE within rtol 1e-12; a 3-replica
+    raft group takes writes before and after its leader is stopped. →
+    {"record", "launches"}."""
+    import numpy as np
+
+    from stract_tpu_torch.ampc import harmonic as AH
+    from stract_tpu_torch.ampc.coordinator import Coordinator
+    from stract_tpu_torch.ampc.dht import DhtClient, start_dht
+    from stract_tpu_torch.ampc.raft import start_raft_group
+    from stract_tpu_torch.ampc.worker import start_worker
+    from stract_tpu_torch.distributed.cluster import Cluster, Service
+    from stract_tpu_torch.entrypoint import ampc as EA
+    from stract_tpu_torch.entrypoint import bench_centrality as BC
+    from stract_tpu_torch.entrypoint import webgraph_server as WS
+    from stract_tpu_torch.main import main as port_main
+    from stract_tpu_torch.main import run_centrality
+    from stract_tpu_torch.ops import kernels
+    from stract_tpu_torch.utils.hashing import prehash
+    from stract_tpu_torch.warc_corpus import write_warcs
+    from stract_tpu_torch.webgraph import Webgraph
+    from stract_tpu_torch.webgraph.remote import RemoteWebgraph
+    from stract_tpu_torch.webgraph.shortest_path import approx_harmonic_centrality, distances
+
+    root = os.path.join(data_dir, "graph_roles")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    secs = {}
+
+    def toml(name: str, text: str) -> str:
+        path = os.path.join(root, name)
+        with open(path, "w") as fh:
+            fh.write(text)
+        return path
+
+    # ---- main.py webgraph create | merge --------------------------------------------
+    t = time.perf_counter()
+    info = write_warcs(os.path.join(root, "warc"), 2, ROLES_PAGES, seed=28, hosts=ROLES_HOSTS,
+                       words=ROLES_WORDS)
+    shards = [os.path.join(root, f"graph{i}") for i in range(2)]
+    for w, out in zip(info.paths, shards):
+        port_main(["webgraph", "create", toml(os.path.basename(out) + ".toml",
+                  f'warc_paths = ["{w}"]\noutput_path = "{out}"\nlevel = "page"\n')])
+    merged_dir = os.path.join(root, "merged")
+    port_main(["webgraph", "merge", toml("merge.toml", f'warc_paths = {json.dumps(shards)}\n'
+                                          f'output_path = "{merged_dir}"\n')])
+    merged, parts = Webgraph(merged_dir), [Webgraph(p) for p in shards]
+    if not 0 < max(g.num_edges for g in parts) < merged.num_edges:
+        raise AssertionError(f"the merge lost edges: {[g.num_edges for g in parts]} -> "
+                             f"{merged.num_edges}")
+    secs["webgraph_create_merge"] = time.perf_counter() - t
+
+    # ---- two webgraph shards over gossip, one of them a process ---------------------------
+    t = time.perf_counter()
+    seed = Cluster.join(Service("api"), interval=0.2)
+    seeds = f'seeds = ["{seed.gossip_addr[0]}:{seed.gossip_addr[1]}"]\n'
+    proc = subprocess.Popen([sys.executable, "-m", "stract_tpu_torch.main", "webgraph-server",
+                             toml("wg1.toml", f'graph_path = "{shards[1]}"\nshard = 1\n'
+                                  f'[gossip]\n{seeds}')], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    local, local_cluster = WS.run(shards[0], 0, gossip_seeds=[seed.gossip_addr])
+    remote = None
+    try:
+        deadline = time.monotonic() + 120
+        while len({s.shard for s in seed.services("webgraph")}) < 2:
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise RuntimeError("the webgraph servers did not join gossip: "
+                                   f"{proc.stdout.read()[-2000:] if proc.poll() is not None else ''}")
+            time.sleep(0.1)
+        remote = RemoteWebgraph.from_cluster(seed)
+        services = [WS.WebGraphService(g, i) for i, g in enumerate(parts)]
+        mine = WS.WebGraphService(merged)
+        rng = np.random.default_rng(28)
+        checked = 0
+        big = 1 << 20
+        for rank in rng.choice(merged.num_nodes, 48, replace=False).tolist():
+            node = merged.name_of(rank)
+            for method, body in (("backlinks", {"node": node, "limit": big}),
+                                 ("forwardlinks", {"node": node, "limit": big})):
+                got = getattr(remote, method)(node, big)
+                want = getattr(mine, method)(body)
+                if sorted(map(json.dumps, got)) != sorted(map(json.dumps, want)):
+                    raise AssertionError(f"{method}({node}) differs from the merged graph's")
+            if sorted(remote.backlink_labels(node, big)) != sorted(merged.backlink_labels(node,
+                                                                                          big)):
+                raise AssertionError(f"backlink_labels({node}) differs")
+            for d in ("to", "from"):
+                got = {h: s.to_bytes() for h, s in remote.group_sketch(node, d, 8).items()}
+                want = {h: s.to_bytes() for h, s in merged.group_sketch(node, d, 8).items()}
+                if got != want:
+                    raise AssertionError(f"group_sketch({node}, {d}) differs")
+                got = {h: set(v) for h, v in remote.group_exact(node, d, big).items()}
+                if got != {h: set(v) for h, v in merged.group_exact(node, d, big).items()}:
+                    raise AssertionError(f"group_exact({node}, {d}) differs")
+            if not remote.knows(node) or remote.id2node(prehash(node)) != node:
+                raise AssertionError(f"knows / id2node({node}) differ")
+            sim = sorted([x for sv in services for x in sv.similar_hosts({"hosts": [node], "top_k": 5})],
+                         key=lambda x: -x["score"])[:5]
+            if remote.similar_hosts([node], 5) != sim:
+                raise AssertionError(f"similar_hosts({node}) differs from the shards' merge")
+            checked += 1
+        if remote.knows("nothing.example") or remote.id2node(7) is not None:
+            raise AssertionError("an unknown node was found")
+    finally:
+        proc.kill()
+        proc.wait()
+        if remote is not None:
+            remote.client.close()
+        local_cluster.shutdown()
+        local.stop()
+        seed.shutdown()
+    secs["webgraph_servers"] = time.perf_counter() - t
+
+    # ---- the AMPC harmonic job: workers on the card, then on the CPU ---------------------
+    t = time.perf_counter()
+    g = BC.write_bench_graph(os.path.join(root, "ampc-graph"), ROLES_NODES, ROLES_EDGES)
+    secs["graph"] = time.perf_counter() - t
+    t = time.perf_counter()
+    seed = Cluster.join(Service("admin"), interval=0.2)
+    dhts = [EA.run_dht(node_id=i, gossip_seeds=[seed.gossip_addr]) for i in range(ROLES_DHT)]
+    workers = [EA.run_harmonic_worker(g.path, s, ROLES_SHARDS, 6, gossip_seeds=[seed.gossip_addr],
+                                      device=DEVICE) for s in range(ROLES_SHARDS)]
+    deadline = time.monotonic() + 60
+    while len({x.shard for x in seed.services("ampc-dht")}) < ROLES_DHT:
+        if time.monotonic() > deadline:
+            raise RuntimeError("the DHT shards did not join gossip")
+        time.sleep(0.1)
+    secs["ampc_start"] = time.perf_counter() - t
+    try:
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with counted_rounds(Coordinator) as rounds:
+            cent = EA.run_harmonic_coordinator(g.path, os.path.join(root, "ampc-kv"),
+                                               ROLES_SHARDS, 6, gossip_seeds=[seed.gossip_addr],
+                                               wait_s=60.0)
+        secs["ampc_harmonic"] = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for server, cl, *_ in dhts + workers:
+            cl.shutdown()
+            server.stop()
+        seed.shutdown()
+    n_rounds = rounds[0]
+    if n_rounds < 2 or DEVICE == "cuda" and launches["hll_merge"] != n_rounds * ROLES_SHARDS:
+        raise AssertionError(f"K6a: {launches['hll_merge']} launches in {n_rounds} rounds of "
+                             f"{ROLES_SHARDS} shards")
+    t = time.perf_counter()
+    parts_e = AH.partition_edges(g, ROLES_SHARDS)
+    dead = start_worker(AH.HarmonicWorker(0, ROLES_SHARDS, *parts_e[0], g.num_nodes, 6,
+                                          device="cpu"))
+    dead_addr = dead.addr
+    dead.stop()
+    cpu = [start_worker(AH.HarmonicWorker(s, ROLES_SHARDS, ef, et, g.num_nodes, 6, device="cpu"))
+           for s, (ef, et) in enumerate(parts_e)]
+    servers, client = start_dht(ROLES_DHT)
+    try:
+        with counted_rounds(Coordinator) as cpu_rounds:
+            cent_cpu = AH.run_distributed_harmonic(g, [dead_addr] + [w.addr for w in cpu], client,
+                                                   ROLES_SHARDS)
+    finally:
+        close_clients(*client.clients)
+        for x in servers + cpu:
+            x.stop()
+    secs["ampc_harmonic_cpu"] = time.perf_counter() - t
+    if cpu_rounds != rounds or list(cent_cpu.items()) != list(cent.items()):
+        raise AssertionError(f"the card's workers and the CPU's differ: rounds {rounds} "
+                             f"{cpu_rounds}")
+    t = time.perf_counter()
+    cfg = toml("harmonic.toml", f'webgraph_path = "{g.path}"\noutput_path = '
+               f'"{root}/harmonic-kv"\nprecision = 6\n')
+    single = run_centrality("harmonic", cfg, DEVICE)
+    secs["single_device_harmonic"] = time.perf_counter() - t
+    harmonic_diff = max(abs(cent[k] - v) for k, v in single.items())
+    if set(single) != set(cent) or not harmonic_diff < 1e-4:
+        raise AssertionError(f"the AMPC job and the single-device job differ by {harmonic_diff}")
+
+    # ---- shortest paths and approx-harmonic over shortest-path workers -------------------
+    t = time.perf_counter()
+    seed = Cluster.join(Service("admin"), interval=0.2)
+    dhts = [EA.run_dht(node_id=i, gossip_seeds=[seed.gossip_addr]) for i in range(ROLES_DHT)]
+    workers = [EA.run_shortest_path_worker(g.path, s, ROLES_SHARDS,
+                                           gossip_seeds=[seed.gossip_addr])
+               for s in range(ROLES_SHARDS)]
+    source = g.name_of(int(np.argmax([cent[g.name_of(i)] for i in range(g.num_nodes)])))
+    try:
+        launches_sp = kernels.LAUNCHES["bfs_relax"]
+        dist = EA.run_shortest_path_coordinator(g.path, source, "", ROLES_SHARDS,
+                                                gossip_seeds=[seed.gossip_addr], wait_s=60.0)
+        secs["ampc_shortest_path"] = time.perf_counter() - t
+        t = time.perf_counter()
+        approx = EA.run_approx_harmonic_coordinator(g.path, "", ROLES_SHARDS, ROLES_SAMPLES, 0,
+                                                    gossip_seeds=[seed.gossip_addr], wait_s=60.0)
+        secs["ampc_approx_harmonic"] = time.perf_counter() - t
+    finally:
+        for server, cl, *_ in dhts + workers:
+            cl.shutdown()
+            server.stop()
+        seed.shutdown()
+    t = time.perf_counter()
+    bfs = distances(g, source, device=DEVICE)
+    approx_dev = approx_harmonic_centrality(g, ROLES_SAMPLES, seed=0, device=DEVICE)
+    secs["device_bfs"] = time.perf_counter() - t
+    if DEVICE == "cuda" and kernels.LAUNCHES["bfs_relax"] == launches_sp:
+        raise AssertionError("distances() did not launch K7")
+    if dist != bfs or len(dist) < 2:
+        raise AssertionError(f"AMPC distances ({len(dist)} nodes) differ from the BFS's "
+                             f"({len(bfs)})")
+    np.testing.assert_allclose([approx[k] for k in approx_dev], list(approx_dev.values()),
+                               rtol=1e-12, atol=0)
+
+    # ---- a raft group: the leader stopped, writes continue -----------------------------
+    t = time.perf_counter()
+    nodes_r, servers_r, rclient = start_raft_group(3)
+    try:
+        def leader_of(group):
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                leaders = [x for x in group if x.state == "leader"]
+                if len(leaders) == 1:
+                    return leaders[0]
+                time.sleep(0.05)
+            raise AssertionError("no single raft leader")
+
+        old = leader_of(nodes_r)
+        for i in range(20):
+            rclient.write("batch_upsert", {"table": "c", "fn": "u64_add", "pairs": [(b"n", 1)]})
+        idx = nodes_r.index(old)
+        old.stop()
+        close_clients(rclient.clients[idx], *old.peers.values(),
+                      *[x.peers[old.id] for x in nodes_r if x is not old])
+        servers_r[idx].stop()
+        new = leader_of([x for x in nodes_r if x is not old])
+        for i in range(20):
+            rclient.write("batch_upsert", {"table": "c", "fn": "u64_add", "pairs": [(b"n", 1)]})
+        got = rclient.read("batch_get", {"table": "c", "keys": [b"n"]})
+        if got != [40] or new is old:
+            raise AssertionError(f"the raft group read {got} after its failover")
+    finally:
+        for x in nodes_r:
+            x.stop()
+        close_clients(*rclient.clients, *[c for x in nodes_r for c in x.peers.values()])
+        for x in servers_r:
+            x.stop()
+    secs["raft"] = time.perf_counter() - t
+    rec = {"nodes": g.num_nodes, "edges": g.num_edges, "cut": f"from {GRAPH_NODES:,} nodes",
+           "webgraph": {"pages": info.pages, "merged_nodes": merged.num_nodes,
+                        "merged_edges": merged.num_edges, "nodes_checked": checked},
+           "rounds": n_rounds, "worker_shards": ROLES_SHARDS, "dht_shards": ROLES_DHT,
+           "k6a_launches": launches["hll_merge"], "harmonic_max_diff_vs_single": harmonic_diff,
+           "reached": len(dist), "approx_samples": ROLES_SAMPLES,
+           "seconds": {k: round(v, 3) for k, v in secs.items()}}
+    return {"record": rec, "launches": launches}
+
+
 def bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> tuple:
     """The least time the card could take: bytes moved once over the memory
     rate, or the operations over their peak, whichever is larger → (ms, "bytes"
@@ -5511,6 +5828,12 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                          os.path.join(data_dir, "centrality"), cent, card)
     log(f"[result mesh centrality] {json.dumps(mesh_cent['record'])} card={card}")
 
+    # ---- the rest of the graph: webgraph servers, the AMPC roles (K6a), raft -----------
+    t = time.perf_counter()
+    roles = in_phase("graph roles", graph_roles_phase, data_dir)
+    log(f"[result graph roles] {json.dumps(roles['record'])} seconds="
+        f"{time.perf_counter() - t:.1f} card={card}")
+
     mesh = {"rows": rows_k9 + mesh_cent["rows"],
             "launches": {"mesh_topk": mesh_serve["launches"]["mesh_topk"],
                          "hll_ring_step": mesh_cent["launches"]["hll_ring_step"]},
@@ -5527,6 +5850,8 @@ def run_phases(data_dir: str, mesh_proc, card: str, t_start: float, t: float) ->
                                      + built["serve_launches"][rec["name"]])
         if rec["name"] in SCORING:
             rec["live_launches"] = live["launches"][rec["name"]]
+        if rec["name"] == "hll_merge":  # the AMPC harmonic workers' merges
+            rec["ampc_launches"] = roles["launches"]["hll_merge"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

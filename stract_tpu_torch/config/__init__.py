@@ -10,7 +10,9 @@ entity-search-server TOML: index_path, image_store_path, host, port,
 [gossip]; a site-stats TOML: index_path, output_path,
 host_centrality_path; a live-index TOML: path, shard, host, port, [gossip],
 consistency_fraction; a crawler TOML: queue_path, discovered_path,
-warc_output_dir, coordinator_addrs, router_addr)."""
+warc_output_dir, coordinator_addrs, router_addr; a webgraph-server TOML:
+graph_path, shard, host, port, [gossip]; a webgraph TOML: warc_paths,
+output_path, level; an ampc TOML: every role's fields in one struct)."""
 
 from __future__ import annotations
 
@@ -75,6 +77,15 @@ class SearchServerConfig:
 
 
 @dataclass
+class WebgraphServerConfig:
+    graph_path: str = "data/webgraph"
+    shard: int = 0
+    host: str = "127.0.0.1"
+    port: int = 0
+    gossip: dict = field(default_factory=dict)
+
+
+@dataclass
 class LiveIndexConfig:
     path: str = "data/live"
     shard: int = 0
@@ -97,6 +108,13 @@ class IndexerConfig:
     # `indexer entity` (entrypoint/entity.rs) / `indexer canonical` (canonical.rs)
     zim_path: str = ""
     entity_limit: int = 0
+
+
+@dataclass
+class WebgraphConstructConfig:
+    warc_paths: list = field(default_factory=list)
+    output_path: str = "data/webgraph"
+    level: str = "host"  # host | page
 
 
 @dataclass
@@ -148,11 +166,33 @@ class SiteStatsConfig:
     host_centrality_path: str = ""
 
 
+@dataclass
+class AmpcConfig:
+    """One struct for every `ampc` role (role of reference config::ampc::*);
+    each role reads the subset of fields it needs."""
+
+    webgraph_path: str = "data/webgraph"
+    shard: int = 0
+    num_shards: int = 1
+    precision: int = 6
+    num_samples: int = 16
+    seed: int = 0
+    source: str = ""            # shortest-path source node
+    output_path: str = ""
+    host: str = "127.0.0.1"
+    port: int = 0
+    node_id: int = 0
+    peers: list = field(default_factory=list)  # raft replica addrs (dht role)
+    gossip: dict = field(default_factory=dict)
+    wait_s: float = 30.0
+
+
 CONFIG_TYPES = {"api": ApiConfig, "search-server": SearchServerConfig,
+                "webgraph-server": WebgraphServerConfig,
                 "entity-search-server": EntitySearchServerConfig, "live-index": LiveIndexConfig,
-                "indexer": IndexerConfig, "centrality": CentralityConfig,
-                "crawler": CrawlerConfig, "web-spell": WebSpellConfig,
-                "site-stats": SiteStatsConfig}
+                "indexer": IndexerConfig, "webgraph": WebgraphConstructConfig,
+                "centrality": CentralityConfig, "crawler": CrawlerConfig,
+                "web-spell": WebSpellConfig, "site-stats": SiteStatsConfig, "ampc": AmpcConfig}
 
 
 def load_config(kind: str, path: str):

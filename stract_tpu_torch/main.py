@@ -19,6 +19,11 @@
     python -m stract_tpu_torch.main entity-search-server CONFIG
     python -m stract_tpu_torch.main live-index {serve,crawler} CONFIG [--device cuda]
     python -m stract_tpu_torch.main crawler {worker,coordinator,router,plan} CONFIG
+    python -m stract_tpu_torch.main webgraph {create,merge} CONFIG
+    python -m stract_tpu_torch.main webgraph-server CONFIG
+    python -m stract_tpu_torch.main ampc {dht,harmonic-worker,harmonic-coordinator,\
+        approx-harmonic-coordinator,shortest-path-worker,shortest-path-coordinator} \
+        CONFIG [--device cuda]
 
 `serve` is the one-process deployment (index + searcher + coordinator + HTTP
 API in one process) restricted to the search route: POST /beta/api/search
@@ -118,6 +123,26 @@ the job queue at queue_path, the router round-robins the coordinators at
 coordinator_addrs, a worker takes jobs from the router at router_addr until
 none is left and writes a WARC file a job under warc_output_dir. Host work
 all: no --device.
+
+`webgraph create | merge` and `webgraph-server` are the JAX package's
+subcommands of the same names. `webgraph create` reads a
+WebgraphConstructConfig TOML (warc_paths, output_path, level = host | page)
+and writes the graph of the WARC files' links (entrypoint/webgraph_build.py);
+`webgraph merge` takes warc_paths as the graphs to merge
+(webgraph/store.py merge_graphs). `webgraph-server` (a WebgraphServerConfig
+TOML: graph_path, shard, host, port, [gossip]) serves one graph shard over
+sonic RPC and announces itself by gossip as `webgraph`
+(entrypoint/webgraph_server.py); webgraph/remote.py RemoteWebgraph fans a
+coordinator's queries out over the shards it finds. Host work: no --device.
+
+`ampc ROLE CONFIG` is the JAX package's distributed graph job (an AmpcConfig
+TOML, one struct for every role; entrypoint/ampc.py): `dht` serves a DHT
+shard (raft-replicated with `peers`), `harmonic-worker` and
+`shortest-path-worker` an edge partition of webgraph_path (shard of
+num_shards), and the three coordinators find them by gossip, drive the
+rounds and write output_path. The harmonic worker merges its partition's
+registers on --device (K6a on a card; cuda without one raises); the other
+roles are host work and take no --device.
 """
 
 from __future__ import annotations
@@ -343,6 +368,71 @@ def _crawler_role(role: str, config: str) -> None:
         print("use stract_tpu_torch.crawler.planner.make_crawl_plan with centrality + url stores")
 
 
+def _webgraph(action: str, config: str) -> None:
+    """`main.py webgraph ACTION CONFIG` (stract_tpu/main.py's webgraph actions)."""
+    from .config import load_config
+
+    cfg = load_config("webgraph", config)
+    if action == "merge":
+        from .webgraph.store import merge_graphs
+
+        g = merge_graphs(cfg.warc_paths, cfg.output_path)  # paths = source graphs
+    else:
+        from .entrypoint.webgraph_build import build_from_warcs
+
+        g = build_from_warcs(cfg.warc_paths, cfg.output_path, cfg.level)
+    print(f"webgraph: {g.num_nodes} nodes, {g.num_edges} edges → {cfg.output_path}", flush=True)
+
+
+def _ampc_role(role: str, config: str, device: str) -> None:
+    """`main.py ampc ROLE CONFIG` (stract_tpu/main.py _run_ampc_role)."""
+    from .config import GossipConfig, _from_dict, load_config
+    from .entrypoint import ampc as ep
+
+    cfg = load_config("ampc", config)
+    g = _from_dict(GossipConfig, cfg.gossip or {})
+    ga, gs = g.addr_tuple(), g.seed_tuples()
+    if role == "dht":
+        peers = []
+        for a in cfg.peers:
+            if isinstance(a, str):
+                h, p = a.rsplit(":", 1)
+                peers.append((h, int(p)))
+            else:
+                peers.append(tuple(a))
+        server, _cluster, _obj = ep.run_dht(
+            cfg.host, cfg.port, cfg.node_id, peers or None, ga, gs)
+        print(f"ampc dht shard={cfg.node_id} rpc={server.addr}", flush=True)
+        _wait_forever()
+    elif role == "harmonic-worker":
+        server, _cluster = ep.run_harmonic_worker(
+            cfg.webgraph_path, cfg.shard, cfg.num_shards, cfg.precision,
+            cfg.host, cfg.port, ga, gs, device=device)
+        print(f"ampc harmonic-worker shard={cfg.shard} rpc={server.addr}", flush=True)
+        _wait_forever()
+    elif role == "shortest-path-worker":
+        server, _cluster = ep.run_shortest_path_worker(
+            cfg.webgraph_path, cfg.shard, cfg.num_shards, cfg.host, cfg.port, ga, gs)
+        print(f"ampc shortest-path-worker shard={cfg.shard} rpc={server.addr}", flush=True)
+        _wait_forever()
+    elif role == "harmonic-coordinator":
+        c = ep.run_harmonic_coordinator(
+            cfg.webgraph_path, cfg.output_path, cfg.num_shards, cfg.precision,
+            ga, gs, cfg.wait_s)
+        print(f"harmonic centrality for {len(c)} nodes → {cfg.output_path}", flush=True)
+    elif role == "approx-harmonic-coordinator":
+        c = ep.run_approx_harmonic_coordinator(
+            cfg.webgraph_path, cfg.output_path, cfg.num_shards,
+            cfg.num_samples, cfg.seed, ga, gs, cfg.wait_s)
+        print(f"approx harmonic centrality for {len(c)} nodes → {cfg.output_path}", flush=True)
+    else:
+        d = ep.run_shortest_path_coordinator(
+            cfg.webgraph_path, cfg.source, cfg.output_path, cfg.num_shards,
+            ga, gs, cfg.wait_s)
+        print(f"shortest paths from {cfg.source}: {len(d)} reachable → {cfg.output_path}",
+              flush=True)
+
+
 def _wait_forever():
     stop = threading.Event()
     while not stop.wait(3600):
@@ -408,6 +498,19 @@ def main(argv=None):
     cr = sub.add_parser("crawler", help="distributed crawler roles")
     cr.add_argument("crawl_role", choices=["worker", "coordinator", "router", "plan"])
     cr.add_argument("config")
+    wg = sub.add_parser("webgraph", help="build webgraph from WARCs")
+    wg.add_argument("action", choices=["create", "merge"])
+    wg.add_argument("config")
+    ws = sub.add_parser("webgraph-server",
+                        help="one webgraph shard over sonic RPC, announced by gossip")
+    ws.add_argument("config")
+    am = sub.add_parser("ampc", help="distributed graph-compute roles")
+    am.add_argument("ampc_role", choices=[
+        "dht", "harmonic-worker", "harmonic-coordinator", "approx-harmonic-coordinator",
+        "shortest-path-worker", "shortest-path-coordinator"])
+    am.add_argument("config")
+    am.add_argument("--device", default=None,
+                    help="harmonic-worker: cuda (the default) or cpu")
     for role, what in (("search-server", "a search shard over sonic RPC, announced by gossip"),
                        ("api", "the coordinator: gossip, shard fan-out, HTTP search API")):
         rp = sub.add_parser(role, help=what)
@@ -431,6 +534,29 @@ def main(argv=None):
 
     if args.role == "indexer":
         _indexer(args.action, args.config)
+        return
+
+    if args.role == "webgraph":
+        _webgraph(args.action, args.config)
+        return
+
+    if args.role == "webgraph-server":
+        from .config import GossipConfig, _from_dict, load_config
+        from .entrypoint.webgraph_server import run
+
+        cfg = load_config("webgraph-server", args.config)
+        g = _from_dict(GossipConfig, cfg.gossip or {})
+        server, cluster = run(cfg.graph_path, cfg.shard, cfg.host, cfg.port, g.addr_tuple(),
+                              g.seed_tuples())
+        print(f"webgraph-server shard={cfg.shard} rpc={server.addr} gossip={cluster.gossip_addr}",
+              flush=True)
+        _wait_forever()
+        return
+
+    if args.role == "ampc":
+        if args.device is not None and args.ampc_role != "harmonic-worker":
+            ap.error("--device applies to ampc harmonic-worker alone")
+        _ampc_role(args.ampc_role, args.config, args.device or "cuda")
         return
 
     if args.role == "live-index":

@@ -119,6 +119,28 @@ def test_freshness_modules_import_no_lxml_jax_or_nltk_at_any_depth(module):
     assert not bad and "importlib" not in text and "__import__" not in text, bad
 
 
+GRAPH = ["webgraph/betweenness.py", "webgraph/remote.py", "entrypoint/webgraph_server.py",
+         "ampc/__init__.py", "ampc/job.py", "ampc/dht.py", "ampc/dht_conn.py", "ampc/worker.py",
+         "ampc/coordinator.py", "ampc/harmonic.py", "ampc/shortest_path.py", "ampc/raft.py",
+         "entrypoint/ampc.py"]
+
+
+@pytest.mark.parametrize("module", GRAPH)
+def test_graph_role_modules_import_no_lxml_jax_or_nltk_at_any_depth(module):
+    """The webgraph servers and the AMPC roles run on the card's machine:
+    their sources import none of lxml, jax, jaxlib, flax, optax, nltk or
+    stract_tpu in any import statement, lazy ones inside functions
+    included."""
+    path = os.path.join(REPO, "stract_tpu_torch", module)
+    assert path in _port_sources()
+    bad = [f"{line} {name}" for line, name in _absolute_imports(path)
+           if _names_package(name, ("lxml", "jax", "jaxlib", "flax", "optax", "nltk",
+                                    "stract_tpu"))]
+    with open(path) as fh:
+        text = fh.read()
+    assert not bad and "importlib" not in text and "__import__" not in text, bad
+
+
 # ---- each copied module against its original -------------------------------------------
 def _fields(obj) -> tuple:
     return tuple(sorted(dataclasses.asdict(obj).items()))
@@ -405,12 +427,21 @@ def _config(orig, copy, rng):
         a, b = orig.load_config(kind, path), copy.load_config(kind, path)
         assert _fields(a) == _fields(b), kind
     for kind, name in (("live-index", "live_index.toml"), ("crawler", "crawler/worker.toml"),
-                       ("crawler", "crawler/coordinator.toml")):
+                       ("crawler", "crawler/coordinator.toml"), ("webgraph", "webgraph.toml"),
+                       ("webgraph-server", "webgraph_server.toml")):
         path = os.path.join(REPO, "configs", name)
         assert _fields(orig.load_config(kind, path)) == _fields(copy.load_config(kind, path))
     ess = {"index_path": "e", "image_store_path": "i", "port": 9, "gossip": {"addr": "h:1"}}
     assert _fields(orig._from_dict(orig.EntitySearchServerConfig, ess)) == \
         _fields(copy._from_dict(copy.EntitySearchServerConfig, ess))
+    ampc = {"webgraph_path": "g", "shard": 2, "num_shards": 4, "precision": 8, "source": "a.com",
+            "peers": ["127.0.0.1:1", "127.0.0.1:2"], "wait_s": 5.0, "gossip": {"addr": "h:1"}}
+    assert _fields(orig._from_dict(orig.AmpcConfig, ampc)) == \
+        _fields(copy._from_dict(copy.AmpcConfig, ampc))
+    for cls in ("AmpcConfig", "WebgraphServerConfig", "WebgraphConstructConfig"):
+        assert _fields(getattr(orig, cls)()) == _fields(getattr(copy, cls)()), cls
+    assert {k: v.__name__ for k, v in orig.CONFIG_TYPES.items()} == \
+        {k: v.__name__ for k, v in copy.CONFIG_TYPES.items()}
     g = {"addr": "127.0.0.1:47001", "seeds": ["127.0.0.1:47000", "10.0.0.2:9"]}
     a, b = orig._from_dict(orig.GossipConfig, g), copy._from_dict(copy.GossipConfig, g)
     assert (a.addr_tuple(), a.seed_tuples()) == (b.addr_tuple(), b.seed_tuples())
@@ -1044,6 +1075,253 @@ def _distributed_searcher(orig, copy, rng):
     assert copy.LIVE_SHARD_OFFSET == orig.LIVE_SHARD_OFFSET == 1 << 20
 
 
+def _tiny_graphs(d: str, rng, n: int = 30, e: int = 120) -> tuple:
+    """The same seeded graph written into d by the JAX package's builder →
+    (its JAX Webgraph, its port Webgraph)."""
+    from stract_tpu.webgraph import Edge, WebgraphBuilder
+
+    b = WebgraphBuilder()
+    for f, t in rng.integers(0, n, (e, 2)):
+        b.insert(Edge(f"n{f}.com/x", f"n{t}.com/y", label=f"l{f}"))
+    return b.build(d), importlib.import_module("stract_tpu_torch.webgraph").Webgraph(d)
+
+
+def _betweenness(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        jg, pg = _tiny_graphs(d, rng)
+        for k in (None, 4):
+            assert list(copy.betweenness_centrality(pg, k, seed=1).items()) == \
+                list(orig.betweenness_centrality(jg, k, seed=1).items())
+
+
+class _Fanout:
+    """A sharded client's stand-in: each method's canned replies a shard."""
+
+    def __init__(self, replies: dict):
+        self.replies = replies
+
+    def send(self, method, body, shard_selector=None, replica_selector=None):
+        return {sid: [r] for sid, r in enumerate(self.replies[method])}
+
+
+def _remote(orig, copy, rng):
+    from stract_tpu_torch.utils.hyperloglog import HyperLogLog
+
+    h = [HyperLogLog(8), HyperLogLog(8)]
+    for x in rng.integers(0, 2 ** 40, 20).tolist():
+        h[x % 2].add_u64(x)
+    replies = {"backlinks": [[{"from": "a", "to": "b"}], [{"from": "c", "to": "b"}]],
+               "forwardlinks": [[], [{"from": "b", "to": "d"}]],
+               "backlink_labels": [["x"], ["y", "z"]], "knows": [False, True],
+               "id2node": [None, "b"],
+               "similar_hosts": [[{"host": "p", "score": 0.5}], [{"host": "q", "score": 0.9}]],
+               "group_exact": [{"h": ["1", "2"]}, {"h": ["2", "3"], "g": ["4"]}],
+               "group_sketch": [{"h": h[0].to_bytes()}, {"h": h[1].to_bytes(), "g": h[0].to_bytes()}]}
+    a, b = orig.RemoteWebgraph(_Fanout(replies)), copy.RemoteWebgraph(_Fanout(replies))
+    for name, args in (("backlinks", ("b",)), ("forwardlinks", ("b",)), ("backlink_labels", ("b",)),
+                       ("knows", ("q",)), ("id2node", (7,)), ("similar_hosts", (["p"], 1)),
+                       ("group_exact", ("b", "to", 2)), ("batch_search_backlinks", (["b", "c"],))):
+        assert getattr(b, name)(*args) == getattr(a, name)(*args), name
+    assert {k: v.to_bytes() for k, v in b.group_sketch("b").items()} == \
+        {k: v.to_bytes() for k, v in a.group_sketch("b").items()}
+
+
+def _webgraph_server(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        jg, pg = _tiny_graphs(d, rng)
+        a, b = orig.WebGraphService(jg, 1), copy.WebGraphService(pg, 1)
+        for i in range(0, jg.num_nodes, 5):
+            node = jg.name_of(i)
+            for method, body in (("backlinks", {"node": node}), ("forwardlinks", {"node": node}),
+                                 ("backlink_labels", {"node": node}), ("knows", {"host": node}),
+                                 ("id2node", {"id": i}), ("group_exact", {"node": node}),
+                                 ("similar_hosts", {"hosts": [node]}),
+                                 ("inbound_profiles", {"node_ids": [i]})):
+                assert getattr(b, method)(body) == getattr(a, method)(body), method
+            assert b.group_sketch({"node": node}) == a.group_sketch({"node": node})
+
+
+def _ampc_package(orig, copy, rng):
+    for name in ("DhtShard", "DhtClient", "upsert", "Coordinator", "Worker", "Job", "Mapper",
+                 "Setup", "Finisher", "DhtConn", "DhtTable"):
+        assert getattr(copy, name).__module__.startswith("stract_tpu_torch.ampc.")
+        assert getattr(copy, name).__name__ == getattr(orig, name).__name__
+
+
+def _ampc_job(orig, copy, rng):
+    for mod in (orig, copy):
+        assert mod.Job().is_schedulable({}) is True and mod.Mapper.name == "mapper"
+        assert mod.Setup().init_tables(None) is None and mod.Setup().setup_round(None) is None
+        for call in (mod.Job().to_json, lambda: mod.Job.from_json({}),
+                     lambda: mod.Mapper().map(None, None, None),
+                     lambda: mod.Finisher().is_finished(None)):
+            with pytest.raises(NotImplementedError):
+                call()
+
+
+def _ampc_dht(orig, copy, rng):
+    assert copy.UPSERT_FNS.keys() == orig.UPSERT_FNS.keys()
+    assert {k: v for k, v in vars(copy.upsert).items() if k.isupper()} == \
+        {k: v for k, v in vars(orig.upsert).items() if k.isupper()}
+    regs = [rng.integers(0, 30, 16, dtype=np.uint8).tobytes() for _ in range(2)]
+    for name, old, new in (("u64_add", None, 3), ("u64_add", 4, 3), ("u64_min", None, 5),
+                           ("u64_min", 2, 5), ("f64_add", 0.1, 0.2), ("f32_add", None, 1.5),
+                           ("kahan_add", None, [1.0, 0.5]), ("kahan_add", [1e16, 1.0], [1.0, 0.0]),
+                           ("hll_max", None, regs[0]), ("hll_max", regs[0], regs[1])):
+        assert copy.UPSERT_FNS[name](old, new) == orig.UPSERT_FNS[name](old, new), name
+
+
+class _Tables:
+    """A DhtClient's stand-in recording the table names it is handed."""
+
+    def __init__(self):
+        self.calls = []
+        self.clients = [type("C", (), {"addr": ("127.0.0.1", 9)})()]
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args))
+
+
+def _ampc_dht_conn(orig, copy, rng):
+    out = []
+    for mod in (orig, copy):
+        client = _Tables()
+        conn = mod.DhtConn(client, ["regs", "meta"])
+        conn.prev("regs").batch_set([(b"k", 1)])
+        conn.next("meta").batch_upsert("u64_add", [(b"c", 1)])
+        conn.seed_next_from_prev()
+        conn.next_round()
+        conn.prev("regs").get(b"k")
+        out.append((client.calls, conn.serializable()))
+    assert out[0] == out[1]
+
+
+def _ampc_worker(orig, copy, rng):
+    for mod in (orig, copy):
+        w = mod.Worker()
+        assert w.get_meta() == {} and w.meta() == {} and w.mappers == {} and w.jobs == {}
+
+
+def _ampc_coordinator(orig, copy, rng):
+    """With no worker, a run takes its setup and finisher alone: the same
+    rounds, and a stage with jobs raises for want of a worker."""
+    class _Setup:
+        def __init__(self):
+            self.calls = 0
+
+        def init_tables(self, dht):
+            self.calls += 100
+
+        def setup_round(self, dht):
+            self.calls += 1
+
+    class _Conn:
+        round = 0
+
+        def next_round(self):
+            self.round += 1
+
+    class _Finisher:
+        def is_finished(self, dht):
+            return dht.round >= 3
+
+    class _Mapper:
+        name = "m"
+
+    out = []
+    for mod in (orig, copy):
+        setup = _Setup()
+        rounds = mod.Coordinator(setup, [], []).run([], _Conn(), _Finisher(), max_rounds=10)
+        out.append((rounds, setup.calls))
+        rpc = importlib.import_module(mod.__name__.replace("ampc.coordinator",
+                                                           "distributed.sonic"))
+        job = type("J", (), {"is_schedulable": lambda self, m: True, "to_json": lambda self: {}})
+        with pytest.raises(rpc.RpcError):
+            mod.Coordinator(_Setup(), [_Mapper()], []).run([job()], _Conn(), _Finisher())
+    assert out[0] == out[1] == (3, 103)
+
+
+def _ampc_harmonic(orig, copy, rng):
+    import tempfile
+
+    assert (copy.REGS, copy.META, copy.CENTRALITY_TABLE) == (orig.REGS, orig.META,
+                                                             orig.CENTRALITY_TABLE)
+    for r in rng.integers(0, 2 ** 40, 5).tolist():
+        assert copy._key(r) == orig._key(r)
+    job = {"kind": "edge_shard", "shard": 2}
+    assert copy.EdgeShardJob.from_json(job).to_json() == orig.EdgeShardJob.from_json(job).to_json()
+    assert copy.EdgeShardJob(2).is_schedulable({"shard": 2}) and \
+        not copy.EdgeShardJob(2).is_schedulable({"shard": 1})
+    with tempfile.TemporaryDirectory() as d:
+        jg, pg = _tiny_graphs(d, rng)
+        for n in (1, 3):
+            for (a, b), (c, e) in zip(orig.partition_edges(jg, n), copy.partition_edges(pg, n)):
+                np.testing.assert_array_equal(a, c)
+                np.testing.assert_array_equal(b, e)
+        ef, et = copy.partition_edges(pg, 3)[1]
+        w = copy.HarmonicWorker(1, 3, ef, et, pg.num_nodes, 6, device="cpu")
+        assert w.meta() == orig.HarmonicWorker(1, 3, ef, et, jg.num_nodes, 6).meta()
+        np.testing.assert_array_equal(w.owned, orig.HarmonicWorker(1, 3, ef, et, jg.num_nodes).owned)
+
+
+def _ampc_shortest_path(orig, copy, rng):
+    assert (copy.DIST, copy.SP_META) == (orig.DIST, orig.SP_META)
+
+    class _Conn:
+        def __init__(self, rnd, changed):
+            self.round, self.changed = rnd, changed
+
+        def prev(self, name):
+            return type("T", (), {"get": lambda s, k: self.changed})()
+
+    for rnd, changed in ((0, None), (1, 0), (1, 3), (2, None)):
+        assert copy.ShortestPathFinisher().is_finished(_Conn(rnd, changed)) == \
+            orig.ShortestPathFinisher().is_finished(_Conn(rnd, changed))
+
+
+def _ampc_raft(orig, copy, rng):
+    """A node's handlers (no thread started) answer a seeded sequence of
+    append_entries and request_vote bodies alike, and apply the same
+    tables."""
+    assert (copy.HEARTBEAT_INTERVAL, copy.ELECTION_TIMEOUT) == (orig.HEARTBEAT_INTERVAL,
+                                                                orig.ELECTION_TIMEOUT)
+    nodes = (orig.RaftNode(1), copy.RaftNode(1))
+    entries = [{"term": 1 + i // 3, "op": "batch_upsert",
+                "body": {"table": "t", "fn": "u64_add", "pairs": [(b"k", int(v))]}}
+               for i, v in enumerate(rng.integers(0, 9, 6))]
+    bodies = [("append_entries", {"term": 1, "leader": 0, "prev_log_index": -1, "prev_log_term": 0,
+                                  "entries": entries[:3], "leader_commit": 1}),
+              ("append_entries", {"term": 2, "leader": 2, "prev_log_index": 5, "prev_log_term": 2,
+                                  "entries": [], "leader_commit": 2}),
+              ("append_entries", {"term": 2, "leader": 2, "prev_log_index": 2, "prev_log_term": 1,
+                                  "entries": entries[3:], "leader_commit": 4}),
+              ("request_vote", {"term": 1, "candidate": 3, "last_log_term": 1,
+                                "last_log_index": 9}),
+              ("request_vote", {"term": 3, "candidate": 3, "last_log_term": 2,
+                                "last_log_index": 5}),
+              ("propose", {"op": "batch_set", "body": {"table": "t", "pairs": []}})]
+    for method, body in bodies:
+        assert getattr(nodes[1], method)(body) == getattr(nodes[0], method)(body), method
+    assert nodes[1].status() == nodes[0].status() and nodes[1].store.tables == \
+        nodes[0].store.tables and nodes[1].log == nodes[0].log
+
+
+def _ampc_entrypoint(orig, copy, rng):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        _tiny_graphs(d, rng)
+        for shard in range(3):
+            a, b = orig._load_partition(d, shard, 3), copy._load_partition(d, shard, 3)
+            assert a[0].num_nodes == b[0].num_nodes
+            np.testing.assert_array_equal(a[1], b[1])
+            np.testing.assert_array_equal(a[2], b[2])
+
+
 COPIES = {
     "utils.hashing": _hashing, "utils.kahan": _kahan, "utils.metrics": _metrics,
     "utils.bloom": _bloom, "schema": _schema, "schema.text_field": _text_field,
@@ -1079,6 +1357,12 @@ COPIES = {
     "crawler.router": _router, "crawler.wander_prioritiser": _wander, "crawler.worker": _worker,
     "crawler.planner": _planner, "crawler": _crawler_package, "sitemap": _sitemap,
     "feed": _feed, "searcher.distributed": _distributed_searcher,
+    "webgraph.betweenness": _betweenness, "webgraph.remote": _remote,
+    "entrypoint.webgraph_server": _webgraph_server, "ampc": _ampc_package, "ampc.job": _ampc_job,
+    "ampc.dht": _ampc_dht, "ampc.dht_conn": _ampc_dht_conn, "ampc.worker": _ampc_worker,
+    "ampc.coordinator": _ampc_coordinator, "ampc.harmonic": _ampc_harmonic,
+    "ampc.shortest_path": _ampc_shortest_path, "ampc.raft": _ampc_raft,
+    "entrypoint.ampc": _ampc_entrypoint,
 }
 
 
